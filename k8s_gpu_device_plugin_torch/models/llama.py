@@ -1,0 +1,272 @@
+"""Llama-3-family config, parameters and the per-token building blocks.
+
+Port of ``k8s_gpu_device_plugin_tpu/models/llama.py``: the same config
+fields and presets (with a torch dtype), the same parameter pytree and
+weight layout, and the same numerics contract (bf16 weights and
+activations, f32 norm statistics, rope and logits).
+
+Weight layout (identical to the reference, so conversion is a copy):
+``params = {"embed": (V, d), "layers": {name: (L, ...)}, "final_norm":
+(d,), "lm_head": (d, V)}`` with every layer leaf stacked on a leading
+layer axis and every projection stored ``(in, out)`` — ``x @ w``, no
+transposes. Layer leaves: ``attn_norm``/``mlp_norm`` (L, d), ``wq``
+(L, d, Hq*hd), ``wk``/``wv`` (L, d, Hkv*hd), ``wo`` (L, Hq*hd, d),
+``w1``/``w3`` (L, d, d_ff), ``w2`` (L, d_ff, d), plus ``bq``/``bk``/
+``bv`` when ``attn_bias``.
+
+This slice serves the dense bf16 path; the config refuses the values
+it does not serve yet (paged KV, quantized KV or weights, MoE, tensor
+parallelism) instead of ignoring them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+
+import torch
+import torch.nn.functional as F
+
+from k8s_gpu_device_plugin_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    max_seq: int = 8192
+    # Mistral-style sliding window (0 = full causal): query i attends
+    # keys in (i - window, i]
+    sliding_window: int = 0
+    # Qwen2-style q/k/v projection biases
+    attn_bias: bool = False
+    # Gemma-family dials (defaults = Llama behaviour)
+    act: str = "silu"          # "silu" | "gelu_tanh"
+    norm_offset: bool = False  # RMSNorm scales by (1 + w)
+    tied_embeddings: bool = False
+    scale_embed: bool = False
+    head_dim_override: int = 0
+    dtype: torch.dtype = torch.bfloat16
+    # parameter storage dtype (None = ``dtype``)
+    param_dtype: "torch.dtype | None" = None
+    # the reference's serving dials; this slice serves only their defaults
+    quant: str = "none"
+    cache_quant: str = "none"
+    kv_layout: str = "dense"
+    tp: int = 1
+    n_experts: int = 0
+
+    def __post_init__(self) -> None:
+        if self.act not in ("silu", "gelu_tanh"):
+            raise ValueError(
+                f"act must be 'silu' or 'gelu_tanh', got {self.act!r}"
+            )
+        if self.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(
+                f"dtype must be torch.bfloat16 or torch.float32, got "
+                f"{self.dtype}"
+            )
+        refusals = (
+            ("kv_layout", "dense", "the paged KV pool (models/paging.py) "
+             "is not ported yet; serve kv_layout='dense'"),
+            ("cache_quant", "none", "quantized KV caches are not ported "
+             "yet; serve cache_quant='none' (bf16 cache)"),
+            ("quant", "none", "int8 weight matmuls are not ported yet; "
+             "serve quant='none'"),
+            ("n_experts", 0, "MoE MLPs are not ported yet; serve a dense "
+             "config (n_experts=0)"),
+            ("tp", 1, "tensor-parallel serving is not ported yet; serve "
+             "tp=1 (one card)"),
+        )
+        for name, allowed, why in refusals:
+            if getattr(self, name) != allowed:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: {why}"
+                )
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.d_model // self.n_heads
+
+    @property
+    def p_dtype(self) -> torch.dtype:
+        return self.param_dtype if self.param_dtype is not None else self.dtype
+
+    # --- presets (the reference's, dims unchanged) ---
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
+            n_kv_heads=8, d_ff=14336, rope_theta=500000.0, max_seq=8192,
+        )
+
+    @staticmethod
+    def llama3_70b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=128256, d_model=8192, n_layers=80, n_heads=64,
+            n_kv_heads=8, d_ff=28672, rope_theta=500000.0, max_seq=8192,
+        )
+
+    @staticmethod
+    def mistral_7b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+            n_kv_heads=8, d_ff=14336, rope_theta=10000.0, max_seq=32768,
+            sliding_window=4096,
+        )
+
+    @staticmethod
+    def tiny(**overrides) -> "LlamaConfig":
+        cfg = LlamaConfig(
+            vocab_size=512, d_model=128, n_layers=2, n_heads=8,
+            n_kv_heads=4, d_ff=256, max_seq=256, rope_theta=10000.0,
+        )
+        return replace(cfg, **overrides)
+
+
+def init_params(cfg: LlamaConfig, *, seed: int = 0,
+                device: "str | torch.device | None" = "cuda") -> dict:
+    """Random parameters in the reference's layout and distribution
+    (truncated normal, std 0.02; output projections 0.02/sqrt(2L)),
+    drawn ON ``device`` from an explicit ``torch.Generator`` seeded with
+    ``seed``. The draws differ from JAX's (another generator), so tests
+    that compare the two frameworks convert JAX's parameters instead
+    (models/convert.py)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    std = 0.02
+    out_std = std / math.sqrt(2 * L)
+
+    def normal(shape, scale):
+        # drawn in f32 (precision of the tail clamp), stored in p_dtype
+        x = torch.empty(shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(x, 0.0, scale, -3 * scale, 3 * scale,
+                                    generator=gen)
+        return x.to(cfg.p_dtype)
+
+    def norm_weight(shape):
+        fill = torch.zeros if cfg.norm_offset else torch.ones
+        return fill(shape, dtype=cfg.p_dtype, device=dev)
+
+    layers = {
+        "attn_norm": norm_weight((L, d)),
+        "mlp_norm": norm_weight((L, d)),
+        "wq": normal((L, d, cfg.n_heads * hd), std),
+        "wk": normal((L, d, cfg.n_kv_heads * hd), std),
+        "wv": normal((L, d, cfg.n_kv_heads * hd), std),
+        "wo": normal((L, cfg.n_heads * hd, d), out_std),
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads)):
+            layers[name] = torch.zeros((L, width * hd), dtype=cfg.p_dtype,
+                                       device=dev)
+    layers["w1"] = normal((L, d, cfg.d_ff), std)
+    layers["w3"] = normal((L, d, cfg.d_ff), std)
+    layers["w2"] = normal((L, cfg.d_ff, d), out_std)
+    params = {
+        "embed": normal((cfg.vocab_size, d), std),
+        "layers": layers,
+        "final_norm": norm_weight((d,)),
+    }
+    if not cfg.tied_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), std)
+    return params
+
+
+def cast_params_for_compute(params: dict, cfg: LlamaConfig) -> dict:
+    """Master-weight cast: layer stacks -> compute dtype (no-op, and the
+    same dict back, when storage == compute dtype)."""
+    if cfg.p_dtype == cfg.dtype:
+        return params
+    return {
+        **params,
+        "layers": {k: v.to(cfg.dtype) for k, v in params["layers"].items()},
+    }
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             offset: bool = False) -> torch.Tensor:
+    """RMSNorm with f32 statistics; ``offset`` scales by (1 + w)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    w = weight.float()
+    if offset:
+        w = 1.0 + w
+    return (normed * w).to(x.dtype)
+
+
+def mlp_act(x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """The gated-MLP activation: Llama silu or Gemma tanh-approx gelu."""
+    if cfg.act == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")
+
+
+def head_weights(params: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """The (d, V) lm_head operand: the dedicated leaf, else the
+    transposed embedding table for tied-embedding configs."""
+    if "lm_head" in params:
+        return params["lm_head"]
+    if cfg.tied_embeddings:
+        return params["embed"].T
+    raise KeyError("params has no lm_head and cfg is not tied_embeddings")
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) of the rotary angles for integer positions (S,) or
+    per-row positions (B, S), shaped to broadcast over (B, S, H, D/2).
+    Angles in f32. A forward computes them once and every layer's q and
+    k reuse them."""
+    half = head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=positions.device) / half
+    # a Python-number base: no host-to-device copy, so no stream sync
+    freqs = torch.pow(float(theta), exponent)
+    angles = positions[..., None].float() * freqs          # (..., S, D/2)
+    if positions.dim() == 1:
+        return angles.cos()[None, :, None, :], angles.sin()[None, :, None, :]
+    return angles.cos()[:, :, None, :], angles.sin()[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of (B, S, H, D) by :func:`rope_angles`."""
+    x1, x2 = x.float().split(x.shape[-1] // 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over (B, S, H, D) with integer positions (S,) or
+    per-row positions (B, S) (continuous batching: every slot at its own
+    absolute position)."""
+    return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+def lm_head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., d) x (d, V) -> f32 logits from ``x.dtype`` operands with f32
+    accumulation (the reference's ``preferred_element_type=f32``). On
+    the card one cuBLAS GEMM writes f32 directly; the CPU has no such
+    mixed-output GEMM, so it widens the operands (exact bf16->f32) and
+    multiplies in f32 — the same products and sums."""
+    w = w.to(x.dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        out = x2 @ w
+    elif x.device.type == "cuda":
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*lead, w.shape[-1])

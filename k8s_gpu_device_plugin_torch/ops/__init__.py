@@ -1,0 +1,1 @@
+"""ops of the PyTorch/CUDA port (mirrors k8s_gpu_device_plugin_tpu/ops)."""

@@ -1,0 +1,366 @@
+// Ragged-paged attention, dense route, hand-written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel _rpa_kernel in
+// k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py (the dense
+// route of the Pallas body the reference builds in _rpa_call).
+//
+// What it computes. q is (B, T, Hq, hd): T query rows per slot, row r of
+// slot b at position q_pos = max(base[b] + r, 0). k and v are the dense
+// cache (B, S, Hkv, hd). Row r attends cache rows pos <= q_pos (and, when
+// window > 0, q_pos - pos < window); softmax in f32 with the online
+// (m, l, acc) recurrence; out = acc / max(l, 1e-30) in q's dtype. The
+// q_pos clamp keeps one attended row for an empty slot (base = -1): its
+// output is defined and then discarded by the caller. GQA folds the
+// `group = Hq / Hkv` q heads of one kv head onto that head: K/V are never
+// expanded.
+//
+// What bounds it. Decode (T = 1) does ~4 flops per byte of K/V it reads
+// (group 4, hd 128, bf16): far below the card's ~295 flop/byte balance,
+// so a decode call is bound by the bytes of the live K/V span. The design
+// reads each live byte once per kv head: one CUDA block per
+// (slot, kv head, row tile) serves all `group` q heads of its row tile
+// from one shared-memory K/V tile, and the block's kv loop covers only
+// the live span first_block(base+1) .. last_block(base+T) of its row tile
+// (the TPU kernel's clamped index map), so dead cache rows are never
+// loaded. The next K/V tile is fetched into registers while the current
+// one is consumed. Prefill chunks (T up to 256 and beyond) re-read the
+// span once per 64-row tile and do their arithmetic on the CUDA cores in
+// f32; wgmma, TMA and split-K are later work.
+//
+// TPU -> CUDA. The TPU grid walks kv blocks in order and carries m/l/acc
+// in VMEM scratch across grid steps; here that sequential axis is a loop
+// inside the block, and the row tiles of one slot are independent blocks
+// (so T has no cap). The accumulation order per row is fixed (ascending
+// kv tiles, fixed in-tile order) and there are no atomics: a slot's
+// output does not depend on its neighbours or on the launch.
+//
+// Types: f32 or bf16 inputs (one element type for q, k, v and out), hd in
+// {64, 128}; all arithmetic is f32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlockK = 64;  // kv rows per tile (two per lane in softmax)
+constexpr float kNegBig = -1e30f;
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  static constexpr int kPerVec = 4;  // elements per 16-byte load
+  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ static __forceinline__ float load(const float* p) { return *p; }
+  __device__ static __forceinline__ void store(float* p, float x) { *p = x; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  static constexpr int kPerVec = 8;
+  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
+    // bf16 is the high half of an f32: widening is a 16-bit shift
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ static __forceinline__ void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16(x);
+  }
+};
+
+// first kv tile a windowed query at `length - 1` can see (0 without one)
+__device__ __forceinline__ int first_block(int length, int window) {
+  if (window <= 0) return 0;
+  const int lo = length - window;
+  return (lo > 0 ? lo : 0) / kBlockK;
+}
+
+// last kv tile holding live rows; >= 0 even for an empty slot
+__device__ __forceinline__ int last_block(int length) {
+  const int hi = (length + kBlockK - 1) / kBlockK - 1;
+  return hi > 0 ? hi : 0;
+}
+
+template <int HD, int ROWS>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (ROWS * HD               // q
+                          + kBlockK * (HD + 1)    // k (padded rows)
+                          + kBlockK * HD          // v
+                          + ROWS * kBlockK        // scores / probs
+                          + 3 * ROWS)             // m, l, alpha
+         + sizeof(int) * ROWS;                    // q positions
+}
+
+// One block: ROWS query vectors (tq = ROWS / group query rows x group q
+// heads) of slot blockIdx.x, kv head blockIdx.y, row tile blockIdx.z.
+template <typename T, int HD, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+rpa_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ base,
+                 T* __restrict__ out, int n_q, int hq, int hkv, int s_len,
+                 float scale, int window) {
+  constexpr int kPerVec = Io<T>::kPerVec;
+  constexpr int kVecPerRow = HD / kPerVec;
+  constexpr int kVecPerThread = kBlockK * kVecPerRow / kThreads;
+  static_assert(kBlockK * kVecPerRow % kThreads == 0, "tile splits evenly");
+  constexpr int kKStride = HD + 1;  // conflict-free column reads of K
+  constexpr int kScoreGroups = kThreads / kBlockK;
+  constexpr int kScoreRows = ROWS / kScoreGroups;
+  constexpr int kPvGroups = kThreads / HD;
+  constexpr int kPvRows = ROWS / kPvGroups;
+  static_assert(ROWS % kScoreGroups == 0 && ROWS % kPvGroups == 0,
+                "row tile splits evenly");
+
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + ROWS * HD;
+  float* vs = ks + kBlockK * kKStride;
+  float* ss = vs + kBlockK * HD;
+  float* m_s = ss + ROWS * kBlockK;
+  float* l_s = m_s + ROWS;
+  float* a_s = l_s + ROWS;
+  int* qpos_s = reinterpret_cast<int*>(a_s + ROWS);
+
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int group = hq / hkv;
+  const int tq = ROWS / group;
+  const int t0 = blockIdx.z * tq;
+  const int t_valid = min(tq, n_q - t0);
+  const int tile_base = base[b] + t0;
+  // live kv span of this row tile: its first query's window floor up to
+  // its last query's own row (the caller's cache write precedes the read)
+  const int j_max = (s_len + kBlockK - 1) / kBlockK - 1;
+  const int j_hi = min(last_block(tile_base + t_valid), j_max);
+  const int j_lo = min(first_block(tile_base + 1, window), j_hi);
+
+  for (int r = tid; r < ROWS; r += kThreads) {
+    // rows past the chunk's end mirror its last row: finite, never stored
+    const int t = min(r / group, t_valid - 1);
+    qpos_s[r] = max(tile_base + t, 0);
+    m_s[r] = kNegBig;
+    l_s[r] = 0.f;
+  }
+  for (int e = tid; e < ROWS * HD; e += kThreads) {
+    const int r = e / HD;
+    const int t = r / group;
+    float x = 0.f;
+    if (t < t_valid) {
+      const size_t row = (size_t(b) * n_q + t0 + t) * hq + h * group + r % group;
+      x = Io<T>::load(q + row * HD + e % HD);
+    }
+    qs[e] = x;
+  }
+
+  uint4 kreg[kVecPerThread];
+  uint4 vreg[kVecPerThread];
+  auto fetch = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < kVecPerThread; ++i) {
+      const int vec = tid + i * kThreads;
+      const int pos = j * kBlockK + vec / kVecPerRow;
+      if (pos < s_len) {
+        const size_t off = ((size_t(b) * s_len + pos) * hkv + h) * HD +
+                           (vec % kVecPerRow) * kPerVec;
+        kreg[i] = __ldg(reinterpret_cast<const uint4*>(k + off));
+        vreg[i] = __ldg(reinterpret_cast<const uint4*>(v + off));
+      } else {
+        kreg[i] = make_uint4(0u, 0u, 0u, 0u);
+        vreg[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+  auto stage = [&]() {
+#pragma unroll
+    for (int i = 0; i < kVecPerThread; ++i) {
+      const int vec = tid + i * kThreads;
+      const int row = vec / kVecPerRow;
+      const int col = (vec % kVecPerRow) * kPerVec;
+      float kf[kPerVec];
+      float vf[kPerVec];
+      Io<T>::unpack(kreg[i], kf);
+      Io<T>::unpack(vreg[i], vf);
+#pragma unroll
+      for (int e = 0; e < kPerVec; ++e) {
+        ks[row * kKStride + col + e] = kf[e];
+        vs[row * HD + col + e] = vf[e];
+      }
+    }
+  };
+
+  const int sc_col = tid % kBlockK;  // score phase: one kv row per thread
+  const int sc_grp = tid / kBlockK;  // ... and every kScoreGroups-th q row
+  const int pv_d = tid % HD;         // PV phase: one head-dim lane
+  const int pv_grp = tid / HD;       // ... and every kPvGroups-th q row
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  float acc[kPvRows];
+#pragma unroll
+  for (int i = 0; i < kPvRows; ++i) acc[i] = 0.f;
+
+  fetch(j_lo);
+  for (int j = j_lo; j <= j_hi; ++j) {
+    __syncthreads();  // the previous tile's PV is done with vs / ss
+    stage();
+    __syncthreads();
+    if (j < j_hi) fetch(j + 1);  // in flight while this tile computes
+
+    // scores: s[r][c] = (q_r . k_c) * scale, masked to kNegBig
+    float dot[kScoreRows];
+#pragma unroll
+    for (int i = 0; i < kScoreRows; ++i) dot[i] = 0.f;
+    for (int d = 0; d < HD; ++d) {
+      const float kd = ks[sc_col * kKStride + d];
+#pragma unroll
+      for (int i = 0; i < kScoreRows; ++i) {
+        dot[i] += qs[(sc_grp + i * kScoreGroups) * HD + d] * kd;
+      }
+    }
+    const int pos = j * kBlockK + sc_col;
+#pragma unroll
+    for (int i = 0; i < kScoreRows; ++i) {
+      const int r = sc_grp + i * kScoreGroups;
+      const int qp = qpos_s[r];
+      bool keep = pos <= qp && pos < s_len;
+      if (window > 0) keep = keep && (qp - pos < window);
+      ss[r * kBlockK + sc_col] = keep ? dot[i] * scale : kNegBig;
+    }
+    __syncthreads();
+
+    // online softmax, one warp per row: m, l, alpha; ss becomes p
+    for (int r = warp; r < ROWS; r += kWarps) {
+      const float x0 = ss[r * kBlockK + lane];
+      const float x1 = ss[r * kBlockK + lane + 32];
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float p0 = expf(x0 - m_new);
+      const float p1 = expf(x1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      }
+      ss[r * kBlockK + lane] = p0;
+      ss[r * kBlockK + lane + 32] = p1;
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+        a_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p @ v
+#pragma unroll
+    for (int i = 0; i < kPvRows; ++i) acc[i] *= a_s[pv_grp + i * kPvGroups];
+    for (int c = 0; c < kBlockK; ++c) {
+      const float vv = vs[c * HD + pv_d];
+#pragma unroll
+      for (int i = 0; i < kPvRows; ++i) {
+        acc[i] += ss[(pv_grp + i * kPvGroups) * kBlockK + c] * vv;
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < kPvRows; ++i) {
+    const int r = pv_grp + i * kPvGroups;
+    const int t = r / group;
+    if (t < t_valid) {
+      const size_t row = (size_t(b) * n_q + t0 + t) * hq + h * group + r % group;
+      Io<T>::store(out + row * HD + pv_d, acc[i] / fmaxf(l_s[r], 1e-30f));
+    }
+  }
+}
+
+template <typename T, int HD, int ROWS>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* base, void* out, int b, int t, int hq,
+                   int hkv, int s_len, float scale, int window,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD, ROWS>();
+  auto kernel = rpa_dense_kernel<T, HD, ROWS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const int tq = ROWS / (hq / hkv);
+  const dim3 grid(b, hkv, (t + tq - 1) / tq);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(base),
+      static_cast<T*>(out), t, hq, hkv, s_len, scale, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t dispatch_rows(const void* q, const void* k, const void* v,
+                          const void* base, void* out, int b, int t, int hq,
+                          int hkv, int s_len, float scale, int window,
+                          cudaStream_t stream) {
+  const int group = hq / hkv;
+  // decode (and any window of <= 8 query vectors) takes the narrow row
+  // tile: 8 q vectors, so a T=1 GQA-4 block wastes half, not 15/16
+  if (group * t <= 8) {
+    return launch<T, HD, 8>(q, k, v, base, out, b, t, hq, hkv, s_len, scale,
+                            window, stream);
+  }
+  return launch<T, HD, 64>(q, k, v, base, out, b, t, hq, hkv, s_len, scale,
+                           window, stream);
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes). dtype: 0 = f32, 1 = bf16. q, k, v,
+// out contiguous in the layouts above; base is (B,) int32 on the device.
+// Returns the cudaError_t of the launch (0 = launched).
+extern "C" int rpa_dense_forward(const void* q, const void* k, const void* v,
+                                 const void* base, void* out, int dtype,
+                                 int b, int t, int hq, int hkv, int s_len,
+                                 int hd, float scale, int window,
+                                 void* stream) {
+  if (b <= 0 || t <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 ||
+      hq / hkv > 64) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && hd == 128) {
+    err = dispatch_rows<float, 128>(q, k, v, base, out, b, t, hq, hkv, s_len,
+                                    scale, window, st);
+  } else if (dtype == 0 && hd == 64) {
+    err = dispatch_rows<float, 64>(q, k, v, base, out, b, t, hq, hkv, s_len,
+                                   scale, window, st);
+  } else if (dtype == 1 && hd == 128) {
+    err = dispatch_rows<__nv_bfloat16, 128>(q, k, v, base, out, b, t, hq, hkv,
+                                            s_len, scale, window, st);
+  } else if (dtype == 1 && hd == 64) {
+    err = dispatch_rows<__nv_bfloat16, 64>(q, k, v, base, out, b, t, hq, hkv,
+                                           s_len, scale, window, st);
+  }
+  return int(err);
+}

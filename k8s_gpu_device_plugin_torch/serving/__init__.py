@@ -1,0 +1,1 @@
+"""serving of the PyTorch/CUDA port (mirrors k8s_gpu_device_plugin_tpu/serving)."""
