@@ -9,7 +9,7 @@ Phases (any failed check exits non-zero without the final line):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; the hand-written kernels are built from the sources in the
-   checkout, timed.
+   checkout (one ``nvcc`` per source, started together), timed.
 2. ``ragged_paged_attention``'s kernel against its plain version at the
    Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128, S 2048): decode
    over eight slots, prefill chunks as the batcher runs them (one slot),
@@ -25,19 +25,39 @@ Phases (any failed check exits non-zero without the final line):
    --maxLen 2048 --chunkedPrefill 256`` on 127.0.0.1: six concurrent
    ``/v1/generate`` requests (one streamed, one with logprobs), launch
    counts over exactly that run, and one request replayed alone.
-5. One ``{"kernels": [...]}`` line.
-6. The last line: ``{"ok": true, "device": {...}}``.
+5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
+   ``flash_bwd_dq``) against their plain versions at the shapes phase 6
+   gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
+   case and an hd-64 group-1 case, each in bf16 and f32: max errors of
+   o, lse, dq, dk, dv; kernel / plain times;
+   ``scaled_dot_product_attention``'s forward, backward and forward +
+   backward as a yardstick the port never calls; the bound (operations
+   over the input type's peak or bytes over 3.35 TB/s).
+6. The trainer (``models/trainer.py``) on Llama-3-8B widths cut to 8
+   layers, B 2, S 2048, 5 steps: step-1 loss near the random init's
+   expected ln(vocab) + d * 0.02^2 / 2, finite loss
+   and grad_norm, flash launches per layer and step counted over exactly
+   that run, no ``mha_reference`` route; step ms, tokens/s, MFU, peak
+   memory. Then one step of a 2-layer f32 copy at the same B and S
+   through the kernels and through the plain attention: loss and
+   grad_norm compared.
+7. One ``{"kernels": [...]}`` line (all four kernels).
+8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -50,6 +70,15 @@ TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),   # bf16 output rounding
 LOGITS_BOUND = 1e-3   # phase 3: f32 model, kernel vs plain path, max abs
 BF16_FACTOR = 1.5     # phase 3: bf16 kernel path's distance to the f32
                       # model, at most this times the plain path's
+
+# phase 5: both routes compute o in f32 and round it once, so in bf16 they
+# differ by at most one rounding step: one ulp, at most 2^-7 of the value
+FLASH_O_TOL = {"bfloat16": dict(atol=1e-3, rtol=8e-3),
+               "float32": TOL["float32"]}
+GRAD_TOL = dict(atol=1e-4, rtol=0.0)  # f32 grads/lse from the same inputs:
+                                      # summation order only
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
+LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 1e-3   # phase 6: kernels vs plain, f32
 
 # (prompt length, max_new); index 3 streams, index 1 asks for logprobs
 REQUESTS = [(17, 64), (200, 48), (256, 32), (700, 40), (1500, 56), (1900, 64)]
@@ -444,7 +473,289 @@ def phase_serving(torch, server_mod, kernel_support, cfg) -> dict:
         server.stop()
 
 
+# --- phase 5 -----------------------------------------------------------------
+
+
+def flash_cases():
+    """The training path's shapes (phase 6: B, S and the 8B heads), a
+    window and an hd-64 group-1 case at the same B and S."""
+    full = dict(b=TRAIN_BATCH, s=TRAIN_SEQ, hq=32, hkv=8, hd=128)
+    return [dict(name="causal", window=0, **full),
+            dict(name="causal_window512", window=512, **full),
+            dict(name="causal_hd64_group1", window=0, b=TRAIN_BATCH,
+                 s=TRAIN_SEQ, hq=8, hkv=8, hd=64)]
+
+
+def attended_pairs(s: int, window: int) -> int:
+    """(query, key) pairs one causal head attends: sum of min(i+1, window)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bounds(case, dtype_name: str) -> dict:
+    """Least time of each kernel for this case's work: every input byte
+    read once and every output byte written once, against 4 (forward),
+    8 (dK dV) and 6 (dQ) * hd operations per attended (query, key) pair
+    of every q head, at the input type's peak."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    b, s, hq, hkv, hd = (case[k] for k in ("b", "s", "hq", "hkv", "hd"))
+    q_bytes = b * hq * s * hd * elem
+    kv_bytes = 2 * b * hkv * s * hd * elem
+    row_bytes = b * hq * s * 4                      # one lse or delta
+    pairs = b * hq * attended_pairs(s, case["window"])
+    work = {
+        "flash_fwd": (2 * q_bytes + kv_bytes + row_bytes, 4 * hd * pairs),
+        "flash_bwd_dkv": (2 * q_bytes + kv_bytes + 2 * row_bytes
+                          + 2 * b * hkv * s * hd * 4, 8 * hd * pairs),
+        "flash_bwd_dq": (2 * q_bytes + kv_bytes + 2 * row_bytes
+                         + b * hq * s * hd * 4, 6 * hd * pairs),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops}
+    return out
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Mean device time of ``fn()`` between CUDA events, without a graph
+    (for autograd calls)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_flash(torch, fa) -> list[dict]:
+    import torch.nn.functional as F
+
+    results = []
+    for case in flash_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            b, s, hq, hkv, hd, window = (case[k] for k in
+                                         ("b", "s", "hq", "hkv", "hd",
+                                          "window"))
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+
+            def randn(rows):
+                return torch.randn((rows, s, hd), generator=gen,
+                                   device="cuda", dtype=dtype)
+
+            q, k, v, do = randn(b * hq), randn(b * hkv), randn(b * hkv), \
+                randn(b * hq)
+            kw = dict(scale=hd ** -0.5, causal=True, window=window)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            o_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+            # both backward routes get the plain forward's lse and delta
+            delta = (do.float() * o_r.float()).sum(-1, keepdim=True)
+            bwd = (q, k, v, do, lse_r, delta)
+            dk, dv = fa.flash_bwd_dkv(*bwd, **kw)
+            dq = fa.flash_bwd_dq(*bwd, **kw)
+            dk_r, dv_r = fa.flash_bwd_dkv_reference(*bwd, **kw)
+            dq_r = fa.flash_bwd_dq_reference(*bwd, **kw)
+            torch.cuda.synchronize()
+            label = f"{case['name']} {dname}"
+            errs = {}
+            for name, got, want, tol in (
+                    ("o", o, o_r, FLASH_O_TOL[dname]),
+                    ("lse", lse, lse_r, GRAD_TOL),
+                    ("dq", dq, dq_r, GRAD_TOL), ("dk", dk, dk_r, GRAD_TOL),
+                    ("dv", dv, dv_r, GRAD_TOL)):
+                if not torch.isfinite(got).all():
+                    fail(f"{label}: non-finite kernel {name}")
+                errs[name] = float((got.float() - want.float()).abs().max())
+                if not torch.allclose(got.float(), want.float(), **tol):
+                    fail(f"{label}: kernel {name} disagrees with its plain "
+                         f"version (max abs err {errs[name]:.3e}, {tol})")
+
+            # the library yardstick (never called by the port): SDPA over
+            # (B, H, S, hd) views of the same inputs
+            qs, ks, vs, dos = (x.view(b, -1, s, hd) for x in (q, k, v, do))
+            if window:
+                pos = torch.arange(s, device="cuda")
+                mask = (pos[:, None] >= pos[None, :]) & \
+                    (pos[:, None] - pos[None, :] < window)
+                sdpa_kw = dict(attn_mask=mask)
+            else:
+                sdpa_kw = dict(is_causal=True)
+            sdpa_kw.update(scale=kw["scale"], enable_gqa=hq != hkv)
+
+            def library():
+                return F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
+
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qs, ks, vs))
+            out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
+
+            def library_bwd():
+                return torch.autograd.grad(out, (qg, kg, vg), dos,
+                                           retain_graph=True)
+
+            def library_fwd_bwd():
+                o_ = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
+                return torch.autograd.grad(o_, (qg, kg, vg), dos)
+
+            row = {"case": case["name"], "dtype": dname, **case,
+                   "max_abs_err": errs,
+                   "ms": {
+                       "flash_fwd": graph_ms(torch, lambda: fa.flash_fwd(
+                           q, k, v, **kw), 5),
+                       "flash_bwd_dkv": graph_ms(torch, lambda: fa.flash_bwd_dkv(
+                           *bwd, **kw), 5),
+                       "flash_bwd_dq": graph_ms(torch, lambda: fa.flash_bwd_dq(
+                           *bwd, **kw), 5)},
+                   "plain_ms": {
+                       "flash_fwd": graph_ms(torch, lambda: fa.flash_fwd_reference(
+                           q, k, v, **kw), 1),
+                       "flash_bwd_dkv": graph_ms(
+                           torch, lambda: fa.flash_bwd_dkv_reference(*bwd, **kw), 1),
+                       "flash_bwd_dq": graph_ms(
+                           torch, lambda: fa.flash_bwd_dq_reference(*bwd, **kw), 1)},
+                   "library_fwd_ms": graph_ms(torch, library, 5),
+                   "library_bwd_ms": event_ms(torch, library_bwd),
+                   "library_fwd_bwd_ms": event_ms(torch, library_fwd_bwd),
+                   "bounds": flash_bounds(case, dname)}
+            del out, qg, kg, vg
+            emit({"phase": 5, **row})
+            results.append(row)
+    torch.cuda.empty_cache()
+    return results
+
+
+# --- phase 6 -----------------------------------------------------------------
+
+
+def phase_training(torch, kernel_support, attention_mod, llama, train,
+                   trainer_mod) -> dict:
+    """The trainer at Llama-3-8B widths, depth cut to TRAIN_LAYERS, with
+    the launch counts of exactly that run; then kernels vs plain
+    attention on a 2-layer f32 copy."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=TRAIN_LAYERS)
+    tcfg = trainer_mod.TrainerConfig(
+        model=cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        total_steps=TRAIN_STEPS, warmup_steps=2, log_every=1,
+        device="cuda",
+    )
+    trainer = trainer_mod.Trainer(tcfg)
+    stamps = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    kernel_support.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.run(on_step=on_step)
+    launches = kernel_support.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hist = [h for h in result.metrics_history if "loss" in h]
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    step_s = [b_ - a_ for a_, b_ in zip([t0] + stamps[:-1], stamps)]
+    steady_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3)
+    mfu = cfg.flops_per_token() * tokens_per_s / PEAK_FLOPS["bfloat16"]
+    need = cfg.n_layers * TRAIN_STEPS
+    # the random init's logits: unit-RMS hidden states times std-0.02
+    # head weights have variance d * 0.02^2, and the expected cross-entropy
+    # of iid normal logits is ln V + variance / 2 (plus the z-loss)
+    logit_var = cfg.d_model * 0.02 ** 2
+    expected_loss = math.log(cfg.vocab_size) + logit_var / 2
+    out = {
+        "phase": 6, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "remat_policy": cfg.remat_policy, "losses": losses,
+        "grad_norms": norms, "ln_vocab": math.log(cfg.vocab_size),
+        "expected_step1_loss": expected_loss,
+        "step_ms": [1e3 * x for x in step_s], "steady_step_ms": steady_ms,
+        "tokens_per_s": tokens_per_s,
+        "trainer_tokens_per_s": result.tokens_per_second,
+        "flops_per_token": cfg.flops_per_token(), "mfu": mfu,
+        "peak_memory_gib": peak_gib, "resident_before_gib": resident_gib,
+        "launches": launches, "launches_needed": need,
+    }
+    del trainer, result
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernels vs plain attention, 2 layers in f32 at the run's B and S: the
+    # first update has learning rate 0, so both steps see the same
+    # parameters
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    opt = train.make_optimizer()
+    state = train.init_train_state(cfg32, opt, seed=SEED, device="cuda")
+    batch = train.synthetic_batch(cfg32, TRAIN_BATCH, TRAIN_SEQ, seed=SEED,
+                                  device="cuda")
+    routes = []
+    for plain in (False, True):
+        kernel_support.reset_launch_counts()
+        _, m = train.make_train_step(cfg32, opt, plain_attention=plain)(
+            state, batch)
+        routes.append((m, kernel_support.launch_counts()))
+    (m_kernel, kernel_counts), (m_plain, plain_counts) = routes
+    cmp = {k: (float(m_kernel[k]), float(m_plain[k]))
+           for k in ("loss", "grad_norm")}
+    out["f32_two_layer_kernel_vs_plain"] = cmp
+    out["f32_two_layer_launches"] = {"kernel_path": kernel_counts,
+                                     "plain_path": plain_counts}
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"non-finite loss or grad_norm: {losses} {norms}")
+    if len(losses) != TRAIN_STEPS or not all(x > 0 for x in norms):
+        fail(f"want {TRAIN_STEPS} logged steps with grad_norm > 0: {hist}")
+    if abs(losses[0] - expected_loss) > 0.5:
+        fail(f"step-1 loss {losses[0]:.4f} is not within 0.5 of "
+             f"ln(vocab) + d * 0.02^2 / 2 = {expected_loss:.4f}")
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if launches.get(name, 0) != need:
+            fail(f"{name} launched {launches.get(name, 0)} times; the run "
+                 f"needs exactly {need} = {cfg.n_layers} layers x "
+                 f"{TRAIN_STEPS} steps")
+    if launches.get("flash_fwd", 0) < need:
+        fail(f"flash_fwd launched {launches.get('flash_fwd', 0)} < {need}")
+    if launches.get(attention_mod.MHA_ROUTE, 0):
+        fail(f"{launches[attention_mod.MHA_ROUTE]} attention calls took "
+             "mha_reference on the card")
+    if kernel_counts.get("flash_bwd_dq", 0) != cfg32.n_layers or \
+            not plain_counts.get(attention_mod.MHA_ROUTE, 0) or \
+            any(name.startswith("flash_") for name in plain_counts):
+        fail(f"f32 comparison took the wrong routes: {kernel_counts} "
+             f"(kernels) and {plain_counts} (plain)")
+    (lk, lp), (gk, gp) = cmp["loss"], cmp["grad_norm"]
+    if abs(lk - lp) > LOSS_RTOL * abs(lp) or \
+            abs(gk - gp) > GRAD_NORM_RTOL * abs(gp):
+        fail(f"f32 kernel path vs plain path: loss {lk} vs {lp}, "
+             f"grad_norm {gk} vs {gp}")
+    return out
+
+
 # --- main --------------------------------------------------------------------
+
+
+def kernel_entry(name, source, replaces, launches, errs, head, extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(errs.values()), **errs, **head, **extra}
 
 
 def main() -> None:
@@ -457,7 +768,11 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     try:
         from k8s_gpu_device_plugin_torch.models import generate
-        from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
+        from k8s_gpu_device_plugin_torch.models import llama
+        from k8s_gpu_device_plugin_torch.models import train
+        from k8s_gpu_device_plugin_torch.models import trainer as trainer_mod
+        from k8s_gpu_device_plugin_torch.ops import attention as attention_mod
+        from k8s_gpu_device_plugin_torch.ops import flash_attention as fa
         from k8s_gpu_device_plugin_torch.ops import kernel_support
         from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
         from k8s_gpu_device_plugin_torch.serving import server as server_mod
@@ -472,37 +787,61 @@ def main() -> None:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device_count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    rpa.load_kernel()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        for build in [pool.submit(rpa.load_kernel), pool.submit(fa.load_kernel)]:
+            build.result()
     emit({"phase": 1, "build_s": time.perf_counter() - t0})
 
     cases = phase_kernels(torch, rpa)
-    cfg = LlamaConfig.llama3_8b()
+    flash = phase_flash(torch, fa)
+    cfg = llama.LlamaConfig.llama3_8b()
     phase_model(torch, server_mod, generate, cfg)
     serving = phase_serving(torch, server_mod, kernel_support, cfg)
+    training = phase_training(torch, kernel_support, attention_mod, llama,
+                              train, trainer_mod)
 
     head = next(c for c in cases
                 if c["case"] == "decode" and c["dtype"] == "bfloat16")
     err_bf16 = max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16")
     err_f32 = max(c["max_abs_err"] for c in cases if c["dtype"] == "float32")
-    emit({"kernels": [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "k8s_gpu_device_plugin_torch/ops/csrc/ragged_paged_attention.cu",
-        "replaces": "k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py:142",
-        "launches": serving["launches"],
-        "max_abs_err": max(err_bf16, err_f32),
-        "max_err_bf16": err_bf16,
-        "max_err_f32": err_f32,
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128",
-        "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
-                                     "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")} for c in cases],
-    }]})
+    kernels = [kernel_entry(
+        "ragged_paged_attention",
+        "k8s_gpu_device_plugin_torch/ops/csrc/ragged_paged_attention.cu",
+        "k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py:142",
+        serving["launches"],
+        {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
+        {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128",
+         "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")} for c in cases]})]
+    fhead = next(c for c in flash
+                 if c["case"] == "causal" and c["dtype"] == "bfloat16")
+    outputs = {"flash_fwd": ("o", "lse"), "flash_bwd_dkv": ("dk", "dv"),
+               "flash_bwd_dq": ("dq",)}
+    replaces = {"flash_fwd": 164, "flash_bwd_dkv": 412, "flash_bwd_dq": 465}
+    for name, outs in outputs.items():
+        errs = {f"max_err_{dn}": max(c["max_abs_err"][o] for c in flash
+                                     for o in outs if c["dtype"] == dn)
+                for dn in ("bfloat16", "float32")}
+        kernels.append(kernel_entry(
+            name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
+            f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
+            training["launches"].get(name, 0), errs,
+            {"ms": fhead["ms"][name], "plain_ms": fhead["plain_ms"][name],
+             "bound_ms": fhead["bounds"][name]["bound_ms"],
+             "bound_by": fhead["bounds"][name]["bound_by"],
+             # SDPA's forward for K2; its backward (dq, dk, dv in one
+             # call) for K3 and K4
+             "library_ms": fhead["library_fwd_ms"] if name == "flash_fwd"
+             else fhead["library_bwd_ms"]},
+            {"headline_case": f"causal bfloat16, B={TRAIN_BATCH} "
+                              f"S={TRAIN_SEQ} Hq=32 Hkv=8 hd=128",
+             "cases": [{"case": c["case"], "dtype": c["dtype"],
+                        "ms": c["ms"][name], "plain_ms": c["plain_ms"][name],
+                        **c["bounds"][name]} for c in flash]}))
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the serving stack, for NVIDIA Hopper (sm_90a).
+"""PyTorch/CUDA port of the serving and training stacks, for NVIDIA Hopper
+(sm_90a).
 
 The JAX package ``k8s_gpu_device_plugin_tpu`` is the reference; this
 package mirrors its subpackage layout and module names so each piece

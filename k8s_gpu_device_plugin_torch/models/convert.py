@@ -1,4 +1,4 @@
-"""Parameter conversion from the JAX reference into the port.
+"""Parameter conversion between the JAX reference and the port.
 
 The two packages share one weight layout (models/llama.py states it):
 stacked ``layers`` leaves with a leading layer axis, projections stored
@@ -68,4 +68,18 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig,
             f"layers.wq is {tuple(wq.shape)}, cfg wants "
             f"{(cfg.n_layers, d, cfg.n_heads * hd)}"
         )
+    return out
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The reverse per-leaf copy: the port's params -> the same tree of
+    numpy arrays on the host (bf16 leaves widened to f32, exactly:
+    numpy has no bfloat16 of its own)."""
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            out[name] = params_to_numpy(leaf)
+        else:
+            x = leaf.detach().cpu()
+            out[name] = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return out

@@ -14,13 +14,21 @@ transposes. Layer leaves: ``attn_norm``/``mlp_norm`` (L, d), ``wq``
 ``w1``/``w3`` (L, d, d_ff), ``w2`` (L, d_ff, d), plus ``bq``/``bk``/
 ``bv`` when ``attn_bias``.
 
-This slice serves the dense bf16 path; the config refuses the values
-it does not serve yet (paged KV, quantized KV or weights, MoE, tensor
-parallelism) instead of ignoring them.
+The full-sequence forward (``forward_with_aux``/``forward``, the
+training path) loops over the stacked layer leaves in Python where the
+reference scans them, and wraps each block in ``torch.utils.checkpoint``
+when ``remat`` is set; its attention goes through
+``ops.attention.attention`` (the flash kernels on the card).
+
+The config refuses the values the port does not serve yet (paged KV,
+quantized KV or weights, MoE, tensor, sequence and pipeline
+parallelism, fused cross-entropy) instead of ignoring them; each refusal
+names its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 
@@ -28,6 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
+from k8s_gpu_device_plugin_torch.ops.attention import attention
+
+REMAT_POLICIES = ("save_dots_attn", "save_dots", "save_nothing")
 
 
 @dataclass(frozen=True)
@@ -55,7 +66,18 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # parameter storage dtype (None = ``dtype``)
     param_dtype: "torch.dtype | None" = None
-    # the reference's serving dials; this slice serves only their defaults
+    # training: block rematerialization and what it saves (read only when
+    # remat): "save_dots_attn" keeps the projection/MLP matmul outputs and
+    # the flash attention output, "save_dots" the matmul outputs only,
+    # "save_nothing" nothing (numerics are the same under every policy)
+    remat: bool = True
+    remat_policy: str = "save_dots_attn"
+    # the reference's dials the port serves only at their defaults; "auto"
+    # is single-device attention here (the reference's "full" at sp=1)
+    attn_impl: str = "auto"
+    # pipeline-parallel microbatches (the reference reads it only at pp > 1)
+    n_microbatches: int = 1
+    fused_ce: bool = False
     quant: str = "none"
     cache_quant: str = "none"
     kv_layout: str = "dense"
@@ -72,17 +94,37 @@ class LlamaConfig:
                 f"dtype must be torch.bfloat16 or torch.float32, got "
                 f"{self.dtype}"
             )
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be one of {REMAT_POLICIES}, got "
+                f"{self.remat_policy!r}"
+            )
+        if self.attn_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r}: sequence-parallel attention "
+                "is not ported yet (ROADMAP A12); use 'auto'"
+            )
+        if self.attn_impl != "auto":
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r}: the port has one "
+                "single-device attention, 'auto' (the reference's 'full' "
+                "without sequence parallelism)"
+            )
         refusals = (
             ("kv_layout", "dense", "the paged KV pool (models/paging.py) "
-             "is not ported yet; serve kv_layout='dense'"),
+             "is not ported yet (ROADMAP A6); serve kv_layout='dense'"),
             ("cache_quant", "none", "quantized KV caches are not ported "
-             "yet; serve cache_quant='none' (bf16 cache)"),
-            ("quant", "none", "int8 weight matmuls are not ported yet; "
-             "serve quant='none'"),
-            ("n_experts", 0, "MoE MLPs are not ported yet; serve a dense "
-             "config (n_experts=0)"),
-            ("tp", 1, "tensor-parallel serving is not ported yet; serve "
-             "tp=1 (one card)"),
+             "yet (ROADMAP A9); serve cache_quant='none' (bf16 cache)"),
+            ("quant", "none", "int8 weight matmuls are not ported yet "
+             "(ROADMAP A8, A9); use quant='none'"),
+            ("n_experts", 0, "MoE MLPs are not ported yet (ROADMAP A10); "
+             "use a dense config (n_experts=0)"),
+            ("tp", 1, "tensor-parallel serving is not ported yet (ROADMAP "
+             "A11); serve tp=1 (one card)"),
+            ("fused_ce", False, "fused lm_head + cross-entropy is not "
+             "ported yet (ROADMAP A8); use fused_ce=False"),
+            ("n_microbatches", 1, "pipeline parallelism is not ported yet "
+             "(ROADMAP A12); use n_microbatches=1"),
         )
         for name, allowed, why in refusals:
             if getattr(self, name) != allowed:
@@ -129,6 +171,17 @@ class LlamaConfig:
             n_kv_heads=4, d_ff=256, max_seq=256, rope_theta=10000.0,
         )
         return replace(cfg, **overrides)
+
+    def flops_per_token(self) -> float:
+        """Dense training FLOPs/token: 6 * matmul params (fwd+bwd). The
+        O(S) attention-score FLOPs are left out (standard 6N model-FLOPs
+        accounting), so an MFU from it is slightly conservative."""
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        hd = self.head_dim
+        attn_proj = 2 * d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
+        mlp = 3 * d * f
+        embed = self.vocab_size * d  # lm_head (the embed table is a gather)
+        return 6.0 * (L * (attn_proj + mlp) + embed)
 
 
 def init_params(cfg: LlamaConfig, *, seed: int = 0,
@@ -270,3 +323,137 @@ def lm_head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         out = x2.float() @ w.float()
     return out.reshape(*lead, w.shape[-1])
+
+
+# --- the full-sequence forward (training) -------------------------------------
+
+
+def _matmul_f32_acc(a: torch.Tensor, b: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """a @ b from ``a.dtype`` operands with f32 accumulation, rounded once
+    to ``out_dtype``. cuBLAS accumulates bf16 products in f32 and rounds
+    at the output; the CPU widens the operands (exact bf16 -> f32)."""
+    if a.dtype == torch.float32 or a.device.type == "cuda":
+        return (a @ b).to(out_dtype)
+    return (a.float() @ b.float()).to(out_dtype)
+
+
+class _LMHead(torch.autograd.Function):
+    """:func:`lm_head_matmul` with the reference's custom backward
+    (``ops/quant.py::bf16_ste_bwd``): the f32 logits cotangent is cast to
+    the operands' dtype, then dx and dw are f32-accumulated products
+    rounded to x's and w's dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return lm_head_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gb = g.to(x.dtype)
+        dx = _matmul_f32_acc(gb, w.to(x.dtype).T, x.dtype)
+        d = x.shape[-1]
+        dw = _matmul_f32_acc(x.reshape(-1, d).T, gb.reshape(-1, gb.shape[-1]),
+                             w.dtype)
+        return dx, dw
+
+
+def _remat_context_fn(policy: str):
+    """The selective-checkpoint policy of ``remat_policy`` (the
+    reference's ``save_from_both_policies``): matmul outputs without
+    batch dims (``aten.mm``, every projection and MLP product) are saved,
+    plus, under "save_dots_attn", the flash attention custom op's outputs;
+    everything else is recomputed. On the CPU the attention runs
+    ``mha_reference``, which has no op to save, and is recomputed."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    saved = {torch.ops.aten.mm.default}
+    if policy == "save_dots_attn":
+        saved.add(torch.ops.k8s_gpu_device_plugin_torch.flash_attention.default)
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if op in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
+def _attention(q, k, v, cfg: LlamaConfig, plain: bool = False):
+    """Single-device full causal attention (``attn_impl="auto"``; the
+    config refuses the others)."""
+    return attention(q, k, v, causal=True, window=cfg.sliding_window,
+                     plain=plain)
+
+
+def _block(x, layer, cfg: LlamaConfig, rot, plain_attention: bool = False):
+    """One transformer block: (B, S, D) -> (B, S, D). ``rot`` is
+    :func:`rope_angles` of the positions, built once per forward."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
+    q, k, v = h @ layer["wq"], h @ layer["wk"], h @ layer["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    q = apply_rope(q.reshape(b, s, cfg.n_heads, hd), *rot)
+    k = apply_rope(k.reshape(b, s, cfg.n_kv_heads, hd), *rot)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    attn = _attention(q, k, v, cfg, plain=plain_attention)
+    x = x + attn.reshape(b, s, cfg.n_heads * hd) @ layer["wo"]
+    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
+    gate = mlp_act((h @ layer["w1"]).float(), cfg).to(x.dtype)
+    up = h @ layer["w3"]
+    return x + (gate * up) @ layer["w2"]
+
+
+def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                     return_hidden: bool = False,
+                     plain_attention: bool = False) -> tuple:
+    """Token ids (B, S) -> (logits (B, S, V) f32, aux losses). Dense
+    configs have no aux losses, so aux is ``{}``. ``return_hidden`` stops
+    before the lm_head and returns the final normed hidden states
+    (B, S, D). ``plain_attention`` runs ``mha_reference`` on any device
+    (see ``ops.attention.attention``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    params = cast_params_for_compute(params, cfg)
+    b, s = tokens.shape
+    x = params["embed"].to(cfg.dtype)[tokens]
+    if cfg.scale_embed:
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cfg.dtype,
+                           device=x.device)
+    rot = rope_angles(torch.arange(s, device=tokens.device), cfg.head_dim,
+                      cfg.rope_theta)
+    block = functools.partial(_block, cfg=cfg, rot=rot,
+                              plain_attention=plain_attention)
+    context_fn = None
+    if cfg.remat and cfg.remat_policy != "save_nothing":
+        context_fn = _remat_context_fn(cfg.remat_policy)
+    # one unbind per leaf: its backward stacks the L layer grads once,
+    # where per-layer indexing would scatter each into a full-size zero
+    layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+    for i in range(cfg.n_layers):
+        layer = {name: leaves[i] for name, leaves in layers.items()}
+        if not cfg.remat:
+            x = block(x, layer)
+        elif context_fn is None:
+            x = checkpoint(block, x, layer, use_reentrant=False)
+        else:
+            x = checkpoint(block, x, layer, use_reentrant=False,
+                           context_fn=context_fn)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
+    if return_hidden:
+        return x, {}
+    return _LMHead.apply(x, head_weights(params, cfg).to(cfg.dtype)), {}
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            plain_attention: bool = False) -> torch.Tensor:
+    """Token ids (B, S) -> logits (B, S, V) in f32."""
+    return forward_with_aux(params, tokens, cfg,
+                            plain_attention=plain_attention)[0]

@@ -1,20 +1,77 @@
-"""Serving cache-attention dispatch and its static backend plan.
+"""Attention dispatch: full-sequence (training) and serving-cache entries.
 
-Port of ``k8s_gpu_device_plugin_tpu/ops/attention.py``
-``serving_cache_attention`` and ``attention_backend_plan``. The
-reference routes a shape onto its Pallas kernel only when opted in and
-otherwise runs an XLA gather; here there is one route per device:
-CUDA tensors go to the hand-written ragged-paged kernel (decode T=1 and
-every prefill chunk alike) and CPU tensors to its plain version. A
-shape the kernel does not take raises; it never falls back.
+Port of ``k8s_gpu_device_plugin_tpu/ops/attention.py``:
+
+- :func:`attention`, the full-sequence entry the model's forward uses:
+  on a CUDA tensor the hand-written flash kernels, which raise on shapes
+  they do not take (``flash_attention.refusal``); on a CPU tensor
+  :func:`mha_reference` (f32 softmax, causal and window masks, GQA), as
+  the reference does off the TPU. A CUDA call reaches ``mha_reference``
+  only when its caller asks for the plain path (``plain=True``), and is
+  then counted under :data:`MHA_ROUTE` in
+  ``kernel_support.launch_counts()``.
+- ``serving_cache_attention`` and ``attention_backend_plan``. The
+  reference routes a shape onto its Pallas kernel only when opted in
+  and otherwise runs an XLA gather; here there is one route per device:
+  CUDA tensors go to the hand-written ragged-paged kernel (decode T=1
+  and every prefill chunk alike) and CPU tensors to its plain version.
+  A shape the kernel does not take raises; it never falls back.
 """
 
 from __future__ import annotations
 
 import torch
 
+from k8s_gpu_device_plugin_torch.ops import flash_attention as fa
 from k8s_gpu_device_plugin_torch.ops import kernel_support
 from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
+
+#: launch-count key of a CUDA attention call that asked for mha_reference
+MHA_ROUTE = "attention_route{mha_reference}"
+
+
+def _expand_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
+    if k.shape[2] == n_q_heads:
+        return k
+    return k.repeat_interleave(n_q_heads // k.shape[2], dim=2)
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, scale: "float | None" = None,
+                  window: int = 0) -> torch.Tensor:
+    """(B, S, H, hd) attention with an f32 softmax; K/V may be grouped.
+    ``window > 0`` keeps keys in (i - window, i] (causal only)."""
+    if window > 0 and not causal:
+        raise ValueError("sliding window requires causal attention")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    k = _expand_kv(k, q.shape[2])
+    v = _expand_kv(v, q.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        pos = torch.arange(q.shape[1], device=q.device)
+        keep = pos[:, None] >= pos[None, :]
+        if window > 0:
+            keep &= pos[:, None] - pos[None, :] < window
+        scores = torch.where(keep, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: "float | None" = None,
+              window: int = 0, *, plain: bool = False) -> torch.Tensor:
+    """Dispatching full-sequence attention, (B, S, H, hd): the flash
+    kernels on a CUDA tensor (raising on shapes they do not take),
+    :func:`mha_reference` on a CPU one. ``plain=True`` runs
+    :func:`mha_reference` whatever the device: the comparison path a card
+    run holds the kernel path against; training never sets it."""
+    if q.device.type == "cuda":
+        if not plain:
+            return fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                                      window=window)
+        kernel_support.count_launch(MHA_ROUTE)
+    return mha_reference(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def serving_cache_attention(

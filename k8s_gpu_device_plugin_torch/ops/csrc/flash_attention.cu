@@ -1,0 +1,633 @@
+// Flash attention forward and backward, hand-written for Hopper (sm_90a).
+//
+// Replaces three TPU kernels of k8s_gpu_device_plugin_tpu/ops/flash_attention.py:
+//   flash_fwd      <- _fwd_kernel      (pallas_call in _flash_fwd_bhsd)
+//   flash_bwd_dkv  <- _bwd_dkv_kernel  (first pallas_call in _flash_bwd_bhsd)
+//   flash_bwd_dq   <- _bwd_dq_kernel   (second pallas_call in _flash_bwd_bhsd)
+//
+// What they compute. q and dO are (B*Hq, S, hd), k and v (B*Hkv, S, hd),
+// rows contiguous; q row r attends kv row r / group (group = Hq / Hkv, the
+// reference's _kv_row), so K/V are never expanded. Scores are
+// s = (q . k) * scale, masked to -1e30 where causal and k_pos > q_pos (and,
+// with a window, q_pos - k_pos >= window).
+//   forward:  o = softmax(s) v in q's dtype, lse = m + log(l) in f32
+//             (online m/l/acc recurrence; l == 0 guarded as in the reference);
+//   dkv:      p = exp(s - lse), dS = p * (dO.v - delta) * scale,
+//             dV = sum p^T dO, dK = sum dS^T q, summed over the group's q
+//             heads inside one block; f32 out;
+//   dq:       dQ = sum dS k; f32 out.
+// delta = rowsum(dO * o) - dlse comes in from the caller, as on the TPU.
+//
+// What bounds them. Per (batch, q head) a causal call does 4 * S^2/2 * hd
+// operations (forward), 8 * S^2/2 * hd (dkv: s, dP, dV, dK) and
+// 6 * S^2/2 * hd (dq: s, dP, dQ), against ~4 * S * hd bytes of input: about
+// S/2 operations per byte, far above the card's ~295 (bf16) balance at
+// S = 2048. So all three are bound by operations. This first version does
+// every operation in f32 on the CUDA cores (the TPU kernels also cast to
+// f32), so it runs against the 67 TFLOP/s f32 rate, not the 989 TFLOP/s
+// bf16 tensor-core rate its bound is stated against; wgmma is later work.
+// What the design does for the operations it has: it skips every tile the
+// mask empties (the reference's block predicates, at 64-row tiles), each
+// thread computes a 4x4 score tile from float4 shared-memory loads (8
+// fused multiply-adds per load), and the heaviest tiles (the most live
+// kv tiles under the causal mask) are launched first so the tail wave is
+// short.
+//
+// TPU -> CUDA. The TPU grid carries m/l/acc (or dK/dV, dQ) in VMEM scratch
+// across its sequential innermost axis; here that axis is a loop inside
+// one block, and the other grid axes are independent blocks:
+//   forward and dq: one block per (q tile of 64 rows, b * Hq + h);
+//   dkv:            one block per (kv tile of 64 rows, b * Hkv + h), its
+//                   loop walking the group's q heads x the live q tiles.
+// No atomics: every output element is written by one block, in a fixed
+// summation order, so results are deterministic.
+//
+// Types: f32 or bf16 q/k/v/dO (one type per call), hd in {64, 128},
+// S a multiple of 64. All arithmetic is f32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 score tile
+constexpr int kTile = 64;      // q rows and kv rows per tile
+constexpr int kPStride = kTile + 4;  // padded row of a 64 x 64 f32 tile
+constexpr float kNegBig = -1e30f;
+
+// padded shared-memory row of a 64 x HD f32 tile: float4-aligned, and
+// rows 4 words apart in the banks, so 8 threads reading 8 rows are
+// conflict-free
+template <int HD>
+__host__ __device__ constexpr int row_stride() { return HD + 4; }
+
+template <int HD>
+__host__ __device__ constexpr int tile_floats() { return kTile * row_stride<HD>(); }
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  static constexpr int kPerVec = 4;  // elements per 16-byte load
+  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ static __forceinline__ float cast(float x) { return x; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  static constexpr int kPerVec = 8;
+  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
+    // bf16 is the high half of an f32: widening is a 16-bit shift
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static __forceinline__ __nv_bfloat16 cast(float x) {
+    return __float2bfloat16(x);
+  }
+};
+
+// 64 contiguous rows of HD elements (global) -> f32 tile (shared, padded)
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+                                          float* __restrict__ dst) {
+  constexpr int kPerVec = Io<T>::kPerVec;
+  constexpr int kVecPerRow = HD / kPerVec;
+  constexpr int kIters = kTile * kVecPerRow / kThreads;
+  static_assert(kTile * kVecPerRow % kThreads == 0, "tile splits evenly");
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int row = i / kVecPerRow;
+    const int col = (i % kVecPerRow) * kPerVec;
+    float f[kPerVec];
+    Io<T>::unpack(__ldg(s + i), f);
+#pragma unroll
+    for (int e = 0; e < kPerVec; e += 4) {
+      *reinterpret_cast<float4*>(dst + row * row_stride<HD>() + col + e) =
+          make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+    }
+  }
+}
+
+// acc[i][j] = A[ty + 16 i] . B[tx + 16 j] over HD (two 64 x HD tiles)
+template <int HD>
+__device__ __forceinline__ void dot_tile(const float* __restrict__ a,
+                                         const float* __restrict__ b, int ty,
+                                         int tx, float acc[4][4]) {
+  constexpr int kS = row_stride<HD>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 av[4];
+    float4 bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * kS + d);
+      bv[i] = *reinterpret_cast<const float4*>(b + (tx + 16 * i) * kS + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = acc[i][j];
+        s = fmaf(av[i].x, bv[j].x, s);
+        s = fmaf(av[i].y, bv[j].y, s);
+        s = fmaf(av[i].z, bv[j].z, s);
+        s = fmaf(av[i].w, bv[j].w, s);
+        acc[i][j] = s;
+      }
+    }
+  }
+}
+
+// acc[i][jj] (float4 at column tx*4 + 64 jj) += sum_c P[ty + 16 i][c] *
+// V[c][...]: P a 64 x 64 tile (stride kPStride), V a 64 x HD tile
+template <int HD>
+__device__ __forceinline__ void pv_tile(const float* __restrict__ p,
+                                        const float* __restrict__ v, int ty,
+                                        int tx, float4 acc[4][HD / 64]) {
+  constexpr int kS = row_stride<HD>();
+  constexpr int kJ = HD / 64;
+#pragma unroll 2
+  for (int c = 0; c < kTile; c += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * kPStride + c);
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            v + (c + cc) * kS + tx * 4 + 64 * jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float w = cc == 0 ? pv[i].x
+                        : cc == 1 ? pv[i].y
+                        : cc == 2 ? pv[i].z
+                                  : pv[i].w;
+          acc[i][jj].x = fmaf(w, vv.x, acc[i][jj].x);
+          acc[i][jj].y = fmaf(w, vv.y, acc[i][jj].y);
+          acc[i][jj].z = fmaf(w, vv.z, acc[i][jj].z);
+          acc[i][jj].w = fmaf(w, vv.w, acc[i][jj].w);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ bool keep(int q_pos, int k_pos, bool causal,
+                                     int window) {
+  if (!causal) return true;
+  return q_pos >= k_pos && (window <= 0 || q_pos - k_pos < window);
+}
+
+// kv tiles [lo, hi] that q tile `qt` can see (the reference's forward and
+// dq block predicates at 64-row tiles)
+__device__ __forceinline__ void kv_span(int qt, int n_tiles, bool causal,
+                                        int window, int* lo, int* hi) {
+  if (!causal) {
+    *lo = 0;
+    *hi = n_tiles - 1;
+    return;
+  }
+  *hi = qt;
+  const int first = qt * kTile - (window - 1);  // first key the tile's top row sees
+  *lo = (window > 0 && first > 0) ? first / kTile : 0;
+}
+
+// q tiles [lo, hi] that see kv tile `kt` (the reference's dkv predicate)
+__device__ __forceinline__ void q_span(int kt, int n_tiles, bool causal,
+                                       int window, int* lo, int* hi) {
+  if (!causal) {
+    *lo = 0;
+    *hi = n_tiles - 1;
+    return;
+  }
+  *lo = kt;
+  *hi = n_tiles - 1;
+  if (window > 0) {
+    *hi = min(*hi, (kt * kTile + (kTile - 1) + (window - 1)) / kTile);
+  }
+}
+
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// --- forward (K2) -------------------------------------------------------------
+
+template <int HD>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * 3 * tile_floats<HD>();  // q, k (then p), v
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int group, int s_len, float scale,
+                 int causal, int window) {
+  constexpr int kJ = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ks = qs + tile_floats<HD>();  // k tile, then the tile's p
+  float* vs = ks + tile_floats<HD>();
+
+  const int n_tiles = s_len / kTile;
+  const int qt = n_tiles - 1 - blockIdx.x;  // most kv tiles first
+  const int bh = blockIdx.y;
+  const int kvh = bh / group;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  load_tile<T, HD>(q + (size_t(bh) * s_len + qt * kTile) * HD, qs);
+  float m[4], l[4];
+  float4 acc[4][kJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegBig;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj) acc[i][jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  int j_lo, j_hi;
+  kv_span(qt, n_tiles, causal != 0, window, &j_lo, &j_hi);
+  for (int j = j_lo; j <= j_hi; ++j) {
+    __syncthreads();  // the previous tile's p and v are consumed
+    const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * HD;
+    load_tile<T, HD>(k + kv_off, ks);
+    load_tile<T, HD>(v + kv_off, vs);
+    __syncthreads();
+
+    float s[4][4];
+    dot_tile<HD>(qs, ks, ty, tx, s);
+    __syncthreads();  // every thread is done with k: p takes its place
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      float mx = kNegBig;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const bool kept = keep(qt * kTile + r, j * kTile + c, causal != 0, window);
+        s[i][jj] = kept ? s[i][jj] * scale : kNegBig;
+        mx = fmaxf(mx, s[i][jj]);
+      }
+      const float m_new = fmaxf(m[i], row_max16(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = expf(s[i][jj] - m_new);
+        ks[r * kPStride + tx + 16 * jj] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + row_sum16(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        acc[i][jj].x *= alpha;
+        acc[i][jj].y *= alpha;
+        acc[i][jj].z *= alpha;
+        acc[i][jj].w *= alpha;
+      }
+    }
+    __syncthreads();
+    pv_tile<HD>(ks, vs, ty, tx, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = qt * kTile + ty + 16 * i;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / l_safe;
+    T* orow = o + (size_t(bh) * s_len + row) * HD;
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj) {
+      const int col = tx * 4 + 64 * jj;
+      orow[col] = Io<T>::cast(acc[i][jj].x * inv);
+      orow[col + 1] = Io<T>::cast(acc[i][jj].y * inv);
+      orow[col + 2] = Io<T>::cast(acc[i][jj].z * inv);
+      orow[col + 3] = Io<T>::cast(acc[i][jj].w * inv);
+    }
+    if (tx == 0) lse[size_t(bh) * s_len + row] = m[i] + logf(l_safe);
+  }
+}
+
+// --- backward, dK and dV (K3) -------------------------------------------------
+
+template <int HD>
+constexpr size_t dkv_smem() {
+  // k, v (resident), q, dO (per q tile), p^T and dS^T (64 x 64 each)
+  return sizeof(float) * (4 * tile_floats<HD>() + 2 * kTile * kPStride);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int group, int s_len,
+                     float scale, int causal, int window) {
+  constexpr int kJ = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + tile_floats<HD>();
+  float* qs = vs + tile_floats<HD>();
+  float* dos = qs + tile_floats<HD>();
+  float* pt = dos + tile_floats<HD>();   // p^T   [kv row][q row]
+  float* dst = pt + kTile * kPStride;    // dS^T  [kv row][q row]
+
+  const int n_tiles = s_len / kTile;
+  const int kt = blockIdx.x;  // low kv tiles have the most live q tiles
+  const int bhkv = blockIdx.y;
+  const int tx = threadIdx.x % 16;  // q column of the transposed tiles
+  const int ty = threadIdx.x / 16;  // kv row
+
+  const size_t kv_off = (size_t(bhkv) * s_len + kt * kTile) * HD;
+  load_tile<T, HD>(k + kv_off, ks);
+  load_tile<T, HD>(v + kv_off, vs);
+  float4 dk_acc[4][kJ];
+  float4 dv_acc[4][kJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj) {
+      dk_acc[i][jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+      dv_acc[i][jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  int i_lo, i_hi;
+  q_span(kt, n_tiles, causal != 0, window, &i_lo, &i_hi);
+  for (int g = 0; g < group; ++g) {
+    const int bh = bhkv * group + g;
+    for (int it = i_lo; it <= i_hi; ++it) {
+      __syncthreads();  // the previous q tile's products are done
+      const size_t q_off = (size_t(bh) * s_len + it * kTile) * HD;
+      load_tile<T, HD>(q + q_off, qs);
+      load_tile<T, HD>(dout + q_off, dos);
+      __syncthreads();
+
+      float s[4][4];   // s^T[kv row][q col]
+      float dp[4][4];  // (dO v^T)^T
+      dot_tile<HD>(ks, qs, ty, tx, s);
+      dot_tile<HD>(vs, dos, ty, tx, dp);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const size_t row = size_t(bh) * s_len + it * kTile + c;
+        const float lse_c = lse[row];
+        const float delta_c = delta[row];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ty + 16 * i;
+          const bool kept = keep(it * kTile + c, kt * kTile + r, causal != 0, window);
+          const float sc = kept ? s[i][jj] * scale : kNegBig;
+          const float p = expf(sc - lse_c);
+          pt[r * kPStride + c] = p;
+          dst[r * kPStride + c] = p * (dp[i][jj] - delta_c) * scale;
+        }
+      }
+      __syncthreads();
+      pv_tile<HD>(pt, dos, ty, tx, dv_acc);
+      pv_tile<HD>(dst, qs, ty, tx, dk_acc);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t row = size_t(bhkv) * s_len + kt * kTile + ty + 16 * i;
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj) {
+      const int col = tx * 4 + 64 * jj;
+      *reinterpret_cast<float4*>(dk + row * HD + col) = dk_acc[i][jj];
+      *reinterpret_cast<float4*>(dv + row * HD + col) = dv_acc[i][jj];
+    }
+  }
+}
+
+// --- backward, dQ (K4) --------------------------------------------------------
+
+template <int HD>
+constexpr size_t dq_smem() {
+  return sizeof(float) * 4 * tile_floats<HD>();  // q, dO, k, v (then dS)
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int group, int s_len, float scale, int causal,
+                    int window) {
+  constexpr int kJ = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + tile_floats<HD>();
+  float* ks = dos + tile_floats<HD>();
+  float* vs = ks + tile_floats<HD>();  // v tile, then the tile's dS
+
+  const int n_tiles = s_len / kTile;
+  const int qt = n_tiles - 1 - blockIdx.x;  // most kv tiles first
+  const int bh = blockIdx.y;
+  const int kvh = bh / group;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  const size_t q_off = (size_t(bh) * s_len + qt * kTile) * HD;
+  load_tile<T, HD>(q + q_off, qs);
+  load_tile<T, HD>(dout + q_off, dos);
+  float lse_r[4], delta_r[4];
+  float4 acc[4][kJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t row = size_t(bh) * s_len + qt * kTile + ty + 16 * i;
+    lse_r[i] = lse[row];
+    delta_r[i] = delta[row];
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj) acc[i][jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  int j_lo, j_hi;
+  kv_span(qt, n_tiles, causal != 0, window, &j_lo, &j_hi);
+  for (int j = j_lo; j <= j_hi; ++j) {
+    __syncthreads();  // the previous tile's dS and k are consumed
+    const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * HD;
+    load_tile<T, HD>(k + kv_off, ks);
+    load_tile<T, HD>(v + kv_off, vs);
+    __syncthreads();
+
+    float s[4][4];
+    float dp[4][4];
+    dot_tile<HD>(qs, ks, ty, tx, s);
+    dot_tile<HD>(dos, vs, ty, tx, dp);
+    __syncthreads();  // every thread is done with v: dS takes its place
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const bool kept = keep(qt * kTile + r, j * kTile + c, causal != 0, window);
+        const float sc = kept ? s[i][jj] * scale : kNegBig;
+        const float p = expf(sc - lse_r[i]);
+        vs[r * kPStride + c] = p * (dp[i][jj] - delta_r[i]) * scale;
+      }
+    }
+    __syncthreads();
+    pv_tile<HD>(vs, ks, ty, tx, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t row = size_t(bh) * s_len + qt * kTile + ty + 16 * i;
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj) {
+      *reinterpret_cast<float4*>(dq + row * HD + tx * 4 + 64 * jj) = acc[i][jj];
+    }
+  }
+}
+
+// --- launchers ----------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(bytes));
+}
+
+template <typename T, int HD>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int group, int s_len, float scale,
+                       int causal, int window, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, HD>;
+  cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s_len / kTile, bh);
+  kernel<<<grid, kThreads, fwd_smem<HD>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      group, s_len, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh_kv, int group, int s_len,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_kernel<T, HD>;
+  cudaError_t err = allow_smem(kernel, dkv_smem<HD>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s_len / kTile, bh_kv);
+  kernel<<<grid, kThreads, dkv_smem<HD>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), group, s_len, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int bh, int group, int s_len, float scale,
+                      int causal, int window, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<T, HD>;
+  cudaError_t err = allow_smem(kernel, dq_smem<HD>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s_len / kTile, bh);
+  kernel<<<grid, kThreads, dq_smem<HD>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), group, s_len, scale, causal, window);
+  return cudaGetLastError();
+}
+
+bool valid(int rows, int group, int s_len, int hd, int dtype) {
+  return rows > 0 && group > 0 && s_len > 0 && s_len % kTile == 0 &&
+         (hd == 64 || hd == 128) && (dtype == 0 || dtype == 1);
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes). dtype: 0 = f32, 1 = bf16, the type of
+// q, k, v, dO and o; lse, delta, dk, dv and dq are f32. Layouts as above,
+// contiguous, 16-byte aligned; bh = B * Hq rows of q, bh_kv = B * Hkv rows
+// of k, group = Hq / Hkv. Each returns the cudaError_t of its launch
+// (0 = launched).
+#define FLASH_DISPATCH(LAUNCH, ...)                                        \
+  cudaStream_t st = static_cast<cudaStream_t>(stream);                     \
+  if (dtype == 0 && hd == 128) return int(LAUNCH<float, 128>(__VA_ARGS__, st)); \
+  if (dtype == 0 && hd == 64) return int(LAUNCH<float, 64>(__VA_ARGS__, st));   \
+  if (dtype == 1 && hd == 128)                                             \
+    return int(LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__, st));               \
+  return int(LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__, st))
+
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
+                         void* lse, int dtype, int bh, int group, int s_len,
+                         int hd, float scale, int causal, int window,
+                         void* stream) {
+  if (!valid(bh, group, s_len, hd, dtype) || bh % group != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, bh, group, s_len, scale, causal,
+                 window);
+}
+
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int dtype,
+                             int bh_kv, int group, int s_len, int hd,
+                             float scale, int causal, int window,
+                             void* stream) {
+  if (!valid(bh_kv, group, s_len, hd, dtype)) return int(cudaErrorInvalidValue);
+  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh_kv, group,
+                 s_len, scale, causal, window);
+}
+
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int dtype, int bh,
+                            int group, int s_len, int hd, float scale,
+                            int causal, int window, void* stream) {
+  if (!valid(bh, group, s_len, hd, dtype) || bh % group != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, s_len,
+                 scale, causal, window);
+}

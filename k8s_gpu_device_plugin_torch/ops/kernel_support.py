@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()
+_build_locks: dict[str, threading.Lock] = {}  # one per library: builds run in parallel
+_locks_lock = threading.Lock()
 _launches: dict[str, int] = {}
 _launch_lock = threading.Lock()  # the engine thread counts, others read
 
@@ -90,7 +91,9 @@ def load_library(name: str, sources, build_dir=BUILD_DIR) -> ctypes.CDLL:
     sources = [Path(s) for s in sources]
     key = build_key(sources)
     out = Path(build_dir) / f"lib{name}_{key}.so"
-    with _build_lock:
+    with _locks_lock:
+        lock = _build_locks.setdefault(str(out), threading.Lock())
+    with lock:
         lib = _libs.get(str(out))
         if lib is not None:
             return lib

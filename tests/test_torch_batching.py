@@ -20,6 +20,11 @@ from k8s_gpu_device_plugin_torch.models import llama as tllama
 from k8s_gpu_device_plugin_torch.models.convert import params_from_jax
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
 
+# the suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's OpenMP pool from spinning against
+# them (these shapes gain nothing from more)
+torch.set_num_threads(1)
+
 SPECS = [(5, 9), (16, 6), (40, 12), (70, 7)]  # (prompt length, max_new)
 
 

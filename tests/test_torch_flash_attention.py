@@ -1,0 +1,215 @@
+"""Parity of the port's flash attention with the JAX reference's kernels.
+
+The port's plain versions of K2 (forward), K3 (dK, dV) and K4 (dQ) in
+``k8s_gpu_device_plugin_torch/ops/flash_attention.py`` are held against
+the reference's Pallas kernels run in interpret mode on the CPU
+(``flash_attention(..., interpret=True, block_q=128, block_k=128)``, as
+``tests/test_flash_attention.py`` runs them), on the same numpy inputs.
+Tolerance: f32 atol 1e-4 — both sides compute in f32; the kernels'
+online softmax over 128-row blocks and the plain version's one-pass
+softmax differ only in summation order and exp/log rounding.
+
+The port's ``flash_attention`` autograd entry (CPU: the plain versions)
+is held against ``mha_reference`` under autograd at f32 atol 1e-5 (same
+arithmetic, different association).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from k8s_gpu_device_plugin_tpu.ops import flash_attention as jfa
+from k8s_gpu_device_plugin_tpu.ops.attention import mha_reference as jmha
+from k8s_gpu_device_plugin_torch.models import llama as tllama
+from k8s_gpu_device_plugin_torch.ops import attention as tattn
+from k8s_gpu_device_plugin_torch.ops import flash_attention as tfa
+from k8s_gpu_device_plugin_torch.ops import kernel_support
+
+# the suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's OpenMP pool from spinning against
+# them (these shapes gain nothing from more)
+torch.set_num_threads(1)
+
+ATOL = 1e-4
+MODES = {"causal": (True, 0), "noncausal": (False, 0), "window100": (True, 100)}
+
+
+def _inputs(b, s, hq, hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, hq, hd)]
+    return [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+
+
+def _bhsd(x: np.ndarray) -> torch.Tensor:
+    return tfa._to_bhsd(torch.from_numpy(x)).contiguous()
+
+
+def _close(got: torch.Tensor, want, atol=ATOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_plain_versions_match_the_interpret_kernels(hd, hq, hkv, mode):
+    causal, window = MODES[mode]
+    b, s = 1, 256
+    q, k, v, do = _inputs(b, s, hq, hkv, hd, seed=hd + hq + window)
+    scale = hd ** -0.5
+
+    def jfn(q, k, v):
+        return jfa.flash_attention(q, k, v, causal=causal, window=window,
+                                   block_q=128, block_k=128,
+                                   block_q_bwd=128, block_k_bwd=128,
+                                   interpret=True, return_lse=True)
+
+    (jo, jlse), vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jdq, jdk, jdv = vjp((jnp.asarray(do), jnp.zeros_like(jlse)))
+
+    qb, kb, vb, dob = (_bhsd(x) for x in (q, k, v, do))
+    kw = dict(scale=scale, causal=causal, window=window)
+    o, lse = tfa.flash_fwd_reference(qb, kb, vb, **kw)
+    _close(tfa._from_bhsd(o, b, hq), jo)
+    _close(lse.reshape(b, hq, s), jlse)
+    delta = (dob * o).sum(-1, keepdim=True)
+    dk, dv = tfa.flash_bwd_dkv_reference(qb, kb, vb, dob, lse, delta, **kw)
+    dq = tfa.flash_bwd_dq_reference(qb, kb, vb, dob, lse, delta, **kw)
+    _close(tfa._from_bhsd(dq, b, hq), jdq)
+    _close(tfa._from_bhsd(dk, b, hkv), jdk)
+    _close(tfa._from_bhsd(dv, b, hkv), jdv)
+    # the wrappers take the plain versions for CPU tensors
+    o2, lse2 = tfa.flash_fwd(qb, kb, vb, **kw)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+def test_lse_cotangent_folds_into_delta():
+    """``return_lse`` with a nonzero lse cotangent: the port's autograd
+    entry against the reference kernel's vjp (``_flash_lse_bwd``)."""
+    b, s, hq, hkv, hd = 1, 256, 4, 2, 64
+    q, k, v, do = _inputs(b, s, hq, hkv, hd, seed=7)
+    dlse = np.random.default_rng(8).standard_normal((b, hq, s)).astype(np.float32)
+
+    def jfn(q, k, v):
+        return jfa.flash_attention(q, k, v, block_q=128, block_k=128,
+                                   block_q_bwd=128, block_k_bwd=128,
+                                   interpret=True, return_lse=True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = tfa.flash_attention(tq, tk, tv, return_lse=True)
+    got = torch.autograd.grad((o, lse), (tq, tk, tv),
+                              (torch.from_numpy(do), torch.from_numpy(dlse)))
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def _mha_grads(q, k, v, do, **kw):
+    out = tattn.mha_reference(q, k, v, **kw)
+    return out, torch.autograd.grad(out, (q, k, v), do)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_autograd_entry_matches_mha_reference_autograd(mode):
+    causal, window = MODES[mode]
+    q, k, v, do = _inputs(2, 128, 8, 2, 64, seed=3)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tdo = torch.from_numpy(do)
+    o = tfa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    grads = torch.autograd.grad(o, (tq, tk, tv), tdo)
+    want_o, want = _mha_grads(tq, tk, tv, tdo, causal=causal, window=window)
+    torch.testing.assert_close(o, want_o, atol=1e-5, rtol=0)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def test_mha_reference_matches_the_reference():
+    q, k, v, _ = _inputs(2, 96, 8, 2, 64, seed=4)
+    for causal, window in MODES.values():
+        want = jmha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, window=window)
+        got = tattn.attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=causal, window=window)
+        _close(got, want, atol=1e-5)
+
+
+def test_cpu_dispatch_takes_mha_reference_uncounted():
+    kernel_support.reset_launch_counts()
+    q, k, v, _ = _inputs(1, 128, 4, 2, 64, seed=5)
+    tattn.attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert kernel_support.launch_counts() == {}
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 256, 4, 2, 64), (2, 128, 8, 8, 128),   # accepted by both
+    (1, 200, 4, 2, 64), (1, 64, 4, 2, 64),     # S not a multiple of 128
+    (1, 256, 4, 2, 32), (1, 256, 6, 4, 64),    # head dim, partial groups
+    (1, 192, 4, 2, 64),                        # S a multiple of 64 only
+])
+def test_gate_accepts_what_the_reference_accepts(shape):
+    """Every shape the reference's gate takes passes the port's; the
+    port's own tiles also take S a multiple of 64."""
+    b, s, hq, hkv, hd = shape
+    q, k, v, _ = _inputs(b, s, hq, hkv, hd, seed=6)
+    want = jfa.supports(*(jnp.asarray(x) for x in (q, k, v)))
+    got = tfa.supports(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert got or not want
+    assert got == (s % tfa.TILE == 0 and hd in (64, 128) and hq % hkv == 0)
+    bf = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
+    assert tfa.supports(*bf) == got
+    assert not tfa.supports(bf[0].half(), bf[1].half(), bf[2].half())
+
+
+@pytest.mark.parametrize("change,why", [
+    (dict(), None), (dict(seq_len=192), None),
+    (dict(seq_len=1000), "seq_len=1000"), (dict(seq_len=0), "seq_len=0"),
+    (dict(head_dim=16), "head_dim=16"), (dict(n_heads=6), "n_heads=6"),
+    (dict(dtype=torch.float16), "dtype"),
+])
+def test_shape_refusal_names_what_the_kernels_do_not_take(change, why):
+    geometry = {**dict(seq_len=2048, n_heads=32, n_kv_heads=8, head_dim=128,
+                       dtype=torch.bfloat16), **change}
+    got = tfa.shape_refusal(**geometry)
+    assert got is None if why is None else why in got
+
+
+def test_entry_refuses_what_the_tiles_do_not_divide():
+    q, k, v, _ = _inputs(1, 100, 4, 2, 64, seed=9)
+    with pytest.raises(ValueError, match="multiple of"):
+        tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    with pytest.raises(ValueError, match="causal"):
+        tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                            causal=False, window=8)
+
+
+@pytest.mark.parametrize("policy,forwards", [("save_dots_attn", 1),
+                                             ("save_dots", 2)])
+def test_remat_policy_saves_the_flash_output(monkeypatch, policy, forwards):
+    """Under ``save_dots_attn`` the backward reuses the saved flash
+    outputs (one forward); under ``save_dots`` it runs the forward again."""
+    calls = []
+    plain = tfa.flash_fwd_reference
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(tfa, "flash_fwd_reference", counted)
+    q, k, v, _ = _inputs(1, 128, 4, 2, 64, seed=10)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    w = torch.randn(256, 256, generator=torch.Generator().manual_seed(0))
+
+    def block(q, k, v):
+        return (tfa.flash_attention(q * 2, k, v).reshape(1, 128, 256) @ w).sin()
+
+    out = checkpoint(block, tq, tk, tv, use_reentrant=False,
+                     context_fn=tllama._remat_context_fn(policy))
+    grads = torch.autograd.grad(out.sum(), (tq, tk, tv))
+    assert len(calls) == forwards
+    plain_grads = torch.autograd.grad(block(tq, tk, tv).sum(), (tq, tk, tv))
+    for g, w_ in zip(grads, plain_grads):
+        assert torch.equal(g, w_)

@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "k8s_gpu_device_plugin_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("torch_*.py")))
 
 
 def _imports(path: Path):
@@ -52,6 +53,8 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.serving.server\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"
+        "import k8s_gpu_device_plugin_torch.models.trainer\n"
+        "import k8s_gpu_device_plugin_torch.ops.flash_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

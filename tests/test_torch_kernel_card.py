@@ -1,5 +1,5 @@
-"""The CUDA kernel on the card: shapes beyond chip_smoke.py's, refusals,
-and the launch count of a served request.
+"""The CUDA kernels on the card: shapes beyond chip_smoke.py's, refusals,
+and the launch counts of a served request and of a train step.
 
 Marked ``cuda``; every test skips without a CUDA device (decided inside
 the fixture, so every worker collects the same tests). On a machine
@@ -7,16 +7,26 @@ without JAX, run it without the repository's conftest:
 
     python -m pytest tests/test_torch_kernel_card.py --noconftest -q
 
-Tolerances: f32 atol 1e-4 (summation order only); bf16 atol = rtol =
-2e-2 (the plain version rounds probabilities and the output to bf16).
+Tolerances of the ragged-paged kernel: f32 atol 1e-4 (summation order
+only); bf16 atol = rtol = 2e-2 (its plain version rounds probabilities
+and the output to bf16). The flash kernels' are stated above their tests.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from k8s_gpu_device_plugin_torch.models import train, trainer
 from k8s_gpu_device_plugin_torch.models.batching import ContinuousBatcher
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig, init_params
+from k8s_gpu_device_plugin_torch.ops import flash_attention as fa
 from k8s_gpu_device_plugin_torch.ops import kernel_support
+from k8s_gpu_device_plugin_torch.ops.attention import (
+    MHA_ROUTE,
+    attention,
+    mha_reference,
+)
 from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +105,154 @@ def test_served_requests_launch_the_kernel_per_layer(cuda):
     assert all(len(toks) == 6 for toks in out.values())
     launches = kernel_support.launch_counts()["ragged_paged_attention"]
     assert launches == cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
+
+
+# --- flash attention (K2, K3, K4) --------------------------------------------
+# Tolerances: o in f32 atol 1e-4; in bf16 rtol 8e-3 with atol 1e-3, one
+# bf16 ulp (at most 2^-7 of the value): both routes compute o in f32 and
+# round it once, so they differ by at most one rounding step. lse, dq, dk,
+# dv are f32 from the same inputs on both routes: atol 1e-4 (summation
+# order only).
+
+GRAD_TOL = dict(atol=1e-4, rtol=0.0)
+O_TOL = {torch.float32: TOL[torch.float32],
+         torch.bfloat16: dict(atol=1e-3, rtol=8e-3)}
+
+
+def _flash_inputs(bh, bhkv, s, hd, dtype, seed=0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn((rows, s, hd), generator=gen, device="cuda",
+                        dtype=dtype) for rows in (bh, bhkv, bhkv, bh)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 4), (8, 2), (16, 2)])
+@pytest.mark.parametrize("s", [384, 640])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 1), (True, 64),
+                                           (True, 100), (True, 128),
+                                           (False, 0)])
+def test_flash_kernels_match_plain_versions(cuda, dtype, hd, hq, hkv, s,
+                                            causal, window):
+    q, k, v, do = _flash_inputs(2 * hq, 2 * hkv, s, hd, dtype)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), o_r.float(), **O_TOL[dtype])
+    torch.testing.assert_close(lse, lse_r, **GRAD_TOL)
+    delta = (do.float() * o_r.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse_r, delta)
+    for got, want in zip((*fa.flash_bwd_dkv(*args, **kw),
+                          fa.flash_bwd_dq(*args, **kw)),
+                         (*fa.flash_bwd_dkv_reference(*args, **kw),
+                          fa.flash_bwd_dq_reference(*args, **kw))):
+        torch.testing.assert_close(got, want, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_matches_plain_backward(cuda, dtype, batch):
+    """The autograd entry (K2, delta, K3, K4) against mha_reference under
+    autograd. bf16 grads: atol = rtol = 5e-2, since the kernel path's
+    delta uses the bf16-rounded output and the reference's autograd the
+    f32 one."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    q, k, v = (torch.randn((batch, 256, h, 128), generator=gen,
+                           device="cuda", dtype=dtype).requires_grad_()
+               for h in (8, 2, 2))
+    do = torch.randn((batch, 256, 8, 128), generator=gen, device="cuda",
+                     dtype=dtype)
+    tol = GRAD_TOL if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
+    for window in (0, 100):
+        kernel_support.reset_launch_counts()
+        o = fa.flash_attention(q, k, v, window=window)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        counts = kernel_support.launch_counts()
+        assert [counts[n] for n in ("flash_fwd", "flash_bwd_dkv",
+                                    "flash_bwd_dq")] == [1, 1, 1]
+        want = mha_reference(q, k, v, window=window)
+        want_grads = torch.autograd.grad(want, (q, k, v), do)
+        torch.testing.assert_close(o.float(), want.float(), **O_TOL[dtype])
+        for g, w in zip(grads, want_grads):
+            torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v, do = _flash_inputs(4, 2, 256, 128, torch.bfloat16)
+    kw = dict(scale=0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q, k.float(), v, **kw)
+    q96, k96, v96, _ = _flash_inputs(4, 2, 256, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q96, k96, v96, **kw)
+    q100, k100, v100, _ = _flash_inputs(4, 2, 100, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of"):
+        fa.flash_fwd(q100, k100, v100, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     **kw)
+    lse = torch.zeros((4, 256, 1), device="cuda")
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_bwd_dq(q, k, v, do, lse.bfloat16(), lse, **kw)
+    with pytest.raises(ValueError, match="fold"):
+        fa.flash_fwd(q[:3].contiguous(), k, v, **kw)
+
+
+def test_attention_dispatch_counts_the_plain_route(cuda):
+    """A CUDA tensor launches the kernels or raises; only ``plain=True``
+    reaches mha_reference, and that route is counted."""
+    q, k, v, _ = _flash_inputs(1, 1, 200, 64, torch.float32)
+    q, k, v = (x.view(1, 200, 1, 64) for x in (q, k, v))
+    kernel_support.reset_launch_counts()
+    with pytest.raises(ValueError, match="seq_len=200"):
+        attention(q, k, v)
+    q96, k96, v96, _ = _flash_inputs(1, 1, 256, 96, torch.float32)
+    with pytest.raises(ValueError, match="head_dim=96"):
+        attention(*(x.view(1, 256, 1, 96) for x in (q96, k96, v96)))
+    assert kernel_support.launch_counts() == {}
+    out = attention(q, k, v, plain=True)
+    assert kernel_support.launch_counts() == {MHA_ROUTE: 1}
+    torch.testing.assert_close(out, mha_reference(q, k, v))
+    # S 192: a multiple of the 64-row tile, not of the reference's 128
+    q, k, v, _ = _flash_inputs(1, 1, 192, 64, torch.float32)
+    q, k, v = (x.view(1, 192, 1, 64) for x in (q, k, v))
+    kernel_support.reset_launch_counts()
+    out = attention(q, k, v)
+    assert kernel_support.launch_counts() == {"flash_fwd": 1}
+    torch.testing.assert_close(out, mha_reference(q, k, v), **TOL[torch.float32])
+
+
+def test_trainer_refuses_what_the_kernels_do_not_take(cuda):
+    tcfg = trainer.TrainerConfig(model=LlamaConfig.tiny(), seq_len=128,
+                                 device="cuda")
+    with pytest.raises(ValueError, match="head_dim=16"):
+        trainer.Trainer(tcfg)
+    tcfg = trainer.TrainerConfig(model=LlamaConfig.tiny(head_dim_override=64),
+                                 seq_len=100, device="cuda")
+    with pytest.raises(ValueError, match="seq_len=100"):
+        trainer.Trainer(tcfg)
+
+
+def test_train_step_launches_the_flash_kernels_per_layer(cuda):
+    cfg = dataclasses.replace(LlamaConfig.tiny(head_dim_override=64),
+                              dtype=torch.float32)
+    opt = train.make_optimizer()
+    state = train.init_train_state(cfg, opt, seed=2, device=cuda)
+    batch = train.synthetic_batch(cfg, 2, 128, seed=3, device=cuda)
+    kernel_support.reset_launch_counts()
+    _, m_kernel = train.make_train_step(cfg, opt)(state, batch)
+    counts = kernel_support.launch_counts()
+    assert counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == cfg.n_layers
+    assert counts["flash_fwd"] == cfg.n_layers  # save_dots_attn keeps o
+    assert MHA_ROUTE not in counts
+    # the first update has learning rate 0: the plain step sees the same
+    # parameters
+    _, m_plain = train.make_train_step(cfg, opt, plain_attention=True)(
+        state, batch)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_kernel[key], m_plain[key], atol=0,
+                                   rtol=1e-4)

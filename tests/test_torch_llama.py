@@ -17,6 +17,11 @@ from k8s_gpu_device_plugin_tpu.models import llama as jllama
 from k8s_gpu_device_plugin_torch.models import generate as tgen
 from k8s_gpu_device_plugin_torch.models import llama as tllama
 
+# the suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's OpenMP pool from spinning against
+# them (these shapes gain nothing from more)
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

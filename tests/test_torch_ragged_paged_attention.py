@@ -32,6 +32,11 @@ from k8s_gpu_device_plugin_torch.ops.attention import (
     serving_cache_attention,
 )
 
+# the suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's OpenMP pool from spinning against
+# them (these shapes gain nothing from more)
+torch.set_num_threads(1)
+
 HD = 64
 S = 128
 ATOL = 1e-5

@@ -17,6 +17,11 @@ from k8s_gpu_device_plugin_torch.models.batching import ContinuousBatcher
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
 from k8s_gpu_device_plugin_torch.serving import server as srv
 
+# the suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps torch's OpenMP pool from spinning against
+# them (these shapes gain nothing from more)
+torch.set_num_threads(1)
+
 PROMPTS = [[5, 9, 13], list(range(1, 41))]
 
 
