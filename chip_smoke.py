@@ -13,18 +13,31 @@ Phases (any failed check exits non-zero without the final line):
 2. ``ragged_paged_attention``'s kernel against its plain version at the
    Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128, S 2048): decode
    over eight slots, prefill chunks as the batcher runs them (one slot),
-   a windowed case and an hd-64 group-1 case, each in bf16 and f32. Per
-   case: max error, kernel / plain / ``scaled_dot_product_attention``
-   times (CUDA-graph replays timed with CUDA events; SDPA is a yardstick
-   the port never calls) and the bound (bytes over 3.35 TB/s or
-   operations over the peak of the input type, whichever is larger).
+   a windowed case and an hd-64 group-1 case, each in bf16 and f32; then
+   the other routes of the same kernel at the same shapes, decode and a
+   256-row chunk each: a paged pool read through a shuffled table (pages
+   of 64 and of 16 rows), int8 codes with f32 scales in a dense cache and
+   in a pool. Per case: max error, kernel / plain / library times
+   (CUDA-graph replays timed with CUDA events; the library yardstick, which
+   the port never calls, is ``scaled_dot_product_attention`` after a
+   gather of the pool and a dequantization of the codes into a dense
+   view) and the bound (bytes over 3.35 TB/s or operations over the peak
+   of the query type, whichever is larger). A paged case must equal the
+   dense route on the same rows bit for bit.
 3. Llama-3-8B with random weights: a 512-token prefill (two chunks of
    256) and 8 greedy decode steps through the kernel path and through the
-   plain path; last-position f32 logits compared.
+   plain path; last-position f32 logits compared. The same through a
+   paged pool and through an int8 pool: kernel path against plain path in
+   f32, and the paged kernel path bit for bit against the dense one.
 4. The server (``serving/server.py``) with ``--preset llama3_8b --slots 8
    --maxLen 2048 --chunkedPrefill 256`` on 127.0.0.1: six concurrent
    ``/v1/generate`` requests (one streamed, one with logprobs), launch
-   counts over exactly that run, and one request replayed alone.
+   counts over exactly that run, and one request replayed alone. Then the
+   same six requests on ``--kvLayout paged --kvPageSize 64 --kvPages 65``
+   (64 allocatable pages against the 79 the six reserve together, so an
+   admission must wait): the dense run's tokens, every launch on the paged
+   route, the pool empty at the end; and on ``--cacheQuant int8``, paged
+   and dense.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -41,7 +54,8 @@ Phases (any failed check exits non-zero without the final line):
    memory. Then one step of a 2-layer f32 copy at the same B and S
    through the kernels and through the plain attention: loss and
    grad_norm compared.
-7. One ``{"kernels": [...]}`` line (all four kernels).
+7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
+   kernel's entry carries its four routes).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -141,7 +155,7 @@ def graph_ms(torch, fn, reps: int, iters: int = 5) -> float:
 def kernel_cases():
     bases8 = [-1, 0, 1, 255, 256, 1000, 2046, 2047]
     full = dict(hq=32, hkv=8, hd=128, s=2048)
-    return [
+    cases = [
         dict(name="decode", b=8, t=1, bases=bases8, window=0, **full),
         dict(name="prefill_t256_base0", b=1, t=256, bases=[0], window=0,
              **full),
@@ -156,23 +170,45 @@ def kernel_cases():
         dict(name="decode_hd64_group1", b=8, t=1, bases=bases8, window=0,
              hq=8, hkv=8, hd=64, s=2048),
     ]
+    for case in cases:
+        case.update(route="dense", ps=0)
+    # the other routes at the serving shapes: decode and one deep chunk
+    for route, ps in (("paged", 64), ("paged", 16), ("int8_dense", 0),
+                      ("int8_paged", 64)):
+        tag = route + (f"_ps{ps}" if ps else "")
+        cases += [
+            dict(name=f"decode_{tag}", b=8, t=1, bases=bases8, window=0,
+                 route=route, ps=ps, **full),
+            dict(name=f"prefill_t256_base1536_{tag}", b=1, t=256,
+                 bases=[1536], window=0, route=route, ps=ps, **full),
+        ]
+    return cases
 
 
 def bound(case, rpa, torch, dtype_name: str) -> tuple[float, str, dict]:
     """Least time for the work this case's data needs: every input byte
-    read once (q, the K/V rows some query attends, base), the output
-    written once; 4 * hd operations per (query, q head, attended row)."""
+    read once (q, the K/V rows some query attends with their scale rows on
+    an int8 cache, base, the table entries of those rows), the output
+    written once; 4 * hd operations per (query, q head, attended row), at
+    the query type's peak."""
     elem = 2 if dtype_name == "bfloat16" else 4
+    quantized = case["route"].startswith("int8")
     base = torch.tensor(case["bases"], dtype=torch.int32)
     rows = rpa.attended_rows(base, case["t"], case["window"])   # (B, T)
     q_pos = torch.clamp(base[:, None].long() + torch.arange(case["t"]), min=0)
-    kv_rows = 0
+    kv_rows = table_entries = 0
     for b in range(case["b"]):
         lo = int((q_pos[b] - rows[b] + 1).min())
-        kv_rows += int(q_pos[b].max()) - lo + 1
+        hi = int(q_pos[b].max())
+        kv_rows += hi - lo + 1
+        if case["ps"]:
+            table_entries += hi // case["ps"] - lo // case["ps"] + 1
     q_bytes = case["b"] * case["t"] * case["hq"] * case["hd"] * elem
-    kv_bytes = 2 * kv_rows * case["hkv"] * case["hd"] * elem
-    nbytes = 2 * q_bytes + kv_bytes + 4 * case["b"]
+    kv_bytes = 2 * kv_rows * case["hkv"] * case["hd"] * (1 if quantized
+                                                         else elem)
+    if quantized:
+        kv_bytes += 2 * kv_rows * case["hkv"] * 4
+    nbytes = 2 * q_bytes + kv_bytes + 4 * case["b"] + 4 * table_entries
     flops = 4 * case["hd"] * case["hq"] * int(rows.sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -180,7 +216,42 @@ def bound(case, rpa, torch, dtype_name: str) -> tuple[float, str, dict]:
     return max(t_bytes, t_ops), by, {"bytes": nbytes, "flops": flops}
 
 
-def phase_kernels(torch, rpa) -> list[dict]:
+def route_operands(torch, quant, case, k, v, gen):
+    """The dense rows ``k``/``v`` (B, S, Hkv, hd) as the case's route
+    takes them: (k, v, k_scale, v_scale, pages). int8 routes quantize the
+    rows with the cache's own recipe; paged routes scatter them into a
+    pool through a shuffled table that reserves, per slot, the pages its
+    live rows need (the rest of its row is 0, the trap page, which holds
+    finite garbage)."""
+    ks = vs = pages = None
+    if case["route"].startswith("int8"):
+        k, ks = quant.quantize_int8(k, axis=-1)
+        v, vs = quant.quantize_int8(v, axis=-1)
+    if case["ps"]:
+        ps, b = case["ps"], case["b"]
+        nsp = case["s"] // ps
+        n_pages = 1 + b * nsp
+        ids = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+               + 1).int()
+        pages = torch.zeros((b, nsp), dtype=torch.int32, device="cuda")
+        for i, base in enumerate(case["bases"]):
+            n = max(1, -(-(base + case["t"]) // ps))
+            pages[i, :n] = ids[i * nsp:i * nsp + n]
+
+        def pool_of(rows, trap):
+            pool = torch.empty((n_pages, ps, *rows.shape[2:]),
+                               dtype=rows.dtype, device="cuda")
+            pool[ids.long()] = rows.reshape(b * nsp, ps, *rows.shape[2:])
+            pool[0] = trap
+            return pool
+
+        k, v = pool_of(k, k[0, :ps]), pool_of(v, v[0, :ps])
+        if ks is not None:
+            ks, vs = pool_of(ks, ks[0, :ps]), pool_of(vs, vs[0, :ps])
+    return k, v, ks, vs, pages
+
+
+def phase_kernels(torch, rpa, quant) -> list[dict]:
     import torch.nn.functional as F
 
     results = []
@@ -193,33 +264,53 @@ def phase_kernels(torch, rpa) -> list[dict]:
                                     ("b", "t", "hq", "hkv", "hd", "s"))
             q = torch.randn((b, t, hq, hd), generator=gen, device="cuda",
                             dtype=dtype)
-            k = torch.randn((b, s, hkv, hd), generator=gen, device="cuda",
-                            dtype=dtype)
-            v = torch.randn((b, s, hkv, hd), generator=gen, device="cuda",
-                            dtype=dtype)
+            k0 = torch.randn((b, s, hkv, hd), generator=gen, device="cuda",
+                             dtype=dtype)
+            v0 = torch.randn((b, s, hkv, hd), generator=gen, device="cuda",
+                             dtype=dtype)
             base = torch.tensor(case["bases"], dtype=torch.int32,
                                 device="cuda")
-            kw = dict(scale=hd ** -0.5, window=case["window"])
+            k, v, ks, vs, pages = route_operands(torch, quant, case, k0, v0,
+                                                 gen)
+            kw = dict(scale=hd ** -0.5, window=case["window"], k_scale=ks,
+                      v_scale=vs)
 
             def kernel():
-                return rpa.ragged_paged_attention(q, k, v, base, **kw)
+                return rpa.ragged_paged_attention(q, k, v, base, pages, **kw)
 
             def plain():
                 return rpa.ragged_paged_attention_reference(q, k, v, base,
-                                                            **kw)
+                                                            pages, **kw)
 
             got = kernel()
             want = plain()
             torch.cuda.synchronize()
+            label = f"{case['name']} {dname}"
             if not torch.isfinite(got).all():
-                fail(f"{case['name']} {dname}: non-finite kernel output")
+                fail(f"{label}: non-finite kernel output")
             err = float((got.float() - want.float()).abs().max())
             if not torch.allclose(got.float(), want.float(), **TOL[dname]):
-                fail(f"{case['name']} {dname}: kernel disagrees with its "
-                     f"plain version (max abs err {err:.3e}, {TOL[dname]})")
+                fail(f"{label}: kernel disagrees with its plain version "
+                     f"(max abs err {err:.3e}, {TOL[dname]})")
+            if pages is not None:
+                # the same rows through the dense route of the same cache
+                # type: the layouts must agree bit for bit
+                dense_case = dict(case, ps=0)
+                dk, dv, dks, dvs, _ = route_operands(torch, quant, dense_case,
+                                                     k0, v0, gen)
+                dense = rpa.ragged_paged_attention(
+                    q, dk, dv, base, scale=kw["scale"],
+                    window=case["window"], k_scale=dks, v_scale=dvs)
+                if not torch.equal(got, dense):
+                    fail(f"{label}: the paged route differs from the dense "
+                         "route on the same rows (max abs "
+                         f"{float((got.float() - dense.float()).abs().max()):.3e})")
+                del dk, dv, dks, dvs, dense
 
-            # the library yardstick: SDPA over the whole cache with the
-            # same boolean mask (reads every row, not just the live span)
+            # the library yardstick: a gather of the pool and a
+            # dequantization into a dense view of q's type where the route
+            # needs them, then SDPA over the whole cache with the same
+            # boolean mask (it reads every row, not just the live span)
             q_pos = torch.clamp(base[:, None].long()
                                 + torch.arange(t, device="cuda"), min=0)
             k_pos = torch.arange(s, device="cuda")
@@ -227,20 +318,37 @@ def phase_kernels(torch, rpa) -> list[dict]:
             if case["window"]:
                 mask &= q_pos[:, :, None] - k_pos[None, None, :] < case["window"]
             mask = mask[:, None]                       # (B, 1, T, S)
-            qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            qs = q.transpose(1, 2).contiguous()
+            table = None if pages is None else pages.long()
+
+            def dense_view(x, scale):
+                if table is not None:
+                    x = x[table].reshape(b, s, hkv, hd)
+                    scale = None if scale is None else \
+                        scale[table].reshape(b, s, hkv, 1)
+                if scale is not None:
+                    x = (x.float() * scale).to(dtype)
+                return x.transpose(1, 2)
+
+            if case["route"] == "dense":  # nothing to gather or widen
+                ks_, vs_ = (x.transpose(1, 2).contiguous() for x in (k, v))
 
             def library():
+                kk, vv = ((ks_, vs_) if case["route"] == "dense" else
+                          (dense_view(k, ks), dense_view(v, vs)))
                 return F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask, scale=kw["scale"],
+                    qs, kk, vv, attn_mask=mask, scale=kw["scale"],
                     enable_gqa=hq != hkv,
                 )
 
             reps = 20 if t == 1 else 5
             row = {
-                "case": case["name"], "dtype": dname, "b": b, "t": t,
+                "case": case["name"], "route": case["route"],
+                "page_size": case["ps"], "dtype": dname, "b": b, "t": t,
                 "hq": hq, "hkv": hkv, "hd": hd, "s": s,
                 "bases": case["bases"], "window": case["window"],
                 "max_abs_err": err,
+                "paged_equals_dense_bitwise": pages is not None or None,
                 "ms": graph_ms(torch, kernel, reps),
                 "plain_ms": graph_ms(torch, plain, max(1, reps // 4)),
                 "library_ms": graph_ms(torch, library, reps),
@@ -256,15 +364,27 @@ def phase_kernels(torch, rpa) -> list[dict]:
 # --- phase 3 -----------------------------------------------------------------
 
 
+MODEL_ROWS = 576     # phase 3 cache: 512 + 8 rows, whole pages of 64
+MODEL_TABLE = [7, 3, 9, 1, 5, 2, 8, 4, 6]   # nine shuffled pages of a pool
+
+
 def _model_logits(torch, generate, params, cfg, prompt, tokens, plain):
     """Last-position f32 logits of a 512-token prefill (two 256-token
     chunks) and of 8 decode steps fed ``tokens`` (filled in greedily by
-    the first run, followed by the others) — (9, V)."""
-    cache = generate.KVCache.init(cfg, 1, 512 + 8, "cuda")
+    the first run, followed by the others): (9, V), and the cache they
+    left. ``cfg`` names the layout and the cache type."""
+    pages = None
+    if cfg.kv_layout == "paged":
+        cache = generate.KVCache.init_paged(cfg, len(MODEL_TABLE) + 1,
+                                            cfg.kv_page_size, "cuda")
+        pages = torch.tensor([MODEL_TABLE], dtype=torch.int32, device="cuda")
+    else:
+        cache = generate.KVCache.init(cfg, 1, MODEL_ROWS, "cuda")
+    kw = dict(pages=pages, plain_attention=plain)
     for start in (0, 256):
         last = generate._forward_cached(
             params, prompt[:, start:start + 256], cache, start, cfg,
-            last_only=True, plain_attention=plain,
+            last_only=True, **kw,
         )[:, -1]
     logits = [last]
     for i in range(8):
@@ -272,28 +392,41 @@ def _model_logits(torch, generate, params, cfg, prompt, tokens, plain):
             tokens.append(int(logits[-1].argmax()))
         pos = torch.tensor([512 + i], dtype=torch.int32, device="cuda")
         tok = torch.tensor([[tokens[i]]], device="cuda")
-        logits.append(generate._forward_cached(
-            params, tok, cache, pos, cfg, plain_attention=plain,
-        )[:, -1])
+        logits.append(generate._forward_cached(params, tok, cache, pos, cfg,
+                                               **kw)[:, -1])
     out = torch.cat(logits).float()
     if not torch.isfinite(out).all():
         fail("model-level logits are not finite")
-    return out
+    return out, cache
 
 
-def phase_model(torch, server_mod, generate, cfg) -> dict:
+def phase_model(torch, generate, cfg, params) -> dict:
     """The bf16 model through the kernel path and the plain path, and the
     same weights widened to f32 through both paths. In f32 the two paths
     differ only in summation order, so they must agree within
     LOGITS_BOUND; in bf16 each path also rounds differently (the plain
     version rounds probabilities to bf16 before the V product, the kernel
     keeps them in f32), so the bf16 check is that the kernel path lies no
-    further from the f32 model than the plain path does."""
-    import dataclasses
+    further from the f32 model than the plain path does.
 
+    Then the same model on a paged pool (pages of 64 rows, a shuffled
+    table) and on an int8 pool. Unquantized, in f32, the paged kernel path
+    against the paged plain path within LOGITS_BOUND. The paged kernel
+    path bit for bit against the dense one, for bf16, f32 and int8 caches.
+
+    An int8 cache cannot be held to a logits bound across two paths: each
+    path quantizes the rows it computed itself, a last-bit difference
+    moves a value on a rounding boundary to another code, that code moves
+    the next layer's rows by a whole quantization step, and 32 layers of
+    quantizers carry the difference on (the codes that differ and the
+    logits' distance are printed, not bounded). So the int8 kernel is held
+    on identical codes instead: during the f32 int8 kernel-path run every
+    cached-attention call also runs the plain version on the very same
+    operands (the pool as that layer finds it), and the two attention
+    outputs must agree within the f32 kernel tolerance. The int8 cache's
+    distance to the unquantized cache's logits is printed, not bounded."""
     import numpy as np
 
-    params = server_mod.load_params(cfg, seed=SEED, device="cuda")
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = {k: ({n: x.float() for n, x in v.items()}
                     if isinstance(v, dict) else v.float())
@@ -302,15 +435,58 @@ def phase_model(torch, server_mod, generate, cfg) -> dict:
     prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 512)),
                           device="cuda")
     tokens: list[int] = []  # the bf16 kernel path picks; the others follow
-    runs = {}
-    for name, c, p, plain in (("bf16_kernel", cfg, params, False),
-                              ("bf16_plain", cfg, params, True),
-                              ("f32_kernel", cfg32, params32, False),
-                              ("f32_plain", cfg32, params32, True)):
-        runs[name] = _model_logits(torch, generate, p, c, prompt, tokens,
-                                   plain)
+
+    def variant(c, layout, quant):
+        return dataclasses.replace(c, kv_layout=layout, cache_quant=quant,
+                                   kv_page_size=64)
+
+    orig_attention = generate._cached_attention
+    attention_err = {"max": 0.0, "calls": 0}
+
+    def checked_attention(q, k_cache, v_cache, k_scale, v_scale, base, c,
+                          pages=None, verify=False, plain=False):
+        out = orig_attention(q, k_cache, v_cache, k_scale, v_scale, base, c,
+                             pages=pages, verify=verify, plain=False)
+        want = orig_attention(q, k_cache, v_cache, k_scale, v_scale, base, c,
+                              pages=pages, verify=verify, plain=True)
+        if not torch.allclose(out, want, **TOL["float32"]):
+            fail("int8 attention on the model's own codes: kernel and plain "
+                 f"version differ by {float((out - want).abs().max()):.3e}")
+        attention_err["max"] = max(attention_err["max"],
+                                   float((out - want).abs().max()))
+        attention_err["calls"] += 1
+        return out
+
+    runs, caches = {}, {}
+    for name, c, p, layout, quant, plain in (
+            ("bf16_kernel", cfg, params, "dense", "none", False),
+            ("bf16_plain", cfg, params, "dense", "none", True),
+            ("f32_kernel", cfg32, params32, "dense", "none", False),
+            ("f32_plain", cfg32, params32, "dense", "none", True),
+            ("bf16_paged_kernel", cfg, params, "paged", "none", False),
+            ("f32_paged_kernel", cfg32, params32, "paged", "none", False),
+            ("f32_paged_plain", cfg32, params32, "paged", "none", True),
+            ("bf16_int8_dense_kernel", cfg, params, "dense", "int8", False),
+            ("bf16_int8_paged_kernel", cfg, params, "paged", "int8", False),
+            ("f32_int8_paged_kernel", cfg32, params32, "paged", "int8", False),
+            ("f32_int8_paged_plain", cfg32, params32, "paged", "int8", True)):
+        if name == "f32_int8_paged_kernel":
+            generate._cached_attention = checked_attention
+        try:
+            runs[name], cache = _model_logits(
+                torch, generate, p, variant(c, layout, quant), prompt, tokens,
+                plain)
+        finally:
+            generate._cached_attention = orig_attention
+        if name.startswith("f32_int8"):
+            caches[name] = cache
     torch.cuda.synchronize()
-    del params, params32
+    codes = caches["f32_int8_paged_kernel"].k.numel() * 2
+    codes_differ = sum(
+        int((getattr(caches["f32_int8_paged_kernel"], leaf)
+             != getattr(caches["f32_int8_paged_plain"], leaf)).sum())
+        for leaf in ("k", "v"))
+    del params32, caches
     torch.cuda.empty_cache()
 
     def err(a, b):
@@ -333,11 +509,38 @@ def phase_model(torch, server_mod, generate, cfg) -> dict:
              == runs["bf16_plain"].argmax(-1)).sum()),
         "greedy_agreement_bf16_kernel_vs_f32": "%d/9" % int(
             (runs["bf16_kernel"].argmax(-1) == ref.argmax(-1)).sum()),
+        "f32_paged_kernel_vs_plain": err("f32_paged_kernel",
+                                         "f32_paged_plain"),
+        "f32_int8_attention_kernel_vs_plain_same_codes": attention_err["max"],
+        "f32_int8_attention_calls_checked": attention_err["calls"],
+        "f32_int8_paged_kernel_vs_plain_own_codes": err(
+            "f32_int8_paged_kernel", "f32_int8_paged_plain"),
+        "f32_int8_codes_differing_kernel_vs_plain": f"{codes_differ}/{codes}",
+        "bf16_int8_vs_bf16_cache": err("bf16_int8_paged_kernel",
+                                       "bf16_kernel"),
+        "f32_int8_vs_f32_cache": err("f32_int8_paged_kernel", "f32_kernel"),
+        "greedy_agreement_bf16_int8_vs_bf16_cache": "%d/9" % int(
+            (runs["bf16_int8_paged_kernel"].argmax(-1)
+             == runs["bf16_kernel"].argmax(-1)).sum()),
     }
+    bitwise = {"bf16_paged_equals_dense": ("bf16_paged_kernel", "bf16_kernel"),
+               "f32_paged_equals_dense": ("f32_paged_kernel", "f32_kernel"),
+               "int8_paged_equals_int8_dense": ("bf16_int8_paged_kernel",
+                                                "bf16_int8_dense_kernel")}
+    for key, (a, b) in bitwise.items():
+        out[key] = bool(torch.equal(runs[a], runs[b]))
     emit(out)
-    if out["f32_kernel_vs_plain"] > LOGITS_BOUND:
-        fail(f"f32 kernel-path logits differ from the plain path by "
-             f"{out['f32_kernel_vs_plain']:.3e} > {LOGITS_BOUND}")
+    if attention_err["calls"] != cfg.n_layers * 10:
+        fail(f"the int8 attention check saw {attention_err['calls']} calls, "
+             f"not {cfg.n_layers} layers x (2 chunks + 8 steps)")
+    for key in ("f32_kernel_vs_plain", "f32_paged_kernel_vs_plain"):
+        if out[key] > LOGITS_BOUND:
+            fail(f"{key}: f32 kernel-path logits differ from the plain "
+                 f"path by {out[key]:.3e} > {LOGITS_BOUND}")
+    for key, (a, b) in bitwise.items():
+        if not out[key]:
+            fail(f"{key}: the paged kernel path's logits differ from the "
+                 f"dense kernel path's by {err(a, b):.3e}, not bit-identical")
     if out["bf16_kernel_vs_f32"] > BF16_FACTOR * out["bf16_plain_vs_f32"]:
         fail(f"bf16 kernel path is {out['bf16_kernel_vs_f32']:.3e} from the "
              f"f32 model, more than {BF16_FACTOR}x the plain path's "
@@ -382,15 +585,32 @@ def _post(url: str, body: dict) -> tuple[list[int], "list[float] | None", float]
         return toks, None, first
 
 
-def phase_serving(torch, server_mod, kernel_support, cfg) -> dict:
+# the serving runs: route -> the flags it adds to the base command line
+SERVING_RUNS = {
+    "dense": [],
+    "paged": ["--kvLayout", "paged", "--kvPageSize", "64", "--kvPages", "65"],
+    "int8_paged": ["--kvLayout", "paged", "--kvPageSize", "64", "--kvPages",
+                   "65", "--cacheQuant", "int8"],
+    "int8_dense": ["--cacheQuant", "int8"],
+}
+
+
+def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
+                  route: str, dense_tokens=None) -> dict:
+    """The server on one route of the kernel: the six requests of
+    REQUESTS at once, every launch of exactly that run counted by route.
+    ``dense_tokens`` (the dense run's streams) must come back token for
+    token from an unquantized pool. A paged run must make at least one
+    admission wait (the pool holds 64 pages, the six reserve 79) and
+    leave the pool empty and consistent."""
     import numpy as np
 
     args = server_mod.build_parser().parse_args([
         "--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
         "--chunkedPrefill", "256", "--host", "127.0.0.1", "--port", "0",
-        "--seed", str(SEED),
+        "--seed", str(SEED), *SERVING_RUNS[route],
     ])
-    server = server_mod.build_server(args)
+    server = server_mod.build_server(args, params=params)
     server.start()
     url = f"http://127.0.0.1:{server.bound_port}"
     try:
@@ -424,38 +644,59 @@ def phase_serving(torch, server_mod, kernel_support, cfg) -> dict:
         for th in threads:
             th.join(900)
         wall = time.perf_counter() - t0
-        launches = kernel_support.launch_counts().get(
-            "ragged_paged_attention", 0)
+        counts = kernel_support.launch_counts()
+        launches = counts.get(rpa.route_key(route), 0)
         if errors or any(r is None for r in results):
-            fail(f"serving requests failed: {errors}")
+            fail(f"{route} serving requests failed: {errors}")
         health = server.engine.stats()
         decode_steps = health["decode_steps"] - steps0
         chunks = health["prefill_chunks"] - chunks0
         for i, ((toks, lps, _), (plen, max_new)) in enumerate(
                 zip(results, REQUESTS)):
             if len(toks) != max_new:
-                fail(f"request {i} (prompt {plen}) returned {len(toks)} "
-                     f"tokens, wanted {max_new}")
+                fail(f"{route}: request {i} (prompt {plen}) returned "
+                     f"{len(toks)} tokens, wanted {max_new}")
             if i == WITH_LOGPROBS and (lps is None or len(lps) != max_new
                                        or not all(x <= 0 for x in lps)):
-                fail(f"request {i}: bad logprobs {lps}")
+                fail(f"{route}: request {i}: bad logprobs {lps}")
         need = cfg.n_layers * (decode_steps + chunks)
-        if launches < need:
-            fail(f"the kernel launched {launches} times; the serving run "
-                 f"needs {need} = {cfg.n_layers} layers x ({decode_steps} "
-                 f"decode steps + {chunks} prefill chunks)")
-        # the streamed request again, alone: its greedy stream must not
-        # depend on the batch it was served in
-        alone, _, _ = _post(url, {"prompt": bodies[STREAMED]["prompt"],
-                                  "max_new": REQUESTS[STREAMED][1]})
-        batched = results[STREAMED][0]
-        if alone != batched:
-            first = next(i for i, (x, y) in enumerate(zip(alone, batched))
-                         if x != y)
-            fail(f"greedy stream served alone differs from the batched one "
-                 f"at token {first}")
+        if launches < need or counts.get(rpa.NAME, 0) != launches:
+            fail(f"the kernel launched {launches} times on the {route} "
+                 f"route ({counts}); the serving run needs {need} = "
+                 f"{cfg.n_layers} layers x ({decode_steps} decode steps + "
+                 f"{chunks} prefill chunks), all on that route")
+        tokens = [r[0] for r in results]
+        if dense_tokens is not None and tokens != dense_tokens:
+            bad = next(i for i, (x, y) in enumerate(zip(tokens, dense_tokens))
+                       if x != y)
+            fail(f"{route}: request {bad}'s greedy stream differs from the "
+                 "dense run's")
+        kv = health["kv"]
+        want_bytes = (65 * 64 if "paged" in route else 8 * 2048) * (
+            67584 if "int8" in route else 131072)
+        if kv["reserved_bytes"] != want_bytes:
+            fail(f"{route}: reserved_bytes {kv['reserved_bytes']}, wanted "
+                 f"{want_bytes}")
+        if "paged" in route:
+            if kv["admission_rejected"]["pool_pressure"] < 1:
+                fail(f"{route}: no admission waited for pages: {kv}")
+            cb.pool.check()
+            if kv["pages_in_use"] != 0 or cb.pool.in_use != 0:
+                fail(f"{route}: pages still in use after the run: {kv}")
+        if route == "dense":
+            # the streamed request again, alone: its greedy stream must not
+            # depend on the batch it was served in
+            alone, _, _ = _post(url, {"prompt": bodies[STREAMED]["prompt"],
+                                      "max_new": REQUESTS[STREAMED][1]})
+            batched = results[STREAMED][0]
+            if alone != batched:
+                first = next(i for i, (x, y) in enumerate(zip(alone, batched))
+                             if x != y)
+                fail(f"greedy stream served alone differs from the batched "
+                     f"one at token {first}")
         out = {
-            "phase": 4, "requests": len(bodies), "wall_s": wall,
+            "phase": 4, "route": route, "flags": SERVING_RUNS[route],
+            "requests": len(bodies), "wall_s": wall,
             "launches": launches, "decode_steps": decode_steps,
             "prefill_chunks": chunks, "launches_needed": need,
             "ttft_s_p50": health["ttft_s_p50"],
@@ -463,11 +704,14 @@ def phase_serving(torch, server_mod, kernel_support, cfg) -> dict:
             "decode_tokens_per_s": health["decode_tokens_per_s"],
             "decode_step_ms_mean": health["decode_step_ms_mean"],
             "prefill_chunk_ms_mean": health["prefill_chunk_ms_mean"],
-            "alone_equals_batched": True,
+            "kv": kv,
+            "equals_dense_tokens": dense_tokens is not None or None,
+            "alone_equals_batched": route == "dense" or None,
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2**30,
+            "tokens": tokens,
         }
-        emit(out)
+        emit({k: v for k, v in out.items() if k != "tokens"})
         return out
     finally:
         server.stop()
@@ -774,6 +1018,7 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.ops import attention as attention_mod
         from k8s_gpu_device_plugin_torch.ops import flash_attention as fa
         from k8s_gpu_device_plugin_torch.ops import kernel_support
+        from k8s_gpu_device_plugin_torch.ops import quant
         from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
         from k8s_gpu_device_plugin_torch.serving import server as server_mod
     except ImportError as e:
@@ -792,30 +1037,58 @@ def main() -> None:
             build.result()
     emit({"phase": 1, "build_s": time.perf_counter() - t0})
 
-    cases = phase_kernels(torch, rpa)
+    cases = phase_kernels(torch, rpa, quant)
     flash = phase_flash(torch, fa)
     cfg = llama.LlamaConfig.llama3_8b()
-    phase_model(torch, server_mod, generate, cfg)
-    serving = phase_serving(torch, server_mod, kernel_support, cfg)
+    # one set of random 8B weights for the model check and the servers
+    params = server_mod.load_params(cfg, seed=SEED, device="cuda")
+    phase_model(torch, generate, cfg, params)
+    serving = {"dense": phase_serving(torch, server_mod, kernel_support, rpa,
+                                      cfg, params, "dense")}
+    for route in ("paged", "int8_paged", "int8_dense"):
+        serving[route] = phase_serving(
+            torch, server_mod, kernel_support, rpa, cfg, params, route,
+            dense_tokens=serving["dense"]["tokens"] if route == "paged"
+            else None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     training = phase_training(torch, kernel_support, attention_mod, llama,
                               train, trainer_mod)
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head = next(c for c in cases
                 if c["case"] == "decode" and c["dtype"] == "bfloat16")
     err_bf16 = max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16")
     err_f32 = max(c["max_abs_err"] for c in cases if c["dtype"] == "float32")
+    routes = {}
+    for route in rpa.ROUTES:  # each route's bf16 decode case heads its entry
+        mine = [c for c in cases if c["route"] == route]
+        first = next(c for c in mine if c["t"] == 1 and c["window"] == 0
+                     and c["dtype"] == "bfloat16" and c["hd"] == 128)
+        routes[route] = {
+            "launches": serving[route]["launches"],
+            "max_err_bf16": max(c["max_abs_err"] for c in mine
+                                if c["dtype"] == "bfloat16"),
+            "max_err_f32": max(c["max_abs_err"] for c in mine
+                               if c["dtype"] == "float32"),
+            "headline_case": first["case"], **{k: first[k] for k in keys},
+            "decode_step_ms_mean": serving[route]["decode_step_ms_mean"],
+            "reserved_bytes": serving[route]["kv"]["reserved_bytes"],
+        }
     kernels = [kernel_entry(
         "ragged_paged_attention",
         "k8s_gpu_device_plugin_torch/ops/csrc/ragged_paged_attention.cu",
         "k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py:142",
-        serving["launches"],
+        sum(r["launches"] for r in routes.values()),
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
-        {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")},
-        {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128",
-         "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "ms",
-                                      "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")} for c in cases]})]
+        {k: head[k] for k in keys},
+        {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
+                          "dense route",
+         "routes": routes,
+         "cases": [{k: c[k] for k in ("case", "route", "dtype",
+                                      "max_abs_err", *keys)}
+                   for c in cases]})]
     fhead = next(c for c in flash
                  if c["case"] == "causal" and c["dtype"] == "bfloat16")
     outputs = {"flash_fwd": ("o", "lse"), "flash_bwd_dkv": ("dk", "dv"),

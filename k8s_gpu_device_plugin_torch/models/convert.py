@@ -1,10 +1,13 @@
-"""Parameter conversion between the JAX reference and the port.
+"""Parameter and KV-cache conversion between the JAX reference and the
+port.
 
 The two packages share one weight layout (models/llama.py states it):
 stacked ``layers`` leaves with a leading layer axis, projections stored
 ``(in, out)``, ``embed`` (V, d), ``final_norm`` (d,), ``lm_head`` (d, V).
 So conversion is a per-leaf copy with no transposes — the parity tests
-feed both frameworks the same numbers.
+feed both frameworks the same numbers. A KV cache converts the same way
+(:func:`kv_cache_from_jax`): both packages keep one geometry per layout,
+so tests can start both from one cache.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
+from k8s_gpu_device_plugin_torch.models.generate import KVCache
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
 
 
@@ -83,3 +87,48 @@ def params_to_numpy(params: dict) -> dict:
             x = leaf.detach().cpu()
             out[name] = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return out
+
+
+def kv_cache_from_jax(np_cache: dict, cfg: LlamaConfig,
+                      device: "str | torch.device | None" = "cuda") -> KVCache:
+    """The leaves of a reference ``KVCache`` as numpy arrays, ``{"k",
+    "v", "k_scale", "v_scale"}`` (the scales None or absent on an
+    unquantized cache), dense (L, B, S, Hkv, hd) or a paged pool
+    (L, n_pages, page_size, Hkv, hd), -> the port's ``KVCache`` on
+    ``device`` with the same bytes. Refuses leaves that do not match
+    ``cfg``'s cache dtype and geometry."""
+    dev = resolve_device(device)
+    quantized = cfg.cache_quant == "int8"
+    k, v = np_cache["k"], np_cache["v"]
+    scales = (np_cache.get("k_scale"), np_cache.get("v_scale"))
+    if quantized != all(s is not None for s in scales) or \
+            quantized != any(s is not None for s in scales):
+        raise ValueError(
+            f"cache_quant={cfg.cache_quant!r} wants "
+            f"{'both' if quantized else 'no'} scale planes"
+        )
+    want_dtype = "int8" if quantized else str(cfg.dtype).split(".")[-1]
+    want_tail = (cfg.n_kv_heads, cfg.head_dim)
+    for name, leaf in (("k", k), ("v", v)):
+        if leaf.dtype.name != want_dtype or leaf.ndim != 5 or \
+                leaf.shape[0] != cfg.n_layers or leaf.shape[3:] != want_tail:
+            raise ValueError(
+                f"{name} is {leaf.dtype.name} {leaf.shape}, cfg wants "
+                f"{want_dtype} ({cfg.n_layers}, *, *, {want_tail[0]}, "
+                f"{want_tail[1]})"
+            )
+    for name, leaf in zip(("k_scale", "v_scale"), scales):
+        if leaf is not None and (leaf.dtype.name != "float32"
+                                 or leaf.shape != (*k.shape[:-1], 1)):
+            raise ValueError(
+                f"{name} is {leaf.dtype.name} {leaf.shape}, wanted float32 "
+                f"{(*k.shape[:-1], 1)}"
+            )
+    kv_dtype = torch.int8 if quantized else cfg.dtype
+    return KVCache(
+        k=_tensor(k, kv_dtype, dev), v=_tensor(v, kv_dtype, dev),
+        k_scale=None if scales[0] is None else _tensor(scales[0],
+                                                        torch.float32, dev),
+        v_scale=None if scales[1] is None else _tensor(scales[1],
+                                                        torch.float32, dev),
+    )

@@ -20,8 +20,8 @@ reference scans them, and wraps each block in ``torch.utils.checkpoint``
 when ``remat`` is set; its attention goes through
 ``ops.attention.attention`` (the flash kernels on the card).
 
-The config refuses the values the port does not serve yet (paged KV,
-quantized KV or weights, MoE, tensor, sequence and pipeline
+The config refuses the values the port does not serve yet (int4 KV
+codes, quantized weights, MoE, tensor, sequence and pipeline
 parallelism, fused cross-entropy) instead of ignoring them; each refusal
 names its ROADMAP item.
 """
@@ -36,6 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
+from k8s_gpu_device_plugin_torch.models.quantized_serving import (
+    check_cache_quant_kv_layout,
+)
 from k8s_gpu_device_plugin_torch.ops.attention import attention
 
 REMAT_POLICIES = ("save_dots_attn", "save_dots", "save_nothing")
@@ -79,8 +82,18 @@ class LlamaConfig:
     n_microbatches: int = 1
     fused_ce: bool = False
     quant: str = "none"
+    # KV-cache storage for serving (models/generate.py): "int8" keeps K/V
+    # as codes with one f32 scale per (position, kv head), dequantized in
+    # the attention kernel; "int4" is refused (ROADMAP A9, B7)
     cache_quant: str = "none"
+    # serving KV layout (models/batching.py): "dense" reserves max_len
+    # rows per slot; "paged" maps slots onto a shared pool of
+    # kv_page_size-row pages through per-slot page tables
+    # (models/paging.py). Scale planes ride the same page geometry.
     kv_layout: str = "dense"
+    # token rows per page when kv_layout == "paged": must divide the
+    # batcher's max_len; the kernel takes a power of two >= 8
+    kv_page_size: int = 64
     tp: int = 1
     n_experts: int = 0
 
@@ -110,11 +123,12 @@ class LlamaConfig:
                 "single-device attention, 'auto' (the reference's 'full' "
                 "without sequence parallelism)"
             )
+        check_cache_quant_kv_layout(self)
+        if self.kv_page_size < 1:
+            raise ValueError(
+                f"kv_page_size must be >= 1, got {self.kv_page_size}"
+            )
         refusals = (
-            ("kv_layout", "dense", "the paged KV pool (models/paging.py) "
-             "is not ported yet (ROADMAP A6); serve kv_layout='dense'"),
-            ("cache_quant", "none", "quantized KV caches are not ported "
-             "yet (ROADMAP A9); serve cache_quant='none' (bf16 cache)"),
             ("quant", "none", "int8 weight matmuls are not ported yet "
              "(ROADMAP A8, A9); use quant='none'"),
             ("n_experts", 0, "MoE MLPs are not ported yet (ROADMAP A10); "

@@ -13,9 +13,10 @@ Port of ``k8s_gpu_device_plugin_tpu/ops/attention.py``:
 - ``serving_cache_attention`` and ``attention_backend_plan``. The
   reference routes a shape onto its Pallas kernel only when opted in
   and otherwise runs an XLA gather; here there is one route per device:
-  CUDA tensors go to the hand-written ragged-paged kernel (decode T=1
-  and every prefill chunk alike) and CPU tensors to its plain version.
-  A shape the kernel does not take raises; it never falls back.
+  CUDA tensors go to the hand-written ragged-paged kernel (decode T=1,
+  verify windows and every prefill chunk alike; dense or paged cache,
+  bf16/f32 or int8 codes) and CPU tensors to its plain version. A shape
+  the kernel does not take raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -76,22 +77,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def serving_cache_attention(
     q: torch.Tensor,              # (B, T, Hq, hd)
-    k_cache: torch.Tensor,        # dense (B, S, Hkv, hd)
+    k_cache: torch.Tensor,        # dense (B, S, Hkv, hd) | paged pool
     v_cache: torch.Tensor,
     length: "int | torch.Tensor",  # scalar or (B,) int: first-query position
+    pages: "torch.Tensor | None" = None,  # (B, n_slot_pages) int32
+    verify: bool = False,
     *,
     window: int = 0,
+    k_scale: "torch.Tensor | None" = None,
+    v_scale: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """One serving cache-attention call: query r of slot b sits at
-    ``length[b] + r`` (decode's single query at ``length``)."""
-    b, _, _, hd = q.shape
+    ``length[b] + r`` (decode's single query at ``length``). ``pages``
+    marks the caches as a paged pool; ``k_scale``/``v_scale`` mark them
+    as int8 codes. ``verify`` says the T rows are a speculative verify
+    window, which the reference bounds at 2 <= T <= ``MAX_VERIFY_T``: a
+    wider or narrower one raises, so a prefill chunk can never pass for
+    one."""
+    b, t, _, hd = q.shape
+    if verify and not 2 <= t <= rpa.MAX_VERIFY_T:
+        raise ValueError(
+            f"a verify window holds 2..{rpa.MAX_VERIFY_T} rows, got T={t}"
+        )
     if isinstance(length, torch.Tensor):
         base = length.to(device=q.device, dtype=torch.int32).expand(b)
         base = base.contiguous()
     else:
         base = torch.full((b,), int(length), dtype=torch.int32, device=q.device)
     return rpa.ragged_paged_attention(
-        q, k_cache, v_cache, base, scale=hd ** -0.5, window=window
+        q, k_cache, v_cache, base, pages, scale=hd ** -0.5, window=window,
+        k_scale=k_scale, v_scale=v_scale,
     )
 
 
@@ -101,18 +116,30 @@ def attention_backend_plan(
     n_heads: int,
     n_kv_heads: int,
     head_dim: int,
+    kv_layout: str = "dense",
+    page_size: int = 0,
+    cache_quant: str = "none",
     chunk: int = 0,
     window: int = 0,
 ) -> dict:
-    """{"decode"|"prefill": {"backend": "cuda"|"plain"|"unsupported",
-    "reason": ...}}: which backend each serving mode takes on
-    ``device`` and why, from config facts alone — the startup report
-    ``/v1/health``'s ``decode_attn`` section carries. "unsupported"
-    means the kernel would raise on this geometry; the batcher refuses
-    such a config at construction."""
+    """{"decode"|"verify"|"prefill": {"backend": "cuda"|"plain"|
+    "unsupported", "reason": ...}}: which backend each serving mode
+    takes on ``device`` and why, from config facts alone: the startup
+    report ``/v1/health``'s ``decode_attn`` section carries.
+    "unsupported" means the wrapper would raise on this geometry (a head
+    dim, a GQA group or a page size off the kernel's gate; int4 codes);
+    the batcher refuses such a config at construction."""
     dev = torch.device(device)
+    route = rpa.route_name(kv_layout == "paged", cache_quant != "none")
 
     def gate(mode: str) -> dict:
+        if cache_quant not in ("none", "int8"):
+            return {"backend": "unsupported", "reason":
+                    f"cache_quant={cache_quant!r}: the kernel takes int8 "
+                    "codes only (int4: ROADMAP B7)"}
+        why = rpa.page_size_refusal(page_size) if kv_layout == "paged" else None
+        if why:
+            return {"backend": "unsupported", "reason": why}
         if dev.type == "cpu":
             return {"backend": "plain", "reason":
                     "CPU tensors take the plain PyTorch version"}
@@ -125,14 +152,20 @@ def attention_backend_plan(
             return {"backend": "unsupported", "reason":
                     f"n_heads={n_heads} not a multiple of n_kv_heads="
                     f"{n_kv_heads} with a group <= {rpa.MAX_GROUP}"}
-        reason = "hand-written ragged-paged CUDA kernel (sm_90a)"
+        reason = (f"hand-written ragged-paged CUDA kernel (sm_90a), "
+                  f"route {route}")
+        if kv_layout == "paged":
+            reason += f", pages of {page_size} rows"
         if mode == "prefill" and chunk:
             reason += f", chunk of {chunk} rows"
+        if mode == "verify":
+            reason += f", windows of 2..{rpa.MAX_VERIFY_T} rows"
         if window > 0:
             reason += f", sliding window={window}"
         return {"backend": "cuda", "reason": reason}
 
-    plan = {mode: gate(mode) for mode in ("decode", "prefill")}
+    plan = {mode: gate(mode) for mode in ("decode", "verify", "prefill")}
     for entry in plan.values():
         entry["window"] = int(window)
+        entry["route"] = route
     return plan

@@ -1,14 +1,20 @@
-// Ragged-paged attention, dense route, hand-written for Hopper (sm_90a).
+// Ragged-paged attention, hand-written for Hopper (sm_90a): the dense and
+// the paged route, over bf16/f32 caches and over int8 codes dequantized
+// in the kernel.
 //
 // Replaces the TPU kernel _rpa_kernel in
-// k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py (the dense
-// route of the Pallas body the reference builds in _rpa_call).
+// k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py (the one Pallas
+// body the reference builds in _rpa_call, with its static
+// specializations: the page-table index map and `quantized`).
 //
 // What it computes. q is (B, T, Hq, hd): T query rows per slot, row r of
 // slot b at position q_pos = max(base[b] + r, 0). k and v are the dense
-// cache (B, S, Hkv, hd). Row r attends cache rows pos <= q_pos (and, when
-// window > 0, q_pos - pos < window); softmax in f32 with the online
-// (m, l, acc) recurrence; out = acc / max(l, 1e-30) in q's dtype. The
+// cache (B, S, Hkv, hd), or a pool of pages (n_pages, ps, Hkv, hd) read
+// through a table (B, n_slot_pages) int32: cache row `pos` of slot b is
+// pool row table[b, pos / ps] * ps + pos % ps, and S = n_slot_pages * ps.
+// Row r attends cache rows pos <= q_pos (and, when window > 0,
+// q_pos - pos < window); softmax in f32 with the online (m, l, acc)
+// recurrence; out = acc / max(l, 1e-30) in q's dtype. The
 // q_pos clamp keeps one attended row for an empty slot (base = -1): its
 // output is defined and then discarded by the caller. GQA folds the
 // `group = Hq / Hkv` q heads of one kv head onto that head: K/V are never
@@ -22,8 +28,9 @@
 // from one shared-memory K/V tile, and the block's kv loop covers only
 // the live span first_block(base+1) .. last_block(base+T) of its row tile
 // (the TPU kernel's clamped index map), so dead cache rows are never
-// loaded. The next K/V tile is fetched into registers while the current
-// one is consumed. Prefill chunks (T up to 256 and beyond) re-read the
+// loaded. int8 codes halve those bytes (a row is hd codes and one f32
+// scale per kv head). The next K/V tile is fetched into registers while the
+// current one is consumed. Prefill chunks (T up to 256 and beyond) re-read the
 // span once per 64-row tile and do their arithmetic on the CUDA cores in
 // f32; wgmma, TMA and split-K are later work.
 //
@@ -34,12 +41,35 @@
 // kv tiles, fixed in-tile order) and there are no atomics: a slot's
 // output does not depend on its neighbours or on the launch.
 //
-// Types: f32 or bf16 inputs (one element type for q, k, v and out), hd in
-// {64, 128}; all arithmetic is f32.
+// Layouts. The kv loop walks the same 64-row tiles whatever the layout
+// and resolves each row of a tile through the table, so a row's
+// accumulation order depends neither on the layout nor on the page size:
+// the paged route's output is bit-identical to the dense route's on the
+// same rows. The table is never checked on the device (its rows come
+// from the host's page allocator). Entries past a slot's reservation are
+// 0, the trap page: a tile that straddles the end of the reservation
+// reads page 0's rows under a mask. A masked row gets the weight
+// exp(-1e30 - m) = 0 exactly, and 0 * x is 0 only for a finite x: the
+// pool starts as zeros and every later write (a live row, or an inactive
+// slot's write into the trap page) is a finite activation, its code or
+// its scale, so no row of the pool ever holds a NaN or an infinity.
+//
+// Quantized caches. int8 codes arrive with two f32 scale planes shaped
+// like the cache with a last axis of 1, addressed by the same row. A
+// code widens to f32 and multiplies its row's scale while its tile goes
+// to shared memory, before either product (the TPU body does the same in
+// VMEM); the products never see a code. The cache's element type and the
+// layout are template parameters: the bf16 dense instantiation has no
+// table lookup, no scale load and no branch on either.
+//
+// Types: q and out in f32 or bf16; k and v in q's type, or int8 with
+// scales; hd in {64, 128}; ps a power of two; all arithmetic is f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -84,6 +114,21 @@ struct Io<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Io<int8_t> {
+  static constexpr int kPerVec = 16;
+  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        f[4 * i + e] = float(int(int8_t((w[i] >> (8 * e)) & 0xffu)));
+      }
+    }
+  }
+};
+
 // first kv tile a windowed query at `length - 1` can see (0 without one)
 __device__ __forceinline__ int first_block(int length, int window) {
   if (window <= 0) return 0;
@@ -109,13 +154,20 @@ constexpr size_t smem_bytes() {
 
 // One block: ROWS query vectors (tq = ROWS / group query rows x group q
 // heads) of slot blockIdx.x, kv head blockIdx.y, row tile blockIdx.z.
-template <typename T, int HD, int ROWS>
+// TKV is the cache's element type (T, or int8_t with scale planes); PAGED
+// reads k/v as a pool through `pages` (page size 1 << page_shift). The
+// scale and table pointers are read only by the instantiations that need
+// them.
+template <typename T, typename TKV, int HD, int ROWS, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-rpa_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ base,
-                 T* __restrict__ out, int n_q, int hq, int hkv, int s_len,
-                 float scale, int window) {
-  constexpr int kPerVec = Io<T>::kPerVec;
+rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
+           const TKV* __restrict__ v, const float* __restrict__ k_scale,
+           const float* __restrict__ v_scale, const int* __restrict__ base,
+           const int* __restrict__ pages, T* __restrict__ out, int n_q,
+           int hq, int hkv, int s_len, int page_shift, float scale,
+           int window) {
+  constexpr bool kQuant = !std::is_same<TKV, T>::value;
+  constexpr int kPerVec = Io<TKV>::kPerVec;
   constexpr int kVecPerRow = HD / kPerVec;
   constexpr int kVecPerThread = kBlockK * kVecPerRow / kThreads;
   static_assert(kBlockK * kVecPerRow % kThreads == 0, "tile splits evenly");
@@ -171,19 +223,36 @@ rpa_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   uint4 kreg[kVecPerThread];
   uint4 vreg[kVecPerThread];
+  float kscl[kQuant ? kVecPerThread : 1];  // the vectors' rows' scales
+  float vscl[kQuant ? kVecPerThread : 1];
+  const int* table = PAGED ? pages + size_t(b) * (s_len >> page_shift) : nullptr;
   auto fetch = [&](int j) {
 #pragma unroll
     for (int i = 0; i < kVecPerThread; ++i) {
       const int vec = tid + i * kThreads;
       const int pos = j * kBlockK + vec / kVecPerRow;
       if (pos < s_len) {
-        const size_t off = ((size_t(b) * s_len + pos) * hkv + h) * HD +
-                           (vec % kVecPerRow) * kPerVec;
+        size_t row;  // of the dense cache, or of the pool
+        if constexpr (PAGED) {
+          const int page = __ldg(table + (pos >> page_shift));
+          row = (size_t(page) << page_shift) + (pos & ((1 << page_shift) - 1));
+        } else {
+          row = size_t(b) * s_len + pos;
+        }
+        const size_t off = (row * hkv + h) * HD + (vec % kVecPerRow) * kPerVec;
         kreg[i] = __ldg(reinterpret_cast<const uint4*>(k + off));
         vreg[i] = __ldg(reinterpret_cast<const uint4*>(v + off));
+        if constexpr (kQuant) {
+          kscl[i] = __ldg(k_scale + row * hkv + h);
+          vscl[i] = __ldg(v_scale + row * hkv + h);
+        }
       } else {
         kreg[i] = make_uint4(0u, 0u, 0u, 0u);
         vreg[i] = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (kQuant) {
+          kscl[i] = 0.f;
+          vscl[i] = 0.f;
+        }
       }
     }
   };
@@ -195,10 +264,14 @@ rpa_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = (vec % kVecPerRow) * kPerVec;
       float kf[kPerVec];
       float vf[kPerVec];
-      Io<T>::unpack(kreg[i], kf);
-      Io<T>::unpack(vreg[i], vf);
+      Io<TKV>::unpack(kreg[i], kf);
+      Io<TKV>::unpack(vreg[i], vf);
 #pragma unroll
       for (int e = 0; e < kPerVec; ++e) {
+        if constexpr (kQuant) {  // dequantize: code * its row's scale, f32
+          kf[e] *= kscl[i];
+          vf[e] *= vscl[i];
+        }
         ks[row * kKStride + col + e] = kf[e];
         vs[row * HD + col + e] = vf[e];
       }
@@ -298,69 +371,95 @@ rpa_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int ROWS>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* base, void* out, int b, int t, int hq,
-                   int hkv, int s_len, float scale, int window,
-                   cudaStream_t stream) {
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* k_scale;  // null unless the cache holds int8 codes
+  const void* v_scale;
+  const void* base;
+  const void* pages;    // null on the dense route
+  void* out;
+  int b, t, hq, hkv, s_len, page_shift;
+  float scale;
+  int window;
+  cudaStream_t stream;
+};
+
+template <typename T, typename TKV, int HD, int ROWS, bool PAGED>
+cudaError_t launch(const Args& a) {
   constexpr size_t smem = smem_bytes<HD, ROWS>();
-  auto kernel = rpa_dense_kernel<T, HD, ROWS>;
+  auto kernel = rpa_kernel<T, TKV, HD, ROWS, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const int tq = ROWS / (hq / hkv);
-  const dim3 grid(b, hkv, (t + tq - 1) / tq);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(base),
-      static_cast<T*>(out), t, hq, hkv, s_len, scale, window);
+  const int tq = ROWS / (a.hq / a.hkv);
+  const dim3 grid(a.b, a.hkv, (a.t + tq - 1) / tq);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.base),
+      static_cast<const int*>(a.pages), static_cast<T*>(a.out), a.t, a.hq,
+      a.hkv, a.s_len, a.page_shift, a.scale, a.window);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t dispatch_rows(const void* q, const void* k, const void* v,
-                          const void* base, void* out, int b, int t, int hq,
-                          int hkv, int s_len, float scale, int window,
-                          cudaStream_t stream) {
-  const int group = hq / hkv;
+template <typename T, typename TKV, int HD>
+cudaError_t dispatch_rows(const Args& a) {
+  const int group = a.hq / a.hkv;
   // decode (and any window of <= 8 query vectors) takes the narrow row
   // tile: 8 q vectors, so a T=1 GQA-4 block wastes half, not 15/16
-  if (group * t <= 8) {
-    return launch<T, HD, 8>(q, k, v, base, out, b, t, hq, hkv, s_len, scale,
-                            window, stream);
+  if (group * a.t <= 8) {
+    return a.pages ? launch<T, TKV, HD, 8, true>(a)
+                   : launch<T, TKV, HD, 8, false>(a);
   }
-  return launch<T, HD, 64>(q, k, v, base, out, b, t, hq, hkv, s_len, scale,
-                           window, stream);
+  return a.pages ? launch<T, TKV, HD, 64, true>(a)
+                 : launch<T, TKV, HD, 64, false>(a);
+}
+
+template <typename T>
+cudaError_t dispatch_cache(const Args& a, bool quantized, int hd) {
+  if (hd == 128) {
+    return quantized ? dispatch_rows<T, int8_t, 128>(a)
+                     : dispatch_rows<T, T, 128>(a);
+  }
+  if (hd == 64) {
+    return quantized ? dispatch_rows<T, int8_t, 64>(a)
+                     : dispatch_rows<T, T, 64>(a);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes). dtype: 0 = f32, 1 = bf16. q, k, v,
-// out contiguous in the layouts above; base is (B,) int32 on the device.
-// Returns the cudaError_t of the launch (0 = launched).
-extern "C" int rpa_dense_forward(const void* q, const void* k, const void* v,
-                                 const void* base, void* out, int dtype,
-                                 int b, int t, int hq, int hkv, int s_len,
-                                 int hd, float scale, int window,
-                                 void* stream) {
+// C interface (loaded with ctypes). dtype (of q and out): 0 = f32,
+// 1 = bf16. k and v hold q's type when k_scale and v_scale are null, else
+// int8 codes with f32 scale planes (both or neither). pages null: k and v
+// are the dense cache (B, s_len, Hkv, hd). Else they are a pool
+// (n_pages, 1 << page_shift, Hkv, hd), pages is (B, s_len >> page_shift)
+// int32 and s_len the table's virtual extent. Everything contiguous and on
+// the device. Returns the cudaError_t of the launch (0 = launched).
+extern "C" int rpa_forward(const void* q, const void* k, const void* v,
+                           const void* k_scale, const void* v_scale,
+                           const void* base, const void* pages, void* out,
+                           int dtype, int b, int t, int hq, int hkv,
+                           int s_len, int hd, int page_shift, float scale,
+                           int window, void* stream) {
   if (b <= 0 || t <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 ||
-      hq / hkv > 64) {
+      hq / hkv > 64 || (k_scale == nullptr) != (v_scale == nullptr) ||
+      page_shift < 0 || page_shift > 30 ||
+      (pages != nullptr && (s_len >> page_shift) << page_shift != s_len)) {
     return int(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, k_scale, v_scale, base, pages, out, b, t, hq, hkv,
+               s_len, page_shift, scale, window,
+               static_cast<cudaStream_t>(stream)};
+  const bool quantized = k_scale != nullptr;
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 128) {
-    err = dispatch_rows<float, 128>(q, k, v, base, out, b, t, hq, hkv, s_len,
-                                    scale, window, st);
-  } else if (dtype == 0 && hd == 64) {
-    err = dispatch_rows<float, 64>(q, k, v, base, out, b, t, hq, hkv, s_len,
-                                   scale, window, st);
-  } else if (dtype == 1 && hd == 128) {
-    err = dispatch_rows<__nv_bfloat16, 128>(q, k, v, base, out, b, t, hq, hkv,
-                                            s_len, scale, window, st);
-  } else if (dtype == 1 && hd == 64) {
-    err = dispatch_rows<__nv_bfloat16, 64>(q, k, v, base, out, b, t, hq, hkv,
-                                           s_len, scale, window, st);
+  if (dtype == 0) {
+    err = dispatch_cache<float>(a, quantized, hd);
+  } else if (dtype == 1) {
+    err = dispatch_cache<__nv_bfloat16>(a, quantized, hd);
   }
   return int(err);
 }

@@ -10,15 +10,23 @@ live span of the KV cache: row r of slot b sits at
 T > 1 a prefill chunk (or a verify window); any T works, because the
 kernel's row tiles are independent blocks.
 
+Four routes, one kernel source (:data:`ROUTES`): the cache is dense
+``(B, S, Hkv, hd)`` or a pool of pages ``(n_pages, ps, Hkv, hd)`` read
+through a ``(B, n_slot_pages)`` int32 table, and it holds q's dtype or
+int8 codes with two f32 scale planes (``k_scale``/``v_scale``, the
+cache's shape with a last axis of 1) that the kernel multiplies in
+before either product.
+
 - CUDA tensors launch the hand-written kernel
   (``csrc/ragged_paged_attention.cu``), built at first use and counted
-  in ``kernel_support.launch_counts()``; anything the kernel does not
-  take raises.
+  in ``kernel_support.launch_counts()`` under :data:`NAME` and under its
+  route's key (:func:`route_key`); anything the kernel does not take
+  raises.
 - CPU tensors take :func:`ragged_paged_attention_reference`, the
   gather-einsum of the reference's ``generate._cached_attention`` with
   the kernel's ``q_pos`` clamp. Nothing gives way from the kernel to it.
 
-This slice ports the dense route: a page table raises.
+int4 codes (two per byte) are not ported: a uint8 cache raises.
 """
 
 from __future__ import annotations
@@ -36,8 +44,38 @@ SOURCE = kernel_support.CSRC_DIR / "ragged_paged_attention.cu"
 #: widest GQA group one block folds (64 q vectors per row tile)
 MAX_GROUP = 64
 
+#: smallest page the paged route takes (the reference's sublane rule)
+MIN_PAGE_SIZE = 8
+
+#: widest verify window (the reference's ``MAX_VERIFY_T``)
+MAX_VERIFY_T = 16
+
+#: the kernel's routes: cache layout x cache element type
+ROUTES = ("dense", "paged", "int8_dense", "int8_paged")
+
 _NEG_BIG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route_name(paged: bool, quantized: bool) -> str:
+    return ("int8_" if quantized else "") + ("paged" if paged else "dense")
+
+
+def route_key(route: str) -> str:
+    """The ``launch_counts()`` key of one route's launches."""
+    return f"{NAME}{{{route}}}"
+
+
+def page_size_refusal(page_size: int) -> "str | None":
+    """Why the paged route does not take this page size, or None. The
+    kernel resolves a cache row with a shift and a mask, so a page holds
+    a power of two of rows; pages may be smaller or larger than its
+    64-row kv tile."""
+    ps = int(page_size)
+    if ps < MIN_PAGE_SIZE or ps & (ps - 1):
+        return (f"kv_page_size={page_size} is not a power of two >= "
+                f"{MIN_PAGE_SIZE}")
+    return None
 
 
 def attended_rows(base: torch.Tensor, t: int, window: int = 0) -> torch.Tensor:
@@ -60,25 +98,30 @@ def attended_rows(base: torch.Tensor, t: int, window: int = 0) -> torch.Tensor:
 def load_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = kernel_support.load_library(NAME, [SOURCE])
-    fn = lib.rpa_dense_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    fn = lib.rpa_forward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check(q, k, v, base) -> None:
+def _check(q, k, v, base, pages, k_scale, v_scale) -> None:
+    """Shape checks shared by both devices."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    layout = ("a pool (n_pages, ps, Hkv, hd)" if pages is not None
+              else "dense (B, S, Hkv, hd)")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(
-            f"q must be (B, T, Hq, hd) and k/v (B, S, Hkv, hd); got "
+            f"q must be (B, T, Hq, hd) and k/v {layout}; got "
             f"{tuple(q.shape)} and {tuple(k.shape)}"
         )
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} != v {tuple(v.shape)}")
     b, t, hq, hd = q.shape
     hkv = k.shape[2]
-    if k.shape[0] != b or k.shape[3] != hd:
+    if k.shape[3] != hd or (pages is None and k.shape[0] != b):
         raise ValueError(
             f"cache {tuple(k.shape)} does not match q {tuple(q.shape)}"
         )
@@ -89,84 +132,153 @@ def _check(q, k, v, base) -> None:
         )
     if base.shape != (b,):
         raise ValueError(f"base must be ({b},), got {tuple(base.shape)}")
-    devs = {q.device, k.device, v.device, base.device}
+    if k.dtype == torch.uint8:
+        raise NotImplementedError(
+            "int4 KV codes (two per byte) are not ported yet (ROADMAP B7): "
+            "pass int8 codes with k_scale/v_scale, or a bf16/f32 cache"
+        )
+    if k_scale is not None:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise ValueError(
+                f"scale planes come with int8 codes; got k {k.dtype}, "
+                f"v {v.dtype}"
+            )
+        want = (*k.shape[:-1], 1)
+        for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(x.shape) != want or x.dtype != torch.float32:
+                raise ValueError(
+                    f"{name} must be f32 {want} (the cache's shape with a "
+                    f"last axis of 1), got {x.dtype} {tuple(x.shape)}"
+                )
+    elif k.dtype == torch.int8:
+        raise ValueError("an int8 cache needs k_scale and v_scale")
+    if pages is not None:
+        why = page_size_refusal(k.shape[1])
+        if why:
+            raise ValueError(why)
+        if pages.dim() != 2 or pages.shape[0] != b or pages.shape[1] < 1:
+            raise ValueError(
+                f"pages must be ({b}, n_slot_pages), got {tuple(pages.shape)}"
+            )
+        if pages.dtype != torch.int32:
+            raise ValueError(f"pages must be int32, got {pages.dtype}")
+    devs = {x.device for x in (q, k, v, base, pages, k_scale, v_scale)
+            if x is not None}
     if len(devs) != 1:
-        raise ValueError(f"q, k, v and base on different devices: {devs}")
+        raise ValueError(f"operands on different devices: {devs}")
 
 
 def ragged_paged_attention(
     q: torch.Tensor,          # (B, T, Hq, hd)
-    k: torch.Tensor,          # dense (B, S, Hkv, hd)
+    k: torch.Tensor,          # dense (B, S, Hkv, hd) | pool (n_pages, ps, Hkv, hd)
     v: torch.Tensor,
     base: torch.Tensor,       # (B,) int32: position of each slot's first query
-    pages: "torch.Tensor | None" = None,
+    pages: "torch.Tensor | None" = None,  # (B, n_slot_pages) int32 page table
     *,
     scale: float,
     window: int = 0,
+    k_scale: "torch.Tensor | None" = None,  # f32, k's shape with hd = 1
+    v_scale: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """(B, T, Hq, hd) cache attention over each slot's live span, in q's
     dtype. The caller has already written the window's own K/V rows
-    (the serving contract: live rows are ``base + T``)."""
-    if pages is not None:
-        raise NotImplementedError(
-            "the paged route of ragged_paged_attention is not ported yet: "
-            "pass pages=None with a dense (B, S, Hkv, hd) cache"
-        )
-    _check(q, k, v, base)
+    (the serving contract: live rows are ``base + T``). With ``pages``
+    the cache is a pool and slot b's row ``pos`` is row ``pos % ps`` of
+    page ``pages[b, pos // ps]``; a table id is never checked on the
+    device (the batcher's rows come from ``PagePool``). ``k_scale`` and
+    ``v_scale`` (both or neither) mark k/v as int8 codes."""
+    _check(q, k, v, base, pages, k_scale, v_scale)
+    kw = dict(scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
-        return ragged_paged_attention_reference(q, k, v, base, scale=scale,
-                                                window=window)
+        return ragged_paged_attention_reference(q, k, v, base, pages, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, t, hq, hd = q.shape
+    quantized = k_scale is not None
     if not kernel_support.lane_aligned(hd):
         raise ValueError(f"head_dim={hd} not in {kernel_support.LANE_ALIGNED_HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    kv_dtype = torch.int8 if quantized else q.dtype
+    if q.dtype not in _DTYPES or k.dtype != kv_dtype or v.dtype != kv_dtype:
         raise ValueError(
-            f"q/k/v must share one dtype of {list(_DTYPES)}; got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}"
+            f"q must have a dtype of {list(_DTYPES)} and k/v the same one "
+            f"(or int8 with scale planes); got {q.dtype}/{k.dtype}/{v.dtype}"
         )
     if base.dtype != torch.int32:
         raise ValueError(f"base must be int32, got {base.dtype}")
-    for name, x in (("q", q), ("k", k), ("v", v), ("base", base)):
-        if not x.is_contiguous():
+    operands = (("q", q), ("k", k), ("v", v), ("base", base), ("pages", pages),
+                ("k_scale", k_scale), ("v_scale", v_scale))
+    for name, x in operands:
+        if x is not None and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, x in (("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if pages is None:
+        s_len, page_shift = k.shape[1], 0
+    else:
+        # the table's virtual extent is what the kernel's grid walks
+        s_len = pages.shape[1] * k.shape[1]
+        page_shift = k.shape[1].bit_length() - 1
     lib = load_kernel()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.rpa_dense_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), base.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], b, t, hq, k.shape[2], k.shape[1],
-        hd, float(scale), int(window), stream,
+    err = lib.rpa_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        base.data_ptr(), None if pages is None else pages.data_ptr(),
+        out.data_ptr(), _DTYPES[q.dtype], b, t, hq, k.shape[2], s_len, hd,
+        page_shift, float(scale), int(window), stream,
     )
+    route = route_name(pages is not None, quantized)
     if err != 0:
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed: cudaError {err} "
-            f"(q {tuple(q.shape)} {q.dtype}, cache {tuple(k.shape)})"
+            f"(route {route}, q {tuple(q.shape)} {q.dtype}, cache "
+            f"{tuple(k.shape)} {k.dtype})"
         )
     kernel_support.count_launch(NAME)
+    kernel_support.count_launch(route_key(route))
     return out
 
 
 def ragged_paged_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, base: torch.Tensor,
+    pages: "torch.Tensor | None" = None,
     *, scale: float, window: int = 0,
+    k_scale: "torch.Tensor | None" = None,
+    v_scale: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """The plain version: the gather einsum of the reference's
     ``_cached_attention`` (scores from q's-dtype operands with f32
     accumulation, a plain f32 softmax over the whole cache, probs cast to
     q's dtype for the V contraction) plus the kernel's ``q_pos`` clamp,
-    which changes nothing for a live slot (base >= 0). Runs on any
+    which changes nothing for a live slot (base >= 0). A pool is first
+    gathered through ``pages`` into the dense ``(B, S, Hkv, hd)`` view,
+    codes and scales alike, so the two layouts run one computation. int8
+    codes stay the products' operands (cast to q's dtype, exactly); the
+    per-(row, head) scales commute through the contractions, so
+    ``k_scale`` multiplies the scores after the K product and
+    ``v_scale`` the probabilities before the V product. Runs on any
     device; the wrapper takes it only for CPU tensors."""
     b, t, hq, hd = q.shape
+    if pages is not None:
+        idx = pages.long()
+
+        def gather(pool):
+            return pool[idx].reshape(b, -1, *pool.shape[-2:])
+
+        k, v = gather(k), gather(v)
+        if k_scale is not None:
+            k_scale, v_scale = gather(k_scale), gather(v_scale)
     s_len, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.reshape(b, t, hkv, group, hd).float()
     scores = torch.einsum("btkgd,bskd->btkgs", qg, k.to(q.dtype).float())
     scores = scores * scale
+    if k_scale is not None:
+        # (B, S, Hkv, 1) -> (B, Hkv, S), broadcast over (b, t, k, g, s)
+        scores = scores * k_scale[..., 0].transpose(1, 2)[:, None, :, None, :]
     q_pos = torch.clamp(
         base.long()[:, None] + torch.arange(t, device=q.device)[None, :],
         min=0,
@@ -176,6 +288,9 @@ def ragged_paged_attention_reference(
     if window > 0:
         keep &= q_pos - k_pos < window
     scores = torch.where(keep, scores, torch.full_like(scores, _NEG_BIG))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[..., 0].transpose(1, 2)[:, None, :, None, :]
+    probs = probs.to(q.dtype).float()
     out = torch.einsum("btkgs,bskd->btkgd", probs, v.to(q.dtype).float())
     return out.reshape(b, t, hq, hd).to(q.dtype)

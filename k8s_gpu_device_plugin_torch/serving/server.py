@@ -19,12 +19,17 @@ Wire contract (the reference's):
   ``stop_text``, ``logit_bias``, the scheduling and resume fields, ...)
   answers 400 naming it; a request no slot can hold answers 422.
 - ``GET /v1/health`` -> slots, active, prefilling, queued, alive, the
-  attention backend plan (``decode_attn``), the device, decode-step and
-  prefill-chunk counts and the kernels' launch counts.
+  attention backend plan (``decode_attn``), the KV residency (``kv``:
+  layout, reserved bytes and, paged, the pool's occupancy, fragmentation
+  and the admissions it refused or made to wait), the device,
+  decode-step and prefill-chunk counts and the kernels' launch counts.
 
 Run: ``python -m k8s_gpu_device_plugin_torch.serving.server --preset
 llama3_8b --port 8731`` (random weights drawn on the card from
-``--seed``; ``--device cpu`` serves on the CPU).
+``--seed``; ``--device cpu`` serves on the CPU). ``--kvLayout paged
+--kvPageSize 64 --kvPages N`` serves from a pool of N pages (the trap
+page included; 0 sizes it to the dense reservation); ``--cacheQuant
+int8`` keeps K/V as int8 codes with f32 scales, on either layout.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import queue
 import statistics
 import sys
 import threading
+from dataclasses import replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -82,10 +88,13 @@ class InferenceEngine:
     def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
                  max_len: int = 2048, sampler: "Sampler | None" = None,
                  eos_id: "int | None" = None, chunked_prefill: int = 256,
-                 seed: int = 0):
+                 seed: int = 0, kv_layout: "str | None" = None,
+                 kv_page_size: "int | None" = None, kv_pages: int = 0):
         self.cb = ContinuousBatcher(
             params, cfg, n_slots=n_slots, max_len=max_len, sampler=sampler,
             eos_id=eos_id, chunked_prefill=chunked_prefill, seed=seed,
+            kv_layout=kv_layout, kv_page_size=kv_page_size,
+            kv_pages=kv_pages,
         )
         self._lock = threading.Lock()
         self._work = threading.Event()
@@ -147,6 +156,7 @@ class InferenceEngine:
             "alive": not self._dead.is_set(),
             "device": str(cb.device),
             "decode_attn": cb.attn_plan,
+            "kv": {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()},
             "decode_steps": cb.decode_steps,
             "decode_tokens": cb.decode_tokens,
             "decode_step_ms_mean": (
@@ -427,21 +437,56 @@ def build_parser() -> argparse.ArgumentParser:
                         help="seed of the random weights and of the "
                         "shared sampling generator")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--cacheQuant", default="none",
+                        choices=["none", "int8", "int4"],
+                        help="KV-cache storage: int8 keeps K/V as codes "
+                        "with one f32 scale per (position, kv head), on "
+                        "either layout, dequantized in the attention "
+                        "kernel; int4 is not ported yet")
+    parser.add_argument("--kvLayout", default="dense",
+                        choices=["dense", "paged"],
+                        help="'dense' reserves maxLen rows per slot; "
+                        "'paged' maps slots onto a shared page pool "
+                        "(memory scales with live tokens); token and "
+                        "logprob streams are the same either way")
+    parser.add_argument("--kvPageSize", type=int, default=64,
+                        help="token rows per KV page with --kvLayout "
+                        "paged: a power of two >= 8 that divides --maxLen")
+    parser.add_argument("--kvPages", type=int, default=0,
+                        help="physical pages in the paged pool, the "
+                        "reserved trap page included; 0 sizes it to the "
+                        "dense reservation")
     return parser
 
 
-def build_server(args: argparse.Namespace) -> InferenceServer:
+def build_server(args: argparse.Namespace,
+                 params: "dict | None" = None) -> InferenceServer:
     """Parsed CLI flags -> a bound (not yet serving) server: resolves the
     device first (no CUDA and no ``--device cpu`` raises before any
-    weights are drawn), then loads weights and starts the engine."""
+    weights are drawn), then loads weights and starts the engine.
+    ``params`` serves the caller's weights (already on the device, for
+    the preset) instead of drawing a set: a process that starts several
+    servers on one card draws once."""
     device = resolve_device(args.device)
-    cfg = PRESETS[args.preset]()
-    params = load_params(cfg, seed=args.seed, device=device)
+    if args.kvLayout == "dense" and (args.kvPages or args.kvPageSize != 64):
+        # 64 is --kvPageSize's default, the one value that cannot be told
+        # apart from "not passed"
+        raise ValueError(
+            "--kvPages/--kvPageSize have no effect under --kvLayout dense "
+            "(the dense cache reserves slots*maxLen rows); add --kvLayout "
+            "paged"
+        )
+    cfg = replace(PRESETS[args.preset](), cache_quant=args.cacheQuant)
+    if params is None:
+        params = load_params(cfg, seed=args.seed, device=device)
     engine = InferenceEngine(
         params, cfg, n_slots=args.slots, max_len=args.maxLen,
         sampler=Sampler(temperature=args.temperature, top_k=args.topK,
                         top_p=args.topP),
         chunked_prefill=args.chunkedPrefill, seed=args.seed,
+        kv_layout=args.kvLayout,
+        kv_page_size=args.kvPageSize if args.kvLayout == "paged" else None,
+        kv_pages=args.kvPages,
     )
     return InferenceServer(engine, host=args.host, port=args.port)
 
@@ -450,7 +495,7 @@ def _main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
     try:
         server = build_server(args)
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:  # no CUDA; a refused config
         print(f"error: {e}", file=sys.stderr)
         return 2
     log.info("serving %s on %s:%d (%s)", args.preset, args.host,

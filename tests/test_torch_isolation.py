@@ -53,6 +53,9 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.serving.server\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"
+        "import k8s_gpu_device_plugin_torch.models.paging\n"
+        "import k8s_gpu_device_plugin_torch.models.quantized_serving\n"
+        "import k8s_gpu_device_plugin_torch.ops.quant\n"
         "import k8s_gpu_device_plugin_torch.models.trainer\n"
         "import k8s_gpu_device_plugin_torch.ops.flash_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -9,7 +9,10 @@ without JAX, run it without the repository's conftest:
 
 Tolerances of the ragged-paged kernel: f32 atol 1e-4 (summation order
 only); bf16 atol = rtol = 2e-2 (its plain version rounds probabilities
-and the output to bf16). The flash kernels' are stated above their tests.
+and the output to bf16). The same on its paged and int8 routes (the
+scale moves from after the product to before it: last bits); the paged
+route equals the dense one on the same rows bit for bit. The flash
+kernels' are stated above their tests.
 """
 
 import dataclasses
@@ -103,8 +106,141 @@ def test_served_requests_launch_the_kernel_per_layer(cuda):
     kernel_support.reset_launch_counts()
     out = cb.run()
     assert all(len(toks) == 6 for toks in out.values())
-    launches = kernel_support.launch_counts()["ragged_paged_attention"]
-    assert launches == cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
+    need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
+    assert kernel_support.launch_counts() == {
+        rpa.NAME: need, rpa.route_key("dense"): need}
+
+
+# --- the paged and int8 routes of K1 ----------------------------------------
+
+
+def _paged_inputs(b, t, hq, hkv, hd, ps, n_slot_pages, bases, dtype,
+                  quantized, seed=0):
+    """A shuffled pool (every page finite, the trap page included): each
+    slot reserves the pages its live rows need, the rest of its row is
+    0. Returns q, (k, v, k_scale, v_scale) and the table."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n_pages = 1 + b * n_slot_pages
+    ids = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).int()
+    table = torch.zeros((b, n_slot_pages), dtype=torch.int32, device="cuda")
+    taken = 0
+    for i, base in enumerate(bases):
+        n = max(1, -(-(base + t) // ps))
+        table[i, :n] = ids[taken:taken + n]
+        taken += n
+    q = torch.randn((b, t, hq, hd), generator=gen, device="cuda", dtype=dtype)
+    shape = (n_pages, ps, hkv, hd)
+    if not quantized:
+        k = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+        v = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+        return q, (k, v, None, None), table
+    k, v = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((*shape[:-1], 1), generator=gen, device="cuda")
+              * 0.02 + 0.002 for _ in range(2))
+    return q, (k, v, ks, vs), table
+
+
+def _gathered(pool, table):
+    if pool is None:
+        return None
+    return pool[table.long()].reshape(table.shape[0], -1,
+                                      *pool.shape[-2:]).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("hd,hq,hkv", [(128, 8, 2), (64, 4, 4), (128, 24, 3)])
+@pytest.mark.parametrize("ps", [8, 16, 64, 256])
+@pytest.mark.parametrize("t,window", [(1, 0), (3, 0), (17, 5), (65, 0),
+                                      (300, 100)])
+def test_paged_and_int8_routes_match_plain_and_dense(cuda, dtype, quantized,
+                                                     hd, hq, hkv, ps, t,
+                                                     window):
+    s = 512
+    bases = [-1, 0, s - t]
+    q, (k, v, ks, vs), table = _paged_inputs(
+        3, t, hq, hkv, hd, ps, s // ps, bases, dtype, quantized)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    kw = dict(scale=hd ** -0.5, window=window)
+    kernel_support.reset_launch_counts()
+    paged = rpa.ragged_paged_attention(q, k, v, base, table, k_scale=ks,
+                                       v_scale=vs, **kw)
+    want = rpa.ragged_paged_attention_reference(q, k, v, base, table,
+                                                k_scale=ks, v_scale=vs, **kw)
+    torch.testing.assert_close(paged.float(), want.float(), **TOL[dtype])
+    dense = rpa.ragged_paged_attention(
+        q, _gathered(k, table), _gathered(v, table), base,
+        k_scale=_gathered(ks, table), v_scale=_gathered(vs, table), **kw)
+    assert torch.equal(paged, dense)
+    routes = [rpa.route_name(p, quantized) for p in (True, False)]
+    assert kernel_support.launch_counts() == {
+        rpa.NAME: 2, rpa.route_key(routes[0]): 1, rpa.route_key(routes[1]): 1}
+
+
+def test_inactive_slot_reads_the_trap_page_without_faulting(cuda):
+    """An inactive decode slot: an all-zero table row at the virtual last
+    row. Defined and finite; the live slot beside it is not disturbed."""
+    ps, nsp = 64, 32
+    q, (k, v, ks, vs), table = _paged_inputs(
+        2, 1, 32, 8, 128, ps, nsp, [700, 0], torch.bfloat16, True)
+    table[1] = 0
+    base = torch.tensor([700, nsp * ps - 1], dtype=torch.int32, device=cuda)
+    both = rpa.ragged_paged_attention(q, k, v, base, table, scale=0.1,
+                                      k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(both).all()
+    alone = rpa.ragged_paged_attention(q[:1], k, v, base[:1], table[:1],
+                                       scale=0.1, k_scale=ks, v_scale=vs)
+    assert torch.equal(both[:1], alone)
+
+
+def test_new_routes_refuse_what_the_kernel_does_not_take(cuda):
+    q, (k, v, ks, vs), table = _paged_inputs(
+        2, 1, 8, 2, 128, 16, 4, [5, 9], torch.bfloat16, True)
+    base = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    call = rpa.ragged_paged_attention
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q, k, v, base, table.t().contiguous().t(), scale=1.0,
+             k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="int32"):
+        call(q, k, v, base, table.long(), scale=1.0, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="together"):
+        call(q, k, v, base, table, scale=1.0, k_scale=ks)
+    with pytest.raises(ValueError, match="power of two"):
+        pool = torch.zeros((5, 48, 2, 128), device=cuda, dtype=torch.bfloat16)
+        call(q, pool, pool, base, table, scale=1.0)
+    with pytest.raises(ValueError, match="different devices"):
+        call(q, k, v, base, table.cpu(), scale=1.0, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_paged_batcher_launches_its_route_and_matches_dense(cuda, quant):
+    cfg = LlamaConfig.tiny(head_dim_override=64, dtype=torch.float32,
+                           cache_quant=quant)
+    params = init_params(cfg, seed=1, device=cuda)
+    streams = {}
+    for layout in ("dense", "paged"):
+        cb = ContinuousBatcher(params, cfg, n_slots=2, max_len=128,
+                               chunked_prefill=16, kv_layout=layout,
+                               kv_page_size=16,
+                               kv_pages=8 if layout == "paged" else 0)
+        rids = [cb.submit(list(range(1, plen + 1)), max_new=6)
+                for plen in (5, 40, 70)]
+        kernel_support.reset_launch_counts()
+        cb.run()
+        streams[layout] = [(cb.done_requests[r].out,
+                            cb.done_requests[r].out_logp) for r in rids]
+        counts = kernel_support.launch_counts()
+        route = rpa.route_name(layout == "paged", quant == "int8")
+        need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
+        assert counts == {rpa.NAME: need, rpa.route_key(route): need}
+        if layout == "paged":
+            cb.pool.check()
+            assert cb.pool.in_use == 0
+            assert cb.kv_rejections()["pool_pressure"] >= 1
+    assert streams["paged"] == streams["dense"]
 
 
 # --- flash attention (K2, K3, K4) --------------------------------------------

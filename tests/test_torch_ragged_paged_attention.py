@@ -102,9 +102,11 @@ def test_cpu_dispatch_runs_the_plain_version_and_counts_nothing():
 def test_wrapper_refuses_a_page_table_and_bad_shapes():
     q, k, v = (torch.from_numpy(x) for x in _inputs(0, 2, 1, 8, 2))
     base = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="paged"):
+    # a page table now selects the paged route (its own refusals are in
+    # test_torch_paged_attention.py); a table of the wrong type raises
+    with pytest.raises(ValueError, match="int32"):
         rpa.ragged_paged_attention(q, k, v, base,
-                                   torch.zeros((2, 4), dtype=torch.int32),
+                                   torch.zeros((2, 4), dtype=torch.int64),
                                    scale=1.0)
     with pytest.raises(ValueError, match="multiple"):
         rpa.ragged_paged_attention(q[:, :, :7], k, v, base, scale=1.0)

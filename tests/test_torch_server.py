@@ -3,7 +3,12 @@
 A tiny f32 model served on ``device="cpu"``, port 0. ``/v1/generate``,
 plain and SSE, must return exactly the tokens (and logprobs, bitwise:
 the same code on the same weights) that ``ContinuousBatcher.run``
-produces for the same requests.
+produces for the same requests. The KV flags (``--kvLayout``,
+``--kvPageSize``, ``--kvPages``, ``--cacheQuant``) are driven through
+``build_server`` on the tiny preset: each layout's ``/v1/health`` names
+its ``kv`` residency and its attention route, every layout answers with
+the dense bf16 server's greedy tokens where the cache is unquantized,
+and a request the pool can never hold answers 422 with the pool's limit.
 """
 
 import json
@@ -108,4 +113,86 @@ def test_health_answers(served):
     assert health["alive"] and health["slots"] == 2
     assert health["device"] == "cpu"
     assert health["decode_attn"]["decode"]["backend"] == "plain"
+    assert health["decode_attn"]["decode"]["route"] == "dense"
     assert health["kernel_launches"] == {}
+    assert health["kv"]["layout"] == "dense"
+    assert health["kv"]["reserved_bytes"] == 2 * 96 * 2 * 2 * 4 * 64 * 4
+    assert health["kv"]["admission_rejected"]["pool_pressure"] == 0
+
+
+KV_FLAGS = {
+    "dense": [],
+    "paged": ["--kvLayout", "paged", "--kvPageSize", "16", "--kvPages", "5"],
+    "int8_dense": ["--cacheQuant", "int8"],
+    "int8_paged": ["--cacheQuant", "int8", "--kvLayout", "paged",
+                   "--kvPageSize", "16", "--kvPages", "5"],
+}
+
+
+def _serve(flags):
+    args = srv.build_parser().parse_args([
+        "--preset", "tiny", "--device", "cpu", "--host", "127.0.0.1",
+        "--port", "0", "--slots", "2", "--maxLen", "64", "--chunkedPrefill",
+        "16", "--seed", "3", *flags])
+    server = srv.build_server(args)
+    server.start()
+    return server, f"http://127.0.0.1:{server.bound_port}"
+
+
+@pytest.fixture(scope="module")
+def dense_tokens():
+    server, url = _serve([])
+    try:
+        return [json.loads(_post(url, {"prompt": p[:30], "max_new": 6})[2])
+                ["tokens"] for p in PROMPTS]
+    finally:
+        server.stop()
+
+
+@pytest.mark.parametrize("route", list(KV_FLAGS))
+def test_kv_flags_reach_the_batcher_and_health(route, dense_tokens):
+    server, url = _serve(KV_FLAGS[route])
+    try:
+        cfg = server.engine.cb.cfg
+        token_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * (
+            cfg.head_dim + 4 if "int8" in route else cfg.head_dim * 2)
+        got = [json.loads(_post(url, {"prompt": p[:30], "max_new": 6})[2])
+               ["tokens"] for p in PROMPTS]
+        assert all(len(t) == 6 for t in got)
+        if "int8" not in route:
+            assert got == dense_tokens
+        with urllib.request.urlopen(url + "/v1/health", timeout=30) as resp:
+            health = json.loads(resp.read())
+        assert {m["route"] for m in health["decode_attn"].values()} == {route}
+        kv = health["kv"]
+        assert kv["admission_rejected"] == {"pool_pressure": 0,
+                                            "request_too_large": 0}
+        if "paged" in route:
+            assert kv["layout"] == "paged" and kv["page_size"] == 16
+            assert kv["pages_total"] == 4 and kv["pages_in_use"] == 0
+            assert kv["pages_in_use_peak"] >= 3
+            assert kv["reserved_bytes"] == 5 * 16 * token_bytes
+            # (30 + 40 tokens) needs 5 pages of 16 rows: the pool holds 4
+            status, _, body = _post(url, {"prompt": list(range(1, 31)),
+                                          "max_new": 40})
+            err = json.loads(body)["error"]
+            assert status == 422 and err["code"] == "request_too_large"
+            assert err["limit"] == 4 * 16 and err["prompt_tokens"] == 30
+        else:
+            assert kv == {"layout": "dense",
+                          "reserved_bytes": 2 * 64 * token_bytes,
+                          "admission_rejected": kv["admission_rejected"]}
+    finally:
+        server.stop()
+
+
+def test_kv_flags_refused_by_name(capsys):
+    base = ["--preset", "tiny", "--device", "cpu", "--port", "0"]
+    assert srv._main(base + ["--kvPages", "9"]) == 2
+    assert "--kvLayout paged" in capsys.readouterr().err
+    assert srv._main(base + ["--cacheQuant", "int4"]) == 2
+    assert "int4" in capsys.readouterr().err
+    assert srv._main(base + ["--kvLayout", "paged", "--kvPageSize", "12",
+                             "--maxLen", "96", "--chunkedPrefill",
+                             "16"]) == 2
+    assert "power of two" in capsys.readouterr().err

@@ -5,11 +5,18 @@ Builds Llama-3-8B with random weights, fills all 8 slots of the port's
 ContinuousBatcher with ~1000-token prompts (chunked prefill, 256), then
 times decode steps on the host clock (each step ends in its readback)
 and profiles a few of them with ``torch.profiler``. Prints one JSON
-line: the card, ms per decode step, device and host time per step,
-kernel launches per step, and the device kernels that take the most
-time.
+line per configuration: the card, ms per decode step, device and host
+time per step, kernel launches per step, the attention kernel's own
+device time, and the device kernels that take the most time.
+
+``--kvLayout`` and ``--cacheQuant`` take comma-separated lists; every
+pair is measured in turn in this one process, on one set of weights, so
+a paged int8 step can be read beside the dense bf16 one from one card.
+``--activeSlots N`` fills only N of the 8 slots: the others are the
+inactive slots every decode step still computes and discards.
 
     python3 tools/torch_decode_profile.py [--steps 10] [--context 1000]
+        [--kvLayout dense,paged] [--cacheQuant none,int8] [--activeSlots 8]
 """
 
 from __future__ import annotations
@@ -24,34 +31,30 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--steps", type=int, default=10)
-    parser.add_argument("--profiled", type=int, default=3)
-    parser.add_argument("--context", type=int, default=1000)
-    args = parser.parse_args()
+def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
+    from dataclasses import replace
 
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from k8s_gpu_device_plugin_torch.models.batching import ContinuousBatcher
-    from k8s_gpu_device_plugin_torch.models.llama import (
-        LlamaConfig,
-        init_params,
-    )
 
-    cfg = LlamaConfig.llama3_8b()
-    params = init_params(cfg, seed=0, device="cuda")
-    cb = ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
-                           chunked_prefill=256)
-    budget = args.steps + args.profiled + 8
-    for i in range(cb.n_slots):
+    cb = ContinuousBatcher(
+        params, replace(cfg, cache_quant=quant), n_slots=8, max_len=2048,
+        chunked_prefill=256, kv_layout=layout,
+        kv_page_size=args.kvPageSize if layout == "paged" else None)
+    # every step of the prefill phase also decodes the slots that are
+    # already running: the budget covers those steps too, so that every
+    # request is still decoding when the measured window ends
+    prefill_steps = args.activeSlots * -(-(args.context + 8) // 256)
+    budget = prefill_steps + args.steps + args.profiled + 8
+    for i in range(args.activeSlots):
         cb.submit(list(range(1, args.context + i)), max_new=budget)
     while cb.prefilling or cb.pending:
         cb.step()
     for _ in range(3):  # warm-up
         cb.step()
+    running_before = len(cb.running)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
@@ -63,6 +66,11 @@ def main() -> int:
         for _ in range(args.profiled):
             cb.step()
         torch.cuda.synchronize()
+    if not running_before == len(cb.running) == args.activeSlots:
+        raise RuntimeError(
+            f"{len(cb.running)} slots were decoding at the end of the "
+            f"window ({running_before} at its start), wanted "
+            f"{args.activeSlots}: a request retired inside it")
     n = args.profiled
     events = prof.key_averages()
     launches = sum(e.count for e in events
@@ -74,24 +82,59 @@ def main() -> int:
     device_us = sum(e.self_device_time_total for e in on_device)
     host_us = sum(e.self_cpu_time_total for e in events)
     kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip()
-    print(json.dumps({
-        "card": card,
-        "slots": cb.n_slots,
+    attention = [e for e in on_device if "rpa_kernel" in e.key]
+    return {
+        "kv_layout": layout, "cache_quant": quant,
+        "slots": cb.n_slots, "active_slots": args.activeSlots,
         "context": args.context,
+        "kv": cb.kv_stats(),
         "decode_step_ms": step_ms,
         "device_ms_per_step": device_us / n / 1e3,
         "host_ms_per_step_profiled": host_us / n / 1e3,
         "kernel_launches_per_step": launches / n,
+        "attention_kernel_ms_per_step":
+            sum(e.self_device_time_total for e in attention) / n / 1e3,
+        "attention_kernel_calls_per_step":
+            sum(e.count for e in attention) / n,
         "top_device_kernels": [
             {"name": e.key[:80], "ms_per_step": e.self_device_time_total / n / 1e3,
              "calls_per_step": e.count / n}
             for e in kernels
         ],
-    }))
+    }
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--profiled", type=int, default=3)
+    parser.add_argument("--context", type=int, default=1000)
+    parser.add_argument("--kvLayout", default="dense",
+                        help="comma-separated: dense, paged")
+    parser.add_argument("--cacheQuant", default="none",
+                        help="comma-separated: none, int8")
+    parser.add_argument("--kvPageSize", type=int, default=64)
+    parser.add_argument("--activeSlots", type=int, default=8,
+                        help="slots that hold a request (of 8)")
+    args = parser.parse_args()
+
+    import torch
+
+    from k8s_gpu_device_plugin_torch.models.llama import (
+        LlamaConfig,
+        init_params,
+    )
+
+    cfg = LlamaConfig.llama3_8b()
+    params = init_params(cfg, seed=0, device="cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    for layout in args.kvLayout.split(","):
+        for quant in args.cacheQuant.split(","):
+            print(json.dumps({"card": card, **measure(
+                torch, params, cfg, args, layout, quant)}), flush=True)
     return 0
 
 
