@@ -17,7 +17,9 @@ Phases (any failed check exits non-zero without the final line):
    the other routes of the same kernel at the same shapes, decode and a
    256-row chunk each: a paged pool read through a shuffled table (pages
    of 64 and of 16 rows), int8 codes with f32 scales in a dense cache and
-   in a pool. Per case: max error, kernel / plain / library times
+   in a pool, int4 codes (packed two per byte) with f32 scales in a dense
+   cache (also windowed and at hd 64, group 1) and in pools of 64- and
+   16-row pages. Per case: max error, kernel / plain / library times
    (CUDA-graph replays timed with CUDA events; the library yardstick, which
    the port never calls, is ``scaled_dot_product_attention`` after a
    gather of the pool and a dequantization of the codes into a dense
@@ -27,8 +29,11 @@ Phases (any failed check exits non-zero without the final line):
 3. Llama-3-8B with random weights: a 512-token prefill (two chunks of
    256) and 8 greedy decode steps through the kernel path and through the
    plain path; last-position f32 logits compared. The same through a
-   paged pool and through an int8 pool: kernel path against plain path in
-   f32, and the paged kernel path bit for bit against the dense one.
+   paged pool and through int8 and int4 pools: kernel path against plain
+   path in f32 (the quantized kernels on the model's own codes), and the
+   paged kernel path bit for bit against the dense one. Then the same
+   weights quantized (``--weightQuant`` int8, int4): kernel path against
+   plain path in f32, and their distance from the bf16 weights' logits.
 4. The server (``serving/server.py``) with ``--preset llama3_8b --slots 8
    --maxLen 2048 --chunkedPrefill 256`` on 127.0.0.1: six concurrent
    ``/v1/generate`` requests (one streamed, one with logprobs), launch
@@ -36,8 +41,9 @@ Phases (any failed check exits non-zero without the final line):
    same six requests on ``--kvLayout paged --kvPageSize 64 --kvPages 65``
    (64 allocatable pages against the 79 the six reserve together, so an
    admission must wait): the dense run's tokens, every launch on the paged
-   route, the pool empty at the end; and on ``--cacheQuant int8``, paged
-   and dense.
+   route, the pool empty at the end; on ``--cacheQuant int8`` and ``int4``,
+   paged and dense; on ``--weightQuant int8`` (bf16 dense cache); and on
+   ``--weightQuant int4 --cacheQuant int4`` in the 65-page pool.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -55,7 +61,7 @@ Phases (any failed check exits non-zero without the final line):
    through the kernels and through the plain attention: loss and
    grad_norm compared.
 7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
-   kernel's entry carries its four routes).
+   kernel's entry carries its six routes).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -93,6 +99,10 @@ GRAD_TOL = dict(atol=1e-4, rtol=0.0)  # f32 grads/lse from the same inputs:
                                       # summation order only
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
 LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 1e-3   # phase 6: kernels vs plain, f32
+
+# bytes of one cached token of Llama-3-8B (32 layers, 8 kv heads, hd 128,
+# K and V) per cache type: bf16 rows, or codes plus one f32 scale a row
+TOKEN_BYTES = {"none": 131072, "int8": 67584, "int4": 34816}
 
 # (prompt length, max_new); index 3 streams, index 1 asks for logprobs
 REQUESTS = [(17, 64), (200, 48), (256, 32), (700, 40), (1500, 56), (1900, 64)]
@@ -174,7 +184,8 @@ def kernel_cases():
         case.update(route="dense", ps=0)
     # the other routes at the serving shapes: decode and one deep chunk
     for route, ps in (("paged", 64), ("paged", 16), ("int8_dense", 0),
-                      ("int8_paged", 64)):
+                      ("int8_paged", 64), ("int4_dense", 0),
+                      ("int4_paged", 64), ("int4_paged", 16)):
         tag = route + (f"_ps{ps}" if ps else "")
         cases += [
             dict(name=f"decode_{tag}", b=8, t=1, bases=bases8, window=0,
@@ -182,17 +193,31 @@ def kernel_cases():
             dict(name=f"prefill_t256_base1536_{tag}", b=1, t=256,
                  bases=[1536], window=0, route=route, ps=ps, **full),
         ]
+    # int4's unpacking at the narrower shapes of the dense route's cases
+    cases += [
+        dict(name="decode_window64_int4_dense", b=8, t=1, bases=bases8,
+             window=64, route="int4_dense", ps=0, **full),
+        dict(name="decode_hd64_group1_int4_dense", b=8, t=1, bases=bases8,
+             window=0, route="int4_dense", ps=0, hq=8, hkv=8, hd=64, s=2048),
+    ]
     return cases
+
+
+def cache_quant_of(route: str) -> str:
+    """The cache type a route name carries: 'none', 'int8' or 'int4'."""
+    head = route.split("_")[0]
+    return head if head in ("int8", "int4") else "none"
 
 
 def bound(case, rpa, torch, dtype_name: str) -> tuple[float, str, dict]:
     """Least time for the work this case's data needs: every input byte
     read once (q, the K/V rows some query attends with their scale rows on
-    an int8 cache, base, the table entries of those rows), the output
-    written once; 4 * hd operations per (query, q head, attended row), at
-    the query type's peak."""
+    an int8 or int4 cache, base, the table entries of those rows), the
+    output written once; 4 * hd operations per (query, q head, attended
+    row), at the query type's peak."""
     elem = 2 if dtype_name == "bfloat16" else 4
-    quantized = case["route"].startswith("int8")
+    code_bytes = {"int8": 1, "int4": 0.5}.get(cache_quant_of(case["route"]))
+    quantized = code_bytes is not None
     base = torch.tensor(case["bases"], dtype=torch.int32)
     rows = rpa.attended_rows(base, case["t"], case["window"])   # (B, T)
     q_pos = torch.clamp(base[:, None].long() + torch.arange(case["t"]), min=0)
@@ -204,11 +229,10 @@ def bound(case, rpa, torch, dtype_name: str) -> tuple[float, str, dict]:
         if case["ps"]:
             table_entries += hi // case["ps"] - lo // case["ps"] + 1
     q_bytes = case["b"] * case["t"] * case["hq"] * case["hd"] * elem
-    kv_bytes = 2 * kv_rows * case["hkv"] * case["hd"] * (1 if quantized
-                                                         else elem)
+    kv_bytes = 2 * kv_rows * case["hkv"] * case["hd"] * (code_bytes or elem)
     if quantized:
         kv_bytes += 2 * kv_rows * case["hkv"] * 4
-    nbytes = 2 * q_bytes + kv_bytes + 4 * case["b"] + 4 * table_entries
+    nbytes = int(2 * q_bytes + kv_bytes + 4 * case["b"] + 4 * table_entries)
     flops = 4 * case["hd"] * case["hq"] * int(rows.sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -218,15 +242,21 @@ def bound(case, rpa, torch, dtype_name: str) -> tuple[float, str, dict]:
 
 def route_operands(torch, quant, case, k, v, gen):
     """The dense rows ``k``/``v`` (B, S, Hkv, hd) as the case's route
-    takes them: (k, v, k_scale, v_scale, pages). int8 routes quantize the
-    rows with the cache's own recipe; paged routes scatter them into a
+    takes them: (k, v, k_scale, v_scale, pages). int8 and int4 routes
+    quantize the rows with the cache's own recipe (int4 codes packed two
+    per byte); paged routes scatter them into a
     pool through a shuffled table that reserves, per slot, the pages its
     live rows need (the rest of its row is 0, the trap page, which holds
     finite garbage)."""
     ks = vs = pages = None
-    if case["route"].startswith("int8"):
+    codes = cache_quant_of(case["route"])
+    if codes == "int8":
         k, ks = quant.quantize_int8(k, axis=-1)
         v, vs = quant.quantize_int8(v, axis=-1)
+    elif codes == "int4":
+        (k, ks), (v, vs) = (quant.quantize_int4_sym(x, axis=-1)
+                            for x in (k, v))
+        k, v = quant.pack_int4(k), quant.pack_int4(v)
     if case["ps"]:
         ps, b = case["ps"], case["b"]
         nsp = case["s"] // ps
@@ -323,9 +353,11 @@ def phase_kernels(torch, rpa, quant) -> list[dict]:
 
             def dense_view(x, scale):
                 if table is not None:
-                    x = x[table].reshape(b, s, hkv, hd)
+                    x = x[table].reshape(b, s, hkv, x.shape[-1])
                     scale = None if scale is None else \
                         scale[table].reshape(b, s, hkv, 1)
+                if x.dtype == torch.uint8:
+                    x = quant.unpack_int4(x)
                 if scale is not None:
                     x = (x.float() * scale).to(dtype)
                 return x.transpose(1, 2)
@@ -400,6 +432,43 @@ def _model_logits(torch, generate, params, cfg, prompt, tokens, plain):
     return out, cache
 
 
+def widened(torch, params):
+    """The params with every float leaf in f32; quantized leaves (codes
+    and f32 scales) as they are."""
+    def leaf(x):
+        if isinstance(x, dict):
+            if set(x) in ({"q", "s"}, {"q4", "s"}):
+                return x
+            return {k: leaf(v) for k, v in x.items()}
+        return x.float()
+
+    return leaf(params)
+
+
+def checked_attention_patch(torch, generate, record: dict):
+    """A stand-in for ``generate._cached_attention`` that runs the kernel
+    path and, on the very same operands (the pool as this layer finds
+    it), the plain version; the outputs must agree within the f32 kernel
+    tolerance. ``record`` collects the worst difference and the calls."""
+    orig = generate._cached_attention
+
+    def checked(q, k_cache, v_cache, k_scale, v_scale, base, c, pages=None,
+                verify=False, plain=False):
+        out = orig(q, k_cache, v_cache, k_scale, v_scale, base, c,
+                   pages=pages, verify=verify, plain=False)
+        want = orig(q, k_cache, v_cache, k_scale, v_scale, base, c,
+                    pages=pages, verify=verify, plain=True)
+        diff = float((out - want).abs().max())
+        if not torch.allclose(out, want, **TOL["float32"]):
+            fail(f"{c.cache_quant} attention on the model's own codes: "
+                 f"kernel and plain version differ by {diff:.3e}")
+        record["max"] = max(record["max"], diff)
+        record["calls"] += 1
+        return out
+
+    return orig, checked
+
+
 def phase_model(torch, generate, cfg, params) -> dict:
     """The bf16 model through the kernel path and the plain path, and the
     same weights widened to f32 through both paths. In f32 the two paths
@@ -410,27 +479,28 @@ def phase_model(torch, generate, cfg, params) -> dict:
     further from the f32 model than the plain path does.
 
     Then the same model on a paged pool (pages of 64 rows, a shuffled
-    table) and on an int8 pool. Unquantized, in f32, the paged kernel path
-    against the paged plain path within LOGITS_BOUND. The paged kernel
-    path bit for bit against the dense one, for bf16, f32 and int8 caches.
+    table) and on int8 and int4 pools. Unquantized, in f32, the paged
+    kernel path against the paged plain path within LOGITS_BOUND. The
+    paged kernel path bit for bit against the dense one, for bf16, f32,
+    int8 and int4 caches.
 
-    An int8 cache cannot be held to a logits bound across two paths: each
-    path quantizes the rows it computed itself, a last-bit difference
-    moves a value on a rounding boundary to another code, that code moves
-    the next layer's rows by a whole quantization step, and 32 layers of
-    quantizers carry the difference on (the codes that differ and the
-    logits' distance are printed, not bounded). So the int8 kernel is held
-    on identical codes instead: during the f32 int8 kernel-path run every
-    cached-attention call also runs the plain version on the very same
-    operands (the pool as that layer finds it), and the two attention
-    outputs must agree within the f32 kernel tolerance. The int8 cache's
-    distance to the unquantized cache's logits is printed, not bounded."""
+    A quantized cache cannot be held to a logits bound across two paths:
+    each path quantizes the rows it computed itself, a last-bit
+    difference moves a value on a rounding boundary to another code, that
+    code moves the next layer's rows by a whole quantization step, and 32
+    layers of quantizers carry the difference on (for int8 the codes that
+    differ and the logits' distance are printed, not bounded). So each
+    quantized kernel is held on identical codes instead: during the f32
+    int8 and int4 kernel-path runs every cached-attention call also runs
+    the plain version on the very same operands, and the two attention
+    outputs must agree within the f32 kernel tolerance. A quantized
+    cache's distance to the unquantized cache's logits is printed, not
+    bounded. Returns the summary line with the bf16 kernel path's logits
+    and greedy tokens, which the weight-quant checks compare against."""
     import numpy as np
 
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params32 = {k: ({n: x.float() for n, x in v.items()}
-                    if isinstance(v, dict) else v.float())
-                for k, v in params.items()}
+    params32 = widened(torch, params)
     rng = np.random.default_rng(SEED)
     prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 512)),
                           device="cuda")
@@ -440,23 +510,7 @@ def phase_model(torch, generate, cfg, params) -> dict:
         return dataclasses.replace(c, kv_layout=layout, cache_quant=quant,
                                    kv_page_size=64)
 
-    orig_attention = generate._cached_attention
-    attention_err = {"max": 0.0, "calls": 0}
-
-    def checked_attention(q, k_cache, v_cache, k_scale, v_scale, base, c,
-                          pages=None, verify=False, plain=False):
-        out = orig_attention(q, k_cache, v_cache, k_scale, v_scale, base, c,
-                             pages=pages, verify=verify, plain=False)
-        want = orig_attention(q, k_cache, v_cache, k_scale, v_scale, base, c,
-                              pages=pages, verify=verify, plain=True)
-        if not torch.allclose(out, want, **TOL["float32"]):
-            fail("int8 attention on the model's own codes: kernel and plain "
-                 f"version differ by {float((out - want).abs().max()):.3e}")
-        attention_err["max"] = max(attention_err["max"],
-                                   float((out - want).abs().max()))
-        attention_err["calls"] += 1
-        return out
-
+    checks = {q: {"max": 0.0, "calls": 0} for q in ("int8", "int4")}
     runs, caches = {}, {}
     for name, c, p, layout, quant, plain in (
             ("bf16_kernel", cfg, params, "dense", "none", False),
@@ -469,15 +523,21 @@ def phase_model(torch, generate, cfg, params) -> dict:
             ("bf16_int8_dense_kernel", cfg, params, "dense", "int8", False),
             ("bf16_int8_paged_kernel", cfg, params, "paged", "int8", False),
             ("f32_int8_paged_kernel", cfg32, params32, "paged", "int8", False),
-            ("f32_int8_paged_plain", cfg32, params32, "paged", "int8", True)):
-        if name == "f32_int8_paged_kernel":
-            generate._cached_attention = checked_attention
+            ("f32_int8_paged_plain", cfg32, params32, "paged", "int8", True),
+            ("bf16_int4_dense_kernel", cfg, params, "dense", "int4", False),
+            ("bf16_int4_paged_kernel", cfg, params, "paged", "int4", False),
+            ("f32_int4_paged_kernel", cfg32, params32, "paged", "int4",
+             False)):
+        orig = generate._cached_attention
+        if name in ("f32_int8_paged_kernel", "f32_int4_paged_kernel"):
+            _, generate._cached_attention = checked_attention_patch(
+                torch, generate, checks[quant])
         try:
             runs[name], cache = _model_logits(
                 torch, generate, p, variant(c, layout, quant), prompt, tokens,
                 plain)
         finally:
-            generate._cached_attention = orig_attention
+            generate._cached_attention = orig
         if name.startswith("f32_int8"):
             caches[name] = cache
     torch.cuda.synchronize()
@@ -492,6 +552,9 @@ def phase_model(torch, generate, cfg, params) -> dict:
     def err(a, b):
         return float((runs[a] - runs[b]).abs().max())
 
+    def agree(a, b):
+        return "%d/9" % int((runs[a].argmax(-1) == runs[b].argmax(-1)).sum())
+
     ref = runs["f32_plain"]
     out = {
         "phase": 3,
@@ -504,35 +567,38 @@ def phase_model(torch, generate, cfg, params) -> dict:
             float(x) for x in
             (runs["bf16_kernel"] - runs["bf16_plain"]).abs().amax(-1)],
         "logits_std": float(ref.std()), "logits_abs_max": float(ref.abs().max()),
-        "greedy_agreement_bf16_kernel_vs_plain": "%d/9" % int(
-            (runs["bf16_kernel"].argmax(-1)
-             == runs["bf16_plain"].argmax(-1)).sum()),
-        "greedy_agreement_bf16_kernel_vs_f32": "%d/9" % int(
-            (runs["bf16_kernel"].argmax(-1) == ref.argmax(-1)).sum()),
+        "greedy_agreement_bf16_kernel_vs_plain": agree("bf16_kernel",
+                                                       "bf16_plain"),
+        "greedy_agreement_bf16_kernel_vs_f32": agree("bf16_kernel",
+                                                     "f32_plain"),
         "f32_paged_kernel_vs_plain": err("f32_paged_kernel",
                                          "f32_paged_plain"),
-        "f32_int8_attention_kernel_vs_plain_same_codes": attention_err["max"],
-        "f32_int8_attention_calls_checked": attention_err["calls"],
         "f32_int8_paged_kernel_vs_plain_own_codes": err(
             "f32_int8_paged_kernel", "f32_int8_paged_plain"),
         "f32_int8_codes_differing_kernel_vs_plain": f"{codes_differ}/{codes}",
-        "bf16_int8_vs_bf16_cache": err("bf16_int8_paged_kernel",
-                                       "bf16_kernel"),
-        "f32_int8_vs_f32_cache": err("f32_int8_paged_kernel", "f32_kernel"),
-        "greedy_agreement_bf16_int8_vs_bf16_cache": "%d/9" % int(
-            (runs["bf16_int8_paged_kernel"].argmax(-1)
-             == runs["bf16_kernel"].argmax(-1)).sum()),
     }
+    for quant, check in checks.items():
+        out[f"f32_{quant}_attention_kernel_vs_plain_same_codes"] = check["max"]
+        out[f"f32_{quant}_attention_calls_checked"] = check["calls"]
+        out[f"bf16_{quant}_vs_bf16_cache"] = err(f"bf16_{quant}_paged_kernel",
+                                                 "bf16_kernel")
+        out[f"f32_{quant}_vs_f32_cache"] = err(f"f32_{quant}_paged_kernel",
+                                               "f32_kernel")
+        out[f"greedy_agreement_bf16_{quant}_vs_bf16_cache"] = agree(
+            f"bf16_{quant}_paged_kernel", "bf16_kernel")
     bitwise = {"bf16_paged_equals_dense": ("bf16_paged_kernel", "bf16_kernel"),
                "f32_paged_equals_dense": ("f32_paged_kernel", "f32_kernel"),
                "int8_paged_equals_int8_dense": ("bf16_int8_paged_kernel",
-                                                "bf16_int8_dense_kernel")}
+                                                "bf16_int8_dense_kernel"),
+               "int4_paged_equals_int4_dense": ("bf16_int4_paged_kernel",
+                                                "bf16_int4_dense_kernel")}
     for key, (a, b) in bitwise.items():
         out[key] = bool(torch.equal(runs[a], runs[b]))
     emit(out)
-    if attention_err["calls"] != cfg.n_layers * 10:
-        fail(f"the int8 attention check saw {attention_err['calls']} calls, "
-             f"not {cfg.n_layers} layers x (2 chunks + 8 steps)")
+    for quant, check in checks.items():
+        if check["calls"] != cfg.n_layers * 10:
+            fail(f"the {quant} attention check saw {check['calls']} calls, "
+                 f"not {cfg.n_layers} layers x (2 chunks + 8 steps)")
     for key in ("f32_kernel_vs_plain", "f32_paged_kernel_vs_plain"):
         if out[key] > LOGITS_BOUND:
             fail(f"{key}: f32 kernel-path logits differ from the plain "
@@ -545,6 +611,44 @@ def phase_model(torch, generate, cfg, params) -> dict:
         fail(f"bf16 kernel path is {out['bf16_kernel_vs_f32']:.3e} from the "
              f"f32 model, more than {BF16_FACTOR}x the plain path's "
              f"{out['bf16_plain_vs_f32']:.3e}")
+    return {**out, "bf16_logits": runs["bf16_kernel"], "prompt": prompt,
+            "tokens": tokens}
+
+
+def phase_weights(torch, generate, cfg, qparams, weight_quant: str,
+                  model: dict) -> dict:
+    """The 8B model on weight-only quantized params (``--weightQuant``):
+    the f32 kernel path against the f32 plain path on the same quantized
+    weights (codes and scales as they are, the float leaves widened),
+    within LOGITS_BOUND; and the bf16 kernel path's distance from the bf16
+    weights' logits, with its greedy agreement, printed (the same prompt
+    and the tokens the bf16 weights picked)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = widened(torch, qparams)
+    prompt, tokens = model["prompt"], list(model["tokens"])
+    runs = {}
+    for name, c, p, plain in (("bf16_kernel", cfg, qparams, False),
+                              ("f32_kernel", cfg32, params32, False),
+                              ("f32_plain", cfg32, params32, True)):
+        runs[name], _ = _model_logits(torch, generate, p, c, prompt, tokens,
+                                      plain)
+    del params32
+    torch.cuda.empty_cache()
+    ref = model["bf16_logits"]
+    out = {
+        "phase": 3, "weight_quant": weight_quant,
+        "f32_kernel_vs_plain": float(
+            (runs["f32_kernel"] - runs["f32_plain"]).abs().max()),
+        "bound": LOGITS_BOUND,
+        "bf16_vs_bf16_weights": float((runs["bf16_kernel"] - ref).abs().max()),
+        "greedy_agreement_vs_bf16_weights": "%d/9" % int(
+            (runs["bf16_kernel"].argmax(-1) == ref.argmax(-1)).sum()),
+    }
+    emit(out)
+    if out["f32_kernel_vs_plain"] > LOGITS_BOUND:
+        fail(f"--weightQuant {weight_quant}: f32 kernel-path logits differ "
+             f"from the plain path by {out['f32_kernel_vs_plain']:.3e} > "
+             f"{LOGITS_BOUND}")
     return out
 
 
@@ -585,31 +689,40 @@ def _post(url: str, body: dict) -> tuple[list[int], "list[float] | None", float]
         return toks, None, first
 
 
-# the serving runs: route -> the flags it adds to the base command line
+# the serving runs: name -> the flags it adds to the base command line.
+# Each of the kernel's routes has the run of its name; the two last runs
+# serve weight-only quantized params.
+POOL_65 = ["--kvLayout", "paged", "--kvPageSize", "64", "--kvPages", "65"]
 SERVING_RUNS = {
     "dense": [],
-    "paged": ["--kvLayout", "paged", "--kvPageSize", "64", "--kvPages", "65"],
-    "int8_paged": ["--kvLayout", "paged", "--kvPageSize", "64", "--kvPages",
-                   "65", "--cacheQuant", "int8"],
+    "paged": POOL_65,
+    "int8_paged": [*POOL_65, "--cacheQuant", "int8"],
     "int8_dense": ["--cacheQuant", "int8"],
+    "int4_dense": ["--cacheQuant", "int4"],
+    "int4_paged": [*POOL_65, "--cacheQuant", "int4"],
+    "w8": ["--weightQuant", "int8"],
+    "w4_int4_paged": ["--weightQuant", "int4", "--cacheQuant", "int4",
+                      *POOL_65],
 }
 
 
 def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
-                  route: str, dense_tokens=None) -> dict:
-    """The server on one route of the kernel: the six requests of
-    REQUESTS at once, every launch of exactly that run counted by route.
-    ``dense_tokens`` (the dense run's streams) must come back token for
-    token from an unquantized pool. A paged run must make at least one
-    admission wait (the pool holds 64 pages, the six reserve 79) and
-    leave the pool empty and consistent."""
+                  run: str, dense_tokens=None) -> dict:
+    """The server for one serving run: the six requests of REQUESTS at
+    once, every launch of exactly that run counted by route, all on the
+    route its flags name. ``dense_tokens`` (the dense run's streams) must
+    come back token for token from an unquantized pool. A paged run must
+    make at least one admission wait (the pool holds 64 pages, the six
+    reserve 79) and leave the pool empty and consistent. ``params`` are
+    already quantized as the run's ``--weightQuant`` says."""
     import numpy as np
 
     args = server_mod.build_parser().parse_args([
         "--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
         "--chunkedPrefill", "256", "--host", "127.0.0.1", "--port", "0",
-        "--seed", str(SEED), *SERVING_RUNS[route],
+        "--seed", str(SEED), *SERVING_RUNS[run],
     ])
+    route = rpa.route_name(args.kvLayout == "paged", args.cacheQuant)
     server = server_mod.build_server(args, params=params)
     server.start()
     url = f"http://127.0.0.1:{server.bound_port}"
@@ -647,18 +760,18 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         counts = kernel_support.launch_counts()
         launches = counts.get(rpa.route_key(route), 0)
         if errors or any(r is None for r in results):
-            fail(f"{route} serving requests failed: {errors}")
+            fail(f"{run} serving requests failed: {errors}")
         health = server.engine.stats()
         decode_steps = health["decode_steps"] - steps0
         chunks = health["prefill_chunks"] - chunks0
         for i, ((toks, lps, _), (plen, max_new)) in enumerate(
                 zip(results, REQUESTS)):
             if len(toks) != max_new:
-                fail(f"{route}: request {i} (prompt {plen}) returned "
+                fail(f"{run}: request {i} (prompt {plen}) returned "
                      f"{len(toks)} tokens, wanted {max_new}")
             if i == WITH_LOGPROBS and (lps is None or len(lps) != max_new
                                        or not all(x <= 0 for x in lps)):
-                fail(f"{route}: request {i}: bad logprobs {lps}")
+                fail(f"{run}: request {i}: bad logprobs {lps}")
         need = cfg.n_layers * (decode_steps + chunks)
         if launches < need or counts.get(rpa.NAME, 0) != launches:
             fail(f"the kernel launched {launches} times on the {route} "
@@ -669,21 +782,24 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         if dense_tokens is not None and tokens != dense_tokens:
             bad = next(i for i, (x, y) in enumerate(zip(tokens, dense_tokens))
                        if x != y)
-            fail(f"{route}: request {bad}'s greedy stream differs from the "
+            fail(f"{run}: request {bad}'s greedy stream differs from the "
                  "dense run's")
         kv = health["kv"]
-        want_bytes = (65 * 64 if "paged" in route else 8 * 2048) * (
-            67584 if "int8" in route else 131072)
+        want_bytes = (65 * 64 if "paged" in route else 8 * 2048) * \
+            TOKEN_BYTES[args.cacheQuant]
         if kv["reserved_bytes"] != want_bytes:
-            fail(f"{route}: reserved_bytes {kv['reserved_bytes']}, wanted "
+            fail(f"{run}: reserved_bytes {kv['reserved_bytes']}, wanted "
                  f"{want_bytes}")
+        if health["weights"]["quant"] != args.weightQuant:
+            fail(f"{run}: serving {health['weights']} weights, wanted "
+                 f"{args.weightQuant}")
         if "paged" in route:
             if kv["admission_rejected"]["pool_pressure"] < 1:
-                fail(f"{route}: no admission waited for pages: {kv}")
+                fail(f"{run}: no admission waited for pages: {kv}")
             cb.pool.check()
             if kv["pages_in_use"] != 0 or cb.pool.in_use != 0:
-                fail(f"{route}: pages still in use after the run: {kv}")
-        if route == "dense":
+                fail(f"{run}: pages still in use after the run: {kv}")
+        if run == "dense":
             # the streamed request again, alone: its greedy stream must not
             # depend on the batch it was served in
             alone, _, _ = _post(url, {"prompt": bodies[STREAMED]["prompt"],
@@ -695,7 +811,7 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                 fail(f"greedy stream served alone differs from the batched "
                      f"one at token {first}")
         out = {
-            "phase": 4, "route": route, "flags": SERVING_RUNS[route],
+            "phase": 4, "run": run, "route": route, "flags": SERVING_RUNS[run],
             "requests": len(bodies), "wall_s": wall,
             "launches": launches, "decode_steps": decode_steps,
             "prefill_chunks": chunks, "launches_needed": need,
@@ -704,9 +820,9 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
             "decode_tokens_per_s": health["decode_tokens_per_s"],
             "decode_step_ms_mean": health["decode_step_ms_mean"],
             "prefill_chunk_ms_mean": health["prefill_chunk_ms_mean"],
-            "kv": kv,
+            "kv": kv, "weights": health["weights"],
             "equals_dense_tokens": dense_tokens is not None or None,
-            "alone_equals_batched": route == "dense" or None,
+            "alone_equals_batched": run == "dense" or None,
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2**30,
             "tokens": tokens,
@@ -1013,6 +1129,7 @@ def main() -> None:
     try:
         from k8s_gpu_device_plugin_torch.models import generate
         from k8s_gpu_device_plugin_torch.models import llama
+        from k8s_gpu_device_plugin_torch.models import quantized_serving
         from k8s_gpu_device_plugin_torch.models import train
         from k8s_gpu_device_plugin_torch.models import trainer as trainer_mod
         from k8s_gpu_device_plugin_torch.ops import attention as attention_mod
@@ -1042,15 +1159,26 @@ def main() -> None:
     cfg = llama.LlamaConfig.llama3_8b()
     # one set of random 8B weights for the model check and the servers
     params = server_mod.load_params(cfg, seed=SEED, device="cuda")
-    phase_model(torch, generate, cfg, params)
+    model = phase_model(torch, generate, cfg, params)
     serving = {"dense": phase_serving(torch, server_mod, kernel_support, rpa,
                                       cfg, params, "dense")}
-    for route in ("paged", "int8_paged", "int8_dense"):
-        serving[route] = phase_serving(
-            torch, server_mod, kernel_support, rpa, cfg, params, route,
-            dense_tokens=serving["dense"]["tokens"] if route == "paged"
+    for run in ("paged", "int8_paged", "int8_dense", "int4_dense",
+                "int4_paged"):
+        serving[run] = phase_serving(
+            torch, server_mod, kernel_support, rpa, cfg, params, run,
+            dense_tokens=serving["dense"]["tokens"] if run == "paged"
             else None)
-    del params
+    # each weight width quantized once on the card, checked (phase 3) and
+    # served (phase 4), and freed before the next
+    for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
+        qparams = quantized_serving.quantize_weights(params, weight_quant)
+        phase_weights(torch, generate, cfg, qparams, weight_quant, model)
+        serving[run] = phase_serving(torch, server_mod, kernel_support, rpa,
+                                     cfg, qparams, run)
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, model
     gc.collect()
     torch.cuda.empty_cache()
     training = phase_training(torch, kernel_support, attention_mod, llama,

@@ -1,7 +1,8 @@
 """Continuous batching for serving: slots, chunked prefill, decode.
 
 Port of ``k8s_gpu_device_plugin_tpu/models/batching.py``: the dense and
-the paged KV layout (bf16/f32 or int8 codes), chunked prefill
+the paged KV layout (bf16/f32, int8 codes or packed int4 codes; float or
+weight-only int8/int4 quantized params), chunked prefill
 (``prefill_chunk`` / ``prefill_finish``), FIFO admission and the
 synchronous step loop (the reference's ``pipeline_depth=0`` semantics).
 A slot is one concurrent sequence: on the dense layout its reserved
@@ -34,6 +35,8 @@ from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
 from k8s_gpu_device_plugin_torch.models.paging import PagePool, kv_token_bytes
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     check_cache_quant_kv_layout,
+    resident_bytes,
+    weight_quant_of,
 )
 from k8s_gpu_device_plugin_torch.models.sampling import (
     Sampler,
@@ -363,6 +366,10 @@ class ContinuousBatcher:
             )
         self.device = params["embed"].device
         self.params = params
+        # the weights' quantization and resident bytes (codes and scales
+        # included), for /v1/health beside the KV residency
+        self.weight_stats = {"quant": weight_quant_of(params),
+                             "resident_bytes": resident_bytes(params)}
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len

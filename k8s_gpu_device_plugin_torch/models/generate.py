@@ -1,10 +1,12 @@
 """KV-cache forward and generation for serving.
 
 Port of ``k8s_gpu_device_plugin_tpu/models/generate.py``: ``KVCache``
-(dense or a paged pool; bf16/f32, or int8 codes with f32 scale planes),
-``_quantize_kv``, ``_cache_write``, ``_cached_attention``,
+(dense or a paged pool; bf16/f32, or int8 or packed int4 codes with f32
+scale planes), ``_quantize_kv``, ``_cache_write``, ``_cached_attention``,
 ``_project_qkv``, ``_mlp_out``, ``_decode_block``, ``_forward_cached``,
-``prefill`` and ``generate``.
+``prefill`` and ``generate``. Weight leaves may be weight-only quantized
+(``models/quantized_serving.py``): every projection goes through
+``qmatmul`` and the lm_head through ``qhead_matmul``.
 
 Where the reference scans the stacked layers with ``lax.scan`` and
 returns a fresh cache, the port loops over layers in Python and writes
@@ -28,10 +30,14 @@ from k8s_gpu_device_plugin_torch.models.llama import (
     apply_rope,
     cast_params_for_compute,
     head_weights,
-    lm_head_matmul,
     mlp_act,
     rms_norm,
     rope_angles,
+)
+from k8s_gpu_device_plugin_torch.models.quantized_serving import (
+    layer_slice,
+    qhead_matmul,
+    qmatmul,
 )
 from k8s_gpu_device_plugin_torch.models.sampling import (
     Sampler,
@@ -40,7 +46,11 @@ from k8s_gpu_device_plugin_torch.models.sampling import (
     sampler_knobs,
 )
 from k8s_gpu_device_plugin_torch.ops.attention import serving_cache_attention
-from k8s_gpu_device_plugin_torch.ops.quant import quantize_int8
+from k8s_gpu_device_plugin_torch.ops.quant import (
+    pack_int4,
+    quantize_int4_sym,
+    quantize_int8,
+)
 from k8s_gpu_device_plugin_torch.ops.ragged_paged_attention import (
     ragged_paged_attention_reference,
 )
@@ -55,9 +65,12 @@ class KVCache:
 
     With ``cfg.cache_quant == "int8"`` ``k``/``v`` hold int8 codes and
     ``k_scale``/``v_scale`` the per-(position, head) f32 scales, shaped
-    like the codes with a last axis of 1: on a pool they ride the same
+    like the cache with a last axis of 1: on a pool they ride the same
     page geometry, so one (page, offset) pair addresses a row's codes and
-    its scales. The scale planes are None on an unquantized cache.
+    its scales. With ``"int4"`` the codes are packed two per byte
+    (``ops/quant.py``): ``k``/``v`` are uint8 ``(..., hd / 2)``, the
+    scale planes the same ``(..., 1)``. The scale planes are None on an
+    unquantized cache.
 
     Slicing the batch axis of a dense cache (``cache.k[:, slot:slot+1]``)
     gives a view, so writes through a slot's view land in the batch."""
@@ -72,10 +85,14 @@ class KVCache:
         def zeros(shp, dtype):
             return torch.zeros(shp, dtype=dtype, device=device)
 
-        if cfg.cache_quant == "int8":
+        if cfg.cache_quant in ("int8", "int4"):
             sshape = (*shape[:-1], 1)
+            if cfg.cache_quant == "int4":
+                dtype, shape = torch.uint8, (*shape[:-1], shape[-1] // 2)
+            else:
+                dtype = torch.int8
             return KVCache(
-                k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                k=zeros(shape, dtype), v=zeros(shape, dtype),
                 k_scale=zeros(sshape, torch.float32),
                 v_scale=zeros(sshape, torch.float32),
             )
@@ -114,9 +131,14 @@ class KVCache:
                 None if self.v_scale is None else self.v_scale[i])
 
 
-def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, T, H, hd) -> (int8 codes, f32 per-(token, head) scales
-    (B, T, H, 1)): the one symmetric per-row recipe of ``ops/quant.py``."""
+def _quantize_kv(x: torch.Tensor, cache_quant: str = "int8",
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, H, hd) -> (int8 codes, unpacked: in [-127, 127] for
+    ``"int8"``, [-7, 7] for ``"int4"``; f32 per-(token, head) scales
+    (B, T, H, 1)): the one symmetric per-row recipe of ``ops/quant.py``
+    at the cache's code width."""
+    if cache_quant == "int4":
+        return quantize_int4_sym(x, axis=-1)
     return quantize_int8(x, axis=-1)
 
 
@@ -126,9 +148,11 @@ def _cache_write(cache: torch.Tensor, scale: "torch.Tensor | None",
     """Write T new tokens' K or V, (B, T, Hkv, hd), into one layer's
     cache at ``length``: a scalar (every row at one position) or a (B,)
     tensor (every slot at its own position). In place. ``scale`` is the
-    matching scale plane of an int8 cache (else None): the rows are
-    quantized first and codes and scales land at the same place, so a
-    dense cache and a pool hold byte-identical codes and scales.
+    matching scale plane of an int8 or int4 cache (else None): the rows
+    are quantized at the cache's code width first (a uint8 cache holds
+    int4 codes, packed after quantizing) and codes and scales land at the
+    same place, so a dense cache and a pool hold byte-identical codes and
+    scales.
 
     With ``pages`` (B, n_slot_pages) int32 the cache is a pool
     (n_pages, page_size, Hkv, hd): position p of row b lands in page
@@ -142,8 +166,11 @@ def _cache_write(cache: torch.Tensor, scale: "torch.Tensor | None",
     t = x.shape[1]
     if scale is None:
         val, sval = x.to(cache.dtype), None
+    elif cache.dtype == torch.uint8:
+        val, sval = _quantize_kv(x, "int4")
+        val = pack_int4(val)
     else:
-        val, sval = _quantize_kv(x)
+        val, sval = _quantize_kv(x, "int8")
     if pages is not None:
         ps = cache.shape[1]
         steps = torch.arange(t, device=cache.device)
@@ -175,8 +202,8 @@ def _cached_attention(q, k_cache, v_cache, k_scale, v_scale, base,
     """q (B, T, Hq, hd) attends its slot's cache rows up to its own
     position: rows are the T new tokens at ``base .. base+T-1``, ``base``
     a (B,) int32 tensor. ``pages`` (B, n_slot_pages) marks the caches as
-    a paged pool, the scale planes mark them as int8 codes; ``verify``
-    marks a speculative verify window. ``plain=True`` runs the plain
+    a paged pool, the scale planes mark them as int8 or int4 codes;
+    ``verify`` marks a speculative verify window. ``plain=True`` runs the plain
     version whatever the device: the comparison path a card run holds
     the kernel path against; serving never sets it."""
     if plain:
@@ -197,9 +224,9 @@ def _project_qkv(x, layer, rot, cfg: LlamaConfig):
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
-    q = h @ layer["wq"]
-    k = h @ layer["wk"]
-    v = h @ layer["wv"]
+    q = qmatmul(h, layer["wq"])
+    k = qmatmul(h, layer["wk"])
+    v = qmatmul(h, layer["wv"])
     if cfg.attn_bias:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     q = q.reshape(b, t, cfg.n_heads, hd)
@@ -211,9 +238,9 @@ def _project_qkv(x, layer, rot, cfg: LlamaConfig):
 def _mlp_out(x, layer, cfg: LlamaConfig):
     """The gated-MLP residual branch."""
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
-    gate = mlp_act((h @ layer["w1"]).float(), cfg).to(x.dtype)
-    up = h @ layer["w3"]
-    return (gate * up) @ layer["w2"]
+    gate = mlp_act(qmatmul(h, layer["w1"]).float(), cfg).to(x.dtype)
+    up = qmatmul(h, layer["w3"])
+    return qmatmul(gate * up, layer["w2"])
 
 
 def _decode_block(x, layer, kv, length, base, rot, cfg: LlamaConfig,
@@ -224,7 +251,7 @@ def _decode_block(x, layer, kv, length, base, rot, cfg: LlamaConfig,
     ``length`` as a (B,) int32 tensor and ``rot`` the rope angles, both
     built once per forward. ``pages`` (B, n_slot_pages) switches the
     cache to the paged pool: writes scatter through the table and reads
-    resolve through it."""
+    resolve through it. Weight leaves may be quantized (``qmatmul``)."""
     b, t, _ = x.shape
     k_cache, v_cache, k_scale, v_scale = kv
     q, k, v = _project_qkv(x, layer, rot, cfg)
@@ -232,7 +259,8 @@ def _decode_block(x, layer, kv, length, base, rot, cfg: LlamaConfig,
     _cache_write(v_cache, v_scale, v, length, pages)
     attn = _cached_attention(q, k_cache, v_cache, k_scale, v_scale, base,
                              cfg, pages=pages, verify=verify, plain=plain)
-    x = x + attn.reshape(b, t, cfg.n_heads * cfg.head_dim) @ layer["wo"]
+    x = x + qmatmul(attn.reshape(b, t, cfg.n_heads * cfg.head_dim),
+                    layer["wo"])
     return x + _mlp_out(x, layer, cfg)
 
 
@@ -276,7 +304,7 @@ def _forward_cached(
     rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
     for i in range(cfg.n_layers):
-        layer = {name: leaf[i] for name, leaf in layers.items()}
+        layer = {name: layer_slice(leaf, i) for name, leaf in layers.items()}
         x = _decode_block(x, layer, cache.layer(i), length, base, rot, cfg,
                           pages=pages, verify=verify, plain=plain_attention)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
@@ -284,7 +312,7 @@ def _forward_cached(
         x = x[:, -1:]
     elif select_pos is not None:
         x = x[:, select_pos:select_pos + 1]
-    return lm_head_matmul(x, head_weights(params, cfg))
+    return qhead_matmul(x, head_weights(params, cfg), cfg.dtype)
 
 
 def prefill(params, prompt: torch.Tensor, cache: KVCache, cfg: LlamaConfig):

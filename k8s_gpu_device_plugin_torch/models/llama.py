@@ -20,10 +20,12 @@ reference scans them, and wraps each block in ``torch.utils.checkpoint``
 when ``remat`` is set; its attention goes through
 ``ops.attention.attention`` (the flash kernels on the card).
 
-The config refuses the values the port does not serve yet (int4 KV
-codes, quantized weights, MoE, tensor, sequence and pipeline
-parallelism, fused cross-entropy) instead of ignoring them; each refusal
-names its ROADMAP item.
+The config refuses the values the port does not serve yet (int8
+training matmuls, MoE, tensor, sequence and pipeline parallelism, fused
+cross-entropy) instead of ignoring them; each refusal names its ROADMAP
+item. Weight-only quantized serving params (``models/quantized_serving.py``)
+are dict leaves in the same tree: the master-weight cast passes them
+through and ``head_weights`` returns a quantized head as it is.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     check_cache_quant_kv_layout,
 )
 from k8s_gpu_device_plugin_torch.ops.attention import attention
+from k8s_gpu_device_plugin_torch.ops.quant import dot_f32
 
 REMAT_POLICIES = ("save_dots_attn", "save_dots", "save_nothing")
 
@@ -84,7 +87,8 @@ class LlamaConfig:
     quant: str = "none"
     # KV-cache storage for serving (models/generate.py): "int8" keeps K/V
     # as codes with one f32 scale per (position, kv head), dequantized in
-    # the attention kernel; "int4" is refused (ROADMAP A9, B7)
+    # the attention kernel; "int4" the same with int4 codes packed two
+    # per byte (ops/quant.py)
     cache_quant: str = "none"
     # serving KV layout (models/batching.py): "dense" reserves max_len
     # rows per slot; "paged" maps slots onto a shared pool of
@@ -129,8 +133,9 @@ class LlamaConfig:
                 f"kv_page_size must be >= 1, got {self.kv_page_size}"
             )
         refusals = (
-            ("quant", "none", "int8 weight matmuls are not ported yet "
-             "(ROADMAP A8, A9); use quant='none'"),
+            ("quant", "none", "int8 training matmuls are not ported yet "
+             "(ROADMAP A8); use quant='none' (weight-only serving "
+             "quantization is models/quantized_serving.py)"),
             ("n_experts", 0, "MoE MLPs are not ported yet (ROADMAP A10); "
              "use a dense config (n_experts=0)"),
             ("tp", 1, "tensor-parallel serving is not ported yet (ROADMAP "
@@ -252,12 +257,15 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0,
 
 def cast_params_for_compute(params: dict, cfg: LlamaConfig) -> dict:
     """Master-weight cast: layer stacks -> compute dtype (no-op, and the
-    same dict back, when storage == compute dtype)."""
+    same dict back, when storage == compute dtype). Quantized serving
+    leaves (``{"q", "s"}``/``{"q4", "s"}`` dicts) pass through untouched:
+    casting them would destroy the quantization."""
     if cfg.p_dtype == cfg.dtype:
         return params
     return {
         **params,
-        "layers": {k: v.to(cfg.dtype) for k, v in params["layers"].items()},
+        "layers": {k: v if isinstance(v, dict) else v.to(cfg.dtype)
+                   for k, v in params["layers"].items()},
     }
 
 
@@ -280,9 +288,10 @@ def mlp_act(x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def head_weights(params: dict, cfg: LlamaConfig) -> torch.Tensor:
-    """The (d, V) lm_head operand: the dedicated leaf, else the
-    transposed embedding table for tied-embedding configs."""
+def head_weights(params: dict, cfg: LlamaConfig) -> "torch.Tensor | dict":
+    """The (d, V) lm_head operand: the dedicated leaf (a quantized
+    serving head is returned as its leaf dict), else the transposed
+    embedding table for tied-embedding configs."""
     if "lm_head" in params:
         return params["lm_head"]
     if cfg.tied_embeddings:
@@ -321,24 +330,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
 
 
-def lm_head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(..., d) x (d, V) -> f32 logits from ``x.dtype`` operands with f32
-    accumulation (the reference's ``preferred_element_type=f32``). On
-    the card one cuBLAS GEMM writes f32 directly; the CPU has no such
-    mixed-output GEMM, so it widens the operands (exact bf16->f32) and
-    multiplies in f32 — the same products and sums."""
-    w = w.to(x.dtype)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        out = x2 @ w
-    elif x.device.type == "cuda":
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w.float()
-    return out.reshape(*lead, w.shape[-1])
-
-
 # --- the full-sequence forward (training) -------------------------------------
 
 
@@ -353,7 +344,8 @@ def _matmul_f32_acc(a: torch.Tensor, b: torch.Tensor,
 
 
 class _LMHead(torch.autograd.Function):
-    """:func:`lm_head_matmul` with the reference's custom backward
+    """The lm_head product (``ops.quant.dot_f32``: f32 logits from
+    operands in x's dtype) with the reference's custom backward
     (``ops/quant.py::bf16_ste_bwd``): the f32 logits cotangent is cast to
     the operands' dtype, then dx and dw are f32-accumulated products
     rounded to x's and w's dtypes."""
@@ -361,7 +353,7 @@ class _LMHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return lm_head_matmul(x, w)
+        return dot_f32(x, w)
 
     @staticmethod
     def backward(ctx, g):

@@ -15,7 +15,8 @@ Port of ``k8s_gpu_device_plugin_tpu/ops/attention.py``:
   and otherwise runs an XLA gather; here there is one route per device:
   CUDA tensors go to the hand-written ragged-paged kernel (decode T=1,
   verify windows and every prefill chunk alike; dense or paged cache,
-  bf16/f32 or int8 codes) and CPU tensors to its plain version. A shape
+  bf16/f32, int8 codes or packed int4 codes) and CPU tensors to its
+  plain version. A shape
   the kernel does not take raises; it never falls back.
 """
 
@@ -90,7 +91,8 @@ def serving_cache_attention(
     """One serving cache-attention call: query r of slot b sits at
     ``length[b] + r`` (decode's single query at ``length``). ``pages``
     marks the caches as a paged pool; ``k_scale``/``v_scale`` mark them
-    as int8 codes. ``verify`` says the T rows are a speculative verify
+    as codes (int8, or int4 packed into uint8). ``verify`` says the T
+    rows are a speculative verify
     window, which the reference bounds at 2 <= T <= ``MAX_VERIFY_T``: a
     wider or narrower one raises, so a prefill chunk can never pass for
     one."""
@@ -127,16 +129,12 @@ def attention_backend_plan(
     takes on ``device`` and why, from config facts alone: the startup
     report ``/v1/health``'s ``decode_attn`` section carries.
     "unsupported" means the wrapper would raise on this geometry (a head
-    dim, a GQA group or a page size off the kernel's gate; int4 codes);
-    the batcher refuses such a config at construction."""
+    dim, a GQA group or a page size off the kernel's gate); the batcher
+    refuses such a config at construction."""
     dev = torch.device(device)
-    route = rpa.route_name(kv_layout == "paged", cache_quant != "none")
+    route = rpa.route_name(kv_layout == "paged", cache_quant)
 
     def gate(mode: str) -> dict:
-        if cache_quant not in ("none", "int8"):
-            return {"backend": "unsupported", "reason":
-                    f"cache_quant={cache_quant!r}: the kernel takes int8 "
-                    "codes only (int4: ROADMAP B7)"}
         why = rpa.page_size_refusal(page_size) if kv_layout == "paged" else None
         if why:
             return {"backend": "unsupported", "reason": why}

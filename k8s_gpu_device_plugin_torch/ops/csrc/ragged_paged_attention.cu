@@ -1,6 +1,6 @@
 // Ragged-paged attention, hand-written for Hopper (sm_90a): the dense and
-// the paged route, over bf16/f32 caches and over int8 codes dequantized
-// in the kernel.
+// the paged route, over bf16/f32 caches and over int8 or packed int4 codes
+// dequantized in the kernel.
 //
 // Replaces the TPU kernel _rpa_kernel in
 // k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py (the one Pallas
@@ -29,7 +29,8 @@
 // the live span first_block(base+1) .. last_block(base+T) of its row tile
 // (the TPU kernel's clamped index map), so dead cache rows are never
 // loaded. int8 codes halve those bytes (a row is hd codes and one f32
-// scale per kv head). The next K/V tile is fetched into registers while the
+// scale per kv head), int4 codes halve them again (hd / 2 bytes and the
+// same scale). The next K/V tile is fetched into registers while the
 // current one is consumed. Prefill chunks (T up to 256 and beyond) re-read the
 // span once per 64-row tile and do their arithmetic on the CUDA cores in
 // f32; wgmma, TMA and split-K are later work.
@@ -62,8 +63,19 @@
 // layout are template parameters: the bf16 dense instantiation has no
 // table lookup, no scale load and no branch on either.
 //
-// Types: q and out in f32 or bf16; k and v in q's type, or int8 with
-// scales; hd in {64, 128}; ps a power of two; all arithmetic is f32.
+// int4 codes. The TPU's jnp.int4 is packed by XLA; here the storage is the
+// port's own (ops/quant.py): two codes per byte along the head dim, code
+// 2j in the low nibble of byte j and 2j + 1 in its high nibble, two's
+// complement. A row of the cache is hd / 2 bytes, so the element type is a
+// one-byte tag (Int4x2) and every row offset counts bytes: an element
+// offset halved. The scale planes are int8's, addressed by the same row. A
+// thread loads 8 bytes (16 codes, int8's count per load), which keeps the
+// 64-row tile an exact multiple of the block's 256 threads at hd 64 and
+// 128, and sign-extends each nibble with two shifts.
+//
+// Types: q and out in f32 or bf16; k and v in q's type, or int8 or packed
+// int4 codes with scales; hd in {64, 128}; ps a power of two; all
+// arithmetic is f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,12 +90,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlockK = 64;  // kv rows per tile (two per lane in softmax)
 constexpr float kNegBig = -1e30f;
 
+// the element type of a packed int4 cache: one byte, two codes
+struct Int4x2 {
+  uint8_t b;
+};
+static_assert(sizeof(Int4x2) == 1, "a packed int4 pair is one byte");
+
+// Per element type: the vector one thread loads (Vec), the elements it
+// holds (kPerVec), the elements one storage unit of the type holds
+// (kPerUnit), and how a vector widens to f32.
 template <typename T>
 struct Io;
 
 template <>
 struct Io<float> {
+  using Vec = uint4;
   static constexpr int kPerVec = 4;  // elements per 16-byte load
+  static constexpr int kPerUnit = 1;
   __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
     f[0] = __uint_as_float(u.x);
     f[1] = __uint_as_float(u.y);
@@ -96,7 +119,9 @@ struct Io<float> {
 
 template <>
 struct Io<__nv_bfloat16> {
+  using Vec = uint4;
   static constexpr int kPerVec = 8;
+  static constexpr int kPerUnit = 1;
   __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
     // bf16 is the high half of an f32: widening is a 16-bit shift
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -116,7 +141,9 @@ struct Io<__nv_bfloat16> {
 
 template <>
 struct Io<int8_t> {
+  using Vec = uint4;
   static constexpr int kPerVec = 16;
+  static constexpr int kPerUnit = 1;
   __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -124,6 +151,25 @@ struct Io<int8_t> {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         f[4 * i + e] = float(int(int8_t((w[i] >> (8 * e)) & 0xffu)));
+      }
+    }
+  }
+};
+
+template <>
+struct Io<Int4x2> {
+  using Vec = uint2;                  // 8 bytes: 16 codes
+  static constexpr int kPerVec = 16;
+  static constexpr int kPerUnit = 2;  // codes per byte
+  __device__ static __forceinline__ void unpack(const uint2& u, float* f) {
+    // little-endian: code e of a word sits in bits 4e .. 4e + 3; shifting
+    // it to the top and back arithmetically sign-extends it
+    const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        f[8 * i + e] = float(int32_t(w[i] << (28 - 4 * e)) >> 28);
       }
     }
   }
@@ -154,7 +200,8 @@ constexpr size_t smem_bytes() {
 
 // One block: ROWS query vectors (tq = ROWS / group query rows x group q
 // heads) of slot blockIdx.x, kv head blockIdx.y, row tile blockIdx.z.
-// TKV is the cache's element type (T, or int8_t with scale planes); PAGED
+// TKV is the cache's element type (T, or int8_t or Int4x2 with scale
+// planes); PAGED
 // reads k/v as a pool through `pages` (page size 1 << page_shift). The
 // scale and table pointers are read only by the instantiations that need
 // them.
@@ -166,6 +213,7 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
            const int* __restrict__ pages, T* __restrict__ out, int n_q,
            int hq, int hkv, int s_len, int page_shift, float scale,
            int window) {
+  using Vec = typename Io<TKV>::Vec;
   constexpr bool kQuant = !std::is_same<TKV, T>::value;
   constexpr int kPerVec = Io<TKV>::kPerVec;
   constexpr int kVecPerRow = HD / kPerVec;
@@ -221,8 +269,8 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
     qs[e] = x;
   }
 
-  uint4 kreg[kVecPerThread];
-  uint4 vreg[kVecPerThread];
+  Vec kreg[kVecPerThread];
+  Vec vreg[kVecPerThread];
   float kscl[kQuant ? kVecPerThread : 1];  // the vectors' rows' scales
   float vscl[kQuant ? kVecPerThread : 1];
   const int* table = PAGED ? pages + size_t(b) * (s_len >> page_shift) : nullptr;
@@ -239,16 +287,18 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
         } else {
           row = size_t(b) * s_len + pos;
         }
-        const size_t off = (row * hkv + h) * HD + (vec % kVecPerRow) * kPerVec;
-        kreg[i] = __ldg(reinterpret_cast<const uint4*>(k + off));
-        vreg[i] = __ldg(reinterpret_cast<const uint4*>(v + off));
+        // in storage units of TKV: packed int4 halves the element offset
+        const size_t off = ((row * hkv + h) * HD + (vec % kVecPerRow) * kPerVec)
+                           / Io<TKV>::kPerUnit;
+        kreg[i] = __ldg(reinterpret_cast<const Vec*>(k + off));
+        vreg[i] = __ldg(reinterpret_cast<const Vec*>(v + off));
         if constexpr (kQuant) {
           kscl[i] = __ldg(k_scale + row * hkv + h);
           vscl[i] = __ldg(v_scale + row * hkv + h);
         }
       } else {
-        kreg[i] = make_uint4(0u, 0u, 0u, 0u);
-        vreg[i] = make_uint4(0u, 0u, 0u, 0u);
+        kreg[i] = Vec{};
+        vreg[i] = Vec{};
         if constexpr (kQuant) {
           kscl[i] = 0.f;
           vscl[i] = 0.f;
@@ -375,7 +425,7 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const void* k_scale;  // null unless the cache holds int8 codes
+  const void* k_scale;  // null unless the cache holds int8 or int4 codes
   const void* v_scale;
   const void* base;
   const void* pages;    // null on the dense route
@@ -417,49 +467,59 @@ cudaError_t dispatch_rows(const Args& a) {
                  : launch<T, TKV, HD, 64, false>(a);
 }
 
+template <typename T, int HD>
+cudaError_t dispatch_codes(const Args& a, int codes) {
+  switch (codes) {
+    case 0:
+      return dispatch_rows<T, T, HD>(a);
+    case 8:
+      return dispatch_rows<T, int8_t, HD>(a);
+    case 4:
+      return dispatch_rows<T, Int4x2, HD>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-cudaError_t dispatch_cache(const Args& a, bool quantized, int hd) {
-  if (hd == 128) {
-    return quantized ? dispatch_rows<T, int8_t, 128>(a)
-                     : dispatch_rows<T, T, 128>(a);
-  }
-  if (hd == 64) {
-    return quantized ? dispatch_rows<T, int8_t, 64>(a)
-                     : dispatch_rows<T, T, 64>(a);
-  }
+cudaError_t dispatch_cache(const Args& a, int codes, int hd) {
+  if (hd == 128) return dispatch_codes<T, 128>(a, codes);
+  if (hd == 64) return dispatch_codes<T, 64>(a, codes);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes). dtype (of q and out): 0 = f32,
-// 1 = bf16. k and v hold q's type when k_scale and v_scale are null, else
-// int8 codes with f32 scale planes (both or neither). pages null: k and v
-// are the dense cache (B, s_len, Hkv, hd). Else they are a pool
+// 1 = bf16. codes: 0 = k and v hold q's type (k_scale and v_scale null);
+// 8 = int8 codes, 4 = int4 codes packed two per byte (rows of hd / 2
+// bytes), both with f32 scale planes. pages null: k and v are the dense
+// cache (B, s_len, Hkv, hd). Else they are a pool
 // (n_pages, 1 << page_shift, Hkv, hd), pages is (B, s_len >> page_shift)
-// int32 and s_len the table's virtual extent. Everything contiguous and on
-// the device. Returns the cudaError_t of the launch (0 = launched).
+// int32 and s_len the table's virtual extent. hd is q's head dim.
+// Everything contiguous and on the device. Returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int rpa_forward(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,
                            const void* base, const void* pages, void* out,
-                           int dtype, int b, int t, int hq, int hkv,
-                           int s_len, int hd, int page_shift, float scale,
-                           int window, void* stream) {
+                           int dtype, int codes, int b, int t, int hq,
+                           int hkv, int s_len, int hd, int page_shift,
+                           float scale, int window, void* stream) {
   if (b <= 0 || t <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 ||
       hq / hkv > 64 || (k_scale == nullptr) != (v_scale == nullptr) ||
-      page_shift < 0 || page_shift > 30 ||
+      (codes == 0) != (k_scale == nullptr) || page_shift < 0 ||
+      page_shift > 30 ||
       (pages != nullptr && (s_len >> page_shift) << page_shift != s_len)) {
     return int(cudaErrorInvalidValue);
   }
   const Args a{q, k, v, k_scale, v_scale, base, pages, out, b, t, hq, hkv,
                s_len, page_shift, scale, window,
                static_cast<cudaStream_t>(stream)};
-  const bool quantized = k_scale != nullptr;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = dispatch_cache<float>(a, quantized, hd);
+    err = dispatch_cache<float>(a, codes, hd);
   } else if (dtype == 1) {
-    err = dispatch_cache<__nv_bfloat16>(a, quantized, hd);
+    err = dispatch_cache<__nv_bfloat16>(a, codes, hd);
   }
   return int(err);
 }

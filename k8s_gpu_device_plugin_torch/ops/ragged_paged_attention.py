@@ -10,12 +10,13 @@ live span of the KV cache: row r of slot b sits at
 T > 1 a prefill chunk (or a verify window); any T works, because the
 kernel's row tiles are independent blocks.
 
-Four routes, one kernel source (:data:`ROUTES`): the cache is dense
+Six routes, one kernel source (:data:`ROUTES`): the cache is dense
 ``(B, S, Hkv, hd)`` or a pool of pages ``(n_pages, ps, Hkv, hd)`` read
-through a ``(B, n_slot_pages)`` int32 table, and it holds q's dtype or
-int8 codes with two f32 scale planes (``k_scale``/``v_scale``, the
-cache's shape with a last axis of 1) that the kernel multiplies in
-before either product.
+through a ``(B, n_slot_pages)`` int32 table, and it holds q's dtype, int8
+codes, or int4 codes packed two per byte as uint8 ``(..., hd / 2)``
+(``ops/quant.py`` states the packing), the codes with two f32 scale
+planes (``k_scale``/``v_scale``, the cache's shape with a last axis of
+1) that the kernel multiplies in before either product.
 
 - CUDA tensors launch the hand-written kernel
   (``csrc/ragged_paged_attention.cu``), built at first use and counted
@@ -25,8 +26,6 @@ before either product.
 - CPU tensors take :func:`ragged_paged_attention_reference`, the
   gather-einsum of the reference's ``generate._cached_attention`` with
   the kernel's ``q_pos`` clamp. Nothing gives way from the kernel to it.
-
-int4 codes (two per byte) are not ported: a uint8 cache raises.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ import functools
 import torch
 
 from k8s_gpu_device_plugin_torch.ops import kernel_support
+from k8s_gpu_device_plugin_torch.ops.quant import unpack_int4
 
 NAME = "ragged_paged_attention"
 SOURCE = kernel_support.CSRC_DIR / "ragged_paged_attention.cu"
@@ -50,15 +50,26 @@ MIN_PAGE_SIZE = 8
 #: widest verify window (the reference's ``MAX_VERIFY_T``)
 MAX_VERIFY_T = 16
 
-#: the kernel's routes: cache layout x cache element type
-ROUTES = ("dense", "paged", "int8_dense", "int8_paged")
+#: the kernel's routes: cache element type x cache layout
+ROUTES = ("dense", "paged", "int8_dense", "int8_paged", "int4_dense",
+          "int4_paged")
+
+#: cache element type of each code width, and the C interface's code
+_CODES = {"none": 0, "int8": 8, "int4": 4}
+_CODE_DTYPES = {torch.int8: "int8", torch.uint8: "int4"}
 
 _NEG_BIG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def route_name(paged: bool, quantized: bool) -> str:
-    return ("int8_" if quantized else "") + ("paged" if paged else "dense")
+def route_name(paged: bool, cache_quant: str = "none") -> str:
+    """The route of a layout and a ``cache_quant`` (``'none'``,
+    ``'int8'`` or ``'int4'``)."""
+    if cache_quant not in _CODES:
+        raise ValueError(f"cache_quant must be one of {list(_CODES)}, got "
+                         f"{cache_quant!r}")
+    prefix = "" if cache_quant == "none" else cache_quant + "_"
+    return prefix + ("paged" if paged else "dense")
 
 
 def route_key(route: str) -> str:
@@ -99,7 +110,7 @@ def load_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = kernel_support.load_library(NAME, [SOURCE])
     fn = lib.rpa_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -121,9 +132,13 @@ def _check(q, k, v, base, pages, k_scale, v_scale) -> None:
         raise ValueError(f"k {tuple(k.shape)} != v {tuple(v.shape)}")
     b, t, hq, hd = q.shape
     hkv = k.shape[2]
-    if k.shape[3] != hd or (pages is None and k.shape[0] != b):
+    codes = _CODE_DTYPES.get(k.dtype, "none")
+    # packed int4 codes hold two of the head dim's elements a byte
+    if k.shape[3] * (2 if codes == "int4" else 1) != hd or \
+            (pages is None and k.shape[0] != b):
         raise ValueError(
-            f"cache {tuple(k.shape)} does not match q {tuple(q.shape)}"
+            f"cache {tuple(k.shape)} {k.dtype} does not match q "
+            f"{tuple(q.shape)}"
         )
     if not kernel_support.gqa_ok(hq, hkv) or hq // hkv > MAX_GROUP:
         raise ValueError(
@@ -132,16 +147,11 @@ def _check(q, k, v, base, pages, k_scale, v_scale) -> None:
         )
     if base.shape != (b,):
         raise ValueError(f"base must be ({b},), got {tuple(base.shape)}")
-    if k.dtype == torch.uint8:
-        raise NotImplementedError(
-            "int4 KV codes (two per byte) are not ported yet (ROADMAP B7): "
-            "pass int8 codes with k_scale/v_scale, or a bf16/f32 cache"
-        )
     if k_scale is not None:
-        if k.dtype != torch.int8 or v.dtype != torch.int8:
+        if codes == "none" or v.dtype != k.dtype:
             raise ValueError(
-                f"scale planes come with int8 codes; got k {k.dtype}, "
-                f"v {v.dtype}"
+                f"scale planes come with int8 codes or packed int4 codes "
+                f"(uint8); got k {k.dtype}, v {v.dtype}"
             )
         want = (*k.shape[:-1], 1)
         for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -150,8 +160,9 @@ def _check(q, k, v, base, pages, k_scale, v_scale) -> None:
                     f"{name} must be f32 {want} (the cache's shape with a "
                     f"last axis of 1), got {x.dtype} {tuple(x.shape)}"
                 )
-    elif k.dtype == torch.int8:
-        raise ValueError("an int8 cache needs k_scale and v_scale")
+    elif codes != "none":
+        raise ValueError(f"an {codes} cache needs k_scale and v_scale "
+                         f"(got {k.dtype} codes without them)")
     if pages is not None:
         why = page_size_refusal(k.shape[1])
         if why:
@@ -186,7 +197,8 @@ def ragged_paged_attention(
     the cache is a pool and slot b's row ``pos`` is row ``pos % ps`` of
     page ``pages[b, pos // ps]``; a table id is never checked on the
     device (the batcher's rows come from ``PagePool``). ``k_scale`` and
-    ``v_scale`` (both or neither) mark k/v as int8 codes."""
+    ``v_scale`` (both or neither) mark k/v as codes: int8, or int4 packed
+    two per byte into uint8 ``(..., hd / 2)``."""
     _check(q, k, v, base, pages, k_scale, v_scale)
     kw = dict(scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
@@ -195,13 +207,14 @@ def ragged_paged_attention(
         raise ValueError(f"unsupported device {q.device}")
     b, t, hq, hd = q.shape
     quantized = k_scale is not None
+    cache_quant = _CODE_DTYPES[k.dtype] if quantized else "none"
     if not kernel_support.lane_aligned(hd):
         raise ValueError(f"head_dim={hd} not in {kernel_support.LANE_ALIGNED_HEAD_DIMS}")
-    kv_dtype = torch.int8 if quantized else q.dtype
-    if q.dtype not in _DTYPES or k.dtype != kv_dtype or v.dtype != kv_dtype:
+    if q.dtype not in _DTYPES or (not quantized and k.dtype != q.dtype):
         raise ValueError(
             f"q must have a dtype of {list(_DTYPES)} and k/v the same one "
-            f"(or int8 with scale planes); got {q.dtype}/{k.dtype}/{v.dtype}"
+            f"(or int8/uint8 codes with scale planes); got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if base.dtype != torch.int32:
         raise ValueError(f"base must be int32, got {base.dtype}")
@@ -227,10 +240,10 @@ def ragged_paged_attention(
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         base.data_ptr(), None if pages is None else pages.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], b, t, hq, k.shape[2], s_len, hd,
-        page_shift, float(scale), int(window), stream,
+        out.data_ptr(), _DTYPES[q.dtype], _CODES[cache_quant], b, t, hq,
+        k.shape[2], s_len, hd, page_shift, float(scale), int(window), stream,
     )
-    route = route_name(pages is not None, quantized)
+    route = route_name(pages is not None, cache_quant)
     if err != 0:
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed: cudaError {err} "
@@ -255,13 +268,16 @@ def ragged_paged_attention_reference(
     q's dtype for the V contraction) plus the kernel's ``q_pos`` clamp,
     which changes nothing for a live slot (base >= 0). A pool is first
     gathered through ``pages`` into the dense ``(B, S, Hkv, hd)`` view,
-    codes and scales alike, so the two layouts run one computation. int8
-    codes stay the products' operands (cast to q's dtype, exactly); the
+    codes and scales alike, so the two layouts run one computation.
+    Packed int4 codes are unpacked to int8 first. Codes stay the
+    products' operands (cast to q's dtype, exactly); the
     per-(row, head) scales commute through the contractions, so
     ``k_scale`` multiplies the scores after the K product and
     ``v_scale`` the probabilities before the V product. Runs on any
     device; the wrapper takes it only for CPU tensors."""
     b, t, hq, hd = q.shape
+    if k.dtype == torch.uint8:
+        k, v = unpack_int4(k), unpack_int4(v)
     if pages is not None:
         idx = pages.long()
 

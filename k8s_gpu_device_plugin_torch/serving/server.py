@@ -21,7 +21,8 @@ Wire contract (the reference's):
 - ``GET /v1/health`` -> slots, active, prefilling, queued, alive, the
   attention backend plan (``decode_attn``), the KV residency (``kv``:
   layout, reserved bytes and, paged, the pool's occupancy, fragmentation
-  and the admissions it refused or made to wait), the device,
+  and the admissions it refused or made to wait), the weights
+  (``weights``: their quantization and resident bytes), the device,
   decode-step and prefill-chunk counts and the kernels' launch counts.
 
 Run: ``python -m k8s_gpu_device_plugin_torch.serving.server --preset
@@ -29,7 +30,10 @@ llama3_8b --port 8731`` (random weights drawn on the card from
 ``--seed``; ``--device cpu`` serves on the CPU). ``--kvLayout paged
 --kvPageSize 64 --kvPages N`` serves from a pool of N pages (the trap
 page included; 0 sizes it to the dense reservation); ``--cacheQuant
-int8`` keeps K/V as int8 codes with f32 scales, on either layout.
+int8`` (or ``int4``) keeps K/V as int8 (int4) codes with f32 scales, on
+either layout; ``--weightQuant int8|int4`` quantizes the projection,
+MLP and lm_head weights after they load (weight-only, as the reference's
+server does).
 """
 
 from __future__ import annotations
@@ -52,6 +56,11 @@ from k8s_gpu_device_plugin_torch.models.batching import (
     RequestTooLargeError,
 )
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig, init_params
+from k8s_gpu_device_plugin_torch.models.quantized_serving import (
+    WEIGHT_QUANTS,
+    quantize_weights,
+    weight_quant_of,
+)
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
 from k8s_gpu_device_plugin_torch.ops.kernel_support import launch_counts
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
@@ -157,6 +166,7 @@ class InferenceEngine:
             "device": str(cb.device),
             "decode_attn": cb.attn_plan,
             "kv": {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()},
+            "weights": dict(cb.weight_stats),
             "decode_steps": cb.decode_steps,
             "decode_tokens": cb.decode_tokens,
             "decode_step_ms_mean": (
@@ -437,12 +447,18 @@ def build_parser() -> argparse.ArgumentParser:
                         help="seed of the random weights and of the "
                         "shared sampling generator")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--weightQuant", default="none",
+                        choices=list(WEIGHT_QUANTS),
+                        help="weight-only quantization of the projection, "
+                        "MLP and lm_head weights, applied after they load: "
+                        "int8 per output channel, int4 per group of 128 "
+                        "input channels (codes packed two per byte)")
     parser.add_argument("--cacheQuant", default="none",
                         choices=["none", "int8", "int4"],
-                        help="KV-cache storage: int8 keeps K/V as codes "
-                        "with one f32 scale per (position, kv head), on "
-                        "either layout, dequantized in the attention "
-                        "kernel; int4 is not ported yet")
+                        help="KV-cache storage: int8 (int4) keeps K/V as "
+                        "int8 (int4, two per byte) codes with one f32 scale "
+                        "per (position, kv head), on either layout, "
+                        "dequantized in the attention kernel")
     parser.add_argument("--kvLayout", default="dense",
                         choices=["dense", "paged"],
                         help="'dense' reserves maxLen rows per slot; "
@@ -465,8 +481,9 @@ def build_server(args: argparse.Namespace,
     device first (no CUDA and no ``--device cpu`` raises before any
     weights are drawn), then loads weights and starts the engine.
     ``params`` serves the caller's weights (already on the device, for
-    the preset) instead of drawing a set: a process that starts several
-    servers on one card draws once."""
+    the preset, and quantized as ``--weightQuant`` says) instead of
+    drawing a set: a process that starts several servers on one card
+    draws once."""
     device = resolve_device(args.device)
     if args.kvLayout == "dense" and (args.kvPages or args.kvPageSize != 64):
         # 64 is --kvPageSize's default, the one value that cannot be told
@@ -479,6 +496,12 @@ def build_server(args: argparse.Namespace,
     cfg = replace(PRESETS[args.preset](), cache_quant=args.cacheQuant)
     if params is None:
         params = load_params(cfg, seed=args.seed, device=device)
+        params = quantize_weights(params, args.weightQuant)
+    elif weight_quant_of(params) != args.weightQuant:
+        raise ValueError(
+            f"the params passed in are quantized {weight_quant_of(params)!r}"
+            f", --weightQuant says {args.weightQuant!r}"
+        )
     engine = InferenceEngine(
         params, cfg, n_slots=args.slots, max_len=args.maxLen,
         sampler=Sampler(temperature=args.temperature, top_k=args.topK,

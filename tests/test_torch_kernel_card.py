@@ -9,7 +9,7 @@ without JAX, run it without the repository's conftest:
 
 Tolerances of the ragged-paged kernel: f32 atol 1e-4 (summation order
 only); bf16 atol = rtol = 2e-2 (its plain version rounds probabilities
-and the output to bf16). The same on its paged and int8 routes (the
+and the output to bf16). The same on its paged, int8 and int4 routes (the
 scale moves from after the product to before it: last bits); the paged
 route equals the dense one on the same rows bit for bit. The flash
 kernels' are stated above their tests.
@@ -31,6 +31,7 @@ from k8s_gpu_device_plugin_torch.ops.attention import (
     mha_reference,
 )
 from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
+from k8s_gpu_device_plugin_torch.ops.quant import pack_int4
 
 pytestmark = pytest.mark.cuda
 
@@ -111,14 +112,16 @@ def test_served_requests_launch_the_kernel_per_layer(cuda):
         rpa.NAME: need, rpa.route_key("dense"): need}
 
 
-# --- the paged and int8 routes of K1 ----------------------------------------
+# --- the paged, int8 and int4 routes of K1 ----------------------------------
 
 
 def _paged_inputs(b, t, hq, hkv, hd, ps, n_slot_pages, bases, dtype,
-                  quantized, seed=0):
+                  quant, seed=0):
     """A shuffled pool (every page finite, the trap page included): each
     slot reserves the pages its live rows need, the rest of its row is
-    0. Returns q, (k, v, k_scale, v_scale) and the table."""
+    0. ``quant`` is ``'none'`` (q's dtype), ``'int8'`` or ``'int4'``
+    (codes packed two per byte). Returns q, (k, v, k_scale, v_scale) and
+    the table."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     n_pages = 1 + b * n_slot_pages
@@ -131,12 +134,15 @@ def _paged_inputs(b, t, hq, hkv, hd, ps, n_slot_pages, bases, dtype,
         taken += n
     q = torch.randn((b, t, hq, hd), generator=gen, device="cuda", dtype=dtype)
     shape = (n_pages, ps, hkv, hd)
-    if not quantized:
+    if quant == "none":
         k = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
         v = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
         return q, (k, v, None, None), table
-    k, v = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                          dtype=torch.int8) for _ in range(2))
+    qmax = 127 if quant == "int8" else 7
+    k, v = (torch.randint(-qmax - 1, qmax + 1, shape, generator=gen,
+                          device="cuda", dtype=torch.int8) for _ in range(2))
+    if quant == "int4":
+        k, v = pack_int4(k), pack_int4(v)
     ks, vs = (torch.rand((*shape[:-1], 1), generator=gen, device="cuda")
               * 0.02 + 0.002 for _ in range(2))
     return q, (k, v, ks, vs), table
@@ -150,18 +156,18 @@ def _gathered(pool, table):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
 @pytest.mark.parametrize("hd,hq,hkv", [(128, 8, 2), (64, 4, 4), (128, 24, 3)])
 @pytest.mark.parametrize("ps", [8, 16, 64, 256])
 @pytest.mark.parametrize("t,window", [(1, 0), (3, 0), (17, 5), (65, 0),
                                       (300, 100)])
-def test_paged_and_int8_routes_match_plain_and_dense(cuda, dtype, quantized,
+def test_paged_and_int8_routes_match_plain_and_dense(cuda, dtype, quant,
                                                      hd, hq, hkv, ps, t,
                                                      window):
     s = 512
     bases = [-1, 0, s - t]
     q, (k, v, ks, vs), table = _paged_inputs(
-        3, t, hq, hkv, hd, ps, s // ps, bases, dtype, quantized)
+        3, t, hq, hkv, hd, ps, s // ps, bases, dtype, quant)
     base = torch.tensor(bases, dtype=torch.int32, device=cuda)
     kw = dict(scale=hd ** -0.5, window=window)
     kernel_support.reset_launch_counts()
@@ -174,7 +180,7 @@ def test_paged_and_int8_routes_match_plain_and_dense(cuda, dtype, quantized,
         q, _gathered(k, table), _gathered(v, table), base,
         k_scale=_gathered(ks, table), v_scale=_gathered(vs, table), **kw)
     assert torch.equal(paged, dense)
-    routes = [rpa.route_name(p, quantized) for p in (True, False)]
+    routes = [rpa.route_name(p, quant) for p in (True, False)]
     assert kernel_support.launch_counts() == {
         rpa.NAME: 2, rpa.route_key(routes[0]): 1, rpa.route_key(routes[1]): 1}
 
@@ -184,7 +190,7 @@ def test_inactive_slot_reads_the_trap_page_without_faulting(cuda):
     row. Defined and finite; the live slot beside it is not disturbed."""
     ps, nsp = 64, 32
     q, (k, v, ks, vs), table = _paged_inputs(
-        2, 1, 32, 8, 128, ps, nsp, [700, 0], torch.bfloat16, True)
+        2, 1, 32, 8, 128, ps, nsp, [700, 0], torch.bfloat16, "int8")
     table[1] = 0
     base = torch.tensor([700, nsp * ps - 1], dtype=torch.int32, device=cuda)
     both = rpa.ragged_paged_attention(q, k, v, base, table, scale=0.1,
@@ -198,7 +204,7 @@ def test_inactive_slot_reads_the_trap_page_without_faulting(cuda):
 
 def test_new_routes_refuse_what_the_kernel_does_not_take(cuda):
     q, (k, v, ks, vs), table = _paged_inputs(
-        2, 1, 8, 2, 128, 16, 4, [5, 9], torch.bfloat16, True)
+        2, 1, 8, 2, 128, 16, 4, [5, 9], torch.bfloat16, "int8")
     base = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
     call = rpa.ragged_paged_attention
     with pytest.raises(ValueError, match="contiguous"):
@@ -213,9 +219,24 @@ def test_new_routes_refuse_what_the_kernel_does_not_take(cuda):
         call(q, pool, pool, base, table, scale=1.0)
     with pytest.raises(ValueError, match="different devices"):
         call(q, k, v, base, table.cpu(), scale=1.0, k_scale=ks, v_scale=vs)
+    # a uint8 cache is packed int4 codes: without its scales it raises,
+    # and a full-width uint8 row is not a packed one
+    _, (k4, v4, ks4, vs4), _ = _paged_inputs(
+        2, 1, 8, 2, 128, 16, 4, [5, 9], torch.bfloat16, "int4")
+    kernel_support.reset_launch_counts()
+    with pytest.raises(ValueError, match="int4 cache needs k_scale"):
+        call(q, k4, v4, base, table, scale=1.0)
+    with pytest.raises(ValueError, match="does not match"):
+        call(q, k.view(torch.uint8), v.view(torch.uint8), base, table,
+             scale=1.0, k_scale=ks, v_scale=vs)
+    assert kernel_support.launch_counts() == {}
+    out = call(q, k4, v4, base, table, scale=1.0, k_scale=ks4, v_scale=vs4)
+    assert torch.isfinite(out).all()
+    assert kernel_support.launch_counts() == {
+        rpa.NAME: 1, rpa.route_key("int4_paged"): 1}
 
 
-@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
 def test_paged_batcher_launches_its_route_and_matches_dense(cuda, quant):
     cfg = LlamaConfig.tiny(head_dim_override=64, dtype=torch.float32,
                            cache_quant=quant)
@@ -233,7 +254,7 @@ def test_paged_batcher_launches_its_route_and_matches_dense(cuda, quant):
         streams[layout] = [(cb.done_requests[r].out,
                             cb.done_requests[r].out_logp) for r in rids]
         counts = kernel_support.launch_counts()
-        route = rpa.route_name(layout == "paged", quant == "int8")
+        route = rpa.route_name(layout == "paged", quant)
         need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
         assert counts == {rpa.NAME: need, rpa.route_key(route): need}
         if layout == "paged":
@@ -241,6 +262,42 @@ def test_paged_batcher_launches_its_route_and_matches_dense(cuda, quant):
             assert cb.pool.in_use == 0
             assert cb.kv_rejections()["pool_pressure"] >= 1
     assert streams["paged"] == streams["dense"]
+
+
+@pytest.mark.parametrize("weight_quant", ["int8", "int4"])
+def test_weight_quantized_forward_on_the_card(cuda, weight_quant):
+    """Weight-only quantized params on the card: an int4-cache forward
+    through the kernel against the plain attention on the same weights
+    (f32 logits, atol 1e-4: summation order only), and a served batch
+    whose every launch is on the int4 route."""
+    from k8s_gpu_device_plugin_torch.models import generate
+    from k8s_gpu_device_plugin_torch.models.quantized_serving import (
+        quantize_weights,
+    )
+
+    cfg = LlamaConfig.tiny(head_dim_override=64, dtype=torch.float32,
+                           cache_quant="int4")
+    params = quantize_weights(init_params(cfg, seed=1, device=cuda),
+                              weight_quant)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    logits = []
+    for plain in (False, True):
+        cache = generate.KVCache.init(cfg, 2, 64, cuda)
+        logits.append(generate._forward_cached(
+            params, tokens, cache, 0, cfg, plain_attention=plain))
+    torch.testing.assert_close(logits[0], logits[1], atol=1e-4, rtol=0)
+    cb = ContinuousBatcher(params, cfg, n_slots=2, max_len=128,
+                           chunked_prefill=16, kv_layout="paged",
+                           kv_page_size=16)
+    for plen in (5, 40, 70):
+        cb.submit(list(range(1, plen + 1)), max_new=6)
+    kernel_support.reset_launch_counts()
+    out = cb.run()
+    assert all(len(toks) == 6 for toks in out.values())
+    need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
+    assert kernel_support.launch_counts() == {
+        rpa.NAME: need, rpa.route_key("int4_paged"): need}
 
 
 # --- flash attention (K2, K3, K4) --------------------------------------------

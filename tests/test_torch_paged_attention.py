@@ -1,21 +1,25 @@
-"""The paged and int8 routes of ragged-paged attention against the JAX
-reference, and the cache write that feeds them.
+"""The paged, int8 and int4 routes of ragged-paged attention against the
+JAX reference, and the cache write that feeds them.
 
-The reference's Pallas kernel runs in interpret mode with ``pages=`` (and
-``k_scale``/``v_scale`` for int8 codes), its XLA gather
+``quantized`` names the cache: False (f32), True (int8 codes) or
+``"int4"`` (``jnp.int4`` codes in the reference, packed two per byte into
+uint8 in the port: ``ops/quant.py``). The reference's Pallas kernel runs
+in interpret mode with ``pages=`` (and ``k_scale``/``v_scale`` for codes),
+its XLA gather
 (``generate._cached_attention``) runs as is; both are held against the
 port's plain version, which is what the port's wrapper runs for CPU
 tensors. Tolerance: atol 1e-5 in f32 at hd 64. The kernel's online
-softmax and the plain softmax differ in summation order; on int8 codes
-the kernel also multiplies the scale in before the product where the
-plain version applies it after, which moves the last bits only.
+softmax and the plain softmax differ in summation order; on codes the
+kernel also multiplies the scale in before the product where the plain
+version applies it after, which moves the last bits only.
 
 Exact pins: the plain version on a pool equals the plain version on the
 gathered dense view bit for bit; ``_quantize_kv`` gives the reference's
 codes and scale bits from the same f32 input; ``_cache_write`` leaves
-the reference's bytes in a dense cache and in every page of a pool but
-the trap page (where several rows of one call may land on one row, and
-which of them stays is not defined in either framework).
+the reference's codes (int4: unpacked) and bytes in a dense cache and in
+every page of a pool but the trap page (where several rows of one call
+may land on one row, and which of them stays is not defined in either
+framework).
 
 The CUDA kernel itself needs the card: ``chip_smoke.py`` and
 ``tests/test_torch_kernel_card.py`` hold it against the same plain
@@ -23,6 +27,7 @@ version there.
 """
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -39,6 +44,7 @@ from k8s_gpu_device_plugin_torch.ops.attention import (
     attention_backend_plan,
     serving_cache_attention,
 )
+from k8s_gpu_device_plugin_torch.ops.quant import pack_int4, unpack_int4
 
 torch.set_num_threads(1)
 
@@ -69,15 +75,24 @@ def _pool(seed, t, hq, hkv, bases, quantized):
         k = rng.standard_normal(shape).astype(np.float32)
         v = rng.standard_normal(shape).astype(np.float32)
         return q, k, v, None, None, table
-    k = rng.integers(-127, 128, shape).astype(np.int8)
-    v = rng.integers(-127, 128, shape).astype(np.int8)
+    if quantized == "int4":  # an ml_dtypes int4 array: jnp.int4 in JAX
+        k = rng.integers(-8, 8, shape).astype(ml_dtypes.int4)
+        v = rng.integers(-8, 8, shape).astype(ml_dtypes.int4)
+    else:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
     ks = rng.uniform(0.002, 0.02, shape[:-1] + (1,)).astype(np.float32)
     vs = rng.uniform(0.002, 0.02, shape[:-1] + (1,)).astype(np.float32)
     return q, k, v, ks, vs, table
 
 
 def _t(x):
-    return None if x is None else torch.from_numpy(x)
+    """numpy -> torch; int4 codes become the port's packed uint8."""
+    if x is None:
+        return None
+    if x.dtype == ml_dtypes.int4:
+        return pack_int4(torch.from_numpy(x.astype(np.int8)))
+    return torch.from_numpy(x)
 
 
 def _plain(q, k, v, ks, vs, table, base, window=0):
@@ -104,7 +119,7 @@ def test_jax_paged_kernel_matches_plain_version(t, window, quantized):
                                np.asarray(want), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", [False, True, "int4"])
 @pytest.mark.parametrize("t", [1, 8])
 @pytest.mark.parametrize("window", [0, 16])
 def test_jax_paged_gather_matches_plain_version(t, window, quantized):
@@ -112,7 +127,7 @@ def test_jax_paged_gather_matches_plain_version(t, window, quantized):
     cfg = jllama.LlamaConfig.tiny(
         dtype=jnp.float32, n_heads=8, n_kv_heads=2, head_dim_override=HD,
         sliding_window=window, kv_layout="paged", kv_page_size=PS,
-        cache_quant="int8" if quantized else "none",
+        cache_quant={False: "none", True: "int8"}.get(quantized, quantized),
     )
     bases = [0, 57]
     q, k, v, ks, vs, table = _pool(7 + t, t, 8, 2, bases, quantized)
@@ -127,7 +142,7 @@ def test_jax_paged_gather_matches_plain_version(t, window, quantized):
                                np.asarray(want), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", [False, True, "int4"])
 @pytest.mark.parametrize("t,window", [(1, 0), (8, 16), (64, 0)])
 def test_plain_paged_equals_plain_dense_bitwise(t, window, quantized):
     bases = [-1, 0, S - t - 3]
@@ -164,16 +179,20 @@ def _kv_rows(seed, b, t, hkv):
 
 def test_quantize_kv_gives_the_reference_codes_and_scale_bits():
     x = _kv_rows(0, 2, 5, 2)
-    want_q, want_s = jgen._quantize_kv(jnp.asarray(x))
-    got_q, got_s = tgen._quantize_kv(torch.from_numpy(x))
-    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
-    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
-    np.testing.assert_array_equal(got_s.numpy().view(np.uint32),
-                                  np.asarray(want_s).view(np.uint32))
-    assert got_s.shape == (2, 5, 2, 1)
-    # round half to even, clipped at +-127
+    for jdtype, width, qmax in ((jnp.int8, "int8", 127),
+                                (jnp.int4, "int4", 7)):
+        want_q, want_s = jgen._quantize_kv(jnp.asarray(x), jdtype)
+        got_q, got_s = tgen._quantize_kv(torch.from_numpy(x), width)
+        assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+        np.testing.assert_array_equal(got_q.numpy(),
+                                      np.asarray(want_q).astype(np.int8))
+        np.testing.assert_array_equal(got_s.numpy().view(np.uint32),
+                                      np.asarray(want_s).view(np.uint32))
+        assert got_s.shape == (2, 5, 2, 1)
+        assert int(got_q.max()) == qmax and int(got_q.min()) >= -qmax
+    got_q, _ = tgen._quantize_kv(torch.from_numpy(x))
+    # int8 (the default width): round half to even, clipped at +-127
     assert got_q[0, 1, 0, :4].tolist() == [-32, -30, -30, -28]
-    assert int(got_q.max()) == 127 and int(got_q.min()) >= -127
 
 
 WRITE_T = 4
@@ -189,11 +208,21 @@ def _filled(shape, dtype, seed):
     rng = np.random.default_rng(seed)
     if dtype == np.int8:
         return rng.integers(-100, 100, shape).astype(np.int8)
+    if dtype == ml_dtypes.int4:
+        return rng.integers(-8, 8, shape).astype(ml_dtypes.int4)
     return rng.standard_normal(shape).astype(np.float32)
 
 
+def _codes(x):
+    """A cache's values as numpy: packed int4 unpacked to int8 codes."""
+    if isinstance(x, torch.Tensor):
+        return (unpack_int4(x) if x.dtype == torch.uint8 else x).numpy()
+    x = np.asarray(x)
+    return x.astype(np.int8) if x.dtype == ml_dtypes.int4 else x
+
+
 @pytest.mark.parametrize("layout", ["dense", "paged"])
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", [False, True, "int4"])
 @pytest.mark.parametrize("vector_length", [True, False])
 def test_cache_write_leaves_the_reference_bytes(layout, quantized,
                                                 vector_length):
@@ -201,7 +230,9 @@ def test_cache_write_leaves_the_reference_bytes(layout, quantized,
     x = _kv_rows(1, b, WRITE_T, hkv)
     paged = layout == "paged"
     shape = (10, PS, hkv, HD) if paged else (b, S, hkv, HD)
-    cache = _filled(shape, np.int8 if quantized else np.float32, 2)
+    cache_dtype = {False: np.float32, True: np.int8}.get(quantized,
+                                                         ml_dtypes.int4)
+    cache = _filled(shape, cache_dtype, 2)
     scale = _filled(shape[:-1] + (1,), np.float32, 3) if quantized else None
     pages = np.asarray(WRITE_PAGES, np.int32) if paged else None
     if vector_length:
@@ -215,12 +246,11 @@ def test_cache_write_leaves_the_reference_bytes(layout, quantized,
         jnp.asarray(x), jlen, None if pages is None else jnp.asarray(pages),
         PS if paged else 0,
     )
-    got_c = torch.from_numpy(cache.copy())
+    got_c = _t(cache.copy())
     got_s = None if scale is None else torch.from_numpy(scale.copy())
     tgen._cache_write(got_c, got_s, torch.from_numpy(x), tlen, _t(pages))
     live = slice(1, None) if paged else slice(None)  # all but the trap page
-    np.testing.assert_array_equal(got_c.numpy()[live],
-                                  np.asarray(want_c)[live])
+    np.testing.assert_array_equal(_codes(got_c)[live], _codes(want_c)[live])
     if quantized:
         np.testing.assert_array_equal(
             got_s.numpy()[live].view(np.uint32),
@@ -229,7 +259,7 @@ def test_cache_write_leaves_the_reference_bytes(layout, quantized,
         # no live page is written outside its own slot's rows: only the
         # (page, offset) pairs of in-reservation positions changed
         changed = np.argwhere(
-            (got_c.numpy() != cache).any(axis=(-1, -2)))
+            (_codes(got_c) != _codes(cache)).any(axis=(-1, -2)))
         wrote = set()
         for s_, start in enumerate(lengths if vector_length else [30] * b):
             for p in range(start, start + WRITE_T):
@@ -253,9 +283,15 @@ def test_wrapper_refusals_on_the_new_routes():
              v_scale=vs)
     with pytest.raises(ValueError, match="k_scale must be f32"):
         call(q, k, v, base, table, scale=1.0, k_scale=ks[..., 0], v_scale=vs)
-    with pytest.raises(NotImplementedError, match="int4"):
+    # uint8 is packed int4: rows of hd / 2 bytes, with scales
+    with pytest.raises(ValueError, match="does not match"):
         call(q, k.view(torch.uint8), v.view(torch.uint8), base, table,
              scale=1.0, k_scale=ks, v_scale=vs)
+    k4, v4 = (pack_int4(torch.clamp(x, -8, 7)) for x in (k, v))
+    with pytest.raises(ValueError, match="int4 cache needs"):
+        call(q, k4, v4, base, table, scale=1.0)
+    with pytest.raises(ValueError, match="cache_quant"):
+        rpa.route_name(True, "int2")
     with pytest.raises(ValueError, match="int32"):
         call(q, k, v, base, table.long(), scale=1.0, k_scale=ks, v_scale=vs)
     with pytest.raises(ValueError, match="n_slot_pages"):
@@ -284,11 +320,12 @@ def test_backend_plan_names_the_route_and_the_page_gate():
     assert odd["prefill"]["backend"] == "unsupported"
     assert "power of two" in odd["prefill"]["reason"]
     int4 = attention_backend_plan(device="cuda", cache_quant="int4", **kw)
-    assert int4["decode"]["backend"] == "unsupported"
+    assert int4["decode"]["backend"] == "cuda"
+    assert int4["decode"]["route"] == "int4_dense"
     cpu = attention_backend_plan(device="cpu", kv_layout="paged",
                                  page_size=16, **kw)
     assert cpu["decode"]["backend"] == "plain"
     assert cpu["decode"]["route"] == "paged"
-    assert [rpa.route_name(p, q) for p in (False, True)
-            for q in (False, True)] == list(rpa.ROUTES[i] for i in (0, 2, 1, 3))
+    assert [rpa.route_name(p, q) for q in ("none", "int8", "int4")
+            for p in (False, True)] == list(rpa.ROUTES)
     assert rpa.route_key("paged") == "ragged_paged_attention{paged}"

@@ -238,7 +238,8 @@ def test_paged_refusals(models):
     with pytest.raises(NotImplementedError, match="sliding_window"):
         make(windowed, kv_layout="paged", kv_page_size=PS)
     assert make(windowed, kv_layout="dense").pool is None
-    with pytest.raises(NotImplementedError, match="int4"):
-        tllama.LlamaConfig.tiny(cache_quant="int4", kv_layout="paged")
+    # int4 codes ride the pool as int8 codes do
+    int4 = tllama.LlamaConfig.tiny(cache_quant="int4", kv_layout="paged")
+    assert (int4.cache_quant, int4.kv_layout) == ("int4", "paged")
     with pytest.raises(NotImplementedError, match="prefix_cache"):
         make(prefix_cache=object())

@@ -17,12 +17,14 @@ whose cache holds int8 codes and f32 scales.
   the logits by 2.8e-5 (logits' std 0.22). Greedy streams are equal on
   this workload (a top-two logit gap narrower than that difference could
   flip a token; none of these is); logprobs within the same 5e-4.
-- ``kv_cache_from_jax`` carries all four cache kinds (dense or paged,
-  bf16 or int8) across with the same bytes.
+- ``kv_cache_from_jax`` carries all six cache kinds (dense or paged,
+  bf16, int8 or int4) across with the same bytes (int4: the same codes,
+  packed two per byte).
 """
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,7 @@ from k8s_gpu_device_plugin_torch.models.convert import (
     params_from_jax,
 )
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
+from k8s_gpu_device_plugin_torch.ops.quant import unpack_int4
 
 torch.set_num_threads(1)
 
@@ -151,7 +154,8 @@ def test_int8_forward_cached_logits_within_the_stated_bound(weights, layout):
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])
 @pytest.mark.parametrize("quant,dtype", [("none", "bfloat16"),
-                                         ("int8", "bfloat16")])
+                                         ("int8", "bfloat16"),
+                                         ("int4", "bfloat16")])
 def test_kv_cache_from_jax_round_trip(layout, quant, dtype):
     jcfg, tcfg = _configs(layout, quant, dtype)
     rng = np.random.default_rng(4)
@@ -164,6 +168,8 @@ def test_kv_cache_from_jax_round_trip(layout, quant, dtype):
             continue
         if leaf.dtype == jnp.int8:
             filled = rng.integers(-127, 128, leaf.shape).astype(np.int8)
+        elif leaf.dtype == jnp.int4:
+            filled = rng.integers(-8, 8, leaf.shape).astype(ml_dtypes.int4)
         else:
             filled = np.asarray(jnp.asarray(
                 rng.standard_normal(leaf.shape), leaf.dtype))
@@ -172,6 +178,12 @@ def test_kv_cache_from_jax_round_trip(layout, quant, dtype):
     assert (cache.k_scale is None) == (quant == "none")
     for name, want in leaves.items():
         got = getattr(cache, name)
+        if want.dtype.name == "int4":  # packed: hd / 2 bytes a row
+            assert got.dtype == torch.uint8
+            assert tuple(got.shape) == (*want.shape[:-1], want.shape[-1] // 2)
+            np.testing.assert_array_equal(unpack_int4(got).numpy(),
+                                          want.astype(np.int8))
+            continue
         assert tuple(got.shape) == want.shape
         if want.dtype.name == "bfloat16":
             assert got.dtype == torch.bfloat16

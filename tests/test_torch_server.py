@@ -126,6 +126,9 @@ KV_FLAGS = {
     "int8_dense": ["--cacheQuant", "int8"],
     "int8_paged": ["--cacheQuant", "int8", "--kvLayout", "paged",
                    "--kvPageSize", "16", "--kvPages", "5"],
+    "int4_dense": ["--cacheQuant", "int4"],
+    "int4_paged": ["--cacheQuant", "int4", "--kvLayout", "paged",
+                   "--kvPageSize", "16", "--kvPages", "5"],
 }
 
 
@@ -154,12 +157,17 @@ def test_kv_flags_reach_the_batcher_and_health(route, dense_tokens):
     server, url = _serve(KV_FLAGS[route])
     try:
         cfg = server.engine.cb.cfg
+        # bf16 rows, or codes (int8 a byte each, int4 two a byte) and an
+        # f32 scale, for K and for V
+        code_bytes = {"int8": cfg.head_dim, "int4": cfg.head_dim // 2}
+        quant = route.split("_")[0]
         token_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * (
-            cfg.head_dim + 4 if "int8" in route else cfg.head_dim * 2)
+            code_bytes[quant] + 4 if quant in code_bytes
+            else cfg.head_dim * 2)
         got = [json.loads(_post(url, {"prompt": p[:30], "max_new": 6})[2])
                ["tokens"] for p in PROMPTS]
         assert all(len(t) == 6 for t in got)
-        if "int8" not in route:
+        if not route.startswith("int"):
             assert got == dense_tokens
         with urllib.request.urlopen(url + "/v1/health", timeout=30) as resp:
             health = json.loads(resp.read())
@@ -190,8 +198,6 @@ def test_kv_flags_refused_by_name(capsys):
     base = ["--preset", "tiny", "--device", "cpu", "--port", "0"]
     assert srv._main(base + ["--kvPages", "9"]) == 2
     assert "--kvLayout paged" in capsys.readouterr().err
-    assert srv._main(base + ["--cacheQuant", "int4"]) == 2
-    assert "int4" in capsys.readouterr().err
     assert srv._main(base + ["--kvLayout", "paged", "--kvPageSize", "12",
                              "--maxLen", "96", "--chunkedPrefill",
                              "16"]) == 2

@@ -9,14 +9,17 @@ line per configuration: the card, ms per decode step, device and host
 time per step, kernel launches per step, the attention kernel's own
 device time, and the device kernels that take the most time.
 
-``--kvLayout`` and ``--cacheQuant`` take comma-separated lists; every
-pair is measured in turn in this one process, on one set of weights, so
-a paged int8 step can be read beside the dense bf16 one from one card.
+``--weightQuant``, ``--kvLayout`` and ``--cacheQuant`` take
+comma-separated lists; every combination is measured in turn in this one
+process, from one set of bf16 weights (quantized once per
+``--weightQuant`` value, the copy freed before the next), so a paged
+int4 step can be read beside the dense bf16 one from one card.
 ``--activeSlots N`` fills only N of the 8 slots: the others are the
 inactive slots every decode step still computes and discards.
 
     python3 tools/torch_decode_profile.py [--steps 10] [--context 1000]
-        [--kvLayout dense,paged] [--cacheQuant none,int8] [--activeSlots 8]
+        [--kvLayout dense,paged] [--cacheQuant none,int8,int4]
+        [--weightQuant none,int8,int4] [--activeSlots 8]
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
+    """One (weights, layout, cache) configuration's decode step."""
     from dataclasses import replace
 
     from torch.autograd import DeviceType
@@ -84,6 +88,8 @@ def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
     kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
     attention = [e for e in on_device if "rpa_kernel" in e.key]
     return {
+        "weight_quant": cb.weight_stats["quant"],
+        "weight_bytes": cb.weight_stats["resident_bytes"],
         "kv_layout": layout, "cache_quant": quant,
         "slots": cb.n_slots, "active_slots": args.activeSlots,
         "context": args.context,
@@ -112,7 +118,9 @@ def main() -> int:
     parser.add_argument("--kvLayout", default="dense",
                         help="comma-separated: dense, paged")
     parser.add_argument("--cacheQuant", default="none",
-                        help="comma-separated: none, int8")
+                        help="comma-separated: none, int8, int4")
+    parser.add_argument("--weightQuant", default="none",
+                        help="comma-separated: none, int8, int4")
     parser.add_argument("--kvPageSize", type=int, default=64)
     parser.add_argument("--activeSlots", type=int, default=8,
                         help="slots that hold a request (of 8)")
@@ -124,6 +132,9 @@ def main() -> int:
         LlamaConfig,
         init_params,
     )
+    from k8s_gpu_device_plugin_torch.models.quantized_serving import (
+        quantize_weights,
+    )
 
     cfg = LlamaConfig.llama3_8b()
     params = init_params(cfg, seed=0, device="cuda")
@@ -131,10 +142,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
-    for layout in args.kvLayout.split(","):
-        for quant in args.cacheQuant.split(","):
-            print(json.dumps({"card": card, **measure(
-                torch, params, cfg, args, layout, quant)}), flush=True)
+    for weight_quant in args.weightQuant.split(","):
+        served = quantize_weights(params, weight_quant)
+        for layout in args.kvLayout.split(","):
+            for quant in args.cacheQuant.split(","):
+                print(json.dumps({"card": card, **measure(
+                    torch, served, cfg, args, layout, quant)}), flush=True)
+        del served
+        torch.cuda.empty_cache()
     return 0
 
 
