@@ -9,17 +9,26 @@ Phases (any failed check exits non-zero without the final line):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; the hand-written kernels are built from the sources in the
-   checkout (one ``nvcc`` per source, started together), timed.
+   checkout (one ``nvcc`` per source, started together), timed; then
+   ``cuobjdump -sass`` counts the HGMMA (``wgmma``) instructions of every
+   kernel symbol, and every instantiation of the two tensor-core kernels
+   (``flash_fwd_tc_kernel``, ``rpa_chunk_tc_kernel``) must have some.
 2. ``ragged_paged_attention``'s kernel against its plain version at the
-   Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128, S 2048): decode
-   over eight slots, prefill chunks as the batcher runs them (one slot),
-   a windowed case and an hd-64 group-1 case, each in bf16 and f32; then
-   the other routes of the same kernel at the same shapes, decode and a
-   256-row chunk each: a paged pool read through a shuffled table (pages
-   of 64 and of 16 rows), int8 codes with f32 scales in a dense cache and
-   in a pool, int4 codes (packed two per byte) with f32 scales in a dense
-   cache (also windowed and at hd 64, group 1) and in pools of 64- and
-   16-row pages. Per case: max error, kernel / plain / library times
+   Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128, S 2048), each case
+   in bf16 and f32, on every route (a dense cache; a paged pool read
+   through a shuffled table, pages of 64 and of 16 rows; int8 codes and
+   int4 codes packed two per byte, with f32 scales, on both layouts):
+   decode over eight slots (also windowed and at hd 64, group 1, dense
+   and int4), and prefill chunks as the batcher runs them (one slot):
+   T 3, T 37, T 256 at bases 0, 256 and 1536, windowed and at hd 64,
+   group 1. bf16 chunks run on the tensor cores, decode and f32 on the
+   CUDA cores: each launch must be counted on its engine, and two
+   launches on the same inputs must agree bit for bit. A tensor-core case
+   is held to one ulp of the plain version that rounds where the engine
+   does (``p_bf16=True``) and to the f32 plain version within TOL; the
+   others to the f32 plain version within TOL. Per case: max
+   error, kernel / plain / library times (and, at T 256 on the tensor
+   cores, the CUDA-core engine's time on the same inputs)
    (CUDA-graph replays timed with CUDA events; the library yardstick, which
    the port never calls, is ``scaled_dot_product_attention`` after a
    gather of the pool and a dequantization of the codes into a dense
@@ -43,12 +52,16 @@ Phases (any failed check exits non-zero without the final line):
    admission must wait): the dense run's tokens, every launch on the paged
    route, the pool empty at the end; on ``--cacheQuant int8`` and ``int4``,
    paged and dense; on ``--weightQuant int8`` (bf16 dense cache); and on
-   ``--weightQuant int4 --cacheQuant int4`` in the 65-page pool.
+   ``--weightQuant int4 --cacheQuant int4`` in the 65-page pool. Every
+   chunk launch must be on the tensor cores, every decode launch on the
+   CUDA cores.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
-   case and an hd-64 group-1 case, each in bf16 and f32: max errors of
-   o, lse, dq, dk, dv; kernel / plain times;
+   case and an hd-64 group-1 case, each in bf16 (forward on the tensor
+   cores) and f32: max errors of o (bf16: against the plain version that
+   rounds the weights where the kernel does, and against the f32 one),
+   lse, dq, dk, dv; kernel / plain times;
    ``scaled_dot_product_attention``'s forward, backward and forward +
    backward as a yardstick the port never calls; the bound (operations
    over the input type's peak or bytes over 3.35 TB/s).
@@ -56,8 +69,10 @@ Phases (any failed check exits non-zero without the final line):
    layers, B 2, S 2048, 5 steps: step-1 loss near the random init's
    expected ln(vocab) + d * 0.02^2 / 2, finite loss
    and grad_norm, flash launches per layer and step counted over exactly
-   that run, no ``mha_reference`` route; step ms, tokens/s, MFU, peak
-   memory. Then one step of a 2-layer f32 copy at the same B and S
+   that run (every forward on the tensor cores), no ``mha_reference``
+   route, the losses equal bit for bit to a second run's; step ms,
+   tokens/s, MFU, peak memory. Then one step of a 2-layer f32 copy at the
+   same B and S
    through the kernels and through the plain attention: loss and
    grad_norm compared.
 7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
@@ -91,10 +106,15 @@ LOGITS_BOUND = 1e-3   # phase 3: f32 model, kernel vs plain path, max abs
 BF16_FACTOR = 1.5     # phase 3: bf16 kernel path's distance to the f32
                       # model, at most this times the plain path's
 
-# phase 5: both routes compute o in f32 and round it once, so in bf16 they
-# differ by at most one rounding step: one ulp, at most 2^-7 of the value
-FLASH_O_TOL = {"bfloat16": dict(atol=1e-3, rtol=8e-3),
-               "float32": TOL["float32"]}
+# The tensor-core engine (K1's bf16 chunks, K2 bf16) rounds its weights p
+# to bf16 before P V, and K1's producer rounds dequantized K/V rows to
+# bf16: each kernel is held to one ulp of the plain version that rounds
+# them where the kernel does (``p_bf16=True``; a weight on a rounding
+# boundary may flip, in a few rows: kernel_support.FLIP_ROWS),
+# and to its f32 plain version within a wide bound: K1's TOL above, K2's
+# one ulp plus 2^-9 max|v| (each weight moves by 2^-9 of itself, the
+# weights sum to l; flash_attention.o_wide_tol). One check holds both:
+# kernel_support.bf16_o_mismatch. Phase 5's f32 o is held to TOL.
 GRAD_TOL = dict(atol=1e-4, rtol=0.0)  # f32 grads/lse from the same inputs:
                                       # summation order only
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
@@ -132,6 +152,44 @@ def card_line() -> str:
     return proc.stdout.strip()
 
 
+def hgmma_counts(kernel_support, lib) -> dict[str, int]:
+    """HGMMA instructions (wgmma in SASS) per kernel symbol of a built
+    library, from ``cuobjdump -sass`` beside nvcc."""
+    tool = os.path.join(os.path.dirname(kernel_support.find_nvcc()),
+                        "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {lib._name} failed: {proc.stderr[-2000:]}")
+    counts, symbol = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            symbol = line.split("Function :", 1)[1].strip()
+            counts[symbol] = 0
+        elif symbol is not None and "HGMMA" in line:
+            counts[symbol] += 1
+    return counts
+
+
+# the tensor-core kernels: every instantiation must hold wgmma
+TC_KERNELS = ("flash_fwd_tc_kernel", "rpa_chunk_tc_kernel")
+
+
+def phase_sass(kernel_support, libs) -> None:
+    """Phase 1's proof that the redesigned kernels run on the tensor
+    cores: the HGMMA count of every kernel symbol; fails if an
+    instantiation of a tensor-core kernel has none (or none exists)."""
+    counts = {}
+    for name, lib in libs.items():
+        counts[name] = hgmma_counts(kernel_support, lib)
+        emit({"phase": 1, "library": name, "hgmma_per_kernel": counts[name]})
+    for kernel in TC_KERNELS:
+        mine = {sym: n for per_lib in counts.values()
+                for sym, n in per_lib.items() if kernel in sym}
+        if not mine or not all(mine.values()):
+            fail(f"{kernel}: no HGMMA in some instantiation: {mine}")
+
+
 # --- phase 2 -----------------------------------------------------------------
 
 
@@ -162,45 +220,60 @@ def graph_ms(torch, fn, reps: int, iters: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+# every route of the kernel: (route, page size), pages of 64 and of 16
+ROUTE_LAYOUTS = (("dense", 0), ("paged", 64), ("paged", 16),
+                 ("int8_dense", 0), ("int8_paged", 64), ("int8_paged", 16),
+                 ("int4_dense", 0), ("int4_paged", 64), ("int4_paged", 16))
+
+
 def kernel_cases():
     bases8 = [-1, 0, 1, 255, 256, 1000, 2046, 2047]
     full = dict(hq=32, hkv=8, hd=128, s=2048)
+    narrow = dict(hq=8, hkv=8, hd=64, s=2048)
     cases = [
         dict(name="decode", b=8, t=1, bases=bases8, window=0, **full),
-        dict(name="prefill_t256_base0", b=1, t=256, bases=[0], window=0,
-             **full),
-        dict(name="prefill_t256_base256", b=1, t=256, bases=[256], window=0,
-             **full),
-        dict(name="prefill_t256_base1536", b=1, t=256, bases=[1536],
-             window=0, **full),
-        dict(name="prefill_t37_base100", b=1, t=37, bases=[100], window=0,
-             **full),
         dict(name="decode_window64", b=8, t=1, bases=bases8, window=64,
              **full),
         dict(name="decode_hd64_group1", b=8, t=1, bases=bases8, window=0,
-             hq=8, hkv=8, hd=64, s=2048),
+             **narrow),
     ]
     for case in cases:
         case.update(route="dense", ps=0)
-    # the other routes at the serving shapes: decode and one deep chunk
-    for route, ps in (("paged", 64), ("paged", 16), ("int8_dense", 0),
-                      ("int8_paged", 64), ("int4_dense", 0),
-                      ("int4_paged", 64), ("int4_paged", 16)):
+    # the other routes at the serving shapes: decode
+    for route, ps in ROUTE_LAYOUTS[1:]:
         tag = route + (f"_ps{ps}" if ps else "")
-        cases += [
-            dict(name=f"decode_{tag}", b=8, t=1, bases=bases8, window=0,
-                 route=route, ps=ps, **full),
-            dict(name=f"prefill_t256_base1536_{tag}", b=1, t=256,
-                 bases=[1536], window=0, route=route, ps=ps, **full),
-        ]
+        cases.append(dict(name=f"decode_{tag}", b=8, t=1, bases=bases8,
+                          window=0, route=route, ps=ps, **full))
     # int4's unpacking at the narrower shapes of the dense route's cases
     cases += [
         dict(name="decode_window64_int4_dense", b=8, t=1, bases=bases8,
              window=64, route="int4_dense", ps=0, **full),
         dict(name="decode_hd64_group1_int4_dense", b=8, t=1, bases=bases8,
-             window=0, route="int4_dense", ps=0, hq=8, hkv=8, hd=64, s=2048),
+             window=0, route="int4_dense", ps=0, **narrow),
     ]
+    # prefill chunks as the batcher runs them (one slot), on every route:
+    # T 3 (12 query vectors, just past the 8-vector decode tile) up to
+    # T 256 at three depths, a window and hd 64 at group 1
+    chunks = [("prefill_t3_base100", 3, 100, 0, full),
+              ("prefill_t37_base100", 37, 100, 0, full),
+              ("prefill_t256_base0", 256, 0, 0, full),
+              ("prefill_t256_base256", 256, 256, 0, full),
+              ("prefill_t256_base1536", 256, 1536, 0, full),
+              ("prefill_t256_base1536_window64", 256, 1536, 64, full),
+              ("prefill_t256_base1536_hd64_group1", 256, 1536, 0, narrow)]
+    for route, ps in ROUTE_LAYOUTS:
+        tag = "" if route == "dense" else "_" + route + (f"_ps{ps}" if ps else "")
+        for name, t, base, window, shape in chunks:
+            cases.append(dict(name=name + tag, b=1, t=t, bases=[base],
+                              window=window, route=route, ps=ps, **shape))
     return cases
+
+
+def chunk_headline(case) -> bool:
+    """The prefill chunk each route's entry reports: T 256 at base 1536,
+    no window, hd 128 (a phase-2 case or its result row)."""
+    return (case["t"] == 256 and case["bases"] == [1536]
+            and case["window"] == 0 and case["hd"] == 128)
 
 
 def cache_quant_of(route: str) -> str:
@@ -281,7 +354,7 @@ def route_operands(torch, quant, case, k, v, gen):
     return k, v, ks, vs, pages
 
 
-def phase_kernels(torch, rpa, quant) -> list[dict]:
+def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
     import torch.nn.functional as F
 
     results = []
@@ -312,14 +385,35 @@ def phase_kernels(torch, rpa, quant) -> list[dict]:
                 return rpa.ragged_paged_attention_reference(q, k, v, base,
                                                             pages, **kw)
 
+            engine = rpa.engine(dtype, t, hq // hkv)
+            tc = engine == "tensor_cores"
+            kernel_support.reset_launch_counts()
             got = kernel()
+            counts = kernel_support.launch_counts()
+            again = kernel()
             want = plain()
             torch.cuda.synchronize()
             label = f"{case['name']} {dname}"
+            if counts.get(kernel_support.engine_key(rpa.NAME, engine)) != 1:
+                fail(f"{label}: the launch was not counted on the {engine} "
+                     f"engine: {counts}")
             if not torch.isfinite(got).all():
                 fail(f"{label}: non-finite kernel output")
+            if not torch.equal(got, again):
+                fail(f"{label}: two launches on the same inputs differ")
             err = float((got.float() - want.float()).abs().max())
-            if not torch.allclose(got.float(), want.float(), **TOL[dname]):
+            err_p = off_one_ulp = None
+            if tc:  # the tolerances above: one ulp of what the engine does
+                want_p = rpa.ragged_paged_attention_reference(
+                    q, k, v, base, pages, p_bf16=True, **kw)
+                why = kernel_support.bf16_o_mismatch(got, want_p, want,
+                                                     TOL[dname])
+                if why is not None:
+                    fail(f"{label}: {why}")
+                err_p = float((got.float() - want_p.float()).abs().max())
+                off_one_ulp = kernel_support.off_one_ulp(got, want_p)
+                del want_p
+            elif not torch.allclose(got.float(), want.float(), **TOL[dname]):
                 fail(f"{label}: kernel disagrees with its plain version "
                      f"(max abs err {err:.3e}, {TOL[dname]})")
             if pages is not None:
@@ -376,15 +470,23 @@ def phase_kernels(torch, rpa, quant) -> list[dict]:
             reps = 20 if t == 1 else 5
             row = {
                 "case": case["name"], "route": case["route"],
-                "page_size": case["ps"], "dtype": dname, "b": b, "t": t,
+                "page_size": case["ps"], "dtype": dname, "engine": engine,
+                "b": b, "t": t,
                 "hq": hq, "hkv": hkv, "hd": hd, "s": s,
                 "bases": case["bases"], "window": case["window"],
-                "max_abs_err": err,
+                "max_abs_err": err, "max_abs_err_vs_p_bf16": err_p,
+                "off_one_ulp_elements_rows": off_one_ulp,
                 "paged_equals_dense_bitwise": pages is not None or None,
                 "ms": graph_ms(torch, kernel, reps),
                 "plain_ms": graph_ms(torch, plain, max(1, reps // 4)),
                 "library_ms": graph_ms(torch, library, reps),
             }
+            if tc and chunk_headline(case):
+                # the other engine on the same inputs: a yardstick
+                row["cuda_cores_ms"] = graph_ms(
+                    torch, lambda: rpa.ragged_paged_attention(
+                        q, k, v, base, pages, engine_override="cuda_cores",
+                        **kw), reps)
             row["bound_ms"], row["bound_by"], work = bound(case, rpa, torch,
                                                            dname)
             row.update(work)
@@ -778,6 +880,16 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                  f"route ({counts}); the serving run needs {need} = "
                  f"{cfg.n_layers} layers x ({decode_steps} decode steps + "
                  f"{chunks} prefill chunks), all on that route")
+        # every prefill chunk (T >= 3 here, group 4) on the tensor cores,
+        # every decode step on the CUDA cores
+        engines = {e: counts.get(kernel_support.engine_key(rpa.NAME, e), 0)
+                   for e in kernel_support.ENGINES}
+        want_engines = {"cuda_cores": cfg.n_layers * decode_steps,
+                        "tensor_cores": cfg.n_layers * chunks}
+        if engines != want_engines:
+            fail(f"{run}: launches per engine {engines}, wanted "
+                 f"{want_engines} (decode steps on the CUDA cores, chunks "
+                 "on the tensor cores)")
         tokens = [r[0] for r in results]
         if dense_tokens is not None and tokens != dense_tokens:
             bad = next(i for i, (x, y) in enumerate(zip(tokens, dense_tokens))
@@ -813,7 +925,8 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         out = {
             "phase": 4, "run": run, "route": route, "flags": SERVING_RUNS[run],
             "requests": len(bodies), "wall_s": wall,
-            "launches": launches, "decode_steps": decode_steps,
+            "launches": launches, "launches_per_engine": engines,
+            "decode_steps": decode_steps,
             "prefill_chunks": chunks, "launches_needed": need,
             "ttft_s_p50": health["ttft_s_p50"],
             "stream_ttft_s": results[STREAMED][2],
@@ -896,7 +1009,7 @@ def event_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_flash(torch, fa) -> list[dict]:
+def phase_flash(torch, fa, kernel_support) -> list[dict]:
     import torch.nn.functional as F
 
     results = []
@@ -916,8 +1029,16 @@ def phase_flash(torch, fa) -> list[dict]:
             q, k, v, do = randn(b * hq), randn(b * hkv), randn(b * hkv), \
                 randn(b * hq)
             kw = dict(scale=hd ** -0.5, causal=True, window=window)
+            engine = fa.fwd_engine(dtype)
+            kernel_support.reset_launch_counts()
             o, lse = fa.flash_fwd(q, k, v, **kw)
+            counts = kernel_support.launch_counts()
+            o_again, _ = fa.flash_fwd(q, k, v, **kw)
             o_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+            bf16 = dtype == torch.bfloat16
+            # the plain version that rounds p where the bf16 engine does
+            o_p = fa.flash_fwd_reference(q, k, v, p_bf16=True, **kw)[0] \
+                if bf16 else o_r
             # both backward routes get the plain forward's lse and delta
             delta = (do.float() * o_r.float()).sum(-1, keepdim=True)
             bwd = (q, k, v, do, lse_r, delta)
@@ -927,15 +1048,30 @@ def phase_flash(torch, fa) -> list[dict]:
             dq_r = fa.flash_bwd_dq_reference(*bwd, **kw)
             torch.cuda.synchronize()
             label = f"{case['name']} {dname}"
-            errs = {}
+            if counts.get(kernel_support.engine_key("flash_fwd", engine)) != 1:
+                fail(f"{label}: flash_fwd was not counted on the {engine} "
+                     f"engine: {counts}")
+            if not torch.equal(o, o_again):
+                fail(f"{label}: two flash_fwd launches on the same inputs "
+                     "differ")
+            errs, off_one_ulp = {}, None
+            if bf16:  # o's checks (the tolerances above)
+                why = kernel_support.bf16_o_mismatch(o, o_p, o_r,
+                                                     fa.o_wide_tol(v))
+                if why is not None:
+                    fail(f"{label}: {why}")
+                errs["o_vs_f32"] = float((o.float() - o_r.float()).abs().max())
+                off_one_ulp = kernel_support.off_one_ulp(o, o_p)
             for name, got, want, tol in (
-                    ("o", o, o_r, FLASH_O_TOL[dname]),
+                    ("o", o, o_p, TOL["float32"]),
                     ("lse", lse, lse_r, GRAD_TOL),
                     ("dq", dq, dq_r, GRAD_TOL), ("dk", dk, dk_r, GRAD_TOL),
                     ("dv", dv, dv_r, GRAD_TOL)):
                 if not torch.isfinite(got).all():
                     fail(f"{label}: non-finite kernel {name}")
                 errs[name] = float((got.float() - want.float()).abs().max())
+                if bf16 and name == "o":
+                    continue  # held by bf16_o_mismatch above
                 if not torch.allclose(got.float(), want.float(), **tol):
                     fail(f"{label}: kernel {name} disagrees with its plain "
                          f"version (max abs err {errs[name]:.3e}, {tol})")
@@ -966,8 +1102,10 @@ def phase_flash(torch, fa) -> list[dict]:
                 o_ = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
                 return torch.autograd.grad(o_, (qg, kg, vg), dos)
 
+            del o_p, o_again
             row = {"case": case["name"], "dtype": dname, **case,
-                   "max_abs_err": errs,
+                   "engine": engine, "max_abs_err": errs,
+                   "o_off_one_ulp_elements_rows": off_one_ulp,
                    "ms": {
                        "flash_fwd": graph_ms(torch, lambda: fa.flash_fwd(
                            q, k, v, **kw), 5),
@@ -1008,6 +1146,13 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
         total_steps=TRAIN_STEPS, warmup_steps=2, log_every=1,
         device="cuda",
     )
+    # the same run again from the same seed: its losses must repeat bit
+    # for bit (no atomics, fixed summation orders in every kernel)
+    repeat = trainer_mod.Trainer(tcfg).run()
+    repeat_losses = [h["loss"] for h in repeat.metrics_history if "loss" in h]
+    del repeat
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer = trainer_mod.Trainer(tcfg)
     stamps = []
 
@@ -1049,6 +1194,7 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
         "flops_per_token": cfg.flops_per_token(), "mfu": mfu,
         "peak_memory_gib": peak_gib, "resident_before_gib": resident_gib,
         "launches": launches, "launches_needed": need,
+        "losses_repeat_bitwise": losses == repeat_losses,
     }
     del trainer, result
     gc.collect()
@@ -1091,8 +1237,14 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
             fail(f"{name} launched {launches.get(name, 0)} times; the run "
                  f"needs exactly {need} = {cfg.n_layers} layers x "
                  f"{TRAIN_STEPS} steps")
-    if launches.get("flash_fwd", 0) < need:
-        fail(f"flash_fwd launched {launches.get('flash_fwd', 0)} < {need}")
+    fwd_tc = launches.get(kernel_support.engine_key("flash_fwd",
+                                                     "tensor_cores"), 0)
+    if fwd_tc != need or launches.get("flash_fwd", 0) != need:
+        fail(f"flash_fwd launched {launches.get('flash_fwd', 0)} times, "
+             f"{fwd_tc} on the tensor cores; the run needs exactly {need} "
+             "bf16 forwards")
+    if losses != repeat_losses:
+        fail(f"the losses of two runs differ: {losses} vs {repeat_losses}")
     if launches.get(attention_mod.MHA_ROUTE, 0):
         fail(f"{launches[attention_mod.MHA_ROUTE]} attention calls took "
              "mha_reference on the card")
@@ -1150,12 +1302,14 @@ def main() -> None:
           "device_count": torch.cuda.device_count()})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        for build in [pool.submit(rpa.load_kernel), pool.submit(fa.load_kernel)]:
-            build.result()
+        builds = {"ragged_paged_attention": pool.submit(rpa.load_kernel),
+                  "flash_attention": pool.submit(fa.load_kernel)}
+        libs = {name: b.result() for name, b in builds.items()}
     emit({"phase": 1, "build_s": time.perf_counter() - t0})
+    phase_sass(kernel_support, libs)
 
-    cases = phase_kernels(torch, rpa, quant)
-    flash = phase_flash(torch, fa)
+    cases = phase_kernels(torch, rpa, quant, kernel_support)
+    flash = phase_flash(torch, fa, kernel_support)
     cfg = llama.LlamaConfig.llama3_8b()
     # one set of random 8B weights for the model check and the servers
     params = server_mod.load_params(cfg, seed=SEED, device="cuda")
@@ -1194,10 +1348,23 @@ def main() -> None:
         mine = [c for c in cases if c["route"] == route]
         first = next(c for c in mine if c["t"] == 1 and c["window"] == 0
                      and c["dtype"] == "bfloat16" and c["hd"] == 128)
+        chunk = next(c for c in mine
+                     if chunk_headline(c) and c["dtype"] == "bfloat16")
         routes[route] = {
             "launches": serving[route]["launches"],
+            "launches_per_engine": serving[route]["launches_per_engine"],
+            # bf16 queries: decode on the CUDA cores, chunks on the tensor
+            # cores; f32 queries on the CUDA cores at every T
+            "engine": {"decode": first["engine"], "chunk": chunk["engine"],
+                       "float32": "cuda_cores"},
+            "chunk_case": chunk["case"],
+            **{f"chunk_{k}": chunk[k] for k in keys},
+            "chunk_cuda_cores_ms": chunk["cuda_cores_ms"],
             "max_err_bf16": max(c["max_abs_err"] for c in mine
                                 if c["dtype"] == "bfloat16"),
+            "max_err_bf16_vs_p_bf16": max(
+                c["max_abs_err_vs_p_bf16"] for c in mine
+                if c["engine"] == "tensor_cores"),
             "max_err_f32": max(c["max_abs_err"] for c in mine
                                if c["dtype"] == "float32"),
             "headline_case": first["case"], **{k: first[k] for k in keys},
@@ -1214,8 +1381,8 @@ def main() -> None:
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
                           "dense route",
          "routes": routes,
-         "cases": [{k: c[k] for k in ("case", "route", "dtype",
-                                      "max_abs_err", *keys)}
+         "cases": [{k: c[k] for k in ("case", "route", "page_size", "dtype",
+                                      "engine", "max_abs_err", *keys)}
                    for c in cases]})]
     fhead = next(c for c in flash
                  if c["case"] == "causal" and c["dtype"] == "bfloat16")
@@ -1239,6 +1406,14 @@ def main() -> None:
              else fhead["library_bwd_ms"]},
             {"headline_case": f"causal bfloat16, B={TRAIN_BATCH} "
                               f"S={TRAIN_SEQ} Hq=32 Hkv=8 hd=128",
+             "engine": ({"bfloat16": "tensor_cores", "float32": "cuda_cores"}
+                        if name == "flash_fwd" else "cuda_cores"),
+             "launches_per_engine": {
+                 e: training["launches"].get(kernel_support.engine_key(name, e), 0)
+                 for e in kernel_support.ENGINES} if name == "flash_fwd" else None,
+             "max_err_bf16_o_vs_f32_plain": max(
+                 c["max_abs_err"]["o_vs_f32"] for c in flash
+                 if c["dtype"] == "bfloat16") if name == "flash_fwd" else None,
              "cases": [{"case": c["case"], "dtype": c["dtype"],
                         "ms": c["ms"][name], "plain_ms": c["plain_ms"][name],
                         **c["bounds"][name]} for c in flash]}))

@@ -22,11 +22,20 @@
 // operations (forward), 8 * S^2/2 * hd (dkv: s, dP, dV, dK) and
 // 6 * S^2/2 * hd (dq: s, dP, dQ), against ~4 * S * hd bytes of input: about
 // S/2 operations per byte, far above the card's ~295 (bf16) balance at
-// S = 2048. So all three are bound by operations. This first version does
+// S = 2048. So all three are bound by operations.
+//
+// Two engines. The bf16 forward runs on the tensor cores
+// (flash_fwd_tc_kernel): the wgmma mainloop of attention_tile.cuh, two
+// consumer warpgroups (128 q rows) over one ring of K/V tiles that a
+// producer warp fills with TMA boxes from 3-D tensor maps over
+// (B*Hkv, S, hd); q row r reads kv row r / group through the map's
+// outer coordinate. P is rounded to bf16 before P V (wgmma's A operand),
+// so o differs from the f32 plain version by up to 2^-9 max|v| before its
+// final rounding. The f32 forward and both backward kernels (any type) do
 // every operation in f32 on the CUDA cores (the TPU kernels also cast to
-// f32), so it runs against the 67 TFLOP/s f32 rate, not the 989 TFLOP/s
-// bf16 tensor-core rate its bound is stated against; wgmma is later work.
-// What the design does for the operations it has: it skips every tile the
+// f32), against the 67 TFLOP/s f32 rate, not the 989 TFLOP/s bf16
+// tensor-core rate the bound is stated against; their wgmma is later work.
+// What the CUDA-core design does for the operations it has: it skips every tile the
 // mask empties (the reference's block predicates, at 64-row tiles), each
 // thread computes a 4x4 score tile from float4 shared-memory loads (8
 // fused multiply-adds per load), and the heaviest tiles (the most live
@@ -43,11 +52,15 @@
 // summation order, so results are deterministic.
 //
 // Types: f32 or bf16 q/k/v/dO (one type per call), hd in {64, 128},
-// S a multiple of 64. All arithmetic is f32.
+// S a multiple of 64. All arithmetic is f32 but the tensor-core forward's
+// products (bf16 operands, f32 accumulation).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -91,9 +104,6 @@ struct Io<__nv_bfloat16> {
       f[2 * i] = __uint_as_float(w[i] << 16);
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
-  }
-  __device__ static __forceinline__ __nv_bfloat16 cast(float x) {
-    return __float2bfloat16(x);
   }
 };
 
@@ -342,6 +352,115 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --- forward on the tensor cores (K2, bf16) ----------------------------------
+
+constexpr int kTcConsumers = 2;  // 64-row q tiles (consumer warpgroups) a block
+constexpr int kTcStages = 3;     // K/V tiles in flight
+constexpr int kTcThreads = kTcConsumers * attn_tile::kWarpgroup + 32;
+
+// One block: q tiles 2 qb and 2 qb + 1 of row bh = blockIdx.y, the
+// heaviest blocks (most live kv tiles) launched first. Warps 0..7 are the
+// two consumer warpgroups; warp 8 is the producer, one lane of which
+// issues the TMA boxes of each kv tile of the block's span (the union of
+// the two q tiles' spans; each consumer computes only its own).
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __nv_bfloat16* __restrict__ q,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int group, int s_len, float scale, int causal,
+                    int window) {
+  using namespace attn_tile;
+  using RingT = Ring<HD, kTcStages>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_tiles = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const RingT ring = RingT::at(q_tiles + kTcConsumers * tile_bytes<HD>());
+
+  const int n_tiles = s_len / kTile;
+  const int qb = (n_tiles + kTcConsumers - 1) / kTcConsumers - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  int mine_lo[kTcConsumers], mine_hi[kTcConsumers];
+  int lo = n_tiles, hi = -1;
+#pragma unroll
+  for (int w = 0; w < kTcConsumers; ++w) {
+    const int qt = kTcConsumers * qb + w;
+    if (qt < n_tiles) {
+      kv_span(qt, n_tiles, causal != 0, window, &mine_lo[w], &mine_hi[w]);
+    } else {  // past the end of S: no rows, an empty span
+      mine_lo[w] = 0;
+      mine_hi[w] = -1;
+    }
+    if (mine_lo[w] <= mine_hi[w]) {
+      lo = min(lo, mine_lo[w]);
+      hi = max(hi, mine_hi[w]);
+    }
+  }
+
+  if (threadIdx.x == 0) ring.init(1, kTcConsumers * kWarpgroup);
+  __syncthreads();
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == kTcConsumers) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      const int kvh = bh / group;
+      for (int j = lo, n = 0; j <= hi; ++j, ++n) {
+        const int s = ring.acquire(n);
+        mbar_expect_tx(ring.full(s), 2 * tile_bytes<HD>());
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          tma_load_3d(ring.k_tile(s) + c * 8192, &tm_k, 64 * c, j * kTile, kvh,
+                      ring.full(s));
+          tma_load_3d(ring.v_tile(s) + c * 8192, &tm_v, 64 * c, j * kTile, kvh,
+                      ring.full(s));
+        }
+      }
+    }
+    return;
+  }
+
+  const int qt = kTcConsumers * qb + wg;
+  const int q0 = qt * kTile;
+  const bool live = qt < n_tiles;
+  const uint32_t q_tile = q_tiles + wg * tile_bytes<HD>();
+  load_q<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
+    return live ? q + (size_t(bh) * s_len + q0 + r) * HD : nullptr;
+  }, 1 + wg);
+  Acc<HD> acc;
+  acc.init();
+  // a tile needs the mask on the diagonal and where its farthest pair
+  // (row q0 + 63, key 64 j) falls out of the window
+  auto masked = [&](int j) {
+    return causal != 0 &&
+           (j >= qt || (window > 0 && q0 + kTile - 1 - j * kTile >= window));
+  };
+  const int q_row[2] = {q0 + Acc<HD>::row(0), q0 + Acc<HD>::row(2)};
+  auto kept = [&](int h, int pos) { return keep(q_row[h], pos, true, window); };
+  consume<HD, kTcStages>(acc, ring, q_tile, scale * kLog2e, lo, hi,
+                         mine_lo[wg], mine_hi[wg], masked, kept);
+  if (!live) return;
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l_safe = acc.l[h] == 0.f ? 1.f : acc.l[h];
+    inv[h] = 1.f / l_safe;
+    if (threadIdx.x % 4 == 0) {
+      lse[size_t(bh) * s_len + q0 + Acc<HD>::row(2 * h)] =
+          acc.m[h] * kLn2 + logf(l_safe);
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1;
+      const size_t row = size_t(bh) * s_len + q0 + Acc<HD>::row(i);
+      *reinterpret_cast<uint32_t*>(o + row * HD + 64 * nb + Acc<HD>::col(i)) =
+          pack_bf16(acc.o[nb][i] * inv[h], acc.o[nb][i + 1] * inv[h]);
+    }
+  }
+}
+
 // --- backward, dK and dV (K3) -------------------------------------------------
 
 template <int HD>
@@ -542,6 +661,71 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a (rows, S, hd) bf16 tensor as TMA boxes of 64 rows x 64 columns
+// (128 bytes), written to shared memory in the 128-byte swizzle
+bool kv_map(CUtensorMap* map, const void* base, int rows, int s_len, int hd) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(hd), cuuint64_t(s_len), cuuint64_t(rows)};
+  const cuuint64_t strides[2] = {cuuint64_t(hd) * 2, cuuint64_t(s_len) * hd * 2};
+  const cuuint32_t box[3] = {64, kTile, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                          void* lse, int bh, int group, int s_len, float scale,
+                          int causal, int window, cudaStream_t stream) {
+  CUtensorMap tm_k, tm_v;
+  if (!kv_map(&tm_k, k, bh / group, s_len, HD) ||
+      !kv_map(&tm_v, v, bh / group, s_len, HD)) {
+    return cudaErrorNotSupported;
+  }
+  constexpr size_t smem = attn_tile::smem_bytes<HD, kTcStages, kTcConsumers>();
+  auto kernel = flash_fwd_tc_kernel<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = s_len / kTile;
+  const dim3 grid((n_tiles + kTcConsumers - 1) / kTcConsumers, bh);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), group, s_len,
+      scale, causal, window);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
@@ -598,6 +782,7 @@ bool valid(int rows, int group, int s_len, int hd, int dtype) {
     return int(LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__, st));               \
   return int(LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__, st))
 
+// flash_fwd: f32 on the CUDA cores, bf16 on the tensor cores
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int dtype, int bh, int group, int s_len,
                          int hd, float scale, int causal, int window,
@@ -605,8 +790,17 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (!valid(bh, group, s_len, hd, dtype) || bh % group != 0) {
     return int(cudaErrorInvalidValue);
   }
-  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, bh, group, s_len, scale, causal,
-                 window);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return hd == 128 ? int(launch_fwd<float, 128>(q, k, v, o, lse, bh, group,
+                                                  s_len, scale, causal, window, st))
+                     : int(launch_fwd<float, 64>(q, k, v, o, lse, bh, group,
+                                                 s_len, scale, causal, window, st));
+  }
+  return hd == 128 ? int(launch_fwd_tc<128>(q, k, v, o, lse, bh, group, s_len,
+                                            scale, causal, window, st))
+                   : int(launch_fwd_tc<64>(q, k, v, o, lse, bh, group, s_len,
+                                           scale, causal, window, st));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,

@@ -31,9 +31,23 @@
 // loaded. int8 codes halve those bytes (a row is hd codes and one f32
 // scale per kv head), int4 codes halve them again (hd / 2 bytes and the
 // same scale). The next K/V tile is fetched into registers while the
-// current one is consumed. Prefill chunks (T up to 256 and beyond) re-read the
-// span once per 64-row tile and do their arithmetic on the CUDA cores in
-// f32; wgmma, TMA and split-K are later work.
+// current one is consumed.
+//
+// Two engines, chosen by the caller (ops/ragged_paged_attention.py runs
+// bf16 windows of more than 8 query vectors on the tensor cores):
+// - cuda_cores (rpa_kernel): f32 arithmetic on the CUDA cores, any q type
+//   and T; a row tile of 8 query vectors for decode and any window of
+//   <= 8, of 64 past that.
+// - tensor_cores (rpa_chunk_tc_kernel): bf16 queries in row tiles of 64
+//   query vectors, the prefill chunks. A chunk of T 256 does 4 * hd
+//   operations per (query vector, attended row) against one read of the
+//   span: bound by operations, so it runs the wgmma mainloop of
+//   attention_tile.cuh. A producer warpgroup gathers each 64-row K/V tile
+//   through the page table: bf16 rows with cp.async, int8/int4 codes
+//   through registers, widened and multiplied by their row's scale in f32,
+//   rounded once to bf16. Either way it writes the swizzled bf16 tile the
+//   wgmma descriptors read, one consumer warpgroup computes while the
+//   producer fills the next stages. P is rounded to bf16 for P V.
 //
 // TPU -> CUDA. The TPU grid walks kv blocks in order and carries m/l/acc
 // in VMEM scratch across grid steps; here that sequential axis is a loop
@@ -73,15 +87,24 @@
 // 64-row tile an exact multiple of the block's 256 threads at hd 64 and
 // 128, and sign-extends each nibble with two shifts.
 //
+// The tensor-core engine keeps the layout invariant: a tile's rows are
+// resolved through the table one by one and written to the same bits of
+// the same shared-memory tile whatever the layout and page size, so its
+// paged output equals its dense output bit for bit, and the trap-page
+// reasoning above holds unchanged (a dequantized trap row is finite).
+//
 // Types: q and out in f32 or bf16; k and v in q's type, or int8 or packed
-// int4 codes with scales; hd in {64, 128}; ps a power of two; all
-// arithmetic is f32.
+// int4 codes with scales; hd in {64, 128}; ps a power of two; CUDA-core
+// arithmetic is f32, tensor-core products take bf16 operands and
+// accumulate in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -421,6 +444,224 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
+// --- the tensor-core engine (prefill chunks, bf16 q) -------------------------
+
+constexpr int kTcStages = 3;
+constexpr int kTcProducers = 128;  // one producer warpgroup
+constexpr int kTcThreads = attn_tile::kWarpgroup + kTcProducers;
+
+// Fills ring stages with the kv tiles of one (slot, kv head): row
+// pos = 64 j + r of tile j from the dense cache or through the table,
+// rows at or past s_len as zeros. Thread `pt` of the producers writes
+// 16-byte chunks pt, pt + 128, ... of each of K and V.
+template <typename TKV, int HD, bool PAGED>
+struct ChunkProducer {
+  static constexpr bool kCopy = std::is_same<TKV, __nv_bfloat16>::value;
+  static constexpr int kChunksPerRow = HD / 8;  // 8 bf16 values a chunk
+  static constexpr int kPerThread = attn_tile::kKv * kChunksPerRow / kTcProducers;
+
+  const TKV* k;
+  const TKV* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* table;  // this slot's row of the page table (paged)
+  int b, h, hkv, s_len, page_shift;
+
+  // the cache (or pool) row of position pos
+  __device__ __forceinline__ size_t row_of(int pos) const {
+    if constexpr (PAGED) {
+      const int page = __ldg(table + (pos >> page_shift));
+      return (size_t(page) << page_shift) + (pos & ((1 << page_shift) - 1));
+    } else {
+      return size_t(b) * s_len + pos;
+    }
+  }
+
+  // bf16 rows: cp.async into the swizzled tile (completion is the
+  // caller's cp.async group)
+  __device__ __forceinline__ void copy(int j, uint32_t k_dst, uint32_t v_dst,
+                                       int pt) const {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int e = pt + i * kTcProducers;
+      const int r = e / kChunksPerRow;
+      const int c = e % kChunksPerRow;
+      const int pos = j * attn_tile::kKv + r;
+      const bool live = pos < s_len;
+      const size_t off = live ? (row_of(pos) * hkv + h) * HD + 8 * c : 0;
+      const uint32_t at = attn_tile::swizzle(r, 8 * c);
+      attn_tile::cp_async_16(k_dst + at, k + off, live);
+      attn_tile::cp_async_16(v_dst + at, v + off, live);
+    }
+  }
+
+  // int8 or int4 codes: load every chunk's codes and scale, then widen,
+  // scale in f32, round once to bf16 and store
+  __device__ __forceinline__ void dequant(int j, uint32_t k_dst, uint32_t v_dst,
+                                          int pt) const {
+    using Raw = typename std::conditional<std::is_same<TKV, int8_t>::value,
+                                          uint2, uint32_t>::type;
+    Raw kr[kPerThread], vr[kPerThread];
+    float ks[kPerThread], vs[kPerThread];
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int e = pt + i * kTcProducers;
+      const int pos = j * attn_tile::kKv + e / kChunksPerRow;
+      if (pos < s_len) {
+        const size_t row = row_of(pos) * hkv + h;
+        // in bytes: an int4 pair is one byte, so its offset halves
+        const size_t off = (row * HD + 8 * (e % kChunksPerRow)) /
+                           Io<TKV>::kPerUnit;
+        kr[i] = __ldg(reinterpret_cast<const Raw*>(k + off));
+        vr[i] = __ldg(reinterpret_cast<const Raw*>(v + off));
+        ks[i] = __ldg(k_scale + row);
+        vs[i] = __ldg(v_scale + row);
+      } else {
+        kr[i] = Raw{};
+        vr[i] = Raw{};
+        ks[i] = vs[i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int e = pt + i * kTcProducers;
+      const uint32_t at = attn_tile::swizzle(e / kChunksPerRow,
+                                             8 * (e % kChunksPerRow));
+      attn_tile::st_shared_16(k_dst + at, widen(kr[i], ks[i]));
+      attn_tile::st_shared_16(v_dst + at, widen(vr[i], vs[i]));
+    }
+  }
+
+  // eight codes times their row's scale (f32), rounded to bf16
+  __device__ __forceinline__ static uint4 widen(uint2 w, float scale) {
+    float f[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t word = e < 4 ? w.x : w.y;
+      f[e] = float(int(int8_t((word >> (8 * (e % 4))) & 0xffu))) * scale;
+    }
+    return pack8(f);
+  }
+  __device__ __forceinline__ static uint4 widen(uint32_t w, float scale) {
+    float f[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      // code e in bits 4e .. 4e + 3: to the top and back sign-extends it
+      f[e] = float(int32_t(w << (28 - 4 * e)) >> 28) * scale;
+    }
+    return pack8(f);
+  }
+  __device__ __forceinline__ static uint4 pack8(const float (&f)[8]) {
+    return make_uint4(attn_tile::pack_bf16(f[0], f[1]),
+                      attn_tile::pack_bf16(f[2], f[3]),
+                      attn_tile::pack_bf16(f[4], f[5]),
+                      attn_tile::pack_bf16(f[6], f[7]));
+  }
+};
+
+// One block: the 64 query vectors of row tile blockIdx.z (tq = 64 / group
+// query rows x group q heads) of slot blockIdx.x, kv head blockIdx.y: the
+// CUDA-core kernel's grid, live span and q-vector folding. Threads
+// 0..127 are the consumer warpgroup, 128..255 the producers.
+template <typename TKV, int HD, bool PAGED>
+__global__ void __launch_bounds__(kTcThreads, 1)
+rpa_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const TKV* __restrict__ k, const TKV* __restrict__ v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ base, const int* __restrict__ pages,
+                    __nv_bfloat16* __restrict__ out, int n_q, int hq, int hkv,
+                    int s_len, int page_shift, float scale, int window) {
+  using namespace attn_tile;
+  using RingT = Ring<HD, kTcStages>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_tile = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const RingT ring = RingT::at(q_tile + tile_bytes<HD>());
+
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int group = hq / hkv;
+  const int tq = kRows / group;
+  const int t0 = blockIdx.z * tq;
+  const int t_valid = min(tq, n_q - t0);
+  const int tile_base = base[b] + t0;
+  const int j_max = (s_len + kBlockK - 1) / kBlockK - 1;
+  const int j_hi = min(last_block(tile_base + t_valid), j_max);
+  const int j_lo = min(first_block(tile_base + 1, window), j_hi);
+
+  if (threadIdx.x == 0) ring.init(kTcProducers, kWarpgroup);
+  __syncthreads();
+  if (threadIdx.x >= kWarpgroup) {  // the producer warpgroup
+    using Producer = ChunkProducer<TKV, HD, PAGED>;
+    const Producer prod{k, v, k_scale, v_scale,
+                        PAGED ? pages + size_t(b) * (s_len >> page_shift) : nullptr,
+                        b, h, hkv, s_len, page_shift};
+    const int pt = threadIdx.x - kWarpgroup;
+    int prev = -1;  // the stage whose copies are still in flight
+    for (int j = j_lo, n = 0; j <= j_hi; ++j, ++n) {
+      const int s = ring.acquire(n);
+      if constexpr (Producer::kCopy) {
+        prod.copy(j, ring.k_tile(s), ring.v_tile(s), pt);
+        cp_async_commit();
+        if (prev >= 0) {  // the previous tile landed: hand it over
+          cp_async_wait<1>();
+          fence_async_shared();
+          mbar_arrive(ring.full(prev));
+        }
+        prev = s;
+      } else {
+        prod.dequant(j, ring.k_tile(s), ring.v_tile(s), pt);
+        fence_async_shared();
+        mbar_arrive(ring.full(s));
+      }
+    }
+    if (prev >= 0) {
+      cp_async_wait<0>();
+      fence_async_shared();
+      mbar_arrive(ring.full(prev));
+    }
+    return;
+  }
+
+  // query vector r is query row t = r / group of q head h * group + r % group
+  load_q<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
+    const int t = r / group;
+    if (t >= t_valid) return nullptr;
+    return q + ((size_t(b) * n_q + t0 + t) * hq + h * group + r % group) * HD;
+  }, 1);
+  int qpos[2];  // this thread's two rows; rows past the chunk mirror its last
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = min(Acc<HD>::row(2 * hh) / group, t_valid - 1);
+    qpos[hh] = max(tile_base + t, 0);
+  }
+  Acc<HD> acc;
+  acc.init();
+  auto kept = [&](int hh, int pos) {
+    const int qp = qpos[hh];
+    return pos <= qp && pos < s_len && (window <= 0 || qp - pos < window);
+  };
+  consume<HD, kTcStages>(acc, ring, q_tile, scale * kLog2e, j_lo, j_hi, j_lo,
+                         j_hi, [](int) { return true; }, kept);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = Acc<HD>::row(2 * hh);
+    const int t = r / group;
+    if (t >= t_valid) continue;
+    const float l = fmaxf(acc.l[hh], 1e-30f);
+    const size_t row = (size_t(b) * n_q + t0 + t) * hq + h * group + r % group;
+#pragma unroll
+    for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+      for (int i = 2 * hh; i < 32; i += 4) {
+        *reinterpret_cast<uint32_t*>(out + row * HD + 64 * nb + Acc<HD>::col(i)) =
+            pack_bf16(acc.o[nb][i] / l, acc.o[nb][i + 1] / l);
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -433,6 +674,7 @@ struct Args {
   int b, t, hq, hkv, s_len, page_shift;
   float scale;
   int window;
+  int engine;  // 0: CUDA cores, 1: tensor cores
   cudaStream_t stream;
 };
 
@@ -454,8 +696,33 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename TKV, int HD, bool PAGED>
+cudaError_t launch_tc(const Args& a) {
+  constexpr size_t smem = attn_tile::smem_bytes<HD, kTcStages, 1>();
+  auto kernel = rpa_chunk_tc_kernel<TKV, HD, PAGED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const int tq = attn_tile::kRows / (a.hq / a.hkv);
+  const dim3 grid(a.b, a.hkv, (a.t + tq - 1) / tq);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.base),
+      static_cast<const int*>(a.pages), static_cast<__nv_bfloat16*>(a.out), a.t,
+      a.hq, a.hkv, a.s_len, a.page_shift, a.scale, a.window);
+  return cudaGetLastError();
+}
+
+// The engine is the caller's choice; this picks the launch within it.
 template <typename T, typename TKV, int HD>
 cudaError_t dispatch_rows(const Args& a) {
+  if (a.engine == 1) {  // the tensor-core kernel takes bf16 q only
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      return a.pages ? launch_tc<TKV, HD, true>(a) : launch_tc<TKV, HD, false>(a);
+    }
+    return cudaErrorInvalidValue;
+  }
   const int group = a.hq / a.hkv;
   // decode (and any window of <= 8 query vectors) takes the narrow row
   // tile: 8 q vectors, so a T=1 GQA-4 block wastes half, not 15/16
@@ -491,7 +758,9 @@ cudaError_t dispatch_cache(const Args& a, int codes, int hd) {
 }  // namespace
 
 // C interface (loaded with ctypes). dtype (of q and out): 0 = f32,
-// 1 = bf16. codes: 0 = k and v hold q's type (k_scale and v_scale null);
+// 1 = bf16. engine: 0 = the CUDA cores (any q type and T), 1 = the tensor
+// cores (bf16 q); the caller chooses. codes: 0 = k and v hold q's type
+// (k_scale and v_scale null);
 // 8 = int8 codes, 4 = int4 codes packed two per byte (rows of hd / 2
 // bytes), both with f32 scale planes. pages null: k and v are the dense
 // cache (B, s_len, Hkv, hd). Else they are a pool
@@ -504,16 +773,17 @@ extern "C" int rpa_forward(const void* q, const void* k, const void* v,
                            const void* base, const void* pages, void* out,
                            int dtype, int codes, int b, int t, int hq,
                            int hkv, int s_len, int hd, int page_shift,
-                           float scale, int window, void* stream) {
+                           float scale, int window, int engine,
+                           void* stream) {
   if (b <= 0 || t <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 ||
       hq / hkv > 64 || (k_scale == nullptr) != (v_scale == nullptr) ||
       (codes == 0) != (k_scale == nullptr) || page_shift < 0 ||
-      page_shift > 30 ||
+      page_shift > 30 || engine < 0 || engine > 1 ||
       (pages != nullptr && (s_len >> page_shift) << page_shift != s_len)) {
     return int(cudaErrorInvalidValue);
   }
   const Args a{q, k, v, k_scale, v_scale, base, pages, out, b, t, hq, hkv,
-               s_len, page_shift, scale, window,
+               s_len, page_shift, scale, window, engine,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {

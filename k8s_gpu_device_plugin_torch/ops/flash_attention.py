@@ -5,7 +5,10 @@ Port of ``k8s_gpu_device_plugin_tpu/ops/flash_attention.py``. Three
 hand-written kernels (``csrc/flash_attention.cu``) replace its three
 Pallas kernels:
 
-- ``flash_fwd`` (``_fwd_kernel``): o and the f32 row logsumexp;
+- ``flash_fwd`` (``_fwd_kernel``): o and the f32 row logsumexp; bf16
+  on the tensor cores (``csrc/attention_tile.cuh``'s ``wgmma`` mainloop,
+  P rounded to bf16 before P V), f32 on the CUDA cores, each launch also
+  counted under its engine (:func:`fwd_engine`);
 - ``flash_bwd_dkv`` (``_bwd_dkv_kernel``): dK and dV in f32, the GQA
   group's q heads summed inside the kernel;
 - ``flash_bwd_dq`` (``_bwd_dq_kernel``): dQ in f32.
@@ -130,11 +133,34 @@ def _scores(q, k, *, scale, causal, window) -> torch.Tensor:
     return s
 
 
+#: |o - o_p_bf16| <= P_BF16_VBOUND * max|v| (before o's own rounding):
+#: rounding each weight p to bf16 moves it by at most 2^-9 of itself, and
+#: the weights sum to l, so o = sum p v / l moves by at most 2^-9 max|v|
+P_BF16_VBOUND = 2.0 ** -9
+
+
+def o_wide_tol(v: torch.Tensor) -> dict:
+    """The bf16 tensor-core forward's bound against the f32 plain version:
+    one ulp (``kernel_support.O_TOL_BF16``) plus :data:`P_BF16_VBOUND`
+    ``* max|v|``; the ``wide`` of ``kernel_support.bf16_o_mismatch``."""
+    tight = kernel_support.O_TOL_BF16
+    return dict(atol=tight["atol"] + P_BF16_VBOUND * float(v.abs().max()),
+                rtol=tight["rtol"])
+
+
 def flash_fwd_reference(q, k, v, *, scale: float, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, p_bf16: bool = False):
     """The plain forward: materialised f32 scores, softmax with the
     reference's ``l == 0`` guard. Returns (o in q's dtype, lse (BH, S, 1)
-    f32)."""
+    f32).
+
+    ``p_bf16`` rounds the weights where the tensor-core kernel does: each
+    64-column tile's ``exp(s - m_j)``, with ``m_j`` the row's running max
+    over tiles ``<= j``, to bf16 before the V product (then rescaled to
+    the final max in f32: ``kernel_support.p_bf16_weights``); l stays the
+    sum of the unrounded weights. The kernel is held to this version at
+    one bf16 ulp of o, and to the f32 one within :func:`o_wide_tol`
+    (``kernel_support.bf16_o_mismatch``)."""
     group = _group(q, k)
     s = _scores(q, _expand(k, group), scale=scale, causal=causal,
                 window=window)
@@ -142,6 +168,8 @@ def flash_fwd_reference(q, k, v, *, scale: float, causal: bool = True,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    if p_bf16:
+        p = kernel_support.p_bf16_weights(s, m, TILE)
     o = torch.matmul(p, _expand(v, group).float()) / l_safe
     return o.to(q.dtype), m + torch.log(l_safe)
 
@@ -224,13 +252,22 @@ def _check_kernel(q, k, v, *others: torch.Tensor,
                              "16-byte aligned")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def fwd_engine(dtype: torch.dtype) -> str:
+    """The engine of a ``flash_fwd`` launch: the tensor cores for bf16,
+    the CUDA cores for f32 (its pins need f32 products)."""
+    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+
+
+def _launch(name: str, device: torch.device, *args,
+            engine: "str | None" = None) -> None:
     err = getattr(load_kernel(), name)(
         *args, torch.cuda.current_stream(device).cuda_stream
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     kernel_support.count_launch(name)
+    if engine is not None:
+        kernel_support.count_launch(kernel_support.engine_key(name, engine))
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool = True,
@@ -247,7 +284,8 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool = True,
     lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], bh,
-            _group(q, k), s, hd, float(scale), int(causal), int(window))
+            _group(q, k), s, hd, float(scale), int(causal), int(window),
+            engine=fwd_engine(q.dtype))
     return o, lse
 
 

@@ -6,11 +6,21 @@ becomes a real build: every CUDA source under ``ops/csrc`` is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface and loaded with ``ctypes``. Builds happen at first use, from
 the sources in the checkout only, into ``ops/build/``; the library name
-carries a hash of the sources and flags, so an unchanged tree builds
-once and an edited source can never load a stale library.
+carries a hash of the sources, of every header under ``ops/csrc``
+(``*.cuh``, which any source may include) and of the flags, so an
+unchanged tree builds once and an edited source or header can never load
+a stale library.
 
 Each kernel wrapper counts its launches here (``count_launch``), so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels; a kernel with
+two engines also counts each launch under its engine's key
+(:func:`engine_key`): ``cuda_cores`` (f32 arithmetic on the CUDA cores)
+or ``tensor_cores`` (bf16 products in ``wgmma``, ``csrc/attention_tile.cuh``).
+
+The tensor-core mainloop rounds its softmax weights to bf16 before the V
+product, so both kernels that run it are held to a plain version that
+rounds them where it does (:func:`p_bf16_weights`) by one check,
+:func:`bf16_o_mismatch`.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 #: head dims the kernels take
 LANE_ALIGNED_HEAD_DIMS = (64, 128)
 
@@ -36,6 +48,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+#: the engines a kernel may run on
+ENGINES = ("cuda_cores", "tensor_cores")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_locks: dict[str, threading.Lock] = {}  # one per library: builds run in parallel
@@ -68,28 +83,34 @@ def find_nvcc() -> str:
     return found
 
 
-def build_key(sources) -> str:
-    """Hash of every source's bytes and the nvcc flags: the build identity."""
+def build_key(sources, header_dir=CSRC_DIR) -> str:
+    """Hash of every source's bytes, every ``*.cuh`` header's bytes under
+    ``header_dir`` and the nvcc flags: the build identity."""
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode() + b"\0")
-    for src in sources:
+    headers = sorted(Path(header_dir).glob("*.cuh"))
+    for src in [*sources, *headers]:
         h.update(Path(src).name.encode() + b"\0")
         h.update(Path(src).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build_command(nvcc: str, sources, out_path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out_path), *[str(s) for s in sources]]
+def build_command(nvcc: str, sources, out_path,
+                  header_dir=CSRC_DIR) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, f"-I{header_dir}", "-o", str(out_path),
+            *[str(s) for s in sources]]
 
 
-def load_library(name: str, sources, build_dir=BUILD_DIR) -> ctypes.CDLL:
+def load_library(name: str, sources, build_dir=BUILD_DIR,
+                 header_dir=CSRC_DIR) -> ctypes.CDLL:
     """Build (if its hash is new) and load the shared library ``name``
-    from ``sources``; cached per process. The build writes to a
-    temporary name and renames it into place, so a concurrent or
-    interrupted build never leaves a half-written library behind."""
+    from ``sources``, with the headers of ``header_dir`` on the include
+    path; cached per process. The build writes to a temporary name and
+    renames it into place, so a concurrent or interrupted build never
+    leaves a half-written library behind."""
     sources = [Path(s) for s in sources]
-    key = build_key(sources)
+    key = build_key(sources, header_dir)
     out = Path(build_dir) / f"lib{name}_{key}.so"
     with _locks_lock:
         lock = _build_locks.setdefault(str(out), threading.Lock())
@@ -102,7 +123,7 @@ def load_library(name: str, sources, build_dir=BUILD_DIR) -> ctypes.CDLL:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
             os.close(fd)
             try:
-                cmd = build_command(find_nvcc(), sources, tmp)
+                cmd = build_command(find_nvcc(), sources, tmp, header_dir)
                 proc = subprocess.run(cmd, capture_output=True, text=True,
                                       timeout=900)
                 if proc.returncode != 0:
@@ -117,6 +138,80 @@ def load_library(name: str, sources, build_dir=BUILD_DIR) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _libs[str(out)] = lib
         return lib
+
+
+#: o's tolerance in bf16 against the ``p_bf16`` plain version: one ulp (at
+#: most 2^-7 of the value) plus 1e-3
+O_TOL_BF16 = dict(atol=1e-3, rtol=8e-3)
+
+#: rows of o (one query vector's hd outputs) that may miss one ulp of the
+#: ``p_bf16`` plain version: at least FLIP_ROWS, else this share of them.
+#: A weight within the scores' summation-order error of a bf16 rounding
+#: boundary can round the other way in the kernel and in the plain
+#: version, moving every output of its row by 2^-8 of that weight's share
+#: of |v|, beyond one ulp where a row has few weights. Such flips are
+#: rare (on the card, one or two rows of a test with many few-key rows);
+#: a rounding fault misses on hundreds to thousands of rows.
+FLIP_ROWS = 4
+FLIP_ROW_SHARE = 1e-3
+
+#: kv rows per tile of the tensor-core mainloop (``attn_tile::kKv``)
+TC_KV_TILE = 64
+
+
+def p_bf16_weights(s: torch.Tensor, m: torch.Tensor,
+                   tile: int = TC_KV_TILE) -> torch.Tensor:
+    """The softmax weights ``exp(s - m)`` as the tensor-core mainloop
+    feeds them to the V product: each ``tile``-column tile's
+    ``exp(s - m_j)``, with ``m_j`` the row's running max over tiles
+    ``<= j``, rounded to bf16, then rescaled to the final max ``m`` in f32.
+    ``s`` holds f32 scores (masked ones at -1e30) over kv positions from
+    0; a last partial tile is padded with masked columns."""
+    s_len = s.shape[-1]
+    pad = -s_len % tile
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad), value=-1e30)
+    tiles = s.unflatten(-1, (-1, tile))
+    m_run = tiles.amax(dim=-1).cummax(dim=-1).values
+    p = (torch.exp(tiles - m_run[..., None]).to(torch.bfloat16).float()
+         * torch.exp(m_run - m)[..., None])
+    return p.flatten(-2)[..., :s_len]
+
+
+def off_one_ulp(o, o_p) -> tuple[int, int]:
+    """(elements, rows) of ``o`` past :data:`O_TOL_BF16` of ``o_p``; a
+    row is the last axis (one query vector's outputs)."""
+    tight = O_TOL_BF16
+    over = ((o.float() - o_p.float()).abs()
+            > tight["atol"] + tight["rtol"] * o_p.float().abs())
+    return int(over.sum()), int(over.any(-1).sum())
+
+
+def bf16_o_mismatch(o, o_p, o_r, wide: dict) -> "str | None":
+    """Why a bf16 tensor-core forward's ``o`` fails its checks, or None:
+    against the ``p_bf16`` plain version ``o_p``, at most
+    max(FLIP_ROWS, FLIP_ROW_SHARE * rows) rows with an element off by
+    more than :data:`O_TOL_BF16`; against the kernel's f32 plain version
+    ``o_r``, every element within ``wide`` (atol, rtol: the kernel's own
+    bound)."""
+    elements, rows = off_one_ulp(o, o_p)
+    allowed = max(FLIP_ROWS, int(FLIP_ROW_SHARE * o[..., 0].numel()))
+    if rows > allowed:
+        return (f"{rows} rows ({elements} elements) of o miss {O_TOL_BF16} "
+                f"of the p_bf16 plain version (at most {allowed} rows may)")
+    o, o_r = o.float(), o_r.float()
+    if ((o - o_r).abs() > wide["atol"] + wide["rtol"] * o_r.abs()).any():
+        return (f"o misses the plain version by "
+                f"{float((o - o_r).abs().max()):.3e} ({wide})")
+    return None
+
+
+def engine_key(name: str, engine: str) -> str:
+    """The ``launch_counts()`` key of kernel ``name``'s launches on one
+    engine of :data:`ENGINES`."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    return f"{name}<{engine}>"
 
 
 def count_launch(name: str) -> None:

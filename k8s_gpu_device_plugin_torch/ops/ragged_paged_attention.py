@@ -20,9 +20,12 @@ planes (``k_scale``/``v_scale``, the cache's shape with a last axis of
 
 - CUDA tensors launch the hand-written kernel
   (``csrc/ragged_paged_attention.cu``), built at first use and counted
-  in ``kernel_support.launch_counts()`` under :data:`NAME` and under its
-  route's key (:func:`route_key`); anything the kernel does not take
-  raises.
+  in ``kernel_support.launch_counts()`` under :data:`NAME`, under its
+  route's key (:func:`route_key`) and under its engine's key
+  (:func:`engine`); anything the kernel does not take raises. A bf16
+  window of more than 8 query vectors (a prefill chunk) runs on the
+  tensor cores, decode and f32 queries on the CUDA cores; the wrapper
+  makes that choice and the C interface launches the engine it is given.
 - CPU tensors take :func:`ragged_paged_attention_reference`, the
   gather-einsum of the reference's ``generate._cached_attention`` with
   the kernel's ``q_pos`` clamp. Nothing gives way from the kernel to it.
@@ -77,6 +80,21 @@ def route_key(route: str) -> str:
     return f"{NAME}{{{route}}}"
 
 
+#: query vectors of the CUDA-core kernel's narrow (decode) row tile
+NARROW_TILE = 8
+
+
+def engine(dtype: torch.dtype, t: int, group: int) -> str:
+    """The engine a launch runs on: ``'tensor_cores'`` for bf16 queries
+    whose window holds more than :data:`NARROW_TILE` query vectors
+    (``group * t > 8``: the prefill chunks), ``'cuda_cores'`` for decode
+    and narrow windows (the CUDA-core kernel's 8-vector row tile) and for
+    f32 queries at every T (the f32 pins need f32 products)."""
+    if dtype == torch.bfloat16 and group * t > NARROW_TILE:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def page_size_refusal(page_size: int) -> "str | None":
     """Why the paged route does not take this page size, or None. The
     kernel resolves a cache row with a shift and a mask, so a page holds
@@ -105,15 +123,20 @@ def attended_rows(base: torch.Tensor, t: int, window: int = 0) -> torch.Tensor:
     return rows
 
 
+#: ``rpa_forward``'s C signature: pointers (q, k, v, k_scale, v_scale,
+#: base, pages, out), (dtype, codes, b, t, hq, hkv, s_len, hd,
+#: page_shift), scale, window, engine, stream
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
 @functools.cache
 def load_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = kernel_support.load_library(NAME, [SOURCE])
-    fn = lib.rpa_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    lib.rpa_forward.argtypes = ARGTYPES
+    lib.rpa_forward.restype = ctypes.c_int
     return lib
 
 
@@ -190,6 +213,7 @@ def ragged_paged_attention(
     window: int = 0,
     k_scale: "torch.Tensor | None" = None,  # f32, k's shape with hd = 1
     v_scale: "torch.Tensor | None" = None,
+    engine_override: "str | None" = None,
 ) -> torch.Tensor:
     """(B, T, Hq, hd) cache attention over each slot's live span, in q's
     dtype. The caller has already written the window's own K/V rows
@@ -198,7 +222,10 @@ def ragged_paged_attention(
     page ``pages[b, pos // ps]``; a table id is never checked on the
     device (the batcher's rows come from ``PagePool``). ``k_scale`` and
     ``v_scale`` (both or neither) mark k/v as codes: int8, or int4 packed
-    two per byte into uint8 ``(..., hd / 2)``."""
+    two per byte into uint8 ``(..., hd / 2)``. ``engine_override`` runs
+    a CUDA launch on that engine instead of :func:`engine`'s (the
+    tensor cores take bf16 q only): a yardstick of one engine against the
+    other on the same inputs."""
     _check(q, k, v, base, pages, k_scale, v_scale)
     kw = dict(scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
@@ -223,7 +250,7 @@ def ragged_paged_attention(
     for name, x in operands:
         if x is not None and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, x in (("k", k), ("v", v)):
+    for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if pages is None:
@@ -232,6 +259,12 @@ def ragged_paged_attention(
         # the table's virtual extent is what the kernel's grid walks
         s_len = pages.shape[1] * k.shape[1]
         page_shift = k.shape[1].bit_length() - 1
+    eng = engine_override or engine(q.dtype, t, hq // k.shape[2])
+    if eng not in kernel_support.ENGINES or (
+            eng == "tensor_cores" and q.dtype != torch.bfloat16):
+        raise ValueError(f"engine {eng!r} is not one of "
+                         f"{kernel_support.ENGINES} or does not take "
+                         f"{q.dtype} q (the tensor cores take bf16 q)")
     lib = load_kernel()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -241,17 +274,19 @@ def ragged_paged_attention(
         v_scale.data_ptr() if quantized else None,
         base.data_ptr(), None if pages is None else pages.data_ptr(),
         out.data_ptr(), _DTYPES[q.dtype], _CODES[cache_quant], b, t, hq,
-        k.shape[2], s_len, hd, page_shift, float(scale), int(window), stream,
+        k.shape[2], s_len, hd, page_shift, float(scale), int(window),
+        kernel_support.ENGINES.index(eng), stream,
     )
     route = route_name(pages is not None, cache_quant)
     if err != 0:
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed: cudaError {err} "
-            f"(route {route}, q {tuple(q.shape)} {q.dtype}, cache "
-            f"{tuple(k.shape)} {k.dtype})"
+            f"(route {route}, engine {eng}, q {tuple(q.shape)} {q.dtype}, "
+            f"cache {tuple(k.shape)} {k.dtype})"
         )
     kernel_support.count_launch(NAME)
     kernel_support.count_launch(route_key(route))
+    kernel_support.count_launch(kernel_support.engine_key(NAME, eng))
     return out
 
 
@@ -261,6 +296,7 @@ def ragged_paged_attention_reference(
     *, scale: float, window: int = 0,
     k_scale: "torch.Tensor | None" = None,
     v_scale: "torch.Tensor | None" = None,
+    p_bf16: bool = False,
 ) -> torch.Tensor:
     """The plain version: the gather einsum of the reference's
     ``_cached_attention`` (scores from q's-dtype operands with f32
@@ -274,7 +310,15 @@ def ragged_paged_attention_reference(
     per-(row, head) scales commute through the contractions, so
     ``k_scale`` multiplies the scores after the K product and
     ``v_scale`` the probabilities before the V product. Runs on any
-    device; the wrapper takes it only for CPU tensors."""
+    device; the wrapper takes it only for CPU tensors.
+
+    ``p_bf16`` computes what the tensor-core engine does instead, for bf16
+    q: codes times their scale in f32 rounded once to bf16 (the K/V rows
+    its producer writes), scores from those rows, the weights rounded to
+    bf16 against the running max of each 64-row kv tile
+    (``kernel_support.p_bf16_weights``), o divided by the sum of the
+    unrounded weights. The engine is held to it at one bf16 ulp
+    (``kernel_support.bf16_o_mismatch``)."""
     b, t, hq, hd = q.shape
     if k.dtype == torch.uint8:
         k, v = unpack_int4(k), unpack_int4(v)
@@ -287,6 +331,10 @@ def ragged_paged_attention_reference(
         k, v = gather(k), gather(v)
         if k_scale is not None:
             k_scale, v_scale = gather(k_scale), gather(v_scale)
+    if p_bf16 and k_scale is not None:
+        k = (k.float() * k_scale).to(torch.bfloat16)
+        v = (v.float() * v_scale).to(torch.bfloat16)
+        k_scale = v_scale = None
     s_len, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.reshape(b, t, hkv, group, hd).float()
@@ -304,6 +352,12 @@ def ragged_paged_attention_reference(
     if window > 0:
         keep &= q_pos - k_pos < window
     scores = torch.where(keep, scores, torch.full_like(scores, _NEG_BIG))
+    if p_bf16:
+        m = scores.amax(dim=-1, keepdim=True)
+        l = torch.exp(scores - m).sum(dim=-1, keepdim=True)
+        probs = kernel_support.p_bf16_weights(scores, m) / l.clamp(min=1e-30)
+        out = torch.einsum("btkgs,bskd->btkgd", probs, v.float())
+        return out.reshape(b, t, hq, hd).to(q.dtype)
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:
         probs = probs * v_scale[..., 0].transpose(1, 2)[:, None, :, None, :]

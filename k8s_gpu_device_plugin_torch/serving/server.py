@@ -12,9 +12,12 @@ Wire contract (the reference's):
 - ``POST /v1/generate`` ``{"prompt": [ids...], "max_new": N, "stream":
   false, "logprobs": false, "stop": [[ids...], ...], "temperature",
   "top_k", "top_p", "repetition_penalty", "seed"}`` ->
-  ``{"id", "tokens"[, "logprobs"]}``, or with ``"stream": true`` a
-  ``text/event-stream`` of ``data: {"token": t[, "logprob": lp]}``
-  frames closing with ``data: {"done": true}``. A field the port does
+  ``{"id", "tokens", "cached_tokens"[, "logprobs"]}``, or with
+  ``"stream": true`` a ``text/event-stream`` of ``data: {"token": t[,
+  "logprob": lp]}`` frames closing with ``data: {"done": true}``.
+  ``cached_tokens`` counts the prompt tokens a prefix cache served; no
+  prefix cache is ported, so it is always 0, and the done event leaves
+  it out, as the reference's does at 0. A field the port does
   not implement yet (``n`` other than 1, ``adapter``, ``text``,
   ``stop_text``, ``logit_bias``, the scheduling and resume fields, ...)
   answers 400 naming it; a request no slot can hold answers 422.
@@ -364,7 +367,9 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             toks.append(item[0])
             lps.append(item[1])
-        payload = {"id": eid, "tokens": toks}
+        # the reference always sends cached_tokens (0 on a prefix-cache
+        # miss); the port has no prefix cache, so every request misses
+        payload = {"id": eid, "tokens": toks, "cached_tokens": 0}
         if req["logprobs"]:
             payload["logprobs"] = lps
         self._json(200, payload)

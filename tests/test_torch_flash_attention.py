@@ -86,6 +86,73 @@ def test_plain_versions_match_the_interpret_kernels(hd, hq, hkv, mode):
     assert torch.equal(o2, o) and torch.equal(lse2, lse)
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+def test_p_bf16_plain_version_stays_within_its_bound(mode):
+    """The tensor-core forward rounds each tile's weights to bf16 before
+    the V product; its plain version (``p_bf16=True``) moves o by at most
+    2^-9 max|v| from the f32 one (f32 q, so no output rounding), leaves
+    lse as it is, and does round something."""
+    causal, window = MODES[mode]
+    q, k, v, _ = (_bhsd(x) for x in _inputs(1, 192, 8, 2, 64, seed=5))
+    kw = dict(scale=64 ** -0.5, causal=causal, window=window)
+    o, lse = tfa.flash_fwd_reference(q, k, v, **kw)
+    o16, lse16 = tfa.flash_fwd_reference(q, k, v, p_bf16=True, **kw)
+    assert torch.equal(lse, lse16)
+    diff = float((o - o16).abs().max())
+    assert 0 < diff <= tfa.P_BF16_VBOUND * float(v.abs().max())
+
+
+def test_p_bf16_plain_version_rounds_the_running_tile_weights():
+    """Two kv tiles, the second's scores higher: the first tile's weights
+    are rounded against its own running max, then rescaled."""
+    s_len, hd = 128, 64
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((1, s_len, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, s_len, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, s_len, hd)).astype(np.float32))
+    o16, _ = tfa.flash_fwd_reference(q, k, v, scale=0.3, causal=False,
+                                     p_bf16=True)
+    s = (q @ k.transpose(1, 2)) * 0.3
+    m1 = s[..., :64].amax(-1, keepdim=True)
+    m = s.amax(-1, keepdim=True)
+    p1 = torch.exp(s[..., :64] - m1).bfloat16().float() * torch.exp(m1 - m)
+    p2 = torch.exp(s[..., 64:] - m).bfloat16().float()
+    want = (p1 @ v[:, :64] + p2 @ v[:, 64:]) / torch.exp(s - m).sum(-1, keepdim=True)
+    torch.testing.assert_close(o16, want, atol=1e-6, rtol=1e-5)
+
+
+def test_bf16_o_check_allows_isolated_flips_only():
+    """The tensor-core engine's o check: one ulp of the p_bf16 plain
+    version but for at most FLIP_ROWS rows (a flipped weight moves its
+    whole row), every element within the wide bound of the f32 one (K2's:
+    2^-9 max|v| more)."""
+    rng = np.random.default_rng(4)
+    o_r = torch.from_numpy(rng.standard_normal((4, 64, 64)).astype(np.float32))
+    v = torch.full((1, 64, 64), 2.0)
+    wide = tfa.o_wide_tol(v)
+    assert wide == dict(atol=1e-3 + 2 * tfa.P_BF16_VBOUND, rtol=8e-3)
+    o_p = o_r + 1e-3                     # within 2^-9 * 2 of o_r
+    check = kernel_support.bf16_o_mismatch
+    assert check(o_p.bfloat16(), o_p, o_r, wide) is None
+    flips = o_p.clone()
+    flips[0, :kernel_support.FLIP_ROWS] += 0.003  # weights rounded the other way
+    assert kernel_support.off_one_ulp(flips, o_p)[1] == kernel_support.FLIP_ROWS
+    assert check(flips, o_p, o_r, wide) is None
+    flips[1, 0] += 0.003                 # one row more than allowed
+    assert "5 rows" in check(flips, o_p, o_r, wide)
+    biased = o_p.clone()
+    biased[:, :, :8] += 0.003            # a systematic fault
+    assert "of the p_bf16 plain version" in check(biased, o_p, o_r, wide)
+    far = o_p.clone()
+    far[0, 0, 0] += 0.05                 # past the f32 version's bound
+    assert "plain version by" in check(far, o_p, o_r, wide)
+
+
+def test_forward_engine_follows_the_dtype():
+    assert tfa.fwd_engine(torch.bfloat16) == "tensor_cores"
+    assert tfa.fwd_engine(torch.float32) == "cuda_cores"
+
+
 def test_lse_cotangent_folds_into_delta():
     """``return_lse`` with a nonzero lse cotangent: the port's autograd
     entry against the reference kernel's vjp (``_flash_lse_bwd``)."""

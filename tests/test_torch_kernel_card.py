@@ -8,10 +8,15 @@ without JAX, run it without the repository's conftest:
     python -m pytest tests/test_torch_kernel_card.py --noconftest -q
 
 Tolerances of the ragged-paged kernel: f32 atol 1e-4 (summation order
-only); bf16 atol = rtol = 2e-2 (its plain version rounds probabilities
-and the output to bf16). The same on its paged, int8 and int4 routes (the
-scale moves from after the product to before it: last bits); the paged
-route equals the dense one on the same rows bit for bit. The flash
+only); bf16 atol = rtol = 2e-2 against the plain version (it rounds
+normalised probabilities and the output to bf16; the engines round the
+output, the tensor cores also the unnormalised weights and the
+dequantized rows). The same on its paged, int8 and int4 routes (the
+scale moves from after the product to before it: last bits). A launch on
+the tensor cores is also held to one bf16 ulp of the plain version that
+rounds where the engine does (``p_bf16=True``), as
+``kernel_support.bf16_o_mismatch`` states. The paged route equals the
+dense one on the same rows bit for bit, on both engines. The flash
 kernels' are stated above their tests.
 """
 
@@ -46,6 +51,33 @@ def cuda():
     return torch.device("cuda")
 
 
+def _routes_only(counts):
+    """Launch counts without the per-engine keys."""
+    engines = {kernel_support.engine_key(rpa.NAME, e)
+               for e in kernel_support.ENGINES}
+    return {k: n for k, n in counts.items() if k not in engines}
+
+
+def _engine_counts(counts, name=rpa.NAME):
+    return {e: counts.get(kernel_support.engine_key(name, e), 0)
+            for e in kernel_support.ENGINES}
+
+
+def _check_rpa(out, q, k, v, base, pages=None, **kw):
+    """A ragged-paged launch's output against its plain versions, as the
+    tolerances above state."""
+    want = rpa.ragged_paged_attention_reference(q, k, v, base, pages, **kw)
+    if rpa.engine(q.dtype, q.shape[1], q.shape[2] // k.shape[2]) == \
+            "cuda_cores":
+        torch.testing.assert_close(out.float(), want.float(), **TOL[q.dtype])
+        return
+    want_p = rpa.ragged_paged_attention_reference(q, k, v, base, pages,
+                                                  p_bf16=True, **kw)
+    why = kernel_support.bf16_o_mismatch(out, want_p, want,
+                                         TOL[torch.bfloat16])
+    assert why is None, why
+
+
 def _inputs(b, t, hq, hkv, hd, s, dtype, seed=0):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -66,10 +98,7 @@ def test_kernel_matches_plain_version(cuda, dtype, hd, hq, hkv, t, window):
     base = torch.tensor([-1, 0, s - t], dtype=torch.int32, device=cuda)
     got = rpa.ragged_paged_attention(q, k, v, base, scale=hd ** -0.5,
                                      window=window)
-    want = rpa.ragged_paged_attention_reference(q, k, v, base,
-                                                scale=hd ** -0.5,
-                                                window=window)
-    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    _check_rpa(got, q, k, v, base, scale=hd ** -0.5, window=window)
 
 
 def test_kernel_output_does_not_depend_on_the_other_slots(cuda):
@@ -108,8 +137,9 @@ def test_served_requests_launch_the_kernel_per_layer(cuda):
     out = cb.run()
     assert all(len(toks) == 6 for toks in out.values())
     need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
-    assert kernel_support.launch_counts() == {
-        rpa.NAME: need, rpa.route_key("dense"): need}
+    counts = kernel_support.launch_counts()
+    assert _routes_only(counts) == {rpa.NAME: need, rpa.route_key("dense"): need}
+    assert sum(_engine_counts(counts).values()) == need
 
 
 # --- the paged, int8 and int4 routes of K1 ----------------------------------
@@ -173,16 +203,16 @@ def test_paged_and_int8_routes_match_plain_and_dense(cuda, dtype, quant,
     kernel_support.reset_launch_counts()
     paged = rpa.ragged_paged_attention(q, k, v, base, table, k_scale=ks,
                                        v_scale=vs, **kw)
-    want = rpa.ragged_paged_attention_reference(q, k, v, base, table,
-                                                k_scale=ks, v_scale=vs, **kw)
-    torch.testing.assert_close(paged.float(), want.float(), **TOL[dtype])
+    _check_rpa(paged, q, k, v, base, table, k_scale=ks, v_scale=vs, **kw)
     dense = rpa.ragged_paged_attention(
         q, _gathered(k, table), _gathered(v, table), base,
         k_scale=_gathered(ks, table), v_scale=_gathered(vs, table), **kw)
     assert torch.equal(paged, dense)
     routes = [rpa.route_name(p, quant) for p in (True, False)]
-    assert kernel_support.launch_counts() == {
+    counts = kernel_support.launch_counts()
+    assert _routes_only(counts) == {
         rpa.NAME: 2, rpa.route_key(routes[0]): 1, rpa.route_key(routes[1]): 1}
+    assert _engine_counts(counts)[rpa.engine(dtype, t, hq // hkv)] == 2
 
 
 def test_inactive_slot_reads_the_trap_page_without_faulting(cuda):
@@ -233,7 +263,8 @@ def test_new_routes_refuse_what_the_kernel_does_not_take(cuda):
     out = call(q, k4, v4, base, table, scale=1.0, k_scale=ks4, v_scale=vs4)
     assert torch.isfinite(out).all()
     assert kernel_support.launch_counts() == {
-        rpa.NAME: 1, rpa.route_key("int4_paged"): 1}
+        rpa.NAME: 1, rpa.route_key("int4_paged"): 1,
+        kernel_support.engine_key(rpa.NAME, "cuda_cores"): 1}
 
 
 @pytest.mark.parametrize("quant", ["none", "int8", "int4"])
@@ -256,7 +287,9 @@ def test_paged_batcher_launches_its_route_and_matches_dense(cuda, quant):
         counts = kernel_support.launch_counts()
         route = rpa.route_name(layout == "paged", quant)
         need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
-        assert counts == {rpa.NAME: need, rpa.route_key(route): need}
+        assert _routes_only(counts) == {rpa.NAME: need,
+                                        rpa.route_key(route): need}
+        assert _engine_counts(counts)["cuda_cores"] == need  # f32 model
         if layout == "paged":
             cb.pool.check()
             assert cb.pool.in_use == 0
@@ -296,20 +329,36 @@ def test_weight_quantized_forward_on_the_card(cuda, weight_quant):
     out = cb.run()
     assert all(len(toks) == 6 for toks in out.values())
     need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
-    assert kernel_support.launch_counts() == {
-        rpa.NAME: need, rpa.route_key("int4_paged"): need}
+    counts = kernel_support.launch_counts()
+    assert _routes_only(counts) == {rpa.NAME: need,
+                                    rpa.route_key("int4_paged"): need}
+    assert _engine_counts(counts)["cuda_cores"] == need  # f32 model
 
 
 # --- flash attention (K2, K3, K4) --------------------------------------------
-# Tolerances: o in f32 atol 1e-4; in bf16 rtol 8e-3 with atol 1e-3, one
-# bf16 ulp (at most 2^-7 of the value): both routes compute o in f32 and
-# round it once, so they differ by at most one rounding step. lse, dq, dk,
-# dv are f32 from the same inputs on both routes: atol 1e-4 (summation
-# order only).
+# Tolerances: o in f32 atol 1e-4. In bf16 (the tensor-core engine) rtol
+# 8e-3 with atol 1e-3, one bf16 ulp (at most 2^-7 of the value), against
+# the plain version that rounds the weights p to bf16 where the kernel does
+# (p_bf16=True): both compute the rest in f32 and round o once; a weight
+# on a rounding boundary may flip, so kernel_support.FLIP_ROWS rows (or
+# FLIP_ROW_SHARE of them) may miss. Against the f32 plain version o may move 2^-9 max|v|
+# more (each weight by 2^-9 of itself, the weights summing to l): atol
+# 1e-3 + 2^-9 max|v| (fa.o_wide_tol, kernel_support.bf16_o_mismatch).
+# lse, dq, dk, dv are f32 from the same inputs on both routes: atol 1e-4
+# (summation order only).
 
 GRAD_TOL = dict(atol=1e-4, rtol=0.0)
-O_TOL = {torch.float32: TOL[torch.float32],
-         torch.bfloat16: dict(atol=1e-3, rtol=8e-3)}
+
+
+def _check_o(o, q, k, v, kw):
+    """o against its plain versions, as the tolerances above state."""
+    o_r, _ = fa.flash_fwd_reference(q, k, v, **kw)
+    if o.dtype == torch.float32:
+        torch.testing.assert_close(o, o_r, **TOL[torch.float32])
+        return
+    o_p, _ = fa.flash_fwd_reference(q, k, v, p_bf16=True, **kw)
+    why = kernel_support.bf16_o_mismatch(o, o_p, o_r, fa.o_wide_tol(v))
+    assert why is None, why
 
 
 def _flash_inputs(bh, bhkv, s, hd, dtype, seed=0):
@@ -332,7 +381,7 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, hd, hq, hkv, s,
     kw = dict(scale=hd ** -0.5, causal=causal, window=window)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     o_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
-    torch.testing.assert_close(o.float(), o_r.float(), **O_TOL[dtype])
+    _check_o(o, q, k, v, kw)
     torch.testing.assert_close(lse, lse_r, **GRAD_TOL)
     delta = (do.float() * o_r.float()).sum(-1, keepdim=True)
     args = (q, k, v, do, lse_r, delta)
@@ -367,7 +416,9 @@ def test_flash_autograd_matches_plain_backward(cuda, dtype, batch):
                                     "flash_bwd_dq")] == [1, 1, 1]
         want = mha_reference(q, k, v, window=window)
         want_grads = torch.autograd.grad(want, (q, k, v), do)
-        torch.testing.assert_close(o.float(), want.float(), **O_TOL[dtype])
+        o_tol = TOL[dtype] if dtype == torch.float32 else \
+            fa.o_wide_tol(v.detach())
+        torch.testing.assert_close(o.float(), want.float(), **o_tol)
         for g, w in zip(grads, want_grads):
             torch.testing.assert_close(g.float(), w.float(), **tol)
 
@@ -415,7 +466,8 @@ def test_attention_dispatch_counts_the_plain_route(cuda):
     q, k, v = (x.view(1, 192, 1, 64) for x in (q, k, v))
     kernel_support.reset_launch_counts()
     out = attention(q, k, v)
-    assert kernel_support.launch_counts() == {"flash_fwd": 1}
+    assert kernel_support.launch_counts() == {
+        "flash_fwd": 1, kernel_support.engine_key("flash_fwd", "cuda_cores"): 1}
     torch.testing.assert_close(out, mha_reference(q, k, v), **TOL[torch.float32])
 
 
@@ -449,3 +501,95 @@ def test_train_step_launches_the_flash_kernels_per_layer(cuda):
     for key in ("loss", "grad_norm"):
         torch.testing.assert_close(m_kernel[key], m_plain[key], atol=0,
                                    rtol=1e-4)
+
+
+# --- the tensor-core engine: K2 bf16 and K1's chunk route --------------------
+
+
+@pytest.mark.parametrize("hq,hkv,hd,window", [(32, 8, 128, 512), (8, 8, 64, 0),
+                                              (32, 8, 128, 0)])
+def test_flash_fwd_tensor_cores_at_training_shapes(cuda, hq, hkv, hd, window):
+    """K2 bf16 at the trainer's S 2048: a window of 512 and hd 64 at group
+    1 beside the headline shape; o within its tolerances, lse at 1e-4, two
+    launches equal bit for bit, every launch on the tensor cores."""
+    q, k, v, _ = _flash_inputs(2 * hq, 2 * hkv, 2048, hd, torch.bfloat16)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window)
+    kernel_support.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o2, lse2 = fa.flash_fwd(q, k, v, **kw)
+    assert _engine_counts(kernel_support.launch_counts(), "flash_fwd") == {
+        "cuda_cores": 0, "tensor_cores": 2}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _check_o(o, q, k, v, kw)
+    torch.testing.assert_close(lse, fa.flash_fwd_reference(q, k, v, **kw)[1],
+                               **GRAD_TOL)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("hd,hq,hkv", [(128, 32, 8), (64, 8, 8)])
+@pytest.mark.parametrize("t,bases,window", [
+    (3, [100, 0], 0),          # 12 query vectors: just past the decode tile
+    (37, [100, 475], 0),
+    (256, [0, 256], 0),
+    (256, [1536, 0], 64),
+])
+def test_chunk_route_on_the_tensor_cores(cuda, quant, hd, hq, hkv, t, bases,
+                                         window):
+    """K1's chunk route (bf16 q) on every cache type: against the plain
+    versions (one ulp of the p_bf16 one on the tensor cores), two launches
+    bit for bit, the paged pool (pages of 16 and 64) equal to the dense
+    cache bit for bit, every launch on its engine: the tensor cores past 8
+    query vectors (T 3 at group 1 is 3: the CUDA cores' decode tile)."""
+    s = 512 if max(bases) + t <= 512 else 2048
+    b = len(bases)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    for ps in (16, 64):
+        q, (k, v, ks, vs), table = _paged_inputs(
+            b, t, hq, hkv, hd, ps, s // ps, bases, torch.bfloat16, quant)
+        kw = dict(scale=hd ** -0.5, window=window)
+        dense_ops = [_gathered(x, table) for x in (k, v, ks, vs)]
+        kernel_support.reset_launch_counts()
+        paged = rpa.ragged_paged_attention(q, k, v, base, table, k_scale=ks,
+                                           v_scale=vs, **kw)
+        dense = rpa.ragged_paged_attention(q, dense_ops[0], dense_ops[1], base,
+                                           k_scale=dense_ops[2],
+                                           v_scale=dense_ops[3], **kw)
+        again = rpa.ragged_paged_attention(q, dense_ops[0], dense_ops[1], base,
+                                           k_scale=dense_ops[2],
+                                           v_scale=dense_ops[3], **kw)
+        engine = rpa.engine(torch.bfloat16, t, hq // hkv)
+        assert _engine_counts(kernel_support.launch_counts())[engine] == 3
+        assert torch.equal(dense, again)
+        assert torch.equal(paged, dense)
+        _check_rpa(paged, q, k, v, base, table, k_scale=ks, v_scale=vs, **kw)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_chunk_engines_agree_on_the_same_inputs(cuda, quant):
+    """engine_override: a bf16 chunk on the CUDA cores (the yardstick
+    chip_smoke.py times) against the plain version within TOL, the paged
+    pool equal to the dense cache there too; f32 q refuses the tensor
+    cores before launching."""
+    bases, t, hd = [300, 0], 64, 128
+    q, (k, v, ks, vs), table = _paged_inputs(
+        2, t, 32, 8, hd, 16, 512 // 16, bases, torch.bfloat16, quant)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    kw = dict(scale=hd ** -0.5, k_scale=ks, v_scale=vs)
+    kernel_support.reset_launch_counts()
+    cores = rpa.ragged_paged_attention(q, k, v, base, table,
+                                       engine_override="cuda_cores", **kw)
+    assert _engine_counts(kernel_support.launch_counts()) == {
+        "cuda_cores": 1, "tensor_cores": 0}
+    want = rpa.ragged_paged_attention_reference(q, k, v, base, table, **kw)
+    torch.testing.assert_close(cores.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    dense = rpa.ragged_paged_attention(
+        q, *(_gathered(x, table) for x in (k, v)), base,
+        engine_override="cuda_cores", scale=kw["scale"],
+        k_scale=_gathered(ks, table), v_scale=_gathered(vs, table))
+    assert torch.equal(cores, dense)
+    with pytest.raises(ValueError, match="take bf16 q"):
+        rpa.ragged_paged_attention(q.float(), k if quant != "none" else
+                                   k.float(), v if quant != "none" else
+                                   v.float(), base, table,
+                                   engine_override="tensor_cores", **kw)

@@ -122,6 +122,131 @@ def test_attended_rows_counts_the_causal_and_windowed_span():
         [1, 1], [1, 2], [4, 4]]
 
 
+@pytest.mark.parametrize("dtype,t,group,want", [
+    (torch.bfloat16, 1, 4, "cuda_cores"),     # decode
+    (torch.bfloat16, 2, 4, "cuda_cores"),     # 8 query vectors: narrow tile
+    (torch.bfloat16, 3, 4, "tensor_cores"),   # 12: the chunk route
+    (torch.bfloat16, 8, 1, "cuda_cores"),
+    (torch.bfloat16, 9, 1, "tensor_cores"),
+    (torch.bfloat16, 256, 4, "tensor_cores"),
+    (torch.float32, 256, 4, "cuda_cores"),    # f32 pins need f32 products
+    (torch.float32, 1, 4, "cuda_cores"),
+])
+def test_engine_choice(dtype, t, group, want):
+    assert rpa.engine(dtype, t, group) == want
+    assert kernel_support.engine_key(rpa.NAME, want) == f"{rpa.NAME}<{want}>"
+
+
+def test_engine_key_refuses_an_unknown_engine():
+    with pytest.raises(ValueError, match="engine"):
+        kernel_support.engine_key(rpa.NAME, "tpu")
+
+
+def test_p_bf16_plain_version_rounds_the_running_tile_weights():
+    """One query at position 127 (two 64-row kv tiles, the second's max
+    the row's): the first tile's weights are rounded to bf16 against its
+    own running max, then rescaled; o is divided by the sum of the
+    unrounded weights. f32 q, so o itself is not rounded."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(3, 1, 1, 2, 2))
+    k[0, 100] = q[0, 0]                  # the row's max in the second tile
+    base = torch.tensor([127], dtype=torch.int32)
+    got = rpa.ragged_paged_attention_reference(q, k, v, base, scale=0.3,
+                                               p_bf16=True)
+    s = torch.einsum("bthd,bshd->bhs", q, k)[:, :, None] * 0.3  # (1, 2, 1, 128)
+    m1 = s[..., :64].amax(-1, keepdim=True)
+    m = s.amax(-1, keepdim=True)
+    assert bool((m > m1).all())
+    p1 = torch.exp(s[..., :64] - m1).bfloat16().float() * torch.exp(m1 - m)
+    p2 = torch.exp(s[..., 64:] - m).bfloat16().float()
+    l = torch.exp(s - m).sum(-1, keepdim=True)
+    want = (torch.einsum("bhts,bshd->bthd", p1, v[:, :64])
+            + torch.einsum("bhts,bshd->bthd", p2, v[:, 64:])) \
+        / l.permute(0, 2, 1, 3)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def _bf16_chunk_operands(cache_quant, seed=11, t=20, bases=(0, 90)):
+    """A bf16 chunk over a cache of bf16 rows, int8 codes or packed int4
+    codes (the port's own recipes): q, (k, v, k_scale, v_scale), base."""
+    from k8s_gpu_device_plugin_torch.ops import quant
+
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _inputs(seed, len(bases), t, 8, 2))
+    ks = vs = None
+    if cache_quant == "int8":
+        (k, ks), (v, vs) = (quant.quantize_int8(x, axis=-1) for x in (k, v))
+    elif cache_quant == "int4":
+        (k, ks), (v, vs) = (quant.quantize_int4_sym(x, axis=-1)
+                            for x in (k, v))
+        k, v = quant.pack_int4(k), quant.pack_int4(v)
+    return q, (k, v, ks, vs), torch.tensor(bases, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("cache_quant", ["int8", "int4"])
+def test_p_bf16_plain_version_rounds_dequantized_rows_once(cache_quant):
+    """On codes, the tensor-core engine's producer multiplies each code by
+    its row's scale in f32 and rounds once to bf16: the p_bf16 plain
+    version on codes equals it on those bf16 rows, bit for bit."""
+    from k8s_gpu_device_plugin_torch.ops.quant import unpack_int4
+
+    q, (k, v, ks, vs), base = _bf16_chunk_operands(cache_quant)
+    kw = dict(scale=HD ** -0.5, window=0, p_bf16=True)
+    got = rpa.ragged_paged_attention_reference(q, k, v, base, k_scale=ks,
+                                               v_scale=vs, **kw)
+    if cache_quant == "int4":
+        k, v = unpack_int4(k), unpack_int4(v)
+    rows = [(x.float() * sc).bfloat16() for x, sc in ((k, ks), (v, vs))]
+    assert torch.equal(got, rpa.ragged_paged_attention_reference(
+        q, *rows, base, **kw))
+
+
+@pytest.mark.parametrize("cache_quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("window", [0, 16])
+def test_p_bf16_plain_version_within_the_engines_bound(cache_quant, window):
+    """The two plain versions of a bf16 chunk differ only by where they
+    round (weights against the running tile max, dequantized rows): within
+    the bf16 bound (atol = rtol = 2e-2) the tensor-core engine is held to
+    against the f32 plain version, and not equal. A paged pool gives the
+    dense cache's bits."""
+    q, (k, v, ks, vs), base = _bf16_chunk_operands(cache_quant)
+    kw = dict(scale=HD ** -0.5, window=window, k_scale=ks, v_scale=vs)
+    plain = rpa.ragged_paged_attention_reference(q, k, v, base, **kw)
+    p16 = rpa.ragged_paged_attention_reference(q, k, v, base, p_bf16=True,
+                                               **kw)
+    torch.testing.assert_close(p16.float(), plain.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert not torch.equal(p16, plain)
+    ps, nsp = 16, S // 16
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(2 * nsp)) + 1
+    table = perm.reshape(2, nsp).int()
+
+    def pool(x):
+        if x is None:
+            return None
+        out = torch.zeros((1 + 2 * nsp, ps, *x.shape[2:]), dtype=x.dtype)
+        out[table.reshape(-1).long()] = x.reshape(2 * nsp, ps, *x.shape[2:])
+        return out
+
+    paged = rpa.ragged_paged_attention_reference(
+        q, pool(k), pool(v), base, table, scale=kw["scale"], window=window,
+        k_scale=pool(ks), v_scale=pool(vs), p_bf16=True)
+    assert torch.equal(paged, p16)
+
+
+def test_p_bf16_weights_pad_a_partial_tile():
+    """A last partial kv tile is padded with masked columns; a fully
+    masked leading tile adds nothing once a later tile raises the max."""
+    rng = np.random.default_rng(8)
+    s = torch.from_numpy(rng.standard_normal((3, 100)).astype(np.float32))
+    s[0, :64] = -1e30
+    m = s.amax(-1, keepdim=True)
+    got = kernel_support.p_bf16_weights(s, m)
+    padded = torch.cat([s, torch.full((3, 28), -1e30)], dim=-1)
+    assert torch.equal(got, kernel_support.p_bf16_weights(padded, m)[:, :100])
+    assert torch.equal(got[0, :64], torch.zeros(64))
+    torch.testing.assert_close(got, torch.exp(s - m), atol=0, rtol=2 ** -8)
+
+
 def test_backend_plan_names_the_route_per_device():
     cuda = attention_backend_plan(device="cuda", n_heads=32, n_kv_heads=8,
                                   head_dim=128, chunk=256)
@@ -156,6 +281,26 @@ def test_build_key_follows_the_sources_and_flags(tmp_path, monkeypatch):
     assert edited != before
     monkeypatch.setattr(kernel_support, "NVCC_FLAGS", ("-O0",))
     assert kernel_support.build_key([src]) != edited
+
+
+def test_build_key_follows_the_headers(tmp_path):
+    """Both kernel libraries include the shared headers of ops/csrc: an
+    edit to a header alone must change every library's key, or a stale
+    library would load."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernel_support.CSRC_DIR, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["attention_tile.cuh"]
+    sources = [sorted(csrc.glob("*.cu"))[:1], sorted(csrc.glob("*.cu"))[1:]]
+    before = [kernel_support.build_key(s, csrc) for s in sources]
+    assert before == [kernel_support.build_key(s, csrc) for s in sources]
+    headers[0].write_text(headers[0].read_text() + "// edited\n")
+    after = [kernel_support.build_key(s, csrc) for s in sources]
+    assert all(a != b for a, b in zip(after, before))
+    cmd = kernel_support.build_command("nvcc", sources[0], "out.so", csrc)
+    assert f"-I{csrc}" in cmd
 
 
 def test_load_library_builds_once_per_key(tmp_path):

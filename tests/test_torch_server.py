@@ -71,7 +71,7 @@ def test_generate_plain_and_sse_match_the_batcher(served):
                                   "logprobs": True})
     assert status == 200
     got = json.loads(body)
-    assert set(got) == {"id", "tokens", "logprobs"}
+    assert set(got) == {"id", "tokens", "cached_tokens", "logprobs"}
     assert got["tokens"] == want[0].out
     assert got["logprobs"] == want[0].out_logp
 
@@ -83,6 +83,25 @@ def test_generate_plain_and_sse_match_the_batcher(served):
               for line in body.split("\n\n") if line.startswith("data: ")]
     assert frames[-1] == {"done": True}
     assert [f["token"] for f in frames[:-1]] == want[1].out
+
+
+def test_generate_key_sets_match_the_reference(served):
+    """The reference's non-streamed body always carries ``cached_tokens``
+    (0 on a prefix-cache miss; reference ``serving/server.py:1396-1406``);
+    its SSE done event adds the field only when it is > 0 (``:1477-1480``).
+    The port has no prefix cache: 0 in the body, absent from the event."""
+    _, _, url = served
+    status, _, body = _post(url, {"prompt": PROMPTS[0], "max_new": 3})
+    assert status == 200
+    got = json.loads(body)
+    assert set(got) == {"id", "tokens", "cached_tokens"}
+    assert got["cached_tokens"] == 0
+    status, _, body = _post(url, {"prompt": PROMPTS[0], "max_new": 3,
+                                  "stream": True})
+    assert status == 200
+    frames = [json.loads(line[len("data: "):])
+              for line in body.split("\n\n") if line.startswith("data: ")]
+    assert [set(f) for f in frames] == [{"token"}] * 3 + [{"done"}]
 
 
 @pytest.mark.parametrize("field,value", [

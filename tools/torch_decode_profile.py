@@ -4,10 +4,13 @@
 Builds Llama-3-8B with random weights, fills all 8 slots of the port's
 ContinuousBatcher with ~1000-token prompts (chunked prefill, 256), then
 times decode steps on the host clock (each step ends in its readback)
-and profiles a few of them with ``torch.profiler``. Prints one JSON
-line per configuration: the card, ms per decode step, device and host
-time per step, kernel launches per step, the attention kernel's own
-device time, and the device kernels that take the most time.
+and profiles a few of them with ``torch.profiler``. Then it profiles one
+prefill chunk the way the batcher runs it: a 256-token chunk of one slot
+at base 1536 of a fresh cache (the chunks before it written unprofiled).
+Prints one JSON line per configuration: the card, ms per decode step,
+device and host time per step, kernel launches per step, the attention
+kernel's own device time, the device kernels that take the most time,
+and the same for the prefill chunk (``prefill_chunk``).
 
 ``--weightQuant``, ``--kvLayout`` and ``--cacheQuant`` take
 comma-separated lists; every combination is measured in turn in this one
@@ -34,11 +37,80 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def summarize(prof, n: int) -> dict:
+    """Device and host ms, launches and the attention kernels' share per
+    profiled call, from a torch.profiler run of ``n`` calls."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cuLaunchKernel"))
+    # device time is the kernels' own (as the profiler's table totals it)
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation]
+    device_us = sum(e.self_device_time_total for e in on_device)
+    host_us = sum(e.self_cpu_time_total for e in events)
+    kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    # both engines of the ragged-paged kernel (rpa_kernel, rpa_chunk_tc_kernel)
+    attention = [e for e in on_device if "rpa_" in e.key]
+    return {
+        "device_ms": device_us / n / 1e3,
+        "host_ms_profiled": host_us / n / 1e3,
+        "kernel_launches": launches / n,
+        "attention_kernel_ms":
+            sum(e.self_device_time_total for e in attention) / n / 1e3,
+        "attention_kernel_calls": sum(e.count for e in attention) / n,
+        "top_device_kernels": [
+            {"name": e.key[:80], "ms": e.self_device_time_total / n / 1e3,
+             "calls": e.count / n}
+            for e in kernels
+        ],
+    }
+
+
+def prefill_chunk(torch, params, cfg, layout: str, page_size: int) -> dict:
+    """One bf16 prefill chunk of 256 tokens at base 1536 of one slot's
+    fresh cache (dense, or a pool read through an identity table), as the
+    batcher's chunked prefill runs it: the six chunks before it written
+    unprofiled, the chunk itself run once to warm up and once profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_gpu_device_plugin_torch.models import generate
+
+    pages = None
+    if layout == "paged":
+        n = 2048 // page_size
+        cache = generate.KVCache.init_paged(cfg, n + 1, page_size, "cuda")
+        pages = torch.arange(1, n + 1, dtype=torch.int32,
+                             device="cuda")[None]
+    else:
+        cache = generate.KVCache.init(cfg, 1, 2048, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(1, cfg.vocab_size, (1, 1792), generator=gen,
+                           device="cuda")
+    for start in range(0, 1792, 256):
+        generate._forward_cached(params, tokens[:, start:start + 256], cache,
+                                 start, cfg, last_only=True, pages=pages)
+    chunk = tokens[:, 1536:]
+    generate._forward_cached(params, chunk, cache, 1536, cfg, last_only=True,
+                             pages=pages)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        generate._forward_cached(params, chunk, cache, 1536, cfg,
+                                 last_only=True, pages=pages)
+        torch.cuda.synchronize()
+    out = {"t": 256, "base": 1536, **summarize(prof, 1)}
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
     """One (weights, layout, cache) configuration's decode step."""
     from dataclasses import replace
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from k8s_gpu_device_plugin_torch.models.batching import ContinuousBatcher
@@ -75,18 +147,7 @@ def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
             f"{len(cb.running)} slots were decoding at the end of the "
             f"window ({running_before} at its start), wanted "
             f"{args.activeSlots}: a request retired inside it")
-    n = args.profiled
-    events = prof.key_averages()
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                "cuLaunchKernel"))
-    # device time is the kernels' own (as the profiler's table totals it)
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation]
-    device_us = sum(e.self_device_time_total for e in on_device)
-    host_us = sum(e.self_cpu_time_total for e in events)
-    kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
-    attention = [e for e in on_device if "rpa_kernel" in e.key]
+    stats = summarize(prof, args.profiled)
     return {
         "weight_quant": cb.weight_stats["quant"],
         "weight_bytes": cb.weight_stats["resident_bytes"],
@@ -95,17 +156,15 @@ def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
         "context": args.context,
         "kv": cb.kv_stats(),
         "decode_step_ms": step_ms,
-        "device_ms_per_step": device_us / n / 1e3,
-        "host_ms_per_step_profiled": host_us / n / 1e3,
-        "kernel_launches_per_step": launches / n,
-        "attention_kernel_ms_per_step":
-            sum(e.self_device_time_total for e in attention) / n / 1e3,
-        "attention_kernel_calls_per_step":
-            sum(e.count for e in attention) / n,
+        "device_ms_per_step": stats["device_ms"],
+        "host_ms_per_step_profiled": stats["host_ms_profiled"],
+        "kernel_launches_per_step": stats["kernel_launches"],
+        "attention_kernel_ms_per_step": stats["attention_kernel_ms"],
+        "attention_kernel_calls_per_step": stats["attention_kernel_calls"],
         "top_device_kernels": [
-            {"name": e.key[:80], "ms_per_step": e.self_device_time_total / n / 1e3,
-             "calls_per_step": e.count / n}
-            for e in kernels
+            {"name": k["name"], "ms_per_step": k["ms"],
+             "calls_per_step": k["calls"]}
+            for k in stats["top_device_kernels"]
         ],
     }
 
@@ -125,6 +184,8 @@ def main() -> int:
     parser.add_argument("--activeSlots", type=int, default=8,
                         help="slots that hold a request (of 8)")
     args = parser.parse_args()
+
+    from dataclasses import replace
 
     import torch
 
@@ -146,8 +207,14 @@ def main() -> int:
         served = quantize_weights(params, weight_quant)
         for layout in args.kvLayout.split(","):
             for quant in args.cacheQuant.split(","):
-                print(json.dumps({"card": card, **measure(
-                    torch, served, cfg, args, layout, quant)}), flush=True)
+                row = measure(torch, served, cfg, args, layout, quant)
+                torch.cuda.empty_cache()
+                row["prefill_chunk"] = prefill_chunk(
+                    torch, served,
+                    replace(cfg, cache_quant=quant, kv_layout=layout,
+                            kv_page_size=args.kvPageSize),
+                    layout, args.kvPageSize)
+                print(json.dumps({"card": card, **row}), flush=True)
         del served
         torch.cuda.empty_cache()
     return 0

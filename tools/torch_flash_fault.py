@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
-"""How far the flash forward's bf16 check sits from a real fault, on a card.
+"""How far the tensor-core engine's bf16 checks sit from a real fault, on
+a card.
 
-Builds faulted copies of ``ops/csrc/flash_attention.cu`` into
-``ops/build/fault/`` (gitignored; the checkout's sources are not
-touched), each with one fault planted in the forward kernel (K2):
+Builds faulted copies of the two kernel libraries that run the shared
+``wgmma`` mainloop (``ops/csrc/attention_tile.cuh``) into
+``ops/build/fault/<fault>/`` (gitignored; the checkout's sources are not
+touched), each with one fault planted:
 
-- ``drop_one_tile``: the last q tile skips the P.V product of its first
-  live kv tile (64 of its 2048 keys; the softmax sum still counts them);
-- ``p_bf16``: the probabilities are rounded to bf16 before the P.V
-  product.
+- ``drop_one_tile`` (the mainloop, run through K2 ``flash_fwd``): the
+  last q tile skips the P.V product of its first live kv tile (64 of its
+  2048 keys; the softmax sum still counts them);
+- ``p_truncated`` (the mainloop, through K2): the weights are cut to bf16
+  (rounded toward zero) instead of rounded to nearest before P.V;
+- ``widen_truncated`` (K1's chunk producer,
+  ``ops/csrc/ragged_paged_attention.cu``): dequantized int8/int4 values
+  are cut to bf16 instead of rounded to nearest;
+- ``scale_bf16`` (K1's chunk producer): an int8 row's scale is rounded
+  to bf16 before it multiplies the codes.
 
-At the training path's shapes (B 2, S 2048, Hq 32, Hkv 8, hd 128,
-causal, bf16: ``chip_smoke.py`` phase 5's headline case) it runs the
-sound kernel and each faulted copy against the plain forward and prints
-one JSON line with, for each: the max abs error of o, the worst
-|err| / (atol + rtol |want|) under ``chip_smoke.py``'s bf16 o tolerance
-and under the bf16 tolerance its ragged-paged phase uses (a ratio above 1
-fails the check), and how many output rows the tight tolerance flags.
+K2 runs at the training path's shapes (B 2, S 2048, Hq 32, Hkv 8, hd 128,
+causal, bf16: ``chip_smoke.py`` phase 5's headline case); K1 at phase 2's
+bf16 prefill chunks on the int8 dense route (T 256 at bases 0 and 1536,
+one slot, Hq 32, Hkv 8, hd 128, S 2048), and the sound library also on
+the int4 and bf16 dense routes. For each run and case one JSON line holds:
+the max abs error of o against the plain version that computes what the
+engine does (``p_bf16=True``) and against the kernel's f32 plain version;
+the worst |err| / (atol + rtol |want|) under the tight bf16 tolerance
+(against the first) and under the wide one (against the second: K2's
+one ulp plus 2^-9 max|v|, K1's atol = rtol = 2e-2); how many elements and
+rows the tight tolerance flags; and whether
+``kernel_support.bf16_o_mismatch`` (the check ``chip_smoke.py`` applies:
+a few rows may miss the tight tolerance, no element the wide one) flags
+it. A faulted run is flagged when any of its cases is. Exits 1 if
+a check flags a sound kernel or misses a fault.
 
     python3 tools/torch_flash_fault.py
 """
@@ -29,111 +45,189 @@ import os
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# (text in flash_fwd_kernel, its faulted replacement)
+HEADER = "attention_tile.cuh"
+RPA_SOURCE = "ragged_paged_attention.cu"
+# name: (kernel, file, text in it, its faulted replacement)
 FAULTS = {
     "drop_one_tile": (
-        "    pv_tile<HD>(ks, vs, ty, tx, acc);\n",
-        "    if (!(qt == n_tiles - 1 && j == j_lo)) "
-        "pv_tile<HD>(ks, vs, ty, tx, acc);\n",
+        "flash", HEADER,
+        "      wgmma_rs(acc.o[nb], pa[kk], make_desc(v_tile + nb * 8192 + kk * 2048));\n",
+        "      if (!(blockIdx.x == 0 && threadIdx.x >= 128 && kv0 == 0))\n"
+        "        wgmma_rs(acc.o[nb], pa[kk], make_desc(v_tile + nb * 8192 + kk * 2048));\n",
     ),
-    "p_bf16": (
-        "        ks[r * kPStride + tx + 16 * jj] = p;\n",
-        "        ks[r * kPStride + tx + 16 * jj] = "
-        "__bfloat162float(__float2bfloat16(p));\n",
+    "p_truncated": (
+        "flash", HEADER,
+        "pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);",
+        "pa[kk][e] = (__float_as_uint(s[8 * kk + 2 * e]) >> 16) | "
+        "(__float_as_uint(s[8 * kk + 2 * e + 1]) & 0xffff0000u);",
+    ),
+    "widen_truncated": (
+        "rpa", RPA_SOURCE,
+        "    return make_uint4(attn_tile::pack_bf16(f[0], f[1]),\n"
+        "                      attn_tile::pack_bf16(f[2], f[3]),\n"
+        "                      attn_tile::pack_bf16(f[4], f[5]),\n"
+        "                      attn_tile::pack_bf16(f[6], f[7]));\n",
+        "    auto cut = [](float lo, float hi) {\n"
+        "      return (__float_as_uint(lo) >> 16) |"
+        " (__float_as_uint(hi) & 0xffff0000u);\n"
+        "    };\n"
+        "    return make_uint4(cut(f[0], f[1]), cut(f[2], f[3]),"
+        " cut(f[4], f[5]), cut(f[6], f[7]));\n",
+    ),
+    "scale_bf16": (
+        "rpa", RPA_SOURCE,
+        "      f[e] = float(int(int8_t((word >> (8 * (e % 4))) & 0xffu))) * scale;\n",
+        "      f[e] = float(int(int8_t((word >> (8 * (e % 4))) & 0xffu))) *\n"
+        "             __bfloat162float(__float2bfloat16(scale));\n",
     ),
 }
 B, S, HQ, HKV, HD = 2, 2048, 32, 8, 128
+# K1's cases: phase 2's bf16 chunks of one slot, (route, T, base)
+RPA_CASES = [("int8_dense", 256, 0), ("int8_dense", 256, 1536)]
+RPA_SOUND_ONLY = [("int4_dense", 256, 0), ("dense", 256, 0)]
 
 
-def build_faulted(fa, kernel_support, name: str) -> ctypes.CDLL:
-    old, new = FAULTS[name]
-    text = fa.SOURCE.read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"{name}: the text to fault is not in the source "
-                           "exactly once")
-    fault_dir = kernel_support.BUILD_DIR / "fault"
+def build_edited(modules, kernel_support, name: str, kernel: str, edits):
+    """Copies of ``ops/csrc`` in ``ops/build/fault/<name>/`` with each
+    (file, text, replacement) of ``edits`` applied (the text must be in
+    its file exactly once), and the ``kernel`` library ('flash' or 'rpa')
+    built from them and bound like the sound one."""
+    fault_dir = kernel_support.BUILD_DIR / "fault" / name
     fault_dir.mkdir(parents=True, exist_ok=True)
-    src = fault_dir / f"flash_attention_{name}.cu"
-    src.write_text(text.replace(old, new))
-    lib = kernel_support.load_library(f"flash_attention_{name}", [src],
-                                      build_dir=fault_dir)
-    lib.flash_fwd.argtypes = fa._ARGTYPES["flash_fwd"]
-    lib.flash_fwd.restype = ctypes.c_int
+    for src in kernel_support.CSRC_DIR.glob("*.cu*"):
+        text = src.read_text()
+        for path, old, new in edits:
+            if src.name == path:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{name}: the text to edit is not in "
+                                       f"{path} exactly once: {old[:60]!r}")
+                text = text.replace(old, new)
+        (fault_dir / src.name).write_text(text)
+    mod = modules[kernel]
+    lib = kernel_support.load_library(f"{mod.SOURCE.stem}_{name}",
+                                      [fault_dir / mod.SOURCE.name],
+                                      build_dir=fault_dir,
+                                      header_dir=fault_dir)
+    if kernel == "flash":
+        for fn, argtypes in mod._ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    else:
+        lib.rpa_forward.argtypes = mod.ARGTYPES
+        lib.rpa_forward.restype = ctypes.c_int
     return lib
 
 
 def main() -> int:
     import torch
 
-    from chip_smoke import FLASH_O_TOL, TOL
+    from chip_smoke import TOL, route_operands
     from k8s_gpu_device_plugin_torch.ops import flash_attention as fa
     from k8s_gpu_device_plugin_torch.ops import kernel_support
+    from k8s_gpu_device_plugin_torch.ops import quant
+    from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
 
     if not torch.cuda.is_available():
         print("torch_flash_fault: needs a CUDA card", file=sys.stderr)
         return 1
-    with ThreadPoolExecutor(len(FAULTS) + 1) as pool:
-        sound = pool.submit(fa.load_kernel)
-        faulted = {name: pool.submit(build_faulted, fa, kernel_support, name)
-                   for name in FAULTS}
-        sound.result()
-        libs = {name: f.result() for name, f in faulted.items()}
+    modules = {"flash": fa, "rpa": rpa}
+    with ThreadPoolExecutor(len(FAULTS) + 2) as pool:
+        sound = {"flash": pool.submit(fa.load_kernel),
+                 "rpa": pool.submit(rpa.load_kernel)}
+        faulted = {name: pool.submit(build_edited, modules, kernel_support,
+                                     name, kernel, [(path, old, new)])
+                   for name, (kernel, path, old, new) in FAULTS.items()}
+        libs = {kernel: f.result() for kernel, f in sound.items()}
+        libs.update({name: f.result() for name, f in faulted.items()})
 
+    tight = kernel_support.O_TOL_BF16
+
+    def ratio(diff, ref, tol):
+        return float((diff / (tol["atol"] + tol["rtol"] * ref.abs())).max())
+
+    def row(o, want16, want, wide):
+        diff16 = (o.float() - want16.float()).abs()
+        diff = (o.float() - want.float()).abs()
+        elements, rows = kernel_support.off_one_ulp(o, want16)
+        why = kernel_support.bf16_o_mismatch(o, want16, want, wide)
+        return {
+            "max_abs_err_vs_p_bf16": float(diff16.max()),
+            "max_abs_err_vs_plain": float(diff.max()),
+            "ratio_tight": ratio(diff16, want16.float(), tight),
+            "ratio_wide": ratio(diff, want.float(), wide),
+            "elements_off_tight": elements,
+            "rows_flagged_tight": rows,
+            "flagged": why is not None,
+            "why": why,
+        }
+
+    runs = {}
+    # K2 at phase 5's headline shape
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     q, k, v = (torch.randn((B * h, S, HD), generator=gen, device="cuda",
                            dtype=torch.bfloat16) for h in (HQ, HKV, HKV))
-    scale = HD ** -0.5
-    want = fa.flash_fwd_reference(q, k, v, scale=scale)[0].float()
+    kw = dict(scale=HD ** -0.5)
+    want = fa.flash_fwd_reference(q, k, v, **kw)[0]
+    want16 = fa.flash_fwd_reference(q, k, v, p_bf16=True, **kw)[0]
+    for name in ("flash", *(n for n in FAULTS if FAULTS[n][0] == "flash")):
+        with mock.patch.object(fa, "load_kernel", lambda lib=libs[name]: lib):
+            o = fa.flash_fwd(q, k, v, **kw)[0]
+        torch.cuda.synchronize()
+        runs[name] = {"flash_fwd b2_s2048": row(o, want16, want,
+                                                fa.o_wide_tol(v))}
 
-    def faulted_fwd(lib):
-        o = torch.empty_like(q)
-        lse = torch.empty((B * HQ, S, 1), dtype=torch.float32, device="cuda")
-        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), 1, B * HQ,
-                            HQ // HKV, S, HD, scale, 1, 0,
-                            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"faulted flash_fwd failed: cudaError {err}")
-        return o
+    # K1's chunk route on phase 2's inputs
+    def rpa_case(route, t, base):
+        case = dict(route=route, ps=0, b=1, t=t, s=S, bases=[base])
+        gen.manual_seed(0)
+        q = torch.randn((1, t, HQ, HD), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k0, v0 = (torch.randn((1, S, HKV, HD), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        k, v, ks, vs, _ = route_operands(torch, quant, case, k0, v0, gen)
+        args = (q, k, v, torch.tensor([base], dtype=torch.int32,
+                                      device="cuda"))
+        return args, dict(scale=HD ** -0.5, k_scale=ks, v_scale=vs)
 
-    outs = {"sound": fa.flash_fwd(q, k, v, scale=scale)[0]}
-    outs.update({name: faulted_fwd(lib) for name, lib in libs.items()})
-    torch.cuda.synchronize()
+    for name in ("rpa", *(n for n in FAULTS if FAULTS[n][0] == "rpa")):
+        runs[name] = {}
+        for route, t, base in RPA_CASES + (RPA_SOUND_ONLY if name == "rpa"
+                                           else []):
+            args, kw = rpa_case(route, t, base)
+            want = rpa.ragged_paged_attention_reference(*args, **kw)
+            want16 = rpa.ragged_paged_attention_reference(*args, p_bf16=True,
+                                                          **kw)
+            with mock.patch.object(rpa, "load_kernel",
+                                   lambda lib=libs[name]: lib):
+                o = rpa.ragged_paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            runs[name][f"rpa {route} t{t}_base{base}"] = row(
+                o, want16, want, TOL["bfloat16"])
 
-    def ratio(diff, tol):
-        return float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
-
-    tight, loose = FLASH_O_TOL["bfloat16"], TOL["bfloat16"]
-    rows = {}
-    for name, o in outs.items():
-        diff = (o.float() - want).abs()
-        over = diff > tight["atol"] + tight["rtol"] * want.abs()
-        rows[name] = {
-            "max_abs_err": float(diff.max()),
-            "ratio_tight": ratio(diff, tight),
-            "ratio_loose": ratio(diff, loose),
-            "rows_flagged_tight": int(over.any(-1).sum()),
-        }
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
-    print(json.dumps({
-        "card": card, "shape": {"b": B, "s": S, "hq": HQ, "hkv": HKV,
-                                "hd": HD, "dtype": "bfloat16",
-                                "causal": True},
-        "tight_tol": tight, "loose_tol": loose,
-        "mean_abs_o": float(want.abs().mean()),
-        "runs": rows,
-    }))
-    if rows["sound"]["ratio_tight"] > 1:
-        print("torch_flash_fault: the sound kernel fails the tight check",
+    for name, cases in runs.items():
+        for case, numbers in cases.items():
+            print(json.dumps({"card": card, "run": name, "case": case,
+                              "tight_tol": tight, **numbers}))
+    flagged = {name: any(c["flagged"] for c in cases.values())
+               for name, cases in runs.items()}
+    print(json.dumps({"card": card, "flagged": flagged}))
+    if flagged["flash"] or flagged["rpa"]:
+        print("torch_flash_fault: a sound kernel fails its own checks",
               file=sys.stderr)
+        return 1
+    missed = [name for name in FAULTS if not flagged[name]]
+    if missed:
+        print(f"torch_flash_fault: no check flags {missed}", file=sys.stderr)
         return 1
     return 0
 

@@ -35,7 +35,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|cublas", re.IGNORECASE)
-FLASH = re.compile(r"\bflash_(fwd|bwd_dkv|bwd_dq)_kernel")
+FLASH = re.compile(r"\bflash_(fwd|fwd_tc|bwd_dkv|bwd_dq)_kernel")
 
 
 def union_us(intervals) -> float:
