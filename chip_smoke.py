@@ -11,8 +11,9 @@ Phases (any failed check exits non-zero without the final line):
    versions; the hand-written kernels are built from the sources in the
    checkout (one ``nvcc`` per source, started together), timed; then
    ``cuobjdump -sass`` counts the HGMMA (``wgmma``) instructions of every
-   kernel symbol, and every instantiation of the two tensor-core kernels
-   (``flash_fwd_tc_kernel``, ``rpa_chunk_tc_kernel``) must have some.
+   kernel symbol, and every instantiation of the four tensor-core kernels
+   (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``,
+   ``flash_bwd_dq_tc_kernel``, ``rpa_chunk_tc_kernel``) must have some.
 2. ``ragged_paged_attention``'s kernel against its plain version at the
    Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128, S 2048), each case
    in bf16 and f32, on every route (a dense cache; a paged pool read
@@ -58,10 +59,13 @@ Phases (any failed check exits non-zero without the final line):
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
-   case and an hd-64 group-1 case, each in bf16 (forward on the tensor
-   cores) and f32: max errors of o (bf16: against the plain version that
-   rounds the weights where the kernel does, and against the f32 one),
-   lse, dq, dk, dv; kernel / plain times;
+   case and an hd-64 group-1 case, each in bf16 (the tensor cores) and
+   f32 (the CUDA cores; each launch counted on its engine, two launches
+   of each kernel equal bit for bit): max errors of o, dq, dk, dv (bf16:
+   against the plain versions that round p, and dS, where the kernels
+   do, and against the f32 ones: kernel_support.bf16_o_mismatch and
+   bf16_grad_mismatch; f32 within TOL and GRAD_TOL) and lse; kernel /
+   plain times;
    ``scaled_dot_product_attention``'s forward, backward and forward +
    backward as a yardstick the port never calls; the bound (operations
    over the input type's peak or bytes over 3.35 TB/s).
@@ -69,12 +73,15 @@ Phases (any failed check exits non-zero without the final line):
    layers, B 2, S 2048, 5 steps: step-1 loss near the random init's
    expected ln(vocab) + d * 0.02^2 / 2, finite loss
    and grad_norm, flash launches per layer and step counted over exactly
-   that run (every forward on the tensor cores), no ``mha_reference``
+   that run (every launch on the tensor cores), no ``mha_reference``
    route, the losses equal bit for bit to a second run's; step ms,
    tokens/s, MFU, peak memory. Then one step of a 2-layer f32 copy at the
    same B and S
-   through the kernels and through the plain attention: loss and
-   grad_norm compared.
+   through the kernels (on the CUDA cores) and through the plain
+   attention: loss and grad_norm compared; and the gradients of a bf16
+   copy of its weights through the kernels and through the plain
+   attention: per leaf, the kernel path's distance to the f32 plain
+   path's gradients at most BF16_FACTOR times the plain path's.
 7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
    kernel's entry carries its six routes).
 8. The last line: ``{"ok": true, "device": {...}}``.
@@ -114,7 +121,13 @@ BF16_FACTOR = 1.5     # phase 3: bf16 kernel path's distance to the f32
 # and to its f32 plain version within a wide bound: K1's TOL above, K2's
 # one ulp plus 2^-9 max|v| (each weight moves by 2^-9 of itself, the
 # weights sum to l; flash_attention.o_wide_tol). One check holds both:
-# kernel_support.bf16_o_mismatch. Phase 5's f32 o is held to TOL.
+# kernel_support.bf16_o_mismatch. Phase 5's f32 o is held to TOL. The
+# tensor-core backward (K3, K4 bf16) rounds p and dS to bf16 before its
+# gradient products: its f32 gradients are held to the plain versions
+# that round them there (p_bf16=True) within the summation order of the
+# same products and one flip of an element's largest term (in all but a
+# few rows), and to the f32 plain versions within 2^-8 of each element's
+# sum of |terms| plus GRAD_TOL's atol: kernel_support.bf16_grad_mismatch.
 GRAD_TOL = dict(atol=1e-4, rtol=0.0)  # f32 grads/lse from the same inputs:
                                       # summation order only
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
@@ -172,7 +185,8 @@ def hgmma_counts(kernel_support, lib) -> dict[str, int]:
 
 
 # the tensor-core kernels: every instantiation must hold wgmma
-TC_KERNELS = ("flash_fwd_tc_kernel", "rpa_chunk_tc_kernel")
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+              "flash_bwd_dq_tc_kernel", "rpa_chunk_tc_kernel")
 
 
 def phase_sass(kernel_support, libs) -> None:
@@ -1029,52 +1043,79 @@ def phase_flash(torch, fa, kernel_support) -> list[dict]:
             q, k, v, do = randn(b * hq), randn(b * hkv), randn(b * hkv), \
                 randn(b * hq)
             kw = dict(scale=hd ** -0.5, causal=True, window=window)
-            engine = fa.fwd_engine(dtype)
-            kernel_support.reset_launch_counts()
-            o, lse = fa.flash_fwd(q, k, v, **kw)
-            counts = kernel_support.launch_counts()
-            o_again, _ = fa.flash_fwd(q, k, v, **kw)
+            engine = fa.engine(dtype)
+            label = f"{case['name']} {dname}"
             o_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
-            bf16 = dtype == torch.bfloat16
-            # the plain version that rounds p where the bf16 engine does
-            o_p = fa.flash_fwd_reference(q, k, v, p_bf16=True, **kw)[0] \
-                if bf16 else o_r
             # both backward routes get the plain forward's lse and delta
             delta = (do.float() * o_r.float()).sum(-1, keepdim=True)
             bwd = (q, k, v, do, lse_r, delta)
-            dk, dv = fa.flash_bwd_dkv(*bwd, **kw)
-            dq = fa.flash_bwd_dq(*bwd, **kw)
-            dk_r, dv_r = fa.flash_bwd_dkv_reference(*bwd, **kw)
-            dq_r = fa.flash_bwd_dq_reference(*bwd, **kw)
+            runs = []
+            for _ in range(2):  # two launches of each on the same inputs
+                kernel_support.reset_launch_counts()
+                out = {}
+                out["o"], out["lse"] = fa.flash_fwd(q, k, v, **kw)
+                out["dk"], out["dv"] = fa.flash_bwd_dkv(*bwd, **kw)
+                out["dq"] = fa.flash_bwd_dq(*bwd, **kw)
+                runs.append((out, kernel_support.launch_counts()))
+            (got, counts), (again, _) = runs
             torch.cuda.synchronize()
-            label = f"{case['name']} {dname}"
-            if counts.get(kernel_support.engine_key("flash_fwd", engine)) != 1:
-                fail(f"{label}: flash_fwd was not counted on the {engine} "
-                     f"engine: {counts}")
-            if not torch.equal(o, o_again):
-                fail(f"{label}: two flash_fwd launches on the same inputs "
-                     "differ")
-            errs, off_one_ulp = {}, None
-            if bf16:  # o's checks (the tolerances above)
-                why = kernel_support.bf16_o_mismatch(o, o_p, o_r,
+            for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+                if counts.get(kernel_support.engine_key(name, engine)) != 1:
+                    fail(f"{label}: {name} was not counted on the {engine} "
+                         f"engine: {counts}")
+            for name in got:
+                if not torch.equal(got[name], again[name]):
+                    fail(f"{label}: two launches on the same inputs give "
+                         f"different {name}")
+            del runs, again
+            want = {"o": o_r, "lse": lse_r,
+                    "dq": fa.flash_bwd_dq_reference(*bwd, **kw)}
+            want["dk"], want["dv"] = fa.flash_bwd_dkv_reference(*bwd, **kw)
+            bf16 = dtype == torch.bfloat16
+            errs, off_one_ulp, grad_checks = {}, None, {}
+            if bf16:  # the tensor-core checks (the tolerances above)
+                o_p = fa.flash_fwd_reference(q, k, v, p_bf16=True, **kw)[0]
+                why = kernel_support.bf16_o_mismatch(got["o"], o_p, o_r,
                                                      fa.o_wide_tol(v))
                 if why is not None:
                     fail(f"{label}: {why}")
-                errs["o_vs_f32"] = float((o.float() - o_r.float()).abs().max())
-                off_one_ulp = kernel_support.off_one_ulp(o, o_p)
-            for name, got, want, tol in (
-                    ("o", o, o_p, TOL["float32"]),
-                    ("lse", lse, lse_r, GRAD_TOL),
-                    ("dq", dq, dq_r, GRAD_TOL), ("dk", dk, dk_r, GRAD_TOL),
-                    ("dv", dv, dv_r, GRAD_TOL)):
-                if not torch.isfinite(got).all():
+                errs["o_vs_f32"] = float((got["o"].float()
+                                          - o_r.float()).abs().max())
+                off_one_ulp = kernel_support.off_one_ulp(got["o"], o_p)
+                want["o"] = o_p
+                rounded = {"dq": fa.flash_bwd_dq_reference(*bwd, p_bf16=True,
+                                                           **kw)}
+                rounded["dk"], rounded["dv"] = fa.flash_bwd_dkv_reference(
+                    *bwd, p_bf16=True, **kw)
+                magnitude = fa.flash_bwd_magnitudes(*bwd, **kw)
+                for name, g_p in rounded.items():
+                    g, g_r, mag = got[name], want[name], magnitude[name]
+                    why = kernel_support.bf16_grad_mismatch(g, g_p, g_r, mag)
+                    if why is not None:
+                        fail(f"{label}: {name}: {why}")
+                    errs[f"{name}_vs_f32"] = float((g - g_r).abs().max())
+                    grad_checks[name] = {
+                        "tight_ratio": float(((g - g_p).abs() / kernel_support
+                                              .grad_tight_tol(mag)).max()),
+                        "wide_ratio": float(((g - g_r).abs() / kernel_support
+                                             .grad_wide_tol(mag)).max()),
+                        "off_tight_elements_rows":
+                            kernel_support.off_grad_tight(g, g_p, mag)}
+                    want[name] = g_p
+                del o_p, rounded, magnitude
+            for name in ("o", "lse", "dq", "dk", "dv"):
+                if not torch.isfinite(got[name]).all():
                     fail(f"{label}: non-finite kernel {name}")
-                errs[name] = float((got.float() - want.float()).abs().max())
-                if bf16 and name == "o":
-                    continue  # held by bf16_o_mismatch above
-                if not torch.allclose(got.float(), want.float(), **tol):
+                errs[name] = float((got[name].float()
+                                    - want[name].float()).abs().max())
+                if bf16 and name != "lse":
+                    continue  # held by the tensor-core checks above
+                tol = TOL["float32"] if name == "o" else GRAD_TOL
+                if not torch.allclose(got[name].float(), want[name].float(),
+                                      **tol):
                     fail(f"{label}: kernel {name} disagrees with its plain "
                          f"version (max abs err {errs[name]:.3e}, {tol})")
+            del got, want
 
             # the library yardstick (never called by the port): SDPA over
             # (B, H, S, hd) views of the same inputs
@@ -1102,10 +1143,10 @@ def phase_flash(torch, fa, kernel_support) -> list[dict]:
                 o_ = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
                 return torch.autograd.grad(o_, (qg, kg, vg), dos)
 
-            del o_p, o_again
             row = {"case": case["name"], "dtype": dname, **case,
                    "engine": engine, "max_abs_err": errs,
                    "o_off_one_ulp_elements_rows": off_one_ulp,
+                   "grad_checks": grad_checks,
                    "ms": {
                        "flash_fwd": graph_ms(torch, lambda: fa.flash_fwd(
                            q, k, v, **kw), 5),
@@ -1138,7 +1179,8 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
                    trainer_mod) -> dict:
     """The trainer at Llama-3-8B widths, depth cut to TRAIN_LAYERS, with
     the launch counts of exactly that run; then kernels vs plain
-    attention on a 2-layer f32 copy."""
+    attention on a 2-layer f32 copy, and the gradients of its bf16 copy
+    against the f32 plain path's."""
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               n_layers=TRAIN_LAYERS)
     tcfg = trainer_mod.TrainerConfig(
@@ -1220,6 +1262,9 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
     out["f32_two_layer_kernel_vs_plain"] = cmp
     out["f32_two_layer_launches"] = {"kernel_path": kernel_counts,
                                      "plain_path": plain_counts}
+    bf16_grads = bf16_gradient_distances(torch, kernel_support, train, cfg32,
+                                         state["params"], batch)
+    out["bf16_two_layer_gradients"] = bf16_grads
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1237,27 +1282,89 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
             fail(f"{name} launched {launches.get(name, 0)} times; the run "
                  f"needs exactly {need} = {cfg.n_layers} layers x "
                  f"{TRAIN_STEPS} steps")
-    fwd_tc = launches.get(kernel_support.engine_key("flash_fwd",
-                                                     "tensor_cores"), 0)
-    if fwd_tc != need or launches.get("flash_fwd", 0) != need:
-        fail(f"flash_fwd launched {launches.get('flash_fwd', 0)} times, "
-             f"{fwd_tc} on the tensor cores; the run needs exactly {need} "
-             "bf16 forwards")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        tc = launches.get(kernel_support.engine_key(name, "tensor_cores"), 0)
+        if tc != need or launches.get(name, 0) != need:
+            fail(f"{name} launched {launches.get(name, 0)} times, {tc} on "
+                 f"the tensor cores; the run needs exactly {need} bf16 "
+                 "launches")
     if losses != repeat_losses:
         fail(f"the losses of two runs differ: {losses} vs {repeat_losses}")
     if launches.get(attention_mod.MHA_ROUTE, 0):
         fail(f"{launches[attention_mod.MHA_ROUTE]} attention calls took "
              "mha_reference on the card")
-    if kernel_counts.get("flash_bwd_dq", 0) != cfg32.n_layers or \
+    if any(kernel_counts.get(kernel_support.engine_key(name, "cuda_cores"))
+           != cfg32.n_layers
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")) or \
             not plain_counts.get(attention_mod.MHA_ROUTE, 0) or \
             any(name.startswith("flash_") for name in plain_counts):
         fail(f"f32 comparison took the wrong routes: {kernel_counts} "
              f"(kernels) and {plain_counts} (plain)")
+    worse = {leaf: d for leaf, d in bf16_grads["per_leaf"].items()
+             if d["kernel"] > BF16_FACTOR * d["plain"]}
+    if worse or bf16_grads["launches"].get(kernel_support.engine_key(
+            "flash_bwd_dq", "tensor_cores")) != cfg32.n_layers:
+        fail(f"bf16 kernel path's gradients more than {BF16_FACTOR}x the "
+             f"plain path's distance from the f32 plain path's: {worse}; "
+             f"launches {bf16_grads['launches']}")
     (lk, lp), (gk, gp) = cmp["loss"], cmp["grad_norm"]
     if abs(lk - lp) > LOSS_RTOL * abs(lp) or \
             abs(gk - gp) > GRAD_NORM_RTOL * abs(gp):
         fail(f"f32 kernel path vs plain path: loss {lk} vs {lp}, "
              f"grad_norm {gk} vs {gp}")
+    return out
+
+
+def bf16_gradient_distances(torch, kernel_support, train, cfg32, params,
+                            batch) -> dict:
+    """The gradients of the f32 model's bf16 copy through the kernels (the
+    tensor cores) and through the plain attention, each leaf's relative
+    L2 distance from the f32 plain path's gradients: the bf16 check of
+    the training path, in the manner of phase 3's (both bf16 paths round
+    the weights and activations alike; the kernel path's attention rounds
+    only p and dS, so it must lie no further than BF16_FACTOR times the
+    plain path)."""
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+
+    def as_bf16(tree):
+        return {k: as_bf16(v) if isinstance(v, dict) else v.bfloat16()
+                for k, v in tree.items()}
+
+    def grads(cfg, tree, plain):
+        leaves = train.param_leaves(tree)
+        with torch.enable_grad():
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+            loss, _ = train.loss_fn(tree, batch, cfg, with_accuracy=False,
+                                    plain_attention=plain)
+            out = torch.autograd.grad(loss, leaves)
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+        return [g.float() for g in out]
+
+    want = grads(cfg32, params, True)
+    params16 = as_bf16(params)
+    names = [".".join(path) for path in _leaf_paths(params)]
+    per_leaf = {name: {} for name in names}
+    for route, plain in (("kernel", False), ("plain", True)):
+        kernel_support.reset_launch_counts()
+        got = grads(cfg16, params16, plain)
+        if not plain:
+            launches = kernel_support.launch_counts()
+        for name, w, g in zip(names, want, got):
+            per_leaf[name][route] = float((g - w).norm() / w.norm())
+        del got
+    return {"per_leaf": per_leaf, "launches": launches}
+
+
+def _leaf_paths(tree, prefix=()):
+    """The key path of each leaf, in ``train.param_leaves``' order."""
+    out = []
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.extend(_leaf_paths(value, (*prefix, str(key))))
+        else:
+            out.append((*prefix, str(key)))
     return out
 
 
@@ -1406,14 +1513,13 @@ def main() -> None:
              else fhead["library_bwd_ms"]},
             {"headline_case": f"causal bfloat16, B={TRAIN_BATCH} "
                               f"S={TRAIN_SEQ} Hq=32 Hkv=8 hd=128",
-             "engine": ({"bfloat16": "tensor_cores", "float32": "cuda_cores"}
-                        if name == "flash_fwd" else "cuda_cores"),
+             "engine": {"bfloat16": "tensor_cores", "float32": "cuda_cores"},
              "launches_per_engine": {
                  e: training["launches"].get(kernel_support.engine_key(name, e), 0)
-                 for e in kernel_support.ENGINES} if name == "flash_fwd" else None,
-             "max_err_bf16_o_vs_f32_plain": max(
-                 c["max_abs_err"]["o_vs_f32"] for c in flash
-                 if c["dtype"] == "bfloat16") if name == "flash_fwd" else None,
+                 for e in kernel_support.ENGINES},
+             "max_err_bf16_vs_f32_plain": max(
+                 c["max_abs_err"][f"{o}_vs_f32"] for c in flash for o in outs
+                 if c["dtype"] == "bfloat16" and o != "lse"),
              "cases": [{"case": c["case"], "dtype": c["dtype"],
                         "ms": c["ms"][name], "plain_ms": c["plain_ms"][name],
                         **c["bounds"][name]} for c in flash]}))

@@ -1,6 +1,7 @@
-// The tensor-core attention mainloop shared by the flash forward (K2,
-// flash_attention.cu) and the ragged-paged kernel's prefill-chunk route
-// (K1, ragged_paged_attention.cu), hand-written for Hopper (sm_90a).
+// The tensor-core attention mainloop shared by the flash forward and
+// backward (K2, K3, K4, flash_attention.cu) and the ragged-paged kernel's
+// prefill-chunk route (K1, ragged_paged_attention.cu), hand-written for
+// Hopper (sm_90a).
 //
 // What it computes. A consumer warpgroup (128 threads) owns 64 query
 // vectors, held in shared memory as bf16. For each 64-row K/V tile of its
@@ -14,6 +15,10 @@
 //                      the descriptor's transpose bit, one m64n64k16 per 64
 //                      columns of hd.
 // The caller's epilogue divides by l and rounds once to its output type.
+// The backward's steps (dq_step, dkv_step below) run the same products on
+// the same tiles with lse final, so no running max: S and dP as SS
+// products, p and dS in f32 on the fragment, each rounded once to bf16 as
+// the register A operand of its gradient product.
 //
 // Why tensor cores. At the training and prefill shapes both kernels do
 // hundreds of operations per byte they read: they are bound by operations,
@@ -31,15 +36,18 @@
 // Q and K are K-major operands (hd contiguous); V is the MN-major B
 // operand of P V (its hd columns contiguous), read with trans-b = 1.
 //
-// The producer is the kernel's own: one warp issuing TMA boxes (K2), or
-// warps gathering rows through a page table and dequantizing codes (K1),
-// writing the same layout. It signals a stage's full barrier; every
-// consumer thread arrives on the stage's empty barrier when its products
-// have read it.
+// The producer is the kernel's own: one warp issuing TMA boxes (K2, K4;
+// K3 adds a bulk copy of each q tile's lse and delta rows), or warps
+// gathering rows through a page table and dequantizing codes (K1), writing
+// the same layout. It signals a stage's full barrier; every consumer
+// thread arrives on the stage's empty barrier when its products have read
+// it.
 //
 // Determinism: no atomics; each row's sum runs over the kv tiles in
 // ascending order and in wgmma's fixed order inside a tile; the row sum l
 // is kept per thread and reduced over the quad in a fixed order at the end.
+// A gradient sums over its ring's loads in the order the producer issues
+// them.
 
 #pragma once
 
@@ -115,6 +123,37 @@ __device__ __forceinline__ void fence_async_shared() {
 // a barrier over the 128 threads of one consumer warpgroup (ids 1..)
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWarpgroup) : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) from global
+// into shared memory, completing them on the barrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+// a warpgroup's register budget (setmaxnreg; every thread of the
+// warpgroup, on a path that does not rejoin the other warpgroups')
+template <int N>
+__device__ __forceinline__ void set_max_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void set_max_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // one TMA box of a 3-D tensor map (coordinates innermost first) into
@@ -231,28 +270,75 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 #undef ATTN_TILE_D32
 #undef ATTN_TILE_REGS32
 
-// --- the ring of K/V stages --------------------------------------------------
+// d = A B^T over hd: A and B 64-row K-major tiles (hd contiguous), one
+// m64n64k16 per 16 columns; the first starts d from zero
+template <int HD>
+__device__ __forceinline__ void ss_product(float (&d)[32], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+    wgmma_ss(d, make_desc(a + off), make_desc(b + off), kk > 0);
+  }
+}
 
-// kStages stages of (K tile, V tile), each tile 1024-byte aligned, and
-// their barriers: full[s] (the producer's arrivals and TMA bytes) and
-// empty[s] (one arrival per consumer thread).
-template <int HD, int kStages>
+// a 64 x 64 accumulator fragment as wgmma's A fragments, each value
+// rounded once to bf16: k-step kk holds columns 16 kk .. 16 kk + 15, which
+// are accumulator chunks 2 kk and 2 kk + 1
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+  }
+}
+
+// d[nb] += A B: A (64 x 64) in registers, B a 64 x HD tile read MN-major
+// (trans-b: its 64 rows are the k dimension, its hd columns contiguous),
+// one m64n64k16 per 16 rows and 64 columns
+template <int HD>
+__device__ __forceinline__ void rs_product(float (&d)[HD / 64][32],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(d[nb], a[kk], make_desc(b + nb * 8192 + kk * 2048));
+    }
+  }
+}
+
+// --- the ring of stages ------------------------------------------------------
+
+// kStages stages of two 64 x HD bf16 tiles each ((K, V) for the forward
+// and dQ, (Q, dO) for dK dV), each tile 1024-byte aligned, then kRowBytes
+// a stage of row data (K3's lse and delta; none for the others, whose
+// layout is the tiles and barriers alone), then the barriers: full[s]
+// (the producer's arrivals and bytes) and empty[s] (one arrival per
+// consumer thread).
+template <int HD, int kStages, int kRowBytes = 0>
 struct Ring {
-  uint32_t tiles;  // shared address of stage 0's K tile
+  uint32_t tiles;  // shared address of stage 0's first tile
   uint32_t bars;   // shared address of full[0]; empty[0] follows full[]
 
+  static constexpr int kCount = kStages;
   static constexpr uint32_t kStageBytes = 2 * tile_bytes<HD>();
-  static constexpr uint32_t kBytes = kStages * kStageBytes + 16 * kStages;
+  static constexpr uint32_t kBytes =
+      kStages * (kStageBytes + kRowBytes) + 16 * kStages;
+  static_assert(kRowBytes % 16 == 0, "row slots stay 16-byte aligned");
 
-  // the ring right after `tiles`, its barriers after its last stage
+  // the ring right after `tiles`, its barriers after its last row slot
   __device__ __forceinline__ static Ring at(uint32_t tiles) {
-    return Ring{tiles, tiles + kStages * kStageBytes};
+    return Ring{tiles, tiles + kStages * (kStageBytes + kRowBytes)};
   }
-  __device__ __forceinline__ uint32_t k_tile(int s) const {
-    return tiles + s * kStageBytes;
+  // tile i (0 or 1) of stage s
+  __device__ __forceinline__ uint32_t tile(int s, int i) const {
+    return tiles + s * kStageBytes + i * tile_bytes<HD>();
   }
-  __device__ __forceinline__ uint32_t v_tile(int s) const {
-    return k_tile(s) + tile_bytes<HD>();
+  __device__ __forceinline__ uint32_t rows(int s) const {
+    return tiles + kStages * kStageBytes + s * kRowBytes;
   }
   __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
   __device__ __forceinline__ uint32_t empty(int s) const {
@@ -277,11 +363,13 @@ struct Ring {
   }
 };
 
-// the shared memory a block needs: its query tiles, the ring, and the
-// slack that aligns the first tile to 1024 bytes
-template <int HD, int kStages, int kConsumers>
+// the shared memory a block needs: its resident tiles (a query tile per
+// consumer warpgroup; the backward's two per warpgroup), the ring, and
+// the slack that aligns the first tile to 1024 bytes
+template <int HD, int kStages, int kResident, int kRowBytes = 0>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return 1024 + kConsumers * tile_bytes<HD>() + Ring<HD, kStages>::kBytes;
+  return 1024 + kResident * tile_bytes<HD>() +
+         Ring<HD, kStages, kRowBytes>::kBytes;
 }
 
 // --- one consumer warpgroup --------------------------------------------------
@@ -321,12 +409,13 @@ struct Acc {
   }
 };
 
-// The warpgroup's 64 query vectors into a swizzled tile: row_ptr(r) is
-// row r's hd bf16 values (16-byte aligned), or null for a zero row. Ends
-// with the warpgroup synchronised on named barrier `bar_id`.
+// 64 rows into a swizzled tile resident for the warpgroup's life (its
+// query vectors; the backward's K and V, or Q and dO): row_ptr(r) is row
+// r's hd bf16 values (16-byte aligned), or null for a zero row. Ends with
+// the warpgroup synchronised on named barrier `bar_id`.
 template <int HD, class RowPtr>
-__device__ __forceinline__ void load_q(uint32_t q_tile, RowPtr row_ptr,
-                                       int bar_id) {
+__device__ __forceinline__ void load_rows(uint32_t tile, RowPtr row_ptr,
+                                          int bar_id) {
   constexpr int kChunks = kRows * HD / 8;
   for (int e = threadIdx.x % kWarpgroup; e < kChunks; e += kWarpgroup) {
     const int r = e / (HD / 8);
@@ -334,7 +423,7 @@ __device__ __forceinline__ void load_q(uint32_t q_tile, RowPtr row_ptr,
     const __nv_bfloat16* src = row_ptr(r);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (src != nullptr) v = __ldg(reinterpret_cast<const uint4*>(src + 8 * c));
-    st_shared_16(q_tile + swizzle(r, 8 * c), v);
+    st_shared_16(tile + swizzle(r, 8 * c), v);
   }
   fence_async_shared();
   warpgroup_sync(bar_id);
@@ -352,11 +441,7 @@ __device__ __forceinline__ void tile_step(Acc<HD>& acc, uint32_t q_tile,
   float s[32];
   fence_regs(s);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
-    wgmma_ss(s, make_desc(q_tile + off), make_desc(k_tile + off), kk > 0);
-  }
+  ss_product<HD>(s, q_tile, k_tile);
   wgmma_commit();
   wgmma_wait0();
   fence_regs(s);
@@ -386,14 +471,8 @@ __device__ __forceinline__ void tile_step(Acc<HD>& acc, uint32_t q_tile,
     acc.l[h] += p;
     s[i] = p;
   }
-  // P as wgmma's A fragments: k-step kk holds columns 16 kk .. 16 kk + 15,
-  // which are accumulator chunks 2 kk and 2 kk + 1
   uint32_t pa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-  }
+  pack_a(s, pa);
 #pragma unroll
   for (int nb = 0; nb < HD / 64; ++nb) {
 #pragma unroll
@@ -401,17 +480,24 @@ __device__ __forceinline__ void tile_step(Acc<HD>& acc, uint32_t q_tile,
     fence_regs(acc.o[nb]);
   }
   wgmma_fence();
-#pragma unroll
-  for (int nb = 0; nb < HD / 64; ++nb) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs(acc.o[nb], pa[kk], make_desc(v_tile + nb * 8192 + kk * 2048));
-    }
-  }
+  rs_product<HD>(acc.o, pa, v_tile);
   wgmma_commit();
   wgmma_wait0();
 #pragma unroll
   for (int nb = 0; nb < HD / 64; ++nb) fence_regs(acc.o[nb]);
+}
+
+// A warpgroup's turn at loads 0 .. n_loads - 1 of a ring: for each, wait
+// until it landed, step(n, stage), release the stage.
+template <class RingT, class Step>
+__device__ __forceinline__ void walk(const RingT& ring, int n_loads,
+                                     Step step) {
+  for (int n = 0; n < n_loads; ++n) {
+    const int s = n % RingT::kCount;
+    mbar_wait(ring.full(s), (n / RingT::kCount) & 1);
+    step(n, s);
+    mbar_arrive(ring.empty(s));
+  }
 }
 
 // A consumer warpgroup's walk over the ring: loads lo .. hi of the block
@@ -424,16 +510,118 @@ __device__ __forceinline__ void consume(Acc<HD>& acc, const Ring<HD, kStages>& r
                                         uint32_t q_tile, float scale_log2,
                                         int lo, int hi, int mine_lo,
                                         int mine_hi, Masked masked, Keep keep) {
-  for (int j = lo, n = 0; j <= hi; ++j, ++n) {
-    const int s = n % kStages;
-    mbar_wait(ring.full(s), (n / kStages) & 1);
+  walk(ring, hi - lo + 1, [&](int n, int s) {
+    const int j = lo + n;
     if (j >= mine_lo && j <= mine_hi) {
-      tile_step<HD>(acc, q_tile, ring.k_tile(s), ring.v_tile(s), scale_log2,
+      tile_step<HD>(acc, q_tile, ring.tile(s, 0), ring.tile(s, 1), scale_log2,
                     j * kKv, masked(j), keep);
     }
-    mbar_arrive(ring.empty(s));
-  }
+  });
   acc.finish();
+}
+
+// --- the backward (K3, K4) ---------------------------------------------------
+
+// One kv tile of dQ (K4), for the warpgroup's 64 q rows: S = Q K^T and
+// dP = dO V^T (SS, one commit group); p = 2^(s scale log2(e) - lse
+// log2(e)) with lse final (masked: 0); dS = p (dP - delta) scale in f32,
+// rounded once to bf16 as the A operand of dQ += dS K, K read MN-major
+// (trans-b). lse2[h] (lse log2(e)) and delta[h] are row Acc::row(2 h)'s;
+// keep(h, pos) as in tile_step.
+template <int HD, class Keep>
+__device__ __forceinline__ void dq_step(float (&dq)[HD / 64][32],
+                                        uint32_t q_tile, uint32_t do_tile,
+                                        uint32_t k_tile, uint32_t v_tile,
+                                        float scale_log2, float scale,
+                                        const float (&lse2)[2],
+                                        const float (&delta)[2], int kv0,
+                                        bool masked, Keep keep) {
+  float s[32], dp[32];
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
+  ss_product<HD>(s, q_tile, k_tile);
+  ss_product<HD>(dp, do_tile, v_tile);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(s);
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float x = s[i] * scale_log2 - lse2[h];
+    if (masked && !keep(h, kv0 + Acc<HD>::col(i))) x = kNegBig;
+    dp[i] = exp2f(x) * (dp[i] - delta[h]) * scale;
+  }
+  uint32_t dsa[4][4];
+  pack_a(dp, dsa);
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) fence_regs(dq[nb]);
+  wgmma_fence();
+  rs_product<HD>(dq, dsa, k_tile);
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) fence_regs(dq[nb]);
+}
+
+// One q tile of dK and dV (K3), for the warpgroup's 64 kv rows, transposed:
+// S^T = K Q^T and dP^T = V dO^T (SS, one commit group), masked with q
+// position = column and k position = row; p^T and dS^T as in dq_step from
+// each column's lse and delta (`rows`: the stage's 64 lse, then its 64
+// delta, f32); dV += bf16(p^T) dO and dK += bf16(dS^T) Q, dO and Q read
+// MN-major. keep(h, q_pos) for row Acc::row(2 h).
+template <int HD, class Keep>
+__device__ __forceinline__ void dkv_step(float (&dk)[HD / 64][32],
+                                         float (&dv)[HD / 64][32],
+                                         uint32_t k_tile, uint32_t v_tile,
+                                         uint32_t q_tile, uint32_t do_tile,
+                                         uint32_t rows, float scale_log2,
+                                         float scale, int q0, bool masked,
+                                         Keep keep) {
+  float st[32], dpt[32];
+  fence_regs(st);
+  fence_regs(dpt);
+  wgmma_fence();
+  ss_product<HD>(st, k_tile, q_tile);
+  ss_product<HD>(dpt, v_tile, do_tile);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(st);
+  fence_regs(dpt);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {  // registers 4 c .. 4 c + 3: columns col, col + 1
+    const int col = 8 * c + 2 * (threadIdx.x % 4);
+    const float2 lse = ld_shared_f2(rows + 4 * col);
+    const float2 delta = ld_shared_f2(rows + 4 * (kKv + col));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * c + e;
+      float x = st[i] * scale_log2 - ((e & 1) ? lse.y : lse.x) * kLog2e;
+      if (masked && !keep((i >> 1) & 1, q0 + col + (e & 1))) x = kNegBig;
+      const float p = exp2f(x);
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - ((e & 1) ? delta.y : delta.x)) * scale;
+    }
+  }
+  uint32_t pa[4][4], dsa[4][4];
+  pack_a(st, pa);
+  pack_a(dpt, dsa);
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+    fence_regs(dk[nb]);
+    fence_regs(dv[nb]);
+  }
+  wgmma_fence();
+  rs_product<HD>(dv, pa, do_tile);
+  rs_product<HD>(dk, dsa, q_tile);
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+    fence_regs(dk[nb]);
+    fence_regs(dv[nb]);
+  }
 }
 
 }  // namespace attn_tile

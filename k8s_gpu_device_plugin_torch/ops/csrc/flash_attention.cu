@@ -24,36 +24,49 @@
 // S/2 operations per byte, far above the card's ~295 (bf16) balance at
 // S = 2048. So all three are bound by operations.
 //
-// Two engines. The bf16 forward runs on the tensor cores
-// (flash_fwd_tc_kernel): the wgmma mainloop of attention_tile.cuh, two
-// consumer warpgroups (128 q rows) over one ring of K/V tiles that a
-// producer warp fills with TMA boxes from 3-D tensor maps over
-// (B*Hkv, S, hd); q row r reads kv row r / group through the map's
-// outer coordinate. P is rounded to bf16 before P V (wgmma's A operand),
-// so o differs from the f32 plain version by up to 2^-9 max|v| before its
-// final rounding. The f32 forward and both backward kernels (any type) do
-// every operation in f32 on the CUDA cores (the TPU kernels also cast to
-// f32), against the 67 TFLOP/s f32 rate, not the 989 TFLOP/s bf16
-// tensor-core rate the bound is stated against; their wgmma is later work.
-// What the CUDA-core design does for the operations it has: it skips every tile the
-// mask empties (the reference's block predicates, at 64-row tiles), each
-// thread computes a 4x4 score tile from float4 shared-memory loads (8
-// fused multiply-adds per load), and the heaviest tiles (the most live
-// kv tiles under the causal mask) are launched first so the tail wave is
-// short.
+// Two engines, by the type of q/k/v/dO. bf16 runs on the tensor cores,
+// each kernel over the wgmma mainloop of attention_tile.cuh (swizzled
+// 64-row tiles, SS and RS products, a ring of stages on mbarriers):
+// - flash_fwd_tc_kernel: two consumer warpgroups (128 q rows) over one
+//   ring of K/V tiles that a producer warp fills with TMA boxes from 3-D
+//   tensor maps over (B*Hkv, S, hd); q row r reads kv row r / group
+//   through the map's outer coordinate. P is rounded to bf16 before P V
+//   (wgmma's A operand).
+// - flash_bwd_dq_tc_kernel: the forward's blocks (two q tiles, heaviest
+//   first) with another body: each consumer warpgroup holds its q tile
+//   and dO tile, a producer warpgroup streams (K, V); per kv tile S and dP
+//   as SS products, dS = p (dP - delta) scale in f32, rounded once to bf16
+//   for dQ += dS K (attention_tile.cuh's dq_step).
+// - flash_bwd_dkv_tc_kernel: each consumer warpgroup holds a kv tile's K
+//   and V; a producer warpgroup (in both backward kernels it gives its
+//   registers to the consumers with setmaxnreg) fills a ring
+//   with (Q, dO) tiles by TMA and the tile's lse and delta by a bulk copy,
+//   for every q head of the group and live q tile; per stage S^T and dP^T
+//   as SS products, dV += bf16(p^T) dO, dK += bf16(dS^T) Q (dkv_step).
+// The rounded operands move each gradient from the f32 plain version by at
+// most 2^-8 of its sum of |terms| (kernel_support.bf16_grad_mismatch).
+// f32 runs every operation in f32 on the CUDA cores (the TPU kernels also
+// cast to f32; its pins need f32 products), against the 67 TFLOP/s f32
+// rate: it skips every tile the mask empties (the reference's block
+// predicates, at 64-row tiles), each thread computes a 4x4 score tile
+// from float4 shared-memory loads (8 fused multiply-adds per load), and
+// the heaviest tiles (the most live kv tiles under the causal mask) are
+// launched first so the tail wave is short. Both engines do the same.
 //
 // TPU -> CUDA. The TPU grid carries m/l/acc (or dK/dV, dQ) in VMEM scratch
 // across its sequential innermost axis; here that axis is a loop inside
 // one block, and the other grid axes are independent blocks:
-//   forward and dq: one block per (q tile of 64 rows, b * Hq + h);
-//   dkv:            one block per (kv tile of 64 rows, b * Hkv + h), its
-//                   loop walking the group's q heads x the live q tiles.
+//   forward and dq: one block per (q tile of 64 rows, b * Hq + h) (two
+//                   on the tensor cores);
+//   dkv:            one block per (kv tile of 64 rows, b * Hkv + h) (two
+//                   on the tensor cores), its loop walking the group's q
+//                   heads x the live q tiles.
 // No atomics: every output element is written by one block, in a fixed
 // summation order, so results are deterministic.
 //
 // Types: f32 or bf16 q/k/v/dO (one type per call), hd in {64, 128},
-// S a multiple of 64. All arithmetic is f32 but the tensor-core forward's
-// products (bf16 operands, f32 accumulation).
+// S a multiple of 64. All arithmetic is f32 but the tensor-core products
+// (bf16 operands, f32 accumulation).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -78,56 +91,20 @@ __host__ __device__ constexpr int row_stride() { return HD + 4; }
 template <int HD>
 __host__ __device__ constexpr int tile_floats() { return kTile * row_stride<HD>(); }
 
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static constexpr int kPerVec = 4;  // elements per 16-byte load
-  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  __device__ static __forceinline__ float cast(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kPerVec = 8;
-  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
-    // bf16 is the high half of an f32: widening is a 16-bit shift
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-// 64 contiguous rows of HD elements (global) -> f32 tile (shared, padded)
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+// 64 contiguous rows of HD f32 (global) -> padded f32 tile (shared)
+template <int HD>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           float* __restrict__ dst) {
-  constexpr int kPerVec = Io<T>::kPerVec;
-  constexpr int kVecPerRow = HD / kPerVec;
+  constexpr int kVecPerRow = HD / 4;
   constexpr int kIters = kTile * kVecPerRow / kThreads;
   static_assert(kTile * kVecPerRow % kThreads == 0, "tile splits evenly");
-  const uint4* s = reinterpret_cast<const uint4*>(src);
+  const float4* s = reinterpret_cast<const float4*>(src);
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int row = i / kVecPerRow;
-    const int col = (i % kVecPerRow) * kPerVec;
-    float f[kPerVec];
-    Io<T>::unpack(__ldg(s + i), f);
-#pragma unroll
-    for (int e = 0; e < kPerVec; e += 4) {
-      *reinterpret_cast<float4*>(dst + row * row_stride<HD>() + col + e) =
-          make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
-    }
+    const int col = (i % kVecPerRow) * 4;
+    *reinterpret_cast<float4*>(dst + row * row_stride<HD>() + col) = __ldg(s + i);
   }
 }
 
@@ -257,10 +234,10 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * 3 * tile_floats<HD>();  // q, k (then p), v
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int group, int s_len, float scale,
                  int causal, int window) {
   constexpr int kJ = HD / 64;
@@ -276,7 +253,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  load_tile<T, HD>(q + (size_t(bh) * s_len + qt * kTile) * HD, qs);
+  load_tile<HD>(q + (size_t(bh) * s_len + qt * kTile) * HD, qs);
   float m[4], l[4];
   float4 acc[4][kJ];
 #pragma unroll
@@ -292,8 +269,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = j_lo; j <= j_hi; ++j) {
     __syncthreads();  // the previous tile's p and v are consumed
     const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * HD;
-    load_tile<T, HD>(k + kv_off, ks);
-    load_tile<T, HD>(v + kv_off, vs);
+    load_tile<HD>(k + kv_off, ks);
+    load_tile<HD>(v + kv_off, vs);
     __syncthreads();
 
     float s[4][4];
@@ -339,14 +316,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = qt * kTile + ty + 16 * i;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
     const float inv = 1.f / l_safe;
-    T* orow = o + (size_t(bh) * s_len + row) * HD;
+    float* orow = o + (size_t(bh) * s_len + row) * HD;
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj) {
       const int col = tx * 4 + 64 * jj;
-      orow[col] = Io<T>::cast(acc[i][jj].x * inv);
-      orow[col + 1] = Io<T>::cast(acc[i][jj].y * inv);
-      orow[col + 2] = Io<T>::cast(acc[i][jj].z * inv);
-      orow[col + 3] = Io<T>::cast(acc[i][jj].w * inv);
+      orow[col] = acc[i][jj].x * inv;
+      orow[col + 1] = acc[i][jj].y * inv;
+      orow[col + 2] = acc[i][jj].z * inv;
+      orow[col + 3] = acc[i][jj].w * inv;
     }
     if (tx == 0) lse[size_t(bh) * s_len + row] = m[i] + logf(l_safe);
   }
@@ -408,9 +385,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
         mbar_expect_tx(ring.full(s), 2 * tile_bytes<HD>());
 #pragma unroll
         for (int c = 0; c < HD / 64; ++c) {
-          tma_load_3d(ring.k_tile(s) + c * 8192, &tm_k, 64 * c, j * kTile, kvh,
+          tma_load_3d(ring.tile(s, 0) + c * 8192, &tm_k, 64 * c, j * kTile, kvh,
                       ring.full(s));
-          tma_load_3d(ring.v_tile(s) + c * 8192, &tm_v, 64 * c, j * kTile, kvh,
+          tma_load_3d(ring.tile(s, 1) + c * 8192, &tm_v, 64 * c, j * kTile, kvh,
                       ring.full(s));
         }
       }
@@ -422,7 +399,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int q0 = qt * kTile;
   const bool live = qt < n_tiles;
   const uint32_t q_tile = q_tiles + wg * tile_bytes<HD>();
-  load_q<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
+  load_rows<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
     return live ? q + (size_t(bh) * s_len + q0 + r) * HD : nullptr;
   }, 1 + wg);
   Acc<HD> acc;
@@ -469,10 +446,11 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * tile_floats<HD>() + 2 * kTile * kPStride);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int group, int s_len,
@@ -493,8 +471,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / 16;  // kv row
 
   const size_t kv_off = (size_t(bhkv) * s_len + kt * kTile) * HD;
-  load_tile<T, HD>(k + kv_off, ks);
-  load_tile<T, HD>(v + kv_off, vs);
+  load_tile<HD>(k + kv_off, ks);
+  load_tile<HD>(v + kv_off, vs);
   float4 dk_acc[4][kJ];
   float4 dv_acc[4][kJ];
 #pragma unroll
@@ -513,8 +491,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int it = i_lo; it <= i_hi; ++it) {
       __syncthreads();  // the previous q tile's products are done
       const size_t q_off = (size_t(bh) * s_len + it * kTile) * HD;
-      load_tile<T, HD>(q + q_off, qs);
-      load_tile<T, HD>(dout + q_off, dos);
+      load_tile<HD>(q + q_off, qs);
+      load_tile<HD>(dout + q_off, dos);
       __syncthreads();
 
       float s[4][4];   // s^T[kv row][q col]
@@ -562,10 +540,11 @@ constexpr size_t dq_smem() {
   return sizeof(float) * 4 * tile_floats<HD>();  // q, dO, k, v (then dS)
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int group, int s_len, float scale, int causal,
@@ -585,8 +564,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / 16;
 
   const size_t q_off = (size_t(bh) * s_len + qt * kTile) * HD;
-  load_tile<T, HD>(q + q_off, qs);
-  load_tile<T, HD>(dout + q_off, dos);
+  load_tile<HD>(q + q_off, qs);
+  load_tile<HD>(dout + q_off, dos);
   float lse_r[4], delta_r[4];
   float4 acc[4][kJ];
 #pragma unroll
@@ -603,8 +582,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = j_lo; j <= j_hi; ++j) {
     __syncthreads();  // the previous tile's dS and k are consumed
     const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * HD;
-    load_tile<T, HD>(k + kv_off, ks);
-    load_tile<T, HD>(v + kv_off, vs);
+    load_tile<HD>(k + kv_off, ks);
+    load_tile<HD>(v + kv_off, vs);
     __syncthreads();
 
     float s[4][4];
@@ -638,6 +617,251 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --- backward on the tensor cores (K3, K4, bf16) ----------------------------
+
+// Both backward blocks are two consumer warpgroups and a producer
+// warpgroup, one thread of which issues the copies. A consumer thread
+// holds its gradient accumulators (64 f32 at hd 128, K3 twice that), S
+// and dP (32 each) and the bf16 operands at once: the 168 registers a
+// thread of a 3-warpgroup block gets (16,384 per quarter of the SM, three
+// warps in the fullest quarter) spill, so the producer hands its
+// registers to the consumers (setmaxnreg).
+constexpr int kBwdConsumers = 2;  // 64-row tiles (consumer warpgroups) a block
+constexpr int kBwdThreads = (kBwdConsumers + 1) * attn_tile::kWarpgroup;
+constexpr int kBwdProducerRegs = 24;
+constexpr int kBwdConsumerRegs = 240;  // (65536 - 128 * 24) / 256, a multiple of 8
+constexpr int kBwdStages = 3;     // (K, V) or (Q, dO) tiles in flight
+constexpr int kDkvRowBytes = 2 * kTile * 4;  // a q tile's lse, then its delta
+
+// One block: q tiles 2 qb and 2 qb + 1 of row bh = blockIdx.y, the
+// heaviest blocks first, as the forward's. Warpgroups 0 and 1 are the
+// consumers, each with its q tile and dO tile resident; warpgroup 2 the
+// producer, which issues the TMA boxes of the K and V tiles of the
+// block's span (the union of the two q tiles' spans; each consumer
+// computes only its own).
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq, int group, int s_len,
+                       float scale, int causal, int window) {
+  using namespace attn_tile;
+  using RingT = Ring<HD, kBwdStages>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t resident = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const RingT ring = RingT::at(resident + 2 * kBwdConsumers * tile_bytes<HD>());
+
+  const int n_tiles = s_len / kTile;
+  const int qb = (n_tiles + kBwdConsumers - 1) / kBwdConsumers - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  int lo = n_tiles, hi = -1;  // the kv tiles some q tile of the block sees
+#pragma unroll
+  for (int w = 0; w < kBwdConsumers; ++w) {
+    const int qt = kBwdConsumers * qb + w;
+    if (qt >= n_tiles) continue;
+    int a, b;
+    kv_span(qt, n_tiles, causal != 0, window, &a, &b);
+    lo = min(lo, a);
+    hi = max(hi, b);
+  }
+
+  if (threadIdx.x == 0) ring.init(1, kBwdConsumers * kWarpgroup);
+  __syncthreads();
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == kBwdConsumers) {  // the producer warpgroup: K and V tiles
+    set_max_regs_dec<kBwdProducerRegs>();
+    if (threadIdx.x % kWarpgroup == 0) {
+      for (int j = lo, n = 0; j <= hi; ++j, ++n) {
+        const int s = ring.acquire(n);
+        mbar_expect_tx(ring.full(s), 2 * tile_bytes<HD>());
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          tma_load_3d(ring.tile(s, 0) + c * 8192, &tm_k, 64 * c, j * kTile,
+                      bh / group, ring.full(s));
+          tma_load_3d(ring.tile(s, 1) + c * 8192, &tm_v, 64 * c, j * kTile,
+                      bh / group, ring.full(s));
+        }
+      }
+    }
+    return;
+  }
+  set_max_regs_inc<kBwdConsumerRegs>();
+
+  const int qt = kBwdConsumers * qb + wg;
+  const int q0 = qt * kTile;
+  const bool live = qt < n_tiles;
+  int mine_lo = 0, mine_hi = -1;
+  if (live) kv_span(qt, n_tiles, causal != 0, window, &mine_lo, &mine_hi);
+  const uint32_t q_tile = resident + 2 * wg * tile_bytes<HD>();
+  const uint32_t do_tile = q_tile + tile_bytes<HD>();
+  load_rows<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
+    return live ? q + (size_t(bh) * s_len + q0 + r) * HD : nullptr;
+  }, 1 + wg);
+  load_rows<HD>(do_tile, [&](int r) -> const __nv_bfloat16* {
+    return live ? dout + (size_t(bh) * s_len + q0 + r) * HD : nullptr;
+  }, 1 + wg);
+  int q_pos[2];
+  float lse2[2], dl[2];  // this thread's rows: lse * log2(e), delta
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    q_pos[h] = q0 + Acc<HD>::row(2 * h);
+    const size_t row = size_t(bh) * s_len + q_pos[h];
+    lse2[h] = live ? lse[row] * kLog2e : 0.f;
+    dl[h] = live ? delta[row] : 0.f;
+  }
+  float acc[HD / 64][32];
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  }
+  // the forward's mask test: the diagonal, and tiles whose farthest pair
+  // falls out of the window
+  auto masked = [&](int j) {
+    return causal != 0 &&
+           (j >= qt || (window > 0 && q0 + kTile - 1 - j * kTile >= window));
+  };
+  auto kept = [&](int h, int pos) { return keep(q_pos[h], pos, true, window); };
+  walk(ring, hi - lo + 1, [&](int n, int s) {
+    const int j = lo + n;
+    if (j >= mine_lo && j <= mine_hi) {
+      dq_step<HD>(acc, q_tile, do_tile, ring.tile(s, 0), ring.tile(s, 1),
+                  scale * kLog2e, scale, lse2, dl, j * kTile, masked(j), kept);
+    }
+  });
+  if (!live) return;
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const size_t row = size_t(bh) * s_len + q0 + Acc<HD>::row(i);
+      *reinterpret_cast<float2*>(dq + row * HD + 64 * nb + Acc<HD>::col(i)) =
+          make_float2(acc[nb][i], acc[nb][i + 1]);
+    }
+  }
+}
+
+// One block: kv tiles 2 kb and 2 kb + 1 of kv row bhkv = blockIdx.y, the
+// heaviest (lowest, under the causal mask) first. Warpgroups 0 and 1 are
+// the consumers, each with its kv tile's K and V resident; warpgroup 2 the
+// producer, one thread of which fills the ring, for each q head of the
+// group in turn and each q tile some kv tile of the block sees, with the
+// Q and dO tiles (TMA boxes from 3-D tensor maps over (B*Hq, S, hd)) and
+// the tile's 64 lse and 64 delta (bulk copies). Each consumer computes
+// the q tiles its own kv tile sees and sums the group's heads in the ring's
+// order.
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        int group, int s_len, float scale, int causal,
+                        int window) {
+  using namespace attn_tile;
+  using RingT = Ring<HD, kBwdStages, kDkvRowBytes>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t resident = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const RingT ring = RingT::at(resident + 2 * kBwdConsumers * tile_bytes<HD>());
+
+  const int n_tiles = s_len / kTile;
+  const int kb = blockIdx.x;
+  const int bhkv = blockIdx.y;
+  int lo = n_tiles, hi = -1;  // the q tiles some kv tile of the block sees
+#pragma unroll
+  for (int w = 0; w < kBwdConsumers; ++w) {
+    const int kt = kBwdConsumers * kb + w;
+    if (kt >= n_tiles) continue;
+    int a, b;
+    q_span(kt, n_tiles, causal != 0, window, &a, &b);
+    lo = min(lo, a);
+    hi = max(hi, b);
+  }
+  const int n_q = max(hi - lo + 1, 0);  // loads per q head
+
+  if (threadIdx.x == 0) ring.init(1, kBwdConsumers * kWarpgroup);
+  __syncthreads();
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == kBwdConsumers) {  // the producer warpgroup
+    set_max_regs_dec<kBwdProducerRegs>();
+    if (threadIdx.x % kWarpgroup == 0) {
+      for (int n = 0; n < group * n_q; ++n) {
+        const int bh = bhkv * group + n / n_q;
+        const int it = lo + n % n_q;
+        const int s = ring.acquire(n);
+        mbar_expect_tx(ring.full(s), 2 * tile_bytes<HD>() + kDkvRowBytes);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          tma_load_3d(ring.tile(s, 0) + c * 8192, &tm_q, 64 * c, it * kTile, bh,
+                      ring.full(s));
+          tma_load_3d(ring.tile(s, 1) + c * 8192, &tm_do, 64 * c, it * kTile, bh,
+                      ring.full(s));
+        }
+        const size_t row = size_t(bh) * s_len + it * kTile;
+        bulk_load(ring.rows(s), lse + row, kDkvRowBytes / 2, ring.full(s));
+        bulk_load(ring.rows(s) + kDkvRowBytes / 2, delta + row,
+                  kDkvRowBytes / 2, ring.full(s));
+      }
+    }
+    return;
+  }
+  set_max_regs_inc<kBwdConsumerRegs>();
+
+  const int kt = kBwdConsumers * kb + wg;
+  const int k0 = kt * kTile;
+  const bool live = kt < n_tiles;
+  int mine_lo = 0, mine_hi = -1;
+  if (live) q_span(kt, n_tiles, causal != 0, window, &mine_lo, &mine_hi);
+  const uint32_t k_tile = resident + 2 * wg * tile_bytes<HD>();
+  const uint32_t v_tile = k_tile + tile_bytes<HD>();
+  load_rows<HD>(k_tile, [&](int r) -> const __nv_bfloat16* {
+    return live ? k + (size_t(bhkv) * s_len + k0 + r) * HD : nullptr;
+  }, 1 + wg);
+  load_rows<HD>(v_tile, [&](int r) -> const __nv_bfloat16* {
+    return live ? v + (size_t(bhkv) * s_len + k0 + r) * HD : nullptr;
+  }, 1 + wg);
+  float dk_acc[HD / 64][32], dv_acc[HD / 64][32];
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[nb][i] = dv_acc[nb][i] = 0.f;
+  }
+  // the diagonal, and q tiles whose farthest pair (q row it * 64 + 63,
+  // key k0) falls out of the window
+  auto masked = [&](int it) {
+    return causal != 0 &&
+           (it == kt || (window > 0 && it * kTile + kTile - 1 - k0 >= window));
+  };
+  const int k_pos[2] = {k0 + Acc<HD>::row(0), k0 + Acc<HD>::row(2)};
+  auto kept = [&](int h, int pos) { return keep(pos, k_pos[h], true, window); };
+  walk(ring, group * n_q, [&](int n, int s) {
+    const int it = lo + n % n_q;
+    if (it >= mine_lo && it <= mine_hi) {
+      dkv_step<HD>(dk_acc, dv_acc, k_tile, v_tile, ring.tile(s, 0),
+                   ring.tile(s, 1), ring.rows(s), scale * kLog2e, scale,
+                   it * kTile, masked(it), kept);
+    }
+  });
+  if (!live) return;
+#pragma unroll
+  for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const size_t off = (size_t(bhkv) * s_len + k0 + Acc<HD>::row(i)) * HD +
+                         64 * nb + Acc<HD>::col(i);
+      *reinterpret_cast<float2*>(dk + off) = make_float2(dk_acc[nb][i], dk_acc[nb][i + 1]);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[nb][i], dv_acc[nb][i + 1]);
+    }
+  }
+}
+
 // --- launchers ----------------------------------------------------------------
 
 template <typename Kernel>
@@ -646,18 +870,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               int(bytes));
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int group, int s_len, float scale,
                        int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD>;
+  auto kernel = flash_fwd_kernel<HD>;
   cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
   if (err != cudaSuccess) return err;
   const dim3 grid(s_len / kTile, bh);
   kernel<<<grid, kThreads, fwd_smem<HD>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      group, s_len, scale, causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), group, s_len, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -691,7 +915,7 @@ EncodeTiled encode_tiled() {
 
 // a (rows, S, hd) bf16 tensor as TMA boxes of 64 rows x 64 columns
 // (128 bytes), written to shared memory in the 128-byte swizzle
-bool kv_map(CUtensorMap* map, const void* base, int rows, int s_len, int hd) {
+bool tile_map(CUtensorMap* map, const void* base, int rows, int s_len, int hd) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {cuuint64_t(hd), cuuint64_t(s_len), cuuint64_t(rows)};
@@ -709,8 +933,8 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
                           void* lse, int bh, int group, int s_len, float scale,
                           int causal, int window, cudaStream_t stream) {
   CUtensorMap tm_k, tm_v;
-  if (!kv_map(&tm_k, k, bh / group, s_len, HD) ||
-      !kv_map(&tm_v, v, bh / group, s_len, HD)) {
+  if (!tile_map(&tm_k, k, bh / group, s_len, HD) ||
+      !tile_map(&tm_v, v, bh / group, s_len, HD)) {
     return cudaErrorNotSupported;
   }
   constexpr size_t smem = attn_tile::smem_bytes<HD, kTcStages, kTcConsumers>();
@@ -726,37 +950,89 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh_kv, int group, int s_len,
                        float scale, int causal, int window,
                        cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, HD>;
+  auto kernel = flash_bwd_dkv_kernel<HD>;
   cudaError_t err = allow_smem(kernel, dkv_smem<HD>());
   if (err != cudaSuccess) return err;
   const dim3 grid(s_len / kTile, bh_kv);
   kernel<<<grid, kThreads, dkv_smem<HD>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), group, s_len, scale,
       causal, window);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dk, void* dv, int bh_kv, int group, int s_len,
+                          float scale, int causal, int window,
+                          cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  CUtensorMap tm_q, tm_do;
+  if (!tile_map(&tm_q, q, bh_kv * group, s_len, HD) ||
+      !tile_map(&tm_do, dout, bh_kv * group, s_len, HD)) {
+    return cudaErrorNotSupported;
+  }
+  constexpr size_t smem = attn_tile::smem_bytes<HD, kBwdStages,
+                                                2 * kBwdConsumers, kDkvRowBytes>();
+  auto kernel = flash_bwd_dkv_tc_kernel<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = s_len / kTile;
+  const dim3 grid((n_tiles + kBwdConsumers - 1) / kBwdConsumers, bh_kv);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(
+      tm_q, tm_do, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), group, s_len, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int group, int s_len, float scale,
                       int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, HD>;
+  auto kernel = flash_bwd_dq_kernel<HD>;
   cudaError_t err = allow_smem(kernel, dq_smem<HD>());
   if (err != cudaSuccess) return err;
   const dim3 grid(s_len / kTile, bh);
   kernel<<<grid, kThreads, dq_smem<HD>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), group, s_len, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int bh, int group, int s_len, float scale,
+                         int causal, int window, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  CUtensorMap tm_k, tm_v;
+  if (!tile_map(&tm_k, k, bh / group, s_len, HD) ||
+      !tile_map(&tm_v, v, bh / group, s_len, HD)) {
+    return cudaErrorNotSupported;
+  }
+  constexpr size_t smem =
+      attn_tile::smem_bytes<HD, kBwdStages, 2 * kBwdConsumers>();
+  auto kernel = flash_bwd_dq_tc_kernel<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = s_len / kTile;
+  const dim3 grid((n_tiles + kBwdConsumers - 1) / kBwdConsumers, bh);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(
+      tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), group, s_len, scale, causal, window);
   return cudaGetLastError();
@@ -769,20 +1045,11 @@ bool valid(int rows, int group, int s_len, int hd, int dtype) {
 
 }  // namespace
 
-// C interface (loaded with ctypes). dtype: 0 = f32, 1 = bf16, the type of
-// q, k, v, dO and o; lse, delta, dk, dv and dq are f32. Layouts as above,
-// contiguous, 16-byte aligned; bh = B * Hq rows of q, bh_kv = B * Hkv rows
-// of k, group = Hq / Hkv. Each returns the cudaError_t of its launch
-// (0 = launched).
-#define FLASH_DISPATCH(LAUNCH, ...)                                        \
-  cudaStream_t st = static_cast<cudaStream_t>(stream);                     \
-  if (dtype == 0 && hd == 128) return int(LAUNCH<float, 128>(__VA_ARGS__, st)); \
-  if (dtype == 0 && hd == 64) return int(LAUNCH<float, 64>(__VA_ARGS__, st));   \
-  if (dtype == 1 && hd == 128)                                             \
-    return int(LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__, st));               \
-  return int(LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__, st))
-
-// flash_fwd: f32 on the CUDA cores, bf16 on the tensor cores
+// C interface (loaded with ctypes). dtype: 0 = f32 (the CUDA cores), 1 =
+// bf16 (the tensor cores), the type of q, k, v, dO and o; lse, delta, dk,
+// dv and dq are f32. Layouts as above, contiguous, 16-byte aligned; bh =
+// B * Hq rows of q, bh_kv = B * Hkv rows of k, group = Hq / Hkv. Each
+// returns the cudaError_t of its launch (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int dtype, int bh, int group, int s_len,
                          int hd, float scale, int causal, int window,
@@ -792,10 +1059,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return hd == 128 ? int(launch_fwd<float, 128>(q, k, v, o, lse, bh, group,
-                                                  s_len, scale, causal, window, st))
-                     : int(launch_fwd<float, 64>(q, k, v, o, lse, bh, group,
-                                                 s_len, scale, causal, window, st));
+    return hd == 128 ? int(launch_fwd<128>(q, k, v, o, lse, bh, group, s_len,
+                                           scale, causal, window, st))
+                     : int(launch_fwd<64>(q, k, v, o, lse, bh, group, s_len,
+                                          scale, causal, window, st));
   }
   return hd == 128 ? int(launch_fwd_tc<128>(q, k, v, o, lse, bh, group, s_len,
                                             scale, causal, window, st))
@@ -810,8 +1077,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              float scale, int causal, int window,
                              void* stream) {
   if (!valid(bh_kv, group, s_len, hd, dtype)) return int(cudaErrorInvalidValue);
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh_kv, group,
-                 s_len, scale, causal, window);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = dtype == 0 ? (hd == 128 ? launch_dkv<128> : launch_dkv<64>)
+                           : (hd == 128 ? launch_dkv_tc<128> : launch_dkv_tc<64>);
+  return int(launch(q, k, v, dout, lse, delta, dk, dv, bh_kv, group, s_len,
+                    scale, causal, window, st));
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -822,6 +1092,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!valid(bh, group, s_len, hd, dtype) || bh % group != 0) {
     return int(cudaErrorInvalidValue);
   }
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, s_len,
-                 scale, causal, window);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = dtype == 0 ? (hd == 128 ? launch_dq<128> : launch_dq<64>)
+                           : (hd == 128 ? launch_dq_tc<128> : launch_dq_tc<64>);
+  return int(launch(q, k, v, dout, lse, delta, dq, bh, group, s_len, scale,
+                    causal, window, st));
 }

@@ -601,7 +601,7 @@ rpa_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = j_lo, n = 0; j <= j_hi; ++j, ++n) {
       const int s = ring.acquire(n);
       if constexpr (Producer::kCopy) {
-        prod.copy(j, ring.k_tile(s), ring.v_tile(s), pt);
+        prod.copy(j, ring.tile(s, 0), ring.tile(s, 1), pt);
         cp_async_commit();
         if (prev >= 0) {  // the previous tile landed: hand it over
           cp_async_wait<1>();
@@ -610,7 +610,7 @@ rpa_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
         prev = s;
       } else {
-        prod.dequant(j, ring.k_tile(s), ring.v_tile(s), pt);
+        prod.dequant(j, ring.tile(s, 0), ring.tile(s, 1), pt);
         fence_async_shared();
         mbar_arrive(ring.full(s));
       }
@@ -624,7 +624,7 @@ rpa_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // query vector r is query row t = r / group of q head h * group + r % group
-  load_q<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
+  load_rows<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
     const int t = r / group;
     if (t >= t_valid) return nullptr;
     return q + ((size_t(b) * n_q + t0 + t) * hq + h * group + r % group) * HD;

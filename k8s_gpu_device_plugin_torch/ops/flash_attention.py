@@ -5,13 +5,15 @@ Port of ``k8s_gpu_device_plugin_tpu/ops/flash_attention.py``. Three
 hand-written kernels (``csrc/flash_attention.cu``) replace its three
 Pallas kernels:
 
-- ``flash_fwd`` (``_fwd_kernel``): o and the f32 row logsumexp; bf16
-  on the tensor cores (``csrc/attention_tile.cuh``'s ``wgmma`` mainloop,
-  P rounded to bf16 before P V), f32 on the CUDA cores, each launch also
-  counted under its engine (:func:`fwd_engine`);
+- ``flash_fwd`` (``_fwd_kernel``): o and the f32 row logsumexp;
 - ``flash_bwd_dkv`` (``_bwd_dkv_kernel``): dK and dV in f32, the GQA
   group's q heads summed inside the kernel;
 - ``flash_bwd_dq`` (``_bwd_dq_kernel``): dQ in f32.
+
+Each has two engines (:func:`engine`): bf16 on the tensor cores
+(``csrc/attention_tile.cuh``'s ``wgmma`` mainloop; P rounded to bf16
+before P V, p and dS before the gradient products), f32 on the CUDA
+cores. Each launch is also counted under its engine.
 
 They work in the reference's (B*H, S, hd) layout, with lse and delta
 (B*H, S, 1) f32; q row r reads kv row ``r // group`` (the reference's
@@ -174,34 +176,98 @@ def flash_fwd_reference(q, k, v, *, scale: float, causal: bool = True,
     return o.to(q.dtype), m + torch.log(l_safe)
 
 
-def _bwd_probs(q, k, v, do, lse, delta, *, scale, causal, window):
-    """p = exp(s - lse) and dS = p * (dO v^T - delta) * scale, (BH, S, S)."""
+def _bwd_probs(q, k, v, do, lse, delta, *, scale, causal, window,
+               p_bf16=False):
+    """p = exp(s - lse) and dS = p * (dO v^T - delta) * scale, (BH, S, S);
+    with ``p_bf16`` each rounded once to bf16 after dS is computed from
+    the f32 p, as the tensor-core kernels round their A operands."""
     group = _group(q, k)
     p = torch.exp(_scores(q, _expand(k, group), scale=scale, causal=causal,
                           window=window) - lse)
     dp = torch.matmul(do.float(), _expand(v, group).float().transpose(-1, -2))
-    return p, p * (dp - delta) * scale
+    ds = p * (dp - delta) * scale
+    if p_bf16:
+        return p.bfloat16().float(), ds.bfloat16().float()
+    return p, ds
+
+
+def _group_sum(x: torch.Tensor, k: torch.Tensor, group: int) -> torch.Tensor:
+    """(B*Hq, S, hd) -> (B*Hkv, S, hd): the sum over each group's q heads."""
+    return x.reshape(k.shape[0], group, *k.shape[1:]).sum(1)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, scale: float,
-                            causal: bool = True, window: int = 0):
+                            causal: bool = True, window: int = 0,
+                            p_bf16: bool = False):
     """The plain dK, dV: (B*Hkv, S, hd) f32 each, the group's q heads
-    summed."""
+    summed. ``p_bf16`` rounds p (for dV) and dS (for dK) to bf16 where
+    the tensor-core kernel does (lse is final: no running max); the
+    kernel is held to this version and to the f32 one by
+    ``kernel_support.bf16_grad_mismatch``."""
     group = _group(q, k)
     p, ds = _bwd_probs(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                       window=window)
+                       window=window, p_bf16=p_bf16)
     dv = torch.matmul(p.transpose(-1, -2), do.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
-    shape = (k.shape[0], group, *k.shape[1:])
-    return dk.reshape(shape).sum(1), dv.reshape(shape).sum(1)
+    return _group_sum(dk, k, group), _group_sum(dv, k, group)
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, scale: float,
-                           causal: bool = True, window: int = 0):
-    """The plain dQ: (B*Hq, S, hd) f32."""
+                           causal: bool = True, window: int = 0,
+                           p_bf16: bool = False):
+    """The plain dQ: (B*Hq, S, hd) f32; ``p_bf16`` rounds dS to bf16 as
+    :func:`flash_bwd_dkv_reference` does."""
     _, ds = _bwd_probs(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                       window=window)
+                       window=window, p_bf16=p_bf16)
     return torch.matmul(ds, _expand(k, _group(q, k)).float())
+
+
+def _largest_term(a: torch.Tensor, b: torch.Tensor,
+                  rows: int = 8) -> torch.Tensor:
+    """``max_i |a[..., r, i]| |b[..., i, d]|`` (batched), ``rows`` rows of
+    ``a`` at a time."""
+    a, b = a.abs(), b.abs()
+    out = a.new_empty((*a.shape[:-1], b.shape[-1]))
+    for r in range(0, a.shape[-2], rows):
+        out[..., r:r + rows, :] = (a[..., r:r + rows, :, None]
+                                   * b[..., None, :, :]).amax(-2)
+    return out
+
+
+def flash_bwd_magnitudes(q, k, v, do, lse, delta, *, scale: float,
+                         causal: bool = True, window: int = 0) -> dict:
+    """Each gradient element's (sum of |terms|, largest |term|) as the
+    tensor-core kernels sum it: ``bf16(p)^T dO`` for dV, ``bf16(dS)^T Q``
+    for dK (over the group's q heads too), ``bf16(dS) K`` for dQ. The
+    ``magnitude`` that ``kernel_support.bf16_grad_mismatch`` scales its
+    tolerances by; ``{"dk", "dv", "dq"}``, each a pair shaped as the
+    gradient."""
+    group = _group(q, k)
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, scale=scale, causal=causal,
+                       window=window, p_bf16=True)
+    p, ds = p.abs(), ds.abs()
+    qa, doa = q.float().abs(), do.float().abs()
+    ka, va = (_expand(x, group).float().abs() for x in (k, v))
+    # dP = dO v^T sums hd products in another order in the kernel: at most
+    # hd 2^-24 of their sum of |terms| apart. Where dP - delta cancels (row
+    # 0 of a causal head: delta = dP), dS is that noise, so the largest
+    # term counts an operand dS as the larger of itself and its noise over
+    # the flip allowance (GRAD_TIGHT["flip"] = 2^-7).
+    dp_noise = torch.matmul(doa, va.transpose(-1, -2))
+    ds_big = torch.maximum(ds, p * scale * q.shape[-1] * 2.0 ** -17 * dp_noise)
+
+    def per_kv_head(x):  # (B*Hq, S, hd) -> (B*Hkv, group, S, hd)
+        return x.reshape(k.shape[0], group, *k.shape[1:])
+
+    pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+    return {
+        "dk": (_group_sum(torch.matmul(dst, qa), k, group),
+               per_kv_head(_largest_term(ds_big.transpose(-1, -2), qa))
+               .amax(1)),
+        "dv": (_group_sum(torch.matmul(pt, doa), k, group),
+               per_kv_head(_largest_term(pt, doa)).amax(1)),
+        "dq": (torch.matmul(ds, ka), _largest_term(ds_big, ka)),
+    }
 
 
 # --- kernel wrappers ----------------------------------------------------------
@@ -252,22 +318,24 @@ def _check_kernel(q, k, v, *others: torch.Tensor,
                              "16-byte aligned")
 
 
-def fwd_engine(dtype: torch.dtype) -> str:
-    """The engine of a ``flash_fwd`` launch: the tensor cores for bf16,
-    the CUDA cores for f32 (its pins need f32 products)."""
+def engine(dtype: torch.dtype) -> str:
+    """The engine of a launch of any of the three kernels: the tensor
+    cores for bf16, the CUDA cores for f32 (its pins need f32 products).
+    The C interface picks the kernel by the same dtype."""
     return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
 
 
-def _launch(name: str, device: torch.device, *args,
-            engine: "str | None" = None) -> None:
+def _launch(name: str, q: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` on q's device and dtype (``args`` after the
+    pointers: dtype first), counted under its name and its engine."""
     err = getattr(load_kernel(), name)(
-        *args, torch.cuda.current_stream(device).cuda_stream
+        *args, torch.cuda.current_stream(q.device).cuda_stream
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     kernel_support.count_launch(name)
-    if engine is not None:
-        kernel_support.count_launch(kernel_support.engine_key(name, engine))
+    kernel_support.count_launch(
+        kernel_support.engine_key(name, engine(q.dtype)))
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool = True,
@@ -282,10 +350,9 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool = True,
     bh, s, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], bh,
-            _group(q, k), s, hd, float(scale), int(causal), int(window),
-            engine=fwd_engine(q.dtype))
+            _group(q, k), s, hd, float(scale), int(causal), int(window))
     return o, lse
 
 
@@ -300,7 +367,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     _check_kernel(q, k, v, do, rows=(lse, delta))
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty_like(dk)
-    _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(),
+    _launch("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], k.shape[0],
             _group(q, k), q.shape[1], q.shape[2], float(scale), int(causal),
@@ -318,7 +385,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
                                       causal=causal, window=window)
     _check_kernel(q, k, v, do, rows=(lse, delta))
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
+    _launch("flash_bwd_dq", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), _DTYPES[q.dtype], q.shape[0], _group(q, k),
             q.shape[1], q.shape[2], float(scale), int(causal), int(window))

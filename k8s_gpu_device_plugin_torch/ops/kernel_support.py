@@ -20,7 +20,9 @@ or ``tensor_cores`` (bf16 products in ``wgmma``, ``csrc/attention_tile.cuh``).
 The tensor-core mainloop rounds its softmax weights to bf16 before the V
 product, so both kernels that run it are held to a plain version that
 rounds them where it does (:func:`p_bf16_weights`) by one check,
-:func:`bf16_o_mismatch`.
+:func:`bf16_o_mismatch`. The tensor-core backward rounds p and dS before
+its gradient products; its gradients are held the same way by
+:func:`bf16_grad_mismatch`.
 """
 
 from __future__ import annotations
@@ -203,6 +205,78 @@ def bf16_o_mismatch(o, o_p, o_r, wide: dict) -> "str | None":
     if ((o - o_r).abs() > wide["atol"] + wide["rtol"] * o_r.abs()).any():
         return (f"o misses the plain version by "
                 f"{float((o - o_r).abs().max()):.3e} ({wide})")
+    return None
+
+
+#: The tensor-core backward's gradients against the plain version that
+#: rounds p and dS where the kernels do (``p_bf16=True``), per element, of
+#: its ``magnitude`` (sum, largest): the sum of |terms| and the largest
+#: |term| of the element's sum of products.
+#: - ``rtol`` of the sum: both sum the same bf16 products in f32, in
+#:   another order. wgmma truncates each 16-product step's sum to 24 bits,
+#:   at most 2^-23 of the sum of |terms|; the training shapes sum at most
+#:   8192 products an element (a group of 4 q heads x S 2048) in 512
+#:   steps: 512 * 2^-23 = 2^-14.
+#: - ``flip`` of the largest term: the kernel computes p and dS in f32 in
+#:   another order than the plain version (exp2 of a wgmma sum against exp
+#:   of a cuBLAS one), so an operand within that difference of a bf16
+#:   rounding boundary rounds the other way in one of them, moving its term
+#:   by one bf16 spacing, at most 2^-7 of it. An element has about one such
+#:   operand when it sums thousands of terms, so one flip of its largest
+#:   term is allowed everywhere.
+#: - ``atol``: elements whose magnitude is about 0.
+#: A row may still miss (FLIP_ROWS, FLIP_ROW_SHARE): two flips in one
+#: element, or row 0 of a causal head, whose one dS is p (dP - delta) with
+#: delta = dP: f32 rounding noise in both versions.
+GRAD_TIGHT = dict(atol=1e-7, rtol=2.0 ** -14, flip=2.0 ** -7)
+
+#: Against the f32 plain version: rounding an operand to bf16 moves it by
+#: at most half its spacing, 2^-8 of a value just above a power of two
+#: (2^-7 between 1 and 2), so at most 2^-8 / (1 - 2^-8) of the rounded
+#: value; the element moves by at most that of its sum of |terms|, plus
+#: the summation term of the f32 gradients (atol 1e-4).
+GRAD_WIDE = dict(atol=1e-4, rtol=2.0 ** -8 / (1 - 2.0 ** -8))
+
+
+def grad_tight_tol(magnitude) -> torch.Tensor:
+    """:data:`GRAD_TIGHT` per element, for ``magnitude`` = (sum of
+    |terms|, largest |term|)."""
+    total, largest = magnitude
+    return (GRAD_TIGHT["atol"] + GRAD_TIGHT["rtol"] * total
+            + GRAD_TIGHT["flip"] * largest)
+
+
+def grad_wide_tol(magnitude) -> torch.Tensor:
+    """:data:`GRAD_WIDE` per element."""
+    return GRAD_WIDE["atol"] + GRAD_WIDE["rtol"] * magnitude[0]
+
+
+def off_grad_tight(g, g_p, magnitude) -> tuple[int, int]:
+    """(elements, rows) of gradient ``g`` past :func:`grad_tight_tol` of
+    the ``p_bf16`` plain version ``g_p``; a row is the last axis (one
+    position's hd gradients)."""
+    over = (g.float() - g_p.float()).abs() > grad_tight_tol(magnitude)
+    return int(over.sum()), int(over.any(-1).sum())
+
+
+def bf16_grad_mismatch(g, g_p, g_r, magnitude) -> "str | None":
+    """Why a gradient of the tensor-core backward fails its checks, or
+    None: against the ``p_bf16`` plain version ``g_p``, at most
+    max(FLIP_ROWS, FLIP_ROW_SHARE * rows) rows with an element past
+    :func:`grad_tight_tol`; against the f32 plain version ``g_r``, every
+    element within :func:`grad_wide_tol`. ``magnitude``: (sum of |terms|,
+    largest |term|) per element, ``flash_attention.flash_bwd_magnitudes``."""
+    elements, rows = off_grad_tight(g, g_p, magnitude)
+    allowed = max(FLIP_ROWS, int(FLIP_ROW_SHARE * g[..., 0].numel()))
+    if rows > allowed:
+        return (f"{rows} rows ({elements} elements) miss the p_bf16 plain "
+                f"version by more than {GRAD_TIGHT} of their magnitude (at "
+                f"most {allowed} rows may)")
+    worst = float(((g.float() - g_r.float()).abs()
+                   / grad_wide_tol(magnitude)).max())
+    if worst > 1:
+        return (f"the f32 plain version is missed by {worst:.3f} times "
+                f"{GRAD_WIDE} of the magnitude")
     return None
 
 

@@ -148,9 +148,162 @@ def test_bf16_o_check_allows_isolated_flips_only():
     assert "plain version by" in check(far, o_p, o_r, wide)
 
 
-def test_forward_engine_follows_the_dtype():
-    assert tfa.fwd_engine(torch.bfloat16) == "tensor_cores"
-    assert tfa.fwd_engine(torch.float32) == "cuda_cores"
+def test_forward_engine_follows_the_dtype(monkeypatch):
+    """One engine rule for the three kernels, and each wrapper counts its
+    launch under it (a stub library and meta tensors stand in for the
+    card)."""
+    assert tfa.engine(torch.bfloat16) == "tensor_cores"
+    assert tfa.engine(torch.float32) == "cuda_cores"
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(tfa, "load_kernel", Lib)
+    monkeypatch.setattr(tfa, "_check_kernel", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream())
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.empty((rows, 128, 64), dtype=dtype, device="meta")
+                       for rows in (4, 2, 2, 4))
+        rows = torch.empty((4, 128, 1), device="meta")
+        kernel_support.reset_launch_counts()
+        tfa.flash_fwd(q, k, v, scale=0.1)
+        tfa.flash_bwd_dkv(q, k, v, do, rows, rows, scale=0.1)
+        tfa.flash_bwd_dq(q, k, v, do, rows, rows, scale=0.1)
+        engine = tfa.engine(dtype)
+        assert kernel_support.launch_counts() == {
+            key: 1 for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+            for key in (name, kernel_support.engine_key(name, engine))}
+
+
+def _bwd_args(b, s, hq, hkv, hd, mode, seed):
+    """bf16-valued f32 inputs of the backward, with the plain forward's lse
+    and delta = rowsum(dO o)."""
+    causal, window = MODES[mode]
+    q, k, v, do = (_bhsd(x) for x in _inputs(b, s, hq, hkv, hd, seed=seed))
+    q, k, v, do = (x.bfloat16().float() for x in (q, k, v, do))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+    o, lse = tfa.flash_fwd_reference(q, k, v, **kw)
+    delta = (do * o).sum(-1, keepdim=True)
+    return (q, k, v, do, lse, delta), kw
+
+
+def _bwd_grads(args, kw, **extra):
+    dk, dv = tfa.flash_bwd_dkv_reference(*args, **kw, **extra)
+    return {"dk": dk, "dv": dv,
+            "dq": tfa.flash_bwd_dq_reference(*args, **kw, **extra)}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_p_bf16_backward_stays_within_its_bound(mode):
+    """The tensor-core backward rounds p and dS to bf16 before its
+    gradient products; the plain versions that round them there
+    (``p_bf16=True``) move each gradient from the f32 ones by at most
+    2^-8 of its sum of |terms| (kernel_support.GRAD_WIDE), and do round
+    something; ``p_bf16=False`` is the default."""
+    args, kw = _bwd_args(1, 192, 8, 2, 64, mode, seed=11)
+    want, got = _bwd_grads(args, kw), _bwd_grads(args, kw, p_bf16=True)
+    assert all(torch.equal(want[n], g)
+               for n, g in _bwd_grads(args, kw, p_bf16=False).items())
+    mag = tfa.flash_bwd_magnitudes(*args, **kw)
+    for name in ("dk", "dv", "dq"):
+        diff = (got[name] - want[name]).abs()
+        assert float(diff.max()) > 0
+        assert (diff <= kernel_support.grad_wide_tol(mag[name])).all(), name
+
+
+def test_bwd_magnitudes_sum_and_bound_every_term():
+    """flash_bwd_magnitudes against the terms written out: the sum and the
+    largest |term| of each gradient element, over the group's q heads."""
+    args, kw = _bwd_args(1, 64, 4, 2, 64, "window100", seed=12)
+    q, k, v, do = args[:4]
+    p, ds = tfa._bwd_probs(*args, **kw, p_bf16=True)
+    kx = tfa._expand(k, 2)
+    terms = {  # [bh, row, term, hd]
+        "dq": ds.abs()[..., None] * kx.abs()[:, None],
+        "dv": p.transpose(1, 2).abs()[..., None] * do.abs()[:, None],
+        "dk": ds.transpose(1, 2).abs()[..., None] * q.abs()[:, None],
+    }
+    mag = tfa.flash_bwd_magnitudes(*args, **kw)
+    for name, x in terms.items():
+        if name != "dq":  # the group's heads are terms of one kv head's sum
+            x = x.reshape(2, 2, *x.shape[1:]).transpose(1, 2).flatten(2, 3)
+        total, largest = mag[name]
+        torch.testing.assert_close(total, x.sum(2), atol=1e-5, rtol=1e-5)
+        # dS's noise may stand in for a dS smaller than it (row 0)
+        assert (largest >= x.amax(2)).all()
+        assert float((largest - x.amax(2)).abs().sum()) > 0 if name == "dq" \
+            else torch.equal(largest, x.amax(2))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_bf16_grad_check_passes_another_order_and_flags_truncation(mode):
+    """The gradients' check against what a sound kernel can differ by: p
+    and dS from float64 scores and dP, rounded to bf16, summed in float64
+    (another order, another last bit before rounding) pass it; dS cut to
+    bf16 instead of rounded fails it in most rows."""
+    args, kw = _bwd_args(1, 256, 8, 2, 128, mode, seed=13)
+    want, want16 = _bwd_grads(args, kw), _bwd_grads(args, kw, p_bf16=True)
+    mag = tfa.flash_bwd_magnitudes(*args, **kw)
+    q, k, v, do, lse, delta = (x.double() for x in args)
+    kx, vx = tfa._expand(k, 4), tfa._expand(v, 4)
+    p = torch.exp(tfa._scores(q, kx, **kw) - lse)
+    ds = p * (do @ vx.transpose(1, 2) - delta) * kw["scale"]
+
+    def as_bf16(x, cut=False):
+        x = x.float()
+        if cut:
+            x = (x.view(torch.int32) & ~0xFFFF).view(torch.float32)
+        return x.bfloat16().double()
+
+    def grads(p16, ds16):
+        return {"dq": (ds16 @ kx).float(),
+                "dk": tfa._group_sum(ds16.transpose(1, 2) @ q, k, 4).float(),
+                "dv": tfa._group_sum(p16.transpose(1, 2) @ do, k, 4).float()}
+
+    sound = grads(as_bf16(p), as_bf16(ds))
+    cut = grads(as_bf16(p), as_bf16(ds, cut=True))
+    check = kernel_support.bf16_grad_mismatch
+    for name in ("dk", "dv", "dq"):
+        assert check(sound[name], want16[name], want[name], mag[name]) is None
+    for name in ("dk", "dq"):
+        assert "rows" in check(cut[name], want16[name], want[name], mag[name])
+        rows = kernel_support.off_grad_tight(cut[name], want16[name],
+                                             mag[name])[1]
+        assert rows > cut[name][..., 0].numel() // 2
+
+
+def test_bf16_grad_check_allows_isolated_flips_only():
+    """The gradients' check: within GRAD_TIGHT of the p_bf16 plain version
+    but for at most FLIP_ROWS rows, every element within GRAD_WIDE of the
+    f32 one."""
+    rng = np.random.default_rng(14)
+    g_r = torch.from_numpy(rng.standard_normal((4, 64, 64)).astype(np.float32))
+    total = torch.full_like(g_r, 8.0)
+    largest = torch.full_like(g_r, 0.5)
+    mag = (total, largest)
+    tight = kernel_support.grad_tight_tol(mag)
+    assert torch.allclose(tight, torch.tensor(1e-7 + 8 * 2.0 ** -14
+                                              + 0.5 * 2.0 ** -7))
+    g_p = g_r + 0.01                     # within 2^-8 * 8 of g_r
+    check = kernel_support.bf16_grad_mismatch
+    assert check(g_p + 0.5 * tight, g_p, g_r, mag) is None
+    flips = g_p.clone()
+    flips[0, :kernel_support.FLIP_ROWS] += 2 * tight[0, 0, 0]
+    assert kernel_support.off_grad_tight(flips, g_p, mag)[1] == \
+        kernel_support.FLIP_ROWS
+    assert check(flips, g_p, g_r, mag) is None
+    flips[1, 0] += 2 * tight[0, 0, 0]    # one row more than allowed
+    assert "5 rows" in check(flips, g_p, g_r, mag)
+    biased = g_p.clone()
+    biased[:, :, :8] += 2 * tight[0, 0, 0]   # a systematic fault
+    assert "p_bf16 plain version" in check(biased, g_p, g_r, mag)
+    far = g_p.clone()
+    far[0, 0, 0] += 0.05                 # past the f32 version's bound
+    assert "f32 plain version" in check(far, g_p, g_r, mag)
 
 
 def test_lse_cotangent_folds_into_delta():
@@ -280,3 +433,42 @@ def test_remat_policy_saves_the_flash_output(monkeypatch, policy, forwards):
     plain_grads = torch.autograd.grad(block(tq, tk, tv).sum(), (tq, tk, tv))
     for g, w_ in zip(grads, plain_grads):
         assert torch.equal(g, w_)
+
+
+def _tool(name):
+    """A module of ``tools/`` (its functions that need a card are not run)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_train_profile_books_every_flash_kernel():
+    """The train-step profile counts each engine of K2, K3 and K4 as flash
+    time, and nothing else."""
+    flash = _tool("torch_train_profile").FLASH
+    for kernel in ("flash_fwd_kernel", "flash_fwd_tc_kernel",
+                   "flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel",
+                   "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel"):
+        assert flash.search(f"void (anonymous namespace)::{kernel}<128>(int)")
+    for other in ("void (anonymous namespace)::rpa_chunk_tc_kernel<float>()",
+                  "sm90_xmma_gemm_bf16bf16_bf16f32", "elementwise_kernel"):
+        assert not flash.search(other)
+
+
+def test_planted_faults_and_variants_edit_the_sources_once():
+    """Every edit of the fault tool and of the producer A/B tool finds its
+    text exactly once in the kernel sources, as their builds require."""
+    fault = _tool("torch_flash_fault")
+    edits = {name: e for name, (_, e) in fault.FAULTS.items()}
+    ab = _tool("torch_flash_producer_ab")
+    edits.update({name: ab.variant_edits(n) for name, n in ab.VARIANTS.items()})
+    assert {"ds_truncated", "drop_group_head"} <= set(edits)
+    for name, changes in edits.items():
+        for path, old, _ in changes:
+            text = (kernel_support.CSRC_DIR / path).read_text()
+            assert text.count(old) == 1, (name, path, old[:60])

@@ -344,8 +344,14 @@ def test_weight_quantized_forward_on_the_card(cuda, weight_quant):
 # FLIP_ROW_SHARE of them) may miss. Against the f32 plain version o may move 2^-9 max|v|
 # more (each weight by 2^-9 of itself, the weights summing to l): atol
 # 1e-3 + 2^-9 max|v| (fa.o_wide_tol, kernel_support.bf16_o_mismatch).
-# lse, dq, dk, dv are f32 from the same inputs on both routes: atol 1e-4
-# (summation order only).
+# lse is f32 from the same inputs on both routes: atol 1e-4 (summation
+# order only); so are dq, dk, dv in f32. In bf16 the tensor-core backward
+# rounds p and dS to bf16 before its gradient products: its f32
+# gradients are held to the plain versions that round them there
+# (p_bf16=True) within kernel_support.GRAD_TIGHT of each element's
+# magnitude (summation order, one flip of its largest term) in all but
+# FLIP_ROWS rows, and to the f32 plain versions within GRAD_WIDE (2^-8 of
+# the sum of |terms|, plus 1e-4): kernel_support.bf16_grad_mismatch.
 
 GRAD_TOL = dict(atol=1e-4, rtol=0.0)
 
@@ -359,6 +365,25 @@ def _check_o(o, q, k, v, kw):
     o_p, _ = fa.flash_fwd_reference(q, k, v, p_bf16=True, **kw)
     why = kernel_support.bf16_o_mismatch(o, o_p, o_r, fa.o_wide_tol(v))
     assert why is None, why
+
+
+def _check_grads(got, args, kw):
+    """dk, dv, dq (f32) against their plain versions, as stated above."""
+    dk_r, dv_r = fa.flash_bwd_dkv_reference(*args, **kw)
+    want = {"dk": dk_r, "dv": dv_r,
+            "dq": fa.flash_bwd_dq_reference(*args, **kw)}
+    if args[0].dtype == torch.float32:
+        for name, g in got.items():
+            torch.testing.assert_close(g, want[name], **GRAD_TOL)
+        return
+    dk_p, dv_p = fa.flash_bwd_dkv_reference(*args, p_bf16=True, **kw)
+    rounded = {"dk": dk_p, "dv": dv_p,
+               "dq": fa.flash_bwd_dq_reference(*args, p_bf16=True, **kw)}
+    magnitude = fa.flash_bwd_magnitudes(*args, **kw)
+    for name, g in got.items():
+        why = kernel_support.bf16_grad_mismatch(g, rounded[name], want[name],
+                                                magnitude[name])
+        assert why is None, f"{name}: {why}"
 
 
 def _flash_inputs(bh, bhkv, s, hd, dtype, seed=0):
@@ -385,20 +410,18 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, hd, hq, hkv, s,
     torch.testing.assert_close(lse, lse_r, **GRAD_TOL)
     delta = (do.float() * o_r.float()).sum(-1, keepdim=True)
     args = (q, k, v, do, lse_r, delta)
-    for got, want in zip((*fa.flash_bwd_dkv(*args, **kw),
-                          fa.flash_bwd_dq(*args, **kw)),
-                         (*fa.flash_bwd_dkv_reference(*args, **kw),
-                          fa.flash_bwd_dq_reference(*args, **kw))):
-        torch.testing.assert_close(got, want, **GRAD_TOL)
+    dk, dv = fa.flash_bwd_dkv(*args, **kw)
+    _check_grads({"dk": dk, "dv": dv, "dq": fa.flash_bwd_dq(*args, **kw)},
+                 args, kw)
 
 
 @pytest.mark.parametrize("batch", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_autograd_matches_plain_backward(cuda, dtype, batch):
     """The autograd entry (K2, delta, K3, K4) against mha_reference under
-    autograd. bf16 grads: atol = rtol = 5e-2, since the kernel path's
-    delta uses the bf16-rounded output and the reference's autograd the
-    f32 one."""
+    autograd. bf16: the entry's grads are the backward wrappers' f32
+    gradients (from the kernel forward's o and lse, delta = rowsum(dO o))
+    rounded to bf16 bit for bit, and those hold their tolerances."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     q, k, v = (torch.randn((batch, 256, h, 128), generator=gen,
@@ -406,7 +429,6 @@ def test_flash_autograd_matches_plain_backward(cuda, dtype, batch):
                for h in (8, 2, 2))
     do = torch.randn((batch, 256, 8, 128), generator=gen, device="cuda",
                      dtype=dtype)
-    tol = GRAD_TOL if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
     for window in (0, 100):
         kernel_support.reset_launch_counts()
         o = fa.flash_attention(q, k, v, window=window)
@@ -419,8 +441,20 @@ def test_flash_autograd_matches_plain_backward(cuda, dtype, batch):
         o_tol = TOL[dtype] if dtype == torch.float32 else \
             fa.o_wide_tol(v.detach())
         torch.testing.assert_close(o.float(), want.float(), **o_tol)
-        for g, w in zip(grads, want_grads):
-            torch.testing.assert_close(g.float(), w.float(), **tol)
+        if dtype == torch.float32:
+            for g, w in zip(grads, want_grads):
+                torch.testing.assert_close(g, w, **GRAD_TOL)
+            continue
+        kw = dict(scale=128 ** -0.5, causal=True, window=window)
+        qb, kb, vb, dob = (fa._to_bhsd(x.detach()) for x in (q, k, v, do))
+        ob, lse = fa.flash_fwd(qb, kb, vb, **kw)
+        delta = (dob.float() * ob.float()).sum(-1, keepdim=True)
+        args = (qb, kb, vb, dob, lse, delta)
+        dk, dv = fa.flash_bwd_dkv(*args, **kw)
+        dq = fa.flash_bwd_dq(*args, **kw)
+        for g, w, h in zip(grads, (dq, dk, dv), (8, 2, 2)):
+            assert torch.equal(g, fa._from_bhsd(w, batch, h).bfloat16())
+        _check_grads({"dk": dk, "dv": dv, "dq": dq}, args, kw)
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -493,6 +527,9 @@ def test_train_step_launches_the_flash_kernels_per_layer(cuda):
     counts = kernel_support.launch_counts()
     assert counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == cfg.n_layers
     assert counts["flash_fwd"] == cfg.n_layers  # save_dots_attn keeps o
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert _engine_counts(counts, name) == {"cuda_cores": cfg.n_layers,
+                                                "tensor_cores": 0}
     assert MHA_ROUTE not in counts
     # the first update has learning rate 0: the plain step sees the same
     # parameters
@@ -523,6 +560,32 @@ def test_flash_fwd_tensor_cores_at_training_shapes(cuda, hq, hkv, hd, window):
     _check_o(o, q, k, v, kw)
     torch.testing.assert_close(lse, fa.flash_fwd_reference(q, k, v, **kw)[1],
                                **GRAD_TOL)
+
+
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 8, 128), (8, 8, 128), (32, 8, 64),
+                                       (8, 8, 64)])
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_backward_tensor_cores_at_training_shapes(cuda, hq, hkv, hd,
+                                                        window):
+    """K3 and K4 bf16 at the trainer's B 2, S 2048: every launch on the
+    tensor cores, two launches equal bit for bit, the gradients within
+    their tolerances."""
+    q, k, v, do = _flash_inputs(2 * hq, 2 * hkv, 2048, hd, torch.bfloat16)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window)
+    o, lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta)
+    kernel_support.reset_launch_counts()
+    runs = [(*fa.flash_bwd_dkv(*args, **kw), fa.flash_bwd_dq(*args, **kw))
+            for _ in range(2)]
+    counts = kernel_support.launch_counts()
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        assert _engine_counts(counts, name) == {"cuda_cores": 0,
+                                                "tensor_cores": 2}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dk, dv, dq = runs[0]
+    del runs
+    _check_grads({"dk": dk, "dv": dv, "dq": dq}, args, kw)
 
 
 @pytest.mark.parametrize("quant", ["none", "int8", "int4"])

@@ -16,10 +16,16 @@ touched), each with one fault planted:
   ``ops/csrc/ragged_paged_attention.cu``): dequantized int8/int4 values
   are cut to bf16 instead of rounded to nearest;
 - ``scale_bf16`` (K1's chunk producer): an int8 row's scale is rounded
-  to bf16 before it multiplies the codes.
+  to bf16 before it multiplies the codes;
+- ``ds_truncated`` (the backward's steps, through K3 and K4): dS is cut
+  to bf16 (rounded toward zero) instead of rounded to nearest before the
+  dK and dQ products;
+- ``drop_group_head`` (K3, ``flash_attention.cu``): the first block
+  (kv tiles 0 and 1 of kv row 0) skips the last q head of its group.
 
-K2 runs at the training path's shapes (B 2, S 2048, Hq 32, Hkv 8, hd 128,
-causal, bf16: ``chip_smoke.py`` phase 5's headline case); K1 at phase 2's
+K2, K3 and K4 run at the training path's shapes (B 2, S 2048, Hq 32,
+Hkv 8, hd 128, causal, bf16: ``chip_smoke.py`` phase 5's headline case);
+K1 at phase 2's
 bf16 prefill chunks on the int8 dense route (T 256 at bases 0 and 1536,
 one slot, Hq 32, Hkv 8, hd 128, S 2048), and the sound library also on
 the int4 and bf16 dense routes. For each run and case one JSON line holds:
@@ -31,7 +37,12 @@ one ulp plus 2^-9 max|v|, K1's atol = rtol = 2e-2); how many elements and
 rows the tight tolerance flags; and whether
 ``kernel_support.bf16_o_mismatch`` (the check ``chip_smoke.py`` applies:
 a few rows may miss the tight tolerance, no element the wide one) flags
-it. A faulted run is flagged when any of its cases is. Exits 1 if
+it. K3's and K4's gradients (dk, dv, dq) the same way, against their
+plain versions with and without ``p_bf16``, by
+``kernel_support.bf16_grad_mismatch`` (the tight tolerance per element:
+summation order and one flip of its largest term; the wide one 2^-8 of
+its sum of |terms| plus 1e-4), with whether the wide bound alone would
+flag them. A faulted run is flagged when any of its cases is. Exits 1 if
 a check flags a sound kernel or misses a fault.
 
     python3 tools/torch_flash_fault.py
@@ -52,22 +63,35 @@ sys.path.insert(0, ROOT)
 
 HEADER = "attention_tile.cuh"
 RPA_SOURCE = "ragged_paged_attention.cu"
-# name: (kernel, file, text in it, its faulted replacement)
+HEADER = "attention_tile.cuh"
+FLASH_SOURCE = "flash_attention.cu"
+RPA_SOURCE = "ragged_paged_attention.cu"
+
+
+def _cut(x: str, a: str) -> str:
+    """The loop that packs fragment ``x`` into A operand ``a`` cut to
+    bf16 (rounded toward zero): pack_a's rounding to nearest, faulted."""
+    return ("#pragma unroll\n"
+            "  for (int kk = 0; kk < 4; ++kk) {\n"
+            "#pragma unroll\n"
+            "    for (int e = 0; e < 4; ++e)\n"
+            f"      {a}[kk][e] = (__float_as_uint({x}[8 * kk + 2 * e]) >> 16) |\n"
+            f"                   (__float_as_uint({x}[8 * kk + 2 * e + 1]) & 0xffff0000u);\n"
+            "  }\n")
+
+
+# name: (kernel, [(file, text in it, its faulted replacement), ...]); the
+# kernel 'flash' is K2, 'flash_bwd' K3 and K4 (both in the flash library)
 FAULTS = {
-    "drop_one_tile": (
-        "flash", HEADER,
-        "      wgmma_rs(acc.o[nb], pa[kk], make_desc(v_tile + nb * 8192 + kk * 2048));\n",
-        "      if (!(blockIdx.x == 0 && threadIdx.x >= 128 && kv0 == 0))\n"
-        "        wgmma_rs(acc.o[nb], pa[kk], make_desc(v_tile + nb * 8192 + kk * 2048));\n",
-    ),
-    "p_truncated": (
-        "flash", HEADER,
-        "pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);",
-        "pa[kk][e] = (__float_as_uint(s[8 * kk + 2 * e]) >> 16) | "
-        "(__float_as_uint(s[8 * kk + 2 * e + 1]) & 0xffff0000u);",
-    ),
-    "widen_truncated": (
-        "rpa", RPA_SOURCE,
+    "drop_one_tile": ("flash", [(
+        HEADER,
+        "  rs_product<HD>(acc.o, pa, v_tile);\n",
+        "  if (!(blockIdx.x == 0 && threadIdx.x >= 128 && kv0 == 0))\n"
+        "    rs_product<HD>(acc.o, pa, v_tile);\n",
+    )]),
+    "p_truncated": ("flash", [(HEADER, "  pack_a(s, pa);\n", _cut("s", "pa"))]),
+    "widen_truncated": ("rpa", [(
+        RPA_SOURCE,
         "    return make_uint4(attn_tile::pack_bf16(f[0], f[1]),\n"
         "                      attn_tile::pack_bf16(f[2], f[3]),\n"
         "                      attn_tile::pack_bf16(f[4], f[5]),\n"
@@ -78,14 +102,26 @@ FAULTS = {
         "    };\n"
         "    return make_uint4(cut(f[0], f[1]), cut(f[2], f[3]),"
         " cut(f[4], f[5]), cut(f[6], f[7]));\n",
-    ),
-    "scale_bf16": (
-        "rpa", RPA_SOURCE,
+    )]),
+    "scale_bf16": ("rpa", [(
+        RPA_SOURCE,
         "      f[e] = float(int(int8_t((word >> (8 * (e % 4))) & 0xffu))) * scale;\n",
         "      f[e] = float(int(int8_t((word >> (8 * (e % 4))) & 0xffu))) *\n"
         "             __bfloat162float(__float2bfloat16(scale));\n",
-    ),
+    )]),
+    "ds_truncated": ("flash_bwd", [
+        (HEADER, "  pack_a(dp, dsa);\n", _cut("dp", "dsa")),
+        (HEADER, "  pack_a(dpt, dsa);\n", _cut("dpt", "dsa")),
+    ]),
+    "drop_group_head": ("flash_bwd", [(
+        FLASH_SOURCE,
+        "    if (it >= mine_lo && it <= mine_hi) {\n",
+        "    if (it >= mine_lo && it <= mine_hi &&\n"
+        "        !(blockIdx.x == 0 && blockIdx.y == 0 && n / n_q == group - 1)) {\n",
+    )]),
 }
+# the library each kernel's faults are built into
+LIBRARY = {"flash": "flash", "flash_bwd": "flash", "rpa": "rpa"}
 B, S, HQ, HKV, HD = 2, 2048, 32, 8, 128
 # K1's cases: phase 2's bf16 chunks of one slot, (route, T, base)
 RPA_CASES = [("int8_dense", 256, 0), ("int8_dense", 256, 1536)]
@@ -140,8 +176,8 @@ def main() -> int:
         sound = {"flash": pool.submit(fa.load_kernel),
                  "rpa": pool.submit(rpa.load_kernel)}
         faulted = {name: pool.submit(build_edited, modules, kernel_support,
-                                     name, kernel, [(path, old, new)])
-                   for name, (kernel, path, old, new) in FAULTS.items()}
+                                     name, LIBRARY[kernel], edits)
+                   for name, (kernel, edits) in FAULTS.items()}
         libs = {kernel: f.result() for kernel, f in sound.items()}
         libs.update({name: f.result() for name, f in faulted.items()})
 
@@ -182,6 +218,51 @@ def main() -> int:
         runs[name] = {"flash_fwd b2_s2048": row(o, want16, want,
                                                 fa.o_wide_tol(v))}
 
+    # K3 and K4 at the same shape, from the plain forward's lse and delta
+    gen.manual_seed(1)
+    do = torch.randn((B * HQ, S, HD), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    o, lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    bwd = (q, k, v, do, lse, delta)
+    want = {"dq": fa.flash_bwd_dq_reference(*bwd, **kw)}
+    want["dk"], want["dv"] = fa.flash_bwd_dkv_reference(*bwd, **kw)
+    want16 = {"dq": fa.flash_bwd_dq_reference(*bwd, p_bf16=True, **kw)}
+    want16["dk"], want16["dv"] = fa.flash_bwd_dkv_reference(*bwd, p_bf16=True,
+                                                           **kw)
+    magnitude = fa.flash_bwd_magnitudes(*bwd, **kw)
+    del o
+
+    def grad_row(g, name):
+        mag, g_p, g_r = magnitude[name], want16[name], want[name]
+        diff16, diff = (g - g_p).abs(), (g - g_r).abs()
+        elements, rows = kernel_support.off_grad_tight(g, g_p, mag)
+        wide = float((diff / kernel_support.grad_wide_tol(mag)).max())
+        why = kernel_support.bf16_grad_mismatch(g, g_p, g_r, mag)
+        return {
+            "max_abs_err_vs_p_bf16": float(diff16.max()),
+            "max_abs_err_vs_plain": float(diff.max()),
+            "ratio_tight": float((diff16 / kernel_support.grad_tight_tol(
+                mag)).max()),
+            "ratio_wide": wide,
+            "elements_off_tight": elements,
+            "rows_flagged_tight": rows,
+            "flagged_by_wide_alone": wide > 1,
+            "flagged": why is not None,
+            "why": why,
+        }
+
+    for name in ("flash_bwd", *(n for n in FAULTS
+                                if FAULTS[n][0] == "flash_bwd")):
+        lib = libs["flash" if name == "flash_bwd" else name]
+        with mock.patch.object(fa, "load_kernel", lambda lib=lib: lib):
+            got = {"dq": fa.flash_bwd_dq(*bwd, **kw)}
+            got["dk"], got["dv"] = fa.flash_bwd_dkv(*bwd, **kw)
+        torch.cuda.synchronize()
+        runs[name] = {f"{g} b2_s2048": grad_row(got[g], g)
+                      for g in ("dk", "dv", "dq")}
+    del bwd, want, want16, magnitude
+
     # K1's chunk route on phase 2's inputs
     def rpa_case(route, t, base):
         case = dict(route=route, ps=0, b=1, t=t, s=S, bases=[base])
@@ -221,7 +302,7 @@ def main() -> int:
     flagged = {name: any(c["flagged"] for c in cases.values())
                for name, cases in runs.items()}
     print(json.dumps({"card": card, "flagged": flagged}))
-    if flagged["flash"] or flagged["rpa"]:
+    if flagged["flash"] or flagged["rpa"] or flagged["flash_bwd"]:
         print("torch_flash_fault: a sound kernel fails its own checks",
               file=sys.stderr)
         return 1

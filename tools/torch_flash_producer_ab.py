@@ -43,9 +43,9 @@ _PRODUCER_TMA = """\
         mbar_expect_tx(ring.full(s), 2 * tile_bytes<HD>());
 #pragma unroll
         for (int c = 0; c < HD / 64; ++c) {
-          tma_load_3d(ring.k_tile(s) + c * 8192, &tm_k, 64 * c, j * kTile, kvh,
+          tma_load_3d(ring.tile(s, 0) + c * 8192, &tm_k, 64 * c, j * kTile, kvh,
                       ring.full(s));
-          tma_load_3d(ring.v_tile(s) + c * 8192, &tm_v, 64 * c, j * kTile, kvh,
+          tma_load_3d(ring.tile(s, 1) + c * 8192, &tm_v, 64 * c, j * kTile, kvh,
                       ring.full(s));
         }
       }
@@ -65,8 +65,8 @@ _PRODUCER_CP_ASYNC = """\
       for (int e = pt; e < kKv * HD / 8; e += PRODUCERS) {
         const int r = e / (HD / 8), c = e % (HD / 8);
         const size_t off = (kv_row0 + size_t(j) * kTile + r) * HD + 8 * c;
-        cp_async_16(ring.k_tile(s) + swizzle(r, 8 * c), kp + off, true);
-        cp_async_16(ring.v_tile(s) + swizzle(r, 8 * c), vp + off, true);
+        cp_async_16(ring.tile(s, 0) + swizzle(r, 8 * c), kp + off, true);
+        cp_async_16(ring.tile(s, 1) + swizzle(r, 8 * c), vp + off, true);
       }
       cp_async_commit();
       if (prev >= 0) {
@@ -92,7 +92,9 @@ def variant_edits(producers: int):
     return [
         (SOURCE, "constexpr int kTcThreads = kTcConsumers * attn_tile::kWarpgroup + 32;",
          f"constexpr int kTcThreads = kTcConsumers * attn_tile::kWarpgroup + {producers};"),
-        (SOURCE, "                    const __grid_constant__ CUtensorMap tm_v,\n",
+        (SOURCE, "flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,\n"
+         "                    const __grid_constant__ CUtensorMap tm_v,\n",
+         "flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,\n"
          "                    const __grid_constant__ CUtensorMap tm_v,\n"
          "                    const __nv_bfloat16* __restrict__ kp,\n"
          "                    const __nv_bfloat16* __restrict__ vp,\n"),

@@ -35,7 +35,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|cublas", re.IGNORECASE)
-FLASH = re.compile(r"\bflash_(fwd|fwd_tc|bwd_dkv|bwd_dq)_kernel")
+# every flash kernel symbol: each engine of K2, K3 and K4
+FLASH = re.compile(r"\bflash_\w+_kernel")
 
 
 def union_us(intervals) -> float:
