@@ -13,7 +13,7 @@ Phases (any failed check exits non-zero without the final line):
    ``cuobjdump -sass`` counts the HGMMA (``wgmma``) instructions of every
    kernel symbol, and every instantiation of the four tensor-core kernels
    (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``,
-   ``flash_bwd_dq_tc_kernel``, ``rpa_chunk_tc_kernel``) must have some.
+   ``flash_bwd_dq_tc_kernel``, ``rpa_tc_kernel``) must have some.
 2. ``ragged_paged_attention``'s kernel against its plain version at the
    Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128, S 2048), each case
    in bf16 and f32, on every route (a dense cache; a paged pool read
@@ -22,14 +22,18 @@ Phases (any failed check exits non-zero without the final line):
    decode over eight slots (also windowed and at hd 64, group 1, dense
    and int4), and prefill chunks as the batcher runs them (one slot):
    T 3, T 37, T 256 at bases 0, 256 and 1536, windowed and at hd 64,
-   group 1. bf16 chunks run on the tensor cores, decode and f32 on the
-   CUDA cores: each launch must be counted on its engine, and two
-   launches on the same inputs must agree bit for bit. A tensor-core case
-   is held to one ulp of the plain version that rounds where the engine
-   does (``p_bf16=True``) and to the f32 plain version within TOL; the
-   others to the f32 plain version within TOL. Per case: max
-   error, kernel / plain / library times (and, at T 256 on the tensor
-   cores, the CUDA-core engine's time on the same inputs)
+   group 1. Every bf16 case runs on the tensor cores (decode split over
+   each slot's span, ``SPLIT_TILES`` kv tiles a block), f32 on the CUDA
+   cores: each launch must be counted on its engine, and two launches on
+   the same inputs must agree bit for bit. A tensor-core case is held to
+   one ulp of the plain version that rounds where the engine does
+   (``p_bf16=True``, split where a decode launch splits) and to the f32
+   plain version within TOL; the others to the f32 plain version within
+   TOL. On the dense and paged bf16 decode cases each slot launched alone
+   must equal the slot among its neighbours bit for bit. Per case: max
+   error, kernel / plain / library times (and, for bf16 decode and at
+   T 256, the CUDA-core engine's time on the same inputs; for decode the
+   splits per slot and the blocks an SM holds)
    (CUDA-graph replays timed with CUDA events; the library yardstick, which
    the port never calls, is ``scaled_dot_product_attention`` after a
    gather of the pool and a dequantization of the codes into a dense
@@ -54,8 +58,8 @@ Phases (any failed check exits non-zero without the final line):
    route, the pool empty at the end; on ``--cacheQuant int8`` and ``int4``,
    paged and dense; on ``--weightQuant int8`` (bf16 dense cache); and on
    ``--weightQuant int4 --cacheQuant int4`` in the 65-page pool. Every
-   chunk launch must be on the tensor cores, every decode launch on the
-   CUDA cores.
+   launch (the model is bf16: chunks and decode steps) must be on the
+   tensor cores.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -119,8 +123,8 @@ BF16_FACTOR = 1.5     # phase 3: bf16 kernel path's distance to the f32
 # them where the kernel does (``p_bf16=True``; a weight on a rounding
 # boundary may flip, in a few rows: kernel_support.FLIP_ROWS),
 # and to its f32 plain version within a wide bound: K1's TOL above, K2's
-# one ulp plus 2^-9 max|v| (each weight moves by 2^-9 of itself, the
-# weights sum to l; flash_attention.o_wide_tol). One check holds both:
+# one ulp plus 2^-8 max|v| (each weight moves by at most 2^-8 of itself,
+# the weights sum to l; flash_attention.o_wide_tol). One check holds both:
 # kernel_support.bf16_o_mismatch. Phase 5's f32 o is held to TOL. The
 # tensor-core backward (K3, K4 bf16) rounds p and dS to bf16 before its
 # gradient products: its f32 gradients are held to the plain versions
@@ -186,7 +190,7 @@ def hgmma_counts(kernel_support, lib) -> dict[str, int]:
 
 # the tensor-core kernels: every instantiation must hold wgmma
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
-              "flash_bwd_dq_tc_kernel", "rpa_chunk_tc_kernel")
+              "flash_bwd_dq_tc_kernel", "rpa_tc_kernel")
 
 
 def phase_sass(kernel_support, libs) -> None:
@@ -401,9 +405,12 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
 
             engine = rpa.engine(dtype, t, hq // hkv)
             tc = engine == "tensor_cores"
+            split = rpa.window_split(t, hq // hkv) if tc else None
             kernel_support.reset_launch_counts()
             got = kernel()
             counts = kernel_support.launch_counts()
+            blocks_per_sm = rpa.load_kernel().rpa_blocks_per_sm() if tc \
+                else None
             again = kernel()
             want = plain()
             torch.cuda.synchronize()
@@ -419,7 +426,8 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
             err_p = off_one_ulp = None
             if tc:  # the tolerances above: one ulp of what the engine does
                 want_p = rpa.ragged_paged_attention_reference(
-                    q, k, v, base, pages, p_bf16=True, **kw)
+                    q, k, v, base, pages, p_bf16=True, split_tiles=split,
+                    **kw)
                 why = kernel_support.bf16_o_mismatch(got, want_p, want,
                                                      TOL[dname])
                 if why is not None:
@@ -444,6 +452,13 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
                          "route on the same rows (max abs "
                          f"{float((got.float() - dense.float()).abs().max()):.3e})")
                 del dk, dv, dks, dvs, dense
+            neighbours = None
+            if split and case["route"] in ("dense", "paged"):
+                neighbours = alone_equals_batched(torch, rpa, q, k, v, base,
+                                                  pages, kw)
+                if not all(neighbours):
+                    fail(f"{label}: slots {neighbours} launched alone differ "
+                         "from the same slots among their neighbours")
 
             # the library yardstick: a gather of the pool and a
             # dequantization into a dense view of q's type where the route
@@ -491,11 +506,17 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
                 "max_abs_err": err, "max_abs_err_vs_p_bf16": err_p,
                 "off_one_ulp_elements_rows": off_one_ulp,
                 "paged_equals_dense_bitwise": pages is not None or None,
+                "alone_equals_batched": neighbours,
+                "split_tiles": split,
+                "splits_per_slot": None if split is None else [
+                    len(x) for x in rpa.split_plan(case["bases"], t,
+                                                   case["window"], s, split)],
+                "blocks_per_sm": blocks_per_sm,
                 "ms": graph_ms(torch, kernel, reps),
                 "plain_ms": graph_ms(torch, plain, max(1, reps // 4)),
                 "library_ms": graph_ms(torch, library, reps),
             }
-            if tc and chunk_headline(case):
+            if tc and (split or chunk_headline(case)):
                 # the other engine on the same inputs: a yardstick
                 row["cuda_cores_ms"] = graph_ms(
                     torch, lambda: rpa.ragged_paged_attention(
@@ -507,6 +528,25 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
             emit({"phase": 2, **row})
             results.append(row)
     return results
+
+
+def alone_equals_batched(torch, rpa, q, k, v, base, pages, kw) -> list[bool]:
+    """For each slot, whether its output launched alone (its own q, base
+    and cache rows or table row) equals its output among the batch's
+    slots, bit for bit."""
+    both = rpa.ragged_paged_attention(q, k, v, base, pages, **kw)
+    out = []
+    for i in range(q.shape[0]):
+        def one(x):
+            return x[i:i + 1].contiguous()
+        if pages is None:
+            alone = rpa.ragged_paged_attention(
+                one(q), one(k), one(v), one(base), **kw)
+        else:
+            alone = rpa.ragged_paged_attention(one(q), k, v, one(base),
+                                               one(pages), **kw)
+        out.append(bool(torch.equal(alone, both[i:i + 1])))
+    return out
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -894,16 +934,15 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                  f"route ({counts}); the serving run needs {need} = "
                  f"{cfg.n_layers} layers x ({decode_steps} decode steps + "
                  f"{chunks} prefill chunks), all on that route")
-        # every prefill chunk (T >= 3 here, group 4) on the tensor cores,
-        # every decode step on the CUDA cores
+        # the bf16 model: every prefill chunk and every decode step on the
+        # tensor cores
         engines = {e: counts.get(kernel_support.engine_key(rpa.NAME, e), 0)
                    for e in kernel_support.ENGINES}
-        want_engines = {"cuda_cores": cfg.n_layers * decode_steps,
-                        "tensor_cores": cfg.n_layers * chunks}
+        want_engines = {"cuda_cores": 0, "tensor_cores": need}
         if engines != want_engines:
             fail(f"{run}: launches per engine {engines}, wanted "
-                 f"{want_engines} (decode steps on the CUDA cores, chunks "
-                 "on the tensor cores)")
+                 f"{want_engines} (every launch of the bf16 model on the "
+                 "tensor cores)")
         tokens = [r[0] for r in results]
         if dense_tokens is not None and tokens != dense_tokens:
             bad = next(i for i, (x, y) in enumerate(zip(tokens, dense_tokens))
@@ -1460,10 +1499,14 @@ def main() -> None:
         routes[route] = {
             "launches": serving[route]["launches"],
             "launches_per_engine": serving[route]["launches_per_engine"],
-            # bf16 queries: decode on the CUDA cores, chunks on the tensor
-            # cores; f32 queries on the CUDA cores at every T
+            # bf16 queries on the tensor cores (decode split over each
+            # span), f32 queries on the CUDA cores at every T
             "engine": {"decode": first["engine"], "chunk": chunk["engine"],
                        "float32": "cuda_cores"},
+            "decode_cuda_cores_ms": first["cuda_cores_ms"],
+            "split_tiles": first["split_tiles"],
+            "splits_per_slot": first["splits_per_slot"],
+            "blocks_per_sm": first["blocks_per_sm"],
             "chunk_case": chunk["case"],
             **{f"chunk_{k}": chunk[k] for k in keys},
             "chunk_cuda_cores_ms": chunk["cuda_cores_ms"],

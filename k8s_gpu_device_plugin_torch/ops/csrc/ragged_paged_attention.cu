@@ -34,27 +34,45 @@
 // current one is consumed.
 //
 // Two engines, chosen by the caller (ops/ragged_paged_attention.py runs
-// bf16 windows of more than 8 query vectors on the tensor cores):
+// every bf16 launch on the tensor cores, f32 queries on the CUDA cores):
 // - cuda_cores (rpa_kernel): f32 arithmetic on the CUDA cores, any q type
 //   and T; a row tile of 8 query vectors for decode and any window of
 //   <= 8, of 64 past that.
-// - tensor_cores (rpa_chunk_tc_kernel): bf16 queries in row tiles of 64
-//   query vectors, the prefill chunks. A chunk of T 256 does 4 * hd
-//   operations per (query vector, attended row) against one read of the
-//   span: bound by operations, so it runs the wgmma mainloop of
-//   attention_tile.cuh. A producer warpgroup gathers each 64-row K/V tile
-//   through the page table: bf16 rows with cp.async, int8/int4 codes
-//   through registers, widened and multiplied by their row's scale in f32,
-//   rounded once to bf16. Either way it writes the swizzled bf16 tile the
-//   wgmma descriptors read, one consumer warpgroup computes while the
-//   producer fills the next stages. P is rounded to bf16 for P V.
+// - tensor_cores (rpa_tc_kernel): bf16 queries in row tiles of 64 query
+//   vectors on the wgmma mainloop of attention_tile.cuh. A producer
+//   warpgroup gathers each 64-row K/V tile through the page table: bf16
+//   rows with cp.async, int8/int4 codes through registers, widened and
+//   multiplied by their row's scale in f32, rounded once to bf16. Either
+//   way it writes the swizzled bf16 tile the wgmma descriptors read, one
+//   consumer warpgroup computes while the producer fills the next stages.
+//   P is rounded to bf16 for P V.
+//   * A prefill chunk (T 256) does 4 * hd operations per (query vector,
+//     attended row) against one read of the span: bound by operations.
+//     One block per row tile walks its whole live span.
+//   * A narrow window (decode, verify: group * T <= 8 query vectors, one
+//     row tile) is bound by the bytes of its span, and one block per
+//     (slot, kv head) would leave most SMs idle while the longest slot's
+//     block walks its span alone. So its span is split (split-KV): block
+//     z of grid (B, Hkv, n_split) walks the absolute kv tiles
+//     [z K, (z + 1) K) of the live span (K = split_tiles, the wrapper's
+//     constant; n_split from the table's virtual extent, never from data),
+//     a block whose split holds no live tile exits before it touches the
+//     ring, and a span of one split is written as a chunk's is. Else each
+//     block writes its query vectors' (m, l, unnormalised o) in f32 to a
+//     workspace, and the last of the row tile's blocks to finish (a ticket
+//     counter that it resets) reduces every split's partial in ascending
+//     split order: o = sum_s o_s 2^(m_s - m) / sum_s l_s 2^(m_s - m), so the
+//     result does not depend on which block came last. The padded q tile
+//     (4 of 64 rows at group 4) wastes products, not bytes.
 //
 // TPU -> CUDA. The TPU grid walks kv blocks in order and carries m/l/acc
 // in VMEM scratch across grid steps; here that sequential axis is a loop
-// inside the block, and the row tiles of one slot are independent blocks
-// (so T has no cap). The accumulation order per row is fixed (ascending
-// kv tiles, fixed in-tile order) and there are no atomics: a slot's
-// output does not depend on its neighbours or on the launch.
+// inside the block (a split's loop, for a narrow window on the tensor
+// cores), and the row tiles of one slot are independent blocks (so T has
+// no cap). The accumulation order per row is fixed (ascending kv tiles,
+// fixed in-tile order, splits combined in ascending order) and no atomic
+// touches the data (the one atomic is the split ticket): a slot's output
+// depends neither on its neighbours nor on the launch.
 //
 // Layouts. The kv loop walks the same 64-row tiles whatever the layout
 // and resolves each row of a tile through the table, so a row's
@@ -444,11 +462,24 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-// --- the tensor-core engine (prefill chunks, bf16 q) -------------------------
+// --- the tensor-core engine (bf16 q) -----------------------------------------
 
 constexpr int kTcStages = 3;
 constexpr int kTcProducers = 128;  // one producer warpgroup
 constexpr int kTcThreads = attn_tile::kWarpgroup + kTcProducers;
+
+// A split block (a narrow window) walks at most a few tiles: a ring of two
+// stages keeps its shared memory at 83 KB for hd 128, so two blocks fit an
+// SM and one's start and combine overlap the other's copies.
+constexpr int kSplitStages = 2;
+constexpr int kSplitBlocksPerSm = 2;
+// query vectors of a narrow window (the wrapper's NARROW_TILE): rows 0..7
+// of the consumer's fragment, all in its warp 0
+constexpr int kSplitRows = 8;
+// one split ticket per (slot, kv head): zero at load, and reset to zero by
+// the last block of every launch that takes it
+constexpr int kMaxTickets = 1 << 16;
+__device__ unsigned int g_tickets[kMaxTickets];
 
 // Fills ring stages with the kv tiles of one (slot, kv head): row
 // pos = 64 j + r of tile j from the dense cache or through the table,
@@ -559,21 +590,87 @@ struct ChunkProducer {
   }
 };
 
+// A narrow window's split, past its products: this block's partial (m, l
+// and the unnormalised o of query vectors 0 .. n_vec - 1, which warp 0's
+// fragment rows 0..7 hold) to its slot of `part`, (B, Hkv, n_split,
+// kSplitRows, HD + 2) f32; then the row tile's ticket, and the block that
+// draws the last one reduces the live splits first .. first + n_live - 1
+// in ascending order into out (bf16) and resets the ticket.
+template <int HD>
+__device__ __forceinline__ void combine_splits(const attn_tile::Acc<HD>& acc,
+                                               float* __restrict__ part,
+                                               __nv_bfloat16* __restrict__ out,
+                                               int b, int h, int n_q, int hq,
+                                               int hkv, int n_vec, int first,
+                                               int n_live) {
+  using namespace attn_tile;
+  constexpr int kStride = HD + 2;  // o, then m (log2 domain), then l
+  constexpr int kSplitStride = kSplitRows * kStride;
+  __shared__ int last;
+  const int group = hq / hkv;
+  const int bh = b * hkv + h;
+  float* mine = part + (size_t(bh) * gridDim.z + blockIdx.z) * kSplitStride;
+  if (threadIdx.x < 32 && Acc<HD>::row(0) < n_vec) {
+    float* row = mine + Acc<HD>::row(0) * kStride;
+#pragma unroll
+    for (int nb = 0; nb < HD / 64; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 4) {  // registers i, i + 1: row(0)'s
+        *reinterpret_cast<float2*>(row + 64 * nb + Acc<HD>::col(i)) =
+            make_float2(acc.o[nb][i], acc.o[nb][i + 1]);
+      }
+    }
+    if (threadIdx.x % 4 == 0) {
+      row[HD] = acc.m[0];
+      row[HD + 1] = acc.l[0];
+    }
+  }
+  __threadfence();  // the partial is visible before the ticket is drawn
+  warpgroup_sync(1);
+  if (threadIdx.x == 0) {
+    last = atomicAdd(&g_tickets[bh], 1u) == unsigned(n_live - 1);
+  }
+  warpgroup_sync(1);
+  if (!last) return;
+  __threadfence();
+  const float* split0 = part + (size_t(bh) * gridDim.z + first) * kSplitStride;
+  for (int e = threadIdx.x; e < n_vec * HD; e += kWarpgroup) {
+    const int r = e / HD;
+    const int c = e % HD;
+    const float* p = split0 + r * kStride;
+    float m = kNegBig;
+    for (int s = 0; s < n_live; ++s) m = fmaxf(m, __ldcg(p + s * kSplitStride + HD));
+    float l = 0.f;
+    float o = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float* ps = p + s * kSplitStride;
+      const float w = exp2f(__ldcg(ps + HD) - m);
+      l += __ldcg(ps + HD + 1) * w;
+      o += __ldcg(ps + c) * w;
+    }
+    const size_t row = (size_t(b) * n_q + r / group) * hq + h * group + r % group;
+    out[row * HD + c] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+  }
+  if (threadIdx.x == 0) g_tickets[bh] = 0u;
+}
+
 // One block: the 64 query vectors of row tile blockIdx.z (tq = 64 / group
 // query rows x group q heads) of slot blockIdx.x, kv head blockIdx.y: the
-// CUDA-core kernel's grid, live span and q-vector folding. Threads
-// 0..127 are the consumer warpgroup, 128..255 the producers.
-template <typename TKV, int HD, bool PAGED>
-__global__ void __launch_bounds__(kTcThreads, 1)
-rpa_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                    const TKV* __restrict__ k, const TKV* __restrict__ v,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ base, const int* __restrict__ pages,
-                    __nv_bfloat16* __restrict__ out, int n_q, int hq, int hkv,
-                    int s_len, int page_shift, float scale, int window) {
+// CUDA-core kernel's grid, live span and q-vector folding. SPLIT (a narrow
+// window: one row tile) walks split blockIdx.z of the span instead, K =
+// split_tiles tiles (combine_splits). Threads 0..127 are the consumer
+// warpgroup, 128..255 the producers.
+template <typename TKV, int HD, bool PAGED, bool SPLIT>
+__global__ void __launch_bounds__(kTcThreads, SPLIT ? kSplitBlocksPerSm : 1)
+rpa_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
+              const TKV* __restrict__ v, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale, const int* __restrict__ base,
+              const int* __restrict__ pages, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ part, int n_q, int hq, int hkv, int s_len,
+              int page_shift, float scale, int window, int split_tiles) {
   using namespace attn_tile;
-  using RingT = Ring<HD, kTcStages>;
+  constexpr int kStages = SPLIT ? kSplitStages : kTcStages;
+  using RingT = Ring<HD, kStages>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_tile = (smem_u32(smem_raw) + 1023) & ~1023u;
   const RingT ring = RingT::at(q_tile + tile_bytes<HD>());
@@ -582,12 +679,17 @@ rpa_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y;
   const int group = hq / hkv;
   const int tq = kRows / group;
-  const int t0 = blockIdx.z * tq;
+  const int t0 = SPLIT ? 0 : blockIdx.z * tq;
   const int t_valid = min(tq, n_q - t0);
   const int tile_base = base[b] + t0;
   const int j_max = (s_len + kBlockK - 1) / kBlockK - 1;
-  const int j_hi = min(last_block(tile_base + t_valid), j_max);
-  const int j_lo = min(first_block(tile_base + 1, window), j_hi);
+  const int span_hi = min(last_block(tile_base + t_valid), j_max);
+  const int span_lo = min(first_block(tile_base + 1, window), span_hi);
+  // a split: the absolute tiles [z K, (z + 1) K) of the live span
+  const int j_lo = SPLIT ? max(span_lo, int(blockIdx.z) * split_tiles) : span_lo;
+  const int j_hi = SPLIT ? min(span_hi, int(blockIdx.z + 1) * split_tiles - 1)
+                         : span_hi;
+  if (SPLIT && j_lo > j_hi) return;  // no live tile: the ring is never touched
 
   if (threadIdx.x == 0) ring.init(kTcProducers, kWarpgroup);
   __syncthreads();
@@ -641,8 +743,17 @@ rpa_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int qp = qpos[hh];
     return pos <= qp && pos < s_len && (window <= 0 || qp - pos < window);
   };
-  consume<HD, kTcStages>(acc, ring, q_tile, scale * kLog2e, j_lo, j_hi, j_lo,
-                         j_hi, [](int) { return true; }, kept);
+  consume<HD, kStages>(acc, ring, q_tile, scale * kLog2e, j_lo, j_hi, j_lo,
+                       j_hi, [](int) { return true; }, kept);
+  if constexpr (SPLIT) {
+    const int first = span_lo / split_tiles;
+    const int n_live = span_hi / split_tiles - first + 1;
+    if (n_live > 1) {
+      combine_splits<HD>(acc, part, out, b, h, n_q, hq, hkv, group * t_valid,
+                         first, n_live);
+      return;
+    }
+  }
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -671,12 +782,18 @@ struct Args {
   const void* base;
   const void* pages;    // null on the dense route
   void* out;
+  void* part;           // f32 split partials (a narrow window's split launch)
   int b, t, hq, hkv, s_len, page_shift;
   float scale;
   int window;
-  int engine;  // 0: CUDA cores, 1: tensor cores
+  int engine;       // 0: CUDA cores, 1: tensor cores
+  int split_tiles;  // > 0: a narrow window's split launch on the tensor cores
   cudaStream_t stream;
 };
+
+// blocks one SM holds of the tensor-core instantiation last launched (the
+// occupancy API), for rpa_blocks_per_sm
+int g_blocks_per_sm = 0;
 
 template <typename T, typename TKV, int HD, int ROWS, bool PAGED>
 cudaError_t launch(const Args& a) {
@@ -696,21 +813,32 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename TKV, int HD, bool PAGED>
+template <typename TKV, int HD, bool PAGED, bool SPLIT>
 cudaError_t launch_tc(const Args& a) {
-  constexpr size_t smem = attn_tile::smem_bytes<HD, kTcStages, 1>();
-  auto kernel = rpa_chunk_tc_kernel<TKV, HD, PAGED>;
+  constexpr size_t smem =
+      attn_tile::smem_bytes<HD, SPLIT ? kSplitStages : kTcStages, 1>();
+  auto kernel = rpa_tc_kernel<TKV, HD, PAGED, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
+  static const int resident = [&] {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTcThreads, smem);
+    return n;
+  }();
+  g_blocks_per_sm = resident;
   const int tq = attn_tile::kRows / (a.hq / a.hkv);
-  const dim3 grid(a.b, a.hkv, (a.t + tq - 1) / tq);
+  const int split_rows = kBlockK * a.split_tiles;
+  const dim3 grid(a.b, a.hkv,
+                  SPLIT ? (a.s_len + split_rows - 1) / split_rows
+                        : (a.t + tq - 1) / tq);
   kernel<<<grid, kTcThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.base),
-      static_cast<const int*>(a.pages), static_cast<__nv_bfloat16*>(a.out), a.t,
-      a.hq, a.hkv, a.s_len, a.page_shift, a.scale, a.window);
+      static_cast<const int*>(a.pages), static_cast<__nv_bfloat16*>(a.out),
+      static_cast<float*>(a.part), a.t, a.hq, a.hkv, a.s_len, a.page_shift,
+      a.scale, a.window, a.split_tiles);
   return cudaGetLastError();
 }
 
@@ -719,7 +847,12 @@ template <typename T, typename TKV, int HD>
 cudaError_t dispatch_rows(const Args& a) {
   if (a.engine == 1) {  // the tensor-core kernel takes bf16 q only
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      return a.pages ? launch_tc<TKV, HD, true>(a) : launch_tc<TKV, HD, false>(a);
+      if (a.split_tiles > 0) {
+        return a.pages ? launch_tc<TKV, HD, true, true>(a)
+                       : launch_tc<TKV, HD, false, true>(a);
+      }
+      return a.pages ? launch_tc<TKV, HD, true, false>(a)
+                     : launch_tc<TKV, HD, false, false>(a);
     }
     return cudaErrorInvalidValue;
   }
@@ -759,7 +892,11 @@ cudaError_t dispatch_cache(const Args& a, int codes, int hd) {
 
 // C interface (loaded with ctypes). dtype (of q and out): 0 = f32,
 // 1 = bf16. engine: 0 = the CUDA cores (any q type and T), 1 = the tensor
-// cores (bf16 q); the caller chooses. codes: 0 = k and v hold q's type
+// cores (bf16 q); the caller chooses. split_tiles > 0 (tensor cores, a
+// window of group * t <= 8 query vectors) splits each live span into
+// splits of that many 64-row kv tiles, part then being an f32 workspace of
+// b * hkv * ceil(s_len / (64 split_tiles)) * 8 * (hd + 2) floats; 0 walks
+// each span in one block (part unused). codes: 0 = k and v hold q's type
 // (k_scale and v_scale null);
 // 8 = int8 codes, 4 = int4 codes packed two per byte (rows of hd / 2
 // bytes), both with f32 scale planes. pages null: k and v are the dense
@@ -771,10 +908,10 @@ cudaError_t dispatch_cache(const Args& a, int codes, int hd) {
 extern "C" int rpa_forward(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,
                            const void* base, const void* pages, void* out,
-                           int dtype, int codes, int b, int t, int hq,
-                           int hkv, int s_len, int hd, int page_shift,
+                           void* part, int dtype, int codes, int b, int t,
+                           int hq, int hkv, int s_len, int hd, int page_shift,
                            float scale, int window, int engine,
-                           void* stream) {
+                           int split_tiles, void* stream) {
   if (b <= 0 || t <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 ||
       hq / hkv > 64 || (k_scale == nullptr) != (v_scale == nullptr) ||
       (codes == 0) != (k_scale == nullptr) || page_shift < 0 ||
@@ -782,8 +919,13 @@ extern "C" int rpa_forward(const void* q, const void* k, const void* v,
       (pages != nullptr && (s_len >> page_shift) << page_shift != s_len)) {
     return int(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, k_scale, v_scale, base, pages, out, b, t, hq, hkv,
-               s_len, page_shift, scale, window, engine,
+  if (split_tiles < 0 ||
+      (split_tiles > 0 && (engine != 1 || (hq / hkv) * t > kSplitRows ||
+                           part == nullptr || b * hkv > kMaxTickets))) {
+    return int(cudaErrorInvalidValue);
+  }
+  const Args a{q, k, v, k_scale, v_scale, base, pages, out, part, b, t, hq,
+               hkv, s_len, page_shift, scale, window, engine, split_tiles,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -793,3 +935,8 @@ extern "C" int rpa_forward(const void* q, const void* k, const void* v,
   }
   return int(err);
 }
+
+// Blocks one SM holds of the tensor-core instantiation launched last (0
+// before the first): the occupancy API's answer for its threads and
+// shared memory.
+extern "C" int rpa_blocks_per_sm() { return g_blocks_per_sm; }

@@ -136,9 +136,11 @@ def _scores(q, k, *, scale, causal, window) -> torch.Tensor:
 
 
 #: |o - o_p_bf16| <= P_BF16_VBOUND * max|v| (before o's own rounding):
-#: rounding each weight p to bf16 moves it by at most 2^-9 of itself, and
-#: the weights sum to l, so o = sum p v / l moves by at most 2^-9 max|v|
-P_BF16_VBOUND = 2.0 ** -9
+#: rounding each weight p to bf16 moves it by at most half its spacing,
+#: 2^-8 of a weight just above a power of two (the spacing is 2^-7 there),
+#: and the weights sum to l, so o = sum p v / l moves by at most
+#: 2^-8 max|v|
+P_BF16_VBOUND = 2.0 ** -8
 
 
 def o_wide_tol(v: torch.Tensor) -> dict:

@@ -162,19 +162,31 @@ TC_KV_TILE = 64
 
 
 def p_bf16_weights(s: torch.Tensor, m: torch.Tensor,
-                   tile: int = TC_KV_TILE) -> torch.Tensor:
+                   tile: int = TC_KV_TILE,
+                   split_tiles: "int | None" = None) -> torch.Tensor:
     """The softmax weights ``exp(s - m)`` as the tensor-core mainloop
     feeds them to the V product: each ``tile``-column tile's
     ``exp(s - m_j)``, with ``m_j`` the row's running max over tiles
     ``<= j``, rounded to bf16, then rescaled to the final max ``m`` in f32.
-    ``s`` holds f32 scores (masked ones at -1e30) over kv positions from
-    0; a last partial tile is padded with masked columns."""
+    With ``split_tiles`` the running max restarts at every split of that
+    many tiles (tiles ``[z K, (z + 1) K)``: a split launch's blocks, each
+    walking its own split). ``s`` holds f32 scores (masked ones at -1e30)
+    over kv positions from 0; a last partial tile is padded with masked
+    columns."""
     s_len = s.shape[-1]
     pad = -s_len % tile
     if pad:
         s = torch.nn.functional.pad(s, (0, pad), value=-1e30)
     tiles = s.unflatten(-1, (-1, tile))
-    m_run = tiles.amax(dim=-1).cummax(dim=-1).values
+    t_max = tiles.amax(dim=-1)
+    if split_tiles:
+        n = t_max.shape[-1]
+        t_max = torch.nn.functional.pad(t_max, (0, -n % split_tiles),
+                                        value=-1e30)
+        m_run = (t_max.unflatten(-1, (-1, split_tiles)).cummax(dim=-1)
+                 .values.flatten(-2)[..., :n])
+    else:
+        m_run = t_max.cummax(dim=-1).values
     p = (torch.exp(tiles - m_run[..., None]).to(torch.bfloat16).float()
          * torch.exp(m_run - m)[..., None])
     return p.flatten(-2)[..., :s_len]

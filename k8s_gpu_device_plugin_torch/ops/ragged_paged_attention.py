@@ -22,10 +22,13 @@ planes (``k_scale``/``v_scale``, the cache's shape with a last axis of
   (``csrc/ragged_paged_attention.cu``), built at first use and counted
   in ``kernel_support.launch_counts()`` under :data:`NAME`, under its
   route's key (:func:`route_key`) and under its engine's key
-  (:func:`engine`); anything the kernel does not take raises. A bf16
-  window of more than 8 query vectors (a prefill chunk) runs on the
-  tensor cores, decode and f32 queries on the CUDA cores; the wrapper
-  makes that choice and the C interface launches the engine it is given.
+  (:func:`engine`); anything the kernel does not take raises. Every bf16
+  launch runs on the tensor cores, f32 queries on the CUDA cores; the
+  wrapper makes that choice and the C interface launches the engine it is
+  given. A narrow bf16 window (decode, verify: at most
+  :data:`NARROW_TILE` query vectors) splits each live span into splits of
+  :data:`SPLIT_TILES` kv tiles, one block each (:func:`split_plan`),
+  combined in the kernel.
 - CPU tensors take :func:`ragged_paged_attention_reference`, the
   gather-einsum of the reference's ``generate._cached_attention`` with
   the kernel's ``q_pos`` clamp. Nothing gives way from the kernel to it.
@@ -80,19 +83,56 @@ def route_key(route: str) -> str:
     return f"{NAME}{{{route}}}"
 
 
-#: query vectors of the CUDA-core kernel's narrow (decode) row tile
+#: query vectors of a narrow window (decode, verify): the CUDA-core
+#: kernel's narrow row tile, and the most a split launch takes
 NARROW_TILE = 8
+
+#: kv tiles of one split of a narrow window on the tensor cores: the same
+#: for every launch (PERF.md says why this value)
+SPLIT_TILES = 4
 
 
 def engine(dtype: torch.dtype, t: int, group: int) -> str:
-    """The engine a launch runs on: ``'tensor_cores'`` for bf16 queries
-    whose window holds more than :data:`NARROW_TILE` query vectors
-    (``group * t > 8``: the prefill chunks), ``'cuda_cores'`` for decode
-    and narrow windows (the CUDA-core kernel's 8-vector row tile) and for
-    f32 queries at every T (the f32 pins need f32 products)."""
-    if dtype == torch.bfloat16 and group * t > NARROW_TILE:
-        return "tensor_cores"
-    return "cuda_cores"
+    """The engine a launch of ``t`` query rows at GQA ``group`` runs on:
+    ``'tensor_cores'`` for bf16 queries at every window (a narrow one split
+    by :func:`window_split`), ``'cuda_cores'`` for f32 queries at every
+    window (the f32 pins need f32 products)."""
+    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+
+
+def window_split(t: int, group: int) -> "int | None":
+    """The kv tiles a split of this window holds on the tensor cores:
+    :data:`SPLIT_TILES` for a narrow window (``group * t <=``
+    :data:`NARROW_TILE`), None for a chunk (one block walks its row tile's
+    whole span)."""
+    return SPLIT_TILES if group * t <= NARROW_TILE else None
+
+
+def n_splits(s_len: int, split_tiles: int) -> int:
+    """The split launch's grid depth: ``ceil(s_len / (64 split_tiles))``
+    of the cache's (or the table's virtual) extent, never of the data."""
+    return -(-s_len // (kernel_support.TC_KV_TILE * split_tiles))
+
+
+def split_plan(base, t: int, window: int, s_len: int,
+               split_tiles: int) -> list[list[tuple[int, int, int]]]:
+    """Each slot's live splits as a narrow window's split launch walks
+    them: ``(split, first tile, last tile)`` in ascending order. The row
+    tile (all T query rows) reads the live span ``first_block(base + 1)
+    .. last_block(base + T)`` of 64-row kv tiles, clipped to ``s_len``;
+    split z covers the absolute tiles ``[z K, (z + 1) K)`` of it (K =
+    ``split_tiles``), so a slot's splits depend on its own base alone.
+    The kernel mirrors this (``rpa_tc_kernel``); a split outside the list
+    exits before it reads anything."""
+    tile, k = kernel_support.TC_KV_TILE, split_tiles
+    j_max = -(-s_len // tile) - 1
+    plan = []
+    for b0 in (int(x) for x in base):
+        hi = min(max(-(-(b0 + t) // tile) - 1, 0), j_max)
+        lo = min(max(b0 + 1 - window, 0) // tile if window > 0 else 0, hi)
+        plan.append([(z, max(lo, z * k), min(hi, z * k + k - 1))
+                     for z in range(lo // k, hi // k + 1)])
+    return plan
 
 
 def page_size_refusal(page_size: int) -> "str | None":
@@ -124,10 +164,11 @@ def attended_rows(base: torch.Tensor, t: int, window: int = 0) -> torch.Tensor:
 
 
 #: ``rpa_forward``'s C signature: pointers (q, k, v, k_scale, v_scale,
-#: base, pages, out), (dtype, codes, b, t, hq, hkv, s_len, hd,
-#: page_shift), scale, window, engine, stream
-ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+#: base, pages, out, part), (dtype, codes, b, t, hq, hkv, s_len, hd,
+#: page_shift), scale, window, engine, split_tiles, stream
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 ]
 
 
@@ -137,6 +178,7 @@ def load_kernel() -> ctypes.CDLL:
     lib = kernel_support.load_library(NAME, [SOURCE])
     lib.rpa_forward.argtypes = ARGTYPES
     lib.rpa_forward.restype = ctypes.c_int
+    lib.rpa_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -225,7 +267,8 @@ def ragged_paged_attention(
     two per byte into uint8 ``(..., hd / 2)``. ``engine_override`` runs
     a CUDA launch on that engine instead of :func:`engine`'s (the
     tensor cores take bf16 q only): a yardstick of one engine against the
-    other on the same inputs."""
+    other on the same inputs. On the tensor cores a narrow window splits
+    its spans (:func:`window_split`); the combine is part of the launch."""
     _check(q, k, v, base, pages, k_scale, v_scale)
     kw = dict(scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
@@ -265,6 +308,12 @@ def ragged_paged_attention(
         raise ValueError(f"engine {eng!r} is not one of "
                          f"{kernel_support.ENGINES} or does not take "
                          f"{q.dtype} q (the tensor cores take bf16 q)")
+    hkv = k.shape[2]
+    split = window_split(t, hq // hkv) if eng == "tensor_cores" else None
+    part = None
+    if split is not None:  # each split's (o, m, l) of its query vectors
+        part = torch.empty(b * hkv * n_splits(s_len, split) * NARROW_TILE
+                           * (hd + 2), dtype=torch.float32, device=q.device)
     lib = load_kernel()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -273,9 +322,10 @@ def ragged_paged_attention(
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         base.data_ptr(), None if pages is None else pages.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], _CODES[cache_quant], b, t, hq,
-        k.shape[2], s_len, hd, page_shift, float(scale), int(window),
-        kernel_support.ENGINES.index(eng), stream,
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        _DTYPES[q.dtype], _CODES[cache_quant], b, t, hq, hkv, s_len, hd,
+        page_shift, float(scale), int(window),
+        kernel_support.ENGINES.index(eng), split or 0, stream,
     )
     route = route_name(pages is not None, cache_quant)
     if err != 0:
@@ -297,6 +347,7 @@ def ragged_paged_attention_reference(
     k_scale: "torch.Tensor | None" = None,
     v_scale: "torch.Tensor | None" = None,
     p_bf16: bool = False,
+    split_tiles: "int | None" = None,
 ) -> torch.Tensor:
     """The plain version: the gather einsum of the reference's
     ``_cached_attention`` (scores from q's-dtype operands with f32
@@ -318,7 +369,11 @@ def ragged_paged_attention_reference(
     bf16 against the running max of each 64-row kv tile
     (``kernel_support.p_bf16_weights``), o divided by the sum of the
     unrounded weights. The engine is held to it at one bf16 ulp
-    (``kernel_support.bf16_o_mismatch``)."""
+    (``kernel_support.bf16_o_mismatch``). With ``split_tiles`` (a narrow
+    window's split launch, :func:`window_split`) the running max restarts
+    at each split of that many absolute kv tiles (:func:`split_plan`) and
+    the splits' weights are rescaled to the row's max in f32, as the
+    kernel's combine does; None walks the span as one."""
     b, t, hq, hd = q.shape
     if k.dtype == torch.uint8:
         k, v = unpack_int4(k), unpack_int4(v)
@@ -355,7 +410,8 @@ def ragged_paged_attention_reference(
     if p_bf16:
         m = scores.amax(dim=-1, keepdim=True)
         l = torch.exp(scores - m).sum(dim=-1, keepdim=True)
-        probs = kernel_support.p_bf16_weights(scores, m) / l.clamp(min=1e-30)
+        probs = kernel_support.p_bf16_weights(
+            scores, m, split_tiles=split_tiles) / l.clamp(min=1e-30)
         out = torch.einsum("btkgs,bskd->btkgd", probs, v.float())
         return out.reshape(b, t, hq, hd).to(q.dtype)
     probs = torch.softmax(scores, dim=-1)

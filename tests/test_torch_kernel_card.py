@@ -65,14 +65,16 @@ def _engine_counts(counts, name=rpa.NAME):
 
 def _check_rpa(out, q, k, v, base, pages=None, **kw):
     """A ragged-paged launch's output against its plain versions, as the
-    tolerances above state."""
+    tolerances above state (a narrow window's split launch against the
+    plain version that splits where it does)."""
+    t, group = q.shape[1], q.shape[2] // k.shape[2]
     want = rpa.ragged_paged_attention_reference(q, k, v, base, pages, **kw)
-    if rpa.engine(q.dtype, q.shape[1], q.shape[2] // k.shape[2]) == \
-            "cuda_cores":
+    if rpa.engine(q.dtype, t, group) == "cuda_cores":
         torch.testing.assert_close(out.float(), want.float(), **TOL[q.dtype])
         return
-    want_p = rpa.ragged_paged_attention_reference(q, k, v, base, pages,
-                                                  p_bf16=True, **kw)
+    want_p = rpa.ragged_paged_attention_reference(
+        q, k, v, base, pages, p_bf16=True,
+        split_tiles=rpa.window_split(t, group), **kw)
     why = kernel_support.bf16_o_mismatch(out, want_p, want,
                                          TOL[torch.bfloat16])
     assert why is None, why
@@ -264,7 +266,7 @@ def test_new_routes_refuse_what_the_kernel_does_not_take(cuda):
     assert torch.isfinite(out).all()
     assert kernel_support.launch_counts() == {
         rpa.NAME: 1, rpa.route_key("int4_paged"): 1,
-        kernel_support.engine_key(rpa.NAME, "cuda_cores"): 1}
+        kernel_support.engine_key(rpa.NAME, "tensor_cores"): 1}
 
 
 @pytest.mark.parametrize("quant", ["none", "int8", "int4"])
@@ -601,8 +603,8 @@ def test_chunk_route_on_the_tensor_cores(cuda, quant, hd, hq, hkv, t, bases,
     """K1's chunk route (bf16 q) on every cache type: against the plain
     versions (one ulp of the p_bf16 one on the tensor cores), two launches
     bit for bit, the paged pool (pages of 16 and 64) equal to the dense
-    cache bit for bit, every launch on its engine: the tensor cores past 8
-    query vectors (T 3 at group 1 is 3: the CUDA cores' decode tile)."""
+    cache bit for bit, every launch on the tensor cores (T 3 at group 1
+    is 3 query vectors: a narrow window, split over its span)."""
     s = 512 if max(bases) + t <= 512 else 2048
     b = len(bases)
     base = torch.tensor(bases, dtype=torch.int32, device=cuda)
@@ -656,3 +658,98 @@ def test_chunk_engines_agree_on_the_same_inputs(cuda, quant):
                                    k.float(), v if quant != "none" else
                                    v.float(), base, table,
                                    engine_override="tensor_cores", **kw)
+
+
+# --- K1's narrow windows on the tensor cores: split-KV -----------------------
+
+DECODE_BASES = [-1, 0, 1, 255, 256, 1000, 2046, 2047]
+
+
+def _decode_operands(quant, hq=32, hkv=8, hd=128, ps=64, t=1,
+                     bases=DECODE_BASES):
+    """Decode over eight slots of a 2048-row table: the shuffled pool of
+    ``_paged_inputs`` and the same rows gathered into a dense cache."""
+    q, (k, v, ks, vs), table = _paged_inputs(
+        len(bases), t, hq, hkv, hd, ps, 2048 // ps, bases, torch.bfloat16,
+        quant)
+    dense = tuple(_gathered(x, table) for x in (k, v, ks, vs))
+    base = torch.tensor(bases, dtype=torch.int32, device="cuda")
+    return q, (k, v, ks, vs), table, dense, base
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("hq,hkv,hd,window", [(32, 8, 128, 0),
+                                              (32, 8, 128, 64),
+                                              (8, 8, 64, 0)])
+def test_decode_on_the_tensor_cores_on_every_route(cuda, quant, hq, hkv, hd,
+                                                   window):
+    """bf16 decode on the dense and paged routes of every cache type: each
+    launch on the tensor cores, against the split-aware p_bf16 plain
+    version (one ulp) and the f32 one (TOL), two launches bit for bit, the
+    paged pool equal to the dense cache bit for bit."""
+    q, (k, v, ks, vs), table, dense, base = _decode_operands(quant, hq, hkv,
+                                                             hd)
+    kw = dict(scale=hd ** -0.5, window=window)
+    kernel_support.reset_launch_counts()
+    paged = rpa.ragged_paged_attention(q, k, v, base, table, k_scale=ks,
+                                       v_scale=vs, **kw)
+    runs = [rpa.ragged_paged_attention(q, dense[0], dense[1], base,
+                                       k_scale=dense[2], v_scale=dense[3],
+                                       **kw) for _ in range(2)]
+    assert _engine_counts(kernel_support.launch_counts()) == {
+        "cuda_cores": 0, "tensor_cores": 3}
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(paged, runs[0])
+    _check_rpa(paged, q, k, v, base, table, k_scale=ks, v_scale=vs, **kw)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_decode_slot_alone_equals_the_slot_among_neighbours(cuda, layout,
+                                                            quant):
+    """A slot's splits come from its own span, K is a constant and the grid
+    from the table's extent: each slot launched alone gives the bits it
+    gets among its seven neighbours."""
+    q, (k, v, ks, vs), table, dense, base = _decode_operands(quant)
+    if layout == "dense":
+        k, v, ks, vs = dense
+        table = None
+    kw = dict(scale=128 ** -0.5, k_scale=ks, v_scale=vs)
+    both = rpa.ragged_paged_attention(q, k, v, base, table, **kw)
+    for i in range(len(DECODE_BASES)):
+        def one(x):
+            return None if x is None else x[i:i + 1].contiguous()
+        if table is None:
+            alone = rpa.ragged_paged_attention(
+                one(q), one(k), one(v), one(base), scale=kw["scale"],
+                k_scale=one(ks), v_scale=one(vs))
+        else:
+            alone = rpa.ragged_paged_attention(one(q), k, v, one(base),
+                                               one(table), **kw)
+        assert torch.equal(alone, both[i:i + 1]), i
+
+
+@pytest.mark.parametrize("t,hq,hkv,bases,s", [
+    (2, 32, 8, [62, 1000, 2046], 2048),   # a verify window of 8 vectors
+    (8, 8, 8, [0, 700, 1400], 1500),      # 8 rows at group 1; S off the split
+    (1, 64, 8, [5, 1300], 1344),          # group 8
+])
+def test_narrow_windows_split_on_the_tensor_cores(cuda, t, hq, hkv, bases, s):
+    """Narrow windows other than decode: every launch split on the tensor
+    cores, within its tolerances, against the engine override's CUDA-core
+    launch within TOL, with the grid from an extent that is not a multiple
+    of a split."""
+    q, k, v = _inputs(len(bases), t, hq, hkv, 128, s, torch.bfloat16)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    kw = dict(scale=128 ** -0.5)
+    kernel_support.reset_launch_counts()
+    got = rpa.ragged_paged_attention(q, k, v, base, **kw)
+    cores = rpa.ragged_paged_attention(q, k, v, base,
+                                       engine_override="cuda_cores", **kw)
+    assert _engine_counts(kernel_support.launch_counts()) == {
+        "cuda_cores": 1, "tensor_cores": 1}
+    assert rpa.window_split(t, hq // hkv) == rpa.SPLIT_TILES
+    _check_rpa(got, q, k, v, base, **kw)
+    torch.testing.assert_close(got.float(), cores.float(),
+                               **TOL[torch.bfloat16])
+

@@ -123,10 +123,10 @@ def test_attended_rows_counts_the_causal_and_windowed_span():
 
 
 @pytest.mark.parametrize("dtype,t,group,want", [
-    (torch.bfloat16, 1, 4, "cuda_cores"),     # decode
-    (torch.bfloat16, 2, 4, "cuda_cores"),     # 8 query vectors: narrow tile
+    (torch.bfloat16, 1, 4, "tensor_cores"),   # decode: split over its span
+    (torch.bfloat16, 2, 4, "tensor_cores"),   # 8 query vectors: narrow, split
     (torch.bfloat16, 3, 4, "tensor_cores"),   # 12: the chunk route
-    (torch.bfloat16, 8, 1, "cuda_cores"),
+    (torch.bfloat16, 8, 1, "tensor_cores"),
     (torch.bfloat16, 9, 1, "tensor_cores"),
     (torch.bfloat16, 256, 4, "tensor_cores"),
     (torch.float32, 256, 4, "cuda_cores"),    # f32 pins need f32 products

@@ -52,7 +52,7 @@ def summarize(prof, n: int) -> dict:
     device_us = sum(e.self_device_time_total for e in on_device)
     host_us = sum(e.self_cpu_time_total for e in events)
     kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
-    # both engines of the ragged-paged kernel (rpa_kernel, rpa_chunk_tc_kernel)
+    # both engines of the ragged-paged kernel (rpa_kernel, rpa_tc_kernel)
     attention = [e for e in on_device if "rpa_" in e.key]
     return {
         "device_ms": device_us / n / 1e3,

@@ -21,19 +21,27 @@ touched), each with one fault planted:
   to bf16 (rounded toward zero) instead of rounded to nearest before the
   dK and dQ products;
 - ``drop_group_head`` (K3, ``flash_attention.cu``): the first block
-  (kv tiles 0 and 1 of kv row 0) skips the last q head of its group.
+  (kv tiles 0 and 1 of kv row 0) skips the last q head of its group;
+- ``combine_skips_last_split`` (K1's split combine,
+  ``ragged_paged_attention.cu``): a narrow window's combine leaves out
+  the last split of every span of more than one;
+- ``split_max_not_rescaled`` (K1's split combine): the combine adds the
+  splits' partials without the factor ``2^(m_s - m)`` that brings each
+  to the row's max.
 
 K2, K3 and K4 run at the training path's shapes (B 2, S 2048, Hq 32,
 Hkv 8, hd 128, causal, bf16: ``chip_smoke.py`` phase 5's headline case);
-K1 at phase 2's
+K1's producer faults at phase 2's
 bf16 prefill chunks on the int8 dense route (T 256 at bases 0 and 1536,
-one slot, Hq 32, Hkv 8, hd 128, S 2048), and the sound library also on
-the int4 and bf16 dense routes. For each run and case one JSON line holds:
+one slot, Hq 32, Hkv 8, hd 128, S 2048), its split faults at phase 2's
+headline bf16 decode (eight slots at bases -1 .. 2047, dense), and the
+sound library on all of those and on the int4 and bf16 dense chunks. For
+each run and case one JSON line holds:
 the max abs error of o against the plain version that computes what the
 engine does (``p_bf16=True``) and against the kernel's f32 plain version;
 the worst |err| / (atol + rtol |want|) under the tight bf16 tolerance
 (against the first) and under the wide one (against the second: K2's
-one ulp plus 2^-9 max|v|, K1's atol = rtol = 2e-2); how many elements and
+one ulp plus 2^-8 max|v|, K1's atol = rtol = 2e-2); how many elements and
 rows the tight tolerance flags; and whether
 ``kernel_support.bf16_o_mismatch`` (the check ``chip_smoke.py`` applies:
 a few rows may miss the tight tolerance, no element the wide one) flags
@@ -61,8 +69,6 @@ from unittest import mock
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-HEADER = "attention_tile.cuh"
-RPA_SOURCE = "ragged_paged_attention.cu"
 HEADER = "attention_tile.cuh"
 FLASH_SOURCE = "flash_attention.cu"
 RPA_SOURCE = "ragged_paged_attention.cu"
@@ -119,13 +125,30 @@ FAULTS = {
         "    if (it >= mine_lo && it <= mine_hi &&\n"
         "        !(blockIdx.x == 0 && blockIdx.y == 0 && n / n_q == group - 1)) {\n",
     )]),
+    "combine_skips_last_split": ("rpa_split", [(
+        RPA_SOURCE,
+        "    for (int s = 0; s < n_live; ++s) {\n"
+        "      const float* ps = p + s * kSplitStride;\n",
+        "    for (int s = 0; s < n_live - 1; ++s) {\n"
+        "      const float* ps = p + s * kSplitStride;\n",
+    )]),
+    "split_max_not_rescaled": ("rpa_split", [(
+        RPA_SOURCE,
+        "      const float w = exp2f(__ldcg(ps + HD) - m);\n",
+        "      const float w = 1.f;\n",
+    )]),
 }
-# the library each kernel's faults are built into
-LIBRARY = {"flash": "flash", "flash_bwd": "flash", "rpa": "rpa"}
+# the library each kernel's faults are built into ('rpa_split': K1's
+# narrow-window split launch)
+LIBRARY = {"flash": "flash", "flash_bwd": "flash", "rpa": "rpa",
+           "rpa_split": "rpa"}
 B, S, HQ, HKV, HD = 2, 2048, 32, 8, 128
-# K1's cases: phase 2's bf16 chunks of one slot, (route, T, base)
-RPA_CASES = [("int8_dense", 256, 0), ("int8_dense", 256, 1536)]
-RPA_SOUND_ONLY = [("int4_dense", 256, 0), ("dense", 256, 0)]
+# K1's cases, (route, T, bases): phase 2's bf16 chunks of one slot for the
+# producer faults, its headline decode of eight slots for the split ones
+RPA_CASES = {"rpa": [("int8_dense", 256, [0]), ("int8_dense", 256, [1536])],
+             "rpa_split": [("dense", 1, [-1, 0, 1, 255, 256, 1000, 2046,
+                                         2047])]}
+RPA_SOUND_ONLY = [("int4_dense", 256, [0]), ("dense", 256, [0])]
 
 
 def build_edited(modules, kernel_support, name: str, kernel: str, edits):
@@ -263,32 +286,38 @@ def main() -> int:
                       for g in ("dk", "dv", "dq")}
     del bwd, want, want16, magnitude
 
-    # K1's chunk route on phase 2's inputs
-    def rpa_case(route, t, base):
-        case = dict(route=route, ps=0, b=1, t=t, s=S, bases=[base])
+    # K1 on phase 2's inputs: chunks of one slot, the decode of eight
+    def rpa_case(route, t, bases):
+        b = len(bases)
+        case = dict(route=route, ps=0, b=b, t=t, s=S, bases=bases)
         gen.manual_seed(0)
-        q = torch.randn((1, t, HQ, HD), generator=gen, device="cuda",
+        q = torch.randn((b, t, HQ, HD), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
-        k0, v0 = (torch.randn((1, S, HKV, HD), generator=gen, device="cuda",
+        k0, v0 = (torch.randn((b, S, HKV, HD), generator=gen, device="cuda",
                               dtype=torch.bfloat16) for _ in range(2))
         k, v, ks, vs, _ = route_operands(torch, quant, case, k0, v0, gen)
-        args = (q, k, v, torch.tensor([base], dtype=torch.int32,
+        args = (q, k, v, torch.tensor(bases, dtype=torch.int32,
                                       device="cuda"))
         return args, dict(scale=HD ** -0.5, k_scale=ks, v_scale=vs)
 
-    for name in ("rpa", *(n for n in FAULTS if FAULTS[n][0] == "rpa")):
+    rpa_runs = {"rpa": RPA_CASES["rpa"] + RPA_SOUND_ONLY
+                + RPA_CASES["rpa_split"]}
+    rpa_runs.update({n: RPA_CASES[FAULTS[n][0]] for n in FAULTS
+                     if FAULTS[n][0] in RPA_CASES})
+    for name, cases in rpa_runs.items():
         runs[name] = {}
-        for route, t, base in RPA_CASES + (RPA_SOUND_ONLY if name == "rpa"
-                                           else []):
-            args, kw = rpa_case(route, t, base)
+        for route, t, bases in cases:
+            args, kw = rpa_case(route, t, bases)
             want = rpa.ragged_paged_attention_reference(*args, **kw)
-            want16 = rpa.ragged_paged_attention_reference(*args, p_bf16=True,
-                                                          **kw)
+            want16 = rpa.ragged_paged_attention_reference(
+                *args, p_bf16=True, split_tiles=rpa.window_split(t, HQ // HKV),
+                **kw)
             with mock.patch.object(rpa, "load_kernel",
                                    lambda lib=libs[name]: lib):
                 o = rpa.ragged_paged_attention(*args, **kw)
             torch.cuda.synchronize()
-            runs[name][f"rpa {route} t{t}_base{base}"] = row(
+            tag = f"base{bases[0]}" if len(bases) == 1 else f"{len(bases)}_slots"
+            runs[name][f"rpa {route} t{t}_{tag}"] = row(
                 o, want16, want, TOL["bfloat16"])
 
     card = subprocess.run(
