@@ -22,7 +22,8 @@ Phases (any failed check exits non-zero without the final line):
    decode over eight slots (also windowed and at hd 64, group 1, dense
    and int4), and prefill chunks as the batcher runs them (one slot):
    T 3, T 37, T 256 at bases 0, 256 and 1536, windowed and at hd 64,
-   group 1. Every bf16 case runs on the tensor cores (decode split over
+   group 1, and whole bucketed prompts (``--chunkedPrefill 0``) of T 512
+   and T 1024 at base 0. Every bf16 case runs on the tensor cores (decode split over
    each slot's span, ``SPLIT_TILES`` kv tiles a block), f32 on the CUDA
    cores: each launch must be counted on its engine, and two launches on
    the same inputs must agree bit for bit. A tensor-core case is held to
@@ -48,11 +49,27 @@ Phases (any failed check exits non-zero without the final line):
    paged kernel path bit for bit against the dense one. Then the same
    weights quantized (``--weightQuant`` int8, int4): kernel path against
    plain path in f32, and their distance from the bf16 weights' logits.
-4. The server (``serving/server.py``) with ``--preset llama3_8b --slots 8
-   --maxLen 2048 --chunkedPrefill 256`` on 127.0.0.1: six concurrent
-   ``/v1/generate`` requests (one streamed, one with logprobs), launch
-   counts over exactly that run, and one request replayed alone. Then the
-   same six requests on ``--kvLayout paged --kvPageSize 64 --kvPages 65``
+4. First the decode step captured as a CUDA graph against the eager
+   step (dense bf16, paged int8, and ``w4_int4_paged`` after phase 3's
+   int4 weights): a batcher serves a greedy request with a bias row, a
+   seeded and an unseeded sampled one; three times a copy of its state
+   (the cache bytes included, a pool's trap page aside) and of its
+   generator takes an eager ``decode_step`` while the batcher replays the
+   graph, and tokens, logprobs and every state tensor must agree bit for
+   bit, the replay moving the generator on; the seeded stream alone must
+   equal itself among its neighbours. Then the server
+   (``serving/server.py``) with ``--preset llama3_8b --slots 8 --maxLen
+   2048 --chunkedPrefill 256`` (the pipelined loop, ``--pipelineDepth
+   1``) on 127.0.0.1: six concurrent ``/v1/generate`` requests (one
+   streamed, one with logprobs), launch counts over exactly that run
+   (every decode step a graph replay, counted as the launches its
+   capture recorded), and one request replayed alone. The same on
+   ``--pipelineDepth 0`` (served first: its tokens are the ones the
+   pipelined dense run and the unquantized pool must give) and on
+   ``--chunkedPrefill 0`` (bucketed prefill: the 1500- and 1900-token
+   prompts answer 422, the other four are served; TTFT beside the
+   chunked run's). Then the same six requests on ``--kvLayout paged
+   --kvPageSize 64 --kvPages 65``
    (64 allocatable pages against the 79 the six reserve together, so an
    admission must wait): the dense run's tokens, every launch on the paged
    route, the pool empty at the end; on ``--cacheQuant int8`` and ``int4``,
@@ -87,7 +104,8 @@ Phases (any failed check exits non-zero without the final line):
    attention: per leaf, the kernel path's distance to the f32 plain
    path's gradients at most BF16_FACTOR times the plain path's.
 7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
-   kernel's entry carries its six routes).
+   kernel's entry carries its six routes and the decode graph's checks
+   and pool bytes).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -271,10 +289,15 @@ def kernel_cases():
     ]
     # prefill chunks as the batcher runs them (one slot), on every route:
     # T 3 (12 query vectors, just past the 8-vector decode tile) up to
-    # T 256 at three depths, a window and hd 64 at group 1
+    # T 256 at three depths, a window and hd 64 at group 1, and whole
+    # bucketed prompts of 512 and 1024 rows
     chunks = [("prefill_t3_base100", 3, 100, 0, full),
               ("prefill_t37_base100", 37, 100, 0, full),
               ("prefill_t256_base0", 256, 0, 0, full),
+              # a bucketed prefill (--chunkedPrefill 0): the whole padded
+              # prompt from base 0, T up to the largest bucket
+              ("prefill_t512_base0", 512, 0, 0, full),
+              ("prefill_t1024_base0", 1024, 0, 0, full),
               ("prefill_t256_base256", 256, 256, 0, full),
               ("prefill_t256_base1536", 256, 1536, 0, full),
               ("prefill_t256_base1536_window64", 256, 1536, 64, full),
@@ -851,6 +874,9 @@ def _post(url: str, body: dict) -> tuple[list[int], "list[float] | None", float]
 POOL_65 = ["--kvLayout", "paged", "--kvPageSize", "64", "--kvPages", "65"]
 SERVING_RUNS = {
     "dense": [],
+    # the dense run at the synchronous loop, and with bucketed prefill
+    "dense_depth0": ["--pipelineDepth", "0"],
+    "dense_bucketed": ["--chunkedPrefill", "0"],
     "paged": POOL_65,
     "int8_paged": [*POOL_65, "--cacheQuant", "int8"],
     "int8_dense": ["--cacheQuant", "int8"],
@@ -862,15 +888,25 @@ SERVING_RUNS = {
 }
 
 
+# with --chunkedPrefill 0 a prompt past the largest bucket (1024) is
+# refused with a 422, as the reference refuses it
+BUCKET_REFUSED = {i for i, (plen, _) in enumerate(REQUESTS) if plen > 1024}
+
+
 def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                   run: str, dense_tokens=None) -> dict:
     """The server for one serving run: the six requests of REQUESTS at
     once, every launch of exactly that run counted by route, all on the
-    route its flags name. ``dense_tokens`` (the dense run's streams) must
-    come back token for token from an unquantized pool. A paged run must
-    make at least one admission wait (the pool holds 64 pages, the six
-    reserve 79) and leave the pool empty and consistent. ``params`` are
-    already quantized as the run's ``--weightQuant`` says."""
+    route its flags name, every decode step a replay of the captured
+    graph. ``dense_tokens`` (the dense run's streams) must come back token
+    for token from an unquantized pool and from the synchronous loop. A
+    paged run must make at least one admission wait (the pool holds 64
+    pages, the six reserve 79) and leave the pool empty and consistent.
+    The bucketed run must refuse the prompts past the largest bucket with
+    a 422 and serve the others. ``params`` are already quantized as the
+    run's ``--weightQuant`` says."""
+    import urllib.error
+
     import numpy as np
 
     args = server_mod.build_parser().parse_args([
@@ -896,14 +932,26 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         results: list = [None] * len(bodies)
         errors: list = []
 
+        refused = BUCKET_REFUSED if args.chunkedPrefill == 0 else set()
+
         def worker(i):
             try:
                 results[i] = _post(url, bodies[i])
+            except urllib.error.HTTPError as e:
+                if i in refused and e.code == 422:
+                    results[i] = ([], None, None)
+                else:
+                    errors.append(f"request {i}: HTTP {e.code}: "
+                                  f"{e.read()[:200]!r}")
             except Exception as e:  # noqa: BLE001 - reported below
                 errors.append(f"request {i}: {type(e).__name__}: {e}")
 
         cb = server.engine.cb
+        if cb.graph is None or cb.pipeline_depth != args.pipelineDepth:
+            fail(f"{run}: the batcher on the card must capture its decode "
+                 f"step (graph {cb.graph}, depth {cb.pipeline_depth})")
         steps0, chunks0 = cb.decode_steps, cb.prefill_chunks
+        replays0 = cb.graph.replays
         kernel_support.reset_launch_counts()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=worker, args=(i,))
@@ -920,8 +968,13 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         health = server.engine.stats()
         decode_steps = health["decode_steps"] - steps0
         chunks = health["prefill_chunks"] - chunks0
+        if cb.graph.replays - replays0 != decode_steps:
+            fail(f"{run}: {decode_steps} decode steps but "
+                 f"{cb.graph.replays - replays0} graph replays")
         for i, ((toks, lps, _), (plen, max_new)) in enumerate(
                 zip(results, REQUESTS)):
+            if i in refused:
+                continue
             if len(toks) != max_new:
                 fail(f"{run}: request {i} (prompt {plen}) returned "
                      f"{len(toks)} tokens, wanted {max_new}")
@@ -949,6 +1002,7 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                        if x != y)
             fail(f"{run}: request {bad}'s greedy stream differs from the "
                  "dense run's")
+        served = [i for i in range(len(REQUESTS)) if i not in refused]
         kv = health["kv"]
         want_bytes = (65 * 64 if "paged" in route else 8 * 2048) * \
             TOKEN_BYTES[args.cacheQuant]
@@ -977,7 +1031,12 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                      f"one at token {first}")
         out = {
             "phase": 4, "run": run, "route": route, "flags": SERVING_RUNS[run],
-            "requests": len(bodies), "wall_s": wall,
+            "requests": len(bodies), "served": len(served),
+            "refused_422": sorted(refused), "wall_s": wall,
+            "pipeline_depth": args.pipelineDepth,
+            "chunked_prefill": args.chunkedPrefill,
+            "decode_graph": health["decode"]["graph"],
+            "pipeline_flushes": health["decode"]["pipeline_flushes"],
             "launches": launches, "launches_per_engine": engines,
             "decode_steps": decode_steps,
             "prefill_chunks": chunks, "launches_needed": need,
@@ -997,6 +1056,143 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         return out
     finally:
         server.stop()
+
+
+# the graph check's requests: (prompt length, max_new, sampler knobs, seed,
+# logit bias); the greedy row carries the one bias row (a ban of the
+# unbiased first token and a push on another)
+GRAPH_REQUESTS = [
+    (300, 64, {}, None, "ban"),
+    (450, 64, {"temperature": 1.0, "top_k": 50}, 7, None),
+    (200, 64, {"temperature": 0.8, "top_p": 0.9}, None, None),
+]
+GRAPH_STEPS = 3  # replays checked against the eager step, one after another
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a BatchState (the cache's planes included)."""
+    out = {name: getattr(state, name) for name in
+           ("lengths", "last_token", "active", "presence", "budget", "seeds",
+            "draws", "pages") if getattr(state, name) is not None}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        x = getattr(state.cache, name)
+        if x is not None:
+            out["cache." + name] = x
+    return out
+
+
+def phase_graph(torch, batching, sampling, cfg, params, run: str,
+                flags: list) -> dict:
+    """The captured decode step against the eager one, on the card. One
+    batcher (8 slots, 2048 rows, the run's layout and cache type) serves
+    a greedy request with a bias row, a seeded and an unseeded sampled
+    request until all three decode; then, GRAPH_STEPS times, a copy of
+    the state (every tensor, the cache bytes included) and of the shared
+    generator's state takes one eager ``decode_step`` while the batcher
+    replays its graph: tokens, logprobs and every state tensor must agree
+    bit for bit, and the replay must move the shared generator on (fresh
+    unseeded noise each step). Then the seeded request alone in a fresh
+    batcher must give the stream it gave among its neighbours."""
+    import numpy as np
+
+    kw = dict(n_slots=8, max_len=2048, chunked_prefill=256,
+              kv_layout="paged" if "paged" in run else "dense",
+              kv_page_size=64, kv_pages=65 if "paged" in run else 0)
+    if kw["kv_layout"] == "dense":
+        kw.pop("kv_page_size"), kw.pop("kv_pages")
+    rcfg = dataclasses.replace(
+        cfg, cache_quant=flags[flags.index("--cacheQuant") + 1]
+        if "--cacheQuant" in flags else "none")
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n, *_ in GRAPH_REQUESTS]
+
+    def serve(cb, which):
+        rids = {}
+        for i in which:
+            _, max_new, knobs, seed, bias = GRAPH_REQUESTS[i]
+            rids[i] = cb.submit(
+                prompts[i], max_new,
+                sampler=sampling.Sampler(**knobs) if knobs else None,
+                seed=seed, logit_bias={int(ban): -100.0, 5: 4.0}
+                if bias else None)
+        return rids
+
+    t0 = time.perf_counter()
+    probe = batching.ContinuousBatcher(params, rcfg, decode_graph=False,
+                                       **kw)
+    rid = probe.submit(prompts[0], 1)
+    ban = probe.run()[rid][0]
+    del probe
+    cb = batching.ContinuousBatcher(params, rcfg, **kw)
+    if cb.graph is None:
+        fail(f"graph {run}: the batcher captured no decode graph")
+    rids = serve(cb, range(len(GRAPH_REQUESTS)))
+    while cb.pending or cb.prefilling or len(cb.running) < 3:
+        cb.step()
+    for _ in range(4):
+        cb.step()
+    # the check drives the graph itself: nothing may be in flight
+    inflight, cb._inflight = cb._inflight, None
+    n_read = cb._read_step(inflight)
+    checked = []
+    for _ in range(GRAPH_STEPS):
+        cb._refresh_slot_inputs()
+        twin = dataclasses.replace(
+            cb.state, cache=dataclasses.replace(cb.state.cache))
+        for name, x in _state_tensors(cb.state).items():
+            obj, attr = (twin.cache, name[6:]) if name.startswith("cache.") \
+                else (twin, name)
+            setattr(obj, attr, x.clone())
+        gen = torch.Generator(device="cuda")
+        gen.set_state(cb.generator.get_state())
+        before = cb.generator.get_state()
+        e_tok, e_logp = batching.decode_step(
+            cb.params, twin, cb._allowed, cb._eos, cb.cfg, cb._knobs, gen,
+            bias=cb._bias, seeds=twin.seeds)
+        g_tok, g_logp = (x.clone() for x in cb.graph.replay())
+        torch.cuda.synchronize()
+        moved = not torch.equal(before, cb.generator.get_state())
+        same = {"tokens": bool(torch.equal(e_tok, g_tok)),
+                "logprobs": bool(torch.equal(e_logp, g_logp))}
+        for name, x in _state_tensors(cb.state).items():
+            y = getattr(twin.cache, name[6:]) if name.startswith("cache.") \
+                else getattr(twin, name)
+            if name.startswith("cache.") and kw["kv_layout"] == "paged":
+                # the inactive slots' writes all land in the trap page
+                # 0, which row of them stays is not defined, and nothing
+                # reads it unmasked: the pool's other pages must agree
+                x, y = x[:, 1:], y[:, 1:]
+            same[name] = bool(torch.equal(x, y))
+        bad = [k for k, v in same.items() if not v]
+        if bad or not moved:
+            fail(f"graph {run}: a replay differs from the eager step in "
+                 f"{bad} (generator moved: {moved})")
+        checked.append(g_tok.tolist())
+        n_read += cb._apply_emitted(g_tok.tolist(), g_logp.tolist())
+        del twin
+    done = cb.run()
+    seeded = done[rids[1]]
+    alone_cb = batching.ContinuousBatcher(params, rcfg, **kw)
+    alone_rids = serve(alone_cb, [1])
+    alone = alone_cb.run()[alone_rids[1]]
+    if alone != seeded:
+        fail(f"graph {run}: the seeded stream alone differs from the same "
+             "stream among its neighbours")
+    if done[rids[0]][0] == ban:
+        fail(f"graph {run}: the banned token {ban} came out first")
+    out = {"phase": 4, "graph_check": run, "flags": flags,
+           "steps_checked": GRAPH_STEPS, "tokens_checked": checked,
+           "equal_bitwise": True, "state_tensors": len(same),
+           "seeded_alone_equals_batched": True,
+           "pool_bytes": cb.graph.pool_bytes,
+           "launches_per_replay": cb.graph.launches,
+           "s": time.perf_counter() - t0}
+    emit(out)
+    del cb, alone_cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1425,9 +1621,11 @@ def main() -> None:
         fail("CUDA is not available: this script drives the port on a card")
     sys.path.insert(0, ROOT)
     try:
+        from k8s_gpu_device_plugin_torch.models import batching
         from k8s_gpu_device_plugin_torch.models import generate
         from k8s_gpu_device_plugin_torch.models import llama
         from k8s_gpu_device_plugin_torch.models import quantized_serving
+        from k8s_gpu_device_plugin_torch.models import sampling
         from k8s_gpu_device_plugin_torch.models import train
         from k8s_gpu_device_plugin_torch.models import trainer as trainer_mod
         from k8s_gpu_device_plugin_torch.ops import attention as attention_mod
@@ -1460,19 +1658,40 @@ def main() -> None:
     # one set of random 8B weights for the model check and the servers
     params = server_mod.load_params(cfg, seed=SEED, device="cuda")
     model = phase_model(torch, generate, cfg, params)
-    serving = {"dense": phase_serving(torch, server_mod, kernel_support, rpa,
-                                      cfg, params, "dense")}
-    for run in ("paged", "int8_paged", "int8_dense", "int4_dense",
-                "int4_paged"):
+    graphs = {run: phase_graph(torch, batching, sampling, cfg, params, run,
+                               SERVING_RUNS[run])
+              for run in ("dense", "int8_paged")}
+    # the synchronous loop first: its tokens are the ones every
+    # unquantized run must give, and the first server of the process pays
+    # the engine thread's one-time costs, so that the pipelined chunked
+    # and bucketed runs compare their TTFT warm
+    serving = {"dense_depth0": phase_serving(
+        torch, server_mod, kernel_support, rpa, cfg, params, "dense_depth0")}
+    for run in ("dense", "dense_bucketed", "paged", "int8_paged",
+                "int8_dense", "int4_dense", "int4_paged"):
         serving[run] = phase_serving(
             torch, server_mod, kernel_support, rpa, cfg, params, run,
-            dense_tokens=serving["dense"]["tokens"] if run == "paged"
-            else None)
+            dense_tokens=serving["dense_depth0"]["tokens"]
+            if run in ("paged", "dense") else None)
+        gc.collect()  # the stopped server's cache and graph pool
+        torch.cuda.empty_cache()
+    # bucketed prefill rounds its bf16 prompt rows in other places than
+    # 256-row chunks do: its greedy streams are compared, not required
+    emit({"phase": 4, "run": "dense_bucketed",
+          "streams_equal_to_chunked": [
+              i for i in range(len(REQUESTS)) if i not in BUCKET_REFUSED
+              and serving["dense_bucketed"]["tokens"][i]
+              == serving["dense"]["tokens"][i]],
+          "ttft_s_p50": {"chunked_256": serving["dense"]["ttft_s_p50"],
+                         "bucketed": serving["dense_bucketed"]["ttft_s_p50"]}})
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
         qparams = quantized_serving.quantize_weights(params, weight_quant)
         phase_weights(torch, generate, cfg, qparams, weight_quant, model)
+        if run == "w4_int4_paged":
+            graphs[run] = phase_graph(torch, batching, sampling, cfg, qparams,
+                                      run, SERVING_RUNS[run])
         serving[run] = phase_serving(torch, server_mod, kernel_support, rpa,
                                      cfg, qparams, run)
         del qparams
@@ -1520,6 +1739,11 @@ def main() -> None:
             "headline_case": first["case"], **{k: first[k] for k in keys},
             "decode_step_ms_mean": serving[route]["decode_step_ms_mean"],
             "reserved_bytes": serving[route]["kv"]["reserved_bytes"],
+            # whole bucketed prompts (--chunkedPrefill 0) at base 0
+            "bucket_cases": {
+                c["t"]: {k: c[k] for k in keys} for c in mine
+                if c["dtype"] == "bfloat16" and c["bases"] == [0]
+                and c["t"] in (512, 1024)},
         }
     kernels = [kernel_entry(
         "ragged_paged_attention",
@@ -1531,6 +1755,14 @@ def main() -> None:
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
                           "dense route",
          "routes": routes,
+         # the decode step replayed as a CUDA graph, held to the eager step
+         "decode_graph": {run: {k: g[k] for k in
+                                ("equal_bitwise", "steps_checked",
+                                 "pool_bytes")}
+                          for run, g in graphs.items()},
+         "decode_graph_pool_bytes_serving": {
+             run: r["decode_graph"]["pool_bytes"]
+             for run, r in serving.items()},
          "cases": [{k: c[k] for k in ("case", "route", "page_size", "dtype",
                                       "engine", "max_abs_err", *keys)}
                    for c in cases]})]

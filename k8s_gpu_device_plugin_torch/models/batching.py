@@ -1,25 +1,45 @@
-"""Continuous batching for serving: slots, chunked prefill, decode.
+"""Continuous batching for serving: slots, prefill, the decode loop.
 
 Port of ``k8s_gpu_device_plugin_tpu/models/batching.py``: the dense and
 the paged KV layout (bf16/f32, int8 codes or packed int4 codes; float or
-weight-only int8/int4 quantized params), chunked prefill
-(``prefill_chunk`` / ``prefill_finish``), FIFO admission and the
-synchronous step loop (the reference's ``pipeline_depth=0`` semantics).
-A slot is one concurrent sequence: on the dense layout its reserved
-cache rows, on the paged one a page-table row over a shared pool
+weight-only int8/int4 quantized params), bucketed prefill-then-insert
+(``prefill_insert``, ``chunked_prefill=0``, the default) and chunked
+prefill (``prefill_chunk`` / ``prefill_finish``), FIFO admission,
+per-request logit bias and seeds, and the pipelined decode loop
+(``pipeline_depth=1``, the default; 0 is the synchronous loop). A slot
+is one concurrent sequence: on the dense layout its reserved cache rows,
+on the paged one a page-table row over a shared pool
 (``models/paging.py``), reserved at admission for the request's worst
 case and released when it retires or is cancelled. Every slot decodes
 at its own absolute position, and the decode step never changes shape
-(empty slots compute and discard). The device state
-(:class:`BatchState`) is updated in place; the host-side
-:class:`ContinuousBatcher` owns the queue, the slot assignment, the page
-pool and the per-request budgets.
+(empty slots compute and discard).
+
+The device state (:class:`BatchState`) and every per-slot input of the
+decode step (membership mask, sampler knobs, the logit-bias plane, the
+seeds, the EOS id) are persistent tensors updated in place: admission,
+retirement and cancellation write them, the steady decode loop uploads
+nothing. On a CUDA device that lets the batcher capture the decode step
+once as a CUDA graph (:class:`DecodeGraph`, the port's counterpart of
+the reference's jitted step) and replay it every token; on the CPU,
+where the caller asked for it, the step runs eagerly.
+
+The pipelined loop dispatches step t+1 before it reads step t back, so
+the host's per-token work overlaps the device's next step. Its rules
+are the reference's: the in-flight step is flushed before an admission
+that reuses one of its live slots, a slot retired or cancelled since the
+dispatch (and a -1 sentinel) is skipped on readback, and when the
+budgets show that the in-flight step retires every running request it
+is read back without a dispatch ahead. Greedy and seeded streams are
+the same bit for bit at either depth; so are unseeded ones as long as
+no admission waits on a retirement (the pipeline sees a retirement one
+step later, so such an admission, and the shared generator's draws
+behind it, come one step later).
 
 Constructor and ``submit`` arguments the reference has and the port does
 not serve yet (adapters, prefix cache, scheduler, tensor parallelism,
-the pipelined loop, fault injection, ...) are refused when set, never
-ignored; so is the paged layout under a sliding window (incremental
-reservation and page recycling are not ported yet).
+fault injection, ...) are refused when set, never ignored; so is the
+paged layout under a sliding window (incremental reservation and page
+recycling are not ported yet).
 """
 
 from __future__ import annotations
@@ -31,7 +51,10 @@ from dataclasses import dataclass, field, replace
 import torch
 
 from k8s_gpu_device_plugin_torch.models.generate import KVCache, _forward_cached
-from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
+from k8s_gpu_device_plugin_torch.models.llama import (
+    LlamaConfig,
+    cast_params_for_compute,
+)
 from k8s_gpu_device_plugin_torch.models.paging import PagePool, kv_token_bytes
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     check_cache_quant_kv_layout,
@@ -44,22 +67,21 @@ from k8s_gpu_device_plugin_torch.models.sampling import (
     sampler_knobs,
     token_logprob,
 )
+from k8s_gpu_device_plugin_torch.ops import kernel_support
 from k8s_gpu_device_plugin_torch.ops.attention import attention_backend_plan
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
-#: the reference's prompt bucket ladder (bucketed prefill is not ported;
-#: kept so callers can name the same boundaries)
+#: the reference's prompt bucket ladder: a bucketed prefill pads the
+#: prompt to the first bucket that holds it
 DEFAULT_PROMPT_BUCKETS: tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
 
 # the reference's ContinuousBatcher arguments outside this slice, with the
 # value that means "not used"; anything else is refused
 _UNSERVED_INIT = {
-    "prompt_buckets": DEFAULT_PROMPT_BUCKETS,
     "metrics": None,
     "adapters": None,
     "lora_slots": None,
     "adapter_cache_mb": 0,
-    "pipeline_depth": 0,
     "trace_steps": False,
     "prefix_cache": None,
     "prefill_reserve_chunks": 2,
@@ -73,7 +95,6 @@ _UNSERVED_INIT = {
 _UNSERVED_SUBMIT = {
     "prefix": None,
     "adapter": -1,
-    "logit_bias": None,
     "tenant": "default",
     "priority": 1,
     "deadline_ms": None,
@@ -94,9 +115,18 @@ def _refuse(what: str, given: dict, unserved: dict) -> None:
             )
 
 
+def _bucket(n: int, buckets: tuple[int, ...]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
+
+
 @dataclass
 class BatchState:
-    """Device-side state of the serving batch, updated in place."""
+    """Device-side state of the serving batch. Every tensor is updated in
+    place and never rebound, so a captured decode step reads and writes
+    the same storage on every replay."""
 
     cache: KVCache
     lengths: torch.Tensor     # (B,) int32: valid cache rows per slot
@@ -104,6 +134,11 @@ class BatchState:
     active: torch.Tensor      # (B,) bool: slot is mid-generation
     presence: torch.Tensor    # (B, V) bool: repetition-penalty context
     budget: torch.Tensor      # (B,) int32: tokens the slot may still emit
+    # the slot's request seed (-1 = unseeded) and its next draw index:
+    # a seeded row's i-th token is draw i, counted on the device, so a
+    # step dispatched ahead of the host's token count draws the true i
+    seeds: torch.Tensor       # (B,) int32
+    draws: torch.Tensor       # (B,) int32
     # paged layout only (None on the dense one): per-slot page tables
     # mapping virtual position p to pool page pages[slot, p // ps]
     # (models/paging.py owns the allocation). A row changes only at
@@ -127,6 +162,8 @@ def init_batch_state(cfg: LlamaConfig, n_slots: int, max_len: int,
         active=zeros((n_slots,), torch.bool),
         presence=zeros((n_slots, cfg.vocab_size), torch.bool),
         budget=zeros((n_slots,), torch.int32),
+        seeds=torch.full((n_slots,), -1, dtype=torch.int32, device=device),
+        draws=zeros((n_slots,), torch.int32),
         pages=(zeros((n_slots, max_len // cfg.kv_page_size), torch.int32)
                if paged else None),
     )
@@ -136,15 +173,18 @@ def decode_step(
     params: dict,
     state: BatchState,
     allowed: torch.Tensor,    # (B,) bool: running-set membership
-    eos_id: int,              # -1 disables EOS stopping
+    eos_id: "int | torch.Tensor",  # -1 disables EOS stopping
     cfg: LlamaConfig,
     knobs: torch.Tensor,      # (B, 4) per-slot sampler knobs
     generator: torch.Generator,
-    row_generators: "list[torch.Generator | None] | None" = None,
+    bias: "torch.Tensor | None" = None,   # (B, V) f32 per-slot logit bias
+    seeds: "torch.Tensor | None" = None,  # (B,) int32, -1 = unseeded
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One token for every slot; inactive slots compute and discard.
-    Updates ``state`` in place and returns (emitted (B,) int64 — -1 for
-    slots that were not active — and logprobs (B,) f32).
+    Updates every tensor of ``state`` in place (``copy_``) and returns
+    (emitted (B,) int64 — -1 for slots that were not active — and
+    logprobs (B,) f32). A seeded slot draws at ``state.draws``, which
+    advances for every slot that emitted.
 
     Inactive slots must not write at their stale lengths: a neighbour
     mid-chunked-prefill may own that row. Their writes go to the last
@@ -168,18 +208,83 @@ def decode_step(
     logits = _forward_cached(params, state.last_token[:, None], state.cache,
                              write_pos, cfg, pages=pages)[:, -1]
     tok, presence = sample_and_mark_dyn(logits, knobs, state.presence,
-                                        generator, row_generators)
+                                        generator, bias, seeds, state.draws)
     logps = token_logprob(logits, tok)
     hit_eos = (tok == eos_id) & (eos_id >= 0)
     full = state.lengths + 1 >= cache_len
     budget = torch.where(was_active, state.budget - 1, state.budget)
-    state.lengths = torch.where(was_active, state.lengths + 1, state.lengths)
-    state.last_token = torch.where(was_active, tok, state.last_token)
-    state.active = was_active & ~hit_eos & ~full & (budget > 0)
-    state.presence = torch.where(was_active[:, None], presence, state.presence)
-    state.budget = budget
+    state.lengths.copy_(torch.where(was_active, state.lengths + 1,
+                                    state.lengths))
+    state.last_token.copy_(torch.where(was_active, tok, state.last_token))
+    state.active.copy_(was_active & ~hit_eos & ~full & (budget > 0))
+    state.presence.copy_(torch.where(was_active[:, None], presence,
+                                     state.presence))
+    state.budget.copy_(budget)
+    state.draws.copy_(torch.where(was_active, state.draws + 1, state.draws))
     emitted = torch.where(was_active, tok, torch.full_like(tok, -1))
     return emitted, logps
+
+
+class DecodeGraph:
+    """A decode step captured once as a CUDA graph and replayed for every
+    token: the port's counterpart of the reference's jitted step. ``step``
+    is a closure over persistent tensors only (the batch state, the
+    per-slot inputs, the parameters) that runs :func:`decode_step` and
+    returns its (emitted, logprobs); a replay runs the same kernels on
+    the same storage and leaves its results in :attr:`outputs`.
+
+    The capture warms the step up twice on a side stream first; the
+    caller must make that harmless (the batcher captures before any slot
+    is allowed, so the warm-up only writes the trap rows). The unseeded
+    generator is registered with the graph, so a replay advances its
+    offset as an eager call would, and the warm-up's draws are rewound.
+    Kernel wrappers count launches on the host, which a replay never
+    reaches: the capture's counts are recorded (the capture itself
+    launches nothing) and every replay adds them. A failed capture or
+    replay raises; nothing falls back to the eager step."""
+
+    def __init__(self, step, generator: torch.Generator,
+                 device: torch.device):
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} has no "
+                "CUDAGraph.register_generator_state: the decode step's "
+                "unseeded draws cannot be captured")
+        rewind = generator.get_state()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        generator.set_state(rewind)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        # the capture empties the allocator's cache before it starts: so
+        # does the baseline, and what the capture reserves is its pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        with kernel_support.recording_launches() as launches:
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.outputs = step()
+        torch.cuda.synchronize(device)
+        #: device memory the capture reserved: the graph's private pool
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        #: kernel launches of one replay, by ``launch_counts()`` key
+        self.launches = dict(launches)
+        self.replays = 0
+
+    def replay(self) -> tuple[torch.Tensor, torch.Tensor]:
+        self.graph.replay()
+        kernel_support.count_replay(self.launches)
+        self.replays += 1
+        return self.outputs
+
+    def stats(self) -> dict:
+        return {"pool_bytes": self.pool_bytes, "replays": self.replays,
+                "launches_per_replay": dict(self.launches)}
 
 
 def _slot_cache(state: BatchState, slot: int, cfg: LlamaConfig) -> dict:
@@ -190,6 +295,67 @@ def _slot_cache(state: BatchState, slot: int, cfg: LlamaConfig) -> dict:
     if cfg.kv_layout == "paged":
         return dict(cache=state.cache, pages=state.pages[slot:slot + 1])
     return dict(cache=state.cache.slot(slot), pages=None)
+
+
+def _activate(state: BatchState, slot: int, tok: torch.Tensor,
+              seen: torch.Tensor, prompt_len: int, max_new: int) -> None:
+    """A slot's first token is sampled (draw 0): it joins the decode."""
+    state.lengths[slot] = prompt_len
+    state.last_token[slot] = tok[0]
+    state.active[slot] = True
+    state.presence[slot] = seen[0]
+    state.budget[slot] = max_new - 1
+    state.draws[slot] = 1
+
+
+def _insert_rows(state: BatchState, rows: KVCache, slot: int,
+                 cfg: LlamaConfig) -> None:
+    """Copy a single-row scratch cache's P rows (L, 1, P, H, d) into
+    ``slot``, codes and scale planes alike: in place on the dense layout,
+    through the slot's page table on the paged one (row i lands in page
+    ``pages[slot, i // ps]`` at offset ``i % ps``; rows past the slot's
+    reservation land in the trap page)."""
+    p = rows.k.shape[2]
+    if cfg.kv_layout == "paged":
+        ps = cfg.kv_page_size
+        idx = torch.arange(p, device=rows.k.device)
+        pidx, off = state.pages[slot][idx // ps].long(), idx % ps
+    for name in ("k", "v", "k_scale", "v_scale"):
+        full, part = getattr(state.cache, name), getattr(rows, name)
+        if full is None:  # an unquantized cache has no scale planes
+            continue
+        if cfg.kv_layout == "paged":
+            full[:, pidx, off] = part[:, 0]
+        else:
+            full[:, slot, :p] = part[:, 0]
+
+
+def prefill_insert(
+    params: dict, state: BatchState, prompt: torch.Tensor, prompt_len: int,
+    slot: int, cfg: LlamaConfig, knobs: torch.Tensor, max_new: int,
+    generator: torch.Generator, bias: "torch.Tensor | None" = None,
+    seeds: "torch.Tensor | None" = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucketed prefill of one request into ``slot``: the prompt padded
+    to its bucket P (``prompt`` (P,)) runs through a fresh single-row
+    scratch cache of capacity P from position 0, only the last real
+    position is projected, and the P rows are inserted into the slot
+    (rows past ``prompt_len`` are never attended before decode overwrites
+    them). The first token is sampled with the slot's ``bias`` (1, V) and
+    ``seeds`` (1,) at draw 0, and the slot is activated. Returns (token
+    (1,) int64, its logprob (1,) f32) on the device."""
+    p = prompt.shape[0]
+    scratch = KVCache.init(cfg, 1, p, prompt.device)
+    logits = _forward_cached(params, prompt[None, :], scratch, 0, cfg,
+                             select_pos=prompt_len - 1)[:, 0]
+    seen = torch.zeros_like(state.presence[slot])
+    seen[prompt[:prompt_len].long()] = True
+    tok, seen = sample_and_mark_dyn(logits, knobs[None, :], seen[None, :],
+                                    generator, bias, seeds)
+    logp = token_logprob(logits, tok)
+    _insert_rows(state, scratch, slot, cfg)
+    _activate(state, slot, tok, seen, prompt_len, max_new)
+    return tok, logp
 
 
 def prefill_chunk(params: dict, state: BatchState, chunk: torch.Tensor,
@@ -212,9 +378,11 @@ def prefill_finish(
     params: dict, state: BatchState, chunk: torch.Tensor, chunk_start: int,
     prompt_len: int, slot: int, cfg: LlamaConfig, knobs: torch.Tensor,
     max_new: int, generator: torch.Generator,
-) -> tuple[int, float]:
-    """Final chunk: run it, sample the first generated token, activate
-    the slot. Returns (token, logprob).
+    bias: "torch.Tensor | None" = None, seeds: "torch.Tensor | None" = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Final chunk: run it, sample the first generated token with the
+    slot's ``bias`` (1, V) and ``seeds`` (1,) at draw 0, activate the
+    slot. Returns (token (1,) int64, its logprob (1,) f32) on the device.
 
     The host schedules it at ``prompt_len - C`` for prompts of at least
     C tokens (all real; rows an earlier chunk wrote are recomputed to
@@ -233,14 +401,10 @@ def prefill_finish(
     real = chunk[: min(c, prompt_len - chunk_start)].long()
     seen[real] = True
     tok, seen = sample_and_mark_dyn(logits, knobs[None, :], seen[None, :],
-                                    generator)
+                                    generator, bias, seeds)
     logp = token_logprob(logits, tok)
-    state.lengths[slot] = prompt_len
-    state.last_token[slot] = tok[0]
-    state.active[slot] = True
-    state.presence[slot] = seen[0]
-    state.budget[slot] = max_new - 1
-    return int(tok[0]), float(logp[0])
+    _activate(state, slot, tok, seen, prompt_len, max_new)
+    return tok, logp
 
 
 class RequestTooLargeError(ValueError):
@@ -272,14 +436,31 @@ class _Request:
     # multi-token stop sequences (host-side suffix match; kept in out)
     stop: tuple[tuple[int, ...], ...] = ()
     sampler: "Sampler | None" = None
-    # a seeded request's own generator: its i-th use is the i-th draw
-    generator: "torch.Generator | None" = None
+    # OpenAI-style logit bias: ((token_id, bias), ...) added to the raw
+    # logits; rides the decode step as the slot's row of the bias plane
+    bias: tuple = ()
+    # per-request sampling seed (None = the shared generator): the i-th
+    # token is draw i of the seed's counter noise
+    seed: "int | None" = None
     t_submit: float = 0.0
     t_first_tok: float = 0.0
     # paged admission: pages reserved and not yet installed in a table
     # row; ``defer_counted`` counts one pool-pressure spell once
     new_pages: "list[int] | None" = None
     defer_counted: bool = False
+
+
+@dataclass
+class _Inflight:
+    """A dispatched, not yet read decode step: its results on their way
+    to the host (``event`` marks their arrival on a card; None on the
+    CPU, where they are there already) and the slots it counted live."""
+
+    step_no: int
+    emitted: torch.Tensor
+    logps: torch.Tensor
+    event: "torch.cuda.Event | None"
+    slots: tuple[int, ...]
 
 
 class ContinuousBatcher:
@@ -291,10 +472,12 @@ class ContinuousBatcher:
         rid = cb.submit([1, 5, 7], max_new=32)
         results = cb.run()          # {rid: [tok, ...], ...}
 
-    Each :meth:`step` admits what fits (FIFO), advances the oldest
-    mid-prefill request by one chunk, then runs one decode step for the
+    Each :meth:`step` admits what fits (FIFO), prefills (a whole bucketed
+    prompt at admission with ``chunked_prefill=0``, else the oldest
+    mid-prefill request by one chunk), then runs one decode step for the
     whole batch and retires requests on EOS, a stop sequence or their
-    ``max_new`` budget.
+    ``max_new`` budget. With ``pipeline_depth=1`` the decode step is
+    dispatched before the previous one is read back.
 
     ``kv_layout='paged'`` (or a config that says so) serves from a pool
     of ``kv_pages`` pages of ``kv_page_size`` rows, the trap page
@@ -302,7 +485,12 @@ class ContinuousBatcher:
     plus the trap page, so the layout alone never admits less. A request
     reserves ``ceil((prompt + max_new) / kv_page_size)`` pages at
     admission; when the free list is short it waits at the head of the
-    queue until a retirement frees pages."""
+    queue until a retirement frees pages.
+
+    On a CUDA device the decode step is captured once as a CUDA graph
+    (:class:`DecodeGraph`) at construction; ``decode_graph=False`` runs
+    it eagerly instead (a measurement's yardstick). On the CPU it runs
+    eagerly and ``decode_graph=True`` raises."""
 
     def __init__(
         self,
@@ -312,11 +500,14 @@ class ContinuousBatcher:
         max_len: int,
         sampler: "Sampler | None" = None,
         eos_id: "int | None" = None,
-        chunked_prefill: int = 256,
+        prompt_buckets: tuple[int, ...] = DEFAULT_PROMPT_BUCKETS,
+        chunked_prefill: int = 0,
         seed: int = 0,
+        pipeline_depth: int = 1,
         kv_layout: "str | None" = None,     # None = take cfg.kv_layout
         kv_page_size: "int | None" = None,  # None = take cfg.kv_page_size
         kv_pages: int = 0,  # paged pool size; 0 = dense-equivalent + trap
+        decode_graph: "bool | None" = None,  # None = on a CUDA device
         **unserved,
     ):
         _refuse("ContinuousBatcher", unserved, _UNSERVED_INIT)
@@ -348,39 +539,51 @@ class ContinuousBatcher:
                     f"kv_layout='paged' with sliding_window="
                     f"{cfg.sliding_window}: incremental page reservation "
                     "and out-of-window recycling are not ported yet "
-                    "(ROADMAP A6, A10); serve kv_layout='dense'"
+                    "(ROADMAP A.4); serve kv_layout='dense'"
                 )
         elif kv_pages:
             raise ValueError(
                 f"kv_pages={kv_pages} has no effect under kv_layout="
                 "'dense' (the dense cache reserves n_slots * max_len rows)"
             )
-        if chunked_prefill <= 0:
-            raise NotImplementedError(
-                "chunked_prefill=0 (bucketed prefill_insert) is not ported "
-                "yet: pass chunked_prefill=C > 0"
-            )
+        if chunked_prefill < 0:
+            raise ValueError(
+                f"chunked_prefill must be >= 0 (0 = bucketed prefill), "
+                f"got {chunked_prefill}")
         if chunked_prefill > max_len:
             raise ValueError(
                 f"chunked_prefill={chunked_prefill} exceeds max_len={max_len}"
             )
+        if pipeline_depth not in (0, 1):
+            raise ValueError(
+                f"pipeline_depth must be 0 or 1, got {pipeline_depth}")
         self.device = params["embed"].device
-        self.params = params
         # the weights' quantization and resident bytes (codes and scales
         # included), for /v1/health beside the KV residency
         self.weight_stats = {"quant": weight_quant_of(params),
                              "resident_bytes": resident_bytes(params)}
+        # the master-weight cast once, here: a step (and a captured one)
+        # then reads the compute-dtype leaves as they are
+        self.params = cast_params_for_compute(params, cfg)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
         self.sampler = sampler or Sampler()
         self.eos_id = -1 if eos_id is None else int(eos_id)
         self.chunk = int(chunked_prefill)
+        self.buckets = tuple(b for b in prompt_buckets if b <= max_len)
+        if not self.chunk and not self.buckets:
+            raise ValueError(
+                f"no prompt bucket fits max_len={max_len} "
+                f"(buckets={prompt_buckets})"
+            )
+        self.pipeline_depth = int(pipeline_depth)
         self.attn_plan = attention_backend_plan(
             device=self.device, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             kv_layout=cfg.kv_layout, page_size=cfg.kv_page_size,
-            cache_quant=cfg.cache_quant, chunk=self.chunk,
+            cache_quant=cfg.cache_quant,
+            chunk=self.chunk or self.buckets[-1],
             window=cfg.sliding_window,
         )
         for mode, plan in self.attn_plan.items():
@@ -410,6 +613,17 @@ class ContinuousBatcher:
         # unseeded draws of every slot come from this one generator
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # the decode step's other per-slot inputs: persistent tensors,
+        # rewritten in place when the running set changes (admit, retire,
+        # cancel), never per step
+        dev = self.device
+        self._allowed = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
+        self._knobs = torch.zeros((n_slots, 4), dtype=torch.float32,
+                                  device=dev)
+        self._bias = torch.zeros((n_slots, cfg.vocab_size),
+                                 dtype=torch.float32, device=dev)
+        self._eos = torch.tensor(self.eos_id, dtype=torch.int64, device=dev)
+        self._slots_dirty = True
         self.pending: list[_Request] = []
         self.running: dict[int, _Request] = {}     # slot -> decoding request
         self.prefilling: dict[int, _Request] = {}  # slot -> mid-prefill
@@ -417,16 +631,38 @@ class ContinuousBatcher:
         self.done: dict[int, list[int]] = {}
         self.done_requests: dict[int, _Request] = {}
         self._next_rid = 0
-        # work counters; the seconds are host clock around work that ends
-        # in a device sync, so each phase is charged only its own time
+        # the (at most one) dispatched-but-unread decode step
+        self._inflight: "_Inflight | None" = None
+        self._step_no = 0
+        self.pipeline_flushes = 0
+        # work counters. decode_s is host wall over the decode part of
+        # each step (the dispatch and the readback, waits included), so
+        # its mean per dispatched step is the steady step's wall time;
+        # prefill_s is host wall around each prefill dispatch up to its
+        # own completion (a wait for an in-flight decode ahead of it is
+        # charged to decode_s)
         self.decode_steps = 0
         self.decode_tokens = 0
         self.decode_s = 0.0
-        self.prefill_chunks = 0
+        self.prefill_chunks = 0  # prefill dispatches: chunks or buckets
         self.prefill_s = 0.0
-        # running-set caches, rebuilt on admit/retire/cancel only
-        self._knobs_cache: "torch.Tensor | None" = None
-        self._allowed_cache: "torch.Tensor | None" = None
+        on_cuda = dev.type == "cuda"
+        if decode_graph and not on_cuda:
+            raise ValueError(
+                f"decode_graph=True needs a CUDA device, not {dev}: the "
+                "CPU runs the eager decode step")
+        # pinned landing buffers for the readback, two so that step t+1's
+        # copy never lands on step t's before the host read it
+        self._landing = [
+            (torch.empty((n_slots,), dtype=torch.int64, pin_memory=True),
+             torch.empty((n_slots,), dtype=torch.float32, pin_memory=True))
+            for _ in range(2)] if on_cuda else None
+        self._refresh_slot_inputs()  # every slot out, the default knobs
+        self.graph: "DecodeGraph | None" = None
+        if on_cuda and decode_graph is not False:
+            # captured while no slot is allowed: the warm-up steps
+            # compute and discard, writing only the trap rows
+            self.graph = DecodeGraph(self._eager_step, self.generator, dev)
 
     # --- admission rule ---
 
@@ -460,6 +696,8 @@ class ContinuousBatcher:
                     prompt_tokens=prompt_len, max_new=max_new,
                     limit=self.pool.capacity * self.pool.page_size,
                 )
+        if not self.chunk:
+            _bucket(prompt_len, self.buckets)
 
     def validate_prompt(self, prompt) -> list[int]:
         toks = [int(t) for t in prompt]
@@ -470,6 +708,31 @@ class ContinuousBatcher:
                 f"{self.cfg.vocab_size})"
             )
         return toks
+
+    def validate_bias(self, logit_bias) -> tuple:
+        """A logit_bias mapping ({token_id: bias} or pairs) -> a tuple of
+        (token, bias) pairs. OpenAI's bounds: at most 300 entries, each
+        bias in [-100, 100], token ids in the vocabulary."""
+        if not logit_bias:
+            return ()
+        items = (logit_bias.items() if isinstance(logit_bias, dict)
+                 else list(logit_bias))
+        out = []
+        for tok, b in items:
+            tok, b = int(tok), float(b)
+            if not 0 <= tok < self.cfg.vocab_size:
+                raise ValueError(
+                    f"logit_bias token {tok} outside vocab "
+                    f"[0, {self.cfg.vocab_size})"
+                )
+            if not -100.0 <= b <= 100.0:
+                raise ValueError(f"logit_bias value {b} outside [-100, 100]")
+            out.append((tok, b))
+        if len(out) > 300:
+            raise ValueError(
+                f"logit_bias supports at most 300 entries (got {len(out)})"
+            )
+        return tuple(out)
 
     @staticmethod
     def validate_seed(seed) -> "int | None":
@@ -487,58 +750,72 @@ class ContinuousBatcher:
         stop: "list[list[int]] | None" = None,
         sampler: "Sampler | None" = None,
         seed: "int | None" = None,
+        logit_bias=None,
         **unserved,
     ) -> int:
         """Queue a request; returns its id."""
         _refuse("submit", unserved, _UNSERVED_SUBMIT)
         prompt = self.validate_prompt(prompt)
         self.validate(len(prompt), max_new)
+        bias = self.validate_bias(logit_bias)
         seed = self.validate_seed(seed)
         rid = self._next_rid
         self._next_rid += 1
-        req = _Request(
+        self.pending.append(_Request(
             rid, prompt, int(max_new),
             stop=tuple(tuple(int(t) for t in s) for s in (stop or ()) if s),
-            sampler=sampler, t_submit=time.perf_counter(),
-        )
-        if seed is not None:
-            req.generator = torch.Generator(device=self.device)
-            req.generator.manual_seed(seed)
-        self.pending.append(req)
+            sampler=sampler, bias=bias, seed=seed,
+            t_submit=time.perf_counter(),
+        ))
         return rid
 
-    # --- running-set caches ---
+    # --- the decode step's per-slot inputs ---
+
+    def _h2d(self, values, dtype: torch.dtype) -> torch.Tensor:
+        """Host values -> a tensor on the batcher's device, copied from
+        pinned memory without a stream sync on a card (the copy queues
+        behind an in-flight step instead of waiting for it)."""
+        host = torch.tensor(values, dtype=dtype,
+                            pin_memory=self.device.type == "cuda")
+        return host.to(self.device, non_blocking=True)
 
     def _req_knobs(self, req: _Request) -> torch.Tensor:
-        return torch.tensor(sampler_knobs(req.sampler or self.sampler),
-                            dtype=torch.float32, device=self.device)
+        return self._h2d(sampler_knobs(req.sampler or self.sampler),
+                         torch.float32)
 
-    def _batch_knobs(self) -> torch.Tensor:
-        if self._knobs_cache is None:
-            rows = [sampler_knobs(self.sampler)] * self.n_slots
-            for slot, req in self.running.items():
-                if req.sampler is not None:
-                    rows[slot] = sampler_knobs(req.sampler)
-            self._knobs_cache = torch.tensor(rows, dtype=torch.float32,
-                                             device=self.device)
-        return self._knobs_cache
+    def _refresh_slot_inputs(self) -> None:
+        """Rewrite the membership mask and the knobs for the current
+        running set, in place: once per admit/retire/cancel, never in
+        the steady loop."""
+        if not self._slots_dirty:
+            return
+        rows = [sampler_knobs(self.sampler)] * self.n_slots
+        for slot, req in self.running.items():
+            if req.sampler is not None:
+                rows[slot] = sampler_knobs(req.sampler)
+        self._knobs.copy_(self._h2d(rows, torch.float32))
+        self._allowed.copy_(self._h2d(
+            [s in self.running for s in range(self.n_slots)], torch.bool))
+        self._slots_dirty = False
 
-    def _batch_allowed(self) -> torch.Tensor:
-        if self._allowed_cache is None:
-            allowed = [slot in self.running for slot in range(self.n_slots)]
-            self._allowed_cache = torch.tensor(allowed, dtype=torch.bool,
-                                               device=self.device)
-        return self._allowed_cache
+    def _open_slot(self, req: _Request, slot: int) -> None:
+        """Admission writes the slot's seed and its row of the bias plane
+        (zero already, unless the request brings a bias)."""
+        self.state.seeds[slot] = -1 if req.seed is None else req.seed
+        if req.bias:
+            toks, vals = zip(*req.bias)
+            self._bias[slot].index_put_(
+                (self._h2d(list(toks), torch.int64),),
+                self._h2d(list(vals), torch.float32), accumulate=True)
 
-    def _row_generators(self) -> list:
-        return [
-            self.running[s].generator if s in self.running else None
-            for s in range(self.n_slots)
-        ]
-
-    def _invalidate_slot_caches(self) -> None:
-        self._knobs_cache = None
-        self._allowed_cache = None
+    def _close_slot(self, req: _Request, slot: int) -> None:
+        """Retirement or cancellation: the slot leaves the decode's
+        membership, its bias row goes back to zeros, its pages to the
+        pool."""
+        self._slots_dirty = True
+        if req.bias:
+            self._bias[slot].zero_()
+        self._release_slot_pages(slot)
 
     # --- paged-KV admission (no-ops on the dense layout) ---
 
@@ -576,8 +853,7 @@ class ContinuousBatcher:
         ids, req.new_pages = req.new_pages, None
         row = ids + [0] * (self.state.pages.shape[1] - len(ids))
         self._slot_pages[slot] = ids
-        self.state.pages[slot] = torch.tensor(row, dtype=torch.int32,
-                                              device=self.device)
+        self.state.pages[slot] = self._h2d(row, torch.int32)
 
     def _release_slot_pages(self, slot: int) -> None:
         """Drop the slot's page references when its request retires or
@@ -631,7 +907,16 @@ class ContinuousBatcher:
             "in_use_bytes": cap_tokens * tb,
         }
 
-    # --- the step loop ---
+    def decode_stats(self) -> dict:
+        """How the decode step runs, for ``/v1/health``: the pipeline
+        depth, flushes of the in-flight step, and the captured graph
+        (its private pool's bytes, replays, launches a replay makes), or
+        None where the step runs eagerly."""
+        return {"pipeline_depth": self.pipeline_depth,
+                "pipeline_flushes": self.pipeline_flushes,
+                "graph": None if self.graph is None else self.graph.stats()}
+
+    # --- admission and prefill ---
 
     def _admit(self) -> None:
         free = [s for s in range(self.n_slots)
@@ -641,11 +926,62 @@ class ContinuousBatcher:
             if self.pool is not None and not self._reserve_pages(req):
                 break  # head-of-line wait: pages free as slots retire
             self.pending.pop(0)
-            req.slot = free.pop(0)
+            req.slot = slot = free.pop(0)
             if self.pool is not None:
-                self._install_pages(req, req.slot)
-            self.prefilling[req.slot] = req
-            self._prefill_pos[req.slot] = 0
+                self._install_pages(req, slot)
+            self._open_slot(req, slot)
+            if self.chunk:
+                self.prefilling[slot] = req
+                self._prefill_pos[slot] = 0
+                continue
+            plen = len(req.prompt)
+            bucket = _bucket(plen, self.buckets)
+            padded = self._h2d(req.prompt + [0] * (bucket - plen),
+                               torch.int64)
+            t0 = time.perf_counter()
+            tok, logp = prefill_insert(
+                self.params, self.state, padded, plen, slot, self.cfg,
+                self._req_knobs(req), req.max_new, self.generator,
+                bias=self._bias[slot:slot + 1],
+                seeds=self.state.seeds[slot:slot + 1],
+            )
+            self._first_token(req, slot, tok, logp, t0)
+
+    def _wait_prefill(self, done: "torch.cuda.Event | None",
+                      t0: float) -> None:
+        """Charge a prefill dispatch its own time: a decode step still in
+        flight ahead of it is waited for first and charged to decode_s,
+        then the prefill's own completion event."""
+        t1 = time.perf_counter()
+        if self._inflight is not None and self._inflight.event is not None:
+            self._inflight.event.synchronize()
+            t2 = time.perf_counter()
+            self.decode_s += t2 - t1
+        else:
+            t2 = t1
+        if done is not None:
+            done.synchronize()
+        self.prefill_chunks += 1
+        self.prefill_s += (t1 - t0) + (time.perf_counter() - t2)
+
+    def _done_event(self) -> "torch.cuda.Event | None":
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def _first_token(self, req: _Request, slot: int, tok: torch.Tensor,
+                     logp: torch.Tensor, t0: float) -> None:
+        """A prefill's first token reaches the host: the request moves
+        to running."""
+        self._wait_prefill(self._done_event(), t0)
+        req.out.append(int(tok[0]))
+        req.out_logp.append(float(logp[0]))
+        req.t_first_tok = time.perf_counter()
+        self.running[slot] = req
+        self._slots_dirty = True
+        self._finish_if_done(req)
 
     def _prefill_one_chunk(self) -> None:
         """Advance the oldest mid-prefill request by one chunk; on its
@@ -657,49 +993,106 @@ class ContinuousBatcher:
         start = self._prefill_pos[slot]
         c = self.chunk
         plen = len(req.prompt)
-        self.prefill_chunks += 1
         t0 = time.perf_counter()
         if start + c < plen:  # intermediate chunk, all real tokens
-            chunk = torch.tensor(req.prompt[start:start + c],
-                                 dtype=torch.int64, device=self.device)
+            chunk = self._h2d(req.prompt[start:start + c], torch.int64)
             prefill_chunk(self.params, self.state, chunk, start, slot,
                           self.cfg)
-            if self.device.type == "cuda":
-                # nothing reads this chunk back: wait here, or its device
-                # time would be charged to the next decode step
-                torch.cuda.synchronize(self.device)
-            self.prefill_s += time.perf_counter() - t0
+            # nothing reads this chunk back: wait for it here, or its
+            # device time would be charged to the next decode step
+            self._wait_prefill(self._done_event(), t0)
             self._prefill_pos[slot] = start + c
             return
         fstart = max(0, plen - c)
         rest = req.prompt[fstart:]
-        chunk = torch.tensor(rest + [0] * (c - len(rest)), dtype=torch.int64,
-                             device=self.device)
+        chunk = self._h2d(rest + [0] * (c - len(rest)), torch.int64)
         tok, logp = prefill_finish(
             self.params, self.state, chunk, fstart, plen, slot, self.cfg,
-            self._req_knobs(req), req.max_new,
-            req.generator or self.generator,
-        )  # returns host numbers: the chunk is done on the device
-        self.prefill_s += time.perf_counter() - t0
-        del self.prefilling[slot], self._prefill_pos[slot]
-        req.out.append(tok)
-        req.out_logp.append(logp)
-        req.t_first_tok = time.perf_counter()
-        self.running[slot] = req
-        self._invalidate_slot_caches()
-        self._finish_if_done(req)
-
-    def _decode_once(self) -> int:
-        t0 = time.perf_counter()
-        emitted, logps = decode_step(
-            self.params, self.state, self._batch_allowed(), self.eos_id,
-            self.cfg, self._batch_knobs(), self.generator,
-            self._row_generators(),
+            self._req_knobs(req), req.max_new, self.generator,
+            bias=self._bias[slot:slot + 1],
+            seeds=self.state.seeds[slot:slot + 1],
         )
-        emitted = emitted.tolist()  # the step's one device sync
-        logps = logps.tolist()
+        del self.prefilling[slot], self._prefill_pos[slot]
+        self._first_token(req, slot, tok, logp, t0)
+
+    # --- the decode loop ---
+
+    def _eager_step(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """:func:`decode_step` over the persistent inputs (what the graph
+        captures)."""
+        return decode_step(self.params, self.state, self._allowed, self._eos,
+                           self.cfg, self._knobs, self.generator,
+                           bias=self._bias, seeds=self.state.seeds)
+
+    def _dispatch_decode(self) -> None:
+        """Enqueue one decode step without waiting for it: its results
+        start for the host at once (pinned buffers, an event) and wait in
+        ``_inflight`` with the slots it counted live."""
+        t0 = time.perf_counter()
+        self._refresh_slot_inputs()
+        if self.graph is not None:
+            emitted, logps = self.graph.replay()
+        else:
+            emitted, logps = self._eager_step()
+        event = None
+        if self._landing is not None:
+            host_tok, host_logp = self._landing[self._step_no % 2]
+            host_tok.copy_(emitted, non_blocking=True)
+            host_logp.copy_(logps, non_blocking=True)
+            emitted, logps = host_tok, host_logp
+            event = torch.cuda.Event()
+            event.record()
+        self._inflight = _Inflight(self._step_no, emitted, logps, event,
+                                   tuple(self.running))
+        self._step_no += 1
         self.decode_steps += 1
         self.decode_s += time.perf_counter() - t0
+
+    def _read_step(self, inflight: "_Inflight | None") -> int:
+        """Read a dispatched step back and run the host's per-token work
+        for it; None (the pipeline's first step) reads nothing."""
+        if inflight is None:
+            return 0
+        t0 = time.perf_counter()
+        if inflight.event is not None:
+            inflight.event.synchronize()
+        emitted = inflight.emitted.tolist()
+        logps = inflight.logps.tolist()
+        self.decode_s += time.perf_counter() - t0
+        return self._apply_emitted(emitted, logps)
+
+    def _decode_once(self) -> int:
+        """One synchronous decode step: dispatch, then read it back."""
+        self._dispatch_decode()
+        inflight, self._inflight = self._inflight, None
+        return self._read_step(inflight)
+
+    def _inflight_covers_rest(self, inflight: _Inflight) -> bool:
+        """True when the in-flight step's pending tokens retire every
+        running request on budget: a dispatch ahead would compute a whole
+        batch of -1 sentinels. Conservative, since EOS and stop
+        retirements cannot be predicted on the host."""
+        return all(
+            len(req.out) + (1 if slot in inflight.slots else 0) >= req.max_new
+            for slot, req in self.running.items()
+        )
+
+    def _flush_inflight(self) -> int:
+        """Drain the in-flight step before an admission that could reuse
+        one of its live slots: its tokens are applied against the current
+        running map, so a freed slot's lagging token is dropped here
+        rather than given to the slot's next occupant."""
+        prev, self._inflight = self._inflight, None
+        if prev is None:
+            return 0
+        self.pipeline_flushes += 1
+        return self._read_step(prev)
+
+    def _apply_emitted(self, emitted: list, logps: list) -> int:
+        """Append one read-back step's tokens and logprobs and retire what
+        finished. Slots no longer running (retired or cancelled since the
+        dispatch) and -1 sentinels are skipped: the lag-by-one drop that
+        makes the pipeline exact."""
         n = 0
         for slot, req in list(self.running.items()):
             tok = emitted[slot]
@@ -727,13 +1120,13 @@ class ContinuousBatcher:
         self.done_requests[req.rid] = req
         if self.running.get(req.slot) is req:
             del self.running[req.slot]
-            self._invalidate_slot_caches()
-            self._release_slot_pages(req.slot)
+            self._close_slot(req, req.slot)
 
     def cancel(self, rid: int) -> bool:
         """Retire ``rid`` wherever it lives (pending, mid-prefill or
         decoding), keeping the tokens it has. False for unknown or
-        finished ids."""
+        finished ids. A step in flight is not read here: its token for
+        the slot is dropped on readback."""
         for i, req in enumerate(self.pending):
             if req.rid == rid:
                 self.pending.pop(i)
@@ -744,21 +1137,46 @@ class ContinuousBatcher:
                 if req.rid == rid:
                     del mapping[slot]
                     self._prefill_pos.pop(slot, None)
-                    self._invalidate_slot_caches()
-                    self._release_slot_pages(slot)
+                    self._close_slot(req, slot)
                     self._retire(req)
                     return True
         return False
 
     def step(self) -> int:
-        """Admit what fits, advance at most one prefill chunk, then one
-        decode step for the whole batch. Returns tokens emitted by the
-        decode step."""
+        """Admit what fits, prefill (a bucketed prompt at admission, or
+        one chunk), then one decode step for the whole batch. Returns the
+        tokens read back in this call.
+
+        With ``pipeline_depth=1`` the call dispatches step t+1 and only
+        then reads step t back. The flush-first rule: when this call may
+        change slot occupancy (pending admissions, prefill progress, or
+        an emptied batch) and a slot the in-flight step counted live has
+        since been freed, the in-flight step is read first, so that its
+        stale token cannot be given to the slot's next occupant. When
+        every in-flight slot is still running (a saturated queue, steady
+        chunked admission) nothing is flushed."""
+        n = 0
+        inflight = self._inflight
+        if inflight is not None and (
+                self.pending or self.prefilling or not self.running) and any(
+                s not in self.running for s in inflight.slots):
+            n += self._flush_inflight()
         self._admit()
         self._prefill_one_chunk()
-        if self.running:
-            return self._decode_once()
-        return 0
+        if not self.running:
+            return n
+        if not self.pipeline_depth:
+            return n + self._decode_once()
+        prev, self._inflight = self._inflight, None
+        if prev is not None and self._inflight_covers_rest(prev):
+            # the budgets retire every running request with the step in
+            # flight: read it rather than dispatch a step of sentinels
+            n += self._read_step(prev)
+            if self.running:  # never on budget; EOS and stop can't
+                self._dispatch_decode()
+            return n
+        self._dispatch_decode()
+        return n + self._read_step(prev)
 
     def run(self, max_steps: "int | None" = None) -> dict[int, list[int]]:
         """Drive until every submitted request finished (or max_steps)."""

@@ -2,16 +2,19 @@
 
 Port of ``k8s_gpu_device_plugin_tpu/models/sampling.py`` (``Sampler``,
 ``sampler_knobs``, ``sample_logits_dyn``, ``sample_and_mark_dyn``,
-``token_logprob``). The filter order is the reference's: repetition
-penalty, then temperature, then top-k, then top-p; greedy rows
-(temperature 0) take the argmax of the penalised logits.
+``token_logprob``). The order is the reference's: a per-row logit bias
+added to the raw logits, then repetition penalty, temperature, top-k and
+top-p; greedy rows (temperature 0) take the argmax of the biased,
+penalised logits.
 
 Random draws cannot reproduce JAX's (``fold_in(key(seed), i)``), so the
 port pins its own rule: a draw is an argmax over logits plus Gumbel
-noise, the noise of an unseeded row comes from the batcher's shared
-``torch.Generator``, and a seeded request owns a generator of its own
-whose i-th use is its i-th draw — its stream depends on its seed and
-its own logits only, never on its neighbours.
+noise. An unseeded row's noise comes from the batcher's shared
+``torch.Generator``. A seeded row's noise is a stateless function of
+(seed, draw index, vocabulary index), computed with integer tensor ops
+on the row's device (:func:`counter_gumbel`), so its stream depends on
+its seed and its own logits only, never on its neighbours, and a CUDA
+graph replays it without any generator state.
 """
 
 from __future__ import annotations
@@ -74,18 +77,61 @@ def _gumbel(shape, generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32) and a 32-bit
+    constant, in 16-bit halves so that no product leaves int64."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _MASK32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer (a bijection of [0, 2^32)), in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def counter_gumbel(seeds: torch.Tensor, draws: torch.Tensor,
+                   vocab: int) -> torch.Tensor:
+    """(B,) seeds and (B,) draw indices -> (B, V) f32 Gumbel noise, a
+    pure function of (seed, draw, vocabulary index): the seeded rows'
+    noise. Each entry hashes its three integers to 32 bits, keeps the top
+    24 as a uniform in (0, 1) and takes -log(-log(u)). Integer ops only
+    up to the uniform, so CPU and CUDA draw the same uniforms."""
+    row = _fmix32(_mul32(seeds.long() & _MASK32, 0x9E3779B1)
+                  ^ (draws.long() & _MASK32))
+    row = _fmix32(row ^ 0x5BD1E995)
+    col = _mul32(torch.arange(vocab, dtype=torch.int64,
+                              device=seeds.device), 0x27D4EB2F)
+    h = _fmix32(row[:, None] ^ col[None, :])
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
 def sample_logits_dyn(
     logits: torch.Tensor,      # (B, V)
     knobs: torch.Tensor,       # (B, 4) f32: temp, top_k, top_p, rep_penalty
     presence: torch.Tensor,    # (B, V) bool
     generator: "torch.Generator | None" = None,
-    row_generators: "list[torch.Generator | None] | None" = None,
+    bias: "torch.Tensor | None" = None,   # (B, V) f32 per-row logit bias
+    seeds: "torch.Tensor | None" = None,  # (B,) int seed, -1 = unseeded
+    draws: "torch.Tensor | None" = None,  # (B,) int draw index
 ) -> torch.Tensor:
-    """Per-row knobs -> (B,) int64 tokens. ``generator`` feeds the rows
-    without a generator of their own; ``row_generators[i]`` (seeded
-    requests) feeds row i alone. Every row draws once per call, greedy
-    or not, so a generator's i-th draw is its row's i-th token."""
+    """Per-row knobs -> (B,) int64 tokens. ``bias`` is added to the raw
+    logits before the penalty and every filter (OpenAI ``logit_bias``:
+    -100 bans a token, +100 forces it); a zero row leaves the f32 logits
+    as they are. ``generator`` feeds the rows without a seed: it draws
+    one (B, V) block per call, greedy or not, whatever the seeds say. A
+    row with ``seeds[i] >= 0`` takes :func:`counter_gumbel` noise at draw
+    ``draws[i]`` (0 when ``draws`` is None: a request's first token)."""
     logits = logits.float()
+    if bias is not None:
+        logits = logits + bias
     temp, top_k, top_p, rep = knobs.float().unbind(-1)
     pen = rep[:, None]
     penalized = torch.where(logits > 0, logits / pen, logits * pen)
@@ -110,9 +156,11 @@ def sample_logits_dyn(
     scaled = torch.where((top_p < 1.0)[:, None] & (scaled < pth), neg, scaled)
 
     noise = _gumbel((b, v), generator, logits.device)
-    for i, gen in enumerate(row_generators or ()):
-        if gen is not None:
-            noise[i] = _gumbel((v,), gen, logits.device)
+    if seeds is not None:
+        if draws is None:
+            draws = torch.zeros_like(seeds)
+        noise = torch.where((seeds >= 0)[:, None],
+                            counter_gumbel(seeds, draws, v), noise)
     sampled = (scaled + noise).argmax(dim=-1)
     return torch.where(temp == 0.0, greedy_tok, sampled)
 
@@ -120,19 +168,22 @@ def sample_logits_dyn(
 def sample_and_mark_dyn(
     logits: torch.Tensor, knobs: torch.Tensor, presence: torch.Tensor,
     generator: "torch.Generator | None" = None,
-    row_generators: "list[torch.Generator | None] | None" = None,
+    bias: "torch.Tensor | None" = None,
+    seeds: "torch.Tensor | None" = None,
+    draws: "torch.Tensor | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`sample_logits_dyn`, plus the presence mask with each row's
     token marked (a new tensor; ``presence`` is not modified)."""
-    tok = sample_logits_dyn(logits, knobs, presence, generator,
-                            row_generators)
-    marked = presence.clone()
-    marked[torch.arange(tok.shape[0], device=tok.device), tok] = True
-    return tok, marked
+    tok = sample_logits_dyn(logits, knobs, presence, generator, bias, seeds,
+                            draws)
+    # a scatter of a Python scalar: no host tensor to copy, so it can be
+    # captured in a CUDA graph
+    return tok, presence.scatter(1, tok[:, None], True)
 
 
 def token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     """log P(tok) under the RAW model distribution (f32 log-softmax of
-    the unfiltered logits), independent of every sampler knob."""
+    the unfiltered, unbiased logits), independent of every sampler knob
+    and of the logit bias."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return logp.gather(-1, tok.long()[..., None])[..., 0]

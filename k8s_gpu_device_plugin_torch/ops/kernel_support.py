@@ -16,6 +16,9 @@ run can show that its main path went through the kernels; a kernel with
 two engines also counts each launch under its engine's key
 (:func:`engine_key`): ``cuda_cores`` (f32 arithmetic on the CUDA cores)
 or ``tensor_cores`` (bf16 products in ``wgmma``, ``csrc/attention_tile.cuh``).
+A CUDA graph replays its kernels without reaching the wrappers, so its
+capture records their counts (:func:`recording_launches`) and every
+replay adds them (:func:`count_replay`).
 
 The tensor-core mainloop rounds its softmax weights to bf16 before the V
 product, so both kernels that run it are held to a plain version that
@@ -27,6 +30,7 @@ its gradient products; its gradients are held the same way by
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,6 +63,8 @@ _build_locks: dict[str, threading.Lock] = {}  # one per library: builds run in p
 _locks_lock = threading.Lock()
 _launches: dict[str, int] = {}
 _launch_lock = threading.Lock()  # the engine thread counts, others read
+# per thread: the recording of a CUDA graph capture in progress
+_capture = threading.local()
 
 
 def lane_aligned(head_dim: int) -> bool:
@@ -301,9 +307,35 @@ def engine_key(name: str, engine: str) -> str:
 
 
 def count_launch(name: str) -> None:
-    """A wrapper calls this once for each launch of its kernel."""
+    """A wrapper calls this once for each launch of its kernel. Inside
+    :func:`recording_launches` (a CUDA graph capture, which launches
+    nothing) the call is recorded for the capture instead."""
+    recording = getattr(_capture, "launches", None)
+    if recording is not None:
+        recording[name] = recording.get(name, 0) + 1
+        return
     with _launch_lock:
         _launches[name] = _launches.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph is captured on this thread: the wrappers'
+    counts go into the yielded dict, the launches one replay will make,
+    and not into :func:`launch_counts`."""
+    _capture.launches = recording = {}
+    try:
+        yield recording
+    finally:
+        _capture.launches = None
+
+
+def count_replay(launches: dict[str, int]) -> None:
+    """A graph replay launches the kernels its capture recorded
+    (:func:`recording_launches`): count each of them once more."""
+    with _launch_lock:
+        for name, n in launches.items():
+            _launches[name] = _launches.get(name, 0) + n
 
 
 def launch_counts() -> dict[str, int]:

@@ -11,7 +11,8 @@ Wire contract (the reference's):
 
 - ``POST /v1/generate`` ``{"prompt": [ids...], "max_new": N, "stream":
   false, "logprobs": false, "stop": [[ids...], ...], "temperature",
-  "top_k", "top_p", "repetition_penalty", "seed"}`` ->
+  "top_k", "top_p", "repetition_penalty", "seed", "logit_bias":
+  {"token_id": bias, ...}}`` ->
   ``{"id", "tokens", "cached_tokens"[, "logprobs"]}``, or with
   ``"stream": true`` a ``text/event-stream`` of ``data: {"token": t[,
   "logprob": lp]}`` frames closing with ``data: {"done": true}``.
@@ -19,14 +20,20 @@ Wire contract (the reference's):
   prefix cache is ported, so it is always 0, and the done event leaves
   it out, as the reference's does at 0. A field the port does
   not implement yet (``n`` other than 1, ``adapter``, ``text``,
-  ``stop_text``, ``logit_bias``, the scheduling and resume fields, ...)
-  answers 400 naming it; a request no slot can hold answers 422.
+  ``stop_text``, the scheduling and resume fields, ...) answers 400
+  naming it, as does a ``logit_bias`` that is not an object of integer
+  keys and numbers; a request no slot can hold, a bias outside the
+  batcher's bounds, or (with ``--chunkedPrefill 0``) a prompt longer than
+  the largest bucket answers 422.
 - ``GET /v1/health`` -> slots, active, prefilling, queued, alive, the
   attention backend plan (``decode_attn``), the KV residency (``kv``:
   layout, reserved bytes and, paged, the pool's occupancy, fragmentation
   and the admissions it refused or made to wait), the weights
   (``weights``: their quantization and resident bytes), the device,
-  decode-step and prefill-chunk counts and the kernels' launch counts.
+  decode-step and prefill counts, how the decode step runs (``decode``:
+  the pipeline depth and flushes, and on a card the captured CUDA
+  graph's pool bytes, replays and launches a replay makes) and the
+  kernels' launch counts.
 
 Run: ``python -m k8s_gpu_device_plugin_torch.serving.server --preset
 llama3_8b --port 8731`` (random weights drawn on the card from
@@ -36,7 +43,10 @@ page included; 0 sizes it to the dense reservation); ``--cacheQuant
 int8`` (or ``int4``) keeps K/V as int8 (int4) codes with f32 scales, on
 either layout; ``--weightQuant int8|int4`` quantizes the projection,
 MLP and lm_head weights after they load (weight-only, as the reference's
-server does).
+server does). ``--pipelineDepth 1`` (the default) dispatches each decode
+step before the previous one is read back, 0 runs the synchronous loop;
+``--chunkedPrefill 0`` prefills each prompt whole at admission, padded to
+its bucket, instead of in chunks of 256.
 """
 
 from __future__ import annotations
@@ -80,7 +90,7 @@ PRESETS = {
 _KNOBS = {"temperature": float, "top_k": int, "top_p": float,
           "repetition_penalty": float}
 _FIELDS = {"prompt", "max_new", "stream", "logprobs", "stop", "seed", "n",
-           *_KNOBS}
+           "logit_bias", *_KNOBS}
 
 
 class StreamError:
@@ -101,12 +111,13 @@ class InferenceEngine:
                  max_len: int = 2048, sampler: "Sampler | None" = None,
                  eos_id: "int | None" = None, chunked_prefill: int = 256,
                  seed: int = 0, kv_layout: "str | None" = None,
-                 kv_page_size: "int | None" = None, kv_pages: int = 0):
+                 kv_page_size: "int | None" = None, kv_pages: int = 0,
+                 pipeline_depth: int = 1):
         self.cb = ContinuousBatcher(
             params, cfg, n_slots=n_slots, max_len=max_len, sampler=sampler,
             eos_id=eos_id, chunked_prefill=chunked_prefill, seed=seed,
             kv_layout=kv_layout, kv_page_size=kv_page_size,
-            kv_pages=kv_pages,
+            kv_pages=kv_pages, pipeline_depth=pipeline_depth,
         )
         self._lock = threading.Lock()
         self._work = threading.Event()
@@ -130,19 +141,22 @@ class InferenceEngine:
     def submit(self, prompt: list[int], max_new: int,
                stop: "list[list[int]] | None" = None,
                sampler: "Sampler | None" = None,
-               seed: "int | None" = None) -> tuple[int, queue.Queue]:
+               seed: "int | None" = None,
+               logit_bias=None) -> tuple[int, queue.Queue]:
         """Validate (everything the batcher would) and queue a request.
         Returns (engine id, its token queue)."""
         if self._dead.is_set():
             raise RuntimeError("inference engine is dead (see logs)")
         prompt = self.cb.validate_prompt(prompt)
         self.cb.validate(len(prompt), max_new)
+        bias = self.cb.validate_bias(logit_bias)
         seed = self.cb.validate_seed(seed)
         q: queue.Queue = queue.Queue()
         with self._lock:
             eid = self._next_eid
             self._next_eid += 1
-            self._subq.append((eid, prompt, max_new, stop, sampler, seed))
+            self._subq.append((eid, prompt, max_new, stop, sampler, seed,
+                               bias))
             self._streams[eid] = q
             self._published[eid] = 0
         self._work.set()
@@ -170,6 +184,7 @@ class InferenceEngine:
             "decode_attn": cb.attn_plan,
             "kv": {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()},
             "weights": dict(cb.weight_stats),
+            "decode": cb.decode_stats(),
             "decode_steps": cb.decode_steps,
             "decode_tokens": cb.decode_tokens,
             "decode_step_ms_mean": (
@@ -198,9 +213,9 @@ class InferenceEngine:
     def _admit_submissions(self) -> None:
         with self._lock:
             batch, self._subq = self._subq, []
-        for eid, prompt, max_new, stop, sampler, seed in batch:
+        for eid, prompt, max_new, stop, sampler, seed, bias in batch:
             rid = self.cb.submit(prompt, max_new, stop=stop, sampler=sampler,
-                                 seed=seed)
+                                 seed=seed, logit_bias=bias)
             self._rid_to_eid[rid] = eid
 
     def _apply_cancellations(self) -> None:
@@ -268,6 +283,22 @@ class InferenceEngine:
                 q.put(None)
 
 
+def _parse_logit_bias(raw) -> "dict | None":
+    """The wire's logit_bias ({"token_id": bias}: string keys, as OpenAI
+    sends them) -> {int: float}; the bounds are the batcher's
+    ``validate_bias``."""
+    if raw is None:
+        return None
+    if not isinstance(raw, dict):
+        raise ValueError("logit_bias must be an object of token_id: bias")
+    try:
+        return {int(k): float(v) for k, v in raw.items()}
+    except (TypeError, ValueError):
+        raise ValueError(
+            "logit_bias keys must be integer token ids and values numbers"
+        ) from None
+
+
 def _parse_request(body) -> dict:
     """The /v1/generate body -> submit kwargs (+ stream/logprobs flags).
     Raises ValueError with a message naming the offending field."""
@@ -302,6 +333,7 @@ def _parse_request(body) -> dict:
         "prompt": prompt, "max_new": max_new, "stop": stop,
         "sampler": Sampler(**given) if given else None,
         "seed": body.get("seed"),
+        "logit_bias": _parse_logit_bias(body.get("logit_bias")),
         "stream": bool(body.get("stream", False)),
         "logprobs": bool(body.get("logprobs", False)),
     }
@@ -342,7 +374,8 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             eid, q = engine.submit(req["prompt"], req["max_new"],
                                    stop=req["stop"], sampler=req["sampler"],
-                                   seed=req["seed"])
+                                   seed=req["seed"],
+                                   logit_bias=req["logit_bias"])
         except RequestTooLargeError as e:
             self._json(422, {"error": {"message": str(e),
                                        "code": "request_too_large",
@@ -444,7 +477,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--slots", type=int, default=8)
     parser.add_argument("--maxLen", type=int, default=2048)
-    parser.add_argument("--chunkedPrefill", type=int, default=256)
+    parser.add_argument("--chunkedPrefill", type=int, default=256,
+                        help="prefill in chunks of this many tokens, one "
+                        "chunk a step; 0 prefills each prompt whole at "
+                        "admission, padded to its bucket (32 ... 1024: a "
+                        "longer prompt answers 422)")
+    parser.add_argument("--pipelineDepth", type=int, default=1,
+                        choices=[0, 1],
+                        help="1 dispatches each decode step before the "
+                        "previous one is read back; 0 runs the "
+                        "synchronous loop")
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--topK", type=int, default=0)
     parser.add_argument("--topP", type=float, default=1.0)
@@ -512,7 +554,7 @@ def build_server(args: argparse.Namespace,
         sampler=Sampler(temperature=args.temperature, top_k=args.topK,
                         top_p=args.topP),
         chunked_prefill=args.chunkedPrefill, seed=args.seed,
-        kv_layout=args.kvLayout,
+        pipeline_depth=args.pipelineDepth, kv_layout=args.kvLayout,
         kv_page_size=args.kvPageSize if args.kvLayout == "paged" else None,
         kv_pages=args.kvPages,
     )

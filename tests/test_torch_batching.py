@@ -99,16 +99,25 @@ def test_stop_sequence_and_cancel(models):
 
 
 def test_refuses_what_the_slice_does_not_serve(models):
+    """What is still unserved is refused; the pipelined loop, bucketed
+    prefill and logit bias are served now, with the reference's
+    defaults (pipeline_depth 1, chunked_prefill 0) and its bounds."""
     _, _, tcfg, tparams = models
     with pytest.raises(NotImplementedError, match="adapters"):
         tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, adapters=object())
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, pipeline_depth=1)
-    with pytest.raises(NotImplementedError, match="chunked_prefill"):
-        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, chunked_prefill=0)
-    cb = tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, chunked_prefill=16,
-                                  kv_layout=None)
-    with pytest.raises(NotImplementedError, match="logit_bias"):
-        cb.submit([1, 2], 4, logit_bias={1: 5.0})
+    with pytest.raises(NotImplementedError, match="tenant"):
+        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128).submit(
+            [1, 2], 4, tenant="gold")
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, pipeline_depth=2)
+    with pytest.raises(ValueError, match="no prompt bucket"):
+        tbatch.ContinuousBatcher(tparams, tcfg, 2, 16, prompt_buckets=(32,))
+    cb = tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, kv_layout=None)
+    assert (cb.pipeline_depth, cb.chunk) == (1, 0)
+    assert cb.submit([1, 2], 4, logit_bias={1: 5.0}) == 0
+    with pytest.raises(ValueError, match="exceeds largest bucket"):
+        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128,
+                                 prompt_buckets=(32,)).submit(
+            list(range(1, 40)), max_new=4)
     with pytest.raises(tbatch.RequestTooLargeError):
         cb.submit(list(range(1, 100)), max_new=40)

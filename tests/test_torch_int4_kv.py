@@ -238,8 +238,13 @@ def _prompts(vocab):
 
 
 def _run(tparams, tcfg, seeded):
+    # the synchronous loop, as the reference's batcher runs below: the
+    # final caches are compared whole, and the rows inactive slots write
+    # (the last row of a dense slot) hold whatever the last step's
+    # schedule left there
     cb = tbatch.ContinuousBatcher(tparams, tcfg, n_slots=2, max_len=MAX_LEN,
-                                  chunked_prefill=CHUNK, seed=3)
+                                  chunked_prefill=CHUNK, seed=3,
+                                  pipeline_depth=0)
     sampler = Sampler(temperature=0.9, top_k=50) if seeded else None
     rids = [cb.submit(p, max_new=n, sampler=sampler,
                       seed=100 + i if seeded else None)

@@ -144,6 +144,41 @@ def test_served_requests_launch_the_kernel_per_layer(cuda):
     assert sum(_engine_counts(counts).values()) == need
 
 
+@pytest.mark.parametrize("layout,quant", [("dense", "none"),
+                                          ("paged", "int8"),
+                                          ("paged", "int4")])
+def test_decode_graph_streams_equal_the_eager_loop(cuda, layout, quant):
+    """The decode step captured as a CUDA graph, in the pipelined loop,
+    serves the eager synchronous loop's streams bit for bit (greedy, a
+    bias row, seeded), every replay counted as the launches it makes."""
+    from k8s_gpu_device_plugin_torch.models.sampling import Sampler
+
+    cfg = LlamaConfig.tiny(head_dim_override=64, cache_quant=quant)
+    params = init_params(cfg, seed=1, device=cuda)
+    streams = []
+    for graph, depth in ((False, 0), (True, 1)):
+        cb = ContinuousBatcher(params, cfg, n_slots=3, max_len=128,
+                               chunked_prefill=16, kv_layout=layout,
+                               kv_page_size=16, decode_graph=graph,
+                               pipeline_depth=depth)
+        assert (cb.graph is not None) == graph
+        rids = [cb.submit(list(range(1, plen + 1)), max_new=8,
+                          sampler=Sampler(temperature=0.9) if i else None,
+                          seed=i or None,
+                          logit_bias={7: 3.0} if i == 1 else None)
+                for i, plen in enumerate((5, 40, 70, 23))]
+        kernel_support.reset_launch_counts()
+        cb.run()
+        need = cfg.n_layers * (cb.decode_steps + cb.prefill_chunks)
+        assert kernel_support.launch_counts()[rpa.NAME] == need
+        if graph:
+            assert cb.graph.replays == cb.decode_steps
+            assert cb.graph.launches[rpa.NAME] == cfg.n_layers
+        streams.append([(cb.done_requests[r].out, cb.done_requests[r].out_logp)
+                        for r in rids])
+    assert streams[0] == streams[1]
+
+
 # --- the paged, int8 and int4 routes of K1 ----------------------------------
 
 

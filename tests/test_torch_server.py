@@ -105,7 +105,7 @@ def test_generate_key_sets_match_the_reference(served):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("adapter", "fr"), ("n", 2), ("text", "hello"), ("logit_bias", {"1": 2}),
+    ("adapter", "fr"), ("n", 2), ("text", "hello"), ("timeline", True),
     ("stop_text", ["x"]), ("tenant", "gold"),
 ])
 def test_unimplemented_field_answers_400_naming_it(served, field, value):
@@ -114,6 +114,26 @@ def test_unimplemented_field_answers_400_naming_it(served, field, value):
                                   field: value})
     assert status == 400
     assert field in json.loads(body)["error"]
+
+
+def test_logit_bias_answers_200_with_the_forced_token(served):
+    """logit_bias is served as the reference parses it (string keys): +100
+    forces a token at every step; a malformed map answers 400, a bias
+    outside [-100, 100] 422 (the batcher's bound)."""
+    _, _, url = served
+    status, _, body = _post(url, {"prompt": PROMPTS[0], "max_new": 4,
+                                  "logit_bias": {"77": 100.0}})
+    assert status == 200, body
+    assert json.loads(body)["tokens"] == [77] * 4
+    status, _, body = _post(url, {"prompt": PROMPTS[0], "max_new": 2,
+                                  "logit_bias": {"abc": 1.0}})
+    assert status == 400 and "logit_bias" in json.loads(body)["error"]
+    status, _, body = _post(url, {"prompt": PROMPTS[0], "max_new": 2,
+                                  "logit_bias": [1, 2]})
+    assert status == 400
+    status, _, body = _post(url, {"prompt": PROMPTS[0], "max_new": 2,
+                                  "logit_bias": {"5": 101}})
+    assert status == 422 and "[-100, 100]" in json.loads(body)["error"]
 
 
 def test_oversized_request_answers_422(served):
@@ -209,6 +229,31 @@ def test_kv_flags_reach_the_batcher_and_health(route, dense_tokens):
             assert kv == {"layout": "dense",
                           "reserved_bytes": 2 * 64 * token_bytes,
                           "admission_rejected": kv["admission_rejected"]}
+    finally:
+        server.stop()
+
+
+@pytest.mark.parametrize("flags", [["--pipelineDepth", "0"],
+                                   ["--chunkedPrefill", "0", "--maxLen", "48"]])
+def test_loop_flags_serve_the_same_greedy_tokens(flags, dense_tokens):
+    """--pipelineDepth 0 (the synchronous loop) and --chunkedPrefill 0
+    (bucketed prefill) answer with the default server's greedy tokens;
+    /v1/health names the depth. With buckets a prompt longer than the
+    largest bucket that fits --maxLen (32 of 48) answers 422."""
+    server, url = _serve(flags)
+    try:
+        got = [json.loads(_post(url, {"prompt": p[:30], "max_new": 6})[2])
+               ["tokens"] for p in PROMPTS]
+        assert got == dense_tokens
+        with urllib.request.urlopen(url + "/v1/health", timeout=30) as resp:
+            decode = json.loads(resp.read())["decode"]
+        assert decode["pipeline_depth"] == int(
+            flags[0] != "--pipelineDepth")
+        assert decode["graph"] is None  # the CPU runs the eager step
+        if flags[0] == "--chunkedPrefill":
+            status, _, body = _post(url, {"prompt": list(range(1, 40)),
+                                          "max_new": 4})
+            assert status == 422 and "largest bucket" in body
     finally:
         server.stop()
 

@@ -3,13 +3,20 @@
 
 Builds Llama-3-8B with random weights, fills all 8 slots of the port's
 ContinuousBatcher with ~1000-token prompts (chunked prefill, 256), then
-times decode steps on the host clock (each step ends in its readback)
-and profiles a few of them with ``torch.profiler``. Then it profiles one
+times decode steps on the host clock (the batcher's default pipelined
+loop: a step's wall time is one dispatch and one readback) and profiles
+a few of them with ``torch.profiler``. Each configuration runs twice in
+this one process, in the modes of ``--modes``: ``eager`` (every kernel
+of the step launched from Python) and ``graph`` (the step captured once
+as a CUDA graph and replayed, the batcher's default on a card); the
+graph mode also times a run of back-to-back replays between CUDA events
+(the step's device time with no host in the way). Then it profiles one
 prefill chunk the way the batcher runs it: a 256-token chunk of one slot
-at base 1536 of a fresh cache (the chunks before it written unprofiled).
-Prints one JSON line per configuration: the card, ms per decode step,
-device and host time per step, kernel launches per step, the attention
-kernel's own device time, the device kernels that take the most time,
+at base 1536 of a fresh cache (the chunks before it written
+unprofiled). Prints one JSON line per configuration: the card, and per
+mode ms per decode step, device and host time per step, host launches
+per step (kernel launches and graph launches apart), the attention
+kernel's own device time, the device kernels that take the most time;
 and the same for the prefill chunk (``prefill_chunk``).
 
 ``--weightQuant``, ``--kvLayout`` and ``--cacheQuant`` take
@@ -23,6 +30,7 @@ inactive slots every decode step still computes and discards.
     python3 tools/torch_decode_profile.py [--steps 10] [--context 1000]
         [--kvLayout dense,paged] [--cacheQuant none,int8,int4]
         [--weightQuant none,int8,int4] [--activeSlots 8]
+        [--modes eager,graph]
 """
 
 from __future__ import annotations
@@ -45,7 +53,9 @@ def summarize(prof, n: int) -> dict:
     events = prof.key_averages()
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                "cuLaunchKernel"))
+                                "cuLaunchKernel", "cudaLaunchKernelExC"))
+    graph_launches = sum(e.count for e in events
+                         if e.key in ("cudaGraphLaunch", "cuGraphLaunch"))
     # device time is the kernels' own (as the profiler's table totals it)
     on_device = [e for e in events if e.device_type == DeviceType.CUDA
                  and not e.is_user_annotation]
@@ -58,6 +68,7 @@ def summarize(prof, n: int) -> dict:
         "device_ms": device_us / n / 1e3,
         "host_ms_profiled": host_us / n / 1e3,
         "kernel_launches": launches / n,
+        "graph_launches": graph_launches / n,
         "attention_kernel_ms":
             sum(e.self_device_time_total for e in attention) / n / 1e3,
         "attention_kernel_calls": sum(e.count for e in attention) / n,
@@ -107,8 +118,25 @@ def prefill_chunk(torch, params, cfg, layout: str, page_size: int) -> dict:
     return out
 
 
-def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
-    """One (weights, layout, cache) configuration's decode step."""
+def replay_ms(torch, cb, n: int) -> float:
+    """Mean device time of ``n`` back-to-back replays of the batcher's
+    captured step, between CUDA events. The replays' tokens are never
+    read: run it last, on a batcher that is thrown away after."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        cb.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def measure(torch, params, cfg, args, layout: str, quant: str,
+            mode: str) -> dict:
+    """One (weights, layout, cache) configuration's decode step, eager or
+    replayed as a graph."""
     from dataclasses import replace
 
     from torch.profiler import ProfilerActivity, profile
@@ -118,7 +146,8 @@ def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
     cb = ContinuousBatcher(
         params, replace(cfg, cache_quant=quant), n_slots=8, max_len=2048,
         chunked_prefill=256, kv_layout=layout,
-        kv_page_size=args.kvPageSize if layout == "paged" else None)
+        kv_page_size=args.kvPageSize if layout == "paged" else None,
+        decode_graph=mode == "graph")
     # every step of the prefill phase also decodes the slots that are
     # already running: the budget covers those steps too, so that every
     # request is still decoding when the measured window ends
@@ -135,6 +164,9 @@ def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
     t0 = time.perf_counter()
     for _ in range(args.steps):
         cb.step()
+    # the pipelined loop leaves its last step in flight: the window ends
+    # when that step does, so it holds the device time of every step in it
+    torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -148,7 +180,12 @@ def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
             f"window ({running_before} at its start), wanted "
             f"{args.activeSlots}: a request retired inside it")
     stats = summarize(prof, args.profiled)
+    graph = None
+    if cb.graph is not None:
+        graph = {"pool_bytes": cb.graph.pool_bytes,
+                 "replay_ms_events": replay_ms(torch, cb, args.steps)}
     return {
+        "mode": mode, "pipeline_depth": cb.pipeline_depth,
         "weight_quant": cb.weight_stats["quant"],
         "weight_bytes": cb.weight_stats["resident_bytes"],
         "kv_layout": layout, "cache_quant": quant,
@@ -159,6 +196,8 @@ def measure(torch, params, cfg, args, layout: str, quant: str) -> dict:
         "device_ms_per_step": stats["device_ms"],
         "host_ms_per_step_profiled": stats["host_ms_profiled"],
         "kernel_launches_per_step": stats["kernel_launches"],
+        "graph_launches_per_step": stats["graph_launches"],
+        "graph": graph,
         "attention_kernel_ms_per_step": stats["attention_kernel_ms"],
         "attention_kernel_calls_per_step": stats["attention_kernel_calls"],
         "top_device_kernels": [
@@ -183,6 +222,8 @@ def main() -> int:
     parser.add_argument("--kvPageSize", type=int, default=64)
     parser.add_argument("--activeSlots", type=int, default=8,
                         help="slots that hold a request (of 8)")
+    parser.add_argument("--modes", default="eager,graph",
+                        help="comma-separated: eager, graph")
     args = parser.parse_args()
 
     from dataclasses import replace
@@ -207,8 +248,11 @@ def main() -> int:
         served = quantize_weights(params, weight_quant)
         for layout in args.kvLayout.split(","):
             for quant in args.cacheQuant.split(","):
-                row = measure(torch, served, cfg, args, layout, quant)
-                torch.cuda.empty_cache()
+                row = {}
+                for mode in args.modes.split(","):
+                    row[mode] = measure(torch, served, cfg, args, layout,
+                                        quant, mode)
+                    torch.cuda.empty_cache()
                 row["prefill_chunk"] = prefill_chunk(
                     torch, served,
                     replace(cfg, cache_quant=quant, kv_layout=layout,
