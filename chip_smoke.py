@@ -23,7 +23,15 @@ Phases (any failed check exits non-zero without the final line):
    and int4), and prefill chunks as the batcher runs them (one slot):
    T 3, T 37, T 256 at bases 0, 256 and 1536, windowed and at hd 64,
    group 1, and whole bucketed prompts (``--chunkedPrefill 0``) of T 512
-   and T 1024 at base 0. Every bf16 case runs on the tensor cores (decode split over
+   and T 1024 at base 0; and bf16 decode at Mistral-7B's window (W 4096,
+   eight slots at bases 6000 ... 8191, S 8192), dense and paged (pages of
+   64 and of 16), where the pages-of-16 case also runs the stale-entry
+   check: entries below each slot's window floor pointed at the trap page
+   filled with large finite garbage, and the entries of tiles below the
+   floor's tile at a page of NaN, must leave o bit for bit as it was (NaN
+   inside the floor's tile is reported: the batcher resets recycled
+   entries to the trap page for that reason). Every bf16 case runs on the
+   tensor cores (decode split over
    each slot's span, ``SPLIT_TILES`` kv tiles a block), f32 on the CUDA
    cores: each launch must be counted on its engine, and two launches on
    the same inputs must agree bit for bit. A tensor-core case is held to
@@ -60,10 +68,12 @@ Phases (any failed check exits non-zero without the final line):
    equal itself among its neighbours. Then the server
    (``serving/server.py``) with ``--preset llama3_8b --slots 8 --maxLen
    2048 --chunkedPrefill 256`` (the pipelined loop, ``--pipelineDepth
-   1``) on 127.0.0.1: six concurrent ``/v1/generate`` requests (one
-   streamed, one with logprobs), launch counts over exactly that run
-   (every decode step a graph replay, counted as the launches its
-   capture recorded), and one request replayed alone. The same on
+   1``, the prefix cache on: the server's defaults) on 127.0.0.1: six
+   concurrent ``/v1/generate`` requests (one streamed, one with
+   logprobs), launch counts over exactly that run (every decode step a
+   graph replay, counted as the launches its capture recorded), and one
+   request replayed alone twice (the second a prefix-cache hit, with
+   ``cached_tokens`` > 0), the same tokens each time. The same on
    ``--pipelineDepth 0`` (served first: its tokens are the ones the
    pipelined dense run and the unquantized pool must give) and on
    ``--chunkedPrefill 0`` (bucketed prefill: the 1500- and 1900-token
@@ -72,11 +82,31 @@ Phases (any failed check exits non-zero without the final line):
    --kvPageSize 64 --kvPages 65``
    (64 allocatable pages against the 79 the six reserve together, so an
    admission must wait): the dense run's tokens, every launch on the paged
-   route, the pool empty at the end; on ``--cacheQuant int8`` and ``int4``,
+   route, the pool empty at the end once the prefix cache has released
+   its entries; on ``--cacheQuant int8`` and ``int4``,
    paged and dense; on ``--weightQuant int8`` (bf16 dense cache); and on
    ``--weightQuant int4 --cacheQuant int4`` in the 65-page pool. Every
    launch (the model is bf16: chunks and decode steps) must be on the
-   tensor cores.
+   tensor cores. Then the prefix cache: eight requests sharing a
+   1024-token system prompt (suffixes of 64-300 tokens, 64 out, streamed
+   with logprobs), one alone and then seven at once, on
+   ``--prefixCacheOff`` (paged, default pool; served first), on the paged
+   pool and on the dense cache: the seven hits answer ``cached_tokens``
+   1024 and the cache-off run's tokens and logprobs; a paged hit aliases
+   16 pages and copies no row, a dense one copies 1024 rows (the
+   promotion 2016); TTFT of the first request and p50 of the seven. The
+   copy-on-write at batcher level: chunks of 32, pages of 64, a 40-token
+   shared prefix, so the hit's 32-token boundary lies inside a page: one
+   page copied, the cache-off streams, on a bf16 and an int8 pool. Then,
+   the Llama-3-8B weights freed, Mistral-7B (W 4096) on ``--slots 2
+   --maxLen 12288 --kvLayout paged --kvPageSize 64 --kvPages 180``: two
+   greedy requests of 12,000 and 9,000 prompt tokens (256 out) that the
+   pool could not reserve whole (192 pages of the 179), served with at
+   most 164 pages in use and pages recycled, the host clock of a step
+   while both decode, every launch on the paged route and the tensor
+   cores, and the tokens of the dense twin (3 GiB of cache); the
+   full-causal twin of the pool refuses the 12,000-token request at
+   ``validate``.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -104,8 +134,9 @@ Phases (any failed check exits non-zero without the final line):
    attention: per leaf, the kernel path's distance to the f32 plain
    path's gradients at most BF16_FACTOR times the plain path's.
 7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
-   kernel's entry carries its six routes and the decode graph's checks
-   and pool bytes).
+   kernel's entry carries its six routes, the decode graph's checks and
+   pool bytes, the prefix and windowed runs' launches, the W 4096 cases
+   with the stale-entry check, and the copy-on-write check).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -307,7 +338,85 @@ def kernel_cases():
         for name, t, base, window, shape in chunks:
             cases.append(dict(name=name + tag, b=1, t=t, bases=[base],
                               window=window, route=route, ps=ps, **shape))
+    # windowed decode at Mistral-7B's attention shapes and its published
+    # window (the window_paged run of phase 4), bf16: dense, and a pool
+    # through a shuffled table with pages of 64 and of 16; the pages-of-16
+    # case also runs the stale-entry check
+    for route, ps in WINDOW_LAYOUTS:
+        tag = route + (f"_ps{ps}" if ps else "")
+        cases.append(dict(name=f"decode_w{MISTRAL_WINDOW}_{tag}", b=8, t=1,
+                          bases=WINDOW_BASES, window=MISTRAL_WINDOW,
+                          route=route, ps=ps, dtypes=("bfloat16",),
+                          stale_check=ps == 16, hq=32, hkv=8, hd=128,
+                          s=8192))
     return cases
+
+
+MISTRAL_WINDOW = 4096
+WINDOW_LAYOUTS = (("dense", 0), ("paged", 64), ("paged", 16))
+# eight slots between 6000 and 8191: every span is the whole window
+WINDOW_BASES = [6000, 6301, 6655, 6999, 7300, 7727, 8000, 8191]
+# the large finite garbage the stale-entry check writes into the trap page
+GARBAGE = 3.0e4
+
+
+def stale_entry_check(torch, rpa, q, k, v, base, pages, kw, clean,
+                      ps: int, window: int) -> dict:
+    """The batcher resets a recycled table entry to the trap page 0
+    (``_recycle_slot_pages``). Decode at ``base`` attends rows from
+    ``base - window + 1``; a page wholly below that floor is one the
+    batcher would have recycled. Three variants of the clean launch:
+
+    - ``trap_garbage``: every such entry points at page 0, and page 0
+      holds large finite garbage: o must equal the clean o bit for bit
+      (the kernel's floor tile reads up to three such entries, under its
+      mask);
+    - ``unfetched_nan``: the entries of pages in tiles below the floor's
+      64-row tile point at a page of NaN: o must equal the clean o bit for
+      bit (the kernel never fetches a tile below the floor's);
+    - ``floor_tile_nan``: the same NaN page under the dead entries inside
+      the floor's tile, where the mask multiplies it by 0: reported (NaN
+      poisons o, which is why the batcher resets the entries)."""
+    floor = base.long() - window + 1                 # first attended row
+    dead = torch.clamp(floor // ps, min=0)           # pages wholly below
+    unfetched = torch.clamp((floor // 64) * 64 // ps, min=0)
+    nan_id = k.shape[0]
+    cols = torch.arange(pages.shape[1], device=pages.device)[None, :]
+
+    def run(table, kk, vv):
+        return rpa.ragged_paged_attention(q, kk, vv, base, table, **kw)
+
+    def with_page(fill):
+        page = torch.full_like(k[:1], fill)
+        return torch.cat([k, page]), torch.cat([v, torch.full_like(v[:1],
+                                                                   fill)])
+
+    kg, vg = k.clone(), v.clone()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    kg[0] = (torch.randn(kg[0].shape, generator=gen, device="cuda")
+             * GARBAGE).to(kg.dtype)
+    vg[0] = (torch.randn(vg[0].shape, generator=gen, device="cuda")
+             * GARBAGE).to(vg.dtype)
+    trap = torch.where(cols < dead[:, None], torch.zeros_like(pages), pages)
+    o_trap = run(trap, kg, vg)
+    kn, vn = with_page(float("nan"))
+    below = torch.where(cols < unfetched[:, None],
+                        torch.full_like(pages, nan_id), pages)
+    o_unfetched = run(below, kn, vn)
+    inside = torch.where((cols >= unfetched[:, None]) & (cols < dead[:, None]),
+                         torch.full_like(pages, nan_id), pages)
+    o_inside = run(inside, kn, vn)
+    torch.cuda.synchronize()
+    out = {"dead_entries": int(dead.sum()),
+           "unfetched_entries": int(unfetched.sum()),
+           "floor_tile_dead_entries": int((dead - unfetched).sum()),
+           "trap_garbage_bitwise": bool(torch.equal(o_trap, clean)),
+           "unfetched_nan_bitwise": bool(torch.equal(o_unfetched, clean)),
+           "floor_tile_nan_poisons_o": bool(not torch.isfinite(o_inside).all())}
+    if not (out["trap_garbage_bitwise"] and out["unfetched_nan_bitwise"]):
+        fail(f"stale-entry check: {out}")
+    return out
 
 
 def chunk_headline(case) -> bool:
@@ -402,6 +511,8 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
     for case in kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
+            if dname not in case.get("dtypes", (dname,)):
+                continue
             gen = torch.Generator(device="cuda")
             gen.manual_seed(SEED)
             b, t, hq, hkv, hd, s = (case[k] for k in
@@ -545,6 +656,10 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
                     torch, lambda: rpa.ragged_paged_attention(
                         q, k, v, base, pages, engine_override="cuda_cores",
                         **kw), reps)
+            if case.get("stale_check"):
+                row["stale_entries"] = stale_entry_check(
+                    torch, rpa, q, k, v, base, pages, kw, got, case["ps"],
+                    case["window"])
             row["bound_ms"], row["bound_by"], work = bound(case, rpa, torch,
                                                            dname)
             row.update(work)
@@ -834,38 +949,123 @@ def phase_weights(torch, generate, cfg, qparams, weight_quant: str,
 # --- phase 4 -----------------------------------------------------------------
 
 
-def _post(url: str, body: dict) -> tuple[list[int], "list[float] | None", float]:
-    """One /v1/generate; returns (tokens, logprobs, seconds to the first
-    token frame for a stream else to the response)."""
+def _post(url: str, body: dict) -> dict:
+    """One /v1/generate: {"tokens", "logprobs" (None unless asked),
+    "ttft" (seconds to the first token frame for a stream, else to the
+    response), "cached_tokens" (the body's, or the stream's done event's:
+    absent there means 0), "token_times" (a stream's frame arrivals on
+    the ``time.perf_counter`` clock, else None)}."""
     req = urllib.request.Request(
         url + "/v1/generate", data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"},
     )
     t0 = time.perf_counter()
-    first = None
-    with urllib.request.urlopen(req, timeout=600) as resp:
+    with urllib.request.urlopen(req, timeout=900) as resp:
         if not body.get("stream"):
             payload = json.loads(resp.read())
-            return payload["tokens"], payload.get("logprobs"), \
-                time.perf_counter() - t0
-        toks = []
-        done = False
+            return {"tokens": payload["tokens"],
+                    "logprobs": payload.get("logprobs"),
+                    "ttft": time.perf_counter() - t0,
+                    "cached_tokens": payload["cached_tokens"],
+                    "token_times": None}
+        toks, lps, times = [], [], []
+        done = None
         for raw in resp:
             line = raw.decode().strip()
             if not line.startswith("data: "):
                 continue
             evt = json.loads(line[len("data: "):])
             if evt.get("done"):
-                done = True
+                done = evt
                 break
             if "error" in evt:
                 fail(f"stream error frame: {evt['error']}")
-            if first is None:
-                first = time.perf_counter() - t0
+            times.append(time.perf_counter())
             toks.append(evt["token"])
-        if not done:
+            if "logprob" in evt:
+                lps.append(evt["logprob"])
+        if done is None:
             fail("stream ended without its done frame")
-        return toks, None, first
+        return {"tokens": toks, "logprobs": lps if lps else None,
+                "ttft": times[0] - t0 if times else None,
+                "cached_tokens": done.get("cached_tokens", 0),
+                "token_times": times}
+
+
+def start_server(server_mod, argv: list, params):
+    """A server on 127.0.0.1 (an ephemeral port) for ``argv``'s flags,
+    serving ``params``; returns (parsed args, server, url)."""
+    args = server_mod.build_parser().parse_args([
+        *argv, "--host", "127.0.0.1", "--port", "0", "--seed", str(SEED)])
+    server = server_mod.build_server(args, params=params)
+    server.start()
+    return args, server, f"http://127.0.0.1:{server.bound_port}"
+
+
+def post_all(url: str, bodies: list, run: str, refused=()) -> list[dict]:
+    """The bodies at once, one thread each; every one must be served, but
+    for the indices in ``refused``, which must answer 422 (their result
+    has no tokens)."""
+    import urllib.error
+
+    results: list = [None] * len(bodies)
+    errors: list = []
+
+    def worker(i):
+        try:
+            results[i] = _post(url, bodies[i])
+            if i in refused:
+                errors.append(f"request {i} was served, not refused")
+        except urllib.error.HTTPError as e:
+            if i in refused and e.code == 422:
+                results[i] = {"tokens": [], "logprobs": None, "ttft": None,
+                              "cached_tokens": 0, "token_times": None}
+            else:
+                errors.append(f"request {i}: HTTP {e.code}: "
+                              f"{e.read()[:200]!r}")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    if errors or any(r is None for r in results):
+        fail(f"{run}: requests failed: {errors}")
+    return results
+
+
+def route_launches(run: str, kernel_support, rpa, route: str, n_layers: int,
+                   decode_steps: int, chunks: int) -> dict:
+    """K1's launches since the last reset: one a layer for every decode
+    step and prefill chunk, all on ``route`` and on the tensor cores (the
+    bf16 models)."""
+    counts = kernel_support.launch_counts()
+    launches = counts.get(rpa.route_key(route), 0)
+    need = n_layers * (decode_steps + chunks)
+    engines = {e: counts.get(kernel_support.engine_key(rpa.NAME, e), 0)
+               for e in kernel_support.ENGINES}
+    if (launches != need or counts.get(rpa.NAME, 0) != launches
+            or engines != {"cuda_cores": 0, "tensor_cores": need}):
+        fail(f"{run}: the kernel launched {launches} times on the {route} "
+             f"route, per engine {engines} ({counts}); the run needs {need} "
+             f"= {n_layers} layers x ({decode_steps} decode steps + "
+             f"{chunks} prefill chunks), all on that route and on the "
+             "tensor cores")
+    return {"launches": launches, "launches_per_engine": engines,
+            "launches_needed": need}
+
+
+def equal_streams(run: str, got: list, want: list, logprobs: bool) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g["tokens"] != w["tokens"]:
+            first = next((j for j, (x, y) in enumerate(
+                zip(g["tokens"], w["tokens"])) if x != y), None)
+            fail(f"{run}: request {i}'s stream differs at token {first}")
+        if logprobs and g["logprobs"] != w["logprobs"]:
+            fail(f"{run}: request {i}'s logprobs differ")
 
 
 # the serving runs: name -> the flags it adds to the base command line.
@@ -905,19 +1105,13 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
     The bucketed run must refuse the prompts past the largest bucket with
     a 422 and serve the others. ``params`` are already quantized as the
     run's ``--weightQuant`` says."""
-    import urllib.error
-
     import numpy as np
 
-    args = server_mod.build_parser().parse_args([
-        "--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
-        "--chunkedPrefill", "256", "--host", "127.0.0.1", "--port", "0",
-        "--seed", str(SEED), *SERVING_RUNS[run],
-    ])
+    args, server, url = start_server(
+        server_mod, ["--preset", "llama3_8b", "--slots", "8", "--maxLen",
+                     "2048", "--chunkedPrefill", "256", *SERVING_RUNS[run]],
+        params)
     route = rpa.route_name(args.kvLayout == "paged", args.cacheQuant)
-    server = server_mod.build_server(args, params=params)
-    server.start()
-    url = f"http://127.0.0.1:{server.bound_port}"
     try:
         rng = np.random.default_rng(SEED + 1)
         bodies = []
@@ -929,23 +1123,7 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
             if i == WITH_LOGPROBS:
                 body["logprobs"] = True
             bodies.append(body)
-        results: list = [None] * len(bodies)
-        errors: list = []
-
         refused = BUCKET_REFUSED if args.chunkedPrefill == 0 else set()
-
-        def worker(i):
-            try:
-                results[i] = _post(url, bodies[i])
-            except urllib.error.HTTPError as e:
-                if i in refused and e.code == 422:
-                    results[i] = ([], None, None)
-                else:
-                    errors.append(f"request {i}: HTTP {e.code}: "
-                                  f"{e.read()[:200]!r}")
-            except Exception as e:  # noqa: BLE001 - reported below
-                errors.append(f"request {i}: {type(e).__name__}: {e}")
-
         cb = server.engine.cb
         if cb.graph is None or cb.pipeline_depth != args.pipelineDepth:
             fail(f"{run}: the batcher on the card must capture its decode "
@@ -954,25 +1132,16 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         replays0 = cb.graph.replays
         kernel_support.reset_launch_counts()
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=worker, args=(i,))
-                   for i in range(len(bodies))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(900)
+        results = post_all(url, bodies, run, refused=refused)
         wall = time.perf_counter() - t0
-        counts = kernel_support.launch_counts()
-        launches = counts.get(rpa.route_key(route), 0)
-        if errors or any(r is None for r in results):
-            fail(f"{run} serving requests failed: {errors}")
         health = server.engine.stats()
         decode_steps = health["decode_steps"] - steps0
         chunks = health["prefill_chunks"] - chunks0
         if cb.graph.replays - replays0 != decode_steps:
             fail(f"{run}: {decode_steps} decode steps but "
                  f"{cb.graph.replays - replays0} graph replays")
-        for i, ((toks, lps, _), (plen, max_new)) in enumerate(
-                zip(results, REQUESTS)):
+        for i, (res, (plen, max_new)) in enumerate(zip(results, REQUESTS)):
+            toks, lps = res["tokens"], res["logprobs"]
             if i in refused:
                 continue
             if len(toks) != max_new:
@@ -981,22 +1150,9 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
             if i == WITH_LOGPROBS and (lps is None or len(lps) != max_new
                                        or not all(x <= 0 for x in lps)):
                 fail(f"{run}: request {i}: bad logprobs {lps}")
-        need = cfg.n_layers * (decode_steps + chunks)
-        if launches < need or counts.get(rpa.NAME, 0) != launches:
-            fail(f"the kernel launched {launches} times on the {route} "
-                 f"route ({counts}); the serving run needs {need} = "
-                 f"{cfg.n_layers} layers x ({decode_steps} decode steps + "
-                 f"{chunks} prefill chunks), all on that route")
-        # the bf16 model: every prefill chunk and every decode step on the
-        # tensor cores
-        engines = {e: counts.get(kernel_support.engine_key(rpa.NAME, e), 0)
-                   for e in kernel_support.ENGINES}
-        want_engines = {"cuda_cores": 0, "tensor_cores": need}
-        if engines != want_engines:
-            fail(f"{run}: launches per engine {engines}, wanted "
-                 f"{want_engines} (every launch of the bf16 model on the "
-                 "tensor cores)")
-        tokens = [r[0] for r in results]
+        launched = route_launches(run, kernel_support, rpa, route,
+                                  cfg.n_layers, decode_steps, chunks)
+        tokens = [r["tokens"] for r in results]
         if dense_tokens is not None and tokens != dense_tokens:
             bad = next(i for i, (x, y) in enumerate(zip(tokens, dense_tokens))
                        if x != y)
@@ -1012,23 +1168,39 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         if health["weights"]["quant"] != args.weightQuant:
             fail(f"{run}: serving {health['weights']} weights, wanted "
                  f"{args.weightQuant}")
+        if cb.prefix_cache is None and args.chunkedPrefill:
+            fail(f"{run}: the server's prefix cache is off by default")
         if "paged" in route:
             if kv["admission_rejected"]["pool_pressure"] < 1:
                 fail(f"{run}: no admission waited for pages: {kv}")
             cb.pool.check()
-            if kv["pages_in_use"] != 0 or cb.pool.in_use != 0:
-                fail(f"{run}: pages still in use after the run: {kv}")
+            # what stays allocated is what the prefix cache's entries pin
+            drain_prefix_cache(server)
+            if cb.pool.in_use != 0:
+                fail(f"{run}: pages still in use after the run and the "
+                     f"prefix cache's release: {cb.kv_stats()}")
+            cb.pool.check()
+        alone_cached = None
         if run == "dense":
-            # the streamed request again, alone: its greedy stream must not
-            # depend on the batch it was served in
-            alone, _, _ = _post(url, {"prompt": bodies[STREAMED]["prompt"],
-                                      "max_new": REQUESTS[STREAMED][1]})
-            batched = results[STREAMED][0]
-            if alone != batched:
-                first = next(i for i, (x, y) in enumerate(zip(alone, batched))
-                             if x != y)
-                fail(f"greedy stream served alone differs from the batched "
-                     f"one at token {first}")
+            # the streamed request again, alone, twice: its greedy stream
+            # must not depend on the batch it was served in, and the
+            # second time it hits the prefix cache (the first may have
+            # been evicted by the longer prompts' promotions)
+            alone_cached = []
+            for _ in range(2):
+                alone = _post(url, {"prompt": bodies[STREAMED]["prompt"],
+                                    "max_new": REQUESTS[STREAMED][1]})
+                alone_cached.append(alone["cached_tokens"])
+                batched = results[STREAMED]["tokens"]
+                if alone["tokens"] != batched:
+                    first = next(i for i, (x, y) in enumerate(
+                        zip(alone["tokens"], batched)) if x != y)
+                    fail(f"greedy stream served alone differs from the "
+                         f"batched one at token {first} (cached_tokens "
+                         f"{alone['cached_tokens']})")
+            if alone_cached[-1] <= 0:
+                fail(f"the request replayed alone missed the prefix cache: "
+                     f"{alone_cached}")
         out = {
             "phase": 4, "run": run, "route": route, "flags": SERVING_RUNS[run],
             "requests": len(bodies), "served": len(served),
@@ -1037,17 +1209,19 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
             "chunked_prefill": args.chunkedPrefill,
             "decode_graph": health["decode"]["graph"],
             "pipeline_flushes": health["decode"]["pipeline_flushes"],
-            "launches": launches, "launches_per_engine": engines,
-            "decode_steps": decode_steps,
-            "prefill_chunks": chunks, "launches_needed": need,
+            **launched, "decode_steps": decode_steps,
+            "prefill_chunks": chunks,
             "ttft_s_p50": health["ttft_s_p50"],
-            "stream_ttft_s": results[STREAMED][2],
+            "stream_ttft_s": results[STREAMED]["ttft"],
             "decode_tokens_per_s": health["decode_tokens_per_s"],
             "decode_step_ms_mean": health["decode_step_ms_mean"],
             "prefill_chunk_ms_mean": health["prefill_chunk_ms_mean"],
             "kv": kv, "weights": health["weights"],
             "equals_dense_tokens": dense_tokens is not None or None,
             "alone_equals_batched": run == "dense" or None,
+            "alone_cached_tokens": alone_cached,
+            "prefix_cache": health.get("prefix_cache"),
+            "prefill_tokens": health["prefill_tokens"],
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2**30,
             "tokens": tokens,
@@ -1056,6 +1230,17 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         return out
     finally:
         server.stop()
+
+
+def drain_prefix_cache(server) -> int:
+    """Evict every entry of a server's prefix cache through its release
+    hook (the pool-pressure valve's own call), so that a paged pool can
+    be checked empty; returns the entries evicted."""
+    pc = server.engine.cb.prefix_cache
+    n = 0
+    while pc is not None and pc.evict_one():
+        n += 1
+    return n
 
 
 # the graph check's requests: (prompt length, max_new, sampler knobs, seed,
@@ -1190,6 +1375,296 @@ def phase_graph(torch, batching, sampling, cfg, params, run: str,
            "s": time.perf_counter() - t0}
     emit(out)
     del cb, alone_cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the prefix runs: Llama-3-8B, 8 slots, chunks of 256; one system prompt
+# of 1024 tokens shared by eight requests, each with its own suffix
+PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_MAX_NEW, PREFIX_N = 1024, (64, 300), 64, 8
+PREFIX_POOL = ["--kvLayout", "paged", "--kvPageSize", "64"]  # default pool
+PREFIX_RUNS = {"prefix_off": [*PREFIX_POOL, "--prefixCacheOff"],
+               "prefix_paged": PREFIX_POOL, "prefix_dense": []}
+
+
+def phase_prefix(torch, server_mod, kernel_support, rpa, batching, cfg,
+                 params) -> dict:
+    """The automatic prefix cache through the server. One request alone
+    (cold: it promotes the system prompt's boundaries 32 ... 1024), then
+    the seven others at once, every one streamed with logprobs. The
+    cache-off run (on the paged pool) is served first; the paged and the
+    dense runs with the cache on must give its tokens and logprobs, the
+    seven hits ``cached_tokens`` 1024, a paged hit no copied row (its 16
+    pages aliased), a dense hit 1024 copied rows; the pool empty once
+    the cache lets go."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    system = rng.integers(0, cfg.vocab_size, PREFIX_SYSTEM).tolist()
+    bodies = [{"prompt": system + rng.integers(0, cfg.vocab_size,
+                                               int(n)).tolist(),
+               "max_new": PREFIX_MAX_NEW, "stream": True, "logprobs": True}
+              for n in rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1,
+                                    PREFIX_N)]
+    boundaries = sum(b for b in (32, 64, 128, 256, 512, 1024)
+                     if b <= PREFIX_SYSTEM)
+    out = {}
+    for run, flags in PREFIX_RUNS.items():
+        args, server, url = start_server(
+            server_mod, ["--preset", "llama3_8b", "--slots", "8", "--maxLen",
+                         "2048", "--chunkedPrefill", "256", *flags], params)
+        try:
+            cb = server.engine.cb
+            on = cb.prefix_cache is not None
+            if on == (run == "prefix_off"):
+                fail(f"{run}: prefix cache {'on' if on else 'off'}")
+            route = rpa.route_name(cb.pool is not None, "none")
+            batching.reset_kv_copy_counts()
+            kernel_support.reset_launch_counts()
+            steps0, chunks0 = cb.decode_steps, cb.prefill_chunks
+            replays0 = cb.graph.replays
+            t0 = time.perf_counter()
+            results = post_all(url, bodies[:1], run)
+            chunks_first = cb.prefill_chunks - chunks0
+            results += post_all(url, bodies[1:], run)
+            wall = time.perf_counter() - t0
+            health = server.engine.stats()
+            copies = batching.kv_copy_counts()
+            decode_steps = cb.decode_steps - steps0
+            chunks = cb.prefill_chunks - chunks0
+            if cb.graph.replays - replays0 != decode_steps:
+                fail(f"{run}: {decode_steps} decode steps but "
+                     f"{cb.graph.replays - replays0} graph replays")
+            launched = route_launches(run, kernel_support, rpa, route,
+                                      cfg.n_layers, decode_steps, chunks)
+            cached = [r["cached_tokens"] for r in results]
+            want_cached = [0] + [PREFIX_SYSTEM * on] * (PREFIX_N - 1)
+            if cached != want_cached:
+                fail(f"{run}: cached_tokens {cached}, wanted {want_cached}")
+            if any(len(r["tokens"]) != PREFIX_MAX_NEW
+                   or len(r["logprobs"] or ()) != PREFIX_MAX_NEW
+                   for r in results):
+                fail(f"{run}: a request came back short")
+            if run != "prefix_off":
+                equal_streams(run, results, out["prefix_off"]["results"],
+                              logprobs=True)
+            kv = health["kv"]
+            if run == "prefix_paged":
+                want = {"rows": 0, "cow_pages": 0}
+                if copies != want or kv["pages_aliased"] != \
+                        (PREFIX_N - 1) * PREFIX_SYSTEM // 64:
+                    fail(f"{run}: copies {copies}, pages aliased "
+                         f"{kv['pages_aliased']}: a paged hit aliases the "
+                         "prefix's 16 pages and copies nothing")
+            elif run == "prefix_dense":
+                want = boundaries + (PREFIX_N - 1) * PREFIX_SYSTEM
+                if copies != {"rows": want, "cow_pages": 0}:
+                    fail(f"{run}: copies {copies}, wanted {want} rows (the "
+                         "promotion's and one 1024-row insert a hit)")
+            if cb.pool is not None:
+                drain_prefix_cache(server)
+                if cb.pool.in_use != 0:
+                    fail(f"{run}: pages still in use once the prefix cache "
+                         f"let go: {cb.kv_stats()}")
+                cb.pool.check()
+            hits_ttft = sorted(r["ttft"] for r in results[1:])
+            row = {"phase": 4, "run": run, "route": route, "flags": flags,
+                   "requests": PREFIX_N, "system_tokens": PREFIX_SYSTEM,
+                   "prompt_tokens": [len(b["prompt"]) for b in bodies],
+                   "cached_tokens": cached, "kv_copy_counts": copies,
+                   "pages_aliased": kv.get("pages_aliased"),
+                   "prefill_chunks_first": chunks_first,
+                   "prefill_chunks_rest": chunks - chunks_first,
+                   "prefill_tokens": health["prefill_tokens"],
+                   "prefix_cache": health.get("prefix_cache"),
+                   "ttft_first_s": results[0]["ttft"],
+                   "ttft_rest_s_p50": hits_ttft[len(hits_ttft) // 2],
+                   "decode_steps": decode_steps, "prefill_chunks": chunks,
+                   **launched, "wall_s": wall,
+                   "decode_step_ms_mean": health["decode_step_ms_mean"],
+                   "equals_cache_off": run != "prefix_off" or None}
+            emit(row)
+            out[run] = {**row, "results": results}
+        finally:
+            server.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+COW_PREFIX, COW_SUFFIX, COW_MAX_NEW = 40, 30, 16
+
+
+def phase_cow(torch, batching, prefix_cache_mod, cfg, params) -> dict:
+    """Copy-on-write at batcher level: chunks of 32, pages of 64, two
+    requests sharing a 40-token prefix, one after the other. The second
+    matches the 32-token boundary, inside the first page: its table
+    aliases nothing and copies that one page. Streams (tokens and
+    logprobs) must equal a cache-off batcher's, on a bf16 and an int8
+    pool."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    shared = rng.integers(0, cfg.vocab_size, COW_PREFIX).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, COW_SUFFIX).tolist()
+               for _ in range(2)]
+    out = {}
+    for quant in ("none", "int8"):
+        rcfg = dataclasses.replace(cfg, cache_quant=quant)
+        streams = {}
+        for on in (False, True):
+            pc = prefix_cache_mod.PrefixCache(
+                rcfg, buckets=(32, 64, 128, 256), budget_bytes=64 << 20) \
+                if on else None
+            batching.reset_kv_copy_counts()
+            cb = batching.ContinuousBatcher(
+                params, rcfg, n_slots=2, max_len=256, chunked_prefill=32,
+                kv_layout="paged", kv_page_size=64, prefix_cache=pc)
+            got = []
+            for p in prompts:
+                rid = cb.submit(p, COW_MAX_NEW)
+                cb.run()
+                r = cb.done_requests[rid]
+                got.append({"tokens": r.out, "logprobs": r.out_logp,
+                            "cached_tokens": r.cached_tokens})
+            copies = batching.kv_copy_counts()
+            while pc is not None and pc.evict_one():
+                pass
+            cb.pool.check()
+            if cb.pool.in_use:
+                fail(f"cow {quant}: {cb.pool.in_use} pages left in use")
+            streams[on] = (got, copies, cb.pages_aliased)
+            del cb
+            gc.collect()
+            torch.cuda.empty_cache()
+        (off, _, _), (hit, copies, aliased) = streams[False], streams[True]
+        equal_streams(f"cow {quant}", hit, off, logprobs=True)
+        if copies != {"rows": 0, "cow_pages": 1} or aliased != 0 or \
+                [g["cached_tokens"] for g in hit] != [0, 32]:
+            fail(f"cow {quant}: copies {copies}, pages aliased {aliased}, "
+                 f"cached_tokens {[g['cached_tokens'] for g in hit]}: "
+                 "wanted one copied page and a 32-token hit")
+        out[quant] = {"kv_copy_counts": copies, "pages_aliased": aliased,
+                      "cached_tokens": [g["cached_tokens"] for g in hit],
+                      "equals_cache_off": True}
+    emit({"phase": 4, "cow_check": out, "prefix_tokens": COW_PREFIX,
+          "chunked_prefill": 32, "page_size": 64})
+    return out
+
+
+# the windowed runs: Mistral-7B at its published widths and window, two
+# long prompts on two slots; the pool holds 179 allocatable pages of 64
+WINDOW_PROMPTS, WINDOW_MAX_NEW, WINDOW_POOL = (12000, 9000), 256, 180
+WINDOW_ARGS = ["--preset", "mistral_7b", "--slots", "2", "--maxLen", "12288",
+               "--chunkedPrefill", "256"]
+WINDOW_RUNS = {"window_paged": ["--kvLayout", "paged", "--kvPageSize", "64",
+                                "--kvPages", str(WINDOW_POOL)],
+               "window_dense": []}
+WINDOW_PEAK_PAGES = 164  # two rows at the windowed peak (82 pages each)
+
+
+def phase_window(torch, server_mod, kernel_support, rpa, batching,
+                 llama) -> dict:
+    """Mistral-7B served windowed (W 4096) from a page pool too small for
+    the full reservation of its 12,256-token request (192 pages of the
+    179): both requests served with at most 164 pages in use at once and
+    pages recycled out of the window, every K1 launch on the paged route
+    and the tensor cores, and the tokens of a dense twin (3 GiB of
+    cache). The full-causal twin of the same pool refuses the request at
+    ``validate``, running no weights."""
+    import numpy as np
+
+    cfg = llama.LlamaConfig.mistral_7b()
+    params = server_mod.load_params(cfg, seed=SEED, device="cuda")
+    twin = batching.ContinuousBatcher(
+        params, dataclasses.replace(cfg, sliding_window=0), n_slots=2,
+        max_len=12288, chunked_prefill=256, kv_layout="paged",
+        kv_page_size=64, kv_pages=WINDOW_POOL, decode_graph=False)
+    try:
+        twin.validate(WINDOW_PROMPTS[0], WINDOW_MAX_NEW)
+        fail("window: the full-causal twin admitted a request past its pool")
+    except batching.RequestTooLargeError as e:
+        refused = e.body()
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 4)
+    bodies = [{"prompt": rng.integers(0, cfg.vocab_size, n).tolist(),
+               "max_new": WINDOW_MAX_NEW, "stream": True}
+              for n in WINDOW_PROMPTS]
+    out = {}
+    for run, flags in WINDOW_RUNS.items():
+        args, server, url = start_server(server_mod, [*WINDOW_ARGS, *flags],
+                                         params)
+        try:
+            cb = server.engine.cb
+            route = rpa.route_name(cb.pool is not None, "none")
+            kernel_support.reset_launch_counts()
+            steps0, chunks0 = cb.decode_steps, cb.prefill_chunks
+            replays0 = cb.graph.replays
+            t0 = time.perf_counter()
+            results = post_all(url, bodies, run)
+            wall = time.perf_counter() - t0
+            health = server.engine.stats()
+            decode_steps = cb.decode_steps - steps0
+            chunks = cb.prefill_chunks - chunks0
+            if cb.graph.replays - replays0 != decode_steps:
+                fail(f"{run}: {decode_steps} decode steps but "
+                     f"{cb.graph.replays - replays0} graph replays")
+            launched = route_launches(run, kernel_support, rpa, route,
+                                      cfg.n_layers, decode_steps, chunks)
+            if any(len(r["tokens"]) != WINDOW_MAX_NEW for r in results):
+                fail(f"{run}: a request came back short")
+            kv = health["kv"]
+            if kv.get("attn_window") != cfg.sliding_window:
+                fail(f"{run}: kv {kv} does not name the window")
+            if run == "window_paged":
+                if kv["pages_in_use_peak"] > WINDOW_PEAK_PAGES or \
+                        kv["pages_recycled_total"] <= 0:
+                    fail(f"{run}: peak {kv['pages_in_use_peak']} pages "
+                         f"(at most {WINDOW_PEAK_PAGES}), recycled "
+                         f"{kv['pages_recycled_total']}")
+                drain_prefix_cache(server)
+                if cb.pool.in_use:
+                    fail(f"{run}: pages still in use: {cb.kv_stats()}")
+                cb.pool.check()
+            else:
+                equal_streams(run, results, out["window_paged"]["results"],
+                              logprobs=False)
+                want = 2 * 12288 * TOKEN_BYTES["none"]
+                if kv["reserved_bytes"] != want:
+                    fail(f"{run}: reserved_bytes {kv['reserved_bytes']}, "
+                         f"wanted {want}")
+            # the host clock of the steps while both rows decode: the
+            # long request's token gaps after the other's first token
+            # (each replay reads 4096 rows a row, at contexts 12.0k-12.3k
+            # and 9.0k-9.3k)
+            times = results[0]["token_times"]
+            start = results[1]["token_times"][0]
+            gaps = sorted(b - a for a, b in zip(times, times[1:]) if a > start)
+            row = {"phase": 4, "run": run, "route": route, "flags": flags,
+                   "prompt_tokens": list(WINDOW_PROMPTS),
+                   "max_new": WINDOW_MAX_NEW, "window": cfg.sliding_window,
+                   "decode_steps": decode_steps, "prefill_chunks": chunks,
+                   **launched, "wall_s": wall,
+                   "decode_step_ms_both_decoding_p50":
+                       1e3 * gaps[len(gaps) // 2] if gaps else None,
+                   "decode_steps_both_decoding": len(gaps),
+                   "decode_step_ms_mean": health["decode_step_ms_mean"],
+                   "ttft_s": [r["ttft"] for r in results],
+                   "kv": kv, "decode_graph": health["decode"]["graph"],
+                   "full_causal_twin_refused": refused,
+                   "equals_window_paged": run == "window_dense" or None,
+                   "max_memory_allocated_gib":
+                       torch.cuda.max_memory_allocated() / 2**30}
+            emit(row)
+            out[run] = {**row, "results": results}
+        finally:
+            server.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1633,6 +2108,8 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.ops import kernel_support
         from k8s_gpu_device_plugin_torch.ops import quant
         from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
+        from k8s_gpu_device_plugin_torch.serving import prefix_cache as \
+            prefix_cache_mod
         from k8s_gpu_device_plugin_torch.serving import server as server_mod
     except ImportError as e:
         fail(f"the port package is not next to this script: {e}")
@@ -1684,6 +2161,11 @@ def main() -> None:
               == serving["dense"]["tokens"][i]],
           "ttft_s_p50": {"chunked_256": serving["dense"]["ttft_s_p50"],
                          "bucketed": serving["dense_bucketed"]["ttft_s_p50"]}})
+    # the prefix cache: one shared system prompt through the server, then
+    # the copy-on-write of a tail page at batcher level
+    prefix = phase_prefix(torch, server_mod, kernel_support, rpa, batching,
+                          cfg, params)
+    cow = phase_cow(torch, batching, prefix_cache_mod, cfg, params)
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -1700,6 +2182,9 @@ def main() -> None:
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
+    # the Llama-3-8B weights are gone: Mistral-7B's, windowed
+    window = phase_window(torch, server_mod, kernel_support, rpa, batching,
+                          llama)
     training = phase_training(torch, kernel_support, attention_mod, llama,
                               train, trainer_mod)
 
@@ -1749,12 +2234,28 @@ def main() -> None:
         "ragged_paged_attention",
         "k8s_gpu_device_plugin_torch/ops/csrc/ragged_paged_attention.cu",
         "k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py:142",
-        sum(r["launches"] for r in routes.values()),
+        sum(r["launches"] for r in routes.values())
+        + sum(prefix[run]["launches"] for run in PREFIX_RUNS)
+        + sum(window[run]["launches"] for run in WINDOW_RUNS),
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
                           "dense route",
          "routes": routes,
+         # the prefix runs' and the windowed runs' launches (Mistral-7B,
+         # W 4096), and phase 2's W 4096 decode cases with the
+         # stale-entry check
+         "prefix_launches": {run: prefix[run]["launches"]
+                             for run in PREFIX_RUNS},
+         "window": {
+             **{run: {k: window[run][k] for k in
+                      ("launches", "launches_per_engine",
+                       "decode_step_ms_both_decoding_p50")}
+                for run in WINDOW_RUNS},
+             "cases": {c["case"]: {**{k: c[k] for k in keys},
+                                   "stale_entries": c.get("stale_entries")}
+                       for c in cases if c["window"] == MISTRAL_WINDOW}},
+         "cow_check": cow,
          # the decode step replayed as a CUDA graph, held to the eager step
          "decode_graph": {run: {k: g[k] for k in
                                 ("equal_bitwise", "steps_checked",

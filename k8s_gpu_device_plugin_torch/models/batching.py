@@ -5,23 +5,29 @@ the paged KV layout (bf16/f32, int8 codes or packed int4 codes; float or
 weight-only int8/int4 quantized params), bucketed prefill-then-insert
 (``prefill_insert``, ``chunked_prefill=0``, the default) and chunked
 prefill (``prefill_chunk`` / ``prefill_finish``), FIFO admission,
-per-request logit bias and seeds, and the pipelined decode loop
-(``pipeline_depth=1``, the default; 0 is the synchronous loop). A slot
-is one concurrent sequence: on the dense layout its reserved cache rows,
-on the paged one a page-table row over a shared pool
-(``models/paging.py``), reserved at admission for the request's worst
-case and released when it retires or is cancelled. Every slot decodes
-at its own absolute position, and the decode step never changes shape
-(empty slots compute and discard).
+per-request logit bias and seeds, the pipelined decode loop
+(``pipeline_depth=1``, the default; 0 is the synchronous loop), shared
+prefixes (a manual ``precompute_prefix`` or the automatic
+``serving/prefix_cache.py``) and windowed paged serving. A slot is one
+concurrent sequence: on the dense layout its reserved cache rows, on the
+paged one a page-table row over a shared pool (``models/paging.py``),
+reserved at admission for the request's worst case (under a sliding
+window: for its first chunks, grown chunk by chunk, with pages that fall
+out of the window recycled) and released when it retires or is
+cancelled. Every slot decodes at its own absolute position, and the
+decode step never changes shape (empty slots compute and discard).
 
 The device state (:class:`BatchState`) and every per-slot input of the
 decode step (membership mask, sampler knobs, the logit-bias plane, the
 seeds, the EOS id) are persistent tensors updated in place: admission,
-retirement and cancellation write them, the steady decode loop uploads
-nothing. On a CUDA device that lets the batcher capture the decode step
-once as a CUDA graph (:class:`DecodeGraph`, the port's counterpart of
-the reference's jitted step) and replay it every token; on the CPU,
-where the caller asked for it, the step runs eagerly.
+retirement, cancellation, page growth, aliasing, copy-on-write and
+recycling write them, the steady decode loop uploads nothing. On a CUDA
+device that lets the batcher capture the decode step once as a CUDA
+graph (:class:`DecodeGraph`, the port's counterpart of the reference's
+jitted step) and replay it every token; on the CPU, where the caller
+asked for it, the step runs eagerly. Every write of the host's (table
+rows, copied pages, presence rows) is queued on the stream the replays
+run on, so it lands after the step in flight and before the next.
 
 The pipelined loop dispatches step t+1 before it reads step t back, so
 the host's per-token work overlaps the device's next step. Its rules
@@ -30,22 +36,21 @@ that reuses one of its live slots, a slot retired or cancelled since the
 dispatch (and a -1 sentinel) is skipped on readback, and when the
 budgets show that the in-flight step retires every running request it
 is read back without a dispatch ahead. Greedy and seeded streams are
-the same bit for bit at either depth; so are unseeded ones as long as
-no admission waits on a retirement (the pipeline sees a retirement one
-step later, so such an admission, and the shared generator's draws
-behind it, come one step later).
+the same bit for bit at either depth and with the prefix cache on or
+off; so are unseeded ones as long as no admission waits on a retirement
+(the pipeline sees a retirement one step later, so such an admission,
+and the shared generator's draws behind it, come one step later).
 
 Constructor and ``submit`` arguments the reference has and the port does
-not serve yet (adapters, prefix cache, scheduler, tensor parallelism,
-fault injection, ...) are refused when set, never ignored; so is the
-paged layout under a sliding window (incremental reservation and page
-recycling are not ported yet).
+not serve yet (adapters, scheduler, tensor parallelism, fault injection,
+KV page export and install, ...) are refused when set, never ignored.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field, replace
 
 import torch
@@ -83,8 +88,6 @@ _UNSERVED_INIT = {
     "lora_slots": None,
     "adapter_cache_mb": 0,
     "trace_steps": False,
-    "prefix_cache": None,
-    "prefill_reserve_chunks": 2,
     "scheduler": None,
     "tp": None,
     "attribution": None,
@@ -93,7 +96,6 @@ _UNSERVED_INIT = {
     "devices": None,
 }
 _UNSERVED_SUBMIT = {
-    "prefix": None,
     "adapter": -1,
     "tenant": "default",
     "priority": 1,
@@ -120,6 +122,27 @@ def _bucket(n: int, buckets: tuple[int, ...]) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
+
+
+def effective_prefix_reuse(matched: int, prompt_len: int, chunk: int) -> int:
+    """Prefill work a ``matched``-token prefix skips for a
+    ``prompt_len``-token prompt under chunked prefill, in tokens of
+    dispatched chunks. The scheduler dispatches fixed-C intermediate
+    chunks from the prefix boundary and the same back-scheduled finish
+    chunk either way, so the savings are whole skipped chunks: a 64-token
+    match against chunk 256 skips nothing, a 256-token match skips one
+    dispatch. The one definition of it: ``cached_tokens``, the
+    ``prefix_reused`` count and the cache's ``tokens_saved`` all report
+    it (``chunk=0`` returns ``matched``)."""
+    if not chunk:
+        return matched
+
+    def n_chunks(start: int) -> int:
+        # intermediate chunks dispatched from ``start``: one per C while
+        # start + C < prompt_len
+        return max(0, -(-(prompt_len - start) // chunk) - 1)
+
+    return (n_chunks(0) - n_chunks(matched)) * chunk
 
 
 @dataclass
@@ -427,7 +450,7 @@ class RequestTooLargeError(ValueError):
 @dataclass
 class _Request:
     rid: int
-    prompt: list[int]
+    prompt: list[int]          # the full prompt (shared prefix + suffix)
     max_new: int
     out: list[int] = field(default_factory=list)
     # log P(out[i]) under the raw model distribution, parallel to out
@@ -444,6 +467,20 @@ class _Request:
     seed: "int | None" = None
     t_submit: float = 0.0
     t_first_tok: float = 0.0
+    # rows already prefilled once: a manual prefix or an automatic
+    # prefix-cache hit; ``cached_tokens`` is the prefill work it skips
+    # (effective_prefix_reuse), answered as the body's cached_tokens
+    prefix: "PrefixState | PagedPrefixState | None" = None
+    cached_tokens: int = 0
+    # the prefix-cache match runs once (``matched``) even if pool pressure
+    # defers the admission; ``match_depth`` carries the matched length to
+    # the slot assignment, where the hit or miss is recorded. A paged hit
+    # pins the entry's pages (one pool reference each, ``pinned_pages``)
+    # so that an eviction while the request waits cannot free rows it is
+    # about to alias
+    matched: bool = False
+    match_depth: "int | None" = None
+    pinned_pages: "list[int] | None" = None
     # paged admission: pages reserved and not yet installed in a table
     # row; ``defer_counted`` counts one pool-pressure spell once
     new_pages: "list[int] | None" = None
@@ -485,7 +522,17 @@ class ContinuousBatcher:
     plus the trap page, so the layout alone never admits less. A request
     reserves ``ceil((prompt + max_new) / kv_page_size)`` pages at
     admission; when the free list is short it waits at the head of the
-    queue until a retirement frees pages.
+    queue until a retirement frees pages. Under a sliding window
+    (``cfg.sliding_window > 0``) with chunked prefill a request reserves
+    only its first ``prefill_reserve_chunks`` chunks, each chunk grows the
+    row, and pages below every future query's window go back to the pool,
+    so a row's footprint is O(window + chunk) and not O(prompt).
+
+    ``prefix_cache`` (a ``serving.prefix_cache.PrefixCache``, chunked
+    prefill only) matches every prompt at admission and promotes every
+    completed prefill at the ``prompt_buckets`` boundaries: a dense hit
+    copies the prefix's rows into the slot, a paged hit aliases its pages
+    in the slot's table (and copies the one partial tail page, if any).
 
     On a CUDA device the decode step is captured once as a CUDA graph
     (:class:`DecodeGraph`) at construction; ``decode_graph=False`` runs
@@ -508,6 +555,9 @@ class ContinuousBatcher:
         kv_page_size: "int | None" = None,  # None = take cfg.kv_page_size
         kv_pages: int = 0,  # paged pool size; 0 = dense-equivalent + trap
         decode_graph: "bool | None" = None,  # None = on a CUDA device
+        prefix_cache=None,  # serving.prefix_cache.PrefixCache (or None)
+        prefill_reserve_chunks: int = 2,  # windowed admission: chunks of
+        #   prompt the first page tranche covers
         **unserved,
     ):
         _refuse("ContinuousBatcher", unserved, _UNSERVED_INIT)
@@ -533,13 +583,6 @@ class ContinuousBatcher:
                     f"kv_pages must be >= 0 (0 = dense-equivalent pool), "
                     f"got {kv_pages}: a negative value would silently "
                     "serve the default pool size"
-                )
-            if cfg.sliding_window > 0:
-                raise NotImplementedError(
-                    f"kv_layout='paged' with sliding_window="
-                    f"{cfg.sliding_window}: incremental page reservation "
-                    "and out-of-window recycling are not ported yet "
-                    "(ROADMAP A.4); serve kv_layout='dense'"
                 )
         elif kv_pages:
             raise ValueError(
@@ -596,6 +639,10 @@ class ContinuousBatcher:
                 "attention backend: %s -> %s (%s)", mode, plan["backend"],
                 plan["reason"],
             )
+        if prefix_cache is not None:
+            self._attach_prefix_cache(prefix_cache, cfg, max_len,
+                                      prompt_buckets)
+        self.prefix_cache = prefix_cache
         # paged KV: the host-side page pool (free list + refcounts)
         self.pool: "PagePool | None" = None
         self._slot_pages: dict[int, list[int]] = {}  # slot -> its page ids
@@ -604,6 +651,24 @@ class ContinuousBatcher:
             per_slot = max_len // cfg.kv_page_size
             n_pages = int(kv_pages) if kv_pages > 0 else n_slots * per_slot + 1
             self.pool = PagePool(n_pages, cfg.kv_page_size)
+        # sliding-window serving: a windowed row's live cache is its
+        # trailing window, so on the paged layout admission reserves only
+        # the first chunks, each chunk grows the row, and pages no future
+        # query can attend go back to the pool (their table entries are
+        # reset to the trap page, which the kernel's floor tile may read
+        # under its mask)
+        self.window = int(cfg.sliding_window or 0)
+        self.reserve_chunks = max(1, int(prefill_reserve_chunks))
+        self._incremental_reserve = (
+            self.pool is not None and self.window > 0 and self.chunk > 0)
+        self._pages_recycled = 0
+        self.chunks_deferred = 0  # prefill chunks that waited for pages
+        self._recycle_lo: dict[int, int] = {}  # slot -> first live page
+        # prefill work by provenance: ``computed`` tokens ran through the
+        # model, ``prefix_reused`` ones came from a prefix's rows; and
+        # the pages paged prefix hits aliased instead of prefilling
+        self.prefill_tokens = {"computed": 0, "prefix_reused": 0}
+        self.pages_aliased = 0
         # refused or deferred paged admissions by reason; ``validate``
         # counts from request threads, hence the lock
         self._kv_rejections = {"pool_pressure": 0, "request_too_large": 0}
@@ -664,6 +729,56 @@ class ContinuousBatcher:
             # compute and discard, writing only the trap rows
             self.graph = DecodeGraph(self._eager_step, self.generator, dev)
 
+    def _attach_prefix_cache(self, pc, cfg: LlamaConfig, max_len: int,
+                             prompt_buckets: tuple[int, ...]) -> None:
+        """Bind an automatic prefix cache to this batcher's chunk, bucket
+        ladder and layout: its match gate, savings and promotion
+        boundaries depend on them. A cache holding entries promoted on
+        another ladder, or paged entries (their page ids belong to the
+        pool of the batcher that promoted them), or entries of the other
+        layout, is refused."""
+        if not self.chunk:
+            raise ValueError(
+                "automatic prefix caching requires chunked_prefill=C (the "
+                "chunk scheduler continues a prefill from the matched "
+                "boundary)")
+        if not self.buckets:
+            raise ValueError(
+                f"automatic prefix caching needs a prompt bucket <= "
+                f"max_len={max_len} (buckets={prompt_buckets}): promotion "
+                "boundaries are the bucket ladder")
+        if pc.stats.nodes and tuple(pc.buckets) != self.buckets:
+            raise ValueError(
+                "prefix cache already holds entries promoted on a "
+                f"different bucket ladder {pc.buckets} (this batcher's: "
+                f"{self.buckets})")
+        held = getattr(pc.cfg, "kv_layout", "dense")
+        if pc.stats.entries and held == "paged":
+            raise ValueError(
+                "prefix cache already holds paged entries: their page ids "
+                "belong to the pool of the batcher that promoted them; "
+                "attach a fresh PrefixCache")
+        if pc.stats.entries and held != cfg.kv_layout:
+            raise ValueError(
+                "prefix cache already holds entries materialized under "
+                f"kv_layout={held!r} (this batcher's: {cfg.kv_layout!r})")
+        pc.chunk = self.chunk
+        pc.buckets = self.buckets
+        # paged entries round their residency up to whole pages
+        pc.cfg = cfg
+        if cfg.kv_layout == "paged":
+            # entries hold page references, given back at eviction; the
+            # presence row moves to the batcher's device once, here
+            device = self.device
+            pc.entry_factory = (
+                lambda rows, tokens, presence, adapter: PagedPrefixState(
+                    page_ids=tuple(rows), tokens=tokens,
+                    presence=presence.to(device), adapter=adapter))
+            pc.release_entry = _paged_release_hook(self)
+        else:
+            pc.entry_factory = PrefixState
+            pc.release_entry = None
+
     # --- admission rule ---
 
     def validate(self, prompt_len: int, max_new: int) -> None:
@@ -683,8 +798,14 @@ class ContinuousBatcher:
             # the paged wall is the pool, not the slot: a request whose
             # worst case outsizes the whole pool can never be admitted
             # (transient pressure defers in _admit instead)
-            need = self.pool.pages_for_tokens(
-                self._kv_need_tokens(prompt_len, max_new))
+            tokens = self._kv_need_tokens(prompt_len, max_new)
+            if self._incremental_reserve:
+                # a windowed row never holds its whole prompt: its peak
+                # is the trailing window plus the chunks in flight (or
+                # the decode span), so the wall moves from O(prompt) to
+                # O(window + chunk)
+                tokens = min(tokens, self._windowed_peak_tokens(max_new))
+            need = self.pool.pages_for_tokens(tokens)
             if need > self.pool.capacity:
                 self._count_kv_rejection("request_too_large")
                 raise RequestTooLargeError(
@@ -751,21 +872,49 @@ class ContinuousBatcher:
         sampler: "Sampler | None" = None,
         seed: "int | None" = None,
         logit_bias=None,
+        prefix: "PrefixState | None" = None,
         **unserved,
     ) -> int:
-        """Queue a request; returns its id."""
+        """Queue a request; returns its id. ``prefix``
+        (:func:`precompute_prefix`) prepends a shared prefilled prefix:
+        its rows are copied into the slot at admission and only
+        ``prompt`` (the suffix) runs through prefill (chunked prefill
+        only). With a ``prefix_cache`` attached, a request naming no
+        prefix is matched against the cache at admission instead."""
         _refuse("submit", unserved, _UNSERVED_SUBMIT)
+        if prefix is not None:
+            if not self.chunk:
+                raise ValueError("prefix sharing requires chunked_prefill=C")
+            if isinstance(prefix, PagedPrefixState):
+                # its page references belong to the attached cache, which
+                # pins them at match time; a manual one would reach
+                # admission unpinned
+                raise ValueError(
+                    "PagedPrefixState cannot be submitted manually: paged "
+                    "prefix entries are owned by the attached prefix cache "
+                    "(manual prefixes carry dense rows from "
+                    "precompute_prefix)")
+            if prefix.adapter != -1:
+                raise ValueError(
+                    f"prefix was prefilled with adapter {prefix.adapter}, "
+                    "request uses -1")
         prompt = self.validate_prompt(prompt)
-        self.validate(len(prompt), max_new)
+        full = (list(prefix.tokens) if prefix is not None else []) + prompt
+        self.validate(len(full), max_new)
         bias = self.validate_bias(logit_bias)
         seed = self.validate_seed(seed)
         rid = self._next_rid
         self._next_rid += 1
         self.pending.append(_Request(
-            rid, prompt, int(max_new),
+            rid, full, int(max_new),
             stop=tuple(tuple(int(t) for t in s) for s in (stop or ()) if s),
             sampler=sampler, bias=bias, seed=seed,
-            t_submit=time.perf_counter(),
+            t_submit=time.perf_counter(), prefix=prefix,
+            # a manual prefix reports its effective reuse too (automatic
+            # hits are set at admission)
+            cached_tokens=(effective_prefix_reuse(
+                len(prefix.tokens), len(full), self.chunk)
+                if prefix is not None else 0),
         ))
         return rid
 
@@ -826,13 +975,104 @@ class ContinuousBatcher:
         disagree."""
         return prompt_len + max_new
 
+    def _windowed_peak_tokens(self, max_new: int) -> int:
+        """Upper bound on the rows one windowed row has live at once
+        under incremental reservation: the trailing window, the admission
+        tranche plus one chunk in flight (recycling lags the cursor by the
+        finish chunk's back-scheduled overlap), the larger of one chunk
+        and the decode span (grown at the finish chunk, recycled during
+        decode), and two pages of boundary rounding. ``validate`` admits
+        against it, so a deferred growth can always succeed later."""
+        return (self.window + (self.reserve_chunks + 1) * self.chunk
+                + max(self.chunk, max_new) + 2 * self.pool.page_size)
+
+    def _initial_reserve_tokens(self, req: _Request) -> int:
+        """A windowed request's admission tranche: rows through the first
+        ``reserve_chunks`` chunks past the prefix match (growth backs the
+        rest chunk by chunk). A short request is covered whole."""
+        total = self._kv_need_tokens(len(req.prompt), req.max_new)
+        start = len(req.prefix.tokens) if req.prefix is not None else 0
+        return min(total, start + self.reserve_chunks * self.chunk)
+
+    def _outstanding_growth_pages(self) -> int:
+        """Pages the windowed prefills in flight may still draw before
+        they peak: headroom a new admission must not eat. Two long
+        prompts admitted into one window's worth of free pages would
+        starve each other (only the oldest prefill advances), so keeping
+        the in-flight peaks admissible makes a growth deferral
+        transient."""
+        if not self._incremental_reserve:
+            return 0
+        out = 0
+        for slot, req in self.prefilling.items():
+            peak = self.pool.pages_for_tokens(min(
+                self._kv_need_tokens(len(req.prompt), req.max_new),
+                self._windowed_peak_tokens(req.max_new)))
+            backed = sum(1 for p in (self._slot_pages.get(slot) or []) if p)
+            out += max(0, peak - backed)
+        return out
+
     def _reserve_pages(self, req: _Request) -> bool:
-        """Pool-pressure check and reservation for one admission. False
-        defers: the request keeps the head of the queue and pages free
-        as slots retire. One spell of waiting counts once."""
-        need = self.pool.pages_for_tokens(
+        """Pool-pressure check and reservation for one admission. The
+        pages a paged prefix hit aliases are pinned already (match time),
+        so only the copy-on-write tail and the fresh pages draw on the
+        free list. False defers: the request keeps the head of the queue
+        and pages free as slots retire. One spell of waiting counts
+        once."""
+        ps = self.pool.page_size
+        total = self.pool.pages_for_tokens(
             self._kv_need_tokens(len(req.prompt), req.max_new))
-        if need > self.pool.free_pages:
+        if self._incremental_reserve:
+            # windowed streaming prefill: only the admission tranche; the
+            # chunks grow the rest and recycling keeps the row O(window)
+            total = min(total, self.pool.pages_for_tokens(
+                self._initial_reserve_tokens(req)))
+        # headroom for the windowed growth in flight: counted against the
+        # free list below, never allocated here
+        growth = self._outstanding_growth_pages()
+        aliased = 0
+        if isinstance(req.prefix, PagedPrefixState):
+            # full shared pages alias; a partial tail page still needs a
+            # fresh page (the copy's destination)
+            aliased = len(req.prefix.tokens) // ps
+        need = total - aliased
+        if need + growth > self.pool.free_pages and \
+                self.prefix_cache is not None:
+            # pool pressure: promoted prefixes are reclaimable capacity.
+            # Evict LRU entries until the reservation fits, but only when
+            # reclaiming everything could close the gap: pages that slots
+            # or queued requests' pins hold stay allocated however much
+            # of the cache goes
+            held = set()
+            for ids in self._slot_pages.values():
+                held.update(ids)
+            for r in self.pending:
+                if r.pinned_pages:
+                    held.update(r.pinned_pages)
+            reclaimable = self.pool.in_use - len(held)
+            if self.pool.free_pages + reclaimable >= need + growth:
+                while (need + growth > self.pool.free_pages
+                       and self.prefix_cache.evict_one()):
+                    pass
+        if (need > self.pool.free_pages and not self.running
+                and not self.prefilling):
+            # the futile-deferral escape: nothing runs, so no retirement
+            # will ever free a page, and what the valve could not reclaim
+            # this request pins itself (a matched prefix whose partial
+            # tail page it pins for the copy). Admit it cold instead: drop
+            # the hit, release the pins, reclaim; ``validate`` guaranteed
+            # the cold reservation fits the pool
+            self._release_pinned(req)
+            if isinstance(req.prefix, PagedPrefixState):
+                req.prefix = None
+                req.match_depth = None
+                req.cached_tokens = 0
+                need = total
+            if self.prefix_cache is not None:
+                while (need > self.pool.free_pages
+                       and self.prefix_cache.evict_one()):
+                    pass
+        if need + growth > self.pool.free_pages:
             if not req.defer_counted:
                 req.defer_counted = True
                 self._count_kv_rejection("pool_pressure")
@@ -846,25 +1086,129 @@ class ContinuousBatcher:
         return True
 
     def _install_pages(self, req: _Request, slot: int) -> None:
-        """Upload the slot's page-table row: the reserved pages, then
-        zeros (the trap page). The one upload a request's table costs."""
+        """Upload the slot's page-table row (aliased, copied-on-write and
+        fresh pages, then zeros: the trap page) and make the paged
+        prefix insert: an automatic hit is table aliasing plus at most one
+        copy of the partial tail page; a manual (dense-row) prefix is
+        scattered into the fresh pages. The one upload a fully reserved
+        request's table costs."""
         if slot in self._slot_pages:
             raise RuntimeError(f"slot {slot} still holds pages")
-        ids, req.new_pages = req.new_pages, None
-        row = ids + [0] * (self.state.pages.shape[1] - len(ids))
+        ps = self.pool.page_size
+        new, req.new_pages = req.new_pages or [], None
+        shared: list[int] = []
+        cow = None
+        hit = isinstance(req.prefix, PagedPrefixState)
+        if hit:
+            m = len(req.prefix.tokens)
+            pinned, req.pinned_pages = req.pinned_pages, None
+            if pinned is None:
+                raise RuntimeError("paged prefix reached install unpinned")
+            # the match-time pins of the full pages move to the slot
+            shared = pinned[:m // ps]
+            if m % ps:
+                cow = (pinned[m // ps], new[0])
+        ids = shared + new
         self._slot_pages[slot] = ids
-        self.state.pages[slot] = self._h2d(row, torch.int32)
+        row = self._h2d(ids + [0] * (self.state.pages.shape[1] - len(ids)),
+                        torch.int32)
+        if hit:
+            _alias_slot_pages(self.state, row, req.prefix.presence, slot)
+            self.pages_aliased += len(shared)
+            if cow is not None:
+                src, dst = cow
+                _copy_page(self.state, src, dst)
+                _KV_COPIES["cow_pages"] += 1
+                # the tail pin served only the copy's read: the slot owns
+                # its private copy now
+                self.pool.decref([src])
+            return
+        self.state.pages[slot] = row
+        if req.prefix is not None:
+            # a manual prefix into a paged slot: a real row copy
+            _insert_prefix(self.state, req.prefix.rows, req.prefix.presence,
+                           slot, self.cfg)
+            _KV_COPIES["rows"] += len(req.prefix.tokens)
+
+    # --- incremental reservation and out-of-window recycling ---
+
+    def _grow_slot_pages(self, slot: int, req: _Request,
+                         upto_tokens: int) -> bool:
+        """Back positions ``[0, upto_tokens)`` of ``slot`` with real
+        pages: the growth half of incremental reservation, one row upload
+        per chunk that grows (recycled entries stay 0, the trap page).
+        False on pool pressure, with nothing allocated: the caller defers
+        the chunk, and the request keeps its slot, its cursor and every
+        page grown so far."""
+        ids = self._slot_pages[slot]
+        grow = self.pool.pages_for_tokens(upto_tokens) - len(ids)
+        if grow <= 0:
+            return True
+        if grow > self.pool.free_pages and self.prefix_cache is not None:
+            # the admission's pressure valve, mid-prompt
+            while grow > self.pool.free_pages and self.prefix_cache.evict_one():
+                pass
+        if grow > self.pool.free_pages:
+            self.chunks_deferred += 1
+            get_logger().debug(
+                "prefill chunk deferred: KV pool pressure (rid %d needs %d "
+                "pages, %d free)", req.rid, grow, self.pool.free_pages)
+            return False
+        ids += self.pool.alloc(grow)
+        self.state.pages[slot] = self._h2d(
+            ids + [0] * (self.state.pages.shape[1] - len(ids)), torch.int32)
+        return True
+
+    def _recycle_slot_pages(self, slot: int, pos: int) -> None:
+        """Free the pages no future query of this row can attend: queries
+        at positions >= ``pos`` reach keys in ``(q - window, q]``, so a
+        page whose last position is <= ``pos - window`` is dead. The
+        pages go back to the pool (a page a prefix entry shares only
+        drops this row's reference), and their table entries are reset
+        to the trap page on the device: the kernel starts a span at the
+        64-row tile that holds the window floor, so with pages smaller
+        than a tile it reads up to three dead entries under its mask, and
+        a recycled page may since hold another slot's rows. The reset is
+        queued behind the step in flight, which still reads the old
+        entries: their pages are written only by work queued after it."""
+        if not self._incremental_reserve:
+            return
+        ids = self._slot_pages.get(slot)
+        if not ids:
+            return
+        ps = self.pool.page_size
+        # page k spans [k*ps, (k+1)*ps); dead iff (k+1)*ps <= pos-W+1
+        dead = min(max(0, (pos - self.window + 1) // ps), len(ids))
+        lo = self._recycle_lo.get(slot, 0)
+        if dead <= lo:
+            return
+        batch = [p for p in ids[lo:dead] if p]
+        ids[lo:dead] = [0] * (dead - lo)
+        self._recycle_lo[slot] = dead
+        self.state.pages[slot, lo:dead] = 0
+        if batch:
+            self._pages_recycled += self.pool.recycle(batch)
 
     def _release_slot_pages(self, slot: int) -> None:
         """Drop the slot's page references when its request retires or
-        is cancelled. The table row stays as it is: the decode step masks
-        an inactive slot's row to the trap page, and the next admission
-        overwrites it."""
+        is cancelled: pages shared with the prefix cache (or other
+        slots) stay until their last holder lets go, recycled entries (0)
+        were freed already. The table row stays as it is: the decode step
+        masks an inactive slot's row to the trap page, and the next
+        admission overwrites it."""
         if self.pool is None:
             return
+        self._recycle_lo.pop(slot, None)
         ids = self._slot_pages.pop(slot, None)
         if ids:
-            self.pool.decref(ids)
+            self.pool.decref([p for p in ids if p])
+
+    def _release_pinned(self, req: _Request) -> None:
+        """Give back the match-time page pins of a request that will not
+        alias them (cancelled while it waited, or admitted cold)."""
+        if self.pool is not None and req.pinned_pages:
+            self.pool.decref(req.pinned_pages)
+            req.pinned_pages = None
 
     def _count_kv_rejection(self, reason: str) -> None:
         with self._kv_rejections_lock:
@@ -881,11 +1225,16 @@ class ContinuousBatcher:
         ``reserved_bytes`` (the device memory the cache tensors hold,
         scale planes included), so they compare directly; paged adds the
         pool's occupancy and its internal fragmentation (allocated page
-        capacity not covered by live tokens). A snapshot: the HTTP
-        thread reads it while the engine thread admits and retires."""
+        capacity not covered by live tokens: tail-page waste and pages
+        that promoted prefixes pin), the pages recycled out of windows and
+        the pages prefix hits aliased. A snapshot: the HTTP thread reads it
+        while the engine thread admits and retires."""
         tb = kv_token_bytes(self.cfg)
+        # attn_window only when windowed: at window 0 the dict is the
+        # window-less one, as the reference keeps it
+        windowed = {"attn_window": self.window} if self.window else {}
         if self.pool is None:
-            return {"layout": "dense",
+            return {"layout": "dense", **windowed,
                     "reserved_bytes": self.n_slots * self.max_len * tb}
         live = sum(len(r.prompt) + len(r.out)
                    for r in list(self.running.values()))
@@ -894,11 +1243,14 @@ class ContinuousBatcher:
         cap_tokens = pool.in_use * pool.page_size
         return {
             "layout": "paged",
+            **windowed,
             "page_size": pool.page_size,
             "pages_total": pool.capacity,
             "pages_in_use": pool.in_use,
             "pages_free": pool.free_pages,
             "pages_in_use_peak": pool.peak_in_use,
+            "pages_recycled_total": self._pages_recycled,
+            "pages_aliased": self.pages_aliased,
             "fragmentation_pct": (
                 100.0 * (1.0 - min(live, cap_tokens) / cap_tokens)
                 if cap_tokens else 0.0
@@ -923,16 +1275,52 @@ class ContinuousBatcher:
                 if s not in self.running and s not in self.prefilling]
         while free and self.pending:
             req = self.pending[0]
+            if (self.prefix_cache is not None and req.prefix is None
+                    and len(req.prompt) > 1 and not req.matched):
+                # the automatic match site: past validation, and late
+                # enough to see every prefix promoted since the request
+                # queued. Uncounted here: a deferred request may still be
+                # cancelled; the disposition is recorded at the slot
+                # assignment below. It runs before the page reservation:
+                # the hit decides how many pages alias and how many are
+                # allocated
+                req.matched = True
+                hit = self.prefix_cache.match(req.prompt, -1, count=False)
+                if hit is not None:
+                    req.prefix, req.match_depth = hit
+                    req.cached_tokens = self.prefix_cache.effective_reuse(
+                        req.match_depth, len(req.prompt))
+                    if isinstance(req.prefix, PagedPrefixState):
+                        # pin the entry's pages now: an eviction while
+                        # this request waits must not free rows it is
+                        # about to alias
+                        pin = list(req.prefix.page_ids)
+                        self.pool.incref(pin)
+                        req.pinned_pages = pin
             if self.pool is not None and not self._reserve_pages(req):
                 break  # head-of-line wait: pages free as slots retire
             self.pending.pop(0)
             req.slot = slot = free.pop(0)
+            if req.matched:
+                self.prefix_cache.record_match(req.match_depth,
+                                               len(req.prompt))
             if self.pool is not None:
                 self._install_pages(req, slot)
             self._open_slot(req, slot)
             if self.chunk:
+                start = 0
+                if req.prefix is not None:
+                    if self.pool is None:
+                        # copy the shared rows and presence; the paged
+                        # layout aliased them in _install_pages
+                        _insert_prefix(self.state, req.prefix.rows,
+                                       req.prefix.presence, slot, self.cfg)
+                        _KV_COPIES["rows"] += len(req.prefix.tokens)
+                    start = len(req.prefix.tokens)
+                    self._count_prefill_tokens(req.cached_tokens,
+                                               "prefix_reused")
                 self.prefilling[slot] = req
-                self._prefill_pos[slot] = 0
+                self._prefill_pos[slot] = start
                 continue
             plen = len(req.prompt)
             bucket = _bucket(plen, self.buckets)
@@ -945,7 +1333,16 @@ class ContinuousBatcher:
                 bias=self._bias[slot:slot + 1],
                 seeds=self.state.seeds[slot:slot + 1],
             )
+            self._count_prefill_tokens(plen, "computed")
             self._first_token(req, slot, tok, logp, t0)
+            self._finish_if_done(req)
+
+    def _count_prefill_tokens(self, n: int, source: str) -> None:
+        """Prefill work by provenance: ``computed`` tokens ran through
+        the model (the finish chunk's overlap included: it is real
+        compute), ``prefix_reused`` ones came from a prefix's rows."""
+        if n > 0:
+            self.prefill_tokens[source] += n
 
     def _wait_prefill(self, done: "torch.cuda.Event | None",
                       t0: float) -> None:
@@ -974,14 +1371,13 @@ class ContinuousBatcher:
     def _first_token(self, req: _Request, slot: int, tok: torch.Tensor,
                      logp: torch.Tensor, t0: float) -> None:
         """A prefill's first token reaches the host: the request moves
-        to running."""
+        to running (the caller then retires it if that token ends it)."""
         self._wait_prefill(self._done_event(), t0)
         req.out.append(int(tok[0]))
         req.out_logp.append(float(logp[0]))
         req.t_first_tok = time.perf_counter()
         self.running[slot] = req
         self._slots_dirty = True
-        self._finish_if_done(req)
 
     def _prefill_one_chunk(self) -> None:
         """Advance the oldest mid-prefill request by one chunk; on its
@@ -993,6 +1389,14 @@ class ContinuousBatcher:
         start = self._prefill_pos[slot]
         c = self.chunk
         plen = len(req.prompt)
+        if self.pool is not None:
+            # incremental reservation (windowed rows): back the pages this
+            # chunk writes, and the decode span on the finish chunk,
+            # before the dispatch. Pool pressure defers the chunk, never
+            # the request. A fully reserved row is backed already
+            upto = start + c if start + c < plen else plen + req.max_new
+            if not self._grow_slot_pages(slot, req, upto):
+                return
         t0 = time.perf_counter()
         if start + c < plen:  # intermediate chunk, all real tokens
             chunk = self._h2d(req.prompt[start:start + c], torch.int64)
@@ -1002,6 +1406,11 @@ class ContinuousBatcher:
             # device time would be charged to the next decode step
             self._wait_prefill(self._done_event(), t0)
             self._prefill_pos[slot] = start + c
+            # recycle behind the cursor, floored at the finish chunk's
+            # back-scheduled start: its overlap rewrites those rows and
+            # its queries attend them
+            self._recycle_slot_pages(slot, min(start + c, max(plen - c, 0)))
+            self._count_prefill_tokens(c, "computed")
             return
         fstart = max(0, plen - c)
         rest = req.prompt[fstart:]
@@ -1013,7 +1422,53 @@ class ContinuousBatcher:
             seeds=self.state.seeds[slot:slot + 1],
         )
         del self.prefilling[slot], self._prefill_pos[slot]
+        self._count_prefill_tokens(plen - fstart, "computed")
         self._first_token(req, slot, tok, logp, t0)
+        # decode queries start at plen: everything below plen - window is
+        # dead now (promotion then sees the recycled row and skips it)
+        self._recycle_slot_pages(slot, plen)
+        self._maybe_promote_prefix(req)
+        self._finish_if_done(req)
+
+    def _maybe_promote_prefix(self, req: _Request) -> None:
+        """Offer a completed chunked prefill's prompt to the prefix
+        cache, which decides which boundaries to materialize. The slot
+        holds the whole prompt's K/V at this moment, however much of it
+        came from a matched prefix: paged entries take a reference on
+        each page a boundary spans (no device work), dense entries copy
+        the boundary's rows (:func:`extract_prefix_rows`)."""
+        if self.prefix_cache is None:
+            return
+        if self.pool is not None:
+            slot_pages = self._slot_pages[req.slot]
+            if any(p == 0 for p in slot_pages):
+                # windowed prefill recycled pages: the prompt's early
+                # rows are gone, so no boundary is materializable
+                return
+
+            def extract(p: int) -> tuple:
+                # nothing between the incref and the return: the cache
+                # owns these references from here
+                ids = tuple(slot_pages[:self.pool.pages_for_tokens(p)])
+                self.pool.incref(ids)
+                return ids
+
+            self.prefix_cache.on_prefill_done(req.prompt, -1, extract)
+            return
+        slot = req.slot
+
+        def extract_dense(p: int) -> KVCache:
+            _KV_COPIES["rows"] += p
+            return extract_prefix_rows(self.state, slot, p)
+
+        self.prefix_cache.on_prefill_done(req.prompt, -1, extract_dense)
+
+    def precompute_shared_prefix(self, tokens) -> "PrefixState":
+        """:func:`precompute_prefix` against this batcher's params and
+        bucket ladder."""
+        return precompute_prefix(self.params, tokens, self.cfg,
+                                 prompt_buckets=self.buckets
+                                 or DEFAULT_PROMPT_BUCKETS)
 
     # --- the decode loop ---
 
@@ -1101,6 +1556,11 @@ class ContinuousBatcher:
                 req.out.append(tok)
                 req.out_logp.append(logps[slot])
                 self._finish_if_done(req)
+                # sliding-window decode: pages leave the window as the
+                # row advances, so its footprint stays O(window); a slot
+                # just retired is a no-op (its ledger is gone)
+                self._recycle_slot_pages(
+                    slot, len(req.prompt) + len(req.out) - 1)
         self.decode_tokens += n
         return n
 
@@ -1130,6 +1590,7 @@ class ContinuousBatcher:
         for i, req in enumerate(self.pending):
             if req.rid == rid:
                 self.pending.pop(i)
+                self._release_pinned(req)  # a paged hit's match-time pins
                 self._retire(req)
                 return True
         for mapping in (self.prefilling, self.running):
@@ -1187,3 +1648,162 @@ class ContinuousBatcher:
             if max_steps is not None and steps >= max_steps:
                 break
         return dict(self.done)
+
+
+# ---------------- shared prefixes ----------------
+#
+# A prefix prefilled once serves every request that starts with it: its
+# rows go into the slot at admission and only the suffix is
+# chunk-prefilled. ``precompute_prefix`` makes one by hand;
+# serving/prefix_cache.py is the automatic tier, an index of prefixes the
+# batcher promotes from completed prefills (``_maybe_promote_prefix``)
+# and matches at admission (``_admit``).
+#
+# On the paged layout a promoted prefix is a set of page references
+# (``PagedPrefixState``) and a hit aliases them into the slot's table: no
+# row moves. The one copy left is the copy-on-write of a partially
+# filled tail page (a boundary inside a page), which the hitting slot
+# will append its suffix to. ``kv_copy_counts()`` counts both.
+
+
+@dataclass(frozen=True)
+class PrefixState:
+    """An immutable prefilled prefix: its cache rows (a single-row
+    ``KVCache`` (L, 1, P, Hkv, hd), codes and scales alike), the tokens
+    (the finish chunk's overlap recomputes across the prefix boundary)
+    and the presence row over them."""
+
+    rows: KVCache
+    tokens: tuple
+    presence: torch.Tensor  # (V,) bool over the real tokens
+    # the adapter the rows were prefilled under (-1 = base): always -1
+    # here, adapters are not served
+    adapter: int = -1
+
+
+@dataclass(frozen=True)
+class PagedPrefixState:
+    """A promoted prefix on the paged layout: physical page ids, each
+    holding a pool reference taken at promotion, in place of rows. The
+    same ``tokens``/``presence``/``adapter`` as :class:`PrefixState`;
+    ``page_ids`` spans ceil(len(tokens) / page_size) pages, the last one
+    possibly partial (the copy-on-write case)."""
+
+    page_ids: tuple
+    tokens: tuple
+    presence: torch.Tensor
+    adapter: int = -1
+
+
+_KV_COPIES = {"rows": 0, "cow_pages": 0}
+
+
+def kv_copy_counts() -> dict:
+    """KV data movement on the prefix paths so far: ``rows`` counts dense
+    row copies (promotion's extraction and a hit's insert),
+    ``cow_pages`` the paged tail-page copies. The paged layout's
+    zero-copy claim is ``rows == 0`` across any number of hits."""
+    return dict(_KV_COPIES)
+
+
+def reset_kv_copy_counts() -> None:
+    _KV_COPIES["rows"] = 0
+    _KV_COPIES["cow_pages"] = 0
+
+
+def _precompute_prefix(params: dict, prefix: torch.Tensor, prefix_len: int,
+                       cfg: LlamaConfig) -> tuple[KVCache, torch.Tensor]:
+    """Run the padded prefix (P,) through a fresh single-row scratch cache
+    from position 0; returns the scratch (P rows) and the presence row of
+    the real tokens only (causal attention keeps the padding out of the
+    real rows' K/V)."""
+    p = prefix.shape[0]
+    scratch = KVCache.init(cfg, 1, p, prefix.device)
+    _forward_cached(params, prefix[None, :], scratch, 0, cfg, select_pos=0)
+    seen = torch.zeros((cfg.vocab_size,), dtype=torch.bool,
+                       device=prefix.device)
+    seen[prefix[:prefix_len].long()] = True
+    return scratch, seen
+
+
+def precompute_prefix(
+    params: dict, tokens: list[int], cfg: LlamaConfig, adapter: int = -1,
+    prompt_buckets: tuple[int, ...] = DEFAULT_PROMPT_BUCKETS,
+) -> PrefixState:
+    """Prefill a shared prefix once. The forward pads to the next
+    ``prompt_buckets`` boundary, as the reference's does (one compile per
+    bucket there); the rows are cut back to the exact token count, so
+    the padded rows never reach a slot."""
+    if adapter != -1:
+        raise NotImplementedError(
+            f"precompute_prefix(adapter={adapter}): adapters are not served "
+            "by the PyTorch port yet")
+    params = cast_params_for_compute(params, cfg)
+    n = len(tokens)
+    pad = next((b for b in sorted(prompt_buckets) if b >= n), n)
+    device = params["embed"].device
+    arr = torch.tensor(list(tokens) + [0] * (pad - n), dtype=torch.int64,
+                       device=device)
+    rows, seen = _precompute_prefix(params, arr, n, cfg)
+    if pad != n:
+        def cut(x):
+            return None if x is None else x[:, :, :n].clone()
+
+        rows = KVCache(k=cut(rows.k), v=cut(rows.v),
+                       k_scale=cut(rows.k_scale), v_scale=cut(rows.v_scale))
+    return PrefixState(rows=rows, tokens=tuple(tokens), presence=seen)
+
+
+def _insert_prefix(state: BatchState, rows: KVCache, presence: torch.Tensor,
+                   slot: int, cfg: LlamaConfig) -> None:
+    """Copy prefilled prefix rows and their presence row into ``slot``:
+    in place on the dense layout, scattered through the slot's freshly
+    allocated pages on the paged one (the reference's
+    ``_insert_prefix_rows_paged``, a row copy too). Suffix chunks and the
+    activation follow through the chunked prefill."""
+    _insert_rows(state, rows, slot, cfg)
+    state.presence[slot] = presence
+
+
+def extract_prefix_rows(state: BatchState, slot: int, p: int) -> KVCache:
+    """The first ``p`` rows of a dense ``slot`` as a single-row
+    ``KVCache`` (L, 1, p, Hkv, hd): the promotion's copy (the slot goes
+    on decoding and is later reused)."""
+    def cut(x):
+        return None if x is None else x[:, slot:slot + 1, :p].clone()
+
+    c = state.cache
+    return KVCache(k=cut(c.k), v=cut(c.v), k_scale=cut(c.k_scale),
+                   v_scale=cut(c.v_scale))
+
+
+def _paged_release_hook(cb: ContinuousBatcher):
+    """``PrefixCache.release_entry`` for a paged batcher, closed over a
+    weak reference only: a cache that outlives its batcher must not keep
+    the batcher (and its device pool) alive to return pages to a pool
+    nobody allocates from any more."""
+    wref = weakref.ref(cb)
+
+    def release(entry) -> None:
+        live = wref()
+        if live is not None:
+            live.pool.decref(entry.page_ids)
+
+    return release
+
+
+def _alias_slot_pages(state: BatchState, row: torch.Tensor,
+                      presence: torch.Tensor, slot: int) -> None:
+    """A paged prefix hit: the slot's table row (shared pages aliased in)
+    and the prefix's presence row, written in place."""
+    state.pages[slot] = row
+    state.presence[slot] = presence
+
+
+def _copy_page(state: BatchState, src: int, dst: int) -> None:
+    """Copy one physical page, every layer, codes and scale planes alike:
+    the copy-on-write of a partially filled shared tail page."""
+    c = state.cache
+    for x in (c.k, c.v, c.k_scale, c.v_scale):
+        if x is not None:
+            x[:, dst].copy_(x[:, src])

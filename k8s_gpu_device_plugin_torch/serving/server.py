@@ -16,9 +16,10 @@ Wire contract (the reference's):
   ``{"id", "tokens", "cached_tokens"[, "logprobs"]}``, or with
   ``"stream": true`` a ``text/event-stream`` of ``data: {"token": t[,
   "logprob": lp]}`` frames closing with ``data: {"done": true}``.
-  ``cached_tokens`` counts the prompt tokens a prefix cache served; no
-  prefix cache is ported, so it is always 0, and the done event leaves
-  it out, as the reference's does at 0. A field the port does
+  ``cached_tokens`` counts the prompt tokens the prefix cache served
+  (the prefill work a hit skipped; 0 on a miss); the SSE done event
+  carries it only when it is > 0, as the reference's does. A field the
+  port does
   not implement yet (``n`` other than 1, ``adapter``, ``text``,
   ``stop_text``, the scheduling and resume fields, ...) answers 400
   naming it, as does a ``logit_bias`` that is not an object of integer
@@ -26,9 +27,12 @@ Wire contract (the reference's):
   batcher's bounds, or (with ``--chunkedPrefill 0``) a prompt longer than
   the largest bucket answers 422.
 - ``GET /v1/health`` -> slots, active, prefilling, queued, alive, the
-  attention backend plan (``decode_attn``), the KV residency (``kv``:
-  layout, reserved bytes and, paged, the pool's occupancy, fragmentation
-  and the admissions it refused or made to wait), the weights
+  prefix cache's counters (``prefix_cache``, the reference's keys, when
+  the cache is on), the attention backend plan (``decode_attn``), the KV
+  residency (``kv``: layout, reserved bytes, the window and, paged, the
+  pool's occupancy, fragmentation, pages recycled out of the window and
+  aliased by prefix hits, and the admissions it refused or made to
+  wait), prefill tokens computed and reused, the weights
   (``weights``: their quantization and resident bytes), the device,
   decode-step and prefill counts, how the decode step runs (``decode``:
   the pipeline depth and flushes, and on a card the captured CUDA
@@ -47,6 +51,19 @@ server does). ``--pipelineDepth 1`` (the default) dispatches each decode
 step before the previous one is read back, 0 runs the synchronous loop;
 ``--chunkedPrefill 0`` prefills each prompt whole at admission, padded to
 its bucket, instead of in chunks of 256.
+
+Automatic prefix caching (``serving/prefix_cache.py``) is on whenever
+``--chunkedPrefill > 0``, as in the reference: a radix tree over token
+ids at the prompt-bucket boundaries (32 ... 1024, cut at ``--maxLen``),
+LRU-evicted under ``--prefixCacheMB`` (256) of device memory, promotion
+after ``--prefixCacheMinHits`` (1) sightings, off with
+``--prefixCacheOff``; streams are the same bit for bit either way.
+``--attnWindow W`` serves the preset with a sliding window of W (0 keeps
+the preset's own: ``mistral_7b`` has 4096); with ``--kvLayout paged``
+and chunked prefill a windowed request reserves pages for its first
+``--prefillReserveChunks`` (2) chunks, grows chunk by chunk, and gives
+back the pages that leave its window, so a prompt far longer than the
+pool's worst-case wall is served.
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ import torch
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
 from k8s_gpu_device_plugin_torch.models.batching import (
+    DEFAULT_PROMPT_BUCKETS,
     ContinuousBatcher,
     RequestTooLargeError,
 )
@@ -76,6 +94,7 @@ from k8s_gpu_device_plugin_torch.models.quantized_serving import (
 )
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
 from k8s_gpu_device_plugin_torch.ops.kernel_support import launch_counts
+from k8s_gpu_device_plugin_torch.serving.prefix_cache import PrefixCache
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
 log = get_logger()
@@ -112,12 +131,15 @@ class InferenceEngine:
                  eos_id: "int | None" = None, chunked_prefill: int = 256,
                  seed: int = 0, kv_layout: "str | None" = None,
                  kv_page_size: "int | None" = None, kv_pages: int = 0,
-                 pipeline_depth: int = 1):
+                 pipeline_depth: int = 1, prefix_cache=None,
+                 prefill_reserve_chunks: int = 2):
         self.cb = ContinuousBatcher(
             params, cfg, n_slots=n_slots, max_len=max_len, sampler=sampler,
             eos_id=eos_id, chunked_prefill=chunked_prefill, seed=seed,
             kv_layout=kv_layout, kv_page_size=kv_page_size,
             kv_pages=kv_pages, pipeline_depth=pipeline_depth,
+            prefix_cache=prefix_cache,
+            prefill_reserve_chunks=prefill_reserve_chunks,
         )
         self._lock = threading.Lock()
         self._work = threading.Event()
@@ -128,6 +150,9 @@ class InferenceEngine:
         self._streams: dict[int, queue.Queue] = {}  # eid -> token queue
         self._published: dict[int, int] = {}        # eid -> tokens pushed
         self._rid_to_eid: dict[int, int] = {}       # owner: engine thread
+        # eid -> what a finished request's handler answers besides its
+        # tokens (cached_tokens), recorded before its stream closes
+        self._finished_info: dict[int, dict] = {}
         self._next_eid = 0
         # time to first token of recently finished requests (seconds)
         self._ttft_s: collections.deque = collections.deque(maxlen=4096)
@@ -168,21 +193,35 @@ class InferenceEngine:
             self._cancelq.append(eid)
         self._work.set()
 
+    def pop_request_info(self, eid: int) -> dict:
+        """A finished request's wrap-up facts (``cached_tokens``), once;
+        empty for an unknown id."""
+        with self._lock:
+            return self._finished_info.pop(eid, {})
+
     def stats(self) -> dict:
         with self._lock:
             queued_local = len(self._subq)
             ttft = list(self._ttft_s)
         cb = self.cb
         decode_s = cb.decode_s
-        return {
+        out = {
             "slots": cb.n_slots,
             "active": len(cb.running),
             "prefilling": len(cb.prefilling),
             "queued": len(cb.pending) + queued_local,
             "alive": not self._dead.is_set(),
+        }
+        if cb.prefix_cache is not None:
+            out["prefix_cache"] = cb.prefix_cache.stats.as_dict()
+        kv = {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()}
+        if cb.pool is not None:
+            kv["prefill_chunks_deferred"] = cb.chunks_deferred
+        return {
+            **out,
             "device": str(cb.device),
             "decode_attn": cb.attn_plan,
-            "kv": {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()},
+            "kv": kv,
             "weights": dict(cb.weight_stats),
             "decode": cb.decode_stats(),
             "decode_steps": cb.decode_steps,
@@ -194,6 +233,7 @@ class InferenceEngine:
                 cb.decode_tokens / decode_s if decode_s else None
             ),
             "prefill_chunks": cb.prefill_chunks,
+            "prefill_tokens": dict(cb.prefill_tokens),
             "prefill_chunk_ms_mean": (
                 1e3 * cb.prefill_s / cb.prefill_chunks
                 if cb.prefill_chunks else None
@@ -254,6 +294,11 @@ class InferenceEngine:
             with self._lock:
                 q = self._streams.pop(eid, None)
                 self._published.pop(eid, None)
+                self._finished_info[eid] = {
+                    "cached_tokens": req.cached_tokens}
+                if len(self._finished_info) > 4096:
+                    # a handler that went away never pops its entry
+                    self._finished_info.pop(next(iter(self._finished_info)))
                 if req.t_first_tok:
                     self._ttft_s.append(req.t_first_tok - req.t_submit)
             if q is not None:
@@ -400,9 +445,11 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             toks.append(item[0])
             lps.append(item[1])
-        # the reference always sends cached_tokens (0 on a prefix-cache
-        # miss); the port has no prefix cache, so every request misses
-        payload = {"id": eid, "tokens": toks, "cached_tokens": 0}
+        # prompt tokens served from the prefix cache, 0 on a miss or with
+        # the cache off: the reference always sends the field
+        info = engine.pop_request_info(eid)
+        payload = {"id": eid, "tokens": toks,
+                   "cached_tokens": info.get("cached_tokens", 0)}
         if req["logprobs"]:
             payload["logprobs"] = lps
         self._json(200, payload)
@@ -419,6 +466,11 @@ class _Handler(BaseHTTPRequestHandler):
                 item = q.get()
                 if item is None:
                     evt = {"done": True}
+                    info = engine.pop_request_info(eid)
+                    if info.get("cached_tokens"):
+                        # only when the cache served part of the prompt:
+                        # the common done event stays lean
+                        evt["cached_tokens"] = info["cached_tokens"]
                 elif isinstance(item, StreamError):
                     evt = {"error": {"code": item.code,
                                      "message": item.message}}
@@ -515,6 +567,30 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--kvPageSize", type=int, default=64,
                         help="token rows per KV page with --kvLayout "
                         "paged: a power of two >= 8 that divides --maxLen")
+    parser.add_argument("--attnWindow", type=int, default=0,
+                        help="sliding-window attention span W (tokens): "
+                        "each query attends only the trailing (q-W, q] "
+                        "keys; 0 keeps the preset's own window. With "
+                        "--kvLayout paged and chunked prefill, pages "
+                        "reserve incrementally and pages out of the window "
+                        "recycle, so a row's footprint is O(W), not "
+                        "O(length)")
+    parser.add_argument("--prefillReserveChunks", type=int, default=2,
+                        help="windowed admission tranche: prefill chunks' "
+                        "worth of pages reserved up front (the rest grow "
+                        "chunk by chunk); meaningful with a window and "
+                        "--kvLayout paged")
+    parser.add_argument("--prefixCacheMB", type=int, default=256,
+                        help="device byte budget (MiB) of the automatic "
+                        "prefix cache: prompts sharing a cached prefix "
+                        "skip its prefill; LRU-evicted under this budget. "
+                        "Requires chunked prefill; 0 disables")
+    parser.add_argument("--prefixCacheMinHits", type=int, default=1,
+                        help="promote a prefix after this many sightings "
+                        "(1 = every completed prefill)")
+    parser.add_argument("--prefixCacheOff", action="store_true",
+                        help="disable the automatic prefix cache (token "
+                        "and logprob streams are the same either way)")
     parser.add_argument("--kvPages", type=int, default=0,
                         help="physical pages in the paged pool, the "
                         "reserved trap page included; 0 sizes it to the "
@@ -540,7 +616,25 @@ def build_server(args: argparse.Namespace,
             "(the dense cache reserves slots*maxLen rows); add --kvLayout "
             "paged"
         )
+    if args.attnWindow < 0:
+        raise ValueError("--attnWindow must be >= 0 (0 keeps the preset's "
+                         "window)")
+    if args.prefillReserveChunks < 1:
+        raise ValueError("--prefillReserveChunks must be >= 1: the tranche "
+                         "has to cover the chunk being prefilled")
     cfg = replace(PRESETS[args.preset](), cache_quant=args.cacheQuant)
+    if args.attnWindow:
+        cfg = replace(cfg, sliding_window=args.attnWindow)
+    # the automatic prefix cache: on wherever it can work (chunked
+    # prefill continues a prefill from the matched boundary), over the
+    # bucket ladder cut at --maxLen
+    prefix_cache = None
+    buckets = tuple(b for b in DEFAULT_PROMPT_BUCKETS if b <= args.maxLen)
+    if (not args.prefixCacheOff and args.prefixCacheMB > 0
+            and args.chunkedPrefill > 0 and buckets):
+        prefix_cache = PrefixCache(cfg, buckets=buckets,
+                                   budget_bytes=args.prefixCacheMB << 20,
+                                   min_hits=args.prefixCacheMinHits)
     if params is None:
         params = load_params(cfg, seed=args.seed, device=device)
         params = quantize_weights(params, args.weightQuant)
@@ -556,7 +650,8 @@ def build_server(args: argparse.Namespace,
         chunked_prefill=args.chunkedPrefill, seed=args.seed,
         pipeline_depth=args.pipelineDepth, kv_layout=args.kvLayout,
         kv_page_size=args.kvPageSize if args.kvLayout == "paged" else None,
-        kv_pages=args.kvPages,
+        kv_pages=args.kvPages, prefix_cache=prefix_cache,
+        prefill_reserve_chunks=args.prefillReserveChunks,
     )
     return InferenceServer(engine, host=args.host, port=args.port)
 

@@ -51,6 +51,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import k8s_gpu_device_plugin_torch.serving.server\n"
+        "import k8s_gpu_device_plugin_torch.serving.prefix_cache\n"
+        "import k8s_gpu_device_plugin_torch.models.batching\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"
         "import k8s_gpu_device_plugin_torch.models.paging\n"

@@ -32,6 +32,7 @@ from k8s_gpu_device_plugin_torch.models import batching as tbatch
 from k8s_gpu_device_plugin_torch.models import generate as tgen
 from k8s_gpu_device_plugin_torch.models import llama as tllama
 from k8s_gpu_device_plugin_torch.models.convert import params_from_jax
+from k8s_gpu_device_plugin_torch.serving.prefix_cache import PrefixCache
 
 torch.set_num_threads(1)
 
@@ -233,13 +234,22 @@ def test_paged_refusals(models):
                                  chunked_prefill=CHUNK, kv_page_size=12)
     with pytest.raises(ValueError, match="no effect"):
         make(kv_layout="dense", kv_pages=5)
+    # a sliding window on the pool is served now: incremental
+    # reservation and out-of-window recycling (tests/test_torch_longctx_
+    # serving.py), the dense layout keeps its full rows
     windowed = tllama.LlamaConfig.tiny(
         dtype=torch.float32, head_dim_override=64, sliding_window=32)
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        make(windowed, kv_layout="paged", kv_page_size=PS)
+    cb = make(windowed, kv_layout="paged", kv_page_size=PS)
+    assert cb._incremental_reserve and cb.kv_stats()["attn_window"] == 32
     assert make(windowed, kv_layout="dense").pool is None
     # int4 codes ride the pool as int8 codes do
     int4 = tllama.LlamaConfig.tiny(cache_quant="int4", kv_layout="paged")
     assert (int4.cache_quant, int4.kv_layout) == ("int4", "paged")
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
-        make(prefix_cache=object())
+    # the automatic prefix cache attaches (tests/test_torch_prefix_cache.py),
+    # bound to the batcher's chunk; KV page install stays refused
+    pc = PrefixCache(tcfg, buckets=(32, 64), budget_bytes=1 << 20)
+    cb = make(prefix_cache=pc)
+    assert cb.prefix_cache is pc and pc.chunk == CHUNK
+    assert pc.release_entry is not None
+    with pytest.raises(NotImplementedError, match="kv_pages"):
+        cb.submit([1, 2, 3], 4, kv_pages=b"blob")
