@@ -23,7 +23,11 @@ Phases (any failed check exits non-zero without the final line):
    and int4), and prefill chunks as the batcher runs them (one slot):
    T 3, T 37, T 256 at bases 0, 256 and 1536, windowed and at hd 64,
    group 1, and whole bucketed prompts (``--chunkedPrefill 0``) of T 512
-   and T 1024 at base 0; and bf16 decode at Mistral-7B's window (W 4096,
+   and T 1024 at base 0; speculative verify windows of T 2, 4, 8 and 16
+   over eight slots (the last windows ending at rows 2046 and 2047) on
+   every route in bf16 and dense in f32, each reporting its engine's
+   plan (T 2 at group 4 is split, the wider ones take the chunk engine);
+   and bf16 decode at Mistral-7B's window (W 4096,
    eight slots at bases 6000 ... 8191, S 8192), dense and paged (pages of
    64 and of 16), where the pages-of-16 case also runs the stale-entry
    check: entries below each slot's window floor pointed at the trap page
@@ -107,6 +111,38 @@ Phases (any failed check exits non-zero without the final line):
    cores, and the tokens of the dense twin (3 GiB of cache); the
    full-causal twin of the pool refuses the 12,000-token request at
    ``validate``.
+   Then speculative decoding (the same 8B weights). ``spec_self``: the
+   server with ``--draftPreset llama3_8b --gamma 4`` (a self-draft
+   sharing the target's tensors) on phase 4's six requests, all asking
+   for logprobs, dense and paged (default pools), ``--pipelineDepth`` 0
+   and 1: the four runs equal bit for bit in tokens and logprobs, every
+   round a replay of the captured round, K1's verify windows (one a layer
+   a round, all on the chunk engine) and draft decodes (gamma a layer a
+   round, all split) counted where the kernel launches, acceptance
+   reported (held to a floor of 0.8: in bf16 the draft's T = 1 forwards
+   and the T = 4 verify differ by rounding that flips near ties), the
+   target's and the draft's bytes in ``reserved_bytes``; the greedy
+   tokens the plain dense run's up to each stream's first divergence,
+   judged by the plain f32 forward (f32 weights) of the common prefix:
+   its gap between the two tokens is reported beside 0.1. Eager batcher
+   reruns record the decode and verify forwards that picked the two
+   tokens; they must give the streams, the gap must be at most their
+   error at the two tokens, and the verify forward's RMS error over the
+   vocabulary at most twice the decode forward's. ``spec_prefix``: the
+   prefix runs' requests on the paged pools, cache off and on: the hits answer ``cached_tokens`` 1024,
+   alias 16 pages, copy no row and backfill the draft (4 chunks each),
+   with the cache-off streams. ``spec_sampled``: temperature 0.8, top-p
+   0.95, acceptance at least 0.95. At batcher level: the round's and a
+   plain step's device ms (eight slots at 1000 rows, replays back to
+   back); ``spec_f32``: the target's first 8 layers in f32 as a
+   self-draft (the CUDA cores), acceptance at least 0.95 and the f32
+   plain batcher's tokens; ``spec_trunc``,
+   the draft the target's first 8 layers with its embedding, norm and
+   head, dense and paged: the first 16 replayed rounds held to the eager
+   round bit for bit (both states, every tensor), paged equal to dense,
+   the histogram of accepted counts; and batch-1
+   ``speculative_generate`` (self-draft, 64 tokens) against
+   ``generate``, up to a near tie, with its round count.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -136,12 +172,15 @@ Phases (any failed check exits non-zero without the final line):
 7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
    kernel's entry carries its six routes, the decode graph's checks and
    pool bytes, the prefix and windowed runs' launches, the W 4096 cases
-   with the stale-entry check, and the copy-on-write check).
+   with the stale-entry check, the copy-on-write check, the speculative
+   runs' verify and split launches with phase 2's verify cases, and the
+   round's time and acceptance).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -338,6 +377,19 @@ def kernel_cases():
         for name, t, base, window, shape in chunks:
             cases.append(dict(name=name + tag, b=1, t=t, bases=[base],
                               window=window, route=route, ps=ps, **shape))
+    # speculative verify windows (the target's forward over a round's
+    # proposals) at Llama-3-8B's heads, eight slots, T 2 ... 16: every
+    # route in bf16, dense in f32. The last two windows end at rows 2046
+    # and 2047 (a round never writes past its slot: the gamma reservation)
+    for t in VERIFY_TS:
+        vbases = [-1, 0, 1, 255, 256, 1000, full["s"] - t - 1, full["s"] - t]
+        for route, ps in ROUTE_LAYOUTS:
+            tag = route + (f"_ps{ps}" if ps else "")
+            cases.append(dict(
+                name=f"verify_t{t}_{tag}", b=8, t=t, bases=vbases, window=0,
+                route=route, ps=ps, verify=True,
+                dtypes=("bfloat16", "float32") if route == "dense"
+                else ("bfloat16",), **full))
     # windowed decode at Mistral-7B's attention shapes and its published
     # window (the window_paged run of phase 4), bf16: dense, and a pool
     # through a shuffled table with pages of 64 and of 16; the pages-of-16
@@ -351,6 +403,9 @@ def kernel_cases():
                           s=8192))
     return cases
 
+
+# the verify windows of phase 2: T = gamma of a speculative round
+VERIFY_TS = (2, 4, 8, 16)
 
 MISTRAL_WINDOW = 4096
 WINDOW_LAYOUTS = (("dense", 0), ("paged", 64), ("paged", 16))
@@ -549,9 +604,10 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
             want = plain()
             torch.cuda.synchronize()
             label = f"{case['name']} {dname}"
-            if counts.get(kernel_support.engine_key(rpa.NAME, engine)) != 1:
+            if counts.get(kernel_support.engine_key(rpa.NAME, engine)) != 1 \
+                    or counts.get(rpa.SPLIT_KEY, 0) != int(split is not None):
                 fail(f"{label}: the launch was not counted on the {engine} "
-                     f"engine: {counts}")
+                     f"engine{' split' if split else ''}: {counts}")
             if not torch.isfinite(got).all():
                 fail(f"{label}: non-finite kernel output")
             if not torch.equal(got, again):
@@ -634,6 +690,9 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
             row = {
                 "case": case["name"], "route": case["route"],
                 "page_size": case["ps"], "dtype": dname, "engine": engine,
+                "verify": case.get("verify", False),
+                # the tensor cores' plan: split spans or one block a span
+                "plan": None if not tc else ("split" if split else "chunk"),
                 "b": b, "t": t,
                 "hq": hq, "hkv": hkv, "hd": hd, "s": s,
                 "bases": case["bases"], "window": case["window"],
@@ -1553,6 +1612,665 @@ def phase_cow(torch, batching, prefix_cache_mod, cfg, params) -> dict:
     return out
 
 
+# --- phase 4, speculative decoding --------------------------------------------
+
+# the speculative runs: Llama-3-8B drafting for itself (the draft shares
+# the target's random weights and tensors) or with its first 8 layers
+SPEC_GAMMA = 4
+SPEC_ARGS = ["--preset", "llama3_8b", "--draftPreset", "llama3_8b",
+             "--gamma", str(SPEC_GAMMA), "--slots", "8", "--maxLen", "2048",
+             "--chunkedPrefill", "256"]
+SPEC_PAGED = ["--kvLayout", "paged", "--kvPageSize", "64"]  # default pools
+# spec_self: the phase 4 requests, dense and paged, synchronous and
+# pipelined; the first run is the one the others must equal bit for bit
+SPEC_RUNS = {"spec_self_dense_depth0": ["--pipelineDepth", "0"],
+             "spec_self_dense": [],
+             "spec_self_paged": SPEC_PAGED,
+             "spec_self_paged_depth0": [*SPEC_PAGED, "--pipelineDepth", "0"]}
+SPEC_PREFIX_RUNS = {"spec_prefix_off": [*SPEC_PAGED, "--prefixCacheOff"],
+                    "spec_prefix": SPEC_PAGED}
+SPEC_SAMPLED = ["--temperature", "0.8", "--topP", "0.95"]
+# a self-draft's q differs from p only by rounding: in f32 (the 8-layer
+# self-draft at batcher level) that leaves a rejection only at an exact
+# tie, so it must accept at least SPEC_ACCEPT_MIN; in bf16 the T = 1 draft
+# decodes and the T = 4 verify forward differ by rounding that moves a
+# logit by up to about 0.3 on these random weights and flips near ties
+# (PERF.md), so a bf16 self-draft is held to SPEC_ACCEPT_FLOOR_BF16. The
+# rate counts each round's correction as accepted: rounds that keep k
+# proposals and reject the next read (k + 1) / gamma, 0.25 when the first
+# is rejected and 0.75 when the third is; the floor lies above that and
+# below the bf16 self-draft runs' readings on an H100 (0.888 spec_self,
+# 0.845 spec_prefix)
+SPEC_ACCEPT_MIN = 0.95
+SPEC_ACCEPT_FLOOR_BF16 = 0.8
+NEAR_TIE = 0.1          # f32 logits: a near tie, reported beside each
+                        # greedy divergence (the check is near_ties')
+F32_LAYERS = 8          # the f32 self-draft: the target's first 8 layers
+TRUNC_LAYERS = 8        # spec_trunc's draft: the target's first 8 layers
+SPEC_EAGER_ROUNDS = 16  # replayed rounds held to the eager round
+SPEC_TIMED_ROUNDS = 10  # rounds (and plain steps) timed back to back
+SPEC_GENERATE_NEW = 64  # speculative_generate's tokens
+
+
+def spec_refused(max_len: int = 2048) -> set:
+    """Phase 4 requests the gamma reservation refuses: prompt + max_new +
+    gamma past the slot."""
+    return {i for i, (plen, max_new) in enumerate(REQUESTS)
+            if plen + max_new + SPEC_GAMMA > max_len}
+
+
+def spec_bodies(cfg) -> list[dict]:
+    """Phase 4's six requests (the same prompts: the same generator),
+    every one asking for logprobs; the streamed one streams."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    bodies = []
+    for i, (plen, max_new) in enumerate(REQUESTS):
+        body = {"prompt": rng.integers(0, cfg.vocab_size, plen).tolist(),
+                "max_new": max_new, "logprobs": True}
+        if i == STREAMED:
+            body["stream"] = True
+        bodies.append(body)
+    return bodies
+
+
+def spec_launches(run: str, kernel_support, rpa, cfg,
+                  draft_layers: int, rounds: int, chunks: int,
+                  backfill: int) -> dict:
+    """K1's launches since the last reset for a speculative run: per round
+    gamma draft decodes (a layer each, all split) and one verify window (a
+    layer each, none split: group 4 x T 4 takes the chunk engine); per
+    prefill chunk the target's and the draft's mirror; per backfill chunk
+    the draft's. All on the run's route and the tensor cores."""
+    counts = kernel_support.launch_counts()
+    verify = counts.get(rpa.VERIFY_KEY, 0)
+    split = counts.get(rpa.SPLIT_KEY, 0)
+    verify_split = counts.get(rpa.VERIFY_SPLIT_KEY, 0)
+    total = counts.get(rpa.NAME, 0)
+    engines = {e: counts.get(kernel_support.engine_key(rpa.NAME, e), 0)
+               for e in kernel_support.ENGINES}
+    need = {"verify": cfg.n_layers * rounds,
+            "draft_decode_split": draft_layers * SPEC_GAMMA * rounds,
+            "total": (cfg.n_layers + draft_layers * SPEC_GAMMA) * rounds
+            + (cfg.n_layers + draft_layers) * chunks
+            + draft_layers * backfill}
+    got = {"verify": verify, "draft_decode_split": split, "total": total}
+    if got != need or verify_split or engines != {
+            "cuda_cores": 0, "tensor_cores": total}:
+        fail(f"{run}: K1 launches {got} (verify windows split: "
+             f"{verify_split}, per engine {engines}), the run needs {need}: "
+             "every verify on the chunk engine, every draft decode split, "
+             "all on the tensor cores")
+    return {"launches": total, "launches_per_engine": engines,
+            "verify_launches": verify, "verify_launches_split": verify_split,
+            "split_launches": split}
+
+
+def first_divergence(a: list, b: list) -> "int | None":
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def plain_logits(torch, generate, cfg, params, context: list):
+    """f32 logits at the position after ``context``: one forward of the
+    whole context through the plain attention."""
+    device = params["embed"].device
+    toks = torch.tensor([context], device=device)
+    cache = generate.KVCache.init(cfg, 1, len(context), device)
+    logits = generate._forward_cached(params, toks, cache, 0, cfg,
+                                      last_only=True,
+                                      plain_attention=True)[0, -1].float()
+    del cache
+    return logits
+
+
+@contextlib.contextmanager
+def recording(torch, module, verify: bool):
+    """Record the forwards through ``module``'s ``_forward_cached`` that
+    pick tokens: its verify windows (``verify``) or its T = 1 decodes.
+    Yields the list of (each row's first position (B,), f32 logits
+    (B, T, V)) the calls append to."""
+    orig = module._forward_cached
+    calls = []
+
+    def wrapped(params, tokens, cache, length, cfg, **kw):
+        out = orig(params, tokens, cache, length, cfg, **kw)
+        if bool(kw.get("verify")) == verify and (verify
+                                                 or tokens.shape[1] == 1):
+            base = torch.as_tensor(length).reshape(-1).expand(
+                tokens.shape[0])
+            calls.append((base.tolist(), out.float().clone()))
+        return out
+
+    module._forward_cached = wrapped
+    try:
+        yield calls
+    finally:
+        module._forward_cached = orig
+
+
+def deciding_logits(run: str, calls: list, pos: int):
+    """Slot 0's logits from the last recorded forward whose row ran the
+    token at position ``pos``: the one that picked the token after it (an
+    earlier round may have run ``pos`` after a rejected proposal)."""
+    for base, logits in reversed(calls):
+        r = pos - base[0]
+        if 0 <= r < logits.shape[1]:
+            return logits[0, r]
+    fail(f"{run}: no recorded forward ran position {pos}")
+
+
+def batcher_decider(torch, batching, spec_mod, cfg, params, max_news: list):
+    """``decide`` for near_ties over batcher runs (eight slots, 2048 rows,
+    chunks of 256, the self-draft at SPEC_GAMMA): stream ``k`` alone, in
+    slot 0 of a plain batcher and of a speculative one, both eager; each
+    row of a step is computed alone at the batch's shapes, so these are
+    the logits the served runs picked from (the replayed step equals the
+    eager one bit for bit, and near_ties holds the picks to the streams)."""
+    kw = dict(n_slots=8, max_len=2048, chunked_prefill=256,
+              decode_graph=False, pipeline_depth=0)
+
+    def decide(run: str, k: int, prompt: list, j: int) -> tuple:
+        out = []
+        for module, cb in (
+                (batching, batching.ContinuousBatcher(params, cfg, **kw)),
+                (spec_mod, spec_mod.SpeculativeBatcher(
+                    params, cfg, params, cfg, gamma=SPEC_GAMMA, **kw))):
+            with recording(torch, module, module is spec_mod) as calls:
+                rid = cb.submit(prompt, max_news[k])
+                cb.run()
+            out.append((cb.done_requests[rid].out,
+                        deciding_logits(run, calls, len(prompt) + j - 1)))
+            del cb, calls
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+
+    return decide
+
+
+def near_ties(run: str, torch, generate, truth: tuple, prompts: list,
+              got: list, want: list, decide) -> list:
+    """Each stream's first divergence from ``want`` (None: none), judged
+    by the plain f32 forward of the common prefix (``truth``: an f32
+    config and f32 weights); its gap between the two tokens is reported
+    beside NEAR_TIE. ``want`` came from decode forwards and ``got`` from
+    verify windows: ``decide(run, k, prompt, j)`` reruns stream ``k`` and
+    gives, for each, the stream and the logits its token ``j`` was picked
+    from. The reruns must give the streams, and the logits their tokens.
+    One of the two forwards then moved the pair's order against the truth
+    by the gap, so the gap is at most its error at the two tokens,
+    |e[g] - t[g]| + |e[w] - t[w]| (reported for both). What can fail is
+    the rounding bound: the verify forward's RMS error over the vocabulary
+    at most twice the decode forward's."""
+    out = []
+    for k, (prompt, g, w) in enumerate(zip(prompts, got, want)):
+        j = first_divergence(g, w)
+        if j is None:
+            out.append(None)
+            continue
+        (w_again, e_dec), (g_again, e_ver) = decide(run, k, prompt, j)
+        if w_again != w or g_again != g or \
+                int(e_dec.argmax()) != w[j] or int(e_ver.argmax()) != g[j]:
+            fail(f"{run}: stream {k}'s rerun does not give the served "
+                 f"tokens, or its logits at token {j} do not pick them")
+        t = plain_logits(torch, generate, *truth, prompt + w[:j])
+        gap = float((t[g[j]] - t[w[j]]).abs())
+        pair = [float((e[g[j]] - t[g[j]]).abs() + (e[w[j]] - t[w[j]]).abs())
+                for e in (e_dec, e_ver)]
+        rms = [float((e - t).pow(2).mean().sqrt()) for e in (e_dec, e_ver)]
+        out.append({"request": k, "token": j, "got": g[j], "want": w[j],
+                    "logit_gap": gap, "pair_error_decode": pair[0],
+                    "pair_error_verify": pair[1], "rms_error_decode": rms[0],
+                    "rms_error_verify": rms[1],
+                    "within_near_tie": gap <= NEAR_TIE})
+        del t, e_dec, e_ver
+        if gap > max(pair):
+            fail(f"{run}: stream {k} diverges at token {j} ({g[j]} against "
+                 f"{w[j]}) at an f32 logit gap of {gap:.4f}, over both "
+                 f"forwards' errors at the two tokens ({pair[0]:.4f}, "
+                 f"{pair[1]:.4f})")
+        if rms[1] > 2 * rms[0]:
+            fail(f"{run}: at stream {k}'s divergence (token {j}) the verify "
+                 f"forward's RMS error over the vocabulary, {rms[1]:.4f}, is "
+                 f"over twice the decode forward's, {rms[0]:.4f}")
+    return out
+
+
+def spec_serve(torch, server_mod, kernel_support, rpa, spec_mod,
+               cfg, params, run: str, flags: list, bodies: list,
+               refused=frozenset(), alone_first: bool = False) -> dict:
+    """One speculative server (the self-draft) over ``bodies`` at once (the
+    first alone before the rest with ``alone_first``): every stream
+    complete, every round a replay of the captured round, K1's launches
+    counted (spec_launches), acceptance at least SPEC_ACCEPT_FLOOR_BF16, a
+    paged run's pools consistent and empty once the prefix cache lets
+    go."""
+    args, server, url = start_server(server_mod, [*SPEC_ARGS, *flags],
+                                     params)
+    try:
+        cb = server.engine.cb
+        if not isinstance(cb, spec_mod.SpeculativeBatcher) or \
+                cb.graph is None or cb.draft_params is not cb.params:
+            fail(f"{run}: the server must serve a self-draft "
+                 "SpeculativeBatcher sharing the target's tensors, its "
+                 "round captured as a CUDA graph")
+        steps0, chunks0 = cb.decode_steps, cb.prefill_chunks
+        replays0, backfill0 = cb.graph.replays, cb.draft_backfill_chunks
+        kernel_support.reset_launch_counts()
+        t0 = time.perf_counter()
+        if alone_first:
+            results = post_all(url, bodies[:1], run)
+            results += post_all(url, bodies[1:], run)
+        else:
+            results = post_all(url, bodies, run, refused=refused)
+        wall = time.perf_counter() - t0
+        health = server.engine.stats()
+        rounds = cb.decode_steps - steps0
+        chunks = cb.prefill_chunks - chunks0
+        backfill = cb.draft_backfill_chunks - backfill0
+        if cb.graph.replays - replays0 != rounds:
+            fail(f"{run}: {rounds} rounds but "
+                 f"{cb.graph.replays - replays0} graph replays")
+        for i, (res, body) in enumerate(zip(results, bodies)):
+            if i in refused:
+                continue
+            toks, lps = res["tokens"], res["logprobs"]
+            if len(toks) != body["max_new"] or len(lps or ()) != len(toks) \
+                    or not all(0 <= t < cfg.vocab_size for t in toks):
+                fail(f"{run}: request {i} came back short or out of the "
+                     f"vocabulary ({len(toks)} tokens)")
+        launched = spec_launches(run, kernel_support, rpa, cfg,
+                                 cb.draft_cfg.n_layers, rounds, chunks,
+                                 backfill)
+        spec = health["spec"]
+        if spec["acceptance_rate"] < SPEC_ACCEPT_FLOOR_BF16:
+            fail(f"{run}: acceptance {spec['acceptance_rate']:.4f} < "
+                 f"{SPEC_ACCEPT_FLOOR_BF16} for a bf16 self-draft: {spec}")
+        kv = health["kv"]
+        if kv["reserved_bytes"] != 2 * kv["target_reserved_bytes"]:
+            fail(f"{run}: reserved_bytes {kv['reserved_bytes']} is not the "
+                 "target's and its self-draft's")
+        if cb.pool is not None:
+            cb.pool.check()
+            cb.draft_pool.check()
+            drain_prefix_cache(server)
+            if cb.pool.in_use or cb.draft_pool.in_use:
+                fail(f"{run}: pages still in use: {cb.kv_stats()}")
+            cb.pool.check()
+        row = {"phase": 4, "run": run, "flags": flags,
+               "requests": len(bodies), "refused_422": sorted(refused),
+               "rounds": rounds, "prefill_chunks": chunks,
+               "draft_backfill_chunks": backfill, **launched,
+               "spec": spec, "wall_s": wall,
+               "pipeline_depth": args.pipelineDepth,
+               "round_ms_host_mean": health["decode_step_ms_mean"],
+               "decode_tokens_per_s": health["decode_tokens_per_s"],
+               "ttft_s_p50": health["ttft_s_p50"],
+               "decode_graph": health["decode"]["graph"],
+               "pipeline_flushes": health["decode"]["pipeline_flushes"],
+               "kv": kv, "prefix_cache": health.get("prefix_cache"),
+               "prefill_tokens": health["prefill_tokens"],
+               "cached_tokens": [r["cached_tokens"] for r in results]}
+        emit(row)
+        return {**row, "results": results}
+    finally:
+        server.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_spec_serving(torch, server_mod, kernel_support, rpa,
+                       spec_mod, batching, generate, cfg, params,
+                       plain: dict) -> dict:
+    """The speculative server on the card. spec_self: phase 4's requests
+    with a self-draft at gamma 4, dense and paged, synchronous and
+    pipelined: the four runs equal bit for bit in tokens and logprobs;
+    the greedy tokens the plain dense run's (``plain``) up to each
+    stream's first divergence, which must be a near tie. spec_prefix: the
+    prefix runs' shared 1024-token system prompt on the paged pools, one
+    request alone and then seven at once, cache off and on: the hits
+    answer cached_tokens 1024, alias 16 pages each, copy no row, backfill
+    the draft (4 chunks each) and give the cache-off streams.
+    spec_sampled: the self-draft at temperature 0.8, top-p 0.95, dense."""
+    import numpy as np
+
+    refused = spec_refused()
+    bodies = spec_bodies(cfg)
+    out = {}
+    for run, flags in SPEC_RUNS.items():
+        out[run] = spec_serve(torch, server_mod, kernel_support, rpa,
+                              spec_mod, cfg, params, run, flags, bodies,
+                              refused)
+    first = next(iter(SPEC_RUNS))
+    for run in SPEC_RUNS:
+        equal_streams(run, out[run]["results"], out[first]["results"],
+                      logprobs=True)
+    served = [i for i in range(len(bodies)) if i not in refused]
+    # the near-tie judge: the plain f32 forward, f32 weights (32 GB, freed
+    # right after)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = widened(torch, params)
+    divergences = near_ties(
+        "spec_self", torch, generate, (cfg32, params32),
+        [bodies[i]["prompt"] for i in served],
+        [out[first]["results"][i]["tokens"] for i in served],
+        [plain["tokens"][i] for i in served],
+        batcher_decider(torch, batching, spec_mod, cfg, params,
+                        [bodies[i]["max_new"] for i in served]))
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": 4, "run": "spec_self", "equal_bitwise": list(SPEC_RUNS),
+          "refused_422": sorted(refused),
+          "divergences_from_plain_dense": divergences,
+          "tokens_per_s": {"spec_self_dense":
+                           out["spec_self_dense"]["decode_tokens_per_s"],
+                           "plain_dense": plain["decode_tokens_per_s"]}})
+    out["spec_self"] = {"divergences": divergences}
+
+    rng = np.random.default_rng(SEED + 3)  # phase_prefix's requests
+    system = rng.integers(0, cfg.vocab_size, PREFIX_SYSTEM).tolist()
+    pbodies = [{"prompt": system + rng.integers(0, cfg.vocab_size,
+                                                int(n)).tolist(),
+                "max_new": PREFIX_MAX_NEW, "stream": True, "logprobs": True}
+               for n in rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1,
+                                     PREFIX_N)]
+    for run, flags in SPEC_PREFIX_RUNS.items():
+        batching.reset_kv_copy_counts()
+        out[run] = spec_serve(torch, server_mod, kernel_support, rpa,
+                              spec_mod, cfg, params, run, flags, pbodies,
+                              alone_first=True)
+        out[run]["kv_copy_counts"] = batching.kv_copy_counts()
+    hit, off = out["spec_prefix"], out["spec_prefix_off"]
+    equal_streams("spec_prefix", hit["results"], off["results"],
+                  logprobs=True)
+    hits = PREFIX_N - 1
+    want_cached = [0] + [PREFIX_SYSTEM] * hits
+    chunk = int(SPEC_ARGS[SPEC_ARGS.index("--chunkedPrefill") + 1])
+    per_hit = -(-PREFIX_SYSTEM // chunk)  # the cold grid's chunks below it
+    if (hit["cached_tokens"] != want_cached
+            or off["cached_tokens"] != [0] * PREFIX_N
+            or hit["kv_copy_counts"] != {"rows": 0, "cow_pages": 0}
+            or hit["kv"]["pages_aliased"] != hits * PREFIX_SYSTEM // 64
+            or hit["draft_backfill_chunks"] != hits * per_hit
+            or off["draft_backfill_chunks"] != 0):
+        fail(f"spec_prefix: cached_tokens {hit['cached_tokens']}, copies "
+             f"{hit['kv_copy_counts']}, pages aliased "
+             f"{hit['kv']['pages_aliased']}, backfill chunks "
+             f"{hit['draft_backfill_chunks']} (off: "
+             f"{off['draft_backfill_chunks']}): each hit aliases 16 pages, "
+             f"copies nothing and backfills the draft in {per_hit} chunks")
+    emit({"phase": 4, "run": "spec_prefix", "equals_cache_off": True,
+          "cached_tokens": hit["cached_tokens"],
+          "kv_copy_counts": hit["kv_copy_counts"],
+          "pages_aliased": hit["kv"]["pages_aliased"],
+          "draft_backfill_chunks": hit["draft_backfill_chunks"],
+          "prefill_chunks": {"off": off["prefill_chunks"],
+                             "on": hit["prefill_chunks"]}})
+
+    out["spec_sampled"] = spec_serve(
+        torch, server_mod, kernel_support, rpa, spec_mod, cfg, params,
+        "spec_sampled", SPEC_SAMPLED, bodies, refused)
+    # rejection sampling accepts 1 - TV(p, q): rounding moves little mass
+    sampled = out["spec_sampled"]["spec"]["acceptance_rate"]
+    if sampled < SPEC_ACCEPT_MIN:
+        fail(f"spec_sampled: acceptance {sampled:.4f} < {SPEC_ACCEPT_MIN}")
+    for run in (*SPEC_RUNS, *SPEC_PREFIX_RUNS, "spec_sampled"):
+        out[run].pop("results", None)
+    return out
+
+
+def _clone_state(state):
+    """A copy of a BatchState, every tensor (the cache's planes too)."""
+    twin = dataclasses.replace(state, cache=dataclasses.replace(state.cache))
+    for name, x in _state_tensors(state).items():
+        obj, attr = (twin.cache, name[6:]) if name.startswith("cache.") \
+            else (twin, name)
+        setattr(obj, attr, x.clone())
+    return twin
+
+
+def _replay_ms(torch, graph, reps: int) -> float:
+    """Device ms of one replay: ``reps`` replays back to back between CUDA
+    events (the batch keeps decoding: nothing is read back)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def truncated_draft(cfg, params, layers: int):
+    """The target's first ``layers`` layers with its embedding, final norm
+    and head: slices of the same tensors, no copy."""
+    return (dataclasses.replace(cfg, n_layers=layers),
+            {**params, "layers": {k: v[:layers]
+                                  for k, v in params["layers"].items()}})
+
+
+def phase_spec_batcher(torch, batching, spec_mod, speculative, generate,
+                       cfg, params) -> dict:
+    """The speculative round at batcher level on the card.
+
+    - Round time: a self-draft batcher and a plain one, eight slots
+      decoding at about 1000 rows each: the round's and the plain step's
+      device ms, SPEC_TIMED_ROUNDS replays back to back between CUDA
+      events.
+    - spec_f32: the target's first F32_LAYERS layers widened to f32 as a
+      self-draft (the CUDA cores) on phase 4's six requests: acceptance at
+      least SPEC_ACCEPT_MIN, and the f32 plain batcher's tokens up to a
+      near tie.
+    - spec_trunc: the draft is the target's first TRUNC_LAYERS layers
+      (with its embedding, norm and head), dense and paged: three
+      requests decode, and for the first SPEC_EAGER_ROUNDS rounds a copy
+      of both states takes an eager ``spec_decode_step`` while the batcher
+      replays its graph: emitted tokens, counts, logprobs and every tensor
+      of both states must agree bit for bit (a pool's trap page aside);
+      then phase 4's six requests join and all run out. Paged must equal
+      dense bit for bit; the histogram of per-slot counts is reported.
+    - speculative_generate: batch 1, the self-draft, phase 4's 200-token
+      prompt, SPEC_GENERATE_NEW tokens: generate's up to a near tie."""
+    import collections
+
+    import numpy as np
+
+    out = {}
+    # round time against the plain step, eight slots decoding
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, 1000).tolist()
+               for _ in range(8)]
+    timed = {}
+    for name in ("spec_self_round", "plain_step"):
+        kw = dict(n_slots=8, max_len=2048, chunked_prefill=256)
+        cb = (spec_mod.SpeculativeBatcher(params, cfg, params, cfg,
+                                          gamma=SPEC_GAMMA, **kw)
+              if name == "spec_self_round"
+              else batching.ContinuousBatcher(params, cfg, **kw))
+        for p in prompts:
+            cb.submit(p, 400)
+        while cb.pending or cb.prefilling:
+            cb.step()
+        cb.step()
+        cb._flush_inflight()
+        timed[name] = _replay_ms(torch, cb.graph, SPEC_TIMED_ROUNDS)
+        timed[name + "_pool_bytes"] = cb.graph.pool_bytes
+        del cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    timed["round_over_step"] = timed["spec_self_round"] / timed["plain_step"]
+    emit({"phase": 4, "spec_round_time": timed, "slots": 8,
+          "context_rows": 1000, "gamma": SPEC_GAMMA})
+    out["round_time"] = timed
+
+    # spec_trunc
+    dcfg, dparams = truncated_draft(cfg, params, TRUNC_LAYERS)
+    rng = np.random.default_rng(SEED + 2)  # phase_graph's prompts
+    first = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n, *_ in GRAPH_REQUESTS]
+    rest = [b["prompt"] for b in spec_bodies(cfg)]
+    streams, trunc = {}, {}
+    for layout in ("dense", "paged"):
+        kw = dict(n_slots=8, max_len=2048, chunked_prefill=256,
+                  gamma=SPEC_GAMMA, kv_layout=layout, kv_page_size=64)
+        if layout == "dense":
+            kw.pop("kv_page_size")
+        cb = spec_mod.SpeculativeBatcher(params, cfg, dparams, dcfg, **kw)
+        if cb.graph is None:
+            fail(f"spec_trunc {layout}: no round graph")
+        hist = collections.Counter()
+        apply = cb._apply_decode_result
+
+        def counted(arrs, apply=apply, hist=hist):
+            hist.update(c for c in arrs[1].tolist() if c > 0)
+            return apply(arrs)
+
+        cb._apply_decode_result = counted
+        rids = [cb.submit(p, 128) for p in first]
+        while cb.pending or cb.prefilling or len(cb.running) < len(first):
+            cb.step()
+        cb._flush_inflight()
+        checked = []
+        for _ in range(SPEC_EAGER_ROUNDS):
+            cb._refresh_slot_inputs()
+            t_twin, d_twin = _clone_state(cb.state), _clone_state(cb.draft_state)
+            e = spec_mod.spec_decode_step(
+                cb.params, cb.draft_params, t_twin, d_twin, cb._allowed,
+                cb.cfg, cb.draft_cfg, cb.gamma, cb.sampler, cb.generator)
+            g = tuple(x.clone() for x in cb.graph.replay())
+            torch.cuda.synchronize()
+            same = {n: bool(torch.equal(a, b)) for n, a, b in
+                    zip(("emitted", "counts", "logps"), e, g)}
+            for tag, live, twin in (("target", cb.state, t_twin),
+                                    ("draft", cb.draft_state, d_twin)):
+                for name, x in _state_tensors(live).items():
+                    y = getattr(twin.cache, name[6:]) if \
+                        name.startswith("cache.") else getattr(twin, name)
+                    if name.startswith("cache.") and layout == "paged":
+                        x, y = x[:, 1:], y[:, 1:]  # the trap page aside
+                    same[f"{tag}.{name}"] = bool(torch.equal(x, y))
+            bad = [k for k, v in same.items() if not v]
+            if bad:
+                fail(f"spec_trunc {layout}: a replayed round differs from "
+                     f"the eager round in {bad}")
+            checked.append(g[1].tolist())
+            cb._apply_decode_result(g)
+            del t_twin, d_twin, e
+        rids += [cb.submit(p, b["max_new"]) for p, b in
+                 zip(rest, spec_bodies(cfg))]
+        cb.run()
+        if cb.pool is not None:
+            cb.pool.check()
+            cb.draft_pool.check()
+            if cb.pool.in_use or cb.draft_pool.in_use:
+                fail(f"spec_trunc {layout}: pages left in use")
+        streams[layout] = [(cb.done_requests[r].out,
+                            cb.done_requests[r].out_logp) for r in rids]
+        trunc[layout] = {"spec": cb.spec_stats(),
+                         "counts_histogram": dict(sorted(hist.items())),
+                         "rounds_checked": SPEC_EAGER_ROUNDS,
+                         "counts_checked": checked,
+                         "pool_bytes": cb.graph.pool_bytes,
+                         "kv_reserved_bytes": cb.kv_stats()["reserved_bytes"]}
+        del cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    if streams["paged"] != streams["dense"]:
+        bad = next(i for i, (a, b) in enumerate(zip(streams["paged"],
+                                                    streams["dense"]))
+                   if a != b)
+        fail(f"spec_trunc: request {bad}'s paged stream differs from the "
+             "dense one")
+    emit({"phase": 4, "run": "spec_trunc", "draft_layers": TRUNC_LAYERS,
+          "requests": len(streams["dense"]), "paged_equals_dense": True,
+          "replay_equals_eager": True, **trunc})
+    out["spec_trunc"] = trunc
+
+    # the f32 self-draft: the target's first F32_LAYERS layers widened to
+    # f32 (the CUDA cores): q and p differ by f32 rounding only
+    cfg32, params32 = truncated_draft(cfg, params, F32_LAYERS)
+    cfg32 = dataclasses.replace(cfg32, dtype=torch.float32)
+    params32 = widened(torch, params32)  # copies of the 8 layers' views
+    kw = dict(n_slots=8, max_len=2048, chunked_prefill=256)
+    f32 = {}
+    for name in ("spec", "plain"):
+        cb = (spec_mod.SpeculativeBatcher(params32, cfg32, params32, cfg32,
+                                          gamma=SPEC_GAMMA, **kw)
+              if name == "spec"
+              else batching.ContinuousBatcher(params32, cfg32, **kw))
+        rids = [cb.submit(p, b["max_new"]) for p, b in
+                zip(rest, spec_bodies(cfg))]
+        cb.run()
+        f32[name] = [cb.done_requests[r].out for r in rids]
+        if name == "spec":
+            f32["stats"] = cb.spec_stats()
+        del cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32_ties = near_ties(
+        "spec_f32", torch, generate, (cfg32, params32), rest, f32["spec"],
+        f32["plain"], batcher_decider(
+            torch, batching, spec_mod, cfg32, params32,
+            [b["max_new"] for b in spec_bodies(cfg)]))
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if f32["stats"]["acceptance_rate"] < SPEC_ACCEPT_MIN:
+        fail(f"spec_f32: acceptance {f32['stats']['acceptance_rate']:.4f} < "
+             f"{SPEC_ACCEPT_MIN} for an f32 self-draft: {f32['stats']}")
+    row = {"phase": 4, "run": "spec_f32", "layers": F32_LAYERS,
+           "spec": f32["stats"], "divergences_from_plain": f32_ties}
+    emit(row)
+    out["spec_f32"] = row
+
+    # speculative_generate: batch 1, the self-draft
+    prompt = spec_bodies(cfg)[1]["prompt"]
+    ptensor = torch.tensor([prompt], device=params["embed"].device)
+    t0 = time.perf_counter()
+    toks, rounds = speculative.speculative_generate(
+        params, cfg, params, cfg, ptensor, SPEC_GENERATE_NEW,
+        gamma=SPEC_GAMMA)
+    spec_s = time.perf_counter() - t0
+    want = generate.generate(params, ptensor, cfg, SPEC_GENERATE_NEW)
+    params32 = widened(torch, params)
+
+    def decide(run, k, start, j):
+        """generate's and speculative_generate's streams again, with the
+        logits that picked their token ``j`` (``start``: the prompt)."""
+        picked = []
+        for module, again in (
+                (generate, lambda: generate.generate(
+                    params, ptensor, cfg, SPEC_GENERATE_NEW)),
+                (speculative, lambda: speculative.speculative_generate(
+                    params, cfg, params, cfg, ptensor, SPEC_GENERATE_NEW,
+                    gamma=SPEC_GAMMA)[0])):
+            with recording(torch, module, module is speculative) as calls:
+                stream = again()[0].tolist()
+            picked.append((stream, deciding_logits(run, calls,
+                                                   len(start) + j - 1)))
+        return picked
+
+    ties = near_ties("speculative_generate", torch, generate,
+                     (dataclasses.replace(cfg, dtype=torch.float32), params32),
+                     [prompt], [toks[0].tolist()], [want[0].tolist()],
+                     decide)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": 4, "run": "speculative_generate", "prompt_tokens":
+           len(prompt), "max_new": SPEC_GENERATE_NEW, "gamma": SPEC_GAMMA,
+           "rounds": rounds, "rounds_if_all_accepted":
+           -(-(SPEC_GENERATE_NEW - 1) // SPEC_GAMMA),
+           "divergence_from_generate": ties[0], "wall_s": spec_s}
+    emit(row)
+    out["speculative_generate"] = row
+    return out
+
+
 # the windowed runs: Mistral-7B at its published widths and window, two
 # long prompts on two slots; the pool holds 179 allocatable pages of 64
 WINDOW_PROMPTS, WINDOW_MAX_NEW, WINDOW_POOL = (12000, 9000), 256, 180
@@ -2101,6 +2819,8 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.models import llama
         from k8s_gpu_device_plugin_torch.models import quantized_serving
         from k8s_gpu_device_plugin_torch.models import sampling
+        from k8s_gpu_device_plugin_torch.models import spec_batching as spec_mod
+        from k8s_gpu_device_plugin_torch.models import speculative
         from k8s_gpu_device_plugin_torch.models import train
         from k8s_gpu_device_plugin_torch.models import trainer as trainer_mod
         from k8s_gpu_device_plugin_torch.ops import attention as attention_mod
@@ -2166,6 +2886,17 @@ def main() -> None:
     prefix = phase_prefix(torch, server_mod, kernel_support, rpa, batching,
                           cfg, params)
     cow = phase_cow(torch, batching, prefix_cache_mod, cfg, params)
+    # speculative decoding: the server with a self-draft (spec_self,
+    # spec_prefix, spec_sampled), then the round at batcher level
+    # (its time, spec_trunc, speculative_generate); all of it freed
+    # before the weight-quantized phases
+    spec = phase_spec_serving(torch, server_mod, kernel_support, rpa,
+                              spec_mod, batching, generate, cfg, params,
+                              serving["dense"])
+    spec.update(phase_spec_batcher(torch, batching, spec_mod, speculative,
+                                   generate, cfg, params))
+    gc.collect()
+    torch.cuda.empty_cache()
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -2230,13 +2961,15 @@ def main() -> None:
                 if c["dtype"] == "bfloat16" and c["bases"] == [0]
                 and c["t"] in (512, 1024)},
         }
+    spec_runs = (*SPEC_RUNS, *SPEC_PREFIX_RUNS, "spec_sampled")
     kernels = [kernel_entry(
         "ragged_paged_attention",
         "k8s_gpu_device_plugin_torch/ops/csrc/ragged_paged_attention.cu",
         "k8s_gpu_device_plugin_tpu/ops/ragged_paged_attention.py:142",
         sum(r["launches"] for r in routes.values())
         + sum(prefix[run]["launches"] for run in PREFIX_RUNS)
-        + sum(window[run]["launches"] for run in WINDOW_RUNS),
+        + sum(window[run]["launches"] for run in WINDOW_RUNS)
+        + sum(spec[run]["launches"] for run in spec_runs),
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -2256,6 +2989,25 @@ def main() -> None:
                                    "stale_entries": c.get("stale_entries")}
                        for c in cases if c["window"] == MISTRAL_WINDOW}},
          "cow_check": cow,
+         # the speculative runs' verify windows (T 4, the chunk engine)
+         # and draft decodes (split), and phase 2's verify cases
+         "verify": {
+             "launches": {run: {k: spec[run][k] for k in
+                                ("launches", "verify_launches",
+                                 "verify_launches_split", "split_launches")}
+                          for run in spec_runs},
+             "cases": {f"{c['case']} {c['dtype']}": {
+                 **{k: c[k] for k in keys}, "plan": c["plan"],
+                 "max_abs_err": c["max_abs_err"]}
+                 for c in cases if c["verify"]}},
+         "spec": {"round_time": spec["round_time"],
+                  "acceptance_rate": {run: spec[run]["spec"]["acceptance_rate"]
+                                      for run in spec_runs},
+                  "spec_trunc_counts_histogram": {
+                      layout: r["counts_histogram"]
+                      for layout, r in spec["spec_trunc"].items()},
+                  "speculative_generate_rounds":
+                      spec["speculative_generate"]["rounds"]},
          # the decode step replayed as a CUDA graph, held to the eager step
          "decode_graph": {run: {k: g[k] for k in
                                 ("equal_bitwise", "steps_checked",

@@ -44,6 +44,14 @@ and the shared generator's draws behind it, come one step later).
 Constructor and ``submit`` arguments the reference has and the port does
 not serve yet (adapters, scheduler, tensor parallelism, fault injection,
 KV page export and install, ...) are refused when set, never ignored.
+
+The speculative batcher (``models/spec_batching.py``) is a subclass that
+overrides the reference's seams: the prefill's chunk and finish
+(``_apply_prefill_chunk``, ``_apply_prefill_finish``), the hook of a
+scheduled chunked prefill (``_on_prefill_scheduled``), the step's device
+and host halves (``_eager_step``, ``_apply_decode_result``), the
+reservation's size (``_kv_need_tokens``) and the class flags the server
+reads (``per_request_sampler``, ``per_request_bias``, ...).
 """
 
 from __future__ import annotations
@@ -253,8 +261,10 @@ class DecodeGraph:
     token: the port's counterpart of the reference's jitted step. ``step``
     is a closure over persistent tensors only (the batch state, the
     per-slot inputs, the parameters) that runs :func:`decode_step` and
-    returns its (emitted, logprobs); a replay runs the same kernels on
-    the same storage and leaves its results in :attr:`outputs`.
+    returns its (emitted, logprobs), or a speculative round
+    (``spec_batching.spec_decode_step``: emitted, counts, logprobs); a
+    replay runs the same kernels on the same storage and leaves its
+    results in :attr:`outputs`.
 
     The capture warms the step up twice on a side stream first; the
     caller must make that harmless (the batcher captures before any slot
@@ -299,7 +309,7 @@ class DecodeGraph:
         self.launches = dict(launches)
         self.replays = 0
 
-    def replay(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def replay(self) -> tuple:
         self.graph.replay()
         kernel_support.count_replay(self.launches)
         self.replays += 1
@@ -494,8 +504,7 @@ class _Inflight:
     CPU, where they are there already) and the slots it counted live."""
 
     step_no: int
-    emitted: torch.Tensor
-    logps: torch.Tensor
+    arrs: tuple  # the step's results: (emitted, logps) for decode_step
     event: "torch.cuda.Event | None"
     slots: tuple[int, ...]
 
@@ -538,6 +547,14 @@ class ContinuousBatcher:
     (:class:`DecodeGraph`) at construction; ``decode_graph=False`` runs
     it eagerly instead (a measurement's yardstick). On the CPU it runs
     eagerly and ``decode_graph=True`` raises."""
+
+    #: requests may carry their own Sampler (the speculative batcher turns
+    #: this off: its draft and verify distributions come from one sampler)
+    per_request_sampler = True
+    #: per-request logit_bias planes (the speculative round threads none)
+    per_request_bias = True
+    #: per-request sampling seeds (the same)
+    per_request_seed = True
 
     def __init__(
         self,
@@ -716,18 +733,22 @@ class ContinuousBatcher:
             raise ValueError(
                 f"decode_graph=True needs a CUDA device, not {dev}: the "
                 "CPU runs the eager decode step")
-        # pinned landing buffers for the readback, two so that step t+1's
-        # copy never lands on step t's before the host read it
-        self._landing = [
-            (torch.empty((n_slots,), dtype=torch.int64, pin_memory=True),
-             torch.empty((n_slots,), dtype=torch.float32, pin_memory=True))
-            for _ in range(2)] if on_cuda else None
+        # pinned landing buffers for the readback (made at the first
+        # dispatch, shaped like the step's results), two so that step
+        # t+1's copy never lands on step t's before the host read it
+        self._landing: "list[tuple] | None" = None
         self._refresh_slot_inputs()  # every slot out, the default knobs
         self.graph: "DecodeGraph | None" = None
-        if on_cuda and decode_graph is not False:
-            # captured while no slot is allowed: the warm-up steps
-            # compute and discard, writing only the trap rows
-            self.graph = DecodeGraph(self._eager_step, self.generator, dev)
+        self._graph_wanted = on_cuda and decode_graph is not False
+        if self._graph_wanted:
+            self._capture_graph()
+
+    def _capture_graph(self) -> None:
+        """Capture :meth:`_eager_step` as the decode graph. Called while
+        no slot is allowed: the warm-up steps compute and discard,
+        writing only the trap rows."""
+        self.graph = DecodeGraph(self._eager_step, self.generator,
+                                 self.device)
 
     def _attach_prefix_cache(self, pc, cfg: LlamaConfig, max_len: int,
                              prompt_buckets: tuple[int, ...]) -> None:
@@ -787,7 +808,7 @@ class ContinuousBatcher:
             raise ValueError("prompt must hold at least one token")
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
-        if prompt_len + max_new > self.max_len:
+        if self._kv_need_tokens(prompt_len, max_new) > self.max_len:
             raise RequestTooLargeError(
                 f"prompt {prompt_len} + max_new {max_new} exceeds slot "
                 f"capacity {self.max_len}",
@@ -969,10 +990,10 @@ class ContinuousBatcher:
     # --- paged-KV admission (no-ops on the dense layout) ---
 
     def _kv_need_tokens(self, prompt_len: int, max_new: int) -> int:
-        """Worst-case cache rows one admission must cover: the paged
-        reservation's size, shared by ``validate`` and ``_reserve_pages``
-        so that a refusal at submit and a deferral at admission cannot
-        disagree."""
+        """Worst-case cache rows one admission must cover: the one place
+        every reservation asks (``validate``'s slot and pool walls,
+        ``_reserve_pages``, the windowed tranches), so that a refusal at
+        submit and a deferral at admission cannot disagree."""
         return prompt_len + max_new
 
     def _windowed_peak_tokens(self, max_new: int) -> int:
@@ -1321,6 +1342,7 @@ class ContinuousBatcher:
                                                "prefix_reused")
                 self.prefilling[slot] = req
                 self._prefill_pos[slot] = start
+                self._on_prefill_scheduled(req, slot, start)
                 continue
             plen = len(req.prompt)
             bucket = _bucket(plen, self.buckets)
@@ -1400,8 +1422,7 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         if start + c < plen:  # intermediate chunk, all real tokens
             chunk = self._h2d(req.prompt[start:start + c], torch.int64)
-            prefill_chunk(self.params, self.state, chunk, start, slot,
-                          self.cfg)
+            self._apply_prefill_chunk(chunk, start, slot)
             # nothing reads this chunk back: wait for it here, or its
             # device time would be charged to the next decode step
             self._wait_prefill(self._done_event(), t0)
@@ -1415,12 +1436,7 @@ class ContinuousBatcher:
         fstart = max(0, plen - c)
         rest = req.prompt[fstart:]
         chunk = self._h2d(rest + [0] * (c - len(rest)), torch.int64)
-        tok, logp = prefill_finish(
-            self.params, self.state, chunk, fstart, plen, slot, self.cfg,
-            self._req_knobs(req), req.max_new, self.generator,
-            bias=self._bias[slot:slot + 1],
-            seeds=self.state.seeds[slot:slot + 1],
-        )
+        tok, logp = self._apply_prefill_finish(chunk, fstart, plen, slot)
         del self.prefilling[slot], self._prefill_pos[slot]
         self._count_prefill_tokens(plen - fstart, "computed")
         self._first_token(req, slot, tok, logp, t0)
@@ -1429,6 +1445,34 @@ class ContinuousBatcher:
         self._recycle_slot_pages(slot, plen)
         self._maybe_promote_prefix(req)
         self._finish_if_done(req)
+
+    # overridable seams (the speculative batcher mirrors them onto a
+    # second, draft-model state)
+
+    def _on_prefill_scheduled(self, req: _Request, slot: int,
+                              start: int) -> None:
+        """A chunked prefill was just scheduled for ``slot``, continuing
+        from ``start`` (> 0 iff a prefix served rows [0, start)). Nothing
+        to do here; the speculative batcher queues its draft backfill."""
+
+    def _apply_prefill_chunk(self, chunk: torch.Tensor, start: int,
+                             slot: int) -> None:
+        """One intermediate chunk of ``slot``'s prompt at ``start``."""
+        prefill_chunk(self.params, self.state, chunk, start, slot, self.cfg)
+
+    def _apply_prefill_finish(self, chunk: torch.Tensor, fstart: int,
+                              plen: int, slot: int,
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The finish chunk of ``slot``'s prompt: samples the first token
+        with the slot's knobs, bias row and seed. Returns (token, logprob)
+        on the device."""
+        req = self.prefilling[slot]
+        return prefill_finish(
+            self.params, self.state, chunk, fstart, plen, slot, self.cfg,
+            self._req_knobs(req), req.max_new, self.generator,
+            bias=self._bias[slot:slot + 1],
+            seeds=self.state.seeds[slot:slot + 1],
+        )
 
     def _maybe_promote_prefix(self, req: _Request) -> None:
         """Offer a completed chunked prefill's prompt to the prefix
@@ -1479,25 +1523,42 @@ class ContinuousBatcher:
                            self.cfg, self._knobs, self.generator,
                            bias=self._bias, seeds=self.state.seeds)
 
+    def _decode_dispatch(self) -> tuple:
+        """The device half of a decode step: one replay of the captured
+        graph (or one eager step) over the persistent inputs, returning
+        the result tensors :meth:`_apply_decode_result` consumes. The
+        speculative batcher's step is a draft-and-verify round, whose
+        results carry per-slot acceptance counts too."""
+        if self.graph is not None:
+            return self.graph.replay()
+        return self._eager_step()
+
+    def _apply_decode_result(self, arrs: tuple) -> int:
+        """The host half: the step's results (on the host already) ->
+        the per-token work. Returns the tokens emitted."""
+        emitted, logps = (x.tolist() for x in arrs)
+        return self._apply_emitted(emitted, logps)
+
     def _dispatch_decode(self) -> None:
         """Enqueue one decode step without waiting for it: its results
         start for the host at once (pinned buffers, an event) and wait in
         ``_inflight`` with the slots it counted live."""
         t0 = time.perf_counter()
         self._refresh_slot_inputs()
-        if self.graph is not None:
-            emitted, logps = self.graph.replay()
-        else:
-            emitted, logps = self._eager_step()
+        arrs = self._decode_dispatch()
         event = None
-        if self._landing is not None:
-            host_tok, host_logp = self._landing[self._step_no % 2]
-            host_tok.copy_(emitted, non_blocking=True)
-            host_logp.copy_(logps, non_blocking=True)
-            emitted, logps = host_tok, host_logp
+        if self.device.type == "cuda":
+            if self._landing is None:
+                self._landing = [tuple(
+                    torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    for x in arrs) for _ in range(2)]
+            landing = self._landing[self._step_no % 2]
+            for host, dev in zip(landing, arrs):
+                host.copy_(dev, non_blocking=True)
+            arrs = landing
             event = torch.cuda.Event()
             event.record()
-        self._inflight = _Inflight(self._step_no, emitted, logps, event,
+        self._inflight = _Inflight(self._step_no, arrs, event,
                                    tuple(self.running))
         self._step_no += 1
         self.decode_steps += 1
@@ -1511,10 +1572,8 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         if inflight.event is not None:
             inflight.event.synchronize()
-        emitted = inflight.emitted.tolist()
-        logps = inflight.logps.tolist()
         self.decode_s += time.perf_counter() - t0
-        return self._apply_emitted(emitted, logps)
+        return self._apply_decode_result(inflight.arrs)
 
     def _decode_once(self) -> int:
         """One synchronous decode step: dispatch, then read it back."""

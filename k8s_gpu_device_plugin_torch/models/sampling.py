@@ -2,10 +2,12 @@
 
 Port of ``k8s_gpu_device_plugin_tpu/models/sampling.py`` (``Sampler``,
 ``sampler_knobs``, ``sample_logits_dyn``, ``sample_and_mark_dyn``,
-``token_logprob``). The order is the reference's: a per-row logit bias
-added to the raw logits, then repetition penalty, temperature, top-k and
-top-p; greedy rows (temperature 0) take the argmax of the biased,
-penalised logits.
+``token_logprob``, and the static sampler's filters ``filtered_logits``,
+``filtered_probs`` and ``sample_logits``, which speculative decoding
+builds both models' distributions from). The order is the reference's:
+a per-row logit bias added to the raw logits, then repetition penalty,
+temperature, top-k and top-p; greedy rows (temperature 0) take the
+argmax of the biased, penalised logits.
 
 Random draws cannot reproduce JAX's (``fold_in(key(seed), i)``), so the
 port pins its own rule: a draw is an argmax over logits plus Gumbel
@@ -69,6 +71,70 @@ def init_presence(prompt: torch.Tensor, vocab_size: int) -> torch.Tensor:
                            device=prompt.device)
     presence.scatter_(1, prompt.long(), True)
     return presence
+
+
+def _apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the k largest logits per row; mask the rest to -inf."""
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits >= kth, logits, torch.full_like(logits, _NEG))
+
+
+def _apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filter: the smallest set of tokens whose cumulative
+    probability reaches p, by the exclusive cumulative sum over the
+    descending-sorted probabilities (the token that crosses the threshold
+    is kept, so the set is never empty)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1) - probs  # exclusive
+    kth = torch.where(cum < p, sorted_logits,
+                      torch.full_like(sorted_logits, float("inf")))
+    kth = kth.amin(dim=-1, keepdim=True)
+    return torch.where(logits >= kth, logits, torch.full_like(logits, _NEG))
+
+
+def filtered_logits(logits: torch.Tensor, sampler: Sampler) -> torch.Tensor:
+    """(..., V) f32 logits after temperature, top-k and top-p: the
+    distribution a sampled draw takes (masked entries -1e30). Undefined
+    for a greedy sampler (temperature 0 has no distribution)."""
+    logits = logits.float() / sampler.temperature
+    if sampler.top_k > 0:
+        logits = _apply_top_k(logits, min(sampler.top_k, logits.shape[-1]))
+    if sampler.top_p < 1.0:
+        logits = _apply_top_p(logits, sampler.top_p)
+    return logits
+
+
+def filtered_probs(logits: torch.Tensor, sampler: Sampler) -> torch.Tensor:
+    """(..., V) normalized probabilities of :func:`filtered_logits`: what
+    speculative rejection sampling (models/speculative.py) compares, the
+    draft and the target under the same filters."""
+    return torch.softmax(filtered_logits(logits, sampler), dim=-1)
+
+
+def categorical(logits: torch.Tensor, generator) -> torch.Tensor:
+    """One draw per row of the (..., V) distribution ``softmax(logits)``
+    (masked entries -1e30 are never drawn): the argmax of the logits plus
+    Gumbel noise from ``generator``, int64. Capturable in a CUDA graph
+    with the generator registered, where ``torch.multinomial`` might not
+    be."""
+    return (logits + _gumbel(logits.shape, generator,
+                             logits.device)).argmax(dim=-1)
+
+
+def sample_logits(logits: torch.Tensor, generator,
+                  sampler: Sampler) -> torch.Tensor:
+    """(B, V) logits -> (B,) int64 tokens under one static sampler: the
+    argmax for a greedy sampler, else a draw of :func:`filtered_logits`
+    from ``generator``. A repetition penalty needs each row's context,
+    which only :func:`sample_logits_dyn` is given, so it raises here."""
+    if sampler.repetition_penalty != 1.0:
+        raise ValueError(
+            "sample_logits takes no repetition_penalty (sample_logits_dyn "
+            "applies it from the presence mask)")
+    if sampler.is_greedy:
+        return logits.argmax(dim=-1)
+    return categorical(filtered_logits(logits, sampler), generator)
 
 
 def _gumbel(shape, generator, device) -> torch.Tensor:

@@ -108,7 +108,7 @@ def serving_cache_attention(
         base = torch.full((b,), int(length), dtype=torch.int32, device=q.device)
     return rpa.ragged_paged_attention(
         q, k_cache, v_cache, base, pages, scale=hd ** -0.5, window=window,
-        k_scale=k_scale, v_scale=v_scale,
+        k_scale=k_scale, v_scale=v_scale, verify=verify,
     )
 
 

@@ -22,8 +22,10 @@ planes (``k_scale``/``v_scale``, the cache's shape with a last axis of
   (``csrc/ragged_paged_attention.cu``), built at first use and counted
   in ``kernel_support.launch_counts()`` under :data:`NAME`, under its
   route's key (:func:`route_key`) and under its engine's key
-  (:func:`engine`); anything the kernel does not take raises. Every bf16
-  launch runs on the tensor cores, f32 queries on the CUDA cores; the
+  (:func:`engine`), and a split launch, a verify window and a verify
+  window that splits under :data:`SPLIT_KEY`, :data:`VERIFY_KEY` and
+  :data:`VERIFY_SPLIT_KEY`; anything the kernel does not take raises.
+  Every bf16 launch runs on the tensor cores, f32 queries on the CUDA cores; the
   wrapper makes that choice and the C interface launches the engine it is
   given. A narrow bf16 window (decode, verify: at most
   :data:`NARROW_TILE` query vectors) splits each live span into splits of
@@ -81,6 +83,14 @@ def route_name(paged: bool, cache_quant: str = "none") -> str:
 def route_key(route: str) -> str:
     """The ``launch_counts()`` key of one route's launches."""
     return f"{NAME}{{{route}}}"
+
+
+#: ``launch_counts()`` keys beside the route and engine keys: launches
+#: that split each live span, verify windows (the caller's ``verify``
+#: tag), and verify windows that split
+SPLIT_KEY = f"{NAME}[split]"
+VERIFY_KEY = f"{NAME}[verify]"
+VERIFY_SPLIT_KEY = f"{NAME}[verify,split]"
 
 
 #: query vectors of a narrow window (decode, verify): the CUDA-core
@@ -256,6 +266,7 @@ def ragged_paged_attention(
     k_scale: "torch.Tensor | None" = None,  # f32, k's shape with hd = 1
     v_scale: "torch.Tensor | None" = None,
     engine_override: "str | None" = None,
+    verify: bool = False,
 ) -> torch.Tensor:
     """(B, T, Hq, hd) cache attention over each slot's live span, in q's
     dtype. The caller has already written the window's own K/V rows
@@ -268,7 +279,9 @@ def ragged_paged_attention(
     a CUDA launch on that engine instead of :func:`engine`'s (the
     tensor cores take bf16 q only): a yardstick of one engine against the
     other on the same inputs. On the tensor cores a narrow window splits
-    its spans (:func:`window_split`); the combine is part of the launch."""
+    its spans (:func:`window_split`); the combine is part of the launch.
+    ``verify`` tags the launch as a speculative verify window for its
+    launch counts; it changes nothing else."""
     _check(q, k, v, base, pages, k_scale, v_scale)
     kw = dict(scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
@@ -337,6 +350,10 @@ def ragged_paged_attention(
     kernel_support.count_launch(NAME)
     kernel_support.count_launch(route_key(route))
     kernel_support.count_launch(kernel_support.engine_key(NAME, eng))
+    for key, hit in ((SPLIT_KEY, split is not None), (VERIFY_KEY, verify),
+                     (VERIFY_SPLIT_KEY, verify and split is not None)):
+        if hit:
+            kernel_support.count_launch(key)
     return out
 
 

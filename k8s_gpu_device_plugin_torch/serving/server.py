@@ -64,6 +64,19 @@ and chunked prefill a windowed request reserves pages for its first
 ``--prefillReserveChunks`` (2) chunks, grows chunk by chunk, and gives
 back the pages that leave its window, so a prompt far longer than the
 pool's worst-case wall is served.
+
+Speculative decoding (``models/spec_batching.py``): ``--draftPreset P``
+serves through a ``SpeculativeBatcher`` whose draft model is preset P,
+its weights drawn as the target's are (``--seed``, then ``--weightQuant``;
+a draft of the target's own preset is the target's tensors, shared, not
+copied), verifying ``--gamma`` (4) proposals a round. It composes with
+the layout (``--kvLayout paged`` pages both caches; ``--draftKvPages``
+sizes the draft's pool, 0 = its dense-equivalent size, and needs both
+``--draftPreset`` and ``--kvLayout paged``), the prefix cache and
+``--pipelineDepth``. A per-request sampler, ``logit_bias`` or ``seed``
+then answers 422, and ``/v1/health`` gains ``spec`` (gamma, rounds,
+tokens drafted and accepted, acceptance rate, accepted per round) and
+the draft's fields in ``kv``.
 """
 
 from __future__ import annotations
@@ -93,6 +106,7 @@ from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     weight_quant_of,
 )
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
+from k8s_gpu_device_plugin_torch.models.spec_batching import SpeculativeBatcher
 from k8s_gpu_device_plugin_torch.ops.kernel_support import launch_counts
 from k8s_gpu_device_plugin_torch.serving.prefix_cache import PrefixCache
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
@@ -121,26 +135,14 @@ class StreamError:
 
 
 class InferenceEngine:
-    """Background thread around a ContinuousBatcher with per-request
-    token queues. ``submit`` is thread-safe; each queue receives
-    ``(token, logprob)`` pairs, then ``None`` at end of stream (preceded
-    by a :class:`StreamError` if the engine died)."""
+    """Background thread around a ContinuousBatcher (or a subclass: the
+    ``SpeculativeBatcher``) with per-request token queues. ``submit`` is
+    thread-safe; each queue receives ``(token, logprob)`` pairs, then
+    ``None`` at end of stream (preceded by a :class:`StreamError` if the
+    engine died)."""
 
-    def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
-                 max_len: int = 2048, sampler: "Sampler | None" = None,
-                 eos_id: "int | None" = None, chunked_prefill: int = 256,
-                 seed: int = 0, kv_layout: "str | None" = None,
-                 kv_page_size: "int | None" = None, kv_pages: int = 0,
-                 pipeline_depth: int = 1, prefix_cache=None,
-                 prefill_reserve_chunks: int = 2):
-        self.cb = ContinuousBatcher(
-            params, cfg, n_slots=n_slots, max_len=max_len, sampler=sampler,
-            eos_id=eos_id, chunked_prefill=chunked_prefill, seed=seed,
-            kv_layout=kv_layout, kv_page_size=kv_page_size,
-            kv_pages=kv_pages, pipeline_depth=pipeline_depth,
-            prefix_cache=prefix_cache,
-            prefill_reserve_chunks=prefill_reserve_chunks,
-        )
+    def __init__(self, batcher: ContinuousBatcher):
+        self.cb = batcher
         self._lock = threading.Lock()
         self._work = threading.Event()
         self._stop = threading.Event()
@@ -174,8 +176,22 @@ class InferenceEngine:
             raise RuntimeError("inference engine is dead (see logs)")
         prompt = self.cb.validate_prompt(prompt)
         self.cb.validate(len(prompt), max_new)
+        if sampler is not None and not self.cb.per_request_sampler:
+            raise ValueError(
+                "per-request sampling is not supported by this engine "
+                "(speculative batching shares one sampler)"
+            )
+        if logit_bias and not self.cb.per_request_bias:
+            raise ValueError(
+                "logit_bias is not supported by this engine "
+                "(speculative batching threads no bias planes)"
+            )
         bias = self.cb.validate_bias(logit_bias)
         seed = self.cb.validate_seed(seed)
+        if seed is not None and not self.cb.per_request_seed:
+            raise ValueError(
+                "per-request seeds are not supported by this engine"
+            )
         q: queue.Queue = queue.Queue()
         with self._lock:
             eid = self._next_eid
@@ -214,6 +230,10 @@ class InferenceEngine:
         }
         if cb.prefix_cache is not None:
             out["prefix_cache"] = cb.prefix_cache.stats.as_dict()
+        spec_stats = getattr(cb, "spec_stats", None)
+        if spec_stats is not None:
+            # speculative acceptance: the production view of gamma
+            out["spec"] = spec_stats()
         kv = {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()}
         if cb.pool is not None:
             kv["prefill_chunks_deferred"] = cb.chunks_deferred
@@ -595,6 +615,24 @@ def build_parser() -> argparse.ArgumentParser:
                         help="physical pages in the paged pool, the "
                         "reserved trap page included; 0 sizes it to the "
                         "dense reservation")
+    parser.add_argument("--draftPreset", default="",
+                        choices=["", *sorted(PRESETS)],
+                        help="enable speculative decoding with this draft "
+                        "model preset (greedy or sampled; repetition "
+                        "penalty unsupported). Composes with the serving "
+                        "path: --kvLayout paged pages both caches, the "
+                        "automatic prefix cache serves the target zero-copy "
+                        "(the draft re-prefills the match), "
+                        "--pipelineDepth 1 overlaps rounds")
+    parser.add_argument("--gamma", type=int, default=4,
+                        help="draft proposals verified per round (1 .. 16; "
+                        "/v1/health's spec.accepted_per_round near gamma "
+                        "says raise it, near 1 lower it)")
+    parser.add_argument("--draftKvPages", type=int, default=0,
+                        help="with --draftPreset and --kvLayout paged: "
+                        "physical pages in the draft model's KV pool (0 "
+                        "sizes it to the draft's dense-equivalent "
+                        "capacity)")
     return parser
 
 
@@ -619,6 +657,12 @@ def build_server(args: argparse.Namespace,
     if args.attnWindow < 0:
         raise ValueError("--attnWindow must be >= 0 (0 keeps the preset's "
                          "window)")
+    if args.draftKvPages and (args.kvLayout != "paged"
+                              or not args.draftPreset):
+        raise ValueError(
+            "--draftKvPages sizes the speculative draft model's page pool: "
+            "it needs both --draftPreset and --kvLayout paged"
+        )
     if args.prefillReserveChunks < 1:
         raise ValueError("--prefillReserveChunks must be >= 1: the tranche "
                          "has to cover the chunk being prefilled")
@@ -643,16 +687,31 @@ def build_server(args: argparse.Namespace,
             f"the params passed in are quantized {weight_quant_of(params)!r}"
             f", --weightQuant says {args.weightQuant!r}"
         )
-    engine = InferenceEngine(
-        params, cfg, n_slots=args.slots, max_len=args.maxLen,
+    common = dict(
+        n_slots=args.slots, max_len=args.maxLen,
         sampler=Sampler(temperature=args.temperature, top_k=args.topK,
                         top_p=args.topP),
-        chunked_prefill=args.chunkedPrefill, seed=args.seed,
-        pipeline_depth=args.pipelineDepth, kv_layout=args.kvLayout,
+        seed=args.seed, pipeline_depth=args.pipelineDepth,
+        kv_layout=args.kvLayout,
         kv_page_size=args.kvPageSize if args.kvLayout == "paged" else None,
         kv_pages=args.kvPages, prefix_cache=prefix_cache,
-        prefill_reserve_chunks=args.prefillReserveChunks,
-    )
+        prefill_reserve_chunks=args.prefillReserveChunks)
+    if args.draftPreset:
+        draft_cfg = PRESETS[args.draftPreset]()
+        # the draft is drawn as the target is (--seed, then --weightQuant):
+        # a draft of the target's own preset would draw the same tensors,
+        # so it shares them instead of holding a second copy
+        draft_params = params if args.draftPreset == args.preset else \
+            quantize_weights(load_params(draft_cfg, seed=args.seed,
+                                         device=device), args.weightQuant)
+        batcher = SpeculativeBatcher(
+            params, cfg, draft_params, draft_cfg, gamma=args.gamma,
+            draft_kv_pages=args.draftKvPages,
+            chunked_prefill=min(args.chunkedPrefill, args.maxLen), **common)
+    else:
+        batcher = ContinuousBatcher(
+            params, cfg, chunked_prefill=args.chunkedPrefill, **common)
+    engine = InferenceEngine(batcher)
     return InferenceServer(engine, host=args.host, port=args.port)
 
 

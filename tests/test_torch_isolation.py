@@ -60,6 +60,10 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.ops.quant\n"
         "import k8s_gpu_device_plugin_torch.models.trainer\n"
         "import k8s_gpu_device_plugin_torch.ops.flash_attention\n"
+        "import k8s_gpu_device_plugin_torch.models.speculative\n"
+        "import k8s_gpu_device_plugin_torch.models.spec_batching\n"
+        "import k8s_gpu_device_plugin_torch.ops.paged_attention\n"
+        "import k8s_gpu_device_plugin_torch.ops.ragged_decode\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

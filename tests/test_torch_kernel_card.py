@@ -52,10 +52,11 @@ def cuda():
 
 
 def _routes_only(counts):
-    """Launch counts without the per-engine keys."""
-    engines = {kernel_support.engine_key(rpa.NAME, e)
-               for e in kernel_support.ENGINES}
-    return {k: n for k, n in counts.items() if k not in engines}
+    """Launch counts without the per-engine, split and verify keys."""
+    other = {kernel_support.engine_key(rpa.NAME, e)
+             for e in kernel_support.ENGINES}
+    other |= {rpa.SPLIT_KEY, rpa.VERIFY_KEY, rpa.VERIFY_SPLIT_KEY}
+    return {k: n for k, n in counts.items() if k not in other}
 
 
 def _engine_counts(counts, name=rpa.NAME):
@@ -127,6 +128,30 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q96, k96, v96 = _inputs(2, 1, 8, 2, 96, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         rpa.ragged_paged_attention(q96, k96, v96, base, scale=1.0)
+
+
+@pytest.mark.parametrize("t,dtype,engine,verify,split", [
+    (1, torch.bfloat16, None, False, True),     # decode: group 4 x T 1
+    (2, torch.bfloat16, None, True, True),      # verify at group x T = 8
+    (4, torch.bfloat16, None, True, False),     # 16 q vectors: chunk engine
+    (1, torch.bfloat16, "cuda_cores", False, False),
+    (2, torch.float32, None, True, False),      # f32: the CUDA cores
+])
+def test_split_and_verify_counts_follow_the_launch(cuda, t, dtype, engine,
+                                                   verify, split):
+    """The split and verify keys are counted where the wrapper launches,
+    from the split it passed the kernel and the caller's verify tag: an
+    engine override or an f32 query that does not split counts no split."""
+    q, k, v = _inputs(2, t, 8, 2, 128, 256, dtype)
+    base = torch.tensor([40, 200], dtype=torch.int32, device=cuda)
+    kernel_support.reset_launch_counts()
+    rpa.ragged_paged_attention(q, k, v, base, scale=1.0, verify=verify,
+                               engine_override=engine)
+    counts = kernel_support.launch_counts()
+    assert counts[rpa.NAME] == 1
+    assert counts.get(rpa.SPLIT_KEY, 0) == int(split)
+    assert counts.get(rpa.VERIFY_KEY, 0) == int(verify)
+    assert counts.get(rpa.VERIFY_SPLIT_KEY, 0) == int(verify and split)
 
 
 def test_served_requests_launch_the_kernel_per_layer(cuda):
@@ -301,7 +326,8 @@ def test_new_routes_refuse_what_the_kernel_does_not_take(cuda):
     assert torch.isfinite(out).all()
     assert kernel_support.launch_counts() == {
         rpa.NAME: 1, rpa.route_key("int4_paged"): 1,
-        kernel_support.engine_key(rpa.NAME, "tensor_cores"): 1}
+        kernel_support.engine_key(rpa.NAME, "tensor_cores"): 1,
+        rpa.SPLIT_KEY: 1}  # a decode at group 4: a narrow window
 
 
 @pytest.mark.parametrize("quant", ["none", "int8", "int4"])

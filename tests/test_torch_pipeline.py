@@ -301,7 +301,7 @@ def test_eos_lag_token_is_dropped_from_inflight(setup):
     cb.run()
     assert cb.done[rid] == oracle[:2]
     assert cb._inflight is not None
-    assert int(cb._inflight.emitted[0]) == -1
+    assert int(cb._inflight.arrs[0][0]) == -1  # (emitted, logps)
 
 
 def test_engine_threaded_stress_with_pipeline(setup):
@@ -309,8 +309,8 @@ def test_engine_threaded_stress_with_pipeline(setup):
     requests over 3 slots from staggered threads, two cancelled in flight;
     every other stream equals its oracle and the engine stays alive."""
     cfg, params = setup
-    engine = InferenceEngine(params, cfg, n_slots=3, max_len=MAX_LEN,
-                             chunked_prefill=8)
+    engine = InferenceEngine(tbatch.ContinuousBatcher(
+        params, cfg, n_slots=3, max_len=MAX_LEN, chunked_prefill=8))
     assert engine.cb.pipeline_depth == 1
     prompts = {i: _prompt(700 + i, 4 + (i % 5), cfg) for i in range(12)}
     results: dict = {}

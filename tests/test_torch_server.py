@@ -34,8 +34,8 @@ PROMPTS = [[5, 9, 13], list(range(1, 41))]
 def served():
     cfg = LlamaConfig.tiny(dtype=torch.float32, head_dim_override=64)
     params = srv.load_params(cfg, seed=3, device="cpu")
-    engine = srv.InferenceEngine(params, cfg, n_slots=2, max_len=96,
-                                 chunked_prefill=16)
+    engine = srv.InferenceEngine(srv.ContinuousBatcher(
+        params, cfg, n_slots=2, max_len=96, chunked_prefill=16))
     server = srv.InferenceServer(engine, host="127.0.0.1", port=0)
     server.start()
     try:
