@@ -143,6 +143,38 @@ Phases (any failed check exits non-zero without the final line):
    the histogram of accepted counts; and batch-1
    ``speculative_generate`` (self-draft, 64 tokens) against
    ``generate``, up to a near tie, with its round count.
+   Then scheduling and failure (the same 8B weights). ``preempt``, at
+   batcher level (8 slots x 2048, chunks of 256, the prefix cache and
+   the graph on): eight priority-2 requests of about 200 tokens (256
+   out; request 1 seeded at temperature 0.8), and after 32 and 40 steps
+   a priority-0 request with a 1 ms deadline: the ``slo`` scheduler
+   evicts request 0, then request 1, dense and paged at depth 1 and 0
+   (the four runs equal bit for bit); every budget delivered, every step
+   a replay, the re-prefill counted as K1 chunk launches beyond the fifo
+   run's; against the fifo run (no preemption) the streams never
+   preempted are equal bit for bit, the seeded victim's tokens equal,
+   the greedy victim's equal or first diverging at a near tie
+   (``near_ties`` over eager reruns of the resume); the f32 twin (8
+   layers widened, one preemption) gives equal tokens and logprobs
+   within 1e-3. ``sup_*``, through the server with eight streamed
+   requests: one injected mid-decode crash (dense) and three (paged) are
+   recovered in place with no error frame (restarts and resumes
+   counted in ``/v1/health``'s ``supervisor``; the new batcher's steps
+   graph replays; ``memory_allocated`` after the prefix cache is drained
+   within the graph pool's bytes of its value before the first crash;
+   the no-fault tokens up to near ties; the seconds from each crash to
+   the next token); injected pool pressure makes admissions wait and
+   leaves the streams bit for bit; a second crash past ``--restartBudget
+   1`` ends every stream with an ``engine_dead`` frame and health reads
+   dead; a burst past ``--maxQueue 2`` answers 429 with Retry-After;
+   ``resume_out`` continues two streams from token 10. ``arrivals``: 48
+   requests (20% priority 0 with a 1500 ms deadline) at once on the fifo
+   server, then as Poisson arrivals at 1.2x that rate under fifo and
+   slo: TTFT p50/p99 per class, deadlines met, preemptions, re-prefill
+   chunks per preemption (reported, not held to limits). After the
+   windowed Mistral-7B runs, ``window_relief``: a head waiting on pages
+   (its first reservation reads injected pool pressure) evicts the
+   decode whose eviction returns the most live pages, not the longest.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -173,8 +205,9 @@ Phases (any failed check exits non-zero without the final line):
    kernel's entry carries its six routes, the decode graph's checks and
    pool bytes, the prefix and windowed runs' launches, the W 4096 cases
    with the stale-entry check, the copy-on-write check, the speculative
-   runs' verify and split launches with phase 2's verify cases, and the
-   round's time and acceptance).
+   runs' verify and split launches with phase 2's verify cases, the
+   round's time and acceptance, and the preemption runs' launches with
+   the page-relief and arrival summaries).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1790,19 +1823,23 @@ def batcher_decider(torch, batching, spec_mod, cfg, params, max_news: list):
 
 
 def near_ties(run: str, torch, generate, truth: tuple, prompts: list,
-              got: list, want: list, decide) -> list:
+              got: list, want: list, decide, score=None) -> list:
     """Each stream's first divergence from ``want`` (None: none), judged
     by the plain f32 forward of the common prefix (``truth``: an f32
     config and f32 weights); its gap between the two tokens is reported
     beside NEAR_TIE. ``want`` came from decode forwards and ``got`` from
-    verify windows: ``decide(run, k, prompt, j)`` reruns stream ``k`` and
-    gives, for each, the stream and the logits its token ``j`` was picked
-    from. The reruns must give the streams, and the logits their tokens.
+    verify windows (or from a resumed admission): ``decide(run, k, prompt,
+    j)`` reruns stream ``k`` and gives, for each, the stream (whole, or
+    through token ``j``) and the logits its token ``j`` was picked from.
+    The reruns must give the streams, and the logits their tokens.
     One of the two forwards then moved the pair's order against the truth
     by the gap, so the gap is at most its error at the two tokens,
     |e[g] - t[g]| + |e[w] - t[w]| (reported for both). What can fail is
     the rounding bound: the verify forward's RMS error over the vocabulary
-    at most twice the decode forward's."""
+    at most twice the decode forward's. ``score(logits, j)`` (a seeded
+    sampled stream: the logits over the temperature plus token ``j``'s
+    counter noise) is what the pick maximizes; every comparison is made
+    on it (default: the logits, greedy)."""
     out = []
     for k, (prompt, g, w) in enumerate(zip(prompts, got, want)):
         j = first_divergence(g, w)
@@ -1810,11 +1847,17 @@ def near_ties(run: str, torch, generate, truth: tuple, prompts: list,
             out.append(None)
             continue
         (w_again, e_dec), (g_again, e_ver) = decide(run, k, prompt, j)
-        if w_again != w or g_again != g or \
-                int(e_dec.argmax()) != w[j] or int(e_ver.argmax()) != g[j]:
+        # a rerun gives the stream, or its first tokens through token j
+        picks = [int((x if score is None else score(x, j)).argmax())
+                 for x in (e_dec, e_ver)]
+        if len(w_again) <= j or w_again != w[:len(w_again)] or \
+                len(g_again) <= j or g_again != g[:len(g_again)] or \
+                picks != [w[j], g[j]]:
             fail(f"{run}: stream {k}'s rerun does not give the served "
                  f"tokens, or its logits at token {j} do not pick them")
         t = plain_logits(torch, generate, *truth, prompt + w[:j])
+        if score is not None:
+            e_dec, e_ver, t = (score(x, j) for x in (e_dec, e_ver, t))
         gap = float((t[g[j]] - t[w[j]]).abs())
         pair = [float((e[g[j]] - t[g[j]]).abs() + (e[w[j]] - t[w[j]]).abs())
                 for e in (e_dec, e_ver)]
@@ -2271,6 +2314,820 @@ def phase_spec_batcher(torch, batching, spec_mod, speculative, generate,
     return out
 
 
+# --- phase 4, scheduling and failure ------------------------------------------
+
+# phase_preempt, at batcher level (Llama-3-8B, 8 slots x 2048, chunks of
+# 256, the prefix cache on, the graph on): eight priority-2 requests fill
+# the slots; after PREEMPT_AFTER steps, and PREEMPT_GAP steps later, a
+# priority-0 request with a 1 ms deadline arrives, and the slo scheduler
+# evicts the longest-running decode each time: request 0 (greedy), then
+# request PREEMPT_SEEDED (seeded, temperature 0.8)
+PREEMPT_PROMPT, PREEMPT_MAX_NEW, PREEMPT_SLOTS = (190, 210), 256, 8
+PREEMPT_AFTER, PREEMPT_GAP, PREEMPT_HI_NEW = 32, 8, 32
+PREEMPT_SEEDED, PREEMPT_SEED, PREEMPT_TEMP = 1, 11, 0.8
+PREEMPT_RUNS = {"preempt_dense": ("dense", 1), "preempt_paged": ("paged", 1),
+                "preempt_dense_depth0": ("dense", 0),
+                "preempt_paged_depth0": ("paged", 0)}
+# the f32 twin (the target's first F32_LAYERS layers widened): the same
+# two preemptions, the first after PREEMPT_F32_AFTER steps, 64 tokens a
+# request; a resumed token's logprob comes from the finish chunk's
+# forward, not a T = 1 decode: f32 rounding elsewhere, held to
+# LOGP_F32_TOL
+PREEMPT_F32_MAX_NEW, PREEMPT_F32_AFTER, LOGP_F32_TOL = 64, 16, 1e-3
+
+# phase_supervisor, through the server: eight streamed requests
+SUP_ARGS = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
+            "--chunkedPrefill", "256"]
+SUP_PAGED = ["--kvLayout", "paged", "--kvPageSize", "64"]  # default pool
+SUP_PROMPTS, SUP_MAX_NEW, SUP_N = (100, 600), (64, 96), 8
+SUP_RUNS = {
+    # the same requests with no fault: the streams every run is held to
+    "sup_nofault": [],
+    # one mid-decode crash, recovered in place
+    "sup_crash_dense": ["--faults", "decode.apply:nth=40"],
+    # three crashes at seeded decode steps: three restarts, no leak
+    "sup_crash_paged": [*SUP_PAGED, "--faults",
+                        "decode.apply:p=0.02:seed=5:times=3"],
+    # injected pool pressure: admissions wait, nothing crashes (the
+    # seeded schedule first fires on the 15th reservation: the requests
+    # are served POOL_PRESSURE_BATCHES times, the prefix cache hitting
+    # from the second)
+    "sup_pool_pressure": [*SUP_PAGED, "--faults",
+                          "pool.alloc:p=0.3:seed=3:times=6"],
+    # a second crash past a budget of one: the engine dies
+    "sup_budget": ["--restartBudget", "1", "--faults",
+                   "decode.apply:nth=20:times=2"],
+}
+SUP_RESUME_AT = 10        # HTTP resume: the first 10 tokens come back in
+POOL_PRESSURE_BATCHES = 3
+OVERLOAD_QUEUE, OVERLOAD_BURST = 2, 24
+
+# phase_arrivals: an open-loop schedule through the server, fifo and slo
+ARRIVAL_N, ARRIVAL_PROMPTS, ARRIVAL_MAX_NEW = 48, (64, 512), (32, 128)
+ARRIVAL_HI_SHARE, ARRIVAL_DEADLINE_MS, ARRIVAL_LOAD = 0.2, 1500, 1.2
+
+
+@contextlib.contextmanager
+def recording_picks(torch, module):
+    """Record every forward through ``module._forward_cached`` that yields
+    one logits row per sequence: decode steps (T = 1) and prefill finish
+    chunks (the row at ``select_pos``). Yields the list of (each row's
+    position, f32 logits (B, V)) the calls append to."""
+    orig = module._forward_cached
+    calls = []
+
+    def wrapped(params, tokens, cache, length, cfg, **kw):
+        out = orig(params, tokens, cache, length, cfg, **kw)
+        if out.shape[1] == 1:
+            off = 0 if tokens.shape[1] == 1 else kw.get("select_pos", 0)
+            pos = torch.as_tensor(length).reshape(-1).expand(
+                tokens.shape[0]) + off
+            calls.append((pos.tolist(), out[:, 0].float().clone()))
+        return out
+
+    module._forward_cached = wrapped
+    try:
+        yield calls
+    finally:
+        module._forward_cached = orig
+
+
+def resume_decider(torch, batching, cfg, params, streams: list,
+                   folds: list, kws: "list | None" = None):
+    """``decide`` for near_ties over streams that resumed: stream ``k``
+    alone in slot 0 of an eager batcher (eight slots, 2048 rows, chunks of
+    256), uninterrupted, and resumed at its last fold at or before token
+    ``j`` (``folds[k]``: the emission counts its preemptions or restarts
+    folded into the prompt, 0 first) through ``resume_out``, which is the
+    same fold; each rerun stops after token ``j`` (its budget is j + 1:
+    greedy tokens do not depend on it). Returns both reruns' tokens and
+    the logits their token ``j`` was picked from (a decode, or the
+    resumed admission's finish chunk). ``kws[k]`` are stream ``k``'s
+    submit arguments (its sampler and seed)."""
+    kw = dict(n_slots=8, max_len=2048, chunked_prefill=256,
+              decode_graph=False, pipeline_depth=0)
+
+    def decide(run: str, k: int, prompt: list, j: int) -> tuple:
+        n = max(f for f in folds[k] if f <= j)
+        out = []
+        for resume in ([], streams[k][:n]):
+            cb = batching.ContinuousBatcher(params, cfg, **kw)
+            with recording_picks(torch, batching) as calls:
+                rid = cb.submit(prompt, j + 1, resume_out=resume,
+                                **(kws[k] if kws else {}))
+                cb.run()
+            pos = len(prompt) + j - 1
+            logits = next((lg[0] for p, lg in reversed(calls) if p[0] == pos),
+                          None)
+            if logits is None:
+                fail(f"{run}: no recorded forward picked stream {k}'s token "
+                     f"{j}")
+            out.append((cb.done_requests[rid].out, logits))
+            del cb, calls
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+
+    return decide
+
+
+class LazyTruth:
+    """The near-tie judge's f32 weights (32 GB for Llama-3-8B), widened
+    only when a stream diverges and freed by :meth:`free`."""
+
+    def __init__(self, torch, cfg, params):
+        self.torch, self.cfg, self.params = torch, cfg, params
+        self.pair = None
+
+    def __call__(self) -> tuple:
+        if self.pair is None:
+            self.pair = (dataclasses.replace(self.cfg,
+                                             dtype=self.torch.float32),
+                         widened(self.torch, self.params))
+        return self.pair
+
+    def free(self) -> None:
+        self.pair = None
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+
+def judge_resumed(run: str, torch, generate, truth: LazyTruth,
+                  prompts: list, got: list, want: list, decide,
+                  score=None) -> list:
+    """near_ties over streams that resumed (``got``) against their
+    uninterrupted runs (``want``); the f32 judge is built only if one
+    diverges."""
+    if all(first_divergence(g, w) is None for g, w in zip(got, want)):
+        return [None] * len(got)
+    return near_ties(run, torch, generate, truth(), prompts, got, want,
+                     decide, score=score)
+
+
+def preempt_bodies(cfg, n_hi: int = 2) -> tuple:
+    """The eight priority-2 prompts (request PREEMPT_SEEDED seeded and
+    sampled) and the priority-0 ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    lows = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(*PREEMPT_PROMPT, PREEMPT_SLOTS)]
+    his = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+           for n in rng.integers(*PREEMPT_PROMPT, n_hi)]
+    return lows, his
+
+
+def seeded_kw(sampling) -> dict:
+    """The seeded victim's submit arguments."""
+    return {"sampler": sampling.Sampler(temperature=PREEMPT_TEMP),
+            "seed": PREEMPT_SEED}
+
+
+def seeded_score(torch, sampling):
+    """What the seeded victim's pick maximizes at its token ``j``: the
+    logits over the temperature plus the seed's counter noise at draw
+    ``j`` (no top-k, top-p or penalty)."""
+    def score(logits, j):
+        dev = logits.device
+        noise = sampling.counter_gumbel(
+            torch.tensor([PREEMPT_SEED], device=dev),
+            torch.tensor([j], device=dev), logits.shape[-1])[0]
+        return logits.float() / PREEMPT_TEMP + noise
+
+    return score
+
+
+def preempt_run(torch, batching, sampling, sched_mod, prefix_cache_mod,
+                kernel_support, rpa, cfg, params, run: str, layout: str,
+                depth: int, policy: str, max_new: int, arrivals: tuple,
+                n_hi: int) -> dict:
+    """One batcher run of phase_preempt: the low requests at once, the
+    high ones after ``arrivals`` steps each; every decode step a graph
+    replay and every K1 launch counted (decode launches split, the rest
+    prefill chunks: the first prefills and the re-prefills)."""
+    kw = dict(n_slots=PREEMPT_SLOTS, max_len=2048, chunked_prefill=256,
+              pipeline_depth=depth)
+    if layout == "paged":
+        kw.update(kv_layout="paged", kv_page_size=64)
+    buckets = tuple(b for b in batching.DEFAULT_PROMPT_BUCKETS if b <= 2048)
+    sched = sched_mod.make_scheduler(policy)
+    cb = batching.ContinuousBatcher(
+        params, cfg, scheduler=sched, prefix_cache=prefix_cache_mod.PrefixCache(
+            cfg, buckets=buckets, budget_bytes=256 << 20), **kw)
+    if cb.graph is None:
+        fail(f"{run}: the batcher on the card must capture its decode step")
+    lows, his = preempt_bodies(cfg, n_hi)
+    kernel_support.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [cb.submit(p, max_new, tenant="bronze", priority=2,
+                      **(seeded_kw(sampling) if i == PREEMPT_SEEDED else {}))
+            for i, p in enumerate(lows)]
+    for wait, hi in zip(arrivals, his):
+        for _ in range(wait):
+            cb.step()
+        rids.append(cb.submit(hi, PREEMPT_HI_NEW, tenant="gold", priority=0,
+                              deadline_ms=1))
+    cb.run()
+    wall = time.perf_counter() - t0
+    reqs = [cb.done_requests[r] for r in rids]
+    for i, req in enumerate(reqs):
+        want = max_new if i < len(lows) else PREEMPT_HI_NEW
+        if len(req.out) != want:
+            fail(f"{run}: request {i} delivered {len(req.out)} of {want}")
+    counts = kernel_support.launch_counts()
+    total, split = counts.get(rpa.NAME, 0), counts.get(rpa.SPLIT_KEY, 0)
+    engines = {e: counts.get(kernel_support.engine_key(rpa.NAME, e), 0)
+               for e in kernel_support.ENGINES}
+    dtype = str(cfg.dtype).replace("torch.", "")
+    # bf16 decode launches split their spans (f32 ones never split)
+    engine = "tensor_cores" if dtype == "bfloat16" else "cuda_cores"
+    decode = cfg.n_layers * cb.decode_steps
+    if (split != (decode if engine == "tensor_cores" else 0)
+            or total - decode != cfg.n_layers * cb.prefill_chunks
+            or engines[engine] != total
+            or cb.graph.replays != cb.decode_steps):
+        fail(f"{run}: K1 launches {total} ({split} split, per engine "
+             f"{engines}), graph replays {cb.graph.replays}: the run needs "
+             f"{cfg.n_layers} x {cb.decode_steps} decode launches (split "
+             f"in bf16) and {cfg.n_layers} x {cb.prefill_chunks} chunk "
+             f"launches, all on the {engine}, every step a replay")
+    if cb.pool is not None:
+        while cb.prefix_cache.evict_one():
+            pass
+        if cb.pool.in_use:
+            fail(f"{run}: pages still in use: {cb.kv_stats()}")
+        cb.pool.check()
+    out = {"run": run, "layout": layout, "pipeline_depth": depth,
+           "policy": policy, "dtype": dtype, "wall_s": wall,
+           "decode_steps": cb.decode_steps,
+           "prefill_chunks": cb.prefill_chunks,
+           "chunk_launches": total - decode, "decode_launches": decode,
+           "pipeline_flushes": cb.pipeline_flushes,
+           "preemptions": sched.preemptions,
+           "victims": [i for i, r in enumerate(reqs) if r.preemptions],
+           "folds": [[0] + ([r.prefilled_out] if r.preemptions else [])
+                     for r in reqs],
+           "tokens": [r.out for r in reqs],
+           "logprobs": [r.out_logp for r in reqs],
+           "prompts": lows + his[:len(arrivals)],
+           "cached_tokens": [r.cached_tokens for r in reqs]}
+    del cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_preempt(torch, batching, sampling, sched_mod, prefix_cache_mod,
+                  kernel_support, rpa, generate, cfg, params) -> dict:
+    """Preemption at batcher level. The slo runs (dense and paged, depth 1
+    and 0) must preempt exactly twice, request 0 then PREEMPT_SEEDED,
+    deliver every budget, count the re-prefill as K1 chunk launches (one
+    a layer a chunk beyond the fifo run's) and equal each other bit for
+    bit. Against the fifo run (no preemption: the uninterrupted streams)
+    every stream that was not preempted is equal bit for bit, and each
+    victim's tokens are equal or first diverge at a near tie (near_ties
+    over reruns of the resume; the seeded victim's judged on what its
+    pick maximizes, the logits over the temperature plus its counter
+    noise). The f32 twin (8 layers widened, the same two preemptions):
+    every stream's tokens equal, the seeded victim's included, and
+    logprobs within LOGP_F32_TOL."""
+    args = (torch, batching, sampling, sched_mod, prefix_cache_mod,
+            kernel_support, rpa)
+    arrivals = (PREEMPT_AFTER, PREEMPT_GAP)
+    runs = {run: preempt_run(*args, cfg, params, run, layout, depth, "slo",
+                             PREEMPT_MAX_NEW, arrivals, 2)
+            for run, (layout, depth) in PREEMPT_RUNS.items()}
+    fifo = preempt_run(*args, cfg, params, "preempt_fifo", "dense", 1, "fifo",
+                       PREEMPT_MAX_NEW, arrivals, 2)
+    first = runs["preempt_dense"]
+    for run, r in runs.items():
+        if r["preemptions"] != 2 or r["victims"] != [0, PREEMPT_SEEDED]:
+            fail(f"{run}: {r['preemptions']} preemptions of requests "
+                 f"{r['victims']}, wanted 2 of [0, {PREEMPT_SEEDED}]")
+        if r["prefill_chunks"] - fifo["prefill_chunks"] < r["preemptions"]:
+            fail(f"{run}: {r['prefill_chunks']} prefill chunks against the "
+                 f"fifo run's {fifo['prefill_chunks']}: no re-prefill")
+        if r["tokens"] != first["tokens"] or \
+                r["logprobs"] != first["logprobs"]:
+            fail(f"{run}: the streams differ from preempt_dense's")
+    if fifo["preemptions"]:
+        fail(f"preempt_fifo: the fifo policy preempted {fifo['preemptions']}")
+    victims = set(first["victims"])
+    for i, (g, w) in enumerate(zip(first["tokens"], fifo["tokens"])):
+        if i not in victims and (g != w or first["logprobs"][i]
+                                 != fifo["logprobs"][i]):
+            fail(f"preempt: request {i}, never preempted, differs from its "
+                 "fifo stream")
+    truth = LazyTruth(torch, cfg, params)
+    ties = {}
+    for i, kw, score in ((0, {}, None),
+                         (PREEMPT_SEEDED, seeded_kw(sampling),
+                          seeded_score(torch, sampling))):
+        ties[i] = judge_resumed(
+            f"preempt request {i}", torch, generate, truth,
+            [first["prompts"][i]], [first["tokens"][i]], [fifo["tokens"][i]],
+            resume_decider(torch, batching, cfg, params,
+                           [first["tokens"][i]], [first["folds"][i]], [kw]),
+            score=score)[0]
+    truth.free()
+
+    # the f32 twin: one preemption, tokens equal, logprobs within tolerance
+    cfg32, params32 = truncated_draft(cfg, params, F32_LAYERS)
+    cfg32 = dataclasses.replace(cfg32, dtype=torch.float32)
+    params32 = widened(torch, params32)
+    arrivals32 = (PREEMPT_F32_AFTER, PREEMPT_GAP)
+    f32 = preempt_run(*args, cfg32, params32, "preempt_f32", "dense", 1,
+                      "slo", PREEMPT_F32_MAX_NEW, arrivals32, 2)
+    f32_fifo = preempt_run(*args, cfg32, params32, "preempt_f32_fifo",
+                           "dense", 1, "fifo", PREEMPT_F32_MAX_NEW,
+                           arrivals32, 2)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if f32["victims"] != [0, PREEMPT_SEEDED] or \
+            f32["tokens"] != f32_fifo["tokens"]:
+        fail(f"preempt_f32: victims {f32['victims']}; the streams must equal "
+             "the uninterrupted f32 ones")
+    logp_err = max(abs(a - b) for g, w in zip(f32["logprobs"],
+                                              f32_fifo["logprobs"])
+                   for a, b in zip(g, w))
+    if logp_err > LOGP_F32_TOL:
+        fail(f"preempt_f32: logprobs differ by {logp_err} (> {LOGP_F32_TOL})")
+    keys = ("wall_s", "decode_steps", "prefill_chunks", "chunk_launches",
+            "decode_launches", "pipeline_flushes", "preemptions", "victims",
+            "folds")
+    row = {"phase": 4, "run": "preempt",
+           "runs": {r["run"]: {k: r[k] for k in keys}
+                    for r in (*runs.values(), fifo, f32, f32_fifo)},
+           "equal_bitwise": list(PREEMPT_RUNS),
+           "reprefill_chunks": first["prefill_chunks"] - fifo["prefill_chunks"],
+           "victim_cached_tokens": [first["cached_tokens"][i]
+                                    for i in sorted(victims)],
+           "victim_divergences": {"greedy": ties[0],
+                                  "seeded": ties[PREEMPT_SEEDED]},
+           "f32_tokens_equal": True, "f32_logprob_max_err": logp_err}
+    emit(row)
+    return {**row, "launches": sum(r["chunk_launches"] + r["decode_launches"]
+                                   for r in (*runs.values(), fifo))}
+
+
+def sup_bodies(cfg) -> list[dict]:
+    """phase_supervisor's eight streamed requests, with logprobs."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+    return [{"prompt": rng.integers(0, cfg.vocab_size, int(n)).tolist(),
+             "max_new": int(m), "stream": True, "logprobs": True}
+            for n, m in zip(rng.integers(*SUP_PROMPTS, SUP_N),
+                            rng.integers(*SUP_MAX_NEW, SUP_N))]
+
+
+def read_frames(url: str, body: dict) -> dict:
+    """One streamed /v1/generate read to its end, an error frame
+    included: {"tokens", "error" (the frame's error object or None),
+    "done" (the done event or None)}."""
+    req = urllib.request.Request(
+        url + "/v1/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    toks, error, done = [], None, None
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            evt = json.loads(line[len("data: "):])
+            if "error" in evt:
+                error = evt["error"]
+                break
+            if evt.get("done"):
+                done = evt
+                break
+            toks.append(evt["token"])
+    return {"tokens": toks, "error": error, "done": done}
+
+
+def get_health(url: str) -> tuple[int, dict]:
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(url + "/v1/health", timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def watch_recoveries(server) -> list:
+    """Wrap the engine supervisor's ``recover`` to log, for each crash, its
+    time (``time.perf_counter``) and each live request's fold point (the
+    tokens it had emitted), keyed by its prompt as submitted."""
+    sup = server.engine.supervisor
+    orig = sup.recover
+    log = []
+
+    def recover(engine):
+        cb = engine.cb
+        live = (*cb.pending, *cb.prefilling.values(), *cb.running.values())
+        log.append({"t": time.perf_counter(), "folds": {
+            tuple(r.prompt[:len(r.prompt) - r.prefilled_out]):
+                min(len(r.out), len(r.out_logp)) for r in live}})
+        orig(engine)
+
+    sup.recover = recover
+    return log
+
+
+def phase_supervisor(torch, server_mod, batching, generate, cfg,
+                     params) -> dict:
+    """Crash recovery, fault injection, overload and the resume seam
+    through the server (Llama-3-8B, 8 slots x 2048, the prefix cache on,
+    the graph on). sup_crash_dense (one mid-decode crash) and
+    sup_crash_paged (three): every stream completes with no error frame,
+    the supervisor counts the restarts and resumes, the new batcher's
+    decode steps are graph replays, and once the prefix cache is drained
+    ``memory_allocated`` is within the graph pool's bytes of its value
+    before the first crash; tokens equal sup_nofault's or first diverge at
+    a near tie. sup_pool_pressure: admissions wait, nothing is refused,
+    the streams are sup_nofault's bit for bit. sup_budget: the second
+    crash past a budget of one ends every stream with an ``engine_dead``
+    frame and health reads dead. Then a burst past ``--maxQueue 2``
+    answers 429 with Retry-After, and ``resume_out`` continues two
+    streams from token SUP_RESUME_AT."""
+    bodies = sup_bodies(cfg)
+    prompts = [b["prompt"] for b in bodies]
+    out, ties = {}, {}
+    truth = LazyTruth(torch, cfg, params)
+    for run, flags in SUP_RUNS.items():
+        args, server, url = start_server(server_mod, [*SUP_ARGS, *flags],
+                                         params)
+        try:
+            cb0 = server.engine.cb
+            pool_bytes = cb0.graph.pool_bytes
+            del cb0
+            mem0 = torch.cuda.memory_allocated()
+            recoveries = watch_recoveries(server)
+            row = {"phase": 4, "run": run, "flags": flags}
+            t0 = time.perf_counter()
+            if run == "sup_budget":
+                results = [None] * len(bodies)
+
+                def worker(i):
+                    results[i] = read_frames(url, bodies[i])
+
+                threads = [threading.Thread(target=worker, args=(i,))
+                           for i in range(len(bodies))]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(900)
+                status, health = get_health(url)
+                codes = [r and r["error"] and r["error"]["code"]
+                         for r in results]
+                if codes != ["engine_dead"] * len(bodies) or status != 503 \
+                        or health["alive"] or \
+                        health["supervisor"]["state"] != "dead":
+                    fail(f"{run}: error codes {codes}, health {status} "
+                         f"{health.get('supervisor')}: past the budget every "
+                         "stream ends with engine_dead and health reads dead")
+                row.update(error_codes=codes, health_status=status,
+                           supervisor=health["supervisor"],
+                           tokens_before_death=[len(r["tokens"])
+                                                for r in results])
+                emit(row)
+                out[run] = row
+                continue
+            batches = [post_all(url, bodies, run) for _ in range(
+                POOL_PRESSURE_BATCHES if run == "sup_pool_pressure" else 1)]
+            results = batches[0]
+            row["wall_s"] = time.perf_counter() - t0
+            status, health = get_health(url)
+            sup = health["supervisor"]
+            for res, b in zip(results, bodies):
+                if len(res["tokens"]) != b["max_new"]:
+                    fail(f"{run}: a stream came back with "
+                         f"{len(res['tokens'])} of {b['max_new']} tokens")
+            want_restarts = {"sup_crash_dense": 1,
+                             "sup_crash_paged": 3}.get(run, 0)
+            if (sup["restarts_total"] != want_restarts
+                    or sup["crashes_total"] != want_restarts
+                    or sup["state"] != "ok" or status != 200
+                    or (want_restarts and sup["resumed_total"] < 1)):
+                fail(f"{run}: supervisor {sup} (health {status}): wanted "
+                     f"{want_restarts} restarts, requests resumed, state ok")
+            cb = server.engine.cb
+            if cb.graph is None or cb.graph.replays != cb.decode_steps:
+                fail(f"{run}: after recovery {cb.decode_steps} decode steps, "
+                     f"graph {cb.graph and cb.graph.stats()}: every step a "
+                     "replay")
+            drain_prefix_cache(server)
+            mem1 = torch.cuda.memory_allocated()
+            if abs(mem1 - mem0) > pool_bytes:
+                fail(f"{run}: memory_allocated {mem0} before, {mem1} after "
+                     f"the drain: more than the graph pool ({pool_bytes}) "
+                     "apart")
+            row.update(supervisor=sup, sched=health["sched"],
+                       memory_allocated_before=mem0,
+                       memory_allocated_after=mem1,
+                       graph_pool_bytes=pool_bytes,
+                       kv_admission_rejected=health["kv"]
+                       ["admission_rejected"],
+                       decode_steps_new_batcher=cb.decode_steps,
+                       graph_replays_new_batcher=cb.graph.replays)
+            tokens = [r["tokens"] for r in results]
+            if run == "sup_nofault":
+                out[run] = {"tokens": tokens,
+                            "logprobs": [r["logprobs"] for r in results]}
+                resumed = []
+                for k in range(2):
+                    body = {"prompt": prompts[k], "max_new":
+                            bodies[k]["max_new"], "logprobs": True,
+                            "resume_out": tokens[k][:SUP_RESUME_AT],
+                            "resume_logprobs":
+                                results[k]["logprobs"][:SUP_RESUME_AT]}
+                    got = _post(url, body)["tokens"]
+                    resumed.append(tokens[k][:SUP_RESUME_AT] + got)
+                ties["sup_http_resume"] = judge_resumed(
+                    "sup_http_resume", torch, generate, truth, prompts[:2],
+                    resumed, tokens[:2], resume_decider(
+                        torch, batching, cfg, params, resumed,
+                        [[0, SUP_RESUME_AT]] * 2))
+                row["http_resume_divergences"] = ties["sup_http_resume"]
+            elif run == "sup_pool_pressure":
+                want = out["sup_nofault"]
+                for batch in batches:
+                    if [r["tokens"] for r in batch] != want["tokens"] or \
+                            [r["logprobs"] for r in batch] != \
+                            want["logprobs"]:
+                        fail(f"{run}: the streams differ from sup_nofault's")
+                if health["kv"]["admission_rejected"]["pool_pressure"] < 1:
+                    fail(f"{run}: no admission waited: {health['kv']}")
+                row["batches"] = len(batches)
+                row["cached_tokens"] = [r["cached_tokens"]
+                                        for r in batches[-1]]
+            else:
+                folds = [[0] + [e["folds"][tuple(p)] for e in recoveries
+                                if tuple(p) in e["folds"]] for p in prompts]
+                ties[run] = judge_resumed(
+                    run, torch, generate, truth, prompts, tokens,
+                    out["sup_nofault"]["tokens"], resume_decider(
+                        torch, batching, cfg, params, tokens, folds))
+                # the recovery's wall: crash -> the next token any stream
+                # received
+                arrivals = sorted(t for r in results for t in r["token_times"])
+                row["recovery_s"] = [
+                    next((t for t in arrivals if t > e["t"]), math.inf) - e["t"]
+                    for e in recoveries]
+                row["folds"] = folds
+                row["divergences_from_nofault"] = ties[run]
+            emit(row)
+            out[run] = {**row, **out.get(run, {})}
+        finally:
+            server.stop()
+            # the next run's "before" must not count this run's batcher
+            cb = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    truth.free()
+
+    # overload: a burst past --maxQueue answers 429 with Retry-After
+    import urllib.error
+
+    args, server, url = start_server(
+        server_mod, [*SUP_ARGS, "--maxQueue", str(OVERLOAD_QUEUE)], params)
+    try:
+        codes, retry = [], []
+
+        def burst(i):
+            req = urllib.request.Request(
+                url + "/v1/generate", data=json.dumps(
+                    {"prompt": prompts[i % SUP_N][:64], "max_new": 16}
+                ).encode(), headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    resp.read()
+                    codes.append(resp.status)
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
+                body = json.loads(e.read())
+                retry.append((e.headers.get("Retry-After"), body))
+
+        threads = [threading.Thread(target=burst, args=(i,))
+                   for i in range(OVERLOAD_BURST)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        status, health = get_health(url)
+        if 429 not in codes or not all(
+                h is not None and int(h) == b["retry_after"] >= 1
+                and b["reason"] == "queue_full" for h, b in retry) \
+                or set(codes) - {200, 429}:
+            fail(f"overload: codes {sorted(codes)}, 429 bodies {retry}")
+        out["overload"] = {"phase": 4, "run": "overload",
+                           "max_queue": OVERLOAD_QUEUE,
+                           "burst": OVERLOAD_BURST,
+                           "answered_200": codes.count(200),
+                           "answered_429": codes.count(429),
+                           "retry_after": sorted({int(h) for h, _ in retry}),
+                           "rejections": health["sched"]["rejections"]}
+        emit(out["overload"])
+    finally:
+        server.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def arrival_bodies(cfg) -> list[dict]:
+    """phase_arrivals' requests: ARRIVAL_HI_SHARE priority 0 with a
+    deadline, the rest priority 2; streamed (TTFT)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 9)
+    bodies = []
+    for _ in range(ARRIVAL_N):
+        hi = rng.random() < ARRIVAL_HI_SHARE
+        body = {"prompt": rng.integers(0, cfg.vocab_size, int(
+                    rng.integers(*ARRIVAL_PROMPTS))).tolist(),
+                "max_new": int(rng.integers(*ARRIVAL_MAX_NEW)),
+                "stream": True, "priority": 0 if hi else 2}
+        if hi:
+            body["deadline_ms"] = ARRIVAL_DEADLINE_MS
+        bodies.append(body)
+    return bodies
+
+
+def percentile(xs: list, q: float) -> "float | None":
+    import numpy as np
+
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def phase_arrivals(torch, server_mod, cfg, params, recovery: dict) -> dict:
+    """Latency under an arrival schedule (reported, not held to a limit):
+    the requests at once on the fifo server give the closed-loop request
+    rate at 8 slots; then Poisson arrivals at ARRIVAL_LOAD times that rate
+    (seeded), under --schedPolicy fifo and slo: TTFT p50/p99 per class,
+    the share of deadlines met, preemptions, re-prefill chunks per
+    preemption; beside them phase_supervisor's recovery seconds."""
+    import numpy as np
+
+    bodies = arrival_bodies(cfg)
+    out = {}
+    for run in ("closed_fifo", "open_fifo", "open_slo"):
+        policy = run.split("_")[1]
+        args, server, url = start_server(
+            server_mod, [*SUP_ARGS, "--schedPolicy", policy], params)
+        try:
+            if run == "closed_fifo":
+                offsets = [0.0] * len(bodies)
+            else:
+                rate = ARRIVAL_LOAD * out["closed_fifo"]["requests_per_s"]
+                offsets = np.cumsum(np.random.default_rng(SEED + 10)
+                                    .exponential(1 / rate, len(bodies)))
+            results = [None] * len(bodies)
+            t0 = time.perf_counter()
+
+            def worker(i):
+                time.sleep(max(0.0, t0 + offsets[i] - time.perf_counter()))
+                start = time.perf_counter()
+                res = _post(url, bodies[i])
+                results[i] = {**res, "latency": time.perf_counter() - start}
+
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(bodies))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            wall = time.perf_counter() - t0
+            if any(r is None or len(r["tokens"]) != b["max_new"]
+                   for r, b in zip(results, bodies)):
+                fail(f"arrivals {run}: a request failed or came back short")
+            _, health = get_health(url)
+            by_class = {}
+            for cls in (0, 2):
+                mine = [r for r, b in zip(results, bodies)
+                        if b["priority"] == cls]
+                ttft = [r["ttft"] for r in mine]
+                by_class[cls] = {"n": len(mine),
+                                 "ttft_s_p50": percentile(ttft, 50),
+                                 "ttft_s_p99": percentile(ttft, 99),
+                                 "latency_s_p50": percentile(
+                                     [r["latency"] for r in mine], 50)}
+            hi = [r for r, b in zip(results, bodies) if b["priority"] == 0]
+            met = sum(r["latency"] <= ARRIVAL_DEADLINE_MS / 1e3 for r in hi)
+            pre = health["sched"]["preemptions"]
+            out[run] = {"phase": 4, "run": f"arrivals_{run}", "policy": policy,
+                        "requests": len(bodies), "wall_s": wall,
+                        "requests_per_s": len(bodies) / wall,
+                        "offered_requests_per_s": (
+                            None if run == "closed_fifo"
+                            else len(bodies) / float(offsets[-1])),
+                        "ttft_by_priority": by_class,
+                        "deadlines_met_share": met / len(hi) if hi else None,
+                        "preemptions": pre,
+                        "prefill_chunks": health["prefill_chunks"],
+                        "decode_step_ms_mean": health["decode_step_ms_mean"],
+                        "tokens": [r["tokens"] for r in results]}
+        finally:
+            server.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+    slo, fifo = out["open_slo"], out["open_fifo"]
+    reprefill = slo["prefill_chunks"] - fifo["prefill_chunks"]
+    summary = {"phase": 4, "run": "arrivals",
+               "load": ARRIVAL_LOAD, "deadline_ms": ARRIVAL_DEADLINE_MS,
+               "reprefill_chunks_per_preemption": (
+                   reprefill / slo["preemptions"] if slo["preemptions"]
+                   else None),
+               "streams_equal_fifo_slo": sum(
+                   a == b for a, b in zip(slo["tokens"], fifo["tokens"])),
+               "recovery_s": recovery}
+    for run in out.values():
+        run.pop("tokens")
+        emit(run)
+    emit(summary)
+    return {**out, "summary": summary}
+
+
+# window_relief (phase_window's weights, Mistral-7B at W 4096, the pool of
+# WINDOW_POOL pages, 3 slots): Y a short prompt decoding long, X a long
+# prompt whose window recycling keeps about 66 pages live; H, priority 0,
+# arrives after RELIEF_AT steps and its reservation reads pool pressure
+RELIEF_Y, RELIEF_X, RELIEF_H = (300, 200), (6000, 64), (1000, 16)
+RELIEF_AT = 40
+
+
+def window_relief(torch, batching, cfg, params) -> dict:
+    """The slo scheduler's page-relief ranking on the card: a head that
+    waits on pages, not a slot, evicts the decode whose eviction returns
+    the most live pages (X), where the longest decode would be Y. The
+    head's wait is injected: the ``pool.alloc`` point fires on its first
+    reservation (one fire), as a real exhausted free list would read.
+    Every request then delivers its budget, and the pool drains."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    from k8s_gpu_device_plugin_torch.serving import faults, scheduler
+
+    plane = faults.FaultPlane.from_spec("pool.alloc:nth=1000000000")
+    point = plane.point("pool.alloc")
+    sched = scheduler.SloScheduler()
+    cb = batching.ContinuousBatcher(
+        params, cfg, n_slots=3, max_len=12288, chunked_prefill=256,
+        kv_layout="paged", kv_page_size=64, kv_pages=WINDOW_POOL,
+        scheduler=sched, faults=plane)
+    rng = np.random.default_rng(SEED + 11)
+    prompt = [rng.integers(0, cfg.vocab_size, n).tolist()
+              for n, _ in (RELIEF_Y, RELIEF_X, RELIEF_H)]
+    ry = cb.submit(prompt[0], RELIEF_Y[1], priority=2)
+    rx = cb.submit(prompt[1], RELIEF_X[1], priority=2)
+    for _ in range(RELIEF_AT):
+        cb.step()
+    running = {r.rid: s for s, r in cb.running.items()}
+    if set(running) != {rx, ry}:
+        fail(f"window_relief: {running} should be X and Y, both decoding")
+    point.nth = point.hits + 1  # the head's first reservation
+    rh = cb.submit(prompt[2], RELIEF_H[1], priority=0, deadline_ms=1)
+    cb.step()
+    head = cb.pending[0] if cb.pending else None
+    if head is None or head.rid != rh or not head.defer_counted:
+        fail("window_relief: the head's reservation did not wait on pages")
+    live = {rid: sum(1 for p in cb._slot_pages[s] if p)
+            for rid, s in running.items()}
+    outs = {rid: len(cb.running[s].out) for rid, s in running.items()}
+    cb.run()
+    done = cb.done_requests
+    if (done[rx].preemptions, done[ry].preemptions) != (1, 0) or \
+            sched.preemptions != 1:
+        fail(f"window_relief: preemptions X {done[rx].preemptions}, Y "
+             f"{done[ry].preemptions}: live pages {live}, tokens out {outs}")
+    if outs[ry] <= outs[rx] or live[rx] <= live[ry]:
+        fail(f"window_relief: the case must set the rules apart: pages "
+             f"{live}, tokens out {outs}")
+    for rid, (_, max_new) in zip((ry, rx, rh), (RELIEF_Y, RELIEF_X, RELIEF_H)):
+        if len(done[rid].out) != max_new:
+            fail(f"window_relief: request {rid} delivered "
+                 f"{len(done[rid].out)} of {max_new}")
+    while cb.prefix_cache is not None and cb.prefix_cache.evict_one():
+        pass
+    if cb.pool.in_use:
+        fail(f"window_relief: pages still in use: {cb.kv_stats()}")
+    cb.pool.check()
+    row = {"phase": 4, "run": "window_relief", "window": cfg.sliding_window,
+           "live_pages_at_preemption": {"X": live[rx], "Y": live[ry]},
+           "tokens_out_at_preemption": {"X": outs[rx], "Y": outs[ry]},
+           "victim": "X", "longest_decode": "Y",
+           "pool_pressure_deferrals": cb.kv_rejections()["pool_pressure"],
+           "pages_recycled_total": cb.kv_stats()["pages_recycled_total"],
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    del cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 # the windowed runs: Mistral-7B at its published widths and window, two
 # long prompts on two slots; the pool holds 179 allocatable pages of 64
 WINDOW_PROMPTS, WINDOW_MAX_NEW, WINDOW_POOL = (12000, 9000), 256, 180
@@ -2382,6 +3239,7 @@ def phase_window(torch, server_mod, kernel_support, rpa, batching,
             server.stop()
         gc.collect()
         torch.cuda.empty_cache()
+    out["window_relief"] = window_relief(torch, batching, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2830,6 +3688,7 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
         from k8s_gpu_device_plugin_torch.serving import prefix_cache as \
             prefix_cache_mod
+        from k8s_gpu_device_plugin_torch.serving import scheduler as sched_mod
         from k8s_gpu_device_plugin_torch.serving import server as server_mod
     except ImportError as e:
         fail(f"the port package is not next to this script: {e}")
@@ -2897,6 +3756,23 @@ def main() -> None:
                                    generate, cfg, params))
     gc.collect()
     torch.cuda.empty_cache()
+    # scheduling and failure: preemption at batcher level, the supervisor
+    # and the fault plane through the server, latency under arrivals
+    t_sched = [time.perf_counter()]
+    preempt = phase_preempt(torch, batching, sampling, sched_mod,
+                            prefix_cache_mod, kernel_support, rpa, generate,
+                            cfg, params)
+    t_sched.append(time.perf_counter())
+    supervised = phase_supervisor(torch, server_mod, batching, generate, cfg,
+                                  params)
+    t_sched.append(time.perf_counter())
+    arrivals = phase_arrivals(torch, server_mod, cfg, params, {
+        run: supervised[run]["recovery_s"]
+        for run in ("sup_crash_dense", "sup_crash_paged")})
+    t_sched.append(time.perf_counter())
+    emit({"phase": 4, "run": "sched_phases_wall_s", **{
+        name: b - a for name, a, b in zip(
+            ("preempt", "supervisor", "arrivals"), t_sched, t_sched[1:])}})
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -2969,7 +3845,8 @@ def main() -> None:
         sum(r["launches"] for r in routes.values())
         + sum(prefix[run]["launches"] for run in PREFIX_RUNS)
         + sum(window[run]["launches"] for run in WINDOW_RUNS)
-        + sum(spec[run]["launches"] for run in spec_runs),
+        + sum(spec[run]["launches"] for run in spec_runs)
+        + preempt["launches"],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -2989,6 +3866,13 @@ def main() -> None:
                                    "stale_entries": c.get("stale_entries")}
                        for c in cases if c["window"] == MISTRAL_WINDOW}},
          "cow_check": cow,
+         # preemption: the re-prefill counted as chunk launches, and the
+         # windowed page-relief victim
+         "preempt": {k: preempt[k] for k in
+                     ("runs", "reprefill_chunks", "victim_divergences",
+                      "f32_logprob_max_err")},
+         "window_relief": window["window_relief"],
+         "arrivals": arrivals["summary"],
          # the speculative runs' verify windows (T 4, the chunk engine)
          # and draft decodes (split), and phase 2's verify cases
          "verify": {

@@ -41,9 +41,24 @@ off; so are unseeded ones as long as no admission waits on a retirement
 (the pipeline sees a retirement one step later, so such an admission,
 and the shared generator's draws behind it, come one step later).
 
+Scheduling and failure (the reference's seams, duck-typed: this module
+imports nothing of ``serving/``): a ``scheduler``
+(``serving/scheduler.py``) orders the queue once per admission pass,
+expires over-budget deferrals and may name one running slot to preempt.
+The victim's emitted tokens fold into its prompt (``prefilled_out``) and
+it requeues; its re-prefill recomputes their K/V through the chunk route
+(the prefix cache serves the boundaries its first prefill promoted), and
+the finish chunk samples emission, and seeded draw, ``prefilled_out``:
+greedy and seeded streams continue token for token. ``submit`` applies
+the same fold to ``resume_out``, tokens another incarnation emitted. A
+``faults`` plane (``serving/faults.py``) arms the seams ``pool.alloc``
+(read as pool pressure: the admission or the chunk defers),
+``prefill.dispatch``, ``decode.apply`` and ``prefix.promote`` (raise on
+the engine thread, for the supervisor to recover).
+
 Constructor and ``submit`` arguments the reference has and the port does
-not serve yet (adapters, scheduler, tensor parallelism, fault injection,
-KV page export and install, ...) are refused when set, never ignored.
+not serve yet (adapters, tensor parallelism, metrics, KV page install,
+...) are refused when set, never ignored.
 
 The speculative batcher (``models/spec_batching.py``) is a subclass that
 overrides the reference's seams: the prefill's chunk and finish
@@ -96,20 +111,13 @@ _UNSERVED_INIT = {
     "lora_slots": None,
     "adapter_cache_mb": 0,
     "trace_steps": False,
-    "scheduler": None,
     "tp": None,
     "attribution": None,
     "mfu": None,
-    "faults": None,
     "devices": None,
 }
 _UNSERVED_SUBMIT = {
     "adapter": -1,
-    "tenant": "default",
-    "priority": 1,
-    "deadline_ms": None,
-    "resume_out": None,
-    "resume_logp": None,
     "kv_pages": None,
 }
 
@@ -331,14 +339,16 @@ def _slot_cache(state: BatchState, slot: int, cfg: LlamaConfig) -> dict:
 
 
 def _activate(state: BatchState, slot: int, tok: torch.Tensor,
-              seen: torch.Tensor, prompt_len: int, max_new: int) -> None:
-    """A slot's first token is sampled (draw 0): it joins the decode."""
+              seen: torch.Tensor, prompt_len: int, max_new: int,
+              draw0: int = 0) -> None:
+    """A slot's first token of this admission is sampled (draw ``draw0``,
+    with ``max_new`` tokens still to emit): it joins the decode."""
     state.lengths[slot] = prompt_len
     state.last_token[slot] = tok[0]
     state.active[slot] = True
     state.presence[slot] = seen[0]
     state.budget[slot] = max_new - 1
-    state.draws[slot] = 1
+    state.draws[slot] = draw0 + 1
 
 
 def _insert_rows(state: BatchState, rows: KVCache, slot: int,
@@ -412,10 +422,15 @@ def prefill_finish(
     prompt_len: int, slot: int, cfg: LlamaConfig, knobs: torch.Tensor,
     max_new: int, generator: torch.Generator,
     bias: "torch.Tensor | None" = None, seeds: "torch.Tensor | None" = None,
+    draw0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Final chunk: run it, sample the first generated token with the
-    slot's ``bias`` (1, V) and ``seeds`` (1,) at draw 0, activate the
-    slot. Returns (token (1,) int64, its logprob (1,) f32) on the device.
+    slot's ``bias`` (1, V) and ``seeds`` (1,) at draw ``draw0``, activate
+    the slot. Returns (token (1,) int64, its logprob (1,) f32) on the
+    device. A resumed request (its emitted tokens folded into the
+    prompt) passes ``draw0`` = the tokens it emitted and ``max_new`` =
+    what is left of its budget: the token is the emission, and the
+    seeded draw, an uninterrupted run would have made next.
 
     The host schedules it at ``prompt_len - C`` for prompts of at least
     C tokens (all real; rows an earlier chunk wrote are recomputed to
@@ -433,10 +448,12 @@ def prefill_finish(
             else state.presence[slot].clone())
     real = chunk[: min(c, prompt_len - chunk_start)].long()
     seen[real] = True
+    draws = (torch.full((1,), draw0, dtype=torch.int32, device=chunk.device)
+             if draw0 else None)
     tok, seen = sample_and_mark_dyn(logits, knobs[None, :], seen[None, :],
-                                    generator, bias, seeds)
+                                    generator, bias, seeds, draws)
     logp = token_logprob(logits, tok)
-    _activate(state, slot, tok, seen, prompt_len, max_new)
+    _activate(state, slot, tok, seen, prompt_len, max_new, draw0)
     return tok, logp
 
 
@@ -477,6 +494,24 @@ class _Request:
     seed: "int | None" = None
     t_submit: float = 0.0
     t_first_tok: float = 0.0
+    t_done: float = 0.0
+    # SLO identity (serving/scheduler.py): tenant and priority class
+    # (lower = more urgent); ``deadline`` is an absolute perf_counter
+    # instant (None = no deadline)
+    tenant: str = "default"
+    priority: int = 1
+    deadline: "float | None" = None
+    # the preemption fold: ``prefilled_out`` emitted tokens sit in
+    # ``prompt`` (their K/V is recomputed by the re-prefill), so the
+    # finish chunk samples emission and seeded draw ``prefilled_out``
+    prefilled_out: int = 0
+    preemptions: int = 0
+    # engine restarts this request lived through mid-flight (the
+    # supervisor's resume): the scheduler does not charge it again
+    restarts: int = 0
+    # set when the scheduler rejects it while queued (defer budget): the
+    # HTTP plane answers 429
+    reject_reason: "str | None" = None
     # rows already prefilled once: a manual prefix or an automatic
     # prefix-cache hit; ``cached_tokens`` is the prefill work it skips
     # (effective_prefix_reuse), answered as the body's cached_tokens
@@ -495,6 +530,23 @@ class _Request:
     # row; ``defer_counted`` counts one pool-pressure spell once
     new_pages: "list[int] | None" = None
     defer_counted: bool = False
+
+    def fold(self) -> None:
+        """The preemption fold, for a request leaving its slot to resume
+        later (a preemption, or an engine restart): its emitted tokens
+        join the prompt, so the resumed admission re-prefills them and
+        its finish chunk samples emission ``prefilled_out``; it is matched
+        against the prefix cache again (the longer prompt may hit a
+        deeper boundary) and holds no slot, pins or pages."""
+        self.prompt = list(self.prompt) + self.out[self.prefilled_out:]
+        self.prefilled_out = len(self.out)
+        self.slot = -1
+        self.matched = False
+        self.prefix = None
+        self.match_depth = None
+        self.pinned_pages = None
+        self.new_pages = None
+        self.defer_counted = False
 
 
 @dataclass
@@ -555,6 +607,15 @@ class ContinuousBatcher:
     per_request_bias = True
     #: per-request sampling seeds (the same)
     per_request_seed = True
+    #: the automatic prefix cache (the speculative batcher serves it too:
+    #: the target aliases the cached rows, the draft re-prefills them)
+    supports_prefix_cache = True
+    #: the paged KV layout (the speculative batcher pages both caches)
+    supports_paged_kv = True
+    #: the slo scheduler may evict a decoding slot and resume it by
+    #: re-prefill (chunked prefill only); the speculative batcher turns
+    #: this off: its draft cache has no resume path
+    supports_preemption = True
 
     def __init__(
         self,
@@ -575,9 +636,31 @@ class ContinuousBatcher:
         prefix_cache=None,  # serving.prefix_cache.PrefixCache (or None)
         prefill_reserve_chunks: int = 2,  # windowed admission: chunks of
         #   prompt the first page tranche covers
+        scheduler=None,  # serving.scheduler.Scheduler (None = FIFO)
+        faults=None,     # serving.faults.FaultPlane (None = disarmed)
         **unserved,
     ):
         _refuse("ContinuousBatcher", unserved, _UNSERVED_INIT)
+        # the admission policy, duck-typed: None keeps the FIFO admission
+        # with no added call; the fifo Scheduler never reorders nor
+        # preempts but keeps the SLO ledgers
+        if scheduler is not None and getattr(scheduler, "preempt_enabled",
+                                             False) \
+                and not self.supports_preemption:
+            raise ValueError(
+                "this batcher does not support preemption (no resume path "
+                "for its device state); use the slo scheduler with "
+                "preempt=False or the fifo policy")
+        self.scheduler = scheduler
+        # each fault seam resolves its point once: None when disarmed, so
+        # a seam costs one compare. ``_fault_error`` is the injected
+        # exception's type, handed over the same duck-typed seam
+        point = faults.point if faults is not None else (lambda name: None)
+        self._flt_pool_alloc = point("pool.alloc")
+        self._flt_prefill = point("prefill.dispatch")
+        self._flt_decode = point("decode.apply")
+        self._flt_promote = point("prefix.promote")
+        self._fault_error = getattr(faults, "error", None)
         # the layout rides in the config, which every step function reads
         if kv_layout is not None or kv_page_size is not None:
             cfg = replace(
@@ -589,6 +672,10 @@ class ContinuousBatcher:
         check_cache_quant_kv_layout(cfg)
         paged = cfg.kv_layout == "paged"
         if paged:
+            if not self.supports_paged_kv:
+                raise ValueError(
+                    "this batcher does not support kv_layout='paged' (no "
+                    "page tables to route its cache writes through)")
             if max_len % cfg.kv_page_size:
                 raise ValueError(
                     f"kv_page_size={cfg.kv_page_size} must divide "
@@ -743,6 +830,19 @@ class ContinuousBatcher:
         if self._graph_wanted:
             self._capture_graph()
 
+    def release_device_state(self) -> None:
+        """Drop this batcher's device state (the KV cache and batch
+        tensors, the captured decode graph and its pool, the per-slot
+        inputs, the step in flight) so that a successor can allocate
+        its own: the supervisor's rebuild after a crash. The host
+        ledgers stay readable (``kv_stats``, ``decode_stats``); the
+        batcher takes no further step."""
+        self.graph = None
+        self.state = None
+        self._inflight = None
+        self._landing = None
+        self._allowed = self._knobs = self._bias = self._eos = None
+
     def _capture_graph(self) -> None:
         """Capture :meth:`_eager_step` as the decode graph. Called while
         no slot is allowed: the warm-up steps compute and discard,
@@ -758,6 +858,9 @@ class ContinuousBatcher:
         another ladder, or paged entries (their page ids belong to the
         pool of the batcher that promoted them), or entries of the other
         layout, is refused."""
+        if not self.supports_prefix_cache:
+            raise ValueError(
+                "this batcher does not support an automatic prefix cache")
         if not self.chunk:
             raise ValueError(
                 "automatic prefix caching requires chunked_prefill=C (the "
@@ -885,6 +988,69 @@ class ContinuousBatcher:
             raise ValueError(f"seed must be in [0, 2^31), got {seed}")
         return seed
 
+    @staticmethod
+    def validate_sched(tenant, priority, deadline_ms) -> tuple:
+        """The scheduling half of the admission rule, shared by
+        ``submit``, the serving engine's request thread and the HTTP
+        parser. Returns the normalized (tenant, priority, deadline_ms);
+        ``deadline_ms`` None or 0 means no deadline."""
+        if tenant is None or tenant == "":
+            tenant = "default"
+        if not isinstance(tenant, str) or len(tenant) > 64:
+            raise ValueError(
+                "tenant must be a string of at most 64 characters")
+        if not tenant.isprintable():
+            raise ValueError("tenant must contain printable characters only")
+        priority = 1 if priority is None else int(priority)
+        if not 0 <= priority <= 9:
+            raise ValueError(
+                f"priority must be in [0, 9] (lower = more urgent), "
+                f"got {priority}")
+        if deadline_ms is not None:
+            deadline_ms = int(deadline_ms)
+            if deadline_ms < 0:
+                raise ValueError(
+                    f"deadline_ms must be >= 0 (0 = none), got {deadline_ms}")
+            if deadline_ms == 0:
+                deadline_ms = None
+        return tenant, priority, deadline_ms
+
+    def validate_resume(self, resume_out, resume_logp, max_new: int,
+                        prefix=None) -> "tuple[list[int], list[float]]":
+        """The resume half of the admission rule (shared with the serving
+        engine's request thread): the tokens, and logprobs, another
+        incarnation already emitted. Returns ``([], [])`` when no resume
+        was asked for; logprobs the caller never saw are zeros (indices
+        below ``prefilled_out`` are never published again)."""
+        toks = list(resume_out or ())
+        if not toks:
+            if resume_logp:
+                raise ValueError(
+                    "resume_logprobs without resume_out makes no sense")
+            return [], []
+        if not self.chunk:
+            raise ValueError(
+                "stream resume requires chunked_prefill=C (the chunk "
+                "scheduler is what re-prefills the folded output)")
+        if prefix is not None:
+            raise ValueError(
+                "resume_out composes with the AUTOMATIC prefix cache "
+                "(re-matched over the folded prompt), not with a manual "
+                "prefix")
+        if not all(isinstance(t, int) and not isinstance(t, bool)
+                   for t in toks):
+            raise ValueError("resume_out must be a list of token ids")
+        if len(toks) >= max_new:
+            raise ValueError(
+                f"resume_out carries {len(toks)} tokens but max_new is "
+                f"{max_new}: nothing left to resume")
+        lps = [float(x) for x in (resume_logp or ())]
+        if lps and len(lps) != len(toks):
+            raise ValueError(
+                f"resume_logprobs length {len(lps)} != resume_out length "
+                f"{len(toks)}")
+        return toks, lps or [0.0] * len(toks)
+
     def submit(
         self,
         prompt: list[int],
@@ -894,6 +1060,11 @@ class ContinuousBatcher:
         seed: "int | None" = None,
         logit_bias=None,
         prefix: "PrefixState | None" = None,
+        tenant: str = "default",
+        priority: int = 1,
+        deadline_ms: "int | None" = None,
+        resume_out: "list[int] | None" = None,
+        resume_logp: "list[float] | None" = None,
         **unserved,
     ) -> int:
         """Queue a request; returns its id. ``prefix``
@@ -901,7 +1072,16 @@ class ContinuousBatcher:
         its rows are copied into the slot at admission and only
         ``prompt`` (the suffix) runs through prefill (chunked prefill
         only). With a ``prefix_cache`` attached, a request naming no
-        prefix is matched against the cache at admission instead."""
+        prefix is matched against the cache at admission instead.
+
+        ``tenant``, ``priority`` and ``deadline_ms`` are the request's SLO
+        identity (the deadline anchors at this call). ``resume_out``
+        (and ``resume_logp``) resume a stream another incarnation
+        started: the preemption fold at the submit edge, so the finish
+        chunk samples emission and seeded draw ``len(resume_out)``
+        against the budget left, and stop sequences match across the
+        boundary. A scheduler's admission control runs last and may
+        raise its overload error, leaving the batcher untouched."""
         _refuse("submit", unserved, _UNSERVED_SUBMIT)
         if prefix is not None:
             if not self.chunk:
@@ -919,24 +1099,47 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"prefix was prefilled with adapter {prefix.adapter}, "
                     "request uses -1")
+        resume_out, resume_logp = self.validate_resume(
+            resume_out, resume_logp, max_new, prefix=prefix)
         prompt = self.validate_prompt(prompt)
-        full = (list(prefix.tokens) if prefix is not None else []) + prompt
-        self.validate(len(full), max_new)
+        if resume_out:
+            self.validate_prompt(resume_out)
+        # the fold: emitted tokens become prompt rows
+        full = ((list(prefix.tokens) if prefix is not None else []) + prompt
+                + resume_out)
+        # the folded tokens sit in the prompt AND count against max_new:
+        # the remaining budget keeps the row total the original worst case
+        self.validate(len(full), max_new - len(resume_out))
         bias = self.validate_bias(logit_bias)
         seed = self.validate_seed(seed)
+        tenant, priority, deadline_ms = self.validate_sched(
+            tenant, priority, deadline_ms)
         rid = self._next_rid
         self._next_rid += 1
-        self.pending.append(_Request(
+        now = time.perf_counter()
+        req = _Request(
             rid, full, int(max_new),
             stop=tuple(tuple(int(t) for t in s) for s in (stop or ()) if s),
-            sampler=sampler, bias=bias, seed=seed,
-            t_submit=time.perf_counter(), prefix=prefix,
+            sampler=sampler, bias=bias, seed=seed, t_submit=now,
+            prefix=prefix, tenant=tenant, priority=priority,
+            deadline=now + deadline_ms / 1000.0 if deadline_ms else None,
             # a manual prefix reports its effective reuse too (automatic
             # hits are set at admission)
             cached_tokens=(effective_prefix_reuse(
                 len(prefix.tokens), len(full), self.chunk)
                 if prefix is not None else 0),
-        ))
+        )
+        if resume_out:
+            # the shape _preempt_slot leaves behind: out holds every
+            # emitted token, the prompt holds them too
+            req.out = list(resume_out)
+            req.out_logp = list(resume_logp)
+            req.prefilled_out = len(resume_out)
+        if self.scheduler is not None:
+            # admission control (queue cap, quota charge) before the
+            # request queues: a raise leaves the batcher untouched
+            self.scheduler.on_submit(req, self)
+        self.pending.append(req)
         return rid
 
     # --- the decode step's per-slot inputs ---
@@ -1011,7 +1214,8 @@ class ContinuousBatcher:
         """A windowed request's admission tranche: rows through the first
         ``reserve_chunks`` chunks past the prefix match (growth backs the
         rest chunk by chunk). A short request is covered whole."""
-        total = self._kv_need_tokens(len(req.prompt), req.max_new)
+        total = self._kv_need_tokens(len(req.prompt),
+                                     req.max_new - req.prefilled_out)
         start = len(req.prefix.tokens) if req.prefix is not None else 0
         return min(total, start + self.reserve_chunks * self.chunk)
 
@@ -1026,9 +1230,10 @@ class ContinuousBatcher:
             return 0
         out = 0
         for slot, req in self.prefilling.items():
+            rem = req.max_new - req.prefilled_out
             peak = self.pool.pages_for_tokens(min(
-                self._kv_need_tokens(len(req.prompt), req.max_new),
-                self._windowed_peak_tokens(req.max_new)))
+                self._kv_need_tokens(len(req.prompt), rem),
+                self._windowed_peak_tokens(rem)))
             backed = sum(1 for p in (self._slot_pages.get(slot) or []) if p)
             out += max(0, peak - backed)
         return out
@@ -1040,9 +1245,21 @@ class ContinuousBatcher:
         free list. False defers: the request keeps the head of the queue
         and pages free as slots retire. One spell of waiting counts
         once."""
+        if self._flt_pool_alloc is not None:
+            try:
+                self._flt_pool_alloc.fire()
+            except self._fault_error:
+                # injected transient pool pressure: the request defers as
+                # under a real exhausted free list and retries next step
+                if not req.defer_counted:
+                    req.defer_counted = True
+                    self._count_kv_rejection("pool_pressure")
+                return False
         ps = self.pool.page_size
-        total = self.pool.pages_for_tokens(
-            self._kv_need_tokens(len(req.prompt), req.max_new))
+        # a resumed request's prompt holds its emitted tokens already:
+        # only the budget left adds rows (the original worst case)
+        total = self.pool.pages_for_tokens(self._kv_need_tokens(
+            len(req.prompt), req.max_new - req.prefilled_out))
         if self._incremental_reserve:
             # windowed streaming prefill: only the admission tranche; the
             # chunks grow the rest and recycling keeps the row O(window)
@@ -1165,6 +1382,13 @@ class ContinuousBatcher:
         grow = self.pool.pages_for_tokens(upto_tokens) - len(ids)
         if grow <= 0:
             return True
+        if self._flt_pool_alloc is not None:
+            try:
+                self._flt_pool_alloc.fire()
+            except self._fault_error:
+                # injected pool pressure mid-prompt: the chunk defers
+                self.chunks_deferred += 1
+                return False
         if grow > self.pool.free_pages and self.prefix_cache is not None:
             # the admission's pressure valve, mid-prompt
             while grow > self.pool.free_pages and self.prefix_cache.evict_one():
@@ -1257,7 +1481,7 @@ class ContinuousBatcher:
         if self.pool is None:
             return {"layout": "dense", **windowed,
                     "reserved_bytes": self.n_slots * self.max_len * tb}
-        live = sum(len(r.prompt) + len(r.out)
+        live = sum(len(r.prompt) + len(r.out) - r.prefilled_out
                    for r in list(self.running.values()))
         live += sum(self._prefill_pos.get(s, 0) for s in list(self.prefilling))
         pool = self.pool
@@ -1291,7 +1515,24 @@ class ContinuousBatcher:
 
     # --- admission and prefill ---
 
-    def _admit(self) -> None:
+    def _admit(self) -> int:
+        """Admit what fits. Returns the tokens a preemption's flush of the
+        step in flight read back (0 otherwise)."""
+        n = 0
+        if self.scheduler is not None and (self.pending or self.running):
+            # one scheduling pass per admission pass: the policy reorders
+            # ``pending`` in place (its head is the next admission),
+            # expires over-budget deferrals and may name one running slot
+            # to preempt for the head
+            now = time.perf_counter()
+            rejects, victim = self.scheduler.plan(self, now)
+            for req in rejects:
+                self.pending.remove(req)
+                self._release_pinned(req)  # a paged hit's match-time pins
+                req.reject_reason = "pool_pressure"
+                self._retire_rejected(req, now)
+            if victim is not None:
+                n = self._preempt_slot(victim)
         free = [s for s in range(self.n_slots)
                 if s not in self.running and s not in self.prefilling]
         while free and self.pending:
@@ -1322,6 +1563,10 @@ class ContinuousBatcher:
                 break  # head-of-line wait: pages free as slots retire
             self.pending.pop(0)
             req.slot = slot = free.pop(0)
+            if self.scheduler is not None:
+                # the commit point: queue wait and the WFQ charge land
+                # here, past every cancellable wait
+                self.scheduler.on_admitted(req, self, time.perf_counter())
             if req.matched:
                 self.prefix_cache.record_match(req.match_depth,
                                                len(req.prompt))
@@ -1358,6 +1603,7 @@ class ContinuousBatcher:
             self._count_prefill_tokens(plen, "computed")
             self._first_token(req, slot, tok, logp, t0)
             self._finish_if_done(req)
+        return n
 
     def _count_prefill_tokens(self, n: int, source: str) -> None:
         """Prefill work by provenance: ``computed`` tokens ran through
@@ -1397,7 +1643,9 @@ class ContinuousBatcher:
         self._wait_prefill(self._done_event(), t0)
         req.out.append(int(tok[0]))
         req.out_logp.append(float(logp[0]))
-        req.t_first_tok = time.perf_counter()
+        if not req.t_first_tok:
+            # a resumed admission's token is an emission, not a first one
+            req.t_first_tok = time.perf_counter()
         self.running[slot] = req
         self._slots_dirty = True
 
@@ -1406,6 +1654,8 @@ class ContinuousBatcher:
         final chunk, sample the first token and move it to running."""
         if not self.prefilling:
             return
+        if self._flt_prefill is not None:
+            self._flt_prefill.fire()  # an injected crash mid-prefill
         slot = next(iter(self.prefilling))
         req = self.prefilling[slot]
         start = self._prefill_pos[slot]
@@ -1416,7 +1666,8 @@ class ContinuousBatcher:
             # chunk writes, and the decode span on the finish chunk,
             # before the dispatch. Pool pressure defers the chunk, never
             # the request. A fully reserved row is backed already
-            upto = start + c if start + c < plen else plen + req.max_new
+            upto = (start + c if start + c < plen
+                    else plen + req.max_new - req.prefilled_out)
             if not self._grow_slot_pages(slot, req, upto):
                 return
         t0 = time.perf_counter()
@@ -1463,15 +1714,16 @@ class ContinuousBatcher:
     def _apply_prefill_finish(self, chunk: torch.Tensor, fstart: int,
                               plen: int, slot: int,
                               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The finish chunk of ``slot``'s prompt: samples the first token
-        with the slot's knobs, bias row and seed. Returns (token, logprob)
-        on the device."""
+        """The finish chunk of ``slot``'s prompt: samples the admission's
+        first token with the slot's knobs, bias row and seed (a resumed
+        request's emission and draw ``prefilled_out``, against the budget
+        left). Returns (token, logprob) on the device."""
         req = self.prefilling[slot]
         return prefill_finish(
             self.params, self.state, chunk, fstart, plen, slot, self.cfg,
-            self._req_knobs(req), req.max_new, self.generator,
-            bias=self._bias[slot:slot + 1],
-            seeds=self.state.seeds[slot:slot + 1],
+            self._req_knobs(req), req.max_new - req.prefilled_out,
+            self.generator, bias=self._bias[slot:slot + 1],
+            seeds=self.state.seeds[slot:slot + 1], draw0=req.prefilled_out,
         )
 
     def _maybe_promote_prefix(self, req: _Request) -> None:
@@ -1483,6 +1735,8 @@ class ContinuousBatcher:
         the boundary's rows (:func:`extract_prefix_rows`)."""
         if self.prefix_cache is None:
             return
+        if self._flt_promote is not None:
+            self._flt_promote.fire()  # an injected crash at promotion
         if self.pool is not None:
             slot_pages = self._slot_pages[req.slot]
             if any(p == 0 for p in slot_pages):
@@ -1536,6 +1790,10 @@ class ContinuousBatcher:
     def _apply_decode_result(self, arrs: tuple) -> int:
         """The host half: the step's results (on the host already) ->
         the per-token work. Returns the tokens emitted."""
+        if self._flt_decode is not None:
+            # before the readback: an injected mid-decode crash loses only
+            # device work that never reached ``req.out``
+            self._flt_decode.fire()
         emitted, logps = (x.tolist() for x in arrs)
         return self._apply_emitted(emitted, logps)
 
@@ -1619,7 +1877,8 @@ class ContinuousBatcher:
                 # row advances, so its footprint stays O(window); a slot
                 # just retired is a no-op (its ledger is gone)
                 self._recycle_slot_pages(
-                    slot, len(req.prompt) + len(req.out) - 1)
+                    slot,
+                    len(req.prompt) + len(req.out) - req.prefilled_out - 1)
         self.decode_tokens += n
         return n
 
@@ -1632,14 +1891,64 @@ class ContinuousBatcher:
             for st in req.stop
         )
         if hit_eos or hit_stop or len(req.out) >= req.max_new:
-            self._retire(req)
+            self._retire(req, "eos" if hit_eos else
+                         "stop" if hit_stop else "budget")
 
-    def _retire(self, req: _Request) -> None:
+    def _retire(self, req: _Request, reason: str) -> None:
         self.done[req.rid] = req.out
         self.done_requests[req.rid] = req
+        req.t_done = time.perf_counter()
         if self.running.get(req.slot) is req:
             del self.running[req.slot]
             self._close_slot(req, req.slot)
+        if self.scheduler is not None:
+            # the deadline disposition (goodput or a miss) commits here;
+            # a cancel while queued refunds the quota charge
+            self.scheduler.on_retired(req, self, reason, req.t_done)
+
+    def _retire_rejected(self, req: _Request, now: float) -> None:
+        """The scheduler expired this queued request (its pool-pressure
+        deferral outlived the budget): it retires with nothing, and the
+        HTTP plane answers 429 off ``reject_reason``."""
+        self.done[req.rid] = req.out
+        self.done_requests[req.rid] = req
+        req.t_done = now
+        self.scheduler.on_retired(req, self, "rejected", now)
+
+    def _preempt_slot(self, slot: int) -> int:
+        """Evict the decoding request in ``slot`` and requeue it for a
+        later resume: its emitted tokens fold into its prompt, so the
+        resumed admission chunk-prefills them like any prompt (the prefix
+        cache serves the boundaries its first prefill promoted) and the
+        finish chunk samples emission and seeded draw ``prefilled_out``.
+
+        A step in flight that counted the slot live is read first: its
+        token for the victim is a real emission (the fold takes it), and
+        no stale token can reach the slot's next occupant. If that read
+        retired a request, its slot serves the queue head, as the
+        synchronous loop (which read the step a pass earlier) would have,
+        and nothing is preempted. Returns the tokens the read applied.
+
+        The victim requeues behind the head it was evicted for. (The
+        reference requeues it at the head, where the same admission pass
+        gives it the freed slot back; the next ``plan`` re-sorts either
+        way.)"""
+        n = 0
+        inflight = self._inflight
+        if inflight is not None and slot in inflight.slots:
+            busy = len(self.running) + len(self.prefilling)
+            n = self._flush_inflight()
+            if (slot not in self.running
+                    or len(self.running) + len(self.prefilling) < busy):
+                return n
+        req = self.running.pop(slot)
+        self._close_slot(req, slot)
+        req.fold()
+        req.preemptions += 1
+        if self.scheduler is not None:
+            self.scheduler.on_preempted(req, self, time.perf_counter())
+        self.pending.insert(1 if self.pending else 0, req)
+        return n
 
     def cancel(self, rid: int) -> bool:
         """Retire ``rid`` wherever it lives (pending, mid-prefill or
@@ -1650,7 +1959,7 @@ class ContinuousBatcher:
             if req.rid == rid:
                 self.pending.pop(i)
                 self._release_pinned(req)  # a paged hit's match-time pins
-                self._retire(req)
+                self._retire(req, "cancelled")
                 return True
         for mapping in (self.prefilling, self.running):
             for slot, req in list(mapping.items()):
@@ -1658,7 +1967,7 @@ class ContinuousBatcher:
                     del mapping[slot]
                     self._prefill_pos.pop(slot, None)
                     self._close_slot(req, slot)
-                    self._retire(req)
+                    self._retire(req, "cancelled")
                     return True
         return False
 
@@ -1681,7 +1990,7 @@ class ContinuousBatcher:
                 self.pending or self.prefilling or not self.running) and any(
                 s not in self.running for s in inflight.slots):
             n += self._flush_inflight()
-        self._admit()
+        n += self._admit()
         self._prefill_one_chunk()
         if not self.running:
             return n

@@ -205,6 +205,10 @@ class SpeculativeBatcher(ContinuousBatcher):
     per_request_sampler = False
     per_request_bias = False  # the round threads no bias planes
     per_request_seed = False  # nor per-row counter noise
+    #: no preemption: resuming a slot would have to rebuild the draft's
+    #: cache too, and the round has no per-request draw index; a
+    #: scheduler that preempts is refused at construction
+    supports_preemption = False
 
     def __init__(
         self,
@@ -315,6 +319,10 @@ class SpeculativeBatcher(ContinuousBatcher):
         if self._graph_wanted:
             self._capture_graph()
 
+    def release_device_state(self) -> None:
+        super().release_device_state()
+        self.draft_state = None
+
     def _capture_graph(self) -> None:
         if self.draft_state is None:
             return  # the base constructor: the draft is not built yet
@@ -347,7 +355,7 @@ class SpeculativeBatcher(ContinuousBatcher):
                 )
 
     def validate_resume(self, resume_out, resume_logp, max_new,
-                        prefix=None) -> None:
+                        prefix=None) -> "tuple[list, list]":
         """No resume path: the draft cache cannot be rebuilt from emitted
         tokens, and rounds share one sampler with no per-request draw
         index."""
@@ -356,6 +364,7 @@ class SpeculativeBatcher(ContinuousBatcher):
                 "stream resume (resume_out) is not supported with "
                 "speculative batching"
             )
+        return [], []
 
     def submit(self, prompt, max_new, stop=None, sampler=None, seed=None,
                logit_bias=None, prefix=None, **unserved) -> int:

@@ -12,20 +12,28 @@ Wire contract (the reference's):
 - ``POST /v1/generate`` ``{"prompt": [ids...], "max_new": N, "stream":
   false, "logprobs": false, "stop": [[ids...], ...], "temperature",
   "top_k", "top_p", "repetition_penalty", "seed", "logit_bias":
-  {"token_id": bias, ...}}`` ->
+  {"token_id": bias, ...}, "tenant", "priority" (0-9, lower = more
+  urgent), "deadline_ms", "resume_out": [ids...], "resume_logprobs":
+  [...]}`` ->
   ``{"id", "tokens", "cached_tokens"[, "logprobs"]}``, or with
   ``"stream": true`` a ``text/event-stream`` of ``data: {"token": t[,
   "logprob": lp]}`` frames closing with ``data: {"done": true}``.
   ``cached_tokens`` counts the prompt tokens the prefix cache served
   (the prefill work a hit skipped; 0 on a miss); the SSE done event
-  carries it only when it is > 0, as the reference's does. A field the
-  port does
-  not implement yet (``n`` other than 1, ``adapter``, ``text``,
-  ``stop_text``, the scheduling and resume fields, ...) answers 400
-  naming it, as does a ``logit_bias`` that is not an object of integer
-  keys and numbers; a request no slot can hold, a bias outside the
-  batcher's bounds, or (with ``--chunkedPrefill 0``) a prompt longer than
-  the largest bucket answers 422.
+  carries it only when it is > 0, as the reference's does.
+  ``resume_out`` continues a stream another replica started: the
+  tokens fold into the prompt and the answer carries only the
+  continuation. A field the port does not implement yet (``n`` other
+  than 1, ``adapter``, ``text``, ``stop_text``, ``kv_pages``, ...)
+  answers 400 naming it, as does a ``logit_bias`` that is not an object
+  of integer keys and numbers, or a malformed scheduling or resume
+  field; a request no slot can hold, a bias outside the batcher's
+  bounds, or (with ``--chunkedPrefill 0``) a prompt longer than the
+  largest bucket answers 422. A full queue (``--maxQueue``), or a
+  request whose pool-pressure wait outlived ``--deferBudgetMs``, answers
+  429 with a ``Retry-After`` header; a stream the engine could not
+  finish ends with an ``{"error": {"code", "message"}}`` event (503 when
+  not streamed).
 - ``GET /v1/health`` -> slots, active, prefilling, queued, alive, the
   prefix cache's counters (``prefix_cache``, the reference's keys, when
   the cache is on), the attention backend plan (``decode_attn``), the KV
@@ -36,8 +44,10 @@ Wire contract (the reference's):
   (``weights``: their quantization and resident bytes), the device,
   decode-step and prefill counts, how the decode step runs (``decode``:
   the pipeline depth and flushes, and on a card the captured CUDA
-  graph's pool bytes, replays and launches a replay makes) and the
-  kernels' launch counts.
+  graph's pool bytes, replays and launches a replay makes), the
+  kernels' launch counts, the scheduler's snapshot (``sched``) and the
+  supervisor's (``supervisor``: state, restart budget, crashes,
+  restarts, requests replayed and resumed).
 
 Run: ``python -m k8s_gpu_device_plugin_torch.serving.server --preset
 llama3_8b --port 8731`` (random weights drawn on the card from
@@ -64,6 +74,15 @@ and chunked prefill a windowed request reserves pages for its first
 ``--prefillReserveChunks`` (2) chunks, grows chunk by chunk, and gives
 back the pages that leave its window, so a prompt far longer than the
 pool's worst-case wall is served.
+
+Scheduling and failure: ``--schedPolicy slo`` orders the queue by
+priority class, tenant fairness (``--tenantQuota``) and deadline, and
+preempts a lower-class decode for a request about to miss its deadline
+(the victim resumes by re-prefill, token for token); ``--maxQueue`` and
+``--deferBudgetMs`` bound the wait. The engine recovers a crash on its
+thread in place (``--restartBudget`` per ``--restartWindowS``): a fresh
+batcher, the queue replayed, every stream resumed. ``--faults`` arms the
+seeded fault plane (``serving/faults.py``) that rehearses it.
 
 Speculative decoding (``models/spec_batching.py``): ``--draftPreset P``
 serves through a ``SpeculativeBatcher`` whose draft model is preset P,
@@ -108,7 +127,16 @@ from k8s_gpu_device_plugin_torch.models.quantized_serving import (
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
 from k8s_gpu_device_plugin_torch.models.spec_batching import SpeculativeBatcher
 from k8s_gpu_device_plugin_torch.ops.kernel_support import launch_counts
+from k8s_gpu_device_plugin_torch.serving.faults import FaultError, FaultPlane
 from k8s_gpu_device_plugin_torch.serving.prefix_cache import PrefixCache
+from k8s_gpu_device_plugin_torch.serving.scheduler import (
+    SchedulerOverloadError,
+    make_scheduler,
+)
+from k8s_gpu_device_plugin_torch.serving.supervisor import (
+    EngineSupervisor,
+    StreamError,
+)
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
 log = get_logger()
@@ -123,15 +151,8 @@ PRESETS = {
 _KNOBS = {"temperature": float, "top_k": int, "top_p": float,
           "repetition_penalty": float}
 _FIELDS = {"prompt", "max_new", "stream", "logprobs", "stop", "seed", "n",
-           "logit_bias", *_KNOBS}
-
-
-class StreamError:
-    """End-of-stream marker for a stream the engine could not finish."""
-
-    def __init__(self, code: str, message: str):
-        self.code = code
-        self.message = message
+           "logit_bias", "tenant", "priority", "deadline_ms", "resume_out",
+           "resume_logprobs", *_KNOBS}
 
 
 class InferenceEngine:
@@ -139,10 +160,32 @@ class InferenceEngine:
     ``SpeculativeBatcher``) with per-request token queues. ``submit`` is
     thread-safe; each queue receives ``(token, logprob)`` pairs, then
     ``None`` at end of stream (preceded by a :class:`StreamError` if the
-    engine died)."""
+    engine could not finish it).
 
-    def __init__(self, batcher: ContinuousBatcher):
-        self.cb = batcher
+    ``make_batcher`` is the batcher's recipe (a factory): with it, an
+    exception on the engine thread is recovered in place by the
+    ``supervisor`` (default: 3 restarts in a rolling 300 s), which builds
+    a fresh batcher and resumes every stream; past its budget, or without
+    a recipe, the engine dies and every open stream ends with a
+    structured ``engine_dead`` frame. ``batcher`` may be omitted when the
+    recipe is given. ``default_deadline_ms`` (0 = none) applies to
+    requests that name no deadline."""
+
+    def __init__(self, batcher: "ContinuousBatcher | None" = None, *,
+                 make_batcher=None,
+                 supervisor: "EngineSupervisor | None" = None,
+                 default_deadline_ms: int = 0):
+        if batcher is None and make_batcher is None:
+            raise ValueError("InferenceEngine needs a batcher or its recipe")
+        if make_batcher is None and supervisor is not None:
+            raise ValueError(
+                "crash recovery needs the batcher's recipe (make_batcher): "
+                "a batcher passed alone cannot be rebuilt")
+        self.cb = batcher if batcher is not None else make_batcher()
+        self._make_batcher = make_batcher
+        self.supervisor = (None if make_batcher is None else
+                           supervisor or EngineSupervisor())
+        self._default_deadline_ms = int(default_deadline_ms)
         self._lock = threading.Lock()
         self._work = threading.Event()
         self._stop = threading.Event()
@@ -153,7 +196,8 @@ class InferenceEngine:
         self._published: dict[int, int] = {}        # eid -> tokens pushed
         self._rid_to_eid: dict[int, int] = {}       # owner: engine thread
         # eid -> what a finished request's handler answers besides its
-        # tokens (cached_tokens), recorded before its stream closes
+        # tokens (cached_tokens, a rejection), recorded before its stream
+        # closes
         self._finished_info: dict[int, dict] = {}
         self._next_eid = 0
         # time to first token of recently finished requests (seconds)
@@ -169,37 +213,70 @@ class InferenceEngine:
                stop: "list[list[int]] | None" = None,
                sampler: "Sampler | None" = None,
                seed: "int | None" = None,
-               logit_bias=None) -> tuple[int, queue.Queue]:
+               logit_bias=None,
+               tenant: "str | None" = None,
+               priority: "int | None" = None,
+               deadline_ms: "int | None" = None,
+               resume_out: "list[int] | None" = None,
+               resume_logp: "list[float] | None" = None,
+               ) -> tuple[int, queue.Queue]:
         """Validate (everything the batcher would) and queue a request.
-        Returns (engine id, its token queue)."""
+        Returns (engine id, its token queue). Raises the scheduler's
+        overload error (HTTP 429) when its queue is full.
+
+        ``resume_out``/``resume_logp`` continue a stream another
+        incarnation started: the tokens fold into the prompt, and since
+        the client has them already, the stream carries only the
+        continuation."""
         if self._dead.is_set():
             raise RuntimeError("inference engine is dead (see logs)")
-        prompt = self.cb.validate_prompt(prompt)
-        self.cb.validate(len(prompt), max_new)
-        if sampler is not None and not self.cb.per_request_sampler:
+        cb = self.cb
+        resume_out, resume_logp = cb.validate_resume(resume_out, resume_logp,
+                                                     max_new)
+        prompt = cb.validate_prompt(prompt)
+        # the batcher's own rule over the folded prompt and the budget left
+        cb.validate(len(prompt) + len(resume_out), max_new - len(resume_out))
+        if sampler is not None and not cb.per_request_sampler:
             raise ValueError(
                 "per-request sampling is not supported by this engine "
                 "(speculative batching shares one sampler)"
             )
-        if logit_bias and not self.cb.per_request_bias:
+        if logit_bias and not cb.per_request_bias:
             raise ValueError(
                 "logit_bias is not supported by this engine "
                 "(speculative batching threads no bias planes)"
             )
-        bias = self.cb.validate_bias(logit_bias)
-        seed = self.cb.validate_seed(seed)
-        if seed is not None and not self.cb.per_request_seed:
+        bias = cb.validate_bias(logit_bias)
+        seed = cb.validate_seed(seed)
+        if seed is not None and not cb.per_request_seed:
             raise ValueError(
                 "per-request seeds are not supported by this engine"
             )
+        if deadline_ms is None and self._default_deadline_ms:
+            deadline_ms = self._default_deadline_ms
+        tenant, priority, deadline_ms = cb.validate_sched(
+            tenant, priority, deadline_ms)
+        sched = cb.scheduler
+        if sched is not None:
+            # the queue cap on the request thread, so overload answers 429
+            # at once; the engine thread's check stays authoritative
+            with self._lock:
+                queued_local = len(self._subq)
+            sched.check_capacity(len(cb.pending) + queued_local)
         q: queue.Queue = queue.Queue()
         with self._lock:
+            # death re-checked under the lock: ``_die`` empties the
+            # streams under it after setting ``_dead``
+            if self._dead.is_set():
+                raise RuntimeError("inference engine is dead (see logs)")
             eid = self._next_eid
             self._next_eid += 1
             self._subq.append((eid, prompt, max_new, stop, sampler, seed,
-                               bias))
+                               bias, tenant, priority, deadline_ms,
+                               (resume_out, resume_logp)))
             self._streams[eid] = q
-            self._published[eid] = 0
+            # the published cursor starts past the resumed tokens
+            self._published[eid] = len(resume_out)
         self._work.set()
         return eid, q
 
@@ -210,8 +287,9 @@ class InferenceEngine:
         self._work.set()
 
     def pop_request_info(self, eid: int) -> dict:
-        """A finished request's wrap-up facts (``cached_tokens``), once;
-        empty for an unknown id."""
+        """A finished request's wrap-up facts (``cached_tokens``; a
+        rejection's ``reject_reason`` and ``retry_after``), once; empty
+        for an unknown id."""
         with self._lock:
             return self._finished_info.pop(eid, {})
 
@@ -234,6 +312,12 @@ class InferenceEngine:
         if spec_stats is not None:
             # speculative acceptance: the production view of gamma
             out["spec"] = spec_stats()
+        if cb.scheduler is not None:
+            # queue and per-tenant SLO view, the scheduler's snapshot
+            out["sched"] = cb.scheduler.sched_stats()
+        if self.supervisor is not None:
+            # crash recovery: state, budget, replay and resume tallies
+            out["supervisor"] = self.supervisor.stats()
         kv = {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()}
         if cb.pool is not None:
             kv["prefill_chunks_deferred"] = cb.chunks_deferred
@@ -273,10 +357,40 @@ class InferenceEngine:
     def _admit_submissions(self) -> None:
         with self._lock:
             batch, self._subq = self._subq, []
-        for eid, prompt, max_new, stop, sampler, seed, bias in batch:
-            rid = self.cb.submit(prompt, max_new, stop=stop, sampler=sampler,
-                                 seed=seed, logit_bias=bias)
+        for (eid, prompt, max_new, stop, sampler, seed, bias, tenant,
+             priority, deadline_ms, resume) in batch:
+            try:
+                rid = self.cb.submit(
+                    prompt, max_new, stop=stop, sampler=sampler, seed=seed,
+                    logit_bias=bias, tenant=tenant, priority=priority,
+                    deadline_ms=deadline_ms, resume_out=resume[0],
+                    resume_logp=resume[1])
+            except SchedulerOverloadError as e:
+                # the request thread's queue-cap check raced a burst: the
+                # stream closes with the rejection, its handler answers 429
+                self.cb.scheduler.count_sync_rejection(self.cb)
+                self._close_unadmitted(eid, {"reject_reason": e.reason,
+                                             "retry_after": e.retry_after})
+                continue
+            except Exception as e:  # noqa: BLE001 - one bad admission
+                # kills neither the loop nor the other streams
+                log.exception("admission failed for eid=%s", eid)
+                self._close_unadmitted(eid, None, StreamError(
+                    "submit_failed", f"admission failed: {e}"))
+                continue
             self._rid_to_eid[rid] = eid
+
+    def _close_unadmitted(self, eid: int, info: "dict | None",
+                          err: "StreamError | None" = None) -> None:
+        with self._lock:
+            q = self._streams.pop(eid, None)
+            self._published.pop(eid, None)
+            if info is not None:
+                self._finished_info[eid] = info
+        if q is not None:
+            if err is not None:
+                q.put(err)
+            q.put(None)
 
     def _apply_cancellations(self) -> None:
         with self._lock:
@@ -300,52 +414,106 @@ class InferenceEngine:
         for tok, lp in zip(out[seen:], logp[seen:]):
             q.put((int(tok), float(lp)))
 
+    def _close_stream(self, rid: int, eid: int, req) -> None:
+        """A retired request's wrap-up: record what its handler answers
+        besides the tokens, then end its stream."""
+        info = {"cached_tokens": req.cached_tokens}
+        if req.reject_reason is not None:
+            # rejected while queued (the deferral budget): a 429
+            info["reject_reason"] = req.reject_reason
+            sched = self.cb.scheduler
+            info["retry_after"] = (sched.retry_after_s() if sched is not None
+                                   else 1)
+        with self._lock:
+            q = self._streams.pop(eid, None)
+            self._published.pop(eid, None)
+            self._finished_info[eid] = info
+            if len(self._finished_info) > 4096:
+                # a handler that went away never pops its entry
+                self._finished_info.pop(next(iter(self._finished_info)))
+            if req.t_first_tok:
+                self._ttft_s.append(req.t_first_tok - req.t_submit)
+        del self._rid_to_eid[rid]
+        if q is not None:
+            q.put(None)
+
     def _publish(self) -> None:
         """Push new (token, logprob) pairs; close finished streams."""
-        for req in list(self.cb.running.values()):
+        cb = self.cb
+        for req in (list(cb.running.values()) + list(cb.prefilling.values())
+                    + list(cb.pending)):
             self._push(req.rid, req.out, req.out_logp)
-        for rid in list(self._rid_to_eid):
-            req = self.cb.done_requests.pop(rid, None)
+        for rid, eid in list(self._rid_to_eid.items()):
+            req = cb.done_requests.pop(rid, None)
             if req is None:
                 continue
             self._push(rid, req.out, req.out_logp)
-            self.cb.done.pop(rid, None)
-            eid = self._rid_to_eid.pop(rid)
-            with self._lock:
-                q = self._streams.pop(eid, None)
-                self._published.pop(eid, None)
-                self._finished_info[eid] = {
-                    "cached_tokens": req.cached_tokens}
-                if len(self._finished_info) > 4096:
-                    # a handler that went away never pops its entry
-                    self._finished_info.pop(next(iter(self._finished_info)))
-                if req.t_first_tok:
-                    self._ttft_s.append(req.t_first_tok - req.t_submit)
-            if q is not None:
-                q.put(None)
+            cb.done.pop(rid, None)
+            self._close_stream(rid, eid, req)
 
     def _loop(self) -> None:
-        try:
-            while not self._stop.is_set():
-                self._admit_submissions()
-                self._apply_cancellations()
-                cb = self.cb
-                if cb.pending or cb.running or cb.prefilling:
-                    cb.step()
+        """The crash boundary around the step loop: an exception on the
+        engine thread is recovered in place by the supervisor (a fresh
+        batcher, queued work replayed in order, streams in flight
+        resumed by the preemption fold) while the restart budget lasts;
+        past it, or without a recipe, the engine dies and every stream
+        ends with a structured error frame."""
+        while True:
+            try:
+                self._loop_inner()
+                return  # shutdown
+            except Exception as exc:  # noqa: BLE001 - the crash boundary
+                log.exception("inference engine loop died")
+                if self._stop.is_set():
+                    return  # a crash racing shutdown: the clean exit
+                error = f"{type(exc).__name__}: {exc}"
+                sup = self.supervisor
+                if sup is not None:
+                    sup.on_crash(exc)
+                restart = sup is not None and sup.allow_restart()
+            # out of the except clause: the exception and its traceback
+            # (whose frames hold the crashed batcher) are gone, so the
+            # recovery can free that batcher's device memory
+            if not restart:
+                detail = (" (restart budget exhausted)"
+                          if sup is not None and sup.max_restarts else "")
+                self._die("engine_dead",
+                          f"inference engine died{detail}: {error}")
+                return
+            try:
+                sup.recover(self)
+            except Exception:  # noqa: BLE001 - the rebuild failed
+                log.exception("engine recovery failed; degrading to dead")
+                self._die("engine_dead",
+                          "inference engine recovery failed (see logs)")
+                return
+
+    def _loop_inner(self) -> None:
+        while not self._stop.is_set():
+            self._admit_submissions()
+            self._apply_cancellations()
+            cb = self.cb
+            if cb.pending or cb.running or cb.prefilling:
+                cb.step()
                 self._publish()
-                if not (cb.pending or cb.running or cb.prefilling):
-                    self._work.wait(timeout=0.05)
-                    self._work.clear()
-        except Exception as exc:  # noqa: BLE001 - the engine's crash boundary
-            log.exception("inference engine loop died")
-            self._dead.set()
-            with self._lock:
-                streams, self._streams = self._streams, {}
-            err = StreamError("engine_dead",
-                              f"inference engine died: {type(exc).__name__}: {exc}")
-            for q in streams.values():
-                q.put(err)
-                q.put(None)
+            else:
+                self._publish()
+                self._work.wait(timeout=0.05)
+                self._work.clear()
+
+    def _die(self, code: str, message: str) -> None:
+        """The dead state: every open stream gets a structured
+        :class:`StreamError` frame, then its end."""
+        if self.supervisor is not None:
+            self.supervisor.mark_dead()
+        self._dead.set()
+        with self._lock:
+            streams, self._streams = self._streams, {}
+            self._published.clear()
+        err = StreamError(code, message)
+        for q in streams.values():
+            q.put(err)
+            q.put(None)
 
 
 def _parse_logit_bias(raw) -> "dict | None":
@@ -394,11 +562,28 @@ def _parse_request(body) -> dict:
     ):
         raise ValueError("stop must be a list of token-id lists")
     given = {k: cast(body[k]) for k, cast in _KNOBS.items() if k in body}
+    # the SLO identity: optional, defaulted at the engine, checked by the
+    # batcher's rule
+    sched = {k: body.get(k) for k in ("tenant", "priority", "deadline_ms")}
+    ContinuousBatcher.validate_sched(**sched)
+    # the resume seam: tokens another incarnation emitted and delivered
+    resume_out = body.get("resume_out")
+    resume_lp = body.get("resume_logprobs")
+    if resume_out is not None and (
+            not isinstance(resume_out, list) or not resume_out
+            or not all(isinstance(t, int) and not isinstance(t, bool)
+                       for t in resume_out)):
+        raise ValueError("resume_out must be a non-empty list of token ids")
+    if resume_lp is not None and (
+            not isinstance(resume_lp, list)
+            or not all(isinstance(x, (int, float)) for x in resume_lp)):
+        raise ValueError("resume_logprobs must be a list of numbers")
     return {
         "prompt": prompt, "max_new": max_new, "stop": stop,
         "sampler": Sampler(**given) if given else None,
         "seed": body.get("seed"),
         "logit_bias": _parse_logit_bias(body.get("logit_bias")),
+        **sched, "resume_out": resume_out, "resume_logp": resume_lp,
         "stream": bool(body.get("stream", False)),
         "logprobs": bool(body.get("logprobs", False)),
     }
@@ -410,18 +595,36 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args) -> None:  # route access logs to debug
         log.debug("http: " + fmt, *args)
 
-    def _json(self, status: int, payload: dict) -> None:
+    def _json(self, status: int, payload: dict,
+              headers: "dict | None" = None) -> None:
         data = json.dumps(payload).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
+
+    def _overloaded(self, message: str, reason: str,
+                    retry_after: int) -> None:
+        """429 with a Retry-After header: back off and retry, as against
+        a request that can never succeed."""
+        self._json(429, {"error": message, "code": "overloaded",
+                         "reason": reason, "retry_after": int(retry_after)},
+                   headers={"Retry-After": str(int(retry_after))})
 
     def do_GET(self) -> None:  # noqa: N802 - http.server's naming
         if self.path != "/v1/health":
             self._json(404, {"error": f"no route {self.path}"})
             return
+        flt = self.server.flt_health
+        if flt is not None:
+            try:
+                flt.fire()
+            except FaultError as e:
+                self._json(500, {"error": str(e)})
+                return
         stats = self.server.engine.stats()
         self._json(200 if stats["alive"] else 503, stats)
 
@@ -437,10 +640,12 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(400, {"error": str(e)})
             return
         try:
-            eid, q = engine.submit(req["prompt"], req["max_new"],
-                                   stop=req["stop"], sampler=req["sampler"],
-                                   seed=req["seed"],
-                                   logit_bias=req["logit_bias"])
+            eid, q = engine.submit(
+                req["prompt"], req["max_new"], stop=req["stop"],
+                sampler=req["sampler"], seed=req["seed"],
+                logit_bias=req["logit_bias"], tenant=req["tenant"],
+                priority=req["priority"], deadline_ms=req["deadline_ms"],
+                resume_out=req["resume_out"], resume_logp=req["resume_logp"])
         except RequestTooLargeError as e:
             self._json(422, {"error": {"message": str(e),
                                        "code": "request_too_large",
@@ -448,6 +653,10 @@ class _Handler(BaseHTTPRequestHandler):
             return
         except ValueError as e:
             self._json(422, {"error": str(e)})
+            return
+        except SchedulerOverloadError as e:  # the queue is full
+            engine.cb.scheduler.count_sync_rejection(engine.cb)
+            self._overloaded(str(e), e.reason, e.retry_after)
             return
         except RuntimeError as e:
             self._json(503, {"error": str(e)})
@@ -465,9 +674,15 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             toks.append(item[0])
             lps.append(item[1])
+        info = engine.pop_request_info(eid)
+        if info.get("reject_reason") and not toks:
+            # rejected while queued, before any token: overload
+            self._overloaded(
+                "request rejected under overload before admission",
+                info["reject_reason"], info.get("retry_after", 1))
+            return
         # prompt tokens served from the prefix cache, 0 on a miss or with
         # the cache off: the reference always sends the field
-        info = engine.pop_request_info(eid)
         payload = {"id": eid, "tokens": toks,
                    "cached_tokens": info.get("cached_tokens", 0)}
         if req["logprobs"]:
@@ -487,6 +702,11 @@ class _Handler(BaseHTTPRequestHandler):
                 if item is None:
                     evt = {"done": True}
                     info = engine.pop_request_info(eid)
+                    if info.get("reject_reason"):
+                        # the stream is open already (200): a rejection
+                        # rides the done event
+                        evt["rejected"] = info["reject_reason"]
+                        evt["retry_after"] = info.get("retry_after", 1)
                     if info.get("cached_tokens"):
                         # only when the cache served part of the prompt:
                         # the common done event stays lean
@@ -508,14 +728,21 @@ class _Handler(BaseHTTPRequestHandler):
 
 class InferenceServer(ThreadingHTTPServer):
     """The HTTP front of one engine; ``port=0`` binds an ephemeral port
-    (read it back from ``bound_port``)."""
+    (read it back from ``bound_port``). ``faults`` arms the
+    ``health.handler`` point (``GET /v1/health`` answers 500 when it
+    fires)."""
 
     daemon_threads = True
+    # the listen backlog: a burst of clients connecting at once must queue,
+    # not be reset (the standard library's default is 5)
+    request_queue_size = 1024
 
     def __init__(self, engine: InferenceEngine, host: str = "0.0.0.0",
-                 port: int = 8000):
+                 port: int = 8000, faults=None):
         super().__init__((host, port), _Handler)
         self.engine = engine
+        self.flt_health = (faults.point("health.handler")
+                           if faults is not None else None)
         self.bound_port = self.server_address[1]
         self._thread: "threading.Thread | None" = None
 
@@ -633,6 +860,47 @@ def build_parser() -> argparse.ArgumentParser:
                         "physical pages in the draft model's KV pool (0 "
                         "sizes it to the draft's dense-equivalent "
                         "capacity)")
+    parser.add_argument("--schedPolicy", default="fifo",
+                        choices=["fifo", "slo"],
+                        help="admission policy: 'fifo' is arrival order "
+                        "(the same streams as no scheduler); 'slo' orders "
+                        "by priority class, per-tenant weighted fairness "
+                        "and earliest deadline, enforces --tenantQuota, "
+                        "and preempts a lower-class decode when a "
+                        "deadline would be missed (not with --draftPreset: "
+                        "the speculative engine has no resume path)")
+    parser.add_argument("--tenantQuota", default="",
+                        help="per-tenant token buckets and fair-queuing "
+                        "weights (needs --schedPolicy slo): "
+                        "name=rate[:burst=B][:weight=W],... with rate in "
+                        "tokens/s; an over-quota tenant is demoted, "
+                        "never dropped")
+    parser.add_argument("--adapterQuota", default="",
+                        help="per-adapter rate limits: refused, adapters "
+                        "are not served yet")
+    parser.add_argument("--defaultDeadlineMs", type=int, default=0,
+                        help="deadline of a request that names none (0 = "
+                        "no deadline)")
+    parser.add_argument("--maxQueue", type=int, default=0,
+                        help="pending-request cap (0 = unbounded): past it "
+                        "a submission answers 429 with Retry-After")
+    parser.add_argument("--deferBudgetMs", type=int, default=0,
+                        help="how long a request may wait at the queue head "
+                        "on pool pressure before it is rejected with 429 "
+                        "(0 = forever)")
+    parser.add_argument("--restartBudget", type=int, default=3,
+                        help="engine crash recoveries allowed per rolling "
+                        "--restartWindowS: within it a crashed engine "
+                        "rebuilds in place, replays its queue in order and "
+                        "resumes its streams; past it (or with 0) it dies "
+                        "and every stream ends with a structured error")
+    parser.add_argument("--restartWindowS", type=float, default=300.0,
+                        help="rolling window of --restartBudget")
+    parser.add_argument("--faults", default="",
+                        help="seeded fault injection: armed points with "
+                        "schedules, e.g. 'decode.apply:nth=40,pool.alloc:"
+                        "p=0.25:seed=3:times=6'; also read from "
+                        "TPU_SERVING_FAULTS; empty = disarmed")
     return parser
 
 
@@ -666,6 +934,18 @@ def build_server(args: argparse.Namespace,
     if args.prefillReserveChunks < 1:
         raise ValueError("--prefillReserveChunks must be >= 1: the tranche "
                          "has to cover the chunk being prefilled")
+    if args.adapterQuota:
+        raise ValueError("--adapterQuota is not served by the PyTorch port "
+                         "yet: adapters are not served (ROADMAP A.10)")
+    scheduler = make_scheduler(
+        args.schedPolicy, max_queue=args.maxQueue,
+        defer_budget_ms=args.deferBudgetMs, tenant_quota=args.tenantQuota,
+        # the speculative engine has no resume path: the slo policy still
+        # orders its queue, without preemption
+        preempt=not args.draftPreset)
+    supervisor = EngineSupervisor(max_restarts=args.restartBudget,
+                                  window_s=args.restartWindowS)
+    faults = FaultPlane.from_cli(args.faults)
     cfg = replace(PRESETS[args.preset](), cache_quant=args.cacheQuant)
     if args.attnWindow:
         cfg = replace(cfg, sliding_window=args.attnWindow)
@@ -695,7 +975,8 @@ def build_server(args: argparse.Namespace,
         kv_layout=args.kvLayout,
         kv_page_size=args.kvPageSize if args.kvLayout == "paged" else None,
         kv_pages=args.kvPages, prefix_cache=prefix_cache,
-        prefill_reserve_chunks=args.prefillReserveChunks)
+        prefill_reserve_chunks=args.prefillReserveChunks,
+        scheduler=scheduler, faults=faults)
     if args.draftPreset:
         draft_cfg = PRESETS[args.draftPreset]()
         # the draft is drawn as the target is (--seed, then --weightQuant):
@@ -704,15 +985,25 @@ def build_server(args: argparse.Namespace,
         draft_params = params if args.draftPreset == args.preset else \
             quantize_weights(load_params(draft_cfg, seed=args.seed,
                                          device=device), args.weightQuant)
-        batcher = SpeculativeBatcher(
+        # no recipe: the speculative engine has no resume path, so a
+        # crash ends it (with the structured error frames)
+        engine = InferenceEngine(SpeculativeBatcher(
             params, cfg, draft_params, draft_cfg, gamma=args.gamma,
             draft_kv_pages=args.draftKvPages,
-            chunked_prefill=min(args.chunkedPrefill, args.maxLen), **common)
+            chunked_prefill=min(args.chunkedPrefill, args.maxLen), **common),
+            default_deadline_ms=args.defaultDeadlineMs)
     else:
-        batcher = ContinuousBatcher(
-            params, cfg, chunked_prefill=args.chunkedPrefill, **common)
-    engine = InferenceEngine(batcher)
-    return InferenceServer(engine, host=args.host, port=args.port)
+        # the recipe: the supervisor rebuilds the batcher from it after a
+        # crash, around the same weights, cache, scheduler and faults
+        def make_batcher() -> ContinuousBatcher:
+            return ContinuousBatcher(
+                params, cfg, chunked_prefill=args.chunkedPrefill, **common)
+
+        engine = InferenceEngine(make_batcher=make_batcher,
+                                 supervisor=supervisor,
+                                 default_deadline_ms=args.defaultDeadlineMs)
+    return InferenceServer(engine, host=args.host, port=args.port,
+                           faults=faults)
 
 
 def _main(argv: "list[str] | None" = None) -> int:

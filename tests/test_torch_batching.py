@@ -99,15 +99,23 @@ def test_stop_sequence_and_cancel(models):
 
 
 def test_refuses_what_the_slice_does_not_serve(models):
-    """What is still unserved is refused; the pipelined loop, bucketed
-    prefill and logit bias are served now, with the reference's
-    defaults (pipeline_depth 1, chunked_prefill 0) and its bounds."""
+    """What is still unserved is refused (adapters, a KV page install);
+    the pipelined loop, bucketed prefill, logit bias and the scheduling
+    identity are served now, with the reference's defaults
+    (pipeline_depth 1, chunked_prefill 0) and its bounds."""
     _, _, tcfg, tparams = models
     with pytest.raises(NotImplementedError, match="adapters"):
         tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, adapters=object())
-    with pytest.raises(NotImplementedError, match="tenant"):
+    with pytest.raises(NotImplementedError, match="kv_pages"):
         tbatch.ContinuousBatcher(tparams, tcfg, 2, 128).submit(
-            [1, 2], 4, tenant="gold")
+            [1, 2], 4, kv_pages={"pages": []})
+    # the scheduling identity is served: the request carries it
+    tenant_cb = tbatch.ContinuousBatcher(tparams, tcfg, 2, 128)
+    rid = tenant_cb.submit([1, 2], 4, tenant="gold", priority=0,
+                           deadline_ms=5000)
+    req = tenant_cb.pending[0]
+    assert (req.rid, req.tenant, req.priority) == (rid, "gold", 0)
+    assert req.deadline > req.t_submit
     with pytest.raises(ValueError, match="pipeline_depth"):
         tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, pipeline_depth=2)
     with pytest.raises(ValueError, match="no prompt bucket"):

@@ -52,6 +52,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import k8s_gpu_device_plugin_torch.serving.server\n"
         "import k8s_gpu_device_plugin_torch.serving.prefix_cache\n"
+        "import k8s_gpu_device_plugin_torch.serving.faults\n"
+        "import k8s_gpu_device_plugin_torch.serving.scheduler\n"
+        "import k8s_gpu_device_plugin_torch.serving.supervisor\n"
         "import k8s_gpu_device_plugin_torch.models.batching\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"

@@ -106,7 +106,7 @@ def test_generate_key_sets_match_the_reference(served):
 
 @pytest.mark.parametrize("field,value", [
     ("adapter", "fr"), ("n", 2), ("text", "hello"), ("timeline", True),
-    ("stop_text", ["x"]), ("tenant", "gold"),
+    ("stop_text", ["x"]), ("kv_pages", {"pages": []}),
 ])
 def test_unimplemented_field_answers_400_naming_it(served, field, value):
     _, _, url = served
@@ -114,6 +114,25 @@ def test_unimplemented_field_answers_400_naming_it(served, field, value):
                                   field: value})
     assert status == 400
     assert field in json.loads(body)["error"]
+
+
+def test_scheduling_fields_are_served(served):
+    """``tenant``, ``priority`` and ``deadline_ms`` are served (the fifo
+    engine admits in arrival order: the same tokens as without them);
+    a value outside the batcher's rule answers 400 naming it."""
+    cfg, params, url = served
+    want = _expected(cfg, params, 4)
+    status, _, body = _post(url, {"prompt": PROMPTS[0], "max_new": 4,
+                                  "tenant": "gold", "priority": 0,
+                                  "deadline_ms": 60000})
+    assert status == 200, body
+    assert json.loads(body)["tokens"] == want[0].out
+    for field, value in (("priority", 10), ("deadline_ms", -1),
+                         ("tenant", "x" * 65)):
+        status, _, body = _post(url, {"prompt": [1, 2], "max_new": 2,
+                                      field: value})
+        assert status == 400 and field.split("_")[0] in \
+            json.loads(body)["error"]
 
 
 def test_logit_bias_answers_200_with_the_forced_token(served):
