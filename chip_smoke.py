@@ -23,7 +23,9 @@ Phases (any failed check exits non-zero without the final line):
    and int4), and prefill chunks as the batcher runs them (one slot):
    T 3, T 37, T 256 at bases 0, 256 and 1536, windowed and at hd 64,
    group 1, and whole bucketed prompts (``--chunkedPrefill 0``) of T 512
-   and T 1024 at base 0; speculative verify windows of T 2, 4, 8 and 16
+   and T 1024 at base 0; long-prompt scoring's chunk, T 512 at base
+   3584 over a 4096-row batch-1 dense cache; speculative verify windows
+   of T 2, 4, 8 and 16
    over eight slots (the last windows ending at rows 2046 and 2047) on
    every route in bf16 and dense in f32, each reporting its engine's
    plan (T 2 at group 4 is split, the wider ones take the chunk engine);
@@ -175,10 +177,30 @@ Phases (any failed check exits non-zero without the final line):
    windowed Mistral-7B runs, ``window_relief``: a head waiting on pages
    (its first reservation reads injected pool pressure) evicts the
    decode whose eviction returns the most live pages, not the longest.
+   Then the serving surface (``surface``, after ``arrivals``, the same
+   8B weights): the server with ``--tokenizer byte --embeddings
+   --scoring --scoringMaxLen 4096 --slots 8 --maxLen 2048``; a seeded
+   n = 4 text completion whose choices equal the single requests at
+   seed + i bit for bit (tokens/s beside the four singles in turn); a
+   streamed chat (letters by a logit bias) stopping on a stop string cut
+   from its greedy answer, trimmed; echo scoring of a 200-token prompt
+   (K2 at B 1, S 256: 32 launches a call) and a 3000-token one (six
+   chunks of 512 through the cached forward: 32 K1 launches a chunk)
+   and an embedding, three calls each (the same answer each time),
+   timed, and the scorer in process beside them; ``concurrent``: the
+   echo and embedding requests again while eight streams decode, every
+   answer equal to its solo run (streams bit for bit, scores and the
+   embedding exactly). Then the served scores and embedding against the
+   f32 model's plain forward (widened weights): the kernel path's RMS
+   distance at most BF16_FACTOR times the bf16 plain path's; and an
+   8-layer f32 twin's kernels (CUDA cores) against its plain attention
+   within 1e-3.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
-   case and an hd-64 group-1 case, each in bf16 (the tensor cores) and
+   case, an hd-64 group-1 case, and the serving surface's B 1 forwards
+   at S 64, 256 and 1024 (the padded scoring and embedding buckets),
+   each in bf16 (the tensor cores) and
    f32 (the CUDA cores; each launch counted on its engine, two launches
    of each kernel equal bit for bit): max errors of o, dq, dk, dv (bf16:
    against the plain versions that round p, and dS, where the kernels
@@ -206,8 +228,10 @@ Phases (any failed check exits non-zero without the final line):
    pool bytes, the prefix and windowed runs' launches, the W 4096 cases
    with the stale-entry check, the copy-on-write check, the speculative
    runs' verify and split launches with phase 2's verify cases, the
-   round's time and acceptance, and the preemption runs' launches with
-   the page-relief and arrival summaries).
+   round's time and acceptance, the preemption runs' launches with
+   the page-relief and arrival summaries, and the surface run's launches
+   with phase 2's T 512 scoring case; K2's entry counts the trainer's
+   launches and the surface run's, and lists its B 1 serving cases).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -410,6 +434,11 @@ def kernel_cases():
         for name, t, base, window, shape in chunks:
             cases.append(dict(name=name + tag, b=1, t=t, bases=[base],
                               window=window, route=route, ps=ps, **shape))
+    # long-prompt scoring (serving/scoring.py): a chunk of 512 at the last
+    # base over the scorer's batch-1 dense cache of 4096 rows
+    cases.append(dict(name="score_t512_base3584", b=1, t=512, bases=[3584],
+                      window=0, route="dense", ps=0, hq=32, hkv=8, hd=128,
+                      s=4096))
     # speculative verify windows (the target's forward over a round's
     # proposals) at Llama-3-8B's heads, eight slots, T 2 ... 16: every
     # route in bf16, dense in f32. The last two windows end at rows 2046
@@ -3246,17 +3275,329 @@ def phase_window(torch, server_mod, kernel_support, rpa, batching,
     return out
 
 
+# surface (the serving surface at Llama-3-8B width): the server with the
+# byte tokenizer, embeddings and prompt scoring; K2 at B 1 and the padded
+# bucket for every short scored prompt and embedding, K1's chunk route at
+# T 512 over a 4096-row batch-1 cache for the long ones
+SURFACE_ARGS = ["--preset", "llama3_8b", "--tokenizer", "byte",
+                "--embeddings", "--scoring", "--scoringMaxLen", "4096",
+                "--slots", "8", "--maxLen", "2048"]
+SURFACE_SHORT, SURFACE_LONG = 200, 3000   # echo-scored prompt lengths
+SURFACE_N, SURFACE_NEW = 4, 48            # the n-choice completion
+SURFACE_REPS = 3             # timed calls of each echo and embedding
+SURFACE_F32_TOL = 1e-3      # the f32 twin: kernels vs plain, max abs
+SURFACE_F32_LAYERS = 8      # the f32 twin's depth
+# the chat's letters: a logit bias on a-z makes the greedy answer ASCII,
+# so a stop string cut from it round-trips through the byte tokenizer
+SURFACE_BIAS = {str(c): 10.0 for c in range(97, 123)}
+
+
+def _oai(url: str, path: str, body: "dict | None" = None):
+    """One OpenAI-surface call: (payload, seconds); a stream's payload is
+    its list of ``data:`` events ("[DONE]" last). A status other than 200
+    fails the run."""
+    import urllib.error
+
+    req = urllib.request.Request(
+        url + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            raw = resp.read().decode()
+    except urllib.error.HTTPError as e:
+        fail(f"surface: {path} answered {e.code}: {e.read()[:300]!r}")
+    secs = time.perf_counter() - t0
+    if body is None or not body.get("stream"):
+        return json.loads(raw), secs
+    evts = [line[len("data: "):] for line in raw.split("\n\n")
+            if line.startswith("data: ")]
+    return [e if e == "[DONE]" else json.loads(e) for e in evts], secs
+
+
+def _k_launches(kernel_support, rpa) -> tuple[int, int]:
+    counts = kernel_support.launch_counts()
+    return counts.get("flash_fwd", 0), counts.get(rpa.NAME, 0)
+
+
+def surface_scores(scoring, embeddings, cfg, params, prompts: dict,
+                   plain: bool) -> dict:
+    """In process: the echo logprobs of each prompt (token 1 on) and the
+    embedding of the short one, through the kernels or the plain
+    attention."""
+    import numpy as np
+
+    scorer = scoring.Scorer(params, cfg, max_len=4096, warmup=False,
+                            plain_attention=plain)
+    out = {f"echo_{n}": np.asarray(scorer.score(ids)[1:], np.float64)
+           for n, ids in prompts.items()}
+    out["embedding"] = embeddings.Embedder(
+        params, cfg, warmup=False, plain_attention=plain).embed(
+        prompts[SURFACE_SHORT]).astype(np.float64)
+    return out
+
+
+def surface_distances(got: dict, want: dict) -> dict:
+    """Max and RMS distance of each entry of ``got`` from ``want``."""
+    import numpy as np
+
+    out = {}
+    for key, ref in want.items():
+        d = np.asarray(got[key], np.float64) - ref
+        out[key] = {"max": float(np.abs(d).max()),
+                    "rms": float(np.sqrt((d * d).mean()))}
+    return out
+
+
+def phase_surface(torch, server_mod, kernel_support, rpa, scoring,
+                  embeddings, cfg, params) -> dict:
+    """The serving surface through the port's server (SURFACE_ARGS):
+    a seeded n=4 text completion (each choice the single request at seed
+    + i, bit for bit; tokens/s beside the four singles one after
+    another); a streamed chat that stops on a stop string, trimmed; echo
+    scoring of a 200- and a 3000-token prompt (the long one in chunks of
+    512) and an embedding, each timed; ``concurrent``: echo and embedding
+    requests while eight streams decode, every answer equal to its solo
+    run (streams bit for bit, scores and embeddings exactly). Then, in
+    process, the served scores and embedding against the f32 model's
+    plain forward (RMS distance within BF16_FACTOR of the bf16 plain
+    path's), and an 8-layer f32 twin's kernels against its plain
+    attention within SURFACE_F32_TOL. K2 launches must be 32 for every
+    short-path forward of the run, K1's 32 for every chunk of the long
+    prompt scored alone."""
+    import numpy as np
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    args, server, url = start_server(server_mod, SURFACE_ARGS, params)
+    startup_s = time.perf_counter() - t_phase
+    rng = np.random.default_rng(SEED + 13)
+    prompts = {n: rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (SURFACE_SHORT, SURFACE_LONG)}
+    chunks = -(-SURFACE_LONG // server.scorer.chunk)
+    layers = cfg.n_layers
+    out = {"phase": 4, "run": "surface", "startup_s": startup_s}
+    served, short_forwards = {}, 0
+    try:
+        kernel_support.reset_launch_counts()
+        # n choices against the single requests at seed + i
+        body = {"prompt": "The quick brown fox", "max_tokens": SURFACE_NEW,
+                "n": SURFACE_N, "seed": 1234, "temperature": 0.8,
+                "logprobs": 0}
+        multi, n_s = _oai(url, "/v1/completions", body)
+        singles, single_s = [], 0.0
+        for i in range(SURFACE_N):
+            one, secs = _oai(url, "/v1/completions",
+                             {**body, "n": 1, "seed": 1234 + i})
+            singles.append(one["choices"][0])
+            single_s += secs
+        for i, choice in enumerate(multi["choices"]):
+            if (choice["text"], choice["logprobs"]) != (
+                    singles[i]["text"], singles[i]["logprobs"]):
+                fail(f"surface: choice {i} of the n={SURFACE_N} request "
+                     f"differs from the single request at seed {1234 + i}")
+        tokens = multi["usage"]["completion_tokens"]
+        out["n_choices"] = {
+            "n": SURFACE_N, "tokens": tokens, "seconds": n_s,
+            "tokens_per_s": tokens / n_s,
+            "singles_seconds": single_s,
+            "singles_tokens_per_s": tokens / single_s,
+            "choices_equal_singles": True}
+        # a streamed chat that stops on a stop string cut from its greedy
+        # answer (letters, by the bias)
+        msgs = [{"role": "user", "content": "Name a fruit."}]
+        chat = {"messages": msgs, "max_tokens": 24,
+                "logit_bias": SURFACE_BIAS}
+        full = _oai(url, "/v1/chat/completions", chat)[0]["choices"][0][
+            "message"]["content"]
+        # the first two-letter window from the seventh letter on whose
+        # first occurrence leaves a letter or more before it
+        cut, stop = next(((full.find(full[j:j + 2]), full[j:j + 2])
+                          for j in range(6, len(full) - 1)
+                          if full[j:j + 2].isascii()
+                          and full.find(full[j:j + 2]) >= 1), (-1, ""))
+        if cut < 1:
+            fail(f"surface: the biased chat answer {full!r} has no stop "
+                 "string to cut")
+        evts, chat_s = _oai(url, "/v1/chat/completions",
+                            {**chat, "stop": stop, "stream": True})
+        text = "".join(e["choices"][0]["delta"].get("content", "")
+                       for e in evts[:-1])
+        finish = evts[-2]["choices"][0]["finish_reason"]
+        if evts[-1] != "[DONE]" or text != full[:cut] or finish != "stop" \
+                or evts[0]["choices"][0]["delta"] != {"role": "assistant"}:
+            fail(f"surface: the streamed chat gave {text!r} ({finish}), "
+                 f"not {full[:cut]!r} trimmed at {stop!r}")
+        out["chat_stop"] = {"answer": full, "stop": stop, "kept": text,
+                            "finish_reason": finish, "seconds": chat_s}
+        # echo scoring and an embedding, each SURFACE_REPS times with the
+        # engine idle: K2 launches per short forward, K1's per long chunk,
+        # and the same answer every time
+        latency = {}
+        calls = {f"echo_{n}": ("/v1/completions",
+                               {"prompt": ids, "echo": True, "max_tokens": 0,
+                                "logprobs": 5}, n)
+                 for n, ids in prompts.items()}
+        calls["embedding"] = ("/v1/embeddings",
+                              {"input": prompts[SURFACE_SHORT]},
+                              SURFACE_SHORT)
+        for key, (path, body, n) in calls.items():
+            secs = []
+            for _ in range(SURFACE_REPS):
+                before = _k_launches(kernel_support, rpa)
+                payload, t = _oai(url, path, body)
+                k2, k1 = (b - a for a, b in zip(
+                    before, _k_launches(kernel_support, rpa)))
+                got = (payload["data"][0]["embedding"] if key == "embedding"
+                       else payload["choices"][0]["logprobs"][
+                           "token_logprobs"])
+                if served.setdefault(key, got) != got:
+                    fail(f"surface: {key} differs from call to call")
+                want = (layers, 0) if n <= 1024 else (0, layers * chunks)
+                if (k2, k1) != want:
+                    fail(f"surface: {key} launched K2 {k2} and K1 {k1} "
+                         f"times, not {want}")
+                short_forwards += n <= 1024
+                secs.append(t)
+            latency[key] = {"first": secs[0],
+                            "p50": float(np.median(secs))}
+            out[f"{key}_launches"] = {"flash_fwd": k2, rpa.NAME: k1}
+        for n in prompts:
+            lps = served[f"echo_{n}"]
+            if len(lps) != n or lps[0] is not None or not all(
+                    math.isfinite(x) and x <= 0 for x in lps[1:]):
+                fail(f"surface: echo of {n} tokens gave malformed logprobs")
+        out["latency_s"] = latency
+        norm = float(np.linalg.norm(served["embedding"]))
+        if abs(norm - 1.0) > 1e-3:
+            fail(f"surface: the embedding's norm is {norm}")
+        out["embedding_norm"] = norm
+        # concurrent: eight streams decode while echo and embedding
+        # requests run on the handlers' stream
+        streams = [{"prompt": rng.integers(0, cfg.vocab_size, int(n)).tolist(),
+                    "max_new": 64, "stream": True, "logprobs": True}
+                   for n in rng.integers(100, 600, 8)]
+        solo = post_all(url, streams, "surface_solo")
+        aux = [("/v1/completions", {"prompt": prompts[SURFACE_SHORT],
+                                    "echo": True, "max_tokens": 0,
+                                    "logprobs": 5}, f"echo_{SURFACE_SHORT}"),
+               ("/v1/embeddings", {"input": prompts[SURFACE_SHORT]},
+                "embedding"),
+               ("/v1/completions", {"prompt": prompts[SURFACE_LONG],
+                                    "echo": True, "max_tokens": 0,
+                                    "logprobs": 5}, f"echo_{SURFACE_LONG}")]
+        aux_out: list = []
+
+        def run_aux():
+            for _ in range(2):
+                for path, body, key in aux:
+                    aux_out.append((key, _oai(url, path, body)[0]))
+
+        side = threading.Thread(target=run_aux)
+        side.start()
+        during = post_all(url, streams, "surface_concurrent")
+        side.join(900)
+        short_forwards += 2 * 2
+        for i, (a, b) in enumerate(zip(solo, during)):
+            if (a["tokens"], a["logprobs"]) != (b["tokens"], b["logprobs"]):
+                fail(f"surface concurrent: stream {i} differs from its solo "
+                     "run")
+        if len(aux_out) != 2 * len(aux):
+            fail("surface concurrent: an auxiliary request did not finish")
+        for key, payload in aux_out:
+            got = (payload["data"][0]["embedding"] if key == "embedding"
+                   else payload["choices"][0]["logprobs"]["token_logprobs"])
+            if got != served[key]:
+                fail(f"surface concurrent: {key} differs from its solo run")
+        k2, k1 = _k_launches(kernel_support, rpa)
+        if k2 != layers * short_forwards:
+            fail(f"surface: K2 launched {k2} times for {short_forwards} "
+                 f"short forwards of {layers} layers")
+        # where an echo's time goes: the scorer in process (the forward,
+        # the log-softmax and top-5, no HTTP and no detokenizing), after
+        # the run's counts were read
+        for n, ids in prompts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.scorer.score_full(ids)
+            latency[f"echo_{n}"]["scorer_in_process"] = \
+                time.perf_counter() - t0
+        _, health = get_health(url)
+        out["concurrent"] = {"streams_equal_solo": len(solo),
+                             "aux_equal_solo": len(aux_out)}
+        out["launches"] = {"flash_fwd": k2, rpa.NAME: k1,
+                           "short_forwards": short_forwards,
+                           "long_chunks_alone": chunks}
+        out["decode_step_ms_mean"] = health["decode_step_ms_mean"]
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["reserved_memory_bytes"] = torch.cuda.memory_reserved()
+    finally:
+        server.stop()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16: the served answers (the kernels) and the plain attention's,
+    # each against the f32 model's plain forward (the weights widened):
+    # the kernel path within BF16_FACTOR of the plain path's RMS distance
+    # (bf16 rounds in other places in each: on random 8B weights two bf16
+    # forwards of one prompt sit about 0.25 apart in logits)
+    kernel = {k: np.asarray(v[1:] if k.startswith("echo") else v,
+                            np.float64) for k, v in served.items()}
+    plain = surface_scores(scoring, embeddings, cfg, params, prompts, True)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = widened(torch, params)
+    truth = surface_scores(scoring, embeddings, cfg32, params32, prompts,
+                           True)
+    dist = {"kernel": surface_distances(kernel, truth),
+            "plain": surface_distances(plain, truth),
+            "kernel_vs_plain": surface_distances(kernel, plain)}
+    for key in truth:
+        k_rms, p_rms = dist["kernel"][key]["rms"], dist["plain"][key]["rms"]
+        if not k_rms <= BF16_FACTOR * p_rms:
+            fail(f"surface bf16: {key}: the kernel path's RMS distance to "
+                 f"the f32 model {k_rms:.3e} > {BF16_FACTOR} x the plain "
+                 f"path's {p_rms:.3e}")
+    out["bf16_distances"] = dist
+    # the f32 twin: the widened weights' first 8 layers, the kernels (f32
+    # K2 and K1 on the CUDA cores) against the plain attention
+    cfg8 = dataclasses.replace(cfg32, n_layers=SURFACE_F32_LAYERS)
+    params8 = {**params32, "layers": {
+        k: v[:SURFACE_F32_LAYERS] for k, v in params32["layers"].items()}}
+    twin = surface_distances(
+        surface_scores(scoring, embeddings, cfg8, params8, prompts, False),
+        surface_scores(scoring, embeddings, cfg8, params8, prompts, True))
+    for key, d in twin.items():
+        if not d["max"] <= SURFACE_F32_TOL:
+            fail(f"surface f32 twin: {key}: the kernels and the plain "
+                 f"attention differ by {d['max']:.3e} (> {SURFACE_F32_TOL})")
+    out["f32_twin_kernel_vs_plain"] = twin
+    del params32, params8, truth, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 # --- phase 5 -----------------------------------------------------------------
+
+
+#: phase 5's serving shapes of K2: B 1 at the padded scoring and
+#: embedding buckets (64 also serves bucket 32)
+SERVE_SEQS = (64, 256, 1024)
 
 
 def flash_cases():
     """The training path's shapes (phase 6: B, S and the 8B heads), a
-    window and an hd-64 group-1 case at the same B and S."""
+    window and an hd-64 group-1 case at the same B and S, and the
+    serving surface's B 1 forwards at SERVE_SEQS."""
     full = dict(b=TRAIN_BATCH, s=TRAIN_SEQ, hq=32, hkv=8, hd=128)
     return [dict(name="causal", window=0, **full),
             dict(name="causal_window512", window=512, **full),
             dict(name="causal_hd64_group1", window=0, b=TRAIN_BATCH,
-                 s=TRAIN_SEQ, hq=8, hkv=8, hd=64)]
+                 s=TRAIN_SEQ, hq=8, hkv=8, hd=64),
+            *(dict(name=f"serve_b1_s{s}", window=0, b=1, s=s, hq=32, hkv=8,
+                   hd=128) for s in SERVE_SEQS)]
 
 
 def attended_pairs(s: int, window: int) -> int:
@@ -3688,7 +4029,9 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
         from k8s_gpu_device_plugin_torch.serving import prefix_cache as \
             prefix_cache_mod
+        from k8s_gpu_device_plugin_torch.serving import embeddings
         from k8s_gpu_device_plugin_torch.serving import scheduler as sched_mod
+        from k8s_gpu_device_plugin_torch.serving import scoring
         from k8s_gpu_device_plugin_torch.serving import server as server_mod
     except ImportError as e:
         fail(f"the port package is not next to this script: {e}")
@@ -3773,6 +4116,10 @@ def main() -> None:
     emit({"phase": 4, "run": "sched_phases_wall_s", **{
         name: b - a for name, a, b in zip(
             ("preempt", "supervisor", "arrivals"), t_sched, t_sched[1:])}})
+    # the serving surface: text, n choices, the OpenAI façade, echo
+    # scoring and embeddings (K2 at B 1, K1's chunk at T 512)
+    surface = phase_surface(torch, server_mod, kernel_support, rpa, scoring,
+                            embeddings, cfg, params)
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -3846,7 +4193,7 @@ def main() -> None:
         + sum(prefix[run]["launches"] for run in PREFIX_RUNS)
         + sum(window[run]["launches"] for run in WINDOW_RUNS)
         + sum(spec[run]["launches"] for run in spec_runs)
-        + preempt["launches"],
+        + preempt["launches"] + surface["launches"][rpa.NAME],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -3873,6 +4220,16 @@ def main() -> None:
                       "f32_logprob_max_err")},
          "window_relief": window["window_relief"],
          "arrivals": arrivals["summary"],
+         # long-prompt scoring: chunks of 512 over a 4096-row batch-1
+         # cache (phase 2's case and the surface run's launches)
+         "surface": {
+             "launches": surface["launches"][rpa.NAME],
+             "long_echo_launches": surface[f"echo_{SURFACE_LONG}_launches"][
+                 rpa.NAME],
+             "cases": {f"{c['case']} {c['dtype']}": {
+                 **{k: c[k] for k in keys}, "engine": c["engine"],
+                 "max_abs_err": c["max_abs_err"]}
+                 for c in cases if c["case"] == "score_t512_base3584"}},
          # the speculative runs' verify windows (T 4, the chunk engine)
          # and draft decodes (split), and phase 2's verify cases
          "verify": {
@@ -3912,10 +4269,12 @@ def main() -> None:
         errs = {f"max_err_{dn}": max(c["max_abs_err"][o] for c in flash
                                      for o in outs if c["dtype"] == dn)
                 for dn in ("bfloat16", "float32")}
+        served = surface["launches"]["flash_fwd"] if name == "flash_fwd" \
+            else 0
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
-            training["launches"].get(name, 0), errs,
+            training["launches"].get(name, 0) + served, errs,
             {"ms": fhead["ms"][name], "plain_ms": fhead["plain_ms"][name],
              "bound_ms": fhead["bounds"][name]["bound_ms"],
              "bound_by": fhead["bounds"][name]["bound_by"],
@@ -3926,6 +4285,10 @@ def main() -> None:
             {"headline_case": f"causal bfloat16, B={TRAIN_BATCH} "
                               f"S={TRAIN_SEQ} Hq=32 Hkv=8 hd=128",
              "engine": {"bfloat16": "tensor_cores", "float32": "cuda_cores"},
+             # the trainer's launches and the serving surface's (K2 at
+             # B 1: every short scored prompt and embedding)
+             "launches_training": training["launches"].get(name, 0),
+             "launches_surface": served,
              "launches_per_engine": {
                  e: training["launches"].get(kernel_support.engine_key(name, e), 0)
                  for e in kernel_support.ENGINES},
@@ -3934,6 +4297,8 @@ def main() -> None:
                  if c["dtype"] == "bfloat16" and o != "lse"),
              "cases": [{"case": c["case"], "dtype": c["dtype"],
                         "ms": c["ms"][name], "plain_ms": c["plain_ms"][name],
+                        "library_ms": c["library_fwd_ms"]
+                        if name == "flash_fwd" else c["library_bwd_ms"],
                         **c["bounds"][name]} for c in flash]}))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

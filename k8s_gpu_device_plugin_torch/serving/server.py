@@ -23,11 +23,19 @@ Wire contract (the reference's):
   carries it only when it is > 0, as the reference's does.
   ``resume_out`` continues a stream another replica started: the
   tokens fold into the prompt and the answer carries only the
-  continuation. A field the port does not implement yet (``n`` other
-  than 1, ``adapter``, ``text``, ``stop_text``, ``kv_pages``, ...)
-  answers 400 naming it, as does a ``logit_bias`` that is not an object
-  of integer keys and numbers, or a malformed scheduling or resume
-  field; a request no slot can hold, a bias outside the batcher's
+  continuation. ``"n"`` (1 ... 8, not with ``stream``) decodes n
+  independent choices in parallel slots, choice i seeded ``(seed + i) %
+  2**31``: the answer adds ``completions`` (and ``completions_logprobs``),
+  and ``cached_tokens`` is the largest of the choices'. With a tokenizer
+  (``--tokenizer``, ``serving/tokenizer.py``) ``"text"`` may replace
+  ``"prompt"`` (not with ``resume_out``), ``"stop_text"`` adds encoded
+  stop strings, and the answer and the SSE done event carry the decoded
+  ``"text"`` (a resumed request's covers the whole output; n > 1 adds
+  ``completions_text``). A field the port does not implement yet
+  (``adapter``, ``timeline``, ``kv_pages``, ...) answers 400 naming it,
+  as does a ``logit_bias`` that is not an object of integer keys and
+  numbers, or a malformed scheduling or resume field; a request no slot
+  can hold, a bias outside the batcher's
   bounds, or (with ``--chunkedPrefill 0``) a prompt longer than the
   largest bucket answers 422. A full queue (``--maxQueue``), or a
   request whose pool-pressure wait outlived ``--deferBudgetMs``, answers
@@ -48,6 +56,15 @@ Wire contract (the reference's):
   kernels' launch counts, the scheduler's snapshot (``sched``) and the
   supervisor's (``supervisor``: state, restart budget, crashes,
   restarts, requests replayed and resumed).
+- The OpenAI façade (``serving/openai_api.py``) on the same engine:
+  ``POST /v1/completions``, ``POST /v1/chat/completions``, ``GET
+  /v1/models`` and ``POST /v1/embeddings`` (``--embeddings``); echo
+  prompt scoring on ``/v1/completions`` with ``--scoring``.
+
+Routes are a table (``_GET_ROUTES``, ``_POST_ROUTES``) on one
+``http.server`` handler. ``--eosId`` has the reference's three states:
+unset adopts the tokenizer's EOS (none without one), ``none`` or -1
+turns EOS stopping off, an id stops on that id.
 
 Run: ``python -m k8s_gpu_device_plugin_torch.serving.server --preset
 llama3_8b --port 8731`` (random weights drawn on the card from
@@ -127,15 +144,21 @@ from k8s_gpu_device_plugin_torch.models.quantized_serving import (
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
 from k8s_gpu_device_plugin_torch.models.spec_batching import SpeculativeBatcher
 from k8s_gpu_device_plugin_torch.ops.kernel_support import launch_counts
+from k8s_gpu_device_plugin_torch.serving.embeddings import Embedder
 from k8s_gpu_device_plugin_torch.serving.faults import FaultError, FaultPlane
 from k8s_gpu_device_plugin_torch.serving.prefix_cache import PrefixCache
 from k8s_gpu_device_plugin_torch.serving.scheduler import (
     SchedulerOverloadError,
     make_scheduler,
 )
+from k8s_gpu_device_plugin_torch.serving.scoring import Scorer
 from k8s_gpu_device_plugin_torch.serving.supervisor import (
     EngineSupervisor,
     StreamError,
+)
+from k8s_gpu_device_plugin_torch.serving.tokenizer import (
+    encode_stop_strings,
+    load_tokenizer,
 )
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
@@ -150,9 +173,11 @@ PRESETS = {
 
 _KNOBS = {"temperature": float, "top_k": int, "top_p": float,
           "repetition_penalty": float}
-_FIELDS = {"prompt", "max_new", "stream", "logprobs", "stop", "seed", "n",
-           "logit_bias", "tenant", "priority", "deadline_ms", "resume_out",
-           "resume_logprobs", *_KNOBS}
+_FIELDS = {"prompt", "text", "max_new", "stream", "logprobs", "stop",
+           "stop_text", "seed", "n", "logit_bias", "tenant", "priority",
+           "deadline_ms", "resume_out", "resume_logprobs", *_KNOBS}
+#: choices one request may ask for (each holds a decode slot)
+MAX_N = 8
 
 
 class InferenceEngine:
@@ -532,8 +557,14 @@ def _parse_logit_bias(raw) -> "dict | None":
         ) from None
 
 
-def _parse_request(body) -> dict:
-    """The /v1/generate body -> submit kwargs (+ stream/logprobs flags).
+def _is_ids(x) -> bool:
+    return isinstance(x, list) and bool(x) and all(
+        isinstance(t, int) and not isinstance(t, bool) for t in x)
+
+
+def _parse_request(body, tokenizer=None) -> dict:
+    """The /v1/generate body -> submit kwargs (+ n, stream, logprobs and
+    the resumed tokens). ``tokenizer`` serves ``text`` and ``stop_text``.
     Raises ValueError with a message naming the offending field."""
     if not isinstance(body, dict):
         raise ValueError("the request body must be a JSON object")
@@ -542,26 +573,42 @@ def _parse_request(body) -> dict:
             raise ValueError(
                 f"field {name!r} is not implemented by this server yet"
             )
-    if body.get("n", 1) != 1:
-        raise ValueError("field 'n' is not implemented by this server yet "
-                         "(n=1 only)")
-    if "prompt" not in body:
-        raise ValueError("field 'prompt' is required")
-    prompt = body["prompt"]
-    if (not isinstance(prompt, list) or not prompt
-            or not all(isinstance(t, int) and not isinstance(t, bool)
-                       for t in prompt)):
-        raise ValueError("prompt must be a non-empty list of token ids")
+    text = body.get("text")
+    if text is not None:
+        if tokenizer is None:
+            raise ValueError("field 'text' needs a tokenizer: none is "
+                             "configured on this server (--tokenizer); "
+                             "send token ids via 'prompt'")
+        if not isinstance(text, str) or not text:
+            raise ValueError("text must be a non-empty string")
+        if "prompt" in body:
+            raise ValueError("send either 'text' or 'prompt', not both")
+        prompt = tokenizer.encode(text)
+    elif "prompt" not in body:
+        raise ValueError("field 'prompt' (or 'text') is required")
+    else:
+        prompt = body["prompt"]
+        if not _is_ids(prompt):
+            raise ValueError("prompt must be a non-empty list of token ids")
     max_new = body.get("max_new", 64)
     if not isinstance(max_new, int) or isinstance(max_new, bool):
         raise ValueError("max_new must be an integer")
+    n = body.get("n", 1)
+    if not isinstance(n, int) or isinstance(n, bool) or not 1 <= n <= MAX_N:
+        raise ValueError(f"n must be an integer in [1, {MAX_N}]")
+    stream = bool(body.get("stream", False))
+    if n > 1 and stream:
+        raise ValueError("streaming supports n=1 only")
     stop = body.get("stop", [])
-    if not isinstance(stop, list) or not all(
-        isinstance(st, list) and st and all(isinstance(t, int) for t in st)
-        for st in stop
-    ):
+    if not isinstance(stop, list) or not all(_is_ids(st) for st in stop):
         raise ValueError("stop must be a list of token-id lists")
+    if body.get("stop_text"):
+        stop = list(stop) + encode_stop_strings(
+            tokenizer, body["stop_text"], field="stop_text")
     given = {k: cast(body[k]) for k, cast in _KNOBS.items() if k in body}
+    # validated BEFORE the per-choice (seed + i) % 2**31 derivation, which
+    # would wrap an invalid seed into range
+    seed = ContinuousBatcher.validate_seed(body.get("seed"))
     # the SLO identity: optional, defaulted at the engine, checked by the
     # batcher's rule
     sched = {k: body.get(k) for k in ("tenant", "priority", "deadline_ms")}
@@ -569,11 +616,15 @@ def _parse_request(body) -> dict:
     # the resume seam: tokens another incarnation emitted and delivered
     resume_out = body.get("resume_out")
     resume_lp = body.get("resume_logprobs")
-    if resume_out is not None and (
-            not isinstance(resume_out, list) or not resume_out
-            or not all(isinstance(t, int) and not isinstance(t, bool)
-                       for t in resume_out)):
-        raise ValueError("resume_out must be a non-empty list of token ids")
+    if resume_out is not None:
+        if not _is_ids(resume_out):
+            raise ValueError(
+                "resume_out must be a non-empty list of token ids")
+        if text is not None:
+            raise ValueError("resume_out requires a token-id 'prompt' (the "
+                             "fold is defined over ids, not text)")
+        if n != 1:
+            raise ValueError("resume_out supports n=1 only")
     if resume_lp is not None and (
             not isinstance(resume_lp, list)
             or not all(isinstance(x, (int, float)) for x in resume_lp)):
@@ -581,12 +632,49 @@ def _parse_request(body) -> dict:
     return {
         "prompt": prompt, "max_new": max_new, "stop": stop,
         "sampler": Sampler(**given) if given else None,
-        "seed": body.get("seed"),
+        "seed": seed,
         "logit_bias": _parse_logit_bias(body.get("logit_bias")),
         **sched, "resume_out": resume_out, "resume_logp": resume_lp,
-        "stream": bool(body.get("stream", False)),
+        "n": n, "stream": stream,
         "logprobs": bool(body.get("logprobs", False)),
     }
+
+
+def drain_queue(q: queue.Queue) -> tuple:
+    """One request's (tokens, logprobs, error) off its stream queue
+    (None ends it; a :class:`StreamError` before it marks an abnormal
+    close). Shared by the native and OpenAI handlers, which answer an
+    error with an error status, never a silent truncation."""
+    toks: list[int] = []
+    lps: list[float] = []
+    err: "StreamError | None" = None
+    while True:
+        item = q.get()
+        if item is None:
+            return toks, lps, err
+        if isinstance(item, StreamError):
+            err = item
+            continue
+        toks.append(item[0])
+        lps.append(item[1])
+
+
+def submit_choices(engine: "InferenceEngine", prompt: list[int], n: int,
+                   seed: "int | None", **kw) -> list[tuple]:
+    """Submit ``n`` choices of one request: choice i is seeded ``(seed +
+    i) % 2**31`` (reproducible and distinct: one seed for all would give
+    n copies). A burst that fails part way cancels what it submitted."""
+    subs: list[tuple] = []
+    try:
+        for i in range(n):
+            subs.append(engine.submit(
+                prompt, seed=None if seed is None else (seed + i) % 2**31,
+                **kw))
+    except Exception:
+        for eid, _ in subs:
+            engine.cancel(eid)
+        raise
+    return subs
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -614,10 +702,50 @@ class _Handler(BaseHTTPRequestHandler):
                          "reason": reason, "retry_after": int(retry_after)},
                    headers={"Retry-After": str(int(retry_after))})
 
-    def do_GET(self) -> None:  # noqa: N802 - http.server's naming
-        if self.path != "/v1/health":
+    def read_json(self):
+        """The request body as JSON (JSONDecodeError on garbage)."""
+        n = int(self.headers.get("Content-Length", "0"))
+        return json.loads(self.rfile.read(n) or b"null")
+
+    def start_sse(self, headers: "dict | None" = None) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+
+    def sse(self, data: "dict | str") -> None:
+        """One ``data:`` frame (a dict as JSON), flushed."""
+        text = data if isinstance(data, str) else json.dumps(data)
+        self.wfile.write(f"data: {text}\n\n".encode())
+        self.wfile.flush()
+
+    def _route(self, table: dict) -> None:
+        name = table.get(self.path.split("?", 1)[0])
+        if name is None:
             self._json(404, {"error": f"no route {self.path}"})
             return
+        owner, method = name
+        if owner == "native":
+            getattr(self, method)()
+            return
+        # imported here: openai_api imports this module. One routes object
+        # a request: a server holding one would be a reference cycle, and
+        # a stopped server (its cache) would wait for the cycle collector
+        from k8s_gpu_device_plugin_torch.serving.openai_api import (
+            OpenAIRoutes,
+        )
+
+        getattr(OpenAIRoutes(self.server), method)(self)
+
+    def do_GET(self) -> None:  # noqa: N802 - http.server's naming
+        self._route(_GET_ROUTES)
+
+    def do_POST(self) -> None:  # noqa: N802
+        self._route(_POST_ROUTES)
+
+    def health(self) -> None:
         flt = self.server.flt_health
         if flt is not None:
             try:
@@ -628,23 +756,22 @@ class _Handler(BaseHTTPRequestHandler):
         stats = self.server.engine.stats()
         self._json(200 if stats["alive"] else 503, stats)
 
-    def do_POST(self) -> None:  # noqa: N802
-        if self.path != "/v1/generate":
-            self._json(404, {"error": f"no route {self.path}"})
-            return
-        engine = self.server.engine
+    def generate(self) -> None:
+        server = self.server
+        engine = server.engine
+        tokenizer = server.tokenizer
         try:
-            n = int(self.headers.get("Content-Length", "0"))
-            req = _parse_request(json.loads(self.rfile.read(n) or b"null"))
+            req = _parse_request(self.read_json(), tokenizer)
         except (json.JSONDecodeError, TypeError, ValueError) as e:
             self._json(400, {"error": str(e)})
             return
         try:
-            eid, q = engine.submit(
-                req["prompt"], req["max_new"], stop=req["stop"],
-                sampler=req["sampler"], seed=req["seed"],
-                logit_bias=req["logit_bias"], tenant=req["tenant"],
-                priority=req["priority"], deadline_ms=req["deadline_ms"],
+            subs = submit_choices(
+                engine, req["prompt"], req["n"], req["seed"],
+                max_new=req["max_new"], stop=req["stop"],
+                sampler=req["sampler"], logit_bias=req["logit_bias"],
+                tenant=req["tenant"], priority=req["priority"],
+                deadline_ms=req["deadline_ms"],
                 resume_out=req["resume_out"], resume_logp=req["resume_logp"])
         except RequestTooLargeError as e:
             self._json(422, {"error": {"message": str(e),
@@ -661,41 +788,51 @@ class _Handler(BaseHTTPRequestHandler):
         except RuntimeError as e:
             self._json(503, {"error": str(e)})
             return
+        resumed = list(req["resume_out"] or [])
         if req["stream"]:
-            self._stream(engine, eid, q, req["logprobs"])
+            eid, q = subs[0]
+            self._stream(engine, eid, q, req["logprobs"], resumed)
             return
-        toks, lps = [], []
-        while True:
-            item = q.get()
-            if item is None:
-                break
-            if isinstance(item, StreamError):
-                self._json(503, {"error": item.message, "code": item.code})
-                return
-            toks.append(item[0])
-            lps.append(item[1])
-        info = engine.pop_request_info(eid)
-        if info.get("reject_reason") and not toks:
+        drained = [drain_queue(q) for _, q in subs]
+        err = next((d[2] for d in drained if d[2] is not None), None)
+        if err is not None:
+            self._json(503, {"error": err.message, "code": err.code})
+            return
+        infos = [engine.pop_request_info(eid) for eid, _ in subs]
+        reject = next((i["reject_reason"] for i in infos
+                       if i.get("reject_reason")), None)
+        if reject is not None and not any(d[0] for d in drained):
             # rejected while queued, before any token: overload
             self._overloaded(
-                "request rejected under overload before admission",
-                info["reject_reason"], info.get("retry_after", 1))
+                "request rejected under overload before admission", reject,
+                max((i.get("retry_after", 1) for i in infos), default=1))
             return
         # prompt tokens served from the prefix cache, 0 on a miss or with
-        # the cache off: the reference always sends the field
-        payload = {"id": eid, "tokens": toks,
-                   "cached_tokens": info.get("cached_tokens", 0)}
+        # the cache off (the reference always sends the field); with n > 1
+        # the best reuse of any choice
+        payload = {"id": subs[0][0], "tokens": drained[0][0],
+                   "cached_tokens": max(i.get("cached_tokens", 0)
+                                        for i in infos)}
         if req["logprobs"]:
-            payload["logprobs"] = lps
+            payload["logprobs"] = drained[0][1]
+        if req["n"] > 1:
+            payload["completions"] = [d[0] for d in drained]
+            if req["logprobs"]:
+                payload["completions_logprobs"] = [d[1] for d in drained]
+        if tokenizer is not None:
+            # a resumed request's text covers the whole output
+            payload["text"] = tokenizer.decode(resumed + drained[0][0])
+            if req["n"] > 1:
+                payload["completions_text"] = [tokenizer.decode(d[0])
+                                               for d in drained]
         self._json(200, payload)
 
     def _stream(self, engine: InferenceEngine, eid: int, q: queue.Queue,
-                want_logprobs: bool) -> None:
-        self.send_response(200)
-        self.send_header("Content-Type", "text/event-stream")
-        self.send_header("Cache-Control", "no-cache")
-        self.send_header("X-Request-Id", str(eid))
-        self.end_headers()
+                want_logprobs: bool, streamed: list[int]) -> None:
+        """SSE frames of one request; ``streamed`` starts as its resumed
+        tokens, so the done event's text covers the whole output."""
+        self.start_sse({"X-Request-Id": str(eid)})
+        tokenizer = self.server.tokenizer
         try:
             while True:
                 item = q.get()
@@ -711,26 +848,41 @@ class _Handler(BaseHTTPRequestHandler):
                         # only when the cache served part of the prompt:
                         # the common done event stays lean
                         evt["cached_tokens"] = info["cached_tokens"]
+                    if tokenizer is not None:
+                        evt["text"] = tokenizer.decode(streamed)
                 elif isinstance(item, StreamError):
                     evt = {"error": {"code": item.code,
                                      "message": item.message}}
                 else:
+                    streamed.append(item[0])
                     evt = {"token": item[0]}
                     if want_logprobs:
                         evt["logprob"] = item[1]
-                self.wfile.write(f"data: {json.dumps(evt)}\n\n".encode())
-                self.wfile.flush()
+                self.sse(evt)
                 if item is None or isinstance(item, StreamError):
                     return
         except (BrokenPipeError, ConnectionResetError):
             engine.cancel(eid)  # the client went away: free its slot
 
 
+#: path -> (owner, method): "native" methods are the handler's own,
+#: "openai" ones ``serving/openai_api.py``'s ``OpenAIRoutes``
+_GET_ROUTES = {"/v1/health": ("native", "health"),
+               "/v1/models": ("openai", "models")}
+_POST_ROUTES = {"/v1/generate": ("native", "generate"),
+                "/v1/completions": ("openai", "completions"),
+                "/v1/chat/completions": ("openai", "chat_completions"),
+                "/v1/embeddings": ("openai", "embeddings")}
+
+
 class InferenceServer(ThreadingHTTPServer):
     """The HTTP front of one engine; ``port=0`` binds an ephemeral port
     (read it back from ``bound_port``). ``faults`` arms the
     ``health.handler`` point (``GET /v1/health`` answers 500 when it
-    fires)."""
+    fires). ``tokenizer`` (``serving/tokenizer.py``) serves text;
+    ``embedder`` (``serving/embeddings.py``) enables ``/v1/embeddings``
+    and ``scorer`` (``serving/scoring.py``) echo prompt scoring: both
+    built, and warmed, before the engine thread starts."""
 
     daemon_threads = True
     # the listen backlog: a burst of clients connecting at once must queue,
@@ -738,9 +890,13 @@ class InferenceServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
     def __init__(self, engine: InferenceEngine, host: str = "0.0.0.0",
-                 port: int = 8000, faults=None):
+                 port: int = 8000, faults=None, tokenizer=None,
+                 embedder=None, scorer=None):
         super().__init__((host, port), _Handler)
         self.engine = engine
+        self.tokenizer = tokenizer
+        self.embedder = embedder
+        self.scorer = scorer
         self.flt_health = (faults.point("health.handler")
                            if faults is not None else None)
         self.bound_port = self.server_address[1]
@@ -769,6 +925,29 @@ def load_params(cfg: LlamaConfig, *, seed: int = 0,
     return init_params(cfg, seed=seed, device=device)
 
 
+def _eos_arg(value: str):
+    """``--eosId``: an integer, or 'none' (argparse's clean usage error
+    for anything else)."""
+    if value.lower() == "none":
+        return "none"
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'none', got {value!r}") from None
+
+
+def resolve_eos(eos_arg, tokenizer) -> "int | None":
+    """The three ``--eosId`` states: unset adopts the tokenizer's EOS
+    (none without a tokenizer); 'none' or a negative id turns EOS
+    stopping off even with a tokenizer; an id is that id."""
+    if eos_arg is None:
+        return getattr(tokenizer, "eos_id", None)
+    if eos_arg == "none" or int(eos_arg) < 0:
+        return None
+    return int(eos_arg)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="torch-inference-server")
     parser.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
@@ -786,6 +965,27 @@ def build_parser() -> argparse.ArgumentParser:
                         help="1 dispatches each decode step before the "
                         "previous one is read back; 0 runs the "
                         "synchronous loop")
+    parser.add_argument("--tokenizer", default="",
+                        help="text seam: 'byte' (UTF-8 bytes, lossless) or "
+                        "a local HF tokenizer directory (needs the "
+                        "transformers package; nothing is downloaded); "
+                        "empty = token-id API only")
+    parser.add_argument("--eosId", type=_eos_arg, default=None,
+                        help="EOS token id; unset adopts the tokenizer's "
+                        "EOS when --tokenizer is given; 'none' (or -1) "
+                        "turns EOS stopping off")
+    parser.add_argument("--embeddings", action="store_true",
+                        help="enable /v1/embeddings (mean-pooled final "
+                        "hidden states; base model only, unquantized "
+                        "weights)")
+    parser.add_argument("--scoring", action="store_true",
+                        help="enable /v1/completions echo=true + "
+                        "max_tokens=0 prompt scoring (teacher-forced "
+                        "logprobs; base model only, unquantized weights)")
+    parser.add_argument("--scoringMaxLen", type=int, default=4096,
+                        help="longest scorable prompt; past the largest "
+                        "bucket (1024) the scorer runs chunks of 512 "
+                        "through the cached forward")
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--topK", type=int, default=0)
     parser.add_argument("--topP", type=float, default=1.0)
@@ -937,6 +1137,13 @@ def build_server(args: argparse.Namespace,
     if args.adapterQuota:
         raise ValueError("--adapterQuota is not served by the PyTorch port "
                          "yet: adapters are not served (ROADMAP A.10)")
+    for flag, on in (("--embeddings", args.embeddings),
+                     ("--scoring", args.scoring)):
+        if on and args.weightQuant != "none":
+            raise ValueError(
+                f"{flag} is unsupported with --weightQuant: the non-cached "
+                "forward cannot consume quantized leaves")
+    tokenizer = load_tokenizer(args.tokenizer)
     scheduler = make_scheduler(
         args.schedPolicy, max_queue=args.maxQueue,
         defer_budget_ms=args.deferBudgetMs, tenant_quota=args.tenantQuota,
@@ -967,8 +1174,15 @@ def build_server(args: argparse.Namespace,
             f"the params passed in are quantized {weight_quant_of(params)!r}"
             f", --weightQuant says {args.weightQuant!r}"
         )
+    # the auxiliary forwards are built, and run once a bucket, on this
+    # thread before the engine thread starts (on a card: the kernels'
+    # builds and first launches)
+    embedder = Embedder(params, cfg) if args.embeddings else None
+    scorer = (Scorer(params, cfg, max_len=args.scoringMaxLen)
+              if args.scoring else None)
     common = dict(
         n_slots=args.slots, max_len=args.maxLen,
+        eos_id=resolve_eos(args.eosId, tokenizer),
         sampler=Sampler(temperature=args.temperature, top_k=args.topK,
                         top_p=args.topP),
         seed=args.seed, pipeline_depth=args.pipelineDepth,
@@ -1003,7 +1217,8 @@ def build_server(args: argparse.Namespace,
                                  supervisor=supervisor,
                                  default_deadline_ms=args.defaultDeadlineMs)
     return InferenceServer(engine, host=args.host, port=args.port,
-                           faults=faults)
+                           faults=faults, tokenizer=tokenizer,
+                           embedder=embedder, scorer=scorer)
 
 
 def _main(argv: "list[str] | None" = None) -> int:

@@ -55,6 +55,11 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.serving.faults\n"
         "import k8s_gpu_device_plugin_torch.serving.scheduler\n"
         "import k8s_gpu_device_plugin_torch.serving.supervisor\n"
+        "import k8s_gpu_device_plugin_torch.serving.tokenizer\n"
+        "import k8s_gpu_device_plugin_torch.serving.bucketed\n"
+        "import k8s_gpu_device_plugin_torch.serving.embeddings\n"
+        "import k8s_gpu_device_plugin_torch.serving.scoring\n"
+        "import k8s_gpu_device_plugin_torch.serving.openai_api\n"
         "import k8s_gpu_device_plugin_torch.models.batching\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"

@@ -9,6 +9,12 @@ produces for the same requests. The KV flags (``--kvLayout``,
 its ``kv`` residency and its attention route, every layout answers with
 the dense bf16 server's greedy tokens where the cache is unquantized,
 and a request the pool can never hold answers 422 with the pool's limit.
+The serving surface: ``n``, ``text`` and ``stop_text`` are served (n
+seeded choices equal single requests at seed + i, bit for bit; the
+decoded ``text`` covers a resumed request's whole output), ``adapter``,
+``timeline`` and ``kv_pages`` still answer 400 naming the field, and
+``--eosId`` has the reference's three states (unset: the tokenizer's
+EOS stops a stream).
 """
 
 import json
@@ -21,6 +27,7 @@ import torch
 from k8s_gpu_device_plugin_torch.models.batching import ContinuousBatcher
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
 from k8s_gpu_device_plugin_torch.serving import server as srv
+from k8s_gpu_device_plugin_torch.serving.tokenizer import ByteTokenizer
 
 # the suite runs in several worker processes on shared cores: one
 # intra-op thread each keeps torch's OpenMP pool from spinning against
@@ -105,15 +112,163 @@ def test_generate_key_sets_match_the_reference(served):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("adapter", "fr"), ("n", 2), ("text", "hello"), ("timeline", True),
-    ("stop_text", ["x"]), ("kv_pages", {"pages": []}),
+    ("adapter", "fr"), ("timeline", True), ("kv_pages", {"pages": []}),
 ])
 def test_unimplemented_field_answers_400_naming_it(served, field, value):
+    """``adapter`` waits for the adapters (ROADMAP A.10), ``timeline`` for
+    latency attribution (A.9), ``kv_pages`` for KV transfer (A.10)."""
     _, _, url = served
     status, _, body = _post(url, {"prompt": [1, 2], "max_new": 2,
                                   field: value})
     assert status == 400
     assert field in json.loads(body)["error"]
+
+
+@pytest.fixture(scope="module")
+def texted():
+    """The tiny server with the byte tokenizer (its EOS is none)."""
+    server, url = _serve(["--tokenizer", "byte"])
+    try:
+        yield server, url
+    finally:
+        server.stop()
+
+
+def _tokens(url, body):
+    status, _, raw = _post(url, body)
+    assert status == 200, raw
+    return json.loads(raw)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("n", 2), ("text", "hello"), ("stop_text", ["x"]),
+])
+def test_served_field_answers_200(texted, field, value):
+    """The fields the port refused until the serving surface landed."""
+    _, url = texted
+    byte = ByteTokenizer()
+    body = {"prompt": byte.encode("hello"), "max_new": 4, field: value}
+    if field == "text":
+        del body["prompt"]
+    got = _tokens(url, body)
+    plain = _tokens(url, {"prompt": byte.encode("hello"), "max_new": 4})
+    assert got["text"] == byte.decode(got["tokens"])
+    if field == "n":
+        assert got["completions"] == [got["tokens"]] * 2  # greedy twice
+        assert got["completions_text"] == [got["text"]] * 2
+    else:  # text is the same prompt; "x" never fires on these tokens
+        assert got["tokens"] == plain["tokens"]
+        assert set(got) == {"id", "tokens", "cached_tokens", "text"}
+
+
+@pytest.mark.parametrize("body,field", [
+    ({"text": "hi"}, "text"),
+    ({"prompt": [1, 2], "stop_text": ["x"]}, "stop_text"),
+    ({"prompt": [1, 2], "n": 9}, "n"),
+    ({"prompt": [1, 2], "n": 2, "stream": True}, "stream"),
+    ({"prompt": [1, 2], "resume_out": [3], "n": 2}, "resume_out"),
+    ({"prompt": [1, 2], "seed": -1}, "seed"),
+])
+def test_surface_fields_refused_by_name(served, body, field):
+    _, _, url = served
+    status, _, raw = _post(url, {"max_new": 2, **body})
+    assert status == 400 and field in json.loads(raw)["error"]
+
+
+def test_text_field_refusals_with_a_tokenizer(texted):
+    _, url = texted
+    for body, needle in (({"text": "hi", "prompt": [1]}, "not both"),
+                         ({"text": "hi", "resume_out": [1]}, "resume_out"),
+                         ({"text": ""}, "text")):
+        status, _, raw = _post(url, {"max_new": 2, **body})
+        assert status == 400 and needle in json.loads(raw)["error"], raw
+
+
+def test_n_seeded_choices_equal_single_requests(texted):
+    """Choice i of an n-request is the single request at (seed + i) %
+    2**31, bit for bit (tokens and logprobs); cached_tokens is the
+    largest of the choices'."""
+    _, url = texted
+    body = {"prompt": PROMPTS[1][:30], "max_new": 6, "temperature": 0.9,
+            "logprobs": True}
+    got = _tokens(url, {**body, "n": 3, "seed": 2**31 - 2})
+    assert got["tokens"] == got["completions"][0]
+    assert got["logprobs"] == got["completions_logprobs"][0]
+    for i, seed in enumerate((2**31 - 2, 2**31 - 1, 0)):
+        one = _tokens(url, {**body, "seed": seed})
+        assert got["completions"][i] == one["tokens"]
+        assert got["completions_logprobs"][i] == one["logprobs"]
+    assert got["completions"][0] != got["completions"][1]
+
+
+def test_resumed_text_covers_the_whole_output(texted):
+    _, url = texted
+    byte = ByteTokenizer()
+    full = _tokens(url, {"prompt": PROMPTS[0], "max_new": 6})
+    cont = _tokens(url, {"prompt": PROMPTS[0], "max_new": 6,
+                         "resume_out": full["tokens"][:2]})
+    assert cont["tokens"] == full["tokens"][2:]
+    assert cont["text"] == full["text"] == byte.decode(full["tokens"])
+    status, _, raw = _post(url, {"prompt": PROMPTS[0], "max_new": 6,
+                                 "resume_out": full["tokens"][:2],
+                                 "stream": True})
+    frames = [json.loads(line[len("data: "):])
+              for line in raw.split("\n\n") if line.startswith("data: ")]
+    assert [f["token"] for f in frames[:-1]] == full["tokens"][2:]
+    assert frames[-1] == {"done": True, "text": full["text"]}
+
+
+class _EosTokenizer(ByteTokenizer):
+    def __init__(self, eos_id):
+        self.eos_id = eos_id
+
+
+@pytest.mark.parametrize("eos_arg,tok_eos,want", [
+    (None, None, None), (None, 7, 7), ("none", 7, None), (-1, 7, None),
+    (5, 7, 5), (5, None, 5),
+])
+def test_resolve_eos_three_states(eos_arg, tok_eos, want):
+    tok = None if tok_eos is None else _EosTokenizer(tok_eos)
+    assert srv.resolve_eos(eos_arg, tok) == want
+
+
+def test_eos_id_and_the_tokenizers_eos_stop_a_stream(monkeypatch):
+    """--eosId N stops a stream at N (kept, like the reference); unset,
+    the tokenizer's EOS does; 'none' turns stopping off."""
+    def stream(flags):
+        server, url = _serve(flags)
+        try:
+            _, _, raw = _post(url, {"prompt": PROMPTS[0], "max_new": 8,
+                                    "stream": True})
+        finally:
+            server.stop()
+        frames = [json.loads(line[len("data: "):])
+                  for line in raw.split("\n\n")
+                  if line.startswith("data: ")]
+        assert frames[-1]["done"]
+        return [f["token"] for f in frames[:-1]]
+
+    full = stream(["--eosId", "none"])
+    assert len(full) == 8
+    eos = full[3]
+    want = full[:full.index(eos) + 1]
+    assert len(want) < 8
+    assert stream(["--eosId", str(eos)]) == want
+    monkeypatch.setattr(srv, "load_tokenizer",
+                        lambda spec: _EosTokenizer(eos))
+    assert stream(["--tokenizer", "byte"]) == want
+    assert stream(["--tokenizer", "byte", "--eosId", "none"]) == full
+    assert stream(["--tokenizer", "byte", "--eosId", "-1"]) == full
+
+
+def test_surface_flags_refused_with_weight_quant(capsys):
+    base = ["--preset", "tiny", "--device", "cpu", "--port", "0",
+            "--weightQuant", "int8"]
+    for flag in ("--embeddings", "--scoring"):
+        assert srv._main(base + [flag]) == 2
+        assert flag in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        srv.build_parser().parse_args(["--eosId", "1.5"])
 
 
 def test_scheduling_fields_are_served(served):
