@@ -173,7 +173,19 @@ Phases (any failed check exits non-zero without the final line):
    requests (20% priority 0 with a 1500 ms deadline) at once on the fifo
    server, then as Poisson arrivals at 1.2x that rate under fifo and
    slo: TTFT p50/p99 per class, deadlines met, preemptions, re-prefill
-   chunks per preemption (reported, not held to limits). After the
+   chunks per preemption (reported, not held to limits), and the same
+   per class from the server's own timelines (``/debug/requests``: TTFT,
+   queue wait, prefill, decode, p50 and p99). ``obs``: the six requests
+   served dense and paged, at depth 1 and 0, each with attribution off,
+   on (the default) and on with ``--tracing --traceSteps
+   --slowRequestMs 1``: streams bit for bit across the three (tokens
+   across all twelve), K1's launches exactly the run's steps and chunks,
+   every timeline summing to its wall time within 5e-5 s, both
+   ``/metrics`` formats well formed line by line (an exemplar in the
+   OpenMetrics one), the live MFU and bandwidth shares of every busy
+   window polled from ``/v1/health`` within (0, 100%], the host-clock
+   decode step of each run, one request trace's span names and one
+   ``/debug/slow`` entry. After the
    windowed Mistral-7B runs, ``window_relief``: a head waiting on pages
    (its first reservation reads injected pool pressure) evicts the
    decode whose eviction returns the most live pages, not the longest.
@@ -3043,6 +3055,23 @@ def phase_arrivals(torch, server_mod, cfg, params, recovery: dict) -> dict:
                                  "ttft_s_p99": percentile(ttft, 99),
                                  "latency_s_p50": percentile(
                                      [r["latency"] for r in mine], 50)}
+            # the server's own view: every retired request's timeline
+            # (TTFT at its cursor; queue wait, prefill, decode)
+            recs = get_json(url, "/debug/requests")["requests"]
+            timelines = {}
+            for cls in (0, 2):
+                mine = [r for r in recs if r["priority"] == cls]
+                ttft = [r["ttft_s"] for r in mine if r["ttft_s"] is not None]
+                timelines[cls] = {
+                    "n": len(mine), "ttft_s_p50": percentile(ttft, 50),
+                    "ttft_s_p99": percentile(ttft, 99),
+                    **{f"{p}_s_{q}": percentile(
+                        [r["phases"].get(p, 0.0) for r in mine], q)
+                       for p in ("queue_wait", "prefill", "decode")
+                       for q in (50, 99)}}
+            if sum(t["n"] for t in timelines.values()) != len(bodies):
+                fail(f"arrivals {run}: {len(recs)} timelines for "
+                     f"{len(bodies)} requests")
             hi = [r for r, b in zip(results, bodies) if b["priority"] == 0]
             met = sum(r["latency"] <= ARRIVAL_DEADLINE_MS / 1e3 for r in hi)
             pre = health["sched"]["preemptions"]
@@ -3053,6 +3082,7 @@ def phase_arrivals(torch, server_mod, cfg, params, recovery: dict) -> dict:
                             None if run == "closed_fifo"
                             else len(bodies) / float(offsets[-1])),
                         "ttft_by_priority": by_class,
+                        "timeline_by_priority": timelines,
                         "deadlines_met_share": met / len(hi) if hi else None,
                         "preemptions": pre,
                         "prefill_chunks": health["prefill_chunks"],
@@ -3077,6 +3107,361 @@ def phase_arrivals(torch, server_mod, cfg, params, recovery: dict) -> dict:
         emit(run)
     emit(summary)
     return {**out, "summary": summary}
+
+
+# --- phase 4, observability --------------------------------------------------
+
+# phase_obs: the six requests of REQUESTS through the server, dense and
+# paged, at depth 1 and 0, each with attribution off, on (the default),
+# and on with --tracing --traceSteps (and a flight-recorder threshold of
+# 1 ms, so that every request is captured)
+OBS_BASE = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
+            "--chunkedPrefill", "256"]
+OBS_LAYOUTS = {"dense": [], "paged": POOL_65}
+OBS_MODES = {"off": ["--attributionOff"], "on": [],
+             "traced": ["--tracing", "--traceSteps", "--slowRequestMs", "1"]}
+OBS_TIMELINE_TOL = 5e-5   # a timeline's segments against its total_s
+OBS_POLL_S = 0.05         # /v1/health polled for the live roofline
+# the live roofline's window in these runs (the server's is 1 s): the six
+# requests take about a second and a half, so a 1 s window would close
+# once or not at all
+OBS_MFU_WINDOW_S = 0.25
+# the hooks' host cost, timed in a loop of this many 8-slot steps
+OBS_HOOK_STEPS = 20000
+
+_EXPO_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_EXPO_LABELS = r'\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*",?)*\}'
+_EXPO_NUM = r"(?:[-+]?(?:[0-9.]+(?:e[-+]?[0-9]+)?|Inf)|NaN)"
+
+
+def exposition_errors(text: str, openmetrics: bool) -> list[str]:
+    """Lines of a /metrics body that are not well-formed Prometheus text
+    (classic 0.0.4, or OpenMetrics with exemplars and ``# EOF`` last):
+    HELP and TYPE before a family's samples, every sample line a name,
+    optional labels and a number."""
+    import re
+
+    sample = re.compile(
+        rf"^{_EXPO_NAME}(?:{_EXPO_LABELS})? {_EXPO_NUM}"
+        + (rf"(?: # {_EXPO_LABELS} {_EXPO_NUM}(?: {_EXPO_NUM})?)?$"
+           if openmetrics else "$"))
+    meta = re.compile(rf"^# (?:HELP {_EXPO_NAME} .*|TYPE {_EXPO_NAME} "
+                      r"(?:counter|gauge|histogram))$")
+    lines = text.rstrip("\n").split("\n")
+    errors = []
+    if openmetrics:
+        if lines[-1] != "# EOF":
+            errors.append("no '# EOF' last")
+        lines = lines[:-1]
+    for line in lines:
+        if not (meta.match(line) or sample.match(line)):
+            errors.append(line[:160])
+    return errors
+
+
+def get_json(url: str, path: str) -> dict:
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def scrape(url: str, openmetrics: bool) -> str:
+    req = urllib.request.Request(url + "/metrics", headers={
+        "Accept": "application/openmetrics-text; version=1.0.0"}
+        if openmetrics else {})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.read().decode()
+
+
+class HealthPoller:
+    """Polls /v1/health's ``mfu`` every OBS_POLL_S on a thread of its own
+    while the requests run: the live shares close a window each busy
+    second and read 0 once the engine idles."""
+
+    def __init__(self, url: str):
+        self.url = url
+        self.samples: list[dict] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.wait(OBS_POLL_S):
+            mfu = get_health(self.url)[1].get("mfu")
+            if mfu is not None:
+                self.samples.append(mfu)
+
+    def __enter__(self) -> "HealthPoller":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(30)
+
+
+def obs_run(torch, server_mod, kernel_support, rpa, cfg, params, layout: str,
+            depth: int, mode: str, bodies: list) -> dict:
+    """One server of phase_obs: the six requests at once, K1's launches
+    counted for exactly this run, the timelines, the scrape, the live
+    roofline and (traced) a trace and a flight-recorder entry."""
+    run = f"obs_{layout}_depth{depth}_{mode}"
+    flags = [*OBS_BASE, *OBS_LAYOUTS[layout], "--pipelineDepth", str(depth),
+             *OBS_MODES[mode]]
+    args, server, url = start_server(server_mod, flags, params)
+    route = rpa.route_name(args.kvLayout == "paged", args.cacheQuant)
+    try:
+        cb = server.engine.cb
+        if cb.graph is None:
+            fail(f"{run}: the decode step must be a CUDA graph replay")
+        if (cb.attribution is None) != (mode == "off"):
+            fail(f"{run}: attribution {cb.attribution} with mode {mode}")
+        steps0, chunks0 = cb.decode_steps, cb.prefill_chunks
+        # the process's trace ring holds this run's traces only (the step
+        # spans of --traceSteps are two root traces a step)
+        server_mod.get_tracer().clear()
+        if cb.mfu is not None:
+            # the first window opens with the requests, not at the
+            # server's construction (the engine is idle here)
+            cb.mfu.window_s = OBS_MFU_WINDOW_S
+            cb.mfu.on_idle()
+        kernel_support.reset_launch_counts()
+        t0 = time.perf_counter()
+        with HealthPoller(url) as poller:
+            results = post_all(url, bodies, run)
+        wall = time.perf_counter() - t0
+        health = server.engine.stats()
+        decode_steps = health["decode_steps"] - steps0
+        launched = route_launches(run, kernel_support, rpa, route,
+                                  cfg.n_layers, decode_steps,
+                                  health["prefill_chunks"] - chunks0)
+        row = {"phase": 4, "run": run, "flags": flags, "wall_s": wall,
+               **launched, "decode_steps": decode_steps,
+               "decode_step_ms_mean": health["decode_step_ms_mean"],
+               "ttft_s_p50": health["ttft_s_p50"]}
+        classic, om = scrape(url, False), scrape(url, True)
+        for name, text, is_om in (("classic", classic, False),
+                                  ("openmetrics", om, True)):
+            bad = exposition_errors(text, is_om)
+            if bad:
+                fail(f"{run}: malformed {name} /metrics lines: {bad[:5]}")
+        row["scrape_bytes"] = {"classic": len(classic), "openmetrics": len(om)}
+        if mode != "off":
+            if "# {trace_id=" not in om:
+                fail(f"{run}: no exemplar in the OpenMetrics scrape")
+            recs = get_json(url, "/debug/requests")["requests"]
+            if len(recs) != len(bodies):
+                fail(f"{run}: {len(recs)} timelines for {len(bodies)} "
+                     "requests")
+            worst = 0.0
+            for rec in recs:
+                seg = sum(d for _, _, d in rec["segments"])
+                ph = sum(rec["phases"].values())
+                worst = max(worst, abs(seg - rec["total_s"]),
+                            abs(ph - rec["total_s"]))
+            if worst > OBS_TIMELINE_TOL:
+                fail(f"{run}: a timeline misses its wall time by {worst} s")
+            # each closed window once (the poll reads one several times)
+            busy = list({(m["serving_mfu_pct"], m["hbm_bw_util_pct"],
+                          m["window_tokens_per_second"]): m
+                         for m in poller.samples
+                         if m["window_tokens_per_second"] > 0}.values())
+            if not busy:
+                fail(f"{run}: no busy MFU window in {len(poller.samples)} "
+                     "health samples")
+            for m in busy:
+                for key in ("serving_mfu_pct", "hbm_bw_util_pct"):
+                    if not 0 < m[key] <= 100:
+                        fail(f"{run}: {key} read {m[key]} (outside (0, 100])")
+            final = health["mfu"]
+            # the decode steps' own average: the bytes the cost model
+            # priced for them over the host wall of the decode part
+            decode_s = health["decode_step_ms_mean"] * decode_steps / 1e3
+            row["decode_bw_pct"] = (100.0 * final["hbm_gb_total"] * 1e9
+                                    / decode_s / (final["hbm_gbps"] * 1e9))
+            row.update({
+                "timeline_sum_max_err_s": worst,
+                "timeline_phases_s_p50": {
+                    p: percentile([r["phases"].get(p, 0.0) for r in recs], 50)
+                    for p in ("queue_wait", "prefill", "decode")},
+                "mfu": {"generation": final["generation"],
+                        "windows": len(busy),
+                        "serving_mfu_pct": [m["serving_mfu_pct"]
+                                            for m in busy],
+                        "hbm_bw_util_pct": [m["hbm_bw_util_pct"]
+                                            for m in busy],
+                        "window_tokens_per_second": [
+                            m["window_tokens_per_second"] for m in busy],
+                        "model_tflops_total": final["model_tflops_total"],
+                        "hbm_gb_total": final["hbm_gb_total"]},
+                "attribution": health["attribution"]})
+        if mode == "traced":
+            traces = get_json(url, "/debug/traces")
+            # the step traces evict the earlier requests' from the ring
+            # (64 traces): the last to retire is there
+            request_traces = [t for t in traces["traces"]
+                              if t["root"] == "POST /v1/generate"]
+            if not request_traces:
+                fail(f"{run}: no request trace in the ring: "
+                     f"{[t['root'] for t in traces['traces']][:8]}")
+            doc = get_json(url, "/debug/traces/"
+                           + request_traces[0]["trace_id"])
+            names: dict = {}
+            for e in doc["traceEvents"]:
+                if e["ph"] == "X":
+                    names[e["name"]] = names.get(e["name"], 0) + 1
+            for need in ("POST /v1/generate", "request", "admit",
+                         "prefill_chunk", "decode", "retire"):
+                if need not in names:
+                    fail(f"{run}: span {need!r} missing from a request "
+                         f"trace: {names}")
+            slow = get_json(url, "/debug/slow")
+            if slow["captured"] < len(bodies):
+                fail(f"{run}: the flight recorder captured "
+                     f"{slow['captured']} of {len(bodies)} at 1 ms")
+            entry = slow["requests"][0]
+            row.update({
+                "traces_in_ring": traces["total"],
+                "spans_in_ring": sum(t["n_spans"] for t in traces["traces"]),
+                "request_trace_span_names": names,
+                "slow_entry": {**{k: v for k, v in entry.items()
+                                  if k not in ("segments", "steps")},
+                               "steps_kept": len(entry["steps"])}})
+        emit(row)
+        row["tokens"] = [r["tokens"] for r in results]
+        row["logprobs"] = results[WITH_LOGPROBS]["logprobs"]
+        return row
+    finally:
+        server.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def obs_hook_cost(batching, cfg, device) -> dict:
+    """The host cost a step of the hooks, on this machine's host CPU:
+    attribution on (eight slots' inter-token bookkeeping with exemplars
+    and timelines, the dispatch and readback histograms, ``on_step``, the
+    MFU step) and ``--traceSteps``'s two step spans (with the span
+    histogram's listener), each timed over OBS_HOOK_STEPS calls. The
+    served runs' step times move with the requests' arrival order more
+    than by this."""
+    import types
+
+    from k8s_gpu_device_plugin_torch.metrics.exposition import Registry
+    from k8s_gpu_device_plugin_torch.metrics.roofline import (
+        MfuAccumulator,
+        ServingCostModel,
+    )
+    from k8s_gpu_device_plugin_torch.metrics.serving_metrics import (
+        ServingMetrics,
+    )
+    from k8s_gpu_device_plugin_torch.obs.attribution import RequestAttributor
+    from k8s_gpu_device_plugin_torch.obs.prom import SpanMetrics
+    from k8s_gpu_device_plugin_torch.obs.trace import Tracer
+
+    registry = Registry()
+    metrics = ServingMetrics(registry)
+    att = RequestAttributor(metrics=metrics)
+    mfu = MfuAccumulator(ServingCostModel.for_config(cfg, device=device),
+                         metrics=metrics)
+    host = types.SimpleNamespace(metrics=metrics, attribution=att)
+    cb = batching.ContinuousBatcher
+    reqs = []
+    for rid in range(8):
+        req = batching._Request(rid, [1] * 1000, 1 << 30,
+                                t_submit=time.perf_counter())
+        req.timeline = att.start(req)
+        req.t_last_tok = req.t_submit
+        reqs.append(req)
+
+    def attribution_on():
+        _, now = cb._token_tracking(host)
+        for req in reqs:
+            cb._mark_emitted_token(host, req, now)
+        metrics.observe_dispatch(0.0005)
+        metrics.observe_readback(0.008)
+        metrics.on_step(8, 0, 8, 0)
+        mfu.on_step(8, 8, sum(len(r.prompt) + len(r.out) - r.prefilled_out
+                              for r in reqs))
+
+    tracer = Tracer()
+    tracer.enabled = True
+    spans = SpanMetrics(registry).install(tracer)
+
+    def trace_steps():
+        tracer.span("decode_dispatch", component="serving_engine",
+                    step=0).end()
+        tracer.span("decode_readback", component="serving_engine",
+                    step=0).set(emitted=8).end()
+
+    out = {}
+    for name, fn in (("attribution_on", attribution_on),
+                     ("trace_steps", trace_steps)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(OBS_HOOK_STEPS):
+            fn()
+        out[f"{name}_us_per_step"] = (
+            1e6 * (time.perf_counter() - t0) / OBS_HOOK_STEPS)
+    spans.close()
+    metrics.close()
+    return out
+
+
+def phase_obs(torch, server_mod, batching, kernel_support, rpa, cfg,
+              params) -> dict:
+    """Observability on the main path: attribution off / on / traced,
+    dense and paged, depth 1 and 0. Streams (tokens, and the logprobs
+    of request WITH_LOGPROBS) must be bit for bit the same across the
+    three modes, and the tokens across every run; the host-clock decode
+    step of each run is reported beside the others."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)  # phase_serving's six requests
+    bodies = []
+    for i, (plen, max_new) in enumerate(REQUESTS):
+        body = {"prompt": rng.integers(0, cfg.vocab_size, plen).tolist(),
+                "max_new": max_new}
+        if i == STREAMED:
+            body["stream"] = True
+        if i == WITH_LOGPROBS:
+            body["logprobs"] = True
+        bodies.append(body)
+    runs = {}
+    for layout in OBS_LAYOUTS:
+        for depth in (1, 0):
+            triple = {mode: obs_run(torch, server_mod, kernel_support, rpa,
+                                    cfg, params, layout, depth, mode, bodies)
+                      for mode in OBS_MODES}
+            for mode, r in triple.items():
+                if (r["tokens"], r["logprobs"]) != (triple["off"]["tokens"],
+                                                    triple["off"]["logprobs"]):
+                    fail(f"obs {layout} depth {depth}: the {mode} streams "
+                         "differ from attribution off")
+            runs.update({r["run"]: r for r in triple.values()})
+    first = next(iter(runs.values()))
+    for r in runs.values():
+        if r["tokens"] != first["tokens"]:
+            fail(f"{r['run']}: greedy tokens differ from {first['run']}")
+    steady = runs["obs_dense_depth1_on"]["mfu"]
+    summary = {
+        "phase": 4, "run": "obs",
+        "streams_equal": True,
+        "logprobs_equal_all_runs": all(r["logprobs"] == first["logprobs"]
+                                       for r in runs.values()),
+        "decode_step_ms_mean": {name: r["decode_step_ms_mean"]
+                                for name, r in runs.items()},
+        "dense_depth1_bw_pct_max": max(steady["hbm_bw_util_pct"]),
+        "dense_depth1_bw_pct_median": float(np.median(
+            steady["hbm_bw_util_pct"])),
+        "dense_depth1_mfu_pct_median": float(np.median(
+            steady["serving_mfu_pct"])),
+        "dense_depth1_decode_bw_pct": runs["obs_dense_depth1_on"][
+            "decode_bw_pct"],
+        "launches": sum(r["launches"] for r in runs.values()),
+        "hook_cost": obs_hook_cost(batching, cfg, params["embed"].device),
+        "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return {**runs, "summary": summary}
 
 
 # window_relief (phase_window's weights, Mistral-7B at W 4096, the pool of
@@ -4116,6 +4501,9 @@ def main() -> None:
     emit({"phase": 4, "run": "sched_phases_wall_s", **{
         name: b - a for name, a, b in zip(
             ("preempt", "supervisor", "arrivals"), t_sched, t_sched[1:])}})
+    # observability: attribution off / on / traced on the main path
+    obs = phase_obs(torch, server_mod, batching, kernel_support, rpa, cfg,
+                    params)
     # the serving surface: text, n choices, the OpenAI façade, echo
     # scoring and embeddings (K2 at B 1, K1's chunk at T 512)
     surface = phase_surface(torch, server_mod, kernel_support, rpa, scoring,
@@ -4193,7 +4581,8 @@ def main() -> None:
         + sum(prefix[run]["launches"] for run in PREFIX_RUNS)
         + sum(window[run]["launches"] for run in WINDOW_RUNS)
         + sum(spec[run]["launches"] for run in spec_runs)
-        + preempt["launches"] + surface["launches"][rpa.NAME],
+        + preempt["launches"] + surface["launches"][rpa.NAME]
+        + obs["summary"]["launches"],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -4220,6 +4609,11 @@ def main() -> None:
                       "f32_logprob_max_err")},
          "window_relief": window["window_relief"],
          "arrivals": arrivals["summary"],
+         # the served runs of phase_obs (attribution off / on / traced,
+         # dense and paged, depth 1 and 0)
+         "obs": {"launches": obs["summary"]["launches"],
+                 "decode_step_ms_mean": obs["summary"][
+                     "decode_step_ms_mean"]},
          # long-prompt scoring: chunks of 512 over a 4096-row batch-1
          # cache (phase 2's case and the surface run's launches)
          "surface": {

@@ -56,9 +56,22 @@ the same fold to ``resume_out``, tokens another incarnation emitted. A
 ``prefill.dispatch``, ``decode.apply`` and ``prefix.promote`` (raise on
 the engine thread, for the supervisor to recover).
 
+Observability (the reference's seams, all optional): a
+``metrics`` object (``metrics/serving_metrics.py``), a latency
+``attribution`` (``obs/attribution.py``: every request's timeline of
+queue wait, prefill and decode), a live ``mfu`` accumulator
+(``metrics/roofline.py``) and the process tracer's request span trees
+(``obs/trace.py``; ``trace_steps`` adds a span per decode dispatch and
+readback). Every hook runs on the host side of the step: the dispatch
+wrapper and the readback (``_apply_decode_result``), never inside the
+captured CUDA graph, whose body runs once at capture; and each reads
+host counts only, so none adds a device synchronisation. Streams are the
+same bit for bit with all of it attached or absent.
+
 Constructor and ``submit`` arguments the reference has and the port does
-not serve yet (adapters, tensor parallelism, metrics, KV page install,
-...) are refused when set, never ignored.
+not serve yet (adapters, tensor parallelism, the device allocation, KV
+page install) are refused when set, never ignored, naming the ROADMAP
+item that brings them.
 
 The speculative batcher (``models/spec_batching.py``) is a subclass that
 overrides the reference's seams: the prefill's chunk and finish
@@ -95,6 +108,7 @@ from k8s_gpu_device_plugin_torch.models.sampling import (
     sampler_knobs,
     token_logprob,
 )
+from k8s_gpu_device_plugin_torch.obs.trace import attach, get_tracer
 from k8s_gpu_device_plugin_torch.ops import kernel_support
 from k8s_gpu_device_plugin_torch.ops.attention import attention_backend_plan
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
@@ -103,22 +117,19 @@ from k8s_gpu_device_plugin_torch.utils.log import get_logger
 #: prompt to the first bucket that holds it
 DEFAULT_PROMPT_BUCKETS: tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
 
-# the reference's ContinuousBatcher arguments outside this slice, with the
-# value that means "not used"; anything else is refused
+# the reference's ContinuousBatcher arguments the port does not serve
+# yet: (the value that means "not used", the ROADMAP item that brings
+# them); anything else is refused
 _UNSERVED_INIT = {
-    "metrics": None,
-    "adapters": None,
-    "lora_slots": None,
-    "adapter_cache_mb": 0,
-    "trace_steps": False,
-    "tp": None,
-    "attribution": None,
-    "mfu": None,
-    "devices": None,
+    "adapters": (None, "A.10"),
+    "lora_slots": (None, "A.10"),
+    "adapter_cache_mb": (0, "A.10"),
+    "tp": (None, "A.12"),
+    "devices": (None, "A.14"),
 }
 _UNSERVED_SUBMIT = {
-    "adapter": -1,
-    "kv_pages": None,
+    "adapter": (-1, "A.10"),
+    "kv_pages": (None, "A.10"),
 }
 
 
@@ -126,10 +137,11 @@ def _refuse(what: str, given: dict, unserved: dict) -> None:
     for name, value in given.items():
         if name not in unserved:
             raise TypeError(f"{what} got an unexpected argument {name!r}")
-        if value != unserved[name]:
+        unused, item = unserved[name]
+        if value != unused:
             raise NotImplementedError(
                 f"{what}: {name}={value!r} is not served by the PyTorch port "
-                f"yet (leave it at {unserved[name]!r})"
+                f"yet (ROADMAP {item}; leave it at {unused!r})"
             )
 
 
@@ -495,6 +507,18 @@ class _Request:
     t_submit: float = 0.0
     t_first_tok: float = 0.0
     t_done: float = 0.0
+    # the previous emission's instant (the inter-token gaps)
+    t_last_tok: float = 0.0
+    # the request's span tree (obs/trace.py; None when tracing is off)
+    span: object = None
+    decode_span: object = None
+    # the latency timeline (obs/attribution.py; None when attribution is
+    # off: the None check is the hot path's whole cost then)
+    timeline: object = None
+    # prompt tokens that ran through the model for this request (the
+    # chunks' overlap included, prefix-reused rows not): the MFU
+    # layer's per-tenant prefill charge at retirement
+    prefill_computed: int = 0
     # SLO identity (serving/scheduler.py): tenant and priority class
     # (lower = more urgent); ``deadline`` is an absolute perf_counter
     # instant (None = no deadline)
@@ -638,9 +662,22 @@ class ContinuousBatcher:
         #   prompt the first page tranche covers
         scheduler=None,  # serving.scheduler.Scheduler (None = FIFO)
         faults=None,     # serving.faults.FaultPlane (None = disarmed)
+        metrics=None,    # metrics.serving_metrics.ServingMetrics (or None)
+        trace_steps: bool = False,  # a span per decode dispatch/readback
+        attribution=None,  # obs.attribution.RequestAttributor (or None)
+        mfu=None,          # metrics.roofline.MfuAccumulator (or None)
         **unserved,
     ):
         _refuse("ContinuousBatcher", unserved, _UNSERVED_INIT)
+        # observability: all optional, all host side. The tracer is the
+        # process's (every site guards on ``tracer.enabled``); the
+        # decode_dispatch/decode_readback spans are batch-scoped root
+        # traces, opt-in on top of tracing
+        self.metrics = metrics
+        self.attribution = attribution
+        self.mfu = mfu
+        self.tracer = get_tracer()
+        self.trace_steps = bool(trace_steps)
         # the admission policy, duck-typed: None keeps the FIFO admission
         # with no added call; the fifo Scheduler never reorders nor
         # preempts but keeps the SLO ledgers
@@ -815,6 +852,12 @@ class ContinuousBatcher:
         self.decode_s = 0.0
         self.prefill_chunks = 0  # prefill dispatches: chunks or buckets
         self.prefill_s = 0.0
+        if metrics is not None:
+            # both layouts report their reservation, so dense and paged
+            # device bytes compare on /metrics; the backend plan as 1/0
+            metrics.set_kv_reserved_bytes(self.kv_stats()["reserved_bytes"])
+            metrics.set_decode_attn_backend(self.attn_plan)
+            self._report_kv_gauges()
         on_cuda = dev.type == "cuda"
         if decode_graph and not on_cuda:
             raise ValueError(
@@ -1139,7 +1182,27 @@ class ContinuousBatcher:
             # admission control (queue cap, quota charge) before the
             # request queues: a raise leaves the batcher untouched
             self.scheduler.on_submit(req, self)
+        if self.tracer.enabled:
+            # the root of the request's span tree; its parent is the
+            # ambient context: the HTTP span the serving engine attaches
+            # around this call on the engine thread
+            req.span = self.tracer.span(
+                "request", component="serving", rid=rid,
+                prompt_len=len(full), max_new=max_new, tenant=tenant,
+                priority=priority)
+            with attach(req.span):  # the log line carries the trace ids
+                get_logger().debug(
+                    "request submitted",
+                    extra={"fields": {"rid": rid, "prompt_len": len(full),
+                                      "max_new": max_new, "tenant": tenant,
+                                      "priority": priority}})
+        if self.attribution is not None:
+            req.timeline = self.attribution.start(
+                req, trace_id=req.span.trace_id if req.span is not None
+                else "")
         self.pending.append(req)
+        if self.metrics is not None:
+            self.metrics.on_submit()
         return rid
 
     # --- the decode step's per-slot inputs ---
@@ -1188,7 +1251,7 @@ class ContinuousBatcher:
         self._slots_dirty = True
         if req.bias:
             self._bias[slot].zero_()
-        self._release_slot_pages(slot)
+        self._release_slot_pages(slot, req)
 
     # --- paged-KV admission (no-ops on the dense layout) ---
 
@@ -1360,13 +1423,24 @@ class ContinuousBatcher:
                 # the tail pin served only the copy's read: the slot owns
                 # its private copy now
                 self.pool.decref([src])
-            return
-        self.state.pages[slot] = row
-        if req.prefix is not None:
-            # a manual prefix into a paged slot: a real row copy
-            _insert_prefix(self.state, req.prefix.rows, req.prefix.presence,
-                           slot, self.cfg)
-            _KV_COPIES["rows"] += len(req.prefix.tokens)
+            if req.span is not None:
+                self.tracer.span(
+                    "prefix_alias", component="serving", parent=req.span,
+                    pages=len(shared), cow=int(cow is not None),
+                    matched=len(req.prefix.tokens)).end()
+        else:
+            self.state.pages[slot] = row
+            if req.prefix is not None:
+                # a manual prefix into a paged slot: a real row copy
+                _insert_prefix(self.state, req.prefix.rows,
+                               req.prefix.presence, slot, self.cfg)
+                _KV_COPIES["rows"] += len(req.prefix.tokens)
+        if req.span is not None:
+            self.tracer.span(
+                "page_alloc", component="serving", parent=req.span,
+                pages=len(new), aliased=len(shared),
+                free=self.pool.free_pages).end()
+        self._report_kv_gauges()
 
     # --- incremental reservation and out-of-window recycling ---
 
@@ -1387,22 +1461,33 @@ class ContinuousBatcher:
                 self._flt_pool_alloc.fire()
             except self._fault_error:
                 # injected pool pressure mid-prompt: the chunk defers
-                self.chunks_deferred += 1
+                self._count_chunk_deferral()
                 return False
         if grow > self.pool.free_pages and self.prefix_cache is not None:
             # the admission's pressure valve, mid-prompt
             while grow > self.pool.free_pages and self.prefix_cache.evict_one():
                 pass
         if grow > self.pool.free_pages:
-            self.chunks_deferred += 1
+            self._count_chunk_deferral()
             get_logger().debug(
                 "prefill chunk deferred: KV pool pressure (rid %d needs %d "
                 "pages, %d free)", req.rid, grow, self.pool.free_pages)
             return False
-        ids += self.pool.alloc(grow)
+        new = self.pool.alloc(grow)
+        self._slot_pages[slot] = ids = ids + new
         self.state.pages[slot] = self._h2d(
             ids + [0] * (self.state.pages.shape[1] - len(ids)), torch.int32)
+        if req.span is not None:
+            self.tracer.span(
+                "page_grow", component="serving", parent=req.span,
+                pages=grow, free=self.pool.free_pages).end()
+        self._report_kv_gauges()
         return True
+
+    def _count_chunk_deferral(self) -> None:
+        self.chunks_deferred += 1
+        if self.metrics is not None:
+            self.metrics.on_prefill_chunk_deferred("pool_pressure")
 
     def _recycle_slot_pages(self, slot: int, pos: int) -> None:
         """Free the pages no future query of this row can attend: queries
@@ -1432,21 +1517,34 @@ class ContinuousBatcher:
         self._recycle_lo[slot] = dead
         self.state.pages[slot, lo:dead] = 0
         if batch:
-            self._pages_recycled += self.pool.recycle(batch)
+            freed = self.pool.recycle(batch)
+            self._pages_recycled += freed
+            if freed and self.metrics is not None:
+                self.metrics.on_kv_pages_recycled(freed)
+            self._report_kv_gauges()
 
-    def _release_slot_pages(self, slot: int) -> None:
-        """Drop the slot's page references when its request retires or
-        is cancelled: pages shared with the prefix cache (or other
-        slots) stay until their last holder lets go, recycled entries (0)
-        were freed already. The table row stays as it is: the decode step
-        masks an inactive slot's row to the trap page, and the next
-        admission overwrites it."""
+    def _release_slot_pages(self, slot: int,
+                            req: "_Request | None" = None) -> None:
+        """Drop the slot's page references when its request (``req``)
+        retires or is cancelled: pages shared with the prefix cache (or
+        other slots) stay until their last holder lets go, recycled
+        entries (0) were freed already. The table row stays as it is: the
+        decode step masks an inactive slot's row to the trap page, and the
+        next admission overwrites it."""
         if self.pool is None:
             return
         self._recycle_lo.pop(slot, None)
         ids = self._slot_pages.pop(slot, None)
-        if ids:
-            self.pool.decref([p for p in ids if p])
+        if not ids:
+            return
+        freed = self.pool.decref([p for p in ids if p])
+        if self.tracer.enabled:
+            self.tracer.span(
+                "page_free", component="serving",
+                parent=req.span if req is not None else None,
+                pages=len(ids), freed=len(freed),
+                free=self.pool.free_pages).end()
+        self._report_kv_gauges()
 
     def _release_pinned(self, req: _Request) -> None:
         """Give back the match-time page pins of a request that will not
@@ -1458,6 +1556,17 @@ class ContinuousBatcher:
     def _count_kv_rejection(self, reason: str) -> None:
         with self._kv_rejections_lock:
             self._kv_rejections[reason] += 1
+        if self.metrics is not None:
+            self.metrics.on_kv_admission_rejected(reason)
+
+    def _report_kv_gauges(self) -> None:
+        """The paged pool's occupancy gauges (the dense layout has
+        none)."""
+        if self.metrics is None or self.pool is None:
+            return
+        s = self.kv_stats()
+        self.metrics.set_kv_pages(s["pages_total"], s["pages_in_use"],
+                                  s["fragmentation_pct"])
 
     def kv_rejections(self) -> dict:
         """Paged admissions refused (``request_too_large``) or made to
@@ -1547,7 +1656,12 @@ class ContinuousBatcher:
                 # the hit decides how many pages alias and how many are
                 # allocated
                 req.matched = True
+                t_match = (time.perf_counter() if req.timeline is not None
+                           else 0.0)
                 hit = self.prefix_cache.match(req.prompt, -1, count=False)
+                if req.timeline is not None:
+                    req.timeline.prefix_match_s += (time.perf_counter()
+                                                    - t_match)
                 if hit is not None:
                     req.prefix, req.match_depth = hit
                     req.cached_tokens = self.prefix_cache.effective_reuse(
@@ -1559,19 +1673,41 @@ class ContinuousBatcher:
                         pin = list(req.prefix.page_ids)
                         self.pool.incref(pin)
                         req.pinned_pages = pin
-            if self.pool is not None and not self._reserve_pages(req):
-                break  # head-of-line wait: pages free as slots retire
+            if self.pool is not None:
+                t_pages = (time.perf_counter() if req.timeline is not None
+                           else 0.0)
+                reserved = self._reserve_pages(req)
+                if req.timeline is not None:
+                    req.timeline.page_alloc_s += (time.perf_counter()
+                                                  - t_pages)
+                if not reserved:
+                    break  # head-of-line wait: pages free as slots retire
             self.pending.pop(0)
             req.slot = slot = free.pop(0)
             if self.scheduler is not None:
                 # the commit point: queue wait and the WFQ charge land
                 # here, past every cancellable wait
                 self.scheduler.on_admitted(req, self, time.perf_counter())
+            if req.timeline is not None:
+                # the attribution cursor leaves queue_wait where the admit
+                # span ends: at the slot assignment
+                req.timeline.advance("prefill", time.perf_counter())
             if req.matched:
                 self.prefix_cache.record_match(req.match_depth,
                                                len(req.prompt))
+            if req.span is not None:
+                # the admit span covers the queue wait: backdated to the
+                # submit, ended at the slot assignment
+                self.tracer.span("admit", component="serving",
+                                 parent=req.span, t0=req.t_submit,
+                                 slot=slot).end()
             if self.pool is not None:
+                t_inst = (time.perf_counter() if req.timeline is not None
+                          else 0.0)
                 self._install_pages(req, slot)
+                if req.timeline is not None:
+                    req.timeline.page_alloc_s += (time.perf_counter()
+                                                  - t_inst)
             self._open_slot(req, slot)
             if self.chunk:
                 start = 0
@@ -1584,7 +1720,7 @@ class ContinuousBatcher:
                         _KV_COPIES["rows"] += len(req.prefix.tokens)
                     start = len(req.prefix.tokens)
                     self._count_prefill_tokens(req.cached_tokens,
-                                               "prefix_reused")
+                                               "prefix_reused", req)
                 self.prefilling[slot] = req
                 self._prefill_pos[slot] = start
                 self._on_prefill_scheduled(req, slot, start)
@@ -1593,24 +1729,43 @@ class ContinuousBatcher:
             bucket = _bucket(plen, self.buckets)
             padded = self._h2d(req.prompt + [0] * (bucket - plen),
                                torch.int64)
-            t0 = time.perf_counter()
-            tok, logp = prefill_insert(
-                self.params, self.state, padded, plen, slot, self.cfg,
-                self._req_knobs(req), req.max_new, self.generator,
-                bias=self._bias[slot:slot + 1],
-                seeds=self.state.seeds[slot:slot + 1],
-            )
-            self._count_prefill_tokens(plen, "computed")
-            self._first_token(req, slot, tok, logp, t0)
+            span = None
+            if req.span is not None:
+                span = self.tracer.span(
+                    "prefill", component="serving", parent=req.span,
+                    bucket=bucket, prompt_len=plen)
+            try:
+                t0 = time.perf_counter()
+                tok, logp = prefill_insert(
+                    self.params, self.state, padded, plen, slot, self.cfg,
+                    self._req_knobs(req), req.max_new, self.generator,
+                    bias=self._bias[slot:slot + 1],
+                    seeds=self.state.seeds[slot:slot + 1],
+                )
+                self._first_token(req, slot, tok, logp, t0)
+            finally:  # a raised dispatch must not pin the trace open
+                if span is not None:
+                    span.end()
+            self._count_prefill_tokens(plen, "computed", req)
+            self._on_first_token(req)
             self._finish_if_done(req)
         return n
 
-    def _count_prefill_tokens(self, n: int, source: str) -> None:
+    def _count_prefill_tokens(self, n: int, source: str,
+                              req: _Request) -> None:
         """Prefill work by provenance: ``computed`` tokens ran through
         the model (the finish chunk's overlap included: it is real
-        compute), ``prefix_reused`` ones came from a prefix's rows."""
-        if n > 0:
-            self.prefill_tokens[source] += n
+        compute) and are charged to ``req`` and the MFU layer,
+        ``prefix_reused`` ones came from a prefix's rows."""
+        if n <= 0:
+            return
+        self.prefill_tokens[source] += n
+        if self.metrics is not None:
+            self.metrics.on_prefill_tokens(n, source)
+        if source == "computed":
+            req.prefill_computed += n
+            if self.mfu is not None:
+                self.mfu.on_prefill_tokens(n)
 
     def _wait_prefill(self, done: "torch.cuda.Event | None",
                       t0: float) -> None:
@@ -1639,15 +1794,34 @@ class ContinuousBatcher:
     def _first_token(self, req: _Request, slot: int, tok: torch.Tensor,
                      logp: torch.Tensor, t0: float) -> None:
         """A prefill's first token reaches the host: the request moves
-        to running (the caller then retires it if that token ends it)."""
+        to running (the caller then records it, :meth:`_on_first_token`,
+        and retires the request if that token ends it)."""
         self._wait_prefill(self._done_event(), t0)
         req.out.append(int(tok[0]))
         req.out_logp.append(float(logp[0]))
-        if not req.t_first_tok:
-            # a resumed admission's token is an emission, not a first one
-            req.t_first_tok = time.perf_counter()
         self.running[slot] = req
         self._slots_dirty = True
+
+    def _on_first_token(self, req: _Request) -> None:
+        """The prefill's token: TTFT (a resumed admission's token is an
+        emission, not a first one: its TTFT was taken at the first
+        admission), the timeline leaves prefill, the decode span opens."""
+        now = time.perf_counter()
+        req.t_last_tok = now
+        first = not req.t_first_tok
+        if first:
+            req.t_first_tok = now
+        if self.metrics is not None:
+            self.metrics.on_first_token()
+            if first:
+                self.metrics.observe_ttft(
+                    now - req.t_submit,
+                    req.timeline.xid if req.timeline is not None else None)
+        if req.timeline is not None:
+            req.timeline.advance("decode", now)
+        if req.span is not None:
+            req.decode_span = self.tracer.span(
+                "decode", component="serving", parent=req.span)
 
     def _prefill_one_chunk(self) -> None:
         """Advance the oldest mid-prefill request by one chunk; on its
@@ -1670,27 +1844,47 @@ class ContinuousBatcher:
                     else plen + req.max_new - req.prefilled_out)
             if not self._grow_slot_pages(slot, req, upto):
                 return
+        final = start + c >= plen
+        # the finish chunk is scheduled at plen - c (all real tokens)
+        fstart = max(0, plen - c) if final else start
+        span = None
+        if req.span is not None:
+            span = self.tracer.span(
+                "prefill_chunk", component="serving", parent=req.span,
+                start=fstart, tokens=c, **({"final": True} if final else {}))
         t0 = time.perf_counter()
-        if start + c < plen:  # intermediate chunk, all real tokens
-            chunk = self._h2d(req.prompt[start:start + c], torch.int64)
-            self._apply_prefill_chunk(chunk, start, slot)
-            # nothing reads this chunk back: wait for it here, or its
-            # device time would be charged to the next decode step
-            self._wait_prefill(self._done_event(), t0)
+        try:
+            if not final:  # intermediate chunk, all real tokens
+                chunk = self._h2d(req.prompt[start:start + c], torch.int64)
+                self._apply_prefill_chunk(chunk, start, slot)
+                # nothing reads this chunk back: wait for it here, or its
+                # device time would be charged to the next decode step
+                self._wait_prefill(self._done_event(), t0)
+            else:
+                rest = req.prompt[fstart:]
+                chunk = self._h2d(rest + [0] * (c - len(rest)), torch.int64)
+                tok, logp = self._apply_prefill_finish(chunk, fstart, plen,
+                                                       slot)
+                del self.prefilling[slot], self._prefill_pos[slot]
+                self._first_token(req, slot, tok, logp, t0)
+        finally:  # a raised dispatch must not pin the trace open
+            if span is not None:
+                span.end()
+        if req.timeline is not None:
+            now = time.perf_counter()
+            req.timeline.add_chunk(now, now - t0)
+        if not final:
             self._prefill_pos[slot] = start + c
             # recycle behind the cursor, floored at the finish chunk's
             # back-scheduled start: its overlap rewrites those rows and
             # its queries attend them
             self._recycle_slot_pages(slot, min(start + c, max(plen - c, 0)))
-            self._count_prefill_tokens(c, "computed")
+            self._count_prefill_tokens(c, "computed", req)
+            if self.metrics is not None:
+                self.metrics.on_prefill_chunk()
             return
-        fstart = max(0, plen - c)
-        rest = req.prompt[fstart:]
-        chunk = self._h2d(rest + [0] * (c - len(rest)), torch.int64)
-        tok, logp = self._apply_prefill_finish(chunk, fstart, plen, slot)
-        del self.prefilling[slot], self._prefill_pos[slot]
-        self._count_prefill_tokens(plen - fstart, "computed")
-        self._first_token(req, slot, tok, logp, t0)
+        self._count_prefill_tokens(plen - fstart, "computed", req)
+        self._on_first_token(req)
         # decode queries start at plen: everything below plen - window is
         # dead now (promotion then sees the recycled row and skips it)
         self._recycle_slot_pages(slot, plen)
@@ -1752,6 +1946,9 @@ class ContinuousBatcher:
                 return ids
 
             self.prefix_cache.on_prefill_done(req.prompt, -1, extract)
+            # the gauges once a promotion pass, after the cache owns every
+            # extracted boundary's references
+            self._report_kv_gauges()
             return
         slot = req.slot
 
@@ -1777,6 +1974,7 @@ class ContinuousBatcher:
                            self.cfg, self._knobs, self.generator,
                            bias=self._bias, seeds=self.state.seeds)
 
+    # graftlint: hot-path
     def _decode_dispatch(self) -> tuple:
         """The device half of a decode step: one replay of the captured
         graph (or one eager step) over the persistent inputs, returning
@@ -1787,6 +1985,7 @@ class ContinuousBatcher:
             return self.graph.replay()
         return self._eager_step()
 
+    # graftlint: hot-path
     def _apply_decode_result(self, arrs: tuple) -> int:
         """The host half: the step's results (on the host already) ->
         the per-token work. Returns the tokens emitted."""
@@ -1797,10 +1996,16 @@ class ContinuousBatcher:
         emitted, logps = (x.tolist() for x in arrs)
         return self._apply_emitted(emitted, logps)
 
+    # graftlint: hot-path
     def _dispatch_decode(self) -> None:
         """Enqueue one decode step without waiting for it: its results
         start for the host at once (pinned buffers, an event) and wait in
         ``_inflight`` with the slots it counted live."""
+        span = None
+        if self.trace_steps and self.tracer.enabled:
+            span = self.tracer.span("decode_dispatch",
+                                    component="serving_engine",
+                                    step=self._step_no)
         t0 = time.perf_counter()
         self._refresh_slot_inputs()
         arrs = self._decode_dispatch()
@@ -1820,18 +2025,37 @@ class ContinuousBatcher:
                                    tuple(self.running))
         self._step_no += 1
         self.decode_steps += 1
-        self.decode_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.decode_s += dt
+        if span is not None:
+            span.end()
+        if self.metrics is not None:
+            self.metrics.observe_dispatch(dt)
 
+    # graftlint: hot-path
     def _read_step(self, inflight: "_Inflight | None") -> int:
         """Read a dispatched step back and run the host's per-token work
-        for it; None (the pipeline's first step) reads nothing."""
+        for it; None (the pipeline's first step) reads nothing. The wait
+        for the step's results is the one place the loop blocks on the
+        device; the readback span and histogram cover it and the host
+        work."""
         if inflight is None:
             return 0
+        span = None
+        if self.trace_steps and self.tracer.enabled:
+            span = self.tracer.span("decode_readback",
+                                    component="serving_engine",
+                                    step=inflight.step_no)
         t0 = time.perf_counter()
         if inflight.event is not None:
             inflight.event.synchronize()
         self.decode_s += time.perf_counter() - t0
-        return self._apply_decode_result(inflight.arrs)
+        n = self._apply_decode_result(inflight.arrs)
+        if span is not None:
+            span.set(emitted=n).end()
+        if self.metrics is not None:
+            self.metrics.observe_readback(time.perf_counter() - t0)
+        return n
 
     def _decode_once(self) -> int:
         """One synchronous decode step: dispatch, then read it back."""
@@ -1858,20 +2082,26 @@ class ContinuousBatcher:
         if prev is None:
             return 0
         self.pipeline_flushes += 1
+        if self.metrics is not None:
+            self.metrics.on_pipeline_flush()
         return self._read_step(prev)
 
+    # graftlint: hot-path
     def _apply_emitted(self, emitted: list, logps: list) -> int:
         """Append one read-back step's tokens and logprobs and retire what
         finished. Slots no longer running (retired or cancelled since the
         dispatch) and -1 sentinels are skipped: the lag-by-one drop that
         makes the pipeline exact."""
         n = 0
+        track, now = self._token_tracking()
         for slot, req in list(self.running.items()):
             tok = emitted[slot]
             if tok >= 0:
                 n += 1
                 req.out.append(tok)
                 req.out_logp.append(logps[slot])
+                if track:
+                    self._mark_emitted_token(req, now)
                 self._finish_if_done(req)
                 # sliding-window decode: pages leave the window as the
                 # row advances, so its footprint stays O(window); a slot
@@ -1881,6 +2111,31 @@ class ContinuousBatcher:
                     len(req.prompt) + len(req.out) - req.prefilled_out - 1)
         self.decode_tokens += n
         return n
+
+    # graftlint: hot-path
+    def _token_tracking(self) -> tuple[bool, float]:
+        """Per-readback setup of the inter-token bookkeeping, shared by
+        the plain and the speculative readback: (track, now); ``track``
+        is False, and ``now`` unread, when neither metrics nor
+        attribution want per-token facts."""
+        track = self.metrics is not None or self.attribution is not None
+        return track, time.perf_counter() if track else 0.0
+
+    # graftlint: hot-path
+    def _mark_emitted_token(self, req: _Request, now: float) -> None:
+        """One emitted token: the gap since the request's previous one
+        feeds the inter-token histogram (with the request's exemplar) and
+        its timeline. A round of speculative tokens arrives as one burst:
+        its first token carries the round's gap, the rest 0."""
+        if req.t_last_tok:
+            gap = now - req.t_last_tok
+            if self.metrics is not None:
+                self.metrics.observe_inter_token(
+                    gap, req.timeline.xid if req.timeline is not None
+                    else None)
+            if req.timeline is not None:
+                req.timeline.add_itl(now, gap)
+        req.t_last_tok = now
 
     def _finish_if_done(self, req: _Request) -> None:
         """EOS, a stop sequence, or budget exhaustion retires the request
@@ -1905,6 +2160,7 @@ class ContinuousBatcher:
             # the deadline disposition (goodput or a miss) commits here;
             # a cancel while queued refunds the quota charge
             self.scheduler.on_retired(req, self, reason, req.t_done)
+        self._observe_retired(req, reason)
 
     def _retire_rejected(self, req: _Request, now: float) -> None:
         """The scheduler expired this queued request (its pool-pressure
@@ -1914,6 +2170,51 @@ class ContinuousBatcher:
         self.done_requests[req.rid] = req
         req.t_done = now
         self.scheduler.on_retired(req, self, "rejected", now)
+        self._observe_retired(req, "rejected")
+
+    def _observe_retired(self, req: _Request, reason: str) -> None:
+        """Every retirement's wrap-up (finish, cancel, reject) after
+        ``t_done``: the finish counter, the MFU layer's per-tenant charge
+        (goodput by the scheduler's rule: nothing when the deadline was
+        missed, cancelled or rejected), the timeline, the span tree."""
+        if self.metrics is not None:
+            self.metrics.on_finish(reason)
+        missed = req.deadline is not None and req.t_done > req.deadline
+        if self.mfu is not None:
+            goodput = (0 if missed or reason in ("cancelled", "rejected")
+                       else len(req.out))
+            self.mfu.on_retired(req, goodput)
+        if req.timeline is not None:
+            self.attribution.on_retired(req, reason, req.t_done,
+                                        deadline_missed=missed)
+        if req.span is None:
+            return
+        if req.decode_span is not None:
+            req.decode_span.set(tokens=len(req.out)).end()
+            req.decode_span = None
+        self.tracer.span("retire", component="serving", parent=req.span,
+                         reason=reason).end()
+        with attach(req.span):  # the log line carries the trace ids
+            get_logger().debug(
+                "request retired",
+                extra={"fields": {"rid": req.rid, "reason": reason,
+                                  "tokens": len(req.out)}})
+        req.span.set(reason=reason, tokens=len(req.out)).end()
+        req.span = None
+
+    def attribution_stats(self) -> "dict | None":
+        """The attribution layer's counters for ``/v1/health`` (None when
+        it is off); the timelines stay behind ``/debug/requests`` and
+        ``/debug/slow``."""
+        if self.attribution is None:
+            return None
+        return self.attribution.count_stats()
+
+    def mfu_stats(self) -> "dict | None":
+        """The live MFU/roofline snapshot (None when it is off)."""
+        if self.mfu is None:
+            return None
+        return self.mfu.mfu_stats()
 
     def _preempt_slot(self, slot: int) -> int:
         """Evict the decoding request in ``slot`` and requeue it for a
@@ -1945,9 +2246,25 @@ class ContinuousBatcher:
         self._close_slot(req, slot)
         req.fold()
         req.preemptions += 1
+        if req.timeline is not None:
+            # the decode segment closes at the eviction and a queue_wait
+            # opens (the resumed admission closes it): the phase sums stay
+            # exact across preemption cycles
+            req.timeline.advance("queue_wait", time.perf_counter())
+        if req.decode_span is not None:
+            req.decode_span.set(tokens=len(req.out)).end()
+            req.decode_span = None
+        if req.span is not None:
+            self.tracer.span("preempt", component="serving",
+                             parent=req.span, slot=slot,
+                             emitted=len(req.out)).end()
         if self.scheduler is not None:
             self.scheduler.on_preempted(req, self, time.perf_counter())
         self.pending.insert(1 if self.pending else 0, req)
+        if req.span is not None:
+            self.tracer.span("requeue", component="serving",
+                             parent=req.span,
+                             queued=len(self.pending)).end()
         return n
 
     def cancel(self, rid: int) -> bool:
@@ -1971,6 +2288,7 @@ class ContinuousBatcher:
                     return True
         return False
 
+    # graftlint: hot-path
     def step(self) -> int:
         """Admit what fits, prefill (a bucketed prompt at admission, or
         one chunk), then one decode step for the whole batch. Returns the
@@ -1992,20 +2310,36 @@ class ContinuousBatcher:
             n += self._flush_inflight()
         n += self._admit()
         self._prefill_one_chunk()
-        if not self.running:
+        if self.running:
+            n += self._decode_part()
+        elif not n:
             return n
+        # host counts only: the per-step hooks add no device work
+        if self.metrics is not None:
+            self.metrics.on_step(n, len(self.pending), len(self.running),
+                                 len(self.prefilling))
+        if self.mfu is not None:
+            live = sum(len(r.prompt) + len(r.out) - r.prefilled_out
+                       for r in self.running.values())
+            self.mfu.on_step(n, len(self.running), live)
+        return n
+
+    # graftlint: hot-path
+    def _decode_part(self) -> int:
+        """The step's decode with requests running: synchronous, or the
+        pipeline's dispatch-ahead. Returns the tokens read back."""
         if not self.pipeline_depth:
-            return n + self._decode_once()
+            return self._decode_once()
         prev, self._inflight = self._inflight, None
         if prev is not None and self._inflight_covers_rest(prev):
             # the budgets retire every running request with the step in
             # flight: read it rather than dispatch a step of sentinels
-            n += self._read_step(prev)
+            n = self._read_step(prev)
             if self.running:  # never on budget; EOS and stop can't
                 self._dispatch_decode()
             return n
         self._dispatch_decode()
-        return n + self._read_step(prev)
+        return self._read_step(prev)
 
     def run(self, max_steps: "int | None" = None) -> dict[int, list[int]]:
         """Drive until every submitted request finished (or max_steps)."""
@@ -2154,8 +2488,15 @@ def _paged_release_hook(cb: ContinuousBatcher):
 
     def release(entry) -> None:
         live = wref()
-        if live is not None:
-            live.pool.decref(entry.page_ids)
+        if live is None:
+            return
+        freed = live.pool.decref(entry.page_ids)
+        if live.tracer.enabled:
+            live.tracer.span(
+                "page_free", component="serving",
+                pages=len(entry.page_ids), freed=len(freed),
+                free=live.pool.free_pages).end()
+        live._report_kv_gauges()
 
     return release
 

@@ -51,9 +51,13 @@ f32 they are equal); inside the speculative batcher dense and paged,
 cache on and off, and depth 0 and 1 are equal bit for bit in tokens and
 logprobs. Sampled streams are target-distributed, not token-equal.
 
+Observability: the ``on_spec_round`` metrics hook (the accepted-per-
+round histogram), the ``draft_backfill`` span and the timeline's
+``spec_rounds``, all on the host half of the round (its readback), as
+the base batcher's are.
+
 Left out (refused or absent, each in ROADMAP.md): tensor-parallel
-drafts, adapters, the ``on_spec_round`` metrics hook, the
-``draft_backfill`` span and the timeline's ``spec_rounds``.
+drafts, adapters.
 """
 
 from __future__ import annotations
@@ -439,8 +443,9 @@ class SpeculativeBatcher(ContinuousBatcher):
         self.draft_state.pages[slot] = self._h2d(
             ids + [0] * (width - len(ids)), torch.int32)
 
-    def _release_slot_pages(self, slot: int) -> None:
-        super()._release_slot_pages(slot)
+    def _release_slot_pages(self, slot: int,
+                            req: "_Request | None" = None) -> None:
+        super()._release_slot_pages(slot, req)
         # a slot cancelled mid-backfill must not hand its queue to the
         # next occupant (every retire and cancel path comes here)
         self._draft_backfill.pop(slot, None)
@@ -542,14 +547,24 @@ class SpeculativeBatcher(ContinuousBatcher):
                 s = pending.pop(0)
                 if not pending:
                     del self._draft_backfill[slot]
-                # a window past ``start`` holds real prompt tokens the
-                # mirrored chunks rewrite identically; padding rows lie
-                # past the prompt, never attended before they are written
-                rest = req.prompt[s:s + self.chunk]
-                chunk = self._h2d(rest + [0] * (self.chunk - len(rest)),
-                                  torch.int64)
-                prefill_chunk(self.draft_params, self.draft_state, chunk, s,
-                              slot, self.draft_cfg)
+                span = None
+                if req.span is not None:
+                    span = self.tracer.span(
+                        "draft_backfill", component="serving",
+                        parent=req.span, start=s, tokens=self.chunk)
+                try:
+                    # a window past ``start`` holds real prompt tokens the
+                    # mirrored chunks rewrite identically; padding rows lie
+                    # past the prompt, never attended before they are
+                    # written
+                    rest = req.prompt[s:s + self.chunk]
+                    chunk = self._h2d(
+                        rest + [0] * (self.chunk - len(rest)), torch.int64)
+                    prefill_chunk(self.draft_params, self.draft_state, chunk,
+                                  s, slot, self.draft_cfg)
+                finally:
+                    if span is not None:
+                        span.end()
                 self.draft_backfill_chunks += 1
                 return
         super()._prefill_one_chunk()
@@ -564,6 +579,7 @@ class SpeculativeBatcher(ContinuousBatcher):
             self._allowed, self.cfg, self.draft_cfg, self.gamma, self.sampler,
             self.generator)
 
+    # graftlint: hot-path
     def _decode_dispatch(self) -> tuple:
         # the gamma reservation: a running slot has len(out) < max_new,
         # so its round's rows end inside the slot
@@ -573,6 +589,7 @@ class SpeculativeBatcher(ContinuousBatcher):
                     f"request {req.rid}: the gamma reservation is violated")
         return super()._decode_dispatch()
 
+    # graftlint: hot-path
     def _apply_decode_result(self, arrs: tuple) -> int:
         emitted, counts, logps = (x.tolist() for x in arrs)
         # acceptance from the device counts, not the running map: a slot
@@ -580,7 +597,12 @@ class SpeculativeBatcher(ContinuousBatcher):
         # really drafted and scored its proposals
         accepted = [c for c in counts if c > 0]
         n_emitted = 0
+        # a round's accepted tokens reach the client as one burst: the
+        # first carries the round's gap, the rest about 0
+        track, now = self._token_tracking()
         for slot, req in list(self.running.items()):
+            if req.timeline is not None and counts[slot] > 0:
+                req.timeline.spec_rounds += 1
             for j in range(counts[slot]):
                 tok = emitted[slot][j]
                 if tok < 0:
@@ -588,6 +610,8 @@ class SpeculativeBatcher(ContinuousBatcher):
                 n_emitted += 1
                 req.out.append(tok)
                 req.out_logp.append(logps[slot][j])
+                if track:
+                    self._mark_emitted_token(req, now)
                 self._finish_if_done(req)
                 if req.rid in self.done:
                     break  # EOS, a stop or the budget mid-round: drop the tail
@@ -595,6 +619,8 @@ class SpeculativeBatcher(ContinuousBatcher):
             self._spec_rounds += 1
             self._spec_drafted += self.gamma * len(accepted)
             self._spec_accepted += sum(accepted)
+            if self.metrics is not None:
+                self.metrics.on_spec_round(self.gamma, accepted)
         self.decode_tokens += n_emitted
         return n_emitted
 

@@ -25,9 +25,11 @@ no second serving path):
 
 Errors use OpenAI's envelope (``error.type`` ``invalid_request_error``,
 ``server_error`` for 5xx, ``rate_limit_error`` with ``Retry-After`` for
-429). Not served yet, and refused: a ``model`` naming anything but the
-base model (404 ``model_not_found``: adapters, ROADMAP A.10) and
-``timeline`` (400: latency attribution, A.9).
+429). ``"timeline": true`` adds the primary choice's latency timeline to
+the (non-streamed) envelope, null with ``--attributionOff``, as the
+reference's extension field. Not served yet, and refused: a ``model``
+naming anything but the base model (404 ``model_not_found``: adapters,
+ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -192,9 +194,9 @@ class OpenAIRoutes:
         """Fields both endpoints share, validated. ``max_new`` is None when
         max_tokens was omitted: each endpoint applies its own default.
         ``allow_zero_max_tokens`` admits 0 for echo scoring."""
-        if "timeline" in body:
-            raise ValueError("field 'timeline' is not implemented by this "
-                             "server yet")
+        timeline = body.get("timeline", False)
+        if not isinstance(timeline, bool):
+            raise ValueError("timeline must be a boolean")
         n = int(body.get("n", 1))
         if not 1 <= n <= MAX_N:
             raise ValueError(f"n must be in [1, {MAX_N}]")
@@ -234,7 +236,7 @@ class OpenAIRoutes:
             "stop": stop_lists, "sampler": sampler, "model": model,
             "logit_bias": logit_bias, "seed": seed,
             "tenant": body.get("tenant"), "priority": body.get("priority"),
-            "deadline_ms": body.get("deadline_ms"),
+            "deadline_ms": body.get("deadline_ms"), "timeline": timeline,
         }
 
     def _budget(self, c: dict, prompt: list[int],
@@ -572,7 +574,7 @@ class OpenAIRoutes:
                 reject, max((i.get("retry_after", 1) for i in infos),
                             default=1))
             return
-        handler._json(200, {
+        envelope = {
             "id": oai_id,
             "object": object_name,
             "created": created,
@@ -586,7 +588,11 @@ class OpenAIRoutes:
                 "completion_tokens": completion_tokens,
                 "total_tokens": len(prompt) + completion_tokens,
             },
-        })
+        }
+        if c["timeline"]:
+            # the extension field: the primary choice's timeline
+            envelope["timeline"] = infos[0].get("timeline")
+        handler._json(200, envelope)
 
     def _stream(self, handler, q, oai_id: str, created: int, c: dict,
                 chat: bool, rid: int, want_logprobs: bool,

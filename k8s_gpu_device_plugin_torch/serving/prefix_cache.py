@@ -2,9 +2,10 @@
 KV rows of prompts the engine already prefilled.
 
 Port of ``k8s_gpu_device_plugin_tpu/serving/prefix_cache.py``
-(``prefix_kv_bytes``, ``PrefixCacheStats``, ``PrefixCache``), without
-its tracing spans. Plain Python over token ids; the only device work is
-the row extraction the batcher hands to :meth:`PrefixCache.on_prefill_done`.
+(``prefix_kv_bytes``, ``PrefixCacheStats``, ``PrefixCache``, its spans
+``prefix_match``, ``prefix_promote``, ``prefix_evict`` and its metrics
+hooks). Plain Python over token ids; the only device work is the row
+extraction the batcher hands to :meth:`PrefixCache.on_prefill_done`.
 
 - The tree is keyed by ``(adapter, tokens)``: K/V rows depend on the
   weights that produced them. ``adapter=-1`` is the base model's root.
@@ -44,6 +45,7 @@ from k8s_gpu_device_plugin_torch.models.batching import (
 )
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
 from k8s_gpu_device_plugin_torch.models.paging import kv_token_bytes
+from k8s_gpu_device_plugin_torch.obs.trace import get_tracer
 
 
 def prefix_kv_bytes(cfg: LlamaConfig, p: int) -> int:
@@ -123,7 +125,7 @@ class PrefixCache:
     #: dispatch is refused. 0 = uncapped.
     chunk: int = 0
     #: a duck-typed metrics hook (``on_prefix_hit``, ``on_prefix_miss``,
-    #: ``on_prefix_evict``, ``set_prefix_resident_bytes``); None here
+    #: ``on_prefix_evict``, ``set_prefix_resident_bytes``), or None
     metrics: object = None
     #: entry constructor, rebound by a paged batcher (its extractor
     #: returns page ids and its entries are ``PagedPrefixState``)
@@ -145,6 +147,7 @@ class PrefixCache:
             raise ValueError(f"min_hits must be >= 1, got {self.min_hits}")
         self._roots: dict[int, _Node] = {}
         self._lru: "OrderedDict[_Node, None]" = OrderedDict()
+        self._tracer = get_tracer()
 
     # --- submit side ---
 
@@ -199,6 +202,10 @@ class PrefixCache:
         saved = self.effective_reuse(depth, prompt_len)
         self.stats.tokens_saved += saved
         self._hook("on_prefix_hit", saved)
+        if self._tracer.enabled:
+            self._tracer.span(
+                "prefix_match", component="prefix_cache", matched=depth,
+                saved=saved, prompt_len=prompt_len, adapter=adapter).end()
 
     def effective_reuse(self, matched: int, prompt_len: int) -> int:
         """This cache's view of :func:`effective_prefix_reuse`."""
@@ -267,6 +274,11 @@ class PrefixCache:
         self.stats.entries += 1
         self.stats.resident_bytes += nbytes
         self._report_residency()
+        if self._tracer.enabled:
+            self._tracer.span(
+                "prefix_promote", component="prefix_cache",
+                prefix_len=node.depth, bytes=nbytes, adapter=adapter,
+                hits=node.hits).end()
 
     # --- eviction ---
 
@@ -310,6 +322,10 @@ class PrefixCache:
             self._hook("on_prefix_evict", freed)
         self.stats.nodes -= nodes
         self._report_residency()
+        if self._tracer.enabled:
+            self._tracer.span(
+                "prefix_evict_adapter", component="prefix_cache",
+                adapter=adapter, entries=evicted, nodes=nodes).end()
         return evicted
 
     def evict_one(self) -> bool:
@@ -323,7 +339,7 @@ class PrefixCache:
 
     def _evict_lru(self, keep: "_Node | None" = None) -> None:
         node, _ = self._lru.popitem(last=False)
-        freed = node.entry_bytes
+        freed, depth = node.entry_bytes, node.depth
         if self.release_entry is not None:
             # the page references go back BEFORE the tree forgets the
             # entry (requests that matched it hold their own pins)
@@ -345,6 +361,9 @@ class PrefixCache:
             node = node.parent
         self._report_residency()
         self._hook("on_prefix_evict", freed)
+        if self._tracer.enabled:
+            self._tracer.span("prefix_evict", component="prefix_cache",
+                              prefix_len=depth, bytes=freed).end()
 
     def _report_residency(self) -> None:
         self._hook("set_prefix_resident_bytes", self.stats.resident_bytes,

@@ -1,9 +1,11 @@
 """SLO-aware request scheduling for the serving engine.
 
-Port of ``k8s_gpu_device_plugin_tpu/serving/scheduler.py``, without its
-tracing span and its metrics hooks (the port has no observability layer
-yet): the same policies, ledgers, orderings, victims, Retry-After hints
-and ``sched_stats`` for the same sequence of calls.
+Port of ``k8s_gpu_device_plugin_tpu/serving/scheduler.py``: the same
+policies, ledgers, orderings, victims, Retry-After hints and
+``sched_stats`` for the same sequence of calls, the ``sched_queue`` span
+and the metrics hooks (``observe_queue_wait``, ``on_sched_rejected``,
+``on_deadline_miss``, ``on_goodput``, ``on_preemption``) through the
+batcher's ``metrics``.
 
 This module decides WHICH work runs when there is more of it than the
 card can hold. The batcher keeps owning the pending list
@@ -60,6 +62,8 @@ import math
 import threading
 import time
 from dataclasses import dataclass
+
+from k8s_gpu_device_plugin_torch.obs.trace import get_tracer
 
 
 #: the serving edge's defaults (applied in InferenceEngine.submit — a
@@ -319,6 +323,7 @@ class Scheduler:
         self.rejections = {
             "queue_full": 0, "defer_budget": 0, "adapter_quota": 0,
         }
+        self._tracer = get_tracer()
 
     # --- shared helpers ---------------------------------------------------
 
@@ -396,6 +401,8 @@ class Scheduler:
             st.rejected += 1
             with self._rej_lock:
                 self.rejections["adapter_quota"] += 1
+            if cb.metrics is not None:
+                cb.metrics.on_sched_rejected("adapter_quota")
             raise SchedulerOverloadError(
                 f"adapter {name!r} is over its request-rate quota "
                 f"({quota.rate:g} tokens/s); retry later",
@@ -476,6 +483,17 @@ class Scheduler:
         # fifo policy keeps the ledger too, so flipping --schedPolicy
         # changes ordering, not observability
         ts.vtime += self.request_cost(req) / ts.quota.weight
+        if cb.metrics is not None:
+            cb.metrics.observe_queue_wait(now - req.t_submit)
+        if self._tracer.enabled and req.span is not None:
+            # the scheduling span covers the queue wait (t0 backdated),
+            # with the SLO identity the admit span does not carry
+            self._tracer.span(
+                "sched_queue", component="sched", parent=req.span,
+                t0=req.t_submit, tenant=req.tenant, priority=req.priority,
+                deadline_in_ms=(round((req.deadline - now) * 1000.0)
+                                if req.deadline is not None else None),
+            ).end()
 
     def on_retired(self, req, cb, reason: str, now: float) -> None:
         ts = self._tenant(req.tenant, now)
@@ -500,6 +518,8 @@ class Scheduler:
             ts.rejected += 1
             with self._rej_lock:
                 self.rejections["defer_budget"] += 1
+            if cb.metrics is not None:
+                cb.metrics.on_sched_rejected("defer_budget")
             return
         if reason == "cancelled":
             return  # the client left: neither goodput nor a miss
@@ -507,21 +527,29 @@ class Scheduler:
         if req.deadline is not None and now > req.deadline:
             ts.deadline_misses += 1
             goodput = 0  # late tokens are not goodput
+            if cb.metrics is not None:
+                cb.metrics.on_deadline_miss(req.tenant, now - req.deadline)
         ts.goodput_tokens += goodput
+        if cb.metrics is not None and goodput:
+            cb.metrics.on_goodput(req.tenant, str(req.priority), goodput)
 
     def on_preempted(self, req, cb, now: float) -> None:
         ts = self._tenant(req.tenant, now)
         ts.preempted += 1
         self.preemptions += 1
+        if cb.metrics is not None:
+            cb.metrics.on_preemption()
 
     def count_sync_rejection(self, cb) -> None:
         """A submit-time queue-full raise never reaches the batcher;
         the HTTP plane reports it here so the rejection still lands in
-        the stats. Runs OFF the engine thread — the one sanctioned
-        write, under ``_rej_lock``. ``cb`` is the reference's signature
-        (its metrics hook); the port's stats need only the count."""
+        the stats and metrics. Runs OFF the engine thread — the one
+        sanctioned write, under ``_rej_lock`` (the metric families lock
+        themselves)."""
         with self._rej_lock:
             self.rejections["queue_full"] += 1
+        if cb is not None and cb.metrics is not None:
+            cb.metrics.on_sched_rejected("queue_full")
 
     # --- cross-thread snapshot --------------------------------------------
 

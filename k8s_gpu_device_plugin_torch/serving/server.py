@@ -31,8 +31,11 @@ Wire contract (the reference's):
   ``"prompt"`` (not with ``resume_out``), ``"stop_text"`` adds encoded
   stop strings, and the answer and the SSE done event carry the decoded
   ``"text"`` (a resumed request's covers the whole output; n > 1 adds
-  ``completions_text``). A field the port does not implement yet
-  (``adapter``, ``timeline``, ``kv_pages``, ...) answers 400 naming it,
+  ``completions_text``). ``"timeline": true`` adds the request's latency
+  timeline (``obs/attribution.py``: queue wait, prefill and decode
+  segments summing to its wall time; null with ``--attributionOff``) to
+  the answer and to the SSE done event. A field the port does not
+  implement yet (``adapter``, ``kv_pages``, ...) answers 400 naming it,
   as does a ``logit_bias`` that is not an object of integer keys and
   numbers, or a malformed scheduling or resume field; a request no slot
   can hold, a bias outside the batcher's
@@ -55,14 +58,32 @@ Wire contract (the reference's):
   graph's pool bytes, replays and launches a replay makes), the
   kernels' launch counts, the scheduler's snapshot (``sched``) and the
   supervisor's (``supervisor``: state, restart budget, crashes,
-  restarts, requests replayed and resumed).
+  restarts, requests replayed and resumed), the live roofline (``mfu``:
+  the card's peaks, the last busy second's MFU and bandwidth share,
+  per-tenant goodput per TFLOP) and the attribution counters
+  (``attribution``), both absent with ``--attributionOff``.
+- Observability: ``GET /metrics`` (the classic Prometheus text, or
+  OpenMetrics with trace-id exemplars when the client's ``Accept`` asks
+  for ``application/openmetrics-text``; the families of
+  ``metrics/serving_metrics.py`` on the server's own registry),
+  ``GET /debug/traces?limit=&since=`` (the trace ring's summaries; a
+  malformed query answers 400), ``GET /debug/traces/{trace_id}`` (one
+  trace as Perfetto JSON), ``GET /debug/requests`` and
+  ``/debug/requests/{rid}`` (recent timelines) and ``GET /debug/slow``
+  (the flight recorder; all three 404 with ``--attributionOff``).
+  ``--tracing`` turns the span trees on: each request gets a
+  ``serving_http`` span that joins a caller's ``traceparent`` and
+  answers one, the batcher's request tree under it; ``--traceSteps``
+  adds a span per decode dispatch and readback. Attribution and the
+  roofline are on by default, tracing is off, as in the reference.
 - The OpenAI façade (``serving/openai_api.py``) on the same engine:
   ``POST /v1/completions``, ``POST /v1/chat/completions``, ``GET
   /v1/models`` and ``POST /v1/embeddings`` (``--embeddings``); echo
   prompt scoring on ``/v1/completions`` with ``--scoring``.
 
-Routes are a table (``_GET_ROUTES``, ``_POST_ROUTES``) on one
-``http.server`` handler. ``--eosId`` has the reference's three states:
+Routes are a table (``_GET_ROUTES``, ``_POST_ROUTES``; a trailing
+``{name}`` segment matches one path segment) on one ``http.server``
+handler. ``--eosId`` has the reference's three states:
 unset adopts the tokenizer's EOS (none without one), ``none`` or -1
 turns EOS stopping off, an id stops on that id.
 
@@ -126,10 +147,17 @@ import sys
 import threading
 from dataclasses import replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
 import torch
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
+from k8s_gpu_device_plugin_torch.metrics.exposition import Registry
+from k8s_gpu_device_plugin_torch.metrics.roofline import (
+    MfuAccumulator,
+    ServingCostModel,
+)
+from k8s_gpu_device_plugin_torch.metrics.serving_metrics import ServingMetrics
 from k8s_gpu_device_plugin_torch.models.batching import (
     DEFAULT_PROMPT_BUCKETS,
     ContinuousBatcher,
@@ -143,6 +171,24 @@ from k8s_gpu_device_plugin_torch.models.quantized_serving import (
 )
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
 from k8s_gpu_device_plugin_torch.models.spec_batching import SpeculativeBatcher
+from k8s_gpu_device_plugin_torch.obs.attribution import RequestAttributor
+from k8s_gpu_device_plugin_torch.obs.http import (
+    is_observation_path,
+    parse_trace_query,
+    route_label,
+    trace_detail_payload,
+    traces_payload,
+)
+from k8s_gpu_device_plugin_torch.obs.prom import SpanMetrics
+from k8s_gpu_device_plugin_torch.obs.trace import (
+    TRACEPARENT_HEADER,
+    attach,
+    configure,
+    current_context,
+    format_traceparent,
+    get_tracer,
+    parse_traceparent,
+)
 from k8s_gpu_device_plugin_torch.ops.kernel_support import launch_counts
 from k8s_gpu_device_plugin_torch.serving.embeddings import Embedder
 from k8s_gpu_device_plugin_torch.serving.faults import FaultError, FaultPlane
@@ -175,7 +221,8 @@ _KNOBS = {"temperature": float, "top_k": int, "top_p": float,
           "repetition_penalty": float}
 _FIELDS = {"prompt", "text", "max_new", "stream", "logprobs", "stop",
            "stop_text", "seed", "n", "logit_bias", "tenant", "priority",
-           "deadline_ms", "resume_out", "resume_logprobs", *_KNOBS}
+           "deadline_ms", "resume_out", "resume_logprobs", "timeline",
+           *_KNOBS}
 #: choices one request may ask for (each holds a decode slot)
 MAX_N = 8
 
@@ -288,6 +335,11 @@ class InferenceEngine:
             with self._lock:
                 queued_local = len(self._subq)
             sched.check_capacity(len(cb.pending) + queued_local)
+        # the thread hop: the batcher admits on the engine thread, where
+        # this thread's context is invisible, so the active span (the
+        # HTTP handler's) rides on the submission and is attached around
+        # the batcher's submit there
+        parent = current_context() if get_tracer().enabled else None
         q: queue.Queue = queue.Queue()
         with self._lock:
             # death re-checked under the lock: ``_die`` empties the
@@ -298,7 +350,7 @@ class InferenceEngine:
             self._next_eid += 1
             self._subq.append((eid, prompt, max_new, stop, sampler, seed,
                                bias, tenant, priority, deadline_ms,
-                               (resume_out, resume_logp)))
+                               (resume_out, resume_logp), parent))
             self._streams[eid] = q
             # the published cursor starts past the resumed tokens
             self._published[eid] = len(resume_out)
@@ -343,6 +395,15 @@ class InferenceEngine:
         if self.supervisor is not None:
             # crash recovery: state, budget, replay and resume tallies
             out["supervisor"] = self.supervisor.stats()
+        mfu = cb.mfu_stats()
+        if mfu is not None:
+            # the live roofline: the card's peaks, the windowed MFU and
+            # bandwidth shares, per-tenant goodput per TFLOP
+            out["mfu"] = mfu
+        attr = cb.attribution_stats()
+        if attr is not None:
+            # counts only: the timelines live on /debug/requests, /slow
+            out["attribution"] = attr
         kv = {**cb.kv_stats(), "admission_rejected": cb.kv_rejections()}
         if cb.pool is not None:
             kv["prefill_chunks_deferred"] = cb.chunks_deferred
@@ -383,13 +444,14 @@ class InferenceEngine:
         with self._lock:
             batch, self._subq = self._subq, []
         for (eid, prompt, max_new, stop, sampler, seed, bias, tenant,
-             priority, deadline_ms, resume) in batch:
+             priority, deadline_ms, resume, parent) in batch:
             try:
-                rid = self.cb.submit(
-                    prompt, max_new, stop=stop, sampler=sampler, seed=seed,
-                    logit_bias=bias, tenant=tenant, priority=priority,
-                    deadline_ms=deadline_ms, resume_out=resume[0],
-                    resume_logp=resume[1])
+                with attach(parent):  # the request tree joins the HTTP span
+                    rid = self.cb.submit(
+                        prompt, max_new, stop=stop, sampler=sampler,
+                        seed=seed, logit_bias=bias, tenant=tenant,
+                        priority=priority, deadline_ms=deadline_ms,
+                        resume_out=resume[0], resume_logp=resume[1])
             except SchedulerOverloadError as e:
                 # the request thread's queue-cap check raced a burst: the
                 # stream closes with the rejection, its handler answers 429
@@ -443,6 +505,10 @@ class InferenceEngine:
         """A retired request's wrap-up: record what its handler answers
         besides the tokens, then end its stream."""
         info = {"cached_tokens": req.cached_tokens}
+        if req.timeline is not None and req.timeline.record is not None:
+            # the finalized timeline (a plain dict built at retirement on
+            # this thread): the handler exports it when asked
+            info["timeline"] = req.timeline.record
         if req.reject_reason is not None:
             # rejected while queued (the deferral budget): a 429
             info["reject_reason"] = req.reject_reason
@@ -514,6 +580,7 @@ class InferenceEngine:
                 return
 
     def _loop_inner(self) -> None:
+        busy = False
         while not self._stop.is_set():
             self._admit_submissions()
             self._apply_cancellations()
@@ -521,10 +588,19 @@ class InferenceEngine:
             if cb.pending or cb.running or cb.prefilling:
                 cb.step()
                 self._publish()
-            else:
-                self._publish()
-                self._work.wait(timeout=0.05)
-                self._work.clear()
+                busy = True
+                continue
+            self._publish()
+            if busy:
+                # busy -> idle: the throughput and MFU gauges read 0
+                # while idle, not the last busy window's values
+                busy = False
+                if cb.metrics is not None:
+                    cb.metrics.on_idle()
+                if cb.mfu is not None:
+                    cb.mfu.on_idle()
+            self._work.wait(timeout=0.05)
+            self._work.clear()
 
     def _die(self, code: str, message: str) -> None:
         """The dead state: every open stream gets a structured
@@ -629,13 +705,16 @@ def _parse_request(body, tokenizer=None) -> dict:
             not isinstance(resume_lp, list)
             or not all(isinstance(x, (int, float)) for x in resume_lp)):
         raise ValueError("resume_logprobs must be a list of numbers")
+    timeline = body.get("timeline", False)
+    if not isinstance(timeline, bool):
+        raise ValueError("timeline must be a boolean")
     return {
         "prompt": prompt, "max_new": max_new, "stop": stop,
         "sampler": Sampler(**given) if given else None,
         "seed": seed,
         "logit_bias": _parse_logit_bias(body.get("logit_bias")),
         **sched, "resume_out": resume_out, "resume_logp": resume_lp,
-        "n": n, "stream": stream,
+        "n": n, "stream": stream, "timeline": timeline,
         "logprobs": bool(body.get("logprobs", False)),
     }
 
@@ -677,22 +756,58 @@ def submit_choices(engine: "InferenceEngine", prompt: list[int], n: int,
     return subs
 
 
+def _match_route(table: dict, path: str) -> "tuple | None":
+    """(template, (owner, method), the trailing parameter or None) of the
+    route ``path`` takes: an exact path, or a template whose last segment
+    is ``{name}`` and matches one segment."""
+    name = table.get(path)
+    if name is not None:
+        return path, name, None
+    head, _, tail = path.rpartition("/")
+    if not tail:
+        return None
+    for template, name in table.items():
+        if template.endswith("}") and template.rpartition("/")[0] == head:
+            return template, name, tail
+    return None
+
+
 class _Handler(BaseHTTPRequestHandler):
     server: "InferenceServer"
+    #: the matched route's template (the span label), its parameter and
+    #: the query string
+    route_template: "str | None" = None
+    route_param: "str | None" = None
+    query = ""
+    #: the request's serving_http span while one is open (its
+    #: traceparent goes out on the response), and the status sent
+    _span = None
+    _status = 0
 
     def log_message(self, fmt, *args) -> None:  # route access logs to debug
         log.debug("http: " + fmt, *args)
 
-    def _json(self, status: int, payload: dict,
+    def send_response(self, code: int, message: "str | None" = None) -> None:
+        self._status = code
+        super().send_response(code, message)
+        if self._span is not None:
+            self.send_header(TRACEPARENT_HEADER,
+                             format_traceparent(self._span))
+
+    def _send(self, status: int, data: bytes, content_type: str,
               headers: "dict | None" = None) -> None:
-        data = json.dumps(payload).encode()
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
+
+    def _json(self, status: int, payload: dict,
+              headers: "dict | None" = None) -> None:
+        self._send(status, json.dumps(payload).encode(), "application/json",
+                   headers)
 
     def _overloaded(self, message: str, reason: str,
                     retry_after: int) -> None:
@@ -722,11 +837,38 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.flush()
 
     def _route(self, table: dict) -> None:
-        name = table.get(self.path.split("?", 1)[0])
-        if name is None:
+        path, _, self.query = self.path.partition("?")
+        hit = _match_route(table, path)
+        self.route_template, self.route_param = (
+            (hit[0], hit[2]) if hit is not None else (None, None))
+        tracer = get_tracer()
+        remote = (parse_traceparent(self.headers.get(TRACEPARENT_HEADER))
+                  if tracer.enabled else None)
+        if not tracer.enabled or (remote is None
+                                  and is_observation_path(path)):
+            # telemetry reads may join a trace but never start one: a
+            # root span per probe or scrape would evict the request
+            # traces from the ring
+            self._dispatch(hit)
+            return
+        # the route's template names the span (a bounded histogram
+        # label); it is the ambient parent of everything the handler
+        # does, the engine's submit included
+        with tracer.span(f"{self.command} {route_label(self)}",
+                         component="serving_http", parent=remote,
+                         method=self.command, path=path) as span:
+            self._span = span
+            try:
+                self._dispatch(hit)
+            finally:
+                self._span = None
+                span.set(status_code=self._status)
+
+    def _dispatch(self, hit: "tuple | None") -> None:
+        if hit is None:
             self._json(404, {"error": f"no route {self.path}"})
             return
-        owner, method = name
+        owner, method = hit[1]
         if owner == "native":
             getattr(self, method)()
             return
@@ -755,6 +897,68 @@ class _Handler(BaseHTTPRequestHandler):
                 return
         stats = self.server.engine.stats()
         self._json(200 if stats["alive"] else 503, stats)
+
+    def metrics(self) -> None:
+        """The server's registry: OpenMetrics (exemplars, ``# EOF``) when
+        the client accepts it, else the classic text format."""
+        om = "application/openmetrics-text" in self.headers.get("Accept", "")
+        text = self.server.registry.render(openmetrics=om)
+        self._send(200, text.encode(),
+                   "application/openmetrics-text; version=1.0.0; "
+                   "charset=utf-8" if om else
+                   "text/plain; version=0.0.4; charset=utf-8")
+
+    def debug_traces(self) -> None:
+        query = {k: v[-1] for k, v in
+                 parse_qs(self.query, keep_blank_values=True).items()}
+        try:
+            limit, since = parse_trace_query(query)
+        except ValueError as e:
+            self._json(400, {"error": str(e)})
+            return
+        self._json(200, traces_payload(get_tracer(), limit=limit,
+                                       since_us=since))
+
+    def debug_trace_one(self) -> None:
+        payload = trace_detail_payload(get_tracer(), self.route_param)
+        if payload is None:
+            self._json(404, {"error": "trace not in buffer"})
+            return
+        self._json(200, payload)
+
+    def _attributor(self):
+        """The engine's attributor (read through its snapshot methods
+        only), or None after a 404 when attribution is off."""
+        att = self.server.engine.cb.attribution
+        if att is None:
+            self._json(404, {"error": "attribution disabled (start without "
+                                      "--attributionOff)"})
+        return att
+
+    def debug_requests(self) -> None:
+        att = self._attributor()
+        if att is not None:
+            self._json(200, att.request_stats())
+
+    def debug_request_one(self) -> None:
+        att = self._attributor()
+        if att is None:
+            return
+        try:
+            rid = int(self.route_param)
+        except ValueError:
+            self._json(400, {"error": "rid must be an integer"})
+            return
+        record = att.get(rid)
+        if record is None:
+            self._json(404, {"error": "request not in the timeline buffer"})
+            return
+        self._json(200, record)
+
+    def debug_slow(self) -> None:
+        att = self._attributor()
+        if att is not None:
+            self._json(200, att.slow_stats())
 
     def generate(self) -> None:
         server = self.server
@@ -791,7 +995,8 @@ class _Handler(BaseHTTPRequestHandler):
         resumed = list(req["resume_out"] or [])
         if req["stream"]:
             eid, q = subs[0]
-            self._stream(engine, eid, q, req["logprobs"], resumed)
+            self._stream(engine, eid, q, req["logprobs"], resumed,
+                         req["timeline"])
             return
         drained = [drain_queue(q) for _, q in subs]
         err = next((d[2] for d in drained if d[2] is not None), None)
@@ -815,20 +1020,27 @@ class _Handler(BaseHTTPRequestHandler):
                                         for i in infos)}
         if req["logprobs"]:
             payload["logprobs"] = drained[0][1]
+        if req["timeline"]:
+            # the primary choice's record (null under --attributionOff)
+            payload["timeline"] = infos[0].get("timeline")
         if req["n"] > 1:
             payload["completions"] = [d[0] for d in drained]
             if req["logprobs"]:
                 payload["completions_logprobs"] = [d[1] for d in drained]
         if tokenizer is not None:
             # a resumed request's text covers the whole output
-            payload["text"] = tokenizer.decode(resumed + drained[0][0])
-            if req["n"] > 1:
-                payload["completions_text"] = [tokenizer.decode(d[0])
-                                               for d in drained]
+            full = resumed + drained[0][0]
+            with get_tracer().span("detokenize", component="serving",
+                                   tokens=len(full)):
+                payload["text"] = tokenizer.decode(full)
+                if req["n"] > 1:
+                    payload["completions_text"] = [tokenizer.decode(d[0])
+                                                   for d in drained]
         self._json(200, payload)
 
     def _stream(self, engine: InferenceEngine, eid: int, q: queue.Queue,
-                want_logprobs: bool, streamed: list[int]) -> None:
+                want_logprobs: bool, streamed: list[int],
+                want_timeline: bool) -> None:
         """SSE frames of one request; ``streamed`` starts as its resumed
         tokens, so the done event's text covers the whole output."""
         self.start_sse({"X-Request-Id": str(eid)})
@@ -848,8 +1060,13 @@ class _Handler(BaseHTTPRequestHandler):
                         # only when the cache served part of the prompt:
                         # the common done event stays lean
                         evt["cached_tokens"] = info["cached_tokens"]
+                    if want_timeline:
+                        evt["timeline"] = info.get("timeline")
                     if tokenizer is not None:
-                        evt["text"] = tokenizer.decode(streamed)
+                        with get_tracer().span("detokenize",
+                                               component="serving",
+                                               tokens=len(streamed)):
+                            evt["text"] = tokenizer.decode(streamed)
                 elif isinstance(item, StreamError):
                     evt = {"error": {"code": item.code,
                                      "message": item.message}}
@@ -868,7 +1085,13 @@ class _Handler(BaseHTTPRequestHandler):
 #: path -> (owner, method): "native" methods are the handler's own,
 #: "openai" ones ``serving/openai_api.py``'s ``OpenAIRoutes``
 _GET_ROUTES = {"/v1/health": ("native", "health"),
-               "/v1/models": ("openai", "models")}
+               "/v1/models": ("openai", "models"),
+               "/metrics": ("native", "metrics"),
+               "/debug/traces": ("native", "debug_traces"),
+               "/debug/traces/{trace_id}": ("native", "debug_trace_one"),
+               "/debug/requests": ("native", "debug_requests"),
+               "/debug/requests/{rid}": ("native", "debug_request_one"),
+               "/debug/slow": ("native", "debug_slow")}
 _POST_ROUTES = {"/v1/generate": ("native", "generate"),
                 "/v1/completions": ("openai", "completions"),
                 "/v1/chat/completions": ("openai", "chat_completions"),
@@ -882,7 +1105,14 @@ class InferenceServer(ThreadingHTTPServer):
     fires). ``tokenizer`` (``serving/tokenizer.py``) serves text;
     ``embedder`` (``serving/embeddings.py``) enables ``/v1/embeddings``
     and ``scorer`` (``serving/scoring.py``) echo prompt scoring: both
-    built, and warmed, before the engine thread starts."""
+    built, and warmed, before the engine thread starts.
+
+    ``registry`` (``metrics/exposition.py``) is this server's own, what
+    ``/metrics`` renders (a fresh empty one when not given); ``metrics``
+    (the ``ServingMetrics`` on it) and ``span_metrics`` (``--tracing``'s
+    span histograms, installed on the process tracer) are released by
+    :meth:`stop`, which also turns the tracer off when ``span_metrics``
+    says this server turned it on."""
 
     daemon_threads = True
     # the listen backlog: a burst of clients connecting at once must queue,
@@ -891,9 +1121,15 @@ class InferenceServer(ThreadingHTTPServer):
 
     def __init__(self, engine: InferenceEngine, host: str = "0.0.0.0",
                  port: int = 8000, faults=None, tokenizer=None,
-                 embedder=None, scorer=None):
+                 embedder=None, scorer=None,
+                 registry: "Registry | None" = None,
+                 metrics: "ServingMetrics | None" = None,
+                 span_metrics: "SpanMetrics | None" = None):
         super().__init__((host, port), _Handler)
         self.engine = engine
+        self.registry = registry if registry is not None else Registry()
+        self.metrics = metrics
+        self.span_metrics = span_metrics
         self.tokenizer = tokenizer
         self.embedder = embedder
         self.scorer = scorer
@@ -909,12 +1145,18 @@ class InferenceServer(ThreadingHTTPServer):
         self._thread.start()
 
     def stop(self) -> None:
-        """Stop serving, then stop the engine."""
+        """Stop serving, then stop the engine; unregister this server's
+        metric families and detach its span histograms."""
         self.shutdown()
         self.server_close()
         if self._thread is not None:
             self._thread.join(10)
         self.engine.shutdown()
+        if self.metrics is not None:
+            self.metrics.close()
+        if self.span_metrics is not None:
+            self.span_metrics.close()
+            configure(enabled=False)
 
 
 def load_params(cfg: LlamaConfig, *, seed: int = 0,
@@ -1101,6 +1343,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "schedules, e.g. 'decode.apply:nth=40,pool.alloc:"
                         "p=0.25:seed=3:times=6'; also read from "
                         "TPU_SERVING_FAULTS; empty = disarmed")
+    parser.add_argument("--tracing", action="store_true",
+                        help="span tracing (obs/): request span trees on "
+                        "GET /debug/traces, trace ids in JSON logs, span-"
+                        "duration histograms on /metrics; default off")
+    parser.add_argument("--traceSteps", action="store_true",
+                        help="with --tracing: a span per decode dispatch "
+                        "and readback (batch-scoped traces; shows the "
+                        "pipeline overlap)")
+    parser.add_argument("--attributionOff", action="store_true",
+                        help="disable per-request latency attribution and "
+                        "the live MFU accounting: no timelines on the done "
+                        "payloads or /debug/requests, no /debug/slow flight "
+                        "recorder, no mfu on /v1/health (token and logprob "
+                        "streams are the same either way)")
+    parser.add_argument("--slowRequestMs", type=float, default=0.0,
+                        help="flight-recorder threshold: requests at least "
+                        "this slow keep their step-level detail on GET "
+                        "/debug/slow (deadline misses always do); 0 = the "
+                        "window's p99 once 32 requests have retired")
     return parser
 
 
@@ -1156,6 +1417,18 @@ def build_server(args: argparse.Namespace,
     cfg = replace(PRESETS[args.preset](), cache_quant=args.cacheQuant)
     if args.attnWindow:
         cfg = replace(cfg, sliding_window=args.attnWindow)
+    # the server's own registry and families; attribution and the live
+    # roofline are on unless --attributionOff (the reference's default),
+    # priced at the serving card's peaks (a card missing from the table
+    # raises here, before any weights are drawn)
+    registry = Registry()
+    metrics = ServingMetrics(registry)
+    attribution = mfu = None
+    if not args.attributionOff:
+        attribution = RequestAttributor(slow_ms=args.slowRequestMs,
+                                        metrics=metrics)
+        mfu = MfuAccumulator(ServingCostModel.for_config(cfg, device=device),
+                             metrics=metrics)
     # the automatic prefix cache: on wherever it can work (chunked
     # prefill continues a prefill from the matched boundary), over the
     # bucket ladder cut at --maxLen
@@ -1165,7 +1438,8 @@ def build_server(args: argparse.Namespace,
             and args.chunkedPrefill > 0 and buckets):
         prefix_cache = PrefixCache(cfg, buckets=buckets,
                                    budget_bytes=args.prefixCacheMB << 20,
-                                   min_hits=args.prefixCacheMinHits)
+                                   min_hits=args.prefixCacheMinHits,
+                                   metrics=metrics)
     if params is None:
         params = load_params(cfg, seed=args.seed, device=device)
         params = quantize_weights(params, args.weightQuant)
@@ -1190,7 +1464,9 @@ def build_server(args: argparse.Namespace,
         kv_page_size=args.kvPageSize if args.kvLayout == "paged" else None,
         kv_pages=args.kvPages, prefix_cache=prefix_cache,
         prefill_reserve_chunks=args.prefillReserveChunks,
-        scheduler=scheduler, faults=faults)
+        scheduler=scheduler, faults=faults, metrics=metrics,
+        trace_steps=args.traceSteps and args.tracing,
+        attribution=attribution, mfu=mfu)
     if args.draftPreset:
         draft_cfg = PRESETS[args.draftPreset]()
         # the draft is drawn as the target is (--seed, then --weightQuant):
@@ -1216,9 +1492,15 @@ def build_server(args: argparse.Namespace,
         engine = InferenceEngine(make_batcher=make_batcher,
                                  supervisor=supervisor,
                                  default_deadline_ms=args.defaultDeadlineMs)
+    # tracing last: nothing above may fail with the process tracer on
+    span_metrics = None
+    if args.tracing:
+        span_metrics = SpanMetrics(registry).install(configure(enabled=True))
     return InferenceServer(engine, host=args.host, port=args.port,
                            faults=faults, tokenizer=tokenizer,
-                           embedder=embedder, scorer=scorer)
+                           embedder=embedder, scorer=scorer,
+                           registry=registry, metrics=metrics,
+                           span_metrics=span_metrics)
 
 
 def _main(argv: "list[str] | None" = None) -> int:
@@ -1237,6 +1519,9 @@ def _main(argv: "list[str] | None" = None) -> int:
     finally:
         server.server_close()
         server.engine.shutdown()
+        if server.span_metrics is not None:
+            server.span_metrics.close()
+            configure(enabled=False)
     return 0
 
 

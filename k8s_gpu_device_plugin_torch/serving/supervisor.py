@@ -1,8 +1,9 @@
 """Engine supervisor: in-replica crash recovery for the serving engine.
 
 Port of ``k8s_gpu_device_plugin_tpu/serving/supervisor.py``
-(``RollingBudget``, ``StreamError``, ``EngineSupervisor``), without its
-spans, on the port's ``queue.Queue`` streams.
+(``RollingBudget``, ``StreamError``, ``EngineSupervisor``, the
+``engine_crash`` / ``engine_restart`` spans and ``on_engine_restart``),
+on the port's ``queue.Queue`` streams.
 
 An exception on the engine thread used to end the engine for good. The
 supervisor recovers it in place, within a restart budget:
@@ -43,6 +44,7 @@ import time
 
 import torch
 
+from k8s_gpu_device_plugin_torch.obs.trace import get_tracer
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
 log = get_logger()
@@ -120,6 +122,11 @@ class EngineSupervisor:
         self._crashes_total += 1
         self._last_crash = {"t_wall": time.time(),
                             "error": f"{type(exc).__name__}: {exc}"}
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.span("engine_crash", component="serving_engine",
+                        error=f"{type(exc).__name__}: {exc}",
+                        crashes=self._crashes_total).end()
 
     def allow_restart(self) -> bool:
         """True while the rolling restart budget has room."""
@@ -195,8 +202,17 @@ class EngineSupervisor:
         # rid -> stream map needs no change), new ones continue the count
         new._next_rid = next_rid
         replayed = resumed = 0
+        now = time.perf_counter()
         for req in survivors:
             was_admitted = req.slot >= 0
+            if was_admitted and req.timeline is not None:
+                # the decode or prefill segment closes at the crash and a
+                # queue_wait opens (the resumed admission closes it): the
+                # phase sums stay exact
+                req.timeline.advance("queue_wait", now)
+            if req.decode_span is not None:
+                req.decode_span.set(tokens=len(req.out)).end()
+                req.decode_span = None
             # the preemption fold; any pins belonged to the dead pool
             req.fold()
             if req.out:
@@ -213,6 +229,15 @@ class EngineSupervisor:
         self._restarts_total += 1
         self._replayed_total += replayed
         self._resumed_total += resumed
+        # the rebuilt batcher carries the server's metrics, attributor and
+        # MFU accumulator (the recipe's own objects): their ledgers live on
+        if new.metrics is not None:
+            new.metrics.on_engine_restart(replayed, resumed)
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.span("engine_restart", component="serving_engine",
+                        restart=self._restarts_total, replayed=replayed,
+                        resumed=resumed).end()
         log.warning(
             "inference engine restarted after crash",
             extra={"fields": {

@@ -2,9 +2,9 @@
 
 The port's own copy of the reference's ``utils/log.py`` contract: one
 JSON object per line with the ``level/ts/caller/msg`` field names, plus
-whatever a call passes as ``extra={"fields": {...}}``. Per-level file
-rotation and trace-id stamping stay with the reference until the port
-grows an observability layer.
+whatever a call passes as ``extra={"fields": {...}}``, and the active
+span's ``trace_id``/``span_id`` (``obs/trace.py``) when a record is
+logged inside one. Per-level file rotation stays with the reference.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 import json
 import logging
 import sys
+
+from k8s_gpu_device_plugin_torch.obs.trace import current_trace_ids
 
 _NAME = "tpu-device-plugin-torch"
 
@@ -26,6 +28,9 @@ class JsonFormatter(logging.Formatter):
             "caller": f"{record.filename}:{record.lineno}",
             "msg": record.getMessage(),
         }
+        ids = current_trace_ids()
+        if ids is not None:
+            entry["trace_id"], entry["span_id"] = ids
         if record.exc_info and record.exc_info[0] is not None:
             entry["exc"] = self.formatException(record.exc_info)
         fields = getattr(record, "fields", None)

@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX, nothing of the JAX package, no silent
-CPU fallback."""
+"""The port stands alone: no JAX, nothing of the JAX package, no
+``prometheus_client`` or ``aiohttp`` (the card's machine has neither: the
+port keeps its own registry and ``http.server`` handler), no silent CPU
+fallback."""
 
 import ast
 import os
@@ -12,7 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_gpu_device_plugin_torch"
-FORBIDDEN = ("jax", "jaxlib", "k8s_gpu_device_plugin_tpu")
+FORBIDDEN = ("jax", "jaxlib", "k8s_gpu_device_plugin_tpu",
+             "prometheus_client", "aiohttp")
 
 
 def _port_files():
@@ -72,6 +75,14 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.models.spec_batching\n"
         "import k8s_gpu_device_plugin_torch.ops.paged_attention\n"
         "import k8s_gpu_device_plugin_torch.ops.ragged_decode\n"
+        "import k8s_gpu_device_plugin_torch.obs\n"
+        "import k8s_gpu_device_plugin_torch.obs.attribution\n"
+        "import k8s_gpu_device_plugin_torch.obs.export\n"
+        "import k8s_gpu_device_plugin_torch.obs.http\n"
+        "import k8s_gpu_device_plugin_torch.obs.prom\n"
+        "import k8s_gpu_device_plugin_torch.metrics.exposition\n"
+        "import k8s_gpu_device_plugin_torch.metrics.roofline\n"
+        "import k8s_gpu_device_plugin_torch.metrics.serving_metrics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

@@ -394,7 +394,7 @@ def test_models_lists_the_base_model_only(port):
     ("/v1/completions", {"prompt": [1, 512]}, "outside vocab"),
     ("/v1/completions", {"prompt": [True, False]}, "prompt"),
     ("/v1/completions", {"prompt": [1, 2], "logprobs": 9}, "between 0 and 5"),
-    ("/v1/completions", {"prompt": [1, 2], "timeline": True}, "timeline"),
+    ("/v1/completions", {"prompt": [1, 2], "timeline": "yes"}, "timeline"),
     ("/v1/completions", {"prompt": [1, 2], "priority": 99}, "priority"),
     ("/v1/completions", {"prompt": [1, 2], "echo": True, "max_tokens": 0},
      "--scoring"),

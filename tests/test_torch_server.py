@@ -11,8 +11,9 @@ the dense bf16 server's greedy tokens where the cache is unquantized,
 and a request the pool can never hold answers 422 with the pool's limit.
 The serving surface: ``n``, ``text`` and ``stop_text`` are served (n
 seeded choices equal single requests at seed + i, bit for bit; the
-decoded ``text`` covers a resumed request's whole output), ``adapter``,
-``timeline`` and ``kv_pages`` still answer 400 naming the field, and
+decoded ``text`` covers a resumed request's whole output), ``timeline``
+is served (its latency timeline), ``adapter`` and ``kv_pages`` still
+answer 400 naming the field, and
 ``--eosId`` has the reference's three states (unset: the tokenizer's
 EOS stops a stream).
 """
@@ -115,11 +116,18 @@ def test_generate_key_sets_match_the_reference(served):
     ("adapter", "fr"), ("timeline", True), ("kv_pages", {"pages": []}),
 ])
 def test_unimplemented_field_answers_400_naming_it(served, field, value):
-    """``adapter`` waits for the adapters (ROADMAP A.10), ``timeline`` for
-    latency attribution (A.9), ``kv_pages`` for KV transfer (A.10)."""
+    """``adapter`` waits for the adapters (ROADMAP A.10), ``kv_pages`` for
+    KV transfer (A.10). ``timeline`` is served since latency attribution
+    (A.9): this server's batcher runs without an attributor, so the
+    answer carries it as null, as the reference's does under
+    ``--attributionOff``."""
     _, _, url = served
     status, _, body = _post(url, {"prompt": [1, 2], "max_new": 2,
                                   field: value})
+    if field == "timeline":
+        assert status == 200
+        assert json.loads(body)["timeline"] is None
+        return
     assert status == 400
     assert field in json.loads(body)["error"]
 
