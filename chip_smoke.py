@@ -206,7 +206,38 @@ Phases (any failed check exits non-zero without the final line):
    f32 model's plain forward (widened weights): the kernel path's RMS
    distance at most BF16_FACTOR times the bf16 plain path's; and an
    8-layer f32 twin's kernels (CUDA cores) against its plain attention
-   within 1e-3.
+   within 1e-3. Then multi-LoRA on the same weights (``lora_*``, after
+   ``surface``): 32 random adapters (``init_random_adapters``, rank 16
+   on all seven targets, 83,886,080 bytes each) registered once on the
+   host, each run's store a fork of that registry. ``lora_step``: the
+   decode step with eight distinct adapters live against the same step
+   with none (host clock, graph replay by CUDA events, kernels a step).
+   ``lora_mix``: 48 requests (12 on the base model, the others' adapters
+   drawn Zipf-like, s = 1) through the server with ``--adapterCacheMB
+   960`` (12 resident), at once and then as Poisson arrivals at 1.2x
+   that rate: every budget delivered, both passes' streams equal, K1's
+   launches exactly the passes' steps and chunks (all on the tensor
+   cores), every decode step a replay, misses, uploads past the warm
+   set, evictions and ``adapter_miss`` deferrals above zero, the engine's
+   steps timed with an upload in flight or not; each request alone on
+   the same server equal to its stream, bit for bit; a server without
+   adapters on the same requests: its base streams equal, its decode
+   step beside the adapters'. ``lora_dense``: four adapters in dense-N
+   mode and gathered (K 8 and K 2, which defers on ``adapter_slots``) at
+   depth 0 and 1, bit for bit. ``lora_oracle``: each of the four against
+   a server of ``merge_lora`` weights (bf16: reported up to the first
+   divergence, with both paths' logit gaps there) and an 8-layer f32
+   twin at batcher level (tokens equal, logprobs within 1e-3).
+   ``lora_compose``: adapters on the paged int8 pool (equal to the dense
+   int8 cache bit for bit) and on ``--weightQuant int8``, reported
+   against dense bf16. ``lora_surface``: an ``adapter.upload`` fault
+   leaves the streams as they were; the OpenAI ``model`` field serves
+   an adapter's stream; ``/v1/models``, unknown names (404, 400),
+   ``/v1/health``'s ``adapters`` and the seven ``gpu_serving_adapter*``
+   families; an over-quota request answers 429 ``adapter_quota`` and a
+   queued one's cancel refunds the bucket; an adapter registered at run
+   time serves its factors' stream, its unregistration refused while it
+   is live and evicting its prefix root after.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -241,8 +272,9 @@ Phases (any failed check exits non-zero without the final line):
    with the stale-entry check, the copy-on-write check, the speculative
    runs' verify and split launches with phase 2's verify cases, the
    round's time and acceptance, the preemption runs' launches with
-   the page-relief and arrival summaries, and the surface run's launches
-   with phase 2's T 512 scoring case; K2's entry counts the trainer's
+   the page-relief and arrival summaries, the surface run's launches
+   with phase 2's T 512 scoring case, and the lora runs'; K2's entry
+   counts the trainer's
    launches and the surface run's, and lists its B 1 serving cases).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
@@ -1125,12 +1157,13 @@ def _post(url: str, body: dict) -> dict:
                 "token_times": times}
 
 
-def start_server(server_mod, argv: list, params):
+def start_server(server_mod, argv: list, params, adapters=None):
     """A server on 127.0.0.1 (an ephemeral port) for ``argv``'s flags,
-    serving ``params``; returns (parsed args, server, url)."""
+    serving ``params`` (and ``adapters``: an AdapterSet or AdapterStore);
+    returns (parsed args, server, url)."""
     args = server_mod.build_parser().parse_args([
         *argv, "--host", "127.0.0.1", "--port", "0", "--seed", str(SEED)])
-    server = server_mod.build_server(args, params=params)
+    server = server_mod.build_server(args, params=params, adapters=adapters)
     server.start()
     return args, server, f"http://127.0.0.1:{server.bound_port}"
 
@@ -3964,6 +3997,779 @@ def phase_surface(torch, server_mod, kernel_support, rpa, scoring,
     return out
 
 
+# --- phase 4, multi-LoRA --------------------------------------------------------
+
+# the lora runs: Llama-3-8B, 8 slots x 2048 rows, chunks of 256, the
+# pipelined loop and the graph (the server's defaults); LORA_N random
+# adapters (init_random_adapters: rank LORA_RANK on all seven targets,
+# 83,886,080 bytes each in bf16), all registered on the host; the
+# lora_mix server holds LORA_CACHE_MB of them resident (12)
+LORA_ARGS = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
+             "--chunkedPrefill", "256"]
+LORA_N, LORA_RANK, LORA_CACHE_MB = 32, 16, 960
+# lora_mix: LORA_MIX_N requests, LORA_BASE_N on the base model, the rest
+# on adapters drawn Zipf-like (s = LORA_ZIPF_S) over the LORA_N; prompts
+# of LORA_PROMPTS tokens, LORA_MAX_NEW generated; at once, then Poisson
+# arrivals at LORA_LOAD times the closed-loop rate
+LORA_MIX_N, LORA_BASE_N, LORA_ZIPF_S = 48, 12, 1.0
+LORA_PROMPTS, LORA_MAX_NEW, LORA_LOAD = (64, 1025), 128, 1.2
+# lora_dense, lora_oracle, lora_compose and lora_surface: LORA_SMALL
+# requests (prompt length, adapter index or -1), LORA_SMALL_NEW tokens
+# each, on the first LORA_FEW adapters
+LORA_FEW, LORA_SMALL_NEW = 4, 32
+LORA_SMALL = [(100, 0), (240, 1), (380, 2), (520, 3), (660, -1), (130, 0),
+              (450, 1), (590, -1)]
+# the 8-layer f32 twin of lora_oracle: logprobs within LORA_F32_TOL of
+# the merged weights'
+LORA_F32_LAYERS, LORA_F32_TOL = 8, 1e-3
+# lora_step: decode steps timed on the host clock, replays timed by
+# CUDA events, with eight distinct adapters live and with none
+LORA_STEP_PROMPT, LORA_STEP_STEPS, LORA_STEP_REPLAYS = 512, 32, 16
+# lora_surface: the quota'd adapter (not among the LORA_SMALL ones), its
+# request cost (prompt + max_new) and bucket
+LORA_QUOTA_ADAPTER, LORA_QUOTA_PROMPT, LORA_QUOTA_NEW = 9, 64, 16
+LORA_FILL_NEW = 128  # the eight base streams that hold every slot
+
+
+def lora_mix_bodies(cfg) -> list[dict]:
+    """lora_mix's requests: streamed, greedy, LORA_BASE_N of them on the
+    base model at seeded positions, the others' adapters drawn
+    Zipf-like."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 21)
+    zipf = 1.0 / np.arange(1, LORA_N + 1) ** LORA_ZIPF_S
+    base = set(rng.permutation(LORA_MIX_N)[:LORA_BASE_N].tolist())
+    bodies = []
+    for i in range(LORA_MIX_N):
+        body = {"prompt": rng.integers(0, cfg.vocab_size, int(
+                    rng.integers(*LORA_PROMPTS))).tolist(),
+                "max_new": LORA_MAX_NEW, "stream": True}
+        if i not in base:
+            body["adapter"] = "adapter%d" % int(
+                rng.choice(LORA_N, p=zipf / zipf.sum()))
+        bodies.append(body)
+    return bodies
+
+
+def lora_small(cfg) -> list[tuple]:
+    """LORA_SMALL's (prompt ids, adapter index) pairs, seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 22)
+    return [(rng.integers(0, cfg.vocab_size, n).tolist(), a)
+            for n, a in LORA_SMALL]
+
+
+def lora_body(prompt: list, adapter: int) -> dict:
+    body = {"prompt": prompt, "max_new": LORA_SMALL_NEW, "stream": True,
+            "logprobs": True}
+    if adapter >= 0:
+        body["adapter"] = f"adapter{adapter}"
+    return body
+
+
+def k1_counts(kernel_support, rpa) -> dict:
+    """K1's launches since the last reset: total and per engine."""
+    counts = kernel_support.launch_counts()
+    return {"total": counts.get(rpa.NAME, 0),
+            **{e: counts.get(kernel_support.engine_key(rpa.NAME, e), 0)
+               for e in kernel_support.ENGINES}}
+
+
+class LoraLaunches:
+    """K1's launches over the lora runs: each run resets the counts when
+    its server or batcher is up (the graph capture's warm-up steps are
+    not the run's) and adds what it launched."""
+
+    def __init__(self, kernel_support, rpa):
+        self.ks, self.rpa = kernel_support, rpa
+        self.runs: dict = {}
+
+    def start(self) -> None:
+        self.ks.reset_launch_counts()
+
+    def stop(self, run: str) -> dict:
+        got = k1_counts(self.ks, self.rpa)
+        self.runs[run] = got
+        return got
+
+    def total(self) -> dict:
+        keys = ("total", *self.ks.ENGINES)
+        return {k: sum(r[k] for r in self.runs.values()) for k in keys}
+
+
+def serve_batch(batching, params, cfg, small, **kw):
+    """LORA_SMALL-style requests at once on a fresh 8-slot batcher (the
+    server's shapes and loop); returns (streams [(tokens, logprobs)],
+    the batcher)."""
+    cb = batching.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
+                                    chunked_prefill=256, **kw)
+    rids = [cb.submit(p, LORA_SMALL_NEW, adapter=a) for p, a in small]
+    cb.run()
+    return [(cb.done_requests[r].out, cb.done_requests[r].out_logp)
+            for r in rids], cb
+
+
+def lora_step(torch, batching, cfg, params, store, launches) -> dict:
+    """The decode step with eight distinct adapters live against the
+    same step with none, at batcher level: eight requests of
+    LORA_STEP_PROMPT tokens; once all eight decode, LORA_STEP_STEPS steps
+    on the host clock (median) and LORA_STEP_REPLAYS replays of the
+    graph by CUDA events."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(0, cfg.vocab_size, LORA_STEP_PROMPT).tolist()
+               for _ in range(8)]
+    out = {}
+    for arm in ("base", "adapters"):
+        cb = batching.ContinuousBatcher(
+            params, cfg, n_slots=8, max_len=2048, chunked_prefill=256,
+            adapters=store.fork(cache_bytes=0) if arm == "adapters" else None)
+        launches.start()
+        for i, p in enumerate(prompts):
+            cb.submit(p, 256, adapter=i if arm == "adapters" else -1)
+        while cb.pending or cb.prefilling or len(cb.running) < 8:
+            cb.step()
+        host = []
+        for _ in range(LORA_STEP_STEPS):
+            t0 = time.perf_counter()
+            cb.step()
+            host.append(time.perf_counter() - t0)
+        cb._flush_inflight()
+        replay = _replay_ms(torch, cb.graph, LORA_STEP_REPLAYS)
+        # the kernels one step launches: an eager step under the
+        # profiler's host activity (its launch calls; no device tracing)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            cb._eager_step()
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages() if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
+            "cudaLaunchKernelExC"))
+        launches.stop(f"lora_step_{arm}")
+        out[arm] = {"decode_step_host_ms_p50": 1e3 * float(np.median(host)),
+                    "replay_device_ms": replay,
+                    "kernels_a_step": kernels,
+                    "graph_pool_bytes": cb.graph.pool_bytes}
+        if arm == "adapters":
+            st = cb.adapter_stats()
+            if st["active"] != 8 or st["slot_copies"] != 8:
+                fail(f"lora_step: {st['active']} adapters active, "
+                     f"{st['slot_copies']} slots filled, not 8 and 8")
+        del cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["ratio_host"] = (out["adapters"]["decode_step_host_ms_p50"]
+                         / out["base"]["decode_step_host_ms_p50"])
+    out["ratio_device"] = (out["adapters"]["replay_device_ms"]
+                           / out["base"]["replay_device_ms"])
+    out["delta_kernels_a_step"] = (out["adapters"]["kernels_a_step"]
+                                   - out["base"]["kernels_a_step"])
+    row = {"phase": 4, "run": "lora_step", **out}
+    emit(row)
+    return row
+
+
+def lora_mix(torch, server_mod, kernel_support, rpa, cfg, params, store,
+             launches) -> dict:
+    """lora_mix through the server (LORA_ARGS, ``--adapterCacheMB``
+    LORA_CACHE_MB: 12 of the 32 adapters resident): the requests at
+    once, then as Poisson arrivals at LORA_LOAD times that rate; every
+    budget delivered, both passes' streams equal, K1's launches exactly
+    the passes' steps and chunks (all on the tensor cores), every decode
+    step a replay. The engine's steps are timed with the store's
+    uploads in flight or not. Then each request alone on the same
+    server, bit for bit its stream; then a server without adapters on
+    the same requests, each as a base request: its streams of the base
+    requests equal, its decode step beside the adapters'."""
+    import numpy as np
+
+    bodies = lora_mix_bodies(cfg)
+    mix = store.fork(cache_bytes=LORA_CACHE_MB << 20)
+    args, server, url = start_server(
+        server_mod, [*LORA_ARGS, "--adapterCacheMB", str(LORA_CACHE_MB)],
+        params, adapters=mix)
+    out = {"phase": 4, "run": "lora_mix", "requests": len(bodies),
+           "base_requests": sum("adapter" not in b for b in bodies),
+           "distinct_adapters": len({b["adapter"] for b in bodies
+                                     if "adapter" in b}),
+           "resident_at_start": mix.resident_count()}
+    cb = server.engine.cb
+    steps: list = []
+    step = cb.step
+
+    def timed_step():
+        busy = mix.uploads_in_flight()
+        t0 = time.perf_counter()
+        n = step()
+        steps.append((time.perf_counter() - t0,
+                      bool(busy or mix.uploads_in_flight())))
+        return n
+
+    cb.step = timed_step
+    try:
+        launches.start()
+        passes = {}
+        for run in ("closed", "open"):
+            if run == "closed":
+                offsets = [0.0] * len(bodies)
+            else:
+                rate = LORA_LOAD * passes["closed"]["requests_per_s"]
+                offsets = np.cumsum(np.random.default_rng(SEED + 24)
+                                    .exponential(1 / rate, len(bodies)))
+            results = [None] * len(bodies)
+            t0 = time.perf_counter()
+
+            def worker(i):
+                time.sleep(max(0.0, t0 + offsets[i] - time.perf_counter()))
+                results[i] = _post(url, bodies[i])
+
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(bodies))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            wall = time.perf_counter() - t0
+            if any(r is None or len(r["tokens"]) != LORA_MAX_NEW
+                   for r in results):
+                fail(f"lora_mix {run}: a request failed or came back short")
+            ttft = {k: [r["ttft"] for r, b in zip(results, bodies)
+                        if ("adapter" in b) == (k == "adapter")]
+                    for k in ("base", "adapter")}
+            passes[run] = {"wall_s": wall,
+                           "requests_per_s": len(bodies) / wall,
+                           "ttft_s": {k: {"p50": percentile(v, 50),
+                                          "p99": percentile(v, 99)}
+                                      for k, v in ttft.items()},
+                           "tokens": [r["tokens"] for r in results]}
+        if passes["open"]["tokens"] != passes["closed"]["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(
+                passes["open"]["tokens"], passes["closed"]["tokens"]))
+                if a != b]
+            fail(f"lora_mix: the open-loop streams {bad} differ from the "
+                 "closed-loop ones")
+        _, health = get_health(url)
+        dec = health["decode"]["graph"]
+        if dec is None or dec["replays"] != health["decode_steps"]:
+            fail(f"lora_mix: {health['decode_steps']} decode steps, "
+                 f"graph {dec}: every step must be a replay")
+        out["k1"] = route_launches(
+            "lora_mix", kernel_support, rpa, "dense", cfg.n_layers,
+            health["decode_steps"], health["prefill_chunks"])
+        launches.stop("lora_mix")
+        ad = health["adapters"]
+        defer = ad["deferrals"]
+        if not (ad["misses"] > 0 and ad["uploads"] > out["resident_at_start"]
+                and ad["evictions"] > 0 and defer.get("adapter_miss", 0) > 0):
+            fail(f"lora_mix: misses, uploads past the warm set, evictions "
+                 f"and adapter_miss deferrals must all be > 0: {ad}")
+        out["adapters"] = ad
+        out["decode_step_ms_mean"] = health["decode_step_ms_mean"]
+        out["decode_steps"] = health["decode_steps"]
+        out["prefill_chunks"] = health["prefill_chunks"]
+        out["prefix_cache"] = health.get("prefix_cache")
+        for run, p in passes.items():
+            out[run] = {k: v for k, v in p.items() if k != "tokens"}
+        busy = [dt for dt, up in steps if up]
+        idle = [dt for dt, up in steps if not up]
+        out["engine_step_ms"] = {
+            "steps": len(steps),
+            "steps_with_upload_in_flight": len(busy),
+            **{f"{k}_{name}": (1e3 * f(xs) if xs else None)
+               for name, xs in (("all", [dt for dt, _ in steps]),
+                                ("with_upload", busy),
+                                ("without_upload", idle))
+               for k, f in (("p50", lambda x: percentile(x, 50)),
+                            ("p99", lambda x: percentile(x, 99)),
+                            ("max", max))}}
+        # each request alone in the same server
+        t_solo = time.perf_counter()
+        for i, body in enumerate(bodies):
+            alone = _post(url, body)["tokens"]
+            if alone != passes["closed"]["tokens"][i]:
+                j = first_divergence(alone, passes["closed"]["tokens"][i])
+                fail(f"lora_mix: request {i} ({body.get('adapter', 'base')})"
+                     f" alone differs from its batched stream at token {j}")
+        out["solo_s"] = time.perf_counter() - t_solo
+        out["streams_equal_solo"] = len(bodies)
+    finally:
+        cb.step = step
+        server.stop()
+    del server, cb, mix
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same requests on a server without adapters, all as base ones
+    args, server, url = start_server(server_mod, LORA_ARGS, params)
+    try:
+        plain = [{k: v for k, v in b.items() if k != "adapter"}
+                 for b in bodies]
+        got = post_all(url, plain, "lora_mix_base_server")
+        for i, (b, r) in enumerate(zip(bodies, got)):
+            if "adapter" not in b and r["tokens"] != \
+                    passes["closed"]["tokens"][i]:
+                fail(f"lora_mix: base request {i} differs from the "
+                     "no-adapter server's stream")
+        _, health = get_health(url)
+        out["base_server"] = {
+            "decode_step_ms_mean": health["decode_step_ms_mean"],
+            "decode_steps": health["decode_steps"],
+            "base_streams_equal": out["base_requests"]}
+    finally:
+        server.stop()
+    out["decode_step_ratio"] = (out["decode_step_ms_mean"]
+                                / out["base_server"]["decode_step_ms_mean"])
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def lora_dense(torch, batching, cfg, params, aset, small, launches) -> dict:
+    """The same LORA_FEW adapters in dense-N mode and gathered (K = 8,
+    and K = 2, which defers on ``adapter_slots``), at pipeline depth 0
+    and 1: tokens and logprobs equal bit for bit across all five."""
+    arms = {"dense_depth0": dict(lora_slots=0, pipeline_depth=0),
+            "dense_depth1": dict(lora_slots=0, pipeline_depth=1),
+            "gathered_depth0": dict(pipeline_depth=0),
+            "gathered_depth1": dict(pipeline_depth=1),
+            "gathered_k2_depth1": dict(lora_slots=2, pipeline_depth=1)}
+    streams, stats = {}, {}
+    for arm, kw in arms.items():
+        launches.start()
+        streams[arm], cb = serve_batch(batching, params, cfg, small,
+                                       adapters=aset, **kw)
+        launches.stop(f"lora_dense_{arm}")
+        stats[arm] = cb.adapter_stats()
+        del cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = next(iter(streams.values()))
+    for arm, got in streams.items():
+        if got != first:
+            fail(f"lora_dense: {arm}'s streams differ from dense_depth0's")
+    k2 = stats["gathered_k2_depth1"]["deferrals"].get("adapter_slots", 0)
+    if not k2:
+        fail("lora_dense: K = 2 under four adapters never deferred on "
+             "adapter_slots")
+    row = {"phase": 4, "run": "lora_dense", "arms": list(arms),
+           "equal_bitwise": True, "requests": len(small),
+           "adapter_slots_deferrals_k2": k2,
+           "gathers": {a: s.get("gathers") for a, s in stats.items()},
+           "slot_copies": {a: s.get("slot_copies") for a, s in stats.items()}}
+    emit(row)
+    return {**row, "streams": first}
+
+
+def lora_oracle(torch, server_mod, batching, generate, lora, ls, cfg,
+                params, entries, small, launches) -> dict:
+    """Each of LORA_FEW adapters against a plain server of
+    ``merge_lora(base, adapter)`` weights: on the bf16 8B model, the
+    served streams (the adapter server, the requests at once) against
+    the merged server's, reported up to the first divergence with each
+    path's f32 logit gap between the two tokens there (bf16 rounds the
+    merged weights otherwise than x @ W + x @ A @ B: a near tie flips);
+    on an 8-layer f32 twin, tokens equal and logprobs within
+    LORA_F32_TOL, at batcher level."""
+    reqs = [(p, a) for p, a in small if a >= 0][:LORA_FEW]
+    aset = ls.stack_adapters(cfg, entries[:LORA_FEW])
+    launches.start()
+    args, server, url = start_server(server_mod, LORA_ARGS, params,
+                                     adapters=aset)
+    try:
+        served = post_all(url, [lora_body(p, a) for p, a in reqs],
+                          "lora_oracle_adapters")
+    finally:
+        server.stop()
+    launches.stop("lora_oracle_adapters")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = []
+    for (p, a), got in zip(reqs, served):
+        name, lp, lc = entries[a]
+        merged = lora.merge_lora(params, lp, lc)
+        launches.start()
+        args, server, url = start_server(server_mod, LORA_ARGS, merged)
+        try:
+            want = _post(url, lora_body(p, -1))
+        finally:
+            server.stop()
+        launches.stop(f"lora_oracle_merged_{a}")
+        j = first_divergence(got["tokens"], want["tokens"])
+        row = {"adapter": name, "first_divergence": j}
+        if j is not None:
+            ctx = p + want["tokens"][:j]
+            g, w = got["tokens"][j], want["tokens"][j]
+            l_m = plain_logits(torch, generate, cfg, merged, ctx)
+            one = ls.attach_adapters(params, ls.stack_adapters(
+                cfg, [entries[a]]))
+            dev = params["embed"].device
+            toks = torch.tensor([ctx], device=dev)
+            cache = generate.KVCache.init(cfg, 1, len(ctx), dev)
+            l_a = generate._forward_cached(
+                one, toks, cache, 0, cfg, last_only=True,
+                plain_attention=True,
+                lora_sel=torch.ones((1, 1), device=dev))[0, -1].float()
+            gaps = {k: float((x[g] - x[w]).abs()) for k, x in
+                    (("adapter", l_a), ("merged", l_m))}
+            rms = float((l_a - l_m).pow(2).mean().sqrt())
+            row.update(got=g, want=w, logit_gap=gaps,
+                       within_near_tie={k: v <= NEAR_TIE
+                                        for k, v in gaps.items()},
+                       logits_rms_apart=rms,
+                       gap_over_rms_apart={k: v / rms
+                                           for k, v in gaps.items()})
+            del one, cache, l_a, l_m
+        bf16.append(row)
+        del merged, server
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the f32 twin: the first LORA_F32_LAYERS layers, weights and
+    # factors widened
+    n = min(LORA_F32_LAYERS, cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=n)
+    params32 = {k: v.float() for k, v in params.items() if k != "layers"}
+    params32["layers"] = {k: v[:n].float()
+                          for k, v in params["layers"].items()}
+    ents32 = [(name, {t: {"a": ab["a"][:n].float(), "b": ab["b"][:n].float()}
+                      for t, ab in lp.items()}, lc)
+              for name, lp, lc in entries[:LORA_FEW]]
+    launches.start()
+    twin, _ = serve_batch(batching, params32, cfg32, reqs,
+                          adapters=ls.stack_adapters(cfg32, ents32))
+    launches.stop("lora_oracle_f32_adapters")
+    f32_err = 0.0
+    for (p, a), (toks, lps) in zip(reqs, twin):
+        merged = lora.merge_lora(params32, ents32[a][1], ents32[a][2])
+        launches.start()
+        [(want_t, want_l)], cb = serve_batch(batching, merged, cfg32,
+                                             [(p, -1)])
+        launches.stop(f"lora_oracle_f32_merged_{a}")
+        if toks != want_t:
+            fail(f"lora_oracle f32: adapter{a}'s stream differs from its "
+                 f"merged weights' at token {first_divergence(toks, want_t)}")
+        err = max(abs(x - y) for x, y in zip(lps, want_l))
+        if err > LORA_F32_TOL:
+            fail(f"lora_oracle f32: adapter{a}'s logprobs differ from the "
+                 f"merged weights' by {err:.3e} (> {LORA_F32_TOL})")
+        f32_err = max(f32_err, err)
+        del merged, cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params32, ents32
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": 4, "run": "lora_oracle", "bf16": bf16,
+           "bf16_streams_equal": sum(r["first_divergence"] is None
+                                     for r in bf16),
+           "f32_twin": {"layers": n, "streams_equal": len(reqs),
+                        "logprob_max_err": f32_err, "tol": LORA_F32_TOL}}
+    emit(row)
+    return row
+
+
+def lora_compose(torch, server_mod, quantized_serving, cfg, params, store,
+                 small, launches) -> dict:
+    """Adapters on the paged int8 pool and on int8 weights, the
+    LORA_SMALL requests at once: paged int8 equals dense int8 bit for bit
+    (phase 4 holds paged equal to dense); each against the dense bf16
+    run (which lora_surface's streams must equal) is reported, tokens
+    equal a request."""
+    runs = {"dense_bf16": [], "dense_int8": ["--cacheQuant", "int8"],
+            "paged_int8": ["--kvLayout", "paged", "--kvPageSize", "64",
+                           "--cacheQuant", "int8"],
+            "w8": ["--weightQuant", "int8"]}
+    bodies = [lora_body(p, a) for p, a in small]
+    got = {}
+    for run, flags in runs.items():
+        w = (quantized_serving.quantize_weights(params, "int8")
+             if run == "w8" else params)
+        args, server, url = start_server(server_mod, [*LORA_ARGS, *flags], w,
+                                         adapters=store.fork(cache_bytes=0))
+        launches.start()
+        try:
+            got[run] = post_all(url, bodies, f"lora_compose_{run}")
+        finally:
+            server.stop()
+        launches.stop(f"lora_compose_{run}")
+        del server, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    equal_streams("lora_compose paged_int8", got["paged_int8"],
+                  got["dense_int8"], logprobs=True)
+
+    def agree(a, b):
+        return [sum(x == y for x, y in zip(r["tokens"], s["tokens"]))
+                for r, s in zip(a, b)]
+
+    row = {"phase": 4, "run": "lora_compose",
+           "paged_int8_equals_dense_int8": True,
+           "tokens_equal_to_dense_bf16": {
+               run: agree(got[run], got["dense_bf16"])
+               for run in ("dense_int8", "paged_int8", "w8")},
+           "tokens_a_request": LORA_SMALL_NEW}
+    emit(row)
+    return {**row, "dense_bf16": got["dense_bf16"]}
+
+
+def lora_surface(torch, server_mod, batching, prefix_cache_mod, cfg, params,
+                 store, entries, small, dense_bf16, launches) -> dict:
+    """The adapter surface of both APIs, on a server with an
+    ``adapter.upload`` fault (the first adapter admission defers) and a
+    quota on adapter LORA_QUOTA_ADAPTER: the LORA_SMALL requests equal
+    lora_compose's dense bf16 streams bit for bit; the OpenAI ``model``
+    naming an adapter gives its native stream's logprobs; ``/v1/models``
+    lists every adapter; unknown names answer 404 (OpenAI) and 400
+    (native); ``/v1/health``'s ``adapters`` and the seven
+    ``gpu_serving_adapter*`` families are set; a queued quota'd request
+    leaves the bucket short, the next answers 429 ``adapter_quota``, the
+    queued one's cancel refunds it and the next is served. Then, at
+    batcher level, an adapter registered at run time serves (its stream
+    the same factors' under their first index), its unregistration is
+    refused while it is live and evicts its prefix root after."""
+    import urllib.error
+
+    qname = f"adapter{LORA_QUOTA_ADAPTER}"
+    cost = LORA_QUOTA_PROMPT + LORA_QUOTA_NEW
+    launches.start()
+    args, server, url = start_server(server_mod, [
+        *LORA_ARGS, "--faults", "adapter.upload:nth=1", "--adapterQuota",
+        f"{qname}=0.001:burst={cost + cost // 2}"], params,
+        adapters=store.fork(cache_bytes=0))
+    out = {"phase": 4, "run": "lora_surface"}
+    try:
+        got = post_all(url, [lora_body(p, a) for p, a in small],
+                       "lora_surface_fault")
+        equal_streams("lora_surface (adapter.upload fault)", got, dense_bf16,
+                      logprobs=True)
+        p1, a1 = next((p, a) for p, a in small if a == 1)
+        native = next(g for g, (p, a) in zip(got, small) if a == 1)
+        oai, _ = _oai(url, "/v1/completions", {
+            "model": "adapter1", "prompt": p1, "max_tokens": LORA_SMALL_NEW,
+            "logprobs": 0})
+        lps = oai["choices"][0]["logprobs"]["token_logprobs"]
+        if oai["model"] != "adapter1" or lps != native["logprobs"]:
+            fail("lora_surface: the OpenAI model field did not serve "
+                 "adapter1's stream")
+        ids = [m["id"] for m in get_json(url, "/v1/models")["data"]]
+        if ids != ["tpu-serving", *[f"adapter{i}" for i in range(LORA_N)]]:
+            fail(f"lora_surface: /v1/models lists {ids[:4]}...")
+        for path, body, code in (
+                ("/v1/completions", {"model": "nope", "prompt": p1,
+                                     "max_tokens": 2}, 404),
+                ("/v1/generate", {"prompt": p1, "max_new": 2,
+                                  "adapter": "nope"}, 400)):
+            req = urllib.request.Request(
+                url + path, data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            try:
+                urllib.request.urlopen(req, timeout=60)
+                fail(f"lora_surface: an unknown name on {path} was served")
+            except urllib.error.HTTPError as e:
+                if e.code != code:
+                    fail(f"lora_surface: an unknown name on {path} answered "
+                         f"{e.code}, not {code}")
+        _, health = get_health(url)
+        ad = health["adapters"]
+        if ad["deferrals"].get("adapter_miss", 0) < 1 or ad["gathers"] < 1:
+            fail(f"lora_surface: the injected upload fault did not defer: "
+                 f"{ad}")
+        out["health_adapters"] = ad
+        text = scrape(url, False)
+        families = {}
+        for line in text.splitlines():
+            if line.startswith("gpu_serving_adapter"):
+                key, val = line.rsplit(" ", 1)
+                fam = key.split("{")[0]
+                for suffix in ("_count", "_sum", "_bucket"):
+                    fam = fam[:-len(suffix)] if fam.endswith(suffix) else fam
+                families[fam] = max(families.get(fam, 0.0), float(val))
+        want = {"gpu_serving_adapters_registered",
+                "gpu_serving_adapters_resident",
+                "gpu_serving_adapter_resident_bytes",
+                "gpu_serving_adapter_uploads_total",
+                "gpu_serving_adapter_upload_seconds",
+                "gpu_serving_adapter_deferred_total",
+                "gpu_serving_adapter_gathers_total"}
+        unset = sorted(f for f in want if not families.get(f))
+        if unset:
+            fail(f"lora_surface: /metrics families not set: {unset}")
+        out["metrics"] = {f: families[f] for f in sorted(want)}
+        # the quota: eight long base streams hold every slot
+        import numpy as np
+
+        rng = np.random.default_rng(SEED + 25)
+        fillers = [{"prompt": rng.integers(0, cfg.vocab_size, 64).tolist(),
+                    "max_new": LORA_FILL_NEW, "stream": True}
+                   for _ in range(8)]
+        side = threading.Thread(target=post_all,
+                                args=(url, fillers, "lora_surface_fill"))
+        side.start()
+        deadline = time.perf_counter() + 120
+        while get_health(url)[1]["active"] < 8:
+            if time.perf_counter() > deadline:
+                fail("lora_surface: the fillers never held all eight slots")
+            time.sleep(0.02)
+        engine = server.engine
+        qidx = engine.cb.adapter_names.index(qname)
+        qprompt = rng.integers(0, cfg.vocab_size,
+                               LORA_QUOTA_PROMPT).tolist()
+        eid, _ = engine.submit(qprompt, LORA_QUOTA_NEW, adapter=qidx)
+
+        def quota():
+            return get_health(url)[1]["sched"]["adapters"].get(qname, {})
+
+        while quota().get("submitted", 0) < 1:
+            if time.perf_counter() > deadline:
+                fail("lora_surface: the queued quota'd request was never "
+                     "charged")
+            time.sleep(0.01)
+        req = urllib.request.Request(
+            url + "/v1/generate", data=json.dumps(
+                {"prompt": qprompt, "max_new": LORA_QUOTA_NEW,
+                 "adapter": qname}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            fail("lora_surface: the over-quota request was served")
+        except urllib.error.HTTPError as e:
+            body = json.loads(e.read())
+            if e.code != 429 or body.get("reason") != "adapter_quota" or \
+                    "Retry-After" not in e.headers:
+                fail(f"lora_surface: over quota answered {e.code} {body}")
+        engine.cancel(eid)
+        while quota()["quota_level"] < cost:
+            if time.perf_counter() > deadline:
+                fail("lora_surface: the cancelled request's charge was "
+                     "not refunded")
+            time.sleep(0.01)
+        refunded = quota()
+        served = _post(url, {"prompt": qprompt, "max_new": LORA_QUOTA_NEW,
+                             "adapter": qname})
+        side.join(900)
+        if len(served["tokens"]) != LORA_QUOTA_NEW:
+            fail("lora_surface: the refunded quota did not serve")
+        out["quota"] = {"adapter": qname, "cost": cost,
+                        "after_refund": refunded,
+                        "final": quota(),
+                        "rejections": get_health(url)[1]["sched"][
+                            "rejections"]["adapter_quota"]}
+    finally:
+        server.stop()
+    launches.stop("lora_surface")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    # run-time registration at batcher level, with the prefix cache
+    pc = prefix_cache_mod.PrefixCache(
+        cfg, buckets=batching.DEFAULT_PROMPT_BUCKETS, budget_bytes=256 << 20)
+    launches.start()
+    cb = batching.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
+                                    chunked_prefill=256,
+                                    adapters=store.fork(cache_bytes=0),
+                                    prefix_cache=pc)
+    name0, lp0, lc0 = entries[0]
+    late = cb.register_adapter("late", lp0, lc0)
+    prompt = small[2][0]
+    rid = cb.submit(prompt, LORA_SMALL_NEW, adapter=late)
+    cb.step()
+    try:
+        cb.unregister_adapter("late")
+        fail("lora_surface: a live adapter was unregistered")
+    except ValueError:
+        pass
+    cb.run()
+    twin = cb.submit(prompt, LORA_SMALL_NEW, adapter=0)
+    cb.run()
+    if cb.done_requests[rid].out != cb.done_requests[twin].out:
+        fail("lora_surface: the adapter registered at run time does not "
+             "serve its factors' stream")
+    before = pc.stats.as_dict()["entries"]
+    cb.unregister_adapter("late")
+    after = pc.stats.as_dict()["entries"]
+    if not before > after or "late" in cb.adapter_names:
+        fail(f"lora_surface: unregistering left the prefix root "
+             f"({before} -> {after} entries)")
+    launches.stop("lora_surface_register")
+    out["register"] = {"index": late, "prefix_entries_before": before,
+                       "prefix_entries_after": after}
+    del cb, pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_lora(torch, server_mod, batching, generate, lora, ls,
+               quantized_serving, prefix_cache_mod, kernel_support, rpa,
+               cfg, params) -> dict:
+    """Multi-LoRA on the 8B weights: LORA_N random adapters registered
+    once on the host (pinned), each run's store a fork of that registry;
+    then lora_step, lora_mix, lora_dense, lora_oracle, lora_compose and
+    lora_surface. Returns K1's launches over all of them and the
+    headline numbers."""
+    t0 = time.perf_counter()
+    entries = ls.init_random_adapters(cfg, LORA_N, LORA_RANK, seed=SEED + 20,
+                                      device=params["embed"].device)
+    store = ls.AdapterStore(cfg)
+    for name, lp, lc in entries:
+        store.register(name, lp, lc)
+    if params["embed"].device.type == "cuda":
+        store.pin_host()
+    # rank x (d_in + d_out) a target a layer, bf16: 83,886,080 bytes at
+    # Llama-3-8B's widths
+    want = cfg.n_layers * LORA_RANK * sum(
+        d_in + d_out for d_in, d_out in lora.target_dims(cfg).values()) * 2
+    if store.adapter_bytes != want:
+        fail(f"lora: an adapter holds {store.adapter_bytes} bytes, not "
+             f"{want}")
+    entries = entries[:LORA_FEW]
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    small = lora_small(cfg)
+    launches = LoraLaunches(kernel_support, rpa)
+    step = lora_step(torch, batching, cfg, params, store, launches)
+    mix = lora_mix(torch, server_mod, kernel_support, rpa, cfg, params, store,
+                   launches)
+    dense = lora_dense(torch, batching, cfg, params,
+                       ls.stack_adapters(cfg, entries), small, launches)
+    oracle = lora_oracle(torch, server_mod, batching, generate, lora, ls, cfg,
+                         params, entries, small, launches)
+    compose = lora_compose(torch, server_mod, quantized_serving, cfg, params,
+                           store, small, launches)
+    if compose["dense_bf16"] and dense["streams"]:
+        # the server's dense bf16 streams are the batcher's (one engine)
+        want = [s[0] for s in dense["streams"]]
+        if [r["tokens"] for r in compose["dense_bf16"]] != want:
+            fail("lora: the dense bf16 server's streams differ from the "
+                 "batcher's")
+    surface = lora_surface(torch, server_mod, batching, prefix_cache_mod, cfg,
+                           params, store, entries, small,
+                           compose["dense_bf16"], launches)
+    k1 = launches.total()
+    if k1["cuda_cores"] != sum(r["cuda_cores"] for run, r in
+                               launches.runs.items() if "f32" in run) \
+            or k1["total"] != k1["tensor_cores"] + k1["cuda_cores"]:
+        fail(f"lora: a bf16 K1 launch ran on the CUDA cores: {launches.runs}")
+    row = {"phase": 4, "run": "lora", "setup_s": setup_s,
+           "wall_s": time.perf_counter() - t0,
+           "adapter_bytes": store.adapter_bytes, "k1_launches": k1,
+           "k1_launches_by_run": launches.runs,
+           "decode_step_8_adapters": step,
+           "upload_ms_p99": mix["adapters"]["upload_ms_p99"]}
+    emit(row)
+    del store, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**row, "mix": mix, "dense": dense, "oracle": oracle,
+            "compose": compose, "surface": surface}
+
+
 # --- phase 5 -----------------------------------------------------------------
 
 
@@ -4401,6 +5207,8 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.models import batching
         from k8s_gpu_device_plugin_torch.models import generate
         from k8s_gpu_device_plugin_torch.models import llama
+        from k8s_gpu_device_plugin_torch.models import lora
+        from k8s_gpu_device_plugin_torch.models import lora_serving as ls
         from k8s_gpu_device_plugin_torch.models import quantized_serving
         from k8s_gpu_device_plugin_torch.models import sampling
         from k8s_gpu_device_plugin_torch.models import spec_batching as spec_mod
@@ -4508,6 +5316,11 @@ def main() -> None:
     # scoring and embeddings (K2 at B 1, K1's chunk at T 512)
     surface = phase_surface(torch, server_mod, kernel_support, rpa, scoring,
                             embeddings, cfg, params)
+    # multi-LoRA on the same weights: stacked and gathered adapters on
+    # the batcher, residency and uploads, both APIs' adapter surface
+    lora_runs = phase_lora(torch, server_mod, batching, generate, lora, ls,
+                           quantized_serving, prefix_cache_mod,
+                           kernel_support, rpa, cfg, params)
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -4582,7 +5395,7 @@ def main() -> None:
         + sum(window[run]["launches"] for run in WINDOW_RUNS)
         + sum(spec[run]["launches"] for run in spec_runs)
         + preempt["launches"] + surface["launches"][rpa.NAME]
-        + obs["summary"]["launches"],
+        + obs["summary"]["launches"] + lora_runs["k1_launches"]["total"],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -4611,6 +5424,11 @@ def main() -> None:
          "arrivals": arrivals["summary"],
          # the served runs of phase_obs (attribution off / on / traced,
          # dense and paged, depth 1 and 0)
+         # the multi-LoRA runs: every prefill chunk and decode step of
+         # batches that mix adapters (bf16 on the tensor cores; the f32
+         # twin's on the CUDA cores)
+         "lora": {"launches": lora_runs["k1_launches"],
+                  "lora_mix_launches": lora_runs["mix"]["k1"]},
          "obs": {"launches": obs["summary"]["launches"],
                  "decode_step_ms_mean": obs["summary"][
                      "decode_step_ms_mean"]},

@@ -9,9 +9,11 @@ depth, slot occupancy, token throughput, latency distributions with
 trace-id exemplars, the KV pool and the live roofline. Optional and
 injected: the batcher works identically with ``metrics=None``.
 
-The families of the adapter residency (A.10) and of the per-shard KV
-view (tensor parallelism, A.12) are registered, as the reference
-registers them, but nothing sets them yet: the port serves neither.
+The adapter residency's families are set by the adapter store and the
+batcher through the four hooks below (``set_adapter_residency``,
+``on_adapter_upload``, ``on_adapter_deferred``, ``on_adapter_gather``).
+The per-shard KV view's (tensor parallelism, A.12) are registered, as the
+reference registers them, but nothing sets them yet.
 """
 
 from __future__ import annotations
@@ -607,6 +609,24 @@ class ServingMetrics:
 
     def on_sched_rejected(self, reason: str) -> None:
         self.sched_rejected.labels(reason=reason).inc()
+
+    # --- multi-LoRA hooks (models/lora_serving.py, models/batching.py) ---
+
+    def set_adapter_residency(self, registered: int, resident: int,
+                              resident_bytes: int) -> None:
+        self.adapters_registered.set(registered)
+        self.adapters_resident.set(resident)
+        self.adapter_resident_bytes.set(resident_bytes)
+
+    def on_adapter_upload(self, seconds: float) -> None:
+        self.adapter_uploads.inc()
+        self.adapter_upload_seconds.observe(seconds)
+
+    def on_adapter_deferred(self, reason: str) -> None:
+        self.adapter_deferred.labels(reason=reason).inc()
+
+    def on_adapter_gather(self) -> None:
+        self.adapter_gathers.inc()
 
     # --- speculative-decoding hook (models/spec_batching.py) ---
 

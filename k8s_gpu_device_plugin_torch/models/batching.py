@@ -68,10 +68,27 @@ captured CUDA graph, whose body runs once at capture; and each reads
 host counts only, so none adds a device synchronisation. Streams are the
 same bit for bit with all of it attached or absent.
 
+Multi-LoRA (the reference's two modes, ``models/lora_serving.py``): with
+``adapters`` every request may name one (``submit(adapter=)``, -1 = the
+base model). Gathered, the default: an ``AdapterStore`` holds the
+registry on the host and an LRU subset resident on the device, and the
+batcher copies the at most ``lora_slots`` (K) adapters its batch uses
+into compact ``(L, K, ...)`` stacks allocated once, before the decode
+graph is captured; a request whose adapter is not resident, or that
+would need a (K+1)-th slot, waits at the queue head while the upload
+runs on its own thread (``_admit_adapter``). Dense-N (``lora_slots=0``):
+every adapter of a static ``AdapterSet`` in the stacks. Each slot's
+one-hot row over the stack lives in a persistent ``(n_slots, K)``
+selection buffer, rewritten with the membership mask on admit, retire
+and cancel; the slots a gather fills and the selection are written on
+the engine's stream, behind the step in flight, which still reads the
+ones it was dispatched with. A base row selects nothing, and its stream
+is bit for bit the stream of a batcher without adapters.
+
 Constructor and ``submit`` arguments the reference has and the port does
-not serve yet (adapters, tensor parallelism, the device allocation, KV
-page install) are refused when set, never ignored, naming the ROADMAP
-item that brings them.
+not serve yet (tensor parallelism, the device allocation, KV page
+install) are refused when set, never ignored, naming the ROADMAP item
+that brings them.
 
 The speculative batcher (``models/spec_batching.py``) is a subclass that
 overrides the reference's seams: the prefill's chunk and finish
@@ -95,6 +112,11 @@ from k8s_gpu_device_plugin_torch.models.generate import KVCache, _forward_cached
 from k8s_gpu_device_plugin_torch.models.llama import (
     LlamaConfig,
     cast_params_for_compute,
+)
+from k8s_gpu_device_plugin_torch.models.lora_serving import (
+    AdapterStore,
+    attach_adapters,
+    one_hot_sel,
 )
 from k8s_gpu_device_plugin_torch.models.paging import PagePool, kv_token_bytes
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
@@ -121,15 +143,11 @@ DEFAULT_PROMPT_BUCKETS: tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
 # yet: (the value that means "not used", the ROADMAP item that brings
 # them); anything else is refused
 _UNSERVED_INIT = {
-    "adapters": (None, "A.10"),
-    "lora_slots": (None, "A.10"),
-    "adapter_cache_mb": (0, "A.10"),
     "tp": (None, "A.12"),
     "devices": (None, "A.14"),
 }
 _UNSERVED_SUBMIT = {
-    "adapter": (-1, "A.10"),
-    "kv_pages": (None, "A.10"),
+    "kv_pages": (None, "A.10, KV export and install"),
 }
 
 
@@ -230,6 +248,7 @@ def decode_step(
     generator: torch.Generator,
     bias: "torch.Tensor | None" = None,   # (B, V) f32 per-slot logit bias
     seeds: "torch.Tensor | None" = None,  # (B,) int32, -1 = unseeded
+    sel: "torch.Tensor | None" = None,    # (B, K) f32 adapter one-hots
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One token for every slot; inactive slots compute and discard.
     Updates every tensor of ``state`` in place (``copy_``) and returns
@@ -257,7 +276,8 @@ def decode_step(
     write_pos = torch.where(was_active, state.lengths,
                             torch.full_like(state.lengths, cache_len - 1))
     logits = _forward_cached(params, state.last_token[:, None], state.cache,
-                             write_pos, cfg, pages=pages)[:, -1]
+                             write_pos, cfg, pages=pages,
+                             lora_sel=sel)[:, -1]
     tok, presence = sample_and_mark_dyn(logits, knobs, state.presence,
                                         generator, bias, seeds, state.draws)
     logps = token_logprob(logits, tok)
@@ -389,7 +409,7 @@ def prefill_insert(
     params: dict, state: BatchState, prompt: torch.Tensor, prompt_len: int,
     slot: int, cfg: LlamaConfig, knobs: torch.Tensor, max_new: int,
     generator: torch.Generator, bias: "torch.Tensor | None" = None,
-    seeds: "torch.Tensor | None" = None,
+    seeds: "torch.Tensor | None" = None, sel: "torch.Tensor | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bucketed prefill of one request into ``slot``: the prompt padded
     to its bucket P (``prompt`` (P,)) runs through a fresh single-row
@@ -402,7 +422,7 @@ def prefill_insert(
     p = prompt.shape[0]
     scratch = KVCache.init(cfg, 1, p, prompt.device)
     logits = _forward_cached(params, prompt[None, :], scratch, 0, cfg,
-                             select_pos=prompt_len - 1)[:, 0]
+                             select_pos=prompt_len - 1, lora_sel=sel)[:, 0]
     seen = torch.zeros_like(state.presence[slot])
     seen[prompt[:prompt_len].long()] = True
     tok, seen = sample_and_mark_dyn(logits, knobs[None, :], seen[None, :],
@@ -414,12 +434,15 @@ def prefill_insert(
 
 
 def prefill_chunk(params: dict, state: BatchState, chunk: torch.Tensor,
-                  chunk_start: int, slot: int, cfg: LlamaConfig) -> None:
+                  chunk_start: int, slot: int, cfg: LlamaConfig,
+                  sel: "torch.Tensor | None" = None) -> None:
     """One intermediate prefill chunk (C real tokens) into ``slot``: runs
     against the slot's own cache rows, so it attends everything the slot
-    prefilled so far and nothing of its neighbours. No sampling."""
+    prefilled so far and nothing of its neighbours. No sampling. ``sel``
+    (1, K) selects the request's adapter (None: no adapters served)."""
     _forward_cached(params, chunk[None, :], length=chunk_start, cfg=cfg,
-                    select_pos=0, **_slot_cache(state, slot, cfg))
+                    select_pos=0, lora_sel=sel,
+                    **_slot_cache(state, slot, cfg))
     # the request's first chunk starts the presence row from zeros: a
     # reused slot must not leak its previous occupant's tokens
     row = (torch.zeros_like(state.presence[slot]) if chunk_start == 0
@@ -434,7 +457,7 @@ def prefill_finish(
     prompt_len: int, slot: int, cfg: LlamaConfig, knobs: torch.Tensor,
     max_new: int, generator: torch.Generator,
     bias: "torch.Tensor | None" = None, seeds: "torch.Tensor | None" = None,
-    draw0: int = 0,
+    draw0: int = 0, sel: "torch.Tensor | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Final chunk: run it, sample the first generated token with the
     slot's ``bias`` (1, V) and ``seeds`` (1,) at draw ``draw0``, activate
@@ -453,7 +476,7 @@ def prefill_finish(
     c = chunk.shape[0]
     logits = _forward_cached(
         params, chunk[None, :], length=chunk_start, cfg=cfg,
-        select_pos=prompt_len - 1 - chunk_start,
+        select_pos=prompt_len - 1 - chunk_start, lora_sel=sel,
         **_slot_cache(state, slot, cfg),
     )[:, 0]
     seen = (torch.zeros_like(state.presence[slot]) if chunk_start == 0
@@ -498,6 +521,9 @@ class _Request:
     # multi-token stop sequences (host-side suffix match; kept in out)
     stop: tuple[tuple[int, ...], ...] = ()
     sampler: "Sampler | None" = None
+    # the stacked LoRA adapter's registry index (models/lora_serving.py);
+    # -1 = the base model
+    adapter: int = -1
     # OpenAI-style logit bias: ((token_id, bias), ...) added to the raw
     # logits; rides the decode step as the slot's row of the bias plane
     bias: tuple = ()
@@ -666,6 +692,11 @@ class ContinuousBatcher:
         trace_steps: bool = False,  # a span per decode dispatch/readback
         attribution=None,  # obs.attribution.RequestAttributor (or None)
         mfu=None,          # metrics.roofline.MfuAccumulator (or None)
+        adapters=None,     # lora_serving.AdapterSet | AdapterStore
+        lora_slots: "int | None" = None,  # K compact adapter slots; None =
+        #   n_slots (gathered); 0 = the dense-N stacks of an AdapterSet
+        adapter_cache_mb: int = 0,  # the gathered store's device budget
+        #   (MiB) when built from an AdapterSet; 0 = every adapter resident
         **unserved,
     ):
         _refuse("ContinuousBatcher", unserved, _UNSERVED_INIT)
@@ -697,6 +728,7 @@ class ContinuousBatcher:
         self._flt_prefill = point("prefill.dispatch")
         self._flt_decode = point("decode.apply")
         self._flt_promote = point("prefix.promote")
+        self._flt_adapter_upload = point("adapter.upload")
         self._fault_error = getattr(faults, "error", None)
         # the layout rides in the config, which every step function reads
         if kv_layout is not None or kv_page_size is not None:
@@ -749,6 +781,8 @@ class ContinuousBatcher:
         # the master-weight cast once, here: a step (and a captured one)
         # then reads the compute-dtype leaves as they are
         self.params = cast_params_for_compute(params, cfg)
+        self._init_adapters(adapters, lora_slots, adapter_cache_mb, cfg,
+                            n_slots)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -885,6 +919,12 @@ class ContinuousBatcher:
         self._inflight = None
         self._landing = None
         self._allowed = self._knobs = self._bias = self._eos = None
+        # the adapter stacks and the selection (the store, its registry
+        # and its residency outlive this batcher)
+        self._sel = self._lora_stacks = None
+        self.params = {**self.params, "layers": {
+            k: v for k, v in self.params["layers"].items()
+            if not k.startswith("lora_")}}
 
     def _capture_graph(self) -> None:
         """Capture :meth:`_eager_step` as the decode graph. Called while
@@ -892,6 +932,82 @@ class ContinuousBatcher:
         writing only the trap rows."""
         self.graph = DecodeGraph(self._eager_step, self.generator,
                                  self.device)
+
+    def _init_adapters(self, adapters, lora_slots: "int | None",
+                       adapter_cache_mb: int, cfg: LlamaConfig,
+                       n_slots: int) -> None:
+        """The two multi-LoRA modes behind ``adapters`` (the reference's
+        constructor rules). Gathered, the default (``lora_slots`` None or
+        > 0): an ``AdapterSet`` becomes an ``AdapterStore`` under
+        ``adapter_cache_mb``, or an ``AdapterStore`` is served as given;
+        K = ``lora_slots`` (at most, and by default, ``n_slots``: a batch
+        never holds more distinct adapters than slots). Dense-N
+        (``lora_slots=0``, an ``AdapterSet`` only): every adapter in the
+        stacks. Either way the stacks and the ``(n_slots, K)`` selection
+        are allocated here, once, before the decode graph is captured."""
+        self.adapter_store: "AdapterStore | None" = None
+        self.lora_slots = 0           # K: compact stack width (0 = dense-N)
+        self._lora_active: tuple[int, ...] = ()  # the batch's adapters
+        self._lora_slot_of: list[int] = []  # compact slot -> id it holds
+        self._lora_used: list[int] = []     # compact slot -> last gather
+        #   whose active set held its adapter
+        self._lora_stacks: "dict | None" = None
+        self._adapter_names_static: tuple[str, ...] = ()
+        self._gather_count = 0        # owner: engine (adapter_stats)
+        self._gather_s = 0.0
+        self._slot_copies = 0         # compact slots filled by a gather
+        self._adapter_deferrals: dict[str, int] = {}  # owner: engine
+        self._sel: "torch.Tensor | None" = None
+        if lora_slots is not None and lora_slots < 0:
+            raise ValueError(f"lora_slots must be >= 0, got {lora_slots}")
+        if adapters is None:
+            if adapter_cache_mb:
+                raise ValueError(
+                    "adapter_cache_mb is an AdapterStore budget; it needs "
+                    "adapters")
+            return
+        if isinstance(adapters, AdapterStore):
+            if lora_slots == 0:
+                raise ValueError(
+                    "lora_slots=0 (the dense-N path) needs a static "
+                    "AdapterSet: an AdapterStore's registry can outgrow "
+                    "any dense stack")
+            if adapter_cache_mb:
+                raise ValueError(
+                    "adapter_cache_mb sizes the store built from an "
+                    "AdapterSet; an AdapterStore carries its own "
+                    "cache_bytes")
+            store = adapters
+        elif lora_slots == 0:
+            if adapter_cache_mb:
+                raise ValueError(
+                    "adapter_cache_mb has no effect on the dense-N path "
+                    "(lora_slots=0 holds every adapter on the device)")
+            self.params = attach_adapters(self.params, adapters,
+                                          self.device)
+            self._adapter_names_static = adapters.names
+            self._sel = torch.zeros((n_slots, adapters.n),
+                                    dtype=torch.float32, device=self.device)
+            return
+        else:
+            store = AdapterStore.from_set(
+                cfg, adapters, cache_bytes=int(adapter_cache_mb) << 20)
+        if store.rank_cap is None:
+            raise ValueError(
+                "the AdapterStore holds no registered adapters; register at "
+                "least one before serving (the compact stacks' shape "
+                "freezes at the first registration)")
+        self.lora_slots = max(1, min(
+            n_slots if lora_slots is None else int(lora_slots), n_slots))
+        self.adapter_store = store
+        store.bind(self.device, self.metrics)
+        self._lora_stacks = store.compact_stacks(self.lora_slots, self.device)
+        self._lora_slot_of = [-1] * self.lora_slots
+        self._lora_used = [0] * self.lora_slots
+        self.params = {**self.params, "layers": {**self.params["layers"],
+                                                 **self._lora_stacks}}
+        self._sel = torch.zeros((n_slots, self.lora_slots),
+                                dtype=torch.float32, device=self.device)
 
     def _attach_prefix_cache(self, pc, cfg: LlamaConfig, max_len: int,
                              prompt_buckets: tuple[int, ...]) -> None:
@@ -1094,6 +1210,33 @@ class ContinuousBatcher:
                 f"{len(toks)}")
         return toks, lps or [0.0] * len(toks)
 
+    @property
+    def adapter_names(self) -> tuple:
+        """Positional adapter names (the index requests select by):
+        fixed for a dense-N ``AdapterSet``, live under an
+        ``AdapterStore`` (a registration appends, an unregistration
+        leaves a "" tombstone, so live indices never shift)."""
+        if self.adapter_store is not None:
+            return self.adapter_store.names_tuple
+        return self._adapter_names_static
+
+    @property
+    def n_adapters(self) -> int:
+        return len(self.adapter_names)
+
+    def validate_adapter(self, adapter: int) -> None:
+        """The adapter half of the admission rule (shared with the
+        serving engine's request thread, like ``validate``)."""
+        if adapter < 0:
+            return
+        if adapter >= self.n_adapters:
+            raise ValueError(
+                f"adapter index {adapter} out of range: this batcher "
+                f"serves {self.n_adapters} adapter(s)")
+        if (self.adapter_store is not None
+                and not self.adapter_store.is_registered(adapter)):
+            raise ValueError(f"adapter index {adapter} was unregistered")
+
     def submit(
         self,
         prompt: list[int],
@@ -1108,6 +1251,7 @@ class ContinuousBatcher:
         deadline_ms: "int | None" = None,
         resume_out: "list[int] | None" = None,
         resume_logp: "list[float] | None" = None,
+        adapter: int = -1,
         **unserved,
     ) -> int:
         """Queue a request; returns its id. ``prefix``
@@ -1123,8 +1267,11 @@ class ContinuousBatcher:
         started: the preemption fold at the submit edge, so the finish
         chunk samples emission and seeded draw ``len(resume_out)``
         against the budget left, and stop sequences match across the
-        boundary. A scheduler's admission control runs last and may
-        raise its overload error, leaving the batcher untouched."""
+        boundary. ``adapter`` selects a stacked LoRA adapter by registry
+        index (-1 = the base model); a prefix must have been prefilled
+        under the same one. A scheduler's admission control runs last
+        and may raise its overload error (an adapter over its quota
+        too), leaving the batcher untouched."""
         _refuse("submit", unserved, _UNSERVED_SUBMIT)
         if prefix is not None:
             if not self.chunk:
@@ -1138,10 +1285,6 @@ class ContinuousBatcher:
                     "prefix entries are owned by the attached prefix cache "
                     "(manual prefixes carry dense rows from "
                     "precompute_prefix)")
-            if prefix.adapter != -1:
-                raise ValueError(
-                    f"prefix was prefilled with adapter {prefix.adapter}, "
-                    "request uses -1")
         resume_out, resume_logp = self.validate_resume(
             resume_out, resume_logp, max_new, prefix=prefix)
         prompt = self.validate_prompt(prompt)
@@ -1153,6 +1296,14 @@ class ContinuousBatcher:
         # the folded tokens sit in the prompt AND count against max_new:
         # the remaining budget keeps the row total the original worst case
         self.validate(len(full), max_new - len(resume_out))
+        adapter = int(adapter)
+        self.validate_adapter(adapter)
+        if prefix is not None and prefix.adapter != adapter:
+            # the prefix rows were prefilled under one set of weights:
+            # reused under another they would serve wrong K/V silently
+            raise ValueError(
+                f"prefix was prefilled with adapter {prefix.adapter}, "
+                f"request uses {adapter}")
         bias = self.validate_bias(logit_bias)
         seed = self.validate_seed(seed)
         tenant, priority, deadline_ms = self.validate_sched(
@@ -1163,7 +1314,8 @@ class ContinuousBatcher:
         req = _Request(
             rid, full, int(max_new),
             stop=tuple(tuple(int(t) for t in s) for s in (stop or ()) if s),
-            sampler=sampler, bias=bias, seed=seed, t_submit=now,
+            sampler=sampler, adapter=adapter, bias=bias, seed=seed,
+            t_submit=now,
             prefix=prefix, tenant=tenant, priority=priority,
             deadline=now + deadline_ms / 1000.0 if deadline_ms else None,
             # a manual prefix reports its effective reuse too (automatic
@@ -1220,9 +1372,10 @@ class ContinuousBatcher:
                          torch.float32)
 
     def _refresh_slot_inputs(self) -> None:
-        """Rewrite the membership mask and the knobs for the current
-        running set, in place: once per admit/retire/cancel, never in
-        the steady loop."""
+        """Rewrite the membership mask, the knobs and the adapter
+        selection for the current running set, in place: once per
+        admit/retire/cancel, never in the steady loop. The writes queue
+        on the engine's stream behind the step in flight."""
         if not self._slots_dirty:
             return
         rows = [sampler_knobs(self.sampler)] * self.n_slots
@@ -1232,6 +1385,8 @@ class ContinuousBatcher:
         self._knobs.copy_(self._h2d(rows, torch.float32))
         self._allowed.copy_(self._h2d(
             [s in self.running for s in range(self.n_slots)], torch.bool))
+        if self._sel is not None:
+            self._sel.copy_(self._h2d(self._batch_sel_rows(), torch.float32))
         self._slots_dirty = False
 
     def _open_slot(self, req: _Request, slot: int) -> None:
@@ -1252,6 +1407,139 @@ class ContinuousBatcher:
         if req.bias:
             self._bias[slot].zero_()
         self._release_slot_pages(slot, req)
+
+    # --- multi-LoRA: the adapter gate, the gather, the selection ---
+
+    def _active_adapters(self, extra: int = -1) -> tuple:
+        """The distinct adapter indices live in the batch (running and
+        mid-prefill), ascending, plus ``extra`` (a request about to
+        dispatch): the set the compact stacks must hold."""
+        s = {r.adapter for r in self.running.values() if r.adapter >= 0}
+        s.update(r.adapter for r in self.prefilling.values()
+                 if r.adapter >= 0)
+        if extra >= 0:
+            s.add(extra)
+        return tuple(sorted(s))
+
+    def _ensure_gathered(self, extra: int = -1) -> None:
+        """Bring the compact stacks to the batch's active adapter set iff
+        it changed since the last gather (the reference's trigger). An
+        adapter still in a slot from an earlier gather costs nothing; a
+        new one gets a slot whose adapter left the set (never-filled
+        slots first) and one copy of its resident blocks, on the
+        engine's stream: the step in flight, queued before the copy,
+        reads the stacks it was dispatched with. The slot overwritten is
+        the one whose adapter left the set longest ago. An active adapter
+        never moves, so a running request's selection row stays valid."""
+        active = self._active_adapters(extra)
+        if active == self._lora_active:
+            return
+        t0 = time.perf_counter()
+        held = self._lora_slot_of
+        need = [a for a in active if a not in held]
+        fills = {}
+        if need:
+            free = sorted((k for k, a in enumerate(held) if a not in active),
+                          key=lambda k: (held[k] >= 0, self._lora_used[k]))
+            if len(need) > len(free):
+                raise RuntimeError(
+                    f"{len(active)} active adapters exceed lora_slots="
+                    f"{self.lora_slots}: the admission gate must defer")
+            for a, k in zip(need, free):
+                fills[k] = held[k] = a
+        self.adapter_store.gather(self._lora_stacks, fills, active)
+        self._slot_copies += len(fills)
+        self._lora_active = active
+        self._gather_count += 1
+        for k, a in enumerate(held):
+            if a in active:
+                self._lora_used[k] = self._gather_count
+        self._gather_s += time.perf_counter() - t0
+        if self.metrics is not None:
+            count = getattr(self.metrics, "on_adapter_gather", None)
+            if count is not None:
+                count()
+
+    def _req_sel(self, req: _Request) -> "torch.Tensor | None":
+        """(1, K|N) adapter one-hot for one request's prefill dispatches
+        (None when this batcher serves no adapters). Gathered, the
+        compact stacks first take the request's adapter and the row
+        selects its slot; dense-N selects the registry index."""
+        if self._sel is None:
+            return None
+        if self.adapter_store is not None:
+            self._ensure_gathered(extra=req.adapter)
+            n = self.lora_slots
+            pos = (self._lora_slot_of.index(req.adapter)
+                   if req.adapter >= 0 else -1)
+        else:
+            n, pos = self.n_adapters, req.adapter
+        return self._h2d(one_hot_sel(pos, n)[None, :].tolist(),
+                         torch.float32)
+
+    def _batch_sel_rows(self) -> list:
+        """The decode step's (n_slots, K|N) selection for the running
+        set: each slot's one-hot, zeros for an empty or base slot."""
+        width = self.lora_slots if self.adapter_store is not None \
+            else self.n_adapters
+        rows = [[0.0] * width for _ in range(self.n_slots)]
+        if self.adapter_store is not None:
+            self._ensure_gathered()
+            pos = {a: k for k, a in enumerate(self._lora_slot_of)}
+        else:
+            pos = None
+        for slot, req in self.running.items():
+            if req.adapter >= 0:
+                rows[slot][req.adapter if pos is None
+                           else pos[req.adapter]] = 1.0
+        return rows
+
+    def _count_adapter_deferral(self, reason: str) -> None:
+        """``adapter_miss`` (an upload in flight) or ``adapter_slots``
+        (more distinct adapters than K): the adapter twins of
+        ``pool_pressure``."""
+        self._adapter_deferrals[reason] = (
+            self._adapter_deferrals.get(reason, 0) + 1)
+        if self.metrics is not None:
+            count = getattr(self.metrics, "on_adapter_deferred", None)
+            if count is not None:
+                count(reason)
+
+    def _admit_adapter(self, req: _Request) -> bool:
+        """The adapter gate of one admission, the twin of
+        ``_reserve_pages``: False defers the request at the queue head.
+        Two transient causes: the compact stacks have no slot for one
+        more distinct adapter (one frees as its holders retire), or the
+        adapter is registered but not resident (the store starts the
+        upload on its own thread; the engine never waits for it, the
+        request admits a pass or two later). A spell is counted once
+        (``defer_counted``, the flag the scheduler's deferral budget
+        reads): an adapter-deferred request ages out into a 429 as a
+        pool-starved one does. The ``adapter.upload`` fault point reads
+        as a miss."""
+        if self.adapter_store is None or req.adapter < 0:
+            return True
+        if self._flt_adapter_upload is not None:
+            try:
+                self._flt_adapter_upload.fire()
+            except self._fault_error:
+                if not req.defer_counted:
+                    req.defer_counted = True
+                    self._count_adapter_deferral("adapter_miss")
+                return False
+        active = self._active_adapters()
+        if req.adapter not in active and len(active) >= self.lora_slots:
+            if not req.defer_counted:
+                req.defer_counted = True
+                self._count_adapter_deferral("adapter_slots")
+            return False
+        if not self.adapter_store.ensure_resident(req.adapter):
+            if not req.defer_counted:
+                req.defer_counted = True
+                self._count_adapter_deferral("adapter_miss")
+            return False
+        req.defer_counted = False
+        return True
 
     # --- paged-KV admission (no-ops on the dense layout) ---
 
@@ -1658,7 +1946,8 @@ class ContinuousBatcher:
                 req.matched = True
                 t_match = (time.perf_counter() if req.timeline is not None
                            else 0.0)
-                hit = self.prefix_cache.match(req.prompt, -1, count=False)
+                hit = self.prefix_cache.match(req.prompt, req.adapter,
+                                              count=False)
                 if req.timeline is not None:
                     req.timeline.prefix_match_s += (time.perf_counter()
                                                     - t_match)
@@ -1673,6 +1962,11 @@ class ContinuousBatcher:
                         pin = list(req.prefix.page_ids)
                         self.pool.incref(pin)
                         req.pinned_pages = pin
+            if not self._admit_adapter(req):
+                # head-of-line wait, before the page reservation: a
+                # deferred request holds no fresh pages (match-time pins
+                # stay; a cancel releases them)
+                break
             if self.pool is not None:
                 t_pages = (time.perf_counter() if req.timeline is not None
                            else 0.0)
@@ -1694,7 +1988,7 @@ class ContinuousBatcher:
                 req.timeline.advance("prefill", time.perf_counter())
             if req.matched:
                 self.prefix_cache.record_match(req.match_depth,
-                                               len(req.prompt))
+                                               len(req.prompt), req.adapter)
             if req.span is not None:
                 # the admit span covers the queue wait: backdated to the
                 # submit, ended at the slot assignment
@@ -1741,6 +2035,7 @@ class ContinuousBatcher:
                     self._req_knobs(req), req.max_new, self.generator,
                     bias=self._bias[slot:slot + 1],
                     seeds=self.state.seeds[slot:slot + 1],
+                    sel=self._req_sel(req),
                 )
                 self._first_token(req, slot, tok, logp, t0)
             finally:  # a raised dispatch must not pin the trace open
@@ -1903,7 +2198,8 @@ class ContinuousBatcher:
     def _apply_prefill_chunk(self, chunk: torch.Tensor, start: int,
                              slot: int) -> None:
         """One intermediate chunk of ``slot``'s prompt at ``start``."""
-        prefill_chunk(self.params, self.state, chunk, start, slot, self.cfg)
+        prefill_chunk(self.params, self.state, chunk, start, slot, self.cfg,
+                      sel=self._req_sel(self.prefilling[slot]))
 
     def _apply_prefill_finish(self, chunk: torch.Tensor, fstart: int,
                               plen: int, slot: int,
@@ -1918,6 +2214,7 @@ class ContinuousBatcher:
             self._req_knobs(req), req.max_new - req.prefilled_out,
             self.generator, bias=self._bias[slot:slot + 1],
             seeds=self.state.seeds[slot:slot + 1], draw0=req.prefilled_out,
+            sel=self._req_sel(req),
         )
 
     def _maybe_promote_prefix(self, req: _Request) -> None:
@@ -1945,7 +2242,8 @@ class ContinuousBatcher:
                 self.pool.incref(ids)
                 return ids
 
-            self.prefix_cache.on_prefill_done(req.prompt, -1, extract)
+            self.prefix_cache.on_prefill_done(req.prompt, req.adapter,
+                                              extract)
             # the gauges once a promotion pass, after the cache owns every
             # extracted boundary's references
             self._report_kv_gauges()
@@ -1956,14 +2254,90 @@ class ContinuousBatcher:
             _KV_COPIES["rows"] += p
             return extract_prefix_rows(self.state, slot, p)
 
-        self.prefix_cache.on_prefill_done(req.prompt, -1, extract_dense)
+        self.prefix_cache.on_prefill_done(req.prompt, req.adapter,
+                                          extract_dense)
 
-    def precompute_shared_prefix(self, tokens) -> "PrefixState":
+    def precompute_shared_prefix(self, tokens,
+                                 adapter: int = -1) -> "PrefixState":
         """:func:`precompute_prefix` against this batcher's params and
-        bucket ladder."""
-        return precompute_prefix(self.params, tokens, self.cfg,
-                                 prompt_buckets=self.buckets
-                                 or DEFAULT_PROMPT_BUCKETS)
+        bucket ladder: the one safe entry under gathered serving, where
+        an adapter's registry index is not its position in the compact
+        stacks. The adapter is made resident (a synchronous upload:
+        control-plane work, not the admission path) and gathered in,
+        and its slot is passed as ``sel_index``."""
+        if adapter >= 0:
+            self.validate_adapter(adapter)
+        buckets = self.buckets or DEFAULT_PROMPT_BUCKETS
+        if self.adapter_store is None:
+            return precompute_prefix(
+                self.params, tokens, self.cfg, adapter=adapter,
+                n_adapters=self.n_adapters, prompt_buckets=buckets)
+        pos = None
+        if adapter >= 0:
+            self.adapter_store.make_resident(adapter)
+            self._ensure_gathered(extra=adapter)
+            pos = self._lora_slot_of.index(adapter)
+        return precompute_prefix(
+            self.params, tokens, self.cfg, adapter=adapter,
+            n_adapters=self.lora_slots, prompt_buckets=buckets,
+            sel_index=pos)
+
+    # --- the adapter registry (gathered multi-LoRA; engine thread) ---
+
+    def register_adapter(self, name: str, lora_params: dict,
+                         lora_cfg) -> int:
+        """Add an adapter to the store at run time; returns its registry
+        index. Residency follows the store's budget: with room (or no
+        budget) it uploads now, else its first request defers once."""
+        if self.adapter_store is None:
+            raise ValueError(
+                "this batcher serves a static AdapterSet (or none); "
+                "dynamic registration needs gathered mode (an "
+                "AdapterStore, lora_slots > 0)")
+        return self.adapter_store.register(name, lora_params, lora_cfg)
+
+    def unregister_adapter(self, name: str) -> int:
+        """Remove ``name`` from the registry and evict its prefix-cache
+        root (its rows can never match again). Refused while a request
+        for it is live: queued, prefilling or decoding."""
+        if self.adapter_store is None:
+            raise ValueError(
+                "this batcher serves a static AdapterSet (or none); "
+                "unregistration needs gathered mode")
+        idx = self.adapter_store.index_of(name)
+        if idx in self._active_adapters() or any(
+                r.adapter == idx for r in self.pending):
+            raise ValueError(
+                f"adapter {name!r} has live requests; drain them first")
+        # the gather (and the store's protected set) to the true active
+        # set: it is stale if every holder retired since the last dispatch
+        self._ensure_gathered()
+        self.adapter_store.unregister(name)
+        if self.prefix_cache is not None:
+            self.prefix_cache.evict_adapter(idx)
+        return idx
+
+    def adapter_stats(self) -> "dict | None":
+        """The ``adapters`` section of ``/v1/health`` (None when this
+        batcher serves no adapters): the store's residency snapshot
+        (taken under its lock) and the engine's gather and deferral
+        counts (approximate reads, as ``kv_stats``'s)."""
+        if self.adapter_store is None:
+            if not self.n_adapters:
+                return None
+            return {"mode": "dense", "registered": self.n_adapters,
+                    "resident": self.n_adapters}
+        out = self.adapter_store.stats()
+        out.update(
+            mode="gathered",
+            lora_slots=self.lora_slots,
+            active=len(self._lora_active),
+            gathers=self._gather_count,
+            slot_copies=self._slot_copies,
+            gather_ms_total=round(self._gather_s * 1e3, 3),
+            deferrals=dict(self._adapter_deferrals),
+        )
+        return out
 
     # --- the decode loop ---
 
@@ -1972,7 +2346,8 @@ class ContinuousBatcher:
         captures)."""
         return decode_step(self.params, self.state, self._allowed, self._eos,
                            self.cfg, self._knobs, self.generator,
-                           bias=self._bias, seeds=self.state.seeds)
+                           bias=self._bias, seeds=self.state.seeds,
+                           sel=self._sel)
 
     # graftlint: hot-path
     def _decode_dispatch(self) -> tuple:
@@ -2378,8 +2753,8 @@ class PrefixState:
     rows: KVCache
     tokens: tuple
     presence: torch.Tensor  # (V,) bool over the real tokens
-    # the adapter the rows were prefilled under (-1 = base): always -1
-    # here, adapters are not served
+    # the adapter the rows were prefilled under (-1 = base): K/V depend on
+    # the weights, so only a request of the same adapter may reuse them
     adapter: int = -1
 
 
@@ -2414,14 +2789,16 @@ def reset_kv_copy_counts() -> None:
 
 
 def _precompute_prefix(params: dict, prefix: torch.Tensor, prefix_len: int,
-                       cfg: LlamaConfig) -> tuple[KVCache, torch.Tensor]:
+                       cfg: LlamaConfig, sel: "torch.Tensor | None" = None,
+                       ) -> tuple[KVCache, torch.Tensor]:
     """Run the padded prefix (P,) through a fresh single-row scratch cache
     from position 0; returns the scratch (P rows) and the presence row of
     the real tokens only (causal attention keeps the padding out of the
     real rows' K/V)."""
     p = prefix.shape[0]
     scratch = KVCache.init(cfg, 1, p, prefix.device)
-    _forward_cached(params, prefix[None, :], scratch, 0, cfg, select_pos=0)
+    _forward_cached(params, prefix[None, :], scratch, 0, cfg, select_pos=0,
+                    lora_sel=sel)
     seen = torch.zeros((cfg.vocab_size,), dtype=torch.bool,
                        device=prefix.device)
     seen[prefix[:prefix_len].long()] = True
@@ -2431,29 +2808,47 @@ def _precompute_prefix(params: dict, prefix: torch.Tensor, prefix_len: int,
 def precompute_prefix(
     params: dict, tokens: list[int], cfg: LlamaConfig, adapter: int = -1,
     prompt_buckets: tuple[int, ...] = DEFAULT_PROMPT_BUCKETS,
+    n_adapters: int = 0, sel_index: "int | None" = None,
 ) -> PrefixState:
     """Prefill a shared prefix once. The forward pads to the next
     ``prompt_buckets`` boundary, as the reference's does (one compile per
     bucket there); the rows are cut back to the exact token count, so
-    the padded rows never reach a slot."""
-    if adapter != -1:
-        raise NotImplementedError(
-            f"precompute_prefix(adapter={adapter}): adapters are not served "
-            "by the PyTorch port yet")
+    the padded rows never reach a slot. With ``adapter`` >= 0 ``params``
+    must carry the stacked adapters (the batcher's own ``.params``) and
+    ``n_adapters`` the stack's width; under gathered serving
+    ``sel_index`` is the adapter's compact slot while ``adapter`` stays
+    the registry index the prefix is labelled with
+    (``ContinuousBatcher.precompute_shared_prefix`` derives both)."""
+    if adapter >= 0 and not n_adapters:
+        # base rows labelled with the adapter would defeat submit()'s
+        # exact-match check
+        raise ValueError(
+            f"precompute_prefix(adapter={adapter}) needs n_adapters > 0 "
+            "(pass the batcher's adapter count and its .params)")
     params = cast_params_for_compute(params, cfg)
     n = len(tokens)
     pad = next((b for b in sorted(prompt_buckets) if b >= n), n)
     device = params["embed"].device
+    sel = None
+    if n_adapters:
+        if adapter >= 0 and not any(k.startswith("lora_")
+                                    for k in params["layers"]):
+            raise ValueError(
+                "params carry no stacked LoRA leaves; pass the batcher's "
+                "own .params (attach_adapters output), not the base tree")
+        sel = one_hot_sel(adapter if sel_index is None else sel_index,
+                          n_adapters)[None, :].to(device)
     arr = torch.tensor(list(tokens) + [0] * (pad - n), dtype=torch.int64,
                        device=device)
-    rows, seen = _precompute_prefix(params, arr, n, cfg)
+    rows, seen = _precompute_prefix(params, arr, n, cfg, sel)
     if pad != n:
         def cut(x):
             return None if x is None else x[:, :, :n].clone()
 
         rows = KVCache(k=cut(rows.k), v=cut(rows.v),
                        k_scale=cut(rows.k_scale), v_scale=cut(rows.v_scale))
-    return PrefixState(rows=rows, tokens=tuple(tokens), presence=seen)
+    return PrefixState(rows=rows, tokens=tuple(tokens), presence=seen,
+                       adapter=adapter)
 
 
 def _insert_prefix(state: BatchState, rows: KVCache, presence: torch.Tensor,

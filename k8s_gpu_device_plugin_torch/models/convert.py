@@ -7,7 +7,9 @@ stacked ``layers`` leaves with a leading layer axis, projections stored
 So conversion is a per-leaf copy with no transposes — the parity tests
 feed both frameworks the same numbers. A KV cache converts the same way
 (:func:`kv_cache_from_jax`): both packages keep one geometry per layout,
-so tests can start both from one cache.
+so tests can start both from one cache. LoRA factors convert the same
+way: an attached AdapterSet's stacks ride ``params_from_jax``, a single
+adapter's factor tree :func:`lora_params_from_jax`.
 
 Quantized leaves keep their own dtypes: the reference's weight-only
 ``{"q": int8, "s": f32}`` and ``{"q4": int4, "s": f32}`` leaves, and its
@@ -24,6 +26,7 @@ import torch
 from k8s_gpu_device_plugin_torch.device import resolve_device
 from k8s_gpu_device_plugin_torch.models.generate import KVCache
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
+from k8s_gpu_device_plugin_torch.models.lora import target_dims
 from k8s_gpu_device_plugin_torch.ops.quant import pack_int4
 
 
@@ -90,7 +93,11 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig,
         "embed": _tensor(np_params["embed"], cfg.p_dtype, dev),
         "final_norm": _tensor(np_params["final_norm"], cfg.p_dtype, dev),
         "layers": {
-            name: _leaf(leaf, cfg.p_dtype, dev)
+            # an attached AdapterSet's ``lora_{t}_{a,b}`` stacks are
+            # factors, kept in the compute dtype as the reference keeps
+            # them; every other leaf is a weight in the storage dtype
+            name: _leaf(leaf, cfg.dtype if name.startswith("lora_")
+                        else cfg.p_dtype, dev)
             for name, leaf in np_params["layers"].items()
         },
     }
@@ -107,12 +114,52 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig,
             raise ValueError(
                 f"{name} is {_logical_shape(out[name])}, cfg wants {shape}"
             )
+    dims = target_dims(cfg)
+    for name, leaf in out["layers"].items():
+        if not name.startswith("lora_"):
+            continue
+        t, side = name[len("lora_"):-2], name[-1]
+        if t not in dims or name[-2] != "_" or side not in "ab" \
+                or leaf.ndim != 4 or leaf.shape[0] != cfg.n_layers \
+                or leaf.shape[2 if side == "a" else 3] != dims[t][
+                    0 if side == "a" else 1]:
+            raise ValueError(
+                f"layers.{name} is {tuple(leaf.shape)}: not a LoRA stack "
+                f"of {cfg.n_layers} layers for this config")
     wq = _logical_shape(out["layers"]["wq"])
     if wq != (cfg.n_layers, d, cfg.n_heads * hd):
         raise ValueError(
             f"layers.wq is {wq}, cfg wants "
             f"{(cfg.n_layers, d, cfg.n_heads * hd)}"
         )
+    return out
+
+
+def lora_params_from_jax(np_lora: dict, cfg: LlamaConfig,
+                         device: "str | torch.device | None" = "cuda"
+                         ) -> dict:
+    """A reference adapter's factors as numpy arrays, ``{target: {"a":
+    (L, in, r), "b": (L, r, out)}}`` (reference ``models/lora.py``), ->
+    the port's on ``device`` in ``cfg.dtype``: both packages then serve
+    the same adapter. Refuses a target or a shape that does not fit
+    ``cfg``."""
+    dev = resolve_device(device)
+    dims = target_dims(cfg)
+    out = {}
+    for t, ab in np_lora.items():
+        if t not in dims or set(ab) != {"a", "b"}:
+            raise ValueError(f"not a LoRA factor pair for this config: {t!r}")
+        a = _tensor(ab["a"], cfg.dtype, dev)
+        b = _tensor(ab["b"], cfg.dtype, dev)
+        d_in, d_out = dims[t]
+        r = a.shape[-1]
+        if a.shape != (cfg.n_layers, d_in, r) or \
+                b.shape != (cfg.n_layers, r, d_out):
+            raise ValueError(
+                f"{t}: a {tuple(a.shape)}, b {tuple(b.shape)}; cfg wants "
+                f"({cfg.n_layers}, {d_in}, r) and ({cfg.n_layers}, r, "
+                f"{d_out})")
+        out[t] = {"a": a, "b": b}
     return out
 
 

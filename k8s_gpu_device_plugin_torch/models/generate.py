@@ -3,10 +3,12 @@
 Port of ``k8s_gpu_device_plugin_tpu/models/generate.py``: ``KVCache``
 (dense or a paged pool; bf16/f32, or int8 or packed int4 codes with f32
 scale planes), ``_quantize_kv``, ``_cache_write``, ``_cached_attention``,
-``_project_qkv``, ``_mlp_out``, ``_decode_block``, ``_forward_cached``,
-``prefill`` and ``generate``. Weight leaves may be weight-only quantized
-(``models/quantized_serving.py``): every projection goes through
-``qmatmul`` and the lm_head through ``qhead_matmul``.
+``_qm_lora``, ``_project_qkv``, ``_mlp_out``, ``_decode_block``,
+``_forward_cached``, ``prefill`` and ``generate``. Weight leaves may be
+weight-only quantized (``models/quantized_serving.py``): every projection
+goes through ``qmatmul`` and the lm_head through ``qhead_matmul``. A
+threaded LoRA selection adds each row's adapter delta to the targeted
+products (``models/lora_serving.py``).
 
 Where the reference scans the stacked layers with ``lax.scan`` and
 returns a fresh cache, the port loops over layers in Python and writes
@@ -34,6 +36,7 @@ from k8s_gpu_device_plugin_torch.models.llama import (
     rms_norm,
     rope_angles,
 )
+from k8s_gpu_device_plugin_torch.models.lora_serving import maybe_lora
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     layer_slice,
     qhead_matmul,
@@ -217,17 +220,43 @@ def _cached_attention(q, k_cache, v_cache, k_scale, v_scale, base,
     )
 
 
-def _project_qkv(x, layer, rot, cfg: LlamaConfig):
+def _qm_lora(h, layer, name: str, sel, hf=None):
+    """``qmatmul`` plus the per-row stacked-adapter delta when this layer
+    carries factors and a selection is threaded
+    (``models/lora_serving.py``); with ``sel`` None the base path runs
+    exactly what it runs without adapters. The delta (rounded to h's
+    dtype) is added to the product in h's dtype, as the reference adds
+    it; ``hf`` is h in f32, shared by targets that read the same h."""
+    y = qmatmul(h, layer[name])
+    d = maybe_lora(h, layer, name, sel, hf)
+    return y if d is None else y + d
+
+
+def _lora_hf(h, layer, sel, targets: tuple):
+    """h in f32 for the deltas of ``targets``, which share it, or None
+    when none of them runs a delta."""
+    if sel is None or not any(f"lora_{t}_a" in layer for t in targets):
+        return None
+    return h.float()
+
+
+def _project_qkv(x, layer, rot, cfg: LlamaConfig, sel=None):
     """Decode-side QKV projection + rope: (B, T, d) -> q (B, T, Hq, hd),
     k and v (B, T, Hkv, hd); ``rot`` is :func:`rope_angles` of the
-    tokens' positions."""
+    tokens' positions. ``sel`` (B, S) selects each row's stacked LoRA
+    adapter: S is the stack the params carry (every adapter in dense-N
+    mode, the batch's compact slots when gathered), the one-hot over
+    stack positions either way."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
-    q = qmatmul(h, layer["wq"])
-    k = qmatmul(h, layer["wk"])
-    v = qmatmul(h, layer["wv"])
+    hf = _lora_hf(h, layer, sel, ("wq", "wk", "wv"))
+    q = _qm_lora(h, layer, "wq", sel, hf)
+    k = _qm_lora(h, layer, "wk", sel, hf)
+    v = _qm_lora(h, layer, "wv", sel, hf)
     if cfg.attn_bias:
+        # base-model leaves (adapters never touch them), added after any
+        # LoRA delta
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     q = q.reshape(b, t, cfg.n_heads, hd)
     k = k.reshape(b, t, cfg.n_kv_heads, hd)
@@ -235,33 +264,37 @@ def _project_qkv(x, layer, rot, cfg: LlamaConfig):
     return apply_rope(q, *rot), apply_rope(k, *rot), v
 
 
-def _mlp_out(x, layer, cfg: LlamaConfig):
-    """The gated-MLP residual branch."""
+def _mlp_out(x, layer, cfg: LlamaConfig, sel=None):
+    """The gated-MLP residual branch (``sel``: :func:`_project_qkv`'s)."""
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
-    gate = mlp_act(qmatmul(h, layer["w1"]).float(), cfg).to(x.dtype)
-    up = qmatmul(h, layer["w3"])
-    return qmatmul(gate * up, layer["w2"])
+    hf = _lora_hf(h, layer, sel, ("w1", "w3"))
+    gate = mlp_act(_qm_lora(h, layer, "w1", sel, hf).float(),
+                   cfg).to(x.dtype)
+    up = _qm_lora(h, layer, "w3", sel, hf)
+    return _qm_lora(gate * up, layer, "w2", sel)
 
 
 def _decode_block(x, layer, kv, length, base, rot, cfg: LlamaConfig,
-                  pages=None, verify: bool = False, plain: bool = False):
+                  pages=None, verify: bool = False, plain: bool = False,
+                  sel=None):
     """One transformer block over T new tokens: writes their K/V at
     ``length + arange(T)`` (in place), attends, returns x_out. ``kv`` is
     the layer's (k, v, k_scale, v_scale) cache views; ``base`` is
     ``length`` as a (B,) int32 tensor and ``rot`` the rope angles, both
     built once per forward. ``pages`` (B, n_slot_pages) switches the
     cache to the paged pool: writes scatter through the table and reads
-    resolve through it. Weight leaves may be quantized (``qmatmul``)."""
+    resolve through it. Weight leaves may be quantized (``qmatmul``);
+    ``sel`` adds the rows' adapter deltas to every targeted product."""
     b, t, _ = x.shape
     k_cache, v_cache, k_scale, v_scale = kv
-    q, k, v = _project_qkv(x, layer, rot, cfg)
+    q, k, v = _project_qkv(x, layer, rot, cfg, sel)
     _cache_write(k_cache, k_scale, k, length, pages)
     _cache_write(v_cache, v_scale, v, length, pages)
     attn = _cached_attention(q, k_cache, v_cache, k_scale, v_scale, base,
                              cfg, pages=pages, verify=verify, plain=plain)
-    x = x + qmatmul(attn.reshape(b, t, cfg.n_heads * cfg.head_dim),
-                    layer["wo"])
-    return x + _mlp_out(x, layer, cfg)
+    x = x + _qm_lora(attn.reshape(b, t, cfg.n_heads * cfg.head_dim),
+                     layer, "wo", sel)
+    return x + _mlp_out(x, layer, cfg, sel)
 
 
 def _forward_cached(
@@ -276,6 +309,7 @@ def _forward_cached(
     pages: "torch.Tensor | None" = None,
     verify: bool = False,
     plain_attention: bool = False,
+    lora_sel: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """Run T tokens, starting at absolute position ``length``, through
     every layer, writing their K/V into ``cache`` in place. Returns f32
@@ -286,7 +320,10 @@ def _forward_cached(
     read through the table (models/batching.py owns the tables);
     ``verify`` marks a speculative verify window. ``plain_attention``
     selects the plain attention version on any device (see
-    ``_cached_attention``)."""
+    ``_cached_attention``). ``lora_sel`` (B, S) selects per-row stacked
+    LoRA adapters when ``params["layers"]`` carries them
+    (``models/lora_serving.py``); None serves the base model with no
+    added work."""
     params = cast_params_for_compute(params, cfg)
     b, t = tokens.shape
     device = tokens.device
@@ -303,10 +340,16 @@ def _forward_cached(
         positions = int(length) + steps
     rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
+    sel = None
+    if lora_sel is not None:
+        # once a forward: the folds run in the stacks' dtype (exact on a
+        # one-hot row)
+        sel = lora_sel.to(device=device, dtype=cfg.dtype)
     for i in range(cfg.n_layers):
         layer = {name: layer_slice(leaf, i) for name, leaf in layers.items()}
         x = _decode_block(x, layer, cache.layer(i), length, base, rot, cfg,
-                          pages=pages, verify=verify, plain=plain_attention)
+                          pages=pages, verify=verify, plain=plain_attention,
+                          sel=sel)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
     if last_only:
         x = x[:, -1:]

@@ -20,8 +20,9 @@ Fault points (the seams they live at):
                     raises on the engine thread, the mid-decode crash
 ``prefix.promote``  prefix-cache promotion (``_maybe_promote_prefix``):
                     raises on the engine thread after a finished prefill
-``adapter.upload``  the adapter-residency gate (no consumer in the port
-                    yet: adapters are not served)
+``adapter.upload``  the adapter-residency gate (``_admit_adapter``): reads
+                    as an upload in flight, the admission defers and
+                    retries next pass
 ``health.handler``  ``GET /v1/health``: answers 500, a live socket over a
                     lying health surface
 ``router.connect``  the router's dispatch (no consumer in the port yet)

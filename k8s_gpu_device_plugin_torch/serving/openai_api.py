@@ -20,16 +20,18 @@ no second serving path):
   chat template when it has one, else a role-tagged template; an absent
   ``max_tokens`` means the slot's remaining budget; streams carry role
   and content deltas.
-- ``GET /v1/models``: the base model (no adapters are served yet).
+- ``GET /v1/models``: the base model and every live LoRA adapter's name
+  (unregistered adapters' tombstones are not listed).
 - ``POST /v1/embeddings`` (``--embeddings``): strings or token-id lists.
 
 Errors use OpenAI's envelope (``error.type`` ``invalid_request_error``,
 ``server_error`` for 5xx, ``rate_limit_error`` with ``Retry-After`` for
 429). ``"timeline": true`` adds the primary choice's latency timeline to
 the (non-streamed) envelope, null with ``--attributionOff``, as the
-reference's extension field. Not served yet, and refused: a ``model``
-naming anything but the base model (404 ``model_not_found``: adapters,
-ROADMAP A.10).
+reference's extension field. The ``model`` field routes: the base
+model's id (or none) serves the base model, a live adapter's name that
+adapter; anything else answers 404 ``model_not_found``. Echo scoring and
+embeddings serve the base model only, as the reference documents.
 """
 
 from __future__ import annotations
@@ -228,12 +230,20 @@ class OpenAIRoutes:
         ContinuousBatcher.validate_sched(body.get("tenant"),
                                          body.get("priority"),
                                          body.get("deadline_ms"))
+        # "model" routes: the base model's id (or absent) -> the base, a
+        # live adapter's name -> that adapter, anything else OpenAI's
+        # model_not_found
         model = str(body.get("model") or MODEL_ID)
-        if model != MODEL_ID:  # adapters are not served yet (A.10)
-            raise _ModelNotFound(model)
+        adapter = -1
+        if model != MODEL_ID:
+            try:
+                adapter = self._server.resolve_adapter(model)
+            except ValueError:
+                raise _ModelNotFound(model) from None
         return {
             "n": n, "stream": stream, "max_new": max_new,
             "stop": stop_lists, "sampler": sampler, "model": model,
+            "adapter": adapter,
             "logit_bias": logit_bias, "seed": seed,
             "tenant": body.get("tenant"), "priority": body.get("priority"),
             "deadline_ms": body.get("deadline_ms"), "timeline": timeline,
@@ -270,10 +280,13 @@ class OpenAIRoutes:
     # --- endpoints -------------------------------------------------------
 
     def models(self, handler) -> None:
+        # an unregistered adapter's tombstone renders "": its index stays
+        # burned, its name is not listed
+        ids = (MODEL_ID,) + tuple(n for n in self._server.adapter_names if n)
         handler._json(200, {
             "object": "list",
-            "data": [{"id": MODEL_ID, "object": "model", "created": 0,
-                      "owned_by": "tpu-device-plugin"}],
+            "data": [{"id": mid, "object": "model", "created": 0,
+                      "owned_by": "tpu-device-plugin"} for mid in ids],
         })
 
     def embeddings(self, handler) -> None:
@@ -396,6 +409,8 @@ class OpenAIRoutes:
             raise ValueError("echo supports n == 1 only")
         if c["stream"]:
             raise ValueError("echo does not support streaming")
+        if c["adapter"] != -1:
+            raise ValueError("echo scores the base model only")
         # the scorer's cap bounds every echo request, logprobs or not
         cap = self._server.scorer.max_len
         if len(prompt) > cap:
@@ -503,7 +518,8 @@ class OpenAIRoutes:
                 engine, prompt, c.get("best_of") or c["n"], c["seed"],
                 max_new=c["max_new"], stop=c["stop"], sampler=c["sampler"],
                 logit_bias=c["logit_bias"], tenant=c["tenant"],
-                priority=c["priority"], deadline_ms=c["deadline_ms"])
+                priority=c["priority"], deadline_ms=c["deadline_ms"],
+                adapter=c["adapter"])
         except RequestTooLargeError as e:
             oai_error(handler, str(e), 422, code="request_too_large",
                       extra=e.body())

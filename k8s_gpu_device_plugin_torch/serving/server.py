@@ -34,8 +34,10 @@ Wire contract (the reference's):
   ``completions_text``). ``"timeline": true`` adds the request's latency
   timeline (``obs/attribution.py``: queue wait, prefill and decode
   segments summing to its wall time; null with ``--attributionOff``) to
-  the answer and to the SSE done event. A field the port does not
-  implement yet (``adapter``, ``kv_pages``, ...) answers 400 naming it,
+  the answer and to the SSE done event. ``"adapter": "name"`` serves the
+  request through that LoRA adapter (an unknown name answers 400). A
+  field the port does not implement yet (``kv_pages``, ...) answers 400
+  naming it,
   as does a ``logit_bias`` that is not an object of integer keys and
   numbers, or a malformed scheduling or resume field; a request no slot
   can hold, a bias outside the batcher's
@@ -61,7 +63,10 @@ Wire contract (the reference's):
   restarts, requests replayed and resumed), the live roofline (``mfu``:
   the card's peaks, the last busy second's MFU and bandwidth share,
   per-tenant goodput per TFLOP) and the attribution counters
-  (``attribution``), both absent with ``--attributionOff``.
+  (``attribution``), both absent with ``--attributionOff``, and with
+  adapters served their residency (``adapters``: mode, registered and
+  resident adapters and bytes, uploads and their p99, evictions,
+  misses, gathers, slot copies, deferrals by reason).
 - Observability: ``GET /metrics`` (the classic Prometheus text, or
   OpenMetrics with trace-id exemplars when the client's ``Accept`` asks
   for ``application/openmetrics-text``; the families of
@@ -122,6 +127,17 @@ thread in place (``--restartBudget`` per ``--restartWindowS``): a fresh
 batcher, the queue replayed, every stream resumed. ``--faults`` arms the
 seeded fault plane (``serving/faults.py``) that rehearses it.
 
+Multi-LoRA (``models/lora_serving.py``): ``build_server(args,
+adapters=...)`` serves an ``AdapterSet`` (made an ``AdapterStore`` under
+``--adapterCacheMB`` of device memory, 0 = every adapter resident) or an
+``AdapterStore`` from the caller; requests name an adapter by the
+``adapter`` field or the OpenAI ``model`` field, and ``/v1/models``
+lists them. The store outlives a crashed batcher, so adapters registered
+at run time survive a restart. ``--adapterQuota name=rate[:burst=B]``
+rate-limits adapters under every policy (429 with Retry-After).
+``--loraAdapters`` (adapters from training checkpoints) waits for the
+checkpoint module (ROADMAP A.11) and is refused.
+
 Speculative decoding (``models/spec_batching.py``): ``--draftPreset P``
 serves through a ``SpeculativeBatcher`` whose draft model is preset P,
 its weights drawn as the target's are (``--seed``, then ``--weightQuant``;
@@ -164,6 +180,10 @@ from k8s_gpu_device_plugin_torch.models.batching import (
     RequestTooLargeError,
 )
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig, init_params
+from k8s_gpu_device_plugin_torch.models.lora_serving import (
+    AdapterSet,
+    AdapterStore,
+)
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     WEIGHT_QUANTS,
     quantize_weights,
@@ -222,7 +242,7 @@ _KNOBS = {"temperature": float, "top_k": int, "top_p": float,
 _FIELDS = {"prompt", "text", "max_new", "stream", "logprobs", "stop",
            "stop_text", "seed", "n", "logit_bias", "tenant", "priority",
            "deadline_ms", "resume_out", "resume_logprobs", "timeline",
-           *_KNOBS}
+           "adapter", *_KNOBS}
 #: choices one request may ask for (each holds a decode slot)
 MAX_N = 8
 
@@ -291,6 +311,7 @@ class InferenceEngine:
                deadline_ms: "int | None" = None,
                resume_out: "list[int] | None" = None,
                resume_logp: "list[float] | None" = None,
+               adapter: int = -1,
                ) -> tuple[int, queue.Queue]:
         """Validate (everything the batcher would) and queue a request.
         Returns (engine id, its token queue). Raises the scheduler's
@@ -318,6 +339,7 @@ class InferenceEngine:
                 "logit_bias is not supported by this engine "
                 "(speculative batching threads no bias planes)"
             )
+        cb.validate_adapter(adapter)
         bias = cb.validate_bias(logit_bias)
         seed = cb.validate_seed(seed)
         if seed is not None and not cb.per_request_seed:
@@ -350,7 +372,7 @@ class InferenceEngine:
             self._next_eid += 1
             self._subq.append((eid, prompt, max_new, stop, sampler, seed,
                                bias, tenant, priority, deadline_ms,
-                               (resume_out, resume_logp), parent))
+                               (resume_out, resume_logp), adapter, parent))
             self._streams[eid] = q
             # the published cursor starts past the resumed tokens
             self._published[eid] = len(resume_out)
@@ -389,6 +411,11 @@ class InferenceEngine:
         if spec_stats is not None:
             # speculative acceptance: the production view of gamma
             out["spec"] = spec_stats()
+        adapters = cb.adapter_stats()
+        if adapters is not None:
+            # multi-LoRA residency: the store's snapshot (under its lock)
+            # and the engine's gathers and deferrals
+            out["adapters"] = adapters
         if cb.scheduler is not None:
             # queue and per-tenant SLO view, the scheduler's snapshot
             out["sched"] = cb.scheduler.sched_stats()
@@ -444,14 +471,15 @@ class InferenceEngine:
         with self._lock:
             batch, self._subq = self._subq, []
         for (eid, prompt, max_new, stop, sampler, seed, bias, tenant,
-             priority, deadline_ms, resume, parent) in batch:
+             priority, deadline_ms, resume, adapter, parent) in batch:
             try:
                 with attach(parent):  # the request tree joins the HTTP span
                     rid = self.cb.submit(
                         prompt, max_new, stop=stop, sampler=sampler,
                         seed=seed, logit_bias=bias, tenant=tenant,
                         priority=priority, deadline_ms=deadline_ms,
-                        resume_out=resume[0], resume_logp=resume[1])
+                        resume_out=resume[0], resume_logp=resume[1],
+                        adapter=adapter)
             except SchedulerOverloadError as e:
                 # the request thread's queue-cap check raced a burst: the
                 # stream closes with the rejection, its handler answers 429
@@ -716,6 +744,8 @@ def _parse_request(body, tokenizer=None) -> dict:
         **sched, "resume_out": resume_out, "resume_logp": resume_lp,
         "n": n, "stream": stream, "timeline": timeline,
         "logprobs": bool(body.get("logprobs", False)),
+        # a name: the server resolves it against its live registry
+        "adapter": body.get("adapter"),
     }
 
 
@@ -966,6 +996,7 @@ class _Handler(BaseHTTPRequestHandler):
         tokenizer = server.tokenizer
         try:
             req = _parse_request(self.read_json(), tokenizer)
+            adapter = server.resolve_adapter(req["adapter"])
         except (json.JSONDecodeError, TypeError, ValueError) as e:
             self._json(400, {"error": str(e)})
             return
@@ -976,7 +1007,8 @@ class _Handler(BaseHTTPRequestHandler):
                 sampler=req["sampler"], logit_bias=req["logit_bias"],
                 tenant=req["tenant"], priority=req["priority"],
                 deadline_ms=req["deadline_ms"],
-                resume_out=req["resume_out"], resume_logp=req["resume_logp"])
+                resume_out=req["resume_out"], resume_logp=req["resume_logp"],
+                adapter=adapter)
         except RequestTooLargeError as e:
             self._json(422, {"error": {"message": str(e),
                                        "code": "request_too_large",
@@ -1137,6 +1169,30 @@ class InferenceServer(ThreadingHTTPServer):
                            if faults is not None else None)
         self.bound_port = self.server_address[1]
         self._thread: "threading.Thread | None" = None
+
+    @property
+    def adapter_names(self) -> tuple:
+        """The engine's adapter names by index: both APIs resolve names
+        here and submit indices. A live read of the batcher's registry
+        (a run-time registration is served without a restart); an
+        unregistered adapter's "" resolves nowhere."""
+        return tuple(getattr(self.engine.cb, "adapter_names", ()))
+
+    def resolve_adapter(self, name) -> int:
+        """Adapter name -> index; None or "" -> the base model (-1).
+        Raises ValueError for an unknown name (a malformed request, not
+        a capacity problem)."""
+        if name in (None, ""):
+            return -1
+        if not isinstance(name, str):
+            raise ValueError("adapter must be a string name")
+        names = self.adapter_names
+        try:
+            return names.index(name)
+        except ValueError:
+            raise ValueError(
+                f"unknown adapter {name!r}; serving: "
+                f"{[n for n in names if n] or '(none)'}") from None
 
     def start(self) -> None:
         """Serve on a background thread."""
@@ -1318,8 +1374,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "tokens/s; an over-quota tenant is demoted, "
                         "never dropped")
     parser.add_argument("--adapterQuota", default="",
-                        help="per-adapter rate limits: refused, adapters "
-                        "are not served yet")
+                        help="per-adapter hard rate limits: "
+                        "name=rate[:burst=B],... (tokens/s of prompt + "
+                        "budgeted output; burst defaults to 4x rate). "
+                        "Enforced under every --schedPolicy: an over-"
+                        "quota submit answers 429 with Retry-After")
+    parser.add_argument("--loraAdapters", default="",
+                        help="multi-LoRA from training checkpoints "
+                        "(name=ckptdir,...): refused until the checkpoint "
+                        "module is ported (ROADMAP A.11); serve adapters "
+                        "in process through build_server(adapters=)")
+    parser.add_argument("--adapterCacheMB", type=int, default=0,
+                        help="multi-LoRA device residency budget in MiB "
+                        "(models/lora_serving.AdapterStore): adapters past "
+                        "it stay on the host and upload on demand, off the "
+                        "engine thread, LRU-evicting idle ones; 0 = every "
+                        "registered adapter stays resident")
     parser.add_argument("--defaultDeadlineMs", type=int, default=0,
                         help="deadline of a request that names none (0 = "
                         "no deadline)")
@@ -1366,14 +1436,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_server(args: argparse.Namespace,
-                 params: "dict | None" = None) -> InferenceServer:
+                 params: "dict | None" = None,
+                 adapters=None) -> InferenceServer:
     """Parsed CLI flags -> a bound (not yet serving) server: resolves the
     device first (no CUDA and no ``--device cpu`` raises before any
     weights are drawn), then loads weights and starts the engine.
     ``params`` serves the caller's weights (already on the device, for
     the preset, and quantized as ``--weightQuant`` says) instead of
     drawing a set: a process that starts several servers on one card
-    draws once."""
+    draws once. ``adapters`` (an ``AdapterSet`` or an ``AdapterStore``,
+    ``models/lora_serving.py``) serves multi-LoRA: a set becomes one
+    store under ``--adapterCacheMB``, and every batcher the supervisor
+    builds serves that store, so its registry survives a restart."""
     device = resolve_device(args.device)
     if args.kvLayout == "dense" and (args.kvPages or args.kvPageSize != 64):
         # 64 is --kvPageSize's default, the one value that cannot be told
@@ -1395,9 +1469,26 @@ def build_server(args: argparse.Namespace,
     if args.prefillReserveChunks < 1:
         raise ValueError("--prefillReserveChunks must be >= 1: the tranche "
                          "has to cover the chunk being prefilled")
-    if args.adapterQuota:
-        raise ValueError("--adapterQuota is not served by the PyTorch port "
-                         "yet: adapters are not served (ROADMAP A.10)")
+    if args.loraAdapters:
+        if args.draftPreset:
+            raise ValueError(
+                "--loraAdapters is unsupported with --draftPreset: the "
+                "draft model has no adapter stacks to mirror the target's")
+        raise ValueError(
+            "--loraAdapters reads adapters from training checkpoints, "
+            "which the PyTorch port cannot read yet (ROADMAP A.11, the "
+            "checkpoint module); pass adapters in process: "
+            "build_server(args, adapters=...)")
+    if adapters is not None and args.draftPreset:
+        raise ValueError(
+            "adapters are unsupported with --draftPreset: the draft model "
+            "has no adapter stacks to mirror the target's")
+    if args.adapterCacheMB < 0:
+        raise ValueError("--adapterCacheMB must be >= 0")
+    if args.adapterCacheMB and adapters is None:
+        raise ValueError(
+            "--adapterCacheMB needs adapters: a residency budget with no "
+            "adapters to hold would silently do nothing")
     for flag, on in (("--embeddings", args.embeddings),
                      ("--scoring", args.scoring)):
         if on and args.weightQuant != "none":
@@ -1408,6 +1499,7 @@ def build_server(args: argparse.Namespace,
     scheduler = make_scheduler(
         args.schedPolicy, max_queue=args.maxQueue,
         defer_budget_ms=args.deferBudgetMs, tenant_quota=args.tenantQuota,
+        adapter_quota=args.adapterQuota,
         # the speculative engine has no resume path: the slo policy still
         # orders its queue, without preemption
         preempt=not args.draftPreset)
@@ -1448,6 +1540,14 @@ def build_server(args: argparse.Namespace,
             f"the params passed in are quantized {weight_quant_of(params)!r}"
             f", --weightQuant says {args.weightQuant!r}"
         )
+    if isinstance(adapters, AdapterSet):
+        adapters = AdapterStore.from_set(
+            cfg, adapters, cache_bytes=args.adapterCacheMB << 20)
+    elif adapters is not None and args.adapterCacheMB and \
+            adapters.cache_bytes != args.adapterCacheMB << 20:
+        raise ValueError(
+            f"--adapterCacheMB {args.adapterCacheMB} differs from the "
+            f"AdapterStore's own budget ({adapters.cache_bytes} bytes)")
     # the auxiliary forwards are built, and run once a bucket, on this
     # thread before the engine thread starts (on a card: the kernels'
     # builds and first launches)
@@ -1487,7 +1587,8 @@ def build_server(args: argparse.Namespace,
         # crash, around the same weights, cache, scheduler and faults
         def make_batcher() -> ContinuousBatcher:
             return ContinuousBatcher(
-                params, cfg, chunked_prefill=args.chunkedPrefill, **common)
+                params, cfg, chunked_prefill=args.chunkedPrefill,
+                adapters=adapters, **common)
 
         engine = InferenceEngine(make_batcher=make_batcher,
                                  supervisor=supervisor,

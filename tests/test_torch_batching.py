@@ -99,14 +99,22 @@ def test_stop_sequence_and_cancel(models):
 
 
 def test_refuses_what_the_slice_does_not_serve(models):
-    """What is still unserved is refused (adapters, a KV page install);
-    the pipelined loop, bucketed prefill, logit bias and the scheduling
-    identity are served now, with the reference's defaults
-    (pipeline_depth 1, chunked_prefill 0) and its bounds."""
+    """What is still unserved is refused (a KV page install, naming
+    A.10's KV transfer); adapters, the pipelined loop, bucketed prefill,
+    logit bias and the scheduling identity are served now, with the
+    reference's defaults (pipeline_depth 1, chunked_prefill 0) and its
+    bounds."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="adapters"):
-        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, adapters=object())
-    with pytest.raises(NotImplementedError, match="kv_pages"):
+    # adapters are served: the argument is taken and validated (the
+    # serving itself is held in tests/test_torch_lora_serving.py)
+    with pytest.raises(ValueError, match="adapter_cache_mb"):
+        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, adapter_cache_mb=8)
+    with pytest.raises(ValueError, match="lora_slots"):
+        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128, lora_slots=-1)
+    with pytest.raises(ValueError, match="out of range"):
+        tbatch.ContinuousBatcher(tparams, tcfg, 2, 128).submit(
+            [1, 2], 4, adapter=0)
+    with pytest.raises(NotImplementedError, match="kv_pages.*A.10, KV"):
         tbatch.ContinuousBatcher(tparams, tcfg, 2, 128).submit(
             [1, 2], 4, kv_pages={"pages": []})
     # the scheduling identity is served: the request carries it

@@ -66,6 +66,8 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.models.batching\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"
+        "import k8s_gpu_device_plugin_torch.models.lora\n"
+        "import k8s_gpu_device_plugin_torch.models.lora_serving\n"
         "import k8s_gpu_device_plugin_torch.models.paging\n"
         "import k8s_gpu_device_plugin_torch.models.quantized_serving\n"
         "import k8s_gpu_device_plugin_torch.ops.quant\n"
@@ -111,6 +113,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(LlamaConfig.tiny())
+    from k8s_gpu_device_plugin_torch.models.lora_serving import (
+        init_random_adapters,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_random_adapters(LlamaConfig.tiny(), 1, 2)
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("mps")

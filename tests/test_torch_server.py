@@ -12,8 +12,9 @@ and a request the pool can never hold answers 422 with the pool's limit.
 The serving surface: ``n``, ``text`` and ``stop_text`` are served (n
 seeded choices equal single requests at seed + i, bit for bit; the
 decoded ``text`` covers a resumed request's whole output), ``timeline``
-is served (its latency timeline), ``adapter`` and ``kv_pages`` still
-answer 400 naming the field, and
+is served (its latency timeline), ``adapter`` is resolved against the
+live registry (an unknown name answers 400), ``kv_pages`` still answers
+400 naming the field, and
 ``--eosId`` has the reference's three states (unset: the tokenizer's
 EOS stops a stream).
 """
@@ -116,17 +117,27 @@ def test_generate_key_sets_match_the_reference(served):
     ("adapter", "fr"), ("timeline", True), ("kv_pages", {"pages": []}),
 ])
 def test_unimplemented_field_answers_400_naming_it(served, field, value):
-    """``adapter`` waits for the adapters (ROADMAP A.10), ``kv_pages`` for
-    KV transfer (A.10). ``timeline`` is served since latency attribution
-    (A.9): this server's batcher runs without an attributor, so the
-    answer carries it as null, as the reference's does under
-    ``--attributionOff``."""
+    """``kv_pages`` waits for KV transfer (ROADMAP A.10). ``timeline`` is
+    served since latency attribution (A.9): this server's batcher runs
+    without an attributor, so the answer carries it as null, as the
+    reference's does under ``--attributionOff``. ``adapter`` is served
+    since multi-LoRA: the field is resolved against the live registry,
+    and this server serves none, so the name is unknown (400, as the
+    reference answers it) while an empty name is the base model."""
     _, _, url = served
     status, _, body = _post(url, {"prompt": [1, 2], "max_new": 2,
                                   field: value})
     if field == "timeline":
         assert status == 200
         assert json.loads(body)["timeline"] is None
+        return
+    if field == "adapter":
+        assert status == 400
+        assert "unknown adapter 'fr'; serving: (none)" in \
+            json.loads(body)["error"]
+        status, _, body = _post(url, {"prompt": [1, 2], "max_new": 2,
+                                      "adapter": ""})
+        assert status == 200 and len(json.loads(body)["tokens"]) == 2
         return
     assert status == 400
     assert field in json.loads(body)["error"]
