@@ -237,7 +237,24 @@ Phases (any failed check exits non-zero without the final line):
    families; an over-quota request answers 429 ``adapter_quota`` and a
    queued one's cancel refunds the bucket; an adapter registered at run
    time serves its factors' stream, its unregistration refused while it
-   is live and evicting its prefix root after.
+   is live and evicting its prefix root after. Then, after the 8B
+   weights are freed and before the windowed Mistral-7B runs,
+   Mixture-of-Experts (``moe_*``, ``phase_moe``): ``moe_model``,
+   Mixtral-8x7B at its full width and 2 of its 32 layers
+   (``capacity_factor`` 8.0), through phase 3's prompt and steps: the
+   f32 kernel path against the f32 plain path, the prefill's last
+   logits against ``forward_with_aux`` (the capacity dispatch of
+   ``moe_mlp``, K2 on the CUDA cores, one launch a layer), both within
+   LOGITS_BOUND; int8 and int4 expert stacks held the same way
+   (``phase_weights``); the router's top-k on the card against the
+   CPU's on the same rows (differing selections and their margin,
+   printed). ``moe_w8``: Mixtral-8x7B at all 32 layers with int8
+   weights, drawn and quantized one layer at a time (the bf16 tree,
+   93.4 GB, is never built): ``phase_graph``'s replay-against-eager
+   check, then the server (``--preset mixtral_8x7b --weightQuant int8``)
+   on REQUESTS at ``--pipelineDepth`` 0 and 1, K1's launches counted on
+   the dense route, the streams equal; decode step, TTFT, resident
+   weight bytes, graph pool bytes and the peak memory printed.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
@@ -273,9 +290,9 @@ Phases (any failed check exits non-zero without the final line):
    runs' verify and split launches with phase 2's verify cases, the
    round's time and acceptance, the preemption runs' launches with
    the page-relief and arrival summaries, the surface run's launches
-   with phase 2's T 512 scoring case, and the lora runs'; K2's entry
-   counts the trainer's
-   launches and the surface run's, and lists its B 1 serving cases).
+   with phase 2's T 512 scoring case, the lora runs' and the moe
+   runs'; K2's entry counts the trainer's launches, the surface run's
+   and the MoE forward check's, and lists its B 1 serving cases).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1075,7 +1092,7 @@ def phase_model(torch, generate, cfg, params) -> dict:
 
 
 def phase_weights(torch, generate, cfg, qparams, weight_quant: str,
-                  model: dict) -> dict:
+                  model: dict, label: str = "llama3_8b") -> dict:
     """The 8B model on weight-only quantized params (``--weightQuant``):
     the f32 kernel path against the f32 plain path on the same quantized
     weights (codes and scales as they are, the float leaves widened),
@@ -1095,7 +1112,7 @@ def phase_weights(torch, generate, cfg, qparams, weight_quant: str,
     torch.cuda.empty_cache()
     ref = model["bf16_logits"]
     out = {
-        "phase": 3, "weight_quant": weight_quant,
+        "phase": 3, "model": label, "weight_quant": weight_quant,
         "f32_kernel_vs_plain": float(
             (runs["f32_kernel"] - runs["f32_plain"]).abs().max()),
         "bound": LOGITS_BOUND,
@@ -1105,7 +1122,8 @@ def phase_weights(torch, generate, cfg, qparams, weight_quant: str,
     }
     emit(out)
     if out["f32_kernel_vs_plain"] > LOGITS_BOUND:
-        fail(f"--weightQuant {weight_quant}: f32 kernel-path logits differ "
+        fail(f"{label} --weightQuant {weight_quant}: f32 kernel-path logits "
+             "differ "
              f"from the plain path by {out['f32_kernel_vs_plain']:.3e} > "
              f"{LOGITS_BOUND}")
     return out
@@ -1251,6 +1269,9 @@ SERVING_RUNS = {
     "w8": ["--weightQuant", "int8"],
     "w4_int4_paged": ["--weightQuant", "int4", "--cacheQuant", "int4",
                       *POOL_65],
+    # Mixtral-8x7B at full depth, int8 weights (phase_moe)
+    "moe_w8": ["--weightQuant", "int8"],
+    "moe_w8_depth0": ["--weightQuant", "int8", "--pipelineDepth", "0"],
 }
 
 
@@ -1260,7 +1281,8 @@ BUCKET_REFUSED = {i for i, (plen, _) in enumerate(REQUESTS) if plen > 1024}
 
 
 def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
-                  run: str, dense_tokens=None) -> dict:
+                  run: str, dense_tokens=None,
+                  preset: str = "llama3_8b") -> dict:
     """The server for one serving run: the six requests of REQUESTS at
     once, every launch of exactly that run counted by route, all on the
     route its flags name, every decode step a replay of the captured
@@ -1270,11 +1292,11 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
     pages, the six reserve 79) and leave the pool empty and consistent.
     The bucketed run must refuse the prompts past the largest bucket with
     a 422 and serve the others. ``params`` are already quantized as the
-    run's ``--weightQuant`` says."""
+    run's ``--weightQuant`` says; ``preset`` is the model they are for."""
     import numpy as np
 
     args, server, url = start_server(
-        server_mod, ["--preset", "llama3_8b", "--slots", "8", "--maxLen",
+        server_mod, ["--preset", preset, "--slots", "8", "--maxLen",
                      "2048", "--chunkedPrefill", "256", *SERVING_RUNS[run]],
         params)
     route = rpa.route_name(args.kvLayout == "paged", args.cacheQuant)
@@ -1368,7 +1390,8 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                 fail(f"the request replayed alone missed the prefix cache: "
                      f"{alone_cached}")
         out = {
-            "phase": 4, "run": run, "route": route, "flags": SERVING_RUNS[run],
+            "phase": 4, "run": run, "preset": preset, "route": route,
+            "flags": SERVING_RUNS[run],
             "requests": len(bodies), "served": len(served),
             "refused_422": sorted(refused), "wall_s": wall,
             "pipeline_depth": args.pipelineDepth,
@@ -3586,6 +3609,193 @@ WINDOW_RUNS = {"window_paged": ["--kvLayout", "paged", "--kvPageSize", "64",
 WINDOW_PEAK_PAGES = 164  # two rows at the windowed peak (82 pages each)
 
 
+MOE_MODEL_LAYERS = 2   # moe_model: Mixtral-8x7B's full width, depth cut
+MOE_CAPACITY = 8.0     # moe_model's training forward drops no token
+MOE_TOPK_ROWS = 4096   # moe_model: rows of h for the card-vs-CPU top-k
+
+
+def moe_model(torch, generate, llama, quantized_serving, moe_mod,
+              kernel_support) -> dict:
+    """Mixtral-8x7B at its full width (d 4096, 8 experts, top 2, d_ff
+    14336, vocab 32000) and depth MOE_MODEL_LAYERS, random bf16 weights
+    (f32 widened: about 12.5 GB; the whole depth would need 187 GB), the
+    prompt and steps of phase 3 (``_model_logits``):
+
+    (a) the f32 cached path (K1, the dense-mix decode MLP) against the
+        f32 plain path, within LOGITS_BOUND;
+    (b) the prefill's last-position f32 logits against
+        ``forward_with_aux`` (the capacity dispatch of ``moe_mlp``, K2 on
+        the CUDA cores, one launch a layer) on the same 512 tokens, within
+        LOGITS_BOUND: no token is dropped at ``capacity_factor``
+        MOE_CAPACITY, so the two MLPs compute the same function;
+    (c) int8 and int4 expert stacks (``--weightQuant``): the f32 kernel
+        path against the f32 plain path on the same codes, within
+        LOGITS_BOUND (phase 3's ``phase_weights``);
+    (d) the router's top-k on the card against the CPU's for the same h
+        (MOE_TOPK_ROWS rows of N(0, 1), each layer's router): the count
+        of differing selections and their largest margin, printed."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(),
+                              n_layers=MOE_MODEL_LAYERS,
+                              capacity_factor=MOE_CAPACITY)
+    params = llama.init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 512)),
+                          device="cuda")
+    tokens: list[int] = []
+    bf16, _ = _model_logits(torch, generate, params, cfg, prompt, tokens,
+                            False)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = widened(torch, params)
+    runs = {}
+    for name, plain in (("f32_kernel", False), ("f32_plain", True)):
+        runs[name], _ = _model_logits(torch, generate, params32, cfg32,
+                                      prompt, tokens, plain)
+    kernel_support.reset_launch_counts()
+    with torch.no_grad():
+        logits, aux = llama.forward_with_aux(params32, prompt, cfg32)
+    torch.cuda.synchronize()
+    counts = kernel_support.launch_counts()
+    k2 = counts.get("flash_fwd", 0)
+    k2_engines = {e: counts.get(kernel_support.engine_key("flash_fwd", e), 0)
+                  for e in kernel_support.ENGINES}
+    if k2 != cfg.n_layers or k2_engines["cuda_cores"] != k2:
+        fail(f"moe_model: forward_with_aux launched K2 {k2} times "
+             f"({k2_engines}), wanted {cfg.n_layers} on the CUDA cores")
+    forward_err = float((logits[0, -1] - runs["f32_kernel"][0]).abs().max())
+    # (d): the same h and router on the card and on the CPU
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h = torch.randn((1, MOE_TOPK_ROWS, cfg.d_model), generator=gen,
+                    device="cuda")
+    differ, worst, closest = 0, 0.0, float("inf")
+    for i in range(cfg.n_layers):
+        router = params["layers"]["router"][i]
+        _, card_idx, probs = moe_mod.router_topk(
+            moe_mod.router_logits(h, router), cfg.n_experts_per_token)
+        _, cpu_idx, _ = moe_mod.router_topk(
+            moe_mod.router_logits(h.cpu(), router.cpu()),
+            cfg.n_experts_per_token)
+        ranked = probs.sort(dim=-1, descending=True).values.cpu()
+        k = cfg.n_experts_per_token
+        margin = ranked[..., k - 1] - ranked[..., k]
+        bad = (card_idx.cpu().sort(-1).values
+               != cpu_idx.sort(-1).values).any(-1)
+        differ += int(bad.sum())
+        if bad.any():
+            worst = max(worst, float(margin[bad].max()))
+        closest = min(closest, float(margin.min()))
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {
+        "phase": 3, "run": "moe_model", "layers": cfg.n_layers,
+        "n_experts": cfg.n_experts, "top_k": cfg.n_experts_per_token,
+        "capacity_factor": cfg.capacity_factor,
+        "f32_kernel_vs_plain": float(
+            (runs["f32_kernel"] - runs["f32_plain"]).abs().max()),
+        "f32_prefill_vs_forward_with_aux": forward_err,
+        "bound": LOGITS_BOUND,
+        "bf16_kernel_vs_f32_plain": float((bf16 - runs["f32_plain"])
+                                          .abs().max()),
+        "greedy_agreement_bf16_vs_f32": "%d/9" % int(
+            (bf16.argmax(-1) == runs["f32_plain"].argmax(-1)).sum()),
+        "logits_std": float(runs["f32_plain"].std()),
+        "aux": {k: float(v) for k, v in aux.items()},
+        "k2_launches": k2, "k2_launches_per_engine": k2_engines,
+        "topk_rows": MOE_TOPK_ROWS * cfg.n_layers,
+        "topk_card_vs_cpu_differing": differ,
+        "topk_differing_largest_margin": worst,
+        "topk_smallest_margin": closest,
+    }
+    emit(out)
+    for key in ("f32_kernel_vs_plain", "f32_prefill_vs_forward_with_aux"):
+        if not out[key] <= LOGITS_BOUND:
+            fail(f"moe_model {key}: {out[key]:.3e} > {LOGITS_BOUND}")
+    model = {"bf16_logits": bf16, "prompt": prompt, "tokens": tokens}
+    out["weights"] = {}
+    for weight_quant in ("int8", "int4"):
+        qparams = quantized_serving.quantize_weights(params, weight_quant)
+        out["weights"][weight_quant] = phase_weights(
+            torch, generate, cfg, qparams, weight_quant, model,
+            label="mixtral_8x7b_2_layers")
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_moe(torch, server_mod, batching, sampling, generate, llama,
+              quantized_serving, moe_mod, kernel_support, rpa) -> dict:
+    """Mixture-of-Experts serving, after the Llama-3-8B weights are
+    freed: ``moe_model`` (Mixtral's width at depth 2, the checks (a) to
+    (d)), then ``moe_w8``: Mixtral-8x7B at its full 32 layers with int8
+    weights, its expert stacks quantized one layer at a time as they are
+    drawn (``server.load_params``: the 93.4 GB bf16 tree is never built).
+    Its captured decode step against the eager one (``phase_graph``),
+    then the server (``--preset mixtral_8x7b --weightQuant int8 --slots 8
+    --maxLen 2048``) serving REQUESTS at ``--pipelineDepth`` 0 and 1:
+    every decode step a graph replay, every K1 launch counted on the
+    dense route, the two runs' streams equal token for token. Prints the
+    decode step, TTFT, resident weight bytes, the graph pool and the peak
+    memory."""
+    model = moe_model(torch, generate, llama, quantized_serving, moe_mod,
+                      kernel_support)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.LlamaConfig.mixtral_8x7b()
+    params = server_mod.load_params(cfg, seed=SEED, device="cuda",
+                                    weight_quant="int8")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    resident = quantized_serving.resident_bytes(params)
+    graph = phase_graph(torch, batching, sampling, cfg, params, "moe_w8",
+                        SERVING_RUNS["moe_w8"])
+    serving = {"moe_w8_depth0": phase_serving(
+        torch, server_mod, kernel_support, rpa, cfg, params, "moe_w8_depth0",
+        preset="mixtral_8x7b")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving["moe_w8"] = phase_serving(
+        torch, server_mod, kernel_support, rpa, cfg, params, "moe_w8",
+        dense_tokens=serving["moe_w8_depth0"]["tokens"],
+        preset="mixtral_8x7b")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = serving["moe_w8"]
+    out = {
+        "phase": 4, "run": "moe_w8_summary", "layers": cfg.n_layers,
+        "load_s": load_s, "load_peak_gib": load_peak / 2**30,
+        "resident_weight_bytes": resident,
+        "weights": run["weights"],
+        "decode_step_ms_mean": {r: serving[r]["decode_step_ms_mean"]
+                                for r in serving},
+        "prefill_chunk_ms_mean": {r: serving[r]["prefill_chunk_ms_mean"]
+                                  for r in serving},
+        "ttft_s_p50": {r: serving[r]["ttft_s_p50"] for r in serving},
+        "decode_graph_pool_bytes": {"graph_check": graph["pool_bytes"],
+                                    **{r: serving[r]["decode_graph"][
+                                        "pool_bytes"] for r in serving}},
+        "graph_equal_bitwise": graph["equal_bitwise"],
+        "streams_depth1_equal_depth0": True,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "k1_launches": {r: serving[r]["launches"] for r in serving},
+        "s": time.perf_counter() - t0,
+    }
+    emit(out)
+    return {"model": model, "graph": graph, "serving": serving,
+            "summary": out,
+            "k1_launches": sum(serving[r]["launches"] for r in serving),
+            "k2_launches": model["k2_launches"]}
+
+
 def phase_window(torch, server_mod, kernel_support, rpa, batching,
                  llama) -> dict:
     """Mistral-7B served windowed (W 4096) from a page pool too small for
@@ -5209,6 +5419,7 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.models import llama
         from k8s_gpu_device_plugin_torch.models import lora
         from k8s_gpu_device_plugin_torch.models import lora_serving as ls
+        from k8s_gpu_device_plugin_torch.models import moe as moe_mod
         from k8s_gpu_device_plugin_torch.models import quantized_serving
         from k8s_gpu_device_plugin_torch.models import sampling
         from k8s_gpu_device_plugin_torch.models import spec_batching as spec_mod
@@ -5337,7 +5548,10 @@ def main() -> None:
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
-    # the Llama-3-8B weights are gone: Mistral-7B's, windowed
+    # the Llama-3-8B weights are gone: Mixtral-8x7B's (two layers at its
+    # width, then all 32 at int8), then Mistral-7B's, windowed
+    moe = phase_moe(torch, server_mod, batching, sampling, generate, llama,
+                    quantized_serving, moe_mod, kernel_support, rpa)
     window = phase_window(torch, server_mod, kernel_support, rpa, batching,
                           llama)
     training = phase_training(torch, kernel_support, attention_mod, llama,
@@ -5395,7 +5609,8 @@ def main() -> None:
         + sum(window[run]["launches"] for run in WINDOW_RUNS)
         + sum(spec[run]["launches"] for run in spec_runs)
         + preempt["launches"] + surface["launches"][rpa.NAME]
-        + obs["summary"]["launches"] + lora_runs["k1_launches"]["total"],
+        + obs["summary"]["launches"] + lora_runs["k1_launches"]["total"]
+        + moe["k1_launches"],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -5429,6 +5644,12 @@ def main() -> None:
          # twin's on the CUDA cores)
          "lora": {"launches": lora_runs["k1_launches"],
                   "lora_mix_launches": lora_runs["mix"]["k1"]},
+         # Mixtral-8x7B, 32 layers, int8 experts: its served runs at
+         # pipeline depth 1 and 0 (dense route, tensor cores)
+         "moe": {"launches": moe["summary"]["k1_launches"],
+                 "decode_step_ms_mean": moe["summary"]["decode_step_ms_mean"],
+                 "decode_graph_pool_bytes":
+                     moe["summary"]["decode_graph_pool_bytes"]},
          "obs": {"launches": obs["summary"]["launches"],
                  "decode_step_ms_mean": obs["summary"][
                      "decode_step_ms_mean"]},
@@ -5481,8 +5702,8 @@ def main() -> None:
         errs = {f"max_err_{dn}": max(c["max_abs_err"][o] for c in flash
                                      for o in outs if c["dtype"] == dn)
                 for dn in ("bfloat16", "float32")}
-        served = surface["launches"]["flash_fwd"] if name == "flash_fwd" \
-            else 0
+        served = surface["launches"]["flash_fwd"] + moe["k2_launches"] \
+            if name == "flash_fwd" else 0
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
@@ -5497,10 +5718,14 @@ def main() -> None:
             {"headline_case": f"causal bfloat16, B={TRAIN_BATCH} "
                               f"S={TRAIN_SEQ} Hq=32 Hkv=8 hd=128",
              "engine": {"bfloat16": "tensor_cores", "float32": "cuda_cores"},
-             # the trainer's launches and the serving surface's (K2 at
-             # B 1: every short scored prompt and embedding)
+             # the trainer's launches, the serving surface's (K2 at B 1:
+             # every short scored prompt and embedding) and the MoE
+             # forward check's (Mixtral's width, f32, CUDA cores)
              "launches_training": training["launches"].get(name, 0),
-             "launches_surface": served,
+             "launches_surface": served - moe["k2_launches"]
+             if name == "flash_fwd" else 0,
+             "launches_moe_forward": moe["k2_launches"]
+             if name == "flash_fwd" else 0,
              "launches_per_engine": {
                  e: training["launches"].get(kernel_support.engine_key(name, e), 0)
                  for e in kernel_support.ENGINES},

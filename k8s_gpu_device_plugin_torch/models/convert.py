@@ -11,6 +11,10 @@ so tests can start both from one cache. LoRA factors convert the same
 way: an attached AdapterSet's stacks ride ``params_from_jax``, a single
 adapter's factor tree :func:`lora_params_from_jax`.
 
+A MoE tree's ``router`` (L, d, E) stays f32 whatever the storage dtype
+(rounding it would move top-k decisions); its expert stacks (L, E, in,
+out), float or quantized, convert like any other layer leaf.
+
 Quantized leaves keep their own dtypes: the reference's weight-only
 ``{"q": int8, "s": f32}`` and ``{"q4": int4, "s": f32}`` leaves, and its
 int8/int4 caches. ``jnp.int4`` arrives as an ml_dtypes int4 array; it is
@@ -93,11 +97,7 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig,
         "embed": _tensor(np_params["embed"], cfg.p_dtype, dev),
         "final_norm": _tensor(np_params["final_norm"], cfg.p_dtype, dev),
         "layers": {
-            # an attached AdapterSet's ``lora_{t}_{a,b}`` stacks are
-            # factors, kept in the compute dtype as the reference keeps
-            # them; every other leaf is a weight in the storage dtype
-            name: _leaf(leaf, cfg.dtype if name.startswith("lora_")
-                        else cfg.p_dtype, dev)
+            name: _leaf(leaf, _layer_dtype(name, cfg), dev)
             for name, leaf in np_params["layers"].items()
         },
     }
@@ -126,13 +126,30 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig,
             raise ValueError(
                 f"layers.{name} is {tuple(leaf.shape)}: not a LoRA stack "
                 f"of {cfg.n_layers} layers for this config")
-    wq = _logical_shape(out["layers"]["wq"])
-    if wq != (cfg.n_layers, d, cfg.n_heads * hd):
-        raise ValueError(
-            f"layers.wq is {wq}, cfg wants "
-            f"{(cfg.n_layers, d, cfg.n_heads * hd)}"
-        )
+    L, f = cfg.n_layers, cfg.d_ff
+    want = {"wq": (L, d, cfg.n_heads * hd)}
+    if cfg.is_moe:
+        e = cfg.n_experts
+        want.update(router=(L, d, e), moe_w1=(L, e, d, f),
+                    moe_w3=(L, e, d, f), moe_w2=(L, e, f, d))
+    for name, shape in want.items():
+        got = _logical_shape(out["layers"][name]) \
+            if name in out["layers"] else None
+        if got != shape:
+            raise ValueError(f"layers.{name} is {got}, cfg wants {shape}")
     return out
+
+
+def _layer_dtype(name: str, cfg: LlamaConfig) -> torch.dtype:
+    """A layer leaf's dtype in the port: an attached AdapterSet's
+    ``lora_{t}_{a,b}`` stacks are factors, kept in the compute dtype as
+    the reference keeps them; the MoE router is f32; every other leaf is
+    a weight in the storage dtype."""
+    if name.startswith("lora_"):
+        return cfg.dtype
+    if name == "router":
+        return torch.float32
+    return cfg.p_dtype
 
 
 def lora_params_from_jax(np_lora: dict, cfg: LlamaConfig,

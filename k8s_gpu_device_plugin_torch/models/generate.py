@@ -3,7 +3,8 @@
 Port of ``k8s_gpu_device_plugin_tpu/models/generate.py``: ``KVCache``
 (dense or a paged pool; bf16/f32, or int8 or packed int4 codes with f32
 scale planes), ``_quantize_kv``, ``_cache_write``, ``_cached_attention``,
-``_qm_lora``, ``_project_qkv``, ``_mlp_out``, ``_decode_block``,
+``_qm_lora``, ``_project_qkv``, ``_decode_moe_mlp``, ``_mlp_out``,
+``_decode_block``,
 ``_forward_cached``, ``prefill`` and ``generate``. Weight leaves may be
 weight-only quantized (``models/quantized_serving.py``): every projection
 goes through ``qmatmul`` and the lm_head through ``qhead_matmul``. A
@@ -26,6 +27,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from k8s_gpu_device_plugin_torch.models.llama import (
     LlamaConfig,
@@ -37,8 +39,10 @@ from k8s_gpu_device_plugin_torch.models.llama import (
     rope_angles,
 )
 from k8s_gpu_device_plugin_torch.models.lora_serving import maybe_lora
+from k8s_gpu_device_plugin_torch.models.moe import router_logits, router_topk
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     layer_slice,
+    qexpert_einsum,
     qhead_matmul,
     qmatmul,
 )
@@ -264,9 +268,44 @@ def _project_qkv(x, layer, rot, cfg: LlamaConfig, sel=None):
     return apply_rope(q, *rot), apply_rope(k, *rot), v
 
 
+#: rows of one MoE MLP pass: a longer T runs in chunks of this many
+_MOE_PREFILL_CHUNK = 128
+
+
+def _decode_moe_mlp(h, layer, cfg: LlamaConfig):
+    """The serving MoE MLP: every expert computed, mixed by the
+    renormalised top-k gates (``models/moe.py::router_topk``, as in
+    training). No capacity competition, so no token is dropped: it equals
+    training's forward wherever capacity dropped nothing. All E experts
+    cost E/k times the sparse FLOPs, and buy static shapes with no
+    gather and no host sync (the captured decode graph). T over
+    ``_MOE_PREFILL_CHUNK`` runs in chunks of that many rows, so the
+    (B, T, E, F) intermediates stay one chunk deep; routing is per
+    token, so chunking is exact."""
+    t = h.shape[1]
+    c = _MOE_PREFILL_CHUNK
+    if t > c:
+        return torch.cat([_decode_moe_mlp(h[:, i:i + c], layer, cfg)
+                          for i in range(0, t, c)], dim=1)
+    gates, idx, _ = router_topk(router_logits(h, layer["router"]),
+                                cfg.n_experts_per_token)      # (B, T, k)
+    # one gate into each chosen expert's column (the top-k are distinct)
+    mix = torch.zeros((*idx.shape[:-1], cfg.n_experts), dtype=gates.dtype,
+                      device=h.device).scatter_(-1, idx, gates)
+    gate = F.silu(qexpert_einsum("btd,edf->btef", h, layer["moe_w1"])
+                  .float()).to(h.dtype)
+    up = qexpert_einsum("btd,edf->btef", h, layer["moe_w3"])
+    y = qexpert_einsum("btef,efd->bted", gate * up, layer["moe_w2"])
+    return torch.einsum("bte,bted->btd", mix.to(h.dtype), y)
+
+
 def _mlp_out(x, layer, cfg: LlamaConfig, sel=None):
-    """The gated-MLP residual branch (``sel``: :func:`_project_qkv`'s)."""
+    """The MLP residual branch, gated or (MoE) the expert mix
+    (``sel``: :func:`_project_qkv`'s; adapters on a MoE config target
+    attention only, ``models/lora.py``)."""
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
+    if cfg.is_moe:
+        return _decode_moe_mlp(h, layer, cfg)
     hf = _lora_hf(h, layer, sel, ("w1", "w3"))
     gate = mlp_act(_qm_lora(h, layer, "w1", sel, hf).float(),
                    cfg).to(x.dtype)

@@ -12,7 +12,10 @@ layer axis and every projection stored ``(in, out)`` — ``x @ w``, no
 transposes. Layer leaves: ``attn_norm``/``mlp_norm`` (L, d), ``wq``
 (L, d, Hq*hd), ``wk``/``wv`` (L, d, Hkv*hd), ``wo`` (L, Hq*hd, d),
 ``w1``/``w3`` (L, d, d_ff), ``w2`` (L, d_ff, d), plus ``bq``/``bk``/
-``bv`` when ``attn_bias``.
+``bv`` when ``attn_bias``. A MoE config (``n_experts > 0``) has no
+``w1``/``w2``/``w3``: it carries ``router`` (L, d, E), kept in f32
+whatever the storage dtype, and the expert stacks ``moe_w1``/``moe_w3``
+(L, E, d, d_ff) and ``moe_w2`` (L, E, d_ff, d) (``models/moe.py``).
 
 The full-sequence forward (``forward_with_aux``/``forward``, the
 training path) loops over the stacked layer leaves in Python where the
@@ -21,7 +24,7 @@ when ``remat`` is set; its attention goes through
 ``ops.attention.attention`` (the flash kernels on the card).
 
 The config refuses the values the port does not serve yet (int8
-training matmuls, MoE, tensor, sequence and pipeline parallelism, fused
+training matmuls, tensor, sequence and pipeline parallelism, fused
 cross-entropy) instead of ignoring them; each refusal names its ROADMAP
 item. Weight-only quantized serving params (``models/quantized_serving.py``)
 are dict leaves in the same tree: the master-weight cast passes them
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
+from k8s_gpu_device_plugin_torch.models.moe import moe_mlp, moe_param_init
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     check_cache_quant_kv_layout,
 )
@@ -99,12 +103,25 @@ class LlamaConfig:
     # batcher's max_len; the kernel takes a power of two >= 8
     kv_page_size: int = 64
     tp: int = 1
+    # MoE (0 experts = dense MLP): Mixtral-style top-k routing, GShard
+    # dispatch (models/moe.py)
     n_experts: int = 0
+    n_experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_z_weight: float = 1e-3
+    # GShard routing-group size: capacity competition is local to groups
+    # of this many tokens (0 = one group per batch row)
+    moe_group_size: int = 4096
 
     def __post_init__(self) -> None:
         if self.act not in ("silu", "gelu_tanh"):
             raise ValueError(
                 f"act must be 'silu' or 'gelu_tanh', got {self.act!r}"
+            )
+        if self.act != "silu" and self.n_experts > 0:
+            raise NotImplementedError(
+                "MoE expert MLPs hardcode silu (no Gemma-style MoE here)"
             )
         if self.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
@@ -136,8 +153,6 @@ class LlamaConfig:
             ("quant", "none", "int8 training matmuls are not ported yet "
              "(ROADMAP A8); use quant='none' (weight-only serving "
              "quantization is models/quantized_serving.py)"),
-            ("n_experts", 0, "MoE MLPs are not ported yet (ROADMAP A10); "
-             "use a dense config (n_experts=0)"),
             ("tp", 1, "tensor-parallel serving is not ported yet (ROADMAP "
              "A11); serve tp=1 (one card)"),
             ("fused_ce", False, "fused lm_head + cross-entropy is not "
@@ -158,6 +173,13 @@ class LlamaConfig:
     @property
     def p_dtype(self) -> torch.dtype:
         return self.param_dtype if self.param_dtype is not None else self.dtype
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def with_group_size(self, g: int) -> "LlamaConfig":
+        return replace(self, moe_group_size=g)
 
     # --- presets (the reference's, dims unchanged) ---
 
@@ -184,6 +206,14 @@ class LlamaConfig:
         )
 
     @staticmethod
+    def mixtral_8x7b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+            n_kv_heads=8, d_ff=14336, rope_theta=1e6, max_seq=32768,
+            n_experts=8, n_experts_per_token=2,
+        )
+
+    @staticmethod
     def tiny(**overrides) -> "LlamaConfig":
         cfg = LlamaConfig(
             vocab_size=512, d_model=128, n_layers=2, n_heads=8,
@@ -198,19 +228,25 @@ class LlamaConfig:
         d, f, L = self.d_model, self.d_ff, self.n_layers
         hd = self.head_dim
         attn_proj = 2 * d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
-        mlp = 3 * d * f
+        if self.is_moe:  # activated params only: k experts + the router
+            mlp = 3 * d * f * self.n_experts_per_token + d * self.n_experts
+        else:
+            mlp = 3 * d * f
         embed = self.vocab_size * d  # lm_head (the embed table is a gather)
         return 6.0 * (L * (attn_proj + mlp) + embed)
 
 
 def init_params(cfg: LlamaConfig, *, seed: int = 0,
-                device: "str | torch.device | None" = "cuda") -> dict:
+                device: "str | torch.device | None" = "cuda",
+                expert_leaf=None) -> dict:
     """Random parameters in the reference's layout and distribution
     (truncated normal, std 0.02; output projections 0.02/sqrt(2L)),
     drawn ON ``device`` from an explicit ``torch.Generator`` seeded with
     ``seed``. The draws differ from JAX's (another generator), so tests
     that compare the two frameworks convert JAX's parameters instead
-    (models/convert.py)."""
+    (models/convert.py). A MoE config draws its router and expert stacks
+    where a dense one draws ``w1``/``w3``/``w2`` (``models/moe.py::
+    moe_param_init``, which ``expert_leaf`` is passed to)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -218,12 +254,15 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0,
     std = 0.02
     out_std = std / math.sqrt(2 * L)
 
-    def normal(shape, scale):
-        # drawn in f32 (precision of the tail clamp), stored in p_dtype
+    def draw(shape, scale):
+        # f32, the precision of the tail clamp
         x = torch.empty(shape, dtype=torch.float32, device=dev)
         torch.nn.init.trunc_normal_(x, 0.0, scale, -3 * scale, 3 * scale,
                                     generator=gen)
-        return x.to(cfg.p_dtype)
+        return x
+
+    def normal(shape, scale):
+        return draw(shape, scale).to(cfg.p_dtype)
 
     def norm_weight(shape):
         fill = torch.zeros if cfg.norm_offset else torch.ones
@@ -242,9 +281,12 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0,
                             ("bv", cfg.n_kv_heads)):
             layers[name] = torch.zeros((L, width * hd), dtype=cfg.p_dtype,
                                        device=dev)
-    layers["w1"] = normal((L, d, cfg.d_ff), std)
-    layers["w3"] = normal((L, d, cfg.d_ff), std)
-    layers["w2"] = normal((L, cfg.d_ff, d), out_std)
+    if cfg.is_moe:
+        layers.update(moe_param_init(cfg, draw, expert_leaf))
+    else:
+        layers["w1"] = normal((L, d, cfg.d_ff), std)
+        layers["w3"] = normal((L, d, cfg.d_ff), std)
+        layers["w2"] = normal((L, cfg.d_ff, d), out_std)
     params = {
         "embed": normal((cfg.vocab_size, d), std),
         "layers": layers,
@@ -257,14 +299,17 @@ def init_params(cfg: LlamaConfig, *, seed: int = 0,
 
 def cast_params_for_compute(params: dict, cfg: LlamaConfig) -> dict:
     """Master-weight cast: layer stacks -> compute dtype (no-op, and the
-    same dict back, when storage == compute dtype). Quantized serving
-    leaves (``{"q", "s"}``/``{"q4", "s"}`` dicts) pass through untouched:
-    casting them would destroy the quantization."""
+    same dict back, when storage == compute dtype). The MoE router stays
+    f32 (routing is precision-sensitive: a bf16 round trip would move
+    top-k decisions). Quantized serving leaves (``{"q", "s"}``/``{"q4",
+    "s"}`` dicts) pass through untouched: casting them would destroy the
+    quantization."""
     if cfg.p_dtype == cfg.dtype:
         return params
     return {
         **params,
-        "layers": {k: v if isinstance(v, dict) else v.to(cfg.dtype)
+        "layers": {k: v if k == "router" or isinstance(v, dict)
+                   else v.to(cfg.dtype)
                    for k, v in params["layers"].items()},
     }
 
@@ -398,8 +443,9 @@ def _attention(q, k, v, cfg: LlamaConfig, plain: bool = False):
 
 
 def _block(x, layer, cfg: LlamaConfig, rot, plain_attention: bool = False):
-    """One transformer block: (B, S, D) -> (B, S, D). ``rot`` is
-    :func:`rope_angles` of the positions, built once per forward."""
+    """One transformer block: (B, S, D) -> ((B, S, D), aux losses; ``{}``
+    for a dense MLP). ``rot`` is :func:`rope_angles` of the positions,
+    built once per forward."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
@@ -412,16 +458,20 @@ def _block(x, layer, cfg: LlamaConfig, rot, plain_attention: bool = False):
     attn = _attention(q, k, v, cfg, plain=plain_attention)
     x = x + attn.reshape(b, s, cfg.n_heads * hd) @ layer["wo"]
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
+    if cfg.is_moe:
+        ff_out, aux = moe_mlp(h, layer, cfg)
+        return x + ff_out, aux
     gate = mlp_act((h @ layer["w1"]).float(), cfg).to(x.dtype)
     up = h @ layer["w3"]
-    return x + (gate * up) @ layer["w2"]
+    return x + (gate * up) @ layer["w2"], {}
 
 
 def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                      return_hidden: bool = False,
                      plain_attention: bool = False) -> tuple:
-    """Token ids (B, S) -> (logits (B, S, V) f32, aux losses). Dense
-    configs have no aux losses, so aux is ``{}``. ``return_hidden`` stops
+    """Token ids (B, S) -> (logits (B, S, V) f32, aux losses). A MoE
+    config's aux losses (``moe_load_balance``, ``moe_router_z``) are
+    summed over the layers; a dense config has none, so aux is ``{}``. ``return_hidden`` stops
     before the lm_head and returns the final normed hidden states
     (B, S, D). ``plain_attention`` runs ``mha_reference`` on any device
     (see ``ops.attention.attention``)."""
@@ -443,19 +493,22 @@ def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     # one unbind per leaf: its backward stacks the L layer grads once,
     # where per-layer indexing would scatter each into a full-size zero
     layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+    aux = {}
     for i in range(cfg.n_layers):
         layer = {name: leaves[i] for name, leaves in layers.items()}
         if not cfg.remat:
-            x = block(x, layer)
+            x, layer_aux = block(x, layer)
         elif context_fn is None:
-            x = checkpoint(block, x, layer, use_reentrant=False)
+            x, layer_aux = checkpoint(block, x, layer, use_reentrant=False)
         else:
-            x = checkpoint(block, x, layer, use_reentrant=False,
-                           context_fn=context_fn)
+            x, layer_aux = checkpoint(block, x, layer, use_reentrant=False,
+                                      context_fn=context_fn)
+        for name, value in layer_aux.items():
+            aux[name] = value if name not in aux else aux[name] + value
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
     if return_hidden:
-        return x, {}
-    return _LMHead.apply(x, head_weights(params, cfg).to(cfg.dtype)), {}
+        return x, aux
+    return _LMHead.apply(x, head_weights(params, cfg).to(cfg.dtype)), aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,

@@ -169,12 +169,20 @@ def param_leaves(params: dict) -> list:
 
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig,
             with_accuracy: bool = True, plain_attention: bool = False):
-    """(loss, {"loss", "accuracy"}) of one batch {"inputs", "targets"}."""
-    logits, _ = forward_with_aux(params, batch["inputs"], cfg,
-                                 plain_attention=plain_attention)
+    """(loss, {"loss", "accuracy"}) of one batch {"inputs", "targets"}.
+    A MoE config adds its router losses to the loss, ``moe_aux_weight *
+    moe_load_balance + moe_z_weight * moe_router_z``, and reports them
+    beside the cross-entropy ``loss``."""
+    logits, aux = forward_with_aux(params, batch["inputs"], cfg,
+                                   plain_attention=plain_attention)
     loss, accuracy = cross_entropy(logits, batch["targets"],
                                    with_accuracy=with_accuracy)
-    return loss, {"loss": loss.detach(), "accuracy": accuracy}
+    metrics = {"loss": loss.detach(), "accuracy": accuracy}
+    if aux:
+        metrics.update({k: v.detach() for k, v in aux.items()})
+        loss = (loss + cfg.moe_aux_weight * aux["moe_load_balance"]
+                + cfg.moe_z_weight * aux["moe_router_z"])
+    return loss, metrics
 
 
 def _grads(params: dict, batch: dict, cfg: LlamaConfig, **kw):

@@ -284,8 +284,10 @@ def _refusal(args: argparse.Namespace) -> "str | None":
          "optimizer is not ported yet (ROADMAP A8)"),
         (args.fusedCE, "--fusedCE: fused cross-entropy is not ported yet "
          "(ROADMAP A8)"),
-        (args.preset == "mixtral_8x7b", "--preset mixtral_8x7b: MoE is not "
-         "ported yet (ROADMAP A10)"),
+        (args.preset == "mixtral_8x7b", "--preset mixtral_8x7b: its "
+         "params, grads and Adam state take about 747 GB, which is "
+         "parallel training, not ported yet (ROADMAP A.13); the tiny "
+         "MoE trains in process (models/train.py)"),
     )
     return next((why for bad, why in checks if bad), None)
 

@@ -100,7 +100,11 @@ page included; 0 sizes it to the dense reservation); ``--cacheQuant
 int8`` (or ``int4``) keeps K/V as int8 (int4) codes with f32 scales, on
 either layout; ``--weightQuant int8|int4`` quantizes the projection,
 MLP and lm_head weights after they load (weight-only, as the reference's
-server does). ``--pipelineDepth 1`` (the default) dispatches each decode
+server does). ``--preset mixtral_8x7b`` serves Mixtral-8x7B (MoE, 8
+experts, top 2): its bf16 weights (93.4 GB) do not fit one card, so it
+is served with ``--weightQuant int8`` (about 46.9 GB) or ``int4``, its
+expert stacks quantized one layer at a time as they are drawn.
+``--pipelineDepth 1`` (the default) dispatches each decode
 step before the previous one is read back, 0 runs the synchronous loop;
 ``--chunkedPrefill 0`` prefills each prompt whole at admission, padded to
 its bucket, instead of in chunks of 256.
@@ -186,6 +190,7 @@ from k8s_gpu_device_plugin_torch.models.lora_serving import (
 )
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     WEIGHT_QUANTS,
+    expert_quantizer,
     quantize_weights,
     weight_quant_of,
 )
@@ -235,6 +240,7 @@ PRESETS = {
     "llama3_8b": LlamaConfig.llama3_8b,
     "llama3_70b": LlamaConfig.llama3_70b,
     "mistral_7b": LlamaConfig.mistral_7b,
+    "mixtral_8x7b": LlamaConfig.mixtral_8x7b,
 }
 
 _KNOBS = {"temperature": float, "top_k": int, "top_p": float,
@@ -1216,11 +1222,20 @@ class InferenceServer(ThreadingHTTPServer):
 
 
 def load_params(cfg: LlamaConfig, *, seed: int = 0,
-                device: "str | torch.device" = "cuda") -> dict:
-    """Model weights for serving. No checkpoint format is ported yet, so
-    this draws RANDOM weights on ``device`` from ``seed`` (loudly)."""
+                device: "str | torch.device" = "cuda",
+                weight_quant: str = "none") -> dict:
+    """Model weights for serving, quantized as ``weight_quant`` says. No
+    checkpoint format is ported yet, so this draws RANDOM weights on
+    ``device`` from ``seed`` (loudly). A MoE config's expert stacks are
+    quantized one layer at a time as they are drawn, so the float stacks
+    never exist whole (Mixtral-8x7B's take 93.4 GB in bf16, more than
+    one card holds); the tree equals drawing it whole and quantizing it
+    after, bit for bit."""
     log.warning("serving RANDOM weights (seed %d): smoke mode", seed)
-    return init_params(cfg, seed=seed, device=device)
+    params = init_params(
+        cfg, seed=seed, device=device,
+        expert_leaf=expert_quantizer(weight_quant) if cfg.is_moe else None)
+    return quantize_weights(params, weight_quant)
 
 
 def _eos_arg(value: str):
@@ -1533,8 +1548,8 @@ def build_server(args: argparse.Namespace,
                                    min_hits=args.prefixCacheMinHits,
                                    metrics=metrics)
     if params is None:
-        params = load_params(cfg, seed=args.seed, device=device)
-        params = quantize_weights(params, args.weightQuant)
+        params = load_params(cfg, seed=args.seed, device=device,
+                             weight_quant=args.weightQuant)
     elif weight_quant_of(params) != args.weightQuant:
         raise ValueError(
             f"the params passed in are quantized {weight_quant_of(params)!r}"
@@ -1573,8 +1588,8 @@ def build_server(args: argparse.Namespace,
         # a draft of the target's own preset would draw the same tensors,
         # so it shares them instead of holding a second copy
         draft_params = params if args.draftPreset == args.preset else \
-            quantize_weights(load_params(draft_cfg, seed=args.seed,
-                                         device=device), args.weightQuant)
+            load_params(draft_cfg, seed=args.seed, device=device,
+                        weight_quant=args.weightQuant)
         # no recipe: the speculative engine has no resume path, so a
         # crash ends it (with the structured error frames)
         engine = InferenceEngine(SpeculativeBatcher(

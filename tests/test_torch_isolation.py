@@ -68,6 +68,7 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.models.generate\n"
         "import k8s_gpu_device_plugin_torch.models.lora\n"
         "import k8s_gpu_device_plugin_torch.models.lora_serving\n"
+        "import k8s_gpu_device_plugin_torch.models.moe\n"
         "import k8s_gpu_device_plugin_torch.models.paging\n"
         "import k8s_gpu_device_plugin_torch.models.quantized_serving\n"
         "import k8s_gpu_device_plugin_torch.ops.quant\n"

@@ -92,7 +92,9 @@ def test_project_qkv_matches_reference(per_row):
 
 
 def test_config_refuses_what_the_slice_does_not_serve():
-    for field, value in (("n_experts", 8), ("tp", 2), ("quant", "int8")):
+    # MoE is served now; tensor parallelism and int8 matmuls are not
+    assert tllama.LlamaConfig.tiny(n_experts=8).is_moe
+    for field, value in (("tp", 2), ("quant", "int8")):
         with pytest.raises(NotImplementedError, match=field):
             tllama.LlamaConfig.tiny(**{field: value})
     for field, value in (("cache_quant", "fp8"), ("kv_layout", "ragged"),
@@ -108,7 +110,7 @@ def test_config_refuses_what_the_slice_does_not_serve():
 def test_presets_match_reference_dims():
     fields = ("vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads",
               "d_ff", "rope_theta", "max_seq", "sliding_window")
-    for name in ("llama3_8b", "llama3_70b", "mistral_7b"):
+    for name in ("llama3_8b", "llama3_70b", "mistral_7b", "mixtral_8x7b"):
         j = getattr(jllama.LlamaConfig, name)()
         t = getattr(tllama.LlamaConfig, name)()
         assert [getattr(j, f) for f in fields] == [getattr(t, f) for f in fields]

@@ -17,7 +17,7 @@ reference's quantized tree. The pins:
 - the CPU server serves ``--weightQuant int4 --cacheQuant int4
   --kvLayout paged`` and reports the weights and the route in
   ``/v1/health``;
-- MoE expert stacks are refused by name.
+- MoE expert stacks quantize by name, per (layer, expert).
 
 int4 runs at the reference tests' group of 32 (four groups on the tiny
 model's 128-wide contractions) and, but for the whole forward, at the
@@ -245,12 +245,19 @@ def test_server_serves_int4_weights_from_an_int4_pool():
 
 
 def test_moe_stacks_are_refused_by_name(weights):
+    """Expert stacks quantize now (held against the reference in
+    tests/test_torch_moe_serving.py): each named stack becomes its
+    recipe's leaf, per (layer, expert); an unknown width is refused."""
     _, tparams = weights
-    moe = {**tparams, "layers": {**tparams["layers"],
-                                 "moe_w1": tparams["layers"]["w1"]}}
-    for recipe in (tqs.quantize_weights_int8, tqs.quantize_weights_int4):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            recipe(moe)
+    w1 = tparams["layers"]["w1"]
+    experts = torch.stack([w1, w1.flip(-1)], dim=1)    # (L, 2, in, out)
+    moe = {**tparams, "layers": {**tparams["layers"], "moe_w1": experts}}
+    for recipe, key in ((tqs.quantize_weights_int8, "q"),
+                        (tqs.quantize_weights_int4, "q4")):
+        leaf = recipe(moe)["layers"]["moe_w1"]
+        assert set(leaf) == {key, "s"}
+        assert leaf["s"].shape[:2] == experts.shape[:2]
+        assert recipe(moe)["layers"]["w1"].keys() == leaf.keys()
     with pytest.raises(ValueError, match="weight_quant"):
         tqs.quantize_weights(tparams, "int2")
     assert tqs.quantize_weights(tparams, "none") is tparams

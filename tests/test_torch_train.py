@@ -238,14 +238,27 @@ def test_master_weights_keep_f32_storage(np_params):
     assert state["opt_state"]["count"] == 3
 
 
-def test_config_refuses_what_is_not_ported():
+def test_config_refuses_what_is_not_ported(mesh):
     for kw, item in ((dict(fused_ce=True), "A8"), (dict(quant="int8"), "A8"),
                      (dict(attn_impl="ring"), "A12"),
                      (dict(attn_impl="ulysses"), "A12"),
-                     (dict(n_experts=8), "A10"),
                      (dict(n_microbatches=4), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             tllama.LlamaConfig.tiny(**kw)
+    # MoE is ported: a tiny MoE trains two steps as the reference's does
+    # (its loss adds the router losses, which the metrics report)
+    moe = dict(n_layers=2, n_experts=4, **DIMS)
+    jmoe = jllama.LlamaConfig.tiny(dtype=jnp.float32, **moe)
+    tmoe = tllama.LlamaConfig.tiny(dtype=torch.float32, **moe)
+    np_moe = jax.tree.map(np.asarray,
+                          jllama.init_params(jax.random.key(0), jmoe))
+    for jm, tm, jp, tp in _run_both(jmoe, tmoe, mesh, np_moe, 2):
+        _assert_metrics_close(jm, tm)
+        for name in ("moe_load_balance", "moe_router_z"):
+            np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                       atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tp["layers"]["router"],
+                               jp["layers"]["router"], atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="remat_policy"):
         tllama.LlamaConfig.tiny(remat_policy="save_everything")
     for impl in ("full", "flash"):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch/CUDA port spends its time, on a card.
 
-Builds Llama-3-8B with random weights, fills all 8 slots of the port's
+Builds Llama-3-8B (or ``--preset mixtral_8x7b``) with random weights,
+fills all 8 slots of the port's
 ContinuousBatcher with ~1000-token prompts (chunked prefill, 256), then
 times decode steps on the host clock (the batcher's default pipelined
 loop: a step's wall time is one dispatch and one readback) and profiles
@@ -26,8 +27,17 @@ process, from one set of bf16 weights (quantized once per
 int4 step can be read beside the dense bf16 one from one card.
 ``--activeSlots N`` fills only N of the 8 slots: the others are the
 inactive slots every decode step still computes and discards.
+``--preset mixtral_8x7b`` draws Mixtral-8x7B's weights once per
+``--weightQuant`` value, its expert stacks quantized as they are drawn
+(``serving/server.py::load_params``): its bf16 tree (93.4 GB) does not
+fit one card, so it takes ``int8`` or ``int4`` only. Each line's
+``device_ms_by_kind`` splits the kernels' device time by their names
+into the attention kernel, matrix products (cuBLAS/CUTLASS GEMMs),
+element-wise conversions and copies (the widening of weight codes among
+them), and the rest.
 
-    python3 tools/torch_decode_profile.py [--steps 10] [--context 1000]
+    python3 tools/torch_decode_profile.py [--preset llama3_8b]
+        [--steps 10] [--context 1000]
         [--kvLayout dense,paged] [--cacheQuant none,int8,int4]
         [--weightQuant none,int8,int4] [--activeSlots 8]
         [--modes eager,graph]
@@ -62,6 +72,11 @@ def summarize(prof, n: int) -> dict:
     device_us = sum(e.self_device_time_total for e in on_device)
     host_us = sum(e.self_cpu_time_total for e in events)
     kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    by_kind: dict[str, float] = {}
+    for e in on_device:
+        kind = kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + \
+            e.self_device_time_total / n / 1e3
     # both engines of the ragged-paged kernel (rpa_kernel, rpa_tc_kernel)
     attention = [e for e in on_device if "rpa_" in e.key]
     return {
@@ -72,12 +87,29 @@ def summarize(prof, n: int) -> dict:
         "attention_kernel_ms":
             sum(e.self_device_time_total for e in attention) / n / 1e3,
         "attention_kernel_calls": sum(e.count for e in attention) / n,
+        "device_ms_by_kind": by_kind,
         "top_device_kernels": [
             {"name": e.key[:80], "ms": e.self_device_time_total / n / 1e3,
              "calls": e.count / n}
             for e in kernels
         ],
     }
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name: ``attention`` (K1's
+    ``rpa_`` kernels), ``matmul`` (cuBLAS / CUTLASS GEMMs), ``convert``
+    (element-wise kernels and copies, where a dtype cast such as the
+    widening of int8 weight codes runs) or ``other``."""
+    low = name.lower()
+    if "rpa_" in low:
+        return "attention"
+    if any(w in low for w in ("gemm", "xmma", "nvjet", "cutlass", "sm90_")):
+        return "matmul"
+    if any(w in low for w in ("elementwise", "copy", "unrolled",
+                              "vectorized")):
+        return "convert"
+    return "other"
 
 
 def prefill_chunk(torch, params, cfg, layout: str, page_size: int) -> dict:
@@ -200,6 +232,7 @@ def measure(torch, params, cfg, args, layout: str, quant: str,
         "graph": graph,
         "attention_kernel_ms_per_step": stats["attention_kernel_ms"],
         "attention_kernel_calls_per_step": stats["attention_kernel_calls"],
+        "device_ms_by_kind_per_step": stats["device_ms_by_kind"],
         "top_device_kernels": [
             {"name": k["name"], "ms_per_step": k["ms"],
              "calls_per_step": k["calls"]}
@@ -210,6 +243,8 @@ def measure(torch, params, cfg, args, layout: str, quant: str,
 
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--preset", default="llama3_8b",
+                        choices=["llama3_8b", "mixtral_8x7b"])
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--profiled", type=int, default=3)
     parser.add_argument("--context", type=int, default=1000)
@@ -237,15 +272,21 @@ def main() -> int:
     from k8s_gpu_device_plugin_torch.models.quantized_serving import (
         quantize_weights,
     )
+    from k8s_gpu_device_plugin_torch.serving.server import load_params
 
-    cfg = LlamaConfig.llama3_8b()
-    params = init_params(cfg, seed=0, device="cuda")
+    cfg = getattr(LlamaConfig, args.preset)()
+    if cfg.is_moe and "none" in args.weightQuant.split(","):
+        parser.error(f"--preset {args.preset}: its bf16 weights do not fit "
+                     "one card; pass --weightQuant int8 or int4")
+    params = None if cfg.is_moe else init_params(cfg, seed=0, device="cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
     for weight_quant in args.weightQuant.split(","):
-        served = quantize_weights(params, weight_quant)
+        served = load_params(cfg, seed=0, device="cuda",
+                             weight_quant=weight_quant) if cfg.is_moe \
+            else quantize_weights(params, weight_quant)
         for layout in args.kvLayout.split(","):
             for quant in args.cacheQuant.split(","):
                 row = {}
@@ -258,7 +299,8 @@ def main() -> int:
                     replace(cfg, cache_quant=quant, kv_layout=layout,
                             kv_page_size=args.kvPageSize),
                     layout, args.kvPageSize)
-                print(json.dumps({"card": card, **row}), flush=True)
+                print(json.dumps({"card": card, "preset": args.preset,
+                                  **row}), flush=True)
         del served
         torch.cuda.empty_cache()
     return 0
