@@ -219,8 +219,9 @@ Phases (any failed check exits non-zero without the final line):
    launches exactly the passes' steps and chunks (all on the tensor
    cores), every decode step a replay, misses, uploads past the warm
    set, evictions and ``adapter_miss`` deferrals above zero, the engine's
-   steps timed with an upload in flight or not; each request alone on
-   the same server equal to its stream, bit for bit; a server without
+   steps timed with an upload in flight or not; every base request and
+   each adapter's first request alone on the same server equal to its
+   stream, bit for bit; a server without
    adapters on the same requests: its base streams equal, its decode
    step beside the adapters'. ``lora_dense``: four adapters in dense-N
    mode and gathered (K 8 and K 2, which defers on ``adapter_slots``) at
@@ -237,8 +238,36 @@ Phases (any failed check exits non-zero without the final line):
    families; an over-quota request answers 429 ``adapter_quota`` and a
    queued one's cancel refunds the bucket; an adapter registered at run
    time serves its factors' stream, its unregistration refused while it
-   is live and evicting its prefix root after. Then, after the 8B
-   weights are freed and before the windowed Mistral-7B runs,
+   is live and evicting its prefix root after. Then KV page export and
+   install on the same weights (``kv_*``, after ``lora``): two pairs of
+   servers A and B (``--slots 8 --maxLen 2048 --kvLayout paged
+   --kvPageSize 64``, the default pool, ``--prefixCacheOff``; one pair at
+   ``--pipelineDepth`` 1, one at 0) sharing the weights. ``kv_http``:
+   prompts of 512, 1024 and 1536 tokens (greedy, seeded at temperature
+   0.8, a repetition penalty of 1.3) on the depth-1 pair, whose B
+   decodes three other streams throughout, and of 1900 (greedy) on the
+   idle depth-0 pair, 32 tokens each: the uninterrupted run on B, the
+   stream on A exported after 3 tokens through ``POST
+   /v1/kv/export/{id}`` (a second export answers 404), resubmitted to B
+   with ``resume_out``, ``resume_logprobs`` and ``kv_pages`` (the blob's
+   bytes spliced in as they came): the spliced stream equals the
+   uninterrupted one bit for bit, tokens and logprobs; on the idle pair
+   the install makes no prefill chunk (K1's launches are 32 a decode
+   step, all split, on the paged route and the tensor cores). The same
+   without ``kv_pages`` (the re-prefill resume: ceil(folded / 256)
+   chunks of 32 launches) is reported against the uninterrupted stream.
+   Per hop: the blob's raw and wire bytes, the export's wall time, the
+   request thread's decode, the first token of the install and of the
+   re-prefill. ``kv_load``: the depth-1 B's engine steps timed with an
+   install in them or not (p50). ``kv_graph``: each B's decode graph is
+   the same object throughout and every step a replay; every pool is
+   empty at the end. ``kv_quant_int8`` / ``kv_quant_int4``: two batchers on that
+   pool, a seeded 1536-token stream exported after 3 tokens and
+   installed on the other, the other's uninterrupted stream bit for
+   bit (no prefill chunk), and a re-export of the installed stream
+   equal to the blob's full pages byte for byte on every plane (the
+   int4 wire one code a byte, twice the pool's code bytes). Then, after
+   the 8B weights are freed and before the windowed Mistral-7B runs,
    Mixture-of-Experts (``moe_*``, ``phase_moe``): ``moe_model``,
    Mixtral-8x7B at its full width and 2 of its 32 layers
    (``capacity_factor`` 8.0), through phase 3's prompt and steps: the
@@ -290,8 +319,8 @@ Phases (any failed check exits non-zero without the final line):
    runs' verify and split launches with phase 2's verify cases, the
    round's time and acceptance, the preemption runs' launches with
    the page-relief and arrival summaries, the surface run's launches
-   with phase 2's T 512 scoring case, the lora runs' and the moe
-   runs'; K2's entry counts the trainer's launches, the surface run's
+   with phase 2's T 512 scoring case, the lora runs', the KV transfer
+   runs' and the moe runs'; K2's entry counts the trainer's launches, the surface run's
    and the MoE forward check's, and lists its B 1 serving cases).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
@@ -1132,14 +1161,16 @@ def phase_weights(torch, generate, cfg, qparams, weight_quant: str,
 # --- phase 4 -----------------------------------------------------------------
 
 
-def _post(url: str, body: dict) -> dict:
+def _post(url: str, body: dict, data: "bytes | None" = None) -> dict:
     """One /v1/generate: {"tokens", "logprobs" (None unless asked),
     "ttft" (seconds to the first token frame for a stream, else to the
     response), "cached_tokens" (the body's, or the stream's done event's:
     absent there means 0), "token_times" (a stream's frame arrivals on
-    the ``time.perf_counter`` clock, else None)}."""
+    the ``time.perf_counter`` clock, else None)}. ``data`` is the body
+    already encoded (``body`` then only says whether it streams)."""
     req = urllib.request.Request(
-        url + "/v1/generate", data=json.dumps(body).encode(),
+        url + "/v1/generate",
+        data=json.dumps(body).encode() if data is None else data,
         headers={"Content-Type": "application/json"},
     )
     t0 = time.perf_counter()
@@ -4390,8 +4421,9 @@ def lora_mix(torch, server_mod, kernel_support, rpa, cfg, params, store,
     budget delivered, both passes' streams equal, K1's launches exactly
     the passes' steps and chunks (all on the tensor cores), every decode
     step a replay. The engine's steps are timed with the store's
-    uploads in flight or not. Then each request alone on the same
-    server, bit for bit its stream; then a server without adapters on
+    uploads in flight or not. Then every base request and each adapter's
+    first request alone on the same server, bit for bit its stream; then
+    a server without adapters on
     the same requests, each as a base request: its streams of the base
     requests equal, its decode step beside the adapters'."""
     import numpy as np
@@ -4495,16 +4527,23 @@ def lora_mix(torch, server_mod, kernel_support, rpa, cfg, params, store,
                for k, f in (("p50", lambda x: percentile(x, 50)),
                             ("p99", lambda x: percentile(x, 99)),
                             ("max", max))}}
-        # each request alone in the same server
+        # alone in the same server: every base request and each
+        # adapter's first request (every adapter and every base row)
         t_solo = time.perf_counter()
+        firsts = {}
         for i, body in enumerate(bodies):
+            firsts.setdefault(body.get("adapter"), i)
+        solo = [i for i, body in enumerate(bodies)
+                if "adapter" not in body or firsts[body["adapter"]] == i]
+        for i in solo:
+            body = bodies[i]
             alone = _post(url, body)["tokens"]
             if alone != passes["closed"]["tokens"][i]:
                 j = first_divergence(alone, passes["closed"]["tokens"][i])
                 fail(f"lora_mix: request {i} ({body.get('adapter', 'base')})"
                      f" alone differs from its batched stream at token {j}")
         out["solo_s"] = time.perf_counter() - t_solo
-        out["streams_equal_solo"] = len(bodies)
+        out["streams_equal_solo"] = len(solo)
     finally:
         cb.step = step
         server.stop()
@@ -4985,6 +5024,446 @@ def phase_lora(torch, server_mod, batching, generate, lora, ls,
 
 #: phase 5's serving shapes of K2: B 1 at the padded scoring and
 #: embedding buckets (64 also serves bucket 32)
+# KV page export and install (``kv_*``, ``phase_kv``): pairs of servers
+# sharing the 8B weights, a stream exported from A and continued on B;
+# then batcher pairs on int8 and int4 pools
+KV_ARGS = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
+           "--kvLayout", "paged", "--kvPageSize", "64", "--prefixCacheOff"]
+KV_MAX_NEW = 32
+KV_EXPORT_AT = 3       # tokens streamed before the export
+# the hops: (prompt length, body knobs, pipeline depth of the pair)
+KV_HOPS = [(512, {}, 1),
+           (1024, {"seed": 11, "temperature": 0.8}, 1),
+           (1536, {"repetition_penalty": 1.3}, 1),
+           (1900, {}, 0)]
+KV_FILLERS = 3         # streams decoding on the depth-1 B during its hops
+KV_FILLER_PROMPT, KV_FILLER_NEW = 256, 400
+KV_QUANT_PROMPT = 1536
+
+
+def kv_body(cfg, plen: int, knobs: dict) -> dict:
+    import numpy as np
+
+    prompt = np.random.default_rng(SEED + 30 + plen).integers(
+        1, cfg.vocab_size, plen).tolist()
+    return {"prompt": prompt, "max_new": KV_MAX_NEW, "logprobs": True,
+            **knobs}
+
+
+def _post_raw(url: str, path: str, data: bytes) -> tuple:
+    """(status, body bytes) of one POST, an HTTP error's too."""
+    import urllib.error
+
+    req = urllib.request.Request(url + path, data=data, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def split_export(data: bytes) -> tuple:
+    """An export's answer (``{"kv_pages": blob, "resume_out",
+    "resume_logprobs", "id"}``, the blob's keys in ``pack_kv_wire``'s
+    order) -> (the blob's JSON bytes, its metadata, the resume fields),
+    without parsing the planes' payloads: the resubmission splices the
+    blob's bytes as they came."""
+    head = b'{"kv_pages": '
+    cut = data.rindex(b', "resume_out": ')
+    blob = data[len(head):cut]
+    meta = json.loads(blob[:blob.index(b', "planes": ')] + b"}")
+    tail = json.loads(b"{" + data[cut + 2:])
+    return blob, meta, {k: tail[k] for k in ("resume_out",
+                                             "resume_logprobs")}
+
+
+def kv_resubmit(body: dict, resume: dict, blob: "bytes | None") -> bytes:
+    """The resubmission's body: ``body`` streamed, the resume fields and,
+    given, the blob's bytes spliced in as ``kv_pages``."""
+    head = json.dumps({**body, **resume, "stream": True}).encode()
+    if blob is None:
+        return head
+    return head[:-1] + b', "kv_pages": ' + blob + b"}"
+
+
+def stream_and_export(url: str, body: dict) -> tuple:
+    """Stream ``body`` from ``url`` and export it after KV_EXPORT_AT
+    tokens. Returns (the blob's bytes, its metadata, the resume fields,
+    a row: the export's wall time (the POST and its body read), its bytes
+    on the wire, the tokens streamed, a second export's status)."""
+    req = urllib.request.Request(
+        url + "/v1/generate",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    got, data, row = [], None, {}
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        eid = int(resp.headers["X-Request-Id"])
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            evt = json.loads(line[len("data: "):])
+            if "error" in evt:
+                fail(f"kv: stream error frame {evt['error']}")
+            if evt.get("done"):
+                break
+            got.append(evt["token"])
+            if len(got) == KV_EXPORT_AT and data is None:
+                t0 = time.perf_counter()
+                status, data = _post_raw(url, f"/v1/kv/export/{eid}", b"")
+                row["export_ms"] = 1e3 * (time.perf_counter() - t0)
+                if status != 200:
+                    fail(f"kv: the export answered {status}: {data[:300]!r}")
+                row["wire_bytes"] = len(data)
+    if data is None:
+        fail(f"kv: the stream ended after {len(got)} tokens, before its "
+             "export")
+    blob, meta, resume = split_export(data)
+    if resume["resume_out"][:len(got)] != got:
+        fail(f"kv: the stream delivered {got}, not a prefix of the "
+             f"export's resume_out {resume['resume_out']}")
+    row["streamed"] = len(got)
+    row["second_export_status"] = _post_raw(
+        url, f"/v1/kv/export/{eid}", b"")[0]
+    if row["second_export_status"] != 404:
+        fail(f"kv: a second export answered {row['second_export_status']}")
+    return blob, meta, resume, row
+
+
+def k1_window(kernel_support, rpa, run: str, h0: dict, h1: dict,
+              chunks: int, route: str = "paged") -> dict:
+    """K1's launches between two idle points of a batcher (its decode
+    steps and prefill chunks at ``h0`` and ``h1``, counts reset at
+    ``h0``): one a layer for every decode step and prefill chunk, on
+    ``route`` and the tensor cores; exactly ``chunks`` prefill chunks;
+    every decode launch split."""
+    steps = h1["decode_steps"] - h0["decode_steps"]
+    got = h1["prefill_chunks"] - h0["prefill_chunks"]
+    if got != chunks:
+        fail(f"{run}: {got} prefill chunks, expected {chunks}")
+    out = route_launches(run, kernel_support, rpa, route, 32, steps, chunks)
+    split = kernel_support.launch_counts().get(rpa.SPLIT_KEY, 0)
+    if split != 32 * steps:
+        fail(f"{run}: {split} split launches for {steps} decode steps")
+    return {**out, "decode_steps": steps, "prefill_chunks": chunks,
+            "split_launches": split}
+
+
+def spliced(want: dict, resume: dict, got: dict) -> dict:
+    """A resumed stream against the uninterrupted one: the resumed tokens
+    and logprobs, then the resubmission's."""
+    tokens = resume["resume_out"] + got["tokens"]
+    lps = resume["resume_logprobs"] + got["logprobs"]
+    return {"tokens_equal": tokens == want["tokens"],
+            "logprobs_equal": lps == want["logprobs"],
+            "first_divergence": first_divergence(tokens, want["tokens"]),
+            "logprob_max_abs_diff": max(
+                abs(x - y) for x, y in zip(lps, want["logprobs"]))}
+
+
+class KvLoad:
+    """KV_FILLERS streams kept decoding on a server (each thread starts
+    the next when one ends) while its installs land, and its engine's
+    steps timed with an install in them or not."""
+
+    def __init__(self, cfg, server, url: str):
+        self.server, self.url = server, url
+        self.cb = server.engine.cb
+        self.steps, self.installs = [], []
+        self.stop = threading.Event()
+        self.bodies = [{**kv_body(cfg, KV_FILLER_PROMPT + i, {}),
+                        "max_new": KV_FILLER_NEW} for i in range(KV_FILLERS)]
+
+    def _fill(self, body: dict) -> None:
+        while not self.stop.is_set():
+            read_frames(self.url, body)
+
+    def __enter__(self) -> "KvLoad":
+        cb = self.cb
+        self.step, self.install = cb.step, cb.install_kv_pages
+
+        def marked(req, slot):
+            self.installs.append(time.perf_counter())
+            return self.install(req, slot)
+
+        def timed_step():
+            n = len(self.installs)
+            t0 = time.perf_counter()
+            out = self.step()
+            self.steps.append((time.perf_counter() - t0,
+                               len(self.installs) > n))
+            return out
+
+        cb.step, cb.install_kv_pages = timed_step, marked
+        self.threads = [threading.Thread(target=self._fill, args=(b,))
+                        for b in self.bodies]
+        for th in self.threads:
+            th.start()
+        t0 = time.perf_counter()
+        while len(cb.running) < KV_FILLERS:
+            if time.perf_counter() - t0 > 120:
+                fail("kv_load: the filler streams never all decoded")
+            time.sleep(0.01)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop.set()
+        engine = self.server.engine
+        for th in self.threads:
+            while th.is_alive():
+                try:  # the engine thread admits and retires meanwhile
+                    eids = list(engine._rid_to_eid.values())
+                except RuntimeError:
+                    continue
+                for eid in eids:
+                    engine.cancel(eid)
+                th.join(0.5)
+        self.cb.step, self.cb.install_kv_pages = self.step, self.install
+
+    def row(self) -> dict:
+        with_i = [dt for dt, inst in self.steps if inst]
+        without = [dt for dt, inst in self.steps if not inst]
+        return {"fillers": KV_FILLERS, "installs": len(self.installs),
+                "steps": len(self.steps),
+                "step_ms_p50_with_install": 1e3 * percentile(with_i, 50),
+                "step_ms_p50_without": 1e3 * percentile(without, 50),
+                "step_ms_max_with_install": 1e3 * max(with_i)}
+
+
+def kv_hop(kernel_support, rpa, cfg, pair: list, plen: int, knobs: dict,
+           depth: int, decode_s: list, idle: bool) -> dict:
+    """One hop: the uninterrupted run on B, the stream on A exported after
+    KV_EXPORT_AT tokens, its resubmission to B with the pages (spliced =
+    uninterrupted, bit for bit) and without them (the re-prefill resume,
+    reported against the uninterrupted stream). On an ``idle`` B, K1's
+    launches of each: no prefill chunk for the install, ceil(folded /
+    256) for the re-prefill."""
+    (_, a_url), (_, b_url) = pair
+    run = f"kv_http_{plen}"
+    body = kv_body(cfg, plen, knobs)
+    want = _post(b_url, body)
+    blob, meta, resume, row = stream_and_export(a_url, body)
+    folded = plen + len(resume["resume_out"])
+    for kind, kv, chunks in (("install", blob, 0),
+                             ("reprefill", None, -(-folded // 256))):
+        if idle:
+            _, h0 = get_health(b_url)
+            kernel_support.reset_launch_counts()
+        n = len(decode_s)
+        t0 = time.perf_counter()
+        r = _post(b_url, {"stream": True}, kv_resubmit(body, resume, kv))
+        row[kind] = {"first_token_ms": 1e3 * (r["token_times"][0] - t0),
+                     **spliced(want, resume, r)}
+        if idle:
+            _, h1 = get_health(b_url)
+            row[kind]["k1"] = k1_window(kernel_support, rpa,
+                                        f"{run}_{kind}", h0, h1, chunks)
+        if kind == "install":
+            row[kind]["request_thread_decode_ms"] = 1e3 * decode_s[n]
+    if not (row["install"]["tokens_equal"]
+            and row["install"]["logprobs_equal"]):
+        fail(f"{run}: the spliced stream differs from the uninterrupted "
+             f"one: {row['install']}")
+    out = {"phase": 4, "run": run, "pipeline_depth": depth, "knobs": knobs,
+           "beside_live_streams": 0 if idle else KV_FILLERS,
+           "resumed": len(resume["resume_out"]),
+           "blob_tokens": meta["tokens"], "blob_pages": meta["n_pages"],
+           # the wire's bytes a token: bf16 K and V, every layer
+           "raw_bytes": meta["n_pages"] * meta["page_size"]
+           * TOKEN_BYTES["none"], **row}
+    emit(out)
+    return out
+
+
+def kv_quant(torch, batching, kernel_support, rpa, cfg, params,
+             quant: str) -> dict:
+    """``kv_quant``: two batchers on a ``quant`` pool (pages of 64, 8
+    slots x 2048, chunks of 256): a seeded 1536-token stream exported
+    after KV_EXPORT_AT tokens on one and installed on the other is the
+    other's uninterrupted run bit for bit (no prefill chunk, every K1
+    launch a split decode on the tensor cores); a re-export of the
+    installed stream gives the original blob's full pages byte for
+    byte, every plane."""
+    from k8s_gpu_device_plugin_torch.models import paging
+    from k8s_gpu_device_plugin_torch.models.sampling import Sampler
+
+    qcfg = dataclasses.replace(cfg, cache_quant=quant)
+    kw = dict(n_slots=8, max_len=2048, chunked_prefill=256,
+              kv_layout="paged", kv_page_size=64)
+    req = dict(sampler=Sampler(temperature=0.8), seed=5)
+    prompt = kv_body(cfg, KV_QUANT_PROMPT, {})["prompt"]
+    src = batching.ContinuousBatcher(params, qcfg, **kw)
+    dst = batching.ContinuousBatcher(params, qcfg, **kw)
+    graph = dst.graph
+    rid = dst.submit(prompt, KV_MAX_NEW, **req)
+    dst.run()
+    want = dst.done_requests[rid]
+    rid = src.submit(prompt, KV_MAX_NEW, **req)
+    while not any(r.rid == rid and len(r.out) >= KV_EXPORT_AT
+                  for r in src.running.values()):
+        src.step()
+    t0 = time.perf_counter()
+    blob, out, lps = src.export_kv_pages(rid)
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    src.cancel(rid)
+    src.run()
+    steps0, chunks0 = dst.decode_steps, dst.prefill_chunks
+    kernel_support.reset_launch_counts()
+    rid = dst.submit(prompt, KV_MAX_NEW, resume_out=out, resume_logp=lps,
+                     kv_pages=blob, **req)
+    dst.run()
+    got = dst.done_requests[rid]
+    run = f"kv_quant_{quant}"
+    if got.out != want.out or got.out_logp != want.out_logp:
+        fail(f"{run}: the installed stream differs from the uninterrupted "
+             f"one at token {first_divergence(got.out, want.out)}")
+    k1 = k1_window(kernel_support, rpa, run,
+                   {"decode_steps": steps0, "prefill_chunks": chunks0},
+                   {"decode_steps": dst.decode_steps,
+                    "prefill_chunks": dst.prefill_chunks}, 0,
+                   route=f"{quant}_paged")
+    # the re-export: install again, one token on, export
+    rid = dst.submit(prompt, KV_MAX_NEW, resume_out=out, resume_logp=lps,
+                     kv_pages=blob, **req)
+    while not any(r.rid == rid and len(r.out) > len(out)
+                  for r in dst.running.values()):
+        dst.step()
+    blob2, _, _ = dst.export_kv_pages(rid)
+    dst.cancel(rid)
+    dst.run()
+    _, p1 = paging.unpack_kv_wire(blob)
+    _, p2 = paging.unpack_kv_wire(blob2)
+    full = blob["tokens"] // 64
+    equal = {name: bool(torch.equal(p1[name][:, :full].view(torch.uint8),
+                                    p2[name][:, :full].view(torch.uint8)))
+             for name in p1}
+    if set(p1) != set(p2) or not all(equal.values()):
+        fail(f"{run}: the re-export differs from the blob: {equal}")
+    for cb in (src, dst):
+        cb.pool.check()
+        if cb.pool.in_use:
+            fail(f"{run}: {cb.pool.in_use} pages still in use")
+    if dst.graph is not graph:
+        fail(f"{run}: the decode graph was captured again")
+    size = {"float32": 4, "int8": 1, "int4": 1}
+    row = {"phase": 4, "run": run, "resumed": len(out),
+           "blob_tokens": blob["tokens"], "blob_pages": blob["n_pages"],
+           "raw_bytes": sum(math.prod(p["shape"]) * size[p["dtype"]]
+                            for p in blob["planes"].values()),
+           "plane_dtypes": {n: p["dtype"] for n, p in blob["planes"].items()},
+           "pool_bytes": sum(x.numel() * x.element_size() for x in
+                             paging.kv_pool_planes(p1, quant).values()),
+           "export_ms": export_ms, "k1": k1,
+           "reexport_full_pages_equal": full, "planes_equal": equal,
+           "graph_replays": dst.graph.replays}
+    emit(row)
+    del src, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kv(torch, server_mod, batching, kernel_support, rpa, cfg,
+             params) -> dict:
+    """KV page export and install at Llama-3-8B's full width and depth:
+    ``kv_http`` (the hops through two server pairs, bf16, depth 1 and 0;
+    the depth-1 B decodes KV_FILLERS other streams throughout,
+    ``kv_load``: its steps with an install in them or not; the depth-0
+    pair idle, so K1's launches of its hop are counted exactly),
+    ``kv_graph`` (B's captured decode graph: the same object replaying
+    across every install, every step a replay), the pools empty after;
+    then ``kv_quant`` on int8 and int4 pools at batcher level."""
+    t0 = time.perf_counter()
+    pairs = {}
+    for depth in sorted({d for _, _, d in KV_HOPS}, reverse=True):
+        flags = [*KV_ARGS, "--pipelineDepth", str(depth)]
+        pairs[depth] = [start_server(server_mod, flags, params)[1:]
+                        for _ in "AB"]
+    try:
+        decode_s: list = []
+        graphs = {}
+        for _, (b, _) in pairs.values():
+            cb = b.engine.cb
+            graphs[id(b)] = (cb, cb.graph, cb.graph.replays)
+            validate = cb.validate_kv_pages
+
+            def timed(kv_pages, *args, validate=validate):
+                t1 = time.perf_counter()
+                out = validate(kv_pages, *args)
+                if isinstance(kv_pages, dict):  # the request thread's
+                    decode_s.append(time.perf_counter() - t1)
+                return out
+
+            cb.validate_kv_pages = timed
+        rows = []
+        b, b_url = pairs[1][1]
+        with KvLoad(cfg, b, b_url) as load:
+            for plen, knobs, depth in KV_HOPS:
+                if depth == 1:
+                    rows.append(kv_hop(kernel_support, rpa, cfg, pairs[1],
+                                       plen, knobs, 1, decode_s, False))
+        for plen, knobs, depth in KV_HOPS:
+            if depth != 1:
+                rows.append(kv_hop(kernel_support, rpa, cfg, pairs[depth],
+                                   plen, knobs, depth, decode_s, True))
+        graph_rows = {}
+        for depth, (_, (b, url)) in pairs.items():
+            cb, graph, replays0 = graphs[id(b)]
+            graph_rows[depth] = {"replays_before": replays0,
+                                 "replays_after": graph.replays,
+                                 "decode_steps": cb.decode_steps}
+            if b.engine.cb is not cb or cb.graph is not graph:
+                fail(f"kv: B's batcher or decode graph was replaced")
+            if graph.replays <= replays0 or graph.replays != cb.decode_steps:
+                fail(f"kv: B's graph {graph_rows[depth]}: every step must "
+                     "be a replay")
+        for pair in pairs.values():
+            for server, url in pair:
+                _, health = get_health(url)
+                if health["kv"]["pages_in_use"]:
+                    fail(f"kv: {health['kv']['pages_in_use']} pages still "
+                         f"in use on {url}")
+                server.engine.cb.pool.check()
+    finally:
+        for pair in pairs.values():
+            for server, _ in pair:
+                server.stop()
+    del pairs, b, cb, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    http_s = time.perf_counter() - t0
+    emit({"phase": 4, "run": "kv_load", **load.row()})
+    emit({"phase": 4, "run": "kv_graph", "same_graph_object": True,
+          "by_pipeline_depth": graph_rows})
+    quant = {q: kv_quant(torch, batching, kernel_support, rpa, cfg, params,
+                         q) for q in ("int8", "int4")}
+    idle = [r for r in rows if "k1" in r["install"]]
+    summary = {
+        "phase": 4, "run": "kv", "card": card_line(),
+        "http_s": http_s, "wall_s": time.perf_counter() - t0,
+        "hops": {r["run"]: {
+            "raw_bytes": r["raw_bytes"], "wire_bytes": r["wire_bytes"],
+            "export_ms": r["export_ms"],
+            "request_thread_decode_ms":
+                r["install"]["request_thread_decode_ms"],
+            "install_first_token_ms": r["install"]["first_token_ms"],
+            "reprefill_first_token_ms": r["reprefill"]["first_token_ms"],
+            "reprefill_equal": r["reprefill"]["tokens_equal"]
+            and r["reprefill"]["logprobs_equal"]} for r in rows},
+        "k1_launches": sum(r[k]["k1"]["launches"] for r in idle
+                           for k in ("install", "reprefill"))
+        + sum(q["k1"]["launches"] for q in quant.values()),
+        "install_chunks": [r["install"]["k1"]["prefill_chunks"]
+                           for r in idle]
+        + [q["k1"]["prefill_chunks"] for q in quant.values()],
+        "reprefill_chunks": [r["reprefill"]["k1"]["prefill_chunks"]
+                             for r in idle]}
+    emit(summary)
+    return {"summary": summary, "rows": rows, "load": load.row(),
+            "graph": graph_rows, "quant": quant}
+
+
 SERVE_SEQS = (64, 256, 1024)
 
 
@@ -5532,6 +6011,10 @@ def main() -> None:
     lora_runs = phase_lora(torch, server_mod, batching, generate, lora, ls,
                            quantized_serving, prefix_cache_mod,
                            kernel_support, rpa, cfg, params)
+    # KV page export and install: a stream continued on another server
+    # from its shipped pages, then int8 and int4 pools at batcher level
+    kv = phase_kv(torch, server_mod, batching, kernel_support, rpa, cfg,
+                  params)
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -5610,7 +6093,7 @@ def main() -> None:
         + sum(spec[run]["launches"] for run in spec_runs)
         + preempt["launches"] + surface["launches"][rpa.NAME]
         + obs["summary"]["launches"] + lora_runs["k1_launches"]["total"]
-        + moe["k1_launches"],
+        + moe["k1_launches"] + kv["summary"]["k1_launches"],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -5646,6 +6129,12 @@ def main() -> None:
                   "lora_mix_launches": lora_runs["mix"]["k1"]},
          # Mixtral-8x7B, 32 layers, int8 experts: its served runs at
          # pipeline depth 1 and 0 (dense route, tensor cores)
+         # KV page transfer: the hops' installs (split decode, no prefill
+         # chunk) and re-prefill resumes, and the int8 / int4 installs
+         "kv_transfer": {
+             "launches": kv["summary"]["k1_launches"],
+             "install_chunks": kv["summary"]["install_chunks"],
+             "reprefill_chunks": kv["summary"]["reprefill_chunks"]},
          "moe": {"launches": moe["summary"]["k1_launches"],
                  "decode_step_ms_mean": moe["summary"]["decode_step_ms_mean"],
                  "decode_graph_pool_bytes":

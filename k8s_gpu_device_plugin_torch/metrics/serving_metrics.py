@@ -72,11 +72,12 @@ class ServingMetrics:
         # this says how many prompt tokens they covered — and how many
         # were served from prefilled prefix rows instead (the prefix
         # cache's savings, directly observable as the computed/reused
-        # split instead of inferred from chunk counts).
+        # split instead of inferred from chunk counts), or arrived as KV
+        # pages another replica exported (a page install).
         self.prefill_tokens = Counter(
             f"{prefix}_prefill_tokens_total",
             "Prompt tokens prefilled, by provenance",
-            ["source"],  # computed | prefix_reused
+            ["source"],  # computed | prefix_reused | kv_installed
             registry=registry,
         )
         # Automatic prefix cache (serving/prefix_cache.py): request-level
@@ -538,8 +539,9 @@ class ServingMetrics:
         self.prefill_chunks.inc()
 
     def on_prefill_tokens(self, n: int, source: str) -> None:
-        """``source`` is "computed" (ran through the model) or
-        "prefix_reused" (copied from cached prefix rows)."""
+        """``source`` is "computed" (ran through the model),
+        "prefix_reused" (copied from cached prefix rows) or
+        "kv_installed" (rows another replica exported, installed)."""
         self.prefill_tokens.labels(source=source).inc(n)
 
     # --- prefix-cache hooks (serving/prefix_cache.py) ---

@@ -85,10 +85,22 @@ the engine's stream, behind the step in flight, which still reads the
 ones it was dispatched with. A base row selects nothing, and its stream
 is bit for bit the stream of a batcher without adapters.
 
-Constructor and ``submit`` arguments the reference has and the port does
-not serve yet (tensor parallelism, the device allocation, KV page
-install) are refused when set, never ignored, naming the ROADMAP item
-that brings them.
+KV page transfer (the reference's seam, ``models/paging.py``'s wire
+format): ``export_kv_pages`` ships a decoding request's valid cache rows
+as whole pool pages, with the tokens and logprobs it emitted, and
+``submit(kv_pages=..., resume_out=...)`` on another batcher of the same
+geometry installs them into fresh pages and continues the stream. The
+install writes every shipped row in place and activates the slot at the
+newest resumed token, whose row the next decode step writes as the
+exporter's would have: the continuation is the uninterrupted stream bit
+for bit, with no prefill dispatch. (The reference recomputes a finish
+chunk over the last rows instead; a chunk's arithmetic is not a decode
+step's, so on a card that resamples the first resumed token from other
+bits.)
+
+Constructor arguments the reference has and the port does not serve yet
+(tensor parallelism, the device allocation) are refused when set, never
+ignored, naming the ROADMAP item that brings them.
 
 The speculative batcher (``models/spec_batching.py``) is a subclass that
 overrides the reference's seams: the prefill's chunk and finish
@@ -118,7 +130,15 @@ from k8s_gpu_device_plugin_torch.models.lora_serving import (
     attach_adapters,
     one_hot_sel,
 )
-from k8s_gpu_device_plugin_torch.models.paging import PagePool, kv_token_bytes
+from k8s_gpu_device_plugin_torch.models.paging import (
+    PagePool,
+    kv_pool_planes,
+    kv_token_bytes,
+    kv_wire_planes,
+    kv_wire_rows,
+    pack_kv_wire,
+    unpack_kv_wire,
+)
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     check_cache_quant_kv_layout,
     resident_bytes,
@@ -145,9 +165,6 @@ DEFAULT_PROMPT_BUCKETS: tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
 _UNSERVED_INIT = {
     "tp": (None, "A.12"),
     "devices": (None, "A.14"),
-}
-_UNSERVED_SUBMIT = {
-    "kv_pages": (None, "A.10, KV export and install"),
 }
 
 
@@ -510,6 +527,19 @@ class RequestTooLargeError(ValueError):
 
 
 @dataclass
+class KvInstall:
+    """A KV wire blob validated against one batcher's pool and staged
+    for its install: the valid row count, the pages that hold them and
+    the planes in the pool's own representation (int4 codes packed two
+    a byte), CPU tensors, pinned on a card so that the engine thread's
+    host-to-device copies need not wait."""
+
+    tokens: int
+    n_pages: int
+    planes: dict
+
+
+@dataclass
 class _Request:
     rid: int
     prompt: list[int]          # the full prompt (shared prefix + suffix)
@@ -580,6 +610,10 @@ class _Request:
     # row; ``defer_counted`` counts one pool-pressure spell once
     new_pages: "list[int] | None" = None
     defer_counted: bool = False
+    # a KV page install (``submit(kv_pages=...)``) waiting for admission;
+    # cleared once its rows are written. A fold keeps it: a queued
+    # request's prompt does not change, so its pages still fit it
+    kv_wire: "KvInstall | None" = None
 
     def fold(self) -> None:
         """The preemption fold, for a request leaving its slot to resume
@@ -840,9 +874,11 @@ class ContinuousBatcher:
         self.chunks_deferred = 0  # prefill chunks that waited for pages
         self._recycle_lo: dict[int, int] = {}  # slot -> first live page
         # prefill work by provenance: ``computed`` tokens ran through the
-        # model, ``prefix_reused`` ones came from a prefix's rows; and
+        # model, ``prefix_reused`` ones came from a prefix's rows,
+        # ``kv_installed`` ones arrived as pages from another replica; and
         # the pages paged prefix hits aliased instead of prefilling
-        self.prefill_tokens = {"computed": 0, "prefix_reused": 0}
+        self.prefill_tokens = {"computed": 0, "prefix_reused": 0,
+                               "kv_installed": 0}
         self.pages_aliased = 0
         # refused or deferred paged admissions by reason; ``validate``
         # counts from request threads, hence the lock
@@ -1210,6 +1246,100 @@ class ContinuousBatcher:
                 f"{len(toks)}")
         return toks, lps or [0.0] * len(toks)
 
+    def validate_kv_pages(self, kv_pages, prompt_len: int,
+                          resume_len: int) -> "KvInstall | None":
+        """The KV-transfer half of the admission rule (shared with the
+        serving engine's request thread): decode a
+        :func:`~.paging.pack_kv_wire` blob, check it against this
+        batcher's page size, quantization and cache planes and against
+        the folded prompt (``prompt_len`` tokens, then ``resume_len``
+        resumed ones), and stage it for :meth:`install_kv_pages`. A
+        :class:`KvInstall` (a blob the engine staged already) is checked
+        against the folded prompt only. None when no blob was passed."""
+        if kv_pages is None:
+            return None
+        if self.pool is None:
+            raise ValueError(
+                "kv_pages requires the paged KV layout on the receiving "
+                "replica (kv_layout='paged' / --kvLayout paged); this "
+                "batcher serves the dense layout — resubmit without "
+                "kv_pages to re-prefill instead")
+        if not resume_len:
+            raise ValueError(
+                "kv_pages without resume_out: pages are exported after "
+                "the first emitted token, so an install always resumes "
+                "at least one token")
+        kv = kv_pages if isinstance(kv_pages, KvInstall) else \
+            self._stage_kv_pages(kv_pages)
+        folded = prompt_len + resume_len
+        if kv.tokens != folded - 1:
+            raise ValueError(
+                f"kv wire blob covers {kv.tokens} cache rows but the folded "
+                f"prompt ({prompt_len} prompt + {resume_len} resumed "
+                f"tokens) needs {folded - 1} (the newest resumed token's "
+                "row is written by the next decode step)")
+        if kv.n_pages != self.pool.pages_for_tokens(kv.tokens):
+            raise ValueError(
+                f"kv wire blob ships {kv.n_pages} pages for {kv.tokens} "
+                f"rows; page_size {self.pool.page_size} needs "
+                f"{self.pool.pages_for_tokens(kv.tokens)}")
+        return kv
+
+    def _stage_kv_pages(self, blob) -> KvInstall:
+        """Decode ``blob`` (into pinned memory on a card) and check it
+        against this pool: page size, quantization, the set of planes and
+        each plane's rows and dtype."""
+        on_card = self.device.type == "cuda"
+        meta, planes = unpack_kv_wire(blob, pin_memory=on_card)
+        if int(meta["page_size"]) != self.pool.page_size:
+            raise ValueError(
+                f"kv wire blob uses page_size={meta['page_size']} but this "
+                f"pool uses {self.pool.page_size}: pages only transfer "
+                "between identically paged replicas")
+        quant = self.cfg.cache_quant
+        if meta.get("cache_quant") != quant:
+            raise ValueError(
+                f"kv wire blob was exported from a "
+                f"cache_quant={meta.get('cache_quant')!r} pool; this "
+                f"batcher serves cache_quant={quant!r}")
+        want = {name: leaf for name, leaf in (
+            ("k", self.state.cache.k), ("v", self.state.cache.v),
+            ("k_scale", self.state.cache.k_scale),
+            ("v_scale", self.state.cache.v_scale)) if leaf is not None}
+        if set(planes) != set(want):
+            raise ValueError(
+                f"kv wire blob carries planes {sorted(planes)} but this "
+                f"pool holds {sorted(want)} (quantization mismatch?)")
+        for name, x in planes.items():
+            rows, dtype = kv_wire_rows(name, want[name], quant)
+            got = (x.shape[0], *x.shape[2:])
+            declared = blob["planes"][name]["dtype"]
+            if got != rows or declared != dtype:
+                raise ValueError(
+                    f"kv wire plane {name!r} is {tuple(x.shape)} "
+                    f"{declared}; this pool's rows are (L={rows[0]}, n, "
+                    f"{rows[1]}, {rows[2]}, {rows[3]}) {dtype}")
+        planes = kv_pool_planes(planes, quant)
+        if on_card:
+            planes = {name: x if x.is_pinned() else x.pin_memory()
+                      for name, x in planes.items()}
+        return KvInstall(tokens=int(meta["tokens"]),
+                         n_pages=int(meta["n_pages"]), planes=planes)
+
+    def kv_install_headroom(self, prompt_len: int,
+                            max_new: int) -> "tuple[int, int]":
+        """``(pages needed, pages free)`` for an incoming KV page install:
+        the submit-time pressure gate on the transfer seam. Safe off the
+        engine thread: pure arithmetic on the pool's fixed geometry and
+        one ``len`` of its free list (the approximate-read contract of
+        ``kv_stats``); the engine thread's reservation stays
+        authoritative if a burst races past this read."""
+        if self.pool is None:
+            return (0, 0)
+        need = self.pool.pages_for_tokens(
+            self._kv_need_tokens(prompt_len, max_new))
+        return need, self.pool.free_pages
+
     @property
     def adapter_names(self) -> tuple:
         """Positional adapter names (the index requests select by):
@@ -1252,7 +1382,7 @@ class ContinuousBatcher:
         resume_out: "list[int] | None" = None,
         resume_logp: "list[float] | None" = None,
         adapter: int = -1,
-        **unserved,
+        kv_pages=None,
     ) -> int:
         """Queue a request; returns its id. ``prefix``
         (:func:`precompute_prefix`) prepends a shared prefilled prefix:
@@ -1267,12 +1397,18 @@ class ContinuousBatcher:
         started: the preemption fold at the submit edge, so the finish
         chunk samples emission and seeded draw ``len(resume_out)``
         against the budget left, and stop sequences match across the
-        boundary. ``adapter`` selects a stacked LoRA adapter by registry
-        index (-1 = the base model); a prefix must have been prefilled
-        under the same one. A scheduler's admission control runs last
-        and may raise its overload error (an adapter over its quota
-        too), leaving the batcher untouched."""
-        _refuse("submit", unserved, _UNSERVED_SUBMIT)
+        boundary. ``kv_pages`` (a :func:`~.paging.pack_kv_wire` blob
+        another batcher's :meth:`export_kv_pages` made, or the
+        :class:`KvInstall` the serving engine staged from one) upgrades
+        the resume from a re-prefill to a page install: its rows are
+        written into freshly reserved pages at admission and the slot
+        decodes on from the newest resumed token, as the exporter would
+        have; it needs ``resume_out`` and the paged layout. ``adapter``
+        selects a stacked LoRA adapter by registry index (-1 = the base
+        model); a prefix must have been prefilled under the same one. A
+        scheduler's admission control runs last and may raise its
+        overload error (an adapter over its quota too), leaving the
+        batcher untouched."""
         if prefix is not None:
             if not self.chunk:
                 raise ValueError("prefix sharing requires chunked_prefill=C")
@@ -1296,6 +1432,8 @@ class ContinuousBatcher:
         # the folded tokens sit in the prompt AND count against max_new:
         # the remaining budget keeps the row total the original worst case
         self.validate(len(full), max_new - len(resume_out))
+        kv_wire = self.validate_kv_pages(kv_pages, len(prompt),
+                                         len(resume_out))
         adapter = int(adapter)
         self.validate_adapter(adapter)
         if prefix is not None and prefix.adapter != adapter:
@@ -1330,6 +1468,7 @@ class ContinuousBatcher:
             req.out = list(resume_out)
             req.out_logp = list(resume_logp)
             req.prefilled_out = len(resume_out)
+            req.kv_wire = kv_wire
         if self.scheduler is not None:
             # admission control (queue cap, quota charge) before the
             # request queues: a raise leaves the batcher untouched
@@ -1611,9 +1750,11 @@ class ContinuousBatcher:
         # only the budget left adds rows (the original worst case)
         total = self.pool.pages_for_tokens(self._kv_need_tokens(
             len(req.prompt), req.max_new - req.prefilled_out))
-        if self._incremental_reserve:
+        if self._incremental_reserve and req.kv_wire is None:
             # windowed streaming prefill: only the admission tranche; the
-            # chunks grow the rest and recycling keeps the row O(window)
+            # chunks grow the rest and recycling keeps the row O(window).
+            # (A page install keeps the full reservation: its rows arrive
+            # whole, there is nothing to stream)
             total = min(total, self.pool.pages_for_tokens(
                 self._initial_reserve_tokens(req)))
         # headroom for the windowed growth in flight: counted against the
@@ -1910,6 +2051,136 @@ class ContinuousBatcher:
                 "pipeline_flushes": self.pipeline_flushes,
                 "graph": None if self.graph is None else self.graph.stats()}
 
+    # --- KV page transfer ---
+
+    def export_kv_planes(self, rid: int) -> tuple:
+        """The engine-thread half of :meth:`export_kv_pages`: a decoding
+        request's valid cache rows, as the whole pool pages that hold
+        them, copied to the host. Returns ``(planes, meta, out,
+        out_logp)``: the planes as the pool holds them (CPU tensors),
+        ``meta`` the :func:`~.paging.pack_kv_wire` keywords (page size,
+        quantization, the valid row count) and a consistent snapshot of
+        the tokens and logprobs emitted so far, the ``resume_out`` /
+        ``resume_logprobs`` of the resubmission. A step in flight is read
+        first, so that ``out`` and the rows agree. The request keeps
+        decoding until the caller cancels it.
+
+        The valid rows are the folded prompt and every emitted token but
+        the newest, whose row the next decode step would write: it rides
+        ``out`` as the last resumed token. Raises KeyError for an unknown
+        or finished request, ValueError for the dense layout, a request
+        not yet decoding, or a windowed row whose early pages were
+        recycled (the rows no longer exist: resume with a re-prefill)."""
+        if self.pool is None:
+            raise ValueError(
+                "KV page export requires the paged layout (kv_layout="
+                "'paged' / --kvLayout paged); this replica serves dense "
+                "KV — resume with re-prefill instead")
+        if self._inflight is not None:
+            self._flush_inflight()
+        slot, req = next(((s, r) for s, r in self.running.items()
+                          if r.rid == rid), (None, None))
+        if req is None:
+            waiting = [r.rid for r in self.pending] + [
+                r.rid for r in self.prefilling.values()]
+            if rid in waiting:
+                raise ValueError(
+                    f"request {rid} has not finished prefill; KV pages "
+                    "export only after the first emitted token")
+            raise KeyError(f"unknown or finished request {rid}")
+        valid = len(req.prompt) + len(req.out) - req.prefilled_out - 1
+        n = self.pool.pages_for_tokens(valid)
+        ids = self._slot_pages[slot][:n]
+        if len(ids) < n or any(p == 0 for p in ids):
+            raise ValueError(
+                f"request {rid}'s early KV pages were recycled "
+                "(attn_window serving): export cannot ship the full row — "
+                "resume with re-prefill instead")
+        span = (self.tracer.span("kv_export", component="serving",
+                                 parent=req.span, pages=n, tokens=valid)
+                if req.span is not None else None)
+        index = self._h2d(ids, torch.int64)
+        planes = {}
+        for name in ("k", "v", "k_scale", "v_scale"):
+            leaf = getattr(self.state.cache, name)
+            if leaf is None:
+                continue
+            rows = leaf.index_select(1, index)
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype,
+                                   pin_memory=True)
+                rows = host.copy_(rows, non_blocking=True)
+            planes[name] = rows
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        if span is not None:
+            span.end()
+        meta = {"page_size": self.pool.page_size,
+                "cache_quant": self.cfg.cache_quant, "tokens": valid}
+        return planes, meta, list(req.out), list(req.out_logp)
+
+    def export_kv_pages(self, rid: int) -> "tuple[dict, list, list]":
+        """Export a decoding request's cache pages as a wire blob (the
+        reference's seam): ``(blob, out, out_logp)``, the blob and the
+        tokens and logprobs to resubmit it with (:meth:`export_kv_planes`
+        says what ships and what is refused)."""
+        planes, meta, out, lps = self.export_kv_planes(rid)
+        return pack_kv_wire(kv_wire_planes(planes, meta["cache_quant"]),
+                            **meta), out, lps
+
+    def install_kv_pages(self, req: _Request, slot: int) -> None:
+        """Install a request's staged pages into ``slot`` (``_admit``
+        calls this after ``_install_pages`` reserved fresh pages at
+        refcount 1, so the writes touch neither a shared page nor the
+        trap page) and activate the slot where the exporter stood: the
+        shipped rows are copied into the pool planes in place
+        (``index_copy_`` on the page axis, from pinned memory, on the
+        stream the decode graph replays on, so the graph reads them at
+        its fixed addresses), the presence row is seeded from the folded
+        prompt's ids (what its prefill and decode steps had marked), and
+        the slot's length, last token, budget and draw index are those
+        of the exporter's next step. That step writes the newest resumed
+        token's row and samples emission ``prefilled_out`` (its seeded
+        draw too): the stream continues bit for bit, with no prefill
+        dispatch."""
+        kv = req.kv_wire
+        span = (self.tracer.span("kv_install", component="serving",
+                                 parent=req.span, pages=kv.n_pages,
+                                 tokens=kv.tokens)
+                if req.span is not None else None)
+        index = self._h2d(self._slot_pages[slot][:kv.n_pages], torch.int64)
+        for name, host in kv.planes.items():
+            getattr(self.state.cache, name).index_copy_(
+                1, index, host.to(self.device, non_blocking=True))
+        st = self.state
+        presence = st.presence[slot]
+        presence.zero_()
+        presence[self._h2d(sorted(set(req.prompt)), torch.int64)] = True
+        st.lengths[slot] = kv.tokens
+        st.last_token[slot] = req.out[-1]
+        st.active[slot] = True
+        st.budget[slot] = req.max_new - len(req.out)
+        st.draws[slot] = len(req.out)
+        req.kv_wire = None
+        self.running[slot] = req
+        self._slots_dirty = True
+        if span is not None:
+            span.end()
+        self._count_prefill_tokens(kv.tokens, "kv_installed", req)
+        # the admission ends here: its first token comes from a decode
+        # step (its TTFT was the exporting replica's), so the gap to it
+        # counts from now
+        now = time.perf_counter()
+        req.t_last_tok = now
+        if req.timeline is not None:
+            req.timeline.advance("decode", now)
+        if req.span is not None:
+            req.decode_span = self.tracer.span(
+                "decode", component="serving", parent=req.span)
+        # decode queries start at the newest row: windowed pages below
+        # the window are dead already
+        self._recycle_slot_pages(slot, kv.tokens)
+
     # --- admission and prefill ---
 
     def _admit(self) -> int:
@@ -1935,7 +2206,11 @@ class ContinuousBatcher:
         while free and self.pending:
             req = self.pending[0]
             if (self.prefix_cache is not None and req.prefix is None
-                    and len(req.prompt) > 1 and not req.matched):
+                    and len(req.prompt) > 1 and not req.matched
+                    and req.kv_wire is None):
+                # (a page install skips matching: its rows arrive
+                # materialized, so aliasing cached pages under them would
+                # save nothing)
                 # the automatic match site: past validation, and late
                 # enough to see every prefix promoted since the request
                 # queued. Uncounted here: a deferred request may still be
@@ -2003,6 +2278,14 @@ class ContinuousBatcher:
                     req.timeline.page_alloc_s += (time.perf_counter()
                                                   - t_inst)
             self._open_slot(req, slot)
+            if req.kv_wire is not None:
+                t_inst = (time.perf_counter() if req.timeline is not None
+                          else 0.0)
+                self.install_kv_pages(req, slot)
+                if req.timeline is not None:
+                    req.timeline.page_alloc_s += (time.perf_counter()
+                                                  - t_inst)
+                continue
             if self.chunk:
                 start = 0
                 if req.prefix is not None:
@@ -2051,7 +2334,8 @@ class ContinuousBatcher:
         """Prefill work by provenance: ``computed`` tokens ran through
         the model (the finish chunk's overlap included: it is real
         compute) and are charged to ``req`` and the MFU layer,
-        ``prefix_reused`` ones came from a prefix's rows."""
+        ``prefix_reused`` ones came from a prefix's rows, ``kv_installed``
+        ones from another replica's exported pages."""
         if n <= 0:
             return
         self.prefill_tokens[source] += n

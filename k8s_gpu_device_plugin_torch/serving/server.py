@@ -14,7 +14,7 @@ Wire contract (the reference's):
   "top_k", "top_p", "repetition_penalty", "seed", "logit_bias":
   {"token_id": bias, ...}, "tenant", "priority" (0-9, lower = more
   urgent), "deadline_ms", "resume_out": [ids...], "resume_logprobs":
-  [...]}`` ->
+  [...], "kv_pages": {blob}}`` ->
   ``{"id", "tokens", "cached_tokens"[, "logprobs"]}``, or with
   ``"stream": true`` a ``text/event-stream`` of ``data: {"token": t[,
   "logprob": lp]}`` frames closing with ``data: {"done": true}``.
@@ -23,9 +23,15 @@ Wire contract (the reference's):
   carries it only when it is > 0, as the reference's does.
   ``resume_out`` continues a stream another replica started: the
   tokens fold into the prompt and the answer carries only the
-  continuation. ``"n"`` (1 ... 8, not with ``stream``) decodes n
-  independent choices in parallel slots, choice i seeded ``(seed + i) %
-  2**31``: the answer adds ``completions`` (and ``completions_logprobs``),
+  continuation. With ``kv_pages`` (the blob ``POST /v1/kv/export``
+  answered on that replica, ``models/paging.py``'s wire format, a paged
+  pool of the same page size and quantization) its pages are installed
+  instead of re-prefilled, and the continuation is the uninterrupted
+  stream bit for bit; a pool that cannot hold them right now answers 429
+  with ``reason`` ``kv_pool_pressure`` and ``Retry-After: 1``. ``"n"``
+  (1 ... 8, not with ``stream``) decodes n independent choices in
+  parallel slots, choice i seeded ``(seed + i) % 2**31``: the answer
+  adds ``completions`` (and ``completions_logprobs``),
   and ``cached_tokens`` is the largest of the choices'. With a tokenizer
   (``--tokenizer``, ``serving/tokenizer.py``) ``"text"`` may replace
   ``"prompt"`` (not with ``resume_out``), ``"stop_text"`` adds encoded
@@ -35,18 +41,27 @@ Wire contract (the reference's):
   timeline (``obs/attribution.py``: queue wait, prefill and decode
   segments summing to its wall time; null with ``--attributionOff``) to
   the answer and to the SSE done event. ``"adapter": "name"`` serves the
-  request through that LoRA adapter (an unknown name answers 400). A
-  field the port does not implement yet (``kv_pages``, ...) answers 400
-  naming it,
-  as does a ``logit_bias`` that is not an object of integer keys and
-  numbers, or a malformed scheduling or resume field; a request no slot
-  can hold, a bias outside the batcher's
-  bounds, or (with ``--chunkedPrefill 0``) a prompt longer than the
-  largest bucket answers 422. A full queue (``--maxQueue``), or a
+  request through that LoRA adapter (an unknown name answers 400). An
+  unknown field answers 400 naming it, as does a ``logit_bias`` that is
+  not an object of integer keys and numbers, a ``kv_pages`` that is not
+  an object or comes without ``resume_out``, or a malformed scheduling
+  or resume field; a request no slot can hold, a bias outside the
+  batcher's bounds, a ``kv_pages`` blob that is malformed or does not
+  fit the pool, or (with ``--chunkedPrefill 0``) a prompt longer than
+  the largest bucket answers 422. A full queue (``--maxQueue``), or a
   request whose pool-pressure wait outlived ``--deferBudgetMs``, answers
   429 with a ``Retry-After`` header; a stream the engine could not
   finish ends with an ``{"error": {"code", "message"}}`` event (503 when
   not streamed).
+- ``POST /v1/kv/export/{id}`` (a ``/v1/generate`` stream's
+  ``X-Request-Id``) -> ``{"id", "kv_pages", "resume_out",
+  "resume_logprobs"}``: the request's valid cache pages and the tokens
+  it emitted, to resubmit elsewhere; the request retires (its stream
+  closes with the tokens delivered so far, a prefix of ``resume_out``).
+  400 for a malformed id, 404 for an unknown or finished request, 409
+  while it is queued or prefilling, 503 for the dense layout, a dead
+  engine or a timeout. Bodies are read whole: a Llama-3-8B bf16 blob of
+  1536 rows is about 280 MB of JSON.
 - ``GET /v1/health`` -> slots, active, prefilling, queued, alive, the
   prefix cache's counters (``prefix_cache``, the reference's keys, when
   the cache is on), the attention backend plan (``decode_attn``), the KV
@@ -160,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import json
 import queue
 import statistics
@@ -187,6 +203,10 @@ from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig, init_params
 from k8s_gpu_device_plugin_torch.models.lora_serving import (
     AdapterSet,
     AdapterStore,
+)
+from k8s_gpu_device_plugin_torch.models.paging import (
+    kv_wire_planes,
+    pack_kv_wire,
 )
 from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     WEIGHT_QUANTS,
@@ -247,8 +267,8 @@ _KNOBS = {"temperature": float, "top_k": int, "top_p": float,
           "repetition_penalty": float}
 _FIELDS = {"prompt", "text", "max_new", "stream", "logprobs", "stop",
            "stop_text", "seed", "n", "logit_bias", "tenant", "priority",
-           "deadline_ms", "resume_out", "resume_logprobs", "timeline",
-           "adapter", *_KNOBS}
+           "deadline_ms", "resume_out", "resume_logprobs", "kv_pages",
+           "timeline", "adapter", *_KNOBS}
 #: choices one request may ask for (each holds a decode slot)
 MAX_N = 8
 
@@ -290,6 +310,8 @@ class InferenceEngine:
         self._dead = threading.Event()
         self._subq: list[tuple] = []     # owner: request threads -> engine
         self._cancelq: list[int] = []
+        # KV page exports: (eid, future), drained each pass of the loop
+        self._exportq: list[tuple] = []
         self._streams: dict[int, queue.Queue] = {}  # eid -> token queue
         self._published: dict[int, int] = {}        # eid -> tokens pushed
         self._rid_to_eid: dict[int, int] = {}       # owner: engine thread
@@ -318,6 +340,7 @@ class InferenceEngine:
                resume_out: "list[int] | None" = None,
                resume_logp: "list[float] | None" = None,
                adapter: int = -1,
+               kv_pages=None,
                ) -> tuple[int, queue.Queue]:
         """Validate (everything the batcher would) and queue a request.
         Returns (engine id, its token queue). Raises the scheduler's
@@ -326,7 +349,14 @@ class InferenceEngine:
         ``resume_out``/``resume_logp`` continue a stream another
         incarnation started: the tokens fold into the prompt, and since
         the client has them already, the stream carries only the
-        continuation."""
+        continuation. ``kv_pages`` (a wire blob another replica's
+        :meth:`export_kv` made) upgrades the resume to a page install:
+        it is decoded and staged here, on the request thread, so the
+        engine thread only copies it to the card. A pool without the
+        pages free right now raises the overload error (429
+        ``kv_pool_pressure``) rather than parking a live stream behind
+        it; the engine thread's reservation still defers if a burst
+        races past this approximate check."""
         if self._dead.is_set():
             raise RuntimeError("inference engine is dead (see logs)")
         cb = self.cb
@@ -335,6 +365,17 @@ class InferenceEngine:
         prompt = cb.validate_prompt(prompt)
         # the batcher's own rule over the folded prompt and the budget left
         cb.validate(len(prompt) + len(resume_out), max_new - len(resume_out))
+        kv_wire = cb.validate_kv_pages(kv_pages, len(prompt),
+                                       len(resume_out))
+        if kv_wire is not None:
+            need, free = cb.kv_install_headroom(
+                len(prompt) + len(resume_out), max_new - len(resume_out))
+            if need > free:
+                raise SchedulerOverloadError(
+                    f"KV transfer needs {need} pages, {free} free: the "
+                    "install would wait behind pool pressure; re-prefill "
+                    "elsewhere or retry", reason="kv_pool_pressure",
+                    retry_after=1)
         if sampler is not None and not cb.per_request_sampler:
             raise ValueError(
                 "per-request sampling is not supported by this engine "
@@ -378,7 +419,8 @@ class InferenceEngine:
             self._next_eid += 1
             self._subq.append((eid, prompt, max_new, stop, sampler, seed,
                                bias, tenant, priority, deadline_ms,
-                               (resume_out, resume_logp), adapter, parent))
+                               (resume_out, resume_logp, kv_wire), adapter,
+                               parent))
             self._streams[eid] = q
             # the published cursor starts past the resumed tokens
             self._published[eid] = len(resume_out)
@@ -390,6 +432,40 @@ class InferenceEngine:
         with self._lock:
             self._cancelq.append(eid)
         self._work.set()
+
+    def export_kv(self, eid: int, timeout: float = 30.0) -> dict:
+        """Export a decoding request's KV pages and retire it: the body
+        of ``POST /v1/kv/export/{rid}``, a resubmittable ``kv_pages``
+        blob with its ``resume_out`` and ``resume_logprobs``. The engine
+        thread reads the pages, cancels the request and publishes back
+        to back (:meth:`_apply_exports`), so the stream cannot emit a
+        token after the snapshot: it closes having delivered a prefix of
+        ``resume_out``. The blob's base64 is encoded here, on the asking
+        thread, off the engine's loop.
+
+        Raises KeyError (unknown or finished), ValueError (queued,
+        prefilling, or its early pages recycled), RuntimeError (the
+        dense layout, a dead engine) or TimeoutError."""
+        if self._dead.is_set():
+            raise RuntimeError("inference engine is dead (see logs)")
+        if self.cb.pool is None:
+            raise RuntimeError(
+                "KV page export requires the paged layout (--kvLayout "
+                "paged); this replica serves dense KV")
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            self._exportq.append((eid, fut))
+        self._work.set()
+        try:
+            planes, meta, out, lps = fut.result(timeout)
+        except concurrent.futures.TimeoutError:
+            raise TimeoutError(
+                f"KV export of request {eid} timed out after {timeout} s"
+            ) from None
+        blob = pack_kv_wire(kv_wire_planes(planes, meta["cache_quant"]),
+                            **meta)
+        return {"kv_pages": blob, "resume_out": out,
+                "resume_logprobs": lps}
 
     def pop_request_info(self, eid: int) -> dict:
         """A finished request's wrap-up facts (``cached_tokens``; a
@@ -485,7 +561,7 @@ class InferenceEngine:
                         seed=seed, logit_bias=bias, tenant=tenant,
                         priority=priority, deadline_ms=deadline_ms,
                         resume_out=resume[0], resume_logp=resume[1],
-                        adapter=adapter)
+                        kv_pages=resume[2], adapter=adapter)
             except SchedulerOverloadError as e:
                 # the request thread's queue-cap check raced a burst: the
                 # stream closes with the rejection, its handler answers 429
@@ -521,6 +597,43 @@ class InferenceEngine:
                        None)
             if rid is not None:
                 self.cb.cancel(rid)
+
+    def _apply_exports(self) -> None:
+        """Drain the queued KV exports: each reads its request's pages
+        and emitted tokens (reading the step in flight first), cancels
+        the request and publishes, in one pass of this thread. The API's
+        refusals (KeyError, ValueError) go back to the asking thread; any
+        other failure does too, as a RuntimeError, and is raised on to
+        the crash boundary."""
+        with self._lock:
+            ops, self._exportq = self._exportq, []
+        for i, (eid, fut) in enumerate(ops):
+            try:
+                res = self._export_one(eid)
+            except (KeyError, ValueError) as e:
+                fut.set_exception(e)
+                continue
+            except Exception as e:
+                for _, f in ops[i:]:
+                    f.set_exception(RuntimeError(f"KV export failed: {e}"))
+                raise
+            fut.set_result(res)
+
+    def _export_one(self, eid: int) -> tuple:
+        rid = next((r for r, e in self._rid_to_eid.items() if e == eid),
+                   None)
+        if rid is None:
+            with self._lock:
+                queued = any(sub[0] == eid for sub in self._subq)
+            if queued:
+                raise ValueError(
+                    f"request {eid} has not been admitted yet: wait for its "
+                    "first token before exporting")
+            raise KeyError(f"unknown or finished request {eid}")
+        res = self.cb.export_kv_planes(rid)
+        self.cb.cancel(rid)
+        self._publish()
+        return res
 
     def _push(self, rid: int, out: list[int], logp: list[float]) -> None:
         eid = self._rid_to_eid.get(rid)
@@ -618,6 +731,7 @@ class InferenceEngine:
         while not self._stop.is_set():
             self._admit_submissions()
             self._apply_cancellations()
+            self._apply_exports()
             cb = self.cb
             if cb.pending or cb.running or cb.prefilling:
                 cb.step()
@@ -739,6 +853,18 @@ def _parse_request(body, tokenizer=None) -> dict:
             not isinstance(resume_lp, list)
             or not all(isinstance(x, (int, float)) for x in resume_lp)):
         raise ValueError("resume_logprobs must be a list of numbers")
+    # KV pages another replica exported ride the resume seam: the engine
+    # installs them instead of re-prefilling the folded prompt
+    kv_pages = body.get("kv_pages")
+    if kv_pages is not None:
+        if resume_out is None:
+            raise ValueError(
+                "kv_pages requires resume_out (the transferred pages cover "
+                "the folded prompt's rows)")
+        if not isinstance(kv_pages, dict):
+            raise ValueError(
+                "kv_pages must be a KV wire blob object (see "
+                "/v1/kv/export)")
     timeline = body.get("timeline", False)
     if not isinstance(timeline, bool):
         raise ValueError("timeline must be a boolean")
@@ -748,11 +874,29 @@ def _parse_request(body, tokenizer=None) -> dict:
         "seed": seed,
         "logit_bias": _parse_logit_bias(body.get("logit_bias")),
         **sched, "resume_out": resume_out, "resume_logp": resume_lp,
-        "n": n, "stream": stream, "timeline": timeline,
+        "kv_pages": kv_pages, "n": n, "stream": stream, "timeline": timeline,
         "logprobs": bool(body.get("logprobs", False)),
         # a name: the server resolves it against its live registry
         "adapter": body.get("adapter"),
     }
+
+
+def kv_export_json(res: dict) -> bytes:
+    """An export's answer (``InferenceEngine.export_kv``) as
+    ``json.dumps(res).encode()`` gives it, byte for byte, with each
+    plane's base64 payload spliced in rather than run through the
+    encoder: base64 needs no escaping, and a Llama-3-8B blob carries
+    hundreds of MB of it."""
+    planes = res["kv_pages"]["planes"]
+    skeleton = {**res, "kv_pages": {**res["kv_pages"], "planes": {
+        name: {**p, "data": ""} for name, p in planes.items()}}}
+    parts = json.dumps(skeleton).encode().split(b'"data": ""')
+    if len(parts) != len(planes) + 1:
+        raise ValueError("a KV export answer carries one payload a plane")
+    out = [parts[0]]
+    for p, rest in zip(planes.values(), parts[1:]):
+        out += [b'"data": "', p["data"].encode("ascii"), b'"', rest]
+    return b"".join(out)
 
 
 def drain_queue(q: queue.Queue) -> tuple:
@@ -1014,7 +1158,7 @@ class _Handler(BaseHTTPRequestHandler):
                 tenant=req["tenant"], priority=req["priority"],
                 deadline_ms=req["deadline_ms"],
                 resume_out=req["resume_out"], resume_logp=req["resume_logp"],
-                adapter=adapter)
+                kv_pages=req["kv_pages"], adapter=adapter)
         except RequestTooLargeError as e:
             self._json(422, {"error": {"message": str(e),
                                        "code": "request_too_large",
@@ -1023,8 +1167,9 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError as e:
             self._json(422, {"error": str(e)})
             return
-        except SchedulerOverloadError as e:  # the queue is full
-            engine.cb.scheduler.count_sync_rejection(engine.cb)
+        except SchedulerOverloadError as e:  # a full queue or pool
+            if engine.cb.scheduler is not None:
+                engine.cb.scheduler.count_sync_rejection(engine.cb)
             self._overloaded(str(e), e.reason, e.retry_after)
             return
         except RuntimeError as e:
@@ -1075,6 +1220,33 @@ class _Handler(BaseHTTPRequestHandler):
                     payload["completions_text"] = [tokenizer.decode(d[0])
                                                    for d in drained]
         self._json(200, payload)
+
+    def kv_export(self) -> None:
+        """``POST /v1/kv/export/{rid}``: the request's KV pages and the
+        tokens it emitted, as a body to resubmit to ``/v1/generate`` on
+        another replica; the request retires here (its stream closes
+        with the tokens delivered so far). 400 for a malformed id, 404
+        for an unknown or finished request, 409 while it is queued or
+        prefilling (retry after its first token), 503 for the dense
+        layout, a dead engine or a timeout."""
+        try:
+            eid = int(self.route_param)
+        except ValueError:
+            self._json(400, {"error": "request id must be an integer"})
+            return
+        try:
+            res = self.server.engine.export_kv(eid)
+        except KeyError as e:
+            self._json(404, {"error": str(e)})
+            return
+        except ValueError as e:
+            self._json(409, {"error": str(e)})
+            return
+        except (RuntimeError, TimeoutError) as e:
+            self._json(503, {"error": str(e)})
+            return
+        res["id"] = eid
+        self._send(200, kv_export_json(res), "application/json")
 
     def _stream(self, engine: InferenceEngine, eid: int, q: queue.Queue,
                 want_logprobs: bool, streamed: list[int],
@@ -1131,6 +1303,7 @@ _GET_ROUTES = {"/v1/health": ("native", "health"),
                "/debug/requests/{rid}": ("native", "debug_request_one"),
                "/debug/slow": ("native", "debug_slow")}
 _POST_ROUTES = {"/v1/generate": ("native", "generate"),
+                "/v1/kv/export/{rid}": ("native", "kv_export"),
                 "/v1/completions": ("openai", "completions"),
                 "/v1/chat/completions": ("openai", "chat_completions"),
                 "/v1/embeddings": ("openai", "embeddings")}

@@ -99,11 +99,11 @@ def test_stop_sequence_and_cancel(models):
 
 
 def test_refuses_what_the_slice_does_not_serve(models):
-    """What is still unserved is refused (a KV page install, naming
-    A.10's KV transfer); adapters, the pipelined loop, bucketed prefill,
-    logit bias and the scheduling identity are served now, with the
-    reference's defaults (pipeline_depth 1, chunked_prefill 0) and its
-    bounds."""
+    """A KV page install is served now (taken and validated: its round
+    trip is held in tests/test_torch_kv_transfer.py); adapters, the
+    pipelined loop, bucketed prefill, logit bias and the scheduling
+    identity are served too, with the reference's defaults
+    (pipeline_depth 1, chunked_prefill 0) and its bounds."""
     _, _, tcfg, tparams = models
     # adapters are served: the argument is taken and validated (the
     # serving itself is held in tests/test_torch_lora_serving.py)
@@ -114,7 +114,7 @@ def test_refuses_what_the_slice_does_not_serve(models):
     with pytest.raises(ValueError, match="out of range"):
         tbatch.ContinuousBatcher(tparams, tcfg, 2, 128).submit(
             [1, 2], 4, adapter=0)
-    with pytest.raises(NotImplementedError, match="kv_pages.*A.10, KV"):
+    with pytest.raises(ValueError, match="kv_pages requires the paged"):
         tbatch.ContinuousBatcher(tparams, tcfg, 2, 128).submit(
             [1, 2], 4, kv_pages={"pages": []})
     # the scheduling identity is served: the request carries it

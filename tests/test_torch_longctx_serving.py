@@ -18,6 +18,10 @@ weights converted. Pins:
   cancel mid-growth returns the pool to its baseline, promotion skips a
   recycled row and keeps a short one; ``pool.check()`` holds after every
   run;
+- KV page transfer: a row whose early pages were recycled refuses its
+  export (resume by re-prefill), and a page install into a windowed
+  pool takes the full reservation, recycles as it decodes and continues
+  the uninterrupted stream bit for bit;
 - refusals: the full-causal twin is refused at the pool wall with the
   reference's structured fields, the slot wall too; the server's
   ``--attnWindow`` reaches ``/v1/health``.
@@ -239,6 +243,52 @@ def test_cancel_mid_growth_returns_pool_to_baseline(models):
     cb.run(max_steps=50)
     assert cb.pool.in_use == 0
     cb.pool.check()
+
+
+def test_export_refused_after_recycle_prompts_reprefill(models):
+    """The reference's pin: a windowed row whose early pages were
+    recycled no longer holds its full rows, so its export is refused and
+    asks for a re-prefill."""
+    _, _, tcfg, tparams = models
+    cb = _batcher(tparams, tcfg, 8 + 1)
+    rid = cb.submit(_prompt(312, 40, tcfg.vocab_size), max_new=30)
+    while rid not in {r.rid for r in cb.running.values()}:
+        cb.step()
+    with pytest.raises(ValueError, match="re-prefill"):
+        cb.export_kv_pages(rid)
+    cb.cancel(rid)
+    cb.run(max_steps=50)
+    assert cb.pool.in_use == 0
+    cb.pool.check()
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_install_into_a_windowed_pool_recycles_and_continues(models, depth):
+    """A short windowed row exported before any page left its window
+    installs under the full reservation (an install has nothing to
+    stream) and decodes on past the window: its pages recycle, its
+    stream is the uninterrupted one bit for bit, the pool drains."""
+    _, _, tcfg, tparams = models
+    p = _prompt(315, 10, tcfg.vocab_size)
+    ref = _batcher(tparams, tcfg, 8 + 1, pipeline_depth=depth)
+    r = ref.submit(p, max_new=40)
+    ref.run(max_steps=200)
+    src = _batcher(tparams, tcfg, 8 + 1, pipeline_depth=depth)
+    rid = src.submit(p, max_new=40)
+    while not any(q.rid == rid and len(q.out) >= 3
+                  for q in src.running.values()):
+        src.step()
+    blob, out, lps = src.export_kv_pages(rid)
+    src.cancel(rid)
+    dst = _batcher(tparams, tcfg, 8 + 1, pipeline_depth=depth)
+    rid = dst.submit(p, max_new=40, resume_out=out, resume_logp=lps,
+                     kv_pages=blob)
+    dst.run(max_steps=200)
+    got, want = dst.done_requests[rid], ref.done_requests[r]
+    assert got.out == want.out and got.out_logp == want.out_logp
+    assert dst._pages_recycled > 0
+    assert dst.pool.in_use == 0
+    dst.pool.check()
 
 
 def test_prefix_promotion_skips_recycled_rows_keeps_short_ones(models):

@@ -246,10 +246,13 @@ def test_paged_refusals(models):
     int4 = tllama.LlamaConfig.tiny(cache_quant="int4", kv_layout="paged")
     assert (int4.cache_quant, int4.kv_layout) == ("int4", "paged")
     # the automatic prefix cache attaches (tests/test_torch_prefix_cache.py),
-    # bound to the batcher's chunk; KV page install stays refused
+    # bound to the batcher's chunk; a KV page install is served
+    # (tests/test_torch_kv_transfer.py) and takes a wire blob only
     pc = PrefixCache(tcfg, buckets=(32, 64), budget_bytes=1 << 20)
     cb = make(prefix_cache=pc)
     assert cb.prefix_cache is pc and pc.chunk == CHUNK
     assert pc.release_entry is not None
-    with pytest.raises(NotImplementedError, match="kv_pages"):
+    with pytest.raises(ValueError, match="kv_pages without resume_out"):
         cb.submit([1, 2, 3], 4, kv_pages=b"blob")
+    with pytest.raises(ValueError, match="not a KV wire blob"):
+        cb.submit([1, 2, 3], 4, resume_out=[5], kv_pages=b"blob")
