@@ -219,9 +219,9 @@ Phases (any failed check exits non-zero without the final line):
    launches exactly the passes' steps and chunks (all on the tensor
    cores), every decode step a replay, misses, uploads past the warm
    set, evictions and ``adapter_miss`` deferrals above zero, the engine's
-   steps timed with an upload in flight or not; every base request and
-   each adapter's first request alone on the same server equal to its
-   stream, bit for bit; a server without
+   steps timed with an upload in flight or not; the first LORA_SOLO (5)
+   distinct first requests (adapter or base) alone on the same server
+   equal to their streams, bit for bit; a server without
    adapters on the same requests: its base streams equal, its decode
    step beside the adapters'. ``lora_dense``: four adapters in dense-N
    mode and gathered (K 8 and K 2, which defers on ``adapter_slots``) at
@@ -266,7 +266,35 @@ Phases (any failed check exits non-zero without the final line):
    installed on the other, the other's uninterrupted stream bit for
    bit (no prefill chunk), and a re-export of the installed stream
    equal to the blob's full pages byte for byte on every plane (the
-   int4 wire one code a byte, twice the pool's code bytes). Then, after
+   int4 wire one code a byte, twice the pool's code bytes). Then the
+   fleet tier on the same weights (``fleet_*``, ``phase_fleet``): two
+   servers r0 and r1 (``--slots 8 --maxLen 2048 --kvLayout paged
+   --kvPageSize 64 --embeddings --replicaId rN``, the prefix cache on)
+   behind the port's replica router (``serving/router.py``) on an event
+   loop of its own. ``fleet_route`` (affinity): four streams sharing a
+   512-token prefix (64-token tails, 32 tokens, greedy and seeded) land
+   on one replica, the second to fourth with ``cached_tokens`` >= 512;
+   they, a plain generate, a streamed completion and an embedding equal
+   the same requests sent straight to the chosen replica bit for bit
+   (tokens, logprobs, embedding values; OpenAI ids and timestamps
+   aside); affinity hits and K1's launches per replica. ``fleet_drain``:
+   the home drained under a stream, which finishes whole; new requests
+   go to the other; undrain. ``fleet_disagg``: a second router with
+   ``--roles "prefill=r0 decode=r1" --disaggMinPrompt 64``; prompts of
+   512 and 1024 tokens, greedy and seeded at 0.8: each stream equals the
+   uninterrupted one on r1 bit for bit and r1 makes no prefill chunk
+   (K1 on r1 only split decode steps); transfers by outcome, pages,
+   transfer ms, TTFT beside the same prompts colocated (caches
+   emptied). ``fleet_resume``: a greedy and a seeded stream of a
+   1024-token prompt on r1, r1 killed after 8 relayed tokens (its
+   sockets cut): both finish on r0 with 48 tokens, none twice, their
+   continuation a direct ``resume_out`` of the same fold on r0 bit for
+   bit (the first divergence from the uninterrupted run printed, not
+   held: a re-prefill resume is not bit for bit in bf16); one budget
+   charge, one ``stream_resume`` event a stream; then a disaggregated
+   request whose decode replica is the dead r1 falls back to a
+   re-prefill on r0, equal to a direct resume there, counted as a
+   ``fallback`` and not charged. Then, after
    the 8B weights are freed and before the windowed Mistral-7B runs,
    Mixture-of-Experts (``moe_*``, ``phase_moe``): ``moe_model``,
    Mixtral-8x7B at its full width and 2 of its 32 layers
@@ -320,8 +348,10 @@ Phases (any failed check exits non-zero without the final line):
    round's time and acceptance, the preemption runs' launches with
    the page-relief and arrival summaries, the surface run's launches
    with phase 2's T 512 scoring case, the lora runs', the KV transfer
-   runs' and the moe runs'; K2's entry counts the trainer's launches, the surface run's
-   and the MoE forward check's, and lists its B 1 serving cases).
+   runs', the fleet runs' (by run, the paged route) and the moe runs';
+   K2's entry counts the trainer's launches, the surface run's, the
+   fleet's embeddings and the MoE forward check's, and lists its B 1
+   serving cases).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -4253,6 +4283,9 @@ LORA_N, LORA_RANK, LORA_CACHE_MB = 32, 16, 960
 # of LORA_PROMPTS tokens, LORA_MAX_NEW generated; at once, then Poisson
 # arrivals at LORA_LOAD times the closed-loop rate
 LORA_MIX_N, LORA_BASE_N, LORA_ZIPF_S = 48, 12, 1.0
+# lora_mix's requests replayed alone: the first LORA_SOLO distinct
+# (adapter or base) first requests, in request order
+LORA_SOLO = 5
 LORA_PROMPTS, LORA_MAX_NEW, LORA_LOAD = (64, 1025), 128, 1.2
 # lora_dense, lora_oracle, lora_compose and lora_surface: LORA_SMALL
 # requests (prompt length, adapter index or -1), LORA_SMALL_NEW tokens
@@ -4421,8 +4454,10 @@ def lora_mix(torch, server_mod, kernel_support, rpa, cfg, params, store,
     budget delivered, both passes' streams equal, K1's launches exactly
     the passes' steps and chunks (all on the tensor cores), every decode
     step a replay. The engine's steps are timed with the store's
-    uploads in flight or not. Then every base request and each adapter's
-    first request alone on the same server, bit for bit its stream; then
+    uploads in flight or not. Then the first LORA_SOLO distinct first
+    requests (adapter or base) alone on the same server, bit for bit
+    their streams (the base rows are held to the server without
+    adapters); then
     a server without adapters on
     the same requests, each as a base request: its streams of the base
     requests equal, its decode step beside the adapters'."""
@@ -4527,14 +4562,14 @@ def lora_mix(torch, server_mod, kernel_support, rpa, cfg, params, store,
                for k, f in (("p50", lambda x: percentile(x, 50)),
                             ("p99", lambda x: percentile(x, 99)),
                             ("max", max))}}
-        # alone in the same server: every base request and each
-        # adapter's first request (every adapter and every base row)
+        # alone in the same server: the first LORA_SOLO distinct first
+        # requests (the base rows are all held to the server without
+        # adapters below)
         t_solo = time.perf_counter()
         firsts = {}
         for i, body in enumerate(bodies):
             firsts.setdefault(body.get("adapter"), i)
-        solo = [i for i, body in enumerate(bodies)
-                if "adapter" not in body or firsts[body["adapter"]] == i]
+        solo = sorted(firsts.values())[:LORA_SOLO]
         for i in solo:
             body = bodies[i]
             alone = _post(url, body)["tokens"]
@@ -5464,6 +5499,610 @@ def phase_kv(torch, server_mod, batching, kernel_support, rpa, cfg,
             "graph": graph_rows, "quant": quant}
 
 
+# The fleet tier (``fleet_*``, ``phase_fleet``): two servers sharing the 8B
+# weights behind the port's replica router (serving/router.py on its own
+# event loop in a thread), driven over HTTP through the router
+FLEET_ARGS = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
+              "--kvLayout", "paged", "--kvPageSize", "64", "--embeddings"]
+FLEET_PREFIX, FLEET_TAIL, FLEET_NEW = 512, 64, 32
+FLEET_DRAIN_NEW = 64
+# the disaggregated hops: (prompt length, body knobs), 32 tokens each
+FLEET_DISAGG = [(512, {}), (512, {"seed": 21, "temperature": 0.8}),
+                (1024, {}), (1024, {"seed": 22, "temperature": 0.8})]
+FLEET_ROLES = "prefill=r0 decode=r1"
+FLEET_RESUME_PROMPT, FLEET_RESUME_NEW, FLEET_KILL_AT = 1024, 48, 8
+FLEET_HEALTH_S = 0.25   # the routers' health-poll interval
+
+
+class LoopThread:
+    """An asyncio event loop on a thread of its own: the routers run on
+    it, the script's clients talk to them over HTTP from this thread."""
+
+    def __init__(self):
+        import asyncio
+
+        self.asyncio = asyncio
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="router-loop", daemon=True)
+        self.thread.start()
+
+    def call(self, coro, timeout: float = 120.0):
+        return self.asyncio.run_coroutine_threadsafe(
+            coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+def fleet_ids(n: int, seed: int, vocab: int) -> list:
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(1, vocab, n).tolist()
+
+
+def fleet_stream(url: str, body: dict, on_token=None) -> dict:
+    """One streamed /v1/generate read to its done frame: {"tokens",
+    "logprobs", "ttft" (seconds to the first token frame), "token_times",
+    "cached_tokens"}; ``on_token(count)`` after each token frame. Fails
+    on an error frame or a stream cut before its done frame."""
+    req = urllib.request.Request(
+        url + "/v1/generate", data=json.dumps({**body, "stream": True})
+        .encode(), headers={"Content-Type": "application/json"})
+    toks, lps, times, done = [], [], [], None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            evt = json.loads(line[len("data: "):])
+            if "error" in evt:
+                fail(f"fleet: stream error frame {evt['error']}")
+            if evt.get("done"):
+                done = evt
+                break
+            times.append(time.perf_counter())
+            toks.append(evt["token"])
+            lps.append(evt.get("logprob"))
+            if on_token is not None:
+                on_token(len(toks))
+    if done is None:
+        fail(f"fleet: a stream ended after {len(toks)} tokens without its "
+             "done frame")
+    return {"tokens": toks, "logprobs": lps, "token_times": times,
+            "ttft": times[0] - t0 if times else None,
+            "cached_tokens": done.get("cached_tokens", 0)}
+
+
+def sse_payloads(url: str, path: str, body: dict) -> list:
+    """An OpenAI stream's ``data:`` payloads, ids and timestamps aside."""
+    req = urllib.request.Request(
+        url + path, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    out = []
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                payload = line[len("data: "):]
+                evt = payload if payload == "[DONE]" else json.loads(payload)
+                if isinstance(evt, dict):
+                    evt = {k: v for k, v in evt.items()
+                           if k not in ("id", "created")}
+                out.append(evt)
+    return out
+
+
+def relayed(base: str) -> dict:
+    return {rid: r["relayed"] for rid, r in
+            get_json(base, "/fleet/health")["replicas"].items()}
+
+
+def picked(base: str, before: dict) -> str:
+    """The replica that served the one request since ``before``."""
+    after = relayed(base)
+    hit = [rid for rid in after if after[rid] > before[rid]]
+    if len(hit) != 1:
+        fail(f"fleet: expected one replica to serve the request: {before} "
+             f"-> {after}")
+    return hit[0]
+
+
+def fleet_counters(fleet) -> list:
+    return [(s.engine.cb.decode_steps, s.engine.cb.prefill_chunks)
+            for s in fleet.servers]
+
+
+def fleet_k1(run: str, kernel_support, rpa, fleet, c0: list,
+             n_layers: int) -> dict:
+    """K1's launches since the reset at ``c0``: one a layer for each
+    decode step and prefill chunk of either replica, all on the paged
+    route and the tensor cores, every decode launch split; and each
+    replica's share."""
+    per = {}
+    for i, ((s0, k0), (s1, k1)) in enumerate(zip(c0, fleet_counters(fleet))):
+        per[f"r{i}"] = {"decode_steps": s1 - s0, "prefill_chunks": k1 - k0,
+                        "k1_launches": n_layers * (s1 - s0 + k1 - k0)}
+    steps = sum(p["decode_steps"] for p in per.values())
+    chunks = sum(p["prefill_chunks"] for p in per.values())
+    out = route_launches(run, kernel_support, rpa, "paged", n_layers, steps,
+                         chunks)
+    split = kernel_support.launch_counts().get(rpa.SPLIT_KEY, 0)
+    if split != n_layers * steps:
+        fail(f"{run}: {split} split launches for {steps} decode steps")
+    return {**out, "split_launches": split, "per_replica": per}
+
+
+def same_stream(run: str, got: dict, want: dict) -> None:
+    if got["tokens"] != want["tokens"]:
+        fail(f"{run}: the stream differs at token "
+             f"{first_divergence(got['tokens'], want['tokens'])}")
+    if got["logprobs"] != want["logprobs"]:
+        fail(f"{run}: the logprobs differ")
+
+
+def fleet_route(kernel_support, rpa, cfg, fleet, base: str) -> dict:
+    """``fleet_route`` (affinity): four streams sharing a 512-token prefix
+    land on one replica and reuse its cache; they, a plain generate, a
+    streamed completion and an embedding equal the same requests sent
+    straight to the replica the router chose, bit for bit."""
+    run = "fleet_route"
+    vocab = cfg.vocab_size
+    prefix = fleet_ids(FLEET_PREFIX, SEED + 90, vocab)
+    tails = [fleet_ids(FLEET_TAIL, SEED + 91 + i, vocab) for i in range(5)]
+    bodies = [{"prompt": prefix + tails[i], "max_new": FLEET_NEW,
+               "logprobs": True, "stream": True,
+               **({"seed": 40 + i, "temperature": 0.8} if i % 2 else {})}
+              for i in range(4)]
+    c0 = fleet_counters(fleet)
+    kernel_support.reset_launch_counts()
+    hits0 = get_json(base, "/fleet/health")["router"]["affinity_hits"]
+    streams = []
+    for body in bodies:
+        before = relayed(base)
+        streams.append((body, fleet_stream(base, body), picked(base, before)))
+    homes = {at for _, _, at in streams}
+    if len(homes) != 1:
+        fail(f"{run}: the shared-prefix requests went to {homes}")
+    home = streams[0][2]
+    cached = [s["cached_tokens"] for _, s, _ in streams]
+    if any(c < FLEET_PREFIX for c in cached[1:]):
+        fail(f"{run}: cached_tokens {cached}: the second to fourth must "
+             f"reuse the {FLEET_PREFIX}-token prefix")
+    plain = {"prompt": prefix + tails[4], "max_new": FLEET_NEW,
+             "logprobs": True}
+    before = relayed(base)
+    plain_got = _post(base, plain)
+    plain_at = picked(base, before)
+    oai = {"prompt": fleet_ids(200, SEED + 96, vocab), "max_tokens": 16,
+           "stream": True, "logprobs": 1, "model": "tpu-serving"}
+    before = relayed(base)
+    oai_got = sse_payloads(base, "/v1/completions", oai)
+    oai_at = picked(base, before)
+    emb = json.dumps({"input": fleet_ids(64, SEED + 97, vocab),
+                      "model": "tpu-serving"}).encode()
+    before = relayed(base)
+    status, emb_got = _post_raw(base, "/v1/embeddings", emb)
+    emb_at = picked(base, before)
+    if status != 200:
+        fail(f"{run}: embeddings answered {status}: {emb_got[:200]!r}")
+    hits = get_json(base, "/fleet/health")["router"]["affinity_hits"] - hits0
+    # the same requests straight to the replica the router chose
+    gaps = {"routed": [], "direct": []}
+    for i, (body, got, at) in enumerate(streams):
+        want = fleet_stream(fleet.replica_base(int(at[1:])), body)
+        same_stream(f"{run} stream {i}", got, want)
+        for key, s in (("routed", got), ("direct", want)):
+            t = s["token_times"]
+            gaps[key].append((t[-1] - t[0]) / (len(t) - 1))
+    want = _post(fleet.replica_base(int(plain_at[1:])), plain)
+    same_stream(f"{run} plain", plain_got, want)
+    if sse_payloads(fleet.replica_base(int(oai_at[1:])), "/v1/completions",
+                    oai) != oai_got:
+        fail(f"{run}: the routed completion stream differs from direct")
+    status, emb_want = _post_raw(fleet.replica_base(int(emb_at[1:])),
+                                 "/v1/embeddings", emb)
+    a, b = json.loads(emb_got), json.loads(emb_want)
+    if (status != 200 or [d["embedding"] for d in a["data"]]
+            != [d["embedding"] for d in b["data"]] or a["usage"] != b["usage"]):
+        fail(f"{run}: the routed embedding differs from direct")
+    k2 = kernel_support.launch_counts().get("flash_fwd", 0)
+    if k2 != 2 * cfg.n_layers:  # one forward each way, one launch a layer
+        fail(f"{run}: {k2} flash_fwd launches for two embedding forwards")
+    k1 = fleet_k1(run, kernel_support, rpa, fleet, c0, cfg.n_layers)
+    row = {"phase": 4, "run": run, "home": home, "affinity_hits": hits,
+           "cached_tokens": cached, "plain_at": plain_at,
+           "completions_at": oai_at, "embeddings_at": emb_at,
+           "ttft_ms": [1e3 * s["ttft"] for _, s, _ in streams],
+           # the mean gap between token frames of each stream, through
+           # the router and straight to the replica (the hop's cost)
+           "inter_token_ms": {k: [1e3 * g for g in v]
+                              for k, v in gaps.items()},
+           "router_added_ms_per_token": 1e3 * (
+               sum(gaps["routed"]) - sum(gaps["direct"])) / len(streams),
+           "equal_to_direct": ["streams", "plain", "completions",
+                               "embeddings"],
+           "k1": k1, "k2_launches": k2}
+    emit(row)
+    return row
+
+
+def fleet_drain(kernel_support, rpa, cfg, fleet, base: str,
+                home: str) -> dict:
+    """``fleet_drain``: POST /fleet/drain/{home} while a stream runs there;
+    the stream finishes whole, new requests go to the other replica,
+    then undrain."""
+    run = "fleet_drain"
+    prefix = fleet_ids(FLEET_PREFIX, SEED + 90, cfg.vocab_size)
+    body = {"prompt": prefix + fleet_ids(FLEET_TAIL, SEED + 98,
+                                         cfg.vocab_size),
+            "max_new": FLEET_DRAIN_NEW}
+    c0 = fleet_counters(fleet)
+    kernel_support.reset_launch_counts()
+    drained = {}
+
+    def drain():
+        t0 = time.perf_counter()
+        drained["status"], raw = _post_raw(base, f"/fleet/drain/{home}", b"")
+        drained["answer"] = json.loads(raw)
+        drained["wall_s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=drain)
+    before = relayed(base)
+    got = fleet_stream(base, body,
+                       lambda n: th.start() if n == 1 else None)
+    th.join(300)
+    if picked(base, before) != home:
+        fail(f"{run}: the stream did not run on {home}")
+    if len(got["tokens"]) != FLEET_DRAIN_NEW:
+        fail(f"{run}: the drained replica's stream came back with "
+             f"{len(got['tokens'])} of {FLEET_DRAIN_NEW} tokens")
+    ans = drained.get("answer") or {}
+    if drained.get("status") != 200 or ans.get("drained") is not True:
+        fail(f"{run}: the drain answered {drained}")
+    spilled = []
+    for i in range(2):
+        before = relayed(base)
+        _post(base, {**body, "max_new": 8, "stream": False})
+        spilled.append(picked(base, before))
+    if home in spilled:
+        fail(f"{run}: a request reached the drained {home}: {spilled}")
+    status, _ = _post_raw(base, f"/fleet/undrain/{home}", b"")
+    if status != 200:
+        fail(f"{run}: undrain answered {status}")
+    row = {"phase": 4, "run": run, "replica": home,
+           "drain_seconds": ans["drain_seconds"],
+           "drain_wall_s": drained["wall_s"],
+           "stream_tokens": len(got["tokens"]), "spilled_to": spilled,
+           "k1": fleet_k1(run, kernel_support, rpa, fleet, c0,
+                          cfg.n_layers)}
+    emit(row)
+    return row
+
+
+def router_stats(base: str) -> dict:
+    return get_json(base, "/fleet/health")["router"]
+
+
+def last_timeline(base: str) -> dict:
+    return get_json(base, "/fleet/debug/requests")["requests"][0]
+
+
+def fleet_disagg(kernel_support, rpa, cfg, fleet, base: str,
+                 base2: str) -> dict:
+    """``fleet_disagg``: through the roled router (prefill on r0, decode
+    on r1), each stream equals the uninterrupted one on r1 bit for bit
+    and r1 makes no prefill chunk for it; then the same prompts,
+    colocated through the affinity router with cold caches, for TTFT."""
+    run = "fleet_disagg"
+    r1 = fleet.replica_base(1)
+    rows = []
+    for j, (plen, knobs) in enumerate(FLEET_DISAGG):
+        body = {"prompt": fleet_ids(plen, SEED + 100 + j, cfg.vocab_size),
+                "max_new": FLEET_NEW, "logprobs": True, **knobs}
+        want = fleet_stream(r1, body)
+        c0 = fleet_counters(fleet)
+        kernel_support.reset_launch_counts()
+        st0 = router_stats(base2)
+        got = fleet_stream(base2, body)
+        st1 = router_stats(base2)
+        name = f"{run}_{plen}_{'seeded' if knobs else 'greedy'}"
+        same_stream(name, got, want)
+        k1 = fleet_k1(name, kernel_support, rpa, fleet, c0, cfg.n_layers)
+        if k1["per_replica"]["r1"]["prefill_chunks"]:
+            fail(f"{name}: the decode replica made "
+                 f"{k1['per_replica']['r1']['prefill_chunks']} prefill "
+                 "chunks")
+        if st1["kv_transfers"].get("ok", 0) != \
+                st0["kv_transfers"].get("ok", 0) + 1:
+            fail(f"{name}: no KV transfer: {st1['kv_transfers']}")
+        tl = last_timeline(base2)
+        gaps = [b - a for a, b in zip(got["token_times"],
+                                      got["token_times"][1:])]
+        rows.append({"run": name, "prompt": plen, "knobs": knobs,
+                     "ttft_ms": 1e3 * got["ttft"],
+                     "pages": st1["kv_transferred_pages"]
+                     - st0["kv_transferred_pages"],
+                     "transfer_ms": st1["kv_transfer_ms"][-1],
+                     "transfer_gap_ms": tl["phases"].get("transfer_gap", 0)
+                     / 1e6,
+                     "max_token_gap_ms": 1e3 * max(gaps),
+                     "relays": tl["replicas"], "k1": k1})
+    outcomes = router_stats(base2)["kv_transfers"]
+    if outcomes != {"ok": len(FLEET_DISAGG)}:
+        fail(f"{run}: kv_transfers {outcomes}")
+    # the same prompts colocated: caches emptied first, so both are cold
+    for server in fleet.servers:
+        drain_prefix_cache(server)
+    for j, ((plen, knobs), row) in enumerate(zip(FLEET_DISAGG, rows)):
+        body = {"prompt": fleet_ids(plen, SEED + 100 + j, cfg.vocab_size),
+                "max_new": FLEET_NEW, "logprobs": True, **knobs}
+        colo = fleet_stream(base, body)
+        if colo["cached_tokens"]:
+            fail(f"{run}: the colocated run hit a cache")
+        row["colocated_ttft_ms"] = 1e3 * colo["ttft"]
+    out = {"phase": 4, "run": run, "roles": FLEET_ROLES,
+           "kv_transfers": outcomes, "hops": rows,
+           "k1_launches": sum(r["k1"]["launches"] for r in rows)}
+    emit(out)
+    return out
+
+
+def fleet_resume(kernel_support, rpa, batching, fleet_mod, cfg, fleet,
+                 base: str, base2: str) -> dict:
+    """``fleet_resume``: a greedy and a seeded stream of one 1024-token
+    prompt on r1 (its affinity home), r1 killed after 8 relayed tokens:
+    both finish on r0, all 48 tokens, none twice, their continuation a
+    direct resume of the same fold on r0 bit for bit (the first
+    divergence from the uninterrupted streams printed, not held: a
+    re-prefill resume is not bit for bit in bf16); then a disaggregated
+    request whose decode replica is the dead r1 falls back to a
+    re-prefill on r0, equal to a direct resume there."""
+    run = "fleet_resume"
+    ring = fleet_mod.HashRing(["r0", "r1"])
+    for k in range(1000):
+        prompt = fleet_ids(FLEET_RESUME_PROMPT, SEED + 200 + k,
+                           cfg.vocab_size)
+        key = fleet_mod.affinity_key(prompt, batching.DEFAULT_PROMPT_BUCKETS)
+        if ring.candidates(key)[0] == "r1":
+            break
+    bodies = {"greedy": {"prompt": prompt, "max_new": FLEET_RESUME_NEW,
+                         "logprobs": True},
+              "seeded": {"prompt": prompt, "max_new": FLEET_RESUME_NEW,
+                         "logprobs": True, "seed": 31, "temperature": 0.8}}
+
+    def both(on_token=None):
+        got, errors = {}, []
+
+        def one(name):
+            try:
+                got[name] = fleet_stream(
+                    base, bodies[name],
+                    (lambda n: on_token(name, n)) if on_token else None)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(f"{name}: {e}")
+
+        threads = [threading.Thread(target=one, args=(n,)) for n in bodies]
+        for th in threads:
+            th.start()
+        return got, errors, threads
+
+    before = relayed(base)
+    want, errors, threads = both()
+    for th in threads:
+        th.join(900)
+    after = relayed(base)
+    if errors or after["r1"] - before["r1"] != 2:
+        fail(f"{run}: the uninterrupted streams {errors}, {before} -> "
+             f"{after}")
+    # r0's submissions: the fold each resume brought (its resume_out)
+    engine = fleet.servers[0].engine
+    submitted = []
+    submit = engine.submit
+
+    def recording(prompt, max_new, **kw):
+        submitted.append((kw.get("seed"), list(kw.get("resume_out") or ())))
+        return submit(prompt, max_new, **kw)
+
+    engine.submit = recording
+    try:
+        c0 = fleet_counters(fleet)
+        kernel_support.reset_launch_counts()
+        at_kill = threading.Event()
+        got, errors, threads = both(
+            lambda name, n: at_kill.set()
+            if name == "greedy" and n == FLEET_KILL_AT else None)
+        if not at_kill.wait(300):
+            fail(f"{run}: the greedy stream never reached {FLEET_KILL_AT} "
+                 "tokens")
+        t_kill = time.perf_counter()
+        fleet.kill(1)
+        kill_s = time.perf_counter() - t_kill
+        for th in threads:
+            th.join(900)
+        if errors:
+            fail(f"{run}: {errors}")
+        k1 = fleet_k1(run, kernel_support, rpa, fleet, c0, cfg.n_layers)
+        folds = {("seeded" if seed is not None else "greedy"): out
+                 for seed, out in submitted if out}
+        if set(folds) != set(bodies):
+            fail(f"{run}: r0 took the resumes {submitted}")
+        rows = {}
+        for name, body in bodies.items():
+            s, k = got[name], len(folds[name])
+            if len(s["tokens"]) != FLEET_RESUME_NEW:
+                fail(f"{run} {name}: {len(s['tokens'])} tokens, expected "
+                     f"{FLEET_RESUME_NEW}")
+            if folds[name] != s["tokens"][:k]:
+                fail(f"{run} {name}: the resume folded {folds[name]}, not "
+                     "the tokens the client had")
+            if s["tokens"][:k] != want[name]["tokens"][:k]:
+                fail(f"{run} {name}: the tokens before the kill differ "
+                     "from the uninterrupted run's")
+            direct = fleet_stream(fleet.replica_base(0), {
+                **body, "resume_out": s["tokens"][:k],
+                "resume_logprobs": s["logprobs"][:k]})
+            same_stream(f"{run} {name} continuation",
+                        {"tokens": s["tokens"][k:],
+                         "logprobs": s["logprobs"][k:]}, direct)
+            t = s["token_times"]
+            rows[name] = {
+                "tokens": len(s["tokens"]), "tokens_at_death": k,
+                # the client's stall across the death: the re-prefill
+                # of the fold on r0 and its first token
+                "max_token_gap_ms": 1e3 * max(
+                    b - a for a, b in zip(t, t[1:])),
+                "first_divergence_from_uninterrupted": first_divergence(
+                    s["tokens"], want[name]["tokens"]),
+                "continuation_equals_direct_resume": True}
+        if k1["per_replica"]["r0"]["prefill_chunks"] < 2:
+            fail(f"{run}: r0 re-prefilled {k1['per_replica']} chunks")
+        events = get_json(base, "/fleet/events")["events"]
+        resumes = [e for e in events if e["kind"] == "stream_resume"]
+        if [(e["source"], e["target"]) for e in resumes] != \
+                [("r1", "r0")] * len(bodies):
+            fail(f"{run}: stream_resume events {resumes}")
+        stats = router_stats(base)
+        if stats["fleet_budget"]["charged_total"] != 1 or \
+                stats["resumes"] != len(bodies):
+            fail(f"{run}: one death, {len(bodies)} resumes expected: "
+                 f"{stats['fleet_budget']}, resumes {stats['resumes']}")
+        gaps = [r["resume_gap_ns"] / 1e6 for r in get_json(
+            base, "/fleet/debug/requests")["retained_requests"]
+            if r["resumes"]]
+        for url in (base, base2):  # both routers see r1 dead
+            t0 = time.perf_counter()
+            while get_json(url, "/fleet/health")["replicas"]["r1"]["alive"]:
+                if time.perf_counter() - t0 > 30:
+                    fail(f"{run}: {url} still shows r1 alive")
+                time.sleep(0.05)
+        out = {"phase": 4, "run": run, "killed": "r1", "survivor": "r0",
+               "kill_s": kill_s, "streams": rows,
+               "stream_resume_events": len(resumes),
+               "fleet_budget": stats["fleet_budget"],
+               "resume_gap_ms": gaps, "k1": k1}
+        # the fallback: a disaggregated request whose decode replica is
+        # the dead r1 re-prefills on r0
+        submitted.clear()
+        c0 = fleet_counters(fleet)
+        kernel_support.reset_launch_counts()
+        st0 = router_stats(base2)
+        body = {"prompt": fleet_ids(FLEET_PREFIX, SEED + 300,
+                                    cfg.vocab_size),
+                "max_new": FLEET_NEW, "logprobs": True}
+        got = fleet_stream(base2, body)
+        st1 = router_stats(base2)
+        fb = {k: st1["kv_transfers"].get(k, 0) - st0["kv_transfers"].get(k, 0)
+              for k in ("ok", "fallback")}
+        if fb != {"ok": 0, "fallback": 1} or \
+                st1["fleet_budget"]["charged_total"] != 0:
+            fail(f"{run} fallback: transfers {fb}, budget "
+                 f"{st1['fleet_budget']}")
+        resumed = [o for _, o in submitted if o]
+        if len(got["tokens"]) != FLEET_NEW or len(resumed) != 1:
+            fail(f"{run} fallback: {len(got['tokens'])} tokens, r0's "
+                 f"resubmissions {submitted}")
+        k = len(resumed[0])
+        direct = fleet_stream(fleet.replica_base(0), {
+            **body, "resume_out": got["tokens"][:k],
+            "resume_logprobs": got["logprobs"][:k]})
+        same_stream(f"{run} fallback continuation",
+                    {"tokens": got["tokens"][k:],
+                     "logprobs": got["logprobs"][k:]}, direct)
+        out["fallback"] = {
+            "kv_transfers": fb, "tokens_at_transfer": k,
+            "charged_total": st1["fleet_budget"]["charged_total"],
+            "continuation_equals_direct_resume": True,
+            "k1": fleet_k1(f"{run}_fallback", kernel_support, rpa, fleet,
+                           c0, cfg.n_layers)}
+    finally:
+        engine.submit = submit
+    emit(out)
+    return out
+
+
+def phase_fleet(torch, server_mod, batching, kernel_support, rpa, cfg,
+                params) -> dict:
+    """The replica router on the card: two servers sharing the 8B
+    weights (``--replicaId r0`` / ``r1``, paged pools, the prefix cache
+    on, embeddings) behind the port's router, then ``fleet_route``,
+    ``fleet_drain``, ``fleet_disagg`` (a second, roled router) and
+    ``fleet_resume`` (last: a killed server is not restarted)."""
+    from k8s_gpu_device_plugin_torch.serving import fleet as fleet_mod
+    from k8s_gpu_device_plugin_torch.serving import testing
+
+    t0 = time.perf_counter()
+    servers = []
+    for i in range(2):
+        args = server_mod.build_parser().parse_args([
+            *FLEET_ARGS, "--replicaId", f"r{i}", "--host", "127.0.0.1",
+            "--port", "0", "--seed", str(SEED)])
+        servers.append(server_mod.build_server(args, params=params))
+    fleet = testing.InprocessFleet(servers)
+    fleet.start()
+    loop = LoopThread()
+    try:
+        loop.call(fleet.add_router(policy="affinity",
+                                   health_interval_s=FLEET_HEALTH_S))
+        base = fleet.base
+        router2 = loop.call(fleet.add_router(
+            policy="affinity", roles=FLEET_ROLES, disagg_min_prompt=64,
+            health_interval_s=FLEET_HEALTH_S))
+        base2 = f"http://127.0.0.1:{router2.bound_port}"
+        for url in (base, base2):  # both pollers have seen both replicas
+            t1 = time.perf_counter()
+            while {r["reported_id"] for r in get_json(
+                    url, "/fleet/health")["replicas"].values()} != \
+                    {"r0", "r1"}:
+                if time.perf_counter() - t1 > 60:
+                    fail(f"fleet: {url} never saw both replicas' ids")
+                time.sleep(0.05)
+        t_start = time.perf_counter()
+        route = fleet_route(kernel_support, rpa, cfg, fleet, base)
+        drain = fleet_drain(kernel_support, rpa, cfg, fleet, base,
+                            route["home"])
+        disagg = fleet_disagg(kernel_support, rpa, cfg, fleet, base, base2)
+        resume = fleet_resume(kernel_support, rpa, batching, fleet_mod, cfg,
+                              fleet, base, base2)
+        runs_s = time.perf_counter() - t_start
+        for i, server in enumerate(servers):
+            if i not in fleet.killed:
+                drain_prefix_cache(server)
+                server.engine.cb.pool.check()
+    finally:
+        loop.call(fleet.close_routers())
+        loop.close()
+        fleet.stop()
+    del servers, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"fleet_route": route["k1"]["launches"],
+                "fleet_drain": drain["k1"]["launches"],
+                "fleet_disagg": disagg["k1_launches"],
+                "fleet_resume": resume["k1"]["launches"],
+                "fleet_fallback": resume["fallback"]["k1"]["launches"]}
+    summary = {
+        "phase": 4, "run": "fleet", "card": card_line(),
+        "wall_s": time.perf_counter() - t0, "runs_s": runs_s,
+        "affinity_hits": route["affinity_hits"],
+        "router_added_ms_per_token": route["router_added_ms_per_token"],
+        "drain_seconds": drain["drain_seconds"],
+        "kv_transfers": disagg["kv_transfers"],
+        "ttft_ms": {h["run"]: {"disaggregated": h["ttft_ms"],
+                               "colocated": h["colocated_ttft_ms"]}
+                    for h in disagg["hops"]},
+        "transfer_ms": {h["run"]: h["transfer_ms"] for h in disagg["hops"]},
+        "pages": {h["run"]: h["pages"] for h in disagg["hops"]},
+        "resume_gap_ms": resume["resume_gap_ms"],
+        "k1_launches": launches, "k1_route": "paged",
+        "k2_launches": route["k2_launches"]}
+    emit(summary)
+    return summary
+
+
 SERVE_SEQS = (64, 256, 1024)
 
 
@@ -6015,6 +6654,11 @@ def main() -> None:
     # from its shipped pages, then int8 and int4 pools at batcher level
     kv = phase_kv(torch, server_mod, batching, kernel_support, rpa, cfg,
                   params)
+    # the fleet tier: two servers behind the port's replica router
+    # (affinity, drain, the disaggregated relay over KV pages, a killed
+    # replica's streams resumed)
+    fleet_runs = phase_fleet(torch, server_mod, batching, kernel_support,
+                             rpa, cfg, params)
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -6093,7 +6737,8 @@ def main() -> None:
         + sum(spec[run]["launches"] for run in spec_runs)
         + preempt["launches"] + surface["launches"][rpa.NAME]
         + obs["summary"]["launches"] + lora_runs["k1_launches"]["total"]
-        + moe["k1_launches"] + kv["summary"]["k1_launches"],
+        + moe["k1_launches"] + kv["summary"]["k1_launches"]
+        + sum(fleet_runs["k1_launches"].values()),
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -6135,6 +6780,11 @@ def main() -> None:
              "launches": kv["summary"]["k1_launches"],
              "install_chunks": kv["summary"]["install_chunks"],
              "reprefill_chunks": kv["summary"]["reprefill_chunks"]},
+         # the fleet runs behind the replica router, all on the paged
+         # route: every chunk and split decode step of either replica
+         "fleet": {"route": fleet_runs["k1_route"],
+                   "launches": sum(fleet_runs["k1_launches"].values()),
+                   "by_run": fleet_runs["k1_launches"]},
          "moe": {"launches": moe["summary"]["k1_launches"],
                  "decode_step_ms_mean": moe["summary"]["decode_step_ms_mean"],
                  "decode_graph_pool_bytes":
@@ -6191,8 +6841,8 @@ def main() -> None:
         errs = {f"max_err_{dn}": max(c["max_abs_err"][o] for c in flash
                                      for o in outs if c["dtype"] == dn)
                 for dn in ("bfloat16", "float32")}
-        served = surface["launches"]["flash_fwd"] + moe["k2_launches"] \
-            if name == "flash_fwd" else 0
+        served = (surface["launches"]["flash_fwd"] + moe["k2_launches"]
+                  + fleet_runs["k2_launches"]) if name == "flash_fwd" else 0
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
@@ -6211,7 +6861,10 @@ def main() -> None:
              # every short scored prompt and embedding) and the MoE
              # forward check's (Mixtral's width, f32, CUDA cores)
              "launches_training": training["launches"].get(name, 0),
-             "launches_surface": served - moe["k2_launches"]
+             "launches_surface": surface["launches"]["flash_fwd"]
+             if name == "flash_fwd" else 0,
+             # the embedding through the replica router and direct
+             "launches_fleet": fleet_runs["k2_launches"]
              if name == "flash_fwd" else 0,
              "launches_moe_forward": moe["k2_launches"]
              if name == "flash_fwd" else 0,

@@ -12,7 +12,10 @@ The port's copy of ``k8s_gpu_device_plugin_tpu/obs/``:
 - ``attribution.py`` — per-request latency attribution (phase
   timelines that sum exactly to each request's wall time) and the
   tail-latency flight recorder (``GET /debug/slow``);
-- ``http.py``   — the ``/debug/traces`` query parser and payloads.
+- ``http.py``   — the ``/debug/traces`` query parser and payloads;
+- ``fleet_obs.py`` — the replica router's event journal, request
+  timelines and flight recorder (``serving/router.py``; nothing of it is
+  re-exported here, as in the reference).
 
 ``utils/log.py`` stamps the active ``trace_id``/``span_id`` on every JSON
 record. Off by default: every instrumentation site is behind one

@@ -37,11 +37,15 @@ def is_observation_path(path: str) -> bool:
     )
 
 
-def parse_trace_query(query) -> tuple["int | None", "int | None"]:
-    """``?limit=``/``?since=`` parsing for the trace endpoint: ``limit``
-    caps the page, ``since`` returns only entries past the cursor (the
-    incremental-poll idiom). ``query`` maps a name to its value. Raises
-    ValueError on malformed values (the server answers 400)."""
+def parse_trace_query(query, since_desc: str = "start_us timestamp",
+                      ) -> tuple["int | None", "int | None"]:
+    """``?limit=``/``?since=`` parsing for the trace endpoints and the
+    router's fleet event journal: ``limit`` caps the page, ``since``
+    returns only entries past the cursor (the incremental-poll idiom).
+    ``query`` maps a name to its value; ``since_desc`` names the cursor's
+    unit in the error (``start_us`` on the trace planes, an event ``seq``
+    on the journal). Raises ValueError on malformed values (the server
+    answers 400)."""
     limit = since = None
     raw = query.get("limit")
     if raw is not None:
@@ -58,7 +62,7 @@ def parse_trace_query(query) -> tuple["int | None", "int | None"]:
             since = int(raw)
         except ValueError:
             raise ValueError(
-                f"since must be an integer start_us timestamp, got {raw!r}"
+                f"since must be an integer {since_desc}, got {raw!r}"
             ) from None
     return limit, since
 

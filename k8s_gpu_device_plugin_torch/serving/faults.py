@@ -25,8 +25,13 @@ Fault points (the seams they live at):
                     retries next pass
 ``health.handler``  ``GET /v1/health``: answers 500, a live socket over a
                     lying health surface
-``router.connect``  the router's dispatch (no consumer in the port yet)
-``router.midstream``  the router's SSE relay (no consumer in the port yet)
+``router.connect``  the replica router's dispatch (``serving/router.py``
+                    ``_open_attempt``): a fired fault reads as a
+                    connection failure, the request fails over to the
+                    next ring candidate
+``router.midstream``  the replica router's SSE relay (``_pump_sse``,
+                    once per relayed frame): a journaled stream resumes
+                    on another replica, any other ends visibly cut
 ==================  ====================================================
 
 Schedules (per point, all deterministic):

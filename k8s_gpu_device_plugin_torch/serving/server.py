@@ -81,7 +81,10 @@ Wire contract (the reference's):
   (``attribution``), both absent with ``--attributionOff``, and with
   adapters served their residency (``adapters``: mode, registered and
   resident adapters and bytes, uploads and their p99, evictions,
-  misses, gathers, slot copies, deferrals by reason).
+  misses, gathers, slot copies, deferrals by reason); and the fleet
+  identity the replica router (``serving/router.py``) keys on:
+  ``replica_id`` (``--replicaId``, or hostname:port) and ``uptime_s``
+  (its reset tells a new process behind the same address).
 - Observability: ``GET /metrics`` (the classic Prometheus text, or
   OpenMetrics with trace-id exemplars when the client's ``Accept`` asks
   for ``application/openmetrics-text``; the families of
@@ -178,9 +181,11 @@ import collections
 import concurrent.futures
 import json
 import queue
+import socket
 import statistics
 import sys
 import threading
+import time
 from dataclasses import replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
@@ -1036,7 +1041,8 @@ class _Handler(BaseHTTPRequestHandler):
         # does, the engine's submit included
         with tracer.span(f"{self.command} {route_label(self)}",
                          component="serving_http", parent=remote,
-                         method=self.command, path=path) as span:
+                         method=self.command, path=path,
+                         replica=self.server.replica_label()) as span:
             self._span = span
             try:
                 self._dispatch(hit)
@@ -1076,6 +1082,11 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(500, {"error": str(e)})
                 return
         stats = self.server.engine.stats()
+        # fleet identity and age: the replica router tells replicas apart
+        # by the id and a restart by uptime_s resetting (a new process
+        # behind the same address)
+        stats["replica_id"] = self.server.replica_label()
+        stats["uptime_s"] = round(time.monotonic() - self.server.t_start, 3)
         self._json(200 if stats["alive"] else 503, stats)
 
     def metrics(self) -> None:
@@ -1323,7 +1334,10 @@ class InferenceServer(ThreadingHTTPServer):
     (the ``ServingMetrics`` on it) and ``span_metrics`` (``--tracing``'s
     span histograms, installed on the process tracer) are released by
     :meth:`stop`, which also turns the tracer off when ``span_metrics``
-    says this server turned it on."""
+    says this server turned it on.
+
+    ``replica_id`` is the server's fleet identity (``--replicaId``; empty
+    defaults to hostname:port, see :meth:`replica_label`)."""
 
     daemon_threads = True
     # the listen backlog: a burst of clients connecting at once must queue,
@@ -1335,9 +1349,12 @@ class InferenceServer(ThreadingHTTPServer):
                  embedder=None, scorer=None,
                  registry: "Registry | None" = None,
                  metrics: "ServingMetrics | None" = None,
-                 span_metrics: "SpanMetrics | None" = None):
+                 span_metrics: "SpanMetrics | None" = None,
+                 replica_id: str = ""):
         super().__init__((host, port), _Handler)
         self.engine = engine
+        self.replica_id = replica_id
+        self.t_start = time.monotonic()
         self.registry = registry if registry is not None else Registry()
         self.metrics = metrics
         self.span_metrics = span_metrics
@@ -1347,7 +1364,17 @@ class InferenceServer(ThreadingHTTPServer):
         self.flt_health = (faults.point("health.handler")
                            if faults is not None else None)
         self.bound_port = self.server_address[1]
+        # bound at construction, so the label is stable from here on
+        self._replica_label = (replica_id or
+                               f"{socket.gethostname()}:{self.bound_port}")
         self._thread: "threading.Thread | None" = None
+
+    def replica_label(self) -> str:
+        """This replica's stable fleet identity: ``replica_id``, or
+        hostname:port once bound. The id ``/v1/health`` reports, the
+        router's registry keys on, and every ``serving_http`` span
+        carries as its ``replica`` attribute."""
+        return self._replica_label
 
     @property
     def adapter_names(self) -> tuple:
@@ -1601,6 +1628,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "schedules, e.g. 'decode.apply:nth=40,pool.alloc:"
                         "p=0.25:seed=3:times=6'; also read from "
                         "TPU_SERVING_FAULTS; empty = disarmed")
+    parser.add_argument("--replicaId", default="",
+                        help="stable fleet identity reported on "
+                        "/v1/health (serving/router.py's registry and "
+                        "dashboards key on it); empty = hostname:port")
     parser.add_argument("--tracing", action="store_true",
                         help="span tracing (obs/): request span trees on "
                         "GET /debug/traces, trace ids in JSON logs, span-"
@@ -1789,7 +1820,8 @@ def build_server(args: argparse.Namespace,
                            faults=faults, tokenizer=tokenizer,
                            embedder=embedder, scorer=scorer,
                            registry=registry, metrics=metrics,
-                           span_metrics=span_metrics)
+                           span_metrics=span_metrics,
+                           replica_id=args.replicaId)
 
 
 def _main(argv: "list[str] | None" = None) -> int:

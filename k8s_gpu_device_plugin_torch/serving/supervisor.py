@@ -42,8 +42,6 @@ from __future__ import annotations
 import gc
 import time
 
-import torch
-
 from k8s_gpu_device_plugin_torch.obs.trace import get_tracer
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
@@ -75,6 +73,12 @@ class RollingBudget:
     def record(self) -> None:
         """Charge one event against the window."""
         self._times.append(time.monotonic())
+
+    def used(self) -> int:
+        """Events charged inside the current window (prunes it)."""
+        now = time.monotonic()
+        self._times = [t for t in self._times if now - t < self.window_s]
+        return len(self._times)
 
 
 class StreamError:
@@ -164,6 +168,10 @@ class EngineSupervisor:
     def recover(self, engine) -> None:
         """Rebuild ``engine.cb`` in place and resume its work. Raises if
         the rebuild itself fails (the caller then degrades to dead)."""
+        # imported here: the replica router takes RollingBudget from this
+        # module and imports no torch
+        import torch
+
         old = engine.cb
         if old.device.type == "cuda":
             # the crashed step's replay (and any copy behind it) finishes

@@ -1,4 +1,8 @@
-"""Two port replicas behind the reference's replica router, in-process.
+"""Two port replicas behind the REFERENCE's replica router, in-process: a
+cross-package pin that the port's replicas speak the reference router's
+wire. The port's own router (``serving/router.py``) has its tests beside
+this one: ``tests/test_torch_router*.py`` and
+``tests/test_torch_fleet_obs.py``.
 
 The port's ``InferenceServer`` (``device="cpu"``, port 0) twice, on one
 set of tiny f32 weights, behind ``serving/router.py::ReplicaRouter`` of

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of the JAX package, no
 ``prometheus_client`` or ``aiohttp`` (the card's machine has neither: the
-port keeps its own registry and ``http.server`` handler), no silent CPU
-fallback."""
+port keeps its own registry, its ``http.server`` handler and, for the
+replica router, ``serving/async_http.py``), no silent CPU fallback."""
 
 import ast
 import os
@@ -63,6 +63,10 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.serving.embeddings\n"
         "import k8s_gpu_device_plugin_torch.serving.scoring\n"
         "import k8s_gpu_device_plugin_torch.serving.openai_api\n"
+        "import k8s_gpu_device_plugin_torch.serving.fleet\n"
+        "import k8s_gpu_device_plugin_torch.serving.async_http\n"
+        "import k8s_gpu_device_plugin_torch.serving.router\n"
+        "import k8s_gpu_device_plugin_torch.serving.testing\n"
         "import k8s_gpu_device_plugin_torch.models.batching\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"
@@ -81,6 +85,7 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.obs\n"
         "import k8s_gpu_device_plugin_torch.obs.attribution\n"
         "import k8s_gpu_device_plugin_torch.obs.export\n"
+        "import k8s_gpu_device_plugin_torch.obs.fleet_obs\n"
         "import k8s_gpu_device_plugin_torch.obs.http\n"
         "import k8s_gpu_device_plugin_torch.obs.prom\n"
         "import k8s_gpu_device_plugin_torch.metrics.exposition\n"
