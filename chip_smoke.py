@@ -36,7 +36,10 @@ Phases (any failed check exits non-zero without the final line):
    filled with large finite garbage, and the entries of tiles below the
    floor's tile at a page of NaN, must leave o bit for bit as it was (NaN
    inside the floor's tile is reported: the batcher resets recycled
-   entries to the trap page for that reason). Every bf16 case runs on the
+   entries to the trap page for that reason); and the batch-1 decode
+   modes' shapes, bf16: beam search's decode at B 4 over its 544-row
+   cache (every row at base 542) and rolling decode's one windowed
+   prefill, T 4160 from base 0 at W 4096. Every bf16 case runs on the
    tensor cores (decode split over
    each slot's span, ``SPLIT_TILES`` kv tiles a block), f32 on the CUDA
    cores: each launch must be counted on its engine, and two launches on
@@ -112,7 +115,17 @@ Phases (any failed check exits non-zero without the final line):
    while both decode, every launch on the paged route and the tensor
    cores, and the tokens of the dense twin (3 GiB of cache); the
    full-causal twin of the pool refuses the 12,000-token request at
-   ``validate``.
+   ``validate``. Then the rolling ring-cache decode on the same weights
+   (``rolling_*``, ``phase_rolling``): ``rolling_generate`` on a
+   4160-token prompt (past the window), 64 tokens, against the unbounded
+   windowed ``generate``, each step's logits recorded on both paths: the
+   first token equal (the same prefill), the ring holding W rows against
+   the unbounded cache's P + 64 (both caches' bytes), K1 launched once a
+   layer by the ring (the windowed chunk route at T 4160) against the
+   unbounded run's prefill and decode steps; in bf16 the step where the
+   streams part and the largest logit gap while they agree are reported
+   (the ring's softmax is a plain one, K1's an online one); a 2-layer
+   f32 copy at the same width must give the same 64 tokens.
    Then speculative decoding (the same 8B weights). ``spec_self``: the
    server with ``--draftPreset llama3_8b --gamma 4`` (a self-draft
    sharing the target's tensors) on phase 4's six requests, all asking
@@ -212,22 +225,22 @@ Phases (any failed check exits non-zero without the final line):
    host, each run's store a fork of that registry. ``lora_step``: the
    decode step with eight distinct adapters live against the same step
    with none (host clock, graph replay by CUDA events, kernels a step).
-   ``lora_mix``: 48 requests (12 on the base model, the others' adapters
-   drawn Zipf-like, s = 1) through the server with ``--adapterCacheMB
-   960`` (12 resident), at once and then as Poisson arrivals at 1.2x
-   that rate: every budget delivered, both passes' streams equal, K1's
-   launches exactly the passes' steps and chunks (all on the tensor
-   cores), every decode step a replay, misses, uploads past the warm
+   ``lora_mix``: 48 requests of 64 tokens each (12 on the base model, the
+   others' adapters drawn Zipf-like, s = 1) through the server with
+   ``--adapterCacheMB 960`` (12 resident), at once and then as Poisson
+   arrivals at 1.2x that rate: every budget delivered, both passes' streams
+   equal, K1's launches exactly the passes' steps and chunks (all on the
+   tensor cores), every decode step a replay, misses, uploads past the warm
    set, evictions and ``adapter_miss`` deferrals above zero, the engine's
    steps timed with an upload in flight or not; the first LORA_SOLO (5)
-   distinct first requests (adapter or base) alone on the same server
-   equal to their streams, bit for bit; a server without
-   adapters on the same requests: its base streams equal, its decode
-   step beside the adapters'. ``lora_dense``: four adapters in dense-N
+   distinct first requests (adapter or base) alone on the same server equal
+   to their streams, bit for bit; a server without adapters on the same
+   requests: its base streams equal, its decode step beside the adapters'.
+   ``lora_dense``: four adapters in dense-N
    mode and gathered (K 8 and K 2, which defers on ``adapter_slots``) at
    depth 0 and 1, bit for bit. ``lora_oracle``: each of the four against
    a server of ``merge_lora`` weights (bf16: reported up to the first
-   divergence, with both paths' logit gaps there) and an 8-layer f32
+   divergence, with both paths' logit gaps there) and a 4-layer f32
    twin at batcher level (tokens equal, logprobs within 1e-3).
    ``lora_compose``: adapters on the paged int8 pool (equal to the dense
    int8 cache bit for bit) and on ``--weightQuant int8``, reported
@@ -294,7 +307,23 @@ Phases (any failed check exits non-zero without the final line):
    charge, one ``stream_resume`` event a stream; then a disaggregated
    request whose decode replica is the dead r1 falls back to a
    re-prefill on r0, equal to a direct resume there, counted as a
-   ``fallback`` and not charged. Then, after
+   ``fallback`` and not charged. The fleet servers run ``--tracing``:
+   before the kill ``fleet_trace`` streams one request through the
+   router and fetches its stitched ``/fleet/debug/traces/{id}`` (a router
+   track and the serving replica's, no orphan, no unreachable replica)
+   and ``fleet_metrics`` scrapes ``/fleet/metrics`` classic and
+   OpenMetrics (well formed, every ``gpu_serving_*`` series under its
+   replica's label, ``gpu_fleet_replicas`` 2, the summed TTFT histogram
+   the replicas' sum); after it a second traced stream's document names
+   r1 unreachable and federation counts it in
+   ``gpu_fleet_scrape_errors``. Then beam search
+   on the same weights (``beam_*``, ``phase_beam``): beam 1 equal to
+   ``generate``'s greedy tokens bit for bit, then beam 4 on a 512-token
+   prompt, 32 tokens (K1's split decode at B 4, one prefill), every
+   score within BEAM_BF16_TOL a token of its sequence's log-probability
+   under the full-context forward (K2), the rows distinct and sorted;
+   the same on a 2-layer f32 copy within BEAM_F32_TOL; wall time, K1
+   and K2 launches, peak memory. Then, after
    the 8B weights are freed and before the windowed Mistral-7B runs,
    Mixture-of-Experts (``moe_*``, ``phase_moe``): ``moe_model``,
    Mixtral-8x7B at its full width and 2 of its 32 layers
@@ -316,8 +345,8 @@ Phases (any failed check exits non-zero without the final line):
    ``flash_bwd_dq``) against their plain versions at the shapes phase 6
    gives them (B 2, S 2048, Hq 32, Hkv 8, hd 128, causal), a window-512
    case, an hd-64 group-1 case, and the serving surface's B 1 forwards
-   at S 64, 256 and 1024 (the padded scoring and embedding buckets),
-   each in bf16 (the tensor cores) and
+   at S 64, 256 and 1024 (the padded scoring and embedding buckets), and
+   beam search's check, B 4 at S 576, each in bf16 (the tensor cores) and
    f32 (the CUDA cores; each launch counted on its engine, two launches
    of each kernel equal bit for bit): max errors of o, dq, dk, dv (bf16:
    against the plain versions that round p, and dS, where the kernels
@@ -348,10 +377,11 @@ Phases (any failed check exits non-zero without the final line):
    round's time and acceptance, the preemption runs' launches with
    the page-relief and arrival summaries, the surface run's launches
    with phase 2's T 512 scoring case, the lora runs', the KV transfer
-   runs', the fleet runs' (by run, the paged route) and the moe runs';
+   runs', the fleet runs' (by run, the paged route), the beam and
+   rolling runs' with phase 2's cases at their shapes, and the moe runs';
    K2's entry counts the trainer's launches, the surface run's, the
-   fleet's embeddings and the MoE forward check's, and lists its B 1
-   serving cases).
+   fleet's embeddings, the MoE forward check's and the beam check's, and
+   lists its B 1 serving cases).
 8. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -371,6 +401,7 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 SEED = 0
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
@@ -417,6 +448,10 @@ def fail(message: str) -> None:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the script
+    started (the command's time budget, part by part)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -583,6 +618,19 @@ def kernel_cases():
                           route=route, ps=ps, dtypes=("bfloat16",),
                           stale_check=ps == 16, hq=32, hkv=8, hd=128,
                           s=8192))
+    # the batch-1 decode modes at Llama-3-8B's / Mistral-7B's heads, bf16:
+    # beam search's last decode step (B = beam, every row at one base,
+    # over the (prompt + max_new)-row cache), and rolling decode's one
+    # prefill of the whole prompt, past the window
+    cases += [
+        dict(name=f"decode_beam{BEAM_WIDTH}", b=BEAM_WIDTH, t=1,
+             bases=[BEAM_PROMPT + BEAM_NEW - 2] * BEAM_WIDTH, window=0,
+             route="dense", ps=0, dtypes=("bfloat16",), hq=32, hkv=8,
+             hd=128, s=BEAM_PROMPT + BEAM_NEW),
+        dict(name=f"prefill_t{ROLLING_PROMPT}_w{MISTRAL_WINDOW}", b=1,
+             t=ROLLING_PROMPT, bases=[0], window=MISTRAL_WINDOW,
+             route="dense", ps=0, dtypes=("bfloat16",), hq=32, hkv=8,
+             hd=128, s=ROLLING_PROMPT)]
     return cases
 
 
@@ -3281,8 +3329,8 @@ def get_json(url: str, path: str) -> dict:
         return json.loads(resp.read())
 
 
-def scrape(url: str, openmetrics: bool) -> str:
-    req = urllib.request.Request(url + "/metrics", headers={
+def scrape(url: str, openmetrics: bool, path: str = "/metrics") -> str:
+    req = urllib.request.Request(url + path, headers={
         "Accept": "application/openmetrics-text; version=1.0.0"}
         if openmetrics else {})
     with urllib.request.urlopen(req, timeout=60) as resp:
@@ -3858,14 +3906,15 @@ def phase_moe(torch, server_mod, batching, sampling, generate, llama,
 
 
 def phase_window(torch, server_mod, kernel_support, rpa, batching,
-                 llama) -> dict:
+                 llama, generate) -> dict:
     """Mistral-7B served windowed (W 4096) from a page pool too small for
     the full reservation of its 12,256-token request (192 pages of the
     179): both requests served with at most 164 pages in use at once and
     pages recycled out of the window, every K1 launch on the paged route
     and the tensor cores, and the tokens of a dense twin (3 GiB of
     cache). The full-causal twin of the same pool refuses the request at
-    ``validate``, running no weights."""
+    ``validate``, running no weights. Then the rolling decode on the same
+    weights (``phase_rolling``)."""
     import numpy as np
 
     cfg = llama.LlamaConfig.mistral_7b()
@@ -3958,9 +4007,268 @@ def phase_window(torch, server_mod, kernel_support, rpa, batching,
         gc.collect()
         torch.cuda.empty_cache()
     out["window_relief"] = window_relief(torch, batching, cfg, params)
+    out["rolling"] = phase_rolling(torch, generate, kernel_support, rpa, cfg,
+                                   params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# --- the batch-1 decode modes ------------------------------------------------
+
+# beam search on the 8B bf16 weights (K1's split decode at B = beam; K2
+# in the check's full-context forward), then on a 2-layer f32 copy
+BEAM_WIDTH, BEAM_PROMPT, BEAM_NEW = 4, 512, 32
+BEAM_BF16_TOL = 0.05     # bf16: nats a generated token, score vs forward
+BEAM_F32_TOL = 1e-3      # f32: a whole score against the full forward's
+BEAM_F32_LAYERS = 2
+BEAM_CHECK_SEQ = -(-(BEAM_PROMPT + BEAM_NEW) // 64) * 64  # K2's tile
+# rolling decode on Mistral-7B: one prefill past the window, then ring steps
+ROLLING_PROMPT, ROLLING_NEW = 4160, 64
+ROLLING_F32_LAYERS = 2
+
+
+def full_forward_scores(torch, llama, params, cfg, prompt, seqs):
+    """Each row of ``seqs`` (beam, n): its cumulative f32 log-probability
+    after ``prompt`` (1, P) under the full-context forward, one batch of
+    all rows padded at the end to K2's sequence tile (causal: the padding
+    changes no earlier position)."""
+    beam, n = seqs.shape
+    p = prompt.shape[1]
+    pad = -(p + n) % 64
+    tokens = torch.cat([prompt.expand(beam, p), seqs,
+                        torch.zeros((beam, pad), dtype=seqs.dtype,
+                                    device=seqs.device)], dim=1)
+    with torch.no_grad():
+        logits = llama.forward(params, tokens, cfg)[:, p - 1:p - 1 + n]
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return lp.gather(2, seqs[:, :, None])[..., 0].sum(1)
+
+
+def beam_run(run: str, torch, beam_mod, generate, llama, kernel_support,
+             rpa, cfg, params, prompt, tol: float) -> dict:
+    """Beam 1 against ``generate``'s greedy tokens bit for bit, then beam
+    ``BEAM_WIDTH``: its K1 launches (one a layer for the prefill, one a
+    layer for each later step, every step split on the dense route),
+    distinct rows sorted by score, each score within ``tol`` of its
+    sequence's log-probability under the full-context forward (K2, one
+    launch a layer)."""
+    greedy = generate.generate(params, prompt, cfg, BEAM_NEW)
+    one, _ = beam_mod.beam_search(params, prompt, cfg, BEAM_NEW, beam=1)
+    if not torch.equal(one, greedy):
+        fail(f"{run}: beam 1 differs from greedy at token "
+             f"{first_divergence(one[0].tolist(), greedy[0].tolist())}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernel_support.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs, scores = beam_mod.beam_search(params, prompt, cfg, BEAM_NEW,
+                                        beam=BEAM_WIDTH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernel_support.launch_counts()
+    n = cfg.n_layers
+    eng = rpa.engine(cfg.dtype, 1, cfg.n_heads // cfg.n_kv_heads)
+    want = {rpa.NAME: n * BEAM_NEW, rpa.route_key("dense"): n * BEAM_NEW,
+            kernel_support.engine_key(rpa.NAME, eng): n * BEAM_NEW,
+            rpa.SPLIT_KEY: n * (BEAM_NEW - 1)
+            if rpa.window_split(1, cfg.n_heads // cfg.n_kv_heads)
+            and eng == "tensor_cores" else 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        fail(f"{run}: K1 launches {got}, wanted {want}")
+    rows = [tuple(r) for r in seqs.tolist()]
+    if seqs.shape != (BEAM_WIDTH, BEAM_NEW) or len(set(rows)) != BEAM_WIDTH \
+            or not torch.isfinite(scores).all() \
+            or not bool((scores[:-1] >= scores[1:]).all()) \
+            or not bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()):
+        fail(f"{run}: sequences {seqs.shape} or scores {scores.tolist()}")
+    kernel_support.reset_launch_counts()
+    full = full_forward_scores(torch, llama, params, cfg, prompt, seqs)
+    torch.cuda.synchronize()
+    k2 = kernel_support.launch_counts().get("flash_fwd", 0)
+    if k2 != n:
+        fail(f"{run}: the full forward launched K2 {k2} times, wanted {n}")
+    gaps = (scores - full).abs()
+    if float(gaps.max()) > tol:
+        fail(f"{run}: a beam score is {float(gaps.max()):.4e} from its "
+             f"sequence's full-forward log-probability (tolerance {tol})")
+    out = {"phase": 4, "run": run, "card": card_line(), "beam": BEAM_WIDTH,
+           "prompt_tokens": BEAM_PROMPT, "max_new": BEAM_NEW,
+           "dtype": str(cfg.dtype).split(".")[-1], "layers": n,
+           "beam1_equals_greedy": True, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / BEAM_NEW,
+           "k1_launches": got[rpa.NAME], "k1_split_launches":
+               got[rpa.SPLIT_KEY], "k1_engine": eng, "k2_launches": k2,
+           "cache_rows": BEAM_PROMPT + BEAM_NEW,
+           "peak_gib": peak / 2**30, "peak_over_held_gib":
+               (peak - held) / 2**30,
+           "scores": scores.tolist(), "full_forward": full.tolist(),
+           "max_score_gap": float(gaps.max()), "tolerance": tol,
+           "best_equals_greedy": seqs[0].tolist() == greedy[0].tolist()}
+    emit(out)
+    return out
+
+
+def phase_beam(torch, generate, llama, kernel_support, rpa, cfg,
+               params) -> dict:
+    """``beam_bf16``: beam search on the 8B bf16 weights, a 512-token
+    prompt, 32 tokens (``beam_run``; a score within BEAM_BF16_TOL a token
+    of the full forward's); ``beam_f32``: the same on a 2-layer f32 copy
+    at the same width (K1 and K2 on the CUDA cores; within
+    BEAM_F32_TOL)."""
+    import numpy as np
+
+    from k8s_gpu_device_plugin_torch.models import beam as beam_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 500)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, BEAM_PROMPT)),
+                          device="cuda")
+    out = {"bf16": beam_run("beam_bf16", torch, beam_mod, generate, llama,
+                            kernel_support, rpa, cfg, params, prompt,
+                            BEAM_BF16_TOL * BEAM_NEW)}
+    cfg32, params32 = truncated_draft(cfg, params, BEAM_F32_LAYERS)
+    cfg32 = dataclasses.replace(cfg32, dtype=torch.float32)
+    params32 = widened(torch, params32)
+    out["f32"] = beam_run("beam_f32", torch, beam_mod, generate, llama,
+                          kernel_support, rpa, cfg32, params32, prompt,
+                          BEAM_F32_TOL)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def rolling_run(run: str, torch, rolling, generate, kernel_support, rpa,
+                cfg, params, prompt) -> dict:
+    """``rolling_generate`` against the unbounded windowed ``generate`` on
+    one prompt past the window, each step's logits recorded on both
+    paths: the tokens, the first step where they part, the largest logit
+    gap over the steps where the two contexts agree, K1's launches of
+    each (the ring's one prefill, on the chunk route, against the
+    unbounded run's prefill and decode steps) and both caches' rows and
+    bytes."""
+    rec = {"ring": [], "ring_logits": [], "full": [], "full_logits": []}
+    fwd_gen, fwd_roll = generate._forward_cached, rolling._forward_cached
+    ring_forward = rolling._ring_forward
+
+    def cache_bytes(cache):
+        return sum(x.numel() * x.element_size() for x in
+                   (cache.k, cache.v, cache.k_scale, cache.v_scale)
+                   if x is not None)
+
+    def gen_recorded(params_, tokens, cache, *a, **kw):
+        if not rec["full"]:
+            rec["full"].append((cache.k.shape[2], cache_bytes(cache)))
+        logits = fwd_gen(params_, tokens, cache, *a, **kw)
+        rec["full_logits"].append(logits[:, -1].float())
+        return logits
+
+    def prefill_recorded(*a, **kw):
+        logits = fwd_roll(*a, **kw)
+        rec["ring_logits"].append(logits[:, -1].float())
+        return logits
+
+    def ring_recorded(params_, tok, ring, pos, cfg_):
+        if not rec["ring"]:
+            rec["ring"].append((ring.k.shape[2], cache_bytes(ring)))
+        logits = ring_forward(params_, tok, ring, pos, cfg_)
+        rec["ring_logits"].append(logits.float())
+        return logits
+
+    generate._forward_cached = gen_recorded
+    rolling._forward_cached = prefill_recorded
+    rolling._ring_forward = ring_recorded
+    try:
+        kernel_support.reset_launch_counts()
+        t0 = time.perf_counter()
+        ring_toks = rolling.rolling_generate(params, prompt, cfg, ROLLING_NEW)
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+        ring_counts = kernel_support.launch_counts()
+        kernel_support.reset_launch_counts()
+        t0 = time.perf_counter()
+        full_toks = generate.generate(params, prompt, cfg, ROLLING_NEW)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        full_counts = kernel_support.launch_counts()
+    finally:
+        generate._forward_cached = fwd_gen
+        rolling._forward_cached = fwd_roll
+        rolling._ring_forward = ring_forward
+    n = cfg.n_layers
+    w = cfg.sliding_window
+    (ring_rows, ring_bytes), = rec["ring"]
+    (full_rows, full_bytes), = rec["full"]
+    a, b = ring_toks[0].tolist(), full_toks[0].tolist()
+    part = first_divergence(a, b)
+    agree = len(a) if part is None else part + 1  # step `part` saw one context
+    gap = max(float((x - y).abs().max()) for x, y in
+              zip(rec["ring_logits"][:agree], rec["full_logits"][:agree]))
+    if a[0] != b[0]:
+        fail(f"{run}: the first tokens differ ({a[0]} against {b[0]}): the "
+             "two prefills are the same")
+    if ring_rows != w or full_rows != ROLLING_PROMPT + ROLLING_NEW:
+        fail(f"{run}: the ring holds {ring_rows} rows (window {w}), the "
+             f"unbounded cache {full_rows}")
+    if ring_counts.get(rpa.NAME, 0) != n or ring_counts.get(
+            rpa.SPLIT_KEY, 0) or \
+            full_counts.get(rpa.NAME, 0) != n * ROLLING_NEW:
+        fail(f"{run}: K1 launches {ring_counts} (ring) and {full_counts} "
+             f"(unbounded), wanted {n} chunk launches and {n * ROLLING_NEW}")
+    if len(rec["ring_logits"]) != ROLLING_NEW or \
+            not all(bool(torch.isfinite(x).all()) for x in rec["ring_logits"]):
+        fail(f"{run}: {len(rec['ring_logits'])} ring steps, or non-finite "
+             "logits")
+    out = {"phase": 4, "run": run, "card": card_line(),
+           "dtype": str(cfg.dtype).split(".")[-1], "layers": n, "window": w,
+           "prompt_tokens": ROLLING_PROMPT, "max_new": ROLLING_NEW,
+           "first_token_equal": True, "first_divergence": part,
+           "max_logit_gap_while_equal": gap, "steps_compared": agree,
+           "ring_rows": ring_rows, "ring_bytes": ring_bytes,
+           "unbounded_rows": full_rows, "unbounded_bytes": full_bytes,
+           "k1_launches_rolling": ring_counts.get(rpa.NAME, 0),
+           "k1_launches_unbounded": full_counts.get(rpa.NAME, 0),
+           "rolling_s": ring_s, "unbounded_s": full_s}
+    emit(out)
+    return out
+
+
+def phase_rolling(torch, generate, kernel_support, rpa, cfg, params) -> dict:
+    """``rolling_bf16``: Mistral-7B's rolling decode against its unbounded
+    windowed decode (the first token equal, the parting step and the
+    logit gap reported: the ring's softmax is a plain one, K1's an online
+    one); ``rolling_f32``: the same on a 2-layer f32 copy at the same
+    width, token for token."""
+    import numpy as np
+
+    from k8s_gpu_device_plugin_torch.models import rolling
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 600)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                       (1, ROLLING_PROMPT)), device="cuda")
+    out = {"bf16": rolling_run("rolling_bf16", torch, rolling, generate,
+                               kernel_support, rpa, cfg, params, prompt)}
+    cfg32, params32 = truncated_draft(cfg, params, ROLLING_F32_LAYERS)
+    cfg32 = dataclasses.replace(cfg32, dtype=torch.float32)
+    params32 = widened(torch, params32)
+    out["f32"] = rolling_run("rolling_f32", torch, rolling, generate,
+                             kernel_support, rpa, cfg32, params32, prompt)
+    if out["f32"]["first_divergence"] is not None:
+        fail(f"rolling_f32: the streams part at token "
+             f"{out['f32']['first_divergence']}")
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4280,22 +4588,24 @@ LORA_ARGS = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
 LORA_N, LORA_RANK, LORA_CACHE_MB = 32, 16, 960
 # lora_mix: LORA_MIX_N requests, LORA_BASE_N on the base model, the rest
 # on adapters drawn Zipf-like (s = LORA_ZIPF_S) over the LORA_N; prompts
-# of LORA_PROMPTS tokens, LORA_MAX_NEW generated; at once, then Poisson
-# arrivals at LORA_LOAD times the closed-loop rate
+# of LORA_PROMPTS tokens, LORA_MAX_NEW generated (128 until the decode
+# modes' part took their time); at once, then Poisson arrivals at
+# LORA_LOAD times the closed-loop rate
 LORA_MIX_N, LORA_BASE_N, LORA_ZIPF_S = 48, 12, 1.0
 # lora_mix's requests replayed alone: the first LORA_SOLO distinct
 # (adapter or base) first requests, in request order
 LORA_SOLO = 5
-LORA_PROMPTS, LORA_MAX_NEW, LORA_LOAD = (64, 1025), 128, 1.2
+LORA_PROMPTS, LORA_MAX_NEW, LORA_LOAD = (64, 1025), 64, 1.2
 # lora_dense, lora_oracle, lora_compose and lora_surface: LORA_SMALL
 # requests (prompt length, adapter index or -1), LORA_SMALL_NEW tokens
 # each, on the first LORA_FEW adapters
 LORA_FEW, LORA_SMALL_NEW = 4, 32
 LORA_SMALL = [(100, 0), (240, 1), (380, 2), (520, 3), (660, -1), (130, 0),
               (450, 1), (590, -1)]
-# the 8-layer f32 twin of lora_oracle: logprobs within LORA_F32_TOL of
-# the merged weights'
-LORA_F32_LAYERS, LORA_F32_TOL = 8, 1e-3
+# lora_oracle's f32 twin (the 8B's first 4 layers; 8 until the decode
+# modes' part took their time): logprobs within LORA_F32_TOL of the
+# merged weights'
+LORA_F32_LAYERS, LORA_F32_TOL = 4, 1e-3
 # lora_step: decode steps timed on the host clock, replays timed by
 # CUDA events, with eight distinct adapters live and with none
 LORA_STEP_PROMPT, LORA_STEP_STEPS, LORA_STEP_REPLAYS = 512, 32, 16
@@ -4656,8 +4966,8 @@ def lora_oracle(torch, server_mod, batching, generate, lora, ls, cfg,
     the merged server's, reported up to the first divergence with each
     path's f32 logit gap between the two tokens there (bf16 rounds the
     merged weights otherwise than x @ W + x @ A @ B: a near tie flips);
-    on an 8-layer f32 twin, tokens equal and logprobs within
-    LORA_F32_TOL, at batcher level."""
+    on a LORA_F32_LAYERS-layer f32 twin, tokens equal and logprobs
+    within LORA_F32_TOL, at batcher level."""
     reqs = [(p, a) for p, a in small if a >= 0][:LORA_FEW]
     aset = ls.stack_adapters(cfg, entries[:LORA_FEW])
     launches.start()
@@ -5503,7 +5813,8 @@ def phase_kv(torch, server_mod, batching, kernel_support, rpa, cfg,
 # weights behind the port's replica router (serving/router.py on its own
 # event loop in a thread), driven over HTTP through the router
 FLEET_ARGS = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
-              "--kvLayout", "paged", "--kvPageSize", "64", "--embeddings"]
+              "--kvLayout", "paged", "--kvPageSize", "64", "--embeddings",
+              "--tracing"]
 FLEET_PREFIX, FLEET_TAIL, FLEET_NEW = 512, 64, 32
 FLEET_DRAIN_NEW = 64
 # the disaggregated hops: (prompt length, body knobs), 32 tokens each
@@ -5512,6 +5823,7 @@ FLEET_DISAGG = [(512, {}), (512, {"seed": 21, "temperature": 0.8}),
 FLEET_ROLES = "prefill=r0 decode=r1"
 FLEET_RESUME_PROMPT, FLEET_RESUME_NEW, FLEET_KILL_AT = 1024, 48, 8
 FLEET_HEALTH_S = 0.25   # the routers' health-poll interval
+FLEET_TRACE_NEW = 8     # fleet_trace's traced stream
 
 
 class LoopThread:
@@ -6024,13 +6336,115 @@ def fleet_resume(kernel_support, rpa, batching, fleet_mod, cfg, fleet,
     return out
 
 
+def expo_samples(text: str) -> list:
+    """A well-formed exposition's samples: ``(name, labels, value)``
+    (label values unescaped; exemplars and timestamps dropped)."""
+    import re
+
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    head = re.compile(rf"^({_EXPO_NAME})({_EXPO_LABELS})? ({_EXPO_NUM})")
+    out = []
+    for line in text.split("\n"):
+        m = head.match(line)
+        if m is None or line.startswith("#"):
+            continue
+        labels = {k: re.sub(r"\\(.)", lambda e: {"n": "\n"}.get(
+            e.group(1), e.group(1)), v)
+            for k, v in label.findall(m.group(2) or "")}
+        out.append((m.group(1), labels, float(m.group(3))))
+    return out
+
+
+def fleet_metrics(run: str, base: str, live: list, dead: list) -> dict:
+    """``GET /fleet/metrics`` through the router, classic and OpenMetrics:
+    well-formed; every ``gpu_serving_*`` series under one of the live
+    replicas' ``replica`` labels, each live replica present;
+    ``gpu_fleet_replicas`` the live replicas, ``gpu_fleet_scrape_errors``
+    the dead ones; the fleet TTFT histogram's count (and each bucket) the
+    replicas' sum."""
+    out = {}
+    for om in (False, True):
+        text = scrape(base, om, "/fleet/metrics")
+        label = f"{run} {'openmetrics' if om else 'classic'}"
+        errors = exposition_errors(text, om)
+        if errors:
+            fail(f"{label}: malformed lines {errors[:5]}")
+        samples = expo_samples(text)
+        serving = [(n, lb) for n, lb, _ in samples
+                   if n.startswith("gpu_serving_")]
+        owners = {lb.get("replica") for _, lb in serving}
+        if owners != set(live):
+            fail(f"{label}: gpu_serving_* series labelled {owners}, live "
+                 f"replicas {live}")
+        fleet = {n: v for n, lb, v in samples
+                 if n.startswith("gpu_fleet_") and not lb}
+        if fleet.get("gpu_fleet_replicas") != len(live) or \
+                fleet.get("gpu_fleet_scrape_errors") != len(dead):
+            fail(f"{label}: {fleet}, live {live}, dead {dead}")
+        counts = [v for n, _, v in samples
+                  if n == "gpu_serving_ttft_seconds_count"]
+        buckets: dict = {}
+        for n, lb, v in samples:
+            if n == "gpu_serving_ttft_seconds_bucket":
+                buckets[lb["le"]] = buckets.get(lb["le"], 0.0) + v
+        summed = {lb["le"]: v for n, lb, v in samples
+                  if n == "gpu_fleet_ttft_seconds_bucket"}
+        if fleet.get("gpu_fleet_ttft_seconds_count") != sum(counts) or \
+                summed != buckets or not counts:
+            fail(f"{label}: fleet TTFT count "
+                 f"{fleet.get('gpu_fleet_ttft_seconds_count')} against the "
+                 f"replicas' {counts}")
+        out["openmetrics" if om else "classic"] = {
+            "bytes": len(text), "samples": len(samples),
+            "serving_samples": len(serving),
+            "exemplars": text.count(" # {") if om else 0,
+            "ttft_count": fleet["gpu_fleet_ttft_seconds_count"],
+            **{k: fleet[k] for k in ("gpu_fleet_replicas",
+                                     "gpu_fleet_scrape_errors",
+                                     "gpu_fleet_mfu_pct",
+                                     "gpu_fleet_hbm_bw_util_pct")}}
+    return out
+
+
+def fleet_trace(run: str, cfg, base: str, seed: int,
+                dead: tuple = ()) -> dict:
+    """One stream through the router (tracing on): the router's newest
+    ``POST /v1/generate`` trace; its stitched trace holds a router track
+    and the serving replica's, with no orphan, and names exactly the
+    ``dead`` replicas unreachable."""
+    before = relayed(base)
+    fleet_stream(base, {"prompt": fleet_ids(FLEET_PREFIX, seed,
+                                            cfg.vocab_size),
+                        "max_new": FLEET_TRACE_NEW})
+    served = picked(base, before)
+    time.sleep(0.2)  # the router's span closes after its last frame
+    newest = [t for t in get_json(base, "/debug/traces?limit=16")["traces"]
+              if t["component"] == "router_http"
+              and t["root"].startswith("POST /v1/generate")]
+    if not newest:
+        fail(f"{run}: no router trace of the stream")
+    trace_id = newest[0]["trace_id"]
+    doc = get_json(base, f"/fleet/debug/traces/{trace_id}")
+    summary = doc["fleet"]
+    rows = {e["args"]["name"] for e in doc["traceEvents"]
+            if e.get("name") == "process_name"}
+    if summary["trace_id"] != trace_id or summary["orphans"] or \
+            rows != set(summary["tracks"]) or "router" not in rows or \
+            served not in rows or summary["unreachable"] != list(dead):
+        fail(f"{run}: {served} served the stream; the stitched trace "
+             f"{summary}, process rows {rows}")
+    return {"trace_id": trace_id, "served_by": served, **summary}
+
+
 def phase_fleet(torch, server_mod, batching, kernel_support, rpa, cfg,
                 params) -> dict:
     """The replica router on the card: two servers sharing the 8B
     weights (``--replicaId r0`` / ``r1``, paged pools, the prefix cache
     on, embeddings) behind the port's router, then ``fleet_route``,
-    ``fleet_drain``, ``fleet_disagg`` (a second, roled router) and
-    ``fleet_resume`` (last: a killed server is not restarted)."""
+    ``fleet_drain``, ``fleet_disagg`` (a second, roled router),
+    ``fleet_metrics`` and ``fleet_trace`` (the read-only surfaces, tracing
+    on) and ``fleet_resume`` (last: a killed server is not restarted),
+    after which both surfaces report the dead replica."""
     from k8s_gpu_device_plugin_torch.serving import fleet as fleet_mod
     from k8s_gpu_device_plugin_torch.serving import testing
 
@@ -6065,8 +6479,23 @@ def phase_fleet(torch, server_mod, batching, kernel_support, rpa, cfg,
         drain = fleet_drain(kernel_support, rpa, cfg, fleet, base,
                             route["home"])
         disagg = fleet_disagg(kernel_support, rpa, cfg, fleet, base, base2)
+        t_obs = time.perf_counter()
+        obs = {"fleet_trace": fleet_trace("fleet_trace", cfg, base,
+                                          SEED + 400),
+               "fleet_metrics": fleet_metrics("fleet_metrics", base,
+                                              ["r0", "r1"], [])}
+        obs_s = time.perf_counter() - t_obs
         resume = fleet_resume(kernel_support, rpa, batching, fleet_mod, cfg,
                               fleet, base, base2)
+        t_obs = time.perf_counter()
+        # a fresh trace: the resume's streams have cycled the trace ring
+        obs["fleet_trace_after_kill"] = fleet_trace(
+            "fleet_trace_after_kill", cfg, base, SEED + 401, dead=("r1",))
+        obs["fleet_metrics_after_kill"] = fleet_metrics(
+            "fleet_metrics_after_kill", base, ["r0"], ["r1"])
+        obs_s += time.perf_counter() - t_obs
+        for name, row in obs.items():
+            emit({"phase": 4, "run": name, **row})
         runs_s = time.perf_counter() - t_start
         for i, server in enumerate(servers):
             if i not in fleet.killed:
@@ -6097,6 +6526,9 @@ def phase_fleet(torch, server_mod, batching, kernel_support, rpa, cfg,
         "transfer_ms": {h["run"]: h["transfer_ms"] for h in disagg["hops"]},
         "pages": {h["run"]: h["pages"] for h in disagg["hops"]},
         "resume_gap_ms": resume["resume_gap_ms"],
+        "read_only_surfaces_s": obs_s,
+        "federation_bytes": {k: v["classic"]["bytes"] for k, v in obs.items()
+                             if k.startswith("fleet_metrics")},
         "k1_launches": launches, "k1_route": "paged",
         "k2_launches": route["k2_launches"]}
     emit(summary)
@@ -6116,7 +6548,11 @@ def flash_cases():
             dict(name="causal_hd64_group1", window=0, b=TRAIN_BATCH,
                  s=TRAIN_SEQ, hq=8, hkv=8, hd=64),
             *(dict(name=f"serve_b1_s{s}", window=0, b=1, s=s, hq=32, hkv=8,
-                   hd=128) for s in SERVE_SEQS)]
+                   hd=128) for s in SERVE_SEQS),
+            # beam search's check: its rows' full-context forward, padded
+            # to the tile
+            dict(name=f"beam_check_b{BEAM_WIDTH}_s{BEAM_CHECK_SEQ}", window=0,
+                 b=BEAM_WIDTH, s=BEAM_CHECK_SEQ, hq=32, hkv=8, hd=128)]
 
 
 def attended_pairs(s: int, window: int) -> int:
@@ -6659,6 +7095,9 @@ def main() -> None:
     # replica's streams resumed)
     fleet_runs = phase_fleet(torch, server_mod, batching, kernel_support,
                              rpa, cfg, params)
+    # the batch-1 decode modes on the same weights: beam search
+    beam = phase_beam(torch, generate, llama, kernel_support, rpa, cfg,
+                      params)
     # each weight width quantized once on the card, checked (phase 3) and
     # served (phase 4), and freed before the next
     for weight_quant, run in (("int8", "w8"), ("int4", "w4_int4_paged")):
@@ -6680,7 +7119,7 @@ def main() -> None:
     moe = phase_moe(torch, server_mod, batching, sampling, generate, llama,
                     quantized_serving, moe_mod, kernel_support, rpa)
     window = phase_window(torch, server_mod, kernel_support, rpa, batching,
-                          llama)
+                          llama, generate)
     training = phase_training(torch, kernel_support, attention_mod, llama,
                               train, trainer_mod)
 
@@ -6738,7 +7177,10 @@ def main() -> None:
         + preempt["launches"] + surface["launches"][rpa.NAME]
         + obs["summary"]["launches"] + lora_runs["k1_launches"]["total"]
         + moe["k1_launches"] + kv["summary"]["k1_launches"]
-        + sum(fleet_runs["k1_launches"].values()),
+        + sum(fleet_runs["k1_launches"].values())
+        + sum(beam[d]["k1_launches"] for d in ("bf16", "f32"))
+        + sum(window["rolling"][d][f"k1_launches_{run}"]
+              for d in ("bf16", "f32") for run in ("rolling", "unbounded")),
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -6785,6 +7227,29 @@ def main() -> None:
          "fleet": {"route": fleet_runs["k1_route"],
                    "launches": sum(fleet_runs["k1_launches"].values()),
                    "by_run": fleet_runs["k1_launches"]},
+         # the batch-1 decode modes: beam search's prefill and split
+         # decode steps at B = beam (8B bf16 and its 2-layer f32 copy),
+         # rolling decode's one windowed prefill chunk past the window and
+         # its unbounded twin's prefill and decode steps (Mistral-7B bf16
+         # and its 2-layer f32 copy), with phase 2's cases at those shapes
+         "beam": {"launches": {d: beam[d]["k1_launches"]
+                               for d in ("bf16", "f32")},
+                  "split_launches": {d: beam[d]["k1_split_launches"]
+                                     for d in ("bf16", "f32")},
+                  "max_score_gap": {d: beam[d]["max_score_gap"]
+                                    for d in ("bf16", "f32")},
+                  "cases": {c["case"]: {**{k: c[k] for k in keys},
+                                        "max_abs_err": c["max_abs_err"]}
+                            for c in cases
+                            if c["case"] == f"decode_beam{BEAM_WIDTH}"}},
+         "rolling": {
+             "launches": {d: {run: window["rolling"][d][f"k1_launches_{run}"]
+                              for run in ("rolling", "unbounded")}
+                          for d in ("bf16", "f32")},
+             "cases": {c["case"]: {**{k: c[k] for k in keys},
+                                   "max_abs_err": c["max_abs_err"]}
+                       for c in cases if c["case"] ==
+                       f"prefill_t{ROLLING_PROMPT}_w{MISTRAL_WINDOW}"}},
          "moe": {"launches": moe["summary"]["k1_launches"],
                  "decode_step_ms_mean": moe["summary"]["decode_step_ms_mean"],
                  "decode_graph_pool_bytes":
@@ -6841,8 +7306,10 @@ def main() -> None:
         errs = {f"max_err_{dn}": max(c["max_abs_err"][o] for c in flash
                                      for o in outs if c["dtype"] == dn)
                 for dn in ("bfloat16", "float32")}
+        beam_k2 = sum(beam[d]["k2_launches"] for d in ("bf16", "f32"))
         served = (surface["launches"]["flash_fwd"] + moe["k2_launches"]
-                  + fleet_runs["k2_launches"]) if name == "flash_fwd" else 0
+                  + fleet_runs["k2_launches"] + beam_k2) \
+            if name == "flash_fwd" else 0
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
@@ -6868,6 +7335,10 @@ def main() -> None:
              if name == "flash_fwd" else 0,
              "launches_moe_forward": moe["k2_launches"]
              if name == "flash_fwd" else 0,
+             # beam search's check: the full-context forward of its rows
+             # (8B bf16 on the tensor cores, the f32 copy's on the CUDA
+             # cores)
+             "launches_beam": beam_k2 if name == "flash_fwd" else 0,
              "launches_per_engine": {
                  e: training["launches"].get(kernel_support.engine_key(name, e), 0)
                  for e in kernel_support.ENGINES},

@@ -34,6 +34,13 @@ import time
 
 INF = float("inf")
 
+#: the two renderings' ``Content-Type`` headers, and what a scraper's
+#: ``Accept`` names to ask for OpenMetrics
+CONTENT_TYPE_CLASSIC = "text/plain; version=0.0.4; charset=utf-8"
+CONTENT_TYPE_OPENMETRICS = ("application/openmetrics-text; version=1.0.0; "
+                            "charset=utf-8")
+OPENMETRICS_ACCEPT = "application/openmetrics-text"
+
 
 def _num(value: float) -> str:
     """``prometheus_client``'s Go-style float text (1.0, 0.001, +Inf,

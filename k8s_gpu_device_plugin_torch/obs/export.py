@@ -1,13 +1,15 @@
 """Chrome/Perfetto trace-event JSON exporter.
 
-The port's copy of ``k8s_gpu_device_plugin_tpu/obs/export.py`` (the
-fleet exporter waits for the router). The span records in the tracer's
+The port's copy of ``k8s_gpu_device_plugin_tpu/obs/export.py``. The
+span records in the tracer's
 ring buffer convert 1:1 into the trace-event format's complete events
 (``"ph": "X"``), which both ``chrome://tracing`` and
 https://ui.perfetto.dev open directly. Rows group by component: each
 component becomes a named "thread" via ``thread_name`` metadata events,
 so a serving request renders as admit -> prefill -> decode -> retire
-nested under its request span.
+nested under its request span. :func:`to_fleet_chrome_trace` renders a
+stitched fleet trace (``obs/fleet_obs.py``) with one process row per
+track.
 """
 
 from __future__ import annotations
@@ -66,3 +68,23 @@ def to_chrome_trace(spans: list[dict]) -> dict:
         "displayTimeUnit": "ms",
     }
 
+
+
+def to_fleet_chrome_trace(tracks: "list[tuple[str, list[dict]]]") -> dict:
+    """Stitched per-track span lists (obs/fleet_obs.stitch_spans) -> ONE
+    Perfetto-openable document: each track — the router, each replica —
+    renders as its own named process row (``process_name`` metadata,
+    ``pid`` = track index), with that track's components as threads
+    inside it. Timestamps are the spans' own wall-clock microseconds,
+    so rows from different replicas align on the shared clock the
+    ``traceparent`` propagation already rides."""
+    events: list[dict] = []
+    for pid, (track, spans) in enumerate(tracks, start=1):
+        events.extend(_span_events(spans, pid))
+        events.append({
+            "name": "process_name",
+            "ph": "M",
+            "pid": pid,
+            "args": {"name": track},
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

@@ -1,9 +1,9 @@
 """Fleet observability plane: the router-level half of obs/.
 
-Port of the part of ``k8s_gpu_device_plugin_tpu/obs/fleet_obs.py`` that
-the replica router (``serving/router.py``) writes on every request and
-every fleet operation; the pure (HTTP-free) logic, with the I/O in the
-router, the split ``obs/http.py`` keeps for the per-replica planes:
+Port of ``k8s_gpu_device_plugin_tpu/obs/fleet_obs.py``: the pure
+(HTTP-free) logic of the replica router's (``serving/router.py``)
+observability, with the I/O in the router, the split ``obs/http.py``
+keeps for the per-replica planes:
 
 - **Fleet event journal** (:class:`FleetEventJournal`): a bounded ring
   of structured, monotonically-sequenced fleet operations. Events carry
@@ -46,10 +46,31 @@ The event kinds and their fields (``seq``, ``kind``, ``t``,
 ``rolling_restart_done``   ``completed``
 =========================  ============================================
 
-Not ported yet (ROADMAP A.10c2): metrics federation
-(``federate_metrics``, ``GET /fleet/metrics``) and cross-replica trace
-stitching (``spans_from_chrome``, ``stitch_spans``,
-``stitched_trace_payload``, ``GET /fleet/debug/traces/{id}``).
+- **Cross-replica trace stitching** (:func:`spans_from_chrome`,
+  :func:`stitch_spans`, :func:`stitched_trace_payload`; ``GET
+  /fleet/debug/traces/{id}``): span fragments fetched from every
+  replica's ``/debug/traces/{id}`` (plus the router's own ring) merge —
+  deduplicated by span id, because an in-process fleet shares one
+  process-global tracer — into one trace keyed by the propagated W3C
+  ``traceparent`` trace id. Track assignment is transitive: a
+  ``router_http`` span anchors the router track, a span carrying a
+  ``replica`` attribute (the serving HTTP middleware stamps one) anchors
+  its subtree to that replica's track, anything else inherits from its
+  parent, falling back to the fragment it came from.
+  :func:`obs.export.to_fleet_chrome_trace` renders the result as ONE
+  Perfetto file with one process row per track.
+- **Federated metrics** (:func:`federate_metrics`; ``GET
+  /fleet/metrics``): each replica's ``/metrics`` exposition is
+  re-labeled with ``replica="<id>"`` (escape-aware — label values pass
+  through verbatim, OpenMetrics exemplars preserved untouched) and
+  regrouped by metric family so the merged text stays PARSEABLE under
+  both content types. Fleet aggregates ride along: ``gpu_fleet_mfu_pct``
+  / ``gpu_fleet_hbm_bw_util_pct`` weight each replica's busy-window
+  gauge by its ``tokens_per_second`` window (an idle replica, whose
+  gauges zero on idle, weighs zero), and fleet-wide TTFT / inter-token
+  histograms summed bucket-wise. The device plugin's scrapes (the
+  reference's ``plugin_scrapes``, ``tpu_plugin_*`` chip aggregates) wait
+  for the plugin's families: they are refused naming ROADMAP A.14.
 
 Cost discipline: the journal writes only on failure/control-plane
 paths, never per relayed byte (rare kinds additionally ride a
@@ -67,7 +88,469 @@ from __future__ import annotations
 import time
 from collections import deque
 
+from k8s_gpu_device_plugin_torch.obs.export import to_fleet_chrome_trace
 from k8s_gpu_device_plugin_torch.obs.trace import current_trace_ids
+
+#: what the refused device-plugin federation names
+PLUGINS_ITEM = "ROADMAP A.14"
+
+
+# --- cross-replica trace stitching -----------------------------------------
+
+
+def spans_from_chrome(payload: dict) -> list[dict]:
+    """Chrome/Perfetto trace JSON (a replica's ``/debug/traces/{id}``
+    answer) -> span records (the Tracer ring's native shape). The
+    exporter is lossless for everything the stitcher needs — ids,
+    parentage, timing, component, attrs — so fragments from remote
+    replicas and the router's own ring merge as one species."""
+    spans: list[dict] = []
+    for evt in payload.get("traceEvents", ()):
+        if evt.get("ph") != "X":
+            continue  # metadata (thread_name) rows carry no span
+        args = dict(evt.get("args") or {})
+        span = {
+            "name": evt.get("name", ""),
+            "component": evt.get("cat") or "default",
+            "trace_id": args.pop("trace_id", ""),
+            "span_id": args.pop("span_id", ""),
+            "parent_id": args.pop("parent_id", None),
+            "start_us": int(evt.get("ts", 0)),
+            "dur_us": int(evt.get("dur", 0)),
+            "status": args.pop("status", "ok"),
+            "thread": args.pop("thread", ""),
+            "attrs": args,
+        }
+        spans.append(span)
+    return spans
+
+
+def stitch_spans(
+    fragments: "list[tuple[str, list[dict]]]",
+) -> tuple["list[tuple[str, list[dict]]]", dict]:
+    """Merge per-source span fragments into per-track span lists.
+
+    ``fragments`` is ``[(source_id, spans), ...]`` — ``source_id`` is
+    the replica id the fragment was fetched from (or ``"router"``).
+    Returns ``(tracks, summary)`` where ``tracks`` is an ordered
+    ``[(track_id, spans)]`` and ``summary`` reports the merge:
+    per-source fetched counts, per-track assigned counts, duplicates
+    deduped, id-less spans DROPPED (unmergeable — counted as loss, not
+    as duplication), and ORPHAN fragments (spans naming a parent id
+    present in no fragment — a stitch that lost a replica's ring shows
+    up here instead of rendering a silently partial trace).
+
+    Dedup first (span_id; an in-process fleet shares one process-global
+    tracer, so every source returns every span), then assign each span
+    a track: its own ``replica`` attr wins; ``router_http`` spans
+    anchor the ``router`` track; otherwise the span inherits its
+    parent's track (the replica that served a request owns the
+    request's whole subtree); a parentless, unattributed span falls
+    back to the source it came from."""
+    by_id: dict[str, tuple[str, dict]] = {}
+    fetched: dict[str, int] = {}
+    deduped = 0
+    dropped = 0
+    for source, spans in fragments:
+        fetched[source] = fetched.get(source, 0) + len(spans)
+        for span in spans:
+            sid = span.get("span_id", "")
+            if not sid:
+                # a span with no id cannot be merged or parented: LOST,
+                # and reported as such — not miscounted as a duplicate
+                dropped += 1
+            elif sid not in by_id:
+                by_id[sid] = (source, span)
+            else:
+                deduped += 1
+
+    assignment: dict[str, str] = {}
+    orphans: list[str] = []
+
+    def assign(sid: str, seen: set) -> str:
+        cached = assignment.get(sid)
+        if cached is not None:
+            return cached
+        source, span = by_id[sid]
+        attrs = span.get("attrs") or {}
+        track = None
+        if span.get("component") == "router_http":
+            # checked BEFORE the replica attr: a router span's
+            # ``replica`` attribute names the replica it ROUTED TO
+            # (the routing-decision attrs), not where it ran
+            track = "router"
+        elif attrs.get("replica"):
+            track = str(attrs["replica"])
+        else:
+            parent = span.get("parent_id")
+            if parent and parent in by_id and sid not in seen:
+                track = assign(parent, seen | {sid})
+        if track is None:
+            track = source
+        assignment[sid] = track
+        return track
+
+    for sid, (_, span) in by_id.items():
+        assign(sid, set())
+        parent = span.get("parent_id")
+        if parent and parent not in by_id:
+            orphans.append(sid)
+
+    # deterministic track order: router first, then replicas in the
+    # order their fragments were offered, then any stragglers
+    order: list[str] = []
+    if "router" in assignment.values():
+        order.append("router")
+    for source, _ in fragments:
+        if source not in order and source in assignment.values():
+            order.append(source)
+    for track in assignment.values():
+        if track not in order:
+            order.append(track)
+
+    tracks = [
+        (track,
+         sorted((s for sid, (_, s) in by_id.items()
+                 if assignment[sid] == track),
+                key=lambda s: s["start_us"]))
+        for track in order
+    ]
+    trace_ids = {s.get("trace_id") for _, s in by_id.values()}
+    summary = {
+        "trace_id": next(iter(trace_ids)) if len(trace_ids) == 1 else None,
+        "n_spans": len(by_id),
+        "sources": fetched,
+        "tracks": {t: len(spans) for t, spans in tracks},
+        "deduped": deduped,
+        "dropped": dropped,
+        "orphans": sorted(orphans),
+    }
+    return tracks, summary
+
+
+def stitched_trace_payload(
+    fragments: "list[tuple[str, list[dict]]]",
+) -> "dict | None":
+    """``GET /fleet/debug/traces/{id}``: one Perfetto-openable document
+    (one process row per replica + the router) with the stitch summary
+    under a ``fleet`` key Perfetto ignores. ``None`` when no fragment
+    held the trace (the handler answers 404)."""
+    tracks, summary = stitch_spans(fragments)
+    if not summary["n_spans"]:
+        return None
+    payload = to_fleet_chrome_trace(tracks)
+    payload["fleet"] = summary
+    return payload
+
+
+# --- federated metrics -----------------------------------------------------
+
+#: per-replica series feeding the fleet aggregates
+#: (``metrics/serving_metrics.py``)
+_MFU_GAUGE = "gpu_serving_mfu_pct"
+_BW_GAUGE = "gpu_serving_hbm_bw_util_pct"
+_TPS_GAUGE = "gpu_serving_tokens_per_second"
+_AGG_HISTOGRAMS = (
+    # (per-replica family, fleet family, help)
+    ("gpu_serving_ttft_seconds", "gpu_fleet_ttft_seconds",
+     "Fleet-wide time to first token (per-replica histograms summed "
+     "bucket-wise)"),
+    ("gpu_serving_inter_token_seconds", "gpu_fleet_inter_token_seconds",
+     "Fleet-wide inter-token gap (per-replica histograms summed "
+     "bucket-wise)"),
+)
+
+
+def _escape_label_value(value: str) -> str:
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _split_sample(line: str) -> "tuple[str, str | None, str] | None":
+    """One exposition sample line -> (name, labels-or-None, rest).
+
+    ``rest`` starts at the character after the label set (or after the
+    name) and carries the value plus anything behind it — timestamps,
+    OpenMetrics exemplars — verbatim, which is how exemplars survive
+    federation byte-exact. The label scan is escape-aware: a ``}``
+    inside a quoted label value does not end the set."""
+    brace = line.find("{")
+    space = line.find(" ")
+    if brace != -1 and (space == -1 or brace < space):
+        name = line[:brace]
+        i = brace + 1
+        in_quote = False
+        escaped = False
+        while i < len(line):
+            ch = line[i]
+            if escaped:
+                escaped = False
+            elif ch == "\\":
+                escaped = True
+            elif ch == '"':
+                in_quote = not in_quote
+            elif ch == "}" and not in_quote:
+                return name, line[brace + 1:i], line[i + 1:]
+            i += 1
+        return None  # unterminated label set: not a sample line
+    if space == -1:
+        return None
+    return line[:space], None, line[space:]
+
+
+def _relabel(line: str, replica: str) -> str:
+    """Prefix the sample's label set with ``replica="<replica>"``."""
+    parts = _split_sample(line)
+    if parts is None:
+        return line
+    name, labels, rest = parts
+    tag = f'replica="{_escape_label_value(replica)}"'
+    merged = f"{tag},{labels}" if labels else tag
+    return f"{name}{{{merged}}}{rest}"
+
+
+def _parse_labels(labels: "str | None") -> dict:
+    out: dict[str, str] = {}
+    if not labels:
+        return out
+    i = 0
+    n = len(labels)
+    while i < n:
+        eq = labels.find("=", i)
+        if eq == -1:
+            break
+        key = labels[i:eq].strip().lstrip(",").strip()
+        j = labels.find('"', eq)
+        if j == -1:
+            break
+        j += 1
+        buf = []
+        escaped = False
+        while j < n:
+            ch = labels[j]
+            if escaped:
+                buf.append({"n": "\n"}.get(ch, ch))
+                escaped = False
+            elif ch == "\\":
+                escaped = True
+            elif ch == '"':
+                break
+            else:
+                buf.append(ch)
+            j += 1
+        out[key] = "".join(buf)
+        i = j + 1
+    return out
+
+
+def _sample_value(rest: str) -> "float | None":
+    token = rest.strip().split(" ")[0] if rest.strip() else ""
+    try:
+        return float(token)
+    except ValueError:
+        return None
+
+
+def _fmt(value: float) -> str:
+    return repr(float(value))
+
+
+class _Family:
+    __slots__ = ("name", "meta", "samples")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.meta: list[str] = []   # first-seen HELP/TYPE/UNIT lines
+        self.samples: list[str] = []
+
+
+def _classic_to_om(text: str) -> str:
+    """Make a CLASSIC-format exposition mergeable into an OpenMetrics
+    document (the device plugin's /metrics serves classic only):
+    counter families lose the ``_total`` suffix from their HELP/TYPE
+    metadata — OpenMetrics names the family bare while the samples keep
+    ``_total`` — and the ``*_created`` pseudo-families classic renders
+    for creation timestamps are dropped, since OpenMetrics reserves
+    that suffix INSIDE the real family and a second family with the
+    name fails the strict parser. Its caller is the device plugin's
+    federation (ROADMAP A.14)."""
+    counters = set()
+    for line in text.splitlines():
+        parts = line.split(None, 3)
+        if (len(parts) >= 4 and parts[0] == "#" and parts[1] == "TYPE"
+                and parts[3].strip() == "counter"
+                and parts[2].endswith("_total")):
+            counters.add(parts[2])
+    out: list[str] = []
+    in_created = False
+    for raw in text.splitlines():
+        line = raw.rstrip("\r")
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) >= 3 and parts[1] in ("HELP", "TYPE", "UNIT"):
+                in_created = parts[2].endswith("_created")
+                if in_created:
+                    continue
+                if parts[2] in counters:
+                    parts[2] = parts[2][: -len("_total")]
+                    line = " ".join(parts)
+            out.append(line)
+            continue
+        if in_created:
+            continue  # sample lines of a dropped _created family
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def federate_metrics(
+    scrapes: "list[tuple[str, str]]",
+    *,
+    openmetrics: bool = False,
+    scrape_errors: "list[str] | None" = None,
+    plugin_scrapes: "list[tuple[str, str]] | None" = None,
+    plugin_scrape_errors: "list[str] | None" = None,
+) -> str:
+    """Merge replica expositions into ONE parseable fleet exposition.
+
+    ``scrapes`` is ``[(replica_id, exposition_text), ...]``. Every
+    sample line gains a leading ``replica="<id>"`` label; HELP/TYPE
+    (/UNIT) metadata is kept once per family (first replica wins — the
+    fleet runs one build, so they agree) and each family's samples stay
+    contiguous across replicas, which is what keeps the merged text
+    valid under the STRICT OpenMetrics parser (interleaved family
+    blocks are not). The fleet-aggregate block appends at the end;
+    ``scrape_errors`` (unreachable replicas) surface as a gauge so a
+    partial federation pass is visible, not silent.
+
+    ``plugin_scrapes`` / ``plugin_scrape_errors`` (the device plugins'
+    ``/metrics``, federated under ``node=``) raise naming ROADMAP A.14:
+    their families come with the device plugin."""
+    if plugin_scrapes is not None or plugin_scrape_errors is not None:
+        raise NotImplementedError(
+            "device-plugin metrics federation needs the device plugin's "
+            f"families, which are not ported yet ({PLUGINS_ITEM})"
+        )
+    families: dict[str, _Family] = {}
+    # per-replica parsed values for the aggregates
+    mfu: list[tuple[float, float, float]] = []  # (mfu, bw, weight)
+    hist: dict[str, dict] = {
+        fam: {"buckets": {}, "order": [], "sum": 0.0, "count": 0.0,
+              "seen": False}
+        for fam, _, _ in _AGG_HISTOGRAMS
+    }
+
+    def ingest(identity: str, text: str, on_sample) -> None:
+        current: "_Family | None" = None
+        fresh: set[str] = set()  # families THIS scrape introduced
+        for raw in text.splitlines():
+            line = raw.rstrip("\r")
+            if not line.strip():
+                continue
+            if line.startswith("#"):
+                parts = line.split(None, 3)
+                if len(parts) >= 3 and parts[1] in ("HELP", "TYPE", "UNIT"):
+                    fam = families.get(parts[2])
+                    if fam is None:
+                        fam = families[parts[2]] = _Family(parts[2])
+                        fresh.add(parts[2])
+                    if parts[2] in fresh:
+                        # first scrape naming a family defines its
+                        # metadata; later scrapes repeat it (one build
+                        # fleet-wide) and a second copy would be
+                        # invalid OpenMetrics
+                        fam.meta.append(line)
+                    current = fam
+                continue  # `# EOF` / stray comments: re-emitted at the end
+            parsed = _split_sample(line)
+            if parsed is None:
+                continue
+            name, labels, rest = parsed
+            if current is None or not name.startswith(current.name):
+                current = families.get(name)
+                if current is None:
+                    current = families[name] = _Family(name)
+            current.samples.append(_relabel(line, identity))
+            value = _sample_value(rest)
+            if value is None:
+                continue
+            on_sample(name, labels, value)
+
+    for replica, text in scrapes:
+        vals: dict[str, float] = {}
+
+        def on_serving_sample(name, labels, value, vals=vals):
+            if name in (_MFU_GAUGE, _BW_GAUGE, _TPS_GAUGE):
+                vals[name] = value
+            for fam, _, _ in _AGG_HISTOGRAMS:
+                if not name.startswith(fam):
+                    continue
+                h = hist[fam]
+                if name == f"{fam}_bucket":
+                    le = _parse_labels(labels).get("le")
+                    if le is not None:
+                        if le not in h["buckets"]:
+                            h["buckets"][le] = 0.0
+                            h["order"].append(le)
+                        h["buckets"][le] += value
+                        h["seen"] = True
+                elif name == f"{fam}_sum":
+                    h["sum"] += value
+                elif name == f"{fam}_count":
+                    h["count"] += value
+
+        ingest(replica, text, on_serving_sample)
+        if _MFU_GAUGE in vals:
+            mfu.append((
+                vals.get(_MFU_GAUGE, 0.0),
+                vals.get(_BW_GAUGE, 0.0),
+                max(0.0, vals.get(_TPS_GAUGE, 0.0)),
+            ))
+
+    out: list[str] = []
+    for fam in families.values():
+        out.extend(fam.meta)
+        out.extend(fam.samples)
+
+    # --- the fleet-aggregate block ---
+    def gauge(name: str, help_: str, value: float) -> None:
+        out.append(f"# HELP {name} {help_}")
+        out.append(f"# TYPE {name} gauge")
+        out.append(f"{name} {_fmt(value)}")
+
+    gauge("gpu_fleet_replicas", "Replicas merged into this federation pass",
+          len(scrapes))
+    gauge("gpu_fleet_scrape_errors",
+          "Replicas whose /metrics scrape failed this pass",
+          len(scrape_errors or ()))
+    weight_total = sum(w for _, _, w in mfu)
+    gauge(
+        "gpu_fleet_mfu_pct",
+        "Fleet model-FLOPs utilization: per-replica busy-window gauges "
+        "weighted by each replica's tokens_per_second window (idle "
+        "replicas weigh zero)",
+        sum(m * w for m, _, w in mfu) / weight_total if weight_total else 0.0,
+    )
+    gauge(
+        "gpu_fleet_hbm_bw_util_pct",
+        "Fleet HBM-roofline bandwidth utilization, busy-window weighted "
+        "like gpu_fleet_mfu_pct",
+        sum(b * w for _, b, w in mfu) / weight_total if weight_total else 0.0,
+    )
+    for fam, fleet_fam, help_ in _AGG_HISTOGRAMS:
+        h = hist[fam]
+        if not h["seen"]:
+            continue
+        out.append(f"# HELP {fleet_fam} {help_}")
+        out.append(f"# TYPE {fleet_fam} histogram")
+        for le in h["order"]:
+            out.append(
+                f'{fleet_fam}_bucket{{le="{le}"}} {_fmt(h["buckets"][le])}'
+            )
+        out.append(f"{fleet_fam}_count {_fmt(h['count'])}")
+        out.append(f"{fleet_fam}_sum {_fmt(h['sum'])}")
+    if openmetrics:
+        out.append("# EOF")
+    return "\n".join(out) + "\n"
 
 
 # --- fleet event journal ---------------------------------------------------

@@ -71,12 +71,13 @@ whose route/relay/resume-gap segments sum EXACTLY to the client-observed
 wall time, retained for resumed/failed-over/SLO-breaching streams by a
 flight recorder; ``GET /debug/traces`` is the router's own trace ring.
 Spans propagate via W3C ``traceparent``: the router's span becomes the
-remote parent of the replica's ``serving_http`` span.
-
-Not served yet: ``GET /fleet/metrics`` (metrics federation) and ``GET
-/fleet/debug/traces/{id}`` (cross-replica trace stitching) answer 501
-naming ROADMAP A.10c2; ``--plugins`` (device-plugin federation) is
-refused naming ROADMAP A.14.
+remote parent of the replica's ``serving_http`` span, and ``GET
+/fleet/debug/traces/{id}`` stitches the router's ring and every
+replica's fragments of one trace into one Perfetto document (one process
+row per replica). ``GET /fleet/metrics`` federates every replica's
+``/metrics`` under a ``replica`` label with ``gpu_fleet_*`` aggregates,
+classic or OpenMetrics as the scraper asks. ``--plugins``
+(device-plugin federation) is refused naming ROADMAP A.14.
 
 Liveness comes from polling each replica's ``/v1/health``:
 ``dead_after`` consecutive failures (poll or proxy) mark a replica dead
@@ -107,13 +108,20 @@ import math
 import time
 
 from k8s_gpu_device_plugin_torch.metrics.exposition import (
+    CONTENT_TYPE_CLASSIC,
+    CONTENT_TYPE_OPENMETRICS,
+    OPENMETRICS_ACCEPT,
     Counter,
     Gauge,
     Registry,
 )
 from k8s_gpu_device_plugin_torch.obs.fleet_obs import (
+    PLUGINS_ITEM,
     FleetEventJournal,
     RouterFlightRecorder,
+    federate_metrics,
+    spans_from_chrome,
+    stitched_trace_payload,
 )
 from k8s_gpu_device_plugin_torch.obs.http import (
     is_observation_path,
@@ -161,10 +169,6 @@ PROXY_POSTS = (
 #: the base model's OpenAI ``model`` id (serving/openai_api.py's
 #: MODEL_ID; kept here so the router imports no torch)
 MODEL_ID = "tpu-serving"
-
-#: what a refused flag or a route not served yet names
-PLUGINS_ITEM = "ROADMAP A.14"
-FEDERATION_ITEM = "ROADMAP A.10c2"
 
 
 class RouterMetrics:
@@ -487,9 +491,8 @@ class ReplicaRouter:
         self.app.add_get("/debug/traces", self._debug_traces)
         self.app.add_get("/debug/traces/{trace_id}", self._debug_trace_one)
         self.app.add_get("/fleet/debug/traces/{trace_id}",
-                         self._not_yet("cross-replica trace stitching"))
-        self.app.add_get("/fleet/metrics",
-                         self._not_yet("metrics federation"))
+                         self._fleet_trace_one)
+        self.app.add_get("/fleet/metrics", self._fleet_metrics)
         self.app.add_get("/fleet/events", self._fleet_events)
         self.app.add_get("/fleet/debug/requests", self._fleet_requests)
         self.app.add_get("/fleet/debug/requests/{rid}",
@@ -2071,25 +2074,105 @@ class ReplicaRouter:
 
     async def _metrics(self, request) -> Response:
         return Response(self.registry.render().encode(),
-                        content_type="text/plain; version=0.0.4; "
-                        "charset=utf-8")
+                        content_type=CONTENT_TYPE_CLASSIC)
 
     # --- observability ----------------------------------------------------
 
-    @staticmethod
-    def _not_yet(what: str):
-        """A fleet route that is not served yet: 501, naming the ROADMAP
-        item that brings it."""
+    async def _fan_out_get(
+        self, path: str, headers: "dict | None" = None
+    ) -> "list[tuple[str, int | None, str | None]]":
+        """Concurrently GET ``path`` from every registered replica ->
+        ``[(rid, status, body_text)]`` in registry order. ``status``
+        None = network failure (timeout/refused); ``connect_timeout_s``
+        bounds each exchange whole. Concurrency is the point: a fleet
+        with several dead replicas must cost ONE connect timeout per
+        pass, not their sum — a sequential scrape would blow a
+        Prometheus scrape deadline on the survivors' behalf."""
 
-        async def handler(request) -> Response:
+        async def one(rep: Replica):
+            try:
+                status, _, body = await async_http.fetch(
+                    "GET", f"{rep.url}{path}", headers=headers,
+                    timeout_s=self.connect_timeout_s,
+                )
+                return rep.rid, status, body.decode()
+            except (OSError, asyncio.TimeoutError, UnicodeDecodeError):
+                return rep.rid, None, None
+
+        return list(await asyncio.gather(
+            *(one(rep) for rep in self.fleet.all())
+        ))
+
+    async def _fleet_trace_one(self, request) -> Response:
+        """``GET /fleet/debug/traces/{id}``: pull the trace's span
+        fragments from every replica's ``/debug/traces/{id}`` plus the
+        router's own ring and stitch them into ONE Perfetto document —
+        one process row per replica, the merge summary (per-track span
+        counts, orphan fragments, unreachable replicas) under the
+        ``fleet`` key."""
+        tid = request.match_info["trace_id"]
+        fragments: list = []
+        own = self.tracer.get_trace(tid)
+        if own is not None:
+            fragments.append(("router", own))
+        unreachable: list[str] = []
+        for rid, status, text in await self._fan_out_get(
+            f"/debug/traces/{tid}"
+        ):
+            if status is None:
+                # a dead replica's fragments died with it: the stitch
+                # reports the hole instead of failing the whole fetch
+                unreachable.append(rid)
+                continue
+            if status == 404:
+                continue  # that replica never saw the trace
+            if status != 200:
+                # an ERRORING replica (500 behind a live socket, a 400)
+                # is a hole in the stitch like a dead one — reported,
+                # never a silently narrowed trace
+                unreachable.append(rid)
+                continue
+            try:
+                payload = json.loads(text)
+            except ValueError:
+                unreachable.append(rid)
+                continue
+            fragments.append((rid, spans_from_chrome(payload)))
+        stitched = stitched_trace_payload(fragments)
+        if stitched is None:
             return json_response(
-                {"error": f"{what} is not served by this router yet "
-                          f"({FEDERATION_ITEM})",
-                 "code": "not_implemented", "roadmap": FEDERATION_ITEM},
-                status=501,
+                {"error": "trace not in any replica's buffer",
+                 "unreachable": unreachable},
+                status=404,
             )
+        stitched["fleet"]["unreachable"] = unreachable
+        return json_response(stitched)
 
-        return handler
+    async def _fleet_metrics(self, request) -> Response:
+        """``GET /fleet/metrics``: scrape every replica's ``/metrics``,
+        re-label each series with ``replica="<id>"``, and append the
+        fleet aggregates. Content negotiation forwards: an OpenMetrics
+        scraper gets OpenMetrics from the replicas (exemplars intact)
+        and back out; everyone else gets the classic text format."""
+        openmetrics = OPENMETRICS_ACCEPT in request.headers.get("Accept", "")
+        headers = (
+            {"Accept": "application/openmetrics-text; version=1.0.0"}
+            if openmetrics else {}
+        )
+        scrapes: list = []
+        errors: list[str] = []
+        for rid, status, text in await self._fan_out_get(
+            "/metrics", headers=headers
+        ):
+            if status != 200:
+                errors.append(rid)
+                continue
+            scrapes.append((rid, text))
+        body = federate_metrics(scrapes, openmetrics=openmetrics,
+                                scrape_errors=errors)
+        return Response(body.encode(), content_type=(
+            CONTENT_TYPE_OPENMETRICS if openmetrics
+            else CONTENT_TYPE_CLASSIC))
 
     async def _debug_traces(self, request) -> Response:
         """The router's OWN trace ring, accepting the same

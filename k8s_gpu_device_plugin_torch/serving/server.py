@@ -193,7 +193,12 @@ from urllib.parse import parse_qs
 import torch
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
-from k8s_gpu_device_plugin_torch.metrics.exposition import Registry
+from k8s_gpu_device_plugin_torch.metrics.exposition import (
+    CONTENT_TYPE_CLASSIC,
+    CONTENT_TYPE_OPENMETRICS,
+    OPENMETRICS_ACCEPT,
+    Registry,
+)
 from k8s_gpu_device_plugin_torch.metrics.roofline import (
     MfuAccumulator,
     ServingCostModel,
@@ -1092,12 +1097,10 @@ class _Handler(BaseHTTPRequestHandler):
     def metrics(self) -> None:
         """The server's registry: OpenMetrics (exemplars, ``# EOF``) when
         the client accepts it, else the classic text format."""
-        om = "application/openmetrics-text" in self.headers.get("Accept", "")
+        om = OPENMETRICS_ACCEPT in self.headers.get("Accept", "")
         text = self.server.registry.render(openmetrics=om)
         self._send(200, text.encode(),
-                   "application/openmetrics-text; version=1.0.0; "
-                   "charset=utf-8" if om else
-                   "text/plain; version=0.0.4; charset=utf-8")
+                   CONTENT_TYPE_OPENMETRICS if om else CONTENT_TYPE_CLASSIC)
 
     def debug_traces(self) -> None:
         query = {k: v[-1] for k, v in

@@ -259,12 +259,15 @@ class InprocessFleet:
 
     def stop(self) -> None:
         """Stop every replica still serving (and release a killed one's
-        metric families). Blocking."""
+        metric families and span listener). Blocking."""
         for i, server in enumerate(self.servers):
             if i not in self.killed:
                 server.stop()
-            elif server.metrics is not None:
+                continue
+            if server.metrics is not None:
                 server.metrics.close()
+            if server.span_metrics is not None:
+                server.span_metrics.close()
 
 
 @contextlib.asynccontextmanager

@@ -12,8 +12,8 @@ order and determinism across two same-seed runs; ``/fleet/debug/requests``
 whose integer-ns segments sum to the wall time; timelines off; the
 router's ``/debug/traces`` query surface and span attributes;
 ``/fleet/health`` through ``fleet_stats``; ``/metrics`` (``gpu_router_*``);
-the routes not served yet (501 naming ROADMAP A.10c2) and ``--plugins``
-(refused naming ROADMAP A.14).
+``/fleet/metrics`` and ``/fleet/debug/traces/{id}`` answering over an
+unreachable replica, and ``--plugins`` (refused naming ROADMAP A.14).
 """
 
 import asyncio
@@ -347,11 +347,12 @@ def test_fleet_health_reads_through_fleet_stats_and_metrics(model):
     run(body())
 
 
-def test_routes_not_served_yet_and_plugins_refused(capsys):
+def test_fleet_routes_served_and_plugins_refused(capsys):
     """``GET /fleet/metrics`` and ``GET /fleet/debug/traces/{id}`` answer
-    501 naming ROADMAP A.10c2 (metrics federation, trace stitching);
+    over a fleet whose one replica is unreachable (a federation of none
+    with one scrape error; a 404 naming the unreachable replica);
     ``--plugins`` is refused at startup naming ROADMAP A.14 (the device
-    plugin). These flip when their items land."""
+    plugin). The refusal flips when that item lands."""
     fleet_reg = FleetRegistry.from_spec("a=http://127.0.0.1:1")
     with pytest.raises(ValueError, match="A.14"):
         trouter.ReplicaRouter(fleet_reg, prompt_buckets=BUCKETS,
@@ -371,10 +372,15 @@ def test_routes_not_served_yet_and_plugins_refused(capsys):
             await asyncio.sleep(0.01)
         try:
             base = f"http://127.0.0.1:{router.bound_port}"
-            for path in ("/fleet/metrics", f"/fleet/debug/traces/{'a' * 32}"):
-                s, body = await get_json(base + path)
-                assert s == 501 and body["roadmap"] == "ROADMAP A.10c2"
-                assert "A.10c2" in body["error"]
+            s, body = await get_json(f"{base}/fleet/debug/traces/{'a' * 32}")
+            assert s == 404 and body["unreachable"] == ["a"]
+            status, _, text = await async_http.fetch(
+                "GET", f"{base}/fleet/metrics", timeout_s=30)
+            fams = {f.name: f for f in text_string_to_metric_families(
+                text.decode())}
+            assert status == 200
+            assert fams["gpu_fleet_replicas"].samples[0].value == 0
+            assert fams["gpu_fleet_scrape_errors"].samples[0].value == 1
         finally:
             stop.set()
             await asyncio.wait_for(task, 30)

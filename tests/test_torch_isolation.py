@@ -68,6 +68,8 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.serving.router\n"
         "import k8s_gpu_device_plugin_torch.serving.testing\n"
         "import k8s_gpu_device_plugin_torch.models.batching\n"
+        "import k8s_gpu_device_plugin_torch.models.beam\n"
+        "import k8s_gpu_device_plugin_torch.models.rolling\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"
         "import k8s_gpu_device_plugin_torch.models.lora\n"

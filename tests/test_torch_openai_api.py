@@ -168,26 +168,28 @@ CASES = {
 @pytest.fixture(scope="module")
 def reference(models):
     """The reference façade's answers to CASES, with the same settings;
-    its server (aiohttp on a loop of its own) is stopped before the
-    first test reads them."""
+    its server (aiohttp on a loop of its own) is stopped, and its engine
+    shut down, before the first test reads them, whatever happened."""
     from k8s_gpu_device_plugin_tpu.serving import embeddings as jemb
     from k8s_gpu_device_plugin_tpu.serving import scoring as jscore
     from k8s_gpu_device_plugin_tpu.serving import server as jsrv
     from k8s_gpu_device_plugin_tpu.serving import tokenizer as jtok
 
     jcfg, jparams, _, _ = models
-    server = jsrv.InferenceServer(
-        jsrv.InferenceEngine(jparams, jcfg, **ENGINE), host="127.0.0.1",
-        port=0, tokenizer=jtok.ByteTokenizer(),
-        scorer=jscore.Scorer(jparams, jcfg, **SCORER),
-        embedder=jemb.Embedder(jparams, jcfg, buckets=EMBED_BUCKETS))
-    loop = asyncio.new_event_loop()
-    stop = asyncio.Event()
-    thread = threading.Thread(
-        target=lambda: loop.run_until_complete(server.run(stop)),
-        daemon=True)
-    thread.start()
+    engine = jsrv.InferenceEngine(jparams, jcfg, **ENGINE)
+    loop = thread = None
     try:
+        server = jsrv.InferenceServer(
+            engine, host="127.0.0.1", port=0,
+            tokenizer=jtok.ByteTokenizer(),
+            scorer=jscore.Scorer(jparams, jcfg, **SCORER),
+            embedder=jemb.Embedder(jparams, jcfg, buckets=EMBED_BUCKETS))
+        loop = asyncio.new_event_loop()
+        stop = asyncio.Event()
+        thread = threading.Thread(
+            target=lambda: loop.run_until_complete(server.run(stop)),
+            daemon=True)
+        thread.start()
         for _ in range(600):
             if server.bound_port:
                 break
@@ -195,9 +197,16 @@ def reference(models):
         url = f"http://127.0.0.1:{server.bound_port}"
         return {case: request(url, *CASES[case]) for case in CASES}
     finally:
-        loop.call_soon_threadsafe(stop.set)
-        thread.join(60)
-        loop.close()
+        if thread is not None:
+            loop.call_soon_threadsafe(stop.set)
+            thread.join(60)
+        # the server's own stop shuts the engine down after its cleanup,
+        # which may not have run (a cleanup that raised or outlasted the
+        # join): shut it down here on every path (idempotent), and close
+        # the loop only once its thread is gone
+        engine.shutdown()
+        if loop is not None and not thread.is_alive():
+            loop.close()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -36,6 +36,7 @@ from k8s_gpu_device_plugin_torch.serving.testing import (
 from k8s_gpu_device_plugin_tpu.models import llama as jllama
 from k8s_gpu_device_plugin_tpu.obs.fleet_obs import FleetEventJournal
 from k8s_gpu_device_plugin_tpu.serving import testing as jtesting
+from k8s_gpu_device_plugin_tpu.serving.server import InferenceEngine
 from k8s_gpu_device_plugin_tpu.serving.fleet import FleetRegistry
 from k8s_gpu_device_plugin_tpu.serving.router import ReplicaRouter
 from tests.test_torch_router import (  # noqa: F401 - the module fixture
@@ -166,9 +167,15 @@ def test_the_slice_matches_the_jax_fleet(both):
         assert fleet_ctx.router.router_stats()["resumes"] == 1
         return toks_lps(events)
 
+    engines = []
+
+    def engine_factory(i):
+        engines.append(InferenceEngine(jparams, jcfg, **ENGINE_KW))
+        return engines[-1]
+
     async def jax_side():
         async with jtesting.inprocess_fleet(
-                jparams, jcfg, n_replicas=2, engine_kw=ENGINE_KW,
+                jparams, jcfg, n_replicas=2, engine_factory=engine_factory,
                 router_kw=router_kw) as ctx:
             async with aiohttp.ClientSession() as session:
 
@@ -205,7 +212,14 @@ def test_the_slice_matches_the_jax_fleet(both):
             plain = toks_lps(await read(ctx.base))
             return plain, await kill_run(ctx.base, ctx, read)
 
-    want = run(jax_side(), timeout=120)
+    try:
+        want = run(jax_side(), timeout=120)
+    finally:
+        # the fleet's teardown shuts each engine down after its server's
+        # cleanup, which a timeout or a cancelled cleanup skips: shut
+        # every reference engine down here on every path (idempotent)
+        for engine in engines:
+            engine.shutdown()
     got = run(port_side())
     for (jt, jl), (tt, tl) in zip(want, got):
         assert tt == jt and len(tt) == 16
