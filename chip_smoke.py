@@ -160,7 +160,7 @@ Phases (any failed check exits non-zero without the final line):
    ``generate``, up to a near tie, with its round count.
    Then scheduling and failure (the same 8B weights). ``preempt``, at
    batcher level (8 slots x 2048, chunks of 256, the prefix cache and
-   the graph on): eight priority-2 requests of about 200 tokens (256
+   the graph on): eight priority-2 requests of about 200 tokens (128
    out; request 1 seeded at temperature 0.8), and after 32 and 40 steps
    a priority-0 request with a 1 ms deadline: the ``slo`` scheduler
    evicts request 0, then request 1, dense and paged at depth 1 and 0
@@ -182,7 +182,7 @@ Phases (any failed check exits non-zero without the final line):
    leaves the streams bit for bit; a second crash past ``--restartBudget
    1`` ends every stream with an ``engine_dead`` frame and health reads
    dead; a burst past ``--maxQueue 2`` answers 429 with Retry-After;
-   ``resume_out`` continues two streams from token 10. ``arrivals``: 48
+   ``resume_out`` continues two streams from token 10. ``arrivals``: 32
    requests (20% priority 0 with a 1500 ms deadline) at once on the fifo
    server, then as Poisson arrivals at 1.2x that rate under fifo and
    slo: TTFT p50/p99 per class, deadlines met, preemptions, re-prefill
@@ -225,7 +225,7 @@ Phases (any failed check exits non-zero without the final line):
    host, each run's store a fork of that registry. ``lora_step``: the
    decode step with eight distinct adapters live against the same step
    with none (host clock, graph replay by CUDA events, kernels a step).
-   ``lora_mix``: 48 requests of 64 tokens each (12 on the base model, the
+   ``lora_mix``: 24 requests of 64 tokens each (6 on the base model, the
    others' adapters drawn Zipf-like, s = 1) through the server with
    ``--adapterCacheMB 960`` (12 resident), at once and then as Poisson
    arrivals at 1.2x that rate: every budget delivered, both passes' streams
@@ -293,8 +293,8 @@ Phases (any failed check exits non-zero without the final line):
    aside); affinity hits and K1's launches per replica. ``fleet_drain``:
    the home drained under a stream, which finishes whole; new requests
    go to the other; undrain. ``fleet_disagg``: a second router with
-   ``--roles "prefill=r0 decode=r1" --disaggMinPrompt 64``; prompts of
-   512 and 1024 tokens, greedy and seeded at 0.8: each stream equals the
+   ``--roles "prefill=r0 decode=r1" --disaggMinPrompt 64``; a prompt of
+   512 tokens, greedy, and one of 1024, seeded at 0.8: each stream equals the
    uninterrupted one on r1 bit for bit and r1 makes no prefill chunk
    (K1 on r1 only split decode steps); transfers by outcome, pages,
    transfer ms, TTFT beside the same prompts colocated (caches
@@ -369,7 +369,25 @@ Phases (any failed check exits non-zero without the final line):
    copy of its weights through the kernels and through the plain
    attention: per leaf, the kernel path's distance to the f32 plain
    path's gradients at most BF16_FACTOR times the plain path's.
-7. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
+7. Checkpoints and LoRA training, Llama-3-8B widths cut to 2 layers
+   (``models/checkpoint.py``, the trainer's and the server's
+   ``--checkpointDir``, ``--loraAdapters``), in a directory beside this
+   script that is deleted after the phase (its free space checked
+   first): ``ckpt_resume`` (4 steps straight against 2 steps with a
+   checkpoint every 2 and a stop, then a fresh trainer resumed to 4:
+   ``resumed_from`` 2, steps 3-4's losses and the final params and
+   moments equal bit for bit; save, write and restore ms and bytes on
+   disk); ``ckpt_serve`` (``load_params`` equal to the trained params bit
+   for bit; a ``--checkpointDir`` server's greedy stream equal to
+   ``generate`` on them; K1 launches); ``lora_train`` (a rank-16 adapter
+   on all seven targets, 6 steps on one batch at B 2, S 2048: the loss
+   falls, the base stays bit for bit, K2-K4 launched per layer and step
+   on the tensor cores and no ``mha_reference``; then one f32 step's
+   factor gradients through the kernels on the CUDA cores against the
+   plain attention); ``lora_ckpt_serve`` (the adapter saved and served
+   by ``--loraAdapters``: the bf16 stream against the merged weights'
+   reported, the f32 twin's equal to the merged oracle's).
+8. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
    kernel's entry carries its six routes, the decode graph's checks and
    pool bytes, the prefix and windowed runs' launches, the W 4096 cases
    with the stale-entry check, the copy-on-write check, the speculative
@@ -381,8 +399,8 @@ Phases (any failed check exits non-zero without the final line):
    rolling runs' with phase 2's cases at their shapes, and the moe runs';
    K2's entry counts the trainer's launches, the surface run's, the
    fleet's embeddings, the MoE forward check's and the beam check's, and
-   lists its B 1 serving cases).
-8. The last line: ``{"ok": true, "device": {...}}``.
+   lists its B 1 serving cases; K1 and K2-K4 add phase 7's).
+9. The last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -393,6 +411,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -630,7 +649,15 @@ def kernel_cases():
         dict(name=f"prefill_t{ROLLING_PROMPT}_w{MISTRAL_WINDOW}", b=1,
              t=ROLLING_PROMPT, bases=[0], window=MISTRAL_WINDOW,
              route="dense", ps=0, dtypes=("bfloat16",), hq=32, hkv=8,
-             hd=128, s=ROLLING_PROMPT)]
+             hd=128, s=ROLLING_PROMPT),
+        # phase 7's one-slot servers of a restored checkpoint (2048-row
+        # slot): the prompt's one chunk, and the last decode step
+        dict(name=f"prefill_t{CKPT_PROMPT}_base0", b=1, t=CKPT_PROMPT,
+             bases=[0], window=0, route="dense", ps=0, dtypes=("bfloat16",),
+             **full),
+        dict(name="decode_b1_ckpt", b=1, t=1,
+             bases=[CKPT_PROMPT + CKPT_NEW - 2], window=0, route="dense",
+             ps=0, dtypes=("bfloat16",), **full)]
     return cases
 
 
@@ -2528,7 +2555,8 @@ def phase_spec_batcher(torch, batching, spec_mod, speculative, generate,
 # priority-0 request with a 1 ms deadline arrives, and the slo scheduler
 # evicts the longest-running decode each time: request 0 (greedy), then
 # request PREEMPT_SEEDED (seeded, temperature 0.8)
-PREEMPT_PROMPT, PREEMPT_MAX_NEW, PREEMPT_SLOTS = (190, 210), 256, 8
+# (256 tokens out until the checkpoint phases took their time)
+PREEMPT_PROMPT, PREEMPT_MAX_NEW, PREEMPT_SLOTS = (190, 210), 128, 8
 PREEMPT_AFTER, PREEMPT_GAP, PREEMPT_HI_NEW = 32, 8, 32
 PREEMPT_SEEDED, PREEMPT_SEED, PREEMPT_TEMP = 1, 11, 0.8
 PREEMPT_RUNS = {"preempt_dense": ("dense", 1), "preempt_paged": ("paged", 1),
@@ -2569,7 +2597,8 @@ POOL_PRESSURE_BATCHES = 3
 OVERLOAD_QUEUE, OVERLOAD_BURST = 2, 24
 
 # phase_arrivals: an open-loop schedule through the server, fifo and slo
-ARRIVAL_N, ARRIVAL_PROMPTS, ARRIVAL_MAX_NEW = 48, (64, 512), (32, 128)
+# (48 requests until the checkpoint phases took their time)
+ARRIVAL_N, ARRIVAL_PROMPTS, ARRIVAL_MAX_NEW = 32, (64, 512), (32, 128)
 ARRIVAL_HI_SHARE, ARRIVAL_DEADLINE_MS, ARRIVAL_LOAD = 0.2, 1500, 1.2
 
 
@@ -4590,8 +4619,10 @@ LORA_N, LORA_RANK, LORA_CACHE_MB = 32, 16, 960
 # on adapters drawn Zipf-like (s = LORA_ZIPF_S) over the LORA_N; prompts
 # of LORA_PROMPTS tokens, LORA_MAX_NEW generated (128 until the decode
 # modes' part took their time); at once, then Poisson arrivals at
-# LORA_LOAD times the closed-loop rate
-LORA_MIX_N, LORA_BASE_N, LORA_ZIPF_S = 48, 12, 1.0
+# LORA_LOAD times the closed-loop rate (48 requests, 12 on the base,
+# until the checkpoint phases took their time: the 24 still miss, upload
+# and evict past the warm 12)
+LORA_MIX_N, LORA_BASE_N, LORA_ZIPF_S = 24, 6, 1.0
 # lora_mix's requests replayed alone: the first LORA_SOLO distinct
 # (adapter or base) first requests, in request order
 LORA_SOLO = 5
@@ -5818,8 +5849,9 @@ FLEET_ARGS = ["--preset", "llama3_8b", "--slots", "8", "--maxLen", "2048",
 FLEET_PREFIX, FLEET_TAIL, FLEET_NEW = 512, 64, 32
 FLEET_DRAIN_NEW = 64
 # the disaggregated hops: (prompt length, body knobs), 32 tokens each
-FLEET_DISAGG = [(512, {}), (512, {"seed": 21, "temperature": 0.8}),
-                (1024, {}), (1024, {"seed": 22, "temperature": 0.8})]
+# (each length greedy and seeded until the checkpoint phases took their
+# time)
+FLEET_DISAGG = [(512, {}), (1024, {"seed": 22, "temperature": 0.8})]
 FLEET_ROLES = "prefill=r0 decode=r1"
 FLEET_RESUME_PROMPT, FLEET_RESUME_NEW, FLEET_KILL_AT = 1024, 48, 8
 FLEET_HEALTH_S = 0.25   # the routers' health-poll interval
@@ -6950,6 +6982,377 @@ def _leaf_paths(tree, prefix=()):
     return out
 
 
+# --- phase 7 -----------------------------------------------------------------
+
+CKPT_LAYERS, CKPT_STEPS, CKPT_AT, CKPT_KEEP = 2, 4, 2, 2
+CKPT_ROOT = os.path.join(ROOT, ".ckpt_smoke")  # gitignored; deleted after
+CKPT_FREE_MIN = 24e9  # two 8.9 GB steps on disk while the second commits
+CKPT_PROMPT, CKPT_NEW = 200, 32
+LORA_TRAIN_RANK, LORA_TRAIN_STEPS, LORA_TRAIN_LR = 16, 6, 1e-2
+
+
+class Preempted(Exception):
+    """Raised from a trainer's ``on_step`` to stop a run mid-way."""
+
+
+def _state_leaves(train, state) -> list:
+    return (train.param_leaves(state["params"]) + state["opt_state"]["mu"]
+            + state["opt_state"]["nu"])
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def ckpt_resume(torch, kernel_support, llama, train, trainer_mod,
+                mha_route: str, directory: str) -> tuple:
+    """CKPT_STEPS steps straight through; then CKPT_AT steps with a
+    checkpoint every CKPT_AT steps and a stop after step CKPT_AT (the
+    preempted run), and a fresh trainer on the same directory run to
+    CKPT_STEPS: it resumes at CKPT_AT, and its losses and final params
+    and moments equal the straight run's bit for bit. Returns (the row,
+    the cfg, the resumed trainer's final state, the flash launches)."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=CKPT_LAYERS)
+    base = dict(model=cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                total_steps=CKPT_STEPS, warmup_steps=2, log_every=1,
+                device="cuda")
+    kernel_support.reset_launch_counts()
+    straight = trainer_mod.Trainer(trainer_mod.TrainerConfig(**base))
+    want = straight.run()
+    want_state = straight.state
+    del straight
+    tcfg = trainer_mod.TrainerConfig(
+        **base, checkpoint_dir=directory, checkpoint_interval=CKPT_AT,
+        max_checkpoints=CKPT_KEEP)
+    first = trainer_mod.Trainer(tcfg)
+    early = []
+
+    def stop(step, metrics):
+        early.append(float(metrics["loss"]))
+        if step == CKPT_AT:
+            raise Preempted
+
+    try:
+        first.run(on_step=stop)
+        fail("ckpt_resume: the preempted run was not stopped")
+    except Preempted:
+        pass
+    saved_first, steps_first = first.ckpt.last_save, first.ckpt.all_steps()
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    second = trainer_mod.Trainer(tcfg)
+    got = second.run()
+    launches = kernel_support.launch_counts()
+    flash = {name: launches.get(name, 0)
+             for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    want_losses = [h["loss"] for h in want.metrics_history]
+    got_losses = [h["loss"] for h in got.metrics_history]
+    leaves_equal = [bool(torch.equal(a, b)) for a, b in zip(
+        _state_leaves(train, want_state), _state_leaves(train, second.state))]
+    row = {
+        "phase": 7, "run": "ckpt_resume", "layers": cfg.n_layers,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": CKPT_STEPS,
+        "resumed_from": got.resumed_from, "steps_run": got.steps_run,
+        "losses_straight": want_losses, "losses_preempted": early,
+        "losses_resumed": got_losses,
+        "leaves_equal": sum(leaves_equal), "leaves": len(leaves_equal),
+        "count": [want_state["opt_state"]["count"],
+                  second.state["opt_state"]["count"]],
+        "steps_on_disk": {"preempted": steps_first,
+                          "resumed": second.ckpt.all_steps()},
+        "save_ms": {f"step{s['step']}": 1e3 * s["save_s"]
+                    for s in (saved_first, second.ckpt.last_save)},
+        "write_ms": {f"step{s['step']}": 1e3 * s["write_s"]
+                     for s in (saved_first, second.ckpt.last_save)},
+        "restore_ms": 1e3 * second.ckpt.last_restore["seconds"],
+        "state_bytes": saved_first["bytes"],
+        "restore_bytes": second.ckpt.last_restore["bytes"],
+        "bytes_on_disk": _dir_bytes(directory),
+        "flash_launches": flash,
+    }
+    emit(row)
+    if got.resumed_from != CKPT_AT or got.steps_run != CKPT_STEPS - CKPT_AT:
+        fail(f"ckpt_resume: resumed_from {got.resumed_from}, steps_run "
+             f"{got.steps_run}; want {CKPT_AT} and {CKPT_STEPS - CKPT_AT}")
+    if early != want_losses[:CKPT_AT] or \
+            got_losses != want_losses[CKPT_AT:]:
+        fail(f"ckpt_resume: losses {early} + {got_losses} are not the "
+             f"straight run's {want_losses} bit for bit")
+    if not all(leaves_equal) or row["count"][0] != row["count"][1]:
+        fail(f"ckpt_resume: {len(leaves_equal) - sum(leaves_equal)} "
+             "params/moments differ from the straight run's")
+    if steps_first != [CKPT_AT] or \
+            row["steps_on_disk"]["resumed"] != [CKPT_AT, CKPT_STEPS]:
+        fail(f"ckpt_resume: steps on disk {row['steps_on_disk']}")
+    # one launch of each a layer and step: the straight run's CKPT_STEPS,
+    # the preempted run's CKPT_AT and the resumed run's rest
+    need = cfg.n_layers * 2 * CKPT_STEPS
+    if any(n != need for n in flash.values()) or launches.get(mha_route, 0):
+        fail(f"ckpt_resume: flash launches {flash}, want {need} each")
+    state = second.state
+    del want_state, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, cfg, state, flash
+
+
+def ckpt_serve(torch, server_mod, generate, kernel_support, rpa, train, cfg,
+               trained: dict, directory: str) -> tuple:
+    """``load_params`` on the directory equals the trained params bit for
+    bit; a ``--checkpointDir`` server's greedy stream (one slot: the
+    decode step's GEMMs at generate's M) equals ``generate`` on them."""
+    params = server_mod.load_params(cfg, directory, device="cuda")
+    pairs = list(zip(train.param_leaves(params), train.param_leaves(trained)))
+    equal = sum(bool(a.dtype == b.dtype and torch.equal(a, b))
+                for a, b in pairs)
+    prompt = fleet_ids(CKPT_PROMPT, SEED + 7, cfg.vocab_size)
+    oracle = generate.generate(params, torch.tensor([prompt], device="cuda"),
+                               cfg, CKPT_NEW)[0].tolist()
+    argv = ["--preset", "llama3_8b", "--checkpointDir", directory,
+            "--slots", "1", "--maxLen", "2048"]
+    args, server, url = start_server(server_mod, argv, None)
+    try:
+        cb = server.engine.cb
+        if cb.cfg.n_layers != cfg.n_layers:
+            fail(f"ckpt_serve: the server read {cb.cfg.n_layers} layers "
+                 f"off a {cfg.n_layers}-layer checkpoint")
+        steps0, chunks0 = cb.decode_steps, cb.prefill_chunks
+        kernel_support.reset_launch_counts()
+        got = _post(url, {"prompt": prompt, "max_new": CKPT_NEW,
+                          "stream": True})
+        k1 = k1_counts(kernel_support, rpa)
+        need = cfg.n_layers * (cb.decode_steps - steps0
+                               + cb.prefill_chunks - chunks0)
+    finally:
+        server.stop()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": 7, "run": "ckpt_serve", "layers": cfg.n_layers,
+           "leaves_equal": equal, "leaves": len(pairs),
+           "prompt": CKPT_PROMPT, "max_new": CKPT_NEW,
+           "stream_equal": got["tokens"] == oracle,
+           "first_divergence": first_divergence(got["tokens"], oracle),
+           "ttft_s": got["ttft"], "k1_launches": k1}
+    emit(row)
+    if equal != len(pairs):
+        fail(f"ckpt_serve: {len(pairs) - equal} restored leaves differ from "
+             "the trained params")
+    if got["tokens"] != oracle:
+        fail(f"ckpt_serve: the served stream parts from generate's at token "
+             f"{row['first_divergence']}")
+    if not k1["total"] or k1["total"] != need or \
+            k1["tensor_cores"] != need:
+        fail(f"ckpt_serve: K1 launches {k1}, want {need} (a layer per "
+             "decode step and chunk) on the tensor cores")
+    return row, params, k1["total"]
+
+
+def lora_train(torch, kernel_support, lora, train, mha_route: str, cfg,
+               base: dict) -> tuple:
+    """A rank-16 adapter on all seven targets, LORA_TRAIN_STEPS steps on
+    one batch (bf16, the tensor cores); then one f32 step's factor
+    gradients through the kernels (CUDA cores) and the plain attention."""
+    lc = lora.LoraConfig(rank=LORA_TRAIN_RANK, alpha=2.0 * LORA_TRAIN_RANK,
+                         targets=lora.TARGETABLE)
+    opt = train.make_optimizer(learning_rate=LORA_TRAIN_LR, warmup_steps=1,
+                               total_steps=LORA_TRAIN_STEPS)
+    state = lora.init_lora_state(cfg, lc, opt, seed=SEED, device="cuda")
+    batch = train.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 1,
+                                  device="cuda")
+    before = [p.clone() for p in train.param_leaves(base)]
+    step = lora.make_lora_train_step(base, cfg, lc, opt)
+    kernel_support.reset_launch_counts()
+    losses, norms, stamps = [], [], [time.perf_counter()]
+    for _ in range(LORA_TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        stamps.append(time.perf_counter())
+    launches = kernel_support.launch_counts()
+    base_equal = all(torch.equal(a, b) and not b.requires_grad for a, b in
+                     zip(before, train.param_leaves(base)))
+    del before
+    need = cfg.n_layers * LORA_TRAIN_STEPS
+    flash = {name: {"total": launches.get(name, 0), **{
+        e: launches.get(kernel_support.engine_key(name, e), 0)
+        for e in kernel_support.ENGINES}}
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+
+    # f32: the base and the trained factors widened, one step's factor
+    # gradients by both attention routes
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    base32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.float())
+              for k, v in base.items()}
+    lp32 = {t: {k: v.float() for k, v in ab.items()}
+            for t, ab in state["lora"].items()}
+    routes = []
+    for plain in (False, True):
+        kernel_support.reset_launch_counts()
+        g, m = lora.lora_grads(base32, lp32, batch, cfg32, lc,
+                               plain_attention=plain)
+        routes.append((g, float(m["loss"]), kernel_support.launch_counts()))
+        del g
+    (gk, lk, ck), (gp, lp_, cp) = routes
+    names = [".".join(p) for p in _leaf_paths(lp32)]
+    rel = {n: float((a - b).norm() / b.norm()) for n, a, b in
+           zip(names, gk, gp)}
+    del base32, lp32, routes, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": 7, "run": "lora_train", "layers": cfg.n_layers,
+           "rank": LORA_TRAIN_RANK, "targets": list(lc.targets),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": LORA_TRAIN_STEPS,
+           "lr": LORA_TRAIN_LR, "losses": losses, "grad_norms": norms,
+           "step_ms": step_ms, "base_bit_equal": base_equal,
+           "flash_launches": flash,
+           "mha_reference_calls": launches.get(mha_route, 0),
+           "f32_loss_kernel_vs_plain": [lk, lp_],
+           "f32_factor_grad_rel_dist_max": max(rel.values()),
+           "f32_factor_grad_rel_dist": rel,
+           "f32_launches": {"kernel_path": ck, "plain_path": cp}}
+    emit(row)
+    if not all(math.isfinite(x) for x in losses + norms) or \
+            not losses[-1] < losses[0]:
+        fail(f"lora_train: the loss did not fall: {losses}")
+    if not base_equal:
+        fail("lora_train: the base weights changed or require grad")
+    for name, c in flash.items():
+        if c["total"] != need or c["tensor_cores"] != need:
+            fail(f"lora_train: {name} launched {c}; want {need} on the "
+                 "tensor cores")
+    if row["mha_reference_calls"]:
+        fail("lora_train: attention took mha_reference on the card")
+    if any(ck.get(kernel_support.engine_key(n, "cuda_cores")) != cfg.n_layers
+           for n in flash) or not cp.get(mha_route, 0) or \
+            any(n.startswith("flash_") for n in cp):
+        fail(f"lora_train f32: wrong routes {ck} / {cp}")
+    if abs(lk - lp_) > LOSS_RTOL * abs(lp_) or \
+            row["f32_factor_grad_rel_dist_max"] > GRAD_NORM_RTOL:
+        fail(f"lora_train f32: kernel vs plain loss {lk} / {lp_}, factor "
+             f"gradients apart by {row['f32_factor_grad_rel_dist_max']:.3e} "
+             f"(> {GRAD_NORM_RTOL})")
+    return row, state, lc, {n: c["total"] for n, c in flash.items()}
+
+
+def lora_ckpt_serve(torch, server_mod, batching, lora, kernel_support, rpa,
+                    ckpt_mod, cfg, params, state, lc, directory: str,
+                    adapter_dir: str) -> tuple:
+    """The trained adapter's state saved, then served by
+    ``--loraAdapters ft=dir`` beside ``--checkpointDir``: its bf16 stream
+    against the merged weights' (reported), and on the f32 twin (the
+    same checkpoint loaded for the f32 config) tokens equal to the merged
+    oracle's and logprobs within LORA_F32_TOL."""
+    with ckpt_mod.TrainCheckpointer(adapter_dir, async_save=False) as c:
+        c.save(state, step=state["step"], force=True)
+    prompt = fleet_ids(CKPT_PROMPT, SEED + 8, cfg.vocab_size)
+    argv = ["--preset", "llama3_8b", "--checkpointDir", directory,
+            "--loraAdapters", f"ft={adapter_dir}", "--slots", "1",
+            "--maxLen", "2048"]
+    args, server, url = start_server(server_mod, argv, None)
+    try:
+        cb = server.engine.cb
+        steps0, chunks0 = cb.decode_steps, cb.prefill_chunks
+        kernel_support.reset_launch_counts()
+        got = _post(url, {"prompt": prompt, "max_new": CKPT_NEW,
+                          "adapter": "ft"})
+        served_k1 = k1_counts(kernel_support, rpa)
+        need = cfg.n_layers * (cb.decode_steps - steps0
+                               + cb.prefill_chunks - chunks0)
+    finally:
+        server.stop()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    merged = lora.merge_lora(params, state["lora"], lc)
+    kernel_support.reset_launch_counts()
+    [(want, _)], cb = serve_batch(batching, merged, cfg, [(prompt, -1)])
+    k1 = served_k1["total"] + k1_counts(kernel_support, rpa)["total"]
+    del merged, cb
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    kernel_support.reset_launch_counts()
+    [(t32, l32)], cb = serve_batch(
+        batching, p32, cfg32, [(prompt, 0)],
+        adapters=server_mod.load_adapters(cfg32, f"ft={adapter_dir}",
+                                          device="cuda"))
+    del cb
+    lp32 = {t: {k: v.float() for k, v in ab.items()}
+            for t, ab in state["lora"].items()}
+    [(w32, wl32)], cb = serve_batch(batching, lora.merge_lora(p32, lp32, lc),
+                                    cfg32, [(prompt, -1)])
+    k1 += k1_counts(kernel_support, rpa)["total"]
+    del cb, p32, lp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = max(abs(x - y) for x, y in zip(l32, wl32)) if t32 == w32 else None
+    row = {"phase": 7, "run": "lora_ckpt_serve", "layers": cfg.n_layers,
+           "adapter_bytes": _dir_bytes(adapter_dir),
+           "bf16_first_divergence": first_divergence(got["tokens"][:len(want)],
+                                                     want),
+           "bf16_served_new": len(got["tokens"]),
+           "f32_stream_equal": t32 == w32,
+           "f32_first_divergence": first_divergence(t32, w32),
+           "f32_logprob_max_err": err, "f32_tol": LORA_F32_TOL,
+           "k1_launches_served": served_k1, "k1_launches": k1}
+    emit(row)
+    if t32 != w32 or err > LORA_F32_TOL:
+        fail(f"lora_ckpt_serve f32: the adapter's stream parts from the "
+             f"merged oracle's at {row['f32_first_divergence']} (logprob "
+             f"error {err})")
+    if not served_k1["total"] or served_k1["total"] != need:
+        fail(f"lora_ckpt_serve: K1 launches {served_k1}, want {need} (a "
+             "layer per decode step and chunk)")
+    return row, k1
+
+
+def phase_checkpoints(torch, kernel_support, attention_mod, llama, train,
+                      trainer_mod, lora, ckpt_mod, server_mod, generate,
+                      batching, rpa) -> dict:
+    """Phase 7 in a directory beside the script, removed on every path."""
+    free = shutil.disk_usage(ROOT).free
+    emit({"phase": 7, "run": "ckpt_disk", "dir": CKPT_ROOT,
+          "free_bytes": free, "need_bytes": CKPT_FREE_MIN})
+    if free < CKPT_FREE_MIN:
+        fail(f"phase 7 needs {CKPT_FREE_MIN:.0f} free bytes beside the "
+             f"script for two checkpoint steps, {free} are free")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    trained = os.path.join(CKPT_ROOT, "trained")
+    try:
+        resume, cfg, state, flash = ckpt_resume(
+            torch, kernel_support, llama, train, trainer_mod,
+            attention_mod.MHA_ROUTE, trained)
+        serve, params, k1 = ckpt_serve(torch, server_mod, generate,
+                                       kernel_support, rpa, train, cfg,
+                                       state["params"], trained)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        lt, lstate, lc, lflash = lora_train(
+            torch, kernel_support, lora, train, attention_mod.MHA_ROUTE, cfg,
+            params)
+        ls_row, ls_k1 = lora_ckpt_serve(
+            torch, server_mod, batching, lora, kernel_support, rpa,
+            ckpt_mod, cfg, params, lstate, lc, trained,
+            os.path.join(CKPT_ROOT, "adapter"))
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    del params, lstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ckpt_resume": resume, "ckpt_serve": serve, "lora_train": lt,
+            "lora_ckpt_serve": ls_row, "k1_launches": k1 + ls_k1,
+            "flash_launches": {n: flash[n] + lflash[n] for n in flash},
+            "lora_flash_launches": lflash}
+
+
 # --- main --------------------------------------------------------------------
 
 
@@ -6969,6 +7372,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     try:
         from k8s_gpu_device_plugin_torch.models import batching
+        from k8s_gpu_device_plugin_torch.models import checkpoint as ckpt_mod
         from k8s_gpu_device_plugin_torch.models import generate
         from k8s_gpu_device_plugin_torch.models import llama
         from k8s_gpu_device_plugin_torch.models import lora
@@ -7122,6 +7526,11 @@ def main() -> None:
                           llama, generate)
     training = phase_training(torch, kernel_support, attention_mod, llama,
                               train, trainer_mod)
+    # checkpoints: exact resume, serving what was trained, LoRA training
+    # and serving the trained adapter (2 layers at the 8B widths)
+    ckpt = phase_checkpoints(torch, kernel_support, attention_mod, llama,
+                             train, trainer_mod, lora, ckpt_mod, server_mod,
+                             generate, batching, rpa)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head = next(c for c in cases
@@ -7180,7 +7589,8 @@ def main() -> None:
         + sum(fleet_runs["k1_launches"].values())
         + sum(beam[d]["k1_launches"] for d in ("bf16", "f32"))
         + sum(window["rolling"][d][f"k1_launches_{run}"]
-              for d in ("bf16", "f32") for run in ("rolling", "unbounded")),
+              for d in ("bf16", "f32") for run in ("rolling", "unbounded"))
+        + ckpt["k1_launches"],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -7250,6 +7660,17 @@ def main() -> None:
                                    "max_abs_err": c["max_abs_err"]}
                        for c in cases if c["case"] ==
                        f"prefill_t{ROLLING_PROMPT}_w{MISTRAL_WINDOW}"}},
+         # phase 7: a --checkpointDir server's chunk and decode steps,
+         # the --loraAdapters server's and its batcher-level oracles'
+         "checkpoints": {"launches": ckpt["k1_launches"],
+                         "ckpt_serve": ckpt["ckpt_serve"]["k1_launches"],
+                         "lora_ckpt_serve": ckpt["lora_ckpt_serve"][
+                             "k1_launches_served"],
+                         "cases": {c["case"]: {**{k: c[k] for k in keys},
+                                               "max_abs_err": c["max_abs_err"]}
+                                   for c in cases if c["case"] in (
+                                       f"prefill_t{CKPT_PROMPT}_base0",
+                                       "decode_b1_ckpt")}},
          "moe": {"launches": moe["summary"]["k1_launches"],
                  "decode_step_ms_mean": moe["summary"]["decode_step_ms_mean"],
                  "decode_graph_pool_bytes":
@@ -7313,7 +7734,8 @@ def main() -> None:
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
-            training["launches"].get(name, 0) + served, errs,
+            training["launches"].get(name, 0) + served
+            + ckpt["flash_launches"][name], errs,
             {"ms": fhead["ms"][name], "plain_ms": fhead["plain_ms"][name],
              "bound_ms": fhead["bounds"][name]["bound_ms"],
              "bound_by": fhead["bounds"][name]["bound_by"],
@@ -7328,6 +7750,11 @@ def main() -> None:
              # every short scored prompt and embedding) and the MoE
              # forward check's (Mixtral's width, f32, CUDA cores)
              "launches_training": training["launches"].get(name, 0),
+             # phase 7: the resumed and straight trainer runs' and LoRA
+             # training's (2 layers, bf16, the tensor cores)
+             "launches_checkpoint_runs": ckpt["flash_launches"][name]
+             - ckpt["lora_flash_launches"][name],
+             "launches_lora_train": ckpt["lora_flash_launches"][name],
              "launches_surface": surface["launches"]["flash_fwd"]
              if name == "flash_fwd" else 0,
              # the embedding through the replica router and direct

@@ -11,7 +11,7 @@ Port of ``k8s_gpu_device_plugin_tpu/data/pipeline.py`` for one process:
   ``{"inputs", "targets"}`` (B, S) int64 tensors on the device.
 - ``make_token_source`` serves a corpus file through ``MemmapSource``;
   the reference's native C++ gather (``data/native_loader.py``) is not
-  ported yet (ROADMAP A8) and its sampling recipe is the same, so the
+  ported yet (ROADMAP A.11c) and its sampling recipe is the same, so the
   batches do not change.
 """
 
@@ -118,38 +118,42 @@ class DataLoader:
             yield from self._prefetch_iter()
 
     def _prefetch_iter(self) -> Iterator[dict]:
-        """Background producer thread, bounded queue (double buffering)."""
-        q: queue.Queue = queue.Queue(maxsize=self._prefetch)
-        stop = threading.Event()
+        """Background producer thread, bounded queue (double buffering).
+        A ``seek`` while iterating drops the batches already staged: the
+        producer restarts at the new step."""
+        while True:
+            q: queue.Queue = queue.Queue(maxsize=self._prefetch)
+            stop = threading.Event()
 
-        def produce(start: int) -> None:
-            step = start
-            try:
-                while not stop.is_set():
-                    q.put(("ok", step, self._make_batch(step)))
-                    step += 1
-            except Exception as e:  # noqa: BLE001 - surface on the consumer side
-                q.put(("err", step, e))
-
-        t = threading.Thread(
-            target=produce, args=(self._step,), daemon=True, name="data-prefetch"
-        )
-        t.start()
-        try:
-            while True:
-                kind, step, payload = q.get()
-                if kind == "err":
-                    raise payload
-                self._step = step + 1
-                yield payload
-        finally:
-            stop.set()
-            # unblock a producer waiting on a full queue
-            while not q.empty():
+            def produce(start: int, q=q, stop=stop) -> None:
+                step = start
                 try:
-                    q.get_nowait()
-                except queue.Empty:
-                    break
+                    while not stop.is_set():
+                        q.put(("ok", step, self._make_batch(step)))
+                        step += 1
+                except Exception as e:  # noqa: BLE001 - surface on the consumer side
+                    q.put(("err", step, e))
+
+            t = threading.Thread(target=produce, args=(self._step,),
+                                 daemon=True, name="data-prefetch")
+            t.start()
+            try:
+                while True:
+                    kind, step, payload = q.get()
+                    if kind == "err":
+                        raise payload
+                    self._step = step + 1
+                    yield payload
+                    if self._step != step + 1:  # seek(): restart there
+                        break
+            finally:
+                stop.set()
+                # unblock a producer waiting on a full queue
+                while not q.empty():
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        break
 
 
 def make_token_source(path: str, vocab_size: int, dtype: str = "uint16",

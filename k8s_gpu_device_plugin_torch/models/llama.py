@@ -136,7 +136,7 @@ class LlamaConfig:
         if self.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: sequence-parallel attention "
-                "is not ported yet (ROADMAP A12); use 'auto'"
+                "is not ported yet (ROADMAP A.13); use 'auto'"
             )
         if self.attn_impl != "auto":
             raise ValueError(
@@ -151,14 +151,14 @@ class LlamaConfig:
             )
         refusals = (
             ("quant", "none", "int8 training matmuls are not ported yet "
-             "(ROADMAP A8); use quant='none' (weight-only serving "
+             "(ROADMAP A.11b); use quant='none' (weight-only serving "
              "quantization is models/quantized_serving.py)"),
             ("tp", 1, "tensor-parallel serving is not ported yet (ROADMAP "
-             "A11); serve tp=1 (one card)"),
+             "A.12); serve tp=1 (one card)"),
             ("fused_ce", False, "fused lm_head + cross-entropy is not "
-             "ported yet (ROADMAP A8); use fused_ce=False"),
+             "ported yet (ROADMAP A.11b); use fused_ce=False"),
             ("n_microbatches", 1, "pipeline parallelism is not ported yet "
-             "(ROADMAP A12); use n_microbatches=1"),
+             "(ROADMAP A.13); use n_microbatches=1"),
         )
         for name, allowed, why in refusals:
             if getattr(self, name) != allowed:

@@ -10,20 +10,30 @@ model exactly.
 
 Serving keeps the base weights and adds each row's delta instead
 (``models/lora_serving.py``); ``merge_lora`` is the oracle the tests and
-the card's run hold that path to. The training step and its state
-(``make_lora_train_step``, ``init_lora_state``) are not ported yet
-(ROADMAP A.11).
+the card's run hold that path to. Training (``make_lora_train_step``,
+``init_lora_state``) takes the loss of the merged weights and its
+gradients by the factors alone: ``merge_lora`` is differentiable and the
+base leaves never require grad, so they stay equal bit for bit. On the
+card the step's attention runs the flash kernels forward and backward,
+as the full train step's does; the merge and the products stay torch
+(the reference leaves them to XLA).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from k8s_gpu_device_plugin_torch.device import resolve_device
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
+from k8s_gpu_device_plugin_torch.models.train import (
+    AdamW,
+    grads_by,
+    param_leaves,
+)
 
 #: weight matrices LoRA can target (layer-stacked (L, in, out) leaves)
 TARGETABLE = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
@@ -106,3 +116,50 @@ def merge_lora(params: dict, lora_params: dict, lora: LoraConfig) -> dict:
         w = layers[t]
         layers[t] = (w.float() + delta.to(w.device)).to(w.dtype)
     return {**params, "layers": layers}
+
+
+def lora_grads(base_params: dict, lora_params: dict, batch: dict,
+               cfg: LlamaConfig, lora: LoraConfig,
+               with_accuracy: bool = False, plain_attention: bool = False):
+    """(gradients of the merged model's loss by each of
+    ``param_leaves(lora_params)``, metrics). ``plain_attention`` runs
+    ``mha_reference``: a comparison path, never training's."""
+    return grads_by(param_leaves(lora_params),
+                    lambda: merge_lora(base_params, lora_params, lora),
+                    batch, cfg, with_accuracy=with_accuracy,
+                    plain_attention=plain_attention)
+
+
+def make_lora_train_step(base_params: dict, cfg: LlamaConfig,
+                         lora: LoraConfig, optimizer: AdamW,
+                         with_accuracy: bool = False) -> Callable:
+    """(lora_state, batch) -> (lora_state, metrics), updating the
+    factors and their moments in place (``models/train.py``'s
+    convention); the base tree is read, never written. lora_state =
+    ``{"lora", "opt_state", "step"}``; metrics carry ``grad_norm`` (the
+    global norm before clipping)."""
+
+    def step(state: dict, batch: dict):
+        grads, metrics = lora_grads(base_params, state["lora"], batch, cfg,
+                                    lora, with_accuracy=with_accuracy)
+        metrics["grad_norm"] = optimizer.update(
+            list(grads), state["opt_state"], param_leaves(state["lora"]))
+        state["step"] += 1
+        return state, metrics
+
+    return step
+
+
+def init_lora_state(cfg: LlamaConfig, lora: LoraConfig, optimizer: AdamW,
+                    *, seed: int = 0,
+                    generator: "torch.Generator | None" = None,
+                    device: "str | torch.device | None" = "cuda") -> dict:
+    """``{"lora", "opt_state", "step"}``: fresh factors (from
+    ``generator``, else one seeded with ``seed`` on ``device``) and zero
+    moments beside them."""
+    if generator is None:
+        generator = torch.Generator(device=resolve_device(device))
+        generator.manual_seed(seed)
+    lp = init_lora_params(cfg, lora, generator=generator, device=device)
+    return {"lora": lp, "opt_state": optimizer.init(param_leaves(lp)),
+            "step": 0}

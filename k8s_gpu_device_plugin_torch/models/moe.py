@@ -168,11 +168,11 @@ def moe_param_init(cfg: "LlamaConfig", draw: Callable,
             leaf = draw(shape, scale).to(cfg.p_dtype)
             if expert_leaf is not None:
                 leaf = expert_leaf(leaf)
-            _store_layer(out, name, i, L, leaf)
+            store_layer(out, name, i, L, leaf)
     return out
 
 
-def _store_layer(out: dict, name: str, i: int, n_layers: int, leaf) -> None:
+def store_layer(out: dict, name: str, i: int, n_layers: int, leaf) -> None:
     """Copy one layer's leaf (a tensor or a dict of tensors) into layer
     ``i`` of the stacked leaf ``out[name]``, allocated at the first
     layer."""

@@ -145,7 +145,7 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
     if impl == "fused":
         raise NotImplementedError(
             "opt_impl='fused' (ops/fused_optim.py) is not ported yet "
-            "(ROADMAP A8); use 'optax'"
+            "(ROADMAP A.11b); use 'optax'"
         )
     if impl != "optax":
         raise ValueError(f"unknown optimizer impl {impl!r}")
@@ -185,19 +185,25 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig,
     return loss, metrics
 
 
-def _grads(params: dict, batch: dict, cfg: LlamaConfig, **kw):
-    """(grads of the loss by each of ``param_leaves(params)``, metrics)."""
-    leaves = param_leaves(params)
+def grads_by(leaves: list, model: Callable[[], dict], batch: dict,
+             cfg: LlamaConfig, **kw):
+    """(grads of the loss of the params ``model()`` builds by each of
+    ``leaves``, metrics); the leaves require grad for this call only."""
     with torch.enable_grad():
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, metrics = loss_fn(params, batch, cfg, **kw)
+            loss, metrics = loss_fn(model(), batch, cfg, **kw)
             grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
     return grads, metrics
+
+
+def _grads(params: dict, batch: dict, cfg: LlamaConfig, **kw):
+    """(grads of the loss by each of ``param_leaves(params)``, metrics)."""
+    return grads_by(param_leaves(params), lambda: params, batch, cfg, **kw)
 
 
 def _split(batch: dict, micro: int, what: str) -> list:

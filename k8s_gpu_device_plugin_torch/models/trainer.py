@@ -4,11 +4,14 @@ Port of ``k8s_gpu_device_plugin_tpu/models/trainer.py`` for one card.
 ``Trainer.run`` keeps the reference's loop: the tokens/s clock starts
 after step 0 (warm-up) and pauses for evaluation; eval runs every
 ``eval_every`` steps and after the last one over the same validation
-batches. Checkpoints, xprof traces, meshes and multi-host runs are not
-ported yet; the CLI refuses their flags, naming the ROADMAP item.
+batches. With ``checkpoint_dir`` a run resumes from the directory's
+latest step (state and data stream), saves on the checkpointer's cadence
+after every step and always saves its final state
+(``models/checkpoint.py``). xprof traces, meshes and multi-host runs are
+not ported yet; the CLI refuses their flags, naming the ROADMAP item.
 
     python -m k8s_gpu_device_plugin_torch.models.trainer --preset tiny \\
-        --steps 20 --device cpu
+        --steps 20 --device cpu --checkpointDir /tmp/run
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from k8s_gpu_device_plugin_torch.data.pipeline import (
     make_token_source,
 )
 from k8s_gpu_device_plugin_torch.device import resolve_device
+from k8s_gpu_device_plugin_torch.models.checkpoint import TrainCheckpointer
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
 from k8s_gpu_device_plugin_torch.models.train import (
     init_train_state,
@@ -58,6 +62,11 @@ class TrainerConfig:
     eval_batches: int = 4
     eval_micro: int = 0
     log_every: int = 10
+    # checkpoint/resume ("" disables): saves every checkpoint_interval
+    # steps and at the end, keeping the newest max_checkpoints
+    checkpoint_dir: str = ""
+    checkpoint_interval: int = 1000
+    max_checkpoints: int = 3
     opt_impl: str = "optax"
     # token corpus ("" = synthetic)
     data_file: str = ""
@@ -73,13 +82,15 @@ class TrainResult:
     metrics_history: list
     final_eval: "dict | None" = None  # {"loss", "perplexity", "accuracy"}
     data_source: str = "synthetic"
+    resumed_from: "int | None" = None
 
 
 class Trainer:
     """Owns one training run. ``params`` replaces the random initial
     parameters (tests start both frameworks from the same numbers). On
     the card, a config whose attention the flash kernels do not take
-    (head dim, sequence length, dtype) is refused here, at startup."""
+    (head dim, sequence length, dtype) is refused here, at startup.
+    After ``run`` the final state is ``self.state``."""
 
     def __init__(self, cfg: TrainerConfig,
                  loader: "DataLoader | None" = None,
@@ -145,6 +156,23 @@ class Trainer:
             self.eval_step_fn = make_eval_step(
                 cfg.model, micro=cfg.eval_micro or cfg.grad_accum
             )
+        self.ckpt: "TrainCheckpointer | None" = None
+        if cfg.checkpoint_dir:
+            self.ckpt = TrainCheckpointer(
+                cfg.checkpoint_dir, max_to_keep=cfg.max_checkpoints,
+                save_interval=cfg.checkpoint_interval, logger=self.log)
+        self.state: "dict | None" = None
+
+    def _init_or_resume(self) -> "tuple[dict, int | None]":
+        state = init_train_state(self.cfg.model, self.optimizer,
+                                 device=self.device, params=self._params)
+        resumed_from = None
+        if self.ckpt is not None:
+            state, resumed = self.ckpt.restore_or_pass(state)
+            if resumed:
+                resumed_from = int(state["step"])
+                self.loader.seek(resumed_from)
+        return state, resumed_from
 
     def _evaluate(self, params) -> dict:
         """Mean held-out metrics over ``eval_batches`` batches from step 0."""
@@ -166,8 +194,9 @@ class Trainer:
     def run(self, on_step: "Callable[[int, dict], None] | None" = None
             ) -> TrainResult:
         cfg = self.cfg
-        state = init_train_state(cfg.model, self.optimizer,
-                                 device=self.device, params=self._params)
+        state, resumed_from = self._init_or_resume()
+        self.state = state
+        start_step = int(state["step"])
         history: list = []
         tokens_per_batch = cfg.batch_size * cfg.seq_len
         it = iter(self.loader)
@@ -175,47 +204,71 @@ class Trainer:
         t_start = None
         steps_timed = 0
         eval_seconds = 0.0
-        for step in range(cfg.total_steps):
-            state, metrics = self.step_fn(state, next(it))
-            if t_start is None:
-                # the clock starts once step 0 has finished (warm-up)
-                float(metrics["loss"])
-                t_start = time.perf_counter()
-            else:
-                steps_timed += 1
-            if (step + 1) % cfg.log_every == 0 or step + 1 == cfg.total_steps:
-                snap = {"step": step + 1, "loss": float(metrics["loss"]),
-                        "grad_norm": float(metrics["grad_norm"])}
-                history.append(snap)
-                self.log.info("train step", extra={"fields": snap})
-            if (self.eval_loader is not None
-                    and (step + 1) % cfg.eval_every == 0
-                    and step + 1 != cfg.total_steps):  # final eval below
-                # finish in-flight work, then pause the clock
-                float(metrics["loss"])
-                t_eval = time.perf_counter()
-                ev = self._evaluate(state["params"])
-                eval_seconds += time.perf_counter() - t_eval
-                self.log.info("eval", extra={"fields": {"step": step + 1, **ev}})
-                history.append({"step": step + 1, "eval": ev})
-            if on_step is not None:
-                on_step(step + 1, metrics)
+        try:
+            for step in range(start_step, cfg.total_steps):
+                state, metrics = self.step_fn(state, next(it))
+                if t_start is None:
+                    # the clock starts once the run's first step has
+                    # finished (warm-up)
+                    float(metrics["loss"])
+                    t_start = time.perf_counter()
+                else:
+                    steps_timed += 1
+                if self.ckpt is not None:
+                    self.ckpt.save(state, step=step + 1)
+                if (step + 1) % cfg.log_every == 0 \
+                        or step + 1 == cfg.total_steps:
+                    snap = {"step": step + 1,
+                            "loss": float(metrics["loss"]),
+                            "grad_norm": float(metrics["grad_norm"])}
+                    history.append(snap)
+                    self.log.info("train step", extra={"fields": snap})
+                if (self.eval_loader is not None
+                        and (step + 1) % cfg.eval_every == 0
+                        and step + 1 != cfg.total_steps):  # final eval below
+                    # finish in-flight work, then pause the clock
+                    float(metrics["loss"])
+                    t_eval = time.perf_counter()
+                    ev = self._evaluate(state["params"])
+                    eval_seconds += time.perf_counter() - t_eval
+                    self.log.info("eval",
+                                  extra={"fields": {"step": step + 1, **ev}})
+                    history.append({"step": step + 1, "eval": ev})
+                if on_step is not None:
+                    on_step(step + 1, metrics)
+        finally:
+            if self.ckpt is not None:
+                # the final state is always recoverable, cadence
+                # notwithstanding (a run stopped between steps too); a
+                # state that an exception left half updated is not
+                if int(state["step"]) > start_step and _whole(state):
+                    self.ckpt.save(state, force=True)
+                self.ckpt.wait()
         final_loss = float(metrics["loss"]) if metrics else float("nan")
         elapsed = time.perf_counter() - t_start - eval_seconds if t_start else 0.0
         tps = tokens_per_batch * steps_timed / elapsed if elapsed > 0 else 0.0
         final_eval = None
-        if self.eval_loader is not None and cfg.total_steps > 0:
+        if self.eval_loader is not None and cfg.total_steps > start_step:
             final_eval = self._evaluate(state["params"])
             self.log.info("final eval",
                           extra={"fields": {"step": cfg.total_steps, **final_eval}})
         return TrainResult(
-            steps_run=cfg.total_steps,
+            steps_run=cfg.total_steps - start_step,
             final_loss=final_loss,
             tokens_per_second=tps,
             metrics_history=history,
             final_eval=final_eval,
             data_source=self.data_source_label,
+            resumed_from=resumed_from,
         )
+
+
+def _whole(state: dict) -> bool:
+    """Whether no step is half applied to ``state``: the optimizer counts
+    its update before it writes the leaves one at a time, and the step
+    counter moves last (``models/train.py``), so an exception inside a
+    step leaves the two apart."""
+    return int(state["opt_state"]["count"]) == int(state["step"])
 
 
 PRESETS = {
@@ -246,8 +299,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ep", type=int, default=1)
     parser.add_argument("--fsdp", type=int, default=None)
     parser.add_argument("--numSlices", type=int, default=1)
-    parser.add_argument("--checkpointDir", default="")
-    parser.add_argument("--checkpointInterval", type=int, default=1000)
+    parser.add_argument("--checkpointDir", default="",
+                        help="resume from this directory's latest step "
+                        "and save into it (empty = no checkpoints)")
+    parser.add_argument("--checkpointInterval", type=int, default=1000,
+                        help="save every this many steps (and always "
+                        "after the last)")
     parser.add_argument("--traceDir", default="")
     parser.add_argument("--quant", default="none", choices=["none", "int8"])
     parser.add_argument("--masterWeights", action="store_true",
@@ -272,18 +329,16 @@ def _refusal(args: argparse.Namespace) -> "str | None":
         value = getattr(args, flag)
         if value is not None and value > 1:
             return (f"--{flag} {value}: parallel training is not ported yet "
-                    "(ROADMAP A12); the port trains on one card")
+                    "(ROADMAP A.13); the port trains on one card")
     checks = (
-        (args.checkpointDir, "--checkpointDir: checkpoints are not ported "
-         "yet (ROADMAP A8)"),
         (args.traceDir, "--traceDir: trainer traces are not ported yet "
-         "(ROADMAP A8)"),
+         "(ROADMAP A.11c)"),
         (args.quant != "none", f"--quant {args.quant}: int8 matmuls are not "
-         "ported yet (ROADMAP A8)"),
+         "ported yet (ROADMAP A.11b)"),
         (args.optImpl != "optax", f"--optImpl {args.optImpl}: the fused "
-         "optimizer is not ported yet (ROADMAP A8)"),
+         "optimizer is not ported yet (ROADMAP A.11b)"),
         (args.fusedCE, "--fusedCE: fused cross-entropy is not ported yet "
-         "(ROADMAP A8)"),
+         "(ROADMAP A.11b)"),
         (args.preset == "mixtral_8x7b", "--preset mixtral_8x7b: its "
          "params, grads and Adam state take about 747 GB, which is "
          "parallel training, not ported yet (ROADMAP A.13); the tiny "
@@ -315,6 +370,8 @@ def _main(argv: "list[str] | None" = None) -> int:
         eval_every=args.evalEvery,
         eval_batches=args.evalBatches,
         total_steps=args.steps,
+        checkpoint_dir=args.checkpointDir,
+        checkpoint_interval=args.checkpointInterval,
         data_file=args.dataFile,
         data_dtype=args.dataDtype,
         device=str(device),
@@ -333,7 +390,8 @@ def _main(argv: "list[str] | None" = None) -> int:
     print(
         f"trainer: steps={result.steps_run} loss={result.final_loss:.4f} "
         f"tokens/s={result.tokens_per_second:.0f} "
-        f"data={result.data_source}{eval_str}"
+        f"resumed_from={result.resumed_from} data={result.data_source}"
+        f"{eval_str}"
     )
     return 0
 

@@ -6,7 +6,7 @@ KV cache's per-row recipes, ``models/generate.py::_quantize_kv``) and
 ``quantize_int4_grouped`` (the int4 weight recipe,
 ``models/quantized_serving.py``). The same f32 input gives the
 reference's codes and the reference's scale bits. ``int8_matmul`` is not
-ported yet (ROADMAP A8).
+ported yet (ROADMAP A.11b).
 
 int4 storage. ``jnp.int4`` is a narrow dtype XLA packs for itself; torch
 has none, so the port defines the packing once, here: int4 codes are

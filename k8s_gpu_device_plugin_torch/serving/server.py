@@ -157,8 +157,17 @@ adapters=...)`` serves an ``AdapterSet`` (made an ``AdapterStore`` under
 lists them. The store outlives a crashed batcher, so adapters registered
 at run time survive a restart. ``--adapterQuota name=rate[:burst=B]``
 rate-limits adapters under every policy (429 with Retry-After).
-``--loraAdapters`` (adapters from training checkpoints) waits for the
-checkpoint module (ROADMAP A.11) and is refused.
+``--loraAdapters name=ckptdir[:alpha=X],...`` serves adapters that the
+port's LoRA training saved (``models/checkpoint.py``; the factors under
+``"lora"`` or at the tree's root, rank and targets read off them).
+
+Weights: ``--checkpointDir`` serves the latest step's ``params`` of a
+training checkpoint (the trainer's ``--checkpointDir``; only the
+``params`` file is read), ``--draftCheckpointDir`` the draft's; without
+one the weights are drawn at random from ``--seed`` (smoke mode). A
+checkpoint's depth is its own (the leading dimension of its layer
+stacks: a run trained at a cut depth serves at that depth); its widths
+must be the preset's.
 
 Speculative decoding (``models/spec_batching.py``): ``--draftPreset P``
 serves through a ``SpeculativeBatcher`` whose draft model is preset P,
@@ -209,11 +218,15 @@ from k8s_gpu_device_plugin_torch.models.batching import (
     ContinuousBatcher,
     RequestTooLargeError,
 )
+from k8s_gpu_device_plugin_torch.models.checkpoint import TrainCheckpointer
 from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig, init_params
+from k8s_gpu_device_plugin_torch.models.lora import LoraConfig, target_dims
 from k8s_gpu_device_plugin_torch.models.lora_serving import (
     AdapterSet,
     AdapterStore,
+    stack_adapters,
 )
+from k8s_gpu_device_plugin_torch.models.moe import EXPERT_LEAVES, store_layer
 from k8s_gpu_device_plugin_torch.models.paging import (
     kv_wire_planes,
     pack_kv_wire,
@@ -1424,21 +1437,134 @@ class InferenceServer(ThreadingHTTPServer):
             configure(enabled=False)
 
 
-def load_params(cfg: LlamaConfig, *, seed: int = 0,
-                device: "str | torch.device" = "cuda",
+def load_params(cfg: LlamaConfig, checkpoint_dir: str = "", *,
+                seed: int = 0, device: "str | torch.device" = "cuda",
                 weight_quant: str = "none") -> dict:
-    """Model weights for serving, quantized as ``weight_quant`` says. No
-    checkpoint format is ported yet, so this draws RANDOM weights on
-    ``device`` from ``seed`` (loudly). A MoE config's expert stacks are
-    quantized one layer at a time as they are drawn, so the float stacks
-    never exist whole (Mixtral-8x7B's take 93.4 GB in bf16, more than
-    one card holds); the tree equals drawing it whole and quantizing it
+    """Model weights for serving, quantized as ``weight_quant`` says: the
+    latest training checkpoint's ``params`` under ``checkpoint_dir`` (the
+    only file read; a leaf at a time from the memory-mapped file to
+    ``device``), else RANDOM weights on ``device`` from ``seed``
+    (loudly). A MoE config's expert stacks are quantized one layer at a
+    time on their way to the device, as they are when drawn, so the float
+    stacks never exist whole there (Mixtral-8x7B's take 93.4 GB in bf16,
+    more than one card holds); the tree equals the whole stacks quantized
     after, bit for bit."""
-    log.warning("serving RANDOM weights (seed %d): smoke mode", seed)
-    params = init_params(
-        cfg, seed=seed, device=device,
-        expert_leaf=expert_quantizer(weight_quant) if cfg.is_moe else None)
+    expert_leaf = expert_quantizer(weight_quant) if cfg.is_moe else None
+    if not checkpoint_dir:
+        log.warning("serving RANDOM weights (seed %d, no --checkpointDir): "
+                    "smoke mode", seed)
+        params = init_params(cfg, seed=seed, device=device,
+                             expert_leaf=expert_leaf)
+        return quantize_weights(params, weight_quant)
+    ckpt = TrainCheckpointer(checkpoint_dir, async_save=False)
+    host = ckpt.restore_unstructured(keys=("params",))["params"]
+    _check_params_fit(host, cfg, checkpoint_dir)
+    dev = resolve_device(device)
+    layers = {}
+    for name, w in host["layers"].items():
+        if name in EXPERT_LEAVES and expert_leaf is not None:
+            for i in range(w.shape[0]):
+                store_layer(layers, name, i, w.shape[0],
+                            expert_leaf(w[i].to(dev)))
+        else:
+            layers[name] = w.to(dev)
+    params = {k: (layers if k == "layers" else v.to(dev))
+              for k, v in host.items()}
+    log.info("restored params for serving from %s", checkpoint_dir)
     return quantize_weights(params, weight_quant)
+
+
+def _check_params_fit(params: dict, cfg: LlamaConfig, where: str) -> None:
+    """A checkpoint's params must be ``cfg``'s shapes (a preset of
+    another size, or another depth, fails here, not mid-forward)."""
+    want = {"embed": (cfg.vocab_size, cfg.d_model)}
+    want.update({f"layers.{t}": (cfg.n_layers, *dims)
+                 for t, dims in target_dims(cfg).items()
+                 if not (cfg.is_moe and t in ("w1", "w2", "w3"))})
+    for name, shape in want.items():
+        leaf = params
+        for key in name.split("."):
+            leaf = leaf.get(key) if isinstance(leaf, dict) else None
+        got = None if leaf is None else tuple(leaf.shape)
+        if got != shape:
+            raise ValueError(
+                f"{where}: params.{name} is {got}, the config wants "
+                f"{shape} (a checkpoint of another preset?)")
+
+
+def load_adapters(cfg: LlamaConfig, spec: str,
+                  device: "str | torch.device | None" = None) -> AdapterSet:
+    """``--loraAdapters`` value -> AdapterSet (on ``device``; the host
+    by default, where an ``AdapterStore`` keeps its registry).
+
+    Syntax: ``name=ckptdir[:alpha=X],name2=dir2``: each dir is a training
+    checkpoint whose tree carries the LoRA factors under ``"lora"`` (the
+    fine-tune state, ``models/lora.py::init_lora_state``) or at its root.
+    Rank and targets are inferred from the factor shapes; alpha defaults
+    to the classic 2·rank unless given (it isn't recorded in the
+    factors)."""
+    adapters = []
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        if "=" not in entry:
+            raise ValueError(
+                f"--loraAdapters entry {entry!r}: expected name=ckptdir")
+        name, rest = entry.split("=", 1)
+        name = name.strip()
+        if not name:
+            raise ValueError(
+                f"--loraAdapters entry {entry!r}: empty adapter name "
+                "(it would be unreachable — '' routes to the base model)")
+        # imported here: openai_api imports this module
+        from k8s_gpu_device_plugin_torch.serving.openai_api import MODEL_ID
+
+        if name == MODEL_ID:
+            raise ValueError(
+                f"adapter name {name!r} collides with the base model id; "
+                "OpenAI-API requests for it would silently serve the base")
+        alpha = None
+        if ":alpha=" in rest:
+            rest, alpha_s = rest.split(":alpha=", 1)
+            alpha = float(alpha_s)
+        tree = TrainCheckpointer(rest, async_save=False).restore_unstructured()
+        lora_params = tree.get("lora", tree)  # fine-tune state or bare factors
+        if (not isinstance(lora_params, dict) or not lora_params
+                or not all(isinstance(ab, dict) and "a" in ab and "b" in ab
+                           for ab in lora_params.values())):
+            raise ValueError(
+                f"no LoRA factors found in {rest!r} (expected "
+                "{target: {'a', 'b'}} under 'lora' or at the tree root)")
+        if cfg.is_moe and any(t in ("w1", "w2", "w3") for t in lora_params):
+            # the MoE decode path never reads mlp adapter leaves:
+            # accepting them would serve a partially applied adapter
+            raise ValueError(
+                f"adapter {name!r} targets MoE expert MLPs (w1/w2/w3), "
+                "which are not LoRA-servable on an MoE config")
+        first = next(iter(lora_params.values()))
+        rank = int(first["a"].shape[-1])
+        dims = target_dims(cfg)
+        for t, ab in lora_params.items():
+            d_in, d_out = dims.get(t, (None, None))
+            if tuple(ab["a"].shape) != (cfg.n_layers, d_in, rank) or \
+                    tuple(ab["b"].shape) != (cfg.n_layers, rank, d_out):
+                raise ValueError(
+                    f"adapter {name!r}: {t} factors a {tuple(ab['a'].shape)}"
+                    f", b {tuple(ab['b'].shape)} do not fit the config "
+                    f"({cfg.n_layers} layers, {t} {d_in} -> {d_out}, "
+                    f"rank {rank})")
+        if device is not None:
+            dev = resolve_device(device)
+            lora_params = {t: {k: v.to(dev) for k, v in ab.items()}
+                           for t, ab in lora_params.items()}
+        lcfg = LoraConfig(rank=rank,
+                          alpha=alpha if alpha is not None else 2.0 * rank,
+                          targets=tuple(lora_params))
+        adapters.append((name, lora_params, lcfg))
+        log.info("loaded LoRA adapter %s from %s (rank %d, targets %s)",
+                 name, rest, rank, list(lora_params))
+    return stack_adapters(cfg, adapters)
 
 
 def _eos_arg(value: str):
@@ -1467,6 +1593,11 @@ def resolve_eos(eos_arg, tokenizer) -> "int | None":
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="torch-inference-server")
     parser.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
+    parser.add_argument("--checkpointDir", default="",
+                        help="serve the latest step's params of this "
+                        "training checkpoint directory (the trainer's "
+                        "--checkpointDir); empty = random weights from "
+                        "--seed (smoke mode)")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--slots", type=int, default=8)
@@ -1567,6 +1698,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "automatic prefix cache serves the target zero-copy "
                         "(the draft re-prefills the match), "
                         "--pipelineDepth 1 overlaps rounds")
+    parser.add_argument("--draftCheckpointDir", default="",
+                        help="with --draftPreset: the draft's weights from "
+                        "this training checkpoint directory (empty = "
+                        "random from --seed, shared with the target when "
+                        "the presets match)")
     parser.add_argument("--gamma", type=int, default=4,
                         help="draft proposals verified per round (1 .. 16; "
                         "/v1/health's spec.accepted_per_round near gamma "
@@ -1598,10 +1734,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "Enforced under every --schedPolicy: an over-"
                         "quota submit answers 429 with Retry-After")
     parser.add_argument("--loraAdapters", default="",
-                        help="multi-LoRA from training checkpoints "
-                        "(name=ckptdir,...): refused until the checkpoint "
-                        "module is ported (ROADMAP A.11); serve adapters "
-                        "in process through build_server(adapters=)")
+                        help="multi-LoRA from training checkpoints: "
+                        "name=ckptdir[:alpha=X],... (the factors under "
+                        "'lora' or at the tree root; rank and targets "
+                        "inferred, alpha 2*rank unless given); requests "
+                        "pick one by 'adapter' or the OpenAI 'model'")
     parser.add_argument("--adapterCacheMB", type=int, default=0,
                         help="multi-LoRA device residency budget in MiB "
                         "(models/lora_serving.AdapterStore): adapters past "
@@ -1657,6 +1794,22 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _at_depth_of(cfg: LlamaConfig, checkpoint_dir: str) -> LlamaConfig:
+    """``cfg`` at the depth of the latest step under ``checkpoint_dir``
+    (the leading dimension of its layer stacks; ``cfg`` itself without a
+    directory): a run trained at a cut depth serves at that depth, and
+    ``load_params`` holds the widths to the preset's."""
+    if not checkpoint_dir:
+        return cfg
+    host = TrainCheckpointer(checkpoint_dir, async_save=False) \
+        .restore_unstructured(keys=("params",))["params"]
+    depths = {int(w.shape[0]) for w in host["layers"].values()}
+    if len(depths) != 1:
+        raise ValueError(f"{checkpoint_dir}: the layer stacks' depths "
+                         f"{sorted(depths)} differ")
+    return replace(cfg, n_layers=depths.pop())
+
+
 def build_server(args: argparse.Namespace,
                  params: "dict | None" = None,
                  adapters=None) -> InferenceServer:
@@ -1691,23 +1844,26 @@ def build_server(args: argparse.Namespace,
     if args.prefillReserveChunks < 1:
         raise ValueError("--prefillReserveChunks must be >= 1: the tranche "
                          "has to cover the chunk being prefilled")
-    if args.loraAdapters:
-        if args.draftPreset:
-            raise ValueError(
-                "--loraAdapters is unsupported with --draftPreset: the "
-                "draft model has no adapter stacks to mirror the target's")
+    if args.loraAdapters and args.draftPreset:
         raise ValueError(
-            "--loraAdapters reads adapters from training checkpoints, "
-            "which the PyTorch port cannot read yet (ROADMAP A.11, the "
-            "checkpoint module); pass adapters in process: "
-            "build_server(args, adapters=...)")
+            "--loraAdapters is unsupported with --draftPreset: the "
+            "draft model has no adapter stacks to mirror the target's")
+    if args.loraAdapters and adapters is not None:
+        raise ValueError("adapters passed in process and --loraAdapters: "
+                         "serve one registry")
+    if args.draftCheckpointDir and not args.draftPreset:
+        raise ValueError("--draftCheckpointDir loads the speculative draft "
+                         "model: it needs --draftPreset")
+    if params is not None and args.checkpointDir:
+        raise ValueError("params passed in process and --checkpointDir: "
+                         "serve one set of weights")
     if adapters is not None and args.draftPreset:
         raise ValueError(
             "adapters are unsupported with --draftPreset: the draft model "
             "has no adapter stacks to mirror the target's")
     if args.adapterCacheMB < 0:
         raise ValueError("--adapterCacheMB must be >= 0")
-    if args.adapterCacheMB and adapters is None:
+    if args.adapterCacheMB and adapters is None and not args.loraAdapters:
         raise ValueError(
             "--adapterCacheMB needs adapters: a residency budget with no "
             "adapters to hold would silently do nothing")
@@ -1728,7 +1884,9 @@ def build_server(args: argparse.Namespace,
     supervisor = EngineSupervisor(max_restarts=args.restartBudget,
                                   window_s=args.restartWindowS)
     faults = FaultPlane.from_cli(args.faults)
-    cfg = replace(PRESETS[args.preset](), cache_quant=args.cacheQuant)
+    cfg = _at_depth_of(replace(PRESETS[args.preset](),
+                               cache_quant=args.cacheQuant),
+                       args.checkpointDir)
     if args.attnWindow:
         cfg = replace(cfg, sliding_window=args.attnWindow)
     # the server's own registry and families; attribution and the live
@@ -1755,13 +1913,15 @@ def build_server(args: argparse.Namespace,
                                    min_hits=args.prefixCacheMinHits,
                                    metrics=metrics)
     if params is None:
-        params = load_params(cfg, seed=args.seed, device=device,
-                             weight_quant=args.weightQuant)
+        params = load_params(cfg, args.checkpointDir, seed=args.seed,
+                             device=device, weight_quant=args.weightQuant)
     elif weight_quant_of(params) != args.weightQuant:
         raise ValueError(
             f"the params passed in are quantized {weight_quant_of(params)!r}"
             f", --weightQuant says {args.weightQuant!r}"
         )
+    if args.loraAdapters:
+        adapters = load_adapters(cfg, args.loraAdapters)
     if isinstance(adapters, AdapterSet):
         adapters = AdapterStore.from_set(
             cfg, adapters, cache_bytes=args.adapterCacheMB << 20)
@@ -1790,13 +1950,17 @@ def build_server(args: argparse.Namespace,
         trace_steps=args.traceSteps and args.tracing,
         attribution=attribution, mfu=mfu)
     if args.draftPreset:
-        draft_cfg = PRESETS[args.draftPreset]()
-        # the draft is drawn as the target is (--seed, then --weightQuant):
-        # a draft of the target's own preset would draw the same tensors,
-        # so it shares them instead of holding a second copy
-        draft_params = params if args.draftPreset == args.preset else \
-            load_params(draft_cfg, seed=args.seed, device=device,
-                        weight_quant=args.weightQuant)
+        draft_cfg = _at_depth_of(PRESETS[args.draftPreset](),
+                                 args.draftCheckpointDir)
+        # the draft is loaded as the target is (its checkpoint, or --seed;
+        # then --weightQuant): a draft of the target's own preset from
+        # the same source would be the same tensors, so it shares them
+        # instead of holding a second copy
+        same = (args.draftPreset == args.preset
+                and args.draftCheckpointDir == args.checkpointDir)
+        draft_params = params if same else load_params(
+            draft_cfg, args.draftCheckpointDir, seed=args.seed,
+            device=device, weight_quant=args.weightQuant)
         # no recipe: the speculative engine has no resume path, so a
         # crash ends it (with the structured error frames)
         engine = InferenceEngine(SpeculativeBatcher(

@@ -14,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_gpu_device_plugin_torch"
-FORBIDDEN = ("jax", "jaxlib", "k8s_gpu_device_plugin_tpu",
+FORBIDDEN = ("jax", "jaxlib", "orbax", "k8s_gpu_device_plugin_tpu",
              "prometheus_client", "aiohttp")
 
 
@@ -69,6 +69,7 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.serving.testing\n"
         "import k8s_gpu_device_plugin_torch.models.batching\n"
         "import k8s_gpu_device_plugin_torch.models.beam\n"
+        "import k8s_gpu_device_plugin_torch.models.checkpoint\n"
         "import k8s_gpu_device_plugin_torch.models.rolling\n"
         "import k8s_gpu_device_plugin_torch.models.convert\n"
         "import k8s_gpu_device_plugin_torch.models.generate\n"

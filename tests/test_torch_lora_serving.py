@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from k8s_gpu_device_plugin_torch.models import batching as tbatch
+from k8s_gpu_device_plugin_torch.models import train as ttrain
 from k8s_gpu_device_plugin_torch.models import llama as tllama
 from k8s_gpu_device_plugin_torch.models import lora as tlora
 from k8s_gpu_device_plugin_torch.models import lora_serving as tls
@@ -33,6 +34,7 @@ from k8s_gpu_device_plugin_torch.models.convert import (
     lora_params_from_jax,
     params_from_jax,
 )
+from k8s_gpu_device_plugin_torch.models.checkpoint import TrainCheckpointer
 from k8s_gpu_device_plugin_torch.models.generate import generate
 from k8s_gpu_device_plugin_torch.models.sampling import Sampler
 from k8s_gpu_device_plugin_torch.models.spec_batching import (
@@ -283,9 +285,8 @@ def test_adapter_validation_and_guards(setup):
 
 def test_speculative_batcher_and_server_refuse_adapters(setup):
     """The speculative batcher refuses stacks (its draft has none to
-    mirror), as the reference's does; the server refuses adapters with a
-    draft, and ``--loraAdapters`` names the checkpoint module it waits
-    for."""
+    mirror), as the reference's does; the server refuses adapters, in
+    process or by ``--loraAdapters``, only together with a draft."""
     tcfg, tparams = setup["tcfg"], setup["tparams"]
     with pytest.raises(ValueError, match="does not support LoRA"):
         SpeculativeBatcher(tparams, tcfg, tparams, tcfg, n_slots=1,
@@ -293,9 +294,6 @@ def test_speculative_batcher_and_server_refuse_adapters(setup):
                            adapters=setup["taset"])
     parser = srv.build_parser()
     base = ["--device", "cpu", "--preset", "tiny", "--port", "0"]
-    with pytest.raises(ValueError, match="A.11"):
-        srv.build_server(parser.parse_args(base + ["--loraAdapters",
-                                                   "fr=/ckpt"]))
     with pytest.raises(ValueError, match="--draftPreset"):
         srv.build_server(parser.parse_args(
             base + ["--loraAdapters", "fr=/ckpt", "--draftPreset", "tiny"]))
@@ -445,3 +443,102 @@ def test_engine_refuses_adapters_it_does_not_serve(setup):
             engine.shutdown()
 
     asyncio.run(asyncio.wait_for(body(), timeout=60))
+
+
+# --- adapters from training checkpoints ---------------------------------------
+
+
+def _save(directory, tree, step=0):
+    with TrainCheckpointer(str(directory), async_save=False) as ckpt:
+        assert ckpt.save(tree, step=step, force=True)
+    return str(directory)
+
+
+def test_load_adapters_rejects_moe_mlp_targets(tmp_path):
+    """The twin of the reference's: an adapter carrying w1/w2/w3 factors
+    is refused on an MoE config at load time (the MoE decode path never
+    reads them), and the same checkpoint loads on the dense config it was
+    made for. The parse errors are the reference's."""
+    dense = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    lc = tlora.LoraConfig(rank=2, targets=("wq", "w1"))
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    d = _save(tmp_path / "adapter",
+              {"lora": tlora.init_lora_params(dense, lc, generator=gen,
+                                              device="cpu")})
+    moe = tllama.LlamaConfig.tiny(dtype=torch.float32, n_experts=4,
+                                  n_experts_per_token=2, capacity_factor=4.0)
+    with pytest.raises(ValueError, match="MoE expert MLPs"):
+        srv.load_adapters(moe, f"bad={d}")
+    aset = srv.load_adapters(dense, f"good={d}")
+    assert aset.index_of("good") == 0
+    for spec, why in ((f"={d}", "empty adapter name"),
+                      (f"tpu-serving={d}", "collides"),
+                      ("nodir", "expected name=ckptdir"),
+                      (f"x={_save(tmp_path / 'empty', {'params': {}})}",
+                       "no LoRA factors")):
+        with pytest.raises(ValueError, match=why):
+            srv.load_adapters(dense, spec)
+    with pytest.raises(ValueError, match="do not fit"):
+        srv.load_adapters(tllama.LlamaConfig.tiny(n_layers=1), f"x={d}")
+
+
+def test_lora_adapters_flag_serves_a_trained_adapter(tmp_path):
+    """An adapter trained by ``make_lora_train_step`` and saved with its
+    state, served by ``--loraAdapters fr=dir`` (rank and targets read off
+    the factors, alpha 2·rank): over HTTP the stream equals a batcher's
+    with the same adapter (bf16, bit for bit) and differs from the base's;
+    the same checkpoint loaded on the f32 config serves the greedy stream
+    of ``generate`` on ``merge_lora`` weights (the merged oracle)."""
+    cfg = tllama.LlamaConfig.tiny()
+    params = srv.load_params(cfg, seed=3, device="cpu")
+    lc = tlora.LoraConfig(rank=4, alpha=8.0, targets=("wq", "wv", "w2"))
+    opt = ttrain.make_optimizer(learning_rate=5e-2, warmup_steps=1,
+                                total_steps=8)
+    state = tlora.init_lora_state(cfg, lc, opt, seed=4, device="cpu")
+    step = tlora.make_lora_train_step(params, cfg, lc, opt)
+    batch = ttrain.synthetic_batch(cfg, 2, 32, seed=5, device="cpu")
+    for _ in range(4):
+        state, _ = step(state, batch)
+    d = _save(tmp_path / "fr", state, step=state["step"])
+    prompt = _prompt(81, 6)
+
+    args = srv.build_parser().parse_args([
+        "--device", "cpu", "--preset", "tiny", "--port", "0", "--host",
+        "127.0.0.1", "--slots", "2", "--maxLen", "64", "--chunkedPrefill",
+        "8", "--seed", "3", "--attributionOff", "--loraAdapters",
+        f"fr={d}"])
+    server = srv.build_server(args)
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{server.bound_port}"
+        status, got = _http(url, "/v1/generate",
+                            {"prompt": prompt, "max_new": 6,
+                             "adapter": "fr"})
+        assert status == 200, got
+        status, base_got = _http(url, "/v1/generate",
+                                 {"prompt": prompt, "max_new": 6})
+        assert status == 200
+        status, models = _http(url, "/v1/models")
+        assert [m["id"] for m in models["data"]] == ["tpu-serving", "fr"]
+    finally:
+        server.stop()
+    aset = srv.load_adapters(cfg, f"fr={d}")
+    cb = tbatch.ContinuousBatcher(params, cfg, n_slots=2, max_len=64,
+                                  chunked_prefill=8, adapters=aset)
+    rid = cb.submit(prompt, max_new=6, adapter=0)
+    assert got["tokens"] == cb.run()[rid]
+    assert got["tokens"] != base_got["tokens"]
+
+    cfg32 = replace(cfg, dtype=torch.float32)
+    params32 = {k: (v.float() if not isinstance(v, dict)
+                    else {kk: vv.float() for kk, vv in v.items()})
+                for k, v in params.items()}
+    cb32 = tbatch.ContinuousBatcher(
+        params32, cfg32, n_slots=2, max_len=64, chunked_prefill=8,
+        adapters=srv.load_adapters(cfg32, f"fr={d}"))
+    rid = cb32.submit(prompt, max_new=6, adapter=0)
+    lp32 = {t: {k: v.float() for k, v in ab.items()}
+            for t, ab in state["lora"].items()}
+    assert cb32.run()[rid] == _oracle(
+        tlora.merge_lora(params32, lp32, lc), prompt, cfg32, 6)

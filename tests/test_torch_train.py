@@ -239,10 +239,11 @@ def test_master_weights_keep_f32_storage(np_params):
 
 
 def test_config_refuses_what_is_not_ported(mesh):
-    for kw, item in ((dict(fused_ce=True), "A8"), (dict(quant="int8"), "A8"),
-                     (dict(attn_impl="ring"), "A12"),
-                     (dict(attn_impl="ulysses"), "A12"),
-                     (dict(n_microbatches=4), "A12")):
+    for kw, item in ((dict(fused_ce=True), "A.11b"),
+                     (dict(quant="int8"), "A.11b"), (dict(tp=2), "A.12"),
+                     (dict(attn_impl="ring"), "A.13"),
+                     (dict(attn_impl="ulysses"), "A.13"),
+                     (dict(n_microbatches=4), "A.13")):
         with pytest.raises(NotImplementedError, match=item):
             tllama.LlamaConfig.tiny(**kw)
     # MoE is ported: a tiny MoE trains two steps as the reference's does
@@ -264,7 +265,7 @@ def test_config_refuses_what_is_not_ported(mesh):
     for impl in ("full", "flash"):
         with pytest.raises(ValueError, match="'auto'"):
             tllama.LlamaConfig.tiny(attn_impl=impl)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A.11b"):
         ttrain.make_optimizer(impl="fused")
 
 

@@ -10,6 +10,8 @@ The CLI's refusals, its exit without CUDA and the startup refusal of a
 config the card's kernels do not take are checked here too.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from k8s_gpu_device_plugin_torch.data import pipeline as tpipe
 from k8s_gpu_device_plugin_torch.models import llama as tllama
 from k8s_gpu_device_plugin_torch.models import trainer as ttrainer
 from k8s_gpu_device_plugin_torch.models.convert import params_from_jax
+from k8s_gpu_device_plugin_torch.models.train import param_leaves
 
 # the suite runs in several worker processes on shared cores: one
 # intra-op thread each keeps torch's OpenMP pool from spinning against
@@ -86,28 +89,34 @@ def test_loader_batches_seek_and_prefetch():
         assert torch.equal(a["inputs"], b["inputs"])
 
 
-def test_trainer_run_matches_the_jax_trainer():
+COMMON = dict(batch_size=8, seq_len=32, total_steps=4, log_every=1,
+              learning_rate=1e-3, warmup_steps=1, eval_every=2,
+              eval_batches=1)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX trainer's uninterrupted run and its initial parameters as
+    numpy (its run() builds that state from key 0)."""
     jcfg = jllama.LlamaConfig.tiny(dtype=jnp.float32, **DIMS)
-    common = dict(batch_size=8, seq_len=32, total_steps=3, log_every=1,
-                  learning_rate=1e-3, warmup_steps=1, eval_every=2,
-                  eval_batches=1)
     jtr = jtrainer.Trainer(jtrainer.TrainerConfig(
-        model=jcfg, mesh=MeshSpec.for_devices(len(jax.devices())), **common))
-    # the JAX trainer's initial state, built as its run() builds it
+        model=jcfg, mesh=MeshSpec.for_devices(len(jax.devices())), **COMMON))
     jstate = jtrain.init_train_state(jax.random.key(0), jcfg, jtr.mesh,
                                      jtr.optimizer)
     np_params = jax.tree.map(np.asarray, jstate["params"])
-    want = jtr.run()
+    return np_params, jtr.run()
 
+
+def _port_trainer(np_params, **kw):
     tcfg = tllama.LlamaConfig.tiny(dtype=torch.float32, **DIMS)
-    ttr = ttrainer.Trainer(
-        ttrainer.TrainerConfig(model=tcfg, device="cpu", **common),
+    return ttrainer.Trainer(
+        ttrainer.TrainerConfig(model=tcfg, device="cpu", **COMMON, **kw),
         params=params_from_jax(np_params, tcfg, device="cpu"))
-    got = ttr.run()
 
-    assert got.steps_run == want.steps_run == 3
-    assert len(got.metrics_history) == len(want.metrics_history)
-    for g, w in zip(got.metrics_history, want.metrics_history):
+
+def _assert_history_close(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
         assert g["step"] == w["step"]
         if "eval" in w:
             np.testing.assert_allclose(g["eval"]["loss"], w["eval"]["loss"],
@@ -115,6 +124,15 @@ def test_trainer_run_matches_the_jax_trainer():
             continue
         np.testing.assert_allclose(g["loss"], w["loss"], atol=1e-5, rtol=0)
         np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=1e-5)
+
+
+def test_trainer_run_matches_the_jax_trainer(jax_run):
+    np_params, want = jax_run
+    got = _port_trainer(np_params).run()
+
+    assert got.steps_run == want.steps_run == 4
+    assert got.resumed_from is want.resumed_from is None
+    _assert_history_close(got.metrics_history, want.metrics_history)
     np.testing.assert_allclose(got.final_loss, want.final_loss, atol=1e-5,
                                rtol=0)
     for key in ("loss", "accuracy"):
@@ -124,12 +142,110 @@ def test_trainer_run_matches_the_jax_trainer():
     assert got.tokens_per_second > 0
 
 
+class _Preempted(Exception):
+    pass
+
+
+def test_resumed_run_matches_the_uninterrupted_jax_run(tmp_path, jax_run):
+    """The port's run stopped after step 2 (its final state force-saved
+    on the way out), then a fresh ``Trainer`` on the same directory
+    resumed at step 2 (state and data stream): every step's loss and
+    ``grad_norm`` and the evals against the JAX trainer's uninterrupted
+    run, at the parity test's tolerances; and the resumed run's final
+    state equals the port's own uninterrupted run's bit for bit."""
+    np_params, want = jax_run
+    d = str(tmp_path / "ckpt")
+    steps = []
+
+    def preempt(step, metrics):
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"])})
+        if step == 2:
+            raise _Preempted
+
+    first = _port_trainer(np_params, checkpoint_dir=d, checkpoint_interval=3)
+    with pytest.raises(_Preempted):
+        first.run(on_step=preempt)
+    assert first.ckpt.all_steps() == [2]  # off-cadence: the forced save
+    second = _port_trainer(np_params, checkpoint_dir=d, checkpoint_interval=3)
+    got = second.run()
+    assert got.resumed_from == 2 and got.steps_run == 2
+    assert second.ckpt.all_steps() == [2, 3, 4]
+    # the first run's eval at step 2 is lost with its history
+    want_steps = [w for w in want.metrics_history
+                  if "eval" not in w or w["step"] > 2]
+    _assert_history_close(steps + got.metrics_history, want_steps)
+    for key in ("loss", "accuracy"):
+        np.testing.assert_allclose(got.final_eval[key], want.final_eval[key],
+                                   atol=1e-5, rtol=0)
+    straight = _port_trainer(np_params)
+    straight.run()
+    a, b = straight.state, second.state
+    assert a["step"] == b["step"] == 4
+    leaves = [param_leaves(s["params"]) + s["opt_state"]["mu"]
+              + s["opt_state"]["nu"] for s in (a, b)]
+    assert all(torch.equal(x, y) for x, y in zip(*leaves))
+
+
+def test_an_exception_inside_a_step_saves_no_torn_state(tmp_path):
+    """An exception raised inside the optimizer's update, after it wrote
+    its first leaf, leaves the state half updated (the update counted,
+    the step not): the run's way out must not save that state as a step.
+    A fresh ``Trainer`` resumes from the last whole step on disk and ends
+    where an uninterrupted run does, bit for bit."""
+    armed = []
+
+    class Tripwire(list):
+        """A moment list whose first iteration stops after one leaf."""
+
+        def __iter__(self):
+            if armed:
+                yield from super().__iter__()
+                return
+            armed.append(True)
+            yield self[0]
+            raise _Preempted
+
+    def trainer(**kw):
+        return ttrainer.Trainer(ttrainer.TrainerConfig(
+            seq_len=16, batch_size=2, total_steps=4, device="cpu", **kw))
+
+    d = str(tmp_path)
+    first = trainer(checkpoint_dir=d, checkpoint_interval=2)
+
+    def arm(step, metrics):
+        if step == 3:  # step 4 tears; step 3 is not on disk
+            opt = first.state["opt_state"]
+            opt["mu"] = Tripwire(opt["mu"])
+
+    with pytest.raises(_Preempted):
+        first.run(on_step=arm)
+    torn = first.state
+    assert (torn["step"], torn["opt_state"]["count"]) == (3, 4)
+    assert first.ckpt.all_steps() == [2]
+    second = trainer(checkpoint_dir=d, checkpoint_interval=2)
+    assert second.run().resumed_from == 2
+    straight = trainer()
+    straight.run()
+    leaves = [param_leaves(s["params"]) + s["opt_state"]["mu"]
+              + s["opt_state"]["nu"] for s in (straight.state, second.state)]
+    assert all(torch.equal(x, y) for x, y in zip(*leaves))
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--tp", "2"], "A12"), (["--sp", "2"], "A12"), (["--pp", "2"], "A12"),
-    (["--ep", "2"], "A12"), (["--fsdp", "2"], "A12"),
-    (["--numSlices", "2"], "A12"), (["--checkpointDir", "/x"], "A8"),
-    (["--traceDir", "/x"], "A8"), (["--quant", "int8"], "A8"),
-    (["--optImpl", "fused"], "A8"), (["--fusedCE"], "A8"),
+    # the ids are the cases' first ones, from the old labels ("A12" is
+    # A.13, "A8" A.11b or A.11c); --checkpointDir trains now
+    # (test_cli_trains_and_resumes_with_a_checkpoint_dir)
+    pytest.param(["--tp", "2"], "A.13", id="argv0-A12"),
+    pytest.param(["--sp", "2"], "A.13", id="argv1-A12"),
+    pytest.param(["--pp", "2"], "A.13", id="argv2-A12"),
+    pytest.param(["--ep", "2"], "A.13", id="argv3-A12"),
+    pytest.param(["--fsdp", "2"], "A.13", id="argv4-A12"),
+    pytest.param(["--numSlices", "2"], "A.13", id="argv5-A12"),
+    pytest.param(["--traceDir", "/x"], "A.11c", id="argv7-A8"),
+    pytest.param(["--quant", "int8"], "A.11b", id="argv8-A8"),
+    pytest.param(["--optImpl", "fused"], "A.11b", id="argv9-A8"),
+    pytest.param(["--fusedCE"], "A.11b", id="argv10-A8"),
     # full-size Mixtral training is parallel training (ROADMAP A.13);
     # the case keeps its id
     pytest.param(["--preset", "mixtral_8x7b"], "A.13", id="argv11-A10"),
@@ -169,3 +285,35 @@ def test_cli_trains_on_the_cpu(capsys):
                            "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.startswith("trainer: steps=2 loss=")
+
+
+def test_cli_trains_and_resumes_with_a_checkpoint_dir(tmp_path, capsys):
+    """``--checkpointDir``: two steps, then the same command to four
+    resumes at step 2 (``resumed_from=2``, two steps run); at four again
+    it has nothing left to run."""
+    argv = ["--preset", "tiny", "--seqLen", "16", "--batchSize", "2",
+            "--checkpointDir", str(tmp_path), "--checkpointInterval", "1",
+            "--device", "cpu"]
+    assert ttrainer._main([*argv, "--steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("trainer: steps=2 ") and "resumed_from=None" in out
+    assert sorted(os.listdir(tmp_path)) == ["1", "2"]
+    assert ttrainer._main([*argv, "--steps", "4"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("trainer: steps=2 ") and "resumed_from=2" in out
+    assert sorted(os.listdir(tmp_path)) == ["2", "3", "4"]  # keeps three
+    assert ttrainer._main([*argv, "--steps", "4"]) == 0
+    assert "steps=0 " in capsys.readouterr().out
+
+
+def test_loader_seek_while_iterating_drops_staged_batches():
+    """A seek during iteration restarts the prefetch thread at the new
+    step: the batches it had staged are not served."""
+    loader = tpipe.DataLoader(tpipe.SyntheticSource(100, seed=3), 4, 16,
+                              device="cpu", prefetch=2)
+    it = iter(loader)
+    batches = [next(it) for _ in range(3)]
+    loader.seek(1)
+    for want in batches[1:]:
+        assert torch.equal(next(it)["inputs"], want["inputs"])
+    assert loader.state() == {"step": 3}
