@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA H100 and check its kernel.
+"""Drive the PyTorch/CUDA port on one NVIDIA H100 and check its kernels.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -9,7 +9,8 @@ Phases (any failed check exits non-zero without the final line):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; the hand-written kernels are built from the sources in the
-   checkout (one ``nvcc`` per source, started together), timed; then
+   checkout (one ``nvcc`` per source, four sources, started together),
+   timed; then
    ``cuobjdump -sass`` counts the HGMMA (``wgmma``) instructions of every
    kernel symbol, and every instantiation of the four tensor-core kernels
    (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``,
@@ -355,7 +356,23 @@ Phases (any failed check exits non-zero without the final line):
    plain times;
    ``scaled_dot_product_attention``'s forward, backward and forward +
    backward as a yardstick the port never calls; the bound (operations
-   over the input type's peak or bytes over 3.35 TB/s).
+   over the input type's peak or bytes over 3.35 TB/s). Then the fused
+   training ops at phase 6's shapes (``phase_fused_kernels``): K5
+   ``fused_adamw`` over the leaves of a 2-layer Llama-3-8B-width state in
+   bf16 and in f32, three updates with clipping engaged, against its plain
+   version fed the kernel's own clip scale (every element equal bit for
+   bit, or within one bf16 ulp / FUSED_F32_RTOL in at most
+   FUSED_UNEQUAL_SHARE of them), the norm within NORM_RTOL, two launches
+   equal bit for bit; K6 ``ce_chunk_fwd`` and K7 ``ce_chunk_bwd`` over
+   the 32 chunks of 4096 columns of Llama-3-8B's head at N 4096, D 4096
+   (the last chunk 1280 wide), bf16: lse within LSE_TOL, target logits
+   equal, dlogits within one bf16 ulp; the int8 product at M 4096, K
+   4096, N 14336: the int32 result equal bit for bit to the float64
+   product of the same codes. Times, bounds (bytes for K5-K7, operations
+   at 1979 TOP/s for the int8 product) and yardsticks the port never
+   calls: ``torch._fused_adamw_`` and the eager ``AdamW.update`` (K5),
+   the unfused head and cross-entropy forward and backward with the
+   memory each takes (K6, K7), the bf16 ``torch.mm`` (int8).
 6. The trainer (``models/trainer.py``) on Llama-3-8B widths cut to 8
    layers, B 2, S 2048, 5 steps: step-1 loss near the random init's
    expected ln(vocab) + d * 0.02^2 / 2, finite loss
@@ -368,7 +385,16 @@ Phases (any failed check exits non-zero without the final line):
    attention: loss and grad_norm compared; and the gradients of a bf16
    copy of its weights through the kernels and through the plain
    attention: per leaf, the kernel path's distance to the f32 plain
-   path's gradients at most BF16_FACTOR times the plain path's.
+   path's gradients at most BF16_FACTOR times the plain path's. Then the
+   same run with ``--optImpl fused --fusedCE`` (``train_fused``: finite
+   losses, step 1 within FUSED_STEP1_TOL of the unfused run's, the
+   losses equal bit for bit to a second run's, K5, K6 and K7 launched
+   steps x their launches a step, K2-K4 as in the unfused run, a peak
+   below the unfused run's) and with ``--quant int8`` (``train_int8``:
+   the final loss within INT8_LOSS_RTOL of bf16's, seven int8 products a
+   layer and step, none re-run in the backward); every run prints its
+   step ms, tokens/s, MFU, peak memory and the optimizer update's own
+   device ms (CUDA events around ``optimizer.update``).
 7. Checkpoints and LoRA training, Llama-3-8B widths cut to 2 layers
    (``models/checkpoint.py``, the trainer's and the server's
    ``--checkpointDir``, ``--loraAdapters``), in a directory beside this
@@ -399,7 +425,10 @@ Phases (any failed check exits non-zero without the final line):
    rolling runs' with phase 2's cases at their shapes, and the moe runs';
    K2's entry counts the trainer's launches, the surface run's, the
    fleet's embeddings, the MoE forward check's and the beam check's, and
-   lists its B 1 serving cases; K1 and K2-K4 add phase 7's).
+   lists its B 1 serving cases; K1 and K2-K4 add phase 7's, K2-K4 the
+   fused runs'), then K5, K6, K7 and the int8 product (``replaces``
+   null, each naming the reference module it is the counterpart of,
+   with phase 6's launches).
 9. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -6786,6 +6815,283 @@ def phase_flash(torch, fa, kernel_support) -> list[dict]:
     return results
 
 
+# --- phase 5, the fused training ops ------------------------------------------
+
+FUSED_LAYERS = 2        # K5's state: the Llama-3-8B widths at 2 layers
+FUSED_STEPS = 3         # K5 updates held to the plain version
+FUSED_LR = 3e-4
+FUSED_GRAD_STD = 1e-3   # the grads' scale: a norm of about 39, clipped
+# K5 against its plain version fed the kernel's own clip scale: both round
+# every operation once in the same order, so they agree bit for bit; a bf16
+# element may miss by one ulp in at most this share (an operation compiled
+# otherwise than eager PyTorch's would show on far more)
+FUSED_UNEQUAL_SHARE = 1e-4
+FUSED_F32_RTOL = 1e-6   # the f32 copy: relative, element by element
+NORM_RTOL = 1e-5        # the kernel's norm (double partials) against the
+                        # plain f32 sums over 1.5 B squares
+CE_CHUNK = 4096         # the fused loss's chunk of vocabulary columns
+LSE_TOL = dict(atol=1e-5, rtol=1e-6)  # K6: 128,256 exponentials summed in
+                                      # another order
+INT8_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 4096, 14336)  # M, K, N: w1's product
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 values at |x| (8 significant bits), in f32."""
+    mag = x.float().abs().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def off_by(torch, got, want, dtype, total: "dict | None" = None) -> dict:
+    """Elements of ``got`` not equal to ``want`` bit for bit, those past
+    one bf16 ulp (bf16) or FUSED_F32_RTOL (f32), and the largest
+    difference; added into ``total`` when given."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = (bf16_ulp(torch, w) if dtype == torch.bfloat16
+           else FUSED_F32_RTOL * w.abs())
+    total = total if total is not None else {
+        "unequal": 0, "past_tolerance": 0, "max_abs_err": 0.0}
+    total["unequal"] += int((got != want).sum())
+    total["past_tolerance"] += int((diff > tol).sum())
+    total["max_abs_err"] = max(total["max_abs_err"], float(diff.max()))
+    return total
+
+
+def phase_fused_kernels(torch, llama, train, quant, fo, fce,
+                        kernel_support) -> dict:
+    """K5 (fused AdamW), K6/K7 (the fused loss's chunk passes) and the
+    int8 product, each against its plain version on the card at the
+    shapes phase 6 gives it, with times, bounds and yardsticks."""
+    out = {"card": card_line()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip=1.0)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=FUSED_LAYERS)
+    k5 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        params = train.param_leaves(llama.init_params(
+            dataclasses.replace(cfg, param_dtype=dtype), seed=SEED,
+            device="cuda"))
+        n = sum(p.numel() for p in params)
+        grads = [torch.empty_like(p) for p in params]
+
+        def draw():
+            for g in grads:
+                g.normal_(0.0, FUSED_GRAD_STD, generator=gen)
+
+        def zeros():
+            return [torch.zeros_like(p) for p in params]
+
+        kern = ([p.clone() for p in params], zeros(), zeros())
+        plain = ([p.clone() for p in params], zeros(), zeros())
+        del params
+        row = {"leaves": len(grads), "elements": n, "norm_rel_err": []}
+        for step in range(FUSED_STEPS):
+            draw()
+            if step == 0 and dtype == torch.bfloat16:
+                # two launches on the same inputs agree bit for bit
+                twin = tuple([x.clone() for x in xs] for xs in kern)
+                gn_twin = fo.fused_adamw_kernels(*twin[:1], grads, *twin[1:],
+                                                 step, lr=FUSED_LR, **hyper)
+            gn = fo.fused_adamw_kernels(kern[0], grads, kern[1], kern[2], step,
+                                        lr=FUSED_LR, **hyper)
+            if step == 0 and dtype == torch.bfloat16:
+                row["repeat_bitwise"] = torch.equal(gn, gn_twin) and all(
+                    torch.equal(a, b) for xs, ys in zip(kern, twin)
+                    for a, b in zip(xs, ys))
+                del twin
+            norm_p = fo.fused_adamw_update(plain[0], grads, plain[1],
+                                           plain[2], step, lr=FUSED_LR,
+                                           scale=gn[1], **hyper)
+            row["norm_rel_err"].append(
+                float((gn[0] - norm_p).abs() / norm_p))
+            row["scale"] = float(gn[1])
+        row["off"] = {}
+        for name, xs, ys in zip(("p", "m", "v"), kern, plain):
+            total = None
+            for a, b in zip(xs, ys):
+                total = off_by(torch, a, b, dtype, total)
+            row["off"][name] = total
+        if dtype == torch.bfloat16:
+            lr_kw = dict(lr=FUSED_LR, **hyper)
+            row["ms"] = event_ms(torch, lambda: fo.fused_adamw_kernels(
+                kern[0], grads, kern[1], kern[2], FUSED_STEPS, **lr_kw))
+            row["plain_ms"] = event_ms(torch, lambda: fo.fused_adamw_update(
+                plain[0], grads, plain[1], plain[2], FUSED_STEPS, **lr_kw), 2)
+            eager = train.AdamW(lambda count: FUSED_LR, b1=0.9, b2=0.95,
+                                weight_decay=0.1, clip=1.0)
+            state = {"count": FUSED_STEPS, "mu": plain[1], "nu": plain[2]}
+            row["eager_adamw_ms"] = event_ms(
+                torch, lambda: eager.update(grads, state, plain[0]), 2)
+            steps = [torch.zeros((), device="cuda") for _ in grads]
+            # the yardstick the port never calls: PyTorch's fused AdamW
+            # over the same leaves (no clip, so no norm pass)
+            row["library_ms"] = event_ms(torch, lambda: torch._fused_adamw_(
+                plain[0], grads, plain[1], plain[2], [], steps, lr=FUSED_LR,
+                beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                amsgrad=False, maximize=False))
+            nbytes = 8 * 2 * n  # g, m, v, p read, m, v, p written, g again
+            row.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", bytes=nbytes)
+        k5[dname] = row
+        del kern, plain, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["fused_adamw"] = k5
+    emit({"phase": 5, "kernel": "fused_adamw", **k5})
+    for dname, row in k5.items():
+        for name, off in row["off"].items():
+            if off["past_tolerance"] or (
+                    off["unequal"] > FUSED_UNEQUAL_SHARE * row["elements"]):
+                fail(f"fused_adamw {dname}: {name} misses the plain version "
+                     f"fed the kernel's scale: {off} of {row['elements']}")
+        if max(row["norm_rel_err"]) > NORM_RTOL:
+            fail(f"fused_adamw {dname}: the norm misses the plain version's "
+                 f"by {row['norm_rel_err']} (at most {NORM_RTOL})")
+    if not k5["bfloat16"]["repeat_bitwise"]:
+        fail("fused_adamw: two launches on the same inputs differ")
+
+    # K6 and K7 at the trainer's rows, Llama-3-8B's width and vocabulary
+    n_rows, d, v = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.vocab_size
+    x = torch.randn((n_rows, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = (torch.randn((d, v), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    t = torch.randint(0, v, (n_rows,), generator=gen, device="cuda")
+    bounds = fce.chunk_bounds(v, CE_CHUNK)
+
+    def running():
+        return (torch.full((n_rows,), float("-inf"), device="cuda"),
+                torch.zeros(n_rows, device="cuda"),
+                torch.zeros(n_rows, device="cuda"))
+
+    run_k, run_p = running(), running()
+    for c0, c1 in bounds:
+        logits = quant.dot_f32(x, w[:, c0:c1])
+        fce.ce_chunk_fwd(logits, t, c0, *run_k)
+        fce.ce_chunk_fwd_reference(logits, t, c0, *run_p)
+    lse_k = run_k[0] + torch.log(run_k[1])
+    lse = run_p[0] + torch.log(run_p[1])
+    g = torch.ones((), device="cuda")
+    z = fce.Z_LOSS_WEIGHT
+    dl_off = None
+    for c0, c1 in bounds:
+        logits = quant.dot_f32(x, w[:, c0:c1])
+        got = fce.ce_chunk_bwd(logits, t, c0, lse, g, z, torch.bfloat16)
+        want = fce.ce_chunk_bwd_reference(logits, t, c0, lse, g, z,
+                                          torch.bfloat16)
+        dl_off = off_by(torch, got, want, torch.bfloat16, dl_off)
+    ce = {"rows": n_rows, "d": d, "vocab": v, "chunk": CE_CHUNK,
+          "chunks": len(bounds), "last_chunk_width": bounds[-1][1] - bounds[-1][0],
+          "lse_max_abs_err": float((lse_k - lse).abs().max()),
+          "target_logit_equal": torch.equal(run_k[2], run_p[2]),
+          "dlogits_off": dl_off}
+    for width, (c0, c1) in (("full", bounds[0]), ("ragged", bounds[-1])):
+        logits = quant.dot_f32(x, w[:, c0:c1])
+        state = running()
+        nbytes_fwd = logits.numel() * 4
+        nbytes_bwd = logits.numel() * (4 + 2)
+        ce[width] = {
+            "width": c1 - c0,
+            "fwd_ms": event_ms(torch, lambda: fce.ce_chunk_fwd(
+                logits, t, c0, *state), 20),
+            "fwd_plain_ms": event_ms(torch, lambda: fce.ce_chunk_fwd_reference(
+                logits, t, c0, *state), 5),
+            "bwd_ms": event_ms(torch, lambda: fce.ce_chunk_bwd(
+                logits, t, c0, lse, g, z, torch.bfloat16), 20),
+            "bwd_plain_ms": event_ms(torch, lambda: fce.ce_chunk_bwd_reference(
+                logits, t, c0, lse, g, z, torch.bfloat16), 5),
+            "fwd_bound_ms": nbytes_fwd / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": nbytes_bwd / HBM_BYTES_PER_S * 1e3,
+            "product_ms": event_ms(torch, lambda: quant.dot_f32(
+                x, w[:, c0:c1]), 5)}
+        del logits, state
+    # the whole loss, forward and backward, fused and unfused (the
+    # unfused head and cross-entropy: the yardstick the fused path
+    # replaces), with the memory each takes beyond its inputs
+    xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+
+    def fused_loss():
+        loss = fce.fused_linear_cross_entropy(xg[None], wg, t[None])
+        return torch.autograd.grad(loss, (xg, wg))
+
+    def unfused_loss():
+        logits = llama._LMHead.apply(xg[None], wg)
+        loss = train.cross_entropy(logits, t[None], with_accuracy=False)[0]
+        return torch.autograd.grad(loss, (xg, wg))
+
+    for name, fn in (("fused", fused_loss), ("unfused", unfused_loss)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads_once = fn()
+        torch.cuda.synchronize()
+        ce[f"{name}_loss_extra_gib"] = (torch.cuda.max_memory_allocated()
+                                        - base) / 2**30
+        del grads_once
+        ce[f"{name}_loss_fwd_bwd_ms"] = event_ms(torch, fn, 2)
+    del xg, wg
+    out["fused_ce"] = ce
+    emit({"phase": 5, "kernel": "ce_chunk_fwd/ce_chunk_bwd", **ce})
+    if not ce["target_logit_equal"]:
+        fail("ce_chunk_fwd: the target logits differ from the plain version's")
+    if not torch.allclose(lse_k, lse, **LSE_TOL):
+        fail(f"ce_chunk_fwd: lse misses the plain version by "
+             f"{ce['lse_max_abs_err']:.3e} ({LSE_TOL})")
+    if dl_off["past_tolerance"]:
+        fail(f"ce_chunk_bwd: dlogits miss the plain version by more than one "
+             f"bf16 ulp: {dl_off}")
+    if ce["fused_loss_extra_gib"] >= ce["unfused_loss_extra_gib"]:
+        fail(f"the fused loss takes {ce['fused_loss_extra_gib']:.2f} GiB, "
+             f"not less than the unfused {ce['unfused_loss_extra_gib']:.2f}")
+    del x, w, t, run_k, run_p, lse_k, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int8 product at w1's shape: the int32 result bit for bit a
+    # float64 product of the same codes (exact: |sums| < 2^53)
+    m_, k_, n_ = INT8_SHAPE
+    a = torch.randn((m_, k_), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    b = (torch.randn((k_, n_), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    qx, _ = quant.quantize_int8(a, axis=-1)
+    qw, _ = quant.quantize_int8(b, axis=0)
+    y = quant._int_product(qx, qw)
+    y64 = qx.double() @ qw.double()
+    exact = torch.equal(y.double(), y64)
+    int32_err = float((y.double() - y64).abs().max())
+    del y64
+    ref = quant.dot_f32(a, b)
+    y8 = quant.int8_matmul(a, b)
+    flops = 2 * m_ * k_ * n_
+    i8 = {"shape": {"m": m_, "k": k_, "n": n_}, "int32_exact": exact,
+          "max_abs_err": int32_err,
+          "rel_err_vs_bf16_operands": float((y8.float() - ref).norm()
+                                            / ref.norm()),
+          "ms": event_ms(torch, lambda: quant.int8_matmul(a, b), 5),
+          "int_mm_ms": event_ms(torch, lambda: quant._int_product(qx, qw), 5),
+          "plain_ms": event_ms(torch, lambda: qx.double() @ qw.double(), 1),
+          # the yardstick the port does not call for this product: the
+          # bf16 product of the unquantized operands
+          "library_ms": event_ms(torch, lambda: torch.mm(a, b), 5),
+          "bound_ms": max(flops / 1979e12,
+                          (m_ * k_ * 2 + k_ * n_ * 2 + m_ * n_ * 2)
+                          / HBM_BYTES_PER_S) * 1e3,
+          "bound_by": "operations", "flops": flops}
+    out["int8_matmul"] = i8
+    emit({"phase": 5, "kernel": "int8_matmul", **i8})
+    if not exact:
+        fail("int8 product: the int32 result differs from the float64 product "
+             "of the same codes")
+    del a, b, qx, qw, y, ref, y8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- phase 6 -----------------------------------------------------------------
 
 
@@ -6809,29 +7115,9 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
     del repeat
     gc.collect()
     torch.cuda.empty_cache()
-    trainer = trainer_mod.Trainer(tcfg)
-    stamps = []
-
-    def on_step(step, metrics):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    resident_gib = torch.cuda.memory_allocated() / 2**30
-    kernel_support.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = trainer.run(on_step=on_step)
-    launches = kernel_support.launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    hist = [h for h in result.metrics_history if "loss" in h]
-    losses = [h["loss"] for h in hist]
-    norms = [h["grad_norm"] for h in hist]
-    step_s = [b_ - a_ for a_, b_ in zip([t0] + stamps[:-1], stamps)]
-    steady_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
-    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3)
-    mfu = cfg.flops_per_token() * tokens_per_s / PEAK_FLOPS["bfloat16"]
+    run = measured_run(torch, kernel_support, trainer_mod, tcfg)
+    losses, norms, launches = run["losses"], run["grad_norms"], run["launches"]
+    hist = list(zip(losses, norms))
     need = cfg.n_layers * TRAIN_STEPS
     # the random init's logits: unit-RMS hidden states times std-0.02
     # head weights have variance d * 0.02^2, and the expected cross-entropy
@@ -6841,20 +7127,11 @@ def phase_training(torch, kernel_support, attention_mod, llama, train,
     out = {
         "phase": 6, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-        "remat_policy": cfg.remat_policy, "losses": losses,
-        "grad_norms": norms, "ln_vocab": math.log(cfg.vocab_size),
-        "expected_step1_loss": expected_loss,
-        "step_ms": [1e3 * x for x in step_s], "steady_step_ms": steady_ms,
-        "tokens_per_s": tokens_per_s,
-        "trainer_tokens_per_s": result.tokens_per_second,
-        "flops_per_token": cfg.flops_per_token(), "mfu": mfu,
-        "peak_memory_gib": peak_gib, "resident_before_gib": resident_gib,
-        "launches": launches, "launches_needed": need,
+        "remat_policy": cfg.remat_policy, **run,
+        "ln_vocab": math.log(cfg.vocab_size),
+        "expected_step1_loss": expected_loss, "launches_needed": need,
         "losses_repeat_bitwise": losses == repeat_losses,
     }
-    del trainer, result
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # kernels vs plain attention, 2 layers in f32 at the run's B and S: the
     # first update has learning rate 0, so both steps see the same
@@ -6979,6 +7256,156 @@ def _leaf_paths(tree, prefix=()):
             out.extend(_leaf_paths(value, (*prefix, str(key))))
         else:
             out.append((*prefix, str(key)))
+    return out
+
+
+def timed_updates(torch, optimizer) -> list:
+    """Wrap ``optimizer.update`` in CUDA events (one pair a call, read
+    after the run): the update's own device time, step by step."""
+    events = []
+    update = optimizer.update
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        norm = update(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return norm
+
+    optimizer.update = timed
+    return events
+
+
+def measured_run(torch, kernel_support, trainer_mod, tcfg) -> dict:
+    """One trainer run with the launch counts of exactly that run, the
+    step times (synchronised at each step's end), the optimizer update's
+    device ms, tokens/s, MFU and the peak memory."""
+    trainer = trainer_mod.Trainer(tcfg)
+    updates = timed_updates(torch, trainer.optimizer)
+    stamps = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    kernel_support.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.run(on_step=on_step)
+    launches = kernel_support.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hist = [h for h in result.metrics_history if "loss" in h]
+    step_s = [b_ - a_ for a_, b_ in zip([t0] + stamps[:-1], stamps)]
+    steady_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    tokens_per_s = tcfg.batch_size * tcfg.seq_len / (steady_ms / 1e3)
+    update_ms = [s.elapsed_time(e) for s, e in updates]
+    out = {
+        "losses": [h["loss"] for h in hist],
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "step_ms": [1e3 * x for x in step_s], "steady_step_ms": steady_ms,
+        "tokens_per_s": tokens_per_s,
+        "trainer_tokens_per_s": result.tokens_per_second,
+        "flops_per_token": tcfg.model.flops_per_token(),
+        "mfu": tcfg.model.flops_per_token() * tokens_per_s
+        / PEAK_FLOPS["bfloat16"],
+        "peak_memory_gib": peak_gib, "resident_before_gib": resident_gib,
+        "launches": launches, "update_ms": update_ms,
+        "steady_update_ms": sum(update_ms[1:]) / max(len(update_ms) - 1, 1),
+        "leaves": len(trainer.state["opt_state"]["mu"]),
+    }
+    del trainer, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the phase-6 runs of the fused training ops, each against the unfused run
+FUSED_RUNS = {"train_fused": dict(fused_ce=True, opt_impl="fused"),
+              "train_int8": dict(quant="int8")}
+FUSED_STEP1_TOL = 1e-2  # train_fused's step-1 loss against the unfused run's
+INT8_LOSS_RTOL = 0.05   # train_int8's final loss against bf16's (the
+                        # reference's bound, tests/test_quant.py)
+
+
+def phase_fused_training(torch, kernel_support, llama, trainer_mod, fo, fce,
+                         quant, base: dict) -> dict:
+    """The trainer at phase 6's shapes with ``--optImpl fused --fusedCE``
+    (``train_fused``: K5, K6 and K7 on the path, the losses repeating bit
+    for bit, less memory than the unfused run) and with ``--quant int8``
+    (``train_int8``: the int8 products, none re-run in the backward), each
+    against the unfused run ``base``."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=TRAIN_LAYERS)
+    out = {}
+    for run, opts in FUSED_RUNS.items():
+        opt_impl = opts.get("opt_impl", "optax")
+        model = dataclasses.replace(cfg, **{k: v for k, v in opts.items()
+                                            if k != "opt_impl"})
+        tcfg = trainer_mod.TrainerConfig(
+            model=model, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            total_steps=TRAIN_STEPS, warmup_steps=2, log_every=1,
+            opt_impl=opt_impl, device="cuda")
+        repeat = None
+        if run == "train_fused":
+            first = trainer_mod.Trainer(tcfg).run()
+            repeat = [h["loss"] for h in first.metrics_history if "loss" in h]
+            del first
+        row = measured_run(torch, kernel_support, trainer_mod, tcfg)
+        row.update(run=run, opt_impl=opt_impl, fused_ce=model.fused_ce,
+                   quant=model.quant, card=card_line(),
+                   unfused_losses=base["losses"],
+                   unfused_steady_step_ms=base["steady_step_ms"],
+                   unfused_mfu=base["mfu"],
+                   unfused_peak_memory_gib=base["peak_memory_gib"],
+                   unfused_steady_update_ms=base["steady_update_ms"])
+        if repeat is not None:
+            row["losses_repeat_bitwise"] = row["losses"] == repeat
+        out[run] = row
+        emit({"phase": 6, **row})
+
+    steps = TRAIN_STEPS
+    flash = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    fused, int8 = out["train_fused"], out["train_int8"]
+    n_chunks = len(fce.chunk_bounds(cfg.vocab_size, CE_CHUNK))
+    for run, row in out.items():
+        if not all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]) \
+                or len(row["losses"]) != steps:
+            fail(f"{run}: want {steps} finite losses and grad norms: "
+                 f"{row['losses']} {row['grad_norms']}")
+        for name in flash:
+            for key in (name, kernel_support.engine_key(name, "tensor_cores")):
+                if row["launches"].get(key, 0) != base["launches"].get(key, 0):
+                    fail(f"{run}: {key} launched {row['launches'].get(key, 0)} "
+                         f"times, the unfused run {base['launches'].get(key, 0)}")
+    if abs(fused["losses"][0] - base["losses"][0]) > FUSED_STEP1_TOL:
+        fail(f"train_fused: step-1 loss {fused['losses'][0]} is not within "
+             f"{FUSED_STEP1_TOL} of the unfused run's {base['losses'][0]}")
+    if not fused["losses_repeat_bitwise"]:
+        fail("train_fused: the losses of two runs differ")
+    want = {**{k: steps * n for k, n in
+               fo.launches_per_update(fused["leaves"]).items()},
+            fce.FWD_NAME: steps * n_chunks, fce.BWD_NAME: steps * n_chunks}
+    got = {k: fused["launches"].get(k, 0) for k in want}
+    if got != want:
+        fail(f"train_fused: launches {got}, the run needs {want}")
+    if fused["peak_memory_gib"] >= base["peak_memory_gib"]:
+        fail(f"train_fused: peak {fused['peak_memory_gib']:.2f} GiB is not "
+             f"below the unfused run's {base['peak_memory_gib']:.2f}")
+    if abs(int8["losses"][-1] - base["losses"][-1]) > \
+            INT8_LOSS_RTOL * base["losses"][-1]:
+        fail(f"train_int8: final loss {int8['losses'][-1]} is not within "
+             f"{INT8_LOSS_RTOL:.0%} of bf16's {base['losses'][-1]}")
+    # the forward's seven projections a layer and step; none in the
+    # backward (the remat policy saves the int8 products' outputs)
+    need = 7 * cfg.n_layers * steps
+    if int8["launches"].get(quant.INT8_NAME, 0) != need:
+        fail(f"train_int8: {int8['launches'].get(quant.INT8_NAME, 0)} int8 "
+             f"products; the forward needs exactly {need}")
     return out
 
 
@@ -7362,6 +7789,79 @@ def kernel_entry(name, source, replaces, launches, errs, head, extra):
             "max_abs_err": max(errs.values()), **errs, **head, **extra}
 
 
+def fused_entries(kernel_support, fo, fce, quant, checks: dict,
+                  runs: dict) -> list:
+    """The kernels line's entries of the fused training ops: K5, K6, K7
+    (hand-written, ``csrc/``) and the int8 product (``torch._int_mm``
+    behind ``ops/quant.py``). None replaces a TPU kernel; each names the
+    reference module it is the counterpart of. Launches: phase 6's
+    train_fused (K5-K7) and train_int8 (the int8 product)."""
+    k5, ce, i8 = checks["fused_adamw"], checks["fused_ce"], \
+        checks["int8_matmul"]
+    fused, int8 = runs["train_fused"]["launches"], runs["train_int8"]["launches"]
+    csrc = "k8s_gpu_device_plugin_torch/ops/csrc/"
+    bf = k5["bfloat16"]
+    entries = [kernel_entry(
+        fo.NAME, csrc + "fused_adamw.cu", None,
+        fused.get(fo.NAME, 0) + fused.get(fo.NORM_NAME, 0),
+        {"max_abs_err": max(off["max_abs_err"] for r in k5.values()
+                            for off in r["off"].values())},
+        {k: bf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")},
+        {"counterpart_of": "k8s_gpu_device_plugin_tpu/ops/fused_optim.py",
+         "launches_update": fused.get(fo.NAME, 0),
+         "launches_norm": fused.get(fo.NORM_NAME, 0),
+         "headline_case": f"{bf['leaves']} leaves of Llama-3-8B at "
+                          f"{FUSED_LAYERS} layers, {bf['elements']} bf16 "
+                          "parameters, one update (norm pass included)",
+         "library_call": "torch._fused_adamw_ over the same leaves (no clip)",
+         "eager_adamw_ms": bf["eager_adamw_ms"],
+         "off_plain_fed_the_kernel_scale": {d: r["off"] for d, r in k5.items()},
+         "norm_rel_err": {d: max(r["norm_rel_err"]) for d, r in k5.items()},
+         "update_ms_train_fused": runs["train_fused"]["steady_update_ms"],
+         "update_ms_eager_unfused_run":
+             runs["train_fused"]["unfused_steady_update_ms"]})]
+    for name, key, plain in ((fce.FWD_NAME, "fwd", "fwd_plain"),
+                             (fce.BWD_NAME, "bwd", "bwd_plain")):
+        errs = {"max_abs_err": ce["lse_max_abs_err"] if key == "fwd"
+                else ce["dlogits_off"]["max_abs_err"]}
+        entries.append(kernel_entry(
+            name, csrc + "fused_ce.cu", None, fused.get(name, 0), errs,
+            {"ms": ce["full"][f"{key}_ms"],
+             "plain_ms": ce["full"][f"{plain}_ms"],
+             "bound_ms": ce["full"][f"{key}_bound_ms"], "bound_by": "bytes",
+             "library_ms": None},
+            {"counterpart_of": "k8s_gpu_device_plugin_tpu/ops/fused_ce.py",
+             "headline_case": f"one chunk, N {ce['rows']} x {CE_CHUNK} f32 "
+                              "logits",
+             "ragged_case": {k: ce["ragged"][k] for k in (
+                 "width", f"{key}_ms", f"{plain}_ms", f"{key}_bound_ms")},
+             "dlogits_off_plain": ce["dlogits_off"],
+             "yardstick_loss_fwd_bwd_ms": {
+                 "fused": ce["fused_loss_fwd_bwd_ms"],
+                 "unfused_head_and_cross_entropy":
+                     ce["unfused_loss_fwd_bwd_ms"]},
+             "loss_extra_gib": {"fused": ce["fused_loss_extra_gib"],
+                                "unfused": ce["unfused_loss_extra_gib"]}}))
+    entries.append(kernel_entry(
+        quant.INT8_NAME, "k8s_gpu_device_plugin_torch/ops/quant.py", None,
+        int8.get(quant.INT8_NAME, 0), {"max_abs_err": i8["max_abs_err"]},
+        {k: i8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")},
+        {"counterpart_of": "k8s_gpu_device_plugin_tpu/ops/quant.py:61",
+         "product": "torch._int_mm (cuBLASLt int8 GEMM), no hand-written "
+                    "kernel yet",
+         "headline_case": f"M {i8['shape']['m']} K {i8['shape']['k']} "
+                          f"N {i8['shape']['n']}, quantize + int32 product "
+                          "+ rescale",
+         "int_mm_ms": i8["int_mm_ms"], "int32_exact": i8["int32_exact"],
+         "library_call": "torch.mm of the bf16 operands",
+         "rel_err_vs_bf16_operands": i8["rel_err_vs_bf16_operands"]}))
+    for e in entries:
+        e["route"] = "cuda"
+    return entries
+
+
 def main() -> None:
     try:
         import torch
@@ -7386,6 +7886,8 @@ def main() -> None:
         from k8s_gpu_device_plugin_torch.models import trainer as trainer_mod
         from k8s_gpu_device_plugin_torch.ops import attention as attention_mod
         from k8s_gpu_device_plugin_torch.ops import flash_attention as fa
+        from k8s_gpu_device_plugin_torch.ops import fused_ce as fce
+        from k8s_gpu_device_plugin_torch.ops import fused_optim as fo
         from k8s_gpu_device_plugin_torch.ops import kernel_support
         from k8s_gpu_device_plugin_torch.ops import quant
         from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
@@ -7406,15 +7908,19 @@ def main() -> None:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device_count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
         builds = {"ragged_paged_attention": pool.submit(rpa.load_kernel),
-                  "flash_attention": pool.submit(fa.load_kernel)}
+                  "flash_attention": pool.submit(fa.load_kernel),
+                  "fused_adamw": pool.submit(fo.load_kernel),
+                  "fused_ce": pool.submit(fce.load_kernel)}
         libs = {name: b.result() for name, b in builds.items()}
     emit({"phase": 1, "build_s": time.perf_counter() - t0})
     phase_sass(kernel_support, libs)
 
     cases = phase_kernels(torch, rpa, quant, kernel_support)
     flash = phase_flash(torch, fa, kernel_support)
+    fused_kernels = phase_fused_kernels(torch, llama, train, quant, fo, fce,
+                                        kernel_support)
     cfg = llama.LlamaConfig.llama3_8b()
     # one set of random 8B weights for the model check and the servers
     params = server_mod.load_params(cfg, seed=SEED, device="cuda")
@@ -7526,6 +8032,10 @@ def main() -> None:
                           llama, generate)
     training = phase_training(torch, kernel_support, attention_mod, llama,
                               train, trainer_mod)
+    # the fused training ops on the same path: --optImpl fused --fusedCE,
+    # then --quant int8
+    fused_runs = phase_fused_training(torch, kernel_support, llama,
+                                      trainer_mod, fo, fce, quant, training)
     # checkpoints: exact resume, serving what was trained, LoRA training
     # and serving the trained adapter (2 layers at the 8B widths)
     ckpt = phase_checkpoints(torch, kernel_support, attention_mod, llama,
@@ -7731,10 +8241,12 @@ def main() -> None:
         served = (surface["launches"]["flash_fwd"] + moe["k2_launches"]
                   + fleet_runs["k2_launches"] + beam_k2) \
             if name == "flash_fwd" else 0
+        fused_flash = sum(r["launches"].get(name, 0)
+                          for r in fused_runs.values())
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
-            training["launches"].get(name, 0) + served
+            training["launches"].get(name, 0) + served + fused_flash
             + ckpt["flash_launches"][name], errs,
             {"ms": fhead["ms"][name], "plain_ms": fhead["plain_ms"][name],
              "bound_ms": fhead["bounds"][name]["bound_ms"],
@@ -7750,6 +8262,8 @@ def main() -> None:
              # every short scored prompt and embedding) and the MoE
              # forward check's (Mixtral's width, f32, CUDA cores)
              "launches_training": training["launches"].get(name, 0),
+             # phase 6's train_fused and train_int8 runs
+             "launches_fused_training": fused_flash,
              # phase 7: the resumed and straight trainer runs' and LoRA
              # training's (2 layers, bf16, the tensor cores)
              "launches_checkpoint_runs": ckpt["flash_launches"][name]
@@ -7777,6 +8291,8 @@ def main() -> None:
                         "library_ms": c["library_fwd_ms"]
                         if name == "flash_fwd" else c["library_bwd_ms"],
                         **c["bounds"][name]} for c in flash]}))
+    kernels.extend(fused_entries(kernel_support, fo, fce, quant,
+                                 fused_kernels, fused_runs))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,8 @@ def beam_search(
     hypothesis); scores are cumulative f32 token log-probabilities. Runs
     where ``prompt`` and ``params`` live.
     """
+    if cfg.quant != "none":
+        raise NotImplementedError("decode path is bf16-only (quant='none')")
     b, p = prompt.shape
     if b != 1:
         raise NotImplementedError("beam search decodes one prompt at a time")

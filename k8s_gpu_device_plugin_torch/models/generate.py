@@ -415,6 +415,10 @@ def generate(
     (B, max_new) generated ids. Prefill over the prompt, then
     ``max_new - 1`` single-token cached forwards (the last token needs
     only a pick from the last logits), as in the reference."""
+    if cfg.quant != "none":
+        # the cached decode runs float products: an int8-trained config
+        # would decode with other numerics than its training forward
+        raise NotImplementedError("decode path is bf16-only (quant='none')")
     sampler = sampler or Sampler()
     b, p = prompt.shape
     device = prompt.device

@@ -23,12 +23,16 @@ reference scans them, and wraps each block in ``torch.utils.checkpoint``
 when ``remat`` is set; its attention goes through
 ``ops.attention.attention`` (the flash kernels on the card).
 
-The config refuses the values the port does not serve yet (int8
-training matmuls, tensor, sequence and pipeline parallelism, fused
-cross-entropy) instead of ignoring them; each refusal names its ROADMAP
-item. Weight-only quantized serving params (``models/quantized_serving.py``)
-are dict leaves in the same tree: the master-weight cast passes them
-through and ``head_weights`` returns a quantized head as it is.
+``quant="int8"`` runs the block's seven projections (and a MoE's
+expert products) through ``ops.quant``'s int8 products, whose outputs the
+remat policies save as they save the float products; ``fused_ce`` is read
+by the loss (``models/train.py``, ``ops/fused_ce.py``). The config
+refuses the values the port does not serve yet (tensor, sequence and
+pipeline parallelism) instead of ignoring them; each refusal names its
+ROADMAP item. Weight-only quantized serving params
+(``models/quantized_serving.py``) are dict leaves in the same tree: the
+master-weight cast passes them through and ``head_weights`` returns a
+quantized head as it is.
 """
 
 from __future__ import annotations
@@ -46,7 +50,11 @@ from k8s_gpu_device_plugin_torch.models.quantized_serving import (
     check_cache_quant_kv_layout,
 )
 from k8s_gpu_device_plugin_torch.ops.attention import attention
-from k8s_gpu_device_plugin_torch.ops.quant import dot_f32
+from k8s_gpu_device_plugin_torch.ops.quant import (
+    bf16_ste_bwd,
+    dot_f32,
+    int8_matmul,
+)
 
 REMAT_POLICIES = ("save_dots_attn", "save_dots", "save_nothing")
 
@@ -149,14 +157,14 @@ class LlamaConfig:
             raise ValueError(
                 f"kv_page_size must be >= 1, got {self.kv_page_size}"
             )
+        if self.quant not in ("none", "int8"):
+            raise ValueError(
+                f"quant must be 'none' or 'int8', got {self.quant!r} (weight-"
+                "only serving quantization is models/quantized_serving.py)"
+            )
         refusals = (
-            ("quant", "none", "int8 training matmuls are not ported yet "
-             "(ROADMAP A.11b); use quant='none' (weight-only serving "
-             "quantization is models/quantized_serving.py)"),
             ("tp", 1, "tensor-parallel serving is not ported yet (ROADMAP "
              "A.12); serve tp=1 (one card)"),
-            ("fused_ce", False, "fused lm_head + cross-entropy is not "
-             "ported yet (ROADMAP A.11b); use fused_ce=False"),
             ("n_microbatches", 1, "pipeline parallelism is not ported yet "
              "(ROADMAP A.13); use n_microbatches=1"),
         )
@@ -378,16 +386,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # --- the full-sequence forward (training) -------------------------------------
 
 
-def _matmul_f32_acc(a: torch.Tensor, b: torch.Tensor,
-                    out_dtype: torch.dtype) -> torch.Tensor:
-    """a @ b from ``a.dtype`` operands with f32 accumulation, rounded once
-    to ``out_dtype``. cuBLAS accumulates bf16 products in f32 and rounds
-    at the output; the CPU widens the operands (exact bf16 -> f32)."""
-    if a.dtype == torch.float32 or a.device.type == "cuda":
-        return (a @ b).to(out_dtype)
-    return (a.float() @ b.float()).to(out_dtype)
-
-
 class _LMHead(torch.autograd.Function):
     """The lm_head product (``ops.quant.dot_f32``: f32 logits from
     operands in x's dtype) with the reference's custom backward
@@ -402,30 +400,27 @@ class _LMHead(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        gb = g.to(x.dtype)
-        dx = _matmul_f32_acc(gb, w.to(x.dtype).T, x.dtype)
-        d = x.shape[-1]
-        dw = _matmul_f32_acc(x.reshape(-1, d).T, gb.reshape(-1, gb.shape[-1]),
-                             w.dtype)
-        return dx, dw
+        return bf16_ste_bwd(*ctx.saved_tensors, g)
 
 
 def _remat_context_fn(policy: str):
     """The selective-checkpoint policy of ``remat_policy`` (the
     reference's ``save_from_both_policies``): matmul outputs without
-    batch dims (``aten.mm``, every projection and MLP product) are saved,
-    plus, under "save_dots_attn", the flash attention custom op's outputs;
-    everything else is recomputed. On the CPU the attention runs
+    batch dims (``aten.mm``, every projection and MLP product) and the
+    int8 products' custom ops (the reference's ``"quant_dot"`` names) are
+    saved, plus, under "save_dots_attn", the flash attention custom op's
+    outputs; everything else is recomputed. On the CPU the attention runs
     ``mha_reference``, which has no op to save, and is recomputed."""
     from torch.utils.checkpoint import (
         CheckpointPolicy,
         create_selective_checkpoint_contexts,
     )
 
-    saved = {torch.ops.aten.mm.default}
+    ops = torch.ops.k8s_gpu_device_plugin_torch
+    saved = {torch.ops.aten.mm.default, ops.int8_matmul.default,
+             ops.int8_expert_matmul.default}
     if policy == "save_dots_attn":
-        saved.add(torch.ops.k8s_gpu_device_plugin_torch.flash_attention.default)
+        saved.add(ops.flash_attention.default)
 
     def policy_fn(ctx, op, *args, **kwargs):
         if op in saved:
@@ -448,22 +443,23 @@ def _block(x, layer, cfg: LlamaConfig, rot, plain_attention: bool = False):
     built once per forward."""
     b, s, _ = x.shape
     hd = cfg.head_dim
+    mm = int8_matmul if cfg.quant == "int8" else torch.matmul
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
-    q, k, v = h @ layer["wq"], h @ layer["wk"], h @ layer["wv"]
+    q, k, v = mm(h, layer["wq"]), mm(h, layer["wk"]), mm(h, layer["wv"])
     if cfg.attn_bias:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     q = apply_rope(q.reshape(b, s, cfg.n_heads, hd), *rot)
     k = apply_rope(k.reshape(b, s, cfg.n_kv_heads, hd), *rot)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
     attn = _attention(q, k, v, cfg, plain=plain_attention)
-    x = x + attn.reshape(b, s, cfg.n_heads * hd) @ layer["wo"]
+    x = x + mm(attn.reshape(b, s, cfg.n_heads * hd), layer["wo"])
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
     if cfg.is_moe:
         ff_out, aux = moe_mlp(h, layer, cfg)
         return x + ff_out, aux
-    gate = mlp_act((h @ layer["w1"]).float(), cfg).to(x.dtype)
-    up = h @ layer["w3"]
-    return x + (gate * up) @ layer["w2"], {}
+    gate = mlp_act(mm(h, layer["w1"]).float(), cfg).to(x.dtype)
+    up = mm(h, layer["w3"])
+    return x + mm(gate * up, layer["w2"]), {}
 
 
 def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,

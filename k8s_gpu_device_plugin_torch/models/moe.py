@@ -13,8 +13,8 @@ Routing is the reference's: f32 router logits (:func:`router_logits`),
 renormalised top-k softmax gates, capacity-based one-hot dispatch and
 combine tensors (B, S, E, C) built from cumsum positions, tokens over
 capacity dropped. The expert products are batched ``torch.matmul``
-over the expert axis: the reference leaves them to XLA, outside any
-Pallas kernel. Serving's decode MLP (``models/generate.py``) computes
+over the expert axis (int8 codes under ``quant="int8"``): the reference
+leaves them to XLA, outside any Pallas kernel. Serving's decode MLP (``models/generate.py``) computes
 every expert and mixes them by the gates instead: no capacity, no drops.
 """
 
@@ -25,6 +25,8 @@ from typing import TYPE_CHECKING, Callable
 
 import torch
 import torch.nn.functional as F
+
+from k8s_gpu_device_plugin_torch.ops.quant import int8_expert_matmul
 
 if TYPE_CHECKING:  # pragma: no cover
     from k8s_gpu_device_plugin_torch.models.llama import LlamaConfig
@@ -105,12 +107,18 @@ def _group_size(requested: int, seq_len: int) -> int:
     return seq_len  # unreachable: 1 always divides
 
 
-def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(E, B, C, K) x (E, K, N) -> (E, B, C, N), one product per expert.
-    Float stacks only: int8 training matmuls stay refused by the config
-    (ROADMAP A.11)."""
+def _expert_mm(x: torch.Tensor, w: torch.Tensor,
+               cfg: "LlamaConfig") -> torch.Tensor:
+    """(E, B, C, K) x (E, K, N) -> (E, B, C, N), one product per expert;
+    through ``ops.quant.int8_expert_matmul`` under ``quant="int8"`` (a
+    custom op the remat policy saves, as the reference names its output
+    ``"quant_dot"``)."""
     e, b, c, k = x.shape
-    return torch.matmul(x.reshape(e, b * c, k), w).reshape(e, b, c, -1)
+    if cfg.quant == "int8":
+        out = int8_expert_matmul(x.reshape(e, b * c, k), w)
+    else:
+        out = torch.matmul(x.reshape(e, b * c, k), w)
+    return out.reshape(e, b, c, -1)
 
 
 def moe_mlp(h: torch.Tensor, layer: dict, cfg: "LlamaConfig") -> tuple:
@@ -137,9 +145,10 @@ def moe_mlp(h: torch.Tensor, layer: dict, cfg: "LlamaConfig") -> tuple:
     dispatch, combine = make_dispatch_combine(gates, idx, e, capacity)
     # tokens -> per-expert buffers
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(cfg.dtype), h)
-    gate = F.silu(_expert_mm(expert_in, layer["moe_w1"]).float()).to(cfg.dtype)
-    up = _expert_mm(expert_in, layer["moe_w3"])
-    expert_out = _expert_mm(gate * up, layer["moe_w2"])
+    gate = F.silu(_expert_mm(expert_in, layer["moe_w1"], cfg).float()).to(
+        cfg.dtype)
+    up = _expert_mm(expert_in, layer["moe_w3"], cfg)
+    expert_out = _expert_mm(gate * up, layer["moe_w2"], cfg)
     # per-expert buffers -> tokens, gate-weighted
     out = torch.einsum("bsec,ebcd->bsd", combine.to(cfg.dtype), expert_out)
     return out, aux

@@ -182,6 +182,8 @@ def rolling_generate(
             "rolling_generate needs cfg.sliding_window > 0 (full-causal "
             "models need every past position: use generate)"
         )
+    if cfg.quant != "none":
+        raise NotImplementedError("decode path is bf16-only (quant='none')")
     b, p = prompt.shape
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")

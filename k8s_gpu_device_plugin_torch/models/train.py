@@ -22,6 +22,13 @@ lists, with optax's numerics:
 Each leaf's update is computed in f32 and rounded once into the stored
 dtype (bf16 moments and parameters round where XLA's fused update
 rounds; in f32 this is optax's arithmetic).
+
+``make_optimizer(impl="fused")`` gives ``ops/fused_optim.py``'s
+``FusedAdamW`` instead (the reference's fused numerics; hand-written
+kernels on the card) with the same interface, so the step and the
+checkpoints take either. A config with ``fused_ce`` takes the loss
+through ``ops/fused_ce.py`` when the step reports no accuracy, as the
+reference's ``loss_fn`` does.
 """
 
 from __future__ import annotations
@@ -37,11 +44,14 @@ from k8s_gpu_device_plugin_torch.models.llama import (
     LlamaConfig,
     cast_params_for_compute,
     forward_with_aux,
+    head_weights,
     init_params,
 )
-
-# one z-loss weight for every loss path, as in the reference
-Z_LOSS_WEIGHT = 1e-4
+from k8s_gpu_device_plugin_torch.ops.fused_ce import (
+    Z_LOSS_WEIGHT,  # one z-loss weight for every loss path
+    fused_linear_cross_entropy,
+)
+from k8s_gpu_device_plugin_torch.ops.fused_optim import FusedAdamW, global_norm
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -87,11 +97,6 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
         return peak_value * ((1 - alpha) * cosine + alpha)
 
     return schedule
-
-
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, as an f32 scalar."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
 class AdamW:
@@ -140,20 +145,19 @@ class AdamW:
 def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
                    b1: float = 0.9, b2: float = 0.95, grad_clip: float = 1.0,
                    warmup_steps: int = 100, total_steps: int = 10000,
-                   impl: str = "optax") -> AdamW:
-    """AdamW with a warmup-cosine schedule and global-norm clipping."""
-    if impl == "fused":
-        raise NotImplementedError(
-            "opt_impl='fused' (ops/fused_optim.py) is not ported yet "
-            "(ROADMAP A.11b); use 'optax'"
-        )
-    if impl != "optax":
+                   impl: str = "optax") -> "AdamW | FusedAdamW":
+    """AdamW with a warmup-cosine schedule and global-norm clipping:
+    ``impl="optax"`` the optax chain's numerics (:class:`AdamW`),
+    ``impl="fused"`` the reference's fused ones (``FusedAdamW``: one
+    kernel pass a leaf on the card)."""
+    if impl not in ("optax", "fused"):
         raise ValueError(f"unknown optimizer impl {impl!r}")
     schedule = warmup_cosine_decay_schedule(
         0.0, learning_rate, warmup_steps, max(total_steps, warmup_steps + 1)
     )
-    return AdamW(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
-                 clip=grad_clip)
+    opt = AdamW if impl == "optax" else FusedAdamW
+    return opt(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
+               clip=grad_clip)
 
 
 # --- loss and step ------------------------------------------------------------
@@ -172,11 +176,21 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig,
     """(loss, {"loss", "accuracy"}) of one batch {"inputs", "targets"}.
     A MoE config adds its router losses to the loss, ``moe_aux_weight *
     moe_load_balance + moe_z_weight * moe_router_z``, and reports them
-    beside the cross-entropy ``loss``."""
-    logits, aux = forward_with_aux(params, batch["inputs"], cfg,
-                                   plain_attention=plain_attention)
-    loss, accuracy = cross_entropy(logits, batch["targets"],
-                                   with_accuracy=with_accuracy)
+    beside the cross-entropy ``loss``. With ``cfg.fused_ce`` and no
+    accuracy asked for, the head and the cross-entropy run fused
+    (``ops/fused_ce.py``: no logits exist) and accuracy reads -1."""
+    if cfg.fused_ce and not with_accuracy:
+        hidden, aux = forward_with_aux(params, batch["inputs"], cfg,
+                                       return_hidden=True,
+                                       plain_attention=plain_attention)
+        loss = fused_linear_cross_entropy(
+            hidden, head_weights(params, cfg).to(cfg.dtype), batch["targets"])
+        accuracy = torch.full((), -1.0, device=loss.device)
+    else:
+        logits, aux = forward_with_aux(params, batch["inputs"], cfg,
+                                       plain_attention=plain_attention)
+        loss, accuracy = cross_entropy(logits, batch["targets"],
+                                       with_accuracy=with_accuracy)
     metrics = {"loss": loss.detach(), "accuracy": accuracy}
     if aux:
         metrics.update({k: v.detach() for k, v in aux.items()})
@@ -215,7 +229,7 @@ def _split(batch: dict, micro: int, what: str) -> list:
             for i in range(micro)]
 
 
-def make_train_step(cfg: LlamaConfig, optimizer: AdamW,
+def make_train_step(cfg: LlamaConfig, optimizer: "AdamW | FusedAdamW",
                     with_accuracy: bool = True, grad_accum: int = 1,
                     plain_attention: bool = False) -> Callable:
     """(state, batch) -> (state, metrics), updating ``state`` in place.
@@ -273,7 +287,7 @@ def make_eval_step(cfg: LlamaConfig, micro: int = 1) -> Callable:
     return step
 
 
-def init_train_state(cfg: LlamaConfig, optimizer: AdamW, *, seed: int = 0,
+def init_train_state(cfg: LlamaConfig, optimizer: "AdamW | FusedAdamW", *, seed: int = 0,
                      device: "str | torch.device | None" = "cuda",
                      params: "dict | None" = None) -> dict:
     """{"params", "opt_state", "step"}: ``params`` (random from ``seed``

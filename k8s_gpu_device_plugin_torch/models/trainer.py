@@ -116,7 +116,9 @@ class Trainer:
             total_steps=cfg.total_steps,
             impl=cfg.opt_impl,
         )
+        # a fused cross-entropy has no logits to take an accuracy from
         self.step_fn = make_train_step(cfg.model, self.optimizer,
+                                       with_accuracy=not cfg.model.fused_ce,
                                        grad_accum=cfg.grad_accum)
         self._params = params
         if loader is not None:
@@ -333,12 +335,6 @@ def _refusal(args: argparse.Namespace) -> "str | None":
     checks = (
         (args.traceDir, "--traceDir: trainer traces are not ported yet "
          "(ROADMAP A.11c)"),
-        (args.quant != "none", f"--quant {args.quant}: int8 matmuls are not "
-         "ported yet (ROADMAP A.11b)"),
-        (args.optImpl != "optax", f"--optImpl {args.optImpl}: the fused "
-         "optimizer is not ported yet (ROADMAP A.11b)"),
-        (args.fusedCE, "--fusedCE: fused cross-entropy is not ported yet "
-         "(ROADMAP A.11b)"),
         (args.preset == "mixtral_8x7b", "--preset mixtral_8x7b: its "
          "params, grads and Adam state take about 747 GB, which is "
          "parallel training, not ported yet (ROADMAP A.13); the tiny "
@@ -359,9 +355,9 @@ def _main(argv: "list[str] | None" = None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    model = PRESETS[args.preset]()
-    if args.masterWeights:
-        model = replace(model, param_dtype=torch.float32)
+    model = replace(PRESETS[args.preset](), quant=args.quant,
+                    fused_ce=args.fusedCE,
+                    param_dtype=torch.float32 if args.masterWeights else None)
     cfg = TrainerConfig(
         model=model,
         batch_size=args.batchSize,
@@ -370,6 +366,7 @@ def _main(argv: "list[str] | None" = None) -> int:
         eval_every=args.evalEvery,
         eval_batches=args.evalBatches,
         total_steps=args.steps,
+        opt_impl=args.optImpl,
         checkpoint_dir=args.checkpointDir,
         checkpoint_interval=args.checkpointInterval,
         data_file=args.dataFile,

@@ -5,8 +5,21 @@ Port of ``k8s_gpu_device_plugin_tpu/ops/quant.py``'s
 KV cache's per-row recipes, ``models/generate.py::_quantize_kv``) and
 ``quantize_int4_grouped`` (the int4 weight recipe,
 ``models/quantized_serving.py``). The same f32 input gives the
-reference's codes and the reference's scale bits. ``int8_matmul`` is not
-ported yet (ROADMAP A.11b).
+reference's codes and the reference's scale bits.
+
+Training's int8 products (the reference's ``int8_matmul`` and
+``int8_expert_matmul``, an opt-in recipe: ``LlamaConfig(quant="int8")``):
+a forward of int8 codes (x per row over K, w per column over K; the
+expert form per expert) multiplied into int32 and rescaled in f32, and
+the straight-through bf16 backward against the unquantized operands
+(:func:`bf16_ste_bwd`, which the float lm_head's backward shares). The
+int32 product is ``torch._int_mm`` on the card (cuBLASLt's int8 GEMM,
+where the reference leaves the int8 dot to XLA; no hand-written kernel
+yet) and an exact integer product on the CPU. Both entries are
+``torch.library`` custom ops, so the selective-checkpoint policy of
+``models/llama.py`` can save their outputs as the reference's policy
+saves its ``"quant_dot"`` names: the backward re-runs no quantization and
+no int8 product.
 
 int4 storage. ``jnp.int4`` is a narrow dtype XLA packs for itself; torch
 has none, so the port defines the packing once, here: int4 codes are
@@ -25,6 +38,8 @@ and :func:`unpack_int4` convert, exactly.
 from __future__ import annotations
 
 import torch
+
+from k8s_gpu_device_plugin_torch.ops import kernel_support
 
 _EPS = 1e-8
 
@@ -107,3 +122,134 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         out = x2.float() @ w.float()
     return out.reshape(*lead, w.shape[-1])
+
+
+def matmul_f32_acc(a: torch.Tensor, b: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """a @ b from ``a.dtype`` operands with f32 accumulation, rounded once
+    to ``out_dtype``. cuBLAS accumulates bf16 products in f32 and rounds
+    at the output; the CPU widens the operands (exact bf16 -> f32)."""
+    if a.dtype == torch.float32 or a.device.type == "cuda":
+        return (a @ b).to(out_dtype)
+    return (a.float() @ b.float()).to(out_dtype)
+
+
+def bf16_ste_bwd(x: torch.Tensor, w: torch.Tensor,
+                 g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shared straight-through backward of ``x (..., K) @ w (K, N)``:
+    the cotangent cast to x's dtype, then dx and dw as f32-accumulated
+    products against the unquantized operands, rounded to x's and w's
+    dtypes (the reference's ``bf16_ste_bwd``)."""
+    gb = g.to(x.dtype)
+    dx = matmul_f32_acc(gb, w.to(x.dtype).T, x.dtype)
+    k = x.shape[-1]
+    dw = matmul_f32_acc(x.reshape(-1, k).T, gb.reshape(-1, gb.shape[-1]),
+                        w.dtype)
+    return dx, dw
+
+
+# --- int8 training products -------------------------------------------------
+
+#: launch count of the int8 product on the card (one a ``torch._int_mm``)
+INT8_NAME = "int8_matmul"
+
+
+def int8_mm_refusal(m: int, k: int, n: int) -> "str | None":
+    """Why ``torch._int_mm`` cannot take an (m, k) x (k, n) product on the
+    card, or None: m > 16, k and n positive multiples of 8."""
+    if m <= 16:
+        return f"int8 product rows M={m} must exceed 16"
+    if k < 8 or k % 8 or n < 8 or n % 8:
+        return f"int8 product K={k} and N={n} must be multiples of 8"
+    return None
+
+
+def _int_product(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> int32 (M, N), exactly. The card runs
+    ``torch._int_mm`` on w's codes laid out (N, K) (the int8 GEMM's
+    fast layout), counted as one launch; the CPU multiplies in float64,
+    exact while K * 127^2 < 2^53."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    if qx.device.type == "cpu":
+        return (qx.double() @ qw.double()).to(torch.int32)
+    why = int8_mm_refusal(m, k, n)
+    if why is not None:
+        raise ValueError(f"int8_matmul on the card: {why}")
+    y = torch._int_mm(qx.contiguous(), qw.t().contiguous().t())
+    kernel_support.count_launch(INT8_NAME)
+    return y
+
+
+@torch.library.custom_op("k8s_gpu_device_plugin_torch::int8_matmul",
+                         mutates_args=())
+def int8_matmul_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` through int8 codes, in x's dtype."""
+    qx, sx = quantize_int8(x, axis=-1)
+    qw, sw = quantize_int8(w, axis=0)
+    lead = x.shape[:-1]
+    y = _int_product(qx.reshape(-1, x.shape[-1]), qw)
+    y = y.reshape(*lead, w.shape[1])
+    return (y.float() * sx * sw).to(x.dtype)
+
+
+@int8_matmul_op.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:-1], w.shape[1]))
+
+
+def _int8_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _int8_backward(ctx, g):
+    return bf16_ste_bwd(*ctx.saved_tensors, g)
+
+
+int8_matmul_op.register_autograd(_int8_backward, setup_context=_int8_setup)
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with int8 operands; output in x's dtype. x: (..., K)
+    activations, quantized per row over K; w: (K, N) weights, quantized
+    per column over K. Rescaled as the reference does, ``(y * sx) * sw``
+    in f32; the backward is :func:`bf16_ste_bwd`."""
+    return int8_matmul_op(x, w.to(x.dtype))
+
+
+@torch.library.custom_op("k8s_gpu_device_plugin_torch::int8_expert_matmul",
+                         mutates_args=())
+def int8_expert_matmul_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, M, D) x (E, D, F) -> (E, M, F) through int8 codes, one int32
+    product an expert."""
+    qx, sx = quantize_int8(x, axis=-1)
+    qw, sw = quantize_int8(w, axis=1)
+    y = torch.stack([_int_product(qx[e], qw[e]) for e in range(x.shape[0])])
+    return (y.float() * sx * sw).to(x.dtype)
+
+
+@int8_expert_matmul_op.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+def _int8_expert_backward(ctx, g):
+    """The straight-through backward batched over E: dx = g w^T, dw =
+    x^T g, f32 accumulation, rounded to x's and w's dtypes."""
+    x, w = ctx.saved_tensors
+    gb = g.to(x.dtype)
+    dx = matmul_f32_acc(gb, w.transpose(1, 2), x.dtype)
+    dw = matmul_f32_acc(x.transpose(1, 2), gb, w.dtype)
+    return dx, dw
+
+
+int8_expert_matmul_op.register_autograd(_int8_expert_backward,
+                                        setup_context=_int8_setup)
+
+
+def int8_expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The MoE expert product ``einsum('emd,edf->emf')`` with int8
+    operands: scales per (e, m) row of x and per (e, f) column of w, so
+    each expert quantizes on its own; backward straight-through in bf16,
+    batched over E."""
+    return int8_expert_matmul_op(x, w.to(x.dtype))

@@ -92,13 +92,14 @@ def test_project_qkv_matches_reference(per_row):
 
 
 def test_config_refuses_what_the_slice_does_not_serve():
-    # MoE is served now; tensor parallelism and int8 matmuls are not
+    # MoE and the int8 training products are served now; tensor
+    # parallelism is not
     assert tllama.LlamaConfig.tiny(n_experts=8).is_moe
-    for field, value in (("tp", 2), ("quant", "int8")):
-        with pytest.raises(NotImplementedError, match=field):
-            tllama.LlamaConfig.tiny(**{field: value})
+    assert tllama.LlamaConfig.tiny(quant="int8").quant == "int8"
+    with pytest.raises(NotImplementedError, match="tp"):
+        tllama.LlamaConfig.tiny(tp=2)
     for field, value in (("cache_quant", "fp8"), ("kv_layout", "ragged"),
-                         ("kv_page_size", 0)):
+                         ("kv_page_size", 0), ("quant", "int4")):
         with pytest.raises(ValueError, match=field):
             tllama.LlamaConfig.tiny(**{field: value})
     served = tllama.LlamaConfig.tiny(kv_layout="paged", cache_quant="int8",

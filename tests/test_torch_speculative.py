@@ -243,8 +243,8 @@ def test_validation(models):
         tspec.speculative_generate(tparams, tcfg, tparams, tcfg,
                                    torch.zeros((2, 8), dtype=torch.long),
                                    max_new=4)
-    # the port's config refuses quant="int8" at construction (no int8
-    # training matmuls yet); one that slipped past is still refused here
+    # an int8-trained config decodes with other numerics than its
+    # training forward: refused here, as the reference refuses it
     cfg_q = copy.copy(tcfg)
     object.__setattr__(cfg_q, "quant", "int8")
     with pytest.raises(NotImplementedError, match="bf16-only"):

@@ -239,8 +239,7 @@ def test_master_weights_keep_f32_storage(np_params):
 
 
 def test_config_refuses_what_is_not_ported(mesh):
-    for kw, item in ((dict(fused_ce=True), "A.11b"),
-                     (dict(quant="int8"), "A.11b"), (dict(tp=2), "A.12"),
+    for kw, item in ((dict(tp=2), "A.12"),
                      (dict(attn_impl="ring"), "A.13"),
                      (dict(attn_impl="ulysses"), "A.13"),
                      (dict(n_microbatches=4), "A.13")):
@@ -265,8 +264,12 @@ def test_config_refuses_what_is_not_ported(mesh):
     for impl in ("full", "flash"):
         with pytest.raises(ValueError, match="'auto'"):
             tllama.LlamaConfig.tiny(attn_impl=impl)
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        ttrain.make_optimizer(impl="fused")
+    # the fused training ops are ported (ROADMAP A.11b): the configs
+    # build, the fused optimizer is made, an unknown one is refused
+    assert tllama.LlamaConfig.tiny(fused_ce=True, quant="int8").quant == "int8"
+    assert type(ttrain.make_optimizer(impl="fused")).__name__ == "FusedAdamW"
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        ttrain.make_optimizer(impl="lion")
 
 
 def test_flops_per_token_matches_reference():

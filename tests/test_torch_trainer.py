@@ -234,8 +234,10 @@ def test_an_exception_inside_a_step_saves_no_torn_state(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     # the ids are the cases' first ones, from the old labels ("A12" is
-    # A.13, "A8" A.11b or A.11c); --checkpointDir trains now
-    # (test_cli_trains_and_resumes_with_a_checkpoint_dir)
+    # A.13, "A8" A.11c); --checkpointDir trains now
+    # (test_cli_trains_and_resumes_with_a_checkpoint_dir), and so do
+    # --quant int8, --optImpl fused and --fusedCE
+    # (test_cli_trains_with_the_fused_and_int8_options)
     pytest.param(["--tp", "2"], "A.13", id="argv0-A12"),
     pytest.param(["--sp", "2"], "A.13", id="argv1-A12"),
     pytest.param(["--pp", "2"], "A.13", id="argv2-A12"),
@@ -243,9 +245,6 @@ def test_an_exception_inside_a_step_saves_no_torn_state(tmp_path):
     pytest.param(["--fsdp", "2"], "A.13", id="argv4-A12"),
     pytest.param(["--numSlices", "2"], "A.13", id="argv5-A12"),
     pytest.param(["--traceDir", "/x"], "A.11c", id="argv7-A8"),
-    pytest.param(["--quant", "int8"], "A.11b", id="argv8-A8"),
-    pytest.param(["--optImpl", "fused"], "A.11b", id="argv9-A8"),
-    pytest.param(["--fusedCE"], "A.11b", id="argv10-A8"),
     # full-size Mixtral training is parallel training (ROADMAP A.13);
     # the case keeps its id
     pytest.param(["--preset", "mixtral_8x7b"], "A.13", id="argv11-A10"),
@@ -255,6 +254,20 @@ def test_cli_refuses_what_is_not_ported(capsys, argv, item):
         ttrainer._main([*argv, "--device", "cpu"])
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--quant", "int8"], ["--optImpl", "fused"],
+                                  ["--fusedCE"]],
+                         ids=["quant-int8", "optImpl-fused", "fusedCE"])
+def test_cli_trains_with_the_fused_and_int8_options(capsys, argv):
+    """Each option of the fused training ops trains the tiny preset for
+    two steps on the CPU and reaches the trainer's summary line."""
+    assert ttrainer._main([*argv, "--preset", "tiny", "--steps", "2",
+                           "--seqLen", "32", "--batchSize", "2",
+                           "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("trainer: steps=2 ")
+    assert "nan" not in out
 
 
 def test_cli_without_cuda_exits_naming_cuda(monkeypatch, capsys):
