@@ -440,6 +440,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -687,6 +688,47 @@ def kernel_cases():
         dict(name="decode_b1_ckpt", b=1, t=1,
              bases=[CKPT_PROMPT + CKPT_NEW - 2], window=0, route="dense",
              ps=0, dtypes=("bfloat16",), **full)]
+    return cases + narrow_kernel_cases()
+
+
+# the head dims below the kernels' 64-column tiles (the tiny preset's 16),
+# run zero-padded in the 64-column instantiation
+NARROW_HDS = (16, 32)
+NARROW_LAYOUTS = (("dense", 0), ("paged", 64), ("int8_dense", 0),
+                  ("int8_paged", 64), ("int4_dense", 0), ("int4_paged", 64))
+# eight slots of one T-256 chunk each, the last ending at row 2047
+NARROW_CHUNK_BASES = [0, 100, 256, 700, 1000, 1500, 1536, 1792]
+NARROW_VERIFY_T = 4
+
+
+def narrow_kernel_cases():
+    """K1 at hd 16 and 32 (8 slots, S 2048, Llama-3-8B's heads): decode, a
+    T-256 chunk and a T-4 verify window on every route of NARROW_LAYOUTS,
+    bf16 (f32 on the dense route too); and the tiny preset's own heads
+    (Hq 8, Hkv 4, hd 16) at its server's decode and chunk."""
+    bases8 = [-1, 0, 1, 255, 256, 1000, 2046, 2047]
+    cases = []
+    for hd in NARROW_HDS:
+        shape = dict(hq=32, hkv=8, hd=hd, s=2048)
+        vbases = [-1, 0, 1, 255, 256, 1000, 2048 - NARROW_VERIFY_T - 1,
+                  2048 - NARROW_VERIFY_T]
+        for route, ps in NARROW_LAYOUTS:
+            tag = route + (f"_ps{ps}" if ps else "")
+            dtypes = ("bfloat16", "float32") if route == "dense" \
+                else ("bfloat16",)
+            for kind, t, bases in (("decode", 1, bases8),
+                                   ("prefill_t256", 256, NARROW_CHUNK_BASES),
+                                   (f"verify_t{NARROW_VERIFY_T}",
+                                    NARROW_VERIFY_T, vbases)):
+                cases.append(dict(name=f"{kind}_hd{hd}_{tag}", b=8, t=t,
+                                  bases=bases, window=0, route=route, ps=ps,
+                                  verify=kind.startswith("verify"),
+                                  dtypes=dtypes, **shape))
+    tiny = dict(hq=8, hkv=4, hd=16, s=TINY_MAX_LEN, route="dense", ps=0,
+                window=0)
+    cases += [dict(name="decode_tiny", b=TINY_SLOTS, t=1, bases=bases8,
+                   **tiny),
+              dict(name="prefill_tiny", b=1, t=TINY_CHUNK, bases=[0], **tiny)]
     return cases
 
 
@@ -3779,6 +3821,7 @@ WINDOW_PEAK_PAGES = 164  # two rows at the windowed peak (82 pages each)
 MOE_MODEL_LAYERS = 2   # moe_model: Mixtral-8x7B's full width, depth cut
 MOE_CAPACITY = 8.0     # moe_model's training forward drops no token
 MOE_TOPK_ROWS = 4096   # moe_model: rows of h for the card-vs-CPU top-k
+MOE_CHECK_SEQ = 512    # moe_model: the forward check's prompt
 
 
 def moe_model(torch, generate, llama, quantized_serving, moe_mod,
@@ -3809,8 +3852,8 @@ def moe_model(torch, generate, llama, quantized_serving, moe_mod,
                               capacity_factor=MOE_CAPACITY)
     params = llama.init_params(cfg, seed=SEED, device="cuda")
     rng = np.random.default_rng(SEED + 7)
-    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 512)),
-                          device="cuda")
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                       (1, MOE_CHECK_SEQ)), device="cuda")
     tokens: list[int] = []
     bf16, _ = _model_logits(torch, generate, params, cfg, prompt, tokens,
                             False)
@@ -6613,7 +6656,22 @@ def flash_cases():
             # beam search's check: its rows' full-context forward, padded
             # to the tile
             dict(name=f"beam_check_b{BEAM_WIDTH}_s{BEAM_CHECK_SEQ}", window=0,
-                 b=BEAM_WIDTH, s=BEAM_CHECK_SEQ, hq=32, hkv=8, hd=128)]
+                 b=BEAM_WIDTH, s=BEAM_CHECK_SEQ, hq=32, hkv=8, hd=128),
+            # the MoE forward check's attention (Mixtral-8x7B's heads, f32
+            # on the CUDA cores, B 1, S MOE_CHECK_SEQ)
+            dict(name=f"moe_check_b1_s{MOE_CHECK_SEQ}", window=0, b=1,
+                 s=MOE_CHECK_SEQ, hq=32, hkv=8, hd=128, dtypes=("float32",)),
+            *narrow_flash_cases()]
+
+
+def narrow_flash_cases():
+    """K2-K4 at hd 16 and 32: the training shape's B, S and Llama-3-8B's
+    heads, and the tiny preset's training shape (B 8, S 128, Hq 8, Hkv 4)."""
+    return [case for hd in NARROW_HDS for case in (
+        dict(name=f"causal_hd{hd}", window=0, b=TRAIN_BATCH, s=TRAIN_SEQ,
+             hq=32, hkv=8, hd=hd),
+        dict(name=f"tiny_hd{hd}", window=0, b=TINY_BATCH, s=TINY_SEQ, hq=8,
+             hkv=4, hd=hd))]
 
 
 def attended_pairs(s: int, window: int) -> int:
@@ -6673,6 +6731,8 @@ def phase_flash(torch, fa, kernel_support) -> list[dict]:
     for case in flash_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
+            if dname not in case.get("dtypes", (dname,)):
+                continue
             b, s, hq, hkv, hd, window = (case[k] for k in
                                          ("b", "s", "hq", "hkv", "hd",
                                           "window"))
@@ -7783,6 +7843,258 @@ def phase_checkpoints(torch, kernel_support, attention_mod, llama, train,
 # --- main --------------------------------------------------------------------
 
 
+# --- phase 8, the tiny preset from the command line ---------------------------
+
+# the trainer's and the server's defaults at --preset tiny (d_model 128,
+# 8 q heads, 4 kv heads: head dim 16)
+TINY_BATCH, TINY_SEQ = 8, 128               # trainer --batchSize, --seqLen
+TINY_SLOTS, TINY_MAX_LEN, TINY_CHUNK = 8, 2048, 256   # server defaults
+TINY_ROOT = os.path.join(ROOT, ".tiny_smoke")  # gitignored; deleted after
+TINY_STEPS = 20
+TINY_CORPUS_TOKENS = 1 << 24                # uint16 ids below the vocab
+TINY_TRACE_STEPS = (3, 6)                   # the trainer's trace window
+TINY_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                "flash_bwd_dq_tc_kernel")
+# (prompt, max_new) served one at a time: each prompt one chunk, so the
+# served stream and generate's prefill the same rows
+TINY_REQUESTS = [(17, 48), (100, 48), (200, 32), (256, 32)]
+TINY_TWIN_STEPS = 5
+
+
+def run_module(module: str, argv: list, timeout: float):
+    """``python -m module argv`` from the checkout, its output captured;
+    fails the script when it does not exit 0."""
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"{module} {' '.join(argv)} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def log_lines(text: str, msg: str) -> list:
+    """The JSON log lines of ``text`` whose ``msg`` is ``msg``."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                entry = json.loads(line)
+            except ValueError:
+                continue
+            if entry.get("msg") == msg:
+                out.append(entry)
+    return out
+
+
+def tiny_train(torch, llama, corpus: str, trace_dir: str,
+               ckpt_dir: str) -> dict:
+    """The trainer's CLI at --preset tiny and its defaults on the card,
+    fed by the native gather, writing its spans, its profile of steps
+    [3, 6) and its checkpoint."""
+    cfg = llama.LlamaConfig.tiny()
+    t0 = time.perf_counter()
+    proc = run_module("k8s_gpu_device_plugin_torch.models.trainer", [
+        "--preset", "tiny", "--steps", str(TINY_STEPS), "--dataFile", corpus,
+        "--traceDir", trace_dir, "--checkpointDir", ckpt_dir], timeout=300)
+    wall_s = time.perf_counter() - t0
+    summary = proc.stdout.strip().splitlines()[-1]
+    steps = log_lines(proc.stderr, "train step")
+    launches = log_lines(proc.stderr, "kernel launches")
+    launches = launches[-1]["launches"] if launches else {}
+    traces = sorted(f for f in os.listdir(trace_dir)
+                    if f.startswith("train_steps_"))
+    trace_text = "".join(open(os.path.join(trace_dir, f)).read()
+                         for f in traces)
+    with open(os.path.join(trace_dir, "trainer_spans.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    first, stop = TINY_TRACE_STEPS
+    marked = sorted(int(m) for m in set(
+        re.findall(r'"train_step#(\d+)"', trace_text)))
+    need = cfg.n_layers * TINY_STEPS
+    row = {"phase": 8, "run": "tiny_train", "wall_s": wall_s,
+           "summary": summary, "losses": [e["loss"] for e in steps],
+           "grad_norms": [e["grad_norm"] for e in steps],
+           "launches": launches, "launches_needed": need,
+           "trace_files": traces, "trace_bytes": len(trace_text),
+           "trace_kernels": {k: trace_text.count(k) for k in TINY_KERNELS},
+           "trace_steps_marked": marked,
+           "spans": {n: sum(e["name"] == n for e in spans)
+                     for n in ("train_step", "data_load", "step_dispatch",
+                               "checkpoint")}}
+    emit(row)
+    if "data=native-memmap" not in summary or \
+            not summary.startswith(f"trainer: steps={TINY_STEPS} "):
+        fail(f"tiny_train: {summary!r} (want {TINY_STEPS} steps fed by the "
+             "native gather)")
+    if len(steps) != TINY_STEPS // 10 or not all(
+            math.isfinite(e["loss"]) and e["grad_norm"] > 0 for e in steps):
+        fail(f"tiny_train: logged steps {steps}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        tc = launches.get(f"{name}<tensor_cores>", 0)
+        if launches.get(name) != need or tc != need:
+            fail(f"tiny_train: {name} launched {launches.get(name)} times, "
+                 f"{tc} on the tensor cores; the run needs {need}")
+    if traces != [f"train_steps_{first}_{stop - 1}.json"] or \
+            not all(row["trace_kernels"].values()) or \
+            marked != list(range(first, stop)):
+        fail(f"tiny_train: trace files {traces}, kernels "
+             f"{row['trace_kernels']}, steps marked {marked}")
+    if row["spans"] != {"train_step": TINY_STEPS, "data_load": TINY_STEPS,
+                        "step_dispatch": TINY_STEPS,
+                        "checkpoint": TINY_STEPS}:
+        fail(f"tiny_train: spans {row['spans']}")
+    return row
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def tiny_serve(torch, llama, generate, server_mod, ckpt_dir: str) -> dict:
+    """The server's CLI at --preset tiny serving the trained checkpoint on
+    the card (one slot: its decode step's products at generate's M); each
+    stream equal to ``generate`` on the restored params, bit for bit, and
+    K1's hd-16 launches counted by the server itself."""
+    cfg = llama.LlamaConfig.tiny()
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s_gpu_device_plugin_torch.serving.server",
+         "--preset", "tiny", "--checkpointDir", ckpt_dir, "--slots", "1",
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                fail(f"tiny_serve: the server exited {proc.returncode}:\n"
+                     f"{proc.stderr.read()[-4000:]}")
+            try:
+                status, before = get_health(url)
+                if status == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 180:
+                fail("tiny_serve: the server did not answer in 180 s")
+            time.sleep(0.5)
+        startup_s = time.perf_counter() - t0
+        got = [_post(url, {"prompt": fleet_ids(n, SEED + 8 + i,
+                                               cfg.vocab_size),
+                           "max_new": m, "stream": True})
+               for i, (n, m) in enumerate(TINY_REQUESTS)]
+        _, after = get_health(url)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    params = server_mod.load_params(cfg, ckpt_dir, device="cuda")
+    want = [generate.generate(params, torch.tensor(
+        [fleet_ids(n, SEED + 8 + i, cfg.vocab_size)], device="cuda"), cfg,
+        m)[0].tolist() for i, (n, m) in enumerate(TINY_REQUESTS)]
+    del params
+    k1 = {k: after["kernel_launches"].get(k, 0)
+          - before["kernel_launches"].get(k, 0)
+          for k in after["kernel_launches"]
+          if k.startswith("ragged_paged_attention")}
+    need = cfg.n_layers * (after["decode_steps"] - before["decode_steps"]
+                           + after["prefill_chunks"] - before["prefill_chunks"])
+    row = {"phase": 8, "run": "tiny_serve", "startup_s": startup_s,
+           "requests": TINY_REQUESTS, "head_dim": cfg.head_dim,
+           "streams_equal": [g["tokens"] == w for g, w in zip(got, want)],
+           "first_divergence": [first_divergence(g["tokens"], w)
+                                for g, w in zip(got, want)],
+           "ttft_s": [g["ttft"] for g in got], "k1_launches": k1,
+           "k1_launches_needed": need,
+           "decode_attn": after.get("decode_attn")}
+    emit(row)
+    if not all(row["streams_equal"]):
+        fail(f"tiny_serve: streams part from generate's at "
+             f"{row['first_divergence']}")
+    if k1.get("ragged_paged_attention") != need or need == 0 or \
+            k1.get("ragged_paged_attention<tensor_cores>") != need:
+        fail(f"tiny_serve: K1 launches {k1}, want {need} on the tensor "
+             "cores (a layer per decode step and chunk)")
+    return row
+
+
+def tree_to(tree, device):
+    """A copy of a (nested dict of) tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def tiny_f32_twin(torch, kernel_support, llama, trainer_mod) -> dict:
+    """TINY_TWIN_STEPS steps of the tiny config in f32 from the same
+    parameters and batches: on the card through the flash kernels (the
+    CUDA cores), on the CPU through the plain versions."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    params = llama.init_params(cfg, seed=SEED, device="cpu")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tcfg = trainer_mod.TrainerConfig(
+            model=cfg, batch_size=TINY_BATCH, seq_len=TINY_SEQ,
+            total_steps=TINY_TWIN_STEPS, log_every=1, device=device)
+        kernel_support.reset_launch_counts()
+        result = trainer_mod.Trainer(
+            tcfg, params=tree_to(params, device)).run()
+        runs[device] = {"losses": [h["loss"] for h in result.metrics_history],
+                        "grad_norms": [h["grad_norm"]
+                                       for h in result.metrics_history],
+                        "launches": kernel_support.launch_counts()}
+    need = cfg.n_layers * TINY_TWIN_STEPS
+    row = {"phase": 8, "run": "tiny_f32_twin", "steps": TINY_TWIN_STEPS,
+           **{f"{d}_{k}": v for d, r in runs.items() for k, v in r.items()},
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+               runs["cuda"]["losses"], runs["cpu"]["losses"]))}
+    emit(row)
+    if len(runs["cuda"]["losses"]) != TINY_TWIN_STEPS or \
+            row["loss_rel_err"] > LOSS_RTOL or any(
+            abs(a - b) > GRAD_NORM_RTOL * abs(b) for a, b in zip(
+                runs["cuda"]["grad_norms"], runs["cpu"]["grad_norms"])):
+        fail(f"tiny_f32_twin: card {runs['cuda']} against CPU {runs['cpu']}")
+    launches = runs["cuda"]["launches"]
+    if any(launches.get(f"{n}<cuda_cores>") != need
+           for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")) or \
+            runs["cpu"]["launches"]:
+        fail(f"tiny_f32_twin: launches {launches} (card, want {need} each "
+             f"on the CUDA cores), {runs['cpu']['launches']} (CPU)")
+    return row
+
+
+def phase_tiny(torch, llama, generate, server_mod, kernel_support,
+               trainer_mod) -> dict:
+    """Phase 8: the default --preset tiny (head dim 16) end to end from
+    the command line on the card: train with a corpus, traces and a
+    checkpoint, serve the checkpoint; then the f32 twin."""
+    import numpy as np
+
+    shutil.rmtree(TINY_ROOT, ignore_errors=True)
+    os.makedirs(TINY_ROOT)
+    try:
+        corpus = os.path.join(TINY_ROOT, "corpus.bin")
+        np.random.default_rng(SEED).integers(
+            0, llama.LlamaConfig.tiny().vocab_size, TINY_CORPUS_TOKENS,
+            dtype=np.uint16).tofile(corpus)
+        ckpt_dir = os.path.join(TINY_ROOT, "ckpt")
+        train = tiny_train(torch, llama, corpus,
+                           os.path.join(TINY_ROOT, "trace"), ckpt_dir)
+        serve = tiny_serve(torch, llama, generate, server_mod, ckpt_dir)
+    finally:
+        shutil.rmtree(TINY_ROOT, ignore_errors=True)
+    twin = tiny_f32_twin(torch, kernel_support, llama, trainer_mod)
+    return {"train": train, "serve": serve, "twin": twin}
+
+
 def kernel_entry(name, source, replaces, launches, errs, head, extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -8041,6 +8353,12 @@ def main() -> None:
     ckpt = phase_checkpoints(torch, kernel_support, attention_mod, llama,
                              train, trainer_mod, lora, ckpt_mod, server_mod,
                              generate, batching, rpa)
+    # the default --preset tiny (head dim 16) from the command line: the
+    # trainer with a corpus, traces and a checkpoint, then the server on
+    # it; and the f32 twin, card against CPU
+    tiny = phase_tiny(torch, llama, generate, server_mod, kernel_support,
+                      trainer_mod)
+    tiny_k1 = tiny["serve"]["k1_launches"].get(rpa.NAME, 0)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head = next(c for c in cases
@@ -8100,7 +8418,7 @@ def main() -> None:
         + sum(beam[d]["k1_launches"] for d in ("bf16", "f32"))
         + sum(window["rolling"][d][f"k1_launches_{run}"]
               for d in ("bf16", "f32") for run in ("rolling", "unbounded"))
-        + ckpt["k1_launches"],
+        + ckpt["k1_launches"] + tiny_k1,
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -8181,6 +8499,14 @@ def main() -> None:
                                    for c in cases if c["case"] in (
                                        f"prefill_t{CKPT_PROMPT}_base0",
                                        "decode_b1_ckpt")}},
+         # phase 8: the tiny server's chunks and decode steps at hd 16
+         # (the 64-column instantiation, zero-padded), and phase 2's hd 16
+         # and 32 cases
+         "narrow_head_dims": {
+             "tiny_serve_launches": tiny["serve"]["k1_launches"],
+             "cases": {f"{c['case']} {c['dtype']}": {
+                 **{k: c[k] for k in keys}, "max_abs_err": c["max_abs_err"]}
+                 for c in cases if c["hd"] in NARROW_HDS}},
          "moe": {"launches": moe["summary"]["k1_launches"],
                  "decode_step_ms_mean": moe["summary"]["decode_step_ms_mean"],
                  "decode_graph_pool_bytes":
@@ -8243,11 +8569,14 @@ def main() -> None:
             if name == "flash_fwd" else 0
         fused_flash = sum(r["launches"].get(name, 0)
                           for r in fused_runs.values())
+        tiny_flash = {"tiny_train": tiny["train"]["launches"].get(name, 0),
+                      "tiny_f32_twin": tiny["twin"]["cuda_launches"].get(
+                          name, 0)}
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
             training["launches"].get(name, 0) + served + fused_flash
-            + ckpt["flash_launches"][name], errs,
+            + ckpt["flash_launches"][name] + sum(tiny_flash.values()), errs,
             {"ms": fhead["ms"][name], "plain_ms": fhead["plain_ms"][name],
              "bound_ms": fhead["bounds"][name]["bound_ms"],
              "bound_by": fhead["bounds"][name]["bound_by"],
@@ -8269,6 +8598,9 @@ def main() -> None:
              "launches_checkpoint_runs": ckpt["flash_launches"][name]
              - ckpt["lora_flash_launches"][name],
              "launches_lora_train": ckpt["lora_flash_launches"][name],
+             # phase 8: the tiny trainer's CLI run (hd 16, the tensor
+             # cores) and its f32 twin on the card (the CUDA cores)
+             "launches_tiny": tiny_flash,
              "launches_surface": surface["launches"]["flash_fwd"]
              if name == "flash_fwd" else 0,
              # the embedding through the replica router and direct

@@ -9,10 +9,10 @@ Port of ``k8s_gpu_device_plugin_tpu/data/pipeline.py`` for one process:
   CUDA device) and copies it to the device without blocking, from the
   same prefetch thread, with the same ``seek``/``state``. Batches are
   ``{"inputs", "targets"}`` (B, S) int64 tensors on the device.
-- ``make_token_source`` serves a corpus file through ``MemmapSource``;
-  the reference's native C++ gather (``data/native_loader.py``) is not
-  ported yet (ROADMAP A.11c) and its sampling recipe is the same, so the
-  batches do not change.
+- ``make_token_source`` is the reference's factory: a corpus file is
+  served by the native C++ gather (``data/native_loader.py``, built at
+  first use) wherever a C++ compiler is present, else by ``MemmapSource``;
+  both sample with one recipe, so the batches do not depend on which.
 """
 
 from __future__ import annotations
@@ -158,18 +158,38 @@ class DataLoader:
 
 def make_token_source(path: str, vocab_size: int, dtype: str = "uint16",
                       seed: int = 0) -> tuple[TokenSource, str]:
-    """``(source, label)``: synthetic tokens without ``path``, else the
-    memmap source over the file. A probe window is vocab-checked up
-    front: out-of-vocab ids (a wrong ``dtype``, a corpus for a larger
-    vocabulary) would otherwise index past the embedding table."""
+    """``(source, label)``: ``"synthetic"`` tokens without ``path``; with
+    one, ``"native-memmap"`` (the C++ gather, ``data/native_loader.py``)
+    wherever a C++ compiler is present, else ``"python-memmap"``. A
+    compiler that fails to build the gather raises; nothing gives way to
+    the Python source then. The run's logs carry the label. A probe
+    window is vocab-checked up front: out-of-vocab ids (a wrong
+    ``dtype``, a corpus for a larger vocabulary) would otherwise index
+    past the embedding table."""
     if not path:
         return SyntheticSource(vocab_size, seed=seed), "synthetic"
-    source = MemmapSource(path, dtype=dtype, seed=seed)
-    probe = source.windows(0, slice(0, 2), 2, 127)
-    if int(probe.max()) >= vocab_size:
-        raise ValueError(
-            f"corpus {path} contains token id {int(probe.max())} >= "
-            f"vocab_size {vocab_size} (wrong --dataDtype, or a corpus "
-            "tokenized for a larger vocabulary)"
-        )
-    return source, "python-memmap"
+    from k8s_gpu_device_plugin_torch.data.native_loader import (
+        NativeMemmapSource,
+        native_available,
+    )
+
+    if native_available():
+        source: TokenSource = NativeMemmapSource(path, dtype=dtype, seed=seed)
+        label = "native-memmap"
+    else:
+        source, label = MemmapSource(path, dtype=dtype, seed=seed), \
+            "python-memmap"
+    try:
+        probe = source.windows(0, slice(0, 2), 2, 127)
+        if int(probe.max()) >= vocab_size:
+            raise ValueError(
+                f"corpus {path} contains token id {int(probe.max())} >= "
+                f"vocab_size {vocab_size} (wrong --dataDtype, or a corpus "
+                "tokenized for a larger vocabulary)"
+            )
+    except BaseException:
+        # a refused corpus does not keep the native mapping open
+        if hasattr(source, "close"):
+            source.close()
+        raise
+    return source, label

@@ -7,18 +7,33 @@ after step 0 (warm-up) and pauses for evaluation; eval runs every
 batches. With ``checkpoint_dir`` a run resumes from the directory's
 latest step (state and data stream), saves on the checkpointer's cadence
 after every step and always saves its final state
-(``models/checkpoint.py``). xprof traces, meshes and multi-host runs are
-not ported yet; the CLI refuses their flags, naming the ROADMAP item.
+(``models/checkpoint.py``).
+
+Tracing, as the reference's loop: every step is a ``train_step`` span
+(component ``trainer``, attribute ``step``) holding ``data_load``,
+``step_dispatch`` and, when they run, ``checkpoint`` and ``eval``
+(``obs/trace.py``; recorded when the process tracer is enabled). With
+``trace_dir`` the steps ``[trace_start, trace_stop)`` run under
+``torch.profiler`` (CPU activity, and the card's on CUDA), each step
+marked ``train_step#<step>``, and the profile is written into
+``trace_dir`` as a Chrome/Perfetto JSON trace; a run that ends early
+still closes and writes it. The CLI's ``--traceDir`` also turns the
+tracer on and writes the run's spans there (``trainer_spans.json``).
+Meshes and multi-host runs are not ported yet; the CLI refuses their
+flags, naming the ROADMAP item.
 
     python -m k8s_gpu_device_plugin_torch.models.trainer --preset tiny \\
-        --steps 20 --device cpu --checkpointDir /tmp/run
+        --steps 20 --device cpu --checkpointDir /tmp/run --traceDir /tmp/tr
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import logging
 import math
+import os
 import sys
 import time
 from dataclasses import dataclass, field, replace
@@ -39,7 +54,9 @@ from k8s_gpu_device_plugin_torch.models.train import (
     make_optimizer,
     make_train_step,
 )
-from k8s_gpu_device_plugin_torch.ops import flash_attention
+from k8s_gpu_device_plugin_torch.obs.export import to_chrome_trace
+from k8s_gpu_device_plugin_torch.obs.trace import configure, get_tracer
+from k8s_gpu_device_plugin_torch.ops import flash_attention, kernel_support
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
 
@@ -68,6 +85,11 @@ class TrainerConfig:
     checkpoint_interval: int = 1000
     max_checkpoints: int = 3
     opt_impl: str = "optax"
+    # profiling ("" disables): a torch.profiler trace of steps
+    # [trace_start, trace_stop) written into trace_dir
+    trace_dir: str = ""
+    trace_start: int = 3
+    trace_stop: int = 6
     # token corpus ("" = synthetic)
     data_file: str = ""
     data_dtype: str = "uint16"
@@ -206,39 +228,61 @@ class Trainer:
         t_start = None
         steps_timed = 0
         eval_seconds = 0.0
+        profile = None  # the torch.profiler run of [trace_start, trace_stop)
+        # step-phase spans (obs/): what the host spends a step (data wait,
+        # dispatch, checkpoint, eval); the device's split is the profile's
+        tr = get_tracer()
         try:
             for step in range(start_step, cfg.total_steps):
-                state, metrics = self.step_fn(state, next(it))
-                if t_start is None:
-                    # the clock starts once the run's first step has
-                    # finished (warm-up)
-                    float(metrics["loss"])
-                    t_start = time.perf_counter()
-                else:
-                    steps_timed += 1
-                if self.ckpt is not None:
-                    self.ckpt.save(state, step=step + 1)
-                if (step + 1) % cfg.log_every == 0 \
-                        or step + 1 == cfg.total_steps:
-                    snap = {"step": step + 1,
-                            "loss": float(metrics["loss"]),
-                            "grad_norm": float(metrics["grad_norm"])}
-                    history.append(snap)
-                    self.log.info("train step", extra={"fields": snap})
-                if (self.eval_loader is not None
-                        and (step + 1) % cfg.eval_every == 0
-                        and step + 1 != cfg.total_steps):  # final eval below
-                    # finish in-flight work, then pause the clock
-                    float(metrics["loss"])
-                    t_eval = time.perf_counter()
-                    ev = self._evaluate(state["params"])
-                    eval_seconds += time.perf_counter() - t_eval
-                    self.log.info("eval",
-                                  extra={"fields": {"step": step + 1, **ev}})
-                    history.append({"step": step + 1, "eval": ev})
-                if on_step is not None:
-                    on_step(step + 1, metrics)
+                if cfg.trace_dir and step == cfg.trace_start:
+                    profile = self._start_profile()
+                with tr.span("train_step", component="trainer", step=step):
+                    marker = (torch.profiler.record_function(
+                        f"train_step#{step}") if profile is not None
+                        else contextlib.nullcontext())
+                    with marker:
+                        with tr.span("data_load", component="trainer"):
+                            batch = next(it)
+                        with tr.span("step_dispatch", component="trainer"):
+                            state, metrics = self.step_fn(state, batch)
+                    if step + 1 == cfg.trace_stop and profile is not None:
+                        self._stop_profile(profile, step)
+                        profile = None
+                    if t_start is None:
+                        # the clock starts once the run's first step has
+                        # finished (warm-up)
+                        float(metrics["loss"])
+                        t_start = time.perf_counter()
+                    else:
+                        steps_timed += 1
+                    if self.ckpt is not None:
+                        with tr.span("checkpoint", component="trainer"):
+                            self.ckpt.save(state, step=step + 1)
+                    if (step + 1) % cfg.log_every == 0 \
+                            or step + 1 == cfg.total_steps:
+                        snap = {"step": step + 1,
+                                "loss": float(metrics["loss"]),
+                                "grad_norm": float(metrics["grad_norm"])}
+                        history.append(snap)
+                        self.log.info("train step", extra={"fields": snap})
+                    if (self.eval_loader is not None
+                            and (step + 1) % cfg.eval_every == 0
+                            and step + 1 != cfg.total_steps):
+                        # (the final eval is below) finish in-flight
+                        # work, then pause the clock
+                        float(metrics["loss"])
+                        t_eval = time.perf_counter()
+                        with tr.span("eval", component="trainer"):
+                            ev = self._evaluate(state["params"])
+                        eval_seconds += time.perf_counter() - t_eval
+                        self.log.info("eval", extra={
+                            "fields": {"step": step + 1, **ev}})
+                        history.append({"step": step + 1, "eval": ev})
+                    if on_step is not None:
+                        on_step(step + 1, metrics)
         finally:
+            if profile is not None:  # a run that ended inside the window
+                self._stop_profile(profile, int(state["step"]) - 1)
             if self.ckpt is not None:
                 # the final state is always recoverable, cadence
                 # notwithstanding (a run stopped between steps too); a
@@ -263,6 +307,29 @@ class Trainer:
             data_source=self.data_source_label,
             resumed_from=resumed_from,
         )
+
+    def _start_profile(self) -> "torch.profiler.profile":
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profile = torch.profiler.profile(activities=activities)
+        profile.start()
+        return profile
+
+    def _stop_profile(self, profile: "torch.profiler.profile",
+                      last_step: int) -> None:
+        """Stop ``profile`` once the card has finished the traced steps
+        and write it as ``trace_dir/train_steps_<first>_<last>.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profile.stop()
+        os.makedirs(self.cfg.trace_dir, exist_ok=True)
+        path = os.path.join(
+            self.cfg.trace_dir,
+            f"train_steps_{self.cfg.trace_start}_{last_step}.json")
+        profile.export_chrome_trace(path)
+        self.log.info("trace written", extra={
+            "fields": {"dir": self.cfg.trace_dir, "file": path}})
 
 
 def _whole(state: dict) -> bool:
@@ -333,8 +400,6 @@ def _refusal(args: argparse.Namespace) -> "str | None":
             return (f"--{flag} {value}: parallel training is not ported yet "
                     "(ROADMAP A.13); the port trains on one card")
     checks = (
-        (args.traceDir, "--traceDir: trainer traces are not ported yet "
-         "(ROADMAP A.11c)"),
         (args.preset == "mixtral_8x7b", "--preset mixtral_8x7b: its "
          "params, grads and Adam state take about 747 GB, which is "
          "parallel training, not ported yet (ROADMAP A.13); the tiny "
@@ -369,6 +434,7 @@ def _main(argv: "list[str] | None" = None) -> int:
         opt_impl=args.optImpl,
         checkpoint_dir=args.checkpointDir,
         checkpoint_interval=args.checkpointInterval,
+        trace_dir=args.traceDir,
         data_file=args.dataFile,
         data_dtype=args.dataDtype,
         device=str(device),
@@ -378,7 +444,28 @@ def _main(argv: "list[str] | None" = None) -> int:
     except ValueError as e:  # a config the card's kernels do not take
         print(f"error: {e}", file=sys.stderr)
         return 2
-    result = trainer.run()
+    spans: list = []
+    tracer = get_tracer()
+    was_enabled = tracer.enabled
+    if args.traceDir:  # the run's step spans beside its profile
+        configure(enabled=True)
+        tracer.add_listener(spans.append)
+    try:
+        result = trainer.run()
+    finally:
+        if args.traceDir:
+            tracer.remove_listener(spans.append)
+            configure(enabled=was_enabled)
+    if args.traceDir:
+        path = os.path.join(args.traceDir, "trainer_spans.json")
+        os.makedirs(args.traceDir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(to_chrome_trace(spans), f)
+        trainer.log.info("spans written", extra={
+            "fields": {"file": path, "spans": len(spans)}})
+    # the hand-written kernels this process launched (empty on the CPU)
+    trainer.log.info("kernel launches", extra={
+        "fields": {"launches": kernel_support.launch_counts()}})
     eval_str = (
         f" eval_loss={result.final_eval['loss']:.4f}"
         f" ppl={result.final_eval['perplexity']:.2f}"

@@ -43,6 +43,16 @@
 // thread arrives on the stage's empty barrier when its products have read
 // it.
 //
+// Narrow head dims. HD is the tile's width, 64 or 128; a head dim of 16 or
+// 32 runs in the 64-column instantiation with the live head dim passed at
+// run time. Its tiles hold the live columns and zeros past them: the TMA
+// boxes stay 64 columns wide over a tensor map whose rows are hd wide, so
+// the copy engine fills columns hd .. 63 with zeros and reads only the live
+// bytes; load_rows and K1's producer write the zeros themselves. A zero
+// column adds exact zeros to every Q K^T and dO V^T sum and gives zero
+// columns of P V, dQ, dK and dV, which the kernels never store: the result
+// equals the unpadded one bit for bit, at 64 / hd times the tensor work.
+//
 // Determinism: no atomics; each row's sum runs over the kv tiles in
 // ascending order and in wgmma's fixed order inside a tile; the row sum l
 // is kept per thread and reduced over the quad in a fixed order at the end.
@@ -411,18 +421,21 @@ struct Acc {
 
 // 64 rows into a swizzled tile resident for the warpgroup's life (its
 // query vectors; the backward's K and V, or Q and dO): row_ptr(r) is row
-// r's hd bf16 values (16-byte aligned), or null for a zero row. Ends with
+// r's hd bf16 values (16-byte aligned), or null for a zero row; columns hd
+// .. HD - 1 are zeros (a narrow head dim, hd a multiple of 8). Ends with
 // the warpgroup synchronised on named barrier `bar_id`.
 template <int HD, class RowPtr>
 __device__ __forceinline__ void load_rows(uint32_t tile, RowPtr row_ptr,
-                                          int bar_id) {
+                                          int bar_id, int hd = HD) {
   constexpr int kChunks = kRows * HD / 8;
   for (int e = threadIdx.x % kWarpgroup; e < kChunks; e += kWarpgroup) {
     const int r = e / (HD / 8);
     const int c = e % (HD / 8);
     const __nv_bfloat16* src = row_ptr(r);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (src != nullptr) v = __ldg(reinterpret_cast<const uint4*>(src + 8 * c));
+    if (src != nullptr && 8 * c < hd) {
+      v = __ldg(reinterpret_cast<const uint4*>(src + 8 * c));
+    }
     st_shared_16(tile + swizzle(r, 8 * c), v);
   }
   fence_async_shared();

@@ -64,9 +64,20 @@
 // No atomics: every output element is written by one block, in a fixed
 // summation order, so results are deterministic.
 //
-// Types: f32 or bf16 q/k/v/dO (one type per call), hd in {64, 128},
-// S a multiple of 64. All arithmetic is f32 but the tensor-core products
-// (bf16 operands, f32 accumulation).
+// Types: f32 or bf16 q/k/v/dO (one type per call), hd in {16, 32, 64,
+// 128}, S a multiple of 64. All arithmetic is f32 but the tensor-core
+// products (bf16 operands, f32 accumulation).
+//
+// Narrow head dims. Both engines are built on 64-column blocks of the head
+// dim, so hd 16 and 32 run in the HD = 64 instantiation with the live hd
+// passed at run time (every row offset counts hd, not HD): the tiles are
+// zero-filled past column hd in shared memory (load_tile here; load_rows
+// and the TMA boxes' out-of-bounds fill on the tensor cores,
+// attention_tile.cuh), only hd columns are read from device memory, and
+// only hd columns of o, dQ, dK and dV are stored. The zero columns add
+// exact zeros to every sum, so the result is the unpadded one bit for
+// bit; the price is 64 / hd times the products (4x at hd 16). lse and
+// delta are row quantities: the zeros do not change them.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,20 +102,22 @@ __host__ __device__ constexpr int row_stride() { return HD + 4; }
 template <int HD>
 __host__ __device__ constexpr int tile_floats() { return kTile * row_stride<HD>(); }
 
-// 64 contiguous rows of HD f32 (global) -> padded f32 tile (shared)
+// 64 contiguous rows of hd f32 (global) -> padded f32 tile of HD columns
+// (shared), columns hd .. HD - 1 zero (hd a multiple of 4)
 template <int HD>
 __device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          float* __restrict__ dst) {
+                                          float* __restrict__ dst, int hd) {
   constexpr int kVecPerRow = HD / 4;
   constexpr int kIters = kTile * kVecPerRow / kThreads;
   static_assert(kTile * kVecPerRow % kThreads == 0, "tile splits evenly");
-  const float4* s = reinterpret_cast<const float4*>(src);
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int row = i / kVecPerRow;
     const int col = (i % kVecPerRow) * 4;
-    *reinterpret_cast<float4*>(dst + row * row_stride<HD>() + col) = __ldg(s + i);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col < hd) x = __ldg(reinterpret_cast<const float4*>(src + row * hd + col));
+    *reinterpret_cast<float4*>(dst + row * row_stride<HD>() + col) = x;
   }
 }
 
@@ -238,8 +251,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int group, int s_len, float scale,
-                 int causal, int window) {
+                 float* __restrict__ lse, int group, int s_len, int hd,
+                 float scale, int causal, int window) {
   constexpr int kJ = HD / 64;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
@@ -253,7 +266,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  load_tile<HD>(q + (size_t(bh) * s_len + qt * kTile) * HD, qs);
+  load_tile<HD>(q + (size_t(bh) * s_len + qt * kTile) * hd, qs, hd);
   float m[4], l[4];
   float4 acc[4][kJ];
 #pragma unroll
@@ -268,9 +281,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   kv_span(qt, n_tiles, causal != 0, window, &j_lo, &j_hi);
   for (int j = j_lo; j <= j_hi; ++j) {
     __syncthreads();  // the previous tile's p and v are consumed
-    const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * HD;
-    load_tile<HD>(k + kv_off, ks);
-    load_tile<HD>(v + kv_off, vs);
+    const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * hd;
+    load_tile<HD>(k + kv_off, ks, hd);
+    load_tile<HD>(v + kv_off, vs, hd);
     __syncthreads();
 
     float s[4][4];
@@ -316,10 +329,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = qt * kTile + ty + 16 * i;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
     const float inv = 1.f / l_safe;
-    float* orow = o + (size_t(bh) * s_len + row) * HD;
+    float* orow = o + (size_t(bh) * s_len + row) * hd;
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj) {
       const int col = tx * 4 + 64 * jj;
+      if (col >= hd) continue;  // a padded column
       orow[col] = acc[i][jj].x * inv;
       orow[col + 1] = acc[i][jj].y * inv;
       orow[col + 2] = acc[i][jj].z * inv;
@@ -346,7 +360,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int group, int s_len, float scale, int causal,
+                    int group, int s_len, int hd, float scale, int causal,
                     int window) {
   using namespace attn_tile;
   using RingT = Ring<HD, kTcStages>;
@@ -400,8 +414,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   const bool live = qt < n_tiles;
   const uint32_t q_tile = q_tiles + wg * tile_bytes<HD>();
   load_rows<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
-    return live ? q + (size_t(bh) * s_len + q0 + r) * HD : nullptr;
-  }, 1 + wg);
+    return live ? q + (size_t(bh) * s_len + q0 + r) * hd : nullptr;
+  }, 1 + wg, hd);
   Acc<HD> acc;
   acc.init();
   // a tile needs the mask on the diagonal and where its farthest pair
@@ -431,8 +445,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int h = (i >> 1) & 1;
+      const int col = 64 * nb + Acc<HD>::col(i);
+      if (col >= hd) continue;  // a padded column
       const size_t row = size_t(bh) * s_len + q0 + Acc<HD>::row(i);
-      *reinterpret_cast<uint32_t*>(o + row * HD + 64 * nb + Acc<HD>::col(i)) =
+      *reinterpret_cast<uint32_t*>(o + row * hd + col) =
           pack_bf16(acc.o[nb][i] * inv[h], acc.o[nb][i + 1] * inv[h]);
     }
   }
@@ -453,7 +469,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int group, int s_len,
+                     float* __restrict__ dv, int group, int s_len, int hd,
                      float scale, int causal, int window) {
   constexpr int kJ = HD / 64;
   extern __shared__ __align__(16) float smem[];
@@ -470,9 +486,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16;  // q column of the transposed tiles
   const int ty = threadIdx.x / 16;  // kv row
 
-  const size_t kv_off = (size_t(bhkv) * s_len + kt * kTile) * HD;
-  load_tile<HD>(k + kv_off, ks);
-  load_tile<HD>(v + kv_off, vs);
+  const size_t kv_off = (size_t(bhkv) * s_len + kt * kTile) * hd;
+  load_tile<HD>(k + kv_off, ks, hd);
+  load_tile<HD>(v + kv_off, vs, hd);
   float4 dk_acc[4][kJ];
   float4 dv_acc[4][kJ];
 #pragma unroll
@@ -490,9 +506,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int bh = bhkv * group + g;
     for (int it = i_lo; it <= i_hi; ++it) {
       __syncthreads();  // the previous q tile's products are done
-      const size_t q_off = (size_t(bh) * s_len + it * kTile) * HD;
-      load_tile<HD>(q + q_off, qs);
-      load_tile<HD>(dout + q_off, dos);
+      const size_t q_off = (size_t(bh) * s_len + it * kTile) * hd;
+      load_tile<HD>(q + q_off, qs, hd);
+      load_tile<HD>(dout + q_off, dos, hd);
       __syncthreads();
 
       float s[4][4];   // s^T[kv row][q col]
@@ -527,8 +543,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj) {
       const int col = tx * 4 + 64 * jj;
-      *reinterpret_cast<float4*>(dk + row * HD + col) = dk_acc[i][jj];
-      *reinterpret_cast<float4*>(dv + row * HD + col) = dv_acc[i][jj];
+      if (col >= hd) continue;  // a padded column
+      *reinterpret_cast<float4*>(dk + row * hd + col) = dk_acc[i][jj];
+      *reinterpret_cast<float4*>(dv + row * hd + col) = dv_acc[i][jj];
     }
   }
 }
@@ -547,7 +564,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int group, int s_len, float scale, int causal,
+                    int group, int s_len, int hd, float scale, int causal,
                     int window) {
   constexpr int kJ = HD / 64;
   extern __shared__ __align__(16) float smem[];
@@ -563,9 +580,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  const size_t q_off = (size_t(bh) * s_len + qt * kTile) * HD;
-  load_tile<HD>(q + q_off, qs);
-  load_tile<HD>(dout + q_off, dos);
+  const size_t q_off = (size_t(bh) * s_len + qt * kTile) * hd;
+  load_tile<HD>(q + q_off, qs, hd);
+  load_tile<HD>(dout + q_off, dos, hd);
   float lse_r[4], delta_r[4];
   float4 acc[4][kJ];
 #pragma unroll
@@ -581,9 +598,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   kv_span(qt, n_tiles, causal != 0, window, &j_lo, &j_hi);
   for (int j = j_lo; j <= j_hi; ++j) {
     __syncthreads();  // the previous tile's dS and k are consumed
-    const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * HD;
-    load_tile<HD>(k + kv_off, ks);
-    load_tile<HD>(v + kv_off, vs);
+    const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * hd;
+    load_tile<HD>(k + kv_off, ks, hd);
+    load_tile<HD>(v + kv_off, vs, hd);
     __syncthreads();
 
     float s[4][4];
@@ -612,7 +629,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t row = size_t(bh) * s_len + qt * kTile + ty + 16 * i;
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj) {
-      *reinterpret_cast<float4*>(dq + row * HD + tx * 4 + 64 * jj) = acc[i][jj];
+      const int col = tx * 4 + 64 * jj;
+      if (col < hd) *reinterpret_cast<float4*>(dq + row * hd + col) = acc[i][jj];
     }
   }
 }
@@ -647,7 +665,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __nv_bfloat16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       float* __restrict__ dq, int group, int s_len,
+                       float* __restrict__ dq, int group, int s_len, int hd,
                        float scale, int causal, int window) {
   using namespace attn_tile;
   using RingT = Ring<HD, kBwdStages>;
@@ -699,11 +717,11 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   const uint32_t q_tile = resident + 2 * wg * tile_bytes<HD>();
   const uint32_t do_tile = q_tile + tile_bytes<HD>();
   load_rows<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
-    return live ? q + (size_t(bh) * s_len + q0 + r) * HD : nullptr;
-  }, 1 + wg);
+    return live ? q + (size_t(bh) * s_len + q0 + r) * hd : nullptr;
+  }, 1 + wg, hd);
   load_rows<HD>(do_tile, [&](int r) -> const __nv_bfloat16* {
-    return live ? dout + (size_t(bh) * s_len + q0 + r) * HD : nullptr;
-  }, 1 + wg);
+    return live ? dout + (size_t(bh) * s_len + q0 + r) * hd : nullptr;
+  }, 1 + wg, hd);
   int q_pos[2];
   float lse2[2], dl[2];  // this thread's rows: lse * log2(e), delta
 #pragma unroll
@@ -738,8 +756,10 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   for (int nb = 0; nb < HD / 64; ++nb) {
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
+      const int col = 64 * nb + Acc<HD>::col(i);
+      if (col >= hd) continue;  // a padded column
       const size_t row = size_t(bh) * s_len + q0 + Acc<HD>::row(i);
-      *reinterpret_cast<float2*>(dq + row * HD + 64 * nb + Acc<HD>::col(i)) =
+      *reinterpret_cast<float2*>(dq + row * hd + col) =
           make_float2(acc[nb][i], acc[nb][i + 1]);
     }
   }
@@ -763,7 +783,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dk, float* __restrict__ dv,
-                        int group, int s_len, float scale, int causal,
+                        int group, int s_len, int hd, float scale, int causal,
                         int window) {
   using namespace attn_tile;
   using RingT = Ring<HD, kBwdStages, kDkvRowBytes>;
@@ -822,11 +842,11 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t k_tile = resident + 2 * wg * tile_bytes<HD>();
   const uint32_t v_tile = k_tile + tile_bytes<HD>();
   load_rows<HD>(k_tile, [&](int r) -> const __nv_bfloat16* {
-    return live ? k + (size_t(bhkv) * s_len + k0 + r) * HD : nullptr;
-  }, 1 + wg);
+    return live ? k + (size_t(bhkv) * s_len + k0 + r) * hd : nullptr;
+  }, 1 + wg, hd);
   load_rows<HD>(v_tile, [&](int r) -> const __nv_bfloat16* {
-    return live ? v + (size_t(bhkv) * s_len + k0 + r) * HD : nullptr;
-  }, 1 + wg);
+    return live ? v + (size_t(bhkv) * s_len + k0 + r) * hd : nullptr;
+  }, 1 + wg, hd);
   float dk_acc[HD / 64][32], dv_acc[HD / 64][32];
 #pragma unroll
   for (int nb = 0; nb < HD / 64; ++nb) {
@@ -854,8 +874,9 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int nb = 0; nb < HD / 64; ++nb) {
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
-      const size_t off = (size_t(bhkv) * s_len + k0 + Acc<HD>::row(i)) * HD +
-                         64 * nb + Acc<HD>::col(i);
+      const int col = 64 * nb + Acc<HD>::col(i);
+      if (col >= hd) continue;  // a padded column
+      const size_t off = (size_t(bhkv) * s_len + k0 + Acc<HD>::row(i)) * hd + col;
       *reinterpret_cast<float2*>(dk + off) = make_float2(dk_acc[nb][i], dk_acc[nb][i + 1]);
       *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[nb][i], dv_acc[nb][i + 1]);
     }
@@ -872,8 +893,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int bh, int group, int s_len, float scale,
-                       int causal, int window, cudaStream_t stream) {
+                       void* lse, int bh, int group, int s_len, int hd,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<HD>;
   cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
   if (err != cudaSuccess) return err;
@@ -881,7 +903,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, fwd_smem<HD>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), group, s_len, scale, causal, window);
+      static_cast<float*>(lse), group, s_len, hd, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -914,7 +936,10 @@ EncodeTiled encode_tiled() {
 }
 
 // a (rows, S, hd) bf16 tensor as TMA boxes of 64 rows x 64 columns
-// (128 bytes), written to shared memory in the 128-byte swizzle
+// (128 bytes), written to shared memory in the 128-byte swizzle; at hd 16
+// or 32 the box is wider than a row and the copy fills the columns past hd
+// with zeros (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE), counting them in the
+// bytes it completes on the barrier
 bool tile_map(CUtensorMap* map, const void* base, int rows, int s_len, int hd) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
@@ -930,11 +955,12 @@ bool tile_map(CUtensorMap* map, const void* base, int rows, int s_len, int hd) {
 
 template <int HD>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
-                          void* lse, int bh, int group, int s_len, float scale,
-                          int causal, int window, cudaStream_t stream) {
+                          void* lse, int bh, int group, int s_len, int hd,
+                          float scale, int causal, int window,
+                          cudaStream_t stream) {
   CUtensorMap tm_k, tm_v;
-  if (!tile_map(&tm_k, k, bh / group, s_len, HD) ||
-      !tile_map(&tm_v, v, bh / group, s_len, HD)) {
+  if (!tile_map(&tm_k, k, bh / group, s_len, hd) ||
+      !tile_map(&tm_v, v, bh / group, s_len, hd)) {
     return cudaErrorNotSupported;
   }
   constexpr size_t smem = attn_tile::smem_bytes<HD, kTcStages, kTcConsumers>();
@@ -946,7 +972,7 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kTcThreads, smem, stream>>>(
       tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), group, s_len,
-      scale, causal, window);
+      hd, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -954,7 +980,7 @@ template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh_kv, int group, int s_len,
-                       float scale, int causal, int window,
+                       int hd, float scale, int causal, int window,
                        cudaStream_t stream) {
   auto kernel = flash_bwd_dkv_kernel<HD>;
   cudaError_t err = allow_smem(kernel, dkv_smem<HD>());
@@ -964,8 +990,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), group, s_len, scale,
-      causal, window);
+      static_cast<float*>(dk), static_cast<float*>(dv), group, s_len, hd,
+      scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -973,12 +999,12 @@ template <int HD>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
                           void* dk, void* dv, int bh_kv, int group, int s_len,
-                          float scale, int causal, int window,
+                          int hd, float scale, int causal, int window,
                           cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   CUtensorMap tm_q, tm_do;
-  if (!tile_map(&tm_q, q, bh_kv * group, s_len, HD) ||
-      !tile_map(&tm_do, dout, bh_kv * group, s_len, HD)) {
+  if (!tile_map(&tm_q, q, bh_kv * group, s_len, hd) ||
+      !tile_map(&tm_do, dout, bh_kv * group, s_len, hd)) {
     return cudaErrorNotSupported;
   }
   constexpr size_t smem = attn_tile::smem_bytes<HD, kBwdStages,
@@ -991,16 +1017,17 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   kernel<<<grid, kBwdThreads, smem, stream>>>(
       tm_q, tm_do, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), group, s_len, scale,
-      causal, window);
+      static_cast<float*>(dk), static_cast<float*>(dv), group, s_len, hd,
+      scale, causal, window);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int group, int s_len, float scale,
-                      int causal, int window, cudaStream_t stream) {
+                      void* dq, int bh, int group, int s_len, int hd,
+                      float scale, int causal, int window,
+                      cudaStream_t stream) {
   auto kernel = flash_bwd_dq_kernel<HD>;
   cudaError_t err = allow_smem(kernel, dq_smem<HD>());
   if (err != cudaSuccess) return err;
@@ -1009,19 +1036,20 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), group, s_len, scale, causal, window);
+      static_cast<float*>(dq), group, s_len, hd, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         void* dq, int bh, int group, int s_len, float scale,
-                         int causal, int window, cudaStream_t stream) {
+                         void* dq, int bh, int group, int s_len, int hd,
+                         float scale, int causal, int window,
+                         cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   CUtensorMap tm_k, tm_v;
-  if (!tile_map(&tm_k, k, bh / group, s_len, HD) ||
-      !tile_map(&tm_v, v, bh / group, s_len, HD)) {
+  if (!tile_map(&tm_k, k, bh / group, s_len, hd) ||
+      !tile_map(&tm_v, v, bh / group, s_len, hd)) {
     return cudaErrorNotSupported;
   }
   constexpr size_t smem =
@@ -1034,13 +1062,16 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
   kernel<<<grid, kBwdThreads, smem, stream>>>(
       tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), group, s_len, scale, causal, window);
+      static_cast<float*>(dq), group, s_len, hd, scale, causal, window);
   return cudaGetLastError();
 }
 
+// the head dims the kernels take: 128 in its own instantiation, 64, 32 and
+// 16 in the 64-column one (the narrow ones zero-padded in shared memory)
 bool valid(int rows, int group, int s_len, int hd, int dtype) {
   return rows > 0 && group > 0 && s_len > 0 && s_len % kTile == 0 &&
-         (hd == 64 || hd == 128) && (dtype == 0 || dtype == 1);
+         (hd == 16 || hd == 32 || hd == 64 || hd == 128) &&
+         (dtype == 0 || dtype == 1);
 }
 
 }  // namespace
@@ -1058,16 +1089,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return hd == 128 ? int(launch_fwd<128>(q, k, v, o, lse, bh, group, s_len,
-                                           scale, causal, window, st))
-                     : int(launch_fwd<64>(q, k, v, o, lse, bh, group, s_len,
-                                          scale, causal, window, st));
-  }
-  return hd == 128 ? int(launch_fwd_tc<128>(q, k, v, o, lse, bh, group, s_len,
-                                            scale, causal, window, st))
-                   : int(launch_fwd_tc<64>(q, k, v, o, lse, bh, group, s_len,
-                                           scale, causal, window, st));
+  auto launch = dtype == 0 ? (hd == 128 ? launch_fwd<128> : launch_fwd<64>)
+                           : (hd == 128 ? launch_fwd_tc<128> : launch_fwd_tc<64>);
+  return int(launch(q, k, v, o, lse, bh, group, s_len, hd, scale, causal,
+                    window, st));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1081,7 +1106,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   auto launch = dtype == 0 ? (hd == 128 ? launch_dkv<128> : launch_dkv<64>)
                            : (hd == 128 ? launch_dkv_tc<128> : launch_dkv_tc<64>);
   return int(launch(q, k, v, dout, lse, delta, dk, dv, bh_kv, group, s_len,
-                    scale, causal, window, st));
+                    hd, scale, causal, window, st));
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1095,6 +1120,6 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto launch = dtype == 0 ? (hd == 128 ? launch_dq<128> : launch_dq<64>)
                            : (hd == 128 ? launch_dq_tc<128> : launch_dq_tc<64>);
-  return int(launch(q, k, v, dout, lse, delta, dq, bh, group, s_len, scale,
-                    causal, window, st));
+  return int(launch(q, k, v, dout, lse, delta, dq, bh, group, s_len, hd,
+                    scale, causal, window, st));
 }

@@ -112,9 +112,20 @@
 // reasoning above holds unchanged (a dequantized trap row is finite).
 //
 // Types: q and out in f32 or bf16; k and v in q's type, or int8 or packed
-// int4 codes with scales; hd in {64, 128}; ps a power of two; CUDA-core
-// arithmetic is f32, tensor-core products take bf16 operands and
+// int4 codes with scales; hd in {16, 32, 64, 128}; ps a power of two;
+// CUDA-core arithmetic is f32, tensor-core products take bf16 operands and
 // accumulate in f32.
+//
+// Narrow head dims. Both engines tile the head dim by 64 columns (HD), so
+// hd 16 and 32 run in the HD = 64 instantiation with the live hd passed at
+// run time: every row offset counts hd, the loaders read only the chunks
+// of a row below hd (a bf16 row of hd 16 is 32 bytes: two 16-byte chunks;
+// an int8 row 16 bytes; a packed int4 row 8 bytes: the tensor-core
+// producer's 8-code loads are 8 and 4 bytes, the CUDA-core loader's
+// 16-code ones 16 and 8, each a whole part of the row) and write zeros
+// past it, and only hd columns are stored. Zero columns add exact zeros
+// to the scores and give zero output columns, never stored, so the result
+// is the unpadded one bit for bit, and paged still equals dense.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -252,7 +263,7 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
            const TKV* __restrict__ v, const float* __restrict__ k_scale,
            const float* __restrict__ v_scale, const int* __restrict__ base,
            const int* __restrict__ pages, T* __restrict__ out, int n_q,
-           int hq, int hkv, int s_len, int page_shift, float scale,
+           int hq, int hkv, int s_len, int hd, int page_shift, float scale,
            int window) {
   using Vec = typename Io<TKV>::Vec;
   constexpr bool kQuant = !std::is_same<TKV, T>::value;
@@ -303,9 +314,9 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
     const int r = e / HD;
     const int t = r / group;
     float x = 0.f;
-    if (t < t_valid) {
+    if (t < t_valid && e % HD < hd) {
       const size_t row = (size_t(b) * n_q + t0 + t) * hq + h * group + r % group;
-      x = Io<T>::load(q + row * HD + e % HD);
+      x = Io<T>::load(q + row * hd + e % HD);
     }
     qs[e] = x;
   }
@@ -320,7 +331,8 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
     for (int i = 0; i < kVecPerThread; ++i) {
       const int vec = tid + i * kThreads;
       const int pos = j * kBlockK + vec / kVecPerRow;
-      if (pos < s_len) {
+      const int col = (vec % kVecPerRow) * kPerVec;
+      if (pos < s_len && col < hd) {
         size_t row;  // of the dense cache, or of the pool
         if constexpr (PAGED) {
           const int page = __ldg(table + (pos >> page_shift));
@@ -329,8 +341,7 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
           row = size_t(b) * s_len + pos;
         }
         // in storage units of TKV: packed int4 halves the element offset
-        const size_t off = ((row * hkv + h) * HD + (vec % kVecPerRow) * kPerVec)
-                           / Io<TKV>::kPerUnit;
+        const size_t off = ((row * hkv + h) * hd + col) / Io<TKV>::kPerUnit;
         kreg[i] = __ldg(reinterpret_cast<const Vec*>(k + off));
         vreg[i] = __ldg(reinterpret_cast<const Vec*>(v + off));
         if constexpr (kQuant) {
@@ -455,9 +466,9 @@ rpa_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
   for (int i = 0; i < kPvRows; ++i) {
     const int r = pv_grp + i * kPvGroups;
     const int t = r / group;
-    if (t < t_valid) {
+    if (t < t_valid && pv_d < hd) {
       const size_t row = (size_t(b) * n_q + t0 + t) * hq + h * group + r % group;
-      Io<T>::store(out + row * HD + pv_d, acc[i] / fmaxf(l_s[r], 1e-30f));
+      Io<T>::store(out + row * hd + pv_d, acc[i] / fmaxf(l_s[r], 1e-30f));
     }
   }
 }
@@ -483,8 +494,9 @@ __device__ unsigned int g_tickets[kMaxTickets];
 
 // Fills ring stages with the kv tiles of one (slot, kv head): row
 // pos = 64 j + r of tile j from the dense cache or through the table,
-// rows at or past s_len as zeros. Thread `pt` of the producers writes
-// 16-byte chunks pt, pt + 128, ... of each of K and V.
+// rows at or past s_len, and columns at or past hd, as zeros. Thread `pt`
+// of the producers writes 16-byte chunks pt, pt + 128, ... of each of K
+// and V.
 template <typename TKV, int HD, bool PAGED>
 struct ChunkProducer {
   static constexpr bool kCopy = std::is_same<TKV, __nv_bfloat16>::value;
@@ -496,7 +508,7 @@ struct ChunkProducer {
   const float* k_scale;
   const float* v_scale;
   const int* table;  // this slot's row of the page table (paged)
-  int b, h, hkv, s_len, page_shift;
+  int b, h, hkv, s_len, hd, page_shift;
 
   // the cache (or pool) row of position pos
   __device__ __forceinline__ size_t row_of(int pos) const {
@@ -518,8 +530,8 @@ struct ChunkProducer {
       const int r = e / kChunksPerRow;
       const int c = e % kChunksPerRow;
       const int pos = j * attn_tile::kKv + r;
-      const bool live = pos < s_len;
-      const size_t off = live ? (row_of(pos) * hkv + h) * HD + 8 * c : 0;
+      const bool live = pos < s_len && 8 * c < hd;
+      const size_t off = live ? (row_of(pos) * hkv + h) * hd + 8 * c : 0;
       const uint32_t at = attn_tile::swizzle(r, 8 * c);
       attn_tile::cp_async_16(k_dst + at, k + off, live);
       attn_tile::cp_async_16(v_dst + at, v + off, live);
@@ -538,11 +550,11 @@ struct ChunkProducer {
     for (int i = 0; i < kPerThread; ++i) {
       const int e = pt + i * kTcProducers;
       const int pos = j * attn_tile::kKv + e / kChunksPerRow;
-      if (pos < s_len) {
+      const int col = 8 * (e % kChunksPerRow);
+      if (pos < s_len && col < hd) {
         const size_t row = row_of(pos) * hkv + h;
         // in bytes: an int4 pair is one byte, so its offset halves
-        const size_t off = (row * HD + 8 * (e % kChunksPerRow)) /
-                           Io<TKV>::kPerUnit;
+        const size_t off = (row * hd + col) / Io<TKV>::kPerUnit;
         kr[i] = __ldg(reinterpret_cast<const Raw*>(k + off));
         vr[i] = __ldg(reinterpret_cast<const Raw*>(v + off));
         ks[i] = __ldg(k_scale + row);
@@ -593,16 +605,17 @@ struct ChunkProducer {
 // A narrow window's split, past its products: this block's partial (m, l
 // and the unnormalised o of query vectors 0 .. n_vec - 1, which warp 0's
 // fragment rows 0..7 hold) to its slot of `part`, (B, Hkv, n_split,
-// kSplitRows, HD + 2) f32; then the row tile's ticket, and the block that
-// draws the last one reduces the live splits first .. first + n_live - 1
-// in ascending order into out (bf16) and resets the ticket.
+// kSplitRows, HD + 2) f32 (the instantiation's width, padded columns
+// included); then the row tile's ticket, and the block that draws the last
+// one reduces the live splits first .. first + n_live - 1 in ascending
+// order into the hd columns of out (bf16) and resets the ticket.
 template <int HD>
 __device__ __forceinline__ void combine_splits(const attn_tile::Acc<HD>& acc,
                                                float* __restrict__ part,
                                                __nv_bfloat16* __restrict__ out,
                                                int b, int h, int n_q, int hq,
-                                               int hkv, int n_vec, int first,
-                                               int n_live) {
+                                               int hkv, int hd, int n_vec,
+                                               int first, int n_live) {
   using namespace attn_tile;
   constexpr int kStride = HD + 2;  // o, then m (log2 domain), then l
   constexpr int kSplitStride = kSplitRows * kStride;
@@ -634,9 +647,9 @@ __device__ __forceinline__ void combine_splits(const attn_tile::Acc<HD>& acc,
   if (!last) return;
   __threadfence();
   const float* split0 = part + (size_t(bh) * gridDim.z + first) * kSplitStride;
-  for (int e = threadIdx.x; e < n_vec * HD; e += kWarpgroup) {
-    const int r = e / HD;
-    const int c = e % HD;
+  for (int e = threadIdx.x; e < n_vec * hd; e += kWarpgroup) {
+    const int r = e / hd;
+    const int c = e % hd;
     const float* p = split0 + r * kStride;
     float m = kNegBig;
     for (int s = 0; s < n_live; ++s) m = fmaxf(m, __ldcg(p + s * kSplitStride + HD));
@@ -649,7 +662,7 @@ __device__ __forceinline__ void combine_splits(const attn_tile::Acc<HD>& acc,
       o += __ldcg(ps + c) * w;
     }
     const size_t row = (size_t(b) * n_q + r / group) * hq + h * group + r % group;
-    out[row * HD + c] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+    out[row * hd + c] = __float2bfloat16(o / fmaxf(l, 1e-30f));
   }
   if (threadIdx.x == 0) g_tickets[bh] = 0u;
 }
@@ -667,7 +680,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
               const float* __restrict__ v_scale, const int* __restrict__ base,
               const int* __restrict__ pages, __nv_bfloat16* __restrict__ out,
               float* __restrict__ part, int n_q, int hq, int hkv, int s_len,
-              int page_shift, float scale, int window, int split_tiles) {
+              int hd, int page_shift, float scale, int window,
+              int split_tiles) {
   using namespace attn_tile;
   constexpr int kStages = SPLIT ? kSplitStages : kTcStages;
   using RingT = Ring<HD, kStages>;
@@ -697,7 +711,7 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
     using Producer = ChunkProducer<TKV, HD, PAGED>;
     const Producer prod{k, v, k_scale, v_scale,
                         PAGED ? pages + size_t(b) * (s_len >> page_shift) : nullptr,
-                        b, h, hkv, s_len, page_shift};
+                        b, h, hkv, s_len, hd, page_shift};
     const int pt = threadIdx.x - kWarpgroup;
     int prev = -1;  // the stage whose copies are still in flight
     for (int j = j_lo, n = 0; j <= j_hi; ++j, ++n) {
@@ -729,8 +743,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
   load_rows<HD>(q_tile, [&](int r) -> const __nv_bfloat16* {
     const int t = r / group;
     if (t >= t_valid) return nullptr;
-    return q + ((size_t(b) * n_q + t0 + t) * hq + h * group + r % group) * HD;
-  }, 1);
+    return q + ((size_t(b) * n_q + t0 + t) * hq + h * group + r % group) * hd;
+  }, 1, hd);
   int qpos[2];  // this thread's two rows; rows past the chunk mirror its last
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -749,8 +763,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
     const int first = span_lo / split_tiles;
     const int n_live = span_hi / split_tiles - first + 1;
     if (n_live > 1) {
-      combine_splits<HD>(acc, part, out, b, h, n_q, hq, hkv, group * t_valid,
-                         first, n_live);
+      combine_splits<HD>(acc, part, out, b, h, n_q, hq, hkv, hd,
+                         group * t_valid, first, n_live);
       return;
     }
   }
@@ -766,7 +780,9 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
     for (int nb = 0; nb < HD / 64; ++nb) {
 #pragma unroll
       for (int i = 2 * hh; i < 32; i += 4) {
-        *reinterpret_cast<uint32_t*>(out + row * HD + 64 * nb + Acc<HD>::col(i)) =
+        const int col = 64 * nb + Acc<HD>::col(i);
+        if (col >= hd) continue;  // a padded column
+        *reinterpret_cast<uint32_t*>(out + row * hd + col) =
             pack_bf16(acc.o[nb][i] / l, acc.o[nb][i + 1] / l);
       }
     }
@@ -783,7 +799,7 @@ struct Args {
   const void* pages;    // null on the dense route
   void* out;
   void* part;           // f32 split partials (a narrow window's split launch)
-  int b, t, hq, hkv, s_len, page_shift;
+  int b, t, hq, hkv, s_len, hd, page_shift;
   float scale;
   int window;
   int engine;       // 0: CUDA cores, 1: tensor cores
@@ -809,7 +825,7 @@ cudaError_t launch(const Args& a) {
       static_cast<const TKV*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.base),
       static_cast<const int*>(a.pages), static_cast<T*>(a.out), a.t, a.hq,
-      a.hkv, a.s_len, a.page_shift, a.scale, a.window);
+      a.hkv, a.s_len, a.hd, a.page_shift, a.scale, a.window);
   return cudaGetLastError();
 }
 
@@ -837,8 +853,8 @@ cudaError_t launch_tc(const Args& a) {
       static_cast<const TKV*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.base),
       static_cast<const int*>(a.pages), static_cast<__nv_bfloat16*>(a.out),
-      static_cast<float*>(a.part), a.t, a.hq, a.hkv, a.s_len, a.page_shift,
-      a.scale, a.window, a.split_tiles);
+      static_cast<float*>(a.part), a.t, a.hq, a.hkv, a.s_len, a.hd,
+      a.page_shift, a.scale, a.window, a.split_tiles);
   return cudaGetLastError();
 }
 
@@ -881,10 +897,13 @@ cudaError_t dispatch_codes(const Args& a, int codes) {
   }
 }
 
+// hd 128 in its own instantiation; 64, 32 and 16 in the 64-column one
 template <typename T>
-cudaError_t dispatch_cache(const Args& a, int codes, int hd) {
-  if (hd == 128) return dispatch_codes<T, 128>(a, codes);
-  if (hd == 64) return dispatch_codes<T, 64>(a, codes);
+cudaError_t dispatch_cache(const Args& a, int codes) {
+  if (a.hd == 128) return dispatch_codes<T, 128>(a, codes);
+  if (a.hd == 64 || a.hd == 32 || a.hd == 16) {
+    return dispatch_codes<T, 64>(a, codes);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -895,8 +914,9 @@ cudaError_t dispatch_cache(const Args& a, int codes, int hd) {
 // cores (bf16 q); the caller chooses. split_tiles > 0 (tensor cores, a
 // window of group * t <= 8 query vectors) splits each live span into
 // splits of that many 64-row kv tiles, part then being an f32 workspace of
-// b * hkv * ceil(s_len / (64 split_tiles)) * 8 * (hd + 2) floats; 0 walks
-// each span in one block (part unused). codes: 0 = k and v hold q's type
+// b * hkv * ceil(s_len / (64 split_tiles)) * 8 * (HD + 2) floats, HD = 128
+// at hd 128 and 64 below it (the instantiation's width); 0 walks each span
+// in one block (part unused). codes: 0 = k and v hold q's type
 // (k_scale and v_scale null);
 // 8 = int8 codes, 4 = int4 codes packed two per byte (rows of hd / 2
 // bytes), both with f32 scale planes. pages null: k and v are the dense
@@ -925,13 +945,13 @@ extern "C" int rpa_forward(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   }
   const Args a{q, k, v, k_scale, v_scale, base, pages, out, part, b, t, hq,
-               hkv, s_len, page_shift, scale, window, engine, split_tiles,
+               hkv, s_len, hd, page_shift, scale, window, engine, split_tiles,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = dispatch_cache<float>(a, codes, hd);
+    err = dispatch_cache<float>(a, codes);
   } else if (dtype == 1) {
-    err = dispatch_cache<__nv_bfloat16>(a, codes, hd);
+    err = dispatch_cache<__nv_bfloat16>(a, codes);
   }
   return int(err);
 }

@@ -42,8 +42,10 @@ from pathlib import Path
 
 import torch
 
-#: head dims the kernels take
-LANE_ALIGNED_HEAD_DIMS = (64, 128)
+#: head dims the kernels take: 64 and 128 in instantiations of their own
+#: width, 16 and 32 in the 64-column one, zero-padded in shared memory
+#: (:func:`tile_head_dim`)
+LANE_ALIGNED_HEAD_DIMS = (16, 32, 64, 128)
 
 OPS_DIR = Path(__file__).resolve().parent
 CSRC_DIR = OPS_DIR / "csrc"
@@ -69,6 +71,13 @@ _capture = threading.local()
 
 def lane_aligned(head_dim: int) -> bool:
     return head_dim in LANE_ALIGNED_HEAD_DIMS
+
+
+def tile_head_dim(head_dim: int) -> int:
+    """The head-dim width of the kernel instantiation that runs
+    ``head_dim``: 128 for 128, else 64 (a narrower head dim's tiles hold
+    zeros past its columns, which add exact zeros to every sum)."""
+    return 128 if head_dim == 128 else 64
 
 
 def gqa_ok(n_q_heads: int, n_kv_heads: int) -> bool:

@@ -325,8 +325,10 @@ def ragged_paged_attention(
     split = window_split(t, hq // hkv) if eng == "tensor_cores" else None
     part = None
     if split is not None:  # each split's (o, m, l) of its query vectors
+        # rows of the instantiation's width (64 for hd 16 and 32)
         part = torch.empty(b * hkv * n_splits(s_len, split) * NARROW_TILE
-                           * (hd + 2), dtype=torch.float32, device=q.device)
+                           * (kernel_support.tile_head_dim(hd) + 2),
+                           dtype=torch.float32, device=q.device)
     lib = load_kernel()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -82,6 +82,8 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.ops.fused_ce\n"
         "import k8s_gpu_device_plugin_torch.ops.fused_optim\n"
         "import k8s_gpu_device_plugin_torch.models.trainer\n"
+        "import k8s_gpu_device_plugin_torch.data.pipeline\n"
+        "import k8s_gpu_device_plugin_torch.data.native_loader\n"
         "import k8s_gpu_device_plugin_torch.ops.flash_attention\n"
         "import k8s_gpu_device_plugin_torch.models.speculative\n"
         "import k8s_gpu_device_plugin_torch.models.spec_batching\n"
