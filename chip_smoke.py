@@ -413,7 +413,34 @@ Phases (any failed check exits non-zero without the final line):
    plain attention); ``lora_ckpt_serve`` (the adapter saved and served
    by ``--loraAdapters``: the bf16 stream against the merged weights'
    reported, the f32 twin's equal to the merged oracle's).
-8. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
+8. The default ``--preset tiny`` (head dim 16) from the command line
+   (``phase_tiny``): the trainer's CLI over a corpus with traces and a
+   checkpoint, the server's CLI on that checkpoint (streams equal to
+   ``generate``), and the f32 twin, card against CPU.
+9. Gemma-2B (head dim 256, tied head) and Qwen2-7B (a GQA group of 7,
+   q/k/v biases), ``phase_wide``: K1 at Gemma's heads on every route of
+   NARROW_LAYOUTS and at Qwen2's dense and paged (decode, a T-256 chunk
+   at base 1536, a T-4 verify; 8 slots, S 2048; Gemma's decode and chunk
+   at W 64) and K2-K4 at both heads (B 2, S 2048; Gemma's also at W
+   512), bf16 and f32, with phases 2 and 5's checks, times, bounds and
+   SDPA times; then each preset at its published widths, bf16, random
+   weights from SEED: Gemma's ``params_to_hf`` -> ``params_from_hf``
+   round trip (every leaf back bit for bit, the tied head consumed);
+   WIDE_REQUESTS through one-slot batchers, dense and paged (equal
+   streams, K1 launched a layer per chunk and step), each prompt one
+   chunk of its own length (each stream equal to ``generate``'s) and at
+   chunks of WIDE_CHUNK (a stream parting from ``generate``'s judged by
+   ``near_ties`` against the plain f32 forward); a 2-layer f32 copy's
+   prefill and decode
+   logits and full-forward logits, kernels against the plain path
+   within LOGITS_BOUND; the gradient of the tied embedding (rows no
+   input looks up get one) or of the biases (nonzero); training with
+   FusedAdamW and the fused cross-entropy at B 1, S 2048 (Gemma all 18
+   layers, 5 steps; Qwen2 a 2-layer cut, 3 steps), the losses bit for
+   bit a second run's; Gemma's 2-layer f32 twin, card against CPU (the
+   CPU's share beside the models' checks, after every timed case), the
+   losses within WIDE_TWIN_RTOL.
+10. One ``{"kernels": [...]}`` line (all four kernels; the ragged-paged
    kernel's entry carries its six routes, the decode graph's checks and
    pool bytes, the prefix and windowed runs' launches, the W 4096 cases
    with the stale-entry check, the copy-on-write check, the speculative
@@ -428,8 +455,8 @@ Phases (any failed check exits non-zero without the final line):
    lists its B 1 serving cases; K1 and K2-K4 add phase 7's, K2-K4 the
    fused runs'), then K5, K6, K7 and the int8 product (``replaces``
    null, each naming the reference module it is the counterpart of,
-   with phase 6's launches).
-9. The last line: ``{"ok": true, "device": {...}}``.
+   with phase 6's launches; K1-K4 add phase 9's launches and cases).
+11. The last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -887,11 +914,14 @@ def route_operands(torch, quant, case, k, v, gen):
     return k, v, ks, vs, pages
 
 
-def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
+def phase_kernels(torch, rpa, quant, kernel_support, cases=None,
+                  phase: int = 2) -> list[dict]:
+    """K1 against its plain version on ``cases`` (phase 2's
+    ``kernel_cases()`` by default), one line a case under ``phase``."""
     import torch.nn.functional as F
 
     results = []
-    for case in kernel_cases():
+    for case in kernel_cases() if cases is None else cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             if dname not in case.get("dtypes", (dname,)):
@@ -1050,7 +1080,7 @@ def phase_kernels(torch, rpa, quant, kernel_support) -> list[dict]:
             row["bound_ms"], row["bound_by"], work = bound(case, rpa, torch,
                                                            dname)
             row.update(work)
-            emit({"phase": 2, **row})
+            emit({"phase": phase, **row})
             results.append(row)
     return results
 
@@ -2676,16 +2706,19 @@ ARRIVAL_HI_SHARE, ARRIVAL_DEADLINE_MS, ARRIVAL_LOAD = 0.2, 1500, 1.2
 @contextlib.contextmanager
 def recording_picks(torch, module):
     """Record every forward through ``module._forward_cached`` that yields
-    one logits row per sequence: decode steps (T = 1) and prefill finish
-    chunks (the row at ``select_pos``). Yields the list of (each row's
-    position, f32 logits (B, V)) the calls append to."""
+    one logits row per sequence: decode steps (T = 1), prefill finish
+    chunks (the row at ``select_pos``) and whole prefills (``last_only``:
+    the last row). Yields the list of (each row's position, f32 logits
+    (B, V)) the calls append to."""
     orig = module._forward_cached
     calls = []
 
     def wrapped(params, tokens, cache, length, cfg, **kw):
         out = orig(params, tokens, cache, length, cfg, **kw)
         if out.shape[1] == 1:
-            off = 0 if tokens.shape[1] == 1 else kw.get("select_pos", 0)
+            t = tokens.shape[1]
+            off = 0 if t == 1 else t - 1 if kw.get("last_only") else \
+                kw.get("select_pos", 0)
             pos = torch.as_tensor(length).reshape(-1).expand(
                 tokens.shape[0]) + off
             calls.append((pos.tolist(), out[:, 0].float().clone()))
@@ -6709,26 +6742,40 @@ def flash_bounds(case, dtype_name: str) -> dict:
     return out
 
 
-def event_ms(torch, fn, reps: int = 5) -> float:
-    """Mean device time of ``fn()`` between CUDA events, without a graph
-    (for autograd calls)."""
+def event_ms(torch, fn, reps: int = 5, trials: int = 1) -> float:
+    """Device time of ``fn()`` between CUDA events, without a graph (for
+    autograd calls): the mean of ``reps`` calls, the least over ``trials``
+    such runs. The host launches each call, so a pause between calls
+    counts: the garbage collector is off while they run."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        best = math.inf
+        for _ in range(trials):
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / reps)
+    finally:
+        if collecting:
+            gc.enable()
+    return best
 
 
-def phase_flash(torch, fa, kernel_support) -> list[dict]:
+def phase_flash(torch, fa, kernel_support, cases=None,
+                phase: int = 5) -> list[dict]:
+    """K2-K4 against their plain versions on ``cases`` (phase 5's
+    ``flash_cases()`` by default), one line a case under ``phase``."""
     import torch.nn.functional as F
 
     results = []
-    for case in flash_cases():
+    for case in flash_cases() if cases is None else cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             if dname not in case.get("dtypes", (dname,)):
@@ -6865,11 +6912,14 @@ def phase_flash(torch, fa, kernel_support) -> list[dict]:
                        "flash_bwd_dq": graph_ms(
                            torch, lambda: fa.flash_bwd_dq_reference(*bwd, **kw), 1)},
                    "library_fwd_ms": graph_ms(torch, library, 5),
-                   "library_bwd_ms": event_ms(torch, library_bwd),
-                   "library_fwd_bwd_ms": event_ms(torch, library_fwd_bwd),
+                   # eager calls: the least of three runs, a stall of the
+                   # host read out of the yardstick
+                   "library_bwd_ms": event_ms(torch, library_bwd, trials=3),
+                   "library_fwd_bwd_ms": event_ms(torch, library_fwd_bwd,
+                                                  trials=3),
                    "bounds": flash_bounds(case, dname)}
             del out, qg, kg, vg
-            emit({"phase": 5, **row})
+            emit({"phase": phase, **row})
             results.append(row)
     torch.cuda.empty_cache()
     return results
@@ -8095,6 +8145,491 @@ def phase_tiny(torch, llama, generate, server_mod, kernel_support,
     return {"train": train, "serve": serve, "twin": twin}
 
 
+# --- phase 9, Gemma-2B (head dim 256) and Qwen2-7B (a group of 7) ------------
+
+# the presets' attention heads (q heads, kv heads, head dim)
+WIDE_HEADS = {"gemma_2b": dict(hq=8, hkv=1, hd=256),
+              "qwen2_7b": dict(hq=28, hkv=4, hd=128)}
+WIDE_CHUNK_BASE = 1536
+WIDE_VERIFY_T = 4
+# (prompt length, max_new), each through a one-slot batcher twice: with the
+# prompt as its one chunk (prefill and decode products at generate's M: the
+# streams equal generate's bit for bit), and at the serving chunk
+# WIDE_CHUNK (17 and 100 pad their finish chunk; a product of more rows may
+# round otherwise, so a divergence is judged by near_ties)
+WIDE_REQUESTS = [(17, 32), (100, 32), (300, 32), (512, 32)]
+WIDE_MAX_LEN = 576
+WIDE_CHUNK = 256
+WIDE_F32_LAYERS = 2
+WIDE_TRAIN_SEQ = 2048
+GEMMA_TRAIN_STEPS = 5            # all 18 layers, B 1
+QWEN_TRAIN_LAYERS, QWEN_TRAIN_STEPS = 2, 3
+# the f32 twin, card against CPU: 2 layers, B 1 at this S
+WIDE_TWIN_SEQ, WIDE_TWIN_STEPS, WIDE_TWIN_RTOL = 64, 3, 1e-6
+
+
+def wide_kernel_cases():
+    """K1 at Gemma-2B's heads (hd 256) on every route of NARROW_LAYOUTS and
+    at Qwen2-7B's (a group of 7), dense and paged: decode over 8 slots, a
+    T-256 chunk at base 1536 and a T-4 verify window over 8 slots, S 2048;
+    bf16, and f32 on the dense route."""
+    bases8 = [-1, 0, 1, 255, 256, 1000, 2046, 2047]
+    vbases = [-1, 0, 1, 255, 256, 1000, 2048 - WIDE_VERIFY_T - 1,
+              2048 - WIDE_VERIFY_T]
+    cases = []
+    for model, heads in WIDE_HEADS.items():
+        layouts = NARROW_LAYOUTS if model == "gemma_2b" else \
+            (("dense", 0), ("paged", 64))
+        for route, ps in layouts:
+            tag = route + (f"_ps{ps}" if ps else "")
+            dtypes = ("bfloat16", "float32") if route == "dense" \
+                else ("bfloat16",)
+            for kind, b, t, bases in (
+                    ("decode", 8, 1, bases8),
+                    (f"prefill_t256_base{WIDE_CHUNK_BASE}", 1, 256,
+                     [WIDE_CHUNK_BASE]),
+                    (f"verify_t{WIDE_VERIFY_T}", 8, WIDE_VERIFY_T, vbases)):
+                cases.append(dict(name=f"{kind}_{model}_{tag}", b=b, t=t,
+                                  bases=bases, window=0, route=route, ps=ps,
+                                  verify=kind.startswith("verify"),
+                                  dtypes=dtypes, s=2048, **heads))
+    # the window at hd 256 (Gemma-2B's heads, W 64): decode, dense (bf16 and
+    # f32) and paged, and a T-256 chunk at base 1536, dense
+    for kind, b, t, bases, route, ps, dtypes in (
+            ("decode", 8, 1, bases8, "dense", 0, ("bfloat16", "float32")),
+            ("decode", 8, 1, bases8, "paged", 64, ("bfloat16",)),
+            (f"prefill_t256_base{WIDE_CHUNK_BASE}", 1, 256, [WIDE_CHUNK_BASE],
+             "dense", 0, ("bfloat16", "float32"))):
+        tag = route + (f"_ps{ps}" if ps else "")
+        cases.append(dict(name=f"{kind}_window64_gemma_2b_{tag}", b=b, t=t,
+                          bases=bases, window=64, route=route, ps=ps,
+                          verify=False, dtypes=dtypes, s=2048,
+                          **WIDE_HEADS["gemma_2b"]))
+    return cases
+
+
+def wide_flash_cases():
+    """K2-K4 at the training shape's B and S: Gemma-2B's heads (hd 256) and
+    Qwen2-7B's (a group of 7), and Gemma-2B's heads under a window of 512
+    (K3's halves kernel masks on its own)."""
+    return [*(dict(name=f"causal_{model}", window=0, b=TRAIN_BATCH,
+                   s=TRAIN_SEQ, **heads) for model, heads in WIDE_HEADS.items()),
+            dict(name="causal_window512_gemma_2b", window=512, b=TRAIN_BATCH,
+                 s=TRAIN_SEQ, **WIDE_HEADS["gemma_2b"])]
+
+
+def wide_decider(torch, batching, generate, cfg, params, chunk: int):
+    """``decide`` for near_ties over one-slot batchers at ``chunk`` against
+    ``generate``: stream ``k`` rerun through token ``j`` by both (the
+    batcher eager), each with the logits it picked token ``j`` from."""
+    def decide(run: str, k: int, prompt: list, j: int) -> tuple:
+        pos = len(prompt) + j - 1
+        out = []
+        for module in (generate, batching):
+            with recording_picks(torch, module) as calls:
+                if module is generate:
+                    toks = generate.generate(
+                        params, torch.tensor([prompt], device="cuda"), cfg,
+                        j + 1)[0].tolist()
+                else:
+                    cb = batching.ContinuousBatcher(
+                        params, cfg, n_slots=1, max_len=WIDE_MAX_LEN,
+                        chunked_prefill=chunk, decode_graph=False,
+                        pipeline_depth=0)
+                    rid = cb.submit(prompt, j + 1)
+                    cb.run()
+                    toks = cb.done_requests[rid].out
+                    del cb
+            logits = next((lg[0] for p, lg in reversed(calls)
+                           if p[0] == pos), None)
+            if logits is None:
+                fail(f"{run}: no recorded forward of {module.__name__} "
+                     f"picked stream {k}'s token {j}")
+            out.append((toks, logits))
+            del calls
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+
+    return decide
+
+
+def wide_serve(torch, batching, generate, kernel_support, rpa, cfg, params,
+               label: str, chunk: "int | None" = None) -> dict:
+    """WIDE_REQUESTS through one-slot batchers, dense and paged (pages of
+    64): the paged streams equal the dense ones; K1 launched once a layer
+    per chunk and decode step, on the tensor cores. With ``chunk`` None
+    each prompt is one chunk of its own length and each stream equals
+    ``generate``'s bit for bit; at ``chunk`` a stream may part from
+    ``generate``'s only where near_ties, against the plain f32 forward,
+    finds both forwards' rounding at the two tokens over their gap and the
+    batcher's RMS error over the vocabulary at most twice ``generate``'s."""
+    prompts = [fleet_ids(n, SEED + 20 + i, cfg.vocab_size)
+               for i, (n, _) in enumerate(WIDE_REQUESTS)]
+    streams = {"dense": [], "paged": []}
+    launches = {"dense": {}, "paged": {}}
+    steps = {"dense": 0, "paged": 0}
+    for layout in ("dense", "paged"):
+        for prompt, (n, max_new) in zip(prompts, WIDE_REQUESTS):
+            cb = batching.ContinuousBatcher(
+                params, cfg, n_slots=1, max_len=WIDE_MAX_LEN,
+                chunked_prefill=chunk or n, kv_layout=layout,
+                kv_page_size=64)
+            kernel_support.reset_launch_counts()
+            rid = cb.submit(prompt, max_new)
+            cb.run()
+            torch.cuda.synchronize()
+            for k, v in kernel_support.launch_counts().items():
+                if k.startswith(rpa.NAME):
+                    launches[layout][k] = launches[layout].get(k, 0) + v
+            steps[layout] += cfg.n_layers * (cb.decode_steps
+                                             + cb.prefill_chunks)
+            streams[layout].append(cb.done_requests[rid].out)
+            del cb
+            gc.collect()
+    want = [generate.generate(params, torch.tensor([p], device="cuda"), cfg,
+                              m)[0].tolist()
+            for p, (_, m) in zip(prompts, WIDE_REQUESTS)]
+    run = f"{label}_serve" + (f"_chunk{chunk}" if chunk else "")
+    row = {"phase": 9, "run": run, "requests": WIDE_REQUESTS,
+           "chunk": chunk or "prompt", "head_dim": cfg.head_dim,
+           "group": cfg.n_heads // cfg.n_kv_heads,
+           "paged_equals_dense": streams["paged"] == streams["dense"],
+           "streams_equal_generate": [g == w for g, w in
+                                      zip(streams["dense"], want)],
+           "first_divergence": [first_divergence(g, w) for g, w in
+                                zip(streams["dense"], want)],
+           "k1_launches": launches, "k1_launches_needed": steps}
+    if chunk and not all(row["streams_equal_generate"]):
+        truth = LazyTruth(torch, cfg, params)
+        row["near_ties"] = near_ties(
+            run, torch, generate, truth(), prompts, streams["dense"], want,
+            wide_decider(torch, batching, generate, cfg, params, chunk))
+        truth.free()
+    emit(row)
+    if not row["paged_equals_dense"] or (
+            not chunk and not all(row["streams_equal_generate"])):
+        fail(f"{run}: paged {streams['paged']} / dense "
+             f"{streams['dense']} / generate {want}")
+    for layout, need in steps.items():
+        got = launches[layout]
+        if need == 0 or got.get(rpa.NAME) != need or got.get(
+                kernel_support.engine_key(rpa.NAME, "tensor_cores")) != need:
+            fail(f"{run} {layout}: K1 launches {got}, want {need} "
+                 "on the tensor cores")
+    row["k1_launches_total"] = sum(x.get(rpa.NAME, 0)
+                                   for x in launches.values())
+    return row
+
+
+def wide_f32_paths(torch, llama, generate, kernel_support, cfg, label: str,
+                   params32) -> dict:
+    """A WIDE_F32_LAYERS-layer f32 copy through the kernels (the CUDA
+    cores) and through the plain path: phase 3's prefill and decode
+    logits (K1) and the full forward's (K2), each within LOGITS_BOUND."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 21)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 512)),
+                          device="cuda")
+    tokens: list[int] = []
+    runs, counts = {}, {}
+    for plain in (False, True):
+        kernel_support.reset_launch_counts()
+        serve, _ = _model_logits(torch, generate, params32, cfg, prompt,
+                                 tokens, plain)
+        full = llama.forward(params32, prompt, cfg, plain_attention=plain)
+        runs[plain] = (serve, full.float())
+        counts[plain] = kernel_support.launch_counts()
+        del full
+    (s_k, f_k), (s_p, f_p) = runs[False], runs[True]
+    row = {"phase": 9, "run": f"{label}_f32_paths",
+           "layers": cfg.n_layers, "bound": LOGITS_BOUND,
+           "serve_kernel_vs_plain": float((s_k - s_p).abs().max()),
+           "forward_kernel_vs_plain": float((f_k - f_p).abs().max()),
+           "launches_kernel_path": counts[False],
+           "launches_plain_path": counts[True]}
+    emit(row)
+    for key in ("serve_kernel_vs_plain", "forward_kernel_vs_plain"):
+        if not row[key] <= LOGITS_BOUND:
+            fail(f"{label} f32: {key} {row[key]:.3e} > {LOGITS_BOUND}")
+    need = {"ragged_paged_attention<cuda_cores>": cfg.n_layers * 10,
+            "flash_fwd<cuda_cores>": cfg.n_layers}
+    if any(counts[False].get(k) != n for k, n in need.items()) or any(
+            k.startswith(("ragged", "flash")) for k in counts[True]):
+        fail(f"{label} f32: kernel path {counts[False]} (want {need}), "
+             f"plain path {counts[True]}")
+    return row
+
+
+def wide_train(torch, kernel_support, train, cfg, label: str, steps: int,
+               params) -> dict:
+    """``steps`` steps of ``make_train_step`` with FusedAdamW and the fused
+    cross-entropy at B 1, S WIDE_TRAIN_SEQ, twice from the same params:
+    the losses must repeat bit for bit, every flash launch on the tensor
+    cores. ``params`` is consumed (the first run trains a copy)."""
+    cfg = dataclasses.replace(cfg, fused_ce=True)
+    batches = [train.synthetic_batch(cfg, 1, WIDE_TRAIN_SEQ,
+                                     seed=SEED + 22 + i, device="cuda")
+               for i in range(steps)]
+    runs = []
+    for i in range(2):
+        p = params if i == 1 else tree_to(params, "cuda")
+        opt = train.make_optimizer(warmup_steps=1, total_steps=steps,
+                                   impl="fused")
+        state = train.init_train_state(cfg, opt, params=p)
+        step = train.make_train_step(cfg, opt, with_accuracy=False)
+        kernel_support.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs.append({"losses": losses, "wall_s": time.perf_counter() - t0,
+                     "launches": kernel_support.launch_counts()})
+        del state, p, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    need = cfg.n_layers * steps
+    launches = runs[0]["launches"]
+    row = {"phase": 9, "run": f"{label}_train", "layers": cfg.n_layers,
+           "batch": 1, "seq": WIDE_TRAIN_SEQ, "steps": steps,
+           "losses": runs[0]["losses"], "wall_s": runs[0]["wall_s"],
+           "losses_repeat_bitwise": runs[0]["losses"] == runs[1]["losses"],
+           "launches": launches, "launches_needed": need}
+    emit(row)
+    if not row["losses_repeat_bitwise"] or not all(
+            math.isfinite(x) for x in row["losses"]):
+        fail(f"{label}_train: losses {runs[0]['losses']} then "
+             f"{runs[1]['losses']}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if launches.get(kernel_support.engine_key(name, "tensor_cores")) \
+                != need:
+            fail(f"{label}_train: {name} launches {launches}, want {need} "
+                 "on the tensor cores")
+    if not launches.get("fused_adamw") or not launches.get("ce_chunk_fwd"):
+        fail(f"{label}_train: the fused optimizer or cross-entropy did not "
+             f"run: {launches}")
+    return row
+
+
+def wide_gradients(torch, train, cfg, params, leaves: dict) -> dict:
+    """One batch's gradients of the named leaves (B 1, S WIDE_TRAIN_SEQ,
+    the kernels): each leaf's grad norm, and for a tied embedding the
+    largest grad of a row no input token looks up (only the head's role
+    reaches it)."""
+    batch = train.synthetic_batch(cfg, 1, WIDE_TRAIN_SEQ, seed=SEED + 23,
+                                  device="cuda")
+    grads, _ = train.grads_by(list(leaves.values()), lambda: params, batch,
+                              cfg, with_accuracy=False)
+    out = {name: float(g.float().norm()) for name, g in zip(leaves, grads)}
+    if "embed" in leaves:
+        used = torch.zeros(cfg.vocab_size, dtype=torch.bool, device="cuda")
+        used[batch["inputs"].flatten()] = True
+        g = grads[list(leaves).index("embed")]
+        out["embed_unused_rows_grad_abs_max"] = float(g[~used].abs().max())
+    return out
+
+
+def twin_steps(train, cfg, params, device) -> list:
+    """WIDE_TWIN_STEPS steps of ``make_train_step`` with FusedAdamW (its
+    plain version on the CPU, K5 on the card) on ``device``, a fresh
+    batch a step, from a copy of ``params``: the losses."""
+    opt = train.make_optimizer(warmup_steps=0, total_steps=WIDE_TWIN_STEPS,
+                               impl="fused")
+    state = train.init_train_state(cfg, opt, params=tree_to(params, device))
+    step = train.make_train_step(cfg, opt, with_accuracy=False)
+    losses = []
+    for i in range(WIDE_TWIN_STEPS):
+        batch = train.synthetic_batch(cfg, 1, WIDE_TWIN_SEQ,
+                                      seed=SEED + 24 + i, device=device)
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def wide_twin_start(torch, llama, train, preset, pool):
+    """The f32 twin of ``preset`` at WIDE_F32_LAYERS layers: its params
+    (drawn on the card), and its CPU share (the plain versions, about a
+    minute at Gemma's widths) submitted to ``pool``."""
+    cfg = dataclasses.replace(preset, n_layers=WIDE_F32_LAYERS,
+                              dtype=torch.float32)
+    params = tree_to(wide_init(torch, llama, cfg, "cuda"), "cpu")
+    t0 = time.perf_counter()
+
+    def cpu_share():
+        return twin_steps(train, cfg, params, "cpu"), time.perf_counter() - t0
+
+    return cfg, params, pool.submit(cpu_share)
+
+
+def wide_twin(torch, kernel_support, train, label: str, started) -> dict:
+    """The card's share of the f32 twin (the kernels on the CUDA cores,
+    K5), then the CPU's: every loss within WIDE_TWIN_RTOL."""
+    cfg, params, cpu_share = started
+    kernel_support.reset_launch_counts()
+    card = twin_steps(train, cfg, params, "cuda")
+    launches = kernel_support.launch_counts()
+    t0 = time.perf_counter()
+    cpu, cpu_s = cpu_share.result()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    row = {"phase": 9, "run": f"{label}_f32_twin", "steps": WIDE_TWIN_STEPS,
+           "seq": WIDE_TWIN_SEQ, "layers": cfg.n_layers,
+           "cuda_losses": card, "cpu_losses": cpu,
+           "cuda_launches": launches, "cpu_share_s": cpu_s,
+           "waited_s": time.perf_counter() - t0,
+           "loss_rel_err": rel, "rtol": WIDE_TWIN_RTOL}
+    emit(row)
+    need = cfg.n_layers * WIDE_TWIN_STEPS
+    if not rel <= WIDE_TWIN_RTOL or any(
+            launches.get(f"{n}<cuda_cores>") != need
+            for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")) or \
+            not launches.get("fused_adamw"):
+        fail(f"{label}_f32_twin: card {card} {launches} against CPU {cpu}")
+    return row
+
+
+def wide_init(torch, llama, cfg, device):
+    """Random params of ``cfg`` from SEED on ``device``, the q/k/v biases
+    drawn too (std 0.02: zeros would leave the bias path untested)."""
+    params = llama.init_params(cfg, seed=SEED, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    for leaf in ("bq", "bk", "bv"):
+        if leaf in params["layers"]:
+            x = params["layers"][leaf]
+            x.copy_(0.02 * torch.randn(x.shape, generator=gen, device=device))
+    return params
+
+
+def wide_round_trip(torch, convert, cfg, params) -> dict:
+    """params_to_hf then params_from_hf (the card) at the full widths:
+    every leaf back bit for bit; a materialized tied head (as HF's state
+    dict holds one) is consumed, and no lm_head leaf comes back."""
+    t0 = time.perf_counter()
+    sd = convert.params_to_hf(params, cfg)
+    to_s = time.perf_counter() - t0
+    if cfg.tied_embeddings:
+        sd["lm_head.weight"] = sd["model.embed_tokens.weight"]
+    t0 = time.perf_counter()
+    back = convert.params_from_hf(sd, cfg, device="cuda")
+    torch.cuda.synchronize()
+    from_s = time.perf_counter() - t0
+    hf_tensors, hf_bytes = len(sd), sum(x.numel() * 4 for x in sd.values())
+    del sd
+    unequal = [k for k in params if k != "layers"
+               and not torch.equal(back.get(k), params[k])]
+    unequal += [f"layers.{k}" for k in params["layers"]
+                if not torch.equal(back["layers"][k], params["layers"][k])]
+    row = {"hf_tensors": hf_tensors, "hf_bytes": hf_bytes,
+           "to_hf_s": to_s, "from_hf_s": from_s, "unequal_leaves": unequal,
+           "lm_head_leaf": "lm_head" in back}
+    del back
+    gc.collect()
+    torch.cuda.empty_cache()
+    if unequal or row["lm_head_leaf"] != (not cfg.tied_embeddings):
+        fail(f"HF round trip: {row}")
+    return row
+
+
+def phase_wide(torch, rpa, quant, fa, kernel_support, llama, generate,
+               batching, train, convert) -> dict:
+    """Phase 9: the hd-256 and group-7 kernel cases (phases 2 and 5's
+    checks), then Gemma-2B (18 layers) and Qwen2-7B (28 layers) at their
+    published widths, bf16, random weights from SEED: the HF round trip
+    (Gemma), serving through the batcher against ``generate``, the f32
+    paths at 2 layers, training bit for bit, the tied head's and the
+    biases' gradients, Gemma's f32 twin against the CPU. Frees what it
+    made."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    memory_before = torch.cuda.memory_allocated()
+    gemma = llama.LlamaConfig.gemma_2b()
+    # Gemma's weights, and their HF round trip
+    gemma_params = wide_init(torch, llama, gemma, "cuda")
+    round_trip = wide_round_trip(torch, convert, gemma, gemma_params)
+    cases = phase_kernels(torch, rpa, quant, kernel_support,
+                          cases=wide_kernel_cases(), phase=9)
+    flash = phase_flash(torch, fa, kernel_support, cases=wide_flash_cases(),
+                        phase=9)
+    # every timed case is done: the twin's CPU share runs beside the
+    # models' checks, which time nothing
+    pool = ThreadPoolExecutor(1)
+    twin = wide_twin_start(torch, llama, train, gemma, pool)
+    out = {"cases": cases, "flash": flash, "models": {}}
+    for label, preset, train_layers, steps in (
+            ("gemma_2b", gemma, None, GEMMA_TRAIN_STEPS),
+            ("qwen2_7b", llama.LlamaConfig.qwen2_7b(), QWEN_TRAIN_LAYERS,
+             QWEN_TRAIN_STEPS)):
+        t0 = time.perf_counter()
+        if preset is gemma:
+            params, gemma_params = gemma_params, None
+        else:
+            params = wide_init(torch, llama, preset, "cuda")
+        n_params = sum(x.numel() for x in train.param_leaves(params))
+        row = {"phase": 9, "run": label, "layers": preset.n_layers,
+               "params": n_params,
+               "param_bytes": sum(x.numel() * x.element_size()
+                                  for x in train.param_leaves(params)),
+               "head_dim": preset.head_dim,
+               "group": preset.n_heads // preset.n_kv_heads}
+        if preset is gemma:
+            row["hf_round_trip"] = round_trip
+        serve = wide_serve(torch, batching, generate, kernel_support, rpa,
+                           preset, params, label)
+        padded = wide_serve(torch, batching, generate, kernel_support, rpa,
+                            preset, params, label, chunk=WIDE_CHUNK)
+        small = dataclasses.replace(preset, n_layers=WIDE_F32_LAYERS)
+        cfg32 = dataclasses.replace(small, dtype=torch.float32)
+        params32 = widened(torch, {**params, "layers": {
+            k: v[:WIDE_F32_LAYERS] for k, v in params["layers"].items()}})
+        paths = wide_f32_paths(torch, llama, generate, kernel_support, cfg32,
+                               label, params32)
+        del params32
+        if train_layers is not None:  # train a cut of the full width
+            params = {**params, "layers": {
+                k: v[:train_layers].clone()
+                for k, v in params["layers"].items()}}
+            gc.collect()
+            torch.cuda.empty_cache()
+        tcfg = preset if train_layers is None else \
+            dataclasses.replace(preset, n_layers=train_layers)
+        grads = wide_gradients(
+            torch, train, tcfg, params,
+            {"embed": params["embed"]} if preset.tied_embeddings else
+            {f"layers.{b}": params["layers"][b] for b in ("bq", "bk", "bv")})
+        trained = wide_train(torch, kernel_support, train, tcfg, label, steps,
+                             params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        row.update(gradients=grads, wall_s=time.perf_counter() - t0)
+        if preset.tied_embeddings:
+            if not (row["gradients"]["embed"] > 0 and
+                    row["gradients"]["embed_unused_rows_grad_abs_max"] > 0):
+                fail(f"{label}: the tied head's gradient does not reach the "
+                     f"embedding leaf: {row['gradients']}")
+        elif not all(v > 0 for v in grads.values()):
+            fail(f"{label}: a bias gradient is zero: {grads}")
+        emit(row)
+        out["models"][label] = {**row, "serve": serve,
+                                "serve_chunk": padded, "f32_paths": paths,
+                                "train": trained}
+    out["models"]["gemma_2b"]["f32_twin"] = wide_twin(
+        torch, kernel_support, train, "gemma_2b", twin)
+    pool.shutdown()
+    del twin
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    memory = {"memory_allocated_before": memory_before,
+              "memory_allocated_after": torch.cuda.memory_allocated()}
+    emit({"phase": 9, "run": "wide", "wall_s": out["wall_s"], **memory})
+    return {**out, **memory}
+
+
 def kernel_entry(name, source, replaces, launches, errs, head, extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -8185,6 +8720,7 @@ def main() -> None:
     try:
         from k8s_gpu_device_plugin_torch.models import batching
         from k8s_gpu_device_plugin_torch.models import checkpoint as ckpt_mod
+        from k8s_gpu_device_plugin_torch.models import convert
         from k8s_gpu_device_plugin_torch.models import generate
         from k8s_gpu_device_plugin_torch.models import llama
         from k8s_gpu_device_plugin_torch.models import lora
@@ -8359,12 +8895,22 @@ def main() -> None:
     tiny = phase_tiny(torch, llama, generate, server_mod, kernel_support,
                       trainer_mod)
     tiny_k1 = tiny["serve"]["k1_launches"].get(rpa.NAME, 0)
+    # Gemma-2B (head dim 256) and Qwen2-7B (a group of 7) at their
+    # published widths: the kernel cases, the HF round trip, serving,
+    # training
+    wide = phase_wide(torch, rpa, quant, fa, kernel_support, llama, generate,
+                      batching, train, convert)
+    wide_k1 = sum(m[run]["k1_launches_total"]
+                  for m in wide["models"].values()
+                  for run in ("serve", "serve_chunk"))
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head = next(c for c in cases
                 if c["case"] == "decode" and c["dtype"] == "bfloat16")
-    err_bf16 = max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16")
-    err_f32 = max(c["max_abs_err"] for c in cases if c["dtype"] == "float32")
+    err_bf16 = max(c["max_abs_err"] for c in cases + wide["cases"]
+                   if c["dtype"] == "bfloat16")
+    err_f32 = max(c["max_abs_err"] for c in cases + wide["cases"]
+                  if c["dtype"] == "float32")
     routes = {}
     for route in rpa.ROUTES:  # each route's bf16 decode case heads its entry
         mine = [c for c in cases if c["route"] == route]
@@ -8418,7 +8964,7 @@ def main() -> None:
         + sum(beam[d]["k1_launches"] for d in ("bf16", "f32"))
         + sum(window["rolling"][d][f"k1_launches_{run}"]
               for d in ("bf16", "f32") for run in ("rolling", "unbounded"))
-        + ckpt["k1_launches"] + tiny_k1,
+        + ckpt["k1_launches"] + tiny_k1 + wide_k1,
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -8507,6 +9053,16 @@ def main() -> None:
              "cases": {f"{c['case']} {c['dtype']}": {
                  **{k: c[k] for k in keys}, "max_abs_err": c["max_abs_err"]}
                  for c in cases if c["hd"] in NARROW_HDS}},
+         # phase 9: Gemma-2B's (hd 256) and Qwen2-7B's (a group of 7)
+         # one-slot batchers, dense and paged, a chunk a prompt and at
+         # WIDE_CHUNK, and the phase's cases
+         "wide_head_dims": {
+             "serve_launches": {label: {run: m[run]["k1_launches"] for run in
+                                        ("serve", "serve_chunk")}
+                                for label, m in wide["models"].items()},
+             "cases": {f"{c['case']} {c['dtype']}": {
+                 **{k: c[k] for k in keys}, "max_abs_err": c["max_abs_err"],
+                 "plan": c["plan"]} for c in wide["cases"]}},
          "moe": {"launches": moe["summary"]["k1_launches"],
                  "decode_step_ms_mean": moe["summary"]["decode_step_ms_mean"],
                  "decode_graph_pool_bytes":
@@ -8560,7 +9116,8 @@ def main() -> None:
                "flash_bwd_dq": ("dq",)}
     replaces = {"flash_fwd": 164, "flash_bwd_dkv": 412, "flash_bwd_dq": 465}
     for name, outs in outputs.items():
-        errs = {f"max_err_{dn}": max(c["max_abs_err"][o] for c in flash
+        errs = {f"max_err_{dn}": max(c["max_abs_err"][o]
+                                     for c in flash + wide["flash"]
                                      for o in outs if c["dtype"] == dn)
                 for dn in ("bfloat16", "float32")}
         beam_k2 = sum(beam[d]["k2_launches"] for d in ("bf16", "f32"))
@@ -8572,11 +9129,14 @@ def main() -> None:
         tiny_flash = {"tiny_train": tiny["train"]["launches"].get(name, 0),
                       "tiny_f32_twin": tiny["twin"]["cuda_launches"].get(
                           name, 0)}
+        wide_flash = {label: m["train"]["launches"].get(name, 0)
+                      for label, m in wide["models"].items()}
         kernels.append(kernel_entry(
             name, "k8s_gpu_device_plugin_torch/ops/csrc/flash_attention.cu",
             f"k8s_gpu_device_plugin_tpu/ops/flash_attention.py:{replaces[name]}",
             training["launches"].get(name, 0) + served + fused_flash
-            + ckpt["flash_launches"][name] + sum(tiny_flash.values()), errs,
+            + ckpt["flash_launches"][name] + sum(tiny_flash.values())
+            + sum(wide_flash.values()), errs,
             {"ms": fhead["ms"][name], "plain_ms": fhead["plain_ms"][name],
              "bound_ms": fhead["bounds"][name]["bound_ms"],
              "bound_by": fhead["bounds"][name]["bound_by"],
@@ -8601,6 +9161,18 @@ def main() -> None:
              # phase 8: the tiny trainer's CLI run (hd 16, the tensor
              # cores) and its f32 twin on the card (the CUDA cores)
              "launches_tiny": tiny_flash,
+             # phase 9: Gemma-2B's 18 layers (hd 256) and Qwen2-7B's
+             # 2-layer cut (a group of 7) trained with FusedAdamW and the
+             # fused cross-entropy, and the phase's cases
+             "launches_wide": wide_flash,
+             "wide_cases": [{"case": c["case"], "dtype": c["dtype"],
+                             "ms": c["ms"][name],
+                             "plain_ms": c["plain_ms"][name],
+                             "library_ms": c["library_fwd_ms"]
+                             if name == "flash_fwd" else c["library_bwd_ms"],
+                             "max_abs_err": {o: c["max_abs_err"][o]
+                                             for o in outs},
+                             **c["bounds"][name]} for c in wide["flash"]],
              "launches_surface": surface["launches"]["flash_fwd"]
              if name == "flash_fwd" else 0,
              # the embedding through the replica router and direct

@@ -20,9 +20,20 @@ Quantized leaves keep their own dtypes: the reference's weight-only
 int8/int4 caches. ``jnp.int4`` arrives as an ml_dtypes int4 array; it is
 widened to int8 and packed two codes per byte (``ops/quant.py``), the
 port's storage of int4 codes.
+
+HuggingFace checkpoints (port of the reference's HF import): a
+``LlamaForCausalLM``-layout state dict (Llama, Mistral, Qwen2, Gemma)
+converts through :func:`config_from_hf` and :func:`params_from_hf`, and
+back through :func:`params_to_hf`. torch ``Linear.weight`` is (out, in),
+so every projection is transposed; per-layer tensors stack on the
+leading layer axis. The HF config is read by attribute, so an in-memory
+``transformers`` config or any object with the same attributes serves;
+this module never imports ``transformers``, and nothing is downloaded.
 """
 
 from __future__ import annotations
+
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -242,3 +253,225 @@ def kv_cache_from_jax(np_cache: dict, cfg: LlamaConfig,
         v_scale=None if scales[1] is None else _tensor(scales[1],
                                                         torch.float32, dev),
     )
+
+
+# --- HuggingFace checkpoints --------------------------------------------------
+
+
+def config_from_hf(hf_config: Any,
+                   dtype: torch.dtype = torch.bfloat16) -> LlamaConfig:
+    """Map an HF Llama / Mistral / Qwen2 / Gemma config onto
+    :class:`LlamaConfig`. Refuses what the port would compute wrongly:
+    ``rope_scaling`` (the port computes plain rotary frequencies from
+    ``rope_theta``), an activation other than silu or tanh-gelu, and a
+    layer-partial Qwen2 window (:func:`_window_from_hf`)."""
+    model_type = getattr(hf_config, "model_type", "llama")
+    # tied embeddings for any family (head_weights serves embed.T);
+    # params_from_hf checks that the materialized head equals the table
+    tied = bool(getattr(hf_config, "tie_word_embeddings", False))
+    scaling = getattr(hf_config, "rope_scaling", None)
+    if scaling:
+        raise NotImplementedError(
+            f"rope_scaling {scaling!r} not supported: this stack computes "
+            "plain rotary frequencies from rope_theta"
+        )
+    act = (getattr(hf_config, "hidden_activation", None)
+           or getattr(hf_config, "hidden_act", "silu"))
+    if act in ("silu", "swish"):
+        our_act = "silu"
+    elif act in ("gelu_pytorch_tanh", "gelu_tanh"):
+        our_act = "gelu_tanh"
+    else:
+        raise NotImplementedError(
+            f"hidden_act {act!r} not supported (silu or tanh-gelu only)"
+        )
+    # Qwen2: the Llama layout plus q/k/v biases. HF Llama's attention_bias
+    # also biases o_proj, which the port has no leaf for: params_from_hf
+    # refuses it as an unconsumed tensor.
+    attn_bias = model_type == "qwen2" or bool(
+        getattr(hf_config, "attention_bias", False))
+    gemma = model_type == "gemma"
+    hd = int(getattr(hf_config, "head_dim", 0) or 0)
+    default_hd = hf_config.hidden_size // hf_config.num_attention_heads
+    return LlamaConfig(
+        vocab_size=hf_config.vocab_size,
+        d_model=hf_config.hidden_size,
+        n_layers=hf_config.num_hidden_layers,
+        n_heads=hf_config.num_attention_heads,
+        n_kv_heads=hf_config.num_key_value_heads,
+        d_ff=hf_config.intermediate_size,
+        rope_theta=float(hf_config.rope_theta),
+        norm_eps=float(hf_config.rms_norm_eps),
+        max_seq=int(getattr(hf_config, "max_position_embeddings", 8192)),
+        # a Mistral checkpoint was trained windowed: keep its window
+        sliding_window=_window_from_hf(hf_config),
+        attn_bias=attn_bias,
+        # Gemma: GeGLU, (1 + w) norms, tied head, sqrt(d)-scaled
+        # embeddings and an explicit head dim
+        act=our_act,
+        norm_offset=gemma,
+        tied_embeddings=tied,
+        scale_embed=gemma,
+        head_dim_override=hd if hd and hd != default_hd else 0,
+        dtype=dtype,
+    )
+
+
+def _window_from_hf(hf_config: Any) -> int:
+    """The sliding window, with Qwen2's gating: its checkpoints ship
+    ``sliding_window`` but apply it only with ``use_sliding_window``, and
+    then only to layers at or past ``max_window_layers``. So a
+    ``max_window_layers`` of at least the depth windows no layer, 0 every
+    layer, and anything between is layer-partial, which one window for
+    every layer cannot express: refused."""
+    window = int(getattr(hf_config, "sliding_window", None) or 0)
+    if not getattr(hf_config, "use_sliding_window", True):
+        return 0
+    mwl = getattr(hf_config, "max_window_layers", None)
+    if window and mwl is not None:
+        if mwl >= hf_config.num_hidden_layers:
+            return 0
+        if mwl > 0:
+            raise NotImplementedError(
+                f"layer-partial sliding window (layers >= "
+                f"max_window_layers={mwl} of {hf_config.num_hidden_layers} "
+                "windowed) not supported: this stack applies one window to "
+                "every layer"
+            )
+    return window
+
+
+#: per-layer tensors, both directions: ours -> (HF name suffix, transpose?)
+_LAYER_MAP = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+    "w1": ("mlp.gate_proj.weight", True),
+    "w3": ("mlp.up_proj.weight", True),
+    "w2": ("mlp.down_proj.weight", True),
+}
+
+#: Qwen2's q/k/v biases, taken only when ``cfg.attn_bias``
+_BIAS_MAP = {
+    "bq": ("self_attn.q_proj.bias", False),
+    "bk": ("self_attn.k_proj.bias", False),
+    "bv": ("self_attn.v_proj.bias", False),
+}
+
+
+def _layer_map(cfg: LlamaConfig) -> dict:
+    return {**_LAYER_MAP, **_BIAS_MAP} if cfg.attn_bias else _LAYER_MAP
+
+
+def _hf_f32(t, device: torch.device) -> torch.Tensor:
+    """A checkpoint tensor (torch or numpy) in f32 on ``device``."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.asarray(t, np.float32)).to(device)
+
+
+def params_from_hf(state_dict: Mapping[str, Any], cfg: LlamaConfig,
+                   device: "str | torch.device | None" = "cuda") -> dict:
+    """An HF ``LlamaForCausalLM``-layout state dict (torch tensors or
+    numpy arrays) -> the port's params on ``device`` in ``cfg.p_dtype``
+    (each tensor read in f32, transposed and stacked on ``device``, then
+    rounded once). Raises KeyError on a missing weight and ValueError on
+    a shape that does not match ``cfg``, a tied head that differs from
+    the embedding, or a tensor left unconsumed (Llama's ``o_proj`` bias,
+    for one)."""
+    dev = resolve_device(device)
+    sd = dict(state_dict)
+
+    def take(name: str, transpose: bool = False) -> torch.Tensor:
+        w = _hf_f32(sd.pop(name), dev)
+        return w.T if transpose else w
+
+    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+        return torch.stack([take(fmt.format(i), transpose).to(cfg.p_dtype)
+                            for i in range(cfg.n_layers)])
+
+    embed = take("model.embed_tokens.weight")
+    params = {
+        "embed": embed.to(cfg.p_dtype),
+        "layers": {
+            ours: stack("model.layers.{}." + suffix, transpose)
+            for ours, (suffix, transpose) in _layer_map(cfg).items()
+        },
+        "final_norm": take("model.norm.weight").to(cfg.p_dtype),
+    }
+    if cfg.tied_embeddings:
+        # the state dict materializes the tied head: consume it, and refuse
+        # a "tied" head that diverged from the table (an untied fine-tune)
+        head = sd.pop("lm_head.weight", None)
+        if head is not None and not torch.equal(_hf_f32(head, dev), embed):
+            raise ValueError(
+                "config claims tied embeddings but lm_head.weight differs "
+                "from embed_tokens.weight: convert as untied instead"
+            )
+    else:
+        params["lm_head"] = take("lm_head.weight", True).to(cfg.p_dtype)
+    del embed
+    expected = {"embed": (cfg.vocab_size, cfg.d_model)}
+    if not cfg.tied_embeddings:
+        expected["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    for name, shape in expected.items():
+        if tuple(params[name].shape) != shape:
+            raise ValueError(
+                f"{name}: checkpoint shape {tuple(params[name].shape)} != "
+                f"config shape {shape}"
+            )
+    want = (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.head_dim)
+    if tuple(params["layers"]["wq"].shape) != want:
+        raise ValueError(
+            f"wq: checkpoint shape {tuple(params['layers']['wq'].shape)} "
+            f"incompatible with config {cfg}"
+        )
+    # rotary_emb.inv_freq buffers are derived, not parameters
+    leftover = [k for k in sd if "rotary_emb" not in k]
+    if leftover:
+        raise ValueError(f"unconsumed checkpoint tensors: {leftover[:5]}")
+    return params
+
+
+def params_to_hf(params: dict, cfg: LlamaConfig) -> dict:
+    """The port's params -> an HF ``LlamaForCausalLM``-layout state dict
+    of contiguous f32 CPU tensors (``load_state_dict`` takes it as it is;
+    transposes made contiguous, as serializers need). The inverse of
+    :func:`params_from_hf`. Refuses a MoE tree, a weight-quantized leaf
+    and a tree whose depth is not ``cfg.n_layers``."""
+    if "router" in params["layers"]:
+        raise NotImplementedError(
+            "MoE pytrees have no LlamaForCausalLM equivalent"
+        )
+
+    def f32(x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+        x = x.detach().float()  # transposed on x's device: one copy out
+        return (x.T if transpose else x).contiguous().cpu()
+
+    leaves = [params["embed"], params["final_norm"], params.get("lm_head"),
+              *params["layers"].values()]
+    if any(isinstance(x, dict) for x in leaves):
+        raise NotImplementedError(
+            "weight-quantized leaves have no LlamaForCausalLM equivalent"
+        )
+
+    sd = {
+        "model.embed_tokens.weight": f32(params["embed"]),
+        "model.norm.weight": f32(params["final_norm"]),
+    }
+    if "lm_head" in params:
+        sd["lm_head.weight"] = f32(params["lm_head"], True)
+    for ours, (theirs, transpose) in _layer_map(cfg).items():
+        stacked = params["layers"][ours]
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(
+                f"{ours}: params have {stacked.shape[0]} stacked layers but "
+                f"the config says n_layers={cfg.n_layers}: a mismatched "
+                "config would silently truncate the exported checkpoint"
+            )
+        for i in range(cfg.n_layers):
+            sd[f"model.layers.{i}.{theirs}"] = f32(stacked[i], transpose)
+    return sd

@@ -206,6 +206,23 @@ class LlamaConfig:
         )
 
     @staticmethod
+    def gemma_2b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=256000, d_model=2048, n_layers=18, n_heads=8,
+            n_kv_heads=1, d_ff=16384, rope_theta=10000.0, max_seq=8192,
+            norm_eps=1e-6, act="gelu_tanh", norm_offset=True,
+            tied_embeddings=True, scale_embed=True, head_dim_override=256,
+        )
+
+    @staticmethod
+    def qwen2_7b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=152064, d_model=3584, n_layers=28, n_heads=28,
+            n_kv_heads=4, d_ff=18944, rope_theta=1e6, max_seq=32768,
+            attn_bias=True,
+        )
+
+    @staticmethod
     def mistral_7b() -> "LlamaConfig":
         return LlamaConfig(
             vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,

@@ -43,9 +43,11 @@
 // thread arrives on the stage's empty barrier when its products have read
 // it.
 //
-// Narrow head dims. HD is the tile's width, 64 or 128; a head dim of 16 or
+// Head dims. HD is the tile's width, 64, 128 or 256; a head dim of 16 or
 // 32 runs in the 64-column instantiation with the live head dim passed at
-// run time. Its tiles hold the live columns and zeros past them: the TMA
+// run time. At 256 a 64-row tile is 32 KB: the kernels keep fewer stages
+// (and K3 splits dK and dV's columns between its consumers, dkv_step's
+// OUT) to stay within the SM's 227 KB and a thread's registers. Its tiles hold the live columns and zeros past them: the TMA
 // boxes stay 64 columns wide over a tensor map whose rows are hd wide, so
 // the copy engine fills columns hd .. 63 with zeros and reads only the live
 // bytes; load_rows and K1's producer write the zeros themselves. A zero
@@ -133,6 +135,12 @@ __device__ __forceinline__ void fence_async_shared() {
 // a barrier over the 128 threads of one consumer warpgroup (ids 1..)
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWarpgroup) : "memory");
+}
+
+// a barrier over the first N threads of the block (whole warpgroups)
+template <int N>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
 }
 
 // `bytes` contiguous bytes (16-byte aligned, a multiple of 16) from global
@@ -583,15 +591,17 @@ __device__ __forceinline__ void dq_step(float (&dq)[HD / 64][32],
 // position = column and k position = row; p^T and dS^T as in dq_step from
 // each column's lse and delta (`rows`: the stage's 64 lse, then its 64
 // delta, f32); dV += bf16(p^T) dO and dK += bf16(dS^T) Q, dO and Q read
-// MN-major. keep(h, q_pos) for row Acc::row(2 h).
-template <int HD, class Keep>
-__device__ __forceinline__ void dkv_step(float (&dk)[HD / 64][32],
-                                         float (&dv)[HD / 64][32],
+// MN-major. keep(h, q_pos) for row Acc::row(2 h). dk and dv hold OUT of
+// the hd columns, from column out_col (a multiple of 64): all of them by
+// default, one half at hd 256 (two warpgroups sharing a kv tile).
+template <int HD, int OUT = HD, class Keep>
+__device__ __forceinline__ void dkv_step(float (&dk)[OUT / 64][32],
+                                         float (&dv)[OUT / 64][32],
                                          uint32_t k_tile, uint32_t v_tile,
                                          uint32_t q_tile, uint32_t do_tile,
                                          uint32_t rows, float scale_log2,
                                          float scale, int q0, bool masked,
-                                         Keep keep) {
+                                         Keep keep, int out_col = 0) {
   float st[32], dpt[32];
   fence_regs(st);
   fence_regs(dpt);
@@ -620,18 +630,19 @@ __device__ __forceinline__ void dkv_step(float (&dk)[HD / 64][32],
   uint32_t pa[4][4], dsa[4][4];
   pack_a(st, pa);
   pack_a(dpt, dsa);
+  const uint32_t out_off = (out_col / 64) * 8192;  // its 64-column sub-tile
 #pragma unroll
-  for (int nb = 0; nb < HD / 64; ++nb) {
+  for (int nb = 0; nb < OUT / 64; ++nb) {
     fence_regs(dk[nb]);
     fence_regs(dv[nb]);
   }
   wgmma_fence();
-  rs_product<HD>(dv, pa, do_tile);
-  rs_product<HD>(dk, dsa, q_tile);
+  rs_product<OUT>(dv, pa, do_tile + out_off);
+  rs_product<OUT>(dk, dsa, q_tile + out_off);
   wgmma_commit();
   wgmma_wait0();
 #pragma unroll
-  for (int nb = 0; nb < HD / 64; ++nb) {
+  for (int nb = 0; nb < OUT / 64; ++nb) {
     fence_regs(dk[nb]);
     fence_regs(dv[nb]);
   }

@@ -65,8 +65,29 @@
 // summation order, so results are deterministic.
 //
 // Types: f32 or bf16 q/k/v/dO (one type per call), hd in {16, 32, 64,
-// 128}, S a multiple of 64. All arithmetic is f32 but the tensor-core
+// 128, 256}, S a multiple of 64. All arithmetic is f32 but the tensor-core
 // products (bf16 operands, f32 accumulation).
+//
+// Head dim 256 (Gemma). A 64 x 256 bf16 tile is 32 KB and an f32 one
+// 65 KB, against the 227 KB a block may hold, and a consumer thread's
+// 64 x 256 accumulator is 128 f32 registers. So the HD = 256
+// instantiations keep fewer tiles:
+// - K2 (tensor cores): two ring stages instead of three (197,664 B), and
+//   a producer warpgroup that gives its registers to the consumers;
+// - K4 (tensor cores): one consumer warpgroup, two stages (197,664 B), its
+//   dQ accumulator 128 f32 under the block's 255 registers a thread;
+// - K3 (tensor cores): flash_bwd_dkv_tc_halves_kernel, one kv tile a
+//   block, whose two consumer warpgroups share the tile's K and V and
+//   each keep one half of dK's and dV's columns (128 f32 a thread, as at
+//   hd 128): both compute S^T and dP^T over the whole hd, so a stage costs
+//   six 64 x 64 x 256 products where one warpgroup owning all columns
+//   would cost four (it would need 256 accumulator registers a thread and
+//   about 330 KB); two stages (198,688 B);
+// - K3 and K4 (CUDA cores): K and V, or Q and dO, take turns in one
+//   buffer (kLean below: 217,088 B where four tiles would need 266,240 and
+//   six 301,056), reloading a tile where the full kernel keeps it.
+// Each sums in the same order as the wider layout would, and no engine is
+// dropped at 256: the f32 checks need the CUDA cores.
 //
 // Narrow head dims. Both engines are built on 64-column blocks of the head
 // dim, so hd 16 and 32 run in the HD = 64 instantiation with the live hd
@@ -349,13 +370,28 @@ constexpr int kTcConsumers = 2;  // 64-row q tiles (consumer warpgroups) a block
 constexpr int kTcStages = 3;     // K/V tiles in flight
 constexpr int kTcThreads = kTcConsumers * attn_tile::kWarpgroup + 32;
 
+// K/V tiles in flight: three stages of 64 x 256 would take 263,216 B
+template <int HD>
+__host__ __device__ constexpr int fwd_stages() { return HD == 256 ? 2 : kTcStages; }
+
+// At hd 256 a consumer thread holds 128 f32 of O, 32 of S and P's bf16
+// fragments: the 168 registers a thread of a three-warpgroup block gets
+// spill them, so the block takes a whole producer warpgroup, which hands
+// its registers to the consumers (setmaxnreg) and keeps one warp.
+template <int HD>
+__host__ __device__ constexpr int fwd_threads() {
+  return HD == 256 ? (kTcConsumers + 1) * attn_tile::kWarpgroup : kTcThreads;
+}
+constexpr int kFwdProducerRegs = 24;
+constexpr int kFwdConsumerRegs = 240;  // (65536 - 128 * 24) / 256, a multiple of 8
+
 // One block: q tiles 2 qb and 2 qb + 1 of row bh = blockIdx.y, the
 // heaviest blocks (most live kv tiles) launched first. Warps 0..7 are the
 // two consumer warpgroups; warp 8 is the producer, one lane of which
 // issues the TMA boxes of each kv tile of the block's span (the union of
 // the two q tiles' spans; each consumer computes only its own).
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads, 1)
+__global__ void __launch_bounds__(fwd_threads<HD>(), 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __nv_bfloat16* __restrict__ q,
@@ -363,7 +399,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                     int group, int s_len, int hd, float scale, int causal,
                     int window) {
   using namespace attn_tile;
-  using RingT = Ring<HD, kTcStages>;
+  using RingT = Ring<HD, fwd_stages<HD>()>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_tiles = (smem_u32(smem_raw) + 1023) & ~1023u;
   const RingT ring = RingT::at(q_tiles + kTcConsumers * tile_bytes<HD>());
@@ -391,6 +427,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   if (threadIdx.x == 0) ring.init(1, kTcConsumers * kWarpgroup);
   __syncthreads();
   const int wg = threadIdx.x / kWarpgroup;
+  if constexpr (fwd_threads<HD>() != kTcThreads) {  // a producer warpgroup
+    if (wg == kTcConsumers) {
+      set_max_regs_dec<kFwdProducerRegs>();
+      if (threadIdx.x >= kTcConsumers * kWarpgroup + 32) return;  // one warp works
+    } else {
+      set_max_regs_inc<kFwdConsumerRegs>();
+    }
+  }
   if (wg == kTcConsumers) {  // the producer warp
     if (threadIdx.x % 32 == 0) {
       const int kvh = bh / group;
@@ -426,8 +470,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   };
   const int q_row[2] = {q0 + Acc<HD>::row(0), q0 + Acc<HD>::row(2)};
   auto kept = [&](int h, int pos) { return keep(q_row[h], pos, true, window); };
-  consume<HD, kTcStages>(acc, ring, q_tile, scale * kLog2e, lo, hi,
-                         mine_lo[wg], mine_hi[wg], masked, kept);
+  consume<HD, fwd_stages<HD>()>(acc, ring, q_tile, scale * kLog2e, lo, hi,
+                                mine_lo[wg], mine_hi[wg], masked, kept);
   if (!live) return;
 
   float inv[2];
@@ -456,10 +500,17 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
 
 // --- backward, dK and dV (K3) -------------------------------------------------
 
+// The CUDA-core backward at hd 256: its tiles do not all fit a block, so
+// two of them share one buffer, loaded in turn
+template <int HD>
+constexpr bool kLean = HD == 256;
+
 template <int HD>
 constexpr size_t dkv_smem() {
-  // k, v (resident), q, dO (per q tile), p^T and dS^T (64 x 64 each)
-  return sizeof(float) * (4 * tile_floats<HD>() + 2 * kTile * kPStride);
+  // k, v (resident), q, dO (per q tile; lean: one buffer for both), p^T and
+  // dS^T (64 x 64 each; lean: one buffer for both)
+  return kLean<HD> ? sizeof(float) * (3 * tile_floats<HD>() + kTile * kPStride)
+                   : sizeof(float) * (4 * tile_floats<HD>() + 2 * kTile * kPStride);
 }
 
 template <int HD>
@@ -476,9 +527,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ks = smem;
   float* vs = ks + tile_floats<HD>();
   float* qs = vs + tile_floats<HD>();
-  float* dos = qs + tile_floats<HD>();
+  // lean: dO's tile is q's buffer, dS^T p^T's
+  float* dos = kLean<HD> ? qs : qs + tile_floats<HD>();
   float* pt = dos + tile_floats<HD>();   // p^T   [kv row][q row]
-  float* dst = pt + kTile * kPStride;    // dS^T  [kv row][q row]
+  float* dst = kLean<HD> ? pt : pt + kTile * kPStride;  // dS^T  [kv row][q row]
 
   const int n_tiles = s_len / kTile;
   const int kt = blockIdx.x;  // low kv tiles have the most live q tiles
@@ -508,12 +560,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();  // the previous q tile's products are done
       const size_t q_off = (size_t(bh) * s_len + it * kTile) * hd;
       load_tile<HD>(q + q_off, qs, hd);
-      load_tile<HD>(dout + q_off, dos, hd);
+      if constexpr (!kLean<HD>) load_tile<HD>(dout + q_off, dos, hd);
       __syncthreads();
 
       float s[4][4];   // s^T[kv row][q col]
       float dp[4][4];  // (dO v^T)^T
       dot_tile<HD>(ks, qs, ty, tx, s);
+      if constexpr (kLean<HD>) {  // dO takes q's buffer
+        __syncthreads();
+        load_tile<HD>(dout + q_off, dos, hd);
+        __syncthreads();
+      }
       dot_tile<HD>(vs, dos, ty, tx, dp);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -528,11 +585,24 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float sc = kept ? s[i][jj] * scale : kNegBig;
           const float p = expf(sc - lse_c);
           pt[r * kPStride + c] = p;
-          dst[r * kPStride + c] = p * (dp[i][jj] - delta_c) * scale;
+          dp[i][jj] = p * (dp[i][jj] - delta_c) * scale;  // dS^T
+          if constexpr (!kLean<HD>) dst[r * kPStride + c] = dp[i][jj];
         }
       }
       __syncthreads();
       pv_tile<HD>(pt, dos, ty, tx, dv_acc);
+      if constexpr (kLean<HD>) {  // dS^T takes p^T's buffer, q dO's
+        __syncthreads();
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dst[(ty + 16 * i) * kPStride + tx + 16 * jj] = dp[i][jj];
+          }
+        }
+        load_tile<HD>(q + q_off, qs, hd);
+        __syncthreads();
+      }
       pv_tile<HD>(dst, qs, ty, tx, dk_acc);
     }
   }
@@ -554,7 +624,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 constexpr size_t dq_smem() {
-  return sizeof(float) * 4 * tile_floats<HD>();  // q, dO, k, v (then dS)
+  // q, dO, k, v (then dS); lean: q, dO, k then v then k again, dS
+  return kLean<HD> ? sizeof(float) * (3 * tile_floats<HD>() + kTile * kPStride)
+                   : sizeof(float) * 4 * tile_floats<HD>();
 }
 
 template <int HD>
@@ -571,7 +643,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* qs = smem;
   float* dos = qs + tile_floats<HD>();
   float* ks = dos + tile_floats<HD>();
-  float* vs = ks + tile_floats<HD>();  // v tile, then the tile's dS
+  // v tile, then the tile's dS; lean: v takes k's buffer, dS one of its own
+  float* vs = kLean<HD> ? ks : ks + tile_floats<HD>();
+  float* dss = kLean<HD> ? ks + tile_floats<HD>() : vs;
 
   const int n_tiles = s_len / kTile;
   const int qt = n_tiles - 1 - blockIdx.x;  // most kv tiles first
@@ -600,12 +674,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous tile's dS and k are consumed
     const size_t kv_off = (size_t(kvh) * s_len + j * kTile) * hd;
     load_tile<HD>(k + kv_off, ks, hd);
-    load_tile<HD>(v + kv_off, vs, hd);
+    if constexpr (!kLean<HD>) load_tile<HD>(v + kv_off, vs, hd);
     __syncthreads();
 
     float s[4][4];
     float dp[4][4];
     dot_tile<HD>(qs, ks, ty, tx, s);
+    if constexpr (kLean<HD>) {  // v takes k's buffer
+      __syncthreads();
+      load_tile<HD>(v + kv_off, vs, hd);
+      __syncthreads();
+    }
     dot_tile<HD>(dos, vs, ty, tx, dp);
     __syncthreads();  // every thread is done with v: dS takes its place
 #pragma unroll
@@ -617,11 +696,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const bool kept = keep(qt * kTile + r, j * kTile + c, causal != 0, window);
         const float sc = kept ? s[i][jj] * scale : kNegBig;
         const float p = expf(sc - lse_r[i]);
-        vs[r * kPStride + c] = p * (dp[i][jj] - delta_r[i]) * scale;
+        dss[r * kPStride + c] = p * (dp[i][jj] - delta_r[i]) * scale;
       }
     }
+    if constexpr (kLean<HD>) load_tile<HD>(k + kv_off, ks, hd);  // k again
     __syncthreads();
-    pv_tile<HD>(vs, ks, ty, tx, acc);
+    pv_tile<HD>(dss, ks, ty, tx, acc);
   }
 
 #pragma unroll
@@ -651,14 +731,24 @@ constexpr int kBwdConsumerRegs = 240;  // (65536 - 128 * 24) / 256, a multiple o
 constexpr int kBwdStages = 3;     // (K, V) or (Q, dO) tiles in flight
 constexpr int kDkvRowBytes = 2 * kTile * 4;  // a q tile's lse, then its delta
 
-// One block: q tiles 2 qb and 2 qb + 1 of row bh = blockIdx.y, the
-// heaviest blocks first, as the forward's. Warpgroups 0 and 1 are the
-// consumers, each with its q tile and dO tile resident; warpgroup 2 the
-// producer, which issues the TMA boxes of the K and V tiles of the
-// block's span (the union of the two q tiles' spans; each consumer
-// computes only its own).
+// At hd 256 both backward kernels keep two stages, and K4 one consumer
+// warpgroup (two would need about 328 KB); its block of two warpgroups
+// leaves a thread 255 registers, so it sets no register budget.
 template <int HD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__host__ __device__ constexpr int bwd_stages() { return HD == 256 ? 2 : kBwdStages; }
+template <int HD>
+__host__ __device__ constexpr int dq_consumers() { return HD == 256 ? 1 : kBwdConsumers; }
+template <int HD>
+__host__ __device__ constexpr int dq_threads() { return (dq_consumers<HD>() + 1) * attn_tile::kWarpgroup; }
+
+// One block: q tiles 2 qb and 2 qb + 1 of row bh = blockIdx.y (at hd 256
+// q tile qb alone), the heaviest blocks first, as the forward's. Warpgroups
+// 0 and 1 are the consumers, each with its q tile and dO tile resident; the
+// last warpgroup the producer, which issues the TMA boxes of the K and V
+// tiles of the block's span (the union of the q tiles' spans; each
+// consumer computes only its own).
+template <int HD>
+__global__ void __launch_bounds__(dq_threads<HD>(), 1)
 flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __nv_bfloat16* __restrict__ q,
@@ -668,18 +758,19 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                        float* __restrict__ dq, int group, int s_len, int hd,
                        float scale, int causal, int window) {
   using namespace attn_tile;
-  using RingT = Ring<HD, kBwdStages>;
+  constexpr int kC = dq_consumers<HD>();
+  using RingT = Ring<HD, bwd_stages<HD>()>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t resident = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const RingT ring = RingT::at(resident + 2 * kBwdConsumers * tile_bytes<HD>());
+  const RingT ring = RingT::at(resident + 2 * kC * tile_bytes<HD>());
 
   const int n_tiles = s_len / kTile;
-  const int qb = (n_tiles + kBwdConsumers - 1) / kBwdConsumers - 1 - blockIdx.x;
+  const int qb = (n_tiles + kC - 1) / kC - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   int lo = n_tiles, hi = -1;  // the kv tiles some q tile of the block sees
 #pragma unroll
-  for (int w = 0; w < kBwdConsumers; ++w) {
-    const int qt = kBwdConsumers * qb + w;
+  for (int w = 0; w < kC; ++w) {
+    const int qt = kC * qb + w;
     if (qt >= n_tiles) continue;
     int a, b;
     kv_span(qt, n_tiles, causal != 0, window, &a, &b);
@@ -687,11 +778,11 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
     hi = max(hi, b);
   }
 
-  if (threadIdx.x == 0) ring.init(1, kBwdConsumers * kWarpgroup);
+  if (threadIdx.x == 0) ring.init(1, kC * kWarpgroup);
   __syncthreads();
   const int wg = threadIdx.x / kWarpgroup;
-  if (wg == kBwdConsumers) {  // the producer warpgroup: K and V tiles
-    set_max_regs_dec<kBwdProducerRegs>();
+  if (wg == kC) {  // the producer warpgroup: K and V tiles
+    if constexpr (kC > 1) set_max_regs_dec<kBwdProducerRegs>();
     if (threadIdx.x % kWarpgroup == 0) {
       for (int j = lo, n = 0; j <= hi; ++j, ++n) {
         const int s = ring.acquire(n);
@@ -707,9 +798,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
     return;
   }
-  set_max_regs_inc<kBwdConsumerRegs>();
+  if constexpr (kC > 1) set_max_regs_inc<kBwdConsumerRegs>();
 
-  const int qt = kBwdConsumers * qb + wg;
+  const int qt = kC * qb + wg;
   const int q0 = qt * kTile;
   const bool live = qt < n_tiles;
   int mine_lo = 0, mine_hi = -1;
@@ -765,6 +856,37 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
+// K3's producer (one thread): for each q head of the group in turn and q
+// tiles lo .. lo + n_q - 1, the Q and dO tiles (TMA boxes from 3-D tensor
+// maps over (B*Hq, S, hd)) and the tile's 64 lse and 64 delta (bulk
+// copies) into the ring's next stage.
+template <int HD, class RingT>
+__device__ __forceinline__ void dkv_produce(const RingT& ring, const void* tm_q,
+                                            const void* tm_do,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            int bhkv, int group, int lo, int n_q,
+                                            int s_len) {
+  using namespace attn_tile;
+  for (int n = 0; n < group * n_q; ++n) {
+    const int bh = bhkv * group + n / n_q;
+    const int it = lo + n % n_q;
+    const int s = ring.acquire(n);
+    mbar_expect_tx(ring.full(s), 2 * tile_bytes<HD>() + kDkvRowBytes);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_3d(ring.tile(s, 0) + c * 8192, tm_q, 64 * c, it * kTile, bh,
+                  ring.full(s));
+      tma_load_3d(ring.tile(s, 1) + c * 8192, tm_do, 64 * c, it * kTile, bh,
+                  ring.full(s));
+    }
+    const size_t row = size_t(bh) * s_len + it * kTile;
+    bulk_load(ring.rows(s), lse + row, kDkvRowBytes / 2, ring.full(s));
+    bulk_load(ring.rows(s) + kDkvRowBytes / 2, delta + row, kDkvRowBytes / 2,
+              ring.full(s));
+  }
+}
+
 // One block: kv tiles 2 kb and 2 kb + 1 of kv row bhkv = blockIdx.y, the
 // heaviest (lowest, under the causal mask) first. Warpgroups 0 and 1 are
 // the consumers, each with its kv tile's K and V resident; warpgroup 2 the
@@ -812,23 +934,8 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == kBwdConsumers) {  // the producer warpgroup
     set_max_regs_dec<kBwdProducerRegs>();
     if (threadIdx.x % kWarpgroup == 0) {
-      for (int n = 0; n < group * n_q; ++n) {
-        const int bh = bhkv * group + n / n_q;
-        const int it = lo + n % n_q;
-        const int s = ring.acquire(n);
-        mbar_expect_tx(ring.full(s), 2 * tile_bytes<HD>() + kDkvRowBytes);
-#pragma unroll
-        for (int c = 0; c < HD / 64; ++c) {
-          tma_load_3d(ring.tile(s, 0) + c * 8192, &tm_q, 64 * c, it * kTile, bh,
-                      ring.full(s));
-          tma_load_3d(ring.tile(s, 1) + c * 8192, &tm_do, 64 * c, it * kTile, bh,
-                      ring.full(s));
-        }
-        const size_t row = size_t(bh) * s_len + it * kTile;
-        bulk_load(ring.rows(s), lse + row, kDkvRowBytes / 2, ring.full(s));
-        bulk_load(ring.rows(s) + kDkvRowBytes / 2, delta + row,
-                  kDkvRowBytes / 2, ring.full(s));
-      }
+      dkv_produce<HD>(ring, &tm_q, &tm_do, lse, delta, bhkv, group, lo, n_q,
+                      s_len);
     }
     return;
   }
@@ -876,6 +983,89 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 32; i += 2) {
       const int col = 64 * nb + Acc<HD>::col(i);
       if (col >= hd) continue;  // a padded column
+      const size_t off = (size_t(bhkv) * s_len + k0 + Acc<HD>::row(i)) * hd + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(dk_acc[nb][i], dk_acc[nb][i + 1]);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[nb][i], dv_acc[nb][i + 1]);
+    }
+  }
+}
+
+// K3 at hd 256. One block: kv tile kt = blockIdx.x of kv row bhkv =
+// blockIdx.y, the heaviest (lowest, under the causal mask) first.
+// Warpgroup 0 loads the tile's K and warpgroup 1 its V into shared memory
+// both read; warpgroup 2 is K3's producer. Each consumer warpgroup walks
+// every stage (the group's q heads x the q tiles the kv tile sees), computes
+// S^T and dP^T over the whole hd, and keeps dK and dV for its half of the
+// columns (dkv_step's OUT = HD / 2 from column wg * HD / 2).
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_tc_halves_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int group, int s_len, int hd, float scale,
+                               int causal, int window) {
+  using namespace attn_tile;
+  constexpr int kHalf = HD / 2;
+  using RingT = Ring<HD, bwd_stages<HD>(), kDkvRowBytes>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t k_tile = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t v_tile = k_tile + tile_bytes<HD>();
+  const RingT ring = RingT::at(v_tile + tile_bytes<HD>());
+
+  const int n_tiles = s_len / kTile;
+  const int kt = blockIdx.x;
+  const int k0 = kt * kTile;
+  const int bhkv = blockIdx.y;
+  int lo, hi;  // the q tiles the kv tile sees: never empty
+  q_span(kt, n_tiles, causal != 0, window, &lo, &hi);
+  const int n_q = hi - lo + 1;
+
+  if (threadIdx.x == 0) ring.init(1, kBwdConsumers * kWarpgroup);
+  __syncthreads();
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == kBwdConsumers) {  // the producer warpgroup
+    set_max_regs_dec<kBwdProducerRegs>();
+    if (threadIdx.x % kWarpgroup == 0) {
+      dkv_produce<HD>(ring, &tm_q, &tm_do, lse, delta, bhkv, group, lo, n_q,
+                      s_len);
+    }
+    return;
+  }
+  set_max_regs_inc<kBwdConsumerRegs>();
+
+  const __nv_bfloat16* kv = wg == 0 ? k : v;
+  load_rows<HD>(wg == 0 ? k_tile : v_tile, [&](int r) -> const __nv_bfloat16* {
+    return kv + (size_t(bhkv) * s_len + k0 + r) * hd;
+  }, 1 + wg, hd);
+  named_sync<kBwdConsumers * kWarpgroup>(3);  // both tiles are in place
+  float dk_acc[kHalf / 64][32], dv_acc[kHalf / 64][32];
+#pragma unroll
+  for (int nb = 0; nb < kHalf / 64; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[nb][i] = dv_acc[nb][i] = 0.f;
+  }
+  // the diagonal, and q tiles whose farthest pair falls out of the window
+  auto masked = [&](int it) {
+    return causal != 0 &&
+           (it == kt || (window > 0 && it * kTile + kTile - 1 - k0 >= window));
+  };
+  const int k_pos[2] = {k0 + Acc<HD>::row(0), k0 + Acc<HD>::row(2)};
+  auto kept = [&](int h, int pos) { return keep(pos, k_pos[h], true, window); };
+  walk(ring, group * n_q, [&](int n, int s) {
+    const int it = lo + n % n_q;
+    dkv_step<HD, kHalf>(dk_acc, dv_acc, k_tile, v_tile, ring.tile(s, 0),
+                        ring.tile(s, 1), ring.rows(s), scale * kLog2e, scale,
+                        it * kTile, masked(it), kept, wg * kHalf);
+  });
+#pragma unroll
+  for (int nb = 0; nb < kHalf / 64; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int col = wg * kHalf + 64 * nb + Acc<HD>::col(i);
       const size_t off = (size_t(bhkv) * s_len + k0 + Acc<HD>::row(i)) * hd + col;
       *reinterpret_cast<float2*>(dk + off) = make_float2(dk_acc[nb][i], dk_acc[nb][i + 1]);
       *reinterpret_cast<float2*>(dv + off) = make_float2(dv_acc[nb][i], dv_acc[nb][i + 1]);
@@ -963,13 +1153,14 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
       !tile_map(&tm_v, v, bh / group, s_len, hd)) {
     return cudaErrorNotSupported;
   }
-  constexpr size_t smem = attn_tile::smem_bytes<HD, kTcStages, kTcConsumers>();
+  constexpr size_t smem =
+      attn_tile::smem_bytes<HD, fwd_stages<HD>(), kTcConsumers>();
   auto kernel = flash_fwd_tc_kernel<HD>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n_tiles = s_len / kTile;
   const dim3 grid((n_tiles + kTcConsumers - 1) / kTcConsumers, bh);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
+  kernel<<<grid, fwd_threads<HD>(), smem, stream>>>(
       tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), group, s_len,
       hd, scale, causal, window);
@@ -1007,13 +1198,22 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
       !tile_map(&tm_do, dout, bh_kv * group, s_len, hd)) {
     return cudaErrorNotSupported;
   }
-  constexpr size_t smem = attn_tile::smem_bytes<HD, kBwdStages,
-                                                2 * kBwdConsumers, kDkvRowBytes>();
-  auto kernel = flash_bwd_dkv_tc_kernel<HD>;
+  // at hd 256 one kv tile a block (the halves kernel), else two
+  constexpr bool kHalves = HD == 256;
+  constexpr int kTiles = kHalves ? 1 : kBwdConsumers;
+  constexpr size_t smem = attn_tile::smem_bytes<HD, bwd_stages<HD>(),
+                                                2 * kTiles, kDkvRowBytes>();
+  auto kernel = [] {  // only the one that runs is instantiated
+    if constexpr (HD == 256) {
+      return flash_bwd_dkv_tc_halves_kernel<HD>;
+    } else {
+      return flash_bwd_dkv_tc_kernel<HD>;
+    }
+  }();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n_tiles = s_len / kTile;
-  const dim3 grid((n_tiles + kBwdConsumers - 1) / kBwdConsumers, bh_kv);
+  const dim3 grid((n_tiles + kTiles - 1) / kTiles, bh_kv);
   kernel<<<grid, kBwdThreads, smem, stream>>>(
       tm_q, tm_do, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1052,25 +1252,26 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
       !tile_map(&tm_v, v, bh / group, s_len, hd)) {
     return cudaErrorNotSupported;
   }
-  constexpr size_t smem =
-      attn_tile::smem_bytes<HD, kBwdStages, 2 * kBwdConsumers>();
+  constexpr int kC = dq_consumers<HD>();
+  constexpr size_t smem = attn_tile::smem_bytes<HD, bwd_stages<HD>(), 2 * kC>();
   auto kernel = flash_bwd_dq_tc_kernel<HD>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n_tiles = s_len / kTile;
-  const dim3 grid((n_tiles + kBwdConsumers - 1) / kBwdConsumers, bh);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(
+  const dim3 grid((n_tiles + kC - 1) / kC, bh);
+  kernel<<<grid, dq_threads<HD>(), smem, stream>>>(
       tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), group, s_len, hd, scale, causal, window);
   return cudaGetLastError();
 }
 
-// the head dims the kernels take: 128 in its own instantiation, 64, 32 and
-// 16 in the 64-column one (the narrow ones zero-padded in shared memory)
+// the head dims the kernels take: 128 and 256 in their own
+// instantiations, 64, 32 and 16 in the 64-column one (the narrow ones
+// zero-padded in shared memory)
 bool valid(int rows, int group, int s_len, int hd, int dtype) {
   return rows > 0 && group > 0 && s_len > 0 && s_len % kTile == 0 &&
-         (hd == 16 || hd == 32 || hd == 64 || hd == 128) &&
+         (hd == 16 || hd == 32 || hd == 64 || hd == 128 || hd == 256) &&
          (dtype == 0 || dtype == 1);
 }
 
@@ -1089,8 +1290,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = dtype == 0 ? (hd == 128 ? launch_fwd<128> : launch_fwd<64>)
-                           : (hd == 128 ? launch_fwd_tc<128> : launch_fwd_tc<64>);
+  auto launch =
+      dtype == 0 ? (hd == 256 ? launch_fwd<256> : hd == 128 ? launch_fwd<128> : launch_fwd<64>)
+                 : (hd == 256 ? launch_fwd_tc<256>
+                    : hd == 128 ? launch_fwd_tc<128> : launch_fwd_tc<64>);
   return int(launch(q, k, v, o, lse, bh, group, s_len, hd, scale, causal,
                     window, st));
 }
@@ -1103,8 +1306,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              void* stream) {
   if (!valid(bh_kv, group, s_len, hd, dtype)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = dtype == 0 ? (hd == 128 ? launch_dkv<128> : launch_dkv<64>)
-                           : (hd == 128 ? launch_dkv_tc<128> : launch_dkv_tc<64>);
+  auto launch =
+      dtype == 0 ? (hd == 256 ? launch_dkv<256> : hd == 128 ? launch_dkv<128> : launch_dkv<64>)
+                 : (hd == 256 ? launch_dkv_tc<256>
+                    : hd == 128 ? launch_dkv_tc<128> : launch_dkv_tc<64>);
   return int(launch(q, k, v, dout, lse, delta, dk, dv, bh_kv, group, s_len,
                     hd, scale, causal, window, st));
 }
@@ -1118,8 +1323,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = dtype == 0 ? (hd == 128 ? launch_dq<128> : launch_dq<64>)
-                           : (hd == 128 ? launch_dq_tc<128> : launch_dq_tc<64>);
+  auto launch =
+      dtype == 0 ? (hd == 256 ? launch_dq<256> : hd == 128 ? launch_dq<128> : launch_dq<64>)
+                 : (hd == 256 ? launch_dq_tc<256>
+                    : hd == 128 ? launch_dq_tc<128> : launch_dq_tc<64>);
   return int(launch(q, k, v, dout, lse, delta, dq, bh, group, s_len, hd,
                     scale, causal, window, st));
 }

@@ -112,7 +112,7 @@
 // reasoning above holds unchanged (a dequantized trap row is finite).
 //
 // Types: q and out in f32 or bf16; k and v in q's type, or int8 or packed
-// int4 codes with scales; hd in {16, 32, 64, 128}; ps a power of two;
+// int4 codes with scales; hd in {16, 32, 64, 128, 256}; ps a power of two;
 // CUDA-core arithmetic is f32, tensor-core products take bf16 operands and
 // accumulate in f32.
 //
@@ -126,6 +126,13 @@
 // past it, and only hd columns are stored. Zero columns add exact zeros
 // to the scores and give zero output columns, never stored, so the result
 // is the unpadded one bit for bit, and paged still equals dense.
+//
+// Head dim 256 (Gemma) has instantiations of its own. The chunk route's
+// three stages of 64 x 256 bf16 K/V tiles and its q tile take 230,448 B
+// of the 232,448 a block may hold; the split route's two stages 164,896 B,
+// so one split block fits an SM, and its consumer's 128 f32 accumulators
+// a thread need the registers of one block an SM (split_blocks_per_sm).
+// The CUDA-core engine's row tile of 64 takes 214,272 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -481,9 +488,12 @@ constexpr int kTcThreads = attn_tile::kWarpgroup + kTcProducers;
 
 // A split block (a narrow window) walks at most a few tiles: a ring of two
 // stages keeps its shared memory at 83 KB for hd 128, so two blocks fit an
-// SM and one's start and combine overlap the other's copies.
+// SM and one's start and combine overlap the other's copies. At hd 256 one
+// block fits (164,896 B), and the bound of two would cap a thread at the
+// 128 registers its accumulator alone needs.
 constexpr int kSplitStages = 2;
-constexpr int kSplitBlocksPerSm = 2;
+template <int HD>
+__host__ __device__ constexpr int split_blocks_per_sm() { return HD == 256 ? 1 : 2; }
 // query vectors of a narrow window (the wrapper's NARROW_TILE): rows 0..7
 // of the consumer's fragment, all in its warp 0
 constexpr int kSplitRows = 8;
@@ -674,7 +684,8 @@ __device__ __forceinline__ void combine_splits(const attn_tile::Acc<HD>& acc,
 // split_tiles tiles (combine_splits). Threads 0..127 are the consumer
 // warpgroup, 128..255 the producers.
 template <typename TKV, int HD, bool PAGED, bool SPLIT>
-__global__ void __launch_bounds__(kTcThreads, SPLIT ? kSplitBlocksPerSm : 1)
+__global__ void __launch_bounds__(kTcThreads,
+                                  SPLIT ? split_blocks_per_sm<HD>() : 1)
 rpa_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
               const TKV* __restrict__ v, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale, const int* __restrict__ base,
@@ -897,9 +908,11 @@ cudaError_t dispatch_codes(const Args& a, int codes) {
   }
 }
 
-// hd 128 in its own instantiation; 64, 32 and 16 in the 64-column one
+// hd 128 and 256 in their own instantiations; 64, 32 and 16 in the
+// 64-column one
 template <typename T>
 cudaError_t dispatch_cache(const Args& a, int codes) {
+  if (a.hd == 256) return dispatch_codes<T, 256>(a, codes);
   if (a.hd == 128) return dispatch_codes<T, 128>(a, codes);
   if (a.hd == 64 || a.hd == 32 || a.hd == 16) {
     return dispatch_codes<T, 64>(a, codes);
@@ -914,8 +927,8 @@ cudaError_t dispatch_cache(const Args& a, int codes) {
 // cores (bf16 q); the caller chooses. split_tiles > 0 (tensor cores, a
 // window of group * t <= 8 query vectors) splits each live span into
 // splits of that many 64-row kv tiles, part then being an f32 workspace of
-// b * hkv * ceil(s_len / (64 split_tiles)) * 8 * (HD + 2) floats, HD = 128
-// at hd 128 and 64 below it (the instantiation's width); 0 walks each span
+// b * hkv * ceil(s_len / (64 split_tiles)) * 8 * (HD + 2) floats, HD = hd
+// at 128 and 256 and 64 below 128 (the instantiation's width); 0 walks each span
 // in one block (part unused). codes: 0 = k and v hold q's type
 // (k_scale and v_scale null);
 // 8 = int8 codes, 4 = int4 codes packed two per byte (rows of hd / 2

@@ -68,8 +68,9 @@ def shape_refusal(*, seq_len: int, n_heads: int, n_kv_heads: int,
                   head_dim: int, dtype: torch.dtype) -> "str | None":
     """Why the kernels cannot take this geometry, or None when they can:
     whole GQA groups, hd in ``kernel_support.LANE_ALIGNED_HEAD_DIMS`` (16,
-    32, 64, 128), S a positive multiple of TILE, bf16 or f32. Every shape the reference's gate accepts (S a multiple of 128)
-    passes. A trainer checks its config here at startup."""
+    32, 64, 128, 256), S a positive multiple of TILE, bf16 or f32. Every
+    shape the reference's gate accepts (S a multiple of 128) passes. A
+    trainer checks its config here at startup."""
     if not kernel_support.gqa_ok(n_heads, n_kv_heads):
         return (f"n_heads={n_heads} is not a multiple of "
                 f"n_kv_heads={n_kv_heads}")
@@ -294,8 +295,8 @@ def _check(q, k, v, *rows: torch.Tensor) -> None:
 def _check_kernel(q, k, v, *others: torch.Tensor,
                   rows: tuple = ()) -> None:
     """What the kernels take: a CUDA device, one dtype of bf16/f32 for q,
-    k, v (and dO among ``others``), hd 16/32/64/128, S a multiple of TILE,
-    contiguous 16-byte-aligned operands, f32 (BH, S, 1) ``rows``."""
+    k, v (and dO among ``others``), hd 16/32/64/128/256, S a multiple of
+    TILE, contiguous 16-byte-aligned operands, f32 (BH, S, 1) ``rows``."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     bh, s, hd = q.shape

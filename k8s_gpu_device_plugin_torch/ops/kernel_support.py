@@ -42,19 +42,23 @@ from pathlib import Path
 
 import torch
 
-#: head dims the kernels take: 64 and 128 in instantiations of their own
-#: width, 16 and 32 in the 64-column one, zero-padded in shared memory
+#: head dims the kernels take: 64, 128 and 256 in instantiations of their
+#: own width, 16 and 32 in the 64-column one, zero-padded in shared memory
 #: (:func:`tile_head_dim`)
-LANE_ALIGNED_HEAD_DIMS = (16, 32, 64, 128)
+LANE_ALIGNED_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 OPS_DIR = Path(__file__).resolve().parent
 CSRC_DIR = OPS_DIR / "csrc"
 BUILD_DIR = OPS_DIR / "build"
 
-#: Hopper with the arch-specific features (wgmma, setmaxnreg) enabled
+#: Hopper with the arch-specific features (wgmma, setmaxnreg) enabled;
+#: ``--split-compile=0`` runs the device compiler's work on every CPU, so
+#: K1's 108 kernel instantiations (hd 64, 128 and 256) build side by side
+#: (``chip_smoke.py`` phase 1 prints the build's seconds)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--split-compile=0", "-shared", "-Xcompiler",
+    "-fPIC",
 )
 
 #: the engines a kernel may run on
@@ -75,9 +79,10 @@ def lane_aligned(head_dim: int) -> bool:
 
 def tile_head_dim(head_dim: int) -> int:
     """The head-dim width of the kernel instantiation that runs
-    ``head_dim``: 128 for 128, else 64 (a narrower head dim's tiles hold
-    zeros past its columns, which add exact zeros to every sum)."""
-    return 128 if head_dim == 128 else 64
+    ``head_dim``: 128 for 128, 256 for 256, else 64 (a narrower head dim's
+    tiles hold zeros past its columns, which add exact zeros to every
+    sum)."""
+    return head_dim if head_dim in (128, 256) else 64
 
 
 def gqa_ok(n_q_heads: int, n_kv_heads: int) -> bool:

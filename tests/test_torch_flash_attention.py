@@ -394,7 +394,11 @@ def test_gate_accepts_what_the_reference_accepts(shape):
     (dict(n_heads=6), "n_heads=6"),
     (dict(dtype=torch.float16), "dtype"),
     (dict(head_dim=16), None), (dict(head_dim=32), None),
-    (dict(head_dim=256), "head_dim=256"),
+    # hd 256 (Gemma-2B's) has instantiations of its own now; the case
+    # keeps its id and pins a head dim the kernels still refuse
+    pytest.param(dict(head_dim=512), "head_dim=512",
+                 id="change9-head_dim=256"),
+    (dict(head_dim=256), None),
 ])
 def test_shape_refusal_names_what_the_kernels_do_not_take(change, why):
     geometry = {**dict(seq_len=2048, n_heads=32, n_kv_heads=8, head_dim=128,

@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package, no
-``prometheus_client`` or ``aiohttp`` (the card's machine has neither: the
-port keeps its own registry, its ``http.server`` handler and, for the
-replica router, ``serving/async_http.py``), no silent CPU fallback."""
+``prometheus_client`` or ``aiohttp``, and importing it loads no
+``transformers`` (the card's machine has none of them: the port keeps its
+own registry, its ``http.server`` handler and, for the replica router,
+``serving/async_http.py``, and reads an HF config by attribute), no silent
+CPU fallback."""
 
 import ast
 import os
@@ -16,6 +18,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_gpu_device_plugin_torch"
 FORBIDDEN = ("jax", "jaxlib", "orbax", "k8s_gpu_device_plugin_tpu",
              "prometheus_client", "aiohttp")
+#: not loaded by importing the port either: the HF conversion reads a
+#: config by attribute (only an HF tokenizer directory, which the server's
+#: ``--tokenizer`` may name, imports it, inside that call)
+NOT_LOADED = (*FORBIDDEN, "transformers")
 
 
 def _port_files():
@@ -99,7 +105,7 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.metrics.roofline\n"
         "import k8s_gpu_device_plugin_torch.metrics.serving_metrics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r}]\n"
+        f"{NOT_LOADED!r}]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -132,6 +138,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         init_random_adapters(LlamaConfig.tiny(), 1, 2)
+    from k8s_gpu_device_plugin_torch.models.convert import params_from_hf
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_hf({}, LlamaConfig.tiny())
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("mps")

@@ -198,19 +198,20 @@ def test_rpa_plain_version_matches_the_reference(hd, quantized, layout, kind,
 
 
 def test_gates_take_the_narrow_head_dims_and_refuse_the_rest():
-    assert kernel_support.LANE_ALIGNED_HEAD_DIMS == (16, 32, 64, 128)
-    assert [kernel_support.tile_head_dim(hd) for hd in (16, 32, 64, 128)] \
-        == [64, 64, 64, 128]
-    for hd in (16, 32):
+    # hd 256 (Gemma-2B's) is taken too, in instantiations of its own
+    assert kernel_support.LANE_ALIGNED_HEAD_DIMS == (16, 32, 64, 128, 256)
+    assert [kernel_support.tile_head_dim(hd) for hd in (16, 32, 64, 128, 256)] \
+        == [64, 64, 64, 128, 256]
+    for hd in (16, 32, 256):
         assert tfa.shape_refusal(seq_len=128, n_heads=8, n_kv_heads=4,
                                  head_dim=hd, dtype=torch.bfloat16) is None
         plan = attention_backend_plan(device="cuda", n_heads=8, n_kv_heads=4,
                                       head_dim=hd, chunk=256)
         assert {p["backend"] for p in plan.values()} == {"cuda"}
-    for hd in (8, 48, 96, 256):
+    for hd in (8, 48, 96, 512):
         why = tfa.shape_refusal(seq_len=128, n_heads=8, n_kv_heads=4,
                                 head_dim=hd, dtype=torch.bfloat16)
-        assert f"head_dim={hd}" in why and "(16, 32, 64, 128)" in why
+        assert f"head_dim={hd}" in why and "(16, 32, 64, 128, 256)" in why
         plan = attention_backend_plan(device="cuda", n_heads=8, n_kv_heads=4,
                                       head_dim=hd)
         assert plan["decode"]["backend"] == "unsupported"

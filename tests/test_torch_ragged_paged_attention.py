@@ -255,9 +255,13 @@ def test_backend_plan_names_the_route_per_device():
     cpu = attention_backend_plan(device="cpu", n_heads=32, n_kv_heads=8,
                                  head_dim=128)
     assert cpu["decode"]["backend"] == "plain"
+    # hd 256 (Gemma-2B's) runs in an instantiation of its own; 512 does not
     odd = attention_backend_plan(device="cuda", n_heads=8, n_kv_heads=1,
-                                 head_dim=256)
+                                 head_dim=512)
     assert odd["decode"]["backend"] == "unsupported"
+    gemma = attention_backend_plan(device="cuda", n_heads=8, n_kv_heads=1,
+                                   head_dim=256)
+    assert gemma["decode"]["backend"] == "cuda"
 
 
 # --- the build (nvcc mocked) ------------------------------------------------

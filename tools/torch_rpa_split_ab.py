@@ -5,8 +5,8 @@ on a card.
 A narrow window's launch (``rpa_tc_kernel`` with SPLIT,
 ``ops/csrc/ragged_paged_attention.cu``) splits each slot's live span into
 splits of ``SPLIT_TILES`` kv tiles, one block each, with a ring of
-``kSplitStages`` stages sized so that ``kSplitBlocksPerSm`` blocks share
-an SM. This times, at ``chip_smoke.py`` phase 2's bf16 decode cases
+``kSplitStages`` stages sized so that ``split_blocks_per_sm()`` blocks
+share an SM. This times, at ``chip_smoke.py`` phase 2's bf16 decode cases
 (eight slots at bases -1 .. 2047 of S 2048, Hq 32, Hkv 8, hd 128, on the
 six routes, paged through pages of 64; the dense route also with a window
 of 64 and at hd 64, group 1):
@@ -52,8 +52,8 @@ VARIANTS = {
     "ring3_one_block": [
         (SOURCE, "constexpr int kSplitStages = 2;\n",
          "constexpr int kSplitStages = 3;\n"),
-        (SOURCE, "constexpr int kSplitBlocksPerSm = 2;\n",
-         "constexpr int kSplitBlocksPerSm = 1;\n"),
+        (SOURCE, "constexpr int split_blocks_per_sm() { return HD == 256 ? 1 : 2; }\n",
+         "constexpr int split_blocks_per_sm() { return 1; }\n"),
     ],
     "copies_only": [(
         SOURCE, _CONSUME,
