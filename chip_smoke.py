@@ -40,7 +40,11 @@ Phases (any failed check exits non-zero without the final line):
    entries to the trap page for that reason); and the batch-1 decode
    modes' shapes, bf16: beam search's decode at B 4 over its 544-row
    cache (every row at base 542) and rolling decode's one windowed
-   prefill, T 4160 from base 0 at W 4096. Every bf16 case runs on the
+   prefill, T 4160 from base 0 at W 4096; and one tensor-parallel
+   shard's heads of Llama-3-8B (``*_tpN_shard_*``: tp 2's Hq 16 / Hkv 4,
+   tp 4's Hq 8 / Hkv 2), decode over eight slots, a T-256 chunk at base
+   1536 and a T-4 verify, dense and paged 64, bf16 and int8 codes (f32 on
+   tp 2's dense decode). Every bf16 case runs on the
    tensor cores (decode split over
    each slot's span, ``SPLIT_TILES`` kv tiles a block), f32 on the CUDA
    cores: each launch must be counted on its engine, and two launches on
@@ -95,7 +99,8 @@ Phases (any failed check exits non-zero without the final line):
    route, the pool empty at the end once the prefix cache has released
    its entries; on ``--cacheQuant int8`` and ``int4``,
    paged and dense; on ``--weightQuant int8`` (bf16 dense cache); and on
-   ``--weightQuant int4 --cacheQuant int4`` in the 65-page pool. Every
+   ``--weightQuant int4 --cacheQuant int4`` in the 65-page pool (these
+   two at REQUESTS_HALF: half the tokens). Every
    launch (the model is bf16: chunks and decode steps) must be on the
    tensor cores. Then the prefix cache: eight requests sharing a
    1024-token system prompt (suffixes of 64-300 tokens, 64 out, streamed
@@ -107,7 +112,29 @@ Phases (any failed check exits non-zero without the final line):
    promotion 2016); TTFT of the first request and p50 of the seven. The
    copy-on-write at batcher level: chunks of 32, pages of 64, a 40-token
    shared prefix, so the hit's 32-token boundary lies inside a page: one
-   page copied, the cache-off streams, on a bf16 and an int8 pool. Then,
+   page copied, the cache-off streams, on a bf16 and an int8 pool. Then
+   tensor-parallel serving (``tp_*``, ``phase_tp``, after ``cow_check``,
+   the same weights, all 32 layers): the mesh names ``cuda:0`` once a
+   shard. Under torch's default cuBLAS workspace ``tp_gemm_probe`` asks
+   whether each column shard's product (wq, wk, w1, w3, the lm_head at
+   M 1, 8, 32, 256, 512, tp 2 and 4, strided view and copy, with and
+   without reduced-precision reductions) is the whole product's columns
+   bit for bit, and tp 2 against tp 1 dense reports where the streams
+   part (``tp_default_workspace``: a parting with every shard equal
+   fails), with each side's f32 logit gap between the two tokens where
+   a greedy stream parts and a 2048-row prefill's device ms. Then a
+   child, ``python3 chip_smoke.py --tp-exact`` under
+   ``CUBLAS_WORKSPACE_CONFIG=:0:0`` (its lines relayed, ``tp_exact``):
+   every probed shard equal, and the reference's ``_scenario`` (8 slots
+   x 2048, chunks of 256, the prefix cache evicting, greedy and seeded
+   requests, a cancel) at tp 1, 2 and 4, dense and paged 64, with int8
+   KV, int8 weights, a self-draft speculative batcher (gamma 4) and
+   ``tp_allow_psum`` at tp 2: every stream tp 1's bit for bit in tokens
+   and logprobs (psum's reported), the prefill's device ms, each shard's
+   KV bytes the aggregate over tp and what it allocates, K1 tp x 32
+   launches a decode step (x 5 a speculative round), all on the tensor
+   cores, the decode step's device ms at tp 1, 2 and 4 (eight slots at
+   about 512 rows). Then,
    the Llama-3-8B weights freed, Mistral-7B (W 4096) on ``--slots 2
    --maxLen 12288 --kvLayout paged --kvPageSize 64 --kvPages 180``: two
    greedy requests of 12,000 and 9,000 prompt tokens (256 out) that the
@@ -157,11 +184,11 @@ Phases (any failed check exits non-zero without the final line):
    head, dense and paged: the first 16 replayed rounds held to the eager
    round bit for bit (both states, every tensor), paged equal to dense,
    the histogram of accepted counts; and batch-1
-   ``speculative_generate`` (self-draft, 64 tokens) against
+   ``speculative_generate`` (self-draft, 32 tokens) against
    ``generate``, up to a near tie, with its round count.
    Then scheduling and failure (the same 8B weights). ``preempt``, at
    batcher level (8 slots x 2048, chunks of 256, the prefix cache and
-   the graph on): eight priority-2 requests of about 200 tokens (128
+   the graph on): eight priority-2 requests of about 200 tokens (96
    out; request 1 seeded at temperature 0.8), and after 32 and 40 steps
    a priority-0 request with a 1 ms deadline: the ``slo`` scheduler
    evicts request 0, then request 1, dense and paged at depth 1 and 0
@@ -183,14 +210,14 @@ Phases (any failed check exits non-zero without the final line):
    leaves the streams bit for bit; a second crash past ``--restartBudget
    1`` ends every stream with an ``engine_dead`` frame and health reads
    dead; a burst past ``--maxQueue 2`` answers 429 with Retry-After;
-   ``resume_out`` continues two streams from token 10. ``arrivals``: 32
+   ``resume_out`` continues two streams from token 10. ``arrivals``: 16
    requests (20% priority 0 with a 1500 ms deadline) at once on the fifo
    server, then as Poisson arrivals at 1.2x that rate under fifo and
    slo: TTFT p50/p99 per class, deadlines met, preemptions, re-prefill
    chunks per preemption (reported, not held to limits), and the same
    per class from the server's own timelines (``/debug/requests``: TTFT,
    queue wait, prefill, decode, p50 and p99). ``obs``: the six requests
-   served dense and paged, at depth 1 and 0, each with attribution off,
+   (REQUESTS_HALF: half the tokens) served dense and paged, at depth 1 and 0, each with attribution off,
    on (the default) and on with ``--tracing --traceSteps
    --slowRequestMs 1``: streams bit for bit across the three (tokens
    across all twelve), K1's launches exactly the run's steps and chunks,
@@ -339,7 +366,7 @@ Phases (any failed check exits non-zero without the final line):
    weights, drawn and quantized one layer at a time (the bf16 tree,
    93.4 GB, is never built): ``phase_graph``'s replay-against-eager
    check, then the server (``--preset mixtral_8x7b --weightQuant int8``)
-   on REQUESTS at ``--pipelineDepth`` 0 and 1, K1's launches counted on
+   on REQUESTS_QUARTER at ``--pipelineDepth`` 0 and 1, K1's launches counted on
    the dense route, the streams equal; decode step, TTFT, resident
    weight bytes, graph pool bytes and the peak memory printed.
 5. The flash-attention kernels (``flash_fwd``, ``flash_bwd_dkv``,
@@ -461,6 +488,7 @@ Phases (any failed check exits non-zero without the final line):
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -515,6 +543,11 @@ TOKEN_BYTES = {"none": 131072, "int8": 67584, "int4": 34816}
 
 # (prompt length, max_new); index 3 streams, index 1 asks for logprobs
 REQUESTS = [(17, 64), (200, 48), (256, 32), (700, 40), (1500, 56), (1900, 64)]
+# phase_obs's and the weight-quantized runs' requests: every prompt, half
+# the tokens; the moe_w8 runs': a quarter (cut when the tp phase took its
+# time)
+REQUESTS_HALF = [(plen, max_new // 2) for plen, max_new in REQUESTS]
+REQUESTS_QUARTER = [(plen, max_new // 4) for plen, max_new in REQUESTS]
 STREAMED, WITH_LOGPROBS = 3, 1
 
 
@@ -715,7 +748,43 @@ def kernel_cases():
         dict(name="decode_b1_ckpt", b=1, t=1,
              bases=[CKPT_PROMPT + CKPT_NEW - 2], window=0, route="dense",
              ps=0, dtypes=("bfloat16",), **full)]
-    return cases + narrow_kernel_cases()
+    return cases + narrow_kernel_cases() + shard_kernel_cases()
+
+
+# the tensor-parallel phase's shards of Llama-3-8B's heads: tp -> (Hq, Hkv)
+TP_SHARD_HEADS = {2: dict(hq=16, hkv=4, hd=128), 4: dict(hq=8, hkv=2, hd=128)}
+TP_SHARD_LAYOUTS = (("dense", 0), ("paged", 64), ("int8_dense", 0),
+                    ("int8_paged", 64))
+TP_CHUNK_BASE = 1536
+TP_VERIFY_T = 4
+
+
+def shard_kernel_cases():
+    """K1 at one tensor-parallel shard's heads of Llama-3-8B (tp 2: Hq 16,
+    Hkv 4; tp 4: Hq 8, Hkv 2; the group stays 4), 8 slots, S 2048: decode,
+    a T-256 chunk at base 1536 and a T-4 verify window, dense and paged
+    64, bf16 and int8 codes; f32 (the CUDA cores) on tp 2's dense
+    decode."""
+    bases8 = [-1, 0, 1, 255, 256, 1000, 2046, 2047]
+    vbases = [-1, 0, 1, 255, 256, 1000, 2048 - TP_VERIFY_T - 1,
+              2048 - TP_VERIFY_T]
+    cases = []
+    for tp, heads in TP_SHARD_HEADS.items():
+        for route, ps in TP_SHARD_LAYOUTS:
+            tag = route + (f"_ps{ps}" if ps else "")
+            for kind, b, t, bases in (
+                    ("decode", 8, 1, bases8),
+                    (f"prefill_t256_base{TP_CHUNK_BASE}", 1, 256,
+                     [TP_CHUNK_BASE]),
+                    (f"verify_t{TP_VERIFY_T}", 8, TP_VERIFY_T, vbases)):
+                f32 = tp == 2 and route == "dense" and kind == "decode"
+                cases.append(dict(
+                    name=f"{kind}_tp{tp}_shard_{tag}", b=b, t=t, bases=bases,
+                    window=0, route=route, ps=ps,
+                    verify=kind.startswith("verify"),
+                    dtypes=("bfloat16", "float32") if f32 else ("bfloat16",),
+                    s=2048, tp_shard=tp, **heads))
+    return cases
 
 
 # the head dims below the kernels' 64-column tiles (the tiny preset's 16),
@@ -1519,8 +1588,8 @@ BUCKET_REFUSED = {i for i, (plen, _) in enumerate(REQUESTS) if plen > 1024}
 
 def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                   run: str, dense_tokens=None,
-                  preset: str = "llama3_8b") -> dict:
-    """The server for one serving run: the six requests of REQUESTS at
+                  preset: str = "llama3_8b", requests=REQUESTS) -> dict:
+    """The server for one serving run: the six ``requests`` (REQUESTS) at
     once, every launch of exactly that run counted by route, all on the
     route its flags name, every decode step a replay of the captured
     graph. ``dense_tokens`` (the dense run's streams) must come back token
@@ -1540,7 +1609,7 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
     try:
         rng = np.random.default_rng(SEED + 1)
         bodies = []
-        for i, (plen, max_new) in enumerate(REQUESTS):
+        for i, (plen, max_new) in enumerate(requests):
             body = {"prompt": rng.integers(0, cfg.vocab_size, plen).tolist(),
                     "max_new": max_new}
             if i == STREAMED:
@@ -1565,7 +1634,7 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
         if cb.graph.replays - replays0 != decode_steps:
             fail(f"{run}: {decode_steps} decode steps but "
                  f"{cb.graph.replays - replays0} graph replays")
-        for i, (res, (plen, max_new)) in enumerate(zip(results, REQUESTS)):
+        for i, (res, (plen, max_new)) in enumerate(zip(results, requests)):
             toks, lps = res["tokens"], res["logprobs"]
             if i in refused:
                 continue
@@ -1583,7 +1652,7 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
                        if x != y)
             fail(f"{run}: request {bad}'s greedy stream differs from the "
                  "dense run's")
-        served = [i for i in range(len(REQUESTS)) if i not in refused]
+        served = [i for i in range(len(requests)) if i not in refused]
         kv = health["kv"]
         want_bytes = (65 * 64 if "paged" in route else 8 * 2048) * \
             TOKEN_BYTES[args.cacheQuant]
@@ -1614,7 +1683,7 @@ def phase_serving(torch, server_mod, kernel_support, rpa, cfg, params,
             alone_cached = []
             for _ in range(2):
                 alone = _post(url, {"prompt": bodies[STREAMED]["prompt"],
-                                    "max_new": REQUESTS[STREAMED][1]})
+                                    "max_new": requests[STREAMED][1]})
                 alone_cached.append(alone["cached_tokens"])
                 batched = results[STREAMED]["tokens"]
                 if alone["tokens"] != batched:
@@ -1979,6 +2048,559 @@ def phase_cow(torch, batching, prefix_cache_mod, cfg, params) -> dict:
     return out
 
 
+# --- phase 4, tensor-parallel serving ----------------------------------------
+
+# tp 1, 2 and 4 over one card: the mesh names cuda:0 once a shard
+# (``tp_devices``), each shard its own contiguous KV planes and its K1
+TP_DEGREES = (1, 2, 4)
+TP_DEVICE = "cuda:0"
+TP_KW = dict(n_slots=8, max_len=2048, chunked_prefill=256)
+TP_SYS, TP_NEW = 300, 24      # the shared system prompt; tokens a request
+TP_TIMED_PROMPT, TP_TIMED_NEW, TP_TIMED_REPS = 512, 64, 20
+TP_GEMM_M = (1, 8, 32, 256, 512)   # decode, verify (8 x 4), chunks
+TP_PREFILL_ROWS, TP_PREFILL_CHUNK, TP_PREFILL_REPS = 2048, 512, 3
+TP_CHILD_TIMEOUT_S = 600
+TP_SAMPLED = dict(temperature=0.8, top_p=0.95)
+
+
+def tp_gemm_probe(torch, quantized_serving, cfg, params) -> dict:
+    """Whether a column shard's product is the whole product's columns
+    bit for bit on this card: ``x @ w[:, cols]`` against ``(x @ w)[:,
+    cols]`` through the port's own products (``qmatmul``, the lm_head's
+    ``qhead_matmul`` to f32), at M 1, 8, 32, 256, 512, for wq, wk, w1, w3
+    (layer 0) and the lm_head at Llama-3-8B's widths, tp 2 and 4, the
+    shard a strided view of the whole leaf (what the batcher serves) and
+    a contiguous copy, with cuBLAS's reduced-precision bf16 reductions
+    allowed (torch's default, what serving runs) and not. One line a
+    weight and setting."""
+    mm = {"lm_head": lambda x, w: quantized_serving.qhead_matmul(
+        x, w, torch.bfloat16)}
+    weights = {name: params["layers"][name][0]
+               for name in ("wq", "wk", "w1", "w3")}
+    weights["lm_head"] = params["lm_head"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    xs = {m: torch.randn((m, cfg.d_model), generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for m in TP_GEMM_M}
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    out = {}
+    try:
+        for reduced in (True, False):
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = reduced
+            for name, w in weights.items():
+                f = mm.get(name, quantized_serving.qmatmul)
+                rows = []
+                for m, x in xs.items():
+                    full = f(x, w)
+                    for tp in (2, 4):
+                        n = w.shape[-1] // tp
+                        for layout in ("view", "copy"):
+                            diffs = []
+                            for s in range(tp):
+                                part = w.narrow(-1, s * n, n)
+                                if layout == "copy":
+                                    part = part.contiguous()
+                                got = f(x, part)
+                                diffs.append(float(
+                                    (got.float() - full[:, s * n:(s + 1) * n]
+                                     .float()).abs().max()))
+                                del got, part
+                            rows.append({"m": m, "tp": tp, "layout": layout,
+                                         "equal": max(diffs) == 0.0,
+                                         "max_abs_diff": max(diffs)})
+                    del full
+                key = f"{name}_{'reduced' if reduced else 'full'}"
+                out[key] = rows
+                emit({"phase": 4, "tp_gemm_probe": name,
+                      "shape": list(w.shape),
+                      "reduced_precision_reduction": reduced,
+                      "all_equal": all(r["equal"] for r in rows),
+                      "unequal": [r for r in rows if not r["equal"]]})
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    return out
+
+
+def tp_prompts(cfg) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 25)
+
+    def ids(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    return {"sys": ids(TP_SYS), **{k: ids(n) for k, n in (
+        (30, 5), (31, 4), (32, 6), (33, 40), (35, 3))},
+        "timed": [ids(TP_TIMED_PROMPT) for _ in range(TP_KW["n_slots"])]}
+
+
+def tp_batcher(batching, spec_mod, prefix_cache_mod, cfg, params, tp: int,
+               layout: str, spec: bool = False):
+    """A batcher of the phase: 8 slots x 2048 rows, chunks of 256, the
+    prefix cache on with a budget that evicts mid-run (the boundaries of
+    256 and 64 rows), the decode graph captured; at tp > 1 the mesh is
+    ``["cuda:0"] * tp``."""
+    kw = dict(TP_KW, kv_layout=layout)
+    if layout == "paged":
+        kw["kv_page_size"] = 64
+    if tp > 1:
+        kw.update(tp=tp, tp_devices=[TP_DEVICE] * tp)
+    budget = sum(prefix_cache_mod.prefix_kv_bytes(cfg, p) for p in (64, 256))
+    buckets = tuple(b for b in batching.DEFAULT_PROMPT_BUCKETS
+                    if b <= TP_KW["max_len"])
+    kw["prefix_cache"] = prefix_cache_mod.PrefixCache(
+        cfg, buckets=buckets, budget_bytes=budget)
+    if spec:
+        return spec_mod.SpeculativeBatcher(params, cfg, params, cfg,
+                                           gamma=SPEC_GAMMA, **kw)
+    return batching.ContinuousBatcher(params, cfg, **kw)
+
+
+def tp_scenario(cb, sampling, cfg, prompts: dict, sampled: bool) -> tuple:
+    """The reference's ``_scenario`` (``tests/test_tp_serving.py``) at the
+    8B widths: staggered waves over a shared system prompt, greedy and
+    (``sampled``) seeded requests at temperature 0.8, a stop sequence that
+    cannot fire, a cancel mid-flight, the prefix cache evicting. Returns
+    (request ids, the cancelled one, {rid: (tokens, logprobs)},
+    {rid: (its prompt, whether it is greedy)})."""
+    rids, asked = [], {}
+    sys_a = prompts["sys"]
+
+    def sub(base, key, new, seed=None, stop=None):
+        kw = {}
+        if seed is not None and sampled:
+            kw = dict(sampler=sampling.Sampler(**TP_SAMPLED), seed=seed)
+        rids.append(cb.submit(base + prompts[key], max_new=new, stop=stop,
+                              **kw))
+        asked[rids[-1]] = (base + prompts[key], not kw)
+
+    sub(sys_a, 30, TP_NEW)
+    sub(sys_a, 31, TP_NEW, seed=4)
+    for _ in range(7):
+        cb.step()
+    sub(sys_a, 32, TP_NEW, seed=5)
+    sub([], 33, TP_NEW - 8)
+    for _ in range(4):
+        cb.step()
+    cancelled = rids[2]
+    cb.cancel(cancelled)
+    sub(sys_a, 35, TP_NEW, stop=[[cfg.vocab_size - 1] * 2])
+    cb.run()
+    if cb.pool is not None:
+        cb.pool.check()
+    return rids, cancelled, {rid: (list(r.out), list(r.out_logp))
+                             for rid, r in cb.done_requests.items()}, asked
+
+
+def tp_compare(got: tuple, want: tuple) -> dict:
+    """Streams against tp 1's: completed requests in tokens and logprobs,
+    the cancelled one over the common prefix. Per stream: equal, or the
+    first token where tokens or logprobs part and the largest logprob
+    gap over the prefix the tokens share."""
+    rids, cancelled, streams, _ = got
+    w_rids, w_cancelled, ref, _ = want
+    if (rids, cancelled) != (w_rids, w_cancelled):
+        fail(f"tp: request ids {rids}/{cancelled} against {w_rids}/"
+             f"{w_cancelled}")
+    out = {}
+    for rid in rids:
+        toks, lps = streams[rid]
+        rt, rl = ref[rid]
+        if rid == cancelled:
+            n = min(len(toks), len(rt))
+            toks, lps, rt, rl = toks[:n], lps[:n], rt[:n], rl[:n]
+        if (toks, lps) == (rt, rl):
+            out[rid] = {"equal": True}
+            continue
+        j = first_divergence(toks, rt)
+        k = next((i for i, (a, b) in enumerate(zip(lps, rl)) if a != b),
+                 None)
+        n = len(toks) if j is None else j
+        out[rid] = {"equal": False, "first_token_parting": j,
+                    "first_logprob_parting": k,
+                    "max_logprob_gap": max((abs(a - b) for a, b in
+                                            zip(lps[:n], rl[:n])),
+                                           default=0.0)}
+    return out
+
+
+def tp_shard_bytes(cb) -> list:
+    """Device bytes each shard's KV planes hold (scale planes included):
+    the allocation itself, beside ``kv_stats``' per-shard count."""
+    from k8s_gpu_device_plugin_torch.models.generate import kv_shards
+
+    def planes(c):
+        return [x for x in (c.k, c.v, c.k_scale, c.v_scale) if x is not None]
+
+    return [sum(x.numel() * x.element_size() for x in planes(c))
+            for c in kv_shards(cb.state.cache)]
+
+
+def tp_timed_step(torch, cb, prompts: dict) -> float:
+    """The decode step's device ms with all eight slots decoding at about
+    512 rows: graph replays back to back between CUDA events."""
+    for p in prompts["timed"]:
+        cb.submit(p, TP_TIMED_NEW)
+    while cb.pending or cb.prefilling or len(cb.running) < TP_KW["n_slots"]:
+        cb.step()
+    inflight, cb._inflight = cb._inflight, None
+    if inflight is not None:
+        cb._read_step(inflight)
+    return _replay_ms(torch, cb.graph, TP_TIMED_REPS)
+
+
+def tp_cells(exact: bool) -> list:
+    """(run, tp, layout, cache quant, speculative, psum, weight quant) of
+    the phase: under the exact setting every cell, else tp 1 and 2
+    dense."""
+    cells = [(f"tp_{layout}_tp{tp}", tp, layout, "none", False, False,
+              "none") for layout in ("dense", "paged") for tp in TP_DEGREES]
+    if not exact:
+        return cells[:2]
+    cells += [(f"tp_int8_dense_tp{tp}", tp, "dense", "int8", False, False,
+               "none") for tp in (1, 2)]
+    cells += [(f"tp_spec_paged_tp{tp}", tp, "paged", "none", True, False,
+               "none") for tp in (1, 2)]
+    cells.append(("tp_psum_dense_tp2", 2, "dense", "none", False, True,
+                  "none"))
+    # int8 weights (replicated leaves, each shard's columns cut from the
+    # whole product) under the setting's cuBLASLt int8 products
+    cells += [(f"tp_w8_dense_tp{tp}", tp, "dense", "none", False, False,
+               "int8") for tp in (1, 2)]
+    return cells
+
+
+def tp_run_cells(torch, batching, sampling, spec_mod, prefix_cache_mod,
+                 quantized_serving, kernel_support, rpa, cfg, params,
+                 cells: list) -> tuple:
+    """Each cell's scenario on a fresh batcher: its line (K1 launches a
+    decode step and in all, KV bytes a shard as reported and as
+    allocated, the streams against the tp-1 twin, the timed decode
+    step). Returns ({run: row, with its streams under "got"}, the runs
+    whose streams part)."""
+    prompts = tp_prompts(cfg)
+    runs, parted = {}, []
+    weights = {"none": params}
+    for run, tp, layout, quant, spec, psum, wq in cells:
+        t_run = time.perf_counter()
+        rcfg = dataclasses.replace(cfg, cache_quant=quant,
+                                   tp_allow_psum=psum)
+        if wq not in weights:
+            weights[wq] = quantized_serving.quantize_weights(params, wq)
+        cb = tp_batcher(batching, spec_mod, prefix_cache_mod, rcfg,
+                        weights[wq], tp, layout, spec)
+        if cb.graph is None:
+            fail(f"{run}: the batcher captured no decode graph")
+        per_step = cb.graph.launches.get(rpa.NAME, 0)
+        layers = cfg.n_layers * (SPEC_GAMMA + 1 if spec else 1)
+        if per_step != tp * layers:
+            fail(f"{run}: {per_step} K1 launches a decode step, wanted "
+                 f"tp x {layers} = {tp * layers}")
+        kernel_support.reset_launch_counts()
+        got = tp_scenario(cb, sampling, cfg, prompts, sampled=not spec)
+        counts = kernel_support.launch_counts()
+        k1 = counts.get(rpa.NAME, 0)
+        if not k1 or counts.get(kernel_support.engine_key(
+                rpa.NAME, "tensor_cores"), 0) != k1:
+            fail(f"{run}: K1 launches {counts}: none, or some off the "
+                 "tensor cores")
+        kv = cb.kv_stats()
+        allocated = tp_shard_bytes(cb)
+        row = {"phase": 4, "run": run, "tp": tp, "layout": layout,
+               "cache_quant": quant, "weight_quant": wq, "k1_launches": k1,
+               "k1_launches_per_decode_step": per_step,
+               "reserved_bytes": kv["reserved_bytes"],
+               "shard_reserved_bytes": [s["reserved_bytes"]
+                                        for s in kv.get("shards", [])],
+               "shard_allocated_bytes": allocated,
+               "weights": cb.weight_stats,
+               "prefix_cache": cb.prefix_cache.stats.as_dict(),
+               "decode_graph_pool_bytes": cb.graph.pool_bytes}
+        if tp > 1:
+            shards = kv["shards"]
+            draft = kv.get("draft_reserved_bytes", 0)
+            if sum(s["reserved_bytes"] for s in shards) != \
+                    kv["reserved_bytes"] or any(
+                        s["reserved_bytes"] * tp != kv["reserved_bytes"]
+                        for s in shards):
+                fail(f"{run}: shard bytes {shards} against the aggregate "
+                     f"{kv['reserved_bytes']}")
+            target = [s["reserved_bytes"] - s.get("draft_reserved_bytes", 0)
+                      for s in shards]
+            if target != allocated:
+                fail(f"{run}: shards allocate {allocated} bytes of KV, "
+                     f"kv_stats says {target}")
+            if draft and any(s["draft_reserved_bytes"] * tp != draft
+                             for s in shards):
+                fail(f"{run}: draft shard bytes {shards} against {draft}")
+        elif kv.get("shards") or "tp" in kv:
+            fail(f"{run}: tp 1's kv_stats carries a shard view: {kv}")
+        twin = f"tp_{layout}_tp1" if quant == wq == "none" and not spec \
+            else run.replace(f"tp{tp}", "tp1")
+        if tp > 1 or psum:
+            row["streams"] = tp_compare(got, runs[twin]["got"])
+            if not psum and not all(v["equal"]
+                                    for v in row["streams"].values()):
+                parted.append(run)
+        if layout == "dense" and quant == wq == "none" and not spec and \
+                not psum:
+            row["decode_step_device_ms"] = tp_timed_step(torch, cb, prompts)
+        row["wall_s"] = time.perf_counter() - t_run
+        emit(row)
+        runs[run] = {**row, "got": got}
+        del cb
+        gc.collect()
+        torch.cuda.empty_cache()
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, parted
+
+
+def tp_timed_prefill(torch, generate, cfg, params) -> float:
+    """Device ms of one TP_PREFILL_ROWS-token prefill at tp 1 in chunks
+    of TP_PREFILL_CHUNK rows through the kernel path, under this
+    process's cuBLAS setting: one warm-up, then TP_PREFILL_REPS between
+    CUDA events (the chunks' M is the size where the workspace setting
+    can choose other GEMM algorithms)."""
+    gen = torch.Generator(device=TP_DEVICE)
+    gen.manual_seed(SEED + 26)
+    n, c = TP_PREFILL_ROWS, TP_PREFILL_CHUNK
+    toks = torch.randint(1, cfg.vocab_size, (1, n), generator=gen,
+                         device=TP_DEVICE)
+    cache = generate.KVCache.init(cfg, 1, n, TP_DEVICE)
+
+    def prefill():
+        for i in range(0, n, c):
+            generate._forward_cached(params, toks[:, i:i + c], cache, i,
+                                     cfg, last_only=True)
+
+    prefill()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TP_PREFILL_REPS):
+        prefill()
+    end.record()
+    end.synchronize()
+    del cache
+    return start.elapsed_time(end) / TP_PREFILL_REPS
+
+
+def tp_parting_gaps(torch, generate, tp_serving, cfg, params, got: tuple,
+                    want: tuple, tp: int) -> list:
+    """Where a greedy stream at tp ``tp`` (``got``) first parts in tokens
+    from tp 1's (``want``): the two tokens' f32 logit gap on each side,
+    from one forward of the common prefix through the plain attention,
+    at tp 1 and at tp ``tp`` (the mesh ``[TP_DEVICE] * tp``) under this
+    process's cuBLAS setting, with the token each side picks there and
+    how far the two sides' logits lie apart."""
+    rids, _, streams, asked = got
+    ref = want[2]
+    tcfg = dataclasses.replace(cfg, tp=tp)
+    mesh = tp_serving.serving_mesh(tp, cfg.n_kv_heads, [TP_DEVICE] * tp)
+    sharded = tp_serving.shard_serving_params(params, tcfg, mesh)
+    out = []
+    for rid in rids:
+        prompt, greedy = asked[rid]
+        toks, rt = streams[rid][0], ref[rid][0]
+        j = first_divergence(toks, rt)
+        if j is None or not greedy:
+            continue
+        g, w = toks[j], rt[j]
+        ctx = prompt + rt[:j]
+        whole = plain_logits(torch, generate, cfg, params, ctx)
+        cache = generate.scratch_cache(tcfg, 1, len(ctx), mesh)
+        shard = generate._forward_cached(
+            sharded, torch.tensor([ctx], device=TP_DEVICE), cache, 0, tcfg,
+            last_only=True, plain_attention=True)[0, -1].float()
+        gaps = {f"tp{k}": float((x[g] - x[w]).abs())
+                for k, x in ((1, whole), (tp, shard))}
+        out.append({"request": rid, "token": j, "got": g, "want": w,
+                    "logit_gap": gaps,
+                    "picks": {"tp1": int(whole.argmax()),
+                              f"tp{tp}": int(shard.argmax())},
+                    "logits_max_apart": float((whole - shard).abs().max()),
+                    "logits_rms_apart": float((whole - shard).pow(2).mean()
+                                              .sqrt()),
+                    "within_near_tie": {k: v <= NEAR_TIE
+                                        for k, v in gaps.items()}})
+        del cache, whole, shard
+    del sharded
+    return out
+
+
+def phase_tp_exact(torch, batching, sampling, spec_mod, prefix_cache_mod,
+                   quantized_serving, kernel_support, rpa, cfg,
+                   params) -> dict:
+    """The phase's bit-for-bit half, in a process whose cuBLAS has no
+    workspace (``parallel/tp_serving.EXACT_CUBLAS_ENV``): every column
+    shard's product equal to the whole product's columns, and at tp 2
+    and 4 every stream equal to tp 1's in tokens and logprobs, dense and
+    paged, int8 KV, int8 weights and speculative at tp 2; psum at tp 2
+    reported; the prefill's device ms under the setting."""
+    from k8s_gpu_device_plugin_torch.models import generate
+
+    t0 = time.perf_counter()
+    probe = tp_gemm_probe(torch, quantized_serving, cfg, params)
+    unequal = [k for k, rows in probe.items()
+               if not all(r["equal"] for r in rows)]
+    if unequal:
+        fail(f"tp exact: column shards of {unequal} differ from the whole "
+             "product with no cuBLAS workspace")
+    runs, parted = tp_run_cells(torch, batching, sampling, spec_mod,
+                                prefix_cache_mod, quantized_serving,
+                                kernel_support, rpa, cfg, params,
+                                tp_cells(exact=True))
+    if parted:
+        fail(f"tp exact: streams of {parted} part from tp 1's")
+    summary = {
+        "prefill_device_ms": tp_timed_prefill(torch, generate, cfg, params),
+        "decode_step_device_ms": {tp: runs[f"tp_dense_tp{tp}"][
+            "decode_step_device_ms"] for tp in TP_DEGREES},
+        "k1_launches": sum(r["k1_launches"] for r in runs.values()),
+        "k1_launches_tp": sum(r["k1_launches"] for r in runs.values()
+                              if r["tp"] > 1),
+        "k1_launches_per_decode_step": {
+            run: r["k1_launches_per_decode_step"] for run, r in runs.items()},
+        "streams_equal_to_tp1": True,
+        "psum_streams": runs["tp_psum_dense_tp2"]["streams"],
+        "wall_s": time.perf_counter() - t0}
+    emit({"phase": 4, "run": "tp_exact", **summary})
+    return summary
+
+
+def tp_exact_child() -> None:
+    """``chip_smoke.py --tp-exact``: :func:`phase_tp_exact` on its own
+    copy of the Llama-3-8B weights (the same seed), drawn while the
+    parent builds the kernels, with K1 loaded from the parent's build
+    once it lands (the child never runs nvcc beside it)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script drives the port on a card")
+    sys.path.insert(0, ROOT)
+    from k8s_gpu_device_plugin_torch.models import batching, llama
+    from k8s_gpu_device_plugin_torch.models import quantized_serving
+    from k8s_gpu_device_plugin_torch.models import sampling
+    from k8s_gpu_device_plugin_torch.models import spec_batching as spec_mod
+    from k8s_gpu_device_plugin_torch.ops import kernel_support
+    from k8s_gpu_device_plugin_torch.ops import ragged_paged_attention as rpa
+    from k8s_gpu_device_plugin_torch.parallel import tp_serving
+    from k8s_gpu_device_plugin_torch.serving import prefix_cache as pc_mod
+    from k8s_gpu_device_plugin_torch.serving import server as server_mod
+
+    if not tp_serving.exact_cublas():
+        fail(f"--tp-exact runs under {tp_serving.EXACT_CUBLAS_ENV}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = server_mod.load_params(cfg, seed=SEED, device="cuda")
+    built = os.path.join(kernel_support.BUILD_DIR, f"lib{rpa.NAME}_"
+                         f"{kernel_support.build_key([rpa.SOURCE])}.so")
+    t0 = time.perf_counter()
+    while not os.path.exists(built):
+        if time.perf_counter() - t0 > TP_CHILD_TIMEOUT_S:
+            fail(f"--tp-exact: the parent's K1 build {built} never landed")
+        time.sleep(0.5)
+    rpa.load_kernel()
+    phase_tp_exact(torch, batching, sampling, spec_mod, pc_mod,
+                   quantized_serving, kernel_support, rpa, cfg, params)
+
+
+def start_tp_exact():
+    """Start the bit-for-bit half of the tp phase, ``chip_smoke.py
+    --tp-exact`` under no cuBLAS workspace (:func:`tp_exact_child`), at
+    the script's start: it draws its weights while this process builds
+    the kernels, and runs once K1 is built, beside phase 1's SASS count
+    only (no timed case shares the card with it)."""
+    from k8s_gpu_device_plugin_torch.parallel.tp_serving import (
+        EXACT_CUBLAS_ENV,
+    )
+
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-exact"],
+        env={**os.environ, **EXACT_CUBLAS_ENV}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    # a failure before the join must not leave the child behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def join_tp_exact(proc) -> dict:
+    """Wait for the ``--tp-exact`` child, relay its lines
+    (``child_elapsed_s``: the child's clock) and return its summary."""
+    try:
+        out, err = proc.communicate(timeout=TP_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    exact = None
+    for line in out.splitlines():
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            continue
+        if "elapsed_s" in obj:
+            obj["child_elapsed_s"] = obj.pop("elapsed_s")
+        if obj.get("run") == "tp_exact":
+            exact = obj
+        emit(obj)
+    if proc.returncode or exact is None:
+        fail(f"tp: the --tp-exact child exited {proc.returncode}: "
+             f"{out[-1500:]} {err[-1500:]}")
+    return exact
+
+
+def phase_tp(torch, batching, sampling, spec_mod, prefix_cache_mod,
+             quantized_serving, kernel_support, rpa, cfg, params,
+             exact: dict) -> dict:
+    """Tensor-parallel serving on one card (``parallel/tp_serving.py``),
+    the mesh ``["cuda:0"] * tp``. Under torch's default cuBLAS workspace
+    (this process): the column-product probe and tp 1 against tp 2
+    dense, reported (cuBLAS may split K otherwise for a narrower N: the
+    limit ROADMAP C records; streams that part while the probe finds
+    every shard equal fail), with the f32 logit gaps where greedy
+    streams part and the prefill's device ms (against the child's, the
+    cost of no workspace). ``exact`` is the bit-for-bit half's summary
+    (:func:`join_tp_exact`), run with no cuBLAS workspace in a child."""
+    from k8s_gpu_device_plugin_torch.models import generate
+    from k8s_gpu_device_plugin_torch.parallel import tp_serving
+
+    t0 = time.perf_counter()
+    probe = tp_gemm_probe(torch, quantized_serving, cfg, params)
+    runs, parted = tp_run_cells(torch, batching, sampling, spec_mod,
+                                prefix_cache_mod, quantized_serving,
+                                kernel_support, rpa, cfg, params,
+                                tp_cells(exact=False))
+    probe_equal = all(r["equal"] for rows in probe.values() for r in rows)
+    if parted and probe_equal:
+        fail(f"tp: streams of {parted} part from tp 1's while every column "
+             "shard's product equals the whole product's")
+    default = {"probe_all_equal": probe_equal,
+               "probe_unequal": {k: [r for r in rows if not r["equal"]]
+                                 for k, rows in probe.items()},
+               "streams": runs["tp_dense_tp2"]["streams"],
+               "parting_logit_gaps": tp_parting_gaps(
+                   torch, generate, tp_serving, cfg, params,
+                   runs["tp_dense_tp2"]["got"], runs["tp_dense_tp1"]["got"],
+                   2),
+               "decode_step_device_ms": {tp: runs[f"tp_dense_tp{tp}"][
+                   "decode_step_device_ms"] for tp in (1, 2)},
+               "prefill_device_ms": tp_timed_prefill(torch, generate, cfg,
+                                                     params),
+               "k1_launches": sum(r["k1_launches"] for r in runs.values())}
+    emit({"phase": 4, "run": "tp_default_workspace", **default})
+    summary = {**exact, "default_workspace": default,
+               "k1_launches": exact["k1_launches"] + default["k1_launches"],
+               "wall_s": time.perf_counter() - t0}
+    emit({"phase": 4, "run": "tp", "wall_s": summary["wall_s"],
+          "k1_launches": summary["k1_launches"]})
+    return {"summary": summary}
+
+
 # --- phase 4, speculative decoding --------------------------------------------
 
 # the speculative runs: Llama-3-8B drafting for itself (the draft shares
@@ -2016,7 +2638,8 @@ F32_LAYERS = 8          # the f32 self-draft: the target's first 8 layers
 TRUNC_LAYERS = 8        # spec_trunc's draft: the target's first 8 layers
 SPEC_EAGER_ROUNDS = 16  # replayed rounds held to the eager round
 SPEC_TIMED_ROUNDS = 10  # rounds (and plain steps) timed back to back
-SPEC_GENERATE_NEW = 64  # speculative_generate's tokens
+# speculative_generate's tokens (64 until the tp phase took its time)
+SPEC_GENERATE_NEW = 32
 
 
 def spec_refused(max_len: int = 2048) -> set:
@@ -2657,7 +3280,8 @@ def phase_spec_batcher(torch, batching, spec_mod, speculative, generate,
 # evicts the longest-running decode each time: request 0 (greedy), then
 # request PREEMPT_SEEDED (seeded, temperature 0.8)
 # (256 tokens out until the checkpoint phases took their time)
-PREEMPT_PROMPT, PREEMPT_MAX_NEW, PREEMPT_SLOTS = (190, 210), 128, 8
+# 128 tokens a request until the tp phase took its time
+PREEMPT_PROMPT, PREEMPT_MAX_NEW, PREEMPT_SLOTS = (190, 210), 96, 8
 PREEMPT_AFTER, PREEMPT_GAP, PREEMPT_HI_NEW = 32, 8, 32
 PREEMPT_SEEDED, PREEMPT_SEED, PREEMPT_TEMP = 1, 11, 0.8
 PREEMPT_RUNS = {"preempt_dense": ("dense", 1), "preempt_paged": ("paged", 1),
@@ -2699,7 +3323,8 @@ OVERLOAD_QUEUE, OVERLOAD_BURST = 2, 24
 
 # phase_arrivals: an open-loop schedule through the server, fifo and slo
 # (48 requests until the checkpoint phases took their time)
-ARRIVAL_N, ARRIVAL_PROMPTS, ARRIVAL_MAX_NEW = 32, (64, 512), (32, 128)
+# 32 requests of up to 128 tokens until the tp phase took its time
+ARRIVAL_N, ARRIVAL_PROMPTS, ARRIVAL_MAX_NEW = 16, (64, 512), (32, 96)
 ARRIVAL_HI_SHARE, ARRIVAL_DEADLINE_MS, ARRIVAL_LOAD = 0.2, 1500, 1.2
 
 
@@ -3716,7 +4341,7 @@ def phase_obs(torch, server_mod, batching, kernel_support, rpa, cfg,
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 1)  # phase_serving's six requests
     bodies = []
-    for i, (plen, max_new) in enumerate(REQUESTS):
+    for i, (plen, max_new) in enumerate(REQUESTS_HALF):
         body = {"prompt": rng.integers(0, cfg.vocab_size, plen).tolist(),
                 "max_new": max_new}
         if i == STREAMED:
@@ -4002,13 +4627,13 @@ def phase_moe(torch, server_mod, batching, sampling, generate, llama,
                         SERVING_RUNS["moe_w8"])
     serving = {"moe_w8_depth0": phase_serving(
         torch, server_mod, kernel_support, rpa, cfg, params, "moe_w8_depth0",
-        preset="mixtral_8x7b")}
+        preset="mixtral_8x7b", requests=REQUESTS_QUARTER)}
     gc.collect()
     torch.cuda.empty_cache()
     serving["moe_w8"] = phase_serving(
         torch, server_mod, kernel_support, rpa, cfg, params, "moe_w8",
         dense_tokens=serving["moe_w8_depth0"]["tokens"],
-        preset="mixtral_8x7b")
+        preset="mixtral_8x7b", requests=REQUESTS_QUARTER)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -8755,6 +9380,9 @@ def main() -> None:
     emit({"phase": 1, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device_count": torch.cuda.device_count()})
+    # the tp phase's bit-for-bit half: a child drawing its weights while
+    # the kernels build, joined before the first timed case
+    tp_child = start_tp_exact()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
         builds = {"ragged_paged_attention": pool.submit(rpa.load_kernel),
@@ -8764,6 +9392,7 @@ def main() -> None:
         libs = {name: b.result() for name, b in builds.items()}
     emit({"phase": 1, "build_s": time.perf_counter() - t0})
     phase_sass(kernel_support, libs)
+    tp_exact = join_tp_exact(tp_child)
 
     cases = phase_kernels(torch, rpa, quant, kernel_support)
     flash = phase_flash(torch, fa, kernel_support)
@@ -8804,6 +9433,11 @@ def main() -> None:
     prefix = phase_prefix(torch, server_mod, kernel_support, rpa, batching,
                           cfg, params)
     cow = phase_cow(torch, batching, prefix_cache_mod, cfg, params)
+    # tensor-parallel serving on the same weights: tp 1, 2 and 4 over one
+    # card (the mesh names it once a shard), the column products probed
+    tp_runs = phase_tp(torch, batching, sampling, spec_mod, prefix_cache_mod,
+                       quantized_serving, kernel_support, rpa, cfg, params,
+                       tp_exact)
     # speculative decoding: the server with a self-draft (spec_self,
     # spec_prefix, spec_sampled), then the round at batcher level
     # (its time, spec_trunc, speculative_generate); all of it freed
@@ -8865,7 +9499,8 @@ def main() -> None:
             graphs[run] = phase_graph(torch, batching, sampling, cfg, qparams,
                                       run, SERVING_RUNS[run])
         serving[run] = phase_serving(torch, server_mod, kernel_support, rpa,
-                                     cfg, qparams, run)
+                                     cfg, qparams, run,
+                                     requests=REQUESTS_HALF)
         del qparams
         gc.collect()
         torch.cuda.empty_cache()
@@ -8964,7 +9599,8 @@ def main() -> None:
         + sum(beam[d]["k1_launches"] for d in ("bf16", "f32"))
         + sum(window["rolling"][d][f"k1_launches_{run}"]
               for d in ("bf16", "f32") for run in ("rolling", "unbounded"))
-        + ckpt["k1_launches"] + tiny_k1 + wide_k1,
+        + ckpt["k1_launches"] + tiny_k1 + wide_k1
+        + tp_runs["summary"]["k1_launches"],
         {"max_err_bf16": err_bf16, "max_err_f32": err_f32},
         {k: head[k] for k in keys},
         {"headline_case": "decode bfloat16, B=8 S=2048 Hq=32 Hkv=8 hd=128, "
@@ -8984,6 +9620,21 @@ def main() -> None:
                                    "stale_entries": c.get("stale_entries")}
                        for c in cases if c["window"] == MISTRAL_WINDOW}},
          "cow_check": cow,
+         # tensor-parallel serving: each shard's K1 on its own heads (tp x
+         # 32 launches a decode step), and phase 2's per-shard cases
+         "tp": {
+             "launches": tp_runs["summary"]["k1_launches"],
+             "launches_at_tp_gt_1": tp_runs["summary"]["k1_launches_tp"],
+             "launches_per_decode_step": tp_runs["summary"][
+                 "k1_launches_per_decode_step"],
+             "decode_step_device_ms": tp_runs["summary"][
+                 "decode_step_device_ms"],
+             "streams_equal_to_tp1": tp_runs["summary"][
+                 "streams_equal_to_tp1"],
+             "cases": {f"{c['case']} {c['dtype']}": {
+                 **{k: c[k] for k in keys}, "plan": c["plan"],
+                 "max_abs_err": c["max_abs_err"]}
+                 for c in cases if "_shard_" in c["case"]}},
          # preemption: the re-prefill counted as chunk launches, and the
          # windowed page-relief victim
          "preempt": {k: preempt[k] for k in
@@ -9204,4 +9855,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--tp-exact"]:
+        tp_exact_child()
+    else:
+        main()

@@ -592,6 +592,25 @@ class ServingMetrics:
                     1 if backend == active else 0
                 )
 
+    def set_kv_shards(self, shards) -> None:
+        """Per-shard KV residency under tensor-parallel serving: one dict
+        a shard from ``kv_stats()["shards"]`` (built on the engine
+        thread; this hook only writes gauges). Never called at tp=1: the
+        aggregate gauges are that surface."""
+        for s in shards:
+            label = str(s["shard"])
+            self.kv_shard_reserved_bytes.labels(shard=label).set(
+                s["reserved_bytes"])
+            if "pages_in_use" in s:
+                self.kv_shard_pages_in_use.labels(shard=label).set(
+                    s["pages_in_use"])
+            if "in_use_bytes" in s:
+                self.kv_shard_in_use_bytes.labels(shard=label).set(
+                    s["in_use_bytes"])
+            if "chip" in s:
+                self.kv_shard_chip.labels(
+                    shard=label, chip=str(s["chip"])).set(1)
+
     # --- scheduler hooks (serving/scheduler.py) ---
 
     def observe_queue_wait(self, seconds: float) -> None:

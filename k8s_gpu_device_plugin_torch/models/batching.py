@@ -98,9 +98,21 @@ chunk over the last rows instead; a chunk's arithmetic is not a decode
 step's, so on a card that resamples the first resumed token from other
 bits.)
 
+Tensor parallelism (``tp``, ``parallel/tp_serving.py``): the mesh is
+built first, under the reference's flag rule, then the weights are
+sharded (``ShardedParams``: column shards, replicated reductions) and
+the cache is one contiguous plane of heads a shard
+(``generate.ShardedKVCache``); everything else stays one host-side
+batcher: one page allocator whose page ids mean the same page on every
+shard, one set of per-slot inputs on the mesh's primary device, one
+decode graph that captures the whole shard loop where the mesh has one
+distinct device. ``kv_stats`` adds the shard view at tp > 1 only.
+``tp_devices`` names the mesh's devices and may repeat one: torch has no
+forced host device count.
+
 Constructor arguments the reference has and the port does not serve yet
-(tensor parallelism, the device allocation) are refused when set, never
-ignored, naming the ROADMAP item that brings them.
+(the device allocation) are refused when set, never ignored, naming the
+ROADMAP item that brings them.
 
 The speculative batcher (``models/spec_batching.py``) is a subclass that
 overrides the reference's seams: the prefill's chunk and finish
@@ -120,7 +132,13 @@ from dataclasses import dataclass, field, replace
 
 import torch
 
-from k8s_gpu_device_plugin_torch.models.generate import KVCache, _forward_cached
+from k8s_gpu_device_plugin_torch.models.generate import (
+    KVCache,
+    ShardedKVCache,
+    _forward_cached,
+    kv_shards,
+    scratch_cache,
+)
 from k8s_gpu_device_plugin_torch.models.llama import (
     LlamaConfig,
     cast_params_for_compute,
@@ -133,6 +151,7 @@ from k8s_gpu_device_plugin_torch.models.lora_serving import (
 from k8s_gpu_device_plugin_torch.models.paging import (
     PagePool,
     kv_pool_planes,
+    kv_shard_token_bytes,
     kv_token_bytes,
     kv_wire_planes,
     kv_wire_rows,
@@ -153,6 +172,15 @@ from k8s_gpu_device_plugin_torch.models.sampling import (
 from k8s_gpu_device_plugin_torch.obs.trace import attach, get_tracer
 from k8s_gpu_device_plugin_torch.ops import kernel_support
 from k8s_gpu_device_plugin_torch.ops.attention import attention_backend_plan
+from k8s_gpu_device_plugin_torch.parallel.tp_serving import (
+    EXACT_CUBLAS_ENV,
+    KV_HEAD_AXIS,
+    ShardedParams,
+    exact_cublas,
+    serving_mesh,
+    shard_serving_params,
+    sharded_bytes,
+)
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
 #: the reference's prompt bucket ladder: a bucketed prefill pads the
@@ -163,7 +191,6 @@ DEFAULT_PROMPT_BUCKETS: tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
 # yet: (the value that means "not used", the ROADMAP item that brings
 # them); anything else is refused
 _UNSERVED_INIT = {
-    "tp": (None, "A.12"),
     "devices": (None, "A.14"),
 }
 
@@ -235,14 +262,25 @@ class BatchState:
 
 def init_batch_state(cfg: LlamaConfig, n_slots: int, max_len: int,
                      device: "str | torch.device",
-                     n_pages: int = 0) -> BatchState:
+                     n_pages: int = 0, mesh=None) -> BatchState:
+    """The batch state; with a tensor-parallel ``mesh``
+    (``parallel/tp_serving.py``) the cache is one contiguous shard of
+    heads a shard on its device (``ShardedKVCache``), every other leaf
+    replicated on ``device``, the mesh's primary device."""
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     paged = cfg.kv_layout == "paged"
+    if mesh is not None:
+        cache = (ShardedKVCache.init_paged(cfg, n_pages, cfg.kv_page_size,
+                                           mesh)
+                 if paged else ShardedKVCache.init(cfg, n_slots, max_len,
+                                                   mesh))
+    else:
+        cache = (KVCache.init_paged(cfg, n_pages, cfg.kv_page_size, device)
+                 if paged else KVCache.init(cfg, n_slots, max_len, device))
     return BatchState(
-        cache=(KVCache.init_paged(cfg, n_pages, cfg.kv_page_size, device)
-               if paged else KVCache.init(cfg, n_slots, max_len, device)),
+        cache=cache,
         lengths=zeros((n_slots,), torch.int32),
         last_token=zeros((n_slots,), torch.int64),
         active=zeros((n_slots,), torch.bool),
@@ -288,7 +326,7 @@ def decode_step(
         pages = torch.where(was_active[:, None], state.pages,
                             torch.zeros_like(state.pages))
     else:
-        cache_len = state.cache.k.shape[2]
+        cache_len = kv_shards(state.cache)[0].k.shape[2]
         pages = None
     write_pos = torch.where(was_active, state.lengths,
                             torch.full_like(state.lengths, cache_len - 1))
@@ -331,7 +369,9 @@ class DecodeGraph:
     Kernel wrappers count launches on the host, which a replay never
     reaches: the capture's counts are recorded (the capture itself
     launches nothing) and every replay adds them. A failed capture or
-    replay raises; nothing falls back to the eager step."""
+    replay raises; nothing falls back to the eager step. Under tensor
+    parallelism over one distinct device the capture holds every shard's
+    products and kernels: one replay, tp K1 launches a layer."""
 
     def __init__(self, step, generator: torch.Generator,
                  device: torch.device):
@@ -407,19 +447,21 @@ def _insert_rows(state: BatchState, rows: KVCache, slot: int,
     through the slot's page table on the paged one (row i lands in page
     ``pages[slot, i // ps]`` at offset ``i % ps``; rows past the slot's
     reservation land in the trap page)."""
-    p = rows.k.shape[2]
+    p = kv_shards(rows)[0].k.shape[2]
     if cfg.kv_layout == "paged":
         ps = cfg.kv_page_size
-        idx = torch.arange(p, device=rows.k.device)
+        idx = torch.arange(p, device=state.pages.device)
         pidx, off = state.pages[slot][idx // ps].long(), idx % ps
-    for name in ("k", "v", "k_scale", "v_scale"):
-        full, part = getattr(state.cache, name), getattr(rows, name)
-        if full is None:  # an unquantized cache has no scale planes
-            continue
-        if cfg.kv_layout == "paged":
-            full[:, pidx, off] = part[:, 0]
-        else:
-            full[:, slot, :p] = part[:, 0]
+    for dst, src in zip(kv_shards(state.cache), kv_shards(rows)):
+        for name in ("k", "v", "k_scale", "v_scale"):
+            full, part = getattr(dst, name), getattr(src, name)
+            if full is None:  # an unquantized cache has no scale planes
+                continue
+            if cfg.kv_layout == "paged":
+                full[:, pidx.to(full.device), off.to(full.device)] = \
+                    part[:, 0]
+            else:
+                full[:, slot, :p] = part[:, 0]
 
 
 def prefill_insert(
@@ -437,7 +479,7 @@ def prefill_insert(
     ``seeds`` (1,) at draw 0, and the slot is activated. Returns (token
     (1,) int64, its logprob (1,) f32) on the device."""
     p = prompt.shape[0]
-    scratch = KVCache.init(cfg, 1, p, prompt.device)
+    scratch = scratch_cache(cfg, 1, p, state.cache)
     logits = _forward_cached(params, prompt[None, :], scratch, 0, cfg,
                              select_pos=prompt_len - 1, lora_sel=sel)[:, 0]
     seen = torch.zeros_like(state.presence[slot])
@@ -731,6 +773,9 @@ class ContinuousBatcher:
         #   n_slots (gathered); 0 = the dense-N stacks of an AdapterSet
         adapter_cache_mb: int = 0,  # the gathered store's device budget
         #   (MiB) when built from an AdapterSet; 0 = every adapter resident
+        tp: "int | None" = None,  # None = take cfg.tp (1 = one device)
+        tp_devices=None,  # the tp mesh's devices, one a shard, repeats
+        #   allowed; None = the visible CUDA cards
         **unserved,
     ):
         _refuse("ContinuousBatcher", unserved, _UNSERVED_INIT)
@@ -773,6 +818,23 @@ class ContinuousBatcher:
                               else int(kv_page_size)),
             )
         check_cache_quant_kv_layout(cfg)
+        # tensor parallelism rides in the config too; the mesh (and the
+        # startup rule: tp divides the device count and the KV heads)
+        # comes first, before anything is allocated against it
+        if tp is not None and int(tp) != cfg.tp:
+            cfg = replace(cfg, tp=int(tp))
+        self.mesh = None
+        if cfg.tp > 1:
+            self.mesh = serving_mesh(cfg.tp, cfg.n_kv_heads, tp_devices)
+            if params["embed"].device != self.mesh.primary:
+                raise ValueError(
+                    f"params lie on {params['embed'].device} but the tp "
+                    f"mesh's first shard is on {self.mesh.primary}: load "
+                    "the weights onto the mesh's first device")
+        elif tp_devices is not None:
+            raise ValueError(
+                "tp_devices names the devices of a tp > 1 mesh; this "
+                "batcher serves tp=1")
         paged = cfg.kv_layout == "paged"
         if paged:
             if not self.supports_paged_kv:
@@ -817,6 +879,23 @@ class ContinuousBatcher:
         self.params = cast_params_for_compute(params, cfg)
         self._init_adapters(adapters, lora_slots, adapter_cache_mb, cfg,
                             n_slots)
+        if self.mesh is not None:
+            if len(self.mesh.distinct) > 1 and self.adapter_store is not None:
+                raise ValueError(
+                    "gathered LoRA serving writes its compact stacks in "
+                    "place on one device; a tp mesh over distinct devices "
+                    "would serve stale replicas (ROADMAP A.14)")
+            if self.device.type == "cuda" and not exact_cublas():
+                get_logger().warning(
+                    "tp=%d on a card without %s: cuBLAS may split a column "
+                    "shard's K otherwise than the whole product's, and the "
+                    "streams part from tp=1's (ROADMAP C)", cfg.tp,
+                    EXACT_CUBLAS_ENV)
+            # the load-time shard: column-cut projections and lm_head,
+            # replicated reduction weights; adapter stacks (attached
+            # above) and quantized leaves replicate
+            self.params = shard_serving_params(self.params, cfg, self.mesh)
+            self.weight_stats["shard_bytes"] = sharded_bytes(self.params)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -836,7 +915,7 @@ class ContinuousBatcher:
             kv_layout=cfg.kv_layout, page_size=cfg.kv_page_size,
             cache_quant=cfg.cache_quant,
             chunk=self.chunk or self.buckets[-1],
-            window=cfg.sliding_window,
+            window=cfg.sliding_window, tp=cfg.tp,
         )
         for mode, plan in self.attn_plan.items():
             if plan["backend"] == "unsupported":
@@ -885,7 +964,7 @@ class ContinuousBatcher:
         self._kv_rejections = {"pool_pressure": 0, "request_too_large": 0}
         self._kv_rejections_lock = threading.Lock()
         self.state = init_batch_state(cfg, n_slots, max_len, self.device,
-                                      n_pages=n_pages)
+                                      n_pages=n_pages, mesh=self.mesh)
         # unseeded draws of every slot come from this one generator
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -933,6 +1012,13 @@ class ContinuousBatcher:
             raise ValueError(
                 f"decode_graph=True needs a CUDA device, not {dev}: the "
                 "CPU runs the eager decode step")
+        if (on_cuda and decode_graph is not False and self.mesh is not None
+                and len(self.mesh.distinct) > 1):
+            raise ValueError(
+                f"the decode graph captures one device's stream; a tp mesh "
+                f"over {len(self.mesh.distinct)} distinct cards is not "
+                "captured (ROADMAP A.14): pass decode_graph=False for the "
+                "eager step, or tp_devices naming one card")
         # pinned landing buffers for the readback (made at the first
         # dispatch, shaped like the step's results), two so that step
         # t+1's copy never lands on step t's before the host read it
@@ -1081,6 +1167,14 @@ class ContinuousBatcher:
             raise ValueError(
                 "prefix cache already holds entries materialized under "
                 f"kv_layout={held!r} (this batcher's: {cfg.kv_layout!r})")
+        if pc.stats.entries and getattr(pc.cfg, "tp", 1) != cfg.tp:
+            # dense entries hold rows split over the promoting batcher's
+            # shards: serving them under another mesh would reshard them
+            raise ValueError(
+                "prefix cache already holds entries materialized "
+                f"under tp={getattr(pc.cfg, 'tp', 1)} "
+                f"(this batcher's: {cfg.tp}); attach a fresh "
+                "PrefixCache")
         pc.chunk = self.chunk
         pc.buckets = self.buckets
         # paged entries round their residency up to whole pages
@@ -1302,16 +1396,18 @@ class ContinuousBatcher:
                 f"kv wire blob was exported from a "
                 f"cache_quant={meta.get('cache_quant')!r} pool; this "
                 f"batcher serves cache_quant={quant!r}")
-        want = {name: leaf for name, leaf in (
-            ("k", self.state.cache.k), ("v", self.state.cache.v),
-            ("k_scale", self.state.cache.k_scale),
-            ("v_scale", self.state.cache.v_scale)) if leaf is not None}
+        shard0 = kv_shards(self.state.cache)[0]
+        want = {name: getattr(shard0, name)
+                for name in ("k", "v", "k_scale", "v_scale")
+                if getattr(shard0, name) is not None}
         if set(planes) != set(want):
             raise ValueError(
                 f"kv wire blob carries planes {sorted(planes)} but this "
                 f"pool holds {sorted(want)} (quantization mismatch?)")
         for name, x in planes.items():
             rows, dtype = kv_wire_rows(name, want[name], quant)
+            # the wire carries every head; a shard holds heads / tp
+            rows = (*rows[:2], rows[2] * self.cfg.tp, rows[3])
             got = (x.shape[0], *x.shape[2:])
             declared = blob["planes"][name]["dtype"]
             if got != rows or declared != dtype:
@@ -1320,9 +1416,16 @@ class ContinuousBatcher:
                     f"{declared}; this pool's rows are (L={rows[0]}, n, "
                     f"{rows[1]}, {rows[2]}, {rows[3]}) {dtype}")
         planes = kv_pool_planes(planes, quant)
+        if self.mesh is not None:
+            # one contiguous part a shard, its heads
+            planes = {name: tuple(p.contiguous() for p in x.chunk(
+                self.cfg.tp, dim=KV_HEAD_AXIS)) for name, x in planes.items()}
         if on_card:
-            planes = {name: x if x.is_pinned() else x.pin_memory()
-                      for name, x in planes.items()}
+            def pin(x):
+                return x if x.is_pinned() else x.pin_memory()
+
+            planes = {name: tuple(pin(p) for p in x) if isinstance(x, tuple)
+                      else pin(x) for name, x in planes.items()}
         return KvInstall(tokens=int(meta["tokens"]),
                          n_pages=int(meta["n_pages"]), planes=planes)
 
@@ -1989,13 +2092,51 @@ class ContinuousBatcher:
             self.metrics.on_kv_admission_rejected(reason)
 
     def _report_kv_gauges(self) -> None:
-        """The paged pool's occupancy gauges (the dense layout has
-        none)."""
-        if self.metrics is None or self.pool is None:
+        """The paged pool's occupancy gauges (the dense layout has none)
+        and, under tp > 1, the per-shard ones."""
+        if self.metrics is None:
+            return
+        self._report_kv_shard_gauges()
+        if self.pool is None:
             return
         s = self.kv_stats()
         self.metrics.set_kv_pages(s["pages_total"], s["pages_in_use"],
                                   s["fragmentation_pct"])
+
+    def _report_kv_shard_gauges(self) -> None:
+        """Per-shard KV gauges, tp > 1 only: the tp = 1 gauge surface is
+        the single-device server's."""
+        if self.metrics is None or self.cfg.tp <= 1:
+            return
+        set_shards = getattr(self.metrics, "set_kv_shards", None)
+        if set_shards is not None:
+            set_shards(self.kv_stats().get("shards", []))
+
+    def _kv_shard_view(self, out: dict) -> dict:
+        """``out`` with the per-shard view under tp > 1: one entry a
+        shard, each holding its heads of every row or page (page counts
+        are the same on every shard, one host-side table, while the
+        bytes behind them split by tp). tp = 1 returns ``out`` as it
+        is."""
+        if self.cfg.tp <= 1:
+            return out
+        per = kv_shard_token_bytes(self.cfg)
+        shards = []
+        for i in range(self.cfg.tp):
+            s: dict = {"shard": i}
+            if self.pool is None:
+                s["reserved_bytes"] = self.n_slots * self.max_len * per
+            else:
+                pool = self.pool
+                s["reserved_bytes"] = pool.n_pages * pool.page_size * per
+                s["in_use_bytes"] = pool.in_use * pool.page_size * per
+                s["pages_total"] = pool.capacity
+                s["pages_in_use"] = pool.in_use
+                s["pages_free"] = pool.free_pages
+            shards.append(s)
+        out["tp"] = self.cfg.tp
+        out["shards"] = shards
+        return out
 
     def kv_rejections(self) -> dict:
         """Paged admissions refused (``request_too_large``) or made to
@@ -2010,21 +2151,24 @@ class ContinuousBatcher:
         pool's occupancy and its internal fragmentation (allocated page
         capacity not covered by live tokens: tail-page waste and pages
         that promoted prefixes pin), the pages recycled out of windows and
-        the pages prefix hits aliased. A snapshot: the HTTP thread reads it
-        while the engine thread admits and retires."""
+        the pages prefix hits aliased. Under tp > 1 a ``shards`` list
+        reports each shard's part beside the aggregates; at tp = 1 the
+        dict has no ``tp`` or ``shards`` key. A snapshot: the HTTP thread
+        reads it while the engine thread admits and retires."""
         tb = kv_token_bytes(self.cfg)
         # attn_window only when windowed: at window 0 the dict is the
         # window-less one, as the reference keeps it
         windowed = {"attn_window": self.window} if self.window else {}
         if self.pool is None:
-            return {"layout": "dense", **windowed,
-                    "reserved_bytes": self.n_slots * self.max_len * tb}
+            return self._kv_shard_view({
+                "layout": "dense", **windowed,
+                "reserved_bytes": self.n_slots * self.max_len * tb})
         live = sum(len(r.prompt) + len(r.out) - r.prefilled_out
                    for r in list(self.running.values()))
         live += sum(self._prefill_pos.get(s, 0) for s in list(self.prefilling))
         pool = self.pool
         cap_tokens = pool.in_use * pool.page_size
-        return {
+        return self._kv_shard_view({
             "layout": "paged",
             **windowed,
             "page_size": pool.page_size,
@@ -2040,7 +2184,7 @@ class ContinuousBatcher:
             ),
             "reserved_bytes": pool.n_pages * pool.page_size * tb,
             "in_use_bytes": cap_tokens * tb,
-        }
+        })
 
     def decode_stats(self) -> dict:
         """How the decode step runs, for ``/v1/health``: the pipeline
@@ -2102,10 +2246,13 @@ class ContinuousBatcher:
         index = self._h2d(ids, torch.int64)
         planes = {}
         for name in ("k", "v", "k_scale", "v_scale"):
-            leaf = getattr(self.state.cache, name)
-            if leaf is None:
+            leaves = [getattr(c, name) for c in kv_shards(self.state.cache)]
+            if leaves[0] is None:
                 continue
-            rows = leaf.index_select(1, index)
+            # every shard's heads, gathered: the wire is tp-agnostic
+            rows = torch.cat([x.index_select(1, index.to(x.device))
+                              .to(self.device) for x in leaves],
+                             dim=KV_HEAD_AXIS)
             if self.device.type == "cuda":
                 host = torch.empty(rows.shape, dtype=rows.dtype,
                                    pin_memory=True)
@@ -2150,8 +2297,11 @@ class ContinuousBatcher:
                 if req.span is not None else None)
         index = self._h2d(self._slot_pages[slot][:kv.n_pages], torch.int64)
         for name, host in kv.planes.items():
-            getattr(self.state.cache, name).index_copy_(
-                1, index, host.to(self.device, non_blocking=True))
+            parts = host if isinstance(host, tuple) else (host,)
+            for c, part in zip(kv_shards(self.state.cache), parts):
+                leaf = getattr(c, name)
+                leaf.index_copy_(1, index.to(leaf.device),
+                                 part.to(leaf.device, non_blocking=True))
         st = self.state
         presence = st.presence[slot]
         presence.zero_()
@@ -3080,7 +3230,8 @@ def _precompute_prefix(params: dict, prefix: torch.Tensor, prefix_len: int,
     the real tokens only (causal attention keeps the padding out of the
     real rows' K/V)."""
     p = prefix.shape[0]
-    scratch = KVCache.init(cfg, 1, p, prefix.device)
+    like = params.mesh if isinstance(params, ShardedParams) else prefix.device
+    scratch = scratch_cache(cfg, 1, p, like)
     _forward_cached(params, prefix[None, :], scratch, 0, cfg, select_pos=0,
                     lora_sel=sel)
     seen = torch.zeros((cfg.vocab_size,), dtype=torch.bool,
@@ -3109,7 +3260,13 @@ def precompute_prefix(
         raise ValueError(
             f"precompute_prefix(adapter={adapter}) needs n_adapters > 0 "
             "(pass the batcher's adapter count and its .params)")
-    params = cast_params_for_compute(params, cfg)
+    if cfg.tp > 1 and not isinstance(params, ShardedParams):
+        # the rows a slot takes must come from the sharded forward
+        raise ValueError(
+            f"precompute_prefix at tp={cfg.tp} needs the batcher's sharded "
+            ".params (parallel/tp_serving.shard_serving_params)")
+    if not isinstance(params, ShardedParams):  # sharded trees are cast
+        params = cast_params_for_compute(params, cfg)
     n = len(tokens)
     pad = next((b for b in sorted(prompt_buckets) if b >= n), n)
     device = params["embed"].device
@@ -3129,8 +3286,10 @@ def precompute_prefix(
         def cut(x):
             return None if x is None else x[:, :, :n].clone()
 
-        rows = KVCache(k=cut(rows.k), v=cut(rows.v),
-                       k_scale=cut(rows.k_scale), v_scale=cut(rows.v_scale))
+        parts = [KVCache(k=cut(r.k), v=cut(r.v), k_scale=cut(r.k_scale),
+                         v_scale=cut(r.v_scale)) for r in kv_shards(rows)]
+        rows = (ShardedKVCache(parts, rows.mesh)
+                if isinstance(rows, ShardedKVCache) else parts[0])
     return PrefixState(rows=rows, tokens=tuple(tokens), presence=seen,
                        adapter=adapter)
 
@@ -3153,9 +3312,11 @@ def extract_prefix_rows(state: BatchState, slot: int, p: int) -> KVCache:
     def cut(x):
         return None if x is None else x[:, slot:slot + 1, :p].clone()
 
-    c = state.cache
-    return KVCache(k=cut(c.k), v=cut(c.v), k_scale=cut(c.k_scale),
-                   v_scale=cut(c.v_scale))
+    rows = [KVCache(k=cut(c.k), v=cut(c.v), k_scale=cut(c.k_scale),
+                    v_scale=cut(c.v_scale)) for c in kv_shards(state.cache)]
+    if isinstance(state.cache, ShardedKVCache):
+        return ShardedKVCache(rows, state.cache.mesh)
+    return rows[0]
 
 
 def _paged_release_hook(cb: ContinuousBatcher):
@@ -3191,7 +3352,7 @@ def _alias_slot_pages(state: BatchState, row: torch.Tensor,
 def _copy_page(state: BatchState, src: int, dst: int) -> None:
     """Copy one physical page, every layer, codes and scale planes alike:
     the copy-on-write of a partially filled shared tail page."""
-    c = state.cache
-    for x in (c.k, c.v, c.k_scale, c.v_scale):
-        if x is not None:
-            x[:, dst].copy_(x[:, src])
+    for c in kv_shards(state.cache):
+        for x in (c.k, c.v, c.k_scale, c.v_scale):
+            if x is not None:
+                x[:, dst].copy_(x[:, src])

@@ -2,12 +2,13 @@
 
 Port of ``k8s_gpu_device_plugin_tpu/models/generate.py``: ``KVCache``
 (dense or a paged pool; bf16/f32, or int8 or packed int4 codes with f32
-scale planes), ``_quantize_kv``, ``_cache_write``, ``_cached_attention``,
+scale planes; ``ShardedKVCache`` its head shards under tensor
+parallelism), ``_quantize_kv``, ``_cache_write``, ``_cached_attention``,
 ``_qm_lora``, ``_project_qkv``, ``_decode_moe_mlp``, ``_mlp_out``,
-``_decode_block``,
-``_forward_cached``, ``prefill`` and ``generate``. Weight leaves may be
-weight-only quantized (``models/quantized_serving.py``): every projection
-goes through ``qmatmul`` and the lm_head through ``qhead_matmul``. A
+``_decode_block``, ``_forward_cached``, ``prefill`` and ``generate``.
+Weight leaves may be weight-only quantized
+(``models/quantized_serving.py``): every projection goes through
+``qmatmul`` and the lm_head through ``qhead_matmul``. A
 threaded LoRA selection adds each row's adapter delta to the targeted
 products (``models/lora_serving.py``).
 
@@ -19,6 +20,14 @@ only the logits. Every cache read goes through
 ragged-paged kernel, for decode (T=1) and every prefill chunk alike, on
 whichever of its routes the cache's layout and element type name; on
 the CPU its plain version, which is the reference's gather branch.
+
+The forward is a loop over the shards of a tensor-parallel serving mesh
+(``parallel/tp_serving.py``; one shard at tp = 1) where the reference is
+one sharded program: each shard projects its q/k/v heads from its
+column leaves, writes its own heads' cache rows and launches the kernel
+on its own contiguous planes (the reference's ``shard_map``); the heads
+are gathered before ``wo``, the MLP's columns before ``w2`` and the
+logits before sampling (the reference's ``constrain`` points).
 """
 
 from __future__ import annotations
@@ -60,6 +69,12 @@ from k8s_gpu_device_plugin_torch.ops.quant import (
 )
 from k8s_gpu_device_plugin_torch.ops.ragged_paged_attention import (
     ragged_paged_attention_reference,
+)
+from k8s_gpu_device_plugin_torch.parallel.tp_serving import (
+    COL,
+    ROW,
+    ServingMesh,
+    replicate,
 )
 
 
@@ -107,18 +122,21 @@ class KVCache:
 
     @staticmethod
     def init(cfg: LlamaConfig, batch: int, max_len: int,
-             device: "str | torch.device") -> "KVCache":
+             device: "str | torch.device", tp: int = 1) -> "KVCache":
+        """The dense cache; ``tp`` > 1 allocates one shard's
+        ``n_kv_heads / tp`` heads."""
         return KVCache._alloc(
-            cfg, (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-            device,
+            cfg, (cfg.n_layers, batch, max_len, cfg.n_kv_heads // tp,
+                  cfg.head_dim), device,
         )
 
     @staticmethod
     def init_paged(cfg: LlamaConfig, n_pages: int, page_size: int,
-                   device: "str | torch.device") -> "KVCache":
-        """The paged pool, ``n_pages`` counting the trap page 0."""
+                   device: "str | torch.device", tp: int = 1) -> "KVCache":
+        """The paged pool, ``n_pages`` counting the trap page 0; ``tp`` >
+        1 allocates one shard's ``n_kv_heads / tp`` heads."""
         return KVCache._alloc(
-            cfg, (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
+            cfg, (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads // tp,
                   cfg.head_dim), device,
         )
 
@@ -136,6 +154,55 @@ class KVCache:
         return (self.k[i], self.v[i],
                 None if self.k_scale is None else self.k_scale[i],
                 None if self.v_scale is None else self.v_scale[i])
+
+
+@dataclass
+class ShardedKVCache:
+    """A cache split on the KV-head axis over a tensor-parallel serving
+    mesh (``parallel/tp_serving.py``): shard ``i`` holds heads
+    ``[i * Hkv / tp, (i + 1) * Hkv / tp)`` of every plane, scale planes
+    included, as one contiguous :class:`KVCache` on ``mesh.devices[i]``.
+    It has no ``k``/``v`` of its own: code that touches the planes loops
+    over :func:`kv_shards`, so nothing writes one shard by mistake."""
+
+    shards: list
+    mesh: object  # parallel.tp_serving.ServingMesh
+
+    @staticmethod
+    def init(cfg: LlamaConfig, batch: int, max_len: int,
+             mesh) -> "ShardedKVCache":
+        return ShardedKVCache(
+            [KVCache.init(cfg, batch, max_len, d, mesh.tp)
+             for d in mesh.devices], mesh)
+
+    @staticmethod
+    def init_paged(cfg: LlamaConfig, n_pages: int, page_size: int,
+                   mesh) -> "ShardedKVCache":
+        return ShardedKVCache(
+            [KVCache.init_paged(cfg, n_pages, page_size, d, mesh.tp)
+             for d in mesh.devices], mesh)
+
+    def slot(self, slot: int) -> "ShardedKVCache":
+        return ShardedKVCache([c.slot(slot) for c in self.shards], self.mesh)
+
+
+def kv_shards(cache) -> list:
+    """The caches a write or a copy must touch: a :class:`KVCache`'s
+    one, a :class:`ShardedKVCache`'s per-shard ones."""
+    return cache.shards if isinstance(cache, ShardedKVCache) else [cache]
+
+
+def scratch_cache(cfg: LlamaConfig, batch: int, max_len: int, like):
+    """A fresh dense cache of ``batch`` rows x ``max_len`` placed like
+    ``like``: a cache, a serving mesh, or a device (tp = 1). The scratch
+    a bucketed prefill or a precomputed prefix runs through."""
+    if isinstance(like, ShardedKVCache):
+        like = like.mesh
+    if hasattr(like, "devices"):  # a parallel.tp_serving.ServingMesh
+        return ShardedKVCache.init(cfg, batch, max_len, like)
+    if isinstance(like, KVCache):
+        like = like.k.device
+    return KVCache.init(cfg, batch, max_len, like)
 
 
 def _quantize_kv(x: torch.Tensor, cache_quant: str = "int8",
@@ -224,15 +291,32 @@ def _cached_attention(q, k_cache, v_cache, k_scale, v_scale, base,
     )
 
 
-def _qm_lora(h, layer, name: str, sel, hf=None):
+def _tp_cols(y: torch.Tensor, shard: int, width: int) -> torch.Tensor:
+    """Shard ``shard``'s ``width`` output columns: ``y`` itself when it
+    came from a column shard (or is whole at tp = 1), else the slice of a
+    whole product (a replicated quantized leaf, a LoRA delta, an
+    unsharded bias)."""
+    if y.shape[-1] == width:
+        return y
+    return y.narrow(-1, shard * width, width)
+
+
+def _qm_lora(h, layer, name: str, sel, hf=None, shard: int = 0,
+             width: "int | None" = None):
     """``qmatmul`` plus the per-row stacked-adapter delta when this layer
     carries factors and a selection is threaded
     (``models/lora_serving.py``); with ``sel`` None the base path runs
     exactly what it runs without adapters. The delta (rounded to h's
     dtype) is added to the product in h's dtype, as the reference adds
-    it; ``hf`` is h in f32, shared by targets that read the same h."""
+    it; ``hf`` is h in f32, shared by targets that read the same h.
+    ``width`` keeps shard ``shard``'s output columns of a tensor-parallel
+    forward: the product of its column leaf, or the whole product of a
+    replicated leaf cut to them, plus the cut of the whole delta."""
     y = qmatmul(h, layer[name])
     d = maybe_lora(h, layer, name, sel, hf)
+    if width is not None:
+        y = _tp_cols(y, shard, width)
+        d = None if d is None else _tp_cols(d, shard, width)
     return y if d is None else y + d
 
 
@@ -244,6 +328,31 @@ def _lora_hf(h, layer, sel, targets: tuple):
     return h.float()
 
 
+_QKV = ("wq", "wk", "wv")
+
+
+def _shard_qkv(h, hf, layer, rot, cfg: LlamaConfig, sel, shard: int = 0,
+               tp: int = 1):
+    """Shard ``shard`` of ``tp``'s q (B, T, Hq/tp, hd), k and v
+    (B, T, Hkv/tp, hd) heads from the normed ``h``, roped; ``hf`` is
+    :func:`_lora_hf`'s."""
+    b, t, _ = h.shape
+    hd = cfg.head_dim
+    hq, hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    q = _qm_lora(h, layer, "wq", sel, hf, shard, hq * hd)
+    k = _qm_lora(h, layer, "wk", sel, hf, shard, hkv * hd)
+    v = _qm_lora(h, layer, "wv", sel, hf, shard, hkv * hd)
+    if cfg.attn_bias:
+        # base-model leaves (adapters never touch them), added after any
+        # LoRA delta
+        q = q + _tp_cols(layer["bq"], shard, hq * hd)
+        k = k + _tp_cols(layer["bk"], shard, hkv * hd)
+        v = v + _tp_cols(layer["bv"], shard, hkv * hd)
+    q = apply_rope(q.reshape(b, t, hq, hd), *rot)
+    return q, apply_rope(k.reshape(b, t, hkv, hd), *rot), \
+        v.reshape(b, t, hkv, hd)
+
+
 def _project_qkv(x, layer, rot, cfg: LlamaConfig, sel=None):
     """Decode-side QKV projection + rope: (B, T, d) -> q (B, T, Hq, hd),
     k and v (B, T, Hkv, hd); ``rot`` is :func:`rope_angles` of the
@@ -251,21 +360,8 @@ def _project_qkv(x, layer, rot, cfg: LlamaConfig, sel=None):
     adapter: S is the stack the params carry (every adapter in dense-N
     mode, the batch's compact slots when gathered), the one-hot over
     stack positions either way."""
-    b, t, _ = x.shape
-    hd = cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_offset)
-    hf = _lora_hf(h, layer, sel, ("wq", "wk", "wv"))
-    q = _qm_lora(h, layer, "wq", sel, hf)
-    k = _qm_lora(h, layer, "wk", sel, hf)
-    v = _qm_lora(h, layer, "wv", sel, hf)
-    if cfg.attn_bias:
-        # base-model leaves (adapters never touch them), added after any
-        # LoRA delta
-        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    q = q.reshape(b, t, cfg.n_heads, hd)
-    k = k.reshape(b, t, cfg.n_kv_heads, hd)
-    v = v.reshape(b, t, cfg.n_kv_heads, hd)
-    return apply_rope(q, *rot), apply_rope(k, *rot), v
+    return _shard_qkv(h, _lora_hf(h, layer, sel, _QKV), layer, rot, cfg, sel)
 
 
 #: rows of one MoE MLP pass: a longer T runs in chunks of this many
@@ -299,6 +395,15 @@ def _decode_moe_mlp(h, layer, cfg: LlamaConfig):
     return torch.einsum("bte,bted->btd", mix.to(h.dtype), y)
 
 
+def _mlp_hidden(h, hf, layer, cfg: LlamaConfig, sel, shard: int = 0,
+                width: "int | None" = None):
+    """The gated MLP's hidden activation ``act(h w1) * (h w3)`` from the
+    normed ``h``: all of it, or shard ``shard``'s ``width`` columns."""
+    gate = mlp_act(_qm_lora(h, layer, "w1", sel, hf, shard, width).float(),
+                   cfg).to(h.dtype)
+    return gate * _qm_lora(h, layer, "w3", sel, hf, shard, width)
+
+
 def _mlp_out(x, layer, cfg: LlamaConfig, sel=None):
     """The MLP residual branch, gated or (MoE) the expert mix
     (``sel``: :func:`_project_qkv`'s; adapters on a MoE config target
@@ -306,40 +411,129 @@ def _mlp_out(x, layer, cfg: LlamaConfig, sel=None):
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
     if cfg.is_moe:
         return _decode_moe_mlp(h, layer, cfg)
-    hf = _lora_hf(h, layer, sel, ("w1", "w3"))
-    gate = mlp_act(_qm_lora(h, layer, "w1", sel, hf).float(),
-                   cfg).to(x.dtype)
-    up = _qm_lora(h, layer, "w3", sel, hf)
-    return _qm_lora(gate * up, layer, "w2", sel)
+    hidden = _mlp_hidden(h, _lora_hf(h, layer, sel, ("w1", "w3")), layer,
+                         cfg, sel)
+    return _qm_lora(hidden, layer, "w2", sel)
 
 
-def _decode_block(x, layer, kv, length, base, rot, cfg: LlamaConfig,
-                  pages=None, verify: bool = False, plain: bool = False,
-                  sel=None):
-    """One transformer block over T new tokens: writes their K/V at
-    ``length + arange(T)`` (in place), attends, returns x_out. ``kv`` is
-    the layer's (k, v, k_scale, v_scale) cache views; ``base`` is
-    ``length`` as a (B,) int32 tensor and ``rot`` the rope angles, both
-    built once per forward. ``pages`` (B, n_slot_pages) switches the
-    cache to the paged pool: writes scatter through the table and reads
-    resolve through it. Weight leaves may be quantized (``qmatmul``);
-    ``sel`` adds the rows' adapter deltas to every targeted product."""
-    b, t, _ = x.shape
-    k_cache, v_cache, k_scale, v_scale = kv
-    q, k, v = _project_qkv(x, layer, rot, cfg, sel)
-    _cache_write(k_cache, k_scale, k, length, pages)
-    _cache_write(v_cache, v_scale, v, length, pages)
-    attn = _cached_attention(q, k_cache, v_cache, k_scale, v_scale, base,
-                             cfg, pages=pages, verify=verify, plain=plain)
-    x = x + _qm_lora(attn.reshape(b, t, cfg.n_heads * cfg.head_dim),
-                     layer, "wo", sel)
-    return x + _mlp_out(x, layer, cfg, sel)
+def _row_sum(parts: list, device: torch.device) -> torch.Tensor:
+    """The ``tp_allow_psum`` reduction: the shards' partial products,
+    each rounded to its dtype by its own matmul, summed on ``device`` in
+    shard order in that dtype (XLA's psum of a row-sharded bf16
+    ``dot_general``: per-shard bf16 partials, an all-reduce add in
+    bf16)."""
+    acc = parts[0].to(device)
+    for p in parts[1:]:
+        acc = acc + p.to(device)
+    return acc
+
+
+def _contract(acts: list, lays: list, rep: dict, name: str, place: dict,
+              sel: dict) -> dict:
+    """``wo`` or ``w2`` over the shards' head or column activations
+    ``acts``, per distinct device (``rep``'s keys): gathered (a
+    ``torch.cat``, data movement only; a tp = 1 forward's one part is
+    taken as it is) and contracted whole, or under ``tp_allow_psum`` the
+    shards' partial products of their row leaves summed, the LoRA delta
+    of the gathered activation added after."""
+    parts = None
+    if place.get(name) == ROW:
+        parts = [qmatmul(a, lays[s][name]) for s, a in enumerate(acts)]
+    out = {}
+    for d in rep:
+        g = acts[0] if len(acts) == 1 else torch.cat(
+            [a.to(d) for a in acts], dim=-1)
+        if parts is None:
+            out[d] = _qm_lora(g, rep[d], name, sel[d])
+            continue
+        y = _row_sum(parts, d)
+        delta = maybe_lora(g, rep[d], name, sel[d])
+        out[d] = y if delta is None else y + delta
+    return out
+
+
+def _decode_block(xs: dict, lays: list, kvs: list, length: dict,
+                  base: dict, rot: dict, cfg: LlamaConfig, mesh,
+                  place: dict, pages: dict, verify: bool, plain: bool,
+                  sel: dict) -> dict:
+    """One transformer block over T new tokens, over the shards of
+    ``mesh`` (one at tp = 1): writes their K/V at ``length +
+    arange(T)`` (in place), attends, returns x_out. ``xs`` maps each
+    distinct device of the mesh to its replica of the residual stream;
+    ``lays`` and ``kvs`` are the shards' layer leaves (quantized ones go
+    through ``qmatmul``) and (k, v, k_scale, v_scale) cache views; the
+    other dicts hold per-device replicas of the forward's inputs:
+    ``length`` as given, ``base`` it as a (B,) int32 tensor, ``rot`` the
+    rope angles, ``pages`` (B, n_slot_pages) the page table that
+    switches the cache to the paged pool (writes scatter through it and
+    reads resolve through it) or None, ``sel`` the rows' adapter
+    selection or None. Each shard projects its q/k/v heads from its
+    column leaves, writes its own heads' cache rows and attends them
+    (the kernel on its contiguous planes); the heads are gathered before
+    ``wo``, the MLP's columns before ``w2``, unless ``place`` row-shards
+    them (``tp_allow_psum``)."""
+    tp = mesh.tp
+    rep = {d: lays[mesh.first_shard_on(d)] for d in xs}
+    b, t, _ = next(iter(xs.values())).shape
+    hs = {d: rms_norm(x, rep[d]["attn_norm"], cfg.norm_eps,
+                      cfg.norm_offset) for d, x in xs.items()}
+    hfs = {d: _lora_hf(hs[d], rep[d], sel[d], _QKV) for d in xs}
+    attn = []
+    for s, dev in enumerate(mesh.devices):
+        q, k, v = _shard_qkv(hs[dev], hfs[dev], lays[s], rot[dev], cfg,
+                             sel[dev], s, tp)
+        k_cache, v_cache, k_scale, v_scale = kvs[s]
+        _cache_write(k_cache, k_scale, k, length[dev], pages[dev])
+        _cache_write(v_cache, v_scale, v, length[dev], pages[dev])
+        attn.append(_cached_attention(
+            q, k_cache, v_cache, k_scale, v_scale, base[dev], cfg,
+            pages=pages[dev], verify=verify, plain=plain).reshape(b, t, -1))
+    y = _contract(attn, lays, rep, "wo", place, sel)
+    xs = {d: x + y[d] for d, x in xs.items()}
+    if cfg.is_moe or place.get("w1") != COL:
+        # tp = 1, the dense-mix MoE decode and a replicated MLP run whole
+        return {d: x + _mlp_out(x, rep[d], cfg, sel[d])
+                for d, x in xs.items()}
+    ff = cfg.d_ff // tp
+    hs = {d: rms_norm(x, rep[d]["mlp_norm"], cfg.norm_eps, cfg.norm_offset)
+          for d, x in xs.items()}
+    hfs = {d: _lora_hf(hs[d], rep[d], sel[d], ("w1", "w3")) for d in xs}
+    hidden = [_mlp_hidden(hs[dev], hfs[dev], lays[s], cfg, sel[dev], s, ff)
+              for s, dev in enumerate(mesh.devices)]
+    y = _contract(hidden, lays, rep, "w2", place, sel)
+    return {d: x + y[d] for d, x in xs.items()}
+
+
+def _forward_shards(params, cache, cfg: LlamaConfig, device) -> tuple:
+    """(mesh, one weight tree a shard, placement, one cache a shard) of a
+    forward. A ``ShardedParams`` and a :class:`ShardedKVCache` carry
+    their mesh (``parallel/tp_serving.py``), as a jax array carries its
+    sharding; a plain tree and cache serve tp = 1 as the one-shard mesh
+    on ``device``. Anything else raises: no tp > 1 forward runs
+    unsharded."""
+    mesh = getattr(params, "mesh", None)
+    if mesh is None and cfg.tp == 1 and not isinstance(cache,
+                                                       ShardedKVCache):
+        return (ServingMesh((device,)), [cast_params_for_compute(params, cfg)],
+                {}, [cache])
+    if mesh is None or not isinstance(cache, ShardedKVCache):
+        raise ValueError(
+            f"a tp={cfg.tp} forward needs the serving mesh: params from "
+            "parallel.tp_serving.shard_serving_params and a "
+            f"ShardedKVCache, got {type(params).__name__} and "
+            f"{type(cache).__name__}")
+    if mesh.tp != cfg.tp or cache.mesh != mesh:
+        raise ValueError(
+            f"cfg.tp={cfg.tp} but the params are sharded over a "
+            f"{mesh.tp}-shard mesh and the cache over "
+            f"{cache.mesh.tp} shards of {cache.mesh.devices}")
+    return mesh, params.shards, params.placement, cache.shards
 
 
 def _forward_cached(
     params: dict,
     tokens: torch.Tensor,              # (B, T) int
-    cache: KVCache,
+    cache: "KVCache | ShardedKVCache",
     length: "int | torch.Tensor",      # scalar or (B,) first-token position
     cfg: LlamaConfig,
     *,
@@ -362,39 +556,67 @@ def _forward_cached(
     ``_cached_attention``). ``lora_sel`` (B, S) selects per-row stacked
     LoRA adapters when ``params["layers"]`` carries them
     (``models/lora_serving.py``); None serves the base model with no
-    added work."""
-    params = cast_params_for_compute(params, cfg)
+    added work.
+
+    A ``cfg.tp`` > 1 config takes a ``ShardedParams`` and a
+    :class:`ShardedKVCache` over one mesh (:func:`_forward_shards`): the
+    replicated work (embedding, norms, ``wo``, ``w2``, the lm_head's
+    gather) runs once on each distinct device of the mesh, the head and
+    column work once a shard, and the logits land on the mesh's primary
+    device. At tp = 1 the mesh is ``tokens``' device alone."""
+    mesh, trees, placement, caches = _forward_shards(params, cache, cfg,
+                                                     tokens.device)
+    prim = mesh.primary
     b, t = tokens.shape
-    device = tokens.device
-    x = params["embed"][tokens.long()].to(cfg.dtype)
-    if cfg.scale_embed:
-        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cfg.dtype,
-                           device=device)
-    steps = torch.arange(t, dtype=torch.int32, device=device)
+    tok = replicate(tokens.to(prim).long(), mesh)
+    xs = {}
+    for d in mesh.distinct:
+        x = trees[mesh.first_shard_on(d)]["embed"][tok[d]].to(cfg.dtype)
+        if cfg.scale_embed:
+            x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cfg.dtype,
+                               device=d)
+        xs[d] = x
+    steps = torch.arange(t, dtype=torch.int32, device=prim)
     if isinstance(length, torch.Tensor):  # per-slot positions (B, T)
-        base = length.to(device=device, dtype=torch.int32).contiguous()
+        base = length.to(device=prim, dtype=torch.int32).contiguous()
         positions = base[:, None] + steps[None, :]
+        lengths = replicate(length.to(prim), mesh)
     else:
-        base = torch.full((b,), int(length), dtype=torch.int32, device=device)
+        base = torch.full((b,), int(length), dtype=torch.int32, device=prim)
         positions = int(length) + steps
-    rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    layers = params["layers"]
-    sel = None
+        lengths = {d: length for d in mesh.distinct}
+    cos, sin = (replicate(x, mesh) for x in rope_angles(
+        positions, cfg.head_dim, cfg.rope_theta))
+    rot = {d: (cos[d], sin[d]) for d in mesh.distinct}
+    bases = replicate(base, mesh)
+    pages_r = (replicate(pages.to(prim), mesh) if pages is not None
+               else {d: None for d in mesh.distinct})
+    sel = {d: None for d in mesh.distinct}
     if lora_sel is not None:
         # once a forward: the folds run in the stacks' dtype (exact on a
         # one-hot row)
-        sel = lora_sel.to(device=device, dtype=cfg.dtype)
+        sel = replicate(lora_sel.to(device=prim, dtype=cfg.dtype), mesh)
+    place = placement.get("layers", {})
     for i in range(cfg.n_layers):
-        layer = {name: layer_slice(leaf, i) for name, leaf in layers.items()}
-        x = _decode_block(x, layer, cache.layer(i), length, base, rot, cfg,
-                          pages=pages, verify=verify, plain=plain_attention,
-                          sel=sel)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_offset)
-    if last_only:
-        x = x[:, -1:]
-    elif select_pos is not None:
-        x = x[:, select_pos:select_pos + 1]
-    return qhead_matmul(x, head_weights(params, cfg), cfg.dtype)
+        lays = [{name: layer_slice(leaf, i)
+                 for name, leaf in tree["layers"].items()} for tree in trees]
+        xs = _decode_block(
+            xs, lays, [c.layer(i) for c in caches], lengths, bases, rot,
+            cfg, mesh, place, pages_r, verify, plain_attention, sel)
+    for d in xs:
+        x = rms_norm(xs[d], trees[mesh.first_shard_on(d)]["final_norm"],
+                     cfg.norm_eps, cfg.norm_offset)
+        if last_only:
+            x = x[:, -1:]
+        elif select_pos is not None:
+            x = x[:, select_pos:select_pos + 1]
+        xs[d] = x
+    if placement.get("lm_head") == COL:
+        # vocab columns a shard, gathered for sampling: data movement
+        parts = [qhead_matmul(xs[dev], trees[s]["lm_head"], cfg.dtype)
+                 for s, dev in enumerate(mesh.devices)]
+        return torch.cat([p.to(prim) for p in parts], dim=-1)
+    return qhead_matmul(xs[prim], head_weights(trees[0], cfg), cfg.dtype)
 
 
 def prefill(params, prompt: torch.Tensor, cache: KVCache, cfg: LlamaConfig):

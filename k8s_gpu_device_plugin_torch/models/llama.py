@@ -27,7 +27,7 @@ when ``remat`` is set; its attention goes through
 expert products) through ``ops.quant``'s int8 products, whose outputs the
 remat policies save as they save the float products; ``fused_ce`` is read
 by the loss (``models/train.py``, ``ops/fused_ce.py``). The config
-refuses the values the port does not serve yet (tensor, sequence and
+refuses the values the port does not serve yet (sequence and
 pipeline parallelism) instead of ignoring them; each refusal names its
 ROADMAP item. Weight-only quantized serving params
 (``models/quantized_serving.py``) are dict leaves in the same tree: the
@@ -110,7 +110,15 @@ class LlamaConfig:
     # token rows per page when kv_layout == "paged": must divide the
     # batcher's max_len; the kernel takes a power of two >= 8
     kv_page_size: int = 64
+    # serving tensor parallelism (parallel/tp_serving.py): the decode path
+    # over a tp-shard mesh, column shards and head shards whose streams
+    # are tp=1's bit for bit; must divide n_kv_heads (checked where the
+    # mesh is built). Training refuses tp > 1 (ROADMAP A.13)
     tp: int = 1
+    # the explicit bit-identity opt-out at tp > 1: wo/w2 row-shard on
+    # their contraction axes and the shards' partial products are summed
+    # (one gather fewer a layer; the split reduction ends the tp=1 pin)
+    tp_allow_psum: bool = False
     # MoE (0 experts = dense MLP): Mixtral-style top-k routing, GShard
     # dispatch (models/moe.py)
     n_experts: int = 0
@@ -162,9 +170,11 @@ class LlamaConfig:
                 f"quant must be 'none' or 'int8', got {self.quant!r} (weight-"
                 "only serving quantization is models/quantized_serving.py)"
             )
+        if self.tp < 1:
+            raise ValueError(
+                f"tp must be >= 1 (1 = single-chip serving), got {self.tp}"
+            )
         refusals = (
-            ("tp", 1, "tensor-parallel serving is not ported yet (ROADMAP "
-             "A.12); serve tp=1 (one card)"),
             ("n_microbatches", 1, "pipeline parallelism is not ported yet "
              "(ROADMAP A.13); use n_microbatches=1"),
         )

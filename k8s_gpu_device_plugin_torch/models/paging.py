@@ -14,7 +14,10 @@ per-page reference counts. It never touches device memory. The device
 side is the ``(L, n_pages, page_size, Hkv, hd)`` pool in
 ``generate.KVCache`` and the table rows in ``BatchState.pages``; the
 batcher keeps the two in step (every table row it uploads was first
-reserved here).
+reserved here). Under tensor-parallel serving the pool stays one host
+allocator: each shard holds ``n_kv_heads / tp`` heads of every page
+(``generate.ShardedKVCache``), and a page id means the same page on
+every shard, so one table row serves them all.
 
 Page 0 is reserved as the trap page: unset table entries point at it,
 and the decode step redirects inactive slots' writes to it, so a freed

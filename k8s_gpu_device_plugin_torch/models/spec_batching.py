@@ -75,7 +75,10 @@ from k8s_gpu_device_plugin_torch.models.batching import (
     prefill_chunk,
     prefill_finish,
 )
-from k8s_gpu_device_plugin_torch.models.generate import _forward_cached
+from k8s_gpu_device_plugin_torch.models.generate import (
+    _forward_cached,
+    kv_shards,
+)
 from k8s_gpu_device_plugin_torch.models.llama import (
     LlamaConfig,
     cast_params_for_compute,
@@ -92,6 +95,9 @@ from k8s_gpu_device_plugin_torch.models.sampling import (
 from k8s_gpu_device_plugin_torch.models.speculative import _accept_round
 from k8s_gpu_device_plugin_torch.ops.attention import attention_backend_plan
 from k8s_gpu_device_plugin_torch.ops.ragged_paged_attention import MAX_VERIFY_T
+from k8s_gpu_device_plugin_torch.parallel.tp_serving import (
+    shard_serving_params,
+)
 from k8s_gpu_device_plugin_torch.utils.log import get_logger
 
 
@@ -129,7 +135,7 @@ def spec_decode_step(
         pages_d = torch.where(keep, draft_state.pages,
                               torch.zeros_like(draft_state.pages))
     else:
-        cache_len = state.cache.k.shape[2]
+        cache_len = kv_shards(state.cache)[0].k.shape[2]
         pages_t = pages_d = None
     base = torch.where(was_active, state.lengths,
                        torch.full_like(state.lengths, cache_len - gamma))
@@ -255,16 +261,27 @@ class SpeculativeBatcher(ContinuousBatcher):
         # rows past the accepted length (a recycled page could sit under a
         # rejected proposal's rewrite), and the draft has no growth path
         self._incremental_reserve = False
-        # the draft rides the target's layout: both caches' writes follow
-        # one schedule
+        if self.cfg.tp > 1 and draft_cfg.n_kv_heads % self.cfg.tp:
+            # the draft's cache shards on the target's mesh
+            raise ValueError(
+                f"tp={self.cfg.tp} does not divide the draft model's "
+                f"n_kv_heads={draft_cfg.n_kv_heads}: the draft KV cache "
+                "shards on the same mesh as the target — pick a tp from "
+                "the common divisors of both head counts")
+        # the draft rides the target's layout and mesh: both caches'
+        # writes follow one schedule
         self.draft_cfg = replace(draft_cfg, kv_layout=self.cfg.kv_layout,
-                                 kv_page_size=self.cfg.kv_page_size)
+                                 kv_page_size=self.cfg.kv_page_size,
+                                 tp=self.cfg.tp)
         if draft_params["embed"].device != self.device:
             raise ValueError(
                 f"draft params on {draft_params['embed'].device}, target "
                 f"on {self.device}: both models run on one device")
         self.draft_params = cast_params_for_compute(draft_params,
                                                     self.draft_cfg)
+        if self.mesh is not None:
+            self.draft_params = shard_serving_params(
+                self.draft_params, self.draft_cfg, self.mesh)
         self.draft_attn_plan = attention_backend_plan(
             device=self.device, n_heads=self.draft_cfg.n_heads,
             n_kv_heads=self.draft_cfg.n_kv_heads,
@@ -272,7 +289,7 @@ class SpeculativeBatcher(ContinuousBatcher):
             kv_layout=self.draft_cfg.kv_layout,
             page_size=self.draft_cfg.kv_page_size,
             cache_quant=self.draft_cfg.cache_quant, chunk=self.chunk,
-            window=self.draft_cfg.sliding_window,
+            window=self.draft_cfg.sliding_window, tp=self.draft_cfg.tp,
         )
         for mode, plan in self.draft_attn_plan.items():
             if plan["backend"] == "unsupported":
@@ -305,7 +322,8 @@ class SpeculativeBatcher(ContinuousBatcher):
                 f"draft_kv_pages={draft_kv_pages} has no effect under "
                 "kv_layout='dense'")
         self.draft_state = init_batch_state(self.draft_cfg, n_slots, max_len,
-                                            self.device, n_pages=n_draft_pages)
+                                            self.device, n_pages=n_draft_pages,
+                                            mesh=self.mesh)
         # the draft's prefill finish samples a token nobody reads (its
         # call writes the draft's rows and activates its slot): greedy
         # knobs and a generator of its own, so that it never moves the
@@ -480,6 +498,12 @@ class SpeculativeBatcher(ContinuousBatcher):
         s["draft_reserved_bytes"] = draft["reserved_bytes"]
         s["reserved_bytes"] += draft["reserved_bytes"]
         s["draft"] = draft
+        for shard in s.get("shards", ()):
+            # tp > 1: a shard's reserved bytes mean what the aggregate
+            # means (target and draft), so the shard gauges sum to it
+            per_shard = draft["reserved_bytes"] // self.cfg.tp
+            shard["draft_reserved_bytes"] = per_shard
+            shard["reserved_bytes"] += per_shard
         return s
 
     def spec_stats(self) -> dict:

@@ -229,6 +229,17 @@ def _split(batch: dict, micro: int, what: str) -> list:
             for i in range(micro)]
 
 
+def refuse_tp_training(cfg: LlamaConfig) -> None:
+    """Training runs unsharded on one card: a ``tp`` > 1 config (which
+    serving takes, ``parallel/tp_serving.py``) is refused, never trained
+    as if it were tp=1."""
+    if cfg.tp > 1:
+        raise NotImplementedError(
+            f"tp={cfg.tp}: tensor-parallel training is not ported yet "
+            "(ROADMAP A.13); the port trains with tp=1 on one card "
+            "(tp > 1 is served: parallel/tp_serving.py)")
+
+
 def make_train_step(cfg: LlamaConfig, optimizer: "AdamW | FusedAdamW",
                     with_accuracy: bool = True, grad_accum: int = 1,
                     plain_attention: bool = False) -> Callable:
@@ -240,6 +251,7 @@ def make_train_step(cfg: LlamaConfig, optimizer: "AdamW | FusedAdamW",
     accuracy are means over the microbatches. ``plain_attention`` runs
     ``mha_reference`` on any device: a comparison path, never training's.
     """
+    refuse_tp_training(cfg)
     kw = dict(with_accuracy=with_accuracy, plain_attention=plain_attention)
 
     def step(state: dict, batch: dict):

@@ -53,6 +53,7 @@ from k8s_gpu_device_plugin_torch.models.train import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    refuse_tp_training,
 )
 from k8s_gpu_device_plugin_torch.obs.export import to_chrome_trace
 from k8s_gpu_device_plugin_torch.obs.trace import configure, get_tracer
@@ -121,6 +122,7 @@ class Trainer:
                  params: "dict | None" = None) -> None:
         self.cfg = cfg
         self.log = logger or get_logger()
+        refuse_tp_training(cfg.model)
         self.device = resolve_device(cfg.device)
         if self.device.type == "cuda":
             m = cfg.model

@@ -17,7 +17,11 @@ Port of ``k8s_gpu_device_plugin_tpu/ops/attention.py``:
   verify windows and every prefill chunk alike; dense or paged cache,
   bf16/f32, int8 codes or packed int4 codes) and CPU tensors to its
   plain version. A shape
-  the kernel does not take raises; it never falls back.
+  the kernel does not take raises; it never falls back. Under
+  tensor-parallel serving one call is one shard's: its q heads and its
+  contiguous cache planes (``models/generate.py``'s shard loop is the
+  reference's ``shard_map``), where the reference would fall back to its
+  XLA gather without a mesh; the port's forward raises there instead.
 """
 
 from __future__ import annotations
@@ -123,6 +127,7 @@ def attention_backend_plan(
     cache_quant: str = "none",
     chunk: int = 0,
     window: int = 0,
+    tp: int = 1,
 ) -> dict:
     """{"decode"|"verify"|"prefill": {"backend": "cuda"|"plain"|
     "unsupported", "reason": ...}}: which backend each serving mode
@@ -130,8 +135,13 @@ def attention_backend_plan(
     report ``/v1/health``'s ``decode_attn`` section carries.
     "unsupported" means the wrapper would raise on this geometry (a head
     dim, a GQA group or a page size off the kernel's gate); the batcher
-    refuses such a config at construction."""
+    refuses such a config at construction. Under tensor-parallel serving
+    (``tp`` > 1) each shard's kernel sees ``n_heads / tp`` q heads and
+    ``n_kv_heads / tp`` KV heads (the group is unchanged), and the reason
+    says so."""
     dev = torch.device(device)
+    if tp > 1:
+        n_heads, n_kv_heads = n_heads // tp, n_kv_heads // tp
     route = rpa.route_name(kv_layout == "paged", cache_quant)
 
     def gate(mode: str) -> dict:
@@ -166,4 +176,6 @@ def attention_backend_plan(
     for entry in plan.values():
         entry["window"] = int(window)
         entry["route"] = route
+        if tp > 1 and entry["backend"] != "unsupported":
+            entry["reason"] += f", per shard over the tp={tp} serving mesh"
     return plan

@@ -20,6 +20,10 @@ extraction the batcher hands to :meth:`PrefixCache.on_prefill_done`.
   with LRU eviction. On the dense layout an entry holds its own row copy;
   on the paged one it holds a pool reference on each page it spans
   (``batching.PagedPrefixState``), given back through ``release_entry``.
+  Under tensor-parallel serving (``cfg.tp`` > 1) a dense entry holds one
+  row copy a shard (a ``generate.ShardedKVCache``, each shard its own
+  heads) and a paged one the same page ids, which mean the same page on
+  every shard; entries are bound to the tp they were made under.
 
 ``min_hits=1`` promotes every completed prefill; ``min_hits=N`` waits for
 N sightings of a boundary. An eviction drops the entry from the tree
@@ -57,7 +61,10 @@ def prefix_kv_bytes(cfg: LlamaConfig, p: int) -> int:
     an entry pins whole pool pages, so ``p`` rounds up to the page
     boundary. A per-entry charge: nested entries promoted from one prompt
     share pages and each is charged for every page it pins, so the
-    cache-wide sum bounds the distinct pages it holds from above."""
+    cache-wide sum bounds the distinct pages it holds from above. Under
+    tensor-parallel serving it is the aggregate over the shards (each
+    holds ``1 / tp`` of it), so ``--prefixCacheMB`` keeps meaning the
+    whole cache's bytes."""
     if getattr(cfg, "kv_layout", "dense") == "paged":
         ps = cfg.kv_page_size
         p = -(-p // ps) * ps
@@ -379,5 +386,6 @@ def _device_of(rows) -> torch.device:
     """Where an extracted entry lives: a dense entry's row tensors, or the
     CPU for a tuple of page ids (the batcher moves the presence row to
     its device when it aliases the entry)."""
-    k = getattr(rows, "k", None)
+    shards = getattr(rows, "shards", None)  # tp > 1: shard 0's device
+    k = getattr(shards[0] if shards else rows, "k", None)
     return k.device if isinstance(k, torch.Tensor) else torch.device("cpu")

@@ -68,8 +68,11 @@ Wire contract (the reference's):
   residency (``kv``: layout, reserved bytes, the window and, paged, the
   pool's occupancy, fragmentation, pages recycled out of the window and
   aliased by prefix hits, and the admissions it refused or made to
-  wait), prefill tokens computed and reused, the weights
-  (``weights``: their quantization and resident bytes), the device,
+  wait; under ``--tp`` > 1 also ``tp`` and ``shards``, each shard's
+  bytes and pages), prefill tokens computed and reused, the weights
+  (``weights``: their quantization and resident bytes, and under
+  ``--tp`` > 1 ``shard_bytes``, what the shards hold beyond the whole
+  tree), the device,
   decode-step and prefill counts, how the decode step runs (``decode``:
   the pipeline depth and flushes, and on a card the captured CUDA
   graph's pool bytes, replays and launches a replay makes), the
@@ -189,6 +192,7 @@ import argparse
 import collections
 import concurrent.futures
 import json
+import os
 import queue
 import socket
 import statistics
@@ -258,6 +262,8 @@ from k8s_gpu_device_plugin_torch.obs.trace import (
     parse_traceparent,
 )
 from k8s_gpu_device_plugin_torch.ops.kernel_support import launch_counts
+from k8s_gpu_device_plugin_torch.parallel.mesh import MeshSpec
+from k8s_gpu_device_plugin_torch.parallel.tp_serving import EXACT_CUBLAS_ENV
 from k8s_gpu_device_plugin_torch.serving.embeddings import Embedder
 from k8s_gpu_device_plugin_torch.serving.faults import FaultError, FaultPlane
 from k8s_gpu_device_plugin_torch.serving.prefix_cache import PrefixCache
@@ -310,19 +316,31 @@ class InferenceEngine:
     a recipe, the engine dies and every open stream ends with a
     structured ``engine_dead`` frame. ``batcher`` may be omitted when the
     recipe is given. ``default_deadline_ms`` (0 = none) applies to
-    requests that name no deadline."""
+    requests that name no deadline. ``tp`` (None = the batcher's) is
+    checked against the batcher the recipe builds; with a batcher passed
+    in, a tp > 1 is refused: it belongs to that batcher's constructor."""
 
     def __init__(self, batcher: "ContinuousBatcher | None" = None, *,
                  make_batcher=None,
                  supervisor: "EngineSupervisor | None" = None,
-                 default_deadline_ms: int = 0):
+                 default_deadline_ms: int = 0,
+                 tp: "int | None" = None):
         if batcher is None and make_batcher is None:
             raise ValueError("InferenceEngine needs a batcher or its recipe")
+        if batcher is not None and tp not in (None, 1):
+            raise ValueError(
+                "pass tp to the injected batcher's own constructor; "
+                "silently ignoring it here would serve single-chip "
+                "while reporting a sharded mesh")
         if make_batcher is None and supervisor is not None:
             raise ValueError(
                 "crash recovery needs the batcher's recipe (make_batcher): "
                 "a batcher passed alone cannot be rebuilt")
         self.cb = batcher if batcher is not None else make_batcher()
+        if tp is not None and self.cb.cfg.tp != tp:
+            raise ValueError(
+                f"the batcher recipe built a tp={self.cb.cfg.tp} batcher, "
+                f"not tp={tp}")
         self._make_batcher = make_batcher
         self.supervisor = (None if make_batcher is None else
                            supervisor or EngineSupervisor())
@@ -1685,6 +1703,26 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--prefixCacheOff", action="store_true",
                         help="disable the automatic prefix cache (token "
                         "and logprob streams are the same either way)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel shards: weights (q/k/v/"
+                        "gate/up/lm_head columns) and the KV cache "
+                        "(dense rows or the paged pool, on the KV-head "
+                        "axis) shard over a tp-device mesh — tp times "
+                        "the KV pages/slots per replica; must divide "
+                        "the visible device count and the model's "
+                        "n_kv_heads (validated at startup); token/"
+                        "logprob streams are bit-identical to --tp 1 on "
+                        "a card with both under CUBLAS_WORKSPACE_CONFIG="
+                        ":0:0, which --tp > 1 sets when unset (the CPU's "
+                        "bf16 products keep that only at small widths, "
+                        "not at Llama's)")
+    parser.add_argument("--tpPsum", action="store_true",
+                        help="with --tp > 1: row-shard the wo/w2 "
+                        "contraction axes and sum the shards' partial "
+                        "products — one gather fewer per layer, at the "
+                        "price of the bit-identity pin (the split "
+                        "reduction drifts from --tp 1; explicit "
+                        "opt-out, off by default)")
     parser.add_argument("--kvPages", type=int, default=0,
                         help="physical pages in the paged pool, the "
                         "reserved trap page included; 0 sizes it to the "
@@ -1812,7 +1850,7 @@ def _at_depth_of(cfg: LlamaConfig, checkpoint_dir: str) -> LlamaConfig:
 
 def build_server(args: argparse.Namespace,
                  params: "dict | None" = None,
-                 adapters=None) -> InferenceServer:
+                 adapters=None, tp_devices=None) -> InferenceServer:
     """Parsed CLI flags -> a bound (not yet serving) server: resolves the
     device first (no CUDA and no ``--device cpu`` raises before any
     weights are drawn), then loads weights and starts the engine.
@@ -1822,7 +1860,11 @@ def build_server(args: argparse.Namespace,
     draws once. ``adapters`` (an ``AdapterSet`` or an ``AdapterStore``,
     ``models/lora_serving.py``) serves multi-LoRA: a set becomes one
     store under ``--adapterCacheMB``, and every batcher the supervisor
-    builds serves that store, so its registry survives a restart."""
+    builds serves that store, so its registry survives a restart.
+    ``tp_devices`` names the ``--tp`` mesh's devices, one a shard, and
+    may repeat one (``["cuda:0"] * tp``): torch has no forced device
+    count, so this in-process seam stands in for one; the command line
+    has no such flag and shards over the visible cards."""
     device = resolve_device(args.device)
     if args.kvLayout == "dense" and (args.kvPages or args.kvPageSize != 64):
         # 64 is --kvPageSize's default, the one value that cannot be told
@@ -1889,6 +1931,21 @@ def build_server(args: argparse.Namespace,
                        args.checkpointDir)
     if args.attnWindow:
         cfg = replace(cfg, sliding_window=args.attnWindow)
+    if args.tp != 1:
+        # before the weight load: the shared flag rule checks tp against
+        # the device count and the model's KV-head count
+        n_devices = (len(tp_devices) if tp_devices is not None
+                     else torch.cuda.device_count() if device.type == "cuda"
+                     else 1)
+        MeshSpec.from_flags(tp=args.tp, n_devices=n_devices,
+                            n_kv_heads=cfg.n_kv_heads, exact=True)
+    elif tp_devices is not None:
+        raise ValueError("tp_devices names the devices of a --tp > 1 mesh")
+    if args.tpPsum:
+        if args.tp == 1:
+            raise ValueError("--tpPsum needs --tp > 1: there is no "
+                             "collective to save on one shard")
+        cfg = replace(cfg, tp_allow_psum=True)
     # the server's own registry and families; attribution and the live
     # roofline are on unless --attributionOff (the reference's default),
     # priced at the serving card's peaks (a card missing from the table
@@ -1899,7 +1956,11 @@ def build_server(args: argparse.Namespace,
     if not args.attributionOff:
         attribution = RequestAttributor(slow_ms=args.slowRequestMs,
                                         metrics=metrics)
-        mfu = MfuAccumulator(ServingCostModel.for_config(cfg, device=device),
+        # priced at the cards the mesh spans (repeats count once)
+        cards = (args.tp if tp_devices is None
+                 else len({str(d) for d in tp_devices[:args.tp]}))
+        mfu = MfuAccumulator(ServingCostModel.for_config(cfg, device=device,
+                                                         tp=cards),
                              metrics=metrics)
     # the automatic prefix cache: on wherever it can work (chunked
     # prefill continues a prefill from the matched boundary), over the
@@ -1949,6 +2010,8 @@ def build_server(args: argparse.Namespace,
         scheduler=scheduler, faults=faults, metrics=metrics,
         trace_steps=args.traceSteps and args.tracing,
         attribution=attribution, mfu=mfu)
+    if args.tp > 1:
+        common.update(tp=args.tp, tp_devices=tp_devices)
     if args.draftPreset:
         draft_cfg = _at_depth_of(PRESETS[args.draftPreset](),
                                  args.draftCheckpointDir)
@@ -1978,7 +2041,8 @@ def build_server(args: argparse.Namespace,
 
         engine = InferenceEngine(make_batcher=make_batcher,
                                  supervisor=supervisor,
-                                 default_deadline_ms=args.defaultDeadlineMs)
+                                 default_deadline_ms=args.defaultDeadlineMs,
+                                 tp=args.tp)
     # tracing last: nothing above may fail with the process tracer on
     span_metrics = None
     if args.tracing:
@@ -1993,6 +2057,11 @@ def build_server(args: argparse.Namespace,
 
 def _main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.tp > 1:
+        # before any cuBLAS handle: no workspace, so a column shard's
+        # product keeps the whole product's K order (parallel/tp_serving)
+        for key, value in EXACT_CUBLAS_ENV.items():
+            os.environ.setdefault(key, value)
     try:
         server = build_server(args)
     except (RuntimeError, ValueError) as e:  # no CUDA; a refused config

@@ -104,6 +104,8 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.metrics.exposition\n"
         "import k8s_gpu_device_plugin_torch.metrics.roofline\n"
         "import k8s_gpu_device_plugin_torch.metrics.serving_metrics\n"
+        "import k8s_gpu_device_plugin_torch.parallel.mesh\n"
+        "import k8s_gpu_device_plugin_torch.parallel.tp_serving\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_LOADED!r}]\n"
         "assert not bad, bad\n"

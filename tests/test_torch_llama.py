@@ -92,12 +92,13 @@ def test_project_qkv_matches_reference(per_row):
 
 
 def test_config_refuses_what_the_slice_does_not_serve():
-    # MoE and the int8 training products are served now; tensor
-    # parallelism is not
+    # MoE, the int8 training products and tensor-parallel serving are
+    # served now (training refuses tp > 1: tests/test_torch_train.py)
     assert tllama.LlamaConfig.tiny(n_experts=8).is_moe
     assert tllama.LlamaConfig.tiny(quant="int8").quant == "int8"
-    with pytest.raises(NotImplementedError, match="tp"):
-        tllama.LlamaConfig.tiny(tp=2)
+    assert tllama.LlamaConfig.tiny(tp=2).tp == 2
+    with pytest.raises(ValueError, match="tp must be >= 1"):
+        tllama.LlamaConfig.tiny(tp=0)
     for field, value in (("cache_quant", "fp8"), ("kv_layout", "ragged"),
                          ("kv_page_size", 0), ("quant", "int4")):
         with pytest.raises(ValueError, match=field):

@@ -239,8 +239,12 @@ def test_master_weights_keep_f32_storage(np_params):
 
 
 def test_config_refuses_what_is_not_ported(mesh):
-    for kw, item in ((dict(tp=2), "A.12"),
-                     (dict(attn_impl="ring"), "A.13"),
+    # tp=2 is a serving config now (parallel/tp_serving.py): the config
+    # takes it, training refuses it
+    tp_cfg = tllama.LlamaConfig.tiny(tp=2)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        ttrain.make_train_step(tp_cfg, ttrain.make_optimizer(**OPT))
+    for kw, item in ((dict(attn_impl="ring"), "A.13"),
                      (dict(attn_impl="ulysses"), "A.13"),
                      (dict(n_microbatches=4), "A.13")):
         with pytest.raises(NotImplementedError, match=item):
