@@ -14,7 +14,19 @@ Phases (any failed check exits non-zero without the final line):
    ``cuobjdump -sass`` counts the HGMMA (``wgmma``) instructions of every
    kernel symbol, and every instantiation of the four tensor-core kernels
    (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``,
-   ``flash_bwd_dq_tc_kernel``, ``rpa_tc_kernel``) must have some.
+   ``flash_bwd_dq_tc_kernel``, ``rpa_tc_kernel``) must have some. The
+   device model's C++ enumerator (``native/gpuenum.cc``, g++) builds in
+   the same pool.
+   The device phase, on the quiet card: ``make_backend("native")``
+   against torch's view of each card, matched by UUID (name, NVML's
+   total memory against ``totalGlobalMem`` within 1 GiB, NUMA node, PCI
+   id, generation ``h100`` and its source, ``Healthy``);
+   ``new_chip_map(..., "none")`` advertising exactly the card as
+   ``nvidia.com/gpu`` under its MIG mode as found (read before and after,
+   never switched); the NVML usage reader under an 8 GiB tensor (used
+   memory up by at least that) and K1 decode launches (the duty cycle
+   above zero); ``DeviceMetrics`` rendering the card; an assessor that
+   must not probe a busy card; ``run_idle_probe`` returning True, timed.
 2. ``ragged_paged_attention``'s kernel against its plain version at the
    Llama-3-8B attention shapes (Hq 32, Hkv 8, hd 128, S 2048), each case
    in bf16 and f32, on every route (a dense cache; a paged pool read
@@ -595,6 +607,240 @@ def hgmma_counts(kernel_support, lib) -> dict[str, int]:
         elif symbol is not None and "HGMMA" in line:
             counts[symbol] += 1
     return counts
+
+
+# --- the device phase ----------------------------------------------------------
+
+# the device phase: the usage reader's load (K1 decode at the main path's
+# decode shape, launched for at least DEVICE_LOAD_S and at most
+# DEVICE_LOAD_MAX_S, NVML read every DEVICE_READ_S), the tensor whose
+# bytes NVML must see, and the margin NVML's total may exceed CUDA's
+# totalGlobalMem by (the driver's own reservation: 480 MiB on an H100
+# 80GB HBM3 under driver 580)
+DEVICE_ALLOC_BYTES = 8 << 30
+DEVICE_MEM_MARGIN = 1 << 30
+DEVICE_LOAD_S, DEVICE_LOAD_MAX_S, DEVICE_READ_S = 1.5, 6.0, 0.1
+DEVICE_LOAD_BURST = 64   # K1 launches between two synchronizations
+
+
+def phase_device(torch, rpa, kernel_support) -> dict:
+    """The device model on the quiet card: ``make_backend("native")``
+    (the C++ enumerator built in phase 1, NVML, the CUDA driver's UUIDs
+    where the host hides them) against torch's view of each card, matched
+    by UUID; ``new_chip_map(..., "none")`` advertising exactly these cards
+    as ``nvidia.com/gpu`` under the MIG mode as found (read before and
+    after: nothing here switches it); the NVML usage reader under an
+    8 GiB tensor and K1 decode launches; ``DeviceMetrics`` rendering the
+    card; a health assessor that must not probe a busy card; and
+    ``run_idle_probe`` (a child's CUDA start and one bf16 product),
+    timed. One line a check; any failed check fails the run."""
+    from k8s_gpu_device_plugin_torch.device import new_chip_map
+    from k8s_gpu_device_plugin_torch.device.chip import HEALTHY
+    from k8s_gpu_device_plugin_torch.device.factory import make_backend
+    from k8s_gpu_device_plugin_torch.device.health import (
+        HealthAssessor,
+        run_idle_probe,
+    )
+    from k8s_gpu_device_plugin_torch.device.topology import GENERATIONS
+    from k8s_gpu_device_plugin_torch.metrics.device_metrics import DeviceMetrics
+    from k8s_gpu_device_plugin_torch.metrics.exposition import Registry
+    from k8s_gpu_device_plugin_torch.metrics.runtime_metrics import (
+        NvmlUsageReader,
+    )
+    from k8s_gpu_device_plugin_torch.resource import discover_resources
+
+    t_phase = time.perf_counter()
+    out = {}
+    backend = make_backend("native")
+    nv = backend.nvml
+    topo = backend.host_topology()
+    gpus, specs = backend.gpus(), backend.enumerate_chips()
+    health = backend.check_health()
+    mig_before = [nv.mig_mode(nv.handle_by_index(g.nvml_index))
+                  for g in gpus if g.nvml_index is not None]
+    cards = []
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        uuid = f"GPU-{props.uuid}"
+        mine = [s for s in specs if s.uuid == uuid]
+        if len(mine) != 1:
+            fail(f"device: CUDA device {i} ({uuid}) is not among the "
+                 f"enumerated GPUs {[s.uuid for s in specs]}")
+        spec, gpu = mine[0], gpus[mine[0].index]
+        row = {"phase": "device", "check": "card", "cuda_index": i,
+               "uuid": spec.uuid, "uuid_source": gpu.uuid_source,
+               "path": spec.paths[0], "name": spec.name,
+               "torch_name": props.name,
+               "nvml_total_bytes": spec.hbm_bytes,
+               "cuda_total_global_mem": props.total_memory,
+               "total_memory_carries": "nvml_total",
+               "numa_node": spec.numa_node,
+               "pci_bus_id": spec.pci_bus_id or None,
+               "pci_device_id": hex(spec.pci_device_id)
+               if spec.pci_device_id else None,
+               "generation": topo.generation.name,
+               "generation_source": backend.generation_source,
+               "health": HEALTHY if health.get(spec.index) else "Unhealthy",
+               "mig_mode": nv.mig_mode(nv.handle_by_index(gpu.nvml_index))}
+        emit(row)
+        if spec.name != props.name:
+            fail(f"device: NVML names the card {spec.name!r}, torch "
+                 f"{props.name!r}")
+        if not 0 <= spec.hbm_bytes - props.total_memory <= DEVICE_MEM_MARGIN:
+            fail(f"device: NVML's total {spec.hbm_bytes} and totalGlobalMem "
+                 f"{props.total_memory} differ by more than "
+                 f"{DEVICE_MEM_MARGIN} B")
+        if topo.generation.name != "h100":
+            fail(f"device: generation {topo.generation.name}, want h100")
+        # the PCI device id decides where the host shows one; where it
+        # hides it (no PCI sysfs, NVML's PCI information Not Supported),
+        # the driver's model name, and the source must say so
+        want_source = "pci" if spec.pci_device_id else "name"
+        if backend.generation_source != want_source or (
+                spec.pci_device_id
+                and spec.pci_device_id != GENERATIONS["h100"].pci_device_id):
+            fail(f"device: generation source {backend.generation_source} "
+                 f"with PCI id {row['pci_device_id']}, want {want_source}")
+        if row["health"] != HEALTHY:
+            fail(f"device: the card reads {row['health']}")
+        cards.append(row)
+    out["cards"] = cards
+
+    # the MIG mode as found: whole cards under strategy none
+    resources = discover_resources("none", topo)
+    chip_map = new_chip_map(backend, resources, "none")
+    want_ids = sorted(c["uuid"] for c in cards)
+    advertised = {name: chips.ids() for name, chips in chip_map.items()}
+    row = {"phase": "device", "check": "chip_map", "strategy": "none",
+           "advertised": advertised, "mig_mode_as_found": mig_before}
+    emit(row)
+    if advertised != {"nvidia.com/gpu": want_ids}:
+        fail(f"device: chip map {advertised}, want nvidia.com/gpu: {want_ids}")
+    out["chip_map"] = row
+
+    # the usage reader: 8 GiB seen, then K1 decode launches under reads
+    index = next(s.index for s in specs if s.uuid == cards[0]["uuid"])
+    reader = NvmlUsageReader(nvml=nv, indices=backend.nvml_indices())
+    torch.cuda.synchronize()
+    before = reader.read().get(index)
+    used0 = before.hbm_used_bytes if before is not None else 0
+    x = torch.empty(DEVICE_ALLOC_BYTES, dtype=torch.uint8, device="cuda")
+    x.fill_(1)
+    torch.cuda.synchronize()
+
+    def usage():
+        got = reader.read().get(index)
+        if got is None:
+            fail(f"device: the usage reader does not list GPU {index} while "
+                 "this process holds it")
+        return got
+
+    used1 = usage().hbm_used_bytes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    b, s, hq, hkv, hd = 8, 2048, 32, 8, 128
+    q = torch.randn((b, 1, hq, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, s, hkv, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    base = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+    kernel_support.reset_launch_counts()
+    duty, t0 = [], time.perf_counter()
+    next_read = t0
+    while True:
+        for _ in range(DEVICE_LOAD_BURST):
+            rpa.ragged_paged_attention(q, k, v, base, None, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if now >= next_read:
+            duty.append(usage().duty_cycle_percent)
+            next_read = now + DEVICE_READ_S
+        if now - t0 >= DEVICE_LOAD_MAX_S or (
+                now - t0 >= DEVICE_LOAD_S and max(duty) > 0):
+            break
+    load_s = time.perf_counter() - t0
+    k1 = kernel_support.launch_counts().get(rpa.NAME, 0)
+    usages, status = reader.read_status()
+    if index not in usages:
+        fail(f"device: read_status() does not list GPU {index}")
+    row = {"phase": "device", "check": "usage",
+           "hbm_used_before": used0, "hbm_used_after_alloc": used1,
+           "alloc_bytes": DEVICE_ALLOC_BYTES,
+           "duty_cycle_reads": duty, "load_s": load_s, "k1_launches": k1,
+           "status": status, "nvml_pids": list(usages[index].processes),
+           "this_pid": os.getpid()}
+    emit(row)
+    if used1 - used0 < DEVICE_ALLOC_BYTES:
+        fail(f"device: NVML's used memory rose by {used1 - used0} B under a "
+             f"{DEVICE_ALLOC_BYTES}-byte tensor")
+    if not max(duty) > 0:
+        fail(f"device: duty cycle read {duty} under {k1} K1 launches")
+    if status not in ("data", "silent"):
+        fail(f"device: the reader reads {status!r} while this process "
+             "holds the card")
+    out["usage"] = row
+
+    # the metrics, and an assessor that must not probe a busy card
+    registry = Registry()
+    metrics = DeviceMetrics(reader, registry=registry)
+    metrics.update_inventory(chip_map)
+    metrics.set_generation_source(topo.generation.name,
+                                  backend.generation_source)
+    metrics.update_usage()
+    text = metrics.render()
+    chip = str(index)
+    samples = {
+        "chips_healthy": registry.get_sample_value(
+            "gpu_plugin_chips", {"resource": "nvidia.com/gpu",
+                                 "state": "healthy"}),
+        "hbm_total": registry.get_sample_value(
+            "gpu_plugin_chip_hbm_total_bytes",
+            {"chip": chip, "generation": topo.generation.name}),
+        "hbm_used": registry.get_sample_value(
+            "gpu_plugin_chip_hbm_used_bytes", {"chip": chip}),
+        "duty_cycle": registry.get_sample_value(
+            "gpu_plugin_chip_duty_cycle_percent", {"chip": chip}),
+        "generation_guessed": registry.get_sample_value(
+            "gpu_plugin_generation_guessed",
+            {"generation": topo.generation.name,
+             "source": backend.generation_source})}
+    probed = []
+    verdicts = HealthAssessor(reader=reader, probe=lambda: probed.append(1)
+                              or False).assess(health)
+    row = {"phase": "device", "check": "metrics", "samples": samples,
+           "exposition_bytes": len(text), "assessor": verdicts,
+           "assessor_probed": bool(probed)}
+    emit(row)
+    if samples["chips_healthy"] != len(cards) or samples["hbm_total"] != \
+            cards[0]["nvml_total_bytes"] or not samples["hbm_used"] or \
+            samples["hbm_used"] < DEVICE_ALLOC_BYTES or \
+            samples["duty_cycle"] is None or samples["generation_guessed"] != 0:
+        fail(f"device: the rendered samples {samples}")
+    if probed or set(verdicts.values()) != {HEALTHY}:
+        fail(f"device: the assessor on a busy card gave {verdicts} "
+             f"(probed: {bool(probed)})")
+    del x, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    probe_ok = run_idle_probe()
+    probe_s = time.perf_counter() - t0
+    mig_after = [nv.mig_mode(nv.handle_by_index(g.nvml_index))
+                 for g in gpus if g.nvml_index is not None]
+    row = {"phase": "device", "check": "probe", "ok": probe_ok,
+           "probe_s": probe_s, "mig_mode_after": mig_after,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if not probe_ok:
+        fail("device: run_idle_probe returned False")
+    if mig_after != mig_before:
+        fail(f"device: MIG mode {mig_before} became {mig_after}")
+    out["probe"] = row
+    backend.close()
+    return out
 
 
 # the tensor-core kernels: every instantiation must hold wgmma
@@ -3323,8 +3569,9 @@ OVERLOAD_QUEUE, OVERLOAD_BURST = 2, 24
 
 # phase_arrivals: an open-loop schedule through the server, fifo and slo
 # (48 requests until the checkpoint phases took their time)
-# 32 requests of up to 128 tokens until the tp phase took its time
-ARRIVAL_N, ARRIVAL_PROMPTS, ARRIVAL_MAX_NEW = 16, (64, 512), (32, 96)
+# 32 requests of up to 128 tokens until the tp phase took its time; up
+# to 96 until the device phase took its time
+ARRIVAL_N, ARRIVAL_PROMPTS, ARRIVAL_MAX_NEW = 16, (64, 512), (32, 64)
 ARRIVAL_HI_SHARE, ARRIVAL_DEADLINE_MS, ARRIVAL_LOAD = 0.2, 1500, 1.2
 
 
@@ -5348,7 +5595,8 @@ LORA_N, LORA_RANK, LORA_CACHE_MB = 32, 16, 960
 # lora_mix: LORA_MIX_N requests, LORA_BASE_N on the base model, the rest
 # on adapters drawn Zipf-like (s = LORA_ZIPF_S) over the LORA_N; prompts
 # of LORA_PROMPTS tokens, LORA_MAX_NEW generated (128 until the decode
-# modes' part took their time); at once, then Poisson arrivals at
+# modes' part took their time, 64 until the device phase took its time);
+# at once, then Poisson arrivals at
 # LORA_LOAD times the closed-loop rate (48 requests, 12 on the base,
 # until the checkpoint phases took their time: the 24 still miss, upload
 # and evict past the warm 12)
@@ -5356,7 +5604,7 @@ LORA_MIX_N, LORA_BASE_N, LORA_ZIPF_S = 24, 6, 1.0
 # lora_mix's requests replayed alone: the first LORA_SOLO distinct
 # (adapter or base) first requests, in request order
 LORA_SOLO = 5
-LORA_PROMPTS, LORA_MAX_NEW, LORA_LOAD = (64, 1025), 64, 1.2
+LORA_PROMPTS, LORA_MAX_NEW, LORA_LOAD = (64, 1025), 24, 1.2
 # lora_dense, lora_oracle, lora_compose and lora_surface: LORA_SMALL
 # requests (prompt length, adapter index or -1), LORA_SMALL_NEW tokens
 # each, on the first LORA_FEW adapters
@@ -9343,6 +9591,7 @@ def main() -> None:
         fail("CUDA is not available: this script drives the port on a card")
     sys.path.insert(0, ROOT)
     try:
+        from k8s_gpu_device_plugin_torch.device import native as native_device
         from k8s_gpu_device_plugin_torch.models import batching
         from k8s_gpu_device_plugin_torch.models import checkpoint as ckpt_mod
         from k8s_gpu_device_plugin_torch.models import convert
@@ -9384,15 +9633,20 @@ def main() -> None:
     # the kernels build, joined before the first timed case
     tp_child = start_tp_exact()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, together
         builds = {"ragged_paged_attention": pool.submit(rpa.load_kernel),
                   "flash_attention": pool.submit(fa.load_kernel),
                   "fused_adamw": pool.submit(fo.load_kernel),
-                  "fused_ce": pool.submit(fce.load_kernel)}
+                  "fused_ce": pool.submit(fce.load_kernel),
+                  # the device model's C++ enumerator (g++)
+                  "gpuenum": pool.submit(native_device.load_library)}
         libs = {name: b.result() for name, b in builds.items()}
+    del libs["gpuenum"]
     emit({"phase": 1, "build_s": time.perf_counter() - t0})
     phase_sass(kernel_support, libs)
     tp_exact = join_tp_exact(tp_child)
+    # the device model on the quiet card, before phase 2
+    phase_device(torch, rpa, kernel_support)
 
     cases = phase_kernels(torch, rpa, quant, kernel_support)
     flash = phase_flash(torch, fa, kernel_support)

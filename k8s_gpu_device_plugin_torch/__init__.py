@@ -1,5 +1,7 @@
 """PyTorch/CUDA port of the serving and training stacks, for NVIDIA Hopper
-(sm_90a).
+(sm_90a), and of the device plugin's device model (``device/``,
+``resource/``: NVIDIA GPUs and their MIG instances, enumerated from the
+host's files and NVML).
 
 The JAX package ``k8s_gpu_device_plugin_tpu`` is the reference; this
 package mirrors its subpackage layout and module names so each piece

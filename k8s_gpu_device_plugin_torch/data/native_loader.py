@@ -7,57 +7,31 @@ stays in Python, one recipe, so the two sources give the same batches bit
 for bit, while the gather itself (page faults and the uint16/uint32 ->
 int32 widening of B windows) runs in the C++ worker pool.
 
-The library is built at first use from the port's own source with
-``$CXX`` (default ``g++``): ``-O2 -fPIC -std=c++17 -shared -lpthread``,
-as the reference's ``native/Makefile`` builds it, into ``native/build/``
-(git-ignored) under a name that carries a hash of the source, the
-compiler and the flags, written to a temporary name and renamed into
-place. A compiler that fails raises with its output; only a machine with
-no C++ compiler has no native gather (:func:`native_available` is then
-False and the factory takes the Python source, labelled as such).
+The library is built at first use from the port's own source by
+``utils/native_build.py`` (``$CXX`` or ``g++``, ``-lpthread`` added, into
+the git-ignored ``native/build/``). A compiler that fails raises with its
+output; only a machine with no C++ compiler has no native gather
+(:func:`native_available` is then False and the factory takes the Python
+source, labelled as such).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shlex
-import shutil
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 
 import numpy as np
 
-NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-SOURCE = NATIVE_DIR / "dataload.cc"
-BUILD_DIR = NATIVE_DIR / "build"
-CXX_FLAGS = ("-O2", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared")
+from k8s_gpu_device_plugin_torch.utils import native_build
+
+SOURCE = native_build.NATIVE_DIR / "dataload.cc"
+BUILD_DIR = native_build.BUILD_DIR
 LINK_FLAGS = ("-lpthread",)
+find_cxx = native_build.find_cxx
 
 _DTYPE_CODES = {"uint16": 2, "uint32": 4}
 _lib: "ctypes.CDLL | None" = None
 _lib_lock = threading.Lock()
-
-
-def find_cxx() -> "list[str] | None":
-    """The C++ compiler command: ``$CXX`` (split as a shell word list)
-    or ``g++``, when its executable is on the PATH; None otherwise."""
-    cmd = shlex.split(os.environ.get("CXX") or "g++")
-    if not cmd or shutil.which(cmd[0]) is None:
-        return None
-    return cmd
-
-
-def library_path(cxx: "list[str]") -> Path:
-    """Where the build of the current source with ``cxx`` lands."""
-    h = hashlib.sha256()
-    for part in (*cxx, *CXX_FLAGS, *LINK_FLAGS):
-        h.update(part.encode() + b"\0")
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libdataload_{h.hexdigest()[:16]}.so"
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -85,31 +59,10 @@ def load_library() -> ctypes.CDLL:
     with the compiler's output when the build fails."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        cxx = find_cxx()
-        if cxx is None:
-            raise RuntimeError(
-                "no C++ compiler ($CXX or g++ on the PATH): the native "
-                "gather is built from native/dataload.cc at first use")
-        out = library_path(cxx)
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [*cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE), *LINK_FLAGS],
-                    capture_output=True, text=True, timeout=300)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"{cxx[0]} failed building the native gather (exit "
-                        f"{proc.returncode}):\n{proc.stderr[-4000:]}")
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        _lib = _bind(ctypes.CDLL(str(out)))
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(native_build.build_library(
+                "dataload", SOURCE, "the native gather", LINK_FLAGS,
+                build_dir=BUILD_DIR))))
         return _lib
 
 

@@ -37,6 +37,7 @@ from dataclasses import dataclass
 
 import torch
 
+from k8s_gpu_device_plugin_torch.device.topology import GENERATIONS
 from k8s_gpu_device_plugin_torch.models.paging import kv_token_bytes
 
 
@@ -48,10 +49,14 @@ class Card:
     hbm_gbps: float
 
 
-#: ``torch.cuda.get_device_name()`` -> peaks. The H100 SXM part's data
-#: sheet: 989.4 TFLOP/s dense bf16, 3352 GB/s of HBM3 (at 700 W).
+#: ``torch.cuda.get_device_name()`` -> peaks, read from the device
+#: model's generation table (``device/topology.py`` ``GENERATIONS``: the
+#: H100 SXM part's data sheet, 989.4 TFLOP/s dense bf16 and 3352 GB/s of
+#: HBM3 at 700 W), so the two never disagree.
 CARDS = {
-    "NVIDIA H100 80GB HBM3": Card(peak_bf16_tflops=989.4, hbm_gbps=3352.0),
+    g.device_name: Card(peak_bf16_tflops=g.peak_bf16_tflops,
+                        hbm_gbps=g.hbm_bandwidth_gbps)
+    for g in GENERATIONS.values()
 }
 #: the entry a server on the CPU is priced at
 OFF_DEVICE_CARD = "NVIDIA H100 80GB HBM3"
@@ -70,8 +75,8 @@ def card_for(device) -> tuple[str, Card]:
     if card is None:
         raise ValueError(
             f"no roofline peaks for the card {name!r}: add its spec-sheet "
-            f"dense bf16 TFLOP/s and memory GB/s to metrics/roofline.py "
-            f"CARDS (known: {sorted(CARDS)})")
+            f"dense bf16 TFLOP/s and memory GB/s to device/topology.py "
+            f"GENERATIONS (known: {sorted(CARDS)})")
     return name, card
 
 

@@ -17,7 +17,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_gpu_device_plugin_torch"
 FORBIDDEN = ("jax", "jaxlib", "orbax", "k8s_gpu_device_plugin_tpu",
-             "prometheus_client", "aiohttp")
+             "prometheus_client", "aiohttp", "grpc")
 #: not loaded by importing the port either: the HF conversion reads a
 #: config by attribute (only an HF tokenizer directory, which the server's
 #: ``--tokenizer`` may name, imports it, inside that call)
@@ -106,8 +106,59 @@ def test_importing_the_port_loads_no_jax():
         "import k8s_gpu_device_plugin_torch.metrics.serving_metrics\n"
         "import k8s_gpu_device_plugin_torch.parallel.mesh\n"
         "import k8s_gpu_device_plugin_torch.parallel.tp_serving\n"
+        + "".join(f"import {m}\n" for m in DEVICE_MODULES) +
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_LOADED!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+#: the device model and its metrics (the kubelet plugin's layer)
+DEVICE_MODULES = (
+    "k8s_gpu_device_plugin_torch.device",
+    "k8s_gpu_device_plugin_torch.device.backend",
+    "k8s_gpu_device_plugin_torch.device.chip",
+    "k8s_gpu_device_plugin_torch.device.chip_map",
+    "k8s_gpu_device_plugin_torch.device.factory",
+    "k8s_gpu_device_plugin_torch.device.fake",
+    "k8s_gpu_device_plugin_torch.device.health",
+    "k8s_gpu_device_plugin_torch.device.native",
+    "k8s_gpu_device_plugin_torch.device.nvml",
+    "k8s_gpu_device_plugin_torch.device.select",
+    "k8s_gpu_device_plugin_torch.device.slices",
+    "k8s_gpu_device_plugin_torch.device.testing",
+    "k8s_gpu_device_plugin_torch.device.topology",
+    "k8s_gpu_device_plugin_torch.resource",
+    "k8s_gpu_device_plugin_torch.resource.naming",
+    "k8s_gpu_device_plugin_torch.resource.resources",
+    "k8s_gpu_device_plugin_torch.metrics.device_metrics",
+    "k8s_gpu_device_plugin_torch.metrics.runtime_metrics",
+    "k8s_gpu_device_plugin_torch.utils.native_build",
+    "k8s_gpu_device_plugin_torch.utils.version",
+)
+
+
+def test_device_modules_import_without_grpc_protobuf_or_prometheus_client():
+    """The card's machine has no grpcio, protobuf or prometheus_client:
+    the device model imports with all three blocked, and the device
+    model alone (``device``, ``resource``, the device metrics) loads no
+    torch."""
+    blocked = ("grpc", "google", "google.protobuf", "prometheus_client")
+    code = (
+        "import sys\n"
+        + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked)
+        + "".join(f"import {m}\n" for m in DEVICE_MODULES
+                  if not m.endswith(".select"))
+        + "assert 'torch' not in sys.modules, 'torch loaded'\n"
+        "from k8s_gpu_device_plugin_torch.device import resolve_device\n"
+        "assert resolve_device('cpu').type == 'cpu'\n"
+        f"assert all(sys.modules[m] is None for m in {blocked!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_LOADED!r} and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
